@@ -1,0 +1,1 @@
+"""Operator library of the port (counterpart of ``mxnet_tpu/ops``)."""
