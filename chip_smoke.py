@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA
-card: Llama-3-8B inference through the hand-written flash-attention
-kernel.
+card: Llama-3-8B inference and training through the hand-written
+flash-attention kernels (forward, dQ, dK/dV).
 
     python3 chip_smoke.py
 
@@ -9,20 +9,32 @@ Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit.  Phases, each printed as a JSON line:
 
 1. card: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc;
-2. build: ``csrc/flash_attention_fwd.cu`` with nvcc for sm_90a;
-3. kernel: the kernel against its plain PyTorch version at five shapes,
-   with its time, the plain version's, torch SDPA's (a yardstick only,
-   where Tq = Tk) and the card's bound;
-4. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
+2. build: every source in ``csrc/`` with nvcc for sm_90a, all at once;
+3. kernel: the forward kernel against its plain PyTorch version at five
+   shapes, with its time, the plain version's, torch SDPA's (a yardstick
+   only, where Tq = Tk) and the card's bound;
+4. backward kernels: ``flash_attention_bwd`` (dQ and dK/dV) against the
+   plain backward at six shapes, each gradient held row by row and by
+   its relative norm, with each kernel's time, delta's, the plain
+   version's, torch SDPA's backward (where Tq = Tk) and the bound;
+5. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
    the kernel against the KV-cache decoder's dense prefill;
-5. the slice: ``llama3_8b`` at full width and depth in bf16, weights drawn
-   on the card from a seed: one prompt forward (T=2048) and three greedy
-   ``generate`` requests, with the kernel's launch count over this phase.
+6. f32 training check: the same net, one loss and backward through the
+   kernels (``attn_mode="flash"``) against dense torch autograd
+   (``"sdpa"``): the loss and every parameter's gradient;
+7. the inference slice: ``llama3_8b`` at full width and depth in bf16,
+   weights drawn on the card from a seed: one prompt forward (T=2048) and
+   three greedy ``generate`` requests;
+8. the training slice: ``llama3_8b`` at full width and 16 layers in bf16,
+   B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one warm-up
+   step and three timed steps on one batch.
 
-It exits non-zero on any failed check, and with no result line when there
-is no CUDA card or the package is not beside it.  Its last line is
-``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each slice (7 and 8) and
+read just after.  It exits non-zero on any failed check, and with no
+result line when there is no CUDA card or the package is not beside it.
+Its last line is ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import subprocess
@@ -45,6 +57,32 @@ KERNEL_SHAPES = [
 # output is rounded to 8 mantissa bits; lse is f32 in both
 O_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 LSE_TOL = 1e-3
+# (name, B, H, Tq, Tk, D, causal, dtype); the first is the training
+# slice's shape
+BWD_SHAPES = [
+    ("slice", 1, 32, 2048, 2048, 128, True, "bfloat16"),
+    ("ragged", 2, 32, 1000, 1000, 128, True, "bfloat16"),
+    ("noncausal_f32", 2, 4, 256, 256, 64, False, "float32"),
+    ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
+    ("masked_rows", 1, 2, 6, 4, 32, True, "float32"),
+    ("d16", 2, 4, 128, 128, 16, True, "float32"),
+]
+# Each gradient is held row by row (a row: one query's dq, one key's dk
+# or dv): the row's largest error within ROW_TOL of the row's largest
+# reference value, so that the small late rows of a causal gradient are
+# held as tightly as the large early ones; and the whole tensor by
+# ||g - r|| / ||r|| <= NORM_TOL.  f32: another summation order; bf16:
+# the kernels' f32 results are rounded to 8 mantissa bits, at most 2^-8
+# (3.9e-3) of each value
+ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# f32 training check: every gradient within this share of the largest
+# gradient of the same tensor; both routes are f32 (no TF32), the
+# attention sums run in other orders and the difference propagates
+# through two layers and the LM head
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LAYERS = 16
+TRAIN_LR = 0.1
 REQUESTS = [(1, 100), (4, 512), (1, 1500)]  # (batch, prompt length)
 NEW_TOKENS = 32
 
@@ -59,6 +97,14 @@ def run(cmd):
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e})"
     return (out.stdout or out.stderr).strip()
+
+
+def free_card(torch):
+    """Release the card memory of the nets an earlier phase dropped: a
+    Gluon net holds reference cycles (blocks, decoders), which only the
+    cycle collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(torch, fn, iters):
@@ -76,20 +122,39 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(b, h, tq, tk, d, causal, dtype, itemsize):
-    """Least time for this work on the card: the larger of the bytes
-    (q, k, v read once, O and lse written once) over the memory rate and
-    the operations these inputs need (2 products of 2·D flops per visible
-    (query, key) pair) over the peak rate of their type."""
+def visible_pairs(tq, tk, causal):
+    """(query, key) pairs the mask keeps (bottom-right causal)."""
     if causal:
-        pairs = sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
-    else:
-        pairs = tq * tk
-    flops = 4.0 * d * pairs * b * h
-    nbytes = itemsize * b * h * d * (2 * tq + 2 * tk) + 4 * b * h * tq
+        return sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
+    return tq * tk
+
+
+def roofline_ms(flops, nbytes, dtype):
+    """The larger of the operations over the dtype's peak and the bytes
+    over the memory rate, in ms, and which of the two it is."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_ms(b, h, tq, tk, d, causal, dtype, itemsize):
+    """Least time for the forward on the card: q, k, v read once, O and
+    lse written once; 2 products of 2·D flops per visible pair."""
+    flops = 4.0 * d * visible_pairs(tq, tk, causal) * b * h
+    nbytes = itemsize * b * h * d * (2 * tq + 2 * tk) + 4 * b * h * tq
+    return roofline_ms(flops, nbytes, dtype)
+
+
+def bwd_bound_ms(b, h, tq, tk, d, causal, dtype, itemsize, products,
+                 reads_o, writes):
+    """Least time for (part of) the backward: q, k, v, dO (and O, for δ)
+    read once, lse and δ read once, ``writes`` rows of D values written
+    once; ``products`` products of 2·D flops per visible pair."""
+    flops = 2.0 * d * products * visible_pairs(tq, tk, causal) * b * h
+    rows_read = 2 * tq + 2 * tk + (tq if reads_o else 0)
+    nbytes = itemsize * b * h * d * (rows_read + writes) + \
+        8 * b * h * tq
+    return roofline_ms(flops, nbytes, dtype)
 
 
 def kernel_phase(torch, fa, failures):
@@ -144,6 +209,235 @@ def kernel_phase(torch, fa, failures):
     return rows
 
 
+def grad_errors(torch, g, r):
+    """(max abs error, worst row share, relative norm) of a gradient ``g``
+    against its f32 reference ``r``; a row's share is its largest error
+    over its largest reference value (a zero row must match exactly)."""
+    diff = (g.float() - r).abs()
+    row_err, row_ref = diff.amax(-1), r.abs().amax(-1)
+    share = torch.where(row_ref > 0, row_err / row_ref.clamp_min(1e-30),
+                        torch.where(row_err > 0, math.inf, 0.0))
+    norm = (torch.linalg.vector_norm(g.float() - r) /
+            torch.linalg.vector_norm(r).clamp_min(1e-30))
+    return diff.max().item(), share.max().item(), norm.item()
+
+
+def backward_phase(torch, fa, failures):
+    """Phase 4: ``flash_attention_bwd`` (δ, then the dQ and dK/dV kernels)
+    against the plain backward at each shape (the plain version on f32
+    copies of the same inputs and the kernel forward's O and lse); then
+    each kernel and δ timed alone."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    rows = []
+    for name, b, h, tq, tk, d, causal, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+
+        def rnd(t):
+            return torch.randn(b, h, t, d, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal, scale)
+        torch.cuda.synchronize()
+        ref = fa._fa_backward_plain(q.float(), k.float(), v.float(),
+                                    o.float(), do.float(), lse, causal,
+                                    scale)
+        row = dict(phase="backward_kernels", shape=name, B=b, H=h, Tq=tq,
+                   Tk=tk, D=d, causal=causal, dtype=dt,
+                   row_tol=ROW_TOL[dt], norm_tol=NORM_TOL[dt])
+        ok = True
+        for key, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err, share, norm = grad_errors(torch, g, r)
+            row[f"max_abs_err_{key}"] = err
+            row[f"row_share_{key}"], row[f"rel_norm_{key}"] = share, norm
+            ok = ok and share <= ROW_TOL[dt] and norm <= NORM_TOL[dt] and \
+                bool(torch.isfinite(g).all())
+        masked = tq - tk if causal and tq > tk else 0
+        if masked:  # rows that see no key: dq exactly 0
+            row["masked_rows_dq_zero"] = bool(
+                (got[0][:, :, :masked] == 0).all())
+            ok = ok and row["masked_rows_dq_zero"]
+        delta = fa._delta(o, do)
+        iters = 10 if tq * tk * b * h > 1e7 else 50
+        row["delta_ms"] = time_ms(torch, lambda: fa._delta(o, do), iters)
+        row["dq_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal, scale), iters)
+        row["dkv_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal, scale), iters)
+        row["plain_ms"] = time_ms(torch, lambda: fa._fa_backward_plain(
+            q, k, v, o, do, lse, causal, scale), max(iters // 4, 3))
+        row["library_ms"] = None
+        if tq == tk:  # torch SDPA's is_causal is top-left: equal here only
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+
+            def lib_fwd():
+                return sdpa(qr, kr, vr, is_causal=causal, scale=scale)
+
+            row["library_ms"] = time_ms(
+                torch, lambda: torch.autograd.grad(lib_fwd(), (qr, kr, vr),
+                                                   do), iters) - \
+                time_ms(torch, lib_fwd, iters)
+        shape = (b, h, tq, tk, d, causal, dt, q.element_size())
+        row["bound_ms"], row["bound_by"] = bwd_bound_ms(
+            *shape, products=5, reads_o=True, writes=tq + 2 * tk)
+        row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
+            *shape, products=3, reads_o=False, writes=tq)
+        row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
+            *shape, products=4, reads_o=False, writes=2 * tk)
+        row["ok"] = ok
+        emit(row)
+        rows.append(row)
+        if not ok:
+            failures.append(f"backward kernels {name}: {row}")
+    return rows
+
+
+def _lm_forward(mx, net, ids, labels):
+    """Recorded forward and token cross entropy (summed, / tokens)."""
+    vocab = net.config.vocab_size
+    with mx.autograd.record():
+        return mx.nd.softmax_cross_entropy(
+            net(ids).reshape((-1, vocab)), labels.reshape((-1,))) / \
+            labels.size
+
+
+def _lm_loss(mx, net, ids, labels):
+    """Forward, loss and backward; returns the loss as a float."""
+    loss = _lm_forward(mx, net, ids, labels)
+    loss.backward()
+    return float(loss.asscalar())
+
+
+def _counters(fa):
+    return (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+            fa.flash_attention_bwd_dkv)
+
+
+def _ids_labels(torch, mx, vocab, t, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, vocab, (1, t + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return mx.nd.array(tokens[:, :-1]), mx.nd.array(tokens[:, 1:])
+
+
+def f32_train_phase(torch, mx, llama, fa, failures):
+    """Phase 6: full width, 2 layers, f32, T=1024: one loss and backward
+    through the kernels (flash) and through dense torch autograd (sdpa),
+    same weights and batch; the loss and every gradient compared."""
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=2)
+    net.initialize(ctx=mx.gpu(0))
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 1024,
+                              SEED + 4)
+    params = net._collect_params_with_prefix()
+    before = [c.launches for c in _counters(fa)]
+    loss_flash = _lm_loss(mx, net, ids, labels)
+    launched = [c.launches - n for c, n in zip(_counters(fa), before)]
+    grads = {k: p.grad()._data.clone() for k, p in params.items()}
+    net.config.attn_mode = "sdpa"
+    loss_sdpa = _lm_loss(mx, net, ids, labels)
+    worst, worst_name = 0.0, None
+    for k, p in params.items():
+        ref = p.grad()._data
+        share = ((grads[k] - ref).abs().max() /
+                 ref.abs().max().clamp_min(1e-30)).item()
+        if not share <= worst:
+            worst, worst_name = share, k
+    ok = launched == [2, 2, 2] and math.isfinite(loss_flash) and \
+        abs(loss_flash - loss_sdpa) <= 1e-5 * abs(loss_sdpa) and \
+        worst <= TRAIN_GRAD_TOL
+    emit(dict(phase="f32_train_check", layers=2, T=1024,
+              launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+              loss_flash=loss_flash, loss_sdpa=loss_sdpa,
+              params=len(params), worst_grad_err_share=worst,
+              worst_param=worst_name, tol=TRAIN_GRAD_TOL, ok=ok))
+    if not ok:
+        failures.append(f"f32 training check: launches {launched}, loss "
+                        f"{loss_flash} vs {loss_sdpa}, worst gradient "
+                        f"{worst} ({worst_name})")
+    del net, grads, params
+    free_card(torch)
+
+
+def train_phase(torch, mx, llama, fa, failures):
+    """Phase 8: llama3_8b at full width, 16 layers, bf16, B=1, T=2048,
+    SGD with momentum — the training main path."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    torch.cuda.synchronize()
+    emit(dict(phase="train_init", seconds=time.perf_counter() - t,
+              layers=TRAIN_LAYERS, params=sum(
+                  p.data().size for p in net.collect_params().values()),
+              memory_allocated=torch.cuda.memory_allocated()))
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                              SEED + 5)
+    for c in _counters(fa):
+        c.launches = 0  # the main path starts here
+    losses, step_ms, peaks = [], [], []
+
+    def phase_end(stamps, phase_peaks):
+        """Wait for the card; note the clock and the phase's peak of
+        allocated memory, and start the next phase's peak."""
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        phase_peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    for step in range(4):  # one warm-up, then three timed steps
+        before = [c.launches for c in _counters(fa)]
+        stamps, step_peaks = [], []
+        phase_end(stamps, [])
+        loss_nd = _lm_forward(mx, net, ids, labels)
+        phase_end(stamps, step_peaks)
+        loss_nd.backward()
+        phase_end(stamps, step_peaks)
+        trainer.step(1)
+        phase_end(stamps, step_peaks)
+        peaks.extend(step_peaks)
+        loss = float(loss_nd.asscalar())
+        fwd_ms, bwd_ms, update_ms = ((b - a) * 1e3 for a, b in
+                                     zip(stamps, stamps[1:]))
+        ms = (stamps[-1] - stamps[0]) * 1e3
+        launched = [c.launches - n for c, n in zip(_counters(fa), before)]
+        losses.append(loss)
+        if step:
+            step_ms.append(ms)
+        ok = math.isfinite(loss) and launched == [TRAIN_LAYERS] * 3
+        emit(dict(phase="train_step", step=step, warmup=step == 0,
+                  loss=loss, ms=ms, tokens_per_s=2048 / ms * 1e3,
+                  forward_ms=fwd_ms, backward_ms=bwd_ms,
+                  update_ms=update_ms,
+                  launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  max_memory_allocated=dict(zip(
+                      ("forward", "backward", "update"), step_peaks)),
+                  ok=ok))
+        if not ok:
+            failures.append(f"train step {step}: loss {loss}, launches "
+                            f"{launched}")
+    launches = [c.launches for c in _counters(fa)]  # the main path ends
+    emit(dict(phase="train_memory", max_memory_allocated=max(peaks)))
+    if not losses[-1] < losses[0]:
+        failures.append(f"training loss did not fall: {losses}")
+    if min(launches) == 0:
+        failures.append(f"the training path left a kernel unlaunched: "
+                        f"{launches}")
+    emit(dict(phase="train_summary", losses=losses, step_ms=step_ms,
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              ok=losses[-1] < losses[0]))
+    return launches
+
+
 def f32_phase(torch, mx, llama, fa, failures):
     """Phase 4: full width, 2 layers, f32: the flash forward against the
     decoder's dense prefill on the same ids."""
@@ -170,7 +464,7 @@ def f32_phase(torch, mx, llama, fa, failures):
         failures.append(f"f32 check: launches {launched}, err {err} vs "
                         f"{1e-3 * scale}")
     del net, dec, logits, ref
-    torch.cuda.empty_cache()
+    free_card(torch)
 
 
 def slice_phase(torch, mx, llama, fa, failures):
@@ -282,25 +576,43 @@ def main():
     t = time.perf_counter()
     logs = _kernels.build(verbose=True)
     build_s = time.perf_counter() - t
-    _kernels.load("flash_attention_fwd")
+    for name in _kernels.SOURCES:
+        _kernels.load(name)
     emit(dict(phase="build", seconds=build_s, built=sorted(logs),
               ptxas=[ln.strip() for log in logs.values()
                      for ln in log.splitlines() if "registers" in ln]))
 
     failures = []
     rows = kernel_phase(torch, fa, failures)
+    brows = backward_phase(torch, fa, failures)
     f32_phase(torch, mx, llama, fa, failures)
-    launches = slice_phase(torch, mx, llama, fa, failures)
+    f32_train_phase(torch, mx, llama, fa, failures)
+    infer_launches = slice_phase(torch, mx, llama, fa, failures)
+    train_launches = train_phase(torch, mx, llama, fa, failures)
 
-    s = rows[0]
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/ops/flash_attention.py:132",
-        "launches": launches, "max_abs_err": s["max_abs_err_o"],
-        "ms": s["kernel_ms"], "plain_ms": s["plain_ms"],
-        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-        "library_ms": s["library_ms"]}]})
+    s, bs = rows[0], brows[0]
+    src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
+    replaces = "mxnet_tpu/ops/flash_attention.py:{}"
+    emit({"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": src.format("fwd"), "replaces": replaces.format(132),
+         "launches": infer_launches + train_launches[0],
+         "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
+         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+         "bound_by": s["bound_by"], "library_ms": s["library_ms"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": src.format("bwd"), "replaces": replaces.format(259),
+         "launches": train_launches[1],
+         "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
+         "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
+         "bound_by": bs["dq_bound_by"], "library_ms": bs["library_ms"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": src.format("bwd"), "replaces": replaces.format(302),
+         "launches": train_launches[2],
+         "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
+         "ms": bs["dkv_ms"], "plain_ms": bs["plain_ms"],
+         "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
+         "library_ms": bs["library_ms"]}]})
     if failures:
         for f in failures:
             print("FAILED: " + f, file=sys.stderr)

@@ -16,7 +16,16 @@ context; only an explicit ``mx.cpu()`` runs on the host.
     logits = net(mx.nd.array(ids, dtype="int32"))
     out = net.generate(mx.nd.array(ids, dtype="int32"), max_new_tokens=32)
 
-This slice ports Llama inference (ROADMAP Queue 1 lists what follows).
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 1e-3, "momentum": 0.9})
+    with mx.autograd.record():
+        loss = mx.nd.softmax_cross_entropy(
+            net(ids).reshape((-1, vocab)), labels.reshape((-1,))) / ntok
+    loss.backward()
+    trainer.step(1)
+
+Slices so far: Llama inference and Llama training (ROADMAP Queue 1
+lists what follows).
 """
 
 __version__ = "0.1.0"
@@ -32,6 +41,10 @@ from . import random
 from . import name
 from . import initializer
 from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import kvstore
+from . import kvstore as kv
 from . import gluon
 from . import models
 from . import convert

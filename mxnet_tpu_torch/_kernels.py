@@ -21,7 +21,17 @@ from .base import MXNetError
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "build"
 #: library name -> source, relative to this package
-SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu"}
+SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu",
+           "flash_attention_bwd": "csrc/flash_attention_bwd.cu"}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_TAIL = [_INT] * 6 + [ctypes.c_float, _PTR]  # bh .. causal, scale, stream
+#: library name -> {C entry point: argtypes}; each returns a cudaError_t
+SYMBOLS = {
+    "flash_attention_fwd": {"mxt_flash_attention_fwd": [_PTR] * 5 + _TAIL},
+    "flash_attention_bwd": {"mxt_flash_attention_bwd_dq": [_PTR] * 7 + _TAIL,
+                            "mxt_flash_attention_bwd_dkv":
+                                [_PTR] * 8 + _TAIL},
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -85,11 +95,11 @@ def build(names=None, verbose=False) -> dict:
     return logs
 
 
-def _declare(lib):
-    fn = lib.mxt_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _declare(name, lib):
+    for symbol, argtypes in SYMBOLS[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.mxt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mxt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -102,7 +112,7 @@ def load(name: str):
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
-            _declare(lib)
+            _declare(name, lib)
             _LIBS[name] = lib
         return lib
 

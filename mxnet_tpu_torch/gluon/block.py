@@ -5,17 +5,16 @@ Counterpart of ``mxnet_tpu/gluon/block.py`` (reference
 collection by prefix and by structure, ``initialize`` and ``cast``.
 
 ``hybridize()`` is accepted and the block runs eagerly: a compiled graph
-per input signature (a CUDA graph here) is later work (ROADMAP Queue 1).
-A forward runs with torch's gradient mode set to
-``autograd.is_recording()``, so inference builds no autograd graph.
+per input signature (a CUDA graph here) is later work (ROADMAP Queue 1);
+``hybridize(remat=...)`` raises until rematerialization ports.  A forward
+runs with torch's gradient mode set to ``autograd.is_recording()``, so
+inference builds no autograd graph.
 """
 from __future__ import annotations
 
 import re
 import threading
 from collections import OrderedDict
-
-import torch
 
 from ..base import MXNetError
 from .. import autograd as ag
@@ -164,10 +163,15 @@ class Block:
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for the reference API; the block runs eagerly (a
-        compiled graph per signature is later work, ROADMAP Queue 1)."""
+        compiled graph per signature is later work, ROADMAP Queue 1).
+        ``remat`` raises: activation rematerialization is not ported."""
+        if kwargs.get("remat"):
+            raise MXNetError(
+                "hybridize(remat=...) (activation rematerialization) is not "
+                "ported yet (ROADMAP.md, Queue 1, \"Left out of slice 2\")")
 
     def __call__(self, *args):
-        with torch.set_grad_enabled(ag.is_recording()):
+        with ag.grad_mode():
             return self.forward(*args)
 
     def forward(self, *args):

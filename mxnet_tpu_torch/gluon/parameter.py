@@ -3,10 +3,12 @@
 Counterpart of ``mxnet_tpu/gluon/parameter.py`` (reference
 ``python/mxnet/gluon/parameter.py``).  A Parameter owns one NDArray whose
 tensor is a ``torch.nn.Parameter`` on the first context it was
-initialized on (``requires_grad`` follows ``grad_req``).  Deferred
-initialization (shape resolved at the first forward) is kept.  Gradient
-buffers, ``.params`` save/load and multi-device copies port with later
-slices (ROADMAP Queue 1).
+initialized on; unless ``grad_req`` is ``"null"`` that NDArray is an
+autograd variable whose gradient buffer has the parameter's dtype and
+device (allocated by the first backward or read).  Deferred
+initialization (shape resolved at the first forward) is kept.  ``.params``
+save/load and multi-device copies port with later slices (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -33,9 +35,12 @@ class Parameter:
     """A trainable parameter (reference ``gluon.Parameter``)."""
 
     def __init__(self, name, grad_req="write", shape=None,
-                 dtype=torch.float32, init=None, allow_deferred_init=False):
+                 dtype=torch.float32, lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False):
         self.name = name
         self._grad_req = grad_req
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         if isinstance(shape, int):
             shape = (shape,)
         self.shape = tuple(shape) if shape is not None else None
@@ -43,7 +48,21 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._data = None          # NDArray over a torch.nn.Parameter
+        self._ctx_list = None
         self._deferred_init = None  # (init, ctx_list) pending shape
+
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"invalid grad_req {req!r}")
+        if self._grad_req != req:
+            self._grad_req = req
+            if self._data is not None:
+                self._data.attach_grad(req)
 
     # -- initialization ------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -58,6 +77,7 @@ class Parameter:
             ctx = [current_context()]
         elif isinstance(ctx, Context):
             ctx = [ctx]
+        self._ctx_list = list(ctx)
         chosen = init if init is not None else (self.init or default_init)
         chosen = init_mod.create(chosen)
         if not _shape_known(self.shape):
@@ -76,6 +96,8 @@ class Parameter:
             tensor, requires_grad=self._grad_req != "null"))
         initializer(self.name, self._data)
         self._deferred_init = None
+        if self._grad_req != "null":
+            self._data.attach_grad(self._grad_req)
 
     def _finish_deferred_init(self, shape):
         """Complete a deferred init once the shape is known."""
@@ -121,15 +143,39 @@ class Parameter:
         self._check_initialized()
         return self._data
 
+    def grad(self, ctx=None):
+        """The gradient buffer (reference ``Parameter.grad``)."""
+        self._check_initialized()
+        if self._grad_req == "null":
+            raise MXNetError(f"cannot get gradient of {self.name!r}: "
+                             "grad_req is 'null'")
+        return self._data.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def list_ctx(self):
+        if self._data is None and self._deferred_init is not None:
+            return list(self._deferred_init[1])
+        self._check_initialized()
+        return list(self._ctx_list or [current_context()])
+
+    def zero_grad(self):
+        if self._data is not None:
+            self._data.zero_grad()
+
     def cast(self, dtype):
         """Change the dtype; an initialized value is converted (the old
-        tensor is released, so a model can be cast in place)."""
+        tensor is released, so a model can be cast in place) and its
+        gradient buffer starts again as zeros of the new dtype."""
         self.dtype = resolve_dtype(dtype)
         if self._data is not None:
             old = self._data._data
             self._data._data = torch.nn.Parameter(
                 old.detach().to(self.dtype),
                 requires_grad=old.requires_grad)
+            if self._grad_req != "null":
+                self._data.attach_grad(self._grad_req)
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
@@ -196,3 +242,7 @@ class ParameterDict:
         for p in self._params.values():
             p.initialize(None, ctx, default_init=init,
                          force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()

@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (reference
 ``python/mxnet/initializer.py``): the registry, the name-pattern dispatch
 (weight→init, bias→zero, gamma→one, ...) and Zero/One/Constant/Uniform/
-Normal.
+Normal/Xavier.
 
 Values are drawn in place, on the parameter's device and in its dtype,
 from that device's generator (``random.generator``): drawing an 8B-value
@@ -11,6 +11,8 @@ model in host numpy and copying it over would take minutes and tens of
 GB of host memory.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -122,3 +124,35 @@ class Normal(Initializer):
 
     def _init_weight(self, name, arr):
         arr._data.normal_(0.0, self.sigma, generator=self._generator(arr))
+
+
+@register
+class Xavier(Initializer):
+    """Glorot init (reference ``mx.init.Xavier``): U(-s, s) or N(0, s) with
+    s = sqrt(magnitude / factor), factor the average of fan-in and
+    fan-out (or either alone)."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        if rnd_type not in ("uniform", "gaussian"):
+            raise MXNetError(f"bad rnd_type {rnd_type!r}")
+        if factor_type not in ("avg", "in", "out"):
+            raise MXNetError(f"bad factor_type {factor_type!r}")
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        if len(shape) < 2:
+            fan_in = fan_out = float(shape[0]) if shape else 1.0
+        else:
+            hw_scale = float(math.prod(shape[2:]))
+            fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}[self.factor_type]
+        scale = math.sqrt(self.magnitude / max(factor, 1.0))
+        if self.rnd_type == "uniform":
+            arr._data.uniform_(-scale, scale,
+                               generator=self._generator(arr))
+        else:
+            arr._data.normal_(0.0, scale, generator=self._generator(arr))

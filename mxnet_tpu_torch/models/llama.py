@@ -1,11 +1,14 @@
-"""Llama model family: inference.
+"""Llama model family: inference and training.
 
 Counterpart of ``mxnet_tpu/models/llama.py``.  The Gluon blocks
 (``LlamaForCausalLM`` and its parts) run the prompt/scoring forward with
-the hand-written CUDA flash-attention kernel (``attn_mode="flash"``, the
-default) or dense attention (``"sdpa"``); ``generate`` runs the
-KV-cached ``LlamaDecoder``: one batched prefill, then greedy decode
-steps, with dense attention as in the reference.
+the hand-written CUDA flash-attention kernels (``attn_mode="flash"``, the
+default) or dense attention (``"sdpa"``); under ``autograd.record()``
+both are differentiable, the flash route through the backward kernels
+(GQA heads are repeated before the call, so the repeat's backward sums
+dK/dV over each group).  ``generate`` runs the KV-cached
+``LlamaDecoder``: one batched prefill, then greedy decode steps, with
+dense attention as in the reference.
 
 Numerics follow the reference: RMSNorm statistics in f32 cast back to
 the input dtype; RoPE tables computed in float64, stored f32, applied to
@@ -13,8 +16,8 @@ interleaved pairs (x[..., ::2], x[..., 1::2]) in f32 and cast back; GQA
 heads repeated with ``repeat_interleave``; attention scores in f32 with
 P cast to the activation dtype before the PV product.
 
-Not ported in this slice, each raising ``MXNetError`` that names the
-ROADMAP item: MoE (``num_experts``, the mixtral configs),
+Not ported yet, each raising ``MXNetError`` that names the ROADMAP
+item: MoE (``num_experts``, the mixtral configs),
 ``scan_layers``/``set_remat``, ring/ulysses attention, packed
 ``segment_ids`` and ``packed_lm_loss``, sampling (``do_sample=True``),
 the pipeline and sharding functions, and the decoder's paged and

@@ -1,5 +1,5 @@
 """The ``mx.nd`` namespace: NDArray, creation and the ops the Llama
-inference slice uses.
+inference and training slices use.
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  The rest of the op
 library (``ops/tensor.py``, ``ops/nn_ops.py``, ...) ports with later
@@ -11,6 +11,8 @@ import torch
 
 from ..base import resolve_dtype as _resolve_dtype
 from ..context import current_context
+from ..base import MXNetError as _MXNetError
+from ..ops.nn_ops import log_softmax, softmax_cross_entropy  # noqa: F401
 from ..ops.registry import apply_op as _apply_op
 from .ndarray import NDArray
 
@@ -46,3 +48,81 @@ def concat(*args, dim=1):
 
 def sigmoid(data):
     return _apply_op(torch.sigmoid, data, name="sigmoid")
+
+
+def _reshape_target(in_shape, spec):
+    """The reference's reshape codes 0 (keep this input dim) and -1
+    (infer one dim); -2/-3/-4 port with the op library."""
+    out, infer_at = [], None
+    for i, s in enumerate(spec):
+        if s == 0:
+            if i >= len(in_shape):
+                raise _MXNetError(f"reshape code 0 at {i} has no input dim")
+            out.append(in_shape[i])
+        elif s == -1:
+            if infer_at is not None:
+                raise _MXNetError("reshape: more than one -1")
+            infer_at = len(out)
+            out.append(-1)
+        elif s > 0:
+            out.append(s)
+        else:
+            raise _MXNetError(f"reshape code {s} is not ported yet "
+                              "(ROADMAP.md, Queue 1 item 1)")
+    return tuple(out)
+
+
+def reshape(data, shape=None, **kwargs):
+    """Reference ``reshape`` with the 0 and -1 codes."""
+    if shape is None:
+        raise _MXNetError("reshape needs target shape")
+    tgt = _reshape_target(data.shape, tuple(shape))
+    return _apply_op(lambda a: a.reshape(tgt), data, name="reshape")
+
+
+def _axes(axis, ndim, exclude):
+    if axis is None:
+        return None
+    ax = (axis,) if isinstance(axis, int) else tuple(int(a) for a in axis)
+    if exclude:
+        ax = tuple(i for i in range(ndim) if i not in ax)
+    return ax
+
+
+def sum(data, axis=None, keepdims=False, exclude=False):  # noqa: A001
+    """Reference ``sum`` over ``axis`` (every other axis if
+    ``exclude``)."""
+    ax = _axes(axis, data.ndim, exclude)
+    return _apply_op(lambda a: a.sum() if ax is None else
+                     a.sum(dim=ax, keepdim=keepdims), data, name="sum")
+
+
+def mean(data, axis=None, keepdims=False, exclude=False):
+    """Reference ``mean`` over ``axis`` (every other axis if
+    ``exclude``)."""
+    ax = _axes(axis, data.ndim, exclude)
+    return _apply_op(lambda a: a.mean() if ax is None else
+                     a.mean(dim=ax, keepdim=keepdims), data, name="mean")
+
+
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """Reference ``pick``: one element per row along ``axis`` by an index
+    array (clipped into range)."""
+    def f(a, idx):
+        ii = idx.long().clamp(0, a.shape[axis] - 1).unsqueeze(axis)
+        out = torch.gather(a, axis, ii)
+        return out if keepdims else out.squeeze(axis)
+
+    return _apply_op(f, data, index, name="pick")
+
+
+def square(data):
+    return _apply_op(torch.square, data, name="square")
+
+
+def abs(data):  # noqa: A001
+    return _apply_op(torch.abs, data, name="abs")
+
+
+def broadcast_mul(lhs, rhs):
+    return _apply_op(torch.mul, lhs, rhs, name="broadcast_mul")

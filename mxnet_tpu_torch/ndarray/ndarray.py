@@ -4,15 +4,18 @@ Counterpart of ``mxnet_tpu/ndarray/ndarray.py`` (reference
 ``include/mxnet/ndarray.h``).  An NDArray is a handle to one
 ``torch.Tensor`` (``_data``) on an explicit device; every op unwraps the
 operands, calls torch and wraps the result (``ops.registry.apply_op``).
-Device work is asynchronous on the CUDA stream; ``asnumpy``
-synchronises.
+Device work is asynchronous on the CUDA stream; ``asnumpy``,
+``asscalar`` and ``wait_to_read`` synchronise.  ``attach_grad`` makes the
+array a variable of the autograd tape (``autograd.py``); its gradient
+buffer has the array's dtype and device and is allocated at the first
+read or backward.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..base import resolve_dtype
+from ..base import MXNetError, resolve_dtype
 from ..context import Context, context_of, current_context
 
 
@@ -27,18 +30,22 @@ def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
     if dtype is None and isinstance(value, (list, tuple, float, int)):
         dtype = torch.float32  # MXNet: python payloads become float32
     device = (ctx or current_context()).device
-    return torch.as_tensor(np.asarray(value), device=device).to(dtype=dtype)
+    # np.array copies, as MXNet's nd.array does: on the host the tensor
+    # must not share memory with the caller's array
+    return torch.as_tensor(np.array(value), device=device).to(dtype=dtype)
 
 
 class NDArray:
     """A tensor handle with MXNet NDArray semantics over ``torch.Tensor``."""
 
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     __array_priority__ = 100.0
 
     def __init__(self, data, ctx=None, dtype=None):
         self._data = _to_tensor(data, resolve_dtype(dtype), ctx)
+        self._grad = None
+        self._grad_req = "null"
 
     # -- basic properties ----------------------------------------------------
     @property
@@ -69,6 +76,17 @@ class NDArray:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
+
+    def asscalar(self):
+        if self.size != 1:
+            raise MXNetError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    def wait_to_read(self):
+        """Block until the value is computed."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+        return self
 
     # -- conversion / movement ----------------------------------------------
     def astype(self, dtype, copy=True):
@@ -120,7 +138,60 @@ class NDArray:
         return self._binary(o, torch.true_divide, "rdiv", reflected=True)
 
     def __neg__(self):
-        return NDArray(-self._data)
+        from ..ops.registry import apply_op
+
+        return apply_op(torch.neg, self, name="negative")
+
+    # -- method forms of ops (delegate to the nd namespace) ------------------
+    def reshape(self, *shape, **kwargs):
+        """Reshape with the reference's 0 (keep) and -1 (infer) codes."""
+        from .. import ndarray as nd
+
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return nd.reshape(self, shape=shape)
+
+    def sum(self, axis=None, keepdims=False):
+        from .. import ndarray as nd
+
+        return nd.sum(self, axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        from .. import ndarray as nd
+
+        return nd.mean(self, axis=axis, keepdims=keepdims)
+
+    # -- autograd ------------------------------------------------------------
+    def attach_grad(self, grad_req="write", stype=None):
+        """Make this array a variable with a gradient buffer of its dtype
+        on its device; detaches it from any recorded graph (reference
+        ``attach_grad``)."""
+        from .. import autograd
+
+        if grad_req not in ("write", "add", "null"):
+            raise MXNetError(f"invalid grad_req {grad_req!r}")
+        autograd._mark(self, grad_req)
+
+    @property
+    def grad(self):
+        """The gradient buffer (zeros until a backward writes it), or None
+        when no gradient is attached."""
+        if self._grad is None and self._grad_req != "null":
+            self._grad = NDArray(torch.zeros_like(self._data))
+        return self._grad
+
+    def zero_grad(self):
+        if self._grad is not None:
+            self._grad._data = torch.zeros_like(self._grad._data)
+
+    def detach(self):
+        return NDArray(self._data.detach())
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+
+        autograd.backward([self], [out_grad], retain_graph=retain_graph,
+                          train_mode=train_mode)
 
     # -- indexing ------------------------------------------------------------
     @staticmethod
@@ -139,7 +210,10 @@ class NDArray:
         return one(key)
 
     def __getitem__(self, key):
-        return NDArray(self._data[NDArray._raw_key(key)])
+        from ..ops.registry import apply_op
+
+        key = NDArray._raw_key(key)
+        return apply_op(lambda a: a[key], self, name="slice")
 
     def __len__(self):
         if not self.shape:

@@ -1,16 +1,18 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper.
+"""Flash attention: hand-written CUDA kernels for Hopper, forward and
+backward.
 
 Counterpart of ``mxnet_tpu/ops/flash_attention.py``.  The TPU package
-runs the Pallas kernel ``_fa_kernel`` when Tq = Tk and T is a multiple of
-128 and a chunked jnp scan otherwise; here every CUDA tensor goes to the
-kernel ``csrc/flash_attention_fwd.cu`` (any Tq, Tk; D in 16/32/64/128),
-and only a CPU tensor takes the plain PyTorch version
-``_fa_forward_plain``.  There is no fallback from one to the other and
-no switch between them.
+runs its Pallas kernels (``_fa_kernel`` forward; ``_fa_bwd_dq_kernel`` and
+``_fa_bwd_dkv_kernel`` backward) when Tq = Tk and T is a multiple of 128,
+and chunked jnp scans otherwise.  Here every CUDA tensor goes to the
+kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
+(any Tq, Tk; D in 16/32/64/128), and only a CPU tensor takes the plain
+PyTorch versions ``_fa_forward_plain`` and ``_fa_backward_plain``.  There
+is no fallback from one to the other and no switch between them.
 
-No gradient yet: the backward kernels (``_fa_bwd_dq_kernel``,
-``_fa_bwd_dkv_kernel``) port with the Llama training slice, and asking
-for a gradient through the forward raises.
+``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
+whose forward saves (q, k, v, O, lse) and whose backward recomputes the
+probabilities from lse in the two backward kernels.
 """
 from __future__ import annotations
 
@@ -82,6 +84,37 @@ def _fa_forward_plain(q, k, v, causal, scale, block=512):
     return out, lse
 
 
+def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512):
+    """Plain PyTorch version of the backward kernels: the reference's
+    recompute backward (``_fa_backward`` pass 2) over k blocks, with the
+    probabilities rebuilt from the forward's saved lse instead of a
+    second online-softmax pass, as the kernels do.  f32 arithmetic;
+    returns (dq, dk, dv) in q's, k's and v's dtypes.  Rows with
+    lse = -inf (they see no key) get dq = 0 and add nothing to dk, dv."""
+    tq, tk = q.shape[-2], k.shape[-2]
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
+    delta = _delta(o, do)
+    seen = torch.isfinite(lse)
+    lse_safe = torch.where(seen, lse, torch.zeros_like(lse))
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    for k0 in range(0, tk, block):
+        k1 = min(k0 + block, tk)
+        kb, vb = kf[..., k0:k1, :], vf[..., k0:k1, :]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        keep = seen[..., None].expand(s.shape)
+        if causal:
+            keep = keep & _causal_keep(tq, tk, k0, k1, q.device)
+        p = torch.where(keep, torch.exp(s - lse_safe[..., None]),
+                        torch.zeros_like(s))
+        dv[..., k0:k1, :] = torch.matmul(p.transpose(-1, -2), gf)
+        dp = torch.matmul(gf, vb.transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.matmul(ds, kb)
+        dk[..., k0:k1, :] = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_kernel_operands(q, k, v):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise MXNetError("flash_attention: q, k and v must lie on one CUDA "
@@ -110,15 +143,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
     A CUDA tensor launches the kernel (``flash_attention_fwd.launches``
     counts the launches); a CPU tensor takes ``_fa_forward_plain``."""
-    scale = float(scale) if scale is not None else \
-        1.0 / math.sqrt(q.shape[-1])
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
-        raise MXNetError(
-            "flash_attention has no backward yet: the dq/dkv kernels come "
-            "with the Llama training slice (ROADMAP.md, slice order item "
-            "2); run "
-            "inference outside autograd.record()")
+    scale = _scale(q, scale)
     if q.device.type == "cpu" and k.device.type == "cpu" and \
             v.device.type == "cpu":
         return _fa_forward_plain(q, k, v, causal, scale)
@@ -142,6 +167,114 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
+    """Attention backward → (dq, dk, dv), from the forward's inputs, its
+    output O and per-row lse, and the output gradient dO.
+
+    A CUDA tensor computes δ = rowsum(dO·O) in f32 and launches the dQ
+    kernel (``flash_attention_bwd_dq``) and the dK/dV kernel
+    (``flash_attention_bwd_dkv``); a CPU tensor takes
+    ``_fa_backward_plain``."""
+    scale = _scale(q, scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
+        return _fa_backward_plain(q, k, v, o, do, lse, causal, scale)
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise MXNetError("flash_attention backward: O must match q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}; got "
+                         f"{tuple(o.shape)} {o.dtype} on {o.device}")
+    delta = _delta(o, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+def _delta(o, do):
+    """δ = rowsum(dO·O) in f32, (B, H, Tq): the term both backward kernels
+    subtract from dP (the reference computes it outside its kernels)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def _launch_bwd(symbol, outs, q, k, v, do, lse, delta, causal, scale):
+    """Check the operands of a backward kernel and launch ``symbol`` on
+    the current stream, writing ``outs``."""
+    _check_kernel_operands(q, k, v)
+    rows = q.shape[:3]
+    if do.shape != q.shape or do.dtype != q.dtype or \
+            lse.shape != rows or delta.shape != rows or \
+            lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise MXNetError(
+            "flash_attention backward: expected dO like q "
+            f"{tuple(q.shape)} {q.dtype}, lse and delta float32 {tuple(rows)}"
+            f"; got {tuple(do.shape)} {do.dtype}, {tuple(lse.shape)} "
+            f"{lse.dtype}, {tuple(delta.shape)} {delta.dtype}")
+    if any(t.device != q.device for t in (do, lse, delta)):
+        raise MXNetError("flash_attention backward: dO, lse and delta must "
+                         f"lie on q's device {q.device}")
+    if not (do.is_contiguous() and lse.is_contiguous() and
+            delta.is_contiguous()):
+        raise MXNetError("flash_attention backward: dO, lse and delta must "
+                         "be contiguous")
+    b, h, tq, d = q.shape
+    lib = _kernels.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, symbol)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b * h, tq, k.shape[2], d, _DTYPE_CODES[q.dtype],
+            int(bool(causal)), scale, stream)
+    _kernels.check(lib, err, f"{symbol} launch")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """The dQ kernel on CUDA tensors (δ = rowsum(dO·O) given) → dq in q's
+    dtype; ``.launches`` counts its launches."""
+    dq = torch.empty_like(q)
+    _launch_bwd("mxt_flash_attention_bwd_dq", (dq,), q, k, v, do, lse,
+                delta, causal, scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """The dK/dV kernel on CUDA tensors → (dk, dv) in k's and v's dtype;
+    ``.launches`` counts its launches."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("mxt_flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse,
+                delta, causal, scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def _scale(q, scale):
+    return float(scale) if scale is not None else \
+        1.0 / math.sqrt(q.shape[-1])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, with the two backward kernels as its
+    gradient (the reference's ``jax.custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_raw(q, k, v, causal=False, scale=None):
-    """q (B, H, Tq, D), k/v (B, H, Tk, D) → O (B, H, Tq, D)."""
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+    """q (B, H, Tq, D), k/v (B, H, Tk, D) → O (B, H, Tq, D);
+    differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))

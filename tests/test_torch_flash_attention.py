@@ -1,11 +1,12 @@
-"""Flash-attention forward of the PyTorch/CUDA port against the JAX
-package.
+"""Flash attention of the PyTorch/CUDA port against the JAX package,
+forward and backward.
 
-The plain PyTorch version (``_fa_forward_plain``) is held against the
-real Pallas kernel run in interpret mode on the CPU, and against the
-chunked and dense JAX paths on the shapes the Pallas gate never takes.
-The CUDA kernel itself is compared with the plain version on the card
-in ``test_torch_kernels_cuda.py``.
+The plain PyTorch versions (``_fa_forward_plain``, ``_fa_backward_plain``)
+are held against the real Pallas kernels run in interpret mode on the
+CPU, and against the chunked and dense JAX paths (and ``jax.vjp`` of the
+dense reference) on the shapes the Pallas gate never takes.  The CUDA
+kernels themselves are compared with the plain versions on the card in
+``test_torch_kernels_cuda.py``.
 """
 import math
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import flash_attention as jfa
@@ -125,10 +127,91 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     assert tfa.flash_attention_fwd.launches == before == 0
 
 
-def test_wrapper_refuses_gradients():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 1, 8, 8, 16))
-    q.requires_grad_(True)
-    with pytest.raises(MXNetError, match="training slice"):
-        tfa.flash_attention_raw(q, k, v, True)
-    with torch.no_grad():
-        tfa.flash_attention_raw(q, k, v, True)
+# dq/dk/dv: both sides recompute P from the same f32 lse and sum the same
+# products in another order, so 1e-5 absolute at these magnitudes.
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_plain_backward_matches_interpret_pallas_kernels(causal, d):
+    b, h, t = 2, 2, 256
+    q, k, v = _qkv(10 + d, b, h, t, t, d)
+    do = np.random.RandomState(d).normal(size=q.shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = jfa._fa_forward_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+        with_lse=True, interpret=True)
+    ref = jfa._fa_backward_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o, jnp.asarray(do),
+        lse, causal, scale, interpret=True)
+    got = tfa._fa_backward_plain(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, do, lse)),
+        causal, scale)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert np.abs(g.numpy() - np.asarray(r)).max() <= 1e-5
+
+
+def _vjp_reference(q, k, v, do, causal, scale):
+    """jax.vjp of the dense reference ``_sdpa_ref``."""
+    _, pull = jax.vjp(lambda a, b, c: jfa._sdpa_ref(a, b, c, causal, scale),
+                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(g) for g in pull(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("causal,tq,tk", [
+    (False, 200, 200),   # ragged T, no 128 multiple
+    (True, 200, 200),
+    (True, 4, 6),        # Tq < Tk: bottom-right causal alignment
+    (True, 70, 130),
+])
+def test_plain_backward_matches_vjp_of_reference(causal, tq, tk):
+    q, k, v = _qkv(11, 2, 3, tq, tk, 32)
+    do = np.random.RandomState(12).normal(size=q.shape).astype(np.float32)
+    scale = 0.2
+    o, lse = _plain(q, k, v, causal, scale)
+    got = tfa._fa_backward_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, o, do, lse)), causal, scale)
+    for g, r in zip(got, _vjp_reference(q, k, v, do, causal, scale)):
+        assert np.abs(g.numpy() - r).max() <= 1e-5
+
+
+def test_fully_masked_rows_get_zero_dq():
+    """Tq=6 > Tk=4, causal: rows 0 and 1 see no key (lse = -inf).  Their
+    dq is exactly 0, they add nothing to dk/dv, and nothing is NaN (the
+    dense reference's vjp is NaN there)."""
+    q, k, v = _qkv(13, 1, 2, 6, 4, 32)
+    do = np.random.RandomState(14).normal(size=q.shape).astype(np.float32)
+    o, lse = _plain(q, k, v, True, 0.3)
+    dq, dk, dv = tfa._fa_backward_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, o, do, lse)), True, 0.3)
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    assert bool((dq[:, :, :2] == 0).all())
+    # rows 2..5 alone give the same dk, dv
+    q2, do2, o2 = q[:, :, 2:], do[:, :, 2:], o[:, :, 2:]
+    _, dk2, dv2 = tfa._fa_backward_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a))
+          for a in (q2, k, v, o2, do2, lse[:, :, 2:])), True, 0.3)
+    assert torch.allclose(dk, dk2, atol=1e-6)
+    assert torch.allclose(dv, dv2, atol=1e-6)
+    ref = _vjp_reference(q, k, v, do, True, 0.3)
+    assert np.abs(dq[:, :, 2:].numpy() - ref[0][:, :, 2:]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("causal,tq,tk", [(True, 64, 64), (False, 33, 47),
+                                          (True, 9, 17)])
+def test_autograd_function_matches_torch_autograd_of_sdpa_ref(causal, tq,
+                                                              tk):
+    """``flash_attention_raw`` is differentiable: on the CPU its
+    gradients (the plain backward) equal torch autograd through the
+    port's dense ``_sdpa_ref``, and no kernel is launched."""
+    arrays = _qkv(15, 2, 2, tq, tk, 16)
+    do = torch.from_numpy(
+        np.random.RandomState(16).normal(size=(2, 2, tq, 16)).astype("f"))
+    grads = []
+    for fn in (tfa.flash_attention_raw, tfa._sdpa_ref):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrays)
+        out = fn(q, k, v, causal, 0.25)
+        grads.append(torch.autograd.grad(out, (q, k, v), do))
+    for g, r in zip(*grads):
+        assert (g - r).abs().max().item() <= 1e-5
+    assert tfa.flash_attention_bwd_dq.launches == 0
+    assert tfa.flash_attention_bwd_dkv.launches == 0

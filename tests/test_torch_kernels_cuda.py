@@ -33,7 +33,7 @@ def cuda_nvcc():
     try:
         _kernels.nvcc()
     except MXNetError:
-        pytest.skip("needs nvcc to build csrc/flash_attention_fwd.cu")
+        pytest.skip("needs nvcc to build the kernels in csrc/")
     return torch.device("cuda", 0)
 
 
@@ -73,6 +73,87 @@ def test_kernel_rejects_what_it_does_not_take(cuda_nvcc):
     q = torch.zeros(1, 1, 16, 8, device=cuda_nvcc).transpose(2, 3)
     with pytest.raises(MXNetError, match="contiguous"):
         tfa.flash_attention_fwd(q, q, q)
+
+
+def _backward_case(device, dtype, b, h, tq, tk, d, causal, seed=7):
+    """Kernel forward, then both backward kernels, at one shape."""
+    q, k, v = (torch.from_numpy(a).to(device, dtype)
+               for a in _qkv(seed, b, h, tq, tk, d))
+    do = torch.from_numpy(np.random.RandomState(seed + 1).normal(
+        size=(b, h, tq, d)).astype(np.float32)).to(device, dtype)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, 0.3)
+    return (q, k, v, o, do, lse), tfa.flash_attention_bwd(
+        q, k, v, o, do, lse, causal, 0.3)
+
+
+def _assert_grad_close(g, r, row_tol, norm_tol):
+    """Row by row (one query's dq, one key's dk or dv): the row's largest
+    error within ``row_tol`` of the row's largest reference value, or of
+    the dtype's smallest normal number where that is larger (f16 rounds
+    smaller values to a fixed step); and ||g - r|| / ||r|| <= norm_tol."""
+    diff = (g.float() - r).abs()
+    floor = torch.finfo(g.dtype).tiny
+    allowed = row_tol * r.abs().amax(-1).clamp_min(floor)
+    assert bool((diff.amax(-1) <= allowed).all()), \
+        (diff.amax(-1) / allowed).max().item()
+    assert torch.linalg.vector_norm(g.float() - r).item() <= \
+        norm_tol * torch.linalg.vector_norm(r).item()
+
+
+# The plain version runs on f32 copies of the same inputs and the kernel's
+# own O and lse.  Each gradient is held row by row and by its relative
+# norm: f32, another summation order (1e-4 of a row, 1e-5 in norm);
+# bf16/f16, the kernels' f32 results are rounded to 8/11 mantissa bits, at
+# most 3.9e-3/4.9e-4 of each value (1e-2 and 5e-3; 2e-3 and 1e-3).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,row_tol,norm_tol", [
+    (torch.float32, 1e-4, 1e-5), (torch.bfloat16, 1e-2, 5e-3),
+    (torch.float16, 2e-3, 1e-3)])
+@pytest.mark.parametrize("causal,tq,tk,d", [
+    (True, 256, 256, 128), (False, 200, 200, 64), (True, 70, 5, 16)])
+def test_backward_kernels_match_plain_on_card(cuda_nvcc, dtype, row_tol,
+                                              norm_tol, causal, tq, tk, d):
+    dq_n = tfa.flash_attention_bwd_dq.launches
+    dkv_n = tfa.flash_attention_bwd_dkv.launches
+    (q, k, v, o, do, lse), got = _backward_case(cuda_nvcc, dtype, 2, 3, tq,
+                                                tk, d, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dq.launches == dq_n + 1
+    assert tfa.flash_attention_bwd_dkv.launches == dkv_n + 1
+    ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                 do.float(), lse, causal, 0.3)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert bool(torch.isfinite(g).all())
+        _assert_grad_close(g, r, row_tol, norm_tol)
+    if tq > tk:  # causal rows 0 .. tq - tk - 1 see no key: dq exactly 0
+        assert bool((got[0][:, :, :tq - tk] == 0).all())
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_deterministic(cuda_nvcc):
+    """Each output tile has one owner block and no atomics: two runs give
+    the same bits."""
+    _, first = _backward_case(cuda_nvcc, torch.bfloat16, 1, 4, 300, 300,
+                              128, True)
+    _, second = _backward_case(cuda_nvcc, torch.bfloat16, 1, 4, 300, 300,
+                               128, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_rejects_what_it_does_not_take(cuda_nvcc):
+    q = torch.zeros(1, 1, 8, 48, device=cuda_nvcc)
+    lse = torch.zeros(1, 1, 8, device=cuda_nvcc)
+    with pytest.raises(MXNetError, match="head dim"):
+        tfa.flash_attention_bwd(q, q, q, q, q, lse)
+    q = torch.zeros(1, 1, 8, 32, device=cuda_nvcc)
+    with pytest.raises(MXNetError, match="contiguous"):
+        tfa.flash_attention_bwd(q, q, q, q, q.transpose(2, 3).contiguous()
+                                .transpose(2, 3), lse)
+    with pytest.raises(MXNetError, match="lse"):
+        tfa.flash_attention_bwd(q, q, q, q, q, lse.double())
 
 
 @pytest.mark.cuda
