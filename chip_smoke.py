@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA
 card: Llama-3-8B inference and training through the hand-written
-flash-attention kernels (forward, dQ, dK/dV).
+flash-attention kernels (forward, dQ, dK/dV), and ResNet-50 v1 inference
+through the hand-written fused 1x1 conv + BatchNorm + ReLU kernel, and its
+training step.
 
     python3 chip_smoke.py
 
@@ -17,19 +19,34 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    plain backward at six shapes, each gradient held row by row and by
    its relative norm, with each kernel's time, delta's, the plain
    version's, torch SDPA's backward (where Tq = Tk) and the bound;
-5. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
+5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
+   at ResNet-50 v1's eight shapes (B=128, bf16), one f32 and one ragged
+   shape, with its time, the plain version's, the library's (``addmm``
+   with the scale folded, then ``relu``), the eager cuDNN chain's and the
+   bound, and the NCHW -> (M, K) copy's time; then one forward's sums;
+6. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
    the kernel against the KV-cache decoder's dense prefill;
-6. f32 training check: the same net, one loss and backward through the
+7. f32 training check: the same net, one loss and backward through the
    kernels (``attn_mode="flash"``) against dense torch autograd
    (``"sdpa"``): the loss and every parameter's gradient;
-7. the inference slice: ``llama3_8b`` at full width and depth in bf16,
-   weights drawn on the card from a seed: one prompt forward (T=2048) and
-   three greedy ``generate`` requests;
-8. the training slice: ``llama3_8b`` at full width and 16 layers in bf16,
-   B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one warm-up
-   step and three timed steps on one batch.
+8. the Llama inference slice: ``llama3_8b`` at full width and depth in
+   bf16, weights drawn on the card from a seed: one prompt forward
+   (T=2048) and three greedy ``generate`` requests;
+9. the Llama training slice: ``llama3_8b`` at full width and 16 layers in
+   bf16, B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one
+   warm-up step and three timed steps on one batch;
+10. ResNet f32 checks: ``resnet50_v1`` f32, B=2, 224x224, on the card
+    (16 fused launches, no TF32) against the CPU (the plain version);
+    ``resnet18_v1`` thumbnail, one f32 SGD-momentum step on the card
+    against the CPU;
+11. the ResNet inference slice: ``resnet50_v1`` bf16, 224x224, B=128 and
+    B=4, 16 fused launches a forward;
+12. the ResNet training slice: ``resnet50_v1`` bf16, B=128, 224x224,
+    SGD (lr 0.1, momentum 0.9) and ``SoftmaxCrossEntropyLoss`` (bench.py's
+    protocol, eager): one warm-up step and three timed steps on one batch,
+    no fused launch (BatchNorm normalizes by the batch).
 
-The launch counters are set to 0 just before each slice (7 and 8) and
+The launch counters are set to 0 just before each slice (8, 9, 11) and
 read just after.  It exits non-zero on any failed check, and with no
 result line when there is no CUDA card or the package is not beside it.
 Its last line is ``{"ok": true, "device": {...}}``.
@@ -550,6 +567,346 @@ def slice_phase(torch, mx, llama, fa, failures):
     return launches
 
 
+# The fused 1x1 conv + BN + ReLU kernel at ResNet-50 v1's shapes (B=128,
+# 224x224): (name, B, H'=W', K, N, dtype, launches a forward); M = B·H'·W'.
+# The first eight are the 16 launches of a bf16 forward; then one f32 shape
+# and one ragged (B=1, M=49; K, N off the tile sizes).
+FUSED_SHAPES = [
+    ("s1_k64", 128, 56, 64, 64, "bfloat16", 1),
+    ("s1_k256", 128, 56, 256, 64, "bfloat16", 2),
+    ("s2_k256", 128, 28, 256, 128, "bfloat16", 1),
+    ("s2_k512", 128, 28, 512, 128, "bfloat16", 3),
+    ("s3_k512", 128, 14, 512, 256, "bfloat16", 1),
+    ("s3_k1024", 128, 14, 1024, 256, "bfloat16", 5),
+    ("s4_k1024", 128, 7, 1024, 512, "bfloat16", 1),
+    ("s4_k2048", 128, 7, 2048, 512, "bfloat16", 2),
+    ("f32", 8, 28, 512, 128, "float32", 0),
+    ("ragged", 1, 7, 1000, 300, "bfloat16", 0),
+]
+# kernel against its plain version on f32 copies: bf16, the kernel rounds
+# its f32 result to 8 mantissa bits (2^-8 of each value) and sums in
+# another order than cuBLAS (1e-4 of the largest value at K <= 2048); f32,
+# only the summation order
+FUSED_REL_TOL = {"bfloat16": 2.0 ** -8, "float32": 0.0}
+FUSED_ABS_TOL = {"bfloat16": 1e-4, "float32": 1e-5}  # x the largest value
+RESNET_BATCHES = (128, 4)  # bench.py's batch, then __graft_entry__'s
+RESNET_LR = 0.1
+
+
+def fused_kernel_phase(torch, cbr, failures):
+    """The fused kernel against its plain version at each shape, with its
+    time, the plain version's, the library's (``addmm`` with the scale
+    folded into w, then ``relu``), the eager NCHW chain's (``conv2d`` →
+    ``batch_norm`` in eval → ``relu``) and the card's bound; and the
+    NCHW → (M, K) copy the fused path makes, at the first shape."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    tnf = torch.nn.functional
+    rows = []
+    for name, b, h, k, n, dt, per_fwd in FUSED_SHAPES:
+        dtype = getattr(torch, dt)
+        m = b * h * h
+
+        def rnd(*shape, lo=None, hi=None):
+            if lo is None:
+                return torch.randn(*shape, generator=gen, device="cuda")
+            return torch.rand(*shape, generator=gen, device="cuda") * \
+                (hi - lo) + lo
+
+        x_nchw = rnd(b, k, h, h).to(dtype)
+        wconv = (rnd(n, k, 1, 1) / math.sqrt(k)).to(dtype)
+        gamma, beta = rnd(n, lo=0.5, hi=1.5), rnd(n, lo=-0.5, hi=0.5)
+        mean, var = rnd(n, lo=-0.3, hi=0.3), rnd(n, lo=0.5, hi=1.5)
+        t = time.perf_counter()
+        x = x_nchw.permute(0, 2, 3, 1).reshape(m, k).contiguous()
+        w, scale, bias = cbr.fold_bn(wconv, None, gamma, beta, mean, var,
+                                     1e-5, False)
+        got = cbr.fused_matmul_affine_relu(x, w, scale, bias)
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t
+        ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(),
+                                                  scale, bias)
+        diff = (got.float() - ref).abs()
+        largest = ref.abs().max().item()
+        allowed = FUSED_REL_TOL[dt] * ref.abs() + \
+            FUSED_ABS_TOL[dt] * largest
+        err = diff.max().item()
+        ok = bool((diff <= allowed).all()) and got.dtype == dtype and \
+            got.shape == (m, n) and bool(torch.isfinite(got).all())
+        iters = 20 if m * k * n > 1e9 else 100
+        w_lib = (w.float() * scale).to(dtype)
+        b_lib = bias.to(dtype)
+        row = dict(
+            phase="fused_kernel", shape=name, B=b, H=h, M=m, K=k, N=n,
+            dtype=dt, launches_per_forward=per_fwd, max_abs_err=err,
+            max_abs_ref=largest,
+            tol=f"{FUSED_REL_TOL[dt]}*|ref| + {FUSED_ABS_TOL[dt]}*max|ref|",
+            first_call_s=first_call_s,
+            kernel_ms=time_ms(torch, lambda: cbr.fused_matmul_affine_relu(
+                x, w, scale, bias), iters),
+            plain_ms=time_ms(torch, lambda: cbr._fused_matmul_affine_relu_plain(
+                x, w, scale, bias), max(iters // 4, 5)),
+            library_ms=time_ms(torch, lambda: torch.relu(torch.addmm(
+                b_lib, x, w_lib)), iters),
+            chain_ms=time_ms(torch, lambda: torch.relu(tnf.batch_norm(
+                tnf.conv2d(x_nchw, wconv), mean, var, gamma, beta,
+                training=False, eps=1e-5)), iters))
+        if not rows:  # the fused path's layout copy, at the first shape
+            row["nchw_to_mk_copy_ms"] = time_ms(
+                torch, lambda: x_nchw.permute(0, 2, 3, 1).reshape(
+                    m, k).contiguous(), iters)
+        isz = x.element_size()
+        row["bound_ms"], row["bound_by"] = roofline_ms(
+            2.0 * m * k * n, isz * (m * k + k * n + m * n) + 8 * n, dt)
+        row["ok"] = ok
+        emit(row)
+        rows.append(row)
+        if not ok:
+            failures.append(f"fused kernel {name}: max err {err} "
+                            f"(largest {largest})")
+        del x_nchw, x, got, ref, diff, allowed
+    # one bf16 ResNet-50 forward's 16 launches: each time summed over
+    # them; bound by what bounds most of the summed bound
+    forward = [r for r in rows if r["launches_per_forward"]]
+    total = dict(phase="fused_kernel_forward",
+                 launches=sum(r["launches_per_forward"] for r in forward),
+                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                 **{key: sum(r[key] * r["launches_per_forward"]
+                             for r in forward)
+                    for key in ("kernel_ms", "bound_ms", "plain_ms",
+                                "library_ms", "chain_ms")})
+    by_bytes = sum(r["bound_ms"] * r["launches_per_forward"]
+                   for r in forward if r["bound_by"] == "bytes")
+    total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] \
+        else "operations"
+    emit(total)
+    return total
+
+
+def _resnet_arrays(torch, mx, net_fn, x_shape):
+    """Weights for ``net_fn()`` on the CPU from the seed (Xavier), with
+    moving means and variances drawn away from 0 and 1, as numpy arrays
+    by structural name."""
+    mx.random.seed(SEED)
+    net = net_fn()
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    net(mx.nd.zeros(x_shape, ctx=mx.cpu()))  # resolve deferred shapes
+    gen = torch.Generator().manual_seed(SEED + 7)
+    arrays = {}
+    for key, p in net._collect_params_with_prefix().items():
+        a = p.data()._data.detach()
+        if key.endswith("running_mean"):
+            a = torch.randn(a.shape, generator=gen) * 0.1
+        elif key.endswith("running_var"):
+            a = torch.rand(a.shape, generator=gen) + 0.5
+        arrays[key] = a.numpy().copy()
+    return arrays
+
+
+def resnet_f32_phase(torch, mx, vision, cbr, failures):
+    """``resnet50_v1`` in f32, B=2, 224x224: the same weights on the card
+    (the fused kernel, no TF32) and on the CPU (its plain version)."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    shape = (2, 3, 224, 224)
+    arrays = _resnet_arrays(torch, mx, vision.resnet50_v1, shape)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(SEED + 8))
+    cpu_net, gpu_net = vision.resnet50_v1(), vision.resnet50_v1()
+    load_numpy_params(cpu_net, arrays, ctx=mx.cpu())
+    load_numpy_params(gpu_net, arrays, ctx=mx.gpu(0))
+    before = cbr.fused_matmul_affine_relu.launches
+    got = gpu_net(mx.nd.array(x, ctx=mx.gpu(0)))._data.float().cpu()
+    launched = cbr.fused_matmul_affine_relu.launches - before
+    ref = cpu_net(mx.nd.array(x, ctx=mx.cpu()))._data
+    largest = ref.abs().max().item()
+    share = (got - ref).abs().max().item() / largest
+    ok = launched == 16 and share <= 1e-3 and got.shape == (2, 1000) and \
+        bool(torch.isfinite(got).all())
+    emit(dict(phase="resnet_f32_check", B=2, image=224, launches=launched,
+              max_abs_logit=largest, max_err_share=share, tol=1e-3, ok=ok))
+    if not ok:
+        failures.append(f"resnet f32 check: launches {launched}, error "
+                        f"share {share}")
+    del cpu_net, gpu_net
+    free_card(torch)
+
+
+def resnet_infer_phase(torch, mx, vision, cbr, failures):
+    """``resnet50_v1`` in bf16, 224x224, at B=128 and B=4: the inference
+    main path through the fused kernel, 16 launches a forward."""
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    inputs = {b: mx.nd.array(torch.rand(
+        (b, 3, 224, 224), generator=gen, device="cuda").bfloat16())
+        for b in RESNET_BATCHES}
+    net(inputs[RESNET_BATCHES[-1]])  # resolve deferred shapes
+    torch.cuda.synchronize()
+    cbr.fused_matmul_affine_relu.launches = 0  # the main path starts here
+    for b in RESNET_BATCHES:
+        x = inputs[b]
+        torch.cuda.reset_peak_memory_stats()
+        ms, launched = [], []
+        for _ in range(4):  # one warm-up, then three timed forwards
+            before = cbr.fused_matmul_affine_relu.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launched.append(cbr.fused_matmul_affine_relu.launches - before)
+        finite = bool(torch.isfinite(out._data).all())
+        warm = sum(ms[1:]) / 3
+        ok = launched == [16] * 4 and finite and out.shape == (b, 1000) \
+            and out.dtype == torch.bfloat16
+        emit(dict(phase="resnet_infer", B=b, image=224, dtype="bfloat16",
+                  launches_per_forward=launched, ms=ms, warm_ms=warm,
+                  images_per_s=b / warm * 1e3, finite=finite,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  ok=ok))
+        if not ok:
+            failures.append(f"resnet inference B={b}: launches {launched}, "
+                            f"finite {finite}")
+        del out
+    launches = cbr.fused_matmul_affine_relu.launches  # the main path ends
+    if launches == 0:
+        failures.append("the ResNet inference path launched no "
+                        "fused_matmul_affine_relu")
+    del net, inputs
+    free_card(torch)
+    return launches
+
+
+def _resnet_step(mx, net, trainer, loss_fn, x, y, stamps=None):
+    """One recorded forward, backward and optimizer step; ``stamps``
+    (a callable) marks the end of each phase.  Returns the mean loss."""
+    mark = stamps or (lambda: None)
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    mark()
+    loss.backward()
+    mark()
+    trainer.step(x.shape[0])
+    mark()
+    return float(loss.mean().asscalar())
+
+
+def resnet18_f32_train_phase(torch, mx, vision, failures):
+    """``resnet18_v1(classes=8, thumbnail=True)`` in f32, B=2, 16x16: one
+    SGD-momentum step on the card and on the CPU from the same weights;
+    the loss and every updated parameter within 1e-4 (of the largest
+    value of the same tensor)."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    def make():
+        return vision.resnet18_v1(classes=8, thumbnail=True)
+
+    arrays = _resnet_arrays(torch, mx, make, (1, 3, 16, 16))
+    x = torch.rand((2, 3, 16, 16),
+                   generator=torch.Generator().manual_seed(SEED + 10))
+    y = torch.tensor([1.0, 5.0])
+    results = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = make()
+        load_numpy_params(net, arrays, ctx=ctx)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.05, "momentum": 0.9})
+        loss = _resnet_step(mx, net, trainer,
+                            mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                            mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx))
+        results.append((loss, {k: p.data()._data.detach().float().cpu()
+                               for k, p in
+                               net._collect_params_with_prefix().items()}))
+    (loss_gpu, p_gpu), (loss_cpu, p_cpu) = results
+    worst, worst_name = 0.0, None
+    for key, ref in p_cpu.items():
+        share = ((p_gpu[key] - ref).abs().max() /
+                 ref.abs().max().clamp_min(1e-30)).item()
+        if not share <= worst:
+            worst, worst_name = share, key
+    ok = math.isfinite(loss_gpu) and \
+        abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu) and worst <= 1e-4
+    emit(dict(phase="resnet18_f32_train_check", B=2, image=16,
+              loss_gpu=loss_gpu, loss_cpu=loss_cpu, params=len(p_cpu),
+              worst_param_err_share=worst, worst_param=worst_name, tol=1e-4,
+              ok=ok))
+    if not ok:
+        failures.append(f"resnet18 f32 training check: loss {loss_gpu} vs "
+                        f"{loss_cpu}, worst parameter {worst} "
+                        f"({worst_name})")
+
+
+def resnet_train_phase(torch, mx, vision, cbr, failures):
+    """``resnet50_v1``, bf16 (``net.cast``), B=128, 224x224, SGD with
+    momentum 0.9 and lr 0.1, ``SoftmaxCrossEntropyLoss`` — bench.py's
+    protocol, eager: one warm-up step and three timed steps on one batch.
+    BatchNorm normalizes by the batch, so the fused kernel never runs."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))  # resolve shapes
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RESNET_LR, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    b = RESNET_BATCHES[0]
+    x = mx.nd.array(torch.rand((b, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    y = mx.nd.array(torch.randint(0, 1000, (b,), generator=gen,
+                                  device="cuda").float())
+    torch.cuda.synchronize()
+    emit(dict(phase="resnet_train_init", seconds=time.perf_counter() - t,
+              params=sum(p.data().size for p in
+                         net.collect_params().values()),
+              memory_allocated=torch.cuda.memory_allocated()))
+    fused_before = cbr.fused_matmul_affine_relu.launches
+    losses, step_ms = [], []
+    for step in range(4):
+        stamps, peaks = [], []
+
+        def mark():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        mark()
+        peaks.clear()
+        loss = _resnet_step(mx, net, trainer, loss_fn, x, y, mark)
+        fwd_ms, bwd_ms, upd_ms = ((b2 - a) * 1e3 for a, b2 in
+                                  zip(stamps, stamps[1:]))
+        ms = (stamps[-1] - stamps[0]) * 1e3
+        losses.append(loss)
+        if step:
+            step_ms.append(ms)
+        ok = math.isfinite(loss)
+        emit(dict(phase="resnet_train_step", step=step, warmup=step == 0,
+                  B=b, loss=loss, ms=ms, images_per_s=b / ms * 1e3,
+                  forward_ms=fwd_ms, backward_ms=bwd_ms, update_ms=upd_ms,
+                  max_memory_allocated=dict(zip(
+                      ("forward", "backward", "update"), peaks)), ok=ok))
+        if not ok:
+            failures.append(f"resnet train step {step}: loss {loss}")
+    fused = cbr.fused_matmul_affine_relu.launches - fused_before
+    ok = losses[-1] < losses[0] and fused == 0
+    emit(dict(phase="resnet_train_summary", losses=losses, step_ms=step_ms,
+              fused_launches=fused, ok=ok))
+    if not ok:
+        failures.append(f"resnet training: losses {losses}, fused launches "
+                        f"{fused} (expected a falling loss and 0)")
+    del net, trainer, x, y
+    free_card(torch)
+
+
 def main():
     import torch
 
@@ -559,7 +916,9 @@ def main():
         return 2
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch.gluon.model_zoo import vision
     from mxnet_tpu_torch.models import llama
+    from mxnet_tpu_torch.ops import conv_bn_relu as cbr
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     # float32 matmuls in full f32 (no TF32), for the f32 checks
@@ -585,10 +944,15 @@ def main():
     failures = []
     rows = kernel_phase(torch, fa, failures)
     brows = backward_phase(torch, fa, failures)
+    fused = fused_kernel_phase(torch, cbr, failures)
     f32_phase(torch, mx, llama, fa, failures)
     f32_train_phase(torch, mx, llama, fa, failures)
     infer_launches = slice_phase(torch, mx, llama, fa, failures)
     train_launches = train_phase(torch, mx, llama, fa, failures)
+    resnet_f32_phase(torch, mx, vision, cbr, failures)
+    resnet18_f32_train_phase(torch, mx, vision, failures)
+    fused_launches = resnet_infer_phase(torch, mx, vision, cbr, failures)
+    resnet_train_phase(torch, mx, vision, cbr, failures)
 
     s, bs = rows[0], brows[0]
     src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
@@ -612,7 +976,14 @@ def main():
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "plain_ms": bs["plain_ms"],
          "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
-         "library_ms": bs["library_ms"]}]})
+         "library_ms": bs["library_ms"]},
+        {"name": "fused_matmul_affine_relu", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/fused_matmul_affine_relu.cu",
+         "replaces": "tools/pallas_conv_probe.py:35",
+         "launches": fused_launches, "max_abs_err": fused["max_abs_err"],
+         "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
+         "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+         "library_ms": fused["library_ms"]}]})
     if failures:
         for f in failures:
             print("FAILED: " + f, file=sys.stderr)

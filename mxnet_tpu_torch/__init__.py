@@ -24,8 +24,9 @@ context; only an explicit ``mx.cpu()`` runs on the host.
     loss.backward()
     trainer.step(1)
 
-Slices so far: Llama inference and Llama training (ROADMAP Queue 1
-lists what follows).
+Slices so far: Llama inference, Llama training, and ResNet inference
+(through a fused 1×1 conv+BN+ReLU kernel) and training
+(``gluon.model_zoo.vision``); ROADMAP Queue 1 lists what follows.
 """
 
 __version__ = "0.1.0"

@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "build"
 #: library name -> source, relative to this package
 SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu",
-           "flash_attention_bwd": "csrc/flash_attention_bwd.cu"}
+           "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+           "fused_matmul_affine_relu": "csrc/fused_matmul_affine_relu.cu"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_INT] * 6 + [ctypes.c_float, _PTR]  # bh .. causal, scale, stream
 #: library name -> {C entry point: argtypes}; each returns a cudaError_t
@@ -31,6 +32,9 @@ SYMBOLS = {
     "flash_attention_bwd": {"mxt_flash_attention_bwd_dq": [_PTR] * 7 + _TAIL,
                             "mxt_flash_attention_bwd_dkv":
                                 [_PTR] * 8 + _TAIL},
+    # x, w, scale, bias, out, M, N, K, dtype, stream
+    "fused_matmul_affine_relu": {"mxt_fused_matmul_affine_relu":
+                                 [_PTR] * 5 + [_INT] * 4 + [_PTR]},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -1,6 +1,6 @@
 """gluon — the high-level API (counterpart of ``mxnet_tpu/gluon``): blocks,
-parameters, layers, losses and the ``Trainer``.  The model zoo and the
-data API port with later slices."""
+parameters, layers, losses, the ``Trainer`` and the ResNet model zoo.  The
+data API ports with a later slice."""
 from . import parameter
 from .parameter import Parameter, ParameterDict
 from . import block
@@ -9,3 +9,4 @@ from . import nn
 from . import loss
 from . import trainer
 from .trainer import Trainer
+from . import model_zoo

@@ -190,17 +190,21 @@ class HybridBlock(Block):
             "not implement infer_shape(); declare in_units or override "
             "infer_shape")
 
-    def forward(self, *args):
-        from .. import ndarray as nd
-
+    def _param_data(self, *args):
+        """This block's parameter values by attribute name, finishing a
+        deferred initialization from the inputs ``args`` first."""
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            return {k: p.data() for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self.infer_shape(*args)
             for p in self._reg_params.values():
                 p._finish_deferred_init(p.shape or ())
-            params = {k: p.data() for k, p in self._reg_params.items()}
-        return self.hybrid_forward(nd, *args, **params)
+            return {k: p.data() for k, p in self._reg_params.items()}
+
+    def forward(self, *args):
+        from .. import ndarray as nd
+
+        return self.hybrid_forward(nd, *args, **self._param_data(*args))
 
     def hybrid_forward(self, F, *args, **params):
         raise NotImplementedError(

@@ -36,9 +36,12 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None,
                  dtype=torch.float32, lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False):
+                 allow_deferred_init=False, differentiable=True):
         self.name = name
-        self._grad_req = grad_req
+        # a non-differentiable parameter (BatchNorm's moving statistics)
+        # never has a gradient: its grad_req is "null" whatever is asked
+        self._differentiable = differentiable
+        self._grad_req = grad_req if differentiable else "null"
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         if isinstance(shape, int):
@@ -59,6 +62,8 @@ class Parameter:
     def grad_req(self, req):
         if req not in ("write", "add", "null"):
             raise MXNetError(f"invalid grad_req {req!r}")
+        if not self._differentiable:
+            req = "null"
         if self._grad_req != req:
             self._grad_req = req
             if self._data is not None:

@@ -1,5 +1,5 @@
 """The ``mx.nd`` namespace: NDArray, creation and the ops the Llama
-inference and training slices use.
+and ResNet slices use (the ``F`` of ``HybridBlock.hybrid_forward``).
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  The rest of the op
 library (``ops/tensor.py``, ``ops/nn_ops.py``, ...) ports with later
@@ -12,7 +12,9 @@ import torch
 from ..base import resolve_dtype as _resolve_dtype
 from ..context import current_context
 from ..base import MXNetError as _MXNetError
-from ..ops.nn_ops import log_softmax, softmax_cross_entropy  # noqa: F401
+from ..ops.nn_ops import (activation, batch_norm, convolution,  # noqa: F401
+                          flatten, fully_connected, log_softmax, pooling,
+                          relu, softmax_cross_entropy)
 from ..ops.registry import apply_op as _apply_op
 from .ndarray import NDArray
 
@@ -25,6 +27,23 @@ def array(source_array, ctx=None, dtype=None):
         return out.as_in_context(ctx) if ctx else out
     return NDArray(source_array, ctx=ctx or current_context(),
                    dtype=_resolve_dtype(dtype))
+
+
+def zeros(shape, ctx=None, dtype=None, **kwargs):
+    """Reference ``zeros``: float32 unless ``dtype`` says otherwise."""
+    return _full(shape, 0.0, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=None, **kwargs):
+    """Reference ``ones``: float32 unless ``dtype`` says otherwise."""
+    return _full(shape, 1.0, ctx, dtype)
+
+
+def _full(shape, value, ctx, dtype):
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray(torch.full(shape, value,
+                              dtype=_resolve_dtype(dtype) or torch.float32,
+                              device=(ctx or current_context()).device))
 
 
 def argmax(data, axis=None, keepdims=False):
@@ -126,3 +145,12 @@ def abs(data):  # noqa: A001
 
 def broadcast_mul(lhs, rhs):
     return _apply_op(torch.mul, lhs, rhs, name="broadcast_mul")
+
+
+# the reference's operator-style names
+Activation = activation
+BatchNorm = batch_norm
+Convolution = convolution
+Flatten = flatten
+FullyConnected = fully_connected
+Pooling = pooling

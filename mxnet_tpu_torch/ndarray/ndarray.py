@@ -70,12 +70,14 @@ class NDArray:
 
     # -- host sync -----------------------------------------------------------
     def asnumpy(self) -> np.ndarray:
-        """Blocking device→host copy.  numpy has no bfloat16, so a bf16
-        array comes back as float32 (exact)."""
+        """Blocking device→host copy, a new array on every device (a CPU
+        tensor's own memory is never shared: the optimizers and BatchNorm
+        update in place).  numpy has no bfloat16, so a bf16 array comes
+        back as float32 (exact)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
         if self.size != 1:

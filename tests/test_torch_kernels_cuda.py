@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import conv_bn_relu as cbr
 from mxnet_tpu_torch.ops import flash_attention as tfa
 
 
@@ -184,3 +185,98 @@ def test_llama_tiny_on_card_matches_cpu(cuda_nvcc):
     ref_out = cpu_net.generate(mx.nd.array(ids[:, :20], ctx=mx.cpu(),
                                            dtype="int32"), max_new_tokens=6)
     np.testing.assert_array_equal(out.asnumpy(), ref_out.asnumpy())
+
+
+def _mm_operands(device, dtype, m, k, n, seed=11):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k, n)) / np.sqrt(k)).astype(
+        np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.5, 0.5, n).astype(np.float32))
+    return (x.to(device, dtype), w.to(device, dtype), scale.to(device),
+            bias.to(device))
+
+
+# ResNet-50 v1's eight (K, N) at B=2 (M = 2·H'·W'), and ragged shapes.
+# The plain version runs on f32 copies of the same inputs: f32, another
+# summation order (1e-5 of the largest value); bf16, the kernel's f32
+# result rounded to 8 mantissa bits (2^-8 of each value) and another
+# summation order (1e-4 of the largest value).
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel,tol", [(torch.float32, 0.0, 1e-5),
+                                           (torch.bfloat16, 2.0 ** -8, 1e-4)])
+@pytest.mark.parametrize("m,k,n", [
+    (6272, 64, 64), (6272, 256, 64), (1568, 256, 128), (1568, 512, 128),
+    (392, 512, 256), (392, 1024, 256), (98, 1024, 512), (98, 2048, 512),
+    (49, 100, 30), (1, 7, 3), (130, 17, 65)])
+def test_fused_kernel_matches_plain_on_card(cuda_nvcc, dtype, rel, tol, m,
+                                            k, n):
+    x, w, scale, bias = _mm_operands(cuda_nvcc, dtype, m, k, n)
+    before = cbr.fused_matmul_affine_relu.launches
+    got = cbr.fused_matmul_affine_relu(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert cbr.fused_matmul_affine_relu.launches == before + 1
+    ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(), scale,
+                                              bias)
+    assert got.dtype == dtype and got.shape == (m, n)
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= rel * ref.abs() + tol * ref.abs().max()).all()), \
+        diff.max().item()
+    assert bool((got[ref == 0] == 0).all())  # the ReLU clamps the same
+
+
+@pytest.mark.cuda
+def test_fused_kernel_is_deterministic(cuda_nvcc):
+    ops = _mm_operands(cuda_nvcc, torch.bfloat16, 1000, 512, 256)
+    assert torch.equal(cbr.fused_matmul_affine_relu(*ops),
+                       cbr.fused_matmul_affine_relu(*ops))
+
+
+@pytest.mark.cuda
+def test_fused_kernel_rejects_what_it_does_not_take(cuda_nvcc):
+    x, w, scale, bias = _mm_operands(cuda_nvcc, torch.bfloat16, 64, 32, 16)
+    cases = [
+        ((x.half(), w.half(), scale, bias), "dtype"),
+        ((x, w.float(), scale, bias), "dtype"),
+        ((x, w[:16], scale, bias), "w"),
+        ((x.t().contiguous().t(), w, scale, bias), "contiguous"),
+        ((x, w, scale.bfloat16(), bias), "scale"),
+        ((x, w, scale, bias[:8]), "bias"),
+        ((x, w.cpu(), scale, bias), "device"),
+    ]
+    for args, match in cases:
+        with pytest.raises(MXNetError, match=match):
+            cbr.fused_matmul_affine_relu(*args)
+
+
+@pytest.mark.cuda
+def test_resnet_on_card_matches_cpu(cuda_nvcc):
+    """The narrow ResNetV1 with the same weights on the card (one fused
+    launch per bottleneck) and on the CPU (the plain version): f32
+    logits within 1e-4 of the largest (no TF32)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_numpy_params
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make():
+        return resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                               [8, 32, 64, 128, 256], classes=10)
+
+    mx.random.seed(0)
+    cpu_net = make()
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    x = np.random.RandomState(0).normal(size=(2, 3, 32, 32)).astype("f")
+    cpu_net(mx.nd.array(x, ctx=mx.cpu()))
+    arrays = {k: p.data().asnumpy() for k, p in
+              cpu_net._collect_params_with_prefix().items()}
+    gpu_net = make()
+    load_numpy_params(gpu_net, arrays, ctx=mx.gpu(0))
+    before = cbr.fused_matmul_affine_relu.launches
+    got = gpu_net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    assert cbr.fused_matmul_affine_relu.launches == before + 4
+    ref = cpu_net(mx.nd.array(x, ctx=mx.cpu())).asnumpy()
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -142,3 +142,13 @@ def test_ndarray_surface():
         assert s.asnumpy().tolist() == [0.5, 0.5]
         assert x.astype("bfloat16").asnumpy().dtype == np.float32
         assert x.astype("int32").dtype == torch.int32
+
+
+def test_asnumpy_returns_a_copy_on_the_cpu():
+    """MXNet's ``asnumpy`` is a copy: an in-place update of the array (an
+    optimizer step, a BatchNorm's moving statistics) leaves it alone."""
+    x = mx.nd.array([1.0, 2.0], ctx=mx.cpu())
+    snap = x.asnumpy()
+    x._data.add_(1.0)
+    assert snap.tolist() == [1.0, 2.0]
+    assert x.asnumpy().tolist() == [2.0, 3.0]
