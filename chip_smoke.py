@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA
 card: Llama-3-8B inference and training through the hand-written
-flash-attention kernels (forward, dQ, dK/dV), and ResNet-50 v1 inference
-through the hand-written fused 1x1 conv + BatchNorm + ReLU kernel, and its
-training step.
+flash-attention kernels (forward, dQ, dK/dV; bf16 and f16 forward and
+dK/dV on the tensor cores, f32 on the FMA pipes), and ResNet-50 v1
+inference through the hand-written fused 1x1 conv + BatchNorm + ReLU
+kernel, and its training step.
 
     python3 chip_smoke.py
 
@@ -12,13 +13,17 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 
 1. card: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc;
 2. build: every source in ``csrc/`` with nvcc for sm_90a, all at once;
-3. kernel: the forward kernel against its plain PyTorch version at five
-   shapes, with its time, the plain version's, torch SDPA's (a yardstick
-   only, where Tq = Tk) and the card's bound;
+3. kernel: the forward kernel against its plain PyTorch version at every
+   shape of ``KERNEL_SHAPES`` (bf16 and f16 at each D, Tq < Tk, rows
+   that see no key, f32), O held row by row and by its relative norm,
+   with its time and TFLOP/s, the plain version's, torch SDPA's (a
+   yardstick only, where Tq = Tk) and the card's bound; at the slice shape also the wrapper's host time and the
+   kernel launched alone through its C entry point;
 4. backward kernels: ``flash_attention_bwd`` (dQ and dK/dV) against the
-   plain backward at six shapes, each gradient held row by row and by
-   its relative norm, with each kernel's time, delta's, the plain
-   version's, torch SDPA's backward (where Tq = Tk) and the bound;
+   plain backward at every shape of ``BWD_SHAPES``, each gradient held
+   row by row and by its relative norm, with each kernel's time (and
+   dK/dV's TFLOP/s), delta's, the plain version's, torch SDPA's backward
+   (where Tq = Tk) and the bound;
 5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
    at ResNet-50 v1's eight shapes (B=128, bf16), one f32 and one ragged
    shape, with its time, the plain version's, the library's (``addmm``
@@ -29,6 +34,12 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 7. f32 training check: the same net, one loss and backward through the
    kernels (``attn_mode="flash"``) against dense torch autograd
    (``"sdpa"``): the loss and every parameter's gradient;
+7b. bf16 checks: the same widths at 2 layers in bf16, at three seeds,
+   through the tensor-core kernels: ``net(ids)`` against the dense route,
+   then one loss and backward against dense torch autograd, logits and
+   every gradient held by relative norm; and the witness, both routes
+   against the dense route in f32 on the same weights, the kernels' route
+   no further from it than the dense route is (within a factor);
 8. the Llama inference slice: ``llama3_8b`` at full width and depth in
    bf16, weights drawn on the card from a seed: one prompt forward
    (T=2048) and three greedy ``generate`` requests;
@@ -47,7 +58,9 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     no fused launch (BatchNorm normalizes by the batch).
 
 The launch counters are set to 0 just before each slice (8, 9, 11) and
-read just after.  It exits non-zero on any failed check, and with no
+read just after, and at the start of each check that counts them (6, 7,
+7b); the bf16 slices must launch the tensor-core designs
+(``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
 result line when there is no CUDA card or the package is not beside it.
 Its last line is ``{"ok": true, "device": {...}}``.
 """
@@ -62,18 +75,44 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES = 3.35e12
-# (name, B, H, Tq, Tk, D, causal, dtype); the first is the slice's shape
+# (name, B, H, Tq, Tk, D, causal, dtype); shapes that reach the edges of
+# the tensor-core design: every D in bf16 and f16, ragged T, Tq < Tk
+# (bottom-right alignment) and Tq > Tk (rows that see no key)
+MMA_SHAPES = [
+    ("d16_bf16", 2, 4, 200, 200, 16, True, "bfloat16"),
+    ("d32_bf16", 2, 4, 333, 333, 32, True, "bfloat16"),
+    ("d64_bf16", 2, 8, 512, 512, 64, False, "bfloat16"),
+    ("d16_f16", 2, 4, 200, 200, 16, True, "float16"),
+    ("d32_f16", 2, 4, 333, 333, 32, True, "float16"),
+    ("d64_f16", 2, 8, 512, 512, 64, False, "float16"),
+    ("bottom_right_bf16", 1, 8, 300, 700, 128, True, "bfloat16"),
+    ("masked_rows_bf16", 1, 8, 700, 300, 128, True, "bfloat16"),
+]
+# the first is the slice's shape
 KERNEL_SHAPES = [
     ("slice", 1, 32, 2048, 2048, 128, True, "bfloat16"),
     ("ragged", 2, 32, 1000, 1000, 128, True, "bfloat16"),
     ("noncausal_f32", 2, 4, 256, 256, 64, False, "float32"),
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
     ("d16", 2, 4, 128, 128, 16, True, "float32"),
-]
+] + MMA_SHAPES
 # f32: another summation order than the plain version; bf16: the kernel's
 # output is rounded to 8 mantissa bits; lse is f32 in both
 O_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 LSE_TOL = 1e-3
+# O is also held row by row, as the gradients are (``grad_errors``): each
+# row's largest error within O_ROW_TOL of the row's largest reference
+# value, so that the small outputs of late causal rows (|O| about 0.03 at
+# T = 2048) are held as tightly as the large early ones; and the whole
+# tensor by ||O - O_ref|| / ||O_ref|| <= O_NORM_TOL.  bf16/f16 (unit
+# roundoff u = 2^-8 / 2^-11): the tensor-core kernel rounds P before P·V,
+# which moves each term of a row's sum by at most u of itself, and rounds
+# O, which moves each value by at most u: 2u.  f32: another summation
+# order, as for the gradients
+O_ROW_TOL = {"float32": 1e-4, "bfloat16": 2 * 2.0 ** -8,
+             "float16": 2 * 2.0 ** -11}
+O_NORM_TOL = {"float32": 1e-5, "bfloat16": 2 * 2.0 ** -8,
+              "float16": 2 * 2.0 ** -11}
 # (name, B, H, Tq, Tk, D, causal, dtype); the first is the training
 # slice's shape
 BWD_SHAPES = [
@@ -83,7 +122,7 @@ BWD_SHAPES = [
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
     ("masked_rows", 1, 2, 6, 4, 32, True, "float32"),
     ("d16", 2, 4, 128, 128, 16, True, "float32"),
-]
+] + MMA_SHAPES
 # Each gradient is held row by row (a row: one query's dq, one key's dk
 # or dv): the row's largest error within ROW_TOL of the row's largest
 # reference value, so that the small late rows of a causal gradient are
@@ -91,17 +130,52 @@ BWD_SHAPES = [
 # ||g - r|| / ||r|| <= NORM_TOL.  f32: another summation order; bf16:
 # the kernels' f32 results are rounded to 8 mantissa bits, at most 2^-8
 # (3.9e-3) of each value
-ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
+NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-3, "float16": 1e-3}
 # f32 training check: every gradient within this share of the largest
 # gradient of the same tensor; both routes are f32 (no TF32), the
 # attention sums run in other orders and the difference propagates
 # through two layers and the LM head
 TRAIN_GRAD_TOL = 1e-3
+# bf16 checks (2 layers): both routes run the same bf16 weights through the
+# same bf16 matmuls and differ inside attention only, where each rounds to
+# bf16 at other places (the kernels round P before it is normalised and
+# keep dP in f32; the dense route rounds the normalised P and, under
+# autograd, dP).  A rounding moves a value by at most u = 2^-8 of itself,
+# so a layer's attention output differs by about u in relative norm; two
+# layers carry that to the logits with little gain: logits by relative
+# norm within 2u a layer (4u = 1.6e-2); each gradient, which the backward
+# rounds at two more places (dS, dP), within 8u (3.1e-2)
+BF16_LOGIT_TOL = 4 * 2.0 ** -8
+BF16_GRAD_TOL = 8 * 2.0 ** -8
+# the bf16 checks' witness: the same weights cast to f32 (exactly) through
+# the dense route in f32 give a reference free of bf16 rounding; each bf16
+# route's distance to it (relative norm) is that route's own rounding.
+# The kernels' route must be as close to it as the dense route is, within
+# this factor, for the logits and for every gradient.  On an H100 the
+# ratio read 0.970-0.9994 over three seeds (logits and 21 gradients each;
+# both routes 3.3-8.1u from the f32 route, the gap between them at most
+# 6.3u: their roundings are largely shared, not independent), so a
+# fault that adds 1% of the logits' norm to the kernels' route (ratio
+# about 1.2) fails it
+BF16_WITNESS_RATIO = 1.1
+BF16_SEEDS = (SEED, SEED + 1, SEED + 2)
+# the training slice's four losses when its bf16 forward and dK/dV ran on
+# the f32 FMA designs (the same bits in every run), printed beside this
+# run's: the tensor-core designs round P and dS to bf16, so they move
+FMA_DESIGN_LOSSES = [12.569117546, 10.207187653, 8.730205536, 6.096673965]
 TRAIN_LAYERS = 16
 TRAIN_LR = 0.1
 REQUESTS = [(1, 100), (4, 512), (1, 1500)]  # (batch, prompt length)
 NEW_TOKENS = 32
+
+
+def design_name(design, dtype):
+    """A kernel design as the ``kernels`` line names it, such as
+    ``"mma.sync bf16"``."""
+    names = {"mma": "mma.sync", "fma": "FMA"}
+    short = {"float32": "f32", "float16": "f16", "bfloat16": "bf16"}
+    return f"{names[design]} {short[dtype]}"
 
 
 def emit(obj):
@@ -124,19 +198,55 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def time_ms(torch, fn, iters):
+def time_ms(torch, fn, iters, hide_host=False):
     """Mean device time of ``fn`` over ``iters`` back-to-back launches,
-    after one warm-up call (CUDA events)."""
+    after one warm-up call (CUDA events).  ``hide_host``: the window opens
+    behind a device-side sleep of 2e8 cycles (about 0.1 s at the H100's
+    1.98 GHz), so that the host has enqueued every call before the first
+    one runs and the events see device time only (for calls whose host
+    time exceeds their device time, such as torch autograd's backward)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hide_host:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters):
+    """Host time of one ``fn`` call in us: ``iters`` calls enqueued back
+    to back (no synchronisation between them), on the host's clock."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_only_ms(torch, lib_name, symbol, tensors, tail, iters):
+    """Device time of a kernel launched through its C entry point alone,
+    on the given (preallocated) tensors: no wrapper checks, no
+    allocation.  ``tail``: the entry point's int and float arguments
+    before the stream."""
+    from mxnet_tpu_torch import _kernels
+
+    lib = _kernels.load(lib_name)
+    fn = getattr(lib, symbol)
+    args = [t.data_ptr() for t in tensors] + list(tail) + \
+        [torch.cuda.current_stream().cuda_stream]
+
+    def launch():
+        _kernels.check(lib, fn(*args), symbol)
+
+    return time_ms(torch, launch, iters)
 
 
 def visible_pairs(tq, tk, causal):
@@ -194,12 +304,13 @@ def kernel_phase(torch, fa, failures):
         # it runs on f32 copies so its own output rounding is not counted
         o_ref, lse_ref = fa._fa_forward_plain(q.float(), k.float(),
                                               v.float(), causal, scale)
-        err_o = (o.float() - o_ref).abs().max().item()
+        err_o, share_o, norm_o = grad_errors(torch, o, o_ref)
         fin = torch.isfinite(lse_ref)
         fin_same = bool(torch.equal(fin, torch.isfinite(lse)))
         err_lse = (lse - lse_ref)[fin].abs().max().item() if fin.any() \
             else 0.0
         ok = (fin_same and math.isfinite(err_o) and err_o <= O_TOL[dt]
+              and share_o <= O_ROW_TOL[dt] and norm_o <= O_NORM_TOL[dt]
               and err_lse <= LSE_TOL and bool(torch.isfinite(o).all()))
         iters = 20 if tq * tk * b * h > 1e7 else 100
         k_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
@@ -210,30 +321,50 @@ def kernel_phase(torch, fa, failures):
         if tq == tk:  # torch SDPA's is_causal is top-left: equal here only
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
-                                                 scale=scale), iters)
+                                                 scale=scale), iters,
+                             hide_host=True)
         bnd, by = bound_ms(b, h, tq, tk, d, causal, dt, q.element_size())
+        flops = 4.0 * d * visible_pairs(tq, tk, causal) * b * h
         row = dict(phase="kernel", shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
-                   causal=causal, dtype=dt, max_abs_err_o=err_o,
+                   causal=causal, dtype=dt, design=fa._design(dtype),
+                   max_abs_err_o=err_o, row_share_o=share_o,
+                   rel_norm_o=norm_o,
                    max_abs_err_lse=err_lse, masked_rows_agree=fin_same,
-                   tol_o=O_TOL[dt], tol_lse=LSE_TOL, kernel_ms=k_ms,
+                   tol_o=O_TOL[dt], row_tol_o=O_ROW_TOL[dt],
+                   norm_tol_o=O_NORM_TOL[dt], tol_lse=LSE_TOL,
+                   kernel_ms=k_ms,
+                   tflops=flops / k_ms * 1e-9,
                    plain_ms=p_ms, library_ms=lib_ms, bound_ms=bnd,
                    bound_by=by, ok=ok)
+        if not rows:  # the slice shape: the wrapper's own cost
+            row["wrapper_host_us"] = host_us(torch, lambda: (
+                fa.flash_attention_fwd(q, k, v, causal, scale)), iters)
+            row["launch_only_ms"] = launch_only_ms(
+                torch, "flash_attention_fwd",
+                f"mxt_flash_attention_fwd_{fa._design(dtype)}",
+                (q, k, v, o, lse), (b * h, tq, tk, d, fa._DTYPE_CODES[dtype],
+                                    int(causal), scale), iters)
         emit(row)
         rows.append(row)
         if not ok:
-            failures.append(f"kernel {name}: O err {err_o}, lse err "
+            failures.append(f"kernel {name}: O err {err_o} (row share "
+                            f"{share_o}, norm {norm_o}), lse err "
                             f"{err_lse}, masked rows agree {fin_same}")
     return rows
 
 
 def grad_errors(torch, g, r):
-    """(max abs error, worst row share, relative norm) of a gradient ``g``
-    against its f32 reference ``r``; a row's share is its largest error
-    over its largest reference value (a zero row must match exactly)."""
+    """(max abs error, worst row share, relative norm) of a kernel's
+    result ``g`` (an attention output or a gradient) against its f32
+    reference ``r``; a row's share is its largest error
+    over its largest reference value, or over ``g``'s dtype's smallest
+    normal number where that is larger (f16 rounds smaller values to a
+    fixed step; for bf16 and f32 a zero row must match exactly), as
+    ``tests/test_torch_kernels_cuda.py`` holds it."""
     diff = (g.float() - r).abs()
-    row_err, row_ref = diff.amax(-1), r.abs().amax(-1)
-    share = torch.where(row_ref > 0, row_err / row_ref.clamp_min(1e-30),
-                        torch.where(row_err > 0, math.inf, 0.0))
+    floor = torch.finfo(g.dtype).tiny
+    row_err, row_ref = diff.amax(-1), r.abs().amax(-1).clamp_min(floor)
+    share = row_err / row_ref
     norm = (torch.linalg.vector_norm(g.float() - r) /
             torch.linalg.vector_norm(r).clamp_min(1e-30))
     return diff.max().item(), share.max().item(), norm.item()
@@ -291,13 +422,14 @@ def backward_phase(torch, fa, failures):
             sdpa = torch.nn.functional.scaled_dot_product_attention
             qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
 
-            def lib_fwd():
-                return sdpa(qr, kr, vr, is_causal=causal, scale=scale)
-
+            # its backward alone (all three gradients), on one retained
+            # graph
+            out = sdpa(qr, kr, vr, is_causal=causal, scale=scale)
             row["library_ms"] = time_ms(
-                torch, lambda: torch.autograd.grad(lib_fwd(), (qr, kr, vr),
-                                                   do), iters) - \
-                time_ms(torch, lib_fwd, iters)
+                torch, lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                                   retain_graph=True),
+                iters, hide_host=True)
+            del out
         shape = (b, h, tq, tk, d, causal, dt, q.element_size())
         row["bound_ms"], row["bound_by"] = bwd_bound_ms(
             *shape, products=5, reads_o=True, writes=tq + 2 * tk)
@@ -305,6 +437,21 @@ def backward_phase(torch, fa, failures):
             *shape, products=3, reads_o=False, writes=tq)
         row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
             *shape, products=4, reads_o=False, writes=2 * tk)
+        pairs = visible_pairs(tq, tk, causal) * b * h
+        row["dkv_design"] = fa._design(dtype)
+        row["dkv_tflops"] = 8.0 * d * pairs / row["dkv_ms"] * 1e-9
+        row["dq_tflops"] = 6.0 * d * pairs / row["dq_ms"] * 1e-9
+        if not rows:  # the slice shape: the wrapper's own cost
+            row["dkv_wrapper_host_us"] = host_us(
+                torch, lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, causal, scale), iters)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            row["dkv_launch_only_ms"] = launch_only_ms(
+                torch, "flash_attention_bwd",
+                f"mxt_flash_attention_bwd_dkv_{fa._design(dtype)}",
+                (q, k, v, do, lse, delta, dk, dv),
+                (b * h, tq, tk, d, fa._DTYPE_CODES[dtype], int(causal),
+                 scale), iters)
         row["ok"] = ok
         emit(row)
         rows.append(row)
@@ -334,6 +481,27 @@ def _counters(fa):
             fa.flash_attention_bwd_dkv)
 
 
+def _mma_counts(fa):
+    """Launches of the tensor-core designs: (forward, dK/dV); the f32 FMA
+    designs' are the rest of each kernel's ``.launches``."""
+    return [fa.flash_attention_fwd.launches_mma,
+            fa.flash_attention_bwd_dkv.launches_mma]
+
+
+def _zero_counts(fa):
+    """Every launch count of the flash kernels (total and per design)."""
+    for c in _counters(fa):
+        for key in [a for a in vars(c) if a.startswith("launches")]:
+            setattr(c, key, 0)
+
+
+def _rel_norm(torch, a, b):
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm(a - b) /
+            torch.linalg.vector_norm(b).clamp_min(1e-30)).item()
+
+
 def _ids_labels(torch, mx, vocab, t, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -343,7 +511,7 @@ def _ids_labels(torch, mx, vocab, t, seed):
 
 
 def f32_train_phase(torch, mx, llama, fa, failures):
-    """Phase 6: full width, 2 layers, f32, T=1024: one loss and backward
+    """Phase 7: full width, 2 layers, f32, T=1024: one loss and backward
     through the kernels (flash) and through dense torch autograd (sdpa),
     same weights and batch; the loss and every gradient compared."""
     mx.random.seed(SEED)
@@ -352,12 +520,13 @@ def f32_train_phase(torch, mx, llama, fa, failures):
     ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 1024,
                               SEED + 4)
     params = net._collect_params_with_prefix()
-    before = [c.launches for c in _counters(fa)]
+    _zero_counts(fa)
     loss_flash = _lm_loss(mx, net, ids, labels)
-    launched = [c.launches - n for c, n in zip(_counters(fa), before)]
     grads = {k: p.grad()._data.clone() for k, p in params.items()}
     net.config.attn_mode = "sdpa"
     loss_sdpa = _lm_loss(mx, net, ids, labels)
+    launched = [c.launches for c in _counters(fa)]  # the FMA designs'
+    mma = _mma_counts(fa)
     worst, worst_name = 0.0, None
     for k, p in params.items():
         ref = p.grad()._data
@@ -365,24 +534,102 @@ def f32_train_phase(torch, mx, llama, fa, failures):
                  ref.abs().max().clamp_min(1e-30)).item()
         if not share <= worst:
             worst, worst_name = share, k
-    ok = launched == [2, 2, 2] and math.isfinite(loss_flash) and \
+    ok = launched == [2, 2, 2] and mma == [0, 0] and \
+        math.isfinite(loss_flash) and \
         abs(loss_flash - loss_sdpa) <= 1e-5 * abs(loss_sdpa) and \
         worst <= TRAIN_GRAD_TOL
     emit(dict(phase="f32_train_check", layers=2, T=1024,
               launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+              launches_mma=dict(zip(("fwd", "dkv"), mma)),
               loss_flash=loss_flash, loss_sdpa=loss_sdpa,
               params=len(params), worst_grad_err_share=worst,
               worst_param=worst_name, tol=TRAIN_GRAD_TOL, ok=ok))
     if not ok:
-        failures.append(f"f32 training check: launches {launched}, loss "
+        failures.append(f"f32 training check: launches {launched} "
+                        f"(tensor-core {mma}), loss "
                         f"{loss_flash} vs {loss_sdpa}, worst gradient "
                         f"{worst} ({worst_name})")
     del net, grads, params
     free_card(torch)
 
 
+def _route(torch, mx, net, ids, labels, params, mode):
+    """``net(ids)`` and one loss and backward through ``attn_mode=mode``:
+    (logits, loss, {name: gradient})."""
+    net.config.attn_mode = mode
+    logits = net(ids)._data
+    loss = _lm_loss(mx, net, ids, labels)
+    return logits, loss, {k: p.grad()._data.clone()
+                          for k, p in params.items()}
+
+
+def bf16_phase(torch, mx, llama, fa, failures):
+    """Phase 7b: full width, 2 layers, bf16, T=1024, at each seed of
+    ``BF16_SEEDS``: ``net(ids)`` and one loss and backward through the
+    tensor-core kernels, against the dense route (``attn_mode="sdpa"``)
+    on the same weights, logits and every gradient held by relative norm;
+    then the witness, both routes against the dense route in f32 on the
+    same weights."""
+    for seed in BF16_SEEDS:
+        mx.random.seed(seed)
+        net = llama.llama3_8b(num_layers=2)
+        net.cast("bfloat16")
+        net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+        ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 1024,
+                                  seed + 12)
+        params = net._collect_params_with_prefix()
+        _zero_counts(fa)
+        flash = _route(torch, mx, net, ids, labels, params, "flash")
+        launched = [c.launches for c in _counters(fa)] + _mma_counts(fa)
+        dense = _route(torch, mx, net, ids, labels, params, "sdpa")
+        net.cast("float32")
+        ref = _route(torch, mx, net, ids, labels, params, "sdpa")
+        launched_dense = [c.launches for c in _counters(fa)] + \
+            _mma_counts(fa)
+        # relative norms: kernels vs dense, kernels vs f32, dense vs f32
+        gap = {"logits": _rel_norm(torch, flash[0], dense[0])}
+        to_ref = {"logits": (_rel_norm(torch, flash[0], ref[0]),
+                             _rel_norm(torch, dense[0], ref[0]))}
+        for k in params:
+            gap[k] = _rel_norm(torch, flash[2][k], dense[2][k])
+            to_ref[k] = (_rel_norm(torch, flash[2][k], ref[2][k]),
+                         _rel_norm(torch, dense[2][k], ref[2][k]))
+        ratio = {k: f / max(d, 1e-30) for k, (f, d) in to_ref.items()}
+        worst = max(params, key=gap.get)
+        worst_ratio = max(ratio, key=ratio.get)
+        loss_flash, loss_sdpa = flash[1], dense[1]
+        # 4 forward launches (net(ids), then the loss), 2 dQ, 2 dK/dV, all
+        # tensor-core; the dense and f32 routes launch none
+        ok = launched == [4, 2, 2, 4, 2] and launched_dense == launched \
+            and math.isfinite(loss_flash) and \
+            gap["logits"] <= BF16_LOGIT_TOL and \
+            abs(loss_flash - loss_sdpa) <= BF16_LOGIT_TOL * abs(loss_sdpa) \
+            and gap[worst] <= BF16_GRAD_TOL and \
+            ratio[worst_ratio] <= BF16_WITNESS_RATIO
+        emit(dict(phase="bf16_check", seed=seed, layers=2, T=1024,
+                  launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  launches_mma=dict(zip(("fwd", "dkv"), launched[3:])),
+                  logit_rel_norm=gap["logits"], loss_flash=loss_flash,
+                  loss_sdpa=loss_sdpa, loss_f32=ref[1], params=len(params),
+                  worst_grad_rel_norm=gap[worst], worst_param=worst,
+                  tol_logits=BF16_LOGIT_TOL, tol_grads=BF16_GRAD_TOL,
+                  witness_flash_dense_to_f32=to_ref,
+                  worst_witness_ratio=ratio[worst_ratio],
+                  worst_witness_param=worst_ratio,
+                  tol_witness_ratio=BF16_WITNESS_RATIO, ok=ok))
+        if not ok:
+            failures.append(
+                f"bf16 check seed {seed}: launches {launched}, "
+                f"{launched_dense}, logits {gap['logits']}, loss "
+                f"{loss_flash} vs {loss_sdpa}, worst gradient {gap[worst]} "
+                f"({worst}), witness ratio {ratio[worst_ratio]} "
+                f"({worst_ratio})")
+        del net, params, flash, dense, ref
+        free_card(torch)
+
+
 def train_phase(torch, mx, llama, fa, failures):
-    """Phase 8: llama3_8b at full width, 16 layers, bf16, B=1, T=2048,
+    """Phase 9: llama3_8b at full width, 16 layers, bf16, B=1, T=2048,
     SGD with momentum — the training main path."""
     free_card(torch)
     t = time.perf_counter()
@@ -399,8 +646,7 @@ def train_phase(torch, mx, llama, fa, failures):
               memory_allocated=torch.cuda.memory_allocated()))
     ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
                               SEED + 5)
-    for c in _counters(fa):
-        c.launches = 0  # the main path starts here
+    _zero_counts(fa)  # the main path starts here
     losses, step_ms, peaks = [], [], []
 
     def phase_end(stamps, phase_peaks):
@@ -413,6 +659,7 @@ def train_phase(torch, mx, llama, fa, failures):
 
     for step in range(4):  # one warm-up, then three timed steps
         before = [c.launches for c in _counters(fa)]
+        before_mma = _mma_counts(fa)
         stamps, step_peaks = [], []
         phase_end(stamps, [])
         loss_nd = _lm_forward(mx, net, ids, labels)
@@ -427,36 +674,43 @@ def train_phase(torch, mx, llama, fa, failures):
                                      zip(stamps, stamps[1:]))
         ms = (stamps[-1] - stamps[0]) * 1e3
         launched = [c.launches - n for c, n in zip(_counters(fa), before)]
+        mma = [c - n for c, n in zip(_mma_counts(fa), before_mma)]
         losses.append(loss)
         if step:
             step_ms.append(ms)
-        ok = math.isfinite(loss) and launched == [TRAIN_LAYERS] * 3
+        ok = math.isfinite(loss) and launched == [TRAIN_LAYERS] * 3 and \
+            mma == [TRAIN_LAYERS] * 2
         emit(dict(phase="train_step", step=step, warmup=step == 0,
                   loss=loss, ms=ms, tokens_per_s=2048 / ms * 1e3,
                   forward_ms=fwd_ms, backward_ms=bwd_ms,
                   update_ms=update_ms,
                   launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  launches_mma=dict(zip(("fwd", "dkv"), mma)),
                   max_memory_allocated=dict(zip(
                       ("forward", "backward", "update"), step_peaks)),
                   ok=ok))
         if not ok:
             failures.append(f"train step {step}: loss {loss}, launches "
-                            f"{launched}")
+                            f"{launched}, tensor-core launches {mma}")
     launches = [c.launches for c in _counters(fa)]  # the main path ends
+    launches_mma = _mma_counts(fa)
     emit(dict(phase="train_memory", max_memory_allocated=max(peaks)))
     if not losses[-1] < losses[0]:
         failures.append(f"training loss did not fall: {losses}")
-    if min(launches) == 0:
+    if min(launches + launches_mma) == 0:
         failures.append(f"the training path left a kernel unlaunched: "
-                        f"{launches}")
-    emit(dict(phase="train_summary", losses=losses, step_ms=step_ms,
+                        f"{launches}, tensor-core {launches_mma}")
+    emit(dict(phase="train_summary", losses=losses,
+              losses_fma_design=FMA_DESIGN_LOSSES,
+              step_ms=step_ms,
               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              launches_mma=dict(zip(("fwd", "dkv"), launches_mma)),
               ok=losses[-1] < losses[0]))
-    return launches
+    return launches, launches_mma
 
 
 def f32_phase(torch, mx, llama, fa, failures):
-    """Phase 4: full width, 2 layers, f32: the flash forward against the
+    """Phase 6: full width, 2 layers, f32: the flash forward against the
     decoder's dense prefill on the same ids."""
     mx.random.seed(SEED)
     net = llama.llama3_8b(num_layers=2)
@@ -465,27 +719,31 @@ def f32_phase(torch, mx, llama, fa, failures):
     gen.manual_seed(SEED + 1)
     ids = torch.randint(0, net.config.vocab_size, (1, 1024), generator=gen,
                         device="cuda", dtype=torch.int32)
-    before = fa.flash_attention_fwd.launches
+    _zero_counts(fa)
     logits = net(mx.nd.array(ids))._data[:, -1].float()
-    launched = fa.flash_attention_fwd.launches - before
+    launched = fa.flash_attention_fwd.launches  # the FMA design's
+    mma = fa.flash_attention_fwd.launches_mma
     dec = llama.LlamaDecoder(net, max_len=1024)
     with torch.no_grad():
         _, ref = dec._prefill_impl(dec._weights(), ids, 1024)
     err = (logits - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    ok = launched == 2 and err <= 1e-3 * scale and math.isfinite(err)
+    ok = launched == 2 and mma == 0 and err <= 1e-3 * scale and \
+        math.isfinite(err)
     emit(dict(phase="f32_check", layers=2, T=1024, launches=launched,
+              launches_mma=mma,
               max_abs_err=err, max_abs_logit=scale,
               tol=1e-3 * scale, ok=ok))
     if not ok:
-        failures.append(f"f32 check: launches {launched}, err {err} vs "
+        failures.append(f"f32 check: launches {launched} (tensor-core "
+                        f"{mma}), err {err} vs "
                         f"{1e-3 * scale}")
     del net, dec, logits, ref
     free_card(torch)
 
 
 def slice_phase(torch, mx, llama, fa, failures):
-    """Phase 5: llama3_8b, 32 layers, bf16 — the main path."""
+    """Phase 8: llama3_8b, 32 layers, bf16 — the main path."""
     t = time.perf_counter()
     mx.random.seed(SEED)
     net = llama.llama3_8b()
@@ -499,28 +757,30 @@ def slice_phase(torch, mx, llama, fa, failures):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0  # the main path starts here
+    _zero_counts(fa)  # the main path starts here
 
     ids = mx.nd.array(torch.randint(0, cfg.vocab_size, (1, 2048),
                                     generator=gen, device="cuda",
                                     dtype=torch.int32))
     for run_i in range(2):  # the first call also warms up cuBLAS
         before = fa.flash_attention_fwd.launches
+        before_mma = fa.flash_attention_fwd.launches_mma
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits = net(ids)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         launched = fa.flash_attention_fwd.launches - before
+        mma = fa.flash_attention_fwd.launches_mma - before_mma
         finite = bool(torch.isfinite(logits._data).all())
-        ok = launched == cfg.num_layers and finite and \
-            logits.shape == (1, 2048, cfg.vocab_size)
+        ok = launched == cfg.num_layers and mma == cfg.num_layers and \
+            finite and logits.shape == (1, 2048, cfg.vocab_size)
         emit(dict(phase="prompt_forward", run=run_i, B=1, T=2048,
-                  launches=launched, finite=finite, ms=ms,
+                  launches=launched, launches_mma=mma, finite=finite, ms=ms,
                   tokens_per_s=2048 / ms * 1e3, ok=ok))
         if not ok:
             failures.append(f"prompt forward: launches {launched}, "
-                            f"finite {finite}")
+                            f"tensor-core {mma}, finite {finite}")
         del logits
 
     for b, t0 in REQUESTS:
@@ -560,11 +820,13 @@ def slice_phase(torch, mx, llama, fa, failures):
             failures.append(f"request B={b} t0={t0}: bad output")
         del out, w
     launches = fa.flash_attention_fwd.launches  # the main path ends here
+    launches_mma = fa.flash_attention_fwd.launches_mma
     emit(dict(phase="memory",
               max_memory_allocated=torch.cuda.max_memory_allocated()))
-    if launches == 0:
-        failures.append("the main path launched no flash_attention_fwd")
-    return launches
+    if launches == 0 or launches_mma == 0:
+        failures.append("the main path launched no flash_attention_fwd "
+                        f"(tensor-core launches {launches_mma})")
+    return launches, launches_mma
 
 
 # The fused 1x1 conv + BN + ReLU kernel at ResNet-50 v1's shapes (B=128,
@@ -947,8 +1209,9 @@ def main():
     fused = fused_kernel_phase(torch, cbr, failures)
     f32_phase(torch, mx, llama, fa, failures)
     f32_train_phase(torch, mx, llama, fa, failures)
-    infer_launches = slice_phase(torch, mx, llama, fa, failures)
-    train_launches = train_phase(torch, mx, llama, fa, failures)
+    bf16_phase(torch, mx, llama, fa, failures)
+    infer_launches, infer_mma = slice_phase(torch, mx, llama, fa, failures)
+    train_launches, train_mma = train_phase(torch, mx, llama, fa, failures)
     resnet_f32_phase(torch, mx, vision, cbr, failures)
     resnet18_f32_train_phase(torch, mx, vision, failures)
     fused_launches = resnet_infer_phase(torch, mx, vision, cbr, failures)
@@ -957,11 +1220,18 @@ def main():
     s, bs = rows[0], brows[0]
     src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
     replaces = "mxnet_tpu/ops/flash_attention.py:{}"
+    # fwd and dK/dV: the design that ran at the slice shape, and the main
+    # paths' launches of each design (the f32 FMA design's are the rest)
+    fwd_launches = infer_launches + train_launches[0]
+    fwd_mma = infer_mma + train_mma[0]
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src.format("fwd"), "replaces": replaces.format(132),
-         "launches": infer_launches + train_launches[0],
+         "design": design_name(s["design"], s["dtype"]),
+         "launches": fwd_launches, "launches_mma": fwd_mma,
+         "launches_fma": fwd_launches - fwd_mma,
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
+         "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
          "bound_by": s["bound_by"], "library_ms": s["library_ms"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -972,9 +1242,12 @@ def main():
          "bound_by": bs["dq_bound_by"], "library_ms": bs["library_ms"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(302),
-         "launches": train_launches[2],
+         "design": design_name(bs["dkv_design"], bs["dtype"]),
+         "launches": train_launches[2], "launches_mma": train_mma[1],
+         "launches_fma": train_launches[2] - train_mma[1],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
-         "ms": bs["dkv_ms"], "plain_ms": bs["plain_ms"],
+         "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
+         "plain_ms": bs["plain_ms"],
          "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
          "library_ms": bs["library_ms"]},
         {"name": "fused_matmul_affine_relu", "route": "cuda",

@@ -3,14 +3,17 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``build/``
 beside this file (listed in ``.gitignore``), and loaded with ``ctypes``.
-A library newer than its source is reused.  Sources build in parallel,
-one ``nvcc`` per source.  Nothing here runs at import time: this module
-imports on machines without ``nvcc`` or a card.
+A library newer than its source and every local header the source
+includes (``#include "..."``, followed transitively: the flash-attention
+sources share ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
+in parallel, one ``nvcc`` per source.  Nothing here runs at import time:
+this module imports on machines without ``nvcc`` or a card.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,10 +30,15 @@ SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu",
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_INT] * 6 + [ctypes.c_float, _PTR]  # bh .. causal, scale, stream
 #: library name -> {C entry point: argtypes}; each returns a cudaError_t
+#  (``_mma``: the tensor-core design for bf16/f16; ``_fma``: f32)
 SYMBOLS = {
-    "flash_attention_fwd": {"mxt_flash_attention_fwd": [_PTR] * 5 + _TAIL},
+    "flash_attention_fwd": {"mxt_flash_attention_fwd_mma": [_PTR] * 5 + _TAIL,
+                            "mxt_flash_attention_fwd_fma":
+                                [_PTR] * 5 + _TAIL},
     "flash_attention_bwd": {"mxt_flash_attention_bwd_dq": [_PTR] * 7 + _TAIL,
-                            "mxt_flash_attention_bwd_dkv":
+                            "mxt_flash_attention_bwd_dkv_mma":
+                                [_PTR] * 8 + _TAIL,
+                            "mxt_flash_attention_bwd_dkv_fma":
                                 [_PTR] * 8 + _TAIL},
     # x, w, scale, bias, out, M, N, K, dtype, stream
     "fused_matmul_affine_relu": {"mxt_fused_matmul_affine_relu":
@@ -61,9 +69,32 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _dependencies(src: Path) -> list:
+    """``src`` and the local headers it includes, transitively (a quoted
+    ``#include`` resolves beside the file that names it, as in nvcc)."""
+    deps, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in deps:
+            continue
+        deps.append(path)
+        todo.extend(path.parent / inc
+                    for inc in _INCLUDE.findall(path.read_text()))
+    return deps
+
+
 def _stale(name: str) -> bool:
-    lib, src = _lib_path(name), _PKG / SOURCES[name]
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """The library is missing or older than its source or a header the
+    source includes."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < dep.stat().st_mtime
+               for dep in _dependencies(_PKG / SOURCES[name]))
 
 
 def build(names=None, verbose=False) -> dict:
@@ -110,7 +141,7 @@ def _declare(name, lib):
 
 def load(name: str):
     """The loaded library ``name``, built first if it is missing or
-    older than its source."""
+    older than its source or one of its headers."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

@@ -10,6 +10,12 @@ kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
 PyTorch versions ``_fa_forward_plain`` and ``_fa_backward_plain``.  There
 is no fallback from one to the other and no switch between them.
 
+The forward and dK/dV kernels have two designs each, chosen here by dtype
+(``_design``): bf16 and f16 run on the tensor cores (``mma.sync``; P and
+dS are rounded to the input dtype before the products that take them,
+which ``round_p=True`` mirrors in the plain versions), f32 on the FMA pipes
+in exact f32.  The dQ kernel has one design for every dtype.
+
 ``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
 whose forward saves (q, k, v, O, lse) and whose backward recomputes the
 probabilities from lse in the two backward kernels.
@@ -48,11 +54,18 @@ def _sdpa_ref(q, k, v, causal, scale):
     return torch.matmul(p.to(v.dtype), v)
 
 
-def _fa_forward_plain(q, k, v, causal, scale, block=512):
+def _round_to(x, dtype, round_p):
+    """``x`` rounded to ``dtype`` and back to f32 when ``round_p``."""
+    return x.to(dtype).float() if round_p else x
+
+
+def _fa_forward_plain(q, k, v, causal, scale, block=512, round_p=False):
     """Plain PyTorch version of the kernel: the reference's
     ``_fa_forward_chunked`` online softmax over k blocks, extended with
     the per-row lse.  Returns (O in q's dtype, lse (B, H, Tq) f32); a
-    row that sees no key gets O = 0 and lse = -inf."""
+    row that sees no key gets O = 0 and lse = -inf.  ``round_p`` rounds
+    P to the input dtype before the PV product, as the tensor-core kernel
+    does (the row sums stay f32)."""
     tq, tk = q.shape[-2], k.shape[-2]
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full(q.shape[:-1], float("-inf"), device=q.device)
@@ -72,7 +85,8 @@ def _fa_forward_plain(q, k, v, causal, scale, block=512):
         corr = torch.where(torch.isfinite(m), torch.exp(m - safe),
                            torch.zeros_like(m))
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(p, vf[..., k0:k1, :])
+        acc = acc * corr[..., None] + torch.matmul(
+            _round_to(p, v.dtype, round_p), vf[..., k0:k1, :])
         m = m_new
     out = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
     finite = torch.isfinite(m) & (l > 0)
@@ -84,13 +98,17 @@ def _fa_forward_plain(q, k, v, causal, scale, block=512):
     return out, lse
 
 
-def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512):
+def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
+                       round_p=False):
     """Plain PyTorch version of the backward kernels: the reference's
     recompute backward (``_fa_backward`` pass 2) over k blocks, with the
     probabilities rebuilt from the forward's saved lse instead of a
     second online-softmax pass, as the kernels do.  f32 arithmetic;
     returns (dq, dk, dv) in q's, k's and v's dtypes.  Rows with
-    lse = -inf (they see no key) get dq = 0 and add nothing to dk, dv."""
+    lse = -inf (they see no key) get dq = 0 and add nothing to dk, dv.
+    ``round_p`` rounds P^T and dS^T to the input dtype before the dV and
+    dK products, as the tensor-core dK/dV kernel does (dQ's kernel keeps
+    dS in f32)."""
     tq, tk = q.shape[-2], k.shape[-2]
     qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
     delta = _delta(o, do)
@@ -107,11 +125,13 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512):
             keep = keep & _causal_keep(tq, tk, k0, k1, q.device)
         p = torch.where(keep, torch.exp(s - lse_safe[..., None]),
                         torch.zeros_like(s))
-        dv[..., k0:k1, :] = torch.matmul(p.transpose(-1, -2), gf)
+        dv[..., k0:k1, :] = torch.matmul(
+            _round_to(p, q.dtype, round_p).transpose(-1, -2), gf)
         dp = torch.matmul(gf, vb.transpose(-1, -2))
         ds = p * (dp - delta[..., None]) * scale
         dq += torch.matmul(ds, kb)
-        dk[..., k0:k1, :] = torch.matmul(ds.transpose(-1, -2), qf)
+        dk[..., k0:k1, :] = torch.matmul(
+            _round_to(ds, q.dtype, round_p).transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -138,16 +158,43 @@ def _check_kernel_operands(q, k, v):
         raise MXNetError("flash_attention: q, k and v must be contiguous")
 
 
+def _design(dtype):
+    """The kernel design a dtype launches: ``"mma"`` (bf16, f16: the
+    tensor cores) or ``"fma"`` (f32: the FMA pipes, exact f32)."""
+    return "fma" if dtype == torch.float32 else "mma"
+
+
+def _check_aligned(*tensors):
+    """The tensor-core kernels copy tiles 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise MXNetError("flash_attention: the bf16/f16 kernels need "
+                         "16-byte aligned operands (a storage offset that "
+                         "is not a multiple of 8 elements)")
+
+
+def _count(fn, design):
+    """One launch of ``fn``'s kernel of ``design``: ``fn.launches`` counts
+    every launch, ``fn.launches_mma`` the tensor-core design's (the f32
+    FMA design's are the difference)."""
+    fn.launches += 1
+    if design == "mma":
+        fn.launches_mma += 1
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Attention forward over (B, H, T, D) tensors → (O, lse).
 
-    A CUDA tensor launches the kernel (``flash_attention_fwd.launches``
-    counts the launches); a CPU tensor takes ``_fa_forward_plain``."""
+    A CUDA tensor launches the kernel of its dtype's design (``_design``;
+    ``flash_attention_fwd.launches`` counts the launches); a CPU tensor
+    takes ``_fa_forward_plain``."""
     scale = _scale(q, scale)
     if q.device.type == "cpu" and k.device.type == "cpu" and \
             v.device.type == "cpu":
         return _fa_forward_plain(q, k, v, causal, scale)
     _check_kernel_operands(q, k, v)
+    design = _design(q.dtype)
+    if design == "mma":
+        _check_aligned(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     out = torch.empty_like(q)
@@ -155,16 +202,17 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     lib = _kernels.load("flash_attention_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.mxt_flash_attention_fwd(
+        err = getattr(lib, f"mxt_flash_attention_fwd_{design}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b * h, tq, tk, d, _DTYPE_CODES[q.dtype],
             int(bool(causal)), scale, stream)
-    _kernels.check(lib, err, "flash_attention_fwd launch")
-    flash_attention_fwd.launches += 1
+    _kernels.check(lib, err, f"flash_attention_fwd ({design}) launch")
+    _count(flash_attention_fwd, design)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_mma = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
@@ -214,6 +262,8 @@ def _launch_bwd(symbol, outs, q, k, v, do, lse, delta, causal, scale):
             delta.is_contiguous()):
         raise MXNetError("flash_attention backward: dO, lse and delta must "
                          "be contiguous")
+    if symbol.endswith("_mma"):
+        _check_aligned(q, k, v, do)
     b, h, tq, d = q.shape
     lib = _kernels.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
@@ -237,17 +287,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
-    """The dK/dV kernel on CUDA tensors → (dk, dv) in k's and v's dtype;
-    ``.launches`` counts its launches."""
+    """The dK/dV kernel of the dtype's design on CUDA tensors → (dk, dv)
+    in k's and v's dtype; ``.launches`` counts its launches."""
+    design = _design(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("mxt_flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse,
-                delta, causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    _launch_bwd(f"mxt_flash_attention_bwd_dkv_{design}", (dk, dv), q, k, v,
+                do, lse, delta, causal, scale)
+    _count(flash_attention_bwd_dkv, design)
     return dk, dv
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_mma = 0
 
 
 def _scale(q, scale):

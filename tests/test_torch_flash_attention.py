@@ -4,11 +4,18 @@ forward and backward.
 The plain PyTorch versions (``_fa_forward_plain``, ``_fa_backward_plain``)
 are held against the real Pallas kernels run in interpret mode on the
 CPU, and against the chunked and dense JAX paths (and ``jax.vjp`` of the
-dense reference) on the shapes the Pallas gate never takes.  The CUDA
-kernels themselves are compared with the plain versions on the card in
-``test_torch_kernels_cuda.py``.
+dense reference) on the shapes the Pallas gate never takes.  With
+``round_p=True`` the plain versions round P (and dS) to bf16 as the
+tensor-core kernels do; held against the Pallas kernels at bf16 inputs
+within ``chip_smoke.py``'s card tolerances, that shows the rounding fits
+the card check.  The CUDA kernels themselves are compared with the plain
+versions on the card in ``test_torch_kernels_cuda.py``.
 """
+import contextlib
+import importlib.util
 import math
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,8 +25,19 @@ import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops import flash_attention as jfa
+from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tfa
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module, for its tolerances (it imports
+    nothing at the top that needs a card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _qkv(seed, b, h, tq, tk, d):
@@ -215,3 +233,115 @@ def test_autograd_function_matches_torch_autograd_of_sdpa_ref(causal, tq,
         assert (g - r).abs().max().item() <= 1e-5
     assert tfa.flash_attention_bwd_dq.launches == 0
     assert tfa.flash_attention_bwd_dkv.launches == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_round_p_plain_matches_interpret_pallas_at_bf16(causal, d):
+    """bf16 inputs: the plain versions with ``round_p=True`` (P rounded to
+    bf16 before PV; P^T and dS^T before the dV and dK products) against
+    the Pallas kernels in interpret mode (f32 P), within chip_smoke.py's
+    O_TOL, LSE_TOL, ROW_TOL and NORM_TOL, and O against the plain version
+    on f32 copies within O_ROW_TOL and O_NORM_TOL: the rounding the
+    tensor-core kernels add fits the check the card holds them to."""
+    cs = _chip_smoke()
+    b, h, t = 1, 2, 256
+    rng = np.random.RandomState(30 + d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, t, d)).astype(
+        np.float32)).bfloat16() for _ in range(4))
+
+    def jax_bf16(x):
+        return jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+
+    def to_torch(x):
+        return torch.from_numpy(np.asarray(x).astype(np.float32))
+
+    scale = 1.0 / math.sqrt(d)
+    o_ref, lse_ref = jfa._fa_forward_pallas(
+        jax_bf16(q), jax_bf16(k), jax_bf16(v), causal, scale, with_lse=True,
+        interpret=True)
+    o, lse = tfa._fa_forward_plain(q, k, v, causal, scale, round_p=True)
+    assert o.dtype == torch.bfloat16
+    assert not torch.equal(o, tfa._fa_forward_plain(q, k, v, causal,
+                                                    scale)[0])
+    assert (o.float() - to_torch(o_ref)).abs().max().item() <= \
+        cs.O_TOL["bfloat16"]
+    assert (lse - to_torch(lse_ref)).abs().max().item() <= cs.LSE_TOL
+    # O row by row and by norm, as the card holds the kernel: against the
+    # plain version on f32 copies (f32 P, O not rounded)
+    o_f32, _ = tfa._fa_forward_plain(q.float(), k.float(), v.float(), causal,
+                                     scale)
+    _, share, norm = cs.grad_errors(torch, o, o_f32)
+    assert share <= cs.O_ROW_TOL["bfloat16"], share
+    assert norm <= cs.O_NORM_TOL["bfloat16"], norm
+
+    ref = jfa._fa_backward_pallas(
+        jax_bf16(q), jax_bf16(k), jax_bf16(v), o_ref, jax_bf16(do), lse_ref,
+        causal, scale, interpret=True)
+    args = (q, k, v, to_torch(o_ref).bfloat16(), do, to_torch(lse_ref),
+            causal, scale)
+    got = tfa._fa_backward_plain(*args, round_p=True)
+    # the rounding touches dK and dV only: dQ's kernel keeps dS in f32
+    assert torch.equal(got[0], tfa._fa_backward_plain(*args)[0])
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == torch.bfloat16
+        _, share, norm = cs.grad_errors(torch, g, to_torch(r))
+        assert norm <= cs.NORM_TOL["bfloat16"], norm
+        # dQ by norm only: its row 0 is exactly 0 in the Pallas result (a
+        # causal query 0 sees key 0 alone, and dP - delta cancels) and
+        # f32 noise of about 2e-7 in the plain one, with or without round_p
+        if i:
+            assert share <= cs.ROW_TOL["bfloat16"], share
+
+
+def test_wrapper_round_p_default_is_off():
+    """The CPU route of the wrappers keeps exact f32 P (round_p=False)."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(31, 1, 2, 64,
+                                                            64, 32))
+    o, _ = tfa.flash_attention_fwd(q, k, v, True)
+    assert torch.equal(o, tfa._fa_forward_plain(q, k, v, True,
+                                                1.0 / math.sqrt(32))[0])
+
+
+def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
+    """bf16 and f16 launch the tensor-core entry points (``_mma``), f32 the
+    FMA ones (``_fma``); the dQ kernel is one for every dtype.  Driven
+    with meta tensors and a stand-in library that records the C entry
+    point each wrapper calls; each design counts its own launches."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, symbol):
+            def entry(*args):
+                calls.append(symbol)
+                return 0
+            return entry
+
+    monkeypatch.setattr(_kernels, "load", lambda name: Lib())
+    monkeypatch.setattr(tfa, "_check_kernel_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    fwd, dq, dkv = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                    tfa.flash_attention_bwd_dkv)
+    for fn in (fwd, dq, dkv):
+        for key in [a for a in vars(fn) if a.startswith("launches")]:
+            monkeypatch.setattr(fn, key, 0)
+    for dtype, design in [(torch.bfloat16, "mma"), (torch.float16, "mma"),
+                          (torch.float32, "fma")]:
+        assert tfa._design(dtype) == design
+        q = torch.empty(1, 2, 8, 32, device="meta", dtype=dtype)
+        lse = torch.empty(1, 2, 8, device="meta")
+        tfa.flash_attention_fwd(q, q, q, True)
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse, True, 0.3)
+        tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse, True, 0.3)
+        assert calls[-3:] == [f"mxt_flash_attention_fwd_{design}",
+                              "mxt_flash_attention_bwd_dq",
+                              f"mxt_flash_attention_bwd_dkv_{design}"]
+    assert (fwd.launches, fwd.launches_mma) == (3, 2)
+    assert (dkv.launches, dkv.launches_mma) == (3, 2)
+    assert dq.launches == 3
+    declared = {**_kernels.SYMBOLS["flash_attention_fwd"],
+                **_kernels.SYMBOLS["flash_attention_bwd"]}
+    assert set(calls) <= set(declared)

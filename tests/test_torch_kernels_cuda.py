@@ -38,32 +38,64 @@ def cuda_nvcc():
     return torch.device("cuda", 0)
 
 
+# Shapes for both directions: every D, ragged T (no tile multiple),
+# Tq < Tk (bottom-right alignment), and Tq > Tk (causal rows that see no
+# key), causal and not.
+SHAPES = [
+    (True, 256, 256, 128), (False, 200, 200, 64), (True, 4, 6, 32),
+    (True, 70, 5, 16), (True, 333, 333, 32), (False, 129, 65, 16),
+    (True, 100, 300, 64), (True, 300, 100, 128)]
+
+
+def _assert_rows_close(g, r, row_tol, norm_tol):
+    """Row by row (one query's O or dq, one key's dk or dv): the row's
+    largest error within ``row_tol`` of the row's largest reference value,
+    or of the dtype's smallest normal number where that is larger (f16
+    rounds smaller values to a fixed step); and ||g - r|| / ||r|| <=
+    norm_tol."""
+    diff = (g.float() - r).abs()
+    floor = torch.finfo(g.dtype).tiny
+    allowed = row_tol * r.abs().amax(-1).clamp_min(floor)
+    assert bool((diff.amax(-1) <= allowed).all()), \
+        f"row error {(diff.amax(-1) / allowed).max().item()} x allowed"
+    norm = (torch.linalg.vector_norm(g.float() - r) /
+            torch.linalg.vector_norm(r)).item()
+    assert norm <= norm_tol, f"relative norm {norm} > {norm_tol}"
+
+
 # The plain version runs on f32 copies of the same inputs (its own
 # arithmetic is f32 whatever the input dtype).  f32: another summation
-# order (1e-4); bf16/f16: the kernel's output is rounded to 8/11 mantissa
-# bits (2e-2 at |O| < 8); lse is f32 in both (1e-3).
+# order (1e-4; 1e-4 of a row, 1e-5 in norm); bf16/f16: the tensor-core
+# kernel rounds P and its output to 8/11 mantissa bits (2e-2 at |O| < 8;
+# each by at most u = 2^-8 / 2^-11 of a value, so 2u of a row and 2u in
+# norm, as chip_smoke.py holds it); lse is f32 in both (1e-3).
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2),
-                                       (torch.float16, 2e-2)])
-@pytest.mark.parametrize("causal,tq,tk,d", [
-    (True, 256, 256, 128), (False, 200, 200, 64), (True, 4, 6, 32),
-    (True, 70, 5, 16)])
-def test_kernel_matches_plain_on_card(cuda_nvcc, dtype, tol, causal, tq, tk,
-                                      d):
+@pytest.mark.parametrize("dtype,tol,row_tol,norm_tol", [
+    (torch.float32, 1e-4, 1e-4, 1e-5),
+    (torch.bfloat16, 2e-2, 2 * 2.0 ** -8, 2 * 2.0 ** -8),
+    (torch.float16, 2e-2, 2 * 2.0 ** -11, 2 * 2.0 ** -11)])
+@pytest.mark.parametrize("causal,tq,tk,d", SHAPES)
+def test_kernel_matches_plain_on_card(cuda_nvcc, dtype, tol, row_tol,
+                                      norm_tol, causal, tq, tk, d):
     q, k, v = (torch.from_numpy(a).to(cuda_nvcc, dtype)
                for a in _qkv(6, 2, 3, tq, tk, d))
+    mma = int(tfa._design(dtype) == "mma")
     before = tfa.flash_attention_fwd.launches
+    before_mma = tfa.flash_attention_fwd.launches_mma
     o, lse = tfa.flash_attention_fwd(q, k, v, causal, 0.3)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches == before + 1
+    assert tfa.flash_attention_fwd.launches_mma == before_mma + mma
     o_ref, lse_ref = tfa._fa_forward_plain(q.float(), k.float(), v.float(),
                                            causal, 0.3)
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert (o.float() - o_ref).abs().max().item() <= tol
+    _assert_rows_close(o, o_ref, row_tol, norm_tol)
     fin = torch.isfinite(lse_ref)
     assert torch.equal(fin, torch.isfinite(lse))
     assert (lse - lse_ref)[fin].abs().max().item() <= 1e-3
+    if causal and tq > tk:  # rows that see no key: O exactly 0
+        assert bool((o[:, :, :tq - tk] == 0).all())
 
 
 @pytest.mark.cuda
@@ -73,6 +105,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda_nvcc):
         tfa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 1, 16, 8, device=cuda_nvcc).transpose(2, 3)
     with pytest.raises(MXNetError, match="contiguous"):
+        tfa.flash_attention_fwd(q, q, q)
+    # a storage offset of one element: the bf16/f16 kernels copy 16 bytes
+    q = torch.zeros(1 + 4 * 32, device=cuda_nvcc,
+                    dtype=torch.bfloat16)[1:].view(1, 1, 4, 32)
+    with pytest.raises(MXNetError, match="aligned"):
         tfa.flash_attention_fwd(q, q, q)
 
 
@@ -87,20 +124,6 @@ def _backward_case(device, dtype, b, h, tq, tk, d, causal, seed=7):
         q, k, v, o, do, lse, causal, 0.3)
 
 
-def _assert_grad_close(g, r, row_tol, norm_tol):
-    """Row by row (one query's dq, one key's dk or dv): the row's largest
-    error within ``row_tol`` of the row's largest reference value, or of
-    the dtype's smallest normal number where that is larger (f16 rounds
-    smaller values to a fixed step); and ||g - r|| / ||r|| <= norm_tol."""
-    diff = (g.float() - r).abs()
-    floor = torch.finfo(g.dtype).tiny
-    allowed = row_tol * r.abs().amax(-1).clamp_min(floor)
-    assert bool((diff.amax(-1) <= allowed).all()), \
-        (diff.amax(-1) / allowed).max().item()
-    assert torch.linalg.vector_norm(g.float() - r).item() <= \
-        norm_tol * torch.linalg.vector_norm(r).item()
-
-
 # The plain version runs on f32 copies of the same inputs and the kernel's
 # own O and lse.  Each gradient is held row by row and by its relative
 # norm: f32, another summation order (1e-4 of a row, 1e-5 in norm);
@@ -110,31 +133,33 @@ def _assert_grad_close(g, r, row_tol, norm_tol):
 @pytest.mark.parametrize("dtype,row_tol,norm_tol", [
     (torch.float32, 1e-4, 1e-5), (torch.bfloat16, 1e-2, 5e-3),
     (torch.float16, 2e-3, 1e-3)])
-@pytest.mark.parametrize("causal,tq,tk,d", [
-    (True, 256, 256, 128), (False, 200, 200, 64), (True, 70, 5, 16)])
+@pytest.mark.parametrize("causal,tq,tk,d", SHAPES)
 def test_backward_kernels_match_plain_on_card(cuda_nvcc, dtype, row_tol,
                                               norm_tol, causal, tq, tk, d):
+    mma = int(tfa._design(dtype) == "mma")
     dq_n = tfa.flash_attention_bwd_dq.launches
     dkv_n = tfa.flash_attention_bwd_dkv.launches
+    dkv_mma_n = tfa.flash_attention_bwd_dkv.launches_mma
     (q, k, v, o, do, lse), got = _backward_case(cuda_nvcc, dtype, 2, 3, tq,
                                                 tk, d, causal)
     torch.cuda.synchronize()
     assert tfa.flash_attention_bwd_dq.launches == dq_n + 1
     assert tfa.flash_attention_bwd_dkv.launches == dkv_n + 1
+    assert tfa.flash_attention_bwd_dkv.launches_mma == dkv_mma_n + mma
     ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
                                  do.float(), lse, causal, 0.3)
     for g, r in zip(got, ref):
         assert g.dtype == dtype and g.shape == r.shape
         assert bool(torch.isfinite(g).all())
-        _assert_grad_close(g, r, row_tol, norm_tol)
-    if tq > tk:  # causal rows 0 .. tq - tk - 1 see no key: dq exactly 0
+        _assert_rows_close(g, r, row_tol, norm_tol)
+    if causal and tq > tk:  # rows 0 .. tq - tk - 1 see no key: dq is 0
         assert bool((got[0][:, :, :tq - tk] == 0).all())
 
 
 @pytest.mark.cuda
 def test_backward_kernels_are_deterministic(cuda_nvcc):
     """Each output tile has one owner block and no atomics: two runs give
-    the same bits."""
+    the same bits (bf16: the tensor-core dK/dV kernel)."""
     _, first = _backward_case(cuda_nvcc, torch.bfloat16, 1, 4, 300, 300,
                               128, True)
     _, second = _backward_case(cuda_nvcc, torch.bfloat16, 1, 4, 300, 300,
