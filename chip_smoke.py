@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA
 card: Llama-3-8B inference and training through the hand-written
-flash-attention kernels (forward, dQ, dK/dV; bf16 and f16 forward and
-dK/dV on the tensor cores, f32 on the FMA pipes), and ResNet-50 v1
-inference through the hand-written fused 1x1 conv + BatchNorm + ReLU
-kernel, and its training step.
+flash-attention kernels (forward, dQ, dK/dV; bf16 and f16 on the tensor
+cores, f32 on the FMA pipes), and ResNet-50 v1 inference through the
+hand-written fused 1x1 conv + BatchNorm + ReLU kernel (bf16 on the tensor
+cores, f32 on the FMA pipes), and its training step.
 
     python3 chip_smoke.py
 
@@ -21,14 +21,16 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    kernel launched alone through its C entry point;
 4. backward kernels: ``flash_attention_bwd`` (dQ and dK/dV) against the
    plain backward at every shape of ``BWD_SHAPES``, each gradient held
-   row by row and by its relative norm, with each kernel's time (and
-   dK/dV's TFLOP/s), delta's, the plain version's, torch SDPA's backward
-   (where Tq = Tk) and the bound;
+   row by row and by its relative norm, with each kernel's time and
+   TFLOP/s, delta's, the plain version's, torch SDPA's backward (where
+   Tq = Tk) and the bound; at the slice shape also each kernel's wrapper
+   host time and its launch alone through its C entry point;
 5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
    at ResNet-50 v1's eight shapes (B=128, bf16), one f32 and one ragged
-   shape, with its time, the plain version's, the library's (``addmm``
-   with the scale folded, then ``relu``), the eager cuDNN chain's and the
-   bound, and the NCHW -> (M, K) copy's time; then one forward's sums;
+   shape, with its design, time, TFLOP/s, the plain version's time, the
+   library's (``addmm`` with the scale folded, then ``relu``), the eager
+   cuDNN chain's and the bound, and the NCHW -> (M, K) copy's time; then
+   one forward's sums;
 6. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
    the kernel against the KV-cache decoder's dense prefill;
 7. f32 training check: the same net, one loss and backward through the
@@ -47,11 +49,12 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    bf16, B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one
    warm-up step and three timed steps on one batch;
 10. ResNet f32 checks: ``resnet50_v1`` f32, B=2, 224x224, on the card
-    (16 fused launches, no TF32) against the CPU (the plain version);
+    (16 fused launches of the FMA design, no TF32) against the CPU (the
+    plain version);
     ``resnet18_v1`` thumbnail, one f32 SGD-momentum step on the card
     against the CPU;
 11. the ResNet inference slice: ``resnet50_v1`` bf16, 224x224, B=128 and
-    B=4, 16 fused launches a forward;
+    B=4, 16 fused launches of the tensor-core design a forward;
 12. the ResNet training slice: ``resnet50_v1`` bf16, B=128, 224x224,
     SGD (lr 0.1, momentum 0.9) and ``SoftmaxCrossEntropyLoss`` (bench.py's
     protocol, eager): one warm-up step and three timed steps on one batch,
@@ -160,10 +163,19 @@ BF16_GRAD_TOL = 8 * 2.0 ** -8
 # about 1.2) fails it
 BF16_WITNESS_RATIO = 1.1
 BF16_SEEDS = (SEED, SEED + 1, SEED + 2)
-# the training slice's four losses when its bf16 forward and dK/dV ran on
-# the f32 FMA designs (the same bits in every run), printed beside this
-# run's: the tensor-core designs round P and dS to bf16, so they move
+# the bf16 checks' readings at each seed of BF16_SEEDS when the bf16 dQ ran
+# on the f32 FMA design (dS kept in f32; the forward and dK/dV on the
+# tensor cores), printed beside this run's: (worst gradient's relative
+# norm, worst witness ratio)
+FMA_DQ_BF16_READINGS = {SEED: (0.024321584030985832, 0.9992440410578218),
+                        SEED + 1: (0.02446492575109005, 0.9993867572421938),
+                        SEED + 2: (0.024472074583172798, 0.9961660372186644)}
+# the training slice's four losses (the same bits in every run) when its
+# bf16 forward, dQ and dK/dV all ran on the f32 FMA designs, and when only
+# dQ did, printed beside this run's: the tensor-core designs round P and dS
+# to bf16, so they move
 FMA_DESIGN_LOSSES = [12.569117546, 10.207187653, 8.730205536, 6.096673965]
+FMA_DQ_LOSSES = [12.569450378, 10.208418846, 8.703302383, 6.157677650]
 TRAIN_LAYERS = 16
 TRAIN_LR = 0.1
 REQUESTS = [(1, 100), (4, 512), (1, 1500)]  # (batch, prompt length)
@@ -353,17 +365,29 @@ def kernel_phase(torch, fa, failures):
     return rows
 
 
-def grad_errors(torch, g, r):
+def dq_zero_row(causal, tq, tk):
+    """The query that sees key 0 alone (causal, Tq >= Tk): there P = 1 and
+    O = V_0, so dP - δ cancels and its dq is 0 in exact arithmetic; the
+    kernel's and the plain version's are rounding noise of f32 sums taken
+    in other orders."""
+    return tq - tk if causal and tq >= tk else None
+
+
+def grad_errors(torch, g, r, zero_row=None):
     """(max abs error, worst row share, relative norm) of a kernel's
     result ``g`` (an attention output or a gradient) against its f32
     reference ``r``; a row's share is its largest error
     over its largest reference value, or over ``g``'s dtype's smallest
     normal number where that is larger (f16 rounds smaller values to a
     fixed step; for bf16 and f32 a zero row must match exactly), as
-    ``tests/test_torch_kernels_cuda.py`` holds it."""
+    ``tests/test_torch_kernels_cuda.py`` holds it.  ``zero_row``
+    (``dq_zero_row``) is shared over the tensor's largest reference
+    value instead of its own."""
     diff = (g.float() - r).abs()
     floor = torch.finfo(g.dtype).tiny
     row_err, row_ref = diff.amax(-1), r.abs().amax(-1).clamp_min(floor)
+    if zero_row is not None:
+        row_ref[..., zero_row] = r.abs().max()
     share = row_err / row_ref
     norm = (torch.linalg.vector_norm(g.float() - r) /
             torch.linalg.vector_norm(r).clamp_min(1e-30))
@@ -397,8 +421,10 @@ def backward_phase(torch, fa, failures):
                    Tk=tk, D=d, causal=causal, dtype=dt,
                    row_tol=ROW_TOL[dt], norm_tol=NORM_TOL[dt])
         ok = True
-        for key, g, r in zip(("dq", "dk", "dv"), got, ref):
-            err, share, norm = grad_errors(torch, g, r)
+        zero_rows = (dq_zero_row(causal, tq, tk), None, None)
+        for key, g, r, zero_row in zip(("dq", "dk", "dv"), got, ref,
+                                       zero_rows):
+            err, share, norm = grad_errors(torch, g, r, zero_row)
             row[f"max_abs_err_{key}"] = err
             row[f"row_share_{key}"], row[f"rel_norm_{key}"] = share, norm
             ok = ok and share <= ROW_TOL[dt] and norm <= NORM_TOL[dt] and \
@@ -438,20 +464,28 @@ def backward_phase(torch, fa, failures):
         row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
             *shape, products=4, reads_o=False, writes=2 * tk)
         pairs = visible_pairs(tq, tk, causal) * b * h
-        row["dkv_design"] = fa._design(dtype)
+        design = fa._design(dtype)
+        row["dq_design"] = row["dkv_design"] = design
         row["dkv_tflops"] = 8.0 * d * pairs / row["dkv_ms"] * 1e-9
         row["dq_tflops"] = 6.0 * d * pairs / row["dq_ms"] * 1e-9
-        if not rows:  # the slice shape: the wrapper's own cost
+        if not rows:  # the slice shape: the wrappers' own cost
+            tail = (b * h, tq, tk, d, fa._DTYPE_CODES[dtype], int(causal),
+                    scale)
+            row["dq_wrapper_host_us"] = host_us(
+                torch, lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, causal, scale), iters)
+            row["dq_launch_only_ms"] = launch_only_ms(
+                torch, "flash_attention_bwd",
+                f"mxt_flash_attention_bwd_dq_{design}",
+                (q, k, v, do, lse, delta, torch.empty_like(q)), tail, iters)
             row["dkv_wrapper_host_us"] = host_us(
                 torch, lambda: fa.flash_attention_bwd_dkv(
                     q, k, v, do, lse, delta, causal, scale), iters)
             dk, dv = torch.empty_like(k), torch.empty_like(v)
             row["dkv_launch_only_ms"] = launch_only_ms(
                 torch, "flash_attention_bwd",
-                f"mxt_flash_attention_bwd_dkv_{fa._design(dtype)}",
-                (q, k, v, do, lse, delta, dk, dv),
-                (b * h, tq, tk, d, fa._DTYPE_CODES[dtype], int(causal),
-                 scale), iters)
+                f"mxt_flash_attention_bwd_dkv_{design}",
+                (q, k, v, do, lse, delta, dk, dv), tail, iters)
         row["ok"] = ok
         emit(row)
         rows.append(row)
@@ -482,10 +516,9 @@ def _counters(fa):
 
 
 def _mma_counts(fa):
-    """Launches of the tensor-core designs: (forward, dK/dV); the f32 FMA
-    designs' are the rest of each kernel's ``.launches``."""
-    return [fa.flash_attention_fwd.launches_mma,
-            fa.flash_attention_bwd_dkv.launches_mma]
+    """Launches of the tensor-core designs: (forward, dQ, dK/dV); the f32
+    FMA designs' are the rest of each kernel's ``.launches``."""
+    return [c.launches_mma for c in _counters(fa)]
 
 
 def _zero_counts(fa):
@@ -534,13 +567,13 @@ def f32_train_phase(torch, mx, llama, fa, failures):
                  ref.abs().max().clamp_min(1e-30)).item()
         if not share <= worst:
             worst, worst_name = share, k
-    ok = launched == [2, 2, 2] and mma == [0, 0] and \
+    ok = launched == [2, 2, 2] and mma == [0, 0, 0] and \
         math.isfinite(loss_flash) and \
         abs(loss_flash - loss_sdpa) <= 1e-5 * abs(loss_sdpa) and \
         worst <= TRAIN_GRAD_TOL
     emit(dict(phase="f32_train_check", layers=2, T=1024,
               launches=dict(zip(("fwd", "dq", "dkv"), launched)),
-              launches_mma=dict(zip(("fwd", "dkv"), mma)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
               loss_flash=loss_flash, loss_sdpa=loss_sdpa,
               params=len(params), worst_grad_err_share=worst,
               worst_param=worst_name, tol=TRAIN_GRAD_TOL, ok=ok))
@@ -600,22 +633,25 @@ def bf16_phase(torch, mx, llama, fa, failures):
         loss_flash, loss_sdpa = flash[1], dense[1]
         # 4 forward launches (net(ids), then the loss), 2 dQ, 2 dK/dV, all
         # tensor-core; the dense and f32 routes launch none
-        ok = launched == [4, 2, 2, 4, 2] and launched_dense == launched \
+        ok = launched == [4, 2, 2, 4, 2, 2] and launched_dense == launched \
             and math.isfinite(loss_flash) and \
             gap["logits"] <= BF16_LOGIT_TOL and \
             abs(loss_flash - loss_sdpa) <= BF16_LOGIT_TOL * abs(loss_sdpa) \
             and gap[worst] <= BF16_GRAD_TOL and \
             ratio[worst_ratio] <= BF16_WITNESS_RATIO
+        fma_dq = FMA_DQ_BF16_READINGS.get(seed, (None, None))
         emit(dict(phase="bf16_check", seed=seed, layers=2, T=1024,
                   launches=dict(zip(("fwd", "dq", "dkv"), launched)),
-                  launches_mma=dict(zip(("fwd", "dkv"), launched[3:])),
+                  launches_mma=dict(zip(("fwd", "dq", "dkv"), launched[3:])),
                   logit_rel_norm=gap["logits"], loss_flash=loss_flash,
                   loss_sdpa=loss_sdpa, loss_f32=ref[1], params=len(params),
                   worst_grad_rel_norm=gap[worst], worst_param=worst,
+                  worst_grad_rel_norm_fma_dq=fma_dq[0],
                   tol_logits=BF16_LOGIT_TOL, tol_grads=BF16_GRAD_TOL,
                   witness_flash_dense_to_f32=to_ref,
                   worst_witness_ratio=ratio[worst_ratio],
                   worst_witness_param=worst_ratio,
+                  worst_witness_ratio_fma_dq=fma_dq[1],
                   tol_witness_ratio=BF16_WITNESS_RATIO, ok=ok))
         if not ok:
             failures.append(
@@ -679,13 +715,13 @@ def train_phase(torch, mx, llama, fa, failures):
         if step:
             step_ms.append(ms)
         ok = math.isfinite(loss) and launched == [TRAIN_LAYERS] * 3 and \
-            mma == [TRAIN_LAYERS] * 2
+            mma == [TRAIN_LAYERS] * 3
         emit(dict(phase="train_step", step=step, warmup=step == 0,
                   loss=loss, ms=ms, tokens_per_s=2048 / ms * 1e3,
                   forward_ms=fwd_ms, backward_ms=bwd_ms,
                   update_ms=update_ms,
                   launches=dict(zip(("fwd", "dq", "dkv"), launched)),
-                  launches_mma=dict(zip(("fwd", "dkv"), mma)),
+                  launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
                   max_memory_allocated=dict(zip(
                       ("forward", "backward", "update"), step_peaks)),
                   ok=ok))
@@ -702,9 +738,10 @@ def train_phase(torch, mx, llama, fa, failures):
                         f"{launches}, tensor-core {launches_mma}")
     emit(dict(phase="train_summary", losses=losses,
               losses_fma_design=FMA_DESIGN_LOSSES,
+              losses_fma_dq=FMA_DQ_LOSSES,
               step_ms=step_ms,
               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
-              launches_mma=dict(zip(("fwd", "dkv"), launches_mma)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
               ok=losses[-1] < losses[0]))
     return launches, launches_mma
 
@@ -857,10 +894,10 @@ RESNET_LR = 0.1
 
 def fused_kernel_phase(torch, cbr, failures):
     """The fused kernel against its plain version at each shape, with its
-    time, the plain version's, the library's (``addmm`` with the scale
-    folded into w, then ``relu``), the eager NCHW chain's (``conv2d`` →
-    ``batch_norm`` in eval → ``relu``) and the card's bound; and the
-    NCHW → (M, K) copy the fused path makes, at the first shape."""
+    design, time, the plain version's, the library's (``addmm`` with the
+    scale folded into w, then ``relu``), the eager NCHW chain's
+    (``conv2d`` → ``batch_norm`` in eval → ``relu``), the card's bound and
+    the NCHW → (M, K) copy the fused path makes before each launch."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
     tnf = torch.nn.functional
@@ -900,7 +937,8 @@ def fused_kernel_phase(torch, cbr, failures):
         b_lib = bias.to(dtype)
         row = dict(
             phase="fused_kernel", shape=name, B=b, H=h, M=m, K=k, N=n,
-            dtype=dt, launches_per_forward=per_fwd, max_abs_err=err,
+            dtype=dt, design="mma" if dtype == torch.bfloat16 else "fma",
+            launches_per_forward=per_fwd, max_abs_err=err,
             max_abs_ref=largest,
             tol=f"{FUSED_REL_TOL[dt]}*|ref| + {FUSED_ABS_TOL[dt]}*max|ref|",
             first_call_s=first_call_s,
@@ -912,11 +950,13 @@ def fused_kernel_phase(torch, cbr, failures):
                 b_lib, x, w_lib)), iters),
             chain_ms=time_ms(torch, lambda: torch.relu(tnf.batch_norm(
                 tnf.conv2d(x_nchw, wconv), mean, var, gamma, beta,
-                training=False, eps=1e-5)), iters))
-        if not rows:  # the fused path's layout copy, at the first shape
-            row["nchw_to_mk_copy_ms"] = time_ms(
+                training=False, eps=1e-5)), iters),
+            # the fused path's layout copy (conv1x1_bn_relu), outside the
+            # kernel
+            nchw_to_mk_copy_ms=time_ms(
                 torch, lambda: x_nchw.permute(0, 2, 3, 1).reshape(
-                    m, k).contiguous(), iters)
+                    m, k).contiguous(), iters))
+        row["tflops"] = 2.0 * m * k * n / row["kernel_ms"] * 1e-9
         isz = x.element_size()
         row["bound_ms"], row["bound_by"] = roofline_ms(
             2.0 * m * k * n, isz * (m * k + k * n + m * n) + 8 * n, dt)
@@ -932,11 +972,16 @@ def fused_kernel_phase(torch, cbr, failures):
     forward = [r for r in rows if r["launches_per_forward"]]
     total = dict(phase="fused_kernel_forward",
                  launches=sum(r["launches_per_forward"] for r in forward),
+                 design=forward[0]["design"],
                  max_abs_err=max(r["max_abs_err"] for r in rows),
                  **{key: sum(r[key] * r["launches_per_forward"]
                              for r in forward)
                     for key in ("kernel_ms", "bound_ms", "plain_ms",
-                                "library_ms", "chain_ms")})
+                                "library_ms", "chain_ms",
+                                "nchw_to_mk_copy_ms")})
+    total["tflops"] = sum(2.0 * r["M"] * r["K"] * r["N"] *
+                          r["launches_per_forward"] for r in forward) / \
+        total["kernel_ms"] * 1e-9
     by_bytes = sum(r["bound_ms"] * r["launches_per_forward"]
                    for r in forward if r["bound_by"] == "bytes")
     total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] \
@@ -977,19 +1022,22 @@ def resnet_f32_phase(torch, mx, vision, cbr, failures):
     cpu_net, gpu_net = vision.resnet50_v1(), vision.resnet50_v1()
     load_numpy_params(cpu_net, arrays, ctx=mx.cpu())
     load_numpy_params(gpu_net, arrays, ctx=mx.gpu(0))
-    before = cbr.fused_matmul_affine_relu.launches
+    fn = cbr.fused_matmul_affine_relu
+    before = (fn.launches, fn.launches_mma)
     got = gpu_net(mx.nd.array(x, ctx=mx.gpu(0)))._data.float().cpu()
-    launched = cbr.fused_matmul_affine_relu.launches - before
+    launched = fn.launches - before[0]
+    mma = fn.launches_mma - before[1]  # f32: the FMA design only
     ref = cpu_net(mx.nd.array(x, ctx=mx.cpu()))._data
     largest = ref.abs().max().item()
     share = (got - ref).abs().max().item() / largest
-    ok = launched == 16 and share <= 1e-3 and got.shape == (2, 1000) and \
-        bool(torch.isfinite(got).all())
+    ok = launched == 16 and mma == 0 and share <= 1e-3 and \
+        got.shape == (2, 1000) and bool(torch.isfinite(got).all())
     emit(dict(phase="resnet_f32_check", B=2, image=224, launches=launched,
-              max_abs_logit=largest, max_err_share=share, tol=1e-3, ok=ok))
+              launches_mma=mma, max_abs_logit=largest, max_err_share=share,
+              tol=1e-3, ok=ok))
     if not ok:
-        failures.append(f"resnet f32 check: launches {launched}, error "
-                        f"share {share}")
+        failures.append(f"resnet f32 check: launches {launched} "
+                        f"(tensor-core {mma}), error share {share}")
     del cpu_net, gpu_net
     free_card(torch)
 
@@ -1009,39 +1057,44 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
         for b in RESNET_BATCHES}
     net(inputs[RESNET_BATCHES[-1]])  # resolve deferred shapes
     torch.cuda.synchronize()
-    cbr.fused_matmul_affine_relu.launches = 0  # the main path starts here
+    fn = cbr.fused_matmul_affine_relu
+    fn.launches = fn.launches_mma = 0  # the main path starts here
     for b in RESNET_BATCHES:
         x = inputs[b]
         torch.cuda.reset_peak_memory_stats()
         ms, launched = [], []
         for _ in range(4):  # one warm-up, then three timed forwards
-            before = cbr.fused_matmul_affine_relu.launches
+            before = (fn.launches, fn.launches_mma)
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = net(x)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
-            launched.append(cbr.fused_matmul_affine_relu.launches - before)
+            launched.append((fn.launches - before[0],
+                             fn.launches_mma - before[1]))
         finite = bool(torch.isfinite(out._data).all())
         warm = sum(ms[1:]) / 3
-        ok = launched == [16] * 4 and finite and out.shape == (b, 1000) \
-            and out.dtype == torch.bfloat16
+        # 16 launches a forward, all of the tensor-core design
+        ok = launched == [(16, 16)] * 4 and finite and \
+            out.shape == (b, 1000) and out.dtype == torch.bfloat16
         emit(dict(phase="resnet_infer", B=b, image=224, dtype="bfloat16",
-                  launches_per_forward=launched, ms=ms, warm_ms=warm,
+                  launches_per_forward=[n for n, _ in launched],
+                  launches_mma_per_forward=[n for _, n in launched],
+                  ms=ms, warm_ms=warm,
                   images_per_s=b / warm * 1e3, finite=finite,
                   max_memory_allocated=torch.cuda.max_memory_allocated(),
                   ok=ok))
         if not ok:
-            failures.append(f"resnet inference B={b}: launches {launched}, "
-                            f"finite {finite}")
+            failures.append(f"resnet inference B={b}: launches (all, "
+                            f"tensor-core) {launched}, finite {finite}")
         del out
-    launches = cbr.fused_matmul_affine_relu.launches  # the main path ends
-    if launches == 0:
+    launches, launches_mma = fn.launches, fn.launches_mma  # the path ends
+    if launches_mma == 0:
         failures.append("the ResNet inference path launched no "
-                        "fused_matmul_affine_relu")
+                        "tensor-core fused_matmul_affine_relu")
     del net, inputs
     free_card(torch)
-    return launches
+    return launches, launches_mma
 
 
 def _resnet_step(mx, net, trainer, loss_fn, x, y, stamps=None):
@@ -1214,14 +1267,16 @@ def main():
     train_launches, train_mma = train_phase(torch, mx, llama, fa, failures)
     resnet_f32_phase(torch, mx, vision, cbr, failures)
     resnet18_f32_train_phase(torch, mx, vision, failures)
-    fused_launches = resnet_infer_phase(torch, mx, vision, cbr, failures)
+    fused_launches, fused_mma = resnet_infer_phase(torch, mx, vision, cbr,
+                                                   failures)
     resnet_train_phase(torch, mx, vision, cbr, failures)
 
     s, bs = rows[0], brows[0]
     src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
     replaces = "mxnet_tpu/ops/flash_attention.py:{}"
-    # fwd and dK/dV: the design that ran at the slice shape, and the main
-    # paths' launches of each design (the f32 FMA design's are the rest)
+    # each kernel: the design that ran at the slice shape (the forward's
+    # shapes for the fused kernel), and the main paths' launches of each
+    # design (the f32 FMA design's are the rest)
     fwd_launches = infer_launches + train_launches[0]
     fwd_mma = infer_mma + train_mma[0]
     emit({"kernels": [
@@ -1236,15 +1291,18 @@ def main():
          "bound_by": s["bound_by"], "library_ms": s["library_ms"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(259),
-         "launches": train_launches[1],
+         "design": design_name(bs["dq_design"], bs["dtype"]),
+         "launches": train_launches[1], "launches_mma": train_mma[1],
+         "launches_fma": train_launches[1] - train_mma[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
+         "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
          "bound_by": bs["dq_bound_by"], "library_ms": bs["library_ms"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(302),
          "design": design_name(bs["dkv_design"], bs["dtype"]),
-         "launches": train_launches[2], "launches_mma": train_mma[1],
-         "launches_fma": train_launches[2] - train_mma[1],
+         "launches": train_launches[2], "launches_mma": train_mma[2],
+         "launches_fma": train_launches[2] - train_mma[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -1253,8 +1311,12 @@ def main():
         {"name": "fused_matmul_affine_relu", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/fused_matmul_affine_relu.cu",
          "replaces": "tools/pallas_conv_probe.py:35",
-         "launches": fused_launches, "max_abs_err": fused["max_abs_err"],
-         "ms": fused["kernel_ms"], "plain_ms": fused["plain_ms"],
+         "design": design_name(fused["design"], "bfloat16"),
+         "launches": fused_launches, "launches_mma": fused_mma,
+         "launches_fma": fused_launches - fused_mma,
+         "max_abs_err": fused["max_abs_err"],
+         "ms": fused["kernel_ms"], "tflops": fused["tflops"],
+         "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
          "library_ms": fused["library_ms"]}]})
     if failures:

@@ -4,8 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``build/``
 beside this file (listed in ``.gitignore``), and loaded with ``ctypes``.
 A library newer than its source and every local header the source
-includes (``#include "..."``, followed transitively: the flash-attention
-sources share ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
+includes (``#include "..."``, followed transitively: every source
+includes ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
 in parallel, one ``nvcc`` per source.  Nothing here runs at import time:
 this module imports on machines without ``nvcc`` or a card.
 """
@@ -35,14 +35,19 @@ SYMBOLS = {
     "flash_attention_fwd": {"mxt_flash_attention_fwd_mma": [_PTR] * 5 + _TAIL,
                             "mxt_flash_attention_fwd_fma":
                                 [_PTR] * 5 + _TAIL},
-    "flash_attention_bwd": {"mxt_flash_attention_bwd_dq": [_PTR] * 7 + _TAIL,
+    "flash_attention_bwd": {"mxt_flash_attention_bwd_dq_mma":
+                                [_PTR] * 7 + _TAIL,
+                            "mxt_flash_attention_bwd_dq_fma":
+                                [_PTR] * 7 + _TAIL,
                             "mxt_flash_attention_bwd_dkv_mma":
                                 [_PTR] * 8 + _TAIL,
                             "mxt_flash_attention_bwd_dkv_fma":
                                 [_PTR] * 8 + _TAIL},
     # x, w, scale, bias, out, M, N, K, dtype, stream
-    "fused_matmul_affine_relu": {"mxt_fused_matmul_affine_relu":
-                                 [_PTR] * 5 + [_INT] * 4 + [_PTR]},
+    "fused_matmul_affine_relu": {"mxt_fused_matmul_affine_relu_mma":
+                                     [_PTR] * 5 + [_INT] * 4 + [_PTR],
+                                 "mxt_fused_matmul_affine_relu_fma":
+                                     [_PTR] * 5 + [_INT] * 4 + [_PTR]},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -3,7 +3,7 @@
 //
 // Replaces the two Pallas TPU kernels of mxnet_tpu/ops/flash_attention.py,
 // launched by _fa_backward_pallas:
-//   fa_bwd_dq_kernel                          <- _fa_bwd_dq_kernel  (dQ)
+//   fa_bwd_dq_mma_kernel, fa_bwd_dq_kernel    <- _fa_bwd_dq_kernel  (dQ)
 //   fa_bwd_dkv_mma_kernel, fa_bwd_dkv_kernel  <- _fa_bwd_dkv_kernel (dK, dV)
 // Both recompute the probabilities from the forward's per-row lse:
 //   S = Q K^T * scale, P = exp(S - lse) (0 where masked or lse = -inf),
@@ -30,6 +30,31 @@
 // (0.0521 ms), against 50-70 MB moved (0.02 ms) each: bound by operations
 // (the f32 FMA pipes alone need 1.026 and 0.770 ms).
 //
+// Each kernel has two designs, chosen by the caller (ops/flash_attention.py)
+// by dtype: bf16 and f16 on the tensor cores (_mma), f32 on the FMA pipes
+// in exact f32 (_fma; TF32 would change f32 users' results).
+//
+// dQ, bf16 and f16 (mxt_flash_attention_bwd_dq_mma): tensor cores,
+//   mma.sync (building blocks in flash_attention_mma.cuh), the forward's
+//   design with the backward's arithmetic.  One 256-thread block (8 warps,
+//   16 query rows each) per (b*h, 128-row q tile: faster than 64 rows and
+//   4 warps at the Llama slice shape, as for the forward); Q and dO are
+//   loaded once with cp.async into padded shared memory and read as A
+//   fragments (ldmatrix) at every k tile, which keeps the registers for
+//   the accumulators (holding them too would need 64 more a thread).  Each
+//   thread keeps -lse * log2(e) and delta of its two rows in registers.  K
+//   and V come in 64-row tiles, double-buffered with cp.async (136 KB of
+//   shared memory at D = 128, one block an SM), and the loop stops at the
+//   last tile the causal mask reaches.  S = Q K^T and dP = dO V^T run on
+//   mma.m16n8k16 with K and V as ".col" B operands; P = exp2(S * scale *
+//   log2(e) - lse * log2(e)) and dS = P (dP - delta) * scale are computed in
+//   the accumulator layout, masked only on diagonal and tail tiles; dS,
+//   rounded to the input dtype in registers, is the A operand of dQ += dS K
+//   with K through ldmatrix.trans, so it never goes through shared memory.
+//   f16 scales dS and the dQ accumulator per row (f16_row_scale), as dK/dV
+//   does.  dQ is stored in the input dtype with 4-byte stores.  What it
+//   still leaves: wgmma and TMA, warp specialisation, the masked halves of
+//   diagonal tiles, and S and dP computed by both backward kernels.
 // dK/dV, bf16 and f16 (mxt_flash_attention_bwd_dkv_mma): tensor cores,
 //   mma.sync (building blocks in flash_attention_mma.cuh).  One 128-thread
 //   block (4 warps, 16 keys each) per (b*h, 64-row k tile); K and V stay in
@@ -47,16 +72,14 @@
 //   shared memory at D = 128, three blocks an SM.  What it still leaves:
 //   wgmma and TMA, warp specialisation, the masked halves of diagonal
 //   tiles, and S and dP computed again by the dQ kernel.
-// dK/dV, f32 (mxt_flash_attention_bwd_dkv_fma): exact f32 on the FMA pipes.
-//   One 256-thread block per (b*h, 64-row k tile), K and V resident, a
-//   loop over 64-row q tiles; P^T and dS^T go through shared memory, dK and
-//   dV accumulate in registers (166 KB of shared memory at D = 128).
-// dQ, every dtype (mxt_flash_attention_bwd_dq, unchanged): one 256-thread
-//   block per (b*h, 64-row q tile), a loop over 64-row k tiles that stops
-//   at the last tile the causal mask reaches; Q, dO, K, V and dS as f32
-//   tiles in shared memory (149 KB at D = 128), dQ in registers, on the f32
-//   FMA pipes with synchronous loads: the next kernel to move to the
-//   tensor cores.
+// dQ, f32 (mxt_flash_attention_bwd_dq_fma): one 256-thread block per (b*h,
+//   64-row q tile), a loop over 64-row k tiles that stops at the last tile
+//   the causal mask reaches; Q, dO, K, V and dS as f32 tiles in shared
+//   memory (149 KB at D = 128), dQ in registers, synchronous loads.
+// dK/dV, f32 (mxt_flash_attention_bwd_dkv_fma): one 256-thread block per
+//   (b*h, 64-row k tile), K and V resident, a loop over 64-row q tiles;
+//   P^T and dS^T go through shared memory, dK and dV accumulate in
+//   registers (166 KB of shared memory at D = 128).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -73,34 +96,15 @@ constexpr int kBlock = 64;  // rows of a q tile and of a k tile
 constexpr int kThreads = 256;
 constexpr int kLdS = kBlock + 1;  // padded row stride of the 64x64 tiles
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Rows [row0, row0 + 64) of a (rows, D) matrix into shared memory as f32
-// with row stride D + 1; rows past the end read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows) {
+// Rows [row0, row0 + 64) of a (rows, D) matrix into shared memory with row
+// stride D + 1; rows past the end read as zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int row0, int rows) {
   for (int e = threadIdx.x; e < kBlock * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int gr = row0 + r;
-    dst[r * (D + 1) + c] = gr < rows ? to_float(src[(size_t)gr * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = gr < rows ? src[(size_t)gr * D + c] : 0.f;
   }
 }
 
@@ -130,12 +134,13 @@ constexpr size_t dkv_smem_bytes() {
          (size_t)(4 * kBlock * (D + 1) + 2 * kBlock * kLdS + 2 * kBlock);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dq,
+                     const float* __restrict__ delta, float* __restrict__ dq,
                      int tq, int tk, int causal, float scale) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;  // accumulator columns per thread
@@ -152,12 +157,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tx = tid & 15, ty = tid >> 4;
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // heavy tiles first
-  const T* kb = k + bh * (size_t)tk * D;
-  const T* vb = v + bh * (size_t)tk * D;
+  const float* kb = k + bh * (size_t)tk * D;
+  const float* vb = v + bh * (size_t)tk * D;
   const int offset = tk - tq;
 
-  load_tile<T, D>(qs, q + bh * (size_t)tq * D, q0, tq);
-  load_tile<T, D>(dos, dout + bh * (size_t)tq * D, q0, tq);
+  load_tile<D>(qs, q + bh * (size_t)tq * D, q0, tq);
+  load_tile<D>(dos, dout + bh * (size_t)tq * D, q0, tq);
   load_rows(lse_s, delta_s, lse + bh * (size_t)tq, delta + bh * (size_t)tq,
             q0, tq);
   __syncthreads();
@@ -183,8 +188,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlock;
     __syncthreads();  // the last tile's dS.K is done with ks and dss
-    load_tile<T, D>(ks, kb, k0, tk);
-    load_tile<T, D>(vs, vb, k0, tk);
+    load_tile<D>(ks, kb, k0, tk);
+    load_tile<D>(vs, vb, k0, tk);
     __syncthreads();
 
     // S and dP for rows ty + 16 i and columns tx + 16 j
@@ -248,10 +253,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos < tq) {
-      T* row = dq + (bh * (size_t)tq + qpos) * D;
+      float* row = dq + (bh * (size_t)tq + qpos) * D;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        row[tx + 16 * j] = from_float<T>(acc[i][j]);
+      for (int j = 0; j < kCols; ++j) row[tx + 16 * j] = acc[i][j];
     }
   }
 }
@@ -288,8 +292,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* deltab = delta + bh * (size_t)tq;
   const int offset = tk - tq;
 
-  load_tile<float, D>(ks, k + bh * (size_t)tk * D, k0, tk);
-  load_tile<float, D>(vs, v + bh * (size_t)tk * D, k0, tk);
+  load_tile<D>(ks, k + bh * (size_t)tk * D, k0, tk);
+  load_tile<D>(vs, v + bh * (size_t)tk * D, k0, tk);
 
   // causal: query i sees key j iff i >= j - offset, so the first q row that
   // sees any key of this tile is k0 - offset
@@ -306,8 +310,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t_first; t < n_q; ++t) {
     const int q0 = t * kBlock;
     __syncthreads();  // the last tile's products are done with qs, dos, ps
-    load_tile<float, D>(qs, qb, q0, tq);
-    load_tile<float, D>(dos, dob, q0, tq);
+    load_tile<D>(qs, qb, q0, tq);
+    load_tile<D>(dos, dob, q0, tq);
     load_rows(lse_s, delta_s, lseb, deltab, q0, tq);
     __syncthreads();
 
@@ -392,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int bh, int tq, int tk, int causal,
@@ -400,16 +404,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   constexpr size_t smem = dq_smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into, per device
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   if (bh == 0 || tq == 0) return cudaSuccess;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
-  fa_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  fa_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), tq, tk, causal, scale);
+      static_cast<float*>(dq), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -434,10 +438,194 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- dK/dV on the tensor cores (bf16, f16) ---------------------------------
+// ---- dQ and dK/dV on the tensor cores (bf16, f16) --------------------------
 
-constexpr int kMmaThreads = 128;  // 4 warps, 16 keys each
+constexpr int kDqThreads = 256;  // dQ: 8 warps, 16 queries each
+constexpr int kDqBlockQ = kDqThreads / 32 * 16;  // q rows of a dQ tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // the Q and dO tiles, then two K and two V tiles, rows padded by 16 bytes
+  return 2 * (size_t)(2 * kDqBlockQ + 4 * kBlock) * (D + mxt_mma::kPad);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDqThreads)
+    fa_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dq,
+                         int tq, int tk, int causal, float scale) {
+  using namespace mxt_mma;
+  constexpr int kLd = D + kPad;
+  constexpr int kDK = D / 16;      // k16 steps over D
+  constexpr int kDN = D / 8;       // n8 tiles over D
+  constexpr int kKN = kBlock / 8;  // n8 tiles over a k tile
+  constexpr int kTile = kBlock * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // kDqBlockQ x kLd
+  T* dos = qs + kDqBlockQ * kLd;           // kDqBlockQ x kLd
+  T* ks = dos + kDqBlockQ * kLd;           // 2 x kTile
+  T* vs = ks + 2 * kTile;                  // 2 x kTile
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad_col = 2 * (lane & 3);
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBlockQ;  // heavy first
+  const T* kb = k + bh * (size_t)tk * D;
+  const T* vb = v + bh * (size_t)tk * D;
+  const int offset = tk - tq;
+  const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
+
+  int n_tiles = (tk + kBlock - 1) / kBlock;
+  if (causal) {
+    const int k_last = min(q0 + kDqBlockQ, tq) - 1 + offset;
+    n_tiles = k_last < 0 ? 0 : min(n_tiles, k_last / kBlock + 1);
+  }
+  if (n_tiles > 0) {
+    cp_async_tile<kDqBlockQ, D, kDqThreads>(qs, q + bh * (size_t)tq * D, q0,
+                                             tq);
+    cp_async_tile<kDqBlockQ, D, kDqThreads>(
+        dos, dout + bh * (size_t)tq * D, q0, tq);
+    cp_async_tile<kBlock, D, kDqThreads>(ks, kb, 0, tk);
+    cp_async_tile<kBlock, D, kDqThreads>(vs, vb, 0, tk);
+  }
+  cp_async_commit();
+
+  // -lse * log2(e) (-inf for rows that see no key or lie past the end) and
+  // delta of this thread's rows row_a + 8h
+  float nlse[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + 8 * h;
+    const float l = row < tq ? lse[bh * (size_t)tq + row] : -INFINITY;
+    nlse[h] = isfinite(l) ? -l * kLog2e : -INFINITY;
+    dl[h] = row < tq ? delta[bh * (size_t)tq + row] : 0.f;
+  }
+
+  const float scale_log2 = scale * kLog2e;
+  // f16: per-row powers of two for dS (f16_row_scale)
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  int e_ds[2] = {kRowScaleMax, kRowScaleMax};
+  float acc[kDN][4];
+#pragma unroll
+  for (int j = 0; j < kDN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBlock;
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile loads while this one computes
+      cp_async_tile<kBlock, D, kDqThreads>(ks + (buf ^ 1) * kTile, kb,
+                                            k0 + kBlock, tk);
+      cp_async_tile<kBlock, D, kDqThreads>(vs + (buf ^ 1) * kTile, vb,
+                                            k0 + kBlock, tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group (and Q's, dO's) has landed
+    __syncthreads();
+    const T* kt = ks + buf * kTile;
+    const T* vt = vs + buf * kTile;
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile's keys
+    float s[kKN][4], dp[kKN][4];
+#pragma unroll
+    for (int j = 0; j < kKN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDK; ++kk) {
+      uint32_t qa[4], ga[4];
+      ldmatrix_x4(qa, frag_a<kLd>(qs, warp * 16, kk * 16, lane));
+      ldmatrix_x4(ga, frag_a<kLd>(dos, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < kKN / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, frag_b<kLd>(kt, np * 16, kk * 16, lane));
+        mma_16816<T>(s[2 * np], qa, b[0], b[1]);
+        mma_16816<T>(s[2 * np + 1], qa, b[2], b[3]);
+        ldmatrix_x4(b, frag_b<kLd>(vt, np * 16, kk * 16, lane));
+        mma_16816<T>(dp[2 * np], ga, b[0], b[1]);
+        mma_16816<T>(dp[2 * np + 1], ga, b[2], b[3]);
+      }
+    }
+
+    // dS in place of dP; values e = 2h, 2h + 1 belong to row row_a + 8h.
+    // Only tiles on the causal diagonal or the Tk tail hold masked pairs.
+    const bool edge =
+        k0 + kBlock > tk || (causal && k0 + kBlock - 1 > q0 + offset);
+#pragma unroll
+    for (int j = 0; j < kKN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale_log2, nlse[h]));
+        if (edge) {
+          const int key = k0 + j * 8 + quad_col + (e & 1);
+          if (key >= tk || (causal && key > row_a + 8 * h + offset)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dl[h]) * scale;
+      }
+    if constexpr (kF16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) f16_row_scale(dp, acc, e_ds[h], h);
+    }
+
+    // dQ += dS K, dS rounded to T in registers, K through ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < kBlock / 16; ++j) {
+      uint32_t a[4];
+      acc_to_a<T>(a, dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, frag_a<kLd>(kt, j * 16, dd * 16, lane));
+        mma_16816<T>(acc[2 * dd], a, b[0], b[1]);
+        mma_16816<T>(acc[2 * dd + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + 8 * h;
+    if (row < tq) {
+      T* qrow = dq + (bh * (size_t)tq + row) * D + quad_col;
+      const float f = kF16 ? pow2(-e_ds[h]) : 1.f;
+#pragma unroll
+      for (int j = 0; j < kDN; ++j)
+        *reinterpret_cast<uint32_t*>(qrow + j * 8) =
+            pack2<T>(acc[j][2 * h] * f, acc[j][2 * h + 1] * f);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int tq,
+                          int tk, int causal, float scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_bwd_dq_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  if (bh == 0 || tq == 0) return cudaSuccess;
+  const dim3 grid(bh, (tq + kDqBlockQ - 1) / kDqBlockQ);
+  fa_bwd_dq_mma_kernel<T, D><<<grid, kDqThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), tq, tk, causal, scale);
+  return cudaGetLastError();
+}
+
+constexpr int kMmaThreads = 128;  // dK/dV: 4 warps, 16 keys each
 
 // q rows a tile: 32 at D = 128 keeps dK, dV (64 + 64 registers a thread),
 // S^T and dP^T (16 + 16) in registers without spills (236 registers; 64
@@ -663,23 +851,24 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch_dq_d(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dq, int bh, int tq, int tk, int d, int causal,
-                        float scale, cudaStream_t stream) {
+cudaError_t launch_dq_mma_d(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int bh, int tq,
+                            int tk, int d, int causal, float scale,
+                            cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_dq<T, 16>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                              causal, scale, stream);
+      return launch_dq_mma<T, 16>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                                  causal, scale, stream);
     case 32:
-      return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                              causal, scale, stream);
+      return launch_dq_mma<T, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                                  causal, scale, stream);
     case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                              causal, scale, stream);
+      return launch_dq_mma<T, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
+                                  causal, scale, stream);
     case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                               causal, scale, stream);
+      return launch_dq_mma<T, 128>(q, k, v, dout, lse, delta, dq, bh, tq,
+                                   tk, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -715,25 +904,44 @@ cudaError_t launch_dkv_mma_d(const void* q, const void* k, const void* v,
 // cudaError_t of its launch (0 on success; cudaErrorInvalidValue for a
 // dtype or D the kernel does not take); the kernel itself runs
 // asynchronously on `stream`.  delta = rowsum(dO * O) in f32 must already
-// be computed on the same stream.  The tensor-core dK/dV needs 16-byte
+// be computed on the same stream.  The tensor-core designs need 16-byte
 // aligned q, k, v and dO.
-extern "C" int mxt_flash_attention_bwd_dq(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const void* lse, const void* delta,
-                                          void* dq, int bh, int tq, int tk,
-                                          int d, int dtype, int causal,
-                                          float scale, void* stream) {
+extern "C" int mxt_flash_attention_bwd_dq_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
+    int d, int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return launch_dq_d<float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
-                                causal, scale, s);
     case 1:
-      return launch_dq_d<__half>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d,
-                                 causal, scale, s);
+      return launch_dq_mma_d<__half>(q, k, v, dout, lse, delta, dq, bh, tq,
+                                     tk, d, causal, scale, s);
     case 2:
-      return launch_dq_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, tq,
-                                        tk, d, causal, scale, s);
+      return launch_dq_mma_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh,
+                                            tq, tk, d, causal, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int mxt_flash_attention_bwd_dq_fma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
+    int d, int dtype, int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  switch (d) {
+    case 16:
+      return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
+                           scale, s);
+    case 32:
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
+                           scale, s);
+    case 64:
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
+                           scale, s);
+    case 128:
+      return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
+                            scale, s);
     default:
       return cudaErrorInvalidValue;
   }

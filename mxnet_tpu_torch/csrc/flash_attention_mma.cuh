@@ -1,9 +1,12 @@
 // Tensor-core building blocks shared by the flash-attention kernels of
-// flash_attention_fwd.cu (forward) and flash_attention_bwd.cu (dK/dV).
+// flash_attention_fwd.cu (forward) and flash_attention_bwd.cu (dQ, dK/dV),
+// and by the fused 1x1 conv+BN+ReLU product of fused_matmul_affine_relu.cu.
 //
-// Both kernels replace Pallas TPU kernels of mxnet_tpu/ops/flash_attention.py
-// (_fa_kernel and _fa_bwd_dkv_kernel) for bf16 and f16 inputs; their source
-// notes give the bounds.  What this header holds, each an inline PTX wrapper
+// The flash kernels replace Pallas TPU kernels of
+// mxnet_tpu/ops/flash_attention.py (_fa_kernel, _fa_bwd_dq_kernel and
+// _fa_bwd_dkv_kernel) for bf16 and f16 inputs, the fused product the one of
+// tools/pallas_conv_probe.py (fused_matmul_affine_relu) for bf16; their
+// source notes give the bounds.  What this header holds, each an inline PTX wrapper
 // or a plain device function (sm_80-era instructions, valid for sm_90a, no
 // CUTLASS):
 //   - cp.async.cg of 16 bytes from global to shared memory, with the

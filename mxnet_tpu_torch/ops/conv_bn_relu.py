@@ -14,10 +14,11 @@ M, N, K), and only a CPU tensor takes the plain PyTorch version
 other and no switch between them.
 
 Operand dtypes: bf16 x and w give the exact products of the bf16 values,
-summed in f32 — what the Pallas kernel computes.  f32 x and w stay f32:
-the Pallas kernel would round them to bf16 before its product, but the
-JAX package's f32 ResNet never does that (its conv is f32 XLA), and the
-port's f32 ResNet must equal it.  Other dtypes raise.
+summed in f32 — what the Pallas kernel computes — on the tensor cores
+(``mma.sync``, the kernel's ``_mma`` design).  f32 x and w stay f32 on the
+FMA pipes (``_fma``): the Pallas kernel would round them to bf16 before its
+product, but the JAX package's f32 ResNet never does that (its conv is f32
+XLA), and the port's f32 ResNet must equal it.  Other dtypes raise.
 
 ``conv1x1_bn_relu`` is the fold on NCHW tensors, the fused path of
 ``gluon.nn.HybridSequential`` for a 1×1 ``Conv2D → BatchNorm →
@@ -69,25 +70,32 @@ def fused_matmul_affine_relu(x, w, scale, bias):
     """relu(scale·(x @ w) + bias): x (M, K) and w (K, N) in bf16 or f32,
     scale and bias (N,) f32 → (M, N) in x's dtype.
 
-    A CUDA tensor launches the kernel (``fused_matmul_affine_relu.launches``
-    counts the launches); CPU tensors take the plain version."""
+    A CUDA tensor launches the kernel of its dtype's design: bf16 the
+    tensor cores' (``_mma``), f32 the FMA pipes' (``_fma``);
+    ``fused_matmul_affine_relu.launches`` counts every launch and
+    ``.launches_mma`` the tensor-core design's.  CPU tensors take the
+    plain version."""
     if all(t.device.type == "cpu" for t in (x, w, scale, bias)):
         return _fused_matmul_affine_relu_plain(x, w, scale, bias)
     _check_kernel_operands(x, w, scale, bias)
+    design = "mma" if x.dtype == torch.bfloat16 else "fma"
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _kernels.load("fused_matmul_affine_relu")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mxt_fused_matmul_affine_relu(
+        err = getattr(lib, f"mxt_fused_matmul_affine_relu_{design}")(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), m, n, k, _DTYPE_CODES[x.dtype], stream)
-    _kernels.check(lib, err, "fused_matmul_affine_relu launch")
+    _kernels.check(lib, err, f"fused_matmul_affine_relu ({design}) launch")
     fused_matmul_affine_relu.launches += 1
+    if design == "mma":
+        fused_matmul_affine_relu.launches_mma += 1
     return out
 
 
 fused_matmul_affine_relu.launches = 0
+fused_matmul_affine_relu.launches_mma = 0
 
 
 def fold_bn(weight, conv_bias, gamma, beta, moving_mean, moving_var, eps,

@@ -10,11 +10,11 @@ kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
 PyTorch versions ``_fa_forward_plain`` and ``_fa_backward_plain``.  There
 is no fallback from one to the other and no switch between them.
 
-The forward and dK/dV kernels have two designs each, chosen here by dtype
+Each of the three kernels has two designs, chosen here by dtype
 (``_design``): bf16 and f16 run on the tensor cores (``mma.sync``; P and
 dS are rounded to the input dtype before the products that take them,
 which ``round_p=True`` mirrors in the plain versions), f32 on the FMA pipes
-in exact f32.  The dQ kernel has one design for every dtype.
+in exact f32.
 
 ``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
 whose forward saves (q, k, v, O, lse) and whose backward recomputes the
@@ -106,9 +106,8 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
     second online-softmax pass, as the kernels do.  f32 arithmetic;
     returns (dq, dk, dv) in q's, k's and v's dtypes.  Rows with
     lse = -inf (they see no key) get dq = 0 and add nothing to dk, dv.
-    ``round_p`` rounds P^T and dS^T to the input dtype before the dV and
-    dK products, as the tensor-core dK/dV kernel does (dQ's kernel keeps
-    dS in f32)."""
+    ``round_p`` rounds P and dS to the input dtype before the dV, dQ and
+    dK products, as the tensor-core dQ and dK/dV kernels do."""
     tq, tk = q.shape[-2], k.shape[-2]
     qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
     delta = _delta(o, do)
@@ -128,10 +127,10 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
         dv[..., k0:k1, :] = torch.matmul(
             _round_to(p, q.dtype, round_p).transpose(-1, -2), gf)
         dp = torch.matmul(gf, vb.transpose(-1, -2))
-        ds = p * (dp - delta[..., None]) * scale
+        ds = _round_to(p * (dp - delta[..., None]) * scale, q.dtype,
+                       round_p)
         dq += torch.matmul(ds, kb)
-        dk[..., k0:k1, :] = torch.matmul(
-            _round_to(ds, q.dtype, round_p).transpose(-1, -2), qf)
+        dk[..., k0:k1, :] = torch.matmul(ds.transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -277,12 +276,14 @@ def _launch_bwd(symbol, outs, q, k, v, do, lse, delta, causal, scale):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):
-    """The dQ kernel on CUDA tensors (δ = rowsum(dO·O) given) → dq in q's
-    dtype; ``.launches`` counts its launches."""
+    """The dQ kernel of the dtype's design on CUDA tensors (δ =
+    rowsum(dO·O) given) → dq in q's dtype; ``.launches`` counts its
+    launches."""
+    design = _design(q.dtype)
     dq = torch.empty_like(q)
-    _launch_bwd("mxt_flash_attention_bwd_dq", (dq,), q, k, v, do, lse,
-                delta, causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    _launch_bwd(f"mxt_flash_attention_bwd_dq_{design}", (dq,), q, k, v, do,
+                lse, delta, causal, scale)
+    _count(flash_attention_bwd_dq, design)
     return dq
 
 
@@ -298,6 +299,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_mma = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.launches_mma = 0
 

@@ -9,7 +9,9 @@ package's ``Convolution → BatchNorm(use_global_stats) → relu``; and the
 ``HybridSequential`` fusion is pinned to the runs and modes where the fold
 is exact.
 """
+import contextlib
 import importlib.util
+import types
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 from mxnet_tpu import nd as jnd
 
 import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import _kernels
 from mxnet_tpu_torch import autograd as tautograd
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
@@ -214,3 +217,38 @@ def test_kernel_wrapper_counts_nothing_on_the_cpu():
     before = cbr.fused_matmul_affine_relu.launches
     cbr.fused_matmul_affine_relu(x, w, scale, bias)
     assert cbr.fused_matmul_affine_relu.launches == before
+
+
+def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
+    """bf16 launches the tensor-core entry point (``_mma``), f32 the FMA
+    one (``_fma``).  Driven with meta tensors and a stand-in library that
+    records the C entry point the wrapper calls; ``.launches`` counts
+    both designs, ``.launches_mma`` the tensor-core one."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, symbol):
+            def entry(*args):
+                calls.append(symbol)
+                return 0
+            return entry
+
+    monkeypatch.setattr(_kernels, "load", lambda name: Lib())
+    monkeypatch.setattr(cbr, "_check_kernel_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    fn = cbr.fused_matmul_affine_relu
+    monkeypatch.setattr(fn, "launches", 0)
+    monkeypatch.setattr(fn, "launches_mma", 0)
+    for dtype, design in [(torch.bfloat16, "mma"), (torch.float32, "fma"),
+                          (torch.bfloat16, "mma")]:
+        x = torch.empty(6, 4, device="meta", dtype=dtype)
+        w = torch.empty(4, 3, device="meta", dtype=dtype)
+        affine = torch.empty(3, device="meta")
+        out = fn(x, w, affine, affine)
+        assert out.shape == (6, 3) and out.dtype == dtype
+        assert calls[-1] == f"mxt_fused_matmul_affine_relu_{design}"
+    assert (fn.launches, fn.launches_mma) == (3, 2)
+    assert set(calls) == set(_kernels.SYMBOLS["fused_matmul_affine_relu"])
