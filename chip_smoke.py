@@ -2,16 +2,21 @@
 """Smoke test of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA
 card: Llama-3-8B inference and training through the hand-written
 flash-attention kernels (forward, dQ, dK/dV; bf16 and f16 on the tensor
-cores, f32 on the FMA pipes), and ResNet-50 v1 inference through the
-hand-written fused 1x1 conv + BatchNorm + ReLU kernel (bf16 on the tensor
-cores, f32 on the FMA pipes), and its training step.
+cores, f32 on the FMA pipes), Llama serving through
+``mxnet_tpu_torch.serving.GenerativeServer`` (paged KV, continuous
+batching, speculative verify, radix prefix reuse), and ResNet-50 v1
+inference through the hand-written fused 1x1 conv + BatchNorm + ReLU
+kernel (bf16 and f16 on the tensor cores, f32 on the FMA pipes), and its
+training step.
 
     python3 chip_smoke.py
 
 Run from the root of the repository, on a machine with one CUDA card and
 the CUDA toolkit.  Phases, each printed as a JSON line:
 
-1. card: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc;
+1. card: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc, and
+   the torch precision flags the package turns off at import (TF32 and
+   the bf16/f16 reduced-precision split-K reductions);
 2. build: every source in ``csrc/`` with nvcc for sm_90a, all at once;
 3. kernel: the forward kernel against its plain PyTorch version at every
    shape of ``KERNEL_SHAPES`` (bf16 and f16 at each D, Tq < Tk, rows
@@ -26,11 +31,11 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    Tq = Tk) and the bound; at the slice shape also each kernel's wrapper
    host time and its launch alone through its C entry point;
 5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
-   at ResNet-50 v1's eight shapes (B=128, bf16), one f32 and one ragged
-   shape, with its design, time, TFLOP/s, the plain version's time, the
-   library's (``addmm`` with the scale folded, then ``relu``), the eager
-   cuDNN chain's and the bound, and the NCHW -> (M, K) copy's time; then
-   one forward's sums;
+   at ResNet-50 v1's eight shapes (B=128) in bf16 and in f16, one f32
+   and one ragged shape, with its design, time, TFLOP/s, the plain
+   version's time, the library's (``addmm`` with the scale folded, then
+   ``relu``), the eager cuDNN chain's and the bound, and the NCHW ->
+   (M, K) copy's time; then one bf16 and one f16 forward's sums;
 6. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
    the kernel against the KV-cache decoder's dense prefill;
 7. f32 training check: the same net, one loss and backward through the
@@ -42,9 +47,25 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    every gradient held by relative norm; and the witness, both routes
    against the dense route in f32 on the same weights, the kernels' route
    no further from it than the dense route is (within a factor);
+7c. serving exactness: the same widths at 2 layers in f32, 8 prompts of
+   64-1024 tokens (32 new tokens each; 4 slots, max_len 2048, blocks of
+   16) through ``GenerativeServer`` in the paged mode, the slots mode,
+   with speculative decoding (the net as its own draft, spec_k=3), and
+   8 prompts sharing a 512-token prefix with the radix cache: every
+   reply equal to ``LlamaDecoder.generate`` on its prompt alone, token
+   for token;
 8. the Llama inference slice: ``llama3_8b`` at full width and depth in
    bf16, weights drawn on the card from a seed: one prompt forward
    (T=2048) and three greedy ``generate`` requests;
+8b. the serving slice on phase 8's net: 8 requests of 64-1024 tokens in
+   the paged mode, in two waves (2, then 6 that join in-flight decode),
+   each reply fed back through ``net(ids)`` (the flash forward) and
+   every generated token held to the argmax within 24 bf16 ulps, and
+   at least 240 of the 256 tokens equal to the offline decoder's (its
+   tokens fed back the same way and the dense route's argmax are read
+   as witnesses); the serving path itself launches no kernel of the
+   port; TTFT, decode step times, tokens/s, prefill batch times, KV
+   blocks and memory;
 9. the Llama training slice: ``llama3_8b`` at full width and 16 layers in
    bf16, B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one
    warm-up step and three timed steps on one batch;
@@ -60,8 +81,8 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     protocol, eager): one warm-up step and three timed steps on one batch,
     no fused launch (BatchNorm normalizes by the batch).
 
-The launch counters are set to 0 just before each slice (8, 9, 11) and
-read just after, and at the start of each check that counts them (6, 7,
+The launch counters are set to 0 just before each slice (8, 8b, 9, 11)
+and read just after, and at the start of each check that counts them (6, 7,
 7b); the bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
 result line when there is no CUDA card or the package is not beside it.
@@ -70,9 +91,12 @@ Its last line is ``{"ok": true, "device": {...}}``.
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -779,6 +803,250 @@ def f32_phase(torch, mx, llama, fa, failures):
     free_card(torch)
 
 
+SERVE_PROMPTS = 8
+SERVE_NEW = 32
+SERVE_MAX_LEN = 2048
+SERVE_SLOTS = 4
+SERVE_BLOCK = 16
+SERVE_PREFIX = 512       # the radix mode's shared prefix
+# phase 8b: near-argmax within this many bf16 ulps; the offline decoder
+# and the dense route both read 19 at worst on this traffic (PERF.md)
+SERVE_ULPS = 24
+SERVE_SAME_MIN = 240     # phase 8b: of 256 tokens, at least this many
+                         # equal to the offline decoder's (252 read)
+
+
+def _serve_prompts(vocab):
+    """The serving phases' traffic from the seed: 8 prompts of 64-1024
+    tokens, and 8 more that share one 512-token prefix (suffixes of
+    16-512 tokens)."""
+    rs = np.random.RandomState(SEED + 20)
+    lens = rs.randint(64, 1025, size=SERVE_PROMPTS)
+    plain = [rs.randint(0, vocab, size=n).astype(np.int32) for n in lens]
+    prefix = rs.randint(0, vocab, size=SERVE_PREFIX).astype(np.int32)
+    shared = [np.concatenate([prefix, rs.randint(0, vocab, size=n)])
+              .astype(np.int32)
+              for n in rs.randint(16, 513, size=SERVE_PROMPTS)]
+    return plain, shared
+
+
+def _serve(serving, net, prompts, first_wave=None, **kw):
+    """Serve ``prompts`` (SERVE_NEW tokens each) through a fresh
+    ``GenerativeServer``: all at once, or in two waves, the first
+    ``first_wave`` prompts, then the rest once those are decoding.
+    Returns (replies, server, stats, wall seconds from the first submit
+    to the last reply)."""
+    cfg = serving.ServerConfig(max_batch=SERVE_SLOTS,
+                               max_length=SERVE_MAX_LEN,
+                               num_slots=SERVE_SLOTS,
+                               block_size=SERVE_BLOCK,
+                               queue_capacity=4 * SERVE_PROMPTS, **kw)
+    srv = serving.GenerativeServer(net, cfg)
+    cut = first_wave or len(prompts)
+    with srv:
+        t = time.perf_counter()
+        futs = [srv.submit(p, max_new_tokens=SERVE_NEW)
+                for p in prompts[:cut]]
+        if cut < len(prompts):
+            deadline = time.time() + 300
+            while srv.engine.steps < 2 and time.time() < deadline:
+                time.sleep(0.001)
+            futs += [srv.submit(p, max_new_tokens=SERVE_NEW)
+                     for p in prompts[cut:]]
+        replies = [f.result(600) for f in futs]
+        wall_s = time.perf_counter() - t
+        stats = srv.stats()
+    return replies, srv, stats, wall_s
+
+
+def serving_f32_phase(torch, mx, llama, serving, failures):
+    """Phase 7c: serving exactness.  llama3_8b widths at 2 layers, f32:
+    the same 8 prompts served in the paged mode, the slots mode, with
+    speculative decoding (the net as its own draft, spec_k=3), and 8
+    prompts sharing a 512-token prefix with the radix cache; every reply
+    must equal ``LlamaDecoder.generate`` on that prompt alone, token for
+    token."""
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=2)
+    net.initialize(ctx=mx.gpu(0))
+    plain, shared = _serve_prompts(net.config.vocab_size)
+    dec = llama.LlamaDecoder(net, max_len=SERVE_MAX_LEN)
+    t = time.perf_counter()
+    ref = {id(p): dec.generate(p[None], SERVE_NEW)[0].cpu().numpy()
+           for p in plain + shared}
+    ref_s = time.perf_counter() - t
+    modes = [("paged", plain, {}), ("slots", plain, {"kv_mode": "slots"}),
+             ("speculative", plain, {"draft_net": net, "spec_k": 3}),
+             ("radix", shared, {"radix_cache": True})]
+    for mode, prompts, kw in modes:
+        replies, srv, stats, wall_s = _serve(serving, net, prompts, **kw)
+        wrong = [i for i, (p, r) in enumerate(zip(prompts, replies))
+                 if not np.array_equal(r, ref[id(p)])]
+        first_bad = None
+        if wrong:
+            p, r = prompts[wrong[0]], replies[wrong[0]]
+            first_bad = int(np.argmax(r != ref[id(p)]) - len(p))
+        row = dict(phase="serving_f32", mode=mode, layers=2,
+                   prompts=[len(p) for p in prompts], new_tokens=SERVE_NEW,
+                   replies_equal=len(prompts) - len(wrong),
+                   wrong=wrong, first_wrong_token=first_bad,
+                   wall_s=wall_s, reference_s=ref_s,
+                   decode_ticks=len(srv.replicas[0].tick_ms)
+                   if srv.replicas else stats["decode_steps"],
+                   compiled_signatures=[list(s) for s in
+                                        stats["compiled_signatures"]],
+                   kv_blocks_peak=stats["kv_cache"].get(
+                       "peak_blocks_in_use"))
+        if mode == "speculative":
+            row["speculative"] = stats["speculative"]
+        if mode == "radix":
+            row["radix"] = stats["radix_cache"]
+            row["peak_shared_blocks"] = \
+                stats["kv_cache"]["peak_shared_blocks"]
+        ok = not wrong and stats["completed"] == len(prompts) and \
+            stats["failed"] == 0
+        if mode == "speculative":
+            ok = ok and stats["speculative"]["accept_rate"] >= 0.6
+        if mode == "radix":
+            ok = ok and stats["radix_cache"]["hits"] >= 1 and \
+                row["peak_shared_blocks"] >= SERVE_PREFIX // SERVE_BLOCK
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            failures.append(f"serving f32 {mode}: replies {wrong} differ "
+                            f"from generate (first at token {first_bad})")
+        del srv
+    del net, dec
+    free_card(torch)
+
+
+def _bf16_ulp(torch, x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def serving_bf16_phase(torch, mx, llama, serving, fa, net, failures):
+    """Phase 8b: serving at full size: phase 8's llama3_8b (32 layers,
+    bf16), 8 requests (64-1024 tokens, 32 new each) in the paged mode,
+    in two waves: 2 requests, then 6 once those are decoding, which fill
+    the free slots of the in-flight batch.
+
+    The check feeds each reply through ``net(ids)`` once (the flash
+    forward, kernel #1) and reads, at every generated position, how far
+    the server's token lies below the row's largest logit, in bf16 ulps
+    of that logit.  Two witnesses read the same: the offline decoder
+    (``LlamaDecoder.generate`` on each prompt alone, its own tokens fed
+    through the flash forward) and the dense route (``attn_mode="sdpa"``
+    on the server's ids: the argmax of the engine's own attention
+    arithmetic, placed in the flash route's logits).  The server's worst
+    gap must be within SERVE_ULPS, and at least SERVE_SAME_MIN of its
+    tokens must equal the offline decoder's.  The serving path itself
+    launches no kernel of the port (its attention is dense torch ops):
+    its count must be 0, and the check's own launches are reported
+    apart from it."""
+    plain, _ = _serve_prompts(net.config.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)  # the serving path starts here
+    replies, srv, stats, wall_s = _serve(serving, net, plain, first_wave=2)
+    path_launches = sum(c.launches for c in _counters(fa))  # ... ends here
+    rep = srv.replicas[0]
+    recs = srv.request_records()
+    peak = torch.cuda.max_memory_allocated()
+    dec = llama.LlamaDecoder(net, max_len=SERVE_MAX_LEN)
+    offline = [dec.generate(p[None], SERVE_NEW)[0].cpu().numpy()
+               for p in plain]
+    _zero_counts(fa)  # the check's own launches
+
+    def logits_of(seq, t0, mode="flash"):
+        ids = mx.nd.array(torch.from_numpy(seq[None, :-1].astype(np.int32))
+                          .cuda())
+        net.config.attn_mode = mode
+        try:
+            with torch.no_grad():
+                return net(ids)._data[0, t0 - 1:].float()
+        finally:
+            net.config.attn_mode = "flash"
+
+    def gaps(logits, toks):
+        top = logits.max(dim=-1).values
+        return ((top - logits.gather(1, toks[:, None])[:, 0]) /
+                _bf16_ulp(torch, top)), top
+
+    per = []
+    top_abs = 0.0
+    for p, r, o in zip(plain, replies, offline):
+        t0 = len(p)
+        lf = logits_of(r, t0)
+        gap_srv, top = gaps(lf, torch.from_numpy(
+            r[t0:].astype(np.int64)).cuda())
+        ld = logits_of(r, t0, "sdpa")
+        gap_dense, _ = gaps(lf, ld.argmax(dim=-1))
+        lo = logits_of(o, t0)
+        gap_off, _ = gaps(lo, torch.from_numpy(
+            o[t0:].astype(np.int64)).cuda())
+        top_abs = max(top_abs, top.abs().max().item())
+        per.append(dict(server=gap_srv.tolist(), dense=gap_dense.tolist(),
+                        offline=gap_off.tolist(),
+                        same_as_offline=int((r[t0:] == o[t0:]).sum())))
+        del lf, ld, lo
+    launches = fa.flash_attention_fwd.launches
+    launches_mma = fa.flash_attention_fwd.launches_mma
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")  # listed in .gitignore
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "serving_bf16_gaps.json"), "w") as f:
+        json.dump(per, f)
+    worst = {k: max(max(g[k]) for g in per)
+             for k in ("server", "dense", "offline")}
+    over = {k: sum(x > SERVE_ULPS for g in per for x in g[k])
+            for k in ("server", "dense", "offline")}
+    same = sum(g["same_as_offline"] for g in per)
+    ticks = list(rep.tick_ms)
+    decode_tokens = sum(rep.tick_slots)
+    row = dict(
+        phase="serving_bf16", layers=net.config.num_layers, mode="paged",
+        waves=[2, len(plain) - 2], prompts=[len(p) for p in plain],
+        new_tokens=SERVE_NEW, num_slots=SERVE_SLOTS,
+        block_size=SERVE_BLOCK,
+        ttft_ms=[r["ttft_ms"] for r in recs],
+        queue_wait_ms=[r["queue_wait_ms"] for r in recs],
+        joined_step=[r["joined_step"] for r in recs],
+        done_step=[r["done_step"] for r in recs],
+        decode_step_ms=ticks, decode_step_slots=list(rep.tick_slots),
+        decode_step_ms_median=float(np.median(ticks)) if ticks else None,
+        decode_tokens_per_s=decode_tokens / sum(ticks) * 1e3
+        if ticks else None,
+        overall_tokens_per_s=len(plain) * SERVE_NEW / wall_s,
+        wall_s=wall_s, prefill_ms=list(rep.prefill_ms),
+        kv_blocks_peak=stats["kv_cache"]["peak_blocks_in_use"],
+        kv_num_blocks=stats["kv_cache"]["num_blocks"],
+        kv_pool_bytes=srv.engine.kv_pool_bytes(),
+        max_memory_allocated=peak, largest_top_logit=top_abs,
+        worst_gap_ulps=worst, positions_over_tol=over,
+        positions=len(plain) * SERVE_NEW, tol_ulps=SERVE_ULPS,
+        tokens_same_as_offline=same, tokens_same_min=SERVE_SAME_MIN,
+        path_launches=path_launches, check_launches=launches,
+        check_launches_mma=launches_mma)
+    ok = worst["server"] <= SERVE_ULPS and same >= SERVE_SAME_MIN and \
+        stats["completed"] == len(plain) and stats["failed"] == 0 and \
+        path_launches == 0 and \
+        launches == launches_mma == 2 * len(plain) * net.config.num_layers
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        failures.append(f"serving bf16: a token {worst['server']} ulps off "
+                        f"the flash forward's argmax (limit {SERVE_ULPS}; "
+                        f"offline decoder {worst['offline']}, dense route "
+                        f"{worst['dense']}); {same} tokens equal to the "
+                        f"offline decoder's (at least {SERVE_SAME_MIN}); "
+                        f"serving path launches {path_launches} (0 "
+                        f"expected); check launches {launches} "
+                        f"(tensor-core {launches_mma})")
+    del srv, replies, dec
+
+
 def slice_phase(torch, mx, llama, fa, failures):
     """Phase 8: llama3_8b, 32 layers, bf16 — the main path."""
     t = time.perf_counter()
@@ -863,7 +1131,7 @@ def slice_phase(torch, mx, llama, fa, failures):
     if launches == 0 or launches_mma == 0:
         failures.append("the main path launched no flash_attention_fwd "
                         f"(tensor-core launches {launches_mma})")
-    return launches, launches_mma
+    return launches, launches_mma, net
 
 
 # The fused 1x1 conv + BN + ReLU kernel at ResNet-50 v1's shapes (B=128,
@@ -882,12 +1150,18 @@ FUSED_SHAPES = [
     ("f32", 8, 28, 512, 128, "float32", 0),
     ("ragged", 1, 7, 1000, 300, "bfloat16", 0),
 ]
+# the same eight shapes in f16 (the f16 instance of the tensor-core
+# design, the 16 launches of an f16 forward)
+FUSED_SHAPES += [("f16_" + name, b, h, k, n, "float16", per)
+                 for name, b, h, k, n, dt, per in FUSED_SHAPES[:8]]
 # kernel against its plain version on f32 copies: bf16, the kernel rounds
 # its f32 result to 8 mantissa bits (2^-8 of each value) and sums in
 # another order than cuBLAS (1e-4 of the largest value at K <= 2048); f32,
 # only the summation order
-FUSED_REL_TOL = {"bfloat16": 2.0 ** -8, "float32": 0.0}
-FUSED_ABS_TOL = {"bfloat16": 1e-4, "float32": 1e-5}  # x the largest value
+FUSED_REL_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11,
+                 "float32": 0.0}
+FUSED_ABS_TOL = {"bfloat16": 1e-4, "float16": 1e-4,
+                 "float32": 1e-5}  # x the largest value
 RESNET_BATCHES = (128, 4)  # bench.py's batch, then __graft_entry__'s
 RESNET_LR = 0.1
 
@@ -937,7 +1211,7 @@ def fused_kernel_phase(torch, cbr, failures):
         b_lib = bias.to(dtype)
         row = dict(
             phase="fused_kernel", shape=name, B=b, H=h, M=m, K=k, N=n,
-            dtype=dt, design="mma" if dtype == torch.bfloat16 else "fma",
+            dtype=dt, design="fma" if dtype == torch.float32 else "mma",
             launches_per_forward=per_fwd, max_abs_err=err,
             max_abs_ref=largest,
             tol=f"{FUSED_REL_TOL[dt]}*|ref| + {FUSED_ABS_TOL[dt]}*max|ref|",
@@ -968,8 +1242,17 @@ def fused_kernel_phase(torch, cbr, failures):
                             f"(largest {largest})")
         del x_nchw, x, got, ref, diff, allowed
     # one bf16 ResNet-50 forward's 16 launches: each time summed over
-    # them; bound by what bounds most of the summed bound
-    forward = [r for r in rows if r["launches_per_forward"]]
+    # them; bound by what bounds most of the summed bound (and the same
+    # for an f16 forward, on its own line)
+    f16 = [r for r in rows
+           if r["launches_per_forward"] and r["dtype"] == "float16"]
+    emit(dict(phase="fused_kernel_forward_f16",
+              launches=sum(r["launches_per_forward"] for r in f16),
+              **{key: sum(r[key] * r["launches_per_forward"] for r in f16)
+                 for key in ("kernel_ms", "bound_ms", "plain_ms",
+                             "library_ms", "chain_ms")}))
+    forward = [r for r in rows
+               if r["launches_per_forward"] and r["dtype"] == "bfloat16"]
     total = dict(phase="fused_kernel_forward",
                  launches=sum(r["launches_per_forward"] for r in forward),
                  design=forward[0]["design"],
@@ -1235,13 +1518,19 @@ def main():
     from mxnet_tpu_torch.models import llama
     from mxnet_tpu_torch.ops import conv_bn_relu as cbr
     from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch import serving
 
-    # float32 matmuls in full f32 (no TF32), for the f32 checks
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
+    flags = torch.backends.cuda.matmul
     emit(dict(phase="card", nvidia_smi=smi,
+              precision_flags={  # set by the package at import
+                  "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "matmul.allow_tf32": flags.allow_tf32,
+                  "matmul.allow_bf16_reduced_precision_reduction":
+                      flags.allow_bf16_reduced_precision_reduction,
+                  "matmul.allow_fp16_reduced_precision_reduction":
+                      flags.allow_fp16_reduced_precision_reduction},
               name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -1257,13 +1546,22 @@ def main():
                      for ln in log.splitlines() if "registers" in ln]))
 
     failures = []
+    if torch.backends.cudnn.allow_tf32 or flags.allow_tf32 or \
+            flags.allow_bf16_reduced_precision_reduction or \
+            flags.allow_fp16_reduced_precision_reduction:
+        failures.append("a precision flag is on after importing the "
+                        "package")
     rows = kernel_phase(torch, fa, failures)
     brows = backward_phase(torch, fa, failures)
     fused = fused_kernel_phase(torch, cbr, failures)
     f32_phase(torch, mx, llama, fa, failures)
     f32_train_phase(torch, mx, llama, fa, failures)
     bf16_phase(torch, mx, llama, fa, failures)
-    infer_launches, infer_mma = slice_phase(torch, mx, llama, fa, failures)
+    serving_f32_phase(torch, mx, llama, serving, failures)
+    infer_launches, infer_mma, net = slice_phase(torch, mx, llama, fa,
+                                                 failures)
+    serving_bf16_phase(torch, mx, llama, serving, fa, net, failures)
+    del net
     train_launches, train_mma = train_phase(torch, mx, llama, fa, failures)
     resnet_f32_phase(torch, mx, vision, cbr, failures)
     resnet18_f32_train_phase(torch, mx, vision, failures)

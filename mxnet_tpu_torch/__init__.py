@@ -24,12 +24,32 @@ context; only an explicit ``mx.cpu()`` runs on the host.
     loss.backward()
     trainer.step(1)
 
-Slices so far: Llama inference, Llama training, and ResNet inference
+Slices so far: Llama inference, Llama training, ResNet inference
 (through a fused 1×1 conv+BN+ReLU kernel) and training
-(``gluon.model_zoo.vision``); ROADMAP Queue 1 lists what follows.
+(``gluon.model_zoo.vision``), and Llama serving (``serving``:
+continuous batching over a paged KV pool, speculative verify, radix
+prefix reuse); ROADMAP Queue 1 lists what follows.
+
+Precision: importing the package turns off, once and for the whole
+process, the torch flags that would let an f32 product run in TF32
+(``torch.backends.cudnn.allow_tf32``,
+``torch.backends.cuda.matmul.allow_tf32``) or let cuBLAS sum bf16/f16
+split-K partials in the input dtype
+(``allow_bf16_reduced_precision_reduction``,
+``allow_fp16_reduced_precision_reduction``): the reference's f32 is f32
+and its bf16 products accumulate in f32.  They are set globally, not
+per op, because the serving lanes run on threads and a process-wide
+flag saved and restored around each op would race between them.
 """
 
 __version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+_torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from . import base
 from .base import MXNetError
@@ -49,3 +69,4 @@ from . import kvstore as kv
 from . import gluon
 from . import models
 from . import convert
+from . import serving

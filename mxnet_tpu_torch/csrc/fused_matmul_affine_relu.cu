@@ -8,13 +8,14 @@
 //   out[m, n] = relu(scale[n] * sum_k x[m, k] * w[k, n] + bias[n])
 // with the sum accumulated in f32, the affine and the ReLU applied to the
 // f32 accumulator, and one rounding to the output dtype before the one store.
-// Inputs: x (M, K) row-major, w (K, N) row-major, both bf16 or both f32;
-// scale and bias (N,) f32; out (M, N) in x's dtype.  Any M, N, K: ragged
-// tails are masked here (the TPU kernel needed M, N, K to divide its
-// 512/256/256 blocks).  bf16 products are exact products of the bf16
-// values, summed in f32, as on the TPU's MXU.  f32 operands stay f32 (the
-// TPU kernel rounds them to bf16 first; the port does not, so that an f32
-// model equals the JAX package's f32 XLA convolution).
+// Inputs: x (M, K) row-major, w (K, N) row-major, both bf16, both f16 or
+// both f32; scale and bias (N,) f32; out (M, N) in x's dtype.  Any M, N, K:
+// ragged tails are masked here (the TPU kernel needed M, N, K to divide its
+// 512/256/256 blocks).  bf16 and f16 products are exact products of the
+// 16-bit values, summed in f32, as on the TPU's MXU (which takes bf16).
+// f32 operands stay f32 (the TPU kernel rounds them to bf16 first; the
+// port does not, so that an f32 model equals the JAX package's f32 XLA
+// convolution).
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense): at the
 // ResNet-50 v1 shapes (B = 128, 224 x 224; K, N = 64 .. 2048) the function
@@ -25,9 +26,9 @@
 //
 // Two designs, chosen by the caller (ops/conv_bn_relu.py) by dtype:
 //
-// mxt_fused_matmul_affine_relu_mma (bf16): tensor cores, mma.sync (building
-//   blocks in flash_attention_mma.cuh).  What bounds most shapes is bytes,
-//   so the design reads x from device memory once and keeps loads in
+// mxt_fused_matmul_affine_relu_mma (bf16, f16): tensor cores, mma.sync
+//   (building blocks in flash_attention_mma.cuh).  What bounds most shapes
+//   is bytes, so the design reads x from device memory once and keeps loads in
 //   flight.  One 256-thread block (8 warps: 4 over M, 2 over N, each 32
 //   rows) per 128-row M tile and N tile of 64 (N <= 64) or 128 columns; a
 //   block's N tile covers all of N when N <= 128, and the N tiles of one M
@@ -38,12 +39,14 @@
 //   tile 128).  x tiles are A operands through ldmatrix, w tiles, (k, n)
 //   row-major, B operands through ldmatrix.trans; mma.m16n8k16 with f32
 //   accumulators, 32 x 64 (or 32 x 32) a warp.  The epilogue applies the
-//   affine and the ReLU to the accumulators in registers, rounds to bf16
-//   once, stages the tile in shared memory and writes each row with
-//   16-byte stores.  No atomics, no split over K: the same bits from run to
-//   run.  A K or N that is not a multiple of 8, or an operand that is not
-//   16-byte aligned, loads and stores element by element instead (zeros
-//   past the edges): the same kernel, a template flag the entry point sets.
+//   affine and the ReLU to the accumulators in registers, rounds to the
+//   16-bit output dtype once, stages the tile in shared memory and writes
+//   each row with 16-byte stores.  No atomics, no split over K: the same
+//   bits from run to run.  A K or N that is not a multiple of 8, or an
+//   operand that is not 16-byte aligned, loads and stores element by
+//   element instead (zeros past the edges): the same kernel, a template
+//   flag the entry point sets.  bf16 and f16 are two instances of one
+//   template (the header's mma_16816 and pack2 take either type).
 //   What it still leaves: wgmma and TMA, and reading NCHW directly instead
 //   of the caller's (M, K) copy.
 //
@@ -54,6 +57,7 @@
 //   8 x 4 slice of the accumulator in registers, read as float4; scalar
 //   synchronous loads.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stddef.h>
@@ -63,9 +67,21 @@
 
 namespace {
 
-// ---- tensor-core design (bf16) ---------------------------------------------
+// ---- tensor-core design (bf16, f16) ----------------------------------------
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+template <typename T>
+__device__ __forceinline__ T zero16();
+template <>
+__device__ __forceinline__ bf16 zero16<bf16>() {
+  return __float2bfloat16_rn(0.f);
+}
+template <>
+__device__ __forceinline__ f16 zero16<f16>() {
+  return __float2half_rn(0.f);
+}
 
 constexpr int kMmaThreads = 256;  // 8 warps: 4 over M, 2 over N
 constexpr int kMmaBM = 128;       // tile rows (M)
@@ -77,16 +93,16 @@ template <int BN>
 constexpr size_t mma_smem_bytes() {
   // kStages x (x tile + w tile), rows padded by 16 bytes; the epilogue's
   // output tile reuses the ring
-  return sizeof(bf16) * (size_t)kStages *
+  return 2 * (size_t)kStages *  // 2 bytes an element (bf16, f16)
          (kMmaBM * kLdX + kMmaBK * (BN + mxt_mma::kPad));
 }
 
 // K step k0 of x (rows m0 .. m0 + 128) and of w (columns n0 .. n0 + BN)
 // into one stage of the ring; zeros past M, N and K.
-template <int BN, bool kAligned>
-__device__ __forceinline__ void load_stage(bf16* xs, bf16* ws,
-                                           const bf16* __restrict__ x,
-                                           const bf16* __restrict__ w,
+template <typename T, int BN, bool kAligned>
+__device__ __forceinline__ void load_stage(T* xs, T* ws,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ w,
                                            int m0, int n0, int k0, int m,
                                            int n, int k) {
   using namespace mxt_mma;
@@ -113,7 +129,7 @@ __device__ __forceinline__ void load_stage(bf16* xs, bf16* ws,
                   valid);
     }
   } else {  // element by element, synchronous
-    const bf16 zero = __float2bfloat16_rn(0.f);
+    const T zero = zero16<T>();
     for (int e = threadIdx.x; e < kMmaBM * kMmaBK; e += kMmaThreads) {
       const int r = e / kMmaBK, col = e % kMmaBK;
       const int gm = m0 + r, gk = k0 + col;
@@ -127,13 +143,13 @@ __device__ __forceinline__ void load_stage(bf16* xs, bf16* ws,
   }
 }
 
-template <int BN, bool kAligned>
+template <typename T, int BN, bool kAligned>
 __global__ void __launch_bounds__(kMmaThreads)
-    fused_mm_affine_relu_mma_kernel(const bf16* __restrict__ x,
-                                    const bf16* __restrict__ w,
+    fused_mm_affine_relu_mma_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ w,
                                     const float* __restrict__ scale,
                                     const float* __restrict__ bias,
-                                    bf16* __restrict__ out, int m, int n,
+                                    T* __restrict__ out, int m, int n,
                                     int k) {
   using namespace mxt_mma;
   constexpr int kLdW = BN + kPad;
@@ -146,8 +162,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   static_assert(kMmaBM * kLdO <= kStages * (kXTile + kWTile),
                 "the output tile must fit in the ring");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // kStages x kXTile
-  bf16* ws = xs + kStages * kXTile;              // kStages x kWTile
+  T* xs = reinterpret_cast<T*>(smem_raw);  // kStages x kXTile
+  T* ws = xs + kStages * kXTile;           // kStages x kWTile
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 1, wn = warp & 1;  // rows wm * 32, columns wn * kWN
@@ -168,7 +184,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_k)
-      load_stage<BN, kAligned>(xs + s * kXTile, ws + s * kWTile, x, w, m0,
+      load_stage<T, BN, kAligned>(xs + s * kXTile, ws + s * kWTile, x, w, m0,
                                n0, s * kMmaBK, m, n, k);
     cp_async_commit();
   }
@@ -177,12 +193,12 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();  // for every thread; and all are done with step t - 1
     const int next = t + kStages - 1;  // into step t - 1's slot
     if (next < n_k)
-      load_stage<BN, kAligned>(xs + (next % kStages) * kXTile,
+      load_stage<T, BN, kAligned>(xs + (next % kStages) * kXTile,
                                ws + (next % kStages) * kWTile, x, w, m0, n0,
                                next * kMmaBK, m, n, k);
     cp_async_commit();
-    const bf16* xt = xs + (t % kStages) * kXTile;
-    const bf16* wt = ws + (t % kStages) * kWTile;
+    const T* xt = xs + (t % kStages) * kXTile;
+    const T* wt = ws + (t % kStages) * kWTile;
 #pragma unroll
     for (int kk = 0; kk < kMmaBK / 16; ++kk) {
       uint32_t a[kMT][4];
@@ -196,8 +212,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                           frag_a<kLdW>(wt, kk * 16, wn * kWN + np * 16, lane));
 #pragma unroll
         for (int i = 0; i < kMT; ++i) {
-          mma_16816<bf16>(acc[i][2 * np], a[i], b[0], b[1]);
-          mma_16816<bf16>(acc[i][2 * np + 1], a[i], b[2], b[3]);
+          mma_16816<T>(acc[i][2 * np], a[i], b[0], b[1]);
+          mma_16816<T>(acc[i][2 * np + 1], a[i], b[2], b[3]);
         }
       }
     }
@@ -205,10 +221,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring
 
-  // relu(scale * acc + bias) rounded to bf16 into the output tile; two
+  // relu(scale * acc + bias) rounded to T into the output tile; two
   // roundings (product, then sum), as the plain version's (acc * scale) +
   // bias; "y < 0 ? 0 : y" keeps NaN, as torch.relu
-  bf16* os = xs;  // kMmaBM x kLdO
+  T* os = xs;  // kMmaBM x kLdO
   const int g = lane >> 2, quad_col = 2 * (lane & 3);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -232,7 +248,7 @@ __global__ void __launch_bounds__(kMmaThreads)
           y[c] = y[c] < 0.f ? 0.f : y[c];
         }
         *reinterpret_cast<uint32_t*>(os + row * kLdO + col) =
-            pack2<bf16>(y[0], y[1]);
+            pack2<T>(y[0], y[1]);
       }
   }
   __syncthreads();
@@ -254,27 +270,28 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-template <int BN, bool kAligned>
+template <typename T, int BN, bool kAligned>
 cudaError_t launch_mma_tile(const void* x, const void* w, const void* scale,
                             const void* bias, void* out, int m, int n, int k,
                             cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<BN>();
   // above 48 KB a block's shared memory must be opted into, per device
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mm_affine_relu_mma_kernel<BN, kAligned>,
+      fused_mm_affine_relu_mma_kernel<T, BN, kAligned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
       (long long)((m + kMmaBM - 1) / kMmaBM) * ((n + BN - 1) / BN);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  fused_mm_affine_relu_mma_kernel<BN, kAligned>
+  fused_mm_affine_relu_mma_kernel<T, BN, kAligned>
       <<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<const T*>(x), static_cast<const T*>(w),
           static_cast<const float*>(scale), static_cast<const float*>(bias),
-          static_cast<bf16*>(out), m, n, k);
+          static_cast<T*>(out), m, n, k);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_mma(const void* x, const void* w, const void* scale,
                        const void* bias, void* out, int m, int n, int k,
                        cudaStream_t stream) {
@@ -284,14 +301,14 @@ cudaError_t launch_mma(const void* x, const void* w, const void* scale,
                        reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (n <= 64)
-    return aligned ? launch_mma_tile<64, true>(x, w, scale, bias, out, m, n,
-                                               k, stream)
-                   : launch_mma_tile<64, false>(x, w, scale, bias, out, m, n,
-                                                k, stream);
-  return aligned ? launch_mma_tile<128, true>(x, w, scale, bias, out, m, n, k,
-                                              stream)
-                 : launch_mma_tile<128, false>(x, w, scale, bias, out, m, n,
-                                               k, stream);
+    return aligned ? launch_mma_tile<T, 64, true>(x, w, scale, bias, out, m,
+                                                  n, k, stream)
+                   : launch_mma_tile<T, 64, false>(x, w, scale, bias, out, m,
+                                                   n, k, stream);
+  return aligned ? launch_mma_tile<T, 128, true>(x, w, scale, bias, out, m, n,
+                                                 k, stream)
+                 : launch_mma_tile<T, 128, false>(x, w, scale, bias, out, m,
+                                                  n, k, stream);
 }
 
 // ---- f32 FMA design --------------------------------------------------------
@@ -400,8 +417,8 @@ cudaError_t launch_fma(const void* x, const void* w, const void* scale,
 
 }  // namespace
 
-// dtype: 0 = float32, 2 = bfloat16 (the codes of the other kernels; float16
-// is not taken): _mma takes bf16 only, _fma f32 only.  Each returns the
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (the codes of the other
+// kernels): _mma takes bf16 and f16, _fma f32 only.  Each returns the
 // cudaError_t of its launch (0 on success; cudaErrorInvalidValue for a
 // dtype the design does not take); the kernel itself runs asynchronously
 // on `stream`.
@@ -410,9 +427,12 @@ extern "C" int mxt_fused_matmul_affine_relu_mma(const void* x, const void* w,
                                                 const void* bias, void* out,
                                                 int m, int n, int k,
                                                 int dtype, void* stream) {
-  if (m < 0 || n < 0 || k < 0 || dtype != 2) return cudaErrorInvalidValue;
-  return launch_mma(x, w, scale, bias, out, m, n, k,
-                    static_cast<cudaStream_t>(stream));
+  if (m < 0 || n < 0 || k < 0 || (dtype != 1 && dtype != 2))
+    return cudaErrorInvalidValue;
+  return dtype == 2 ? launch_mma<bf16>(x, w, scale, bias, out, m, n, k,
+                                       static_cast<cudaStream_t>(stream))
+                    : launch_mma<f16>(x, w, scale, bias, out, m, n, k,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mxt_fused_matmul_affine_relu_fma(const void* x, const void* w,

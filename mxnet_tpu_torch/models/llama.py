@@ -8,7 +8,16 @@ both are differentiable, the flash route through the backward kernels
 (GQA heads are repeated before the call, so the repeat's backward sums
 dK/dV over each group).  ``generate`` runs the KV-cached
 ``LlamaDecoder``: one batched prefill, then greedy decode steps, with
-dense attention as in the reference.
+dense attention as in the reference; ``do_sample=True`` draws from the
+temperature / top-k / nucleus-filtered distribution (``_pick``).  The
+decoder also carries the serving programs the continuous-batching
+engine (``serving/generative.py``) runs: the per-slot decode step over
+slot caches (``_step_slots_impl``) or a paged block pool
+(``_step_blocks_impl``), the speculative verify window
+(``_verify_blocks_impl``), the batched prefill with a per-row true
+length (``_prefill_rows_impl``) and the radix-hit suffix prefill
+(``_prefill_suffix_impl``), all dense torch ops with f32 scores, as the
+reference's are jnp outside any Pallas kernel.
 
 Numerics follow the reference: RMSNorm statistics in f32 cast back to
 the input dtype; RoPE tables computed in float64, stored f32, applied to
@@ -19,9 +28,15 @@ P cast to the activation dtype before the PV product.
 Not ported yet, each raising ``MXNetError`` that names the ROADMAP
 item: MoE (``num_experts``, the mixtral configs),
 ``scan_layers``/``set_remat``, ring/ulysses attention, packed
-``segment_ids`` and ``packed_lm_loss``, sampling (``do_sample=True``),
-the pipeline and sharding functions, and the decoder's paged and
-speculative serving programs.
+``segment_ids`` and ``packed_lm_loss``, and the pipeline and sharding
+functions.
+
+Sampling cannot reproduce the reference's draws (JAX's PRNG is not
+torch's): the filters are the reference's arithmetic on the same
+logits, and the draw is ``torch.multinomial`` from a ``torch.Generator``
+on the logits' device, seeded by ``seed`` or, without one, the
+package's per-device generator (``mxnet_tpu_torch.random``).  Greedy
+decoding never touches a generator.
 """
 from __future__ import annotations
 
@@ -32,6 +47,7 @@ import torch
 
 from .. import autograd
 from .. import ndarray as nd
+from .. import random as mx_random
 from ..base import MXNetError
 from ..gluon import nn
 from ..gluon.block import HybridBlock
@@ -300,12 +316,13 @@ class LlamaForCausalLM(HybridBlock):
     set_remat = _not_ported("LlamaForCausalLM.set_remat")
 
     def generate(self, input_ids, max_new_tokens=16, use_cache=True,
-                 do_sample=False):
-        """Greedy decoding.  ``use_cache=True`` (default) runs the
-        KV-cached ``LlamaDecoder``; ``use_cache=False`` re-forwards the
-        whole sequence per token (the reference's oracle path)."""
-        if do_sample:
-            raise MXNetError(f"do_sample=True (sampling) {_LATER}")
+                 do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                 seed=None):
+        """Decoding.  ``use_cache=True`` (default) runs the KV-cached
+        ``LlamaDecoder``; ``use_cache=False`` re-forwards the whole
+        sequence per token (the reference's greedy oracle path).
+        ``do_sample=True`` draws from the temperature / top-k / top-p
+        filtered distribution (cached path only)."""
         need = input_ids.shape[1] + max_new_tokens
         max_ctx = self._cfg.max_seq_len
         if need > max_ctx:
@@ -315,7 +332,13 @@ class LlamaForCausalLM(HybridBlock):
                 f"max_seq_len ({max_ctx}); RoPE tables and KV caches are "
                 f"only valid inside the trained context window")
         if use_cache:
-            return self._generate_cached(input_ids, max_new_tokens)
+            return self._generate_cached(
+                input_ids, max_new_tokens, do_sample=do_sample,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed)
+        if do_sample:
+            raise MXNetError("do_sample requires the KV-cache path "
+                             "(use_cache=True)")
         cur = input_ids
         with autograd.pause():
             for _ in range(max_new_tokens):
@@ -324,7 +347,7 @@ class LlamaForCausalLM(HybridBlock):
                 cur = nd.concat(cur, nxt.astype(cur.dtype), dim=1)
         return cur
 
-    def _generate_cached(self, input_ids, max_new_tokens):
+    def _generate_cached(self, input_ids, max_new_tokens, **sample_kw):
         if max_new_tokens < 1:  # n=0: prompt unchanged (oracle parity)
             return input_ids
         b, t0 = input_ids.shape
@@ -339,20 +362,71 @@ class LlamaForCausalLM(HybridBlock):
         dec = cache.get(bucket)
         if dec is None:
             dec = cache[bucket] = LlamaDecoder(self, max_len=bucket)
-        ids = dec.generate(input_ids._data, max_new_tokens)
+        ids = dec.generate(input_ids._data, max_new_tokens, **sample_kw)
         return NDArray(ids).astype(input_ids.dtype)
 
 
+def _dequantize(leaf):
+    """An int8 weight of the serving engine's int8 tree (``{"q8": int8
+    rows, "scale": f32 per-row scales}``) as f32: rows × their scales."""
+    return leaf["q8"].to(leaf["scale"].dtype) * leaf["scale"]
+
+
+def _mm(x, w):
+    """``x @ w.T`` with JAX's type promotion: the dequantized f32 weights
+    of an int8-served net promote bf16 activations to f32, as jnp's ``@``
+    does.  An int8 leaf is dequantized here, one matrix at a time just
+    before its product, and freed after it (the reference's jit fuses
+    the same dequantization into the matmul)."""
+    if isinstance(w, dict):
+        w = _dequantize(w)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w.t()
+
+
+def _filter_logits(logits, temperature, top_k, top_p):
+    """The reference's sampling filters (its ``_pick``) on (B, V) logits,
+    in f32: divide by ``max(temperature, 1e-6)``; keep the ``top_k``
+    largest (ties with the k-th kept); then the nucleus: sorted
+    descending, drop every token whose EXCLUSIVE cumulative probability
+    reaches ``top_p`` (the top token always survives).  Dropped entries
+    are -inf."""
+    lg = logits.float() / max(float(temperature), 1e-6)
+    if top_k and top_k < lg.shape[-1]:
+        kth = torch.sort(lg, dim=-1).values[:, -top_k][:, None]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    if top_p < 1.0:
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1) - probs
+        count = (cum < top_p).sum(-1).clamp_min(1)
+        thresh = srt.gather(1, (count - 1)[:, None])
+        lg = lg.masked_fill(lg < thresh, float("-inf"))
+    return lg
+
+
 class LlamaDecoder:
-    """Incremental decoder with a static-shape KV cache.
+    """Incremental decoder with a static-shape KV cache, and the serving
+    programs of the continuous-batching engine.
 
     ``generate`` runs one batched prefill over the padded prompt, which
-    writes the prompt's K/V into (B, Hkv, max_len, D) caches, then greedy
-    decode steps; each step writes its K/V row into the caches in place
-    (the reference's functional update, done in place to keep one copy of
-    the cache) and attends the whole cache under a ``t <= pos`` mask.
-    Weights are read from the net's Parameters on every call.  Attention
-    is dense (``_attend``), as in the reference.
+    writes the prompt's K/V into (B, Hkv, max_len, D) caches, then decode
+    steps (greedy, or sampled); each step writes its K/V row into the
+    caches in place (the reference's functional update, done in place to
+    keep one copy of the cache) and attends the whole cache under a
+    ``t <= pos`` mask.  Weights are read from the net's Parameters on
+    every call.  Attention is dense (``_attend``), as in the reference.
+
+    The serving programs write their caches and pools in place too (the
+    reference donates them).  A paged pool (``_step_blocks_impl``,
+    ``_verify_blocks_impl``) is ``(num_blocks + 1, Hkv, block_size, D)``:
+    the reference writes vacant slots and over-budget columns at the
+    out-of-bounds sentinel id ``num_blocks``, and XLA drops those
+    writes; torch has no dropping scatter, so the pool carries one trash
+    block at that index, which those writes hit and the clamped gathers
+    (``min(tables, num_blocks - 1)``) never read.
     """
 
     def __init__(self, net: "LlamaForCausalLM", max_len: int):
@@ -403,49 +477,172 @@ class LlamaDecoder:
         scores = scores / math.sqrt(cfg.head_dim)
         scores = scores.masked_fill(~mask, float("-inf"))
         attn = torch.softmax(scores, dim=-1).to(q.dtype)
-        return torch.matmul(attn, v)
+        return torch.matmul(attn, v.to(q.dtype))
 
     def _layer(self, L, x, ctx_fn):
         """Residual wiring: x + attn(ln(x)), then + mlp(ln(x))."""
         eps = self.cfg.rms_eps
         x = x + ctx_fn(_rms(x, L["ln_in"], eps))
         h2 = _rms(x, L["ln_post"], eps)
-        g = h2 @ L["gate"].t()
-        return x + (g * torch.sigmoid(g) * (h2 @ L["up"].t())) @ \
-            L["down"].t()
+        g = _mm(h2, L["gate"])
+        return x + _mm(g * torch.sigmoid(g) * _mm(h2, L["up"]), L["down"])
+
+    def _qkv(self, L, h, cos, sin):
+        """RoPE'd q, k and v of ``h`` (*lead, T, hidden) as (*lead, heads,
+        T, D); ``cos``/``sin`` broadcast against (*lead, heads, T, D/2)."""
+        cfg = self.cfg
+        lead = h.shape[:-1]
+
+        def split(t, heads):
+            return t.reshape(*lead, heads, cfg.head_dim).transpose(-3, -2)
+
+        q = split(_mm(h, L["q"]), cfg.num_heads)
+        k = split(_mm(h, L["k"]), cfg.num_kv_heads)
+        v = split(_mm(h, L["v"]), cfg.num_kv_heads)
+        return _apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v
+
+    def _out(self, L, ctx):
+        """Context (*lead, H, T, D) → o_proj of (*lead, T, H·D)."""
+        ctx = ctx.transpose(-3, -2)
+        return _mm(ctx.reshape(*ctx.shape[:-2], -1), L["o"])
+
+    def _logits(self, w, x):
+        return _mm(_rms(x, w["norm"], self.cfg.rms_eps), w["head"])
 
     def _step_impl(self, w, caches, ids_t, pos):
         """ids_t (B,) int, pos int → logits (B, V); writes position
         ``pos`` of every layer's caches in place."""
-        cfg = self.cfg
-        hd = cfg.head_dim
-        b = ids_t.shape[0]
         cos, sin = self._rope.get(self.max_len, ids_t.device)
         cos, sin = cos[pos:pos + 1], sin[pos:pos + 1]
-        x = w["emb"][ids_t.long()]                              # (B, H)
+        x = w["emb"][ids_t.long()][:, None]                     # (B, 1, H)
         mask = (torch.arange(self.max_len, device=x.device) <= pos)[None]
         for L, (kc, vc) in zip(w["layers"], caches):
 
             def ctx_fn(h, L=L, kc=kc, vc=vc):
-                q = (h @ L["q"].t()).reshape(b, cfg.num_heads, 1, hd)
-                k = (h @ L["k"].t()).reshape(b, cfg.num_kv_heads, 1, hd)
-                v = (h @ L["v"].t()).reshape(b, cfg.num_kv_heads, 1, hd)
-                q = _apply_rope(q, cos, sin)
-                kc[:, :, pos:pos + 1] = _apply_rope(k, cos, sin)
+                q, k, v = self._qkv(L, h, cos, sin)
+                kc[:, :, pos:pos + 1] = k
                 vc[:, :, pos:pos + 1] = v
-                ctx = self._attend(q, kc, vc, mask)
-                return ctx.reshape(b, cfg.num_heads * hd) @ L["o"].t()
+                return self._out(L, self._attend(q, kc, vc, mask))
 
             x = self._layer(L, x, ctx_fn)
-        return _rms(x, w["norm"], cfg.rms_eps) @ w["head"].t()
+        return self._logits(w, x[:, 0])
+
+    def _step_slots_impl(self, w, caches, ids_t, pos):
+        """Per-slot decode step for continuous batching: ids_t (S,) and
+        pos (S,) int tensors → logits (S, V); writes each slot's K/V row
+        at its own ``pos`` of its own cache row, in place.  RoPE rows are
+        gathered per slot and the causal mask is ``t <= pos[s]`` per slot.
+        Vacant slots run at pos 0 with token 0: their write lands in their
+        own slot row only, which admission's prefill replaces."""
+        s = ids_t.shape[0]
+        pos = pos.long()
+        cos, sin = self._rope.get(self.max_len, ids_t.device)
+        cos, sin = cos[pos][:, None, None], sin[pos][:, None, None]
+        x = w["emb"][ids_t.long()][:, None]                     # (S, 1, H)
+        mask = (torch.arange(self.max_len, device=x.device)[None]
+                <= pos[:, None])[:, None, None]                 # (S,1,1,T)
+        rows = torch.arange(s, device=x.device)
+        for L, (kc, vc) in zip(w["layers"], caches):
+
+            def ctx_fn(h, L=L, kc=kc, vc=vc):
+                q, k, v = self._qkv(L, h, cos, sin)
+                kc[rows, :, pos] = k[:, :, 0].to(kc.dtype)
+                vc[rows, :, pos] = v[:, :, 0].to(vc.dtype)
+                return self._out(L, self._attend(q, kc, vc, mask))
+
+            x = self._layer(L, x, ctx_fn)
+        return self._logits(w, x[:, 0])
+
+    def _step_blocks_impl(self, w, pools, tables, ids_t, pos):
+        """Per-slot decode step against a paged KV pool: the contract of
+        ``_step_slots_impl`` with block-granular storage.  ``pools[l]`` is
+        ``(kp, vp)``, each ``(num_blocks + 1, Hkv, block_size, D)`` shared
+        by every slot (the last block is the trash block); ``tables``
+        (S, MB) holds each slot's block ids in logical order, vacant
+        entries ``num_blocks``.  Each slot's new K/V lands at
+        ``(tables[s, pos // bs], pos % bs)`` (a vacant slot's in the trash
+        block), and each slot attends its logical view (S, Hkv, MB·bs, D)
+        gathered through the clamped table; rows read through clamped
+        sentinel entries sit where the mask ``t <= pos`` never looks."""
+        s = ids_t.shape[0]
+        nb, hkv, bs, hd = pools[0][0].shape
+        nb -= 1
+        tables = tables.long()
+        t = tables.shape[1] * bs
+        pos = pos.long()
+        cos, sin = self._rope.get(self.max_len, ids_t.device)
+        cos, sin = cos[pos][:, None, None], sin[pos][:, None, None]
+        x = w["emb"][ids_t.long()][:, None]                     # (S, 1, H)
+        mask = (torch.arange(t, device=x.device)[None]
+                <= pos[:, None])[:, None, None]                 # (S,1,1,T)
+        blk = tables.gather(1, (pos // bs)[:, None])[:, 0]      # (S,)
+        off = pos % bs
+        gat = tables.clamp(max=nb - 1)
+        for L, (kp, vp) in zip(w["layers"], pools):
+
+            def ctx_fn(h, L=L, kp=kp, vp=vp):
+                q, k, v = self._qkv(L, h, cos, sin)
+                kp[blk, :, off] = k[:, :, 0].to(kp.dtype)
+                vp[blk, :, off] = v[:, :, 0].to(vp.dtype)
+                kc = kp[gat].transpose(1, 2).reshape(s, hkv, t, hd)
+                vc = vp[gat].transpose(1, 2).reshape(s, hkv, t, hd)
+                return self._out(L, self._attend(q, kc, vc, mask))
+
+            x = self._layer(L, x, ctx_fn)
+        return self._logits(w, x[:, 0])
+
+    def _verify_blocks_impl(self, w, pools, tables, toks, pos0):
+        """Speculative verify against the paged pool: the paged step
+        widened to K = k + 1 positions a slot in one forward.  ``toks``
+        (S, K) is ``[last_committed, draft_1 .. draft_k]`` a slot and
+        ``pos0`` (S,) each slot's committed write cursor, so column j sits
+        at ``pos0[s] + j``.  Returns logits (S, K, V): column j is the
+        target's next-token distribution after ``toks[s, :j + 1]``.
+
+        All K columns' K/V land in the slot's own blocks at their
+        absolute positions (columns at or past ``max_len``, and vacant
+        slots, in the trash block).  Rejected columns need no cleanup:
+        they sit past the rolled-back cursor, where the mask never looks,
+        until the next window overwrites them.  The mask is per column,
+        ``t <= pos0[s] + j`` (explicit: Tq = K differs from Tk, and the
+        alignment must be the reference's, not top-left)."""
+        s, kk = toks.shape
+        nb, hkv, bs, hd = pools[0][0].shape
+        nb -= 1
+        tables = tables.long()
+        mb = tables.shape[1]
+        t = mb * bs
+        dev = toks.device
+        pw = pos0.long()[:, None] + torch.arange(kk, device=dev)[None]
+        cos, sin = self._rope.get(self.max_len, dev)
+        pwc = pw.clamp(max=self.max_len - 1)   # RoPE rows of real columns
+        cos, sin = cos[pwc][:, None], sin[pwc][:, None]         # (S,1,K,·)
+        x = w["emb"][toks.long()]                               # (S, K, H)
+        mask = (torch.arange(t, device=dev)[None, None]
+                <= pw[:, :, None])[:, None]                     # (S,1,K,T)
+        blk = tables.gather(1, (pw // bs).clamp(max=mb - 1))
+        blk = torch.where(pw < self.max_len, blk, torch.full_like(blk, nb))
+        off = pw % bs
+        gat = tables.clamp(max=nb - 1)
+        for L, (kp, vp) in zip(w["layers"], pools):
+
+            def ctx_fn(h, L=L, kp=kp, vp=vp):
+                q, k, v = self._qkv(L, h, cos, sin)
+                kp[blk, :, off] = k.transpose(1, 2).to(kp.dtype)
+                vp[blk, :, off] = v.transpose(1, 2).to(vp.dtype)
+                kc = kp[gat].transpose(1, 2).reshape(s, hkv, t, hd)
+                vc = vp[gat].transpose(1, 2).reshape(s, hkv, t, hd)
+                return self._out(L, self._attend(q, kc, vc, mask))
+
+            x = self._layer(L, x, ctx_fn)
+        return self._logits(w, x)
 
     def _prefill_rows_impl(self, w, ids, t0):
         """Batched prompt pass over padded ids (B, Lp) → (each layer's
-        post-RoPE K/V rows (B, Hkv, Lp, D), logits (B, V) at the last real
-        position ``t0 - 1``).  The reference's per-row ``t0`` vector
-        belongs to the serving engine and ports with it."""
-        cfg = self.cfg
-        hd = cfg.head_dim
+        post-RoPE K/V rows (B, Hkv, Lp, D), logits (B, V) at each row's
+        last real position).  ``t0`` is the true length: one int for the
+        batch, or a (B,) tensor, one a row (serving admits prompts of
+        several lengths in one padded prefill)."""
         b, lp = ids.shape
         cos, sin = self._rope.get(self.max_len, ids.device)
         cos, sin = cos[:lp], sin[:lp]
@@ -456,22 +653,16 @@ class LlamaDecoder:
         for L in w["layers"]:
 
             def ctx_fn(h, L=L):
-                q = (h @ L["q"].t()).reshape(b, lp, cfg.num_heads, hd) \
-                    .transpose(1, 2)
-                k = (h @ L["k"].t()).reshape(b, lp, cfg.num_kv_heads, hd) \
-                    .transpose(1, 2)
-                v = (h @ L["v"].t()).reshape(b, lp, cfg.num_kv_heads, hd) \
-                    .transpose(1, 2)
-                q = _apply_rope(q, cos, sin)
-                k = _apply_rope(k, cos, sin)
+                q, k, v = self._qkv(L, h, cos, sin)
                 rows.append((k, v))
-                ctx = self._attend(q, k, v, causal)
-                return ctx.transpose(1, 2) \
-                    .reshape(b, lp, cfg.num_heads * hd) @ L["o"].t()
+                return self._out(L, self._attend(q, k, v, causal))
 
             x = self._layer(L, x, ctx_fn)
-        return rows, _rms(x[:, t0 - 1], w["norm"], cfg.rms_eps) @ \
-            w["head"].t()
+        if isinstance(t0, torch.Tensor) and t0.dim() == 1:
+            x_last = x[torch.arange(b, device=x.device), t0.long() - 1]
+        else:
+            x_last = x[:, int(t0) - 1]
+        return rows, self._logits(w, x_last)
 
     def _prefill_impl(self, w, ids, t0):
         """Prompt pass + full-length caches: K/V rows land at [0:Lp] of
@@ -490,10 +681,45 @@ class LlamaDecoder:
             caches.append((kc, vc))
         return caches, logits
 
-    _step_slots_impl = _not_ported("LlamaDecoder._step_slots_impl")
-    _step_blocks_impl = _not_ported("LlamaDecoder._step_blocks_impl")
-    _verify_blocks_impl = _not_ported("LlamaDecoder._verify_blocks_impl")
-    _prefill_suffix_impl = _not_ported("LlamaDecoder._prefill_suffix_impl")
+    def _prefill_suffix_impl(self, w, prefix_kv, ids, t0, s0):
+        """Prompt-suffix prefill over a reused prefix (the radix cache):
+        ``prefix_kv[l] = (K, V)``, each (B, Hkv, Lpre, D), holds each row's
+        leading ``s0[b]`` tokens of K/V (dense copies of shared pool
+        blocks; garbage past ``s0[b]``), and only the novel suffix ``ids``
+        (B, Ls) runs through the layers.  Suffix row j sits at position
+        ``s0[b] + j`` (RoPE and mask) and attends every real prefix column
+        (``t < s0[b]``) and the suffix causally: the attention of a full
+        prefill, at the suffix's projection and MLP cost.  Returns the
+        suffix rows' post-RoPE K/V and logits at each row's last real
+        suffix position ``t0[b] - 1``; a row with no hit has ``s0 = 0``
+        (every prefix column masked: a plain prefill)."""
+        b, ls = ids.shape
+        lpre = prefix_kv[0][0].shape[2]
+        dev = ids.device
+        s0 = s0.long()
+        pw = (s0[:, None] + torch.arange(ls, device=dev)[None]).clamp(
+            max=self.max_len - 1)
+        cos, sin = self._rope.get(self.max_len, dev)
+        cos, sin = cos[pw][:, None], sin[pw][:, None]           # (B,1,Ls,·)
+        x = w["emb"][ids.long()]                                # (B, Ls, H)
+        mask_pre = (torch.arange(lpre, device=dev)[None, None, None]
+                    < s0[:, None, None, None]).expand(b, 1, ls, lpre)
+        mask_suf = torch.ones((ls, ls), dtype=torch.bool, device=dev) \
+            .tril()[None, None].expand(b, 1, ls, ls)
+        mask = torch.cat([mask_pre, mask_suf], dim=-1)
+        rows = []
+        for L, (pk, pv) in zip(w["layers"], prefix_kv):
+
+            def ctx_fn(h, L=L, pk=pk, pv=pv):
+                q, k, v = self._qkv(L, h, cos, sin)
+                rows.append((k, v))
+                kc = torch.cat([pk, k.to(pk.dtype)], dim=2)
+                vc = torch.cat([pv, v.to(pv.dtype)], dim=2)
+                return self._out(L, self._attend(q, kc, vc, mask))
+
+            x = self._layer(L, x, ctx_fn)
+        x_last = x[torch.arange(b, device=dev), t0.long() - 1]
+        return rows, self._logits(w, x_last)
 
     def logits_at(self, ids):
         """Teacher-forced per-step decode over ``ids`` (B, T) returning
@@ -509,19 +735,27 @@ class LlamaDecoder:
         return torch.stack(outs, dim=1).cpu().numpy()
 
     @staticmethod
-    def _pick(logits):
-        """Greedy choice from last-position logits (B, V)."""
-        return logits.argmax(dim=-1).to(torch.int32)
+    def _pick(logits, generator=None, temperature=1.0, top_k=0, top_p=1.0,
+              do_sample=False):
+        """Greedy choice, or a draw from the filtered distribution
+        (``_filter_logits``) with ``generator``, from last-position
+        logits (B, V) → (B,) int32."""
+        if not do_sample:
+            return logits.argmax(dim=-1).to(torch.int32)
+        probs = torch.softmax(_filter_logits(logits, temperature, top_k,
+                                             top_p), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0] \
+            .to(torch.int32)
 
-    def _generate_impl(self, w, ids, t0, n_steps):
+    def _generate_impl(self, w, ids, t0, n_steps, pick):
         """Padded ids (B, Lp) + true length ``t0`` → (B, n_steps) tokens:
         batched prefill, then n_steps - 1 decode steps (the first token
-        comes from the prefill logits)."""
+        comes from the prefill logits); ``pick`` maps logits to tokens."""
         caches, logits = self._prefill_impl(w, ids, t0)
-        cur = self._pick(logits)
+        cur = pick(logits)
         toks = [cur]
         for pos in range(t0, t0 + n_steps - 1):
-            cur = self._pick(self._step_impl(w, caches, cur, pos))
+            cur = pick(self._step_impl(w, caches, cur, pos))
             toks.append(cur)
         return torch.stack(toks, dim=1)
 
@@ -540,14 +774,15 @@ class LlamaDecoder:
         nb = min(self._bucket(n), self.max_len - lp)
         return t0 if nb < n else lp
 
-    def generate(self, ids, max_new_tokens, do_sample=False):
-        """Greedy decode of ``ids`` (B, t0) → (B, t0 + max_new_tokens)
-        int32 tensor on the weights' device.  The prompt is padded to the
-        reference's power-of-two bucket (exact shapes when the bucketed
-        padding does not fit), so the prefill sees the same shapes; only
-        the ``max_new_tokens`` steps that are returned are run."""
-        if do_sample:
-            raise MXNetError(f"do_sample=True (sampling) {_LATER}")
+    def generate(self, ids, max_new_tokens, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, seed=None):
+        """Decode ``ids`` (B, t0) → (B, t0 + max_new_tokens) int32 tensor
+        on the weights' device: greedy, or sampled with ``do_sample``
+        (a generator seeded with ``seed``, else the package's generator of
+        the weights' device).  The prompt is padded to the reference's
+        power-of-two bucket (exact shapes when the bucketed padding does
+        not fit), so the prefill sees the same shapes; only the
+        ``max_new_tokens`` steps that are returned are run."""
         emb = self._net.model.embed_tokens.weight.data()._data
         ids = torch.as_tensor(ids).to(device=emb.device, dtype=torch.int32)
         b, t0 = ids.shape
@@ -556,11 +791,23 @@ class LlamaDecoder:
             raise MXNetError("max_new_tokens must be >= 1")
         if t0 + n > self.max_len:
             raise MXNetError("max_len exceeded; build a larger decoder")
+        gen = None
+        if do_sample and seed is not None:
+            gen = torch.Generator(device=emb.device)
+            gen.manual_seed(int(seed))
+        elif do_sample:
+            gen = mx_random.generator(emb.device)
+
+        def pick(logits):
+            return self._pick(logits, gen, temperature, top_k, top_p,
+                              do_sample)
+
         lp = self._prompt_len(t0, n)
         ids_pad = torch.zeros((b, lp), dtype=torch.int32, device=emb.device)
         ids_pad[:, :t0] = ids
         with torch.no_grad():
-            toks = self._generate_impl(self._weights(), ids_pad, t0, n)
+            toks = self._generate_impl(self._weights(), ids_pad, t0, n,
+                                       pick)
         return torch.cat([ids, toks], dim=1)
 
 

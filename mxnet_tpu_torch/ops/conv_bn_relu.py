@@ -15,7 +15,9 @@ other and no switch between them.
 
 Operand dtypes: bf16 x and w give the exact products of the bf16 values,
 summed in f32 — what the Pallas kernel computes — on the tensor cores
-(``mma.sync``, the kernel's ``_mma`` design).  f32 x and w stay f32 on the
+(``mma.sync``, the kernel's ``_mma`` design); f16 x and w take the same
+design (an f16 instance of it), so that a net cast to float16 runs its
+fused runs through the kernel as bf16 does.  f32 x and w stay f32 on the
 FMA pipes (``_fma``): the Pallas kernel would round them to bf16 before its
 product, but the JAX package's f32 ResNet never does that (its conv is f32
 XLA), and the port's f32 ResNet must equal it.  Other dtypes raise.
@@ -31,7 +33,7 @@ import torch
 from .. import _kernels
 from ..base import MXNetError
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def _fused_matmul_affine_relu_plain(x, w, scale, bias):
@@ -50,7 +52,7 @@ def _check_kernel_operands(x, w, scale, bias):
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
         raise MXNetError(
             "fused_matmul_affine_relu: x and w must share one dtype of "
-            f"float32/bfloat16 (got {x.dtype}, {w.dtype})")
+            f"float32/float16/bfloat16 (got {x.dtype}, {w.dtype})")
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise MXNetError(
             "fused_matmul_affine_relu: expected x (M, K) and w (K, N); got "
@@ -67,18 +69,18 @@ def _check_kernel_operands(x, w, scale, bias):
 
 
 def fused_matmul_affine_relu(x, w, scale, bias):
-    """relu(scale·(x @ w) + bias): x (M, K) and w (K, N) in bf16 or f32,
-    scale and bias (N,) f32 → (M, N) in x's dtype.
+    """relu(scale·(x @ w) + bias): x (M, K) and w (K, N) in bf16, f16 or
+    f32, scale and bias (N,) f32 → (M, N) in x's dtype.
 
-    A CUDA tensor launches the kernel of its dtype's design: bf16 the
-    tensor cores' (``_mma``), f32 the FMA pipes' (``_fma``);
+    A CUDA tensor launches the kernel of its dtype's design: bf16 and f16
+    the tensor cores' (``_mma``), f32 the FMA pipes' (``_fma``);
     ``fused_matmul_affine_relu.launches`` counts every launch and
     ``.launches_mma`` the tensor-core design's.  CPU tensors take the
     plain version."""
     if all(t.device.type == "cpu" for t in (x, w, scale, bias)):
         return _fused_matmul_affine_relu_plain(x, w, scale, bias)
     _check_kernel_operands(x, w, scale, bias)
-    design = "mma" if x.dtype == torch.bfloat16 else "fma"
+    design = "fma" if x.dtype == torch.float32 else "mma"
     (m, k), n = x.shape, w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _kernels.load("fused_matmul_affine_relu")

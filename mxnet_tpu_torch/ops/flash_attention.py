@@ -6,9 +6,18 @@ runs its Pallas kernels (``_fa_kernel`` forward; ``_fa_bwd_dq_kernel`` and
 ``_fa_bwd_dkv_kernel`` backward) when Tq = Tk and T is a multiple of 128,
 and chunked jnp scans otherwise.  Here every CUDA tensor goes to the
 kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
-(any Tq, Tk; D in 16/32/64/128), and only a CPU tensor takes the plain
-PyTorch versions ``_fa_forward_plain`` and ``_fa_backward_plain``.  There
-is no fallback from one to the other and no switch between them.
+(any Tq, Tk; instances at D = 16/32/64/128), and only a CPU tensor takes
+the plain PyTorch versions ``_fa_forward_plain`` and
+``_fa_backward_plain``.  There is no fallback from one to the other and
+no switch between them.
+
+Any head dim up to 128 runs: the wrappers zero-pad D up to the next
+instance (``_padded_head_dim``) on every device and slice O, dQ, dK and
+dV back.  That is exact, because the scale is passed explicitly (from
+the unpadded D): zero columns add nothing to S = Q·Kᵀ, to δ =
+rowsum(dO·O) or to any gradient, and the padded columns of O, dQ, dK
+and dV are zero.  D > 128 has no instance on the card (ROADMAP Queue 2,
+"D = 256 instance") and raises there; the plain versions take any D.
 
 Each of the three kernels has two designs, chosen here by dtype
 (``_design``): bf16 and f16 run on the tensor cores (``mma.sync``; P and
@@ -134,6 +143,23 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _padded_head_dim(d):
+    """The kernel instance a head dim ``d`` runs at: the smallest of
+    ``_HEAD_DIMS`` that is at least ``d``, or ``d`` itself above 128
+    (which the kernels refuse; the plain versions take it)."""
+    return next((h for h in _HEAD_DIMS if h >= d), d)
+
+
+def _pad_head(*tensors):
+    """``tensors`` with their last dim zero-padded to
+    ``_padded_head_dim`` (unchanged when it is an instance already)."""
+    d = tensors[0].shape[-1]
+    dp = _padded_head_dim(d)
+    if dp == d:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, dp - d)) for t in tensors)
+
+
 def _check_kernel_operands(q, k, v):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise MXNetError("flash_attention: q, k and v must lie on one CUDA "
@@ -150,8 +176,10 @@ def _check_kernel_operands(q, k, v):
                          f"v (B, H, Tk, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.shape[3] not in _HEAD_DIMS:
-        raise MXNetError(f"flash_attention: head dim {q.shape[3]} not in "
-                         f"{_HEAD_DIMS}")
+        raise MXNetError(
+            f"flash_attention: head dim {q.shape[3]} has no kernel instance "
+            f"(the wrappers pad D up to {_HEAD_DIMS}; D > 128 is ROADMAP.md "
+            "Queue 2, \"D = 256 instance\")")
     if not (q.is_contiguous() and k.is_contiguous() and
             v.is_contiguous()):
         raise MXNetError("flash_attention: q, k and v must be contiguous")
@@ -185,11 +213,15 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
     A CUDA tensor launches the kernel of its dtype's design (``_design``;
     ``flash_attention_fwd.launches`` counts the launches); a CPU tensor
-    takes ``_fa_forward_plain``."""
+    takes ``_fa_forward_plain``.  D is zero-padded to its instance first
+    and O sliced back."""
     scale = _scale(q, scale)
+    d0 = q.shape[-1]
+    q, k, v = _pad_head(q, k, v)
     if q.device.type == "cpu" and k.device.type == "cpu" and \
             v.device.type == "cpu":
-        return _fa_forward_plain(q, k, v, causal, scale)
+        out, lse = _fa_forward_plain(q, k, v, causal, scale)
+        return out[..., :d0], lse
     _check_kernel_operands(q, k, v)
     design = _design(q.dtype)
     if design == "mma":
@@ -207,7 +239,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             int(bool(causal)), scale, stream)
     _kernels.check(lib, err, f"flash_attention_fwd ({design}) launch")
     _count(flash_attention_fwd, design)
-    return out, lse
+    return out[..., :d0], lse
 
 
 flash_attention_fwd.launches = 0
@@ -221,10 +253,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
     A CUDA tensor computes δ = rowsum(dO·O) in f32 and launches the dQ
     kernel (``flash_attention_bwd_dq``) and the dK/dV kernel
     (``flash_attention_bwd_dkv``); a CPU tensor takes
-    ``_fa_backward_plain``."""
+    ``_fa_backward_plain``.  D is zero-padded to its instance first and
+    dq, dk and dv sliced back."""
     scale = _scale(q, scale)
+    d0 = q.shape[-1]
+    q, k, v, o, do = _pad_head(q, k, v, o, do)
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
-        return _fa_backward_plain(q, k, v, o, do, lse, causal, scale)
+        dq, dk, dv = _fa_backward_plain(q, k, v, o, do, lse, causal, scale)
+        return dq[..., :d0], dk[..., :d0], dv[..., :d0]
     if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
         raise MXNetError("flash_attention backward: O must match q "
                          f"{tuple(q.shape)} {q.dtype} on {q.device}; got "
@@ -232,7 +268,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
     delta = _delta(o, do)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
-    return dq, dk, dv
+    return dq[..., :d0], dk[..., :d0], dv[..., :d0]
 
 
 def _delta(o, do):

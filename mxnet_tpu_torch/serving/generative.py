@@ -1,0 +1,559 @@
+"""Continuous-batching decode engine for the llama generative path.
+
+Counterpart of ``mxnet_tpu/serving/generative.py``.  The engine owns the
+device half of serving: weights (optionally int8), the KV storage, and
+the programs of ``LlamaDecoder`` it runs.  Two storage modes share one
+surface (``kv_mode=``):
+
+* **paged** (the default) — K/V lives in a shared block pool per layer,
+  ``(num_blocks + 1, Hkv, block_size, head_dim)``; each slot carries a
+  block-table row (vacant entries = ``num_blocks``).  The reference's
+  sentinel id ``num_blocks`` is out of bounds and XLA drops the writes
+  made there; here the pool holds one more block at that index, the
+  trash block, which those writes hit and no gather reads
+  (``LlamaDecoder``'s docstring).  The usable block count and
+  ``kv_pool_bytes`` are the reference's.  Programs: **step**
+  (``_step_blocks_impl``), **prefill** (``_prefill_rows_impl``, raw K/V
+  rows), **scatter** (the rows chunked into blocks and written at the
+  admitted block ids: the prefill→decode KV handoff), **verify**
+  (``_verify_blocks_impl``), **gather** (dense prefix copies) and
+  **suffix prefill** (``_prefill_suffix_impl``) for the radix cache.
+* **slots** — one ``(num_slots, Hkv, max_len, head_dim)`` cache per
+  layer, kept for A/B (``ServerConfig(kv_mode="slots")``) and as the
+  speculative draft's storage.
+
+The reference's donated pools become in-place ``index_put_`` writes under
+``dev_lock``: no copy of the pool a step.  Thread discipline: the prefill
+lane and the decode lane share one engine and one CUDA stream.
+``dev_lock`` serializes every call that MUTATES the KV storage (decode
+step, verify, handoff scatter, prefix gather, slot clears); the prefill
+forward runs outside the lock, so a long prompt does not hold up decode
+dispatch — only its block scatter briefly takes the lock.  Every public
+call runs under ``torch.inference_mode()`` (a lane thread starts with
+grad mode on), and every tensor names the weights' device.
+
+``int8=True`` stores the matmul weights as per-output-channel symmetric
+int8 (scale = max|row|/127); ``LlamaDecoder``'s matmuls take the int8
+leaves and dequantize each to f32 just before its product, so only one
+f32 matrix exists at a time (the reference's jit fuses the same
+dequantization into each matmul).
+
+Not ported (ROADMAP, "Left out of slice 6"): ``mesh=`` and
+``partition_rules=`` (tensor-parallel placement), and the telemetry,
+numerics taps and retrace hooks.  ``compiled_signatures`` keeps the
+reference's signature keys: here the set of program shapes that ran.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..models.llama import LlamaDecoder, _dequantize
+from .bucketing import BucketPolicy, pad_batch
+from .kv_cache import KVCacheManager
+from .protocol import ServerClosedError
+from .scheduler import _materialize
+
+__all__ = ["LlamaServingEngine", "GenerativeScheduler"]
+
+_LATER = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 6\")"
+
+#: matmul weights that the int8 option quantizes (per-output-channel);
+#: embeddings and the RMSNorm scales stay in the load dtype
+_QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
+_LAYER_KEYS = ("ln_in", "q", "k", "v", "o", "ln_post", "gate", "up",
+               "down")
+
+
+def _quantize_mat(m):
+    """Per-output-channel symmetric int8: rows of the (out, in) weight
+    each get scale = max|row| / 127."""
+    m32 = m.float()
+    scale = (m32.abs().amax(dim=1, keepdim=True) / 127.0).clamp_min(1e-8)
+    q8 = torch.round(m32 / scale).clamp(-127, 127).to(torch.int8)
+    return {"q8": q8, "scale": scale}
+
+
+def _quantize_tree(w):
+    layers = []
+    for L in w["layers"]:
+        layers.append({k: _quantize_mat(L[k]) if k in _QUANT_KEYS
+                       else L[k] for k in _LAYER_KEYS})
+    return dict(layers=layers, emb=w["emb"], norm=w["norm"],
+                head=_quantize_mat(w["head"]))
+
+
+def _dequantize_tree(w):
+    """Inverse of ``_quantize_tree``: int8 rows × their f32 scales.  The
+    engine never builds this tree: ``_mm`` dequantizes each int8 leaf
+    just before its product."""
+    def dq(leaf):
+        return _dequantize(leaf) if isinstance(leaf, dict) else leaf
+
+    layers = [{k: dq(L[k]) for k in _LAYER_KEYS} for L in w["layers"]]
+    return dict(layers=layers, emb=w["emb"], norm=w["norm"],
+                head=dq(w["head"]))
+
+
+class LlamaServingEngine:
+    """Device-side half of continuous batching for a LlamaForCausalLM."""
+
+    @torch.inference_mode()
+    def __init__(self, net, max_len=None, num_slots=4, int8=False,
+                 kv_mode="slots", block_size=16, num_blocks=None,
+                 mesh=None, partition_rules=None, replica_id=0,
+                 spec_k=0):
+        if kv_mode not in ("paged", "slots"):
+            raise MXNetError(f"unknown kv_mode {kv_mode!r}; "
+                             "expected 'paged' or 'slots'")
+        if mesh is not None or partition_rules is not None:
+            raise MXNetError(f"serving on a mesh (mesh=, partition_rules=) "
+                             f"{_LATER}")
+        self.spec_k = int(spec_k)
+        if self.spec_k and kv_mode != "paged":
+            raise MXNetError("speculative verify (spec_k > 0) requires "
+                             "kv_mode='paged'")
+        self.max_len = int(max_len or net.config.max_seq_len)
+        self.num_slots = int(num_slots)
+        self.int8 = bool(int8)
+        self.kv_mode = kv_mode
+        self.replica_id = int(replica_id)
+        self.dev_lock = threading.RLock()
+        self._dec = LlamaDecoder(net, self.max_len)
+        w = self._dec._weights()
+        self._w = _quantize_tree(w) if self.int8 else w
+        self.device = w["emb"].device
+        cfg = net.config
+        dt = w["emb"].dtype
+        if kv_mode == "paged":
+            self.block_size = int(block_size)
+            if self.block_size < 1:
+                raise MXNetError("block_size must be >= 1")
+            #: static block-table width — the step gathers this many
+            #: blocks per slot regardless of actual ownership
+            self.max_blocks = -(-self.max_len // self.block_size)
+            self.num_blocks = int(num_blocks or
+                                  self.num_slots * self.max_blocks)
+            # one block more than the usable ones: the trash block at
+            # index num_blocks, where writes to vacant entries land
+            pshape = (self.num_blocks + 1, cfg.num_kv_heads,
+                      self.block_size, cfg.head_dim)
+            self._pool = [(torch.zeros(pshape, dtype=dt, device=self.device),
+                           torch.zeros(pshape, dtype=dt, device=self.device))
+                          for _ in range(cfg.num_layers)]
+            self._tables = np.full((self.num_slots, self.max_blocks),
+                                   self.num_blocks, np.int32)
+            self._caches = None
+        else:
+            self.block_size = self.num_blocks = self.max_blocks = None
+            shape = (self.num_slots, cfg.num_kv_heads, self.max_len,
+                     cfg.head_dim)
+            self._caches = [(torch.zeros(shape, dtype=dt, device=self.device),
+                             torch.zeros(shape, dtype=dt, device=self.device))
+                            for _ in range(cfg.num_layers)]
+            self._pool = self._tables = None
+        # host mirrors: last emitted token + next write position per slot
+        self._last = np.zeros(self.num_slots, np.int32)
+        self._pos = np.zeros(self.num_slots, np.int32)
+        self.steps = 0
+        self._signatures = set()
+
+    def _dev(self, a):
+        """Host integer array → int64 tensor on the engine's device."""
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    def _note(self, key):
+        self._signatures.add(key)
+
+    def compiled_signatures(self):
+        """Every (program, *bucket) shape this engine has run — the
+        reference's compile keys; per-shape CUDA graphs will key on
+        them."""
+        return sorted(self._signatures)
+
+    def kv_pool_bytes(self):
+        """Bytes of the KV storage (pool or slot caches), summed over
+        layers and both of K/V — the paged pool's usable blocks only, as
+        in the reference (the trash block is not counted)."""
+        with self.dev_lock:
+            if self.kv_mode == "paged":
+                return int(sum(2 * k[:self.num_blocks].nbytes
+                               for k, _ in self._pool))
+            return int(sum(k.nbytes + v.nbytes for k, v in self._caches))
+
+    # -- transitions (slots mode) ---------------------------------------------
+    @torch.inference_mode()
+    def admit(self, prompts_pad, t0s, slots):
+        """Prefill ``prompts_pad`` (kb, lp) with true lengths ``t0s``
+        (kb,) and write the resulting cache rows into ``slots`` (kb,) —
+        vacant padding rows carry slot index ``num_slots`` and are not
+        written.  Returns each row's first generated token (kb,) on
+        host."""
+        if self.kv_mode != "slots":
+            raise MXNetError("admit() is the slot-ledger path; the paged "
+                             "engine admits via prefill_rows/commit_rows")
+        kb, lp = prompts_pad.shape
+        self._note(("prefill", kb, lp))
+        rows, logits = self._dec._prefill_rows_impl(
+            self._w, self._dev(prompts_pad), self._dev(t0s))
+        toks = logits.argmax(dim=-1)
+        keep = [i for i, s in enumerate(slots) if s < self.num_slots]
+        dst = self._dev([slots[i] for i in keep])
+        src = self._dev(keep)
+        with self.dev_lock:
+            # rows past lp keep a previous tenant's values: the decode
+            # steps overwrite them before the mask t <= pos exposes them
+            for (kc, vc), (k, v) in zip(self._caches, rows):
+                kc[dst, :, :lp] = k[src].to(kc.dtype)
+                vc[dst, :, :lp] = v[src].to(vc.dtype)
+        first = _materialize([toks])[0]
+        with self.dev_lock:
+            for i, s in enumerate(slots):
+                if s < self.num_slots:
+                    self._last[s] = first[i]
+                    self._pos[s] = t0s[i]
+        return first
+
+    # -- transitions (paged mode: disaggregated lanes) ------------------------
+    @torch.inference_mode()
+    def prefill_rows(self, prompts_pad, t0s):
+        """Prefill lane, phase 1: the prompt forward, WITHOUT the device
+        lock.  Returns (first-token device tensor, per-layer raw K/V
+        rows) for :meth:`commit_rows`."""
+        if self.kv_mode != "paged":
+            raise MXNetError("prefill_rows() requires kv_mode='paged'")
+        kb, lp = prompts_pad.shape
+        self._note(("prefill", kb, lp))
+        rows, logits = self._dec._prefill_rows_impl(
+            self._w, self._dev(prompts_pad), self._dev(t0s))
+        return logits.argmax(dim=-1), rows
+
+    @torch.inference_mode()
+    def commit_rows(self, rows, slots, block_lists, t0s, first,
+                    skip_blocks=None):
+        """Prefill lane, phase 2: the KV handoff.  Under the device lock,
+        write the prefilled rows into each admitted request's blocks and
+        install the block tables and decode mirrors, after which the
+        decode lane's next step adopts the slots.  ``first`` is the
+        materialized first-token vector (kb,); vacant rows carry slot id
+        ``num_slots`` and write the trash block.
+
+        ``skip_blocks`` (radix path): per-row count of leading SHARED
+        prefix blocks already holding K/V — ``rows`` then carry only the
+        novel suffix, the scatter targets the block list past the shared
+        prefix, and ``t0s`` stays the FULL prompt length (the decode
+        cursor).  Shared blocks are never written."""
+        kb = len(slots)
+        bs = self.block_size
+        lp = rows[0][0].shape[2]
+        nbp = -(-lp // bs)
+        flat = np.full(kb * nbp, self.num_blocks, np.int32)
+        for r, blocks in enumerate(block_lists):
+            if blocks is None:
+                continue
+            skip = 0 if skip_blocks is None else int(skip_blocks[r])
+            tail = blocks[skip:]
+            take = min(nbp, len(tail))
+            flat[r * nbp: r * nbp + take] = tail[:take]
+        idx = self._dev(flat)
+
+        def chunk(a):
+            # (kb, Hkv, lp, D) → (kb·nbp, Hkv, bs, D) block-sized pieces
+            kb_, hkv, _, hd = a.shape
+            a = torch.nn.functional.pad(a, (0, 0, 0, nbp * bs - lp))
+            return a.reshape(kb_, hkv, nbp, bs, hd).transpose(1, 2) \
+                .reshape(kb_ * nbp, hkv, bs, hd)
+
+        with self.dev_lock:
+            for (kp, vp), (k, v) in zip(self._pool, rows):
+                kp[idx] = chunk(k).to(kp.dtype)
+                vp[idx] = chunk(v).to(vp.dtype)
+            for i, s in enumerate(slots):
+                if s < self.num_slots:
+                    row = np.full(self.max_blocks, self.num_blocks,
+                                  np.int32)
+                    blocks = block_lists[i]
+                    row[:len(blocks)] = blocks
+                    self._tables[s] = row
+                    self._last[s] = first[i]
+                    self._pos[s] = t0s[i]
+
+    @torch.inference_mode()
+    def gather_prefix(self, rows_idx):
+        """Radix-hit prefill, phase 0: dense per-request copies of the
+        shared prefix blocks' K/V, ``rows_idx`` (kb, nbp) physical ids
+        sentinel-padded (clamped to garbage rows the suffix mask never
+        exposes).  Under the device lock; the copies are fresh tensors,
+        safe to use outside it."""
+        if self.kv_mode != "paged":
+            raise MXNetError("gather_prefix() requires kv_mode='paged'")
+        kb, nbp = rows_idx.shape
+        self._note(("gather", kb, nbp * self.block_size))
+        g = self._dev(rows_idx).clamp(max=self.num_blocks - 1)
+        with self.dev_lock:
+            return [tuple(p[g].transpose(1, 2).reshape(
+                kb, p.shape[1], nbp * self.block_size, p.shape[3])
+                for p in kv) for kv in self._pool]
+
+    @torch.inference_mode()
+    def prefill_suffix(self, prefix_kv, prompts_pad, t0s, s0s):
+        """Radix-hit prefill, phase 1: the novel-suffix forward against
+        the gathered prefix K/V, WITHOUT the device lock.
+        ``prompts_pad`` (kb, ls) carries only suffix tokens, ``t0s``
+        their true suffix lengths, ``s0s`` each row's reused prefix
+        length (block-aligned; 0 = no hit).  Returns (first-token device
+        tensor, suffix K/V rows) for ``commit_rows(..., skip_blocks=)``."""
+        if self.kv_mode != "paged":
+            raise MXNetError("prefill_suffix() requires kv_mode='paged'")
+        kb, ls = prompts_pad.shape
+        lpre = prefix_kv[0][0].shape[2]
+        self._note(("prefill_sfx", kb, lpre, ls))
+        rows, logits = self._dec._prefill_suffix_impl(
+            self._w, prefix_kv, self._dev(prompts_pad),
+            self._dev(t0s), self._dev(s0s))
+        return logits.argmax(dim=-1), rows
+
+    # -- transitions (both modes) ---------------------------------------------
+    @torch.inference_mode()
+    def step(self, active):
+        """One decode step over ALL slots; returns the (num_slots,)
+        next-token vector on host and advances the ``active`` slots'
+        mirrors.  Vacant slots run at pos 0 with token 0 — their output
+        is never read, and their K/V write lands in their own slot row
+        (slots mode) or the trash block (paged).  The device lock covers
+        dispatch and mirror updates, NOT the host materialization wait."""
+        self._note(("step",))
+        with self.dev_lock:
+            w = self._w
+            last, pos = self._dev(self._last), self._dev(self._pos)
+            if self.kv_mode == "paged":
+                logits = self._dec._step_blocks_impl(
+                    w, self._pool, self._dev(self._tables), last, pos)
+            else:
+                logits = self._dec._step_slots_impl(w, self._caches, last,
+                                                    pos)
+            toks = logits.argmax(dim=-1)
+            self.steps += 1
+        out = _materialize([toks])[0]
+        with self.dev_lock:
+            for s in active:
+                self._last[s] = out[s]
+                self._pos[s] += 1
+        return out
+
+    @torch.inference_mode()
+    def verify(self, drafts):
+        """Speculative decode: ONE multi-position target forward over the
+        window ``[last_committed, draft_1..draft_k]`` per slot.
+        ``drafts`` is (num_slots, k) int32 (vacant rows write the trash
+        block).  Returns the (num_slots, k+1) greedy verdict matrix on
+        host: column j is the target's next token after the window's
+        first j+1 tokens.  The mirrors are NOT advanced here: the decode
+        lane rolls the manager back and commits them with
+        :meth:`set_mirror`."""
+        if self.kv_mode != "paged":
+            raise MXNetError("verify() requires kv_mode='paged'")
+        self._note(("verify",))
+        with self.dev_lock:
+            toks_mat = np.concatenate(
+                [self._last[:, None], np.asarray(drafts, np.int32)],
+                axis=1)
+            logits = self._dec._verify_blocks_impl(
+                self._w, self._pool, self._dev(self._tables),
+                self._dev(toks_mat), self._dev(self._pos))
+            out = logits.argmax(dim=-1)
+            self.steps += 1
+        return _materialize([out])[0]
+
+    def last_tokens(self):
+        """Snapshot of the per-slot last-committed-token mirror."""
+        with self.dev_lock:
+            return self._last.copy()
+
+    def positions(self):
+        """Snapshot of the per-slot committed write cursors."""
+        with self.dev_lock:
+            return self._pos.copy()
+
+    def set_mirror(self, slot, last, pos):
+        """Commit a slot's decode mirror (speculative acceptance, or
+        aligning a draft engine's cursor with the target's)."""
+        with self.dev_lock:
+            self._last[slot] = int(last)
+            self._pos[slot] = int(pos)
+
+    def clear_slot(self, slot):
+        with self.dev_lock:
+            self._last[slot] = 0
+            self._pos[slot] = 0
+            if self._tables is not None:
+                self._tables[slot] = self.num_blocks
+
+
+class GenerativeScheduler:
+    """Admit/step/evict loop: continuous batching over the slots engine.
+
+    The single-thread loop of ``ServerConfig(kv_mode="slots")``: one
+    thread interleaves admission (prefill + cache write) with decode
+    steps; the paged default runs the lanes of :mod:`.lanes` instead.
+    Admission happens between decode steps whenever slots are free — a
+    late request joins the in-flight batch without stopping anyone
+    else's decode (its ``joined_step``/``done_step`` land in its
+    record).  Finished requests' records are kept in ``records``.
+    """
+
+    def __init__(self, engine, queue, policy=None, poll_s=0.02,
+                 max_records=4096):
+        if engine.kv_mode != "slots":
+            raise MXNetError(
+                "GenerativeScheduler drives the slot-ledger engine; "
+                "paged engines are driven by serving.lanes")
+        self.engine = engine
+        self.queue = queue
+        self.policy = policy or BucketPolicy(
+            max_batch=engine.num_slots, max_length=engine.max_len,
+            min_batch=1, min_length=8)
+        self.mgr = KVCacheManager(engine.num_slots, engine.max_len)
+        self.poll_s = float(poll_s)
+        self.completed = 0
+        self.failed = 0
+        self.batches = 0
+        self.records = deque(maxlen=int(max_records))
+        self._seqs = {}       # slot -> (request, [generated tokens])
+        self._stop = threading.Event()
+        self._thread = None
+        self.error = None
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self):
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop,
+                                        name="mxt-serving-decode",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self, drain=True):
+        self._stop.set()
+        self.queue.close()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if drain:
+            while self._seqs or len(self.queue):
+                self._admit_pending()
+                if not self._seqs:
+                    break
+                self._decode_step()
+        for r in self.queue.take_group(lambda r: 0, 1 << 30):
+            r.future.set_exception(
+                ServerClosedError("server stopped before execution"))
+        if self.error is not None:
+            raise self.error
+
+    # -- the loop -------------------------------------------------------------
+    def _loop(self):
+        # per-request failures are handled below; this catches loop bugs
+        # so the thread never dies silently (re-raised at stop())
+        try:
+            while not self._stop.is_set():
+                admitted = self._admit_pending()
+                if self._seqs:
+                    self._decode_step()
+                elif not admitted:
+                    self.queue.wait_for_item(self.poll_s)
+        except Exception as exc:
+            self.error = exc
+
+    def _prompt_bucket(self, req):
+        return self.policy.length_bucket(len(req.prompt_ids))
+
+    def _admit_pending(self):
+        """Admit queued requests into free slots (one prompt-length
+        bucket group per call, the FIFO head's)."""
+        free = self.mgr.free_slots()
+        if not free or not len(self.queue):
+            return False
+        group = self.queue.take_group(
+            self._prompt_bucket, min(free, self.policy.max_batch))
+        if not group:
+            return False
+        t_start = time.perf_counter()
+        lb = self._prompt_bucket(group[0])
+        kb = self.policy.batch_bucket(len(group))
+        try:
+            prompts = pad_batch([np.asarray(r.prompt_ids, np.int32)
+                                 for r in group], kb, lb)
+            t0s = np.full(kb, len(group[0].prompt_ids), np.int32)
+            slots = np.full(kb, self.engine.num_slots, np.int32)
+            for i, r in enumerate(group):
+                t0s[i] = len(r.prompt_ids)
+                slot = self.mgr.admit(r.id, t0s[i], r.max_new_tokens,
+                                      step=self.engine.steps)
+                slots[i] = slot
+                r.slot = int(slot)
+                r.replica = self.engine.replica_id
+                r.joined_step = self.engine.steps
+                r.t_start = t_start
+                r.bucket = (kb, lb)
+                r.batch_size = len(group)
+            first = self.engine.admit(prompts, t0s, slots)
+        except Exception as exc:
+            for r in group:
+                if r.slot is not None and r.slot in self.mgr._active:
+                    self.mgr.evict(r.slot)
+                r.replica = self.engine.replica_id
+                r.future.set_exception(exc)
+                self._fail(r, exc, lane="prefill")
+            return False
+        t_first = time.perf_counter()
+        for i, r in enumerate(group):
+            r.t_first = t_first
+            self._seqs[r.slot] = (r, [int(first[i])])
+            if self.mgr.consume(r.slot):
+                self._finish(r.slot)
+        return True
+
+    def _decode_step(self):
+        active = self.mgr.active_slots()
+        try:
+            toks = self.engine.step(active)
+        except Exception as exc:
+            for slot in list(active):
+                req, _ = self._seqs.pop(slot)
+                self.mgr.evict(slot)
+                self.engine.clear_slot(slot)
+                req.future.set_exception(exc)
+                self._fail(req, exc, lane="decode")
+            return
+        self.batches += 1
+        for slot in active:
+            self.mgr.advance(slot)   # the step wrote K/V at slot's pos
+            req, tokens = self._seqs[slot]
+            tokens.append(int(toks[slot]))
+            if self.mgr.consume(slot):
+                self._finish(slot)
+
+    def _finish(self, slot):
+        req, tokens = self._seqs.pop(slot)
+        self.mgr.evict(slot)
+        self.engine.clear_slot(slot)
+        req.t_done = time.perf_counter()
+        req.done_step = self.engine.steps
+        n = req.max_new_tokens
+        self.completed += 1
+        self.records.append(req.record(lane="decode"))
+        req.future.set_result(np.concatenate(
+            [np.asarray(req.prompt_ids, np.int32),
+             np.asarray(tokens[:n], np.int32)]))
+
+    def _fail(self, req, exc, lane):
+        self.failed += 1
+        req.t_done = time.perf_counter()
+        self.records.append(req.record(lane=lane, status="error",
+                                       error=repr(exc)))

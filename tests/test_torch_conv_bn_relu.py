@@ -220,8 +220,8 @@ def test_kernel_wrapper_counts_nothing_on_the_cpu():
 
 
 def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
-    """bf16 launches the tensor-core entry point (``_mma``), f32 the FMA
-    one (``_fma``).  Driven with meta tensors and a stand-in library that
+    """bf16 and f16 launch the tensor-core entry point (``_mma``), f32 the
+    FMA one (``_fma``).  Driven with meta tensors and a stand-in library that
     records the C entry point the wrapper calls; ``.launches`` counts
     both designs, ``.launches_mma`` the tensor-core one."""
     calls = []
@@ -243,12 +243,39 @@ def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
     monkeypatch.setattr(fn, "launches", 0)
     monkeypatch.setattr(fn, "launches_mma", 0)
     for dtype, design in [(torch.bfloat16, "mma"), (torch.float32, "fma"),
-                          (torch.bfloat16, "mma")]:
+                          (torch.bfloat16, "mma"), (torch.float16, "mma")]:
         x = torch.empty(6, 4, device="meta", dtype=dtype)
         w = torch.empty(4, 3, device="meta", dtype=dtype)
         affine = torch.empty(3, device="meta")
         out = fn(x, w, affine, affine)
         assert out.shape == (6, 3) and out.dtype == dtype
         assert calls[-1] == f"mxt_fused_matmul_affine_relu_{design}"
-    assert (fn.launches, fn.launches_mma) == (3, 2)
+    assert (fn.launches, fn.launches_mma) == (4, 3)
     assert set(calls) == set(_kernels.SYMBOLS["fused_matmul_affine_relu"])
+
+
+def test_fusion_in_float16_matches_the_layers():
+    """After ``cast("float16")`` the narrow net's inference forward still
+    takes the fusion (4 calls; on the card the f16 instance of the
+    tensor-core kernel) and matches the same net's unfused layers.  Both
+    round to f16 at other places (the fused path once after the affine,
+    the layers after the conv and after BatchNorm), so they agree within
+    a few f16 units of the logits' scale."""
+    tmx.random.seed(5)
+    net = _narrow_resnet()
+    net.initialize(ctx=CPU)
+    x = np.random.RandomState(2).normal(size=(2, 3, 32, 32))
+    net(tmx.nd.array(x.astype(np.float32), ctx=CPU))
+    net.cast("float16")
+    xh = tmx.nd.array(x.astype(np.float16), ctx=CPU, dtype="float16")
+    before = cbr.conv1x1_bn_relu.calls
+    fused = net(xh)
+    assert cbr.conv1x1_bn_relu.calls == before + 4
+    with tautograd.record(train_mode=False):
+        plain = net(xh)
+    assert cbr.conv1x1_bn_relu.calls == before + 4
+    assert fused.dtype == plain.dtype == torch.float16
+    f, p = fused.asnumpy().astype(np.float32), plain.asnumpy().astype(
+        np.float32)
+    assert np.isfinite(f).all() and f.shape == (2, 10)
+    assert np.abs(f - p).max() <= 8 * 2.0 ** -11 * np.abs(p).max()

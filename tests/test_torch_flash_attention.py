@@ -347,3 +347,65 @@ def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
     declared = {**_kernels.SYMBOLS["flash_attention_fwd"],
                 **_kernels.SYMBOLS["flash_attention_bwd"]}
     assert set(calls) <= set(declared)
+
+
+def test_wrappers_pad_head_dims_to_the_next_instance(monkeypatch):
+    """D = 24 reaches the kernels as D = 32 (zero-padded, forward and both
+    backward kernels) and comes back as D = 24; the instance dims pass
+    through, and above 128 there is no instance to pad to.  Driven with
+    meta tensors and a stand-in library that records each entry point's
+    arguments."""
+    seen = []
+
+    class Lib:
+        def __getattr__(self, symbol):
+            def entry(*args):
+                seen.append((symbol, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(_kernels, "load", lambda name: Lib())
+    monkeypatch.setattr(tfa, "_check_kernel_operands", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    for fn in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+               tfa.flash_attention_bwd_dkv):
+        for key in [a for a in vars(fn) if a.startswith("launches")]:
+            monkeypatch.setattr(fn, key, 0)  # restored after the test
+    assert [tfa._padded_head_dim(d) for d in (8, 16, 24, 48, 80, 96, 128,
+                                               200)] == \
+        [16, 16, 32, 64, 128, 128, 128, 200]
+    for d, instance in [(24, 32), (48, 64), (96, 128), (64, 64)]:
+        seen.clear()
+        q = torch.empty(1, 2, 8, d, device="meta", dtype=torch.bfloat16)
+        lse = torch.empty(1, 2, 8, device="meta")
+        o, _ = tfa.flash_attention_fwd(q, q, q, True)
+        grads = tfa.flash_attention_bwd(q, q, q, o, q, lse, True)
+        assert o.shape == q.shape
+        assert [g.shape for g in grads] == [q.shape] * 3
+        # the head dim follows the pointers and (B·H, Tq, Tk)
+        n_ptr = {s: len(a) - 8 for s, a in {
+            **_kernels.SYMBOLS["flash_attention_fwd"],
+            **_kernels.SYMBOLS["flash_attention_bwd"]}.items()}
+        assert [args[n_ptr[s] + 3] for s, args in seen] == [instance] * 3
+
+
+def test_padded_plain_route_equals_the_unpadded_plain_version():
+    """On the CPU the wrappers pad as on the card and hand the padded
+    tensors to the plain versions: the same O, lse and gradients as the
+    plain versions at the unpadded D (zero columns add exact zeros)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(41, 1, 2, 40, 56, 24))
+    do = torch.from_numpy(np.random.RandomState(42).normal(
+        size=q.shape).astype(np.float32))
+    o, lse = tfa.flash_attention_fwd(q, k, v, True, 0.3)
+    o_ref, lse_ref = tfa._fa_forward_plain(q, k, v, True, 0.3)
+    assert o.shape == q.shape
+    torch.testing.assert_close(o, o_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-6, atol=1e-6)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, True, 0.3)
+    ref = tfa._fa_backward_plain(q, k, v, o_ref, do, lse_ref, True, 0.3)
+    for g, r, t in zip(got, ref, (q, k, v)):
+        assert g.shape == r.shape == t.shape
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)

@@ -21,6 +21,7 @@ import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tautograd
 from mxnet_tpu_torch.convert import load_numpy_params
 from mxnet_tpu_torch.models import llama as tllama
+from mxnet_tpu_torch.ops import flash_attention as tfa
 
 CPU = tmx.cpu()
 
@@ -229,19 +230,17 @@ def test_unported_features_raise_naming_the_roadmap(pair):
             tllama.llama_tiny(**kw)
     _, _, tnet = pair
     ids = tmx.nd.array(_ids(1, 4), ctx=CPU, dtype="int32")
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tnet.generate(ids, max_new_tokens=2, do_sample=True)
+    with pytest.raises(tmx.MXNetError, match="KV-cache path"):
+        tnet.generate(ids, max_new_tokens=2, use_cache=False,
+                      do_sample=True)
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         tnet(ids, ids)  # packed segment_ids
     with pytest.raises(tmx.MXNetError, match="max_seq_len"):
         tnet.generate(ids, max_new_tokens=200)
-    dec = tllama.LlamaDecoder(tnet, max_len=64)
     for fn in (tllama.shard_llama, tllama.llama_param_pspecs,
                tllama.llama_pipeline_forward,
                tllama.llama_pipeline_train_step, tllama.packed_lm_loss,
-               tllama.mixtral_8x7b, tllama.mixtral_tiny, tnet.set_remat,
-               dec._step_slots_impl, dec._step_blocks_impl,
-               dec._verify_blocks_impl, dec._prefill_suffix_impl):
+               tllama.mixtral_8x7b, tllama.mixtral_tiny, tnet.set_remat):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 1"):
             fn(tnet)
 
@@ -265,3 +264,31 @@ def test_gradient_through_flash_matches_sdpa(pair, monkeypatch):
         scale = max(np.abs(ref).max(), 1e-6)
         assert np.abs(grads[0][name] - ref).max() <= 1e-4 * scale, name
     assert tnet(ids)._data.grad_fn is None
+
+
+def test_head_dim_24_runs_the_padding_route_and_matches_jax(monkeypatch):
+    """``llama_tiny(hidden_size=96)`` has head dim 24, between the kernel
+    instances: the flash wrapper pads it to 32 (on the CPU as on the
+    card, here into the plain version) and the logits match the JAX
+    package's on the same weights."""
+    jnet = jllama.llama_tiny(hidden_size=96)
+    jnet.initialize()
+    arrays = {k: p.data().asnumpy() for k, p in
+              jnet._collect_params_with_prefix().items()}
+    tnet = tllama.llama_tiny(hidden_size=96)
+    load_numpy_params(tnet, arrays, ctx=CPU)
+    assert tnet.config.head_dim == 24
+    seen = []
+    plain = tfa._fa_forward_plain
+
+    def recorded(q, *a, **kw):
+        seen.append(q.shape[-1])
+        return plain(q, *a, **kw)
+
+    monkeypatch.setattr(tfa, "_fa_forward_plain", recorded)
+    ids = _ids(2, 40, seed=5)
+    got = _port_logits(tnet, ids)
+    assert seen == [32, 32]   # once a layer, at the padded instance
+    ref = _jax_logits(jnet, ids)
+    assert got.shape == ref.shape == (2, 40, 256)
+    assert np.abs(got - ref).max() <= 1e-4

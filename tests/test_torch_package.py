@@ -22,7 +22,8 @@ PKG = ROOT / "mxnet_tpu_torch"
 
 def test_import_pulls_in_no_jax_in_a_fresh_process():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.models.llama, "
-            "mxnet_tpu_torch.convert, mxnet_tpu_torch._kernels\n"
+            "mxnet_tpu_torch.convert, mxnet_tpu_torch._kernels, "
+            "mxnet_tpu_torch.serving\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"
@@ -152,3 +153,31 @@ def test_asnumpy_returns_a_copy_on_the_cpu():
     x._data.add_(1.0)
     assert snap.tolist() == [1.0, 2.0]
     assert x.asnumpy().tolist() == [2.0, 3.0]
+
+
+def test_precision_flags_are_off_after_import():
+    """Importing the package, in a fresh process, turns off TF32 for f32
+    convolutions and matmuls and the bf16/f16 reduced-precision split-K
+    reductions (torch's defaults leave three of the four on)."""
+    code = ("import torch, mxnet_tpu_torch\n"
+            "b = torch.backends\n"
+            "print([b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, "
+            "b.cuda.matmul.allow_bf16_reduced_precision_reduction, "
+            "b.cuda.matmul.allow_fp16_reduced_precision_reduction])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[False, False, False, False]"
+
+
+def test_flight_record_dumps_are_ignored():
+    """The JAX package's serving tests write SLO flight-recorder dumps
+    (``flight_record_<pid>.json``) into the working directory; the repo
+    ignores them."""
+    import fnmatch
+
+    patterns = [ln.strip() for ln in (ROOT / ".gitignore").read_text()
+                .splitlines() if ln.strip() and not ln.startswith("#")]
+    assert any(fnmatch.fnmatch("flight_record_2314.json", p)
+               for p in patterns)
