@@ -7,7 +7,10 @@ cores, f32 on the FMA pipes), Llama serving through
 batching, speculative verify, radix prefix reuse), and ResNet-50 v1
 inference through the hand-written fused 1x1 conv + BatchNorm + ReLU
 kernel (bf16 and f16 on the tensor cores, f32 on the FMA pipes), and its
-training step.
+training step; every optimizer update through the hand-written fused
+multi-tensor kernel, and the CUDA graphs of ``hybridize()``,
+``FusedTrainStep``, ``generate`` and the serving tick; ``.params`` files
+and a checkpoint's round trip.
 
     python3 chip_smoke.py
 
@@ -36,6 +39,13 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    version's time, the library's (``addmm`` with the scale folded, then
    ``relu``), the eager cuDNN chain's and the bound, and the NCHW ->
    (M, K) copy's time; then one bf16 and one f16 forward's sums;
+5b. multi-tensor update: ``csrc/multi_tensor_update.cu`` against its
+   plain version (the optimizers' per-tensor rules) for SGD, SGD with
+   momentum, NAG, Adam and AdamW in f32, bf16, bf16 with f32 masters and
+   f16 at ragged lengths (weights within 1 ulp, f32 states within 2), and
+   over the 147 tensors of the 16-layer Llama training slice: its time
+   beside the 18.97 ms bound, the plain rule's and the
+   ``torch._foreach_*`` chain's (the library yardstick);
 6. f32 check: ``llama3_8b`` width at 2 layers, f32, ``net(ids)`` through
    the kernel against the KV-cache decoder's dense prefill;
 7. f32 training check: the same net, one loss and backward through the
@@ -47,6 +57,11 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    every gradient held by relative norm; and the witness, both routes
    against the dense route in f32 on the same weights, the kernels' route
    no further from it than the dense route is (within a factor);
+7d. ``FusedTrainStep`` at the same widths, 2 layers, f32, K=2: one
+   captured CUDA graph of forward, loss, backward (the flash kernels) and
+   the fused update, against two eager steps; then a checkpoint of its
+   training state, resumed into a fresh net and trainer: the next step's
+   loss and weights equal the uninterrupted run's;
 7c. serving exactness: the same widths at 2 layers in f32, 8 prompts of
    64-1024 tokens (32 new tokens each; 4 slots, max_len 2048, blocks of
    16) through ``GenerativeServer`` in the paged mode, the slots mode,
@@ -56,7 +71,10 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    for token;
 8. the Llama inference slice: ``llama3_8b`` at full width and depth in
    bf16, weights drawn on the card from a seed: one prompt forward
-   (T=2048) and three greedy ``generate`` requests;
+   (T=2048), eagerly and then hybridized (a replayed CUDA graph, logits
+   against the eager ones), and three greedy ``generate`` requests, whose
+   decode steps replay a CUDA graph, against the eager decoder's tokens
+   and tokens/s;
 8b. the serving slice on phase 8's net: 8 requests of 64-1024 tokens in
    the paged mode, in two waves (2, then 6 that join in-flight decode),
    each reply fed back through ``net(ids)`` (the flash forward) and
@@ -68,21 +86,30 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    blocks and memory;
 9. the Llama training slice: ``llama3_8b`` at full width and 16 layers in
    bf16, B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one
-   warm-up step and three timed steps on one batch;
+   warm-up step and three timed steps on one batch, the update one launch
+   of the multi-tensor kernel, its time beside its bound;
 10. ResNet f32 checks: ``resnet50_v1`` f32, B=2, 224x224, on the card
     (16 fused launches of the FMA design, no TF32) against the CPU (the
     plain version);
     ``resnet18_v1`` thumbnail, one f32 SGD-momentum step on the card
     against the CPU;
 11. the ResNet inference slice: ``resnet50_v1`` bf16, 224x224, B=128 and
-    B=4, 16 fused launches of the tensor-core design a forward;
+    B=4, 16 fused launches of the tensor-core design a forward, eagerly
+    and hybridized (graph replays against the eager logits); the weights
+    through a ``.params`` file and ``pretrained=True`` from it, the same
+    forward;
 12. the ResNet training slice: ``resnet50_v1`` bf16, B=128, 224x224,
     SGD (lr 0.1, momentum 0.9) and ``SoftmaxCrossEntropyLoss`` (bench.py's
     protocol, eager): one warm-up step and three timed steps on one batch,
-    no fused launch (BatchNorm normalizes by the batch).
+    no fused conv launch (BatchNorm normalizes by the batch), one
+    multi-tensor update launch a step;
+12b. ``FusedTrainStep(net, trainer, forward_loss, steps_per_execution=8,
+    batch_size=128)`` on phase 12's net and batch at lr 0.01: 8 falling
+    losses against 8 eager steps, then ms a step and images/s of 8
+    replays.
 
-The launch counters are set to 0 just before each slice (8, 8b, 9, 11)
-and read just after, and at the start of each check that counts them (6, 7,
+The launch counters are set to 0 just before each slice (8, 8b, 9, 11;
+the update's in 9, 12 and 12b) and read just after, and at the start of each check that counts them (6, 7,
 7b); the bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
 result line when there is no CUDA card or the package is not beside it.
@@ -203,6 +230,10 @@ FMA_DQ_LOSSES = [12.569450378, 10.208418846, 8.703302383, 6.157677650]
 TRAIN_LAYERS = 16
 TRAIN_LR = 0.1
 REQUESTS = [(1, 100), (4, 512), (1, 1500)]  # (batch, prompt length)
+# a bf16 graph replay against the eager forward: the same kernels on the
+# same inputs, so the same bits are expected; held within one bf16 step
+# (2^-8) of the largest eager value
+GRAPH_BF16_TOL = 2.0 ** -8
 NEW_TOKENS = 32
 
 
@@ -688,9 +719,10 @@ def bf16_phase(torch, mx, llama, fa, failures):
         free_card(torch)
 
 
-def train_phase(torch, mx, llama, fa, failures):
+def train_phase(torch, mx, llama, fa, mt, failures):
     """Phase 9: llama3_8b at full width, 16 layers, bf16, B=1, T=2048,
-    SGD with momentum — the training main path."""
+    SGD with momentum — the training main path; the update is one launch
+    of the fused multi-tensor kernel a step, printed beside its bound."""
     free_card(torch)
     t = time.perf_counter()
     mx.random.seed(SEED)
@@ -717,6 +749,7 @@ def train_phase(torch, mx, llama, fa, failures):
         phase_peaks.append(torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
 
+    mt.multi_tensor_update.launches = 0  # the update's main path starts
     for step in range(4):  # one warm-up, then three timed steps
         before = [c.launches for c in _counters(fa)]
         before_mma = _mma_counts(fa)
@@ -726,8 +759,10 @@ def train_phase(torch, mx, llama, fa, failures):
         phase_end(stamps, step_peaks)
         loss_nd.backward()
         phase_end(stamps, step_peaks)
+        mt_before = mt.multi_tensor_update.launches
         trainer.step(1)
         phase_end(stamps, step_peaks)
+        update_launches = mt.multi_tensor_update.launches - mt_before
         peaks.extend(step_peaks)
         loss = float(loss_nd.asscalar())
         fwd_ms, bwd_ms, update_ms = ((b - a) * 1e3 for a, b in
@@ -739,11 +774,13 @@ def train_phase(torch, mx, llama, fa, failures):
         if step:
             step_ms.append(ms)
         ok = math.isfinite(loss) and launched == [TRAIN_LAYERS] * 3 and \
-            mma == [TRAIN_LAYERS] * 3
+            mma == [TRAIN_LAYERS] * 3 and update_launches == 1
         emit(dict(phase="train_step", step=step, warmup=step == 0,
                   loss=loss, ms=ms, tokens_per_s=2048 / ms * 1e3,
                   forward_ms=fwd_ms, backward_ms=bwd_ms,
                   update_ms=update_ms,
+                  update_bound_ms=update_bound_ms(trainer),
+                  update_launches=update_launches,
                   launches=dict(zip(("fwd", "dq", "dkv"), launched)),
                   launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
                   max_memory_allocated=dict(zip(
@@ -751,8 +788,11 @@ def train_phase(torch, mx, llama, fa, failures):
                   ok=ok))
         if not ok:
             failures.append(f"train step {step}: loss {loss}, launches "
-                            f"{launched}, tensor-core launches {mma}")
+                            f"{launched}, tensor-core launches {mma}, "
+                            f"update launches {update_launches}")
     launches = [c.launches for c in _counters(fa)]  # the main path ends
+    update_launches = mt.multi_tensor_update.launches  # ... ends
+    kernel_ms, tensors = update_kernel_ms(torch, mt, trainer, 3)
     launches_mma = _mma_counts(fa)
     emit(dict(phase="train_memory", max_memory_allocated=max(peaks)))
     if not losses[-1] < losses[0]:
@@ -766,8 +806,11 @@ def train_phase(torch, mx, llama, fa, failures):
               step_ms=step_ms,
               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
               launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
+              update_launches=update_launches,
+              update_kernel_ms=kernel_ms, update_tensors=tensors,
+              update_bound_ms=update_bound_ms(trainer),
               ok=losses[-1] < losses[0]))
-    return launches, launches_mma
+    return launches, launches_mma, update_launches
 
 
 def f32_phase(torch, mx, llama, fa, failures):
@@ -1028,7 +1071,12 @@ def serving_bf16_phase(torch, mx, llama, serving, fa, net, failures):
         positions=len(plain) * SERVE_NEW, tol_ulps=SERVE_ULPS,
         tokens_same_as_offline=same, tokens_same_min=SERVE_SAME_MIN,
         path_launches=path_launches, check_launches=launches,
-        check_launches_mma=launches_mma)
+        check_launches_mma=launches_mma,
+        step_graph_key=list(srv.engine._step_key),
+        step_graph_pool_bytes=srv.engine._step_graph.pool_bytes,
+        step_graph_replays=srv.engine._step_graph.replays,
+        compiled_signatures=[list(k) for k in
+                             srv.engine.compiled_signatures()])
     ok = worst["server"] <= SERVE_ULPS and same >= SERVE_SAME_MIN and \
         stats["completed"] == len(plain) and stats["failed"] == 0 and \
         path_launches == 0 and \
@@ -1086,7 +1134,42 @@ def slice_phase(torch, mx, llama, fa, failures):
         if not ok:
             failures.append(f"prompt forward: launches {launched}, "
                             f"tensor-core {mma}, finite {finite}")
+    eager_logits = logits._data
+    del logits
+    # the same forward hybridized: the first call runs eagerly and
+    # captures, the next ones replay the 32-layer graph
+    net.hybridize(static_alloc=True, static_shape=True)
+    for run_i in range(3):
+        before = fa.flash_attention_fwd.launches
+        before_mma = fa.flash_attention_fwd.launches_mma
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = net(ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched = fa.flash_attention_fwd.launches - before
+        mma = fa.flash_attention_fwd.launches_mma - before_mma
+        diff = (logits._data.float() - eager_logits.float()).abs().max()
+        tol = GRAPH_BF16_TOL * eager_logits.float().abs().max()
+        identical = bool(torch.equal(logits._data, eager_logits))
+        ok = launched == mma == cfg.num_layers and bool(diff <= tol)
+        emit(dict(phase="prompt_forward_graph", run=run_i,
+                  captured=run_i == 0, B=1, T=2048, ms=ms,
+                  tokens_per_s=2048 / ms * 1e3, launches=launched,
+                  launches_mma=mma, identical_to_eager=identical,
+                  max_abs_diff=diff.item(), tol=tol.item(), ok=ok))
+        if not ok:
+            failures.append(f"prompt forward graph run {run_i}: launches "
+                            f"{launched} (tensor-core {mma}), max diff "
+                            f"{diff.item()} (tol {tol.item()})")
         del logits
+    entry = next(iter(net._cached_op._graphs.values()))
+    emit(dict(phase="prompt_forward_graph_cache",
+              cache_stats=net.cache_stats(),
+              graph_pool_bytes=entry[2].pool_bytes))
+    net.hybridize(False)
+    del eager_logits, entry
+    free_card(torch)
 
     for b, t0 in REQUESTS:
         prompt = mx.nd.array(torch.randint(
@@ -1094,7 +1177,11 @@ def slice_phase(torch, mx, llama, fa, failures):
             dtype=torch.int32))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = net.generate(prompt, max_new_tokens=NEW_TOKENS)
+        out = net.generate(prompt, max_new_tokens=NEW_TOKENS)  # captures
+        torch.cuda.synchronize()
+        first_call_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        out = net.generate(prompt, max_new_tokens=NEW_TOKENS)  # replays
         torch.cuda.synchronize()
         total_ms = (time.perf_counter() - t) * 1e3
         # the prefill alone, on the decoder and padded shape generate used
@@ -1110,20 +1197,45 @@ def slice_phase(torch, mx, llama, fa, failures):
         first = out._data[:, t0]
         with torch.no_grad():
             ref_first = net(prompt)._data[:, -1].argmax(-1).to(torch.int32)
-        ok = out.shape == (b, t0 + NEW_TOKENS) and \
+        # the eager decoder on the same prompt, in the same run
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine_type = mx.engine.engine_type()
+        mx.engine.set_engine_type("NaiveEngine")  # eager decode steps
+        try:
+            eager = dec.generate(prompt._data, NEW_TOKENS)
+        finally:
+            mx.engine.set_engine_type(engine_type)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3
+        same = bool(torch.equal(eager, out._data))
+        ok = out.shape == (b, t0 + NEW_TOKENS) and same and \
             bool(torch.equal(out._data[:, :t0], prompt._data)) and \
             bool(((out._data >= 0) & (out._data < cfg.vocab_size)).all())
         decode_ms = total_ms - prefill_ms
+        eager_decode_ms = eager_ms - prefill_ms
+        graph, = dec._decode_states[b]["graphs"].values()
         emit(dict(phase="request", B=b, prompt=t0, new_tokens=NEW_TOKENS,
-                  max_len=dec.max_len, prefill_len=lp, total_ms=total_ms,
+                  max_len=dec.max_len, prefill_len=lp,
+                  first_call_ms=first_call_ms, total_ms=total_ms,
                   prefill_ms=prefill_ms,
                   decode_tokens_per_s=b * (NEW_TOKENS - 1) / decode_ms * 1e3
                   if decode_ms > 0 else None,
+                  eager_total_ms=eager_ms,
+                  eager_decode_tokens_per_s=b * (NEW_TOKENS - 1) /
+                  eager_decode_ms * 1e3 if eager_decode_ms > 0 else None,
+                  tokens_equal_to_eager=same,
+                  decode_graph_pool_bytes=graph.pool_bytes,
+                  # the static caches, tokens and positions of every batch
+                  # size's graphs, and their pool, so far
+                  decode_graph_bytes=dict(zip(("static", "pool"),
+                                              dec.decode_graph_bytes())),
                   first_token_matches_forward_argmax=bool(
                       torch.equal(first, ref_first)), ok=ok))
         if not ok:
-            failures.append(f"request B={b} t0={t0}: bad output")
-        del out, w
+            failures.append(f"request B={b} t0={t0}: bad output or tokens "
+                            f"unlike the eager decoder's ({same})")
+        del out, w, eager
     launches = fa.flash_attention_fwd.launches  # the main path ends here
     launches_mma = fa.flash_attention_fwd.launches_mma
     emit(dict(phase="memory",
@@ -1327,7 +1439,9 @@ def resnet_f32_phase(torch, mx, vision, cbr, failures):
 
 def resnet_infer_phase(torch, mx, vision, cbr, failures):
     """``resnet50_v1`` in bf16, 224x224, at B=128 and B=4: the inference
-    main path through the fused kernel, 16 launches a forward."""
+    main path through the fused kernel, 16 launches a forward, eagerly and
+    then hybridized (CUDA graph replays against the eager logits); then
+    the weights' round trip through a ``.params`` file."""
     free_card(torch)
     mx.random.seed(SEED)
     net = vision.resnet50_v1(classes=1000)
@@ -1342,6 +1456,7 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
     torch.cuda.synchronize()
     fn = cbr.fused_matmul_affine_relu
     fn.launches = fn.launches_mma = 0  # the main path starts here
+    eager_out, eager_warm = {}, {}
     for b in RESNET_BATCHES:
         x = inputs[b]
         torch.cuda.reset_peak_memory_stats()
@@ -1357,6 +1472,7 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
                              fn.launches_mma - before[1]))
         finite = bool(torch.isfinite(out._data).all())
         warm = sum(ms[1:]) / 3
+        eager_out[b], eager_warm[b] = out._data, warm
         # 16 launches a forward, all of the tensor-core design
         ok = launched == [(16, 16)] * 4 and finite and \
             out.shape == (b, 1000) and out.dtype == torch.bfloat16
@@ -1371,11 +1487,75 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
             failures.append(f"resnet inference B={b}: launches (all, "
                             f"tensor-core) {launched}, finite {finite}")
         del out
+    # hybridized: each batch's first call runs eagerly and captures its
+    # graph, the next ones replay it (16 fused launches each)
+    net.hybridize(static_alloc=True, static_shape=True)
+    for b in RESNET_BATCHES:
+        x = inputs[b]
+        ms, launched = [], []
+        for _ in range(4):
+            before = (fn.launches, fn.launches_mma)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launched.append((fn.launches - before[0],
+                             fn.launches_mma - before[1]))
+        ref = eager_out[b]
+        diff = (out._data.float() - ref.float()).abs().max().item()
+        tol = GRAPH_BF16_TOL * ref.float().abs().max().item()
+        warm = sum(ms[1:]) / 3
+        sig = next(k for k in net._cached_op._graphs if k[0][0][0][0] == b)
+        ok = launched == [(16, 16)] * 4 and diff <= tol and \
+            out.shape == (b, 1000)
+        emit(dict(phase="resnet_infer_graph", B=b, image=224,
+                  dtype="bfloat16", ms=ms, warm_ms=warm,
+                  eager_warm_ms=eager_warm[b],
+                  images_per_s=b / warm * 1e3,
+                  launches_per_forward=[n for n, _ in launched],
+                  launches_mma_per_forward=[n for _, n in launched],
+                  identical_to_eager=bool(torch.equal(out._data, ref)),
+                  max_abs_diff=diff, tol=tol,
+                  graph_pool_bytes=net._cached_op._graphs[sig][2].pool_bytes,
+                  ok=ok))
+        if not ok:
+            failures.append(f"resnet inference graph B={b}: launches "
+                            f"{launched}, max diff {diff} (tol {tol})")
+        del out
     launches, launches_mma = fn.launches, fn.launches_mma  # the path ends
+    emit(dict(phase="resnet_infer_graph_cache",
+              cache_stats=net.cache_stats()))
+    net.hybridize(False)
     if launches_mma == 0:
         failures.append("the ResNet inference path launched no "
                         "tensor-core fused_matmul_affine_relu")
-    del net, inputs
+    # the weights through a .params file: save_parameters, then
+    # resnet50_v1(pretrained=True) from that local file, cast to bf16 (the
+    # file holds the bf16 values as f32, exactly), the same forward bits
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mxt_params_")
+    try:
+        t = time.perf_counter()
+        net.save_parameters(os.path.join(root, "resnet50_v1.params"))
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(os.path.join(root, "resnet50_v1.params"))
+        loaded = vision.resnet50_v1(classes=1000, pretrained=True,
+                                    root=root, ctx=mx.gpu(0))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loaded.cast("bfloat16")
+    x = inputs[RESNET_BATCHES[-1]]
+    same = bool(torch.equal(loaded(x)._data, net(x)._data))
+    emit(dict(phase="params_round_trip", net="resnet50_v1",
+              dtype="bfloat16", file_bytes=size, save_s=save_s,
+              identical_forward=same, ok=same))
+    if not same:
+        failures.append("resnet50_v1 .params round trip: the loaded net's "
+                        "forward differs")
+    del net, inputs, loaded
     free_card(torch)
     return launches, launches_mma
 
@@ -1439,11 +1619,12 @@ def resnet18_f32_train_phase(torch, mx, vision, failures):
                         f"({worst_name})")
 
 
-def resnet_train_phase(torch, mx, vision, cbr, failures):
+def resnet_train_phase(torch, mx, vision, cbr, mt, failures):
     """``resnet50_v1``, bf16 (``net.cast``), B=128, 224x224, SGD with
     momentum 0.9 and lr 0.1, ``SoftmaxCrossEntropyLoss`` — bench.py's
     protocol, eager: one warm-up step and three timed steps on one batch.
-    BatchNorm normalizes by the batch, so the fused kernel never runs."""
+    BatchNorm normalizes by the batch, so the fused conv kernel never
+    runs; the update is one launch of the multi-tensor kernel a step."""
     free_card(torch)
     t = time.perf_counter()
     mx.random.seed(SEED)
@@ -1467,6 +1648,7 @@ def resnet_train_phase(torch, mx, vision, cbr, failures):
                          net.collect_params().values()),
               memory_allocated=torch.cuda.memory_allocated()))
     fused_before = cbr.fused_matmul_affine_relu.launches
+    mt.multi_tensor_update.launches = 0  # the update's main path starts
     losses, step_ms = [], []
     for step in range(4):
         stamps, peaks = [], []
@@ -1479,30 +1661,452 @@ def resnet_train_phase(torch, mx, vision, cbr, failures):
 
         mark()
         peaks.clear()
+        mt_before = mt.multi_tensor_update.launches
         loss = _resnet_step(mx, net, trainer, loss_fn, x, y, mark)
+        upd_launches = mt.multi_tensor_update.launches - mt_before
         fwd_ms, bwd_ms, upd_ms = ((b2 - a) * 1e3 for a, b2 in
                                   zip(stamps, stamps[1:]))
         ms = (stamps[-1] - stamps[0]) * 1e3
         losses.append(loss)
         if step:
             step_ms.append(ms)
-        ok = math.isfinite(loss)
+        ok = math.isfinite(loss) and upd_launches == 1
         emit(dict(phase="resnet_train_step", step=step, warmup=step == 0,
                   B=b, loss=loss, ms=ms, images_per_s=b / ms * 1e3,
                   forward_ms=fwd_ms, backward_ms=bwd_ms, update_ms=upd_ms,
+                  update_bound_ms=update_bound_ms(trainer),
+                  update_launches=upd_launches,
                   max_memory_allocated=dict(zip(
                       ("forward", "backward", "update"), peaks)), ok=ok))
         if not ok:
-            failures.append(f"resnet train step {step}: loss {loss}")
+            failures.append(f"resnet train step {step}: loss {loss}, "
+                            f"update launches {upd_launches}")
     fused = cbr.fused_matmul_affine_relu.launches - fused_before
+    update_launches = mt.multi_tensor_update.launches  # ... ends
+    kernel_ms, tensors = update_kernel_ms(torch, mt, trainer, 20)
     ok = losses[-1] < losses[0] and fused == 0
     emit(dict(phase="resnet_train_summary", losses=losses, step_ms=step_ms,
-              fused_launches=fused, ok=ok))
+              fused_launches=fused, update_launches=update_launches,
+              update_kernel_ms=kernel_ms, update_tensors=tensors,
+              update_bound_ms=update_bound_ms(trainer), ok=ok))
     if not ok:
         failures.append(f"resnet training: losses {losses}, fused launches "
                         f"{fused} (expected a falling loss and 0)")
     del net, trainer, x, y
     free_card(torch)
+    return update_launches
+
+
+# The fused multi-tensor update kernel (phase 5b): every rule code of the
+# kernel at ragged tensor lengths (1 element up to three blocks and a bit)
+# in f32, bf16, bf16 with an f32 master and f16, over three steps with an
+# lr schedule, rescale, clipping and weight decay; weights within 1 ulp of
+# their dtype, f32 states and masters within 2 f32 ulps (the kernel
+# rounds where the plain rule's torch ops round).
+MT_SIZES = [1, 7, 4097, 16389, 3 * 16384]
+MT_RULES = [("sgd", {}), ("sgd", {"momentum": 0.9}),
+            ("nag", {"momentum": 0.9}), ("adam", {}), ("adamw", {})]
+MT_DTYPES = [("float32", False), ("bfloat16", False), ("bfloat16", True),
+             ("float16", False)]
+MT_WEIGHT_ULPS = 1
+MT_STATE_ULPS = 2
+# FusedTrainStep phases: ResNet-50 bf16 B=128, K=8 (bench.py's protocol);
+# the 8 losses against 8 eager Trainer steps from the same weights, at an
+# lr at which both fall (at phase 12's lr 0.1 the losses on one constant
+# batch rise, and a trajectory that diverges hides a wrong update).  Step
+# 0 runs the same kernels eagerly in both (it is the graph's warm-up);
+# steps 1-7 replay the graph, whose cuDNN and cuBLAS calls may sum in
+# another order than the eager calls do, and 8 steps of SGD in bf16 carry
+# that: each loss within 2e-2 of the eager loss (relative)
+FUSED_STEP_K = 8
+FUSED_RESNET_LR = 0.01
+FUSED_LOSS_RTOL = 2e-2
+# the 2-layer f32 Llama: K=2 graph losses within 1e-5 (relative) of eager
+# steps, the final weights within 1e-3 of the largest change the two
+# eager steps made to the same tensor (f32; phase 7's 1e-3 share)
+FUSED_LLAMA_K = 2
+
+
+def _max_ulps(torch, got, ref, dtype, chunk=1 << 26):
+    """Largest |got - ref| in units of ``dtype``'s spacing at ``ref`` (the
+    smallest subnormal step below the normal range), chunk by chunk."""
+    eps = torch.finfo(dtype).eps
+    floor = torch.finfo(dtype).smallest_normal * eps
+    g, r = got.reshape(-1), ref.reshape(-1)
+    worst = 0.0
+    for i in range(0, r.numel(), chunk):
+        a, b = g[i:i + chunk].double(), r[i:i + chunk].double()
+        _, e = torch.frexp(b)
+        ulp = torch.ldexp(torch.full_like(b, eps), e - 1).clamp_min(floor)
+        worst = max(worst, ((a - b).abs() / ulp).max().item())
+    return worst
+
+
+def update_bound_ms(trainer):
+    """Least time of one optimizer update on the card: each live weight,
+    state and master read and written once, each gradient read once, over
+    3.35 TB/s."""
+    from mxnet_tpu_torch import optimizer as topt
+
+    nbytes = 0
+    for p in trainer._params:
+        if p.grad_req == "null" or p._data is None:
+            continue
+        w = p.data()._data
+        nbytes += 3 * w.numel() * w.element_size()
+        state = trainer._states[trainer._param2idx[p.name]]
+        holders = [] if state is None else topt._state_holders(state)
+        nbytes += sum(2 * h._data.numel() * h._data.element_size()
+                      for h in holders)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def update_kernel_ms(torch, mt, trainer, iters):
+    """Device time of the update kernel alone over the trainer's tensors:
+    the launch of the plan its last step wrote (the pointers it holds are
+    still live), ``iters`` times after one warm-up; and the tensor count.
+    Run after the timed steps (it updates the weights again)."""
+    live = trainer._live()
+    device = trainer._params[live[0]].data()._data.device
+    plan = mt._PLANS[(device, tuple(trainer._params[i].data().size
+                                    for i in live))]
+    return time_ms(torch, lambda: plan.launch(trainer._optimizer),
+                   iters), len(live)
+
+
+def multi_tensor_phase(torch, mx, llama, mt, failures):
+    """Phase 5b: the fused multi-tensor update kernel against its plain
+    version (the optimizer's per-tensor rule) for every rule and dtype at
+    ragged lengths, then over the 147 tensors of the 16-layer Llama
+    training slice (bf16 weights, SGD with f32 momentum): the check, the
+    kernel's time (the launch alone, and the call with its table write),
+    the plain version's, the ``torch._foreach_*`` chain's (the library
+    yardstick) and the bound."""
+    from mxnet_tpu_torch import optimizer as topt
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    for name, kw in MT_RULES:
+        for dt, mp in MT_DTYPES:
+            dtype = getattr(torch, dt)
+            opt = topt.create(name, multi_precision=mp, rescale_grad=0.5,
+                              clip_gradient=1.5, **kw)
+            rule = opt._fused_rule()[0]
+            n_states = mt._STATES[rule]
+            sdt = dtype if rule == "nag_mom" and not mp else torch.float32
+            ker = []
+            for n in MT_SIZES:
+                w = torch.randn(n, generator=gen, device="cuda").to(dtype)
+                g = (2 * torch.randn(n, generator=gen, device="cuda")).to(
+                    dtype)
+                states = tuple((torch.rand(n, generator=gen, device="cuda")
+                                * 0.1).to(sdt) for _ in range(n_states))
+                ker.append(mt.UpdateItem(w, g, states,
+                                         w.float() if mp else None,
+                                         0.0, 0.0, 0))
+            ref = [mt.UpdateItem(
+                it.w.clone(), it.g, tuple(x.clone() for x in it.states),
+                None if it.master is None else it.master.clone(), 0.0, 0.0,
+                0) for it in ker]
+            before = mt.multi_tensor_update.launches
+            for step, lr in enumerate((0.1, 0.05, 0.025)):
+                sched = [it._replace(lr=lr * (1 + j % 2), wd=0.01 * (j % 3),
+                                     t=step + 1) for j, it in enumerate(ker)]
+                mt.multi_tensor_update(opt, sched)
+                mt._update_plain(opt, [r._replace(lr=x.lr, wd=x.wd, t=x.t)
+                                       for r, x in zip(ref, sched)])
+            torch.cuda.synchronize()
+            launched = mt.multi_tensor_update.launches - before
+            w_ulps = max(_max_ulps(torch, k.w, r.w, dtype)
+                         for k, r in zip(ker, ref))
+            s_ulps = max([_max_ulps(torch, a, b, sdt) for k, r in
+                          zip(ker, ref) for a, b in zip(k.states, r.states)]
+                         or [0.0])
+            m_ulps = max(_max_ulps(torch, k.master, r.master,
+                                   torch.float32)
+                         for k, r in zip(ker, ref)) if mp else None
+            s_tol = MT_STATE_ULPS if sdt == torch.float32 else MT_WEIGHT_ULPS
+            ok = launched == 3 and w_ulps <= MT_WEIGHT_ULPS and \
+                s_ulps <= s_tol and (m_ulps is None or
+                                     m_ulps <= MT_STATE_ULPS)
+            emit(dict(phase="multi_tensor", rule=rule, dtype=dt, master=mp,
+                      sizes=MT_SIZES, steps=3, launches=launched,
+                      weight_ulps=w_ulps, state_ulps=s_ulps,
+                      master_ulps=m_ulps, tol_weight_ulps=MT_WEIGHT_ULPS,
+                      tol_state_ulps=s_tol, ok=ok))
+            if not ok:
+                failures.append(f"multi-tensor {rule} {dt} master={mp}: "
+                                f"launches {launched}, ulps weight {w_ulps} "
+                                f"state {s_ulps} master {m_ulps}")
+            del ker, ref
+    # the 147 tensors of the training slice, at their shapes
+    shapes = [p.shape for p in llama.llama3_8b(
+        num_layers=TRAIN_LAYERS).collect_params().values()]
+    opt = topt.create("sgd", learning_rate=TRAIN_LR, momentum=0.9)
+    items = []
+    for shape in shapes:
+        w = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        g = (torch.randn(shape, generator=gen, device="cuda") * 0.01).to(
+            torch.bfloat16)
+        m = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        items.append(mt.UpdateItem(w, g, (m,), None, TRAIN_LR, 0.0, 1))
+    params = sum(it.w.numel() for it in items)
+    ref = [it._replace(w=it.w.clone(), states=(it.states[0].clone(),))
+           for it in items]
+    before = mt.multi_tensor_update.launches
+    mt.multi_tensor_update(opt, items)
+    launched = mt.multi_tensor_update.launches - before
+    mt._update_plain(opt, ref)
+    torch.cuda.synchronize()
+    w_ulps = max(_max_ulps(torch, k.w, r.w, torch.bfloat16)
+                 for k, r in zip(items, ref))
+    s_ulps = max(_max_ulps(torch, k.states[0], r.states[0], torch.float32)
+                 for k, r in zip(items, ref))
+    err = max((k.w.float() - r.w.float()).abs().max().item()
+              for k, r in zip(items, ref))
+    del ref
+    free_card(torch)
+    plan = mt.plan_for(items)
+    ws = [it.w for it in items]
+    gs = [it.g for it in items]
+    ms = [it.states[0] for it in items]
+
+    def foreach_chain():
+        torch._foreach_mul_(ms, 0.9)
+        torch._foreach_add_(ms, gs, alpha=-TRAIN_LR)
+        torch._foreach_add_(ws, ms)
+
+    bound, bound_by = roofline_ms(0.0, 14.0 * params, "bfloat16")
+    row = dict(phase="multi_tensor_llama", tensors=len(items),
+               params=params, rule="sgd_mom", dtype="bfloat16",
+               launches=launched, weight_ulps=w_ulps, state_ulps=s_ulps,
+               max_abs_err=err, blocks=plan.nblocks,
+               kernel_ms=time_ms(torch, lambda: plan.launch(opt), 5),
+               call_ms=time_ms(torch, lambda: mt.multi_tensor_update(
+                   opt, items), 5),
+               plain_ms=time_ms(torch, lambda: mt._update_plain(opt, items),
+                                2),
+               library_ms=time_ms(torch, foreach_chain, 3),
+               bound_ms=bound, bound_by=bound_by)
+    row["gbytes_per_s"] = 14.0 * params / row["kernel_ms"] * 1e-6
+    row["ok"] = ok = launched == 1 and w_ulps <= MT_WEIGHT_ULPS and \
+        s_ulps <= MT_STATE_ULPS
+    emit(row)
+    if not ok:
+        failures.append(f"multi-tensor over the Llama slice's tensors: "
+                        f"launches {launched}, ulps weight {w_ulps} state "
+                        f"{s_ulps}")
+    del items, plan, ws, gs, ms
+    free_card(torch)
+    return row
+
+
+def fused_llama_phase(torch, mx, llama, fa, mt, checkpoint, failures):
+    """Phase 7d: ``FusedTrainStep`` on ``llama3_8b`` widths at 2 layers in
+    f32, T=1024, K=2 (SGD, momentum 0.9): the graph's losses and final
+    weights against two eager ``Trainer.step``s from the same weights,
+    with the flash forward, dQ and dK/dV launches counted through the
+    replays; then the checkpoint round trip: ``save_checkpoint`` of the
+    fused net's training state, one more step, and the same step after
+    ``resume`` into a fresh net and trainer: the loss and the weights
+    equal."""
+    import shutil
+    import tempfile
+
+    kw = {"learning_rate": 0.01, "momentum": 0.9}
+
+    def make():
+        mx.random.seed(SEED)
+        net = llama.llama3_8b(num_layers=2)
+        net.initialize(ctx=mx.gpu(0))
+        return net
+
+    def lm_loss(n, a, b):
+        vocab = n.config.vocab_size
+        return mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, vocab)), b.reshape((-1,))) / b.size
+
+    net_e = make()
+    ids, labels = _ids_labels(torch, mx, net_e.config.vocab_size, 1024,
+                              SEED + 12)
+    start = {k: p.data()._data.clone() for k, p in
+             net_e._collect_params_with_prefix().items()}
+    tr_e = mx.gluon.Trainer(net_e.collect_params(), "sgd", dict(kw))
+    eager = []
+    for _ in range(FUSED_LLAMA_K):
+        with mx.autograd.record():
+            loss = lm_loss(net_e, ids, labels)
+        loss.backward()
+        tr_e.step(1)
+        eager.append(float(loss.asscalar()))
+    net_f = make()
+    tr_f = mx.gluon.Trainer(net_f.collect_params(), "sgd", dict(kw))
+    fstep = mx.gluon.FusedTrainStep(net_f, tr_f, lm_loss,
+                                    steps_per_execution=FUSED_LLAMA_K,
+                                    batch_size=1)
+    _zero_counts(fa)
+    mt_before = mt.multi_tensor_update.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fused = fstep(ids, labels).asnumpy().tolist()
+    first_call_s = time.perf_counter() - t
+    launched = [c.launches for c in _counters(fa)]
+    mt_launched = mt.multi_tensor_update.launches - mt_before
+    graph = next(iter(fstep._graphs.values()))["graph"]
+    worst, worst_name = 0.0, None
+    pe = net_e._collect_params_with_prefix()
+    for k, p in net_f._collect_params_with_prefix().items():
+        moved = (pe[k].data()._data - start[k]).abs().max().item()
+        share = (p.data()._data - pe[k].data()._data).abs().max().item() / \
+            max(moved, 1e-30)
+        if share > worst:
+            worst, worst_name = share, k
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fused, eager))
+    per_step = 2 * FUSED_LLAMA_K  # 2 layers, K steps
+    ok = launched == [per_step] * 3 and mt_launched == FUSED_LLAMA_K and \
+        loss_rel <= 1e-5 and worst <= 1e-3
+    emit(dict(phase="fused_step_llama", layers=2, T=1024, dtype="float32",
+              K=FUSED_LLAMA_K, losses=fused, eager_losses=eager,
+              max_loss_rel_err=loss_rel, worst_weight_err_share=worst,
+              worst_param=worst_name,
+              launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+              multi_tensor_launches=mt_launched,
+              graph_replays=graph.replays, graph_pool_bytes=graph.pool_bytes,
+              first_call_s=first_call_s, ok=ok))
+    if not ok:
+        failures.append(f"fused step (llama): losses {fused} vs {eager}, "
+                        f"worst weight share {worst} ({worst_name}), "
+                        f"launches {launched}, update launches "
+                        f"{mt_launched}")
+    del net_e, tr_e, start, pe, fstep, graph
+    free_card(torch)
+
+    # the checkpoint round trip from the fused net's state
+    ckpt_dir = tempfile.mkdtemp(prefix="mxt_ckpt_")
+    try:
+        t = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt_dir, FUSED_LLAMA_K, net_f, tr_f)
+        save_s = time.perf_counter() - t
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(ckpt_dir) for f in fs)
+
+        def one_step(net, tr):
+            with mx.autograd.record():
+                loss = lm_loss(net, ids, labels)
+            loss.backward()
+            tr.step(1)
+            return float(loss.asscalar())
+
+        loss_a = one_step(net_f, tr_f)
+        mx.random.seed(SEED + 1)
+        net_r = llama.llama3_8b(num_layers=2)
+        net_r.initialize(ctx=mx.gpu(0))  # other weights: all come from disk
+        tr_r = mx.gluon.Trainer(net_r.collect_params(), "sgd", dict(kw))
+        t = time.perf_counter()
+        step, _ = checkpoint.resume(ckpt_dir, net_r, tr_r)
+        resume_s = time.perf_counter() - t
+        loss_b = one_step(net_r, tr_r)
+        pr = net_r._collect_params_with_prefix()
+        diff = max((p.data()._data - pr[k].data()._data).abs().max().item()
+                   for k, p in net_f._collect_params_with_prefix().items())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ok = step == FUSED_LLAMA_K and loss_a == loss_b and diff == 0.0
+    emit(dict(phase="checkpoint_round_trip", layers=2, dtype="float32",
+              step=step, loss_uninterrupted=loss_a, loss_resumed=loss_b,
+              max_abs_weight_diff=diff, checkpoint_bytes=ckpt_bytes,
+              save_s=save_s, resume_s=resume_s, ok=ok))
+    if not ok:
+        failures.append(f"checkpoint round trip: step {step}, loss "
+                        f"{loss_b} vs {loss_a}, weights differ by {diff}")
+    del net_f, tr_f, net_r, tr_r, pr
+    free_card(torch)
+
+
+def fused_resnet_phase(torch, mx, vision, mt, failures):
+    """Phase 12b: ``FusedTrainStep(net, trainer, forward_loss,
+    steps_per_execution=8, batch_size=128)`` on ``resnet50_v1`` in bf16
+    (bench.py's protocol; SGD lr ``FUSED_RESNET_LR``, momentum 0.9, one
+    constant batch): the first call (step 0 eager, the capture, 7
+    replays) against 8 eager ``Trainer.step``s from the same weights,
+    both falling; then one timed call of 8 replays: ms a step and
+    images/s, and the graph's pool bytes."""
+    free_card(torch)
+    b = RESNET_BATCHES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    x = mx.nd.array(torch.rand((b, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    y = mx.nd.array(torch.randint(0, 1000, (b,), generator=gen,
+                                  device="cuda").float())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make():
+        mx.random.seed(SEED)
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+        net.cast("bfloat16")
+        return net, mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": FUSED_RESNET_LR, "momentum": 0.9})
+
+    net, tr = make()
+    eager, eager_ms = [], []
+    for _ in range(FUSED_STEP_K):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        tr.step(b)
+        eager.append(float(loss.sum().asscalar()))
+        eager_ms.append((time.perf_counter() - t) * 1e3)
+    del net, tr, loss
+    free_card(torch)
+    net, tr = make()
+    fstep = mx.gluon.FusedTrainStep(
+        net, tr, lambda n, a, c: loss_fn(n(a), c),
+        steps_per_execution=FUSED_STEP_K, batch_size=b)
+    mt.multi_tensor_update.launches = before = 0  # the main path starts
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fused = fstep(x, y).asnumpy().tolist()
+    first_call_s = time.perf_counter() - t
+    launched = mt.multi_tensor_update.launches - before
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    more = fstep(x, y).asnumpy()
+    call_ms = (time.perf_counter() - t) * 1e3
+    launched_all = mt.multi_tensor_update.launches  # ... and ends here
+    graph = next(iter(fstep._graphs.values()))["graph"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(fused, eager))
+    falling = eager[-1] < eager[0] and fused[-1] < fused[0]
+    ok = rel <= FUSED_LOSS_RTOL and falling and \
+        launched == FUSED_STEP_K and \
+        launched_all == 2 * FUSED_STEP_K and \
+        bool(np.isfinite(more).all()) and len(fstep._graphs) == 1
+    step_ms = call_ms / FUSED_STEP_K
+    emit(dict(phase="fused_step_resnet", B=b, dtype="bfloat16",
+              K=FUSED_STEP_K, lr=FUSED_RESNET_LR, losses=fused,
+              eager_losses=eager, falling=falling,
+              max_loss_rel_err=rel, tol=FUSED_LOSS_RTOL,
+              eager_step_ms=eager_ms, first_call_s=first_call_s,
+              call_ms=call_ms, step_ms=step_ms,
+              images_per_s=b / step_ms * 1e3, next_losses=more.tolist(),
+              multi_tensor_launches=launched_all,
+              graph_replays=graph.replays, graph_pool_bytes=graph.pool_bytes,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              ok=ok))
+    if not ok:
+        failures.append(f"fused step (resnet): losses {fused} vs eager "
+                        f"{eager} (worst {rel}), update launches "
+                        f"{launched}/{launched_all}")
+    del net, tr, fstep, graph
+    free_card(torch)
+    return launched_all
+
 
 
 def main():
@@ -1518,7 +2122,8 @@ def main():
     from mxnet_tpu_torch.models import llama
     from mxnet_tpu_torch.ops import conv_bn_relu as cbr
     from mxnet_tpu_torch.ops import flash_attention as fa
-    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+    from mxnet_tpu_torch import checkpoint, serving
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -1554,20 +2159,28 @@ def main():
     rows = kernel_phase(torch, fa, failures)
     brows = backward_phase(torch, fa, failures)
     fused = fused_kernel_phase(torch, cbr, failures)
+    mtrow = multi_tensor_phase(torch, mx, llama, mt, failures)
     f32_phase(torch, mx, llama, fa, failures)
     f32_train_phase(torch, mx, llama, fa, failures)
     bf16_phase(torch, mx, llama, fa, failures)
+    fused_llama_phase(torch, mx, llama, fa, mt, checkpoint, failures)
     serving_f32_phase(torch, mx, llama, serving, failures)
     infer_launches, infer_mma, net = slice_phase(torch, mx, llama, fa,
                                                  failures)
     serving_bf16_phase(torch, mx, llama, serving, fa, net, failures)
     del net
-    train_launches, train_mma = train_phase(torch, mx, llama, fa, failures)
+    train_launches, train_mma, update_launches = train_phase(
+        torch, mx, llama, fa, mt, failures)
     resnet_f32_phase(torch, mx, vision, cbr, failures)
     resnet18_f32_train_phase(torch, mx, vision, failures)
     fused_launches, fused_mma = resnet_infer_phase(torch, mx, vision, cbr,
                                                    failures)
-    resnet_train_phase(torch, mx, vision, cbr, failures)
+    update_launches += resnet_train_phase(torch, mx, vision, cbr, mt,
+                                          failures)
+    update_launches += fused_resnet_phase(torch, mx, vision, mt, failures)
+    if update_launches == 0:
+        failures.append("the training paths launched no multi-tensor "
+                        "update")
 
     s, bs = rows[0], brows[0]
     src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
@@ -1616,7 +2229,15 @@ def main():
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
-         "library_ms": fused["library_ms"]}]})
+         "library_ms": fused["library_ms"]},
+        {"name": "multi_tensor_update", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
+         "replaces": "mxnet_tpu/gluon/trainer.py:516",
+         "design": "one launch over a device table, bf16 SGD momentum",
+         "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
+         "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
+         "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],
+         "library_ms": mtrow["library_ms"]}]})
     if failures:
         for f in failures:
             print("FAILED: " + f, file=sys.stderr)

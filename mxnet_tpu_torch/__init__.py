@@ -69,4 +69,8 @@ from . import kvstore as kv
 from . import gluon
 from . import models
 from . import convert
+from . import engine
+from . import serialization
+from . import checkpoint
+from . import elastic
 from . import serving

@@ -4,8 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``build/``
 beside this file (listed in ``.gitignore``), and loaded with ``ctypes``.
 A library newer than its source and every local header the source
-includes (``#include "..."``, followed transitively: every source
-includes ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
+includes (``#include "..."``, followed transitively: the attention and
+conv sources include ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
 in parallel, one ``nvcc`` per source.  Nothing here runs at import time:
 this module imports on machines without ``nvcc`` or a card.
 """
@@ -26,7 +26,8 @@ BUILD_DIR = _PKG / "build"
 #: library name -> source, relative to this package
 SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu",
            "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
-           "fused_matmul_affine_relu": "csrc/fused_matmul_affine_relu.cu"}
+           "fused_matmul_affine_relu": "csrc/fused_matmul_affine_relu.cu",
+           "multi_tensor_update": "csrc/multi_tensor_update.cu"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_INT] * 6 + [ctypes.c_float, _PTR]  # bh .. causal, scale, stream
 #: library name -> {C entry point: argtypes}; each returns a cudaError_t
@@ -48,9 +49,18 @@ SYMBOLS = {
                                      [_PTR] * 5 + [_INT] * 4 + [_PTR],
                                  "mxt_fused_matmul_affine_relu_fma":
                                      [_PTR] * 5 + [_INT] * 4 + [_PTR]},
+    # table, blocks, nblocks, rule, flags, rescale, clip, mom, b1, 1 - b1,
+    # b2, 1 - b2, eps, b1 (double), b2 (double), stream
+    "multi_tensor_update": {"mxt_multi_tensor_update":
+                                [_PTR] * 2 + [_INT] * 3 +
+                                [ctypes.c_float] * 8 +
+                                [ctypes.c_double] * 2 + [_PTR]},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+#: library name -> flags of its own: the update kernel rounds where the
+#  plain rule's separate torch ops round, so no multiply-add is contracted
+EXTRA_FLAGS = {"multi_tensor_update": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -116,7 +126,8 @@ def build(names=None, verbose=False) -> dict:
     procs = {}
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [exe, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [exe, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()),
+               *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(_PKG / SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -9,8 +9,12 @@ Written entirely in Gluon layers, which run eagerly.  In inference the
 first three layers of each ``BottleneckV1`` body (a 1×1 conv with bias
 and the block's stride, BatchNorm, ReLU) run as the fused CUDA kernel of
 ``ops/conv_bn_relu.py`` (``nn.HybridSequential``'s fusion).
+``pretrained=True`` loads ``<root>/resnet<depth>_v<version>.params``
+from a local file (``load_parameters``); nothing is downloaded.
 """
 from __future__ import annotations
+
+import os
 
 from ....base import MXNetError
 from ...block import HybridBlock
@@ -247,18 +251,34 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
             f"{sorted(resnet_spec)}")
     if version not in (1, 2):
         raise MXNetError("resnet version must be 1 or 2")
-    if pretrained:
-        raise MXNetError(
-            "pretrained weights require network access; load local weights "
-            "with mxnet_tpu_torch.convert.load_numpy_params instead "
-            "(.params files port with ROADMAP.md Queue 1 item 4)")
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
     net = resnet_class(block_class, layers, channels, **kwargs)
-    if ctx is not None:
+    if pretrained:
+        net.load_parameters(_local_params(f"resnet{num_layers}_v{version}",
+                                          root), ctx=ctx)
+    elif ctx is not None:
         net.initialize(ctx=ctx)
     return net
+
+
+def _local_params(name, root):
+    """``<root>/<name>.params`` (``root`` defaults to MXNet's model
+    directory, ``$MXNET_HOME/models`` or ``~/.mxnet/models``); nothing is
+    downloaded, so a missing file raises."""
+    if root is None:
+        root = os.path.join(os.environ.get(
+            "MXNET_HOME", os.path.join(os.path.expanduser("~"), ".mxnet")),
+            "models")
+    path = os.path.join(os.path.expanduser(root), f"{name}.params")
+    if not os.path.isfile(path):
+        raise MXNetError(
+            f"pretrained weights for {name}: {path} does not exist; "
+            "nothing is downloaded, so place the .params file there (a "
+            "file written by save_parameters here or in the reference) or "
+            "pass root= to its directory")
+    return path
 
 
 def resnet18_v1(**kwargs):

@@ -6,9 +6,12 @@ tensor is a ``torch.nn.Parameter`` on the first context it was
 initialized on; unless ``grad_req`` is ``"null"`` that NDArray is an
 autograd variable whose gradient buffer has the parameter's dtype and
 device (allocated by the first backward or read).  Deferred
-initialization (shape resolved at the first forward) is kept.  ``.params``
-save/load and multi-device copies port with later slices (ROADMAP
-Queue 1).
+initialization (shape resolved at the first forward) is kept.
+``set_data`` copies into the parameter's own tensor, so a CUDA graph
+that captured it reads the new values; ``cast`` and a forced
+re-initialization replace the tensor (a graph keyed on its address is
+captured again).  Multi-device copies port with multi-GPU (ROADMAP
+Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -121,10 +124,13 @@ class Parameter:
 
     def set_data(self, data):
         """Copy ``data`` (NDArray, tensor or array-like) into the
-        parameter, in its dtype and on its device."""
-        self._check_initialized()
+        parameter, in its dtype and on its device; a deferred
+        initialization is finished first with ``data``'s shape."""
         src = data._data if isinstance(data, NDArray) else \
             torch.as_tensor(data)
+        if self._data is None and self._deferred_init is not None:
+            self._finish_deferred_init(src.shape)
+        self._check_initialized()
         if tuple(src.shape) != self.shape:
             raise MXNetError(
                 f"set_data shape mismatch for {self.name!r}: "

@@ -25,11 +25,15 @@ interleaved pairs (x[..., ::2], x[..., 1::2]) in f32 and cast back; GQA
 heads repeated with ``repeat_interleave``; attention scores in f32 with
 P cast to the activation dtype before the PV product.
 
+On a CUDA card ``generate`` replays one captured CUDA graph per decode
+signature (batch, sampling settings) for its decode steps
+(``LlamaDecoder.generate``); the prefill runs eagerly.
+
 Not ported yet, each raising ``MXNetError`` that names the ROADMAP
 item: MoE (``num_experts``, the mixtral configs),
-``scan_layers``/``set_remat``, ring/ulysses attention, packed
-``segment_ids`` and ``packed_lm_loss``, and the pipeline and sharding
-functions.
+``scan_layers``/``set_remat`` (slice 7's left-out list), ring/ulysses
+attention, packed ``segment_ids`` and ``packed_lm_loss``, and the
+pipeline and sharding functions.
 
 Sampling cannot reproduce the reference's draws (JAX's PRNG is not
 torch's): the filters are the reference's arithmetic on the same
@@ -41,11 +45,14 @@ decoding never touches a generator.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from .. import autograd
+from .. import cuda_graph as cuda_graph_mod
+from .. import engine
 from .. import ndarray as nd
 from .. import random as mx_random
 from ..base import MXNetError
@@ -62,15 +69,22 @@ __all__ = ["LlamaConfig", "RMSNorm", "LlamaAttention", "LlamaMLP",
            "llama_pipeline_forward", "llama_pipeline_train_step",
            "packed_lm_loss", "LLAMA_CONFIGS"]
 
+# batch sizes whose decode graph states (caches included) a decoder keeps,
+# and sampling keys whose graphs each of them keeps
+_DECODE_BATCHES_KEPT = 4
 _LATER = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
           "1\")")
 
 
-def _not_ported(what):
+_LATER7 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
+           "7\": it waits for the memory-policy tiers, item 9)")
+
+
+def _not_ported(what, later=_LATER):
     """A function or method of the reference that a later slice ports:
     calling it raises ``MXNetError`` naming the ROADMAP item."""
     def refuse(*args, **kwargs):
-        raise MXNetError(f"{what} {_LATER}")
+        raise MXNetError(f"{what} {later}")
 
     refuse.__name__ = what.rsplit(".", 1)[-1]
     return refuse
@@ -88,7 +102,7 @@ class LlamaConfig:
         if num_experts:
             raise MXNetError(f"MoE (num_experts > 0) {_LATER}")
         if scan_layers:
-            raise MXNetError(f"scan_layers {_LATER}")
+            raise MXNetError(f"scan_layers {_LATER7}")
         if hidden_size % num_heads:
             raise MXNetError("num_heads must evenly divide hidden_size")
         if num_heads % num_kv_heads:
@@ -313,7 +327,7 @@ class LlamaForCausalLM(HybridBlock):
             raise MXNetError(f"packed segment_ids {_LATER}")
         return _lm_head(self, self.model(input_ids))
 
-    set_remat = _not_ported("LlamaForCausalLM.set_remat")
+    set_remat = _not_ported("LlamaForCausalLM.set_remat", _LATER7)
 
     def generate(self, input_ids, max_new_tokens=16, use_cache=True,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
@@ -392,12 +406,16 @@ def _filter_logits(logits, temperature, top_k, top_p):
     largest (ties with the k-th kept); then the nucleus: sorted
     descending, drop every token whose EXCLUSIVE cumulative probability
     reaches ``top_p`` (the top token always survives).  Dropped entries
-    are -inf."""
-    lg = logits.float() / max(float(temperature), 1e-6)
+    are -inf.  ``temperature`` and ``top_p`` may be 0-d f32 tensors (a
+    captured graph's static inputs): the temperature is then already
+    clamped, and a tensor ``top_p`` always filters."""
+    if not torch.is_tensor(temperature):
+        temperature = max(float(temperature), 1e-6)
+    lg = logits.float() / temperature
     if top_k and top_k < lg.shape[-1]:
         kth = torch.sort(lg, dim=-1).values[:, -top_k][:, None]
         lg = lg.masked_fill(lg < kth, float("-inf"))
-    if top_p < 1.0:
+    if torch.is_tensor(top_p) or top_p < 1.0:
         srt = torch.sort(lg, dim=-1, descending=True).values
         probs = torch.softmax(srt, dim=-1)
         cum = torch.cumsum(probs, dim=-1) - probs
@@ -510,18 +528,24 @@ class LlamaDecoder:
         return _mm(_rms(x, w["norm"], self.cfg.rms_eps), w["head"])
 
     def _step_impl(self, w, caches, ids_t, pos):
-        """ids_t (B,) int, pos int → logits (B, V); writes position
-        ``pos`` of every layer's caches in place."""
-        cos, sin = self._rope.get(self.max_len, ids_t.device)
-        cos, sin = cos[pos:pos + 1], sin[pos:pos + 1]
+        """ids_t (B,) int, pos an int or a (1,) int64 tensor on the
+        device → logits (B, V); writes position ``pos`` of every layer's
+        caches in place.  With a tensor ``pos`` the step reads nothing on
+        the host, so it can be captured in a CUDA graph."""
+        dev = ids_t.device
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.tensor([pos], device=dev)
+        pos = pos.reshape(1).long()
+        cos, sin = self._rope.get(self.max_len, dev)
+        cos, sin = cos.index_select(0, pos), sin.index_select(0, pos)
         x = w["emb"][ids_t.long()][:, None]                     # (B, 1, H)
-        mask = (torch.arange(self.max_len, device=x.device) <= pos)[None]
+        mask = (torch.arange(self.max_len, device=dev) <= pos)[None]
         for L, (kc, vc) in zip(w["layers"], caches):
 
             def ctx_fn(h, L=L, kc=kc, vc=vc):
                 q, k, v = self._qkv(L, h, cos, sin)
-                kc[:, :, pos:pos + 1] = k
-                vc[:, :, pos:pos + 1] = v
+                kc.index_copy_(2, pos, k.to(kc.dtype))
+                vc.index_copy_(2, pos, v.to(vc.dtype))
                 return self._out(L, self._attend(q, kc, vc, mask))
 
             x = self._layer(L, x, ctx_fn)
@@ -664,21 +688,20 @@ class LlamaDecoder:
             x_last = x[:, int(t0) - 1]
         return rows, self._logits(w, x_last)
 
-    def _prefill_impl(self, w, ids, t0):
+    def _prefill_impl(self, w, ids, t0, caches=None):
         """Prompt pass + full-length caches: K/V rows land at [0:Lp] of
-        fresh (B, Hkv, max_len, D) caches; pad rows are overwritten by the
-        decode steps starting at ``t0`` and hidden from real rows by the
-        causal mask."""
-        cfg = self.cfg
+        (B, Hkv, max_len, D) caches, zero elsewhere (fresh ones, or
+        ``caches`` given, overwritten in place); pad rows are overwritten
+        by the decode steps starting at ``t0`` and hidden from real rows
+        by the causal mask."""
         rows, logits = self._prefill_rows_impl(w, ids, t0)
-        shape = (ids.shape[0], cfg.num_kv_heads, self.max_len, cfg.head_dim)
-        caches = []
-        for k, v in rows:
-            kc = torch.zeros(shape, dtype=k.dtype, device=k.device)
-            vc = torch.zeros(shape, dtype=v.dtype, device=v.device)
+        if caches is None:
+            caches = self.init_cache(ids.shape[0])
+        for (kc, vc), (k, v) in zip(caches, rows):
+            kc.zero_()
+            vc.zero_()
             kc[:, :, :k.shape[2]] = k
             vc[:, :, :v.shape[2]] = v
-            caches.append((kc, vc))
         return caches, logits
 
     def _prefill_suffix_impl(self, w, prefix_kv, ids, t0, s0):
@@ -782,7 +805,10 @@ class LlamaDecoder:
         the weights' device).  The prompt is padded to the reference's
         power-of-two bucket (exact shapes when the bucketed padding does
         not fit), so the prefill sees the same shapes; only the
-        ``max_new_tokens`` steps that are returned are run."""
+        ``max_new_tokens`` steps that are returned are run.  On a CUDA
+        card the decode steps replay a captured graph
+        (``_generate_graphed``) unless the NaiveEngine is chosen
+        (``engine.set_engine_type``), which takes eager steps."""
         emb = self._net.model.embed_tokens.weight.data()._data
         ids = torch.as_tensor(ids).to(device=emb.device, dtype=torch.int32)
         b, t0 = ids.shape
@@ -791,24 +817,146 @@ class LlamaDecoder:
             raise MXNetError("max_new_tokens must be >= 1")
         if t0 + n > self.max_len:
             raise MXNetError("max_len exceeded; build a larger decoder")
+        graphed = emb.is_cuda and n > 1 and not engine.is_naive()
         gen = None
         if do_sample and seed is not None:
-            gen = torch.Generator(device=emb.device)
+            # a graph replays with the generator it registered: keep one
+            # a decoder and re-seed it
+            gen = self.__dict__.get("_seeded_gen") if graphed else None
+            if gen is None:
+                gen = torch.Generator(device=emb.device)
+                if graphed:
+                    self._seeded_gen = gen
             gen.manual_seed(int(seed))
         elif do_sample:
             gen = mx_random.generator(emb.device)
-
-        def pick(logits):
-            return self._pick(logits, gen, temperature, top_k, top_p,
-                              do_sample)
-
+        # temperature and top_p as device scalars on both routes: a graph
+        # reads them from its static copies, and a CUDA division by a host
+        # scalar would round otherwise (it multiplies by the reciprocal)
+        temp = torch.tensor(max(float(temperature), 1e-6),
+                            dtype=torch.float32, device=emb.device)
+        nucleus = float(top_p) < 1.0
+        top_p = torch.tensor(float(top_p), dtype=torch.float32,
+                             device=emb.device) if nucleus else 1.0
         lp = self._prompt_len(t0, n)
         ids_pad = torch.zeros((b, lp), dtype=torch.int32, device=emb.device)
         ids_pad[:, :t0] = ids
         with torch.no_grad():
-            toks = self._generate_impl(self._weights(), ids_pad, t0, n,
-                                       pick)
+            w = self._weights()
+            if graphed:
+                toks = self._generate_graphed(
+                    w, ids_pad, t0, n, (bool(do_sample), int(top_k), nucleus,
+                                        gen), temp, top_p, seed)
+            else:
+                toks = self._generate_impl(
+                    w, ids_pad, t0, n, lambda logits: self._pick(
+                        logits, gen, temp, top_k, top_p, do_sample))
         return torch.cat([ids, toks], dim=1)
+
+    def _decode_state(self, w, b):
+        """The static state of batch ``b``'s decode graphs for the weights
+        ``w``: the caches, the current token ``cur`` (B,), the position
+        ``pos`` (1,), ``out`` (B, max_len), where a step writes its token
+        at ``pos``, the sampling scalars, and ``graphs``, one a sampling
+        key.  When a weight has moved (``cast``, a forced
+        re-initialization) every graph is dropped; the states of the
+        ``_DECODE_BATCHES_KEPT`` batch sizes used last are kept."""
+        states = self.__dict__.setdefault("_decode_states", OrderedDict())
+        # a freed weight's address can come back with another dtype
+        ptrs = tuple((t.data_ptr(), t.dtype) for t in _leaves(w))
+        if self.__dict__.get("_decode_ptrs") != ptrs:
+            states.clear()
+            self._decode_ptrs = ptrs
+        st = states.pop(b, None)
+        if st is None:
+            dev = w["emb"].device
+            st = dict(caches=self.init_cache(b),
+                      cur=torch.zeros(b, dtype=torch.int32, device=dev),
+                      pos=torch.zeros(1, dtype=torch.int64, device=dev),
+                      out=torch.zeros((b, self.max_len), dtype=torch.int32,
+                                      device=dev),
+                      temp=torch.ones((), dtype=torch.float32, device=dev),
+                      top_p=torch.ones((), dtype=torch.float32, device=dev),
+                      graphs=OrderedDict())
+        states[b] = st
+        while len(states) > _DECODE_BATCHES_KEPT:
+            states.popitem(last=False)
+        return st
+
+    def _decode_graph(self, w, st, key):
+        """The captured decode step of the state ``st`` for the sampling
+        key ``(do_sample, top_k, top_p < 1, generator)``: one replay
+        decodes one token at ``pos`` and advances it."""
+        graph = st["graphs"].pop(key, None)
+        if graph is None:
+            do_sample, top_k, nucleus, gen = key
+            top_p = st["top_p"] if nucleus else 1.0
+            cur, pos, out = st["cur"], st["pos"], st["out"]
+
+            def step():
+                tok = self._pick(self._step_impl(w, st["caches"], cur, pos),
+                                 gen, st["temp"], top_k, top_p, do_sample)
+                out.index_copy_(1, pos, tok[:, None])
+                cur.copy_(tok)
+                pos.add_(1)
+
+            # a step first (torch's warm-up before a capture); what it
+            # writes at ``pos`` lies past the next prefill's rows and is
+            # overwritten before a step reads it
+            cuda_graph_mod.warmup(step)
+            if "_pool" not in self.__dict__:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = cuda_graph_mod.capture(
+                step, pool=self._pool,
+                generators=() if gen is None else (gen,))
+        st["graphs"][key] = graph
+        while len(st["graphs"]) > _DECODE_BATCHES_KEPT:
+            st["graphs"].popitem(last=False)
+        return graph
+
+    def _generate_graphed(self, w, ids, t0, n_steps, key, temp, top_p,
+                          seed):
+        """``_generate_impl`` with the decode steps replayed from the
+        batch's captured graph: the prefill (eager) writes the graph's
+        caches, the first token comes from its logits, and each of the
+        ``n_steps - 1`` replays decodes one token."""
+        st = self._decode_state(w, ids.shape[0])
+        graph = self._decode_graph(w, st, key)
+        do_sample, top_k, nucleus, gen = key
+        if gen is not None and seed is not None:
+            gen.manual_seed(int(seed))  # the capture's warm-up drew
+        st["temp"].copy_(temp)
+        if nucleus:
+            st["top_p"].copy_(top_p)
+        _, logits = self._prefill_impl(w, ids, t0, st["caches"])
+        first = self._pick(logits, gen, st["temp"], top_k,
+                           st["top_p"] if nucleus else 1.0, do_sample)
+        st["cur"].copy_(first)
+        st["pos"].fill_(t0)
+        for _ in range(n_steps - 1):
+            graph.replay()
+        return torch.cat([first[:, None],
+                          st["out"][:, t0:t0 + n_steps - 1]], dim=1)
+
+    def decode_graph_bytes(self):
+        """Device bytes the decode graphs hold: (their static states —
+        caches, tokens, positions — and the pool their captures grew)."""
+        states = self.__dict__.get("_decode_states", {})
+        static = sum(t.numel() * t.element_size() for st in states.values()
+                     for t in _leaves([st["caches"], st["cur"], st["pos"],
+                                       st["out"]]))
+        pool = sum(g.pool_bytes for st in states.values()
+                   for g in st["graphs"].values())
+        return static, pool
+
+
+def _leaves(tree):
+    """The tensors of a weight tree (dicts, lists and int8 leaves)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for item in tree for t in _leaves(item)]
 
 
 def llama3_8b(**overrides):

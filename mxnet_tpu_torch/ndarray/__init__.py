@@ -1,5 +1,6 @@
 """The ``mx.nd`` namespace: NDArray, creation and the ops the Llama
-and ResNet slices use (the ``F`` of ``HybridBlock.hybrid_forward``).
+and ResNet slices use (the ``F`` of ``HybridBlock.hybrid_forward``),
+``save``/``load`` of ``.params`` files and ``waitall``.
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  The rest of the op
 library (``ops/tensor.py``, ``ops/nn_ops.py``, ...) ports with later
@@ -154,3 +155,27 @@ Convolution = convolution
 Flatten = flatten
 FullyConnected = fully_connected
 Pooling = pooling
+
+
+def waitall():
+    """Block until all enqueued device work completes (reference
+    ``mx.nd.waitall``): every CUDA stream of every device is drained."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def load(fname):
+    """Load NDArrays (a dict or a list) from an MXNet ``.params`` file
+    (reference ``mx.nd.load``; the layout is in ``serialization.py``),
+    on the CPU."""
+    from .. import serialization
+
+    return serialization.load_ndarrays(fname)
+
+
+def save(fname, data):
+    """Save a list or dict of NDArrays in the MXNet binary container
+    (reference ``mx.nd.save``); files interchange with the reference."""
+    from .. import serialization
+
+    serialization.save_ndarrays(fname, data)

@@ -10,9 +10,13 @@ into ``lr_t`` and adds ε to the uncorrected ``√v``).
 
 Each ``_step`` updates the weight and its state tensors in place, under
 ``torch.no_grad()``, so a parameter keeps its ``torch.nn.Parameter`` and
-no second copy of the weights or states is made.  State is f32 for
-f16/bf16 weights (SGD momentum, Adam moments); ``multi_precision=True``
-adds an f32 master weight.  The other optimizers (LAMB, RMSProp, ...)
+no second copy of the weights or states is made.  ``_step`` is also the
+plain version of the fused multi-tensor kernel
+(``ops/multi_tensor.py``), which ``gluon.Trainer`` and
+``gluon.FusedTrainStep`` run through ``_fused_param_updates``: one launch
+a step, by the rule code each optimizer names (``_fused_rule``).  State
+is f32 for f16/bf16 weights (SGD momentum, Adam moments);
+``multi_precision=True`` adds an f32 master weight.  The other optimizers (LAMB, RMSProp, ...)
 port later (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..ops import multi_tensor
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create",
            "register"]
@@ -143,6 +148,22 @@ class Optimizer:
         return self.create_state(index, weight)
 
     # -- update --------------------------------------------------------------
+    def _fused_rule(self):
+        """(rule, momentum, beta1, beta2, epsilon) of the fused kernel
+        (``ops/multi_tensor.RULES``), or None for an optimizer it has no
+        rule for."""
+        return None
+
+    def _kernel_rule(self):
+        """``_fused_rule()``, or None when this optimizer's class
+        overrides the ``_step`` of the class that names the rule: the
+        kernel would run that class's rule, not the override."""
+        owner = next(c for c in type(self).__mro__
+                     if "_fused_rule" in vars(c))
+        if type(self)._step is not owner._step:
+            return None
+        return self._fused_rule()
+
     def _step(self, w, g, states, lr, wd, t):
         """The update rule on raw tensors: updates ``w`` and the
         ``states`` tensors in place.  Subclasses implement it."""
@@ -195,6 +216,53 @@ def _flatten_state(state):
     return tuple(t for s in state for t in _flatten_state(s))
 
 
+def _update_items(mp_flags, w_raws, m_raws, g_raws, s_raws, lr_v, wd_v,
+                  t_v):
+    """The multi-tensor kernel's operands, one ``UpdateItem`` a tensor;
+    ``m_raws`` holds only the multi-precision masters, in order among the
+    ``mp_flags`` tensors."""
+    items, mi = [], 0
+    for j, use_mp in enumerate(mp_flags):
+        master = None
+        if use_mp:
+            master, mi = m_raws[mi], mi + 1
+        items.append(multi_tensor.UpdateItem(
+            w_raws[j], g_raws[j], tuple(s_raws[j]), master, lr_v[j],
+            wd_v[j], t_v[j]))
+    return items
+
+
+def _fused_param_updates(optzr, mp_flags, w_raws, m_raws, g_raws, s_raws,
+                         lr_v, wd_v, t_v):
+    """One optimizer step over all live tensors, in one launch of the
+    multi-tensor kernel (its plain version, ``_step`` tensor by tensor,
+    on the CPU) — the Trainer's fused update.  The update is in place, in
+    the parameters', masters' and states' own tensors, so the reference's
+    ``_commit_param_updates`` (which writes the new arrays back) has
+    nothing to do here and is not ported."""
+    multi_tensor.multi_tensor_update(optzr, _update_items(
+        mp_flags, w_raws, m_raws, g_raws, s_raws, lr_v, wd_v, t_v))
+
+
+def _state_holders(state):
+    """The NDArrays of a state (None, an NDArray or nested tuples)."""
+    if state is None:
+        return ()
+    if isinstance(state, NDArray):
+        return (state,)
+    return tuple(h for s in state for h in _state_holders(s))
+
+
+def _states_to_numpy(state):
+    """A state as numpy arrays in the same nesting (the reference's
+    ``save_states`` payload; bf16 comes back as f32)."""
+    if state is None:
+        return None
+    if isinstance(state, NDArray):
+        return state.asnumpy()
+    return tuple(_states_to_numpy(s) for s in state)
+
+
 register = Optimizer.register
 create = Optimizer.create_optimizer
 
@@ -217,6 +285,10 @@ class SGD(Optimizer):
             return None
         return _state_zeros(weight, torch.float32
                             if weight.dtype in _LOW else None)
+
+    def _fused_rule(self):
+        return ("sgd_mom" if self.momentum else "sgd", self.momentum, 0.0,
+                0.0, 0.0)
 
     def _step(self, w, g, states, lr, wd, t):
         g = self._prep_grad(g.to(w.dtype), w, wd)
@@ -242,6 +314,10 @@ class NAG(Optimizer):
         if self.momentum == 0.0:
             return None
         return _state_zeros(weight)
+
+    def _fused_rule(self):
+        return ("nag_mom" if self.momentum else "sgd", self.momentum, 0.0,
+                0.0, 0.0)
 
     def _step(self, w, g, states, lr, wd, t):
         g = self._prep_grad(g.to(w.dtype), w, wd)
@@ -272,6 +348,9 @@ class Adam(Optimizer):
         dt = torch.float32 if weight.dtype in _LOW else None
         return (_state_zeros(weight, dt), _state_zeros(weight, dt))
 
+    def _fused_rule(self):
+        return ("adam", 0.0, self.beta1, self.beta2, self.epsilon)
+
     def _moments(self, m, v, g, lr, t):
         """Update the moments in place → the step ``lr_t·m/(√v + ε)``."""
         m.mul_(self.beta1).add_((1 - self.beta1) * g)
@@ -290,6 +369,9 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Adam with decoupled weight decay (reference contrib
     ``adamw_update``): ``w −= lr_t·m/(√v + ε) + lr·wd·w``."""
+
+    def _fused_rule(self):
+        return ("adamw", 0.0, self.beta1, self.beta2, self.epsilon)
 
     def _step(self, w, g, states, lr, wd, t):
         m, v = states

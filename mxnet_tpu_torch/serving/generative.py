@@ -38,6 +38,17 @@ leaves and dequantize each to f32 just before its product, so only one
 f32 matrix exists at a time (the reference's jit fuses the same
 dequantization into each matmul).
 
+On a CUDA card the decode step is one CUDA graph (``cuda_graph.py``),
+captured when the engine is built (before any lane thread runs, under
+``dev_lock``) unless the NaiveEngine is chosen (``engine.
+set_engine_type``), which runs the step eagerly: each tick copies the slots' last tokens, positions and
+block tables into the graph's static input in one host-to-device copy
+(from pinned memory, so the host does not wait) and replays it.  Its key, ``("step", kv_mode, num_slots, table width,
+dtype)`` (the table width is ``max_blocks`` paged, ``max_len`` in the
+slots mode), is what ``compiled_signatures`` reports for the step; the
+prefill, scatter, gather and verify programs stay eager (ROADMAP "Left
+out of slice 7").
+
 Not ported (ROADMAP, "Left out of slice 6"): ``mesh=`` and
 ``partition_rules=`` (tensor-parallel placement), and the telemetry,
 numerics taps and retrace hooks.  ``compiled_signatures`` keeps the
@@ -52,6 +63,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import cuda_graph, engine
 from ..base import MXNetError
 from ..models.llama import LlamaDecoder, _dequantize
 from .bucketing import BucketPolicy, pad_batch
@@ -162,6 +174,46 @@ class LlamaServingEngine:
         self._pos = np.zeros(self.num_slots, np.int32)
         self.steps = 0
         self._signatures = set()
+        width = self.max_blocks if kv_mode == "paged" else self.max_len
+        self._step_key = ("step", kv_mode, self.num_slots, width,
+                          str(dt).removeprefix("torch."))
+        self._step_graph = None
+        if self.device.type == "cuda" and not self.spec_k and \
+                not engine.is_naive():
+            with self.dev_lock:
+                self._capture_step()
+
+    def _step_program(self, state):
+        """The decode step over all slots from one int64 (S, 2 [+ width])
+        array: column 0 the last tokens, 1 the positions, then (paged) the
+        block tables → the next tokens (S,)."""
+        last, pos = state[:, 0], state[:, 1]
+        if self.kv_mode == "paged":
+            logits = self._dec._step_blocks_impl(
+                self._w, self._pool, state[:, 2:], last, pos)
+        else:
+            logits = self._dec._step_slots_impl(self._w, self._caches,
+                                                last, pos)
+        return logits.argmax(dim=-1)
+
+    def _host_state(self):
+        cols = [self._last[:, None], self._pos[:, None]]
+        if self.kv_mode == "paged":
+            cols.append(self._tables)
+        return np.concatenate(cols, axis=1).astype(np.int64)
+
+    def _capture_step(self):
+        """Capture the decode step on a static copy of the (vacant) slot
+        state: every slot at position 0 with token 0 (their writes land
+        in their own slot rows or the trash block, as vacant slots'
+        do)."""
+        host = self._host_state()
+        self._state = torch.from_numpy(host).to(self.device)
+        # each tick's state goes through pinned memory without a host wait
+        self._pinned = torch.from_numpy(host).pin_memory()
+        cuda_graph.warmup(lambda: self._step_program(self._state))
+        self._step_graph = cuda_graph.capture(
+            lambda: self._step_program(self._state), mode="thread_local")
 
     def _dev(self, a):
         """Host integer array → int64 tensor on the engine's device."""
@@ -172,8 +224,8 @@ class LlamaServingEngine:
 
     def compiled_signatures(self):
         """Every (program, *bucket) shape this engine has run — the
-        reference's compile keys; per-shape CUDA graphs will key on
-        them."""
+        reference's compile keys; the decode step's is its CUDA graph's
+        key."""
         return sorted(self._signatures)
 
     def kv_pool_bytes(self):
@@ -327,17 +379,17 @@ class LlamaServingEngine:
         is never read, and their K/V write lands in their own slot row
         (slots mode) or the trash block (paged).  The device lock covers
         dispatch and mirror updates, NOT the host materialization wait."""
-        self._note(("step",))
+        self._note(self._step_key)
         with self.dev_lock:
-            w = self._w
-            last, pos = self._dev(self._last), self._dev(self._pos)
-            if self.kv_mode == "paged":
-                logits = self._dec._step_blocks_impl(
-                    w, self._pool, self._dev(self._tables), last, pos)
+            if self._step_graph is None:
+                toks = self._step_program(torch.from_numpy(
+                    self._host_state()).to(self.device))
             else:
-                logits = self._dec._step_slots_impl(w, self._caches, last,
-                                                    pos)
-            toks = logits.argmax(dim=-1)
+                # the previous tick's copy has run: its tokens were read
+                self._pinned.numpy()[:] = self._host_state()
+                self._state.copy_(self._pinned, non_blocking=True)
+                self._step_graph.replay()
+                toks = self._step_graph.outputs.clone()
             self.steps += 1
         out = _materialize([toks])[0]
         with self.dev_lock:

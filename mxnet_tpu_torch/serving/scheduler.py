@@ -20,6 +20,7 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from .protocol import ServerClosedError, ServerOverloadedError
@@ -30,7 +31,13 @@ __all__ = ["RequestQueue", "BatchScheduler"]
 def _materialize(arrays):
     """THE designated result-materialization point: batch outputs →
     host numpy, one sync per batch after full dispatch.  Keep every
-    device→host wait in the serving path inside this function."""
+    device→host wait in the serving path inside this function.  On a
+    card it first waits on an event, which releases the GIL (a blocking
+    copy would hold it, and the other lane's Python would stall)."""
+    if any(getattr(a, "is_cuda", False) for a in arrays):
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
     out = []
     for a in arrays:
         if hasattr(a, "asnumpy"):

@@ -48,3 +48,36 @@ def test_flash_attention_sources_depend_on_the_shared_header():
                  "fused_matmul_affine_relu"):
         deps = _kernels._dependencies(_kernels._PKG / _kernels.SOURCES[name])
         assert deps == [_kernels._PKG / _kernels.SOURCES[name], header]
+
+
+def test_every_source_builds_with_its_flags_and_declares_its_symbols(
+        tmp_path, monkeypatch):
+    """``build`` starts one nvcc a stale source, all together, and the
+    update kernel's alone carries ``--fmad=false`` (it must round where
+    the plain rule's separate ops round); every library declares its C
+    entry points."""
+    import subprocess
+
+    cmds = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            cmds.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+
+        def communicate(self):
+            return ("", None)
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeProc)
+    logs = _kernels.build()
+    assert sorted(logs) == sorted(_kernels.SOURCES) == \
+        sorted(_kernels.SYMBOLS)
+    for cmd in cmds:
+        name = os.path.basename(cmd[-1])[:-3]
+        assert ("--fmad=false" in cmd) == (name == "multi_tensor_update")
+        assert (tmp_path / f"lib{name}.so").exists()
+    assert _kernels.build() == {}  # nothing stale now

@@ -459,3 +459,554 @@ def test_paged_engine_step_on_card_matches_cpu(cuda_nvcc, int8):
         np.testing.assert_array_equal(a, b)
     assert (p_gpu - p_cpu).abs().max().item() <= 1e-4 * \
         p_cpu.abs().max().item()
+
+
+# -- slice 7: the fused multi-tensor update and the CUDA graphs ---------------
+
+_MT_SIZES = [1, 7, 4097, 16389, 3 * 16384]
+_MT_RULES = [("sgd", {}), ("sgd", {"momentum": 0.9}),
+             ("nag", {"momentum": 0.9}), ("adam", {}), ("adamw", {})]
+
+
+def _ulps(got, ref, dtype):
+    """|got - ref| in units of ``dtype``'s spacing at ``ref`` (the
+    smallest subnormal step below the normal range), as float64."""
+    got, ref = got.double(), ref.double()
+    eps = torch.finfo(dtype).eps
+    _, e = torch.frexp(ref)
+    ulp = torch.ldexp(torch.full_like(ref, eps), e - 1).clamp_min(
+        torch.finfo(dtype).smallest_normal * eps)
+    return ((got - ref).abs() / ulp).max().item()
+
+
+def _mt_items(device, wdtype, mp, rule_states, seed):
+    """Weights, gradients, states and masters at the ragged sizes."""
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    rng = np.random.RandomState(seed)
+    items = []
+    for n in _MT_SIZES:
+        w32 = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+        g = torch.from_numpy((2 * rng.normal(size=n)).astype(np.float32))
+        w = w32.to(device, wdtype)
+        master = w.float().clone() if mp else None
+        # NAG keeps its momentum in the weight's dtype, the others in f32
+        sdt = wdtype if rule_states == "nag" and not mp else torch.float32
+        n_states = {"sgd": 0, "mom": 1, "nag": 1, "adam": 2}[rule_states]
+        states = tuple(
+            torch.from_numpy(np.abs(rng.normal(size=n)).astype(np.float32)
+                             * 0.1).to(device, sdt) for _ in range(n_states))
+        items.append(mt.UpdateItem(w, g.to(device, wdtype), states, master,
+                                   0.0, 0.0, 0))
+    return items
+
+
+# Each rule of the kernel against its plain version (the optimizer's
+# per-tensor ``_step``, run by torch on the card) over three steps with an
+# lr schedule, rescale, clipping and weight decay on: weights within 1 ulp
+# of their dtype, f32 states and masters within 2 f32 ulps (the kernel
+# rounds where the plain rule's ops round; Adam's lr_t is computed in
+# double on both sides).
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype,mp", [(torch.float32, False),
+                                       (torch.bfloat16, False),
+                                       (torch.bfloat16, True),
+                                       (torch.float16, False)])
+@pytest.mark.parametrize("name,kw", _MT_RULES)
+def test_multi_tensor_kernel_matches_plain_on_card(cuda_nvcc, name, kw,
+                                                   wdtype, mp):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    opt = topt.create(name, multi_precision=mp, rescale_grad=0.5,
+                      clip_gradient=1.5, **kw)
+    kind = {"sgd": "mom" if kw else "sgd", "nag": "nag"}.get(name, "adam")
+    ker = _mt_items(cuda_nvcc, wdtype, mp, kind, seed=5)
+    ref = [mt.UpdateItem(it.w.clone(), it.g, tuple(s.clone()
+                                                   for s in it.states),
+                         None if it.master is None else it.master.clone(),
+                         0.0, 0.0, 0) for it in ker]
+    before = mt.multi_tensor_update.launches
+    for step, lr in enumerate((0.1, 0.05, 0.025)):
+        sched = [it._replace(lr=lr * (1 + j % 2), wd=0.01 * (j % 3),
+                             t=step + 1) for j, it in enumerate(ker)]
+        mt.multi_tensor_update(opt, sched)
+        mt._update_plain(opt, [r._replace(lr=s.lr, wd=s.wd, t=s.t)
+                               for r, s in zip(ref, sched)])
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_update.launches == before + 3
+    for k, r in zip(ker, ref):
+        assert _ulps(k.w, r.w, wdtype) <= 1, (k.w.numel(), "weight")
+        for a, b in zip(k.states, r.states):
+            assert _ulps(a, b, a.dtype) <= (2 if a.dtype == torch.float32
+                                            else 1), (a.numel(), "state")
+        if mp:
+            assert _ulps(k.master, r.master, torch.float32) <= 2
+
+
+@pytest.mark.cuda
+def test_multi_tensor_kernel_rejects_what_it_does_not_take(cuda_nvcc):
+    from mxnet_tpu_torch import optimizer as topt
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    opt = topt.create("sgd", momentum=0.9)
+    w = torch.zeros(8, device=cuda_nvcc)
+    mom = torch.zeros(8, device=cuda_nvcc)
+    bad = [
+        mt.UpdateItem(w.double(), w.double(), (mom,), None, 0.1, 0.0, 1),
+        mt.UpdateItem(w, w.half(), (mom,), None, 0.1, 0.0, 1),
+        mt.UpdateItem(w, w, (), None, 0.1, 0.0, 1),  # no momentum state
+        mt.UpdateItem(torch.zeros(4, 4, device=cuda_nvcc).t(),
+                      torch.zeros(4, 4, device=cuda_nvcc).t(),
+                      (torch.zeros(4, 4, device=cuda_nvcc),), None, 0.1,
+                      0.0, 1),
+        mt.UpdateItem(w, w.cpu(), (mom,), None, 0.1, 0.0, 1)]
+    for item in bad:
+        with pytest.raises(MXNetError):
+            mt.multi_tensor_update(opt, [item])
+
+
+def _mlp(mx, ctx, seed, bn=True):
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(16, in_units=8, activation="relu"))
+    if bn:
+        net.add(mx.gluon.nn.BatchNorm(in_channels=16))
+    net.add(mx.gluon.nn.Dense(4, in_units=16))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _copy_params(src, dst):
+    for (_, a), (_, b) in zip(src.collect_params().items(),
+                              dst.collect_params().items()):
+        b.set_data(a.data())
+
+
+@pytest.mark.cuda
+def test_trainer_step_is_one_fused_launch_on_card(cuda_nvcc):
+    """``Trainer.step`` on card parameters updates every tensor in one
+    launch, and equals the NaiveEngine's tensor-by-tensor route."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    ctx = mx.gpu(0)
+    nets = [_mlp(mx, ctx, 3), _mlp(mx, ctx, 4)]
+    _copy_params(nets[0], nets[1])
+    x = mx.nd.array(np.random.RandomState(0).normal(size=(8, 8)).astype(
+        np.float32), ctx=ctx)
+    y = mx.nd.array((np.arange(8) % 4).astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for net, engine in zip(nets, ("ThreadedEnginePerDevice",
+                                  "NaiveEngine")):
+        mx.engine.set_engine_type(engine)
+        try:
+            tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": 0.01, "wd": 1e-3})
+            before = mt.multi_tensor_update.launches
+            for _ in range(3):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                tr.step(8)
+            launched = mt.multi_tensor_update.launches - before
+        finally:
+            mx.engine.set_engine_type("ThreadedEnginePerDevice")
+        assert launched == (3 if engine != "NaiveEngine" else 0)
+    for (_, a), (_, b) in zip(nets[0].collect_params().items(),
+                              nets[1].collect_params().items()):
+        assert _ulps(a.data()._data, b.data()._data, torch.float32) <= 2
+
+
+def _narrow_resnet(mx, ctx, seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+
+    mx.random.seed(seed)
+    net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                          [8, 32, 64, 128, 256], classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.zeros((1, 3, 32, 32), ctx=ctx))
+    return net
+
+
+@pytest.mark.cuda
+def test_hybridized_block_replays_its_graph_on_card(cuda_nvcc):
+    """A hybridized narrow ResNetV1: the first call of a signature
+    captures, the later ones replay; each replay counts its 4 fused
+    launches; the outputs are the eager forward's bit for bit (the same
+    kernels); a new batch size is a new signature."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = _narrow_resnet(mx, ctx)
+    rng = np.random.RandomState(1)
+    xs = [mx.nd.array(rng.normal(size=(2, 3, 32, 32)).astype(np.float32),
+                      ctx=ctx) for _ in range(3)]
+    eager = [net(x).asnumpy() for x in xs]
+    net.hybridize(static_alloc=True, static_shape=True)
+    fn = cbr.fused_matmul_affine_relu
+    for x, ref in zip(xs, eager):
+        before = fn.launches
+        got = net(x).asnumpy()
+        assert fn.launches == before + 4
+        np.testing.assert_array_equal(got, ref)
+    assert net.cache_stats() == {"hits": 2, "misses": 1, "signatures": 1,
+                                 "recorded": 0}
+    net(mx.nd.array(rng.normal(size=(4, 3, 32, 32)).astype(np.float32),
+                    ctx=ctx))
+    assert net.cache_stats()["signatures"] == 2
+
+
+@pytest.mark.cuda
+def test_hybridized_block_captures_again_after_cast_and_load(cuda_nvcc,
+                                                             tmp_path):
+    """``cast`` moves the parameters: the next call captures again and
+    equals a fresh eager net in bf16; ``load_parameters`` copies in place:
+    the graph reads the loaded weights."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = _narrow_resnet(mx, ctx, seed=0)
+    other = _narrow_resnet(mx, ctx, seed=5)
+    x = mx.nd.array(np.random.RandomState(2).normal(
+        size=(2, 3, 32, 32)).astype(np.float32), ctx=ctx)
+    net.hybridize()
+    net(x)
+    net(x)
+    net.cast("bfloat16")
+    xb = x.astype("bfloat16")
+    fresh = _narrow_resnet(mx, ctx, seed=0)
+    fresh.cast("bfloat16")
+    np.testing.assert_array_equal(net(xb).asnumpy(), fresh(xb).asnumpy())
+    np.testing.assert_array_equal(net(xb).asnumpy(), fresh(xb).asnumpy())
+    assert net.cache_stats()["misses"] == 2
+    other.cast("bfloat16")
+    other.save_parameters(str(tmp_path / "other.params"))
+    net.load_parameters(str(tmp_path / "other.params"))
+    np.testing.assert_array_equal(net(xb).asnumpy(), other(xb).asnumpy())
+
+
+def _tiny_llama(mx, ctx, seed=0, dtype=None):
+    from mxnet_tpu_torch.models import llama_tiny
+
+    mx.random.seed(seed)
+    net = llama_tiny()
+    net.initialize(ctx=ctx)
+    if dtype:
+        net.cast(dtype)
+    return net
+
+
+def _eager_decode(mx, dec, ids, n, **kw):
+    """``dec.generate`` with eager decode steps (the NaiveEngine)."""
+    prev = mx.engine.engine_type()
+    mx.engine.set_engine_type("NaiveEngine")
+    try:
+        return dec.generate(ids, n, **kw)
+    finally:
+        mx.engine.set_engine_type(prev)
+
+
+@pytest.mark.cuda
+def test_generate_replays_decode_graphs_on_card(cuda_nvcc, tmp_path):
+    """``generate`` on the card replays a captured decode step: greedy
+    tokens equal the eager decoder's at B=1 and B=3; after ``cast`` the
+    graph is captured again and equals a fresh net's; after
+    ``load_parameters`` it equals the loaded net's; seeded sampling gives
+    the same tokens twice."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = _tiny_llama(mx, ctx)
+    rng = np.random.RandomState(4)
+    for b in (1, 3):
+        ids = mx.nd.array(rng.randint(1, 250, (b, 12)), ctx=ctx,
+                          dtype="int32")
+        got = net.generate(ids, max_new_tokens=10).asnumpy()
+        dec = net._kv_decoders[64]
+        ref = _eager_decode(mx, dec, ids._data, 10).cpu().numpy()
+        np.testing.assert_array_equal(got, ref)
+    ids = mx.nd.array(rng.randint(1, 250, (2, 12)), ctx=ctx, dtype="int32")
+    net.generate(ids, max_new_tokens=10)
+    net.cast("bfloat16")
+    fresh = _tiny_llama(mx, ctx, dtype="bfloat16")
+    np.testing.assert_array_equal(
+        net.generate(ids, max_new_tokens=10).asnumpy(),
+        fresh.generate(ids, max_new_tokens=10).asnumpy())
+    other = _tiny_llama(mx, ctx, seed=9, dtype="bfloat16")
+    other.save_parameters(str(tmp_path / "other.params"))
+    net.load_parameters(str(tmp_path / "other.params"))
+    np.testing.assert_array_equal(
+        net.generate(ids, max_new_tokens=10).asnumpy(),
+        other.generate(ids, max_new_tokens=10).asnumpy())
+    s1 = net.generate(ids, max_new_tokens=10, do_sample=True, seed=3,
+                      top_k=20).asnumpy()
+    s2 = net.generate(ids, max_new_tokens=10, do_sample=True, seed=3,
+                      top_k=20).asnumpy()
+    np.testing.assert_array_equal(s1, s2)
+    assert ((s1 >= 0) & (s1 < 256)).all()
+
+
+@pytest.mark.cuda
+def test_generate_keeps_one_decode_state_per_batch_on_card(cuda_nvcc):
+    """Sampled ``generate`` at several temperatures and top_p values:
+    tokens equal the eager decoder's with the same seed, and the batch
+    keeps one state (one set of caches) with one graph for the nucleus
+    and one without, whatever the values; the decoder keeps the states
+    of 4 batch sizes at most."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = _tiny_llama(mx, ctx)
+    rng = np.random.RandomState(16)
+    ids = mx.nd.array(rng.randint(1, 250, (2, 12)), ctx=ctx, dtype="int32")
+    for temperature, top_p in ((0.7, 0.9), (1.3, 0.95), (1.0, 1.0),
+                               (2.0, 1.0)):
+        kw = dict(do_sample=True, seed=5, temperature=temperature,
+                  top_p=top_p)
+        got = net.generate(ids, max_new_tokens=10, **kw).asnumpy()
+        dec = net._kv_decoders[64]
+        ref = _eager_decode(mx, dec, ids._data, 10, **kw).cpu().numpy()
+        np.testing.assert_array_equal(got, ref)
+    states = dec._decode_states
+    assert list(states) == [2] and len(states[2]["graphs"]) == 2
+    static, pool = dec.decode_graph_bytes()
+    caches = sum(t.numel() * t.element_size()
+                 for kv in states[2]["caches"] for t in kv)
+    assert static > caches > 0 and pool > 0
+    for b in (1, 3, 4, 5):
+        net.generate(mx.nd.array(rng.randint(1, 250, (b, 12)), ctx=ctx,
+                                 dtype="int32"), max_new_tokens=10)
+    assert list(states) == [1, 3, 4, 5]
+
+
+def _fused_vs_eager(mx, make, batch, k, opt, kw, batch_size):
+    """K eager ``Trainer.step``s on one net and a ``FusedTrainStep`` of K
+    on a copy → (eager losses, fused losses, eager net, fused net, the
+    fused step)."""
+    nets = [make(), make()]
+    _copy_params(nets[0], nets[1])
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = batch
+    tr = mx.gluon.Trainer(nets[0].collect_params(), opt, dict(kw))
+    eager = []
+    for _ in range(k):
+        with mx.autograd.record():
+            loss = loss_fn(nets[0](x), y)
+        loss.backward()
+        tr.step(batch_size)
+        eager.append(float(loss.sum().asscalar()))
+    tr2 = mx.gluon.Trainer(nets[1].collect_params(), opt, dict(kw))
+    fstep = mx.gluon.FusedTrainStep(
+        nets[1], tr2, lambda n, a, b: loss_fn(n(a), b),
+        steps_per_execution=k, batch_size=batch_size)
+    fused = fstep(x, y).asnumpy()
+    return np.array(eager), fused, nets[0], nets[1], fstep
+
+
+@pytest.mark.cuda
+def test_fused_train_step_graph_matches_eager_on_card(cuda_nvcc):
+    """``FusedTrainStep`` on the card (step 0 eager, then K - 1 graph
+    replays; a second call K replays of the same graph) equals K eager
+    ``Trainer.step``s: losses and weights, BatchNorm's moving statistics
+    included, within 1e-5 (f32, the same kernels; cuDNN may sum in
+    another order between the two)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(6)
+    batch = (mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32),
+                         ctx=ctx),
+             mx.nd.array(rng.randint(0, 4, 8).astype(np.float32), ctx=ctx))
+    before = mt.multi_tensor_update.launches
+    eager, fused, net_e, net_f, fstep = _fused_vs_eager(
+        mx, lambda: _mlp(mx, ctx, 7), batch, 4, "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9}, 8)
+    np.testing.assert_allclose(fused, eager, rtol=1e-5, atol=1e-6)
+    for (n, a), (_, b) in zip(net_e.collect_params().items(),
+                              net_f.collect_params().items()):
+        np.testing.assert_allclose(b.data().asnumpy(), a.data().asnumpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+    assert mt.multi_tensor_update.launches - before == 8  # 4 + 4
+    entry, = fstep._graphs.values()
+    fstep(*batch)
+    assert entry["graph"].replays == 3 + 4 and len(fstep._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_fused_train_step_honours_an_lr_schedule_without_capture(cuda_nvcc):
+    """The lr of a schedule changes between calls: the graph is not
+    captured again (lr, wd and t live in the update's device table), and
+    the weights equal the CPU's unrolled route from the same weights."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(8)
+    xs = rng.normal(size=(8, 8)).astype(np.float32)
+    ys = rng.randint(0, 4, 8).astype(np.float32)
+    cpu_net = _mlp(mx, mx.cpu(), 9, bn=False)
+    results = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = _mlp(mx, ctx, 9, bn=False)
+        _copy_params(cpu_net, net)  # each device draws its own init
+        sched = mx.lr_scheduler.FactorScheduler(step=2, factor=0.5,
+                                                base_lr=0.2)
+        tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                              {"learning_rate": 0.2, "lr_scheduler": sched})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        fstep = mx.gluon.FusedTrainStep(
+            net, tr, lambda n, a, b: loss_fn(n(a), b),
+            steps_per_execution=2, batch_size=8)
+        x, y = mx.nd.array(xs, ctx=ctx), mx.nd.array(ys, ctx=ctx)
+        losses = [fstep(x, y).asnumpy() for _ in range(3)]
+        results.append((losses, [p.data().asnumpy() for p in
+                                 net.collect_params().values()]))
+        if ctx.device.type == "cuda":
+            assert len(fstep._graphs) == 1
+    (lg, wg), (lc, wc) = results
+    np.testing.assert_allclose(np.concatenate(lg), np.concatenate(lc),
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(wg, wc):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_counts_flash_launches_through_replays(cuda_nvcc):
+    """``llama_tiny`` (2 layers) in a ``FusedTrainStep`` of K = 3: the
+    flash forward, dQ and dK/dV kernels run inside the graph, and their
+    counters say 2 launches a step each (the warm-up step and two
+    replays); the losses equal eager steps'."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    vocab = 256
+    ids = np.random.RandomState(10).randint(0, vocab, (2, 33))
+    x = mx.nd.array(ids[:, :-1], ctx=ctx, dtype="int32")
+    y = mx.nd.array(ids[:, 1:].astype(np.float32), ctx=ctx)
+
+    def make():
+        return _tiny_llama(mx, ctx, seed=11)
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(n, a, b):
+        return loss_fn(n(a).reshape((-1, vocab)), b.reshape((-1,)))
+
+    nets = [make(), make()]
+    tr = mx.gluon.Trainer(nets[0].collect_params(), "sgd",
+                          {"learning_rate": 0.05, "momentum": 0.9})
+    eager = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = lm_loss(nets[0], x, y)
+        loss.backward()
+        tr.step(64)
+        eager.append(float(loss.sum().asscalar()))
+    tr2 = mx.gluon.Trainer(nets[1].collect_params(), "sgd",
+                           {"learning_rate": 0.05, "momentum": 0.9})
+    fstep = mx.gluon.FusedTrainStep(nets[1], tr2, lm_loss,
+                                    steps_per_execution=3, batch_size=64)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    fused = fstep(x, y).asnumpy()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [6] * 3
+    np.testing.assert_allclose(fused, eager, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_draws_fresh_random_numbers_per_replay(cuda_nvcc):
+    """A loss that draws from the package's generator (as a dropout mask
+    would) inside a ``FusedTrainStep``: at lr 0 only the draws change the
+    loss, and every replay of the graph draws anew."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    ctx = mx.gpu(0)
+    net = _mlp(mx, ctx, 12, bn=False)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.0})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = mx.random.generator(ctx.device)
+
+    def noisy_loss(n, a, b):
+        noise = torch.rand(a.shape[0], generator=gen, device=ctx.device)
+        return loss_fn(n(a), b) + NDArray(noise)
+
+    rng = np.random.RandomState(13)
+    x = mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 4, 8).astype(np.float32), ctx=ctx)
+    fstep = mx.gluon.FusedTrainStep(net, tr, noisy_loss,
+                                    steps_per_execution=6, batch_size=8)
+    losses = np.concatenate([fstep(x, y).asnumpy() for _ in range(2)])
+    assert len(np.unique(losses)) == len(losses), losses
+
+
+def _noisy_step(mx, ctx, lr):
+    """A ``FusedTrainStep`` (K = 3) whose loss draws from the package's
+    generator of the card (as a dropout mask would), with its batch."""
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    net = _mlp(mx, ctx, 14, bn=False)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": lr, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def noisy_loss(n, a, b):
+        noise = torch.rand(a.shape[0], device=ctx.device,
+                           generator=mx.random.generator(ctx.device))
+        return loss_fn(n(a), b) + NDArray(noise)
+
+    rng = np.random.RandomState(15)
+    x = mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 4, 8).astype(np.float32), ctx=ctx)
+    fstep = mx.gluon.FusedTrainStep(net, tr, noisy_loss,
+                                    steps_per_execution=3, batch_size=8)
+    return net, tr, fstep, (x, y)
+
+
+@pytest.mark.cuda
+def test_seed_reaches_the_draws_of_a_captured_step(cuda_nvcc):
+    """``mx.random.seed`` after a ``FusedTrainStep`` captured its graph
+    reaches the draws inside the replays: at lr 0 only the draws change
+    the loss, and a call after the same seed repeats them."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net, tr, fstep, batch = _noisy_step(mx, ctx, 0.0)
+    gen = mx.random.generator(ctx.device)
+    fstep(*batch)  # the capture
+    mx.random.seed(3)
+    first = fstep(*batch).asnumpy()
+    second = fstep(*batch).asnumpy()
+    mx.random.seed(3)
+    again = fstep(*batch).asnumpy()
+    assert mx.random.generator(ctx.device) is gen
+    np.testing.assert_array_equal(again, first)
+    assert not np.array_equal(second, first)
+    assert len(fstep._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_resume_into_a_captured_step_continues_the_run(cuda_nvcc,
+                                                       tmp_path):
+    """A checkpoint resumed into the net, trainer and ``FusedTrainStep``
+    that wrote it (its graph already captured) gives the uninterrupted
+    run's next losses and weights, draws included, bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import checkpoint
+
+    ctx = mx.gpu(0)
+    mx.random.seed(4)
+    net, tr, fstep, batch = _noisy_step(mx, ctx, 0.05)
+    fstep(*batch)
+    checkpoint.save_checkpoint(str(tmp_path), 3, net, tr)
+    straight = fstep(*batch).asnumpy()
+    weights = [p.data().asnumpy() for p in net.collect_params().values()]
+    assert checkpoint.resume(str(tmp_path), net, tr)[0] == 3
+    resumed = fstep(*batch).asnumpy()
+    np.testing.assert_array_equal(resumed, straight)
+    for a, p in zip(weights, net.collect_params().values()):
+        np.testing.assert_array_equal(p.data().asnumpy(), a)
+    assert len(fstep._graphs) == 1

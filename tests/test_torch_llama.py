@@ -240,9 +240,11 @@ def test_unported_features_raise_naming_the_roadmap(pair):
     for fn in (tllama.shard_llama, tllama.llama_param_pspecs,
                tllama.llama_pipeline_forward,
                tllama.llama_pipeline_train_step, tllama.packed_lm_loss,
-               tllama.mixtral_8x7b, tllama.mixtral_tiny, tnet.set_remat):
+               tllama.mixtral_8x7b, tllama.mixtral_tiny):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 1"):
             fn(tnet)
+    with pytest.raises(tmx.MXNetError, match="Left out of slice 7"):
+        tnet.set_remat(tnet)  # rematerialization waits for item 9
 
 
 def test_gradient_through_flash_matches_sdpa(pair, monkeypatch):

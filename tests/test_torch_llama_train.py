@@ -203,14 +203,14 @@ def test_training_refusals_name_the_roadmap(arrays):
                lambda: tnet.set_remat(True)):
         with pytest.raises(tmx.MXNetError, match="ROADMAP"):
             fn()
-    tnet.hybridize(static_alloc=True)  # accepted, runs eagerly
+    tnet.hybridize(static_alloc=True)  # accepted; on the CPU, eager
     params = tnet.collect_params()
     for kw in (dict(kvstore="dist_sync"), dict(update_on_kvstore=True),
                dict(offload="host"), dict(mesh={"dp": 2})):
         with pytest.raises(tmx.MXNetError, match="ROADMAP"):
             tmx.gluon.Trainer(params, "sgd", **kw).step(1)
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.gluon.Trainer(params, "sgd").save_states("x")
+        tmx.gluon.trainer.drain_consensus()  # multi-host, item 5
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         tmx.optimizer.create("lamb")
     assert torch.is_grad_enabled()  # the port never flips global state

@@ -123,7 +123,8 @@ def test_server_modes_match_jax_server_and_generate(nets, oracle, mode):
         else:   # the rollback path ran
             assert spec["draft_tokens"] > spec["accepted_tokens"]
         sigs = tstats["compiled_signatures"]
-        assert sigs.count(("verify",)) == 1 and ("step",) not in sigs
+        assert sigs.count(("verify",)) == 1 and \
+            not [s for s in sigs if s[0] == "step"]
         srv.replicas[0].mgr.check()
     if mode == "radix":
         assert tstats["radix_cache"]["hits"] >= 2
@@ -170,7 +171,10 @@ def test_paged_late_join_matches_jax_server_and_generate(nets):
                r["handoff_ms"] >= 0 and r["ttft_ms"] > 0 for r in recs)
     assert stats["kv_cache"]["peak_occupancy"] == 2
     assert stats["kv_cache"]["occupancy"] == 0
-    assert stats["compiled_signatures"].count(("step",)) == 1
+    # one decode-step signature: (kv mode, slots, table width, dtype)
+    assert [s for s in stats["compiled_signatures"] if s[0] == "step"] == \
+        [("step", "paged", srv.engine.num_slots, srv.engine.max_blocks,
+          "float32")]
     assert health["status"] == "ok" and health["running"]
     assert srv.health()["status"] == "stopped"
 
