@@ -10,7 +10,9 @@ kernel (bf16 and f16 on the tensor cores, f32 on the FMA pipes), and its
 training step; every optimizer update through the hand-written fused
 multi-tensor kernel, and the CUDA graphs of ``hybridize()``,
 ``FusedTrainStep``, ``generate`` and the serving tick; ``.params`` files
-and a checkpoint's round trip.
+and a checkpoint's round trip; BERT-base training under amp through the
+flash kernels, and stateless serving through ``InferenceServer`` (a
+ResNet-50 and a BERT-base classifier).
 
     python3 chip_smoke.py
 
@@ -106,11 +108,36 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 12b. ``FusedTrainStep(net, trainer, forward_loss, steps_per_execution=8,
     batch_size=128)`` on phase 12's net and batch at lr 0.01: 8 falling
     losses against 8 eager steps, then ms a step and images/s of 8
-    replays.
+    replays;
+13. BERT checks: ``bert_base`` widths at 2 layers, f32, B=4, T=128,
+    weights from a seed on the CPU: the unmasked forward through the
+    flash kernel's FMA design and the ``valid_length`` forward through
+    the masked route (no flash launch), each against the CPU; one MLM
+    loss, backward and Adam step against the CPU; amp's bf16 forward
+    (the tensor-core kernel) against the f32 route on the same weights;
+13b. the BERT training slice: ``bert_base`` at full width and depth
+    (12 layers, vocab 30522, 133.5 M parameters), B=64, T=128,
+    ``bench.py``'s protocol (``amp.init("bfloat16")``,
+    ``hybridize(static_alloc=True)``, Adam lr 1e-4, MLM loss, dropout
+    0.1): one warm-up and three timed eager steps, 12 tensor-core
+    launches of each flash kernel and one update launch a step, split
+    into forward, backward and update beside the reckoned bound; then
+    ``FusedTrainStep`` with K=8: ms a step, samples/s, graph pool, peak;
+14. ResNet-50 bf16 through ``InferenceServer`` (hybridized, max_batch
+    32, one length bucket at 224): 64 requests from 8 client threads in
+    three waves, each reply against its solo forward, 16 fused launches a
+    batch forward from the graphs, signatures within the ceiling;
+    images/s, p50/p99 latency, batches;
+14b. a BERT-base classifier (bf16, hybridized) through
+    ``InferenceServer`` as a callable that builds ``valid_length`` from
+    the padded ids: 64 requests of 16-128 tokens, three waves, each
+    reply against its solo forward, no flash launch (the masked route);
+    requests/s, p50/p99 latency.
 
-The launch counters are set to 0 just before each slice (8, 8b, 9, 11;
-the update's in 9, 12 and 12b) and read just after, and at the start of each check that counts them (6, 7,
-7b); the bf16 slices must launch the tensor-core designs
+The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
+13b, 14, 14b; the update's in 9, 12, 12b and 13b) and read just after,
+and at the start of each check that counts them (6, 7, 7b, 13); the
+bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
 result line when there is no CUDA card or the package is not beside it.
 Its last line is ``{"ok": true, "device": {...}}``.
@@ -142,9 +169,11 @@ MMA_SHAPES = [
     ("bottom_right_bf16", 1, 8, 300, 700, 128, True, "bfloat16"),
     ("masked_rows_bf16", 1, 8, 700, 300, 128, True, "bfloat16"),
 ]
-# the first is the slice's shape
+# the first is the Llama slice's shape, the second BERT-base's attention
+# (phase 13b)
 KERNEL_SHAPES = [
     ("slice", 1, 32, 2048, 2048, 128, True, "bfloat16"),
+    ("bert", 64, 12, 128, 128, 64, False, "bfloat16"),
     ("ragged", 2, 32, 1000, 1000, 128, True, "bfloat16"),
     ("noncausal_f32", 2, 4, 256, 256, 64, False, "float32"),
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
@@ -167,10 +196,11 @@ O_ROW_TOL = {"float32": 1e-4, "bfloat16": 2 * 2.0 ** -8,
              "float16": 2 * 2.0 ** -11}
 O_NORM_TOL = {"float32": 1e-5, "bfloat16": 2 * 2.0 ** -8,
               "float16": 2 * 2.0 ** -11}
-# (name, B, H, Tq, Tk, D, causal, dtype); the first is the training
-# slice's shape
+# (name, B, H, Tq, Tk, D, causal, dtype); the first is the Llama training
+# slice's shape, the second BERT-base's
 BWD_SHAPES = [
     ("slice", 1, 32, 2048, 2048, 128, True, "bfloat16"),
+    ("bert", 64, 12, 128, 128, 64, False, "bfloat16"),
     ("ragged", 2, 32, 1000, 1000, 128, True, "bfloat16"),
     ("noncausal_f32", 2, 4, 256, 256, 64, False, "float32"),
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
@@ -1263,8 +1293,12 @@ FUSED_SHAPES = [
     ("ragged", 1, 7, 1000, 300, "bfloat16", 0),
 ]
 # the same eight shapes in f16 (the f16 instance of the tensor-core
-# design, the 16 launches of an f16 forward)
+# design, the 16 launches of an f16 forward), and in bf16 at B=32, the
+# batch bucket that phase 14 serves (M = 32·H'·W', e.g. 1568 at stage 4,
+# leaves a partial M tile that B=128 never does)
 FUSED_SHAPES += [("f16_" + name, b, h, k, n, "float16", per)
+                 for name, b, h, k, n, dt, per in FUSED_SHAPES[:8]]
+FUSED_SHAPES += [("b32_" + name, 32, h, k, n, dt, 0)
                  for name, b, h, k, n, dt, per in FUSED_SHAPES[:8]]
 # kernel against its plain version on f32 copies: bf16, the kernel rounds
 # its f32 result to 8 mantissa bits (2^-8 of each value) and sums in
@@ -1365,6 +1399,17 @@ def fused_kernel_phase(torch, cbr, failures):
                              "library_ms", "chain_ms")}))
     forward = [r for r in rows
                if r["launches_per_forward"] and r["dtype"] == "bfloat16"]
+    # the served B=32 bucket's forward: each b32_ shape times the
+    # launches its B=128 shape makes a forward
+    per = {r["shape"]: r["launches_per_forward"] for r in forward}
+    b32 = [(r, per[r["shape"][4:]]) for r in rows
+           if r["shape"].startswith("b32_")]
+    emit(dict(phase="fused_kernel_forward_b32",
+              launches=sum(n for _, n in b32),
+              max_abs_err=max(r["max_abs_err"] for r, _ in b32),
+              **{key: sum(r[key] * n for r, n in b32)
+                 for key in ("kernel_ms", "bound_ms", "plain_ms",
+                             "library_ms", "chain_ms")}))
     total = dict(phase="fused_kernel_forward",
                  launches=sum(r["launches_per_forward"] for r in forward),
                  design=forward[0]["design"],
@@ -2108,6 +2153,571 @@ def fused_resnet_phase(torch, mx, vision, mt, failures):
     return launched_all
 
 
+# -- slice 8: BERT-base and stateless serving -------------------------------
+BERT_VOCAB = 30522
+BERT_B, BERT_T = 64, 128           # bench.py's _bench_bert protocol
+BERT_LR = 1e-4
+BERT_K = 8                          # bench.py's BENCH_STEPS_PER_EXEC
+BERT_CHECK_B = 4
+BERT_CHECK_LAYERS = 2
+# phase 13 (f32, 2 layers, card against the CPU): each output within
+# 1e-4 of its own largest value (two layers of f32 in other summation
+# orders, no TF32); the loss within 1e-5 (relative) and every gradient
+# within TRAIN_GRAD_TOL of its tensor's largest gradient, except the key
+# projections' biases: their gradient is 0 in exact arithmetic (the bias
+# adds the same q·b to every score of a query's row, which the softmax
+# cancels), so both devices' values are rounding noise, held within
+# TRAIN_GRAD_TOL of the same projection's weight gradient instead; after
+# one Adam step every weight within 2.5 lr of the CPU's: Adam's first
+# step moves a weight by lr·g/(|g| + eps), at most lr either way, and the
+# sign of a noise gradient decides the direction
+BERT_F32_TOL = 1e-4
+BERT_LOSS_RTOL = 1e-5
+# the bf16-amp forward against the f32 route on the same weights, each
+# output by relative norm: bf16 rounding (u = 2^-8) of the products'
+# operands and outputs through two layers, within 8u
+BERT_AMP_NORM_TOL = 8 * 2.0 ** -8
+# phases 14 and 14b: each bf16 reply against its request's solo forward
+# (batch 1, unpadded, eager).  The batch runs other cuBLAS/cuDNN tile
+# shapes, which round to bf16 at other places; through ResNet-50's 53
+# layers or BERT-base's 12 that is held within 16u: the ResNet logits by
+# relative norm, with the argmax equal or the reply's argmax class within
+# 16u of the largest solo logit of the solo maximum; the BERT logits (two
+# a request) each within 16u of the largest solo logit of the run (an
+# argmax flip there is two close logits, and is counted)
+SERVE_BF16_TOL = 16 * 2.0 ** -8
+SERVE_REQUESTS = 64
+SERVE_CLIENTS = 8
+SERVE_MAX_BATCH = 32
+SERVE_IMAGE = 224
+# the first wave captures each bucket's graph it meets; the rates and
+# latencies are read over the later eight (512 requests)
+SERVE_WAVES = 9
+
+
+def _bert_outputs(outs):
+    return [o._data for o in (outs if isinstance(outs, tuple) else (outs,))]
+
+
+def _share(torch, got, ref):
+    """max |got - ref| over max |ref| (f32, on the CPU)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got - ref).abs().max() /
+            ref.abs().max().clamp_min(1e-30)).item()
+
+
+def bert_check_phase(torch, mx, bert, fa, failures):
+    """Phase 13: ``bert_base`` widths (units 768, ffn 3072, 12 heads,
+    vocab 30522) at 2 layers, f32, B=4, T=128, dropout 0, weights from a
+    seed on the CPU carried to the card: the unmasked forward through the
+    flash kernel's FMA design and the ``valid_length`` forward through the
+    masked route (no flash launch), both against the CPU; one MLM loss,
+    backward and Adam step against the CPU; then amp's bf16 forward
+    (the tensor-core kernel) against the f32 route on the same weights."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    b, t = BERT_CHECK_B, BERT_T
+    mx.random.seed(SEED)
+
+    def make():
+        return bert.bert_base(vocab_size=BERT_VOCAB,
+                              num_layers=BERT_CHECK_LAYERS, dropout=0.0)
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    ids = torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                        dtype=torch.int32)
+    seg = torch.randint(0, 2, (b, t), generator=gen, dtype=torch.int32)
+    labels = torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                           dtype=torch.int32)
+    lengths = torch.tensor([128.0, 77.0, 16.0, 1.0])
+    cpu_net = make()
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    cpu_net(mx.nd.array(ids, ctx=mx.cpu()))
+    arrays = {k: p.data().asnumpy() for k, p in
+              cpu_net._collect_params_with_prefix().items()}
+    gpu_net = make()
+    load_numpy_params(gpu_net, arrays, ctx=mx.gpu(0))
+    nets = {"gpu": (gpu_net, mx.gpu(0)), "cpu": (cpu_net, mx.cpu())}
+
+    def inputs(ctx, with_length):
+        out = [mx.nd.array(ids, ctx=ctx), mx.nd.array(seg, ctx=ctx)]
+        return out + ([mx.nd.array(lengths, ctx=ctx)] if with_length else [])
+
+    row = dict(phase="bert_check", net="bert_base", layers=BERT_CHECK_LAYERS,
+               B=b, T=t, dtype="float32", tol=BERT_F32_TOL)
+    ok = True
+    for route, with_length in (("flash", False), ("masked", True)):
+        outs = {}
+        _zero_counts(fa)
+        for key, (net, ctx) in nets.items():
+            outs[key] = _bert_outputs(net(*inputs(ctx, with_length)))
+        torch.cuda.synchronize()
+        launches = [c.launches for c in _counters(fa)]
+        mma = _mma_counts(fa)
+        shares = [_share(torch, g, r) for g, r in zip(outs["gpu"],
+                                                      outs["cpu"])]
+        expect = [BERT_CHECK_LAYERS if route == "flash" else 0, 0, 0]
+        finite = all(bool(torch.isfinite(o).all()) for o in outs["gpu"])
+        good = finite and launches == expect and mma == [0, 0, 0] and \
+            max(shares) <= BERT_F32_TOL
+        row[f"{route}_output_err_shares"] = shares
+        row[f"{route}_launches"] = launches
+        ok = ok and good
+        if route == "flash":
+            f32_outs = outs["gpu"]
+    # the bf16 amp forward (the tensor-core kernel) against f32, on the
+    # same weights
+    _zero_counts(fa)
+    amp.init("bfloat16")
+    try:
+        amp_outs = _bert_outputs(gpu_net(*inputs(mx.gpu(0), False)))
+        torch.cuda.synchronize()
+    finally:
+        amp.turn_off()
+    norms = [_rel_norm(torch, a, r) for a, r in zip(amp_outs, f32_outs)]
+    amp_mma = _mma_counts(fa)
+    ok = ok and amp_mma == [BERT_CHECK_LAYERS, 0, 0] and \
+        max(norms) <= BERT_AMP_NORM_TOL
+    row.update(amp_bf16_rel_norms=norms, amp_tol=BERT_AMP_NORM_TOL,
+               amp_launches_mma=amp_mma,
+               amp_output_dtypes=[str(o.dtype) for o in amp_outs])
+    # one MLM loss, backward and Adam step on each device
+    losses, grads, weights = {}, {}, {}
+    for key, (net, ctx) in nets.items():
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": BERT_LR})
+        with mx.autograd.record():
+            mlm = net(*inputs(ctx, False))[-1]
+            loss = mx.nd.softmax_cross_entropy(
+                mlm, mx.nd.array(labels, ctx=ctx)) / (b * t)
+        loss.backward()
+        losses[key] = float(loss.asscalar())
+        params = net._collect_params_with_prefix()
+        grads[key] = {k: p.grad()._data.detach().float().cpu()
+                      for k, p in params.items()}
+        trainer.step(1)
+        weights[key] = {k: p.data()._data.detach().float().cpu()
+                        for k, p in params.items()}
+    def grad_share(k):
+        g, ref = grads["gpu"][k], grads["cpu"][k]
+        if not k.endswith("proj_key.bias"):
+            return _share(torch, g, ref)
+        scale = grads["cpu"][k[:-len("bias")] + "weight"]
+        return ((g - ref).abs().max() / scale.abs().max()).item()
+
+    grad_worst = max((grad_share(k), k) for k in grads["cpu"])
+    weight_worst = max(((weights["gpu"][k] - w).abs().max().item(), k)
+                       for k, w in weights["cpu"].items())
+    loss_err = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    ok = ok and loss_err <= BERT_LOSS_RTOL and \
+        grad_worst[0] <= TRAIN_GRAD_TOL and \
+        weight_worst[0] <= 2.5 * BERT_LR and math.isfinite(losses["gpu"])
+    row.update(loss_gpu=losses["gpu"], loss_cpu=losses["cpu"],
+               loss_rel_err=loss_err, loss_tol=BERT_LOSS_RTOL,
+               worst_grad_err_share=grad_worst[0],
+               worst_grad=grad_worst[1], grad_tol=TRAIN_GRAD_TOL,
+               worst_weight_abs_err=weight_worst[0],
+               worst_weight=weight_worst[1], weight_tol=2.5 * BERT_LR, ok=ok)
+    emit(row)
+    if not ok:
+        failures.append(f"bert checks: {row}")
+    del nets, gpu_net, cpu_net
+    free_card(torch)
+
+
+def bert_step_flops(net, b, t):
+    """Operations of one BERT training step (forward and backward): 6 per
+    matmul weight per token (the pooler and NSP head see one token a
+    sequence), and the flash kernels' 7 products of 2·D a (query, key)
+    pair a layer (forward 2, backward 5)."""
+    tokens = b * t
+    flops = 0.0
+    for name, p in net._collect_params_with_prefix().items():
+        if not name.endswith("weight") or "embed" in name or \
+                name.endswith("position_weight"):
+            continue
+        per_seq = name.startswith(("pooler", "classifier"))
+        flops += 6.0 * p.data().size * (b if per_seq else tokens)
+    cells = list(net.encoder.transformer_cells)
+    att = cells[0].attention
+    d = att._units // att._num_heads
+    flops += 7 * 2.0 * d * t * t * b * att._num_heads * len(cells)
+    return flops
+
+
+def bert_train_phase(torch, mx, bert, fa, mt, failures):
+    """Phase 13b: the BERT training slice, ``bench.py``'s ``_bench_bert``
+    protocol at full width and depth (``bert_base``, 12 layers, vocab
+    30522, B=64, T=128, dropout 0.1): ``amp.init("bfloat16")``,
+    ``hybridize(static_alloc=True)``, Adam at lr 1e-4, the MLM
+    ``softmax_cross_entropy`` in a hybridized block.  One warm-up and
+    three timed eager steps (``Trainer``), each 12 tensor-core launches of
+    the forward, dQ and dK/dV kernels and one update launch, with the
+    split into forward, backward and update beside the reckoned bound;
+    then ``FusedTrainStep`` with K=8 (the capture, then a timed call of 8
+    replays)."""
+    from mxnet_tpu_torch import amp
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    b, t = BERT_B, BERT_T
+    mx.random.seed(SEED)
+    net = bert.bert_base(vocab_size=BERT_VOCAB)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    ids = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                                    device="cuda", dtype=torch.int32))
+    seg = mx.nd.zeros((b, t), ctx=mx.gpu(0), dtype="int32")
+    labels = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int32))
+    net(ids, seg)  # resolve deferred shapes
+    torch.cuda.synchronize()
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    layers = len(net.encoder.transformer_cells)
+    flops = bert_step_flops(net, b, t)
+    bound = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    emit(dict(phase="bert_train_init", seconds=time.perf_counter() - t0,
+              params=n_params, layers=layers, step_flops=flops,
+              step_bound_ms=bound, memory_allocated=
+              torch.cuda.memory_allocated()))
+
+    class MLMLoss(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, mlm, lab):
+            return F.softmax_cross_entropy(mlm, lab) / (b * t)
+
+    amp.init("bfloat16")
+    try:
+        net.hybridize(static_alloc=True)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": BERT_LR})
+        loss_fn = MLMLoss()
+        loss_fn.hybridize()
+        _zero_counts(fa)  # the main path starts here
+        mt.multi_tensor_update.launches = 0
+        losses, step_ms = [], []
+        for step in range(4):
+            stamps, peaks = [], []
+
+            def mark():
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+
+            before = _mma_counts(fa) + [mt.multi_tensor_update.launches]
+            mark()
+            peaks.clear()
+            with mx.autograd.record():
+                loss = loss_fn(net(ids, seg)[-1], labels)
+            mark()
+            loss.backward()
+            mark()
+            trainer.step(1)
+            mark()
+            after = _mma_counts(fa) + [mt.multi_tensor_update.launches]
+            launched = [a - c for a, c in zip(after, before)]
+            fwd_ms, bwd_ms, upd_ms = ((s1 - s0) * 1e3 for s0, s1 in
+                                      zip(stamps, stamps[1:]))
+            ms = (stamps[-1] - stamps[0]) * 1e3
+            value = float(loss.asscalar())
+            losses.append(value)
+            if step:
+                step_ms.append(ms)
+            good = math.isfinite(value) and \
+                launched == [layers, layers, layers, 1]
+            emit(dict(phase="bert_train_step", step=step, warmup=step == 0,
+                      B=b, T=t, loss=value, ms=ms,
+                      samples_per_s=b / ms * 1e3, forward_ms=fwd_ms,
+                      backward_ms=bwd_ms, update_ms=upd_ms,
+                      step_bound_ms=bound,
+                      update_bound_ms=update_bound_ms(trainer),
+                      launches_mma_fwd_dq_dkv_update=launched,
+                      max_memory_allocated=dict(zip(
+                          ("forward", "backward", "update"), peaks)),
+                      ok=good))
+            if not good:
+                failures.append(f"bert train step {step}: loss {value}, "
+                                f"launches {launched}")
+        eager_counts = [c.launches for c in _counters(fa)]
+        # the last eager loss holds its (freed) graph, and with it the
+        # parameters' gradient accumulators, made on the eager stream: a
+        # capture that meets them fails, so it goes first
+        del loss
+        # FusedTrainStep: K steps a call, one captured graph replayed
+        fstep = mx.gluon.FusedTrainStep(
+            net, trainer, lambda n, i, s, lab: loss_fn(n(i, s)[-1], lab),
+            steps_per_execution=BERT_K, batch_size=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first = fstep(ids, seg, labels).asnumpy()
+        first_s = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        before = [c.launches for c in _counters(fa)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        more = fstep(ids, seg, labels).asnumpy()
+        call_ms = (time.perf_counter() - t1) * 1e3
+        replayed = [c.launches - n for c, n in zip(_counters(fa), before)]
+        peak = torch.cuda.max_memory_allocated()
+        counts = [c.launches for c in _counters(fa)]  # ... and ends here
+        mma = _mma_counts(fa)
+        update_launches = mt.multi_tensor_update.launches
+        graph = next(iter(fstep._graphs.values()))["graph"]
+        kernel_ms, tensors = update_kernel_ms(torch, mt, trainer, 10)
+    finally:
+        amp.turn_off()
+        net.hybridize(False)
+    step = call_ms / BERT_K
+    finite = bool(np.isfinite(first).all() and np.isfinite(more).all())
+    good = finite and replayed == [BERT_K * layers] * 3 and \
+        counts == mma and len(fstep._graphs) == 1 and \
+        update_launches == 4 + 2 * BERT_K
+    emit(dict(phase="bert_fused_step", B=b, T=t, K=BERT_K, lr=BERT_LR,
+              losses=first.tolist(), next_losses=more.tolist(),
+              eager_losses=losses, first_call_s=first_s, call_ms=call_ms,
+              step_ms=step, samples_per_s=b / step * 1e3,
+              eager_step_ms=step_ms, step_bound_ms=bound,
+              launches_per_call=replayed, eager_launches=eager_counts,
+              update_kernel_ms=kernel_ms, update_tensors=tensors,
+              update_launches=update_launches,
+              graph_replays=graph.replays, graph_pool_bytes=graph.pool_bytes,
+              max_memory_allocated=peak, ok=good))
+    if not good:
+        failures.append(f"bert fused step: losses {first} {more}, "
+                        f"launches a call {replayed}, all {counts} "
+                        f"(tensor-core {mma}), update {update_launches}")
+    del net, trainer, fstep, graph
+    free_card(torch)
+    return counts, mma, update_launches
+
+
+def _percentile(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q / 100.0 * (len(v) - 1))))]
+
+
+def _serve_waves(serving, model, config, requests, cache_stats,
+                 waves=SERVE_WAVES):
+    """Serve ``requests`` (numpy arrays) through an ``InferenceServer``
+    from SERVE_CLIENTS client threads, each submitting its share and then
+    waiting for it, ``waves`` times over one live server; returns every
+    wave's replies, each wave's timing and captures (``cache_stats()``'s
+    misses in it), the rates and latencies over the waves after the
+    first (and the rate over those of them that captured nothing), and
+    the server's stats."""
+    import threading
+
+    srv = serving.InferenceServer(model, config)
+    replies_by_wave, stats, later_lat = [], [], []
+    with srv:
+        for w in range(waves):
+            replies = [None] * len(requests)
+            lat = [None] * len(requests)
+            errors = []
+
+            def client(ids):
+                futs = []
+                for i in ids:
+                    t_sub = time.perf_counter()
+                    f = srv.submit(requests[i])
+                    f.add_done_callback(
+                        lambda _f, i=i, t_sub=t_sub: lat.__setitem__(
+                            i, (time.perf_counter() - t_sub) * 1e3))
+                    futs.append((i, f))
+                for i, f in futs:
+                    try:
+                        replies[i] = f.result(timeout=600)
+                    except Exception as e:  # noqa: BLE001 - reported
+                        errors.append(repr(e))
+
+            before = srv.stats()["batches"]
+            misses = cache_stats()["misses"]
+            t = time.perf_counter()
+            threads = [threading.Thread(
+                target=client, args=(range(j, len(requests),
+                                           SERVE_CLIENTS),))
+                for j in range(SERVE_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            wall = time.perf_counter() - t
+            done = [x for x in lat if x is not None]
+            if w:
+                later_lat += done
+            replies_by_wave.append(replies)
+            stats.append(dict(
+                wall_s=wall, requests_per_s=len(requests) / wall,
+                p50_ms=_percentile(done, 50), p99_ms=_percentile(done, 99),
+                batches=srv.stats()["batches"] - before,
+                captures=cache_stats()["misses"] - misses, errors=errors))
+    later = stats[1:]
+    steady = [w for w in later if not w["captures"]]
+
+    def rate(ws):
+        return len(requests) * len(ws) / sum(w["wall_s"] for w in ws) \
+            if ws else None
+
+    summary = dict(
+        requests=len(requests) * len(later), requests_per_s=rate(later),
+        p50_ms=_percentile(later_lat, 50), p99_ms=_percentile(later_lat, 99),
+        captures=sum(w["captures"] for w in later),
+        waves_without_capture=len(steady),
+        requests_per_s_without_capture=rate(steady))
+    return replies_by_wave, stats, summary, srv.stats()
+
+
+def resnet_serve_phase(torch, mx, vision, cbr, serving, failures):
+    """Phase 14: ``resnet50_v1`` in bf16 (hybridized, 224x224) through
+    ``InferenceServer``: 64 requests from 8 client threads, nine waves
+    over one live server (the first captures a CUDA graph for each batch
+    bucket it meets on the scheduler thread, the later ones replay them;
+    the rate and latencies are read over the later eight),
+    ``max_batch`` 32, one length bucket at 224.  Each reply against its
+    request's solo forward (eager, batch 1, run before the server
+    starts); 16 fused launches a batch forward; signatures within the
+    policy's ceiling.  The model is a callable around the block: numpy,
+    the request format, has no bfloat16, so it makes the batch a bf16
+    array on the card and calls the hybridized net."""
+    free_card(torch)
+    gpu = mx.gpu(0)
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net(mx.nd.zeros((1, 3, SERVE_IMAGE, SERVE_IMAGE), ctx=gpu))
+    net.cast("bfloat16")
+    rng = np.random.RandomState(SEED + 14)
+    images = [rng.rand(3, SERVE_IMAGE, SERVE_IMAGE).astype(np.float32)
+              for _ in range(SERVE_REQUESTS)]
+
+    def forward(batch):
+        return net(mx.nd.array(batch, ctx=gpu, dtype="bfloat16"))
+
+    solo = [forward(x[None])._data.float().cpu()[0] for x in images]
+    net.hybridize(static_alloc=True)
+    config = serving.ServerConfig(
+        max_batch=SERVE_MAX_BATCH, min_batch=1, max_length=SERVE_IMAGE,
+        min_length=SERVE_IMAGE, length_axis=1, batch_window_ms=5.0,
+        queue_capacity=SERVE_REQUESTS)
+    fn = cbr.fused_matmul_affine_relu
+    fn.launches = fn.launches_mma = 0  # the main path starts here
+    replies, waves, rate, stats = _serve_waves(
+        serving, lambda b: forward(b["data"]), config, images,
+        net.cache_stats)
+    launches, mma = fn.launches, fn.launches_mma  # ... and ends here
+    cache = net.cache_stats()
+    worst_norm, flips = 0.0, 0
+    for got, ref in ((g, r) for wave in replies
+                     for g, r in zip(wave, solo)):
+        got = torch.from_numpy(np.asarray(got, np.float32))
+        worst_norm = max(worst_norm, _rel_norm(torch, got, ref))
+        top = int(got.argmax())
+        if top != int(ref.argmax()):
+            flips += 1
+            if ref.max() - ref[top] > SERVE_BF16_TOL * ref.abs().max():
+                worst_norm = float("inf")
+    ceiling = len(config.policy.signatures())
+    batches = stats["batches"]
+    ok = all(r is not None for wave in replies for r in wave) and \
+        not any(w["errors"] for w in waves) and \
+        worst_norm <= SERVE_BF16_TOL and launches == 16 * batches and \
+        mma == launches and cache["signatures"] <= ceiling and \
+        cache["misses"] == cache["signatures"] and stats["failed"] == 0
+    emit(dict(phase="resnet_serve", net="resnet50_v1", dtype="bfloat16",
+              image=SERVE_IMAGE, requests=SERVE_REQUESTS,
+              clients=SERVE_CLIENTS,
+              max_batch=SERVE_MAX_BATCH, waves=waves,
+              images_per_s=rate["requests_per_s"], after_first_wave=rate,
+              batches=batches, fused_launches=launches,
+              fused_launches_mma=mma, cache_stats=cache,
+              signature_ceiling=ceiling, worst_rel_norm=worst_norm,
+              argmax_flips=flips, tol=SERVE_BF16_TOL, ok=ok))
+    if not ok:
+        failures.append(f"resnet serving: worst rel norm {worst_norm}, "
+                        f"launches {launches} for {batches} batches, "
+                        f"cache {cache}, errors "
+                        f"{[w['errors'] for w in waves]}")
+    net.hybridize(False)
+    del net
+    free_card(torch)
+    return launches, mma
+
+
+def bert_serve_phase(torch, mx, bert, fa, serving, failures):
+    """Phase 14b: a BERT-base sequence classifier
+    (``BERTClassifier(bert_base(...))``, pooler only, 2 classes) in bf16,
+    hybridized, through ``InferenceServer`` as a callable that builds
+    ``valid_length`` from the padded ids (pad id 0, as ``pad_batch``
+    pads): 64 requests of 16-128 tokens (lengths from the seed), length
+    buckets 16-128, nine waves (rate and latencies read over the later
+    eight).  Each reply against its request's solo forward (eager,
+    unpadded); the masked route launches no flash kernel."""
+    free_card(torch)
+    gpu = mx.gpu(0)
+    mx.random.seed(SEED)
+    net = bert.BERTClassifier(bert.bert_base(
+        vocab_size=BERT_VOCAB, use_decoder=False, use_classifier=False),
+        num_classes=2)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net(mx.nd.ones((1, 16), ctx=gpu, dtype="int32"))
+    net.cast("bfloat16")
+    rng = np.random.RandomState(SEED + 15)
+    lengths = rng.randint(16, BERT_T + 1, SERVE_REQUESTS)
+    requests = [rng.randint(1, BERT_VOCAB, n).astype(np.int32)
+                for n in lengths]
+
+    def classify(batch):
+        ids = batch["data"]
+        vl = (ids != 0).sum(axis=1).astype(np.float32)
+        return net(mx.nd.array(ids, ctx=gpu, dtype="int32"), None,
+                   mx.nd.array(vl, ctx=gpu))
+
+    solo = [classify({"data": r[None]})._data.float().cpu()[0]
+            for r in requests]
+    net.hybridize(static_alloc=True)
+    config = serving.ServerConfig(
+        max_batch=SERVE_MAX_BATCH, min_batch=1, max_length=BERT_T,
+        min_length=16, batch_window_ms=5.0, queue_capacity=SERVE_REQUESTS)
+    _zero_counts(fa)  # the main path starts here
+    replies, waves, rate, stats = _serve_waves(
+        serving, classify, config, requests, net.cache_stats)
+    flash = [c.launches for c in _counters(fa)]  # ... and ends here
+    cache = net.cache_stats()
+    scale = max(s.abs().max().item() for s in solo)
+    worst, flips = 0.0, 0
+    for got, ref in ((g, r) for wave in replies
+                     for g, r in zip(wave, solo)):
+        got = torch.from_numpy(np.asarray(got, np.float32))
+        worst = max(worst, (got - ref).abs().max().item() / scale)
+        if int(got.argmax()) != int(ref.argmax()):
+            flips += 1
+    ceiling = len(config.policy.signatures())
+    ok = all(r is not None for wave in replies for r in wave) and \
+        not any(w["errors"] for w in waves) and \
+        worst <= SERVE_BF16_TOL and flash == [0, 0, 0] and \
+        cache["signatures"] <= ceiling and \
+        cache["misses"] == cache["signatures"] and stats["failed"] == 0
+    emit(dict(phase="bert_serve", net="BERTClassifier(bert_base)",
+              dtype="bfloat16", requests=SERVE_REQUESTS,
+              clients=SERVE_CLIENTS, max_batch=SERVE_MAX_BATCH,
+              lengths=[int(n) for n in lengths], waves=waves,
+              requests_per_s=rate["requests_per_s"], after_first_wave=rate,
+              batches=stats["batches"], flash_launches=flash,
+              cache_stats=cache, signature_ceiling=ceiling,
+              worst_err_share=worst, argmax_flips=flips,
+              tol=SERVE_BF16_TOL, ok=ok))
+    if not ok:
+        failures.append(f"bert serving: worst {worst}, flash launches "
+                        f"{flash}, cache {cache}, errors "
+                        f"{[w['errors'] for w in waves]}")
+    net.hybridize(False)
+    del net
+    free_card(torch)
+
 
 def main():
     import torch
@@ -2119,7 +2729,7 @@ def main():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch.gluon.model_zoo import vision
-    from mxnet_tpu_torch.models import llama
+    from mxnet_tpu_torch.models import bert, llama
     from mxnet_tpu_torch.ops import conv_bn_relu as cbr
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import multi_tensor as mt
@@ -2178,24 +2788,54 @@ def main():
     update_launches += resnet_train_phase(torch, mx, vision, cbr, mt,
                                           failures)
     update_launches += fused_resnet_phase(torch, mx, vision, mt, failures)
+    bert_check_phase(torch, mx, bert, fa, failures)
+    bert_launches, bert_mma, bert_updates = bert_train_phase(
+        torch, mx, bert, fa, mt, failures)
+    update_launches += bert_updates
+    served, served_mma = resnet_serve_phase(torch, mx, vision, cbr, serving,
+                                            failures)
+    fused_launches += served
+    fused_mma += served_mma
+    bert_serve_phase(torch, mx, bert, fa, serving, failures)
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
 
     s, bs = rows[0], brows[0]
+    sb = next(r for r in rows if r["shape"] == "bert")
+    bb = next(r for r in brows if r["shape"] == "bert")
     src = "mxnet_tpu_torch/csrc/flash_attention_{}.cu"
     replaces = "mxnet_tpu/ops/flash_attention.py:{}"
-    # each kernel: the design that ran at the slice shape (the forward's
-    # shapes for the fused kernel), and the main paths' launches of each
+    # each kernel: the design that ran at the Llama slice shape (the
+    # forward's shapes for the fused kernel), its time and bound at
+    # BERT-base's shape beside them, and the main paths' launches of each
     # design (the f32 FMA design's are the rest)
-    fwd_launches = infer_launches + train_launches[0]
-    fwd_mma = infer_mma + train_mma[0]
+    fwd_launches = infer_launches + train_launches[0] + bert_launches[0]
+    fwd_mma = infer_mma + train_mma[0] + bert_mma[0]
+    dq_launches = train_launches[1] + bert_launches[1]
+    dq_mma = train_mma[1] + bert_mma[1]
+    dkv_launches = train_launches[2] + bert_launches[2]
+    dkv_mma = train_mma[2] + bert_mma[2]
+    bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
+                    bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
+                    library_ms=sb["library_ms"],
+                    max_abs_err=sb["max_abs_err_o"])
+    bert_dq = dict(ms=bb["dq_ms"], bound_ms=bb["dq_bound_ms"],
+                   bound_by=bb["dq_bound_by"], plain_ms=bb["plain_ms"],
+                   library_ms=bb["library_ms"],
+                   max_abs_err=bb["max_abs_err_dq"])
+    bert_dkv = dict(ms=bb["dkv_ms"], bound_ms=bb["dkv_bound_ms"],
+                    bound_by=bb["dkv_bound_by"], plain_ms=bb["plain_ms"],
+                    library_ms=bb["library_ms"],
+                    max_abs_err=max(bb["max_abs_err_dk"],
+                                    bb["max_abs_err_dv"]))
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src.format("fwd"), "replaces": replaces.format(132),
          "design": design_name(s["design"], s["dtype"]),
          "launches": fwd_launches, "launches_mma": fwd_mma,
          "launches_fma": fwd_launches - fwd_mma,
+         "launches_bert": bert_launches[0], "at_bert_shape": bert_fwd,
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -2203,8 +2843,9 @@ def main():
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(259),
          "design": design_name(bs["dq_design"], bs["dtype"]),
-         "launches": train_launches[1], "launches_mma": train_mma[1],
-         "launches_fma": train_launches[1] - train_mma[1],
+         "launches": dq_launches, "launches_mma": dq_mma,
+         "launches_fma": dq_launches - dq_mma,
+         "launches_bert": bert_launches[1], "at_bert_shape": bert_dq,
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -2212,8 +2853,9 @@ def main():
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(302),
          "design": design_name(bs["dkv_design"], bs["dtype"]),
-         "launches": train_launches[2], "launches_mma": train_mma[2],
-         "launches_fma": train_launches[2] - train_mma[2],
+         "launches": dkv_launches, "launches_mma": dkv_mma,
+         "launches_fma": dkv_launches - dkv_mma,
+         "launches_bert": bert_launches[2], "at_bert_shape": bert_dkv,
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -2225,6 +2867,7 @@ def main():
          "design": design_name(fused["design"], "bfloat16"),
          "launches": fused_launches, "launches_mma": fused_mma,
          "launches_fma": fused_launches - fused_mma,
+         "launches_served": served,
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -2234,6 +2877,7 @@ def main():
          "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
          "replaces": "mxnet_tpu/gluon/trainer.py:516",
          "design": "one launch over a device table, bf16 SGD momentum",
+         "launches_bert": bert_updates,
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],

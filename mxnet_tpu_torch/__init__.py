@@ -26,9 +26,11 @@ context; only an explicit ``mx.cpu()`` runs on the host.
 
 Slices so far: Llama inference, Llama training, ResNet inference
 (through a fused 1×1 conv+BN+ReLU kernel) and training
-(``gluon.model_zoo.vision``), and Llama serving (``serving``:
-continuous batching over a paged KV pool, speculative verify, radix
-prefix reuse); ROADMAP Queue 1 lists what follows.
+(``gluon.model_zoo.vision``), Llama serving (``serving``: continuous
+batching over a paged KV pool, speculative verify, radix prefix reuse),
+step fusion and checkpoints, and BERT-base under ``amp`` with stateless
+serving (``serving.InferenceServer``); ROADMAP Queue 1 lists what
+follows.
 
 Precision: importing the package turns off, once and for the whole
 process, the torch flags that would let an f32 product run in TF32
@@ -58,6 +60,7 @@ from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
 from . import autograd
+from . import amp
 from . import random
 from . import name
 from . import initializer

@@ -14,11 +14,22 @@ tensors after every replay (a caller copies them out before the next),
 and weights are read where they lay at capture (callers key their graphs
 on the weights' ``data_ptr``s and capture again when one moves).
 
-The kernel wrappers count launches in Python, which runs once, at
-capture, when nothing runs on the card.  ``capture`` records each
-counter's change during the capture and takes it back, and
-``Graph.replay`` adds it, so ``.launches`` stays the number of launches
-that ran on the card.
+The kernel wrappers count launches in Python (``count``), which runs
+once, at capture, when nothing runs on the card.  A launch counted on a
+stream that is capturing goes to that capture's tally, not to the
+counter, and ``Graph.replay`` adds the tally, so ``.launches`` stays the
+number of launches that ran on the card, also while other threads
+launch, capture or replay.  The tally is keyed on the capture stream,
+not on the thread: a captured backward runs on autograd's worker
+thread, on the capture stream.
+
+Several threads may capture and replay at once (two ``InferenceServer``
+schedulers, a server beside a training loop): each thread captures on
+a stream of its own, a capture takes the ``"thread_local"`` error mode
+where its caller asks for it, and the garbage collector stays off while
+any capture runs.  What another thread must not do during a capture is
+a device-wide ``torch.cuda.synchronize()``: CUDA refuses it, and the
+capture fails with it.
 """
 from __future__ import annotations
 
@@ -31,24 +42,22 @@ from .base import MXNetError
 
 _STATE = threading.local()
 _SIDE = {}  # device index -> the warm-up stream
+_LOCK = threading.Lock()
+_GC = {"captures": 0, "was_on": True}  # under _LOCK
+_TALLIES = {}  # capture stream handle -> its tally; under _LOCK
 
 
-def _counters():
-    """(function, attribute) of every launch counter of the port."""
-    from .ops import conv_bn_relu as cbr
-    from .ops import flash_attention as fa
-    from .ops import multi_tensor as mt
-
-    out = []
-    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv, cbr.fused_matmul_affine_relu):
-        out += [(fn, "launches"), (fn, "launches_mma")]
-    return out + [(cbr.conv1x1_bn_relu, "calls"),
-                  (mt.multi_tensor_update, "launches")]
-
-
-def _counts():
-    return [getattr(fn, attr) for fn, attr in _counters()]
+def count(fn, attr="launches"):
+    """Add one launch to ``fn.<attr>``, or, when the current stream is
+    capturing, to that capture's tally (each replay of the graph adds
+    it)."""
+    with _LOCK:
+        tally = _TALLIES.get(torch.cuda.current_stream().cuda_stream) \
+            if _TALLIES else None
+        if tally is None:
+            setattr(fn, attr, getattr(fn, attr) + 1)
+        else:
+            tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
 
 
 def capturing():
@@ -87,8 +96,8 @@ class Graph:
         """Run the graph on the current stream and count its launches."""
         self.graph.replay()
         self.replays += 1
-        for (fn, attr), d in zip(_counters(), self.delta):
-            if d:
+        with _LOCK:
+            for (fn, attr), d in self.delta.items():
                 setattr(fn, attr, getattr(fn, attr) + d)
 
 
@@ -107,35 +116,83 @@ def warmup(fn):
     return out
 
 
+def _capture_stream():
+    """This thread's capture stream on the current device (torch's
+    default capture stream is one for the process, and a stream holds one
+    capture at a time)."""
+    streams = getattr(_STATE, "capture_streams", None)
+    if streams is None:
+        streams = _STATE.capture_streams = {}
+    dev = torch.cuda.current_device()
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream()
+    return streams[dev]
+
+
+def _gc_hold(on):
+    """Hold the garbage collector off while any thread captures: a
+    dropped graph's finalizer destroys it with a CUDA call that is not
+    allowed while a capture runs (it invalidates the capture).  The first
+    capture to open collects first; one that opens while another runs
+    does not, and no capture opens during the collection."""
+    with _LOCK:
+        if on:
+            if _GC["captures"] == 0:
+                gc.collect()
+                _GC["was_on"] = gc.isenabled()
+                gc.disable()
+            _GC["captures"] += 1
+        else:
+            _GC["captures"] -= 1
+            if _GC["captures"] == 0 and _GC["was_on"]:
+                gc.enable()
+
+
 def capture(fn, pool=None, generators=(), mode="global"):
     """Capture ``fn`` (which runs nothing on the card now) into a new
     ``Graph``; ``pool``: a ``torch.cuda.graph_pool_handle()`` shared with
     other graphs; ``generators``: CUDA generators ``fn`` draws from, which
     then advance on every replay; ``mode``: the capture error mode
-    (``"thread_local"`` where other threads keep using the card)."""
+    (``"thread_local"`` where other threads keep using the card).
+    ``pool_bytes`` is what the reserved memory grew by during the
+    capture, other threads' allocations in that time included.
+
+    Unlike ``torch.cuda.graph``, this makes no device-wide
+    ``torch.cuda.synchronize()`` before the capture: CUDA refuses a
+    device-wide synchronize while another thread captures, and the
+    refusal invalidates that capture too (on an H100, torch 2.11, even in
+    the thread-local mode).  The capture stream only waits, on the card,
+    for the work queued before it.  Emptying the device and pinned-host
+    caches stays: it erases the pools whose graphs are all gone, and a
+    capture into such a pool (``pool`` kept by a caller whose graphs were
+    dropped) fails torch's allocator checks otherwise."""
     if not torch.cuda.is_available():
         raise MXNetError("CUDA graph capture needs a CUDA card")
-    # a dropped graph's finalizer destroys it with a CUDA call that is not
-    # allowed while a capture runs (it invalidates the capture): collect
-    # the garbage now and let no collection run during the capture
-    gc.collect()
-    gc_was_on = gc.isenabled()
-    gc.disable()
+    _gc_hold(True)
+    stream = _capture_stream()
+    delta = {}
+    with _LOCK:
+        _TALLIES[stream.cuda_stream] = delta
     try:
-        torch.cuda.synchronize()
-        before = _counts()
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
-            reserved = torch.cuda.memory_reserved()
-            with scope():
-                outputs = fn()
-            grown = torch.cuda.memory_reserved() - reserved
+        torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin(*(() if pool is None else (pool,)),
+                                capture_error_mode=mode)
+            try:
+                reserved = torch.cuda.memory_reserved()
+                with scope():
+                    outputs = fn()
+                grown = torch.cuda.memory_reserved() - reserved
+            finally:
+                graph.capture_end()
     finally:
-        if gc_was_on:
-            gc.enable()
-    delta = [a - b for a, b in zip(_counts(), before)]
-    for (fn, attr), n in zip(_counters(), before):
-        setattr(fn, attr, n)  # the capture itself ran nothing
+        with _LOCK:
+            del _TALLIES[stream.cuda_stream]
+        _gc_hold(False)
     return Graph(graph, outputs, delta, grown)

@@ -9,8 +9,9 @@ files, keyed by structural name) and ``hybridize``.
 ``hybridize()`` gives the block a ``CachedOp`` (reference ``CachedOp``
 and ``_CachedGraph``): outside ``autograd.record()`` and on a CUDA card,
 the first call of each input signature (shapes, dtypes, device, training
-mode, parameter shapes and dtypes) runs the forward eagerly and captures
-it into a CUDA graph (``cuda_graph.py``), and every later call of that
+mode, amp's dtype, parameter shapes and dtypes; an input may be None)
+runs the forward eagerly and captures it into a CUDA graph
+(``cuda_graph.py``), and every later call of that
 signature copies its inputs into the graph's and replays it.  A graph is
 keyed on the parameters' addresses too: after ``cast`` or a forced
 re-initialization moves a parameter, the next call captures again.
@@ -29,6 +30,7 @@ from collections import OrderedDict
 import torch
 
 from ..base import MXNetError
+from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
 from .. import engine
@@ -295,9 +297,9 @@ class CachedOp:
             self._recorded += 1
             return self._inline(args)
         for a in args:
-            if not isinstance(a, NDArray):
-                raise MXNetError("hybridized blocks take NDArray inputs "
-                                 f"only, got {type(a)}")
+            if a is not None and not isinstance(a, NDArray):
+                raise MXNetError("hybridized blocks take NDArray (or None) "
+                                 f"inputs only, got {type(a)}")
         params = list(self.block.collect_params().values())
         if any(p._data is None for p in params):
             # deferred shapes: one eager pass resolves them (the reference
@@ -305,11 +307,13 @@ class CachedOp:
             out = self._inline(args)
             if any(p._data is None for p in params):
                 return out
-        sig = (tuple((a.shape, a.dtype, a._data.device) for a in args),
-               ag.is_training(),
+        arrays = [a for a in args if a is not None]
+        sig = (tuple(None if a is None else (a.shape, a.dtype, a._data.device)
+                     for a in args),
+               ag.is_training(), amp.target_dtype(),
                tuple((p.shape, p.dtype) for p in params))
         entry = self._graphs.get(sig)
-        if not all(a._data.is_cuda for a in args) or \
+        if not all(a._data.is_cuda for a in arrays) or \
                 not all(p._data._data.is_cuda for p in params):
             if entry is None:
                 self._misses += 1
@@ -326,24 +330,29 @@ class CachedOp:
         self._hits += 1
         _, statics, graph = entry
         for s, a in zip(statics, args):
-            s.copy_(a._data)
+            if s is not None:
+                s.copy_(a._data)
         graph.replay()
         return _map_out(graph.outputs, lambda t: NDArray(t.clone()))
 
     def _capture(self, args, ptrs):
         """Run the forward eagerly (the warm-up, whose result this call
-        returns) and capture it on static copies of the inputs."""
+        returns) and capture it on static copies of the inputs (a None
+        input stays None).  The capture is thread-local: other threads
+        (another server's scheduler, a client) may use the card while it
+        runs."""
         from ..ndarray import NDArray
 
-        statics = [a._data.clone() for a in args]
+        statics = [None if a is None else a._data.clone() for a in args]
         out = cuda_graph.warmup(lambda: self.block._imperative_forward(
             *args))
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = cuda_graph.capture(
             lambda: _map_out(self.block._imperative_forward(
-                *(NDArray(s) for s in statics)), lambda o: o._data),
-            pool=self._pool)
+                *(None if s is None else NDArray(s) for s in statics)),
+                lambda o: o._data),
+            pool=self._pool, mode="thread_local")
         return out, (ptrs, statics, graph)
 
 

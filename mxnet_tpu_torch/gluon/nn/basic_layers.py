@@ -1,8 +1,9 @@
-"""Gluon basic layers: HybridSequential, Dense, BatchNorm, Flatten and
-Embedding.
+"""Gluon basic layers: HybridSequential, Dense, Dropout, BatchNorm,
+LayerNorm, Flatten and Embedding.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  The other layers
-(Dropout, LayerNorm, ...) port with the op library (ROADMAP Queue 1).
+(InstanceNorm, GroupNorm, Lambda, ...) port with the op library (ROADMAP
+Queue 1).
 
 ``HybridSequential`` runs each ``Conv2D → BatchNorm → Activation("relu")``
 run of its children whose conv is 1×1 (pad 0, dilation 1, one group,
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from ... import amp
 from ... import autograd
 from ...base import resolve_dtype
 from ...ops.conv_bn_relu import conv1x1_bn_relu
@@ -28,7 +30,8 @@ from ..block import HybridBlock
 from .activations import Activation
 from .conv_layers import Conv2D
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
+           "Flatten", "Embedding"]
 
 
 def _fusable(conv, bn, act):
@@ -42,16 +45,21 @@ def _fusable(conv, bn, act):
 
 
 def _conv1x1_bn_relu(x, conv, bn):
-    """``bn(conv(x))`` then relu, as one ``conv1x1_bn_relu``."""
+    """``bn(conv(x))`` then relu, as one ``conv1x1_bn_relu``.  Under amp
+    the conv's operands are cast as amp casts ``convolution``'s; the
+    BatchNorm's stay as they are (``batch_norm`` is on neither list)."""
     conv_p = conv._param_data(x)
     bn._init_channels(conv._channels)
     bn_p = bn._param_data()
     has_bias = "bias" in conv_p
 
     def f(xr, wr, *rest):
-        return conv1x1_bn_relu(xr, wr, rest[0] if has_bias else None,
-                               *rest[-4:], bn._epsilon, conv._strides,
-                               not bn._scale)
+        conv_raws = amp.maybe_cast_args(
+            "convolution", [xr, wr] + ([rest[0]] if has_bias else []))
+        xr, wr = conv_raws[:2]
+        b = conv_raws[2] if has_bias else None
+        return conv1x1_bn_relu(xr, wr, b, *rest[-4:], bn._epsilon,
+                               conv._strides, not bn._scale)
 
     args = [x, conv_p["weight"]] + ([conv_p["bias"]] if has_bias else []) \
         + [bn_p[k] for k in ("gamma", "beta", "running_mean",
@@ -135,6 +143,21 @@ class Dense(HybridBlock):
         return out
 
 
+class Dropout(HybridBlock):
+    """Dropout at ``rate`` in training (``F.dropout``), the identity
+    otherwise; ``axes`` share one draw along those axes."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.dropout(x, p=self._rate, axes=self._axes)
+        return F.identity(x)
+
+
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics (reference
     ``nn.BatchNorm``).  ``F.batch_norm`` returns the moved statistics;
@@ -196,6 +219,36 @@ class BatchNorm(HybridBlock):
                 running_mean._data.copy_(new_mean._data)
                 running_var._data.copy_(new_var._data)
         return y
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis`` (reference ``nn.LayerNorm``):
+    statistics in f32, output in the input's dtype; gamma and beta keep
+    their own dtype (f32 unless cast) and meet bf16 activations under
+    amp."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x):
+        c = int(x.shape[self._axis])
+        self.gamma._finish_deferred_init((c,))
+        self.beta._finish_deferred_init((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.layer_norm(x, gamma, beta, axis=self._axis,
+                            eps=self._epsilon)
 
 
 class Flatten(HybridBlock):

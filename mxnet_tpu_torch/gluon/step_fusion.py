@@ -29,16 +29,23 @@ Semantics, as the reference's:
   states and update counts, and restores them if it fails; then the
   error is raised.  No route falls back to another.
 
+A recorded graph that is still referenced when a step is captured (the
+loss NDArray of an earlier eager step) keeps the parameters' gradient
+accumulators alive, and torch ties each to the stream it was made on:
+the capture then fails with a stream-capture error.  Drop such
+references before the first call.
+
 A graph is keyed on the batch's shapes and dtypes, the optimizer's
-hyperparameters, and the addresses of the weights, masters, states and
-moving statistics: after ``cast`` or ``load_states`` into new tensors the
-next call captures again.  ``update_on_kvstore`` and distributed stores
-are refused, as in the reference.
+hyperparameters, amp's dtype, and the addresses of the weights, masters,
+states and moving statistics: after ``cast`` or ``load_states`` into new
+tensors the next call captures again.  ``update_on_kvstore`` and
+distributed stores are refused, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
 from .. import optimizer as opt
@@ -154,7 +161,8 @@ class FusedTrainStep:
         device = trainer._params[self._live[0]]._data._data.device \
             if self._live else torch.device("cpu")
         sig = (type(optzr).__name__, multi_tensor.hyper(optzr), mp_flags,
-               tuple((b.shape, b.dtype, b._data.device) for b in batch))
+               tuple((b.shape, b.dtype, b._data.device) for b in batch),
+               amp.target_dtype())
         snapshot = None if sig in self._validated else self._snapshot()
         try:
             if device.type == "cuda":

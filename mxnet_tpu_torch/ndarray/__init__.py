@@ -1,5 +1,5 @@
-"""The ``mx.nd`` namespace: NDArray, creation and the ops the Llama
-and ResNet slices use (the ``F`` of ``HybridBlock.hybrid_forward``),
+"""The ``mx.nd`` namespace: NDArray, creation and the ops the Llama,
+ResNet and BERT slices use (the ``F`` of ``HybridBlock.hybrid_forward``),
 ``save``/``load`` of ``.params`` files and ``waitall``.
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  The rest of the op
@@ -13,9 +13,16 @@ import torch
 from ..base import resolve_dtype as _resolve_dtype
 from ..context import current_context
 from ..base import MXNetError as _MXNetError
+from ..ops.attention import (div_sqrt_dim,  # noqa: F401
+                             dot_product_attention,
+                             interleaved_matmul_selfatt_qk,
+                             interleaved_matmul_selfatt_valatt)
 from ..ops.nn_ops import (activation, batch_norm, convolution,  # noqa: F401
-                          flatten, fully_connected, log_softmax, pooling,
-                          relu, softmax_cross_entropy)
+                          dropout, flatten, fully_connected, layer_norm,
+                          leaky_relu, log_softmax, pooling, relu, softmax,
+                          softmax_cross_entropy)
+from ..ops.tensor import (broadcast_lesser, expand_dims,  # noqa: F401
+                          identity, slice_axis, squeeze)
 from ..ops.registry import apply_op as _apply_op
 from .ndarray import NDArray
 
@@ -45,6 +52,21 @@ def _full(shape, value, ctx, dtype):
     return NDArray(torch.full(shape, value,
                               dtype=_resolve_dtype(dtype) or torch.float32,
                               device=(ctx or current_context()).device))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None,
+           **kwargs):
+    """Reference ``arange``: evenly spaced values in ``[start, stop)``,
+    each repeated ``repeat`` times, float32 unless ``dtype`` says
+    otherwise, on ``ctx`` (default: the current context)."""
+    if stop is None:
+        start, stop = 0, start
+    r = torch.arange(start, stop, step,
+                     dtype=_resolve_dtype(dtype) or torch.float32,
+                     device=(ctx or current_context()).device)
+    if repeat > 1:
+        r = r.repeat_interleave(repeat)
+    return NDArray(r)
 
 
 def argmax(data, axis=None, keepdims=False):
@@ -155,6 +177,9 @@ Convolution = convolution
 Flatten = flatten
 FullyConnected = fully_connected
 Pooling = pooling
+LeakyReLU = leaky_relu
+LayerNorm = layer_norm
+Dropout = dropout
 
 
 def waitall():

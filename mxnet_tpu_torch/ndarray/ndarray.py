@@ -153,6 +153,16 @@ class NDArray:
             shape = tuple(shape[0])
         return nd.reshape(self, shape=shape)
 
+    def expand_dims(self, axis):
+        from .. import ndarray as nd
+
+        return nd.expand_dims(self, axis)
+
+    def squeeze(self, axis=None):
+        from .. import ndarray as nd
+
+        return nd.squeeze(self, axis=axis)
+
     def sum(self, axis=None, keepdims=False):
         from .. import ndarray as nd
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _kernels
+from .. import _kernels, cuda_graph
 from ..base import MXNetError
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -90,9 +90,9 @@ def fused_matmul_affine_relu(x, w, scale, bias):
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), m, n, k, _DTYPE_CODES[x.dtype], stream)
     _kernels.check(lib, err, f"fused_matmul_affine_relu ({design}) launch")
-    fused_matmul_affine_relu.launches += 1
+    cuda_graph.count(fused_matmul_affine_relu)
     if design == "mma":
-        fused_matmul_affine_relu.launches_mma += 1
+        cuda_graph.count(fused_matmul_affine_relu, "launches_mma")
     return out
 
 
@@ -125,7 +125,7 @@ def conv1x1_bn_relu(x, weight, conv_bias, gamma, beta, moving_mean,
     takes (a copy), and the (M, N) result comes back as a (B, N, H′, W′)
     view with channels-last strides.  ``conv1x1_bn_relu.calls`` counts the
     calls, on every device."""
-    conv1x1_bn_relu.calls += 1
+    cuda_graph.count(conv1x1_bn_relu, "calls")
     sh, sw = stride
     xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
     b, c, h, wd = xs.shape

@@ -36,7 +36,7 @@ import math
 import torch
 
 from ..base import MXNetError
-from .. import _kernels
+from .. import _kernels, cuda_graph
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -203,9 +203,9 @@ def _count(fn, design):
     """One launch of ``fn``'s kernel of ``design``: ``fn.launches`` counts
     every launch, ``fn.launches_mma`` the tensor-core design's (the f32
     FMA design's are the difference)."""
-    fn.launches += 1
+    cuda_graph.count(fn)
     if design == "mma":
-        fn.launches_mma += 1
+        cuda_graph.count(fn, "launches_mma")
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):

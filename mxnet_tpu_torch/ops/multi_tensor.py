@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, cuda_graph
 from ..base import MXNetError
 
 #: rule name -> the kernel's rule code
@@ -159,7 +159,7 @@ class UpdatePlan:
                 self.table.data_ptr(), self.blocks.data_ptr(), self.nblocks,
                 *hyper(optimizer), stream)
         _kernels.check(lib, err, "multi_tensor_update launch")
-        multi_tensor_update.launches += 1
+        cuda_graph.count(multi_tensor_update)
 
     def _check(self, items, rule):
         if tuple(it.w.numel() for it in items) != self.numels:

@@ -1,10 +1,11 @@
-"""Neural-network ops: activations, ``fully_connected``,
-``convolution``, ``pooling``, ``batch_norm``, ``flatten``,
-``log_softmax`` and ``softmax_cross_entropy``.
+"""Neural-network ops: activations (``activation``, ``leaky_relu``),
+``fully_connected``, ``convolution``, ``pooling``, ``batch_norm``,
+``layer_norm``, ``dropout``, ``flatten``, ``softmax``, ``log_softmax``
+and ``softmax_cross_entropy``.
 
-Counterpart of ``mxnet_tpu/ops/nn_ops.py``, as far as the Llama and
-ResNet slices need; the rest ports with the op library (ROADMAP Queue 1
-item 1).  Two dtype contracts are kept:
+Counterpart of ``mxnet_tpu/ops/nn_ops.py``, as far as the Llama, ResNet
+and BERT slices need; the rest ports with the op library (ROADMAP Queue
+1 item 1).  Three dtype contracts are kept:
 
 - ``softmax_cross_entropy``: f32 math inside whatever the logits' dtype,
   the **sum** over rows as the result, and a backward written directly in
@@ -12,7 +13,13 @@ item 1).  Two dtype contracts are kept:
   of the logits);
 - ``batch_norm`` in training (the reference's ``_bn_train``): statistics
   in f32, y and dx in the input's dtype, dgamma and dbeta in the
-  parameters'.
+  parameters';
+- ``layer_norm`` (the reference's ``_ln_train``): the same, over the
+  normalized axis.
+
+``dropout`` draws its mask from the package's generator of the tensor's
+device (``random.generator``), never from torch's global one, so a CUDA
+graph that registered that generator draws fresh masks on every replay.
 
 Convolutions go to ``torch.nn.functional.conv{1,2,3}d`` and products to
 ``torch.matmul``, as the JAX package leaves them to XLA outside any
@@ -28,9 +35,9 @@ import torch.nn.functional as tnf
 from ..base import MXNetError
 from .registry import apply_op
 
-__all__ = ["activation", "relu", "fully_connected", "convolution",
-           "pooling", "batch_norm", "flatten", "log_softmax",
-           "softmax_cross_entropy"]
+__all__ = ["activation", "relu", "leaky_relu", "fully_connected",
+           "convolution", "pooling", "batch_norm", "layer_norm", "dropout",
+           "flatten", "softmax", "log_softmax", "softmax_cross_entropy"]
 
 _ACTS = {
     "relu": torch.relu,
@@ -51,6 +58,33 @@ def activation(data, act_type="relu", **kwargs):
 
 def relu(data):
     return apply_op(torch.relu, data, name="relu")
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, **kwargs):
+    """Reference ``LeakyReLU`` op: leaky/prelu/elu/selu/gelu (``gelu``
+    is the erf form, torch's ``approximate="none"``)."""
+    if act_type == "leaky":
+        return apply_op(lambda a: torch.where(a > 0, a, slope * a), data,
+                        name="leaky_relu")
+    if act_type == "prelu":
+        return apply_op(lambda a, g: torch.where(a > 0, a, g * a), data,
+                        gamma, name="prelu")
+    if act_type == "elu":
+        return apply_op(
+            lambda a: torch.where(a > 0, a, slope * (torch.exp(a) - 1)), data,
+            name="elu")
+    if act_type == "selu":
+        return apply_op(
+            lambda a: _SELU_SCALE * torch.where(
+                a > 0, a, _SELU_ALPHA * (torch.exp(a) - 1)), data, name="selu")
+    if act_type == "gelu":
+        return apply_op(lambda a: tnf.gelu(a, approximate="none"), data,
+                        name="gelu")
+    raise MXNetError(f"unknown LeakyReLU act_type {act_type!r}")
 
 
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
@@ -236,6 +270,85 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
 
     return apply_op(f, data, gamma, beta, moving_mean, moving_var,
                     name="batch_norm")
+
+
+class _LNTrain(torch.autograd.Function):
+    """Layer norm over axis ``ax`` (the reference's ``_ln_train``):
+    statistics in f32, y in x's dtype; the backward is written out with
+    f32 only inside the reductions, dx in x's dtype and dgamma, dbeta in
+    the parameters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps, ax, shape):
+        xf = x.float()
+        mean = xf.mean(dim=ax, keepdim=True)
+        var = xf.var(dim=ax, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var + eps)
+        y = ((xf - mean) * inv * g.float().reshape(shape) +
+             b.float().reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(x, g, mean, inv)
+        ctx.ax, ctx.shape, ctx.b_dtype = ax, shape, b.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, mean, inv = ctx.saved_tensors
+        ax, shape = ctx.ax, ctx.shape
+        xhat = (x.float() - mean) * inv
+        dyf = dy.float()
+        other = tuple(i for i in range(x.ndim) if i != ax)
+        dbeta = dyf.sum(dim=other)
+        dgamma = (dyf * xhat).sum(dim=other)
+        dyg = dyf * g.float().reshape(shape)
+        dx = inv * (dyg - dyg.mean(dim=ax, keepdim=True) -
+                    xhat * (dyg * xhat).mean(dim=ax, keepdim=True))
+        return (dx.to(x.dtype), dgamma.to(g.dtype), dbeta.to(ctx.b_dtype),
+                None, None, None)
+
+
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, **kwargs):
+    """Reference ``LayerNorm``: statistics in f32, tensors in the input's
+    dtype forward and backward (``_LNTrain``)."""
+    def f(x, g, b):
+        ax = axis % x.ndim
+        shape = tuple(x.shape[i] if i == ax else 1 for i in range(x.ndim))
+        return _LNTrain.apply(x, g, b, float(eps), ax, shape)
+
+    return apply_op(f, data, gamma, beta, name="layer_norm")
+
+
+def dropout(data, p=0.5, mode="training", axes=(), **kwargs):
+    """Reference ``Dropout``: in training (or ``mode="always"``) each
+    element is kept with probability 1 - p and scaled by 1/(1 - p), the
+    rest are 0; ``axes`` share one draw along those axes.  Otherwise
+    the identity.  The mask is drawn from ``random.generator`` of the
+    tensor's device."""
+    from .. import autograd as ag
+    from .. import random as mx_random
+
+    if not (ag.is_training() or mode == "always") or p <= 0:
+        return apply_op(lambda a: a, data, name="dropout_identity")
+
+    def f(a):
+        shape = tuple(1 if i in axes else s for i, s in enumerate(a.shape))
+        u = torch.rand(shape, generator=mx_random.generator(a.device),
+                       device=a.device)
+        return torch.where(u < 1.0 - p, a / (1.0 - p),
+                           torch.zeros((), dtype=a.dtype, device=a.device))
+
+    return apply_op(f, data, name="dropout")
+
+
+def softmax(data, axis=-1, temperature=None, **kwargs):
+    """Reference ``softmax`` along ``axis`` with optional
+    ``temperature``."""
+    t = temperature
+
+    def f(a):
+        x = a / t if t and t != 1.0 else a
+        return torch.softmax(x, dim=axis)
+
+    return apply_op(f, data, name="softmax")
 
 
 def log_softmax(data, axis=-1, temperature=None, **kwargs):

@@ -1,36 +1,46 @@
-"""The user-facing serving surface: configs, the generative server,
+"""The user-facing serving surface: configs, the two servers,
 lifecycle.
 
 Counterpart of ``mxnet_tpu/serving/server.py``.
-:class:`GenerativeServer` serves ``LlamaForCausalLM`` decode with
-continuous batching: requests join and leave the in-flight decode batch
-between steps.  Its default mode keeps K/V in a paged block pool with
-disaggregated prefill and decode lanes (``lanes.py``), optionally with
-speculative decoding (``ServerConfig(draft_net=, spec_k=)``) and the
-radix prefix cache (``radix_cache=True``); ``kv_mode="slots"`` runs the
-slot ledger and single-loop scheduler for A/B.  ``ServerConfig(int8=True)``
-serves weight-only per-channel int8.
+:class:`InferenceServer` serves stateless models (one forward a
+request: a hybridized gluon block, such as ResNet-50 or BERT, or any
+callable) by dynamic batching into power-of-two batch and length
+buckets (``BatchScheduler``).  :class:`GenerativeServer` serves
+``LlamaForCausalLM`` decode with continuous batching: requests join and
+leave the in-flight decode batch between steps.  Its default mode keeps
+K/V in a paged block pool with disaggregated prefill and decode lanes
+(``lanes.py``), optionally with speculative decoding
+(``ServerConfig(draft_net=, spec_k=)``) and the radix prefix cache
+(``radix_cache=True``); ``kv_mode="slots"`` runs the slot ledger and
+single-loop scheduler for A/B.  ``ServerConfig(int8=True)`` serves
+weight-only per-channel int8 on a ``GenerativeServer``.
 
-Synchronous convenience: ``server.generate(...)`` submits and waits.
+Synchronous convenience: ``server.infer(...)`` and
+``server.generate(...)`` submit and wait.
 
-Not ported (ROADMAP.md, Queue 1, "Left out of slice 6"), each raising
-``MXNetError``: ``InferenceServer`` (the stateless-model server),
-``mesh=``/``partition_rules=`` and dp replicas, and
-``ServerConfig(http_port=, slo=)`` (the metrics endpoint and SLO
-accounting).
+Not ported, each raising ``MXNetError``: ``mesh=``/``partition_rules=``
+and dp replicas, and ``ServerConfig(http_port=, slo=)`` (the metrics
+endpoint and SLO accounting; ROADMAP.md, Queue 1, "Left out of slice
+6"); a ``Predictor`` model, ``int8=True`` on an ``InferenceServer``, and
+``ServerConfig(summary_every=, calib_data=)`` (ROADMAP.md, Queue 1,
+"Left out of slice 8").
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from .bucketing import BucketPolicy
 from .protocol import Request, ServerClosedError
-from .scheduler import RequestQueue
+from .scheduler import BatchScheduler, RequestQueue
 
 __all__ = ["ServerConfig", "InferenceServer", "GenerativeServer"]
 
 _LATER = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 6\")"
+_LATER8 = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 8\")"
 
 
 class ServerConfig:
@@ -40,7 +50,11 @@ class ServerConfig:
     ceiling is ``len(batch_buckets) × len(length_buckets)``, and
     ``max_length`` is the engine's ``max_len``.  ``queue_capacity``
     bounds admission (beyond it, submit raises
-    ``ServerOverloadedError``).  ``num_slots`` is the decode batch = max
+    ``ServerOverloadedError``).  ``InferenceServer`` reads
+    ``batch_window_ms`` (the dwell before a batch is taken),
+    ``length_axis`` (the bucketed axis of each request's inputs) and
+    ``output_length_axis`` (the per-example output axis trimmed back at
+    demux, or None).  ``num_slots`` is the decode batch = max
     concurrent sequences; ``int8`` switches on load-time weight
     quantization.  ``kv_mode``: ``"paged"`` (block pool + lanes, the
     default) or ``"slots"``; ``num_blocks=None`` sizes the pool at
@@ -49,18 +63,27 @@ class ServerConfig:
     ``radix_cache`` turns on prompt-prefix reuse within
     ``prefix_cache_tokens`` (None = half the pool).
 
-    The reference's settings of its stateless-model server, telemetry
-    and SLO surfaces (``batch_window_ms``, ``summary_every``,
-    ``length_axis``, ``output_length_axis``, ``calib_data``,
-    ``http_host``, ``slo_window``) are not taken: they come back with
-    the features that read them (ROADMAP.md, "Left out of slice 6")."""
+    The reference's settings of its telemetry, SLO and int8-calibration
+    surfaces are not taken: ``summary_every`` and ``calib_data`` raise
+    (they come back with the telemetry package and ``quantize_net``,
+    ROADMAP.md "Left out of slice 8"), ``http_port`` and ``slo`` raise
+    ("Left out of slice 6"), and ``http_host`` and ``slo_window`` are
+    not parameters."""
 
     def __init__(self, max_batch=8, max_length=128, min_batch=1,
-                 min_length=8, queue_capacity=64, num_slots=4,
-                 max_new_tokens=32, int8=False, kv_mode="paged",
-                 block_size=16, num_blocks=None, http_port=None, slo=None,
-                 draft_net=None, spec_k=3, radix_cache=False,
-                 prefix_cache_tokens=None):
+                 min_length=8, queue_capacity=64, batch_window_ms=2.0,
+                 summary_every=None, length_axis=0, output_length_axis=None,
+                 num_slots=4, max_new_tokens=32, int8=False, calib_data=None,
+                 kv_mode="paged", block_size=16, num_blocks=None,
+                 http_port=None, slo=None, draft_net=None, spec_k=3,
+                 radix_cache=False, prefix_cache_tokens=None):
+        if summary_every is not None:
+            raise MXNetError(f"ServerConfig(summary_every=) (the rolling "
+                             f"latency summary of the telemetry package) "
+                             f"{_LATER8}")
+        if calib_data is not None:
+            raise MXNetError(f"ServerConfig(calib_data=) (int8 calibration "
+                             f"through quantize_net) {_LATER8}")
         if http_port is not None:
             raise MXNetError(f"ServerConfig(http_port=) (the metrics "
                              f"endpoint) {_LATER}")
@@ -72,6 +95,9 @@ class ServerConfig:
                                    min_batch=min_batch,
                                    min_length=min_length)
         self.queue_capacity = int(queue_capacity)
+        self.batch_window_ms = float(batch_window_ms)
+        self.length_axis = int(length_axis)
+        self.output_length_axis = output_length_axis
         self.num_slots = int(num_slots)
         self.max_new_tokens = int(max_new_tokens)
         self.int8 = bool(int8)
@@ -123,12 +149,111 @@ class _ServerBase:
         return req.future
 
 
-class InferenceServer:
-    """The reference's dynamic-batching server for stateless models: not
-    ported yet."""
+class InferenceServer(_ServerBase):
+    """Dynamic-batching server for stateless models.
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(f"serving.InferenceServer {_LATER}")
+    ``model`` is a gluon block (called with one NDArray an input name,
+    in ``input_names`` order, on the device of its parameters) or a
+    callable taking a dict of stacked numpy arrays and returning its
+    outputs.  ``input_names`` defaults to ``["data"]``.  A block that is
+    hybridized runs each (batch, length) bucket as its own CUDA graph,
+    captured on the scheduler thread at the bucket's first batch; the
+    signature count stays within ``len(config.policy.signatures())``.
+    A ``Predictor`` (the reference's third model form) and
+    ``config.int8`` are refused."""
+
+    def __init__(self, model, config=None, input_names=None):
+        super().__init__(config)
+        if hasattr(model, "forward") and hasattr(model, "input_names"):
+            raise MXNetError(f"InferenceServer(Predictor) (symbol graphs "
+                             f"need the symbol API) {_LATER8}")
+        if self.config.int8:
+            raise MXNetError(f"InferenceServer with ServerConfig(int8=True) "
+                             f"(quantize_net) {_LATER8}")
+        self.model = model
+        self.input_names = list(input_names or ["data"])
+        self._block = hasattr(model, "collect_params")
+        self._sched = BatchScheduler(
+            self._run_batch, self.config.policy, self.queue,
+            length_axis=self.config.length_axis,
+            output_length_axis=self.config.output_length_axis,
+            batch_window_ms=self.config.batch_window_ms)
+
+    def _run_batch(self, batch):
+        """One padded bucket through the model (scheduler thread)."""
+        from ..context import context_of
+        from ..ndarray import NDArray
+
+        if not self._block:
+            return self.model(batch)
+        param = next(iter(self.model.collect_params().values()))
+        device = param.data()._data.device
+        args = [NDArray(torch.from_numpy(batch[n]).to(device))
+                for n in self.input_names]
+        with context_of(device):
+            out = self.model(*args)
+        return out if isinstance(out, (list, tuple)) else [out]
+
+    # -- client surface -------------------------------------------------------
+    def submit(self, inputs, length=None, tenant=None):
+        """Async: one example's inputs (an array, or a dict name → array)
+        → a Future resolving to the demuxed output(s).  ``length`` is the
+        true size of the bucketed axis (default: the first input's
+        ``length_axis`` extent); a length above the policy's
+        ``max_length`` raises ``MXNetError`` here, at admission."""
+        if not isinstance(inputs, dict):
+            inputs = {self.input_names[0]: inputs}
+        inputs = {k: np.asarray(v) for k, v in inputs.items()}
+        if length is None:
+            length = inputs[self.input_names[0]] \
+                .shape[self.config.length_axis]
+        self.config.policy.length_bucket(int(length))
+        req = Request(inputs=inputs, length=int(length), tenant=tenant)
+        return self._submit(req)
+
+    def infer(self, inputs, length=None, timeout=60.0):
+        """Sync: submit and wait."""
+        return self.submit(inputs, length=length).result(timeout)
+
+    def health(self):
+        """Scheduler-thread liveness and queue depth (host-side counters,
+        never a device touch)."""
+        alive = self._sched._thread is not None \
+            and self._sched._thread.is_alive()
+        if not self._running:
+            status = "stopped"
+        else:
+            status = "ok" if alive else "degraded"
+        return {"status": status, "running": self._running,
+                "scheduler_alive": alive,
+                "queue_depth": len(self.queue),
+                "rejected": self.queue.rejected}
+
+    def in_flight(self):
+        """The queued requests: id, state, length, tenant and age."""
+        with self.queue._cond:
+            items = list(self.queue._items)
+        now = time.perf_counter()
+        return [{"request_id": r.id, "state": "queued",
+                 "length": r.length, "tenant": r.tenant,
+                 "age_ms": round((now - r.t_submit) * 1e3, 3)}
+                for r in items]
+
+    def stats(self):
+        """Server counters and, for a hybridized block, its CachedOp's
+        (the bucketing policy's check: ``signatures`` at most
+        ``signature_ceiling``)."""
+        out = {
+            "completed": self._sched.completed,
+            "failed": self._sched.failed,
+            "batches": self._sched.batches,
+            "rejected": self.queue.rejected,
+            "pending": len(self.queue),
+            "signature_ceiling": len(self.config.policy.signatures()),
+        }
+        if getattr(self.model, "_cached_op", None) is not None:
+            out["cache"] = self.model._cached_op.cache_stats()
+        return out
 
 
 class GenerativeServer(_ServerBase):

@@ -1010,3 +1010,308 @@ def test_resume_into_a_captured_step_continues_the_run(cuda_nvcc,
     for a, p in zip(weights, net.collect_params().values()):
         np.testing.assert_array_equal(p.data().asnumpy(), a)
     assert len(fstep._graphs) == 1
+
+
+# -- slice 8: BERT's attention, Dropout in a captured step, InferenceServer --
+
+def _bert_qkv(device, seed, b=64, t=128, n=12, h=64):
+    """(B, T, N, H) bf16 operands at BERT-base's attention shape."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return [torch.randn(b, t, n, h, generator=g, device=device,
+                        dtype=torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.cuda
+def test_sdpa_raw_at_bert_shape_runs_the_tensor_core_kernels(cuda_nvcc):
+    """B·N·T·H = 64·12·128·64, non-causal, bf16, unmasked: one launch of
+    each flash kernel's tensor-core design (forward, then dQ and dK/dV
+    in the backward); O and the three gradients against the plain masked
+    route (no mask) on f32 copies of the same inputs, row by row, within
+    the tolerances the flash kernels are held to at bf16 (O: 2u a row and
+    in norm; gradients: 1e-2 of a row, 5e-3 in norm)."""
+    from mxnet_tpu_torch.ops import attention as tatt
+
+    q, k, v = (t.requires_grad_() for t in _bert_qkv(cuda_nvcc, 0))
+    do = _bert_qkv(cuda_nvcc, 1)[0]
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches_mma for c in counters]
+    out = tatt.sdpa_raw(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert [c.launches_mma - n for c, n in zip(counters, before)] == [1] * 3
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = tatt._sdpa_plain(*ref_in, None, 0.125, False)
+    ref_grads = torch.autograd.grad(ref, ref_in, do.float())
+    _assert_rows_close(out.detach(), ref.detach(), 2 * 2.0 ** -8,
+                       2 * 2.0 ** -8)
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == torch.bfloat16
+        _assert_rows_close(g, r, 1e-2, 5e-3)
+
+
+@pytest.mark.cuda
+def test_masked_attention_launches_no_kernel_on_card(cuda_nvcc):
+    """A padding mask (BERT's (B, 1, 1, T) with ``valid_length``, and a
+    row with no key): the plain route, no flash launch, finite, and the
+    row that sees no key is the mean of V (within one bf16 step)."""
+    from mxnet_tpu_torch.ops import attention as tatt
+
+    q, k, v = _bert_qkv(cuda_nvcc, 2, b=4, t=128, n=2)
+    lengths = torch.tensor([128, 77, 5, 1], device=cuda_nvcc)
+    mask = (torch.arange(128, device=cuda_nvcc)[None, None, None, :] <
+            lengths[:, None, None, None]).float()
+    full = torch.ones(4, 1, 128, 128, dtype=torch.bool, device=cuda_nvcc)
+    full[2, :, 9, :] = False
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out = tatt.sdpa_raw(q, k, v, mask)
+    out2 = tatt.sdpa_raw(q, k, v, full)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert bool(torch.isfinite(out).all() and torch.isfinite(out2).all())
+    mean_v = v[2].float().mean(0)
+    assert torch.allclose(out2[2, 9].float(), mean_v,
+                          atol=2.0 ** -8 * mean_v.abs().max().item())
+    # the masked batch row 3 (length 1) reads value 0 alone
+    assert torch.equal(out[3], v[3, 0].expand_as(out[3]))
+
+
+def _dropout_step(mx, ctx, lr, seed):
+    """A ``FusedTrainStep`` (K = 4) of a net with a real ``Dropout``
+    layer (p = 0.5) between two Dense layers, with its batch."""
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(64, in_units=8, activation="relu"),
+            mx.gluon.nn.Dropout(0.5),
+            mx.gluon.nn.Dense(4, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": lr, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(seed)
+    x = mx.nd.array(rng.normal(size=(16, 8)).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 4, 16).astype(np.float32), ctx=ctx)
+    fstep = mx.gluon.FusedTrainStep(net, tr, lambda n, a, b: loss_fn(n(a), b),
+                                    steps_per_execution=4, batch_size=16)
+    return net, tr, fstep, (x, y)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_dropout_layer_draws_fresh_masks(cuda_nvcc,
+                                                          tmp_path):
+    """A Dropout layer inside a captured step: at lr 0 only its masks
+    change the loss, and every replay draws a new one; after
+    ``mx.random.seed`` the replays repeat the same masks; a checkpoint
+    resumed into the captured step at lr > 0 continues the uninterrupted
+    run bit for bit, masks included."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import checkpoint
+
+    ctx = mx.gpu(0)
+    net, tr, fstep, batch = _dropout_step(mx, ctx, 0.0, 21)
+    losses = np.concatenate([fstep(*batch).asnumpy() for _ in range(2)])
+    assert len(np.unique(losses)) == len(losses), losses
+    mx.random.seed(5)
+    first = fstep(*batch).asnumpy()
+    mx.random.seed(5)
+    np.testing.assert_array_equal(fstep(*batch).asnumpy(), first)
+    assert len(fstep._graphs) == 1
+
+    net, tr, fstep, batch = _dropout_step(mx, ctx, 0.05, 22)
+    fstep(*batch)
+    checkpoint.save_checkpoint(str(tmp_path), 4, net, tr)
+    straight = fstep(*batch).asnumpy()
+    weights = [p.data().asnumpy() for p in net.collect_params().values()]
+    assert checkpoint.resume(str(tmp_path), net, tr)[0] == 4
+    np.testing.assert_array_equal(fstep(*batch).asnumpy(), straight)
+    for a, p in zip(weights, net.collect_params().values()):
+        np.testing.assert_array_equal(p.data().asnumpy(), a)
+
+
+@pytest.mark.cuda
+def test_inference_server_replays_resnet_graphs_on_card(cuda_nvcc):
+    """A hybridized narrow ResNetV1 behind ``InferenceServer``: 12
+    requests from 4 client threads, each reply equal to its solo forward;
+    4 fused launches a batch forward, from the graphs; signatures within
+    the policy's ceiling, one miss each."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    ctx = mx.gpu(0)
+    net = _narrow_resnet(mx, ctx)
+    rng = np.random.RandomState(7)
+    images = [rng.normal(size=(3, 32, 32)).astype(np.float32)
+              for _ in range(12)]
+    solo = [net(mx.nd.array(x[None], ctx=ctx)).asnumpy()[0]
+            for x in images]
+    net.hybridize(static_alloc=True)
+    srv = serving.InferenceServer(net, serving.ServerConfig(
+        max_batch=4, min_batch=4, max_length=32, min_length=32,
+        length_axis=1, batch_window_ms=20.0))
+    replies = [None] * len(images)
+
+    def client(ids):
+        for i in ids:
+            replies[i] = srv.infer(images[i], timeout=120)
+
+    fn = cbr.fused_matmul_affine_relu
+    before = fn.launches
+    with srv:
+        threads = [threading.Thread(target=client, args=(range(j, 12, 4),))
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+    stats = srv.stats()
+    assert stats["completed"] == 12 and stats["failed"] == 0
+    assert fn.launches - before == 4 * stats["batches"]
+    assert stats["cache"]["signatures"] <= stats["signature_ceiling"] == 1
+    assert stats["cache"]["misses"] == stats["cache"]["signatures"]
+    for got, ref in zip(replies, solo):
+        # the same kernels at batch 4 and batch 1: other tiles of M, the
+        # same f32 accumulation order within a row
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_inference_server_batch_waits_on_an_event_on_card(cuda_nvcc,
+                                                          monkeypatch):
+    """Each batch of a hybridized block behind ``InferenceServer``
+    (outputs are NDArrays) waits for the card on a CUDA event, which
+    releases the GIL, before its copy to the host: one event wait on
+    the scheduler thread a batch."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    ctx = mx.gpu(0)
+    net = _narrow_resnet(mx, ctx)
+    net.hybridize(static_alloc=True)
+    waits = []
+
+    class Event(torch.cuda.Event):
+        def synchronize(self):
+            if threading.current_thread().name == "mxt-serving-sched":
+                waits.append(1)
+            super().synchronize()
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    rng = np.random.RandomState(3)
+    srv = serving.InferenceServer(net, serving.ServerConfig(
+        max_batch=2, min_batch=1, max_length=32, min_length=32,
+        length_axis=1, batch_window_ms=0.0))
+    with srv:
+        for _ in range(5):
+            srv.infer(rng.normal(size=(3, 32, 32)).astype(np.float32),
+                      timeout=120)
+    stats = srv.stats()
+    assert stats["completed"] == 5 and stats["failed"] == 0
+    assert len(waits) == stats["batches"] == 5
+
+
+@pytest.mark.cuda
+def test_servers_capture_while_another_server_replays_on_card(cuda_nvcc,
+                                                              monkeypatch):
+    """Three ``InferenceServer``s live at once, each over its own
+    hybridized narrow ResNetV1.  C's graph is captured before the servers
+    start; the first batches of A and B capture on their scheduler
+    threads, and both captures stay open (a barrier inside the captured
+    function) until C has served two batches (graph replays, event
+    waits, copies to the host) meanwhile.  Every reply equals its
+    request's solo forward, nothing fails, and the fused launches are
+    counted exactly: 4 a batch forward, none for a capture."""
+    import threading
+    import time
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cuda_graph, serving
+
+    ctx = mx.gpu(0)
+    nets = [_narrow_resnet(mx, ctx, seed=s) for s in range(3)]
+    rng = np.random.RandomState(11)
+    images = [rng.normal(size=(3, 32, 32)).astype(np.float32)
+              for _ in range(6)]
+    solo = [[net(mx.nd.array(x[None], ctx=ctx)).asnumpy()[0]
+             for x in images] for net in nets]
+    for net in nets:
+        net.hybridize(static_alloc=True)
+    nets[2](mx.nd.array(images[0][None], ctx=ctx))  # C's capture, here
+    srvs = [serving.InferenceServer(net, serving.ServerConfig(
+        max_batch=1, min_batch=1, max_length=32, min_length=32,
+        length_axis=1, batch_window_ms=0.0)) for net in nets]
+    both_open = threading.Barrier(2, timeout=120)
+    held = []
+    real_capture = cuda_graph.capture
+
+    def capture(fn, **kw):
+        def hold_then_run():
+            both_open.wait()
+            n = srvs[2].stats()["batches"]
+            deadline = time.monotonic() + 120
+            while srvs[2].stats()["batches"] < n + 2:
+                if time.monotonic() > deadline:
+                    raise RuntimeError("C served nothing during a capture")
+                time.sleep(0.001)
+            held.append(threading.current_thread().name)
+            return fn()
+        return real_capture(hold_then_run, **kw)
+
+    monkeypatch.setattr(cuda_graph, "capture", capture)
+    replies = [[None] * len(images) for _ in nets]
+    c_replies = []
+    errors = []
+    done = threading.Event()
+
+    def client(k):
+        try:
+            for i, x in enumerate(images):
+                replies[k][i] = srvs[k].infer(x, timeout=300)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(f"server {k}: {e!r}")
+
+    def c_client():
+        i = 0
+        try:
+            while not done.is_set():
+                c_replies.append((i, srvs[2].infer(images[i], timeout=300)))
+                i = (i + 1) % len(images)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(f"server 2: {e!r}")
+
+    fn = cbr.fused_matmul_affine_relu
+    before = fn.launches
+    for srv in srvs:
+        srv.start()
+    try:
+        c_thread = threading.Thread(target=c_client)
+        c_thread.start()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        done.set()
+        c_thread.join(600)
+    finally:
+        for srv in srvs:
+            srv.stop()
+    stats = [srv.stats() for srv in srvs]
+    assert errors == []
+    assert len(held) == 2
+    assert all(s["failed"] == 0 for s in stats)
+    assert [s["cache"]["signatures"] for s in stats] == [1, 1, 1]
+    assert fn.launches - before == 4 * sum(s["batches"] for s in stats)
+    for k in (0, 1):
+        for got, ref in zip(replies[k], solo[k]):
+            np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert len(c_replies) >= 2
+    for i, got in c_replies:
+        np.testing.assert_allclose(got, solo[2][i], rtol=1e-5, atol=1e-5)

@@ -23,7 +23,10 @@ PKG = ROOT / "mxnet_tpu_torch"
 def test_import_pulls_in_no_jax_in_a_fresh_process():
     code = ("import sys, mxnet_tpu_torch, mxnet_tpu_torch.models.llama, "
             "mxnet_tpu_torch.convert, mxnet_tpu_torch._kernels, "
-            "mxnet_tpu_torch.serving\n"
+            "mxnet_tpu_torch.serving, mxnet_tpu_torch.amp, "
+            "mxnet_tpu_torch.models.bert, "
+            "mxnet_tpu_torch.models.transformer, "
+            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.tensor\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"

@@ -317,16 +317,16 @@ def test_engine_programs_keep_the_reference_signature_keys(nets):
 
 def test_unported_serving_surface_raises_naming_the_roadmap(nets):
     (_, tnet), _ = nets
-    for make in (lambda: tserving.InferenceServer(lambda b: b),
-                 lambda: tserving.BatchScheduler(None, None, None),
-                 lambda: tserving.ServerConfig(http_port=0),
+    for make in (lambda: tserving.ServerConfig(http_port=0),
                  lambda: tserving.ServerConfig(slo={"ttft_ms": 1}),
                  lambda: tserving.GenerativeServer(tnet, mesh=object())):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 6"):
             make()
-    for unread in ("batch_window_ms", "summary_every", "length_axis",
-                   "output_length_axis", "calib_data", "http_host",
-                   "slo_window"):
+    for make in (lambda: tserving.ServerConfig(summary_every=32),
+                 lambda: tserving.ServerConfig(calib_data=[1])):
+        with pytest.raises(tmx.MXNetError, match="Left out of slice 8"):
+            make()
+    for unread in ("http_host", "slo_window"):
         with pytest.raises(TypeError):
             tserving.ServerConfig(**{unread: None})
     with pytest.raises(tmx.MXNetError, match="kv_mode='paged'"):
