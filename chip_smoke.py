@@ -12,7 +12,11 @@ multi-tensor kernel, and the CUDA graphs of ``hybridize()``,
 ``FusedTrainStep``, ``generate`` and the serving tick; ``.params`` files
 and a checkpoint's round trip; BERT-base training under amp through the
 flash kernels, and stateless serving through ``InferenceServer`` (a
-ResNet-50 and a BERT-base classifier).
+ResNet-50 and a BERT-base classifier); the rest of the vision model zoo
+(MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet) in f32
+against the CPU, MobileNet v1, DenseNet-121 and Inception v3 inference
+through the fused 1x1 kernel at 13, 58 and 40 launches a forward, and
+Inception v3 training with RMSProp, the metrics and ``Speedometer``.
 
     python3 chip_smoke.py
 
@@ -40,7 +44,12 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    and one ragged shape, with its design, time, TFLOP/s, the plain
    version's time, the library's (``addmm`` with the scale folded, then
    ``relu``), the eager cuDNN chain's and the bound, and the NCHW ->
-   (M, K) copy's time; then one bf16 and one f16 forward's sums;
+   (M, K) copy's time; then one bf16 and one f16 forward's sums; and
+   every distinct bf16 shape of MobileNet v1 1.0 (9 shapes, 13 launches
+   a forward), Inception v3 (19, 40) and DenseNet-121 (58, 58) at B=128
+   (read off a CPU forward), each against the plain version with its
+   time, bound, plain time and ``addmm`` + ``relu``'s, and each net's
+   forward summed over its launches beside its bound;
 5b. multi-tensor update: ``csrc/multi_tensor_update.cu`` against its
    plain version (the optimizers' per-tensor rules) for SGD, SGD with
    momentum, NAG, Adam and AdamW in f32, bf16, bf16 with f32 masters and
@@ -132,10 +141,30 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     ``InferenceServer`` as a callable that builds ``valid_length`` from
     the padded ids: 64 requests of 16-128 tokens, three waves, each
     reply against its solo forward, no flash launch (the masked route);
-    requests/s, p50/p99 latency.
+    requests/s, p50/p99 latency;
+15. zoo f32 checks: ``alexnet``, ``vgg16_bn``, ``squeezenet1.1``,
+    ``densenet121``, ``inceptionv3`` (299x299), ``mobilenet1.0`` and
+    ``mobilenetv2_1.0`` at full width in f32, B=2, weights from the seed
+    on the CPU: the card's forward against the CPU's within 1e-3 of the
+    largest logit, the fused kernel's FMA design launched 58, 40 and 13
+    times in the three nets that fuse;
+15b. the zoo inference slice: ``mobilenet1.0`` and ``densenet121`` at
+    224x224 and ``inceptionv3`` at 299x299, bf16, B=128, eagerly and
+    hybridized (replays against the eager logits): exactly 13, 58 and 40
+    tensor-core launches of the fused kernel a forward, images/s, and
+    the fused path's NCHW -> (M, K) copies (count and time, from a probe
+    forward before the counted path);
+15c. the zoo training slice: ``inceptionv3`` at full width, 299x299,
+    bf16, B=128, ``SoftmaxCrossEntropyLoss``, ``gluon.Trainer`` with
+    RMSProp (decay 0.9, epsilon 1.0, clip 2.0, lr 0.045), ``Accuracy``
+    and ``TopKAccuracy(5)`` each step and ``Speedometer``: eight eager
+    steps, then ``FusedTrainStep`` K=8 on a fresh net (the optimizer's
+    own rule in the graph: no multi-tensor launch) against them, both
+    falling; ms a step, images/s, graph pool, peak memory.
 
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
-13b, 14, 14b; the update's in 9, 12, 12b and 13b) and read just after,
+13b, 14, 14b, each net of 15b; the update's in 9, 12, 12b and 13b) and
+read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -2719,6 +2748,408 @@ def bert_serve_phase(torch, mx, bert, fa, serving, failures):
     free_card(torch)
 
 
+# -- slice 9: the rest of the vision model zoo -------------------------------
+# (net, image side, launches of the fused kernel a forward): the three nets
+# whose 1x1 Conv2D -> BatchNorm -> ReLU runs fuse in inference
+ZOO_FUSED = [("mobilenet1.0", 224, 13), ("inceptionv3", 299, 40),
+             ("densenet121", 224, 58)]
+ZOO_B = 128
+# phase 15: every family at full width, f32, B=2, card against the CPU
+ZOO_F32 = [("alexnet", 224, 0), ("vgg16_bn", 224, 0),
+           ("squeezenet1.1", 224, 0), ("densenet121", 224, 58),
+           ("inceptionv3", 299, 40), ("mobilenet1.0", 224, 13),
+           ("mobilenetv2_1.0", 224, 0)]
+ZOO_F32_TOL = 1e-3  # of the largest logit, as phase 10's ResNet-50
+# phase 15c: the Inception-v3 paper's RMSProp (Szegedy et al. 2016, §8:
+# decay 0.9, epsilon 1.0, gradients clipped at 2.0) at its lr 0.045
+INCEPTION_LR = 0.045
+INCEPTION_K = 8
+
+
+def zoo_shapes(torch, mx, vision, cbr):
+    """Each net of ``ZOO_FUSED``: its distinct fused (M, K, N) at B=1, with
+    the number of launches of each in one forward, read off a forward on
+    the CPU (the kernel's plain version) through a recording wrapper of
+    ``fused_matmul_affine_relu`` that ``conv1x1_bn_relu`` looks up."""
+    orig = cbr.fused_matmul_affine_relu
+    seen = []
+
+    def record(x, w, scale, bias):
+        seen.append((x.shape[0], x.shape[1], w.shape[1]))
+        return orig(x, w, scale, bias)
+
+    out = {}
+    cbr.fused_matmul_affine_relu = record
+    try:
+        for name, image, _ in ZOO_FUSED:
+            seen.clear()
+            net = vision.get_model(name)
+            net.initialize(ctx=mx.cpu())
+            net(mx.nd.zeros((1, 3, image, image), ctx=mx.cpu()))
+            counts = {}
+            for s in seen:
+                counts[s] = counts.get(s, 0) + 1
+            out[name] = sorted(counts.items())
+    finally:
+        cbr.fused_matmul_affine_relu = orig
+    return out
+
+
+def zoo_kernel_phase(torch, cbr, shapes, failures):
+    """Phase 5 at the new shapes: the fused kernel against its plain
+    version at every distinct bf16 shape of the three nets at B=128,
+    with its time, bound, the plain version's and cuBLAS ``addmm`` +
+    ``relu``'s (the scale folded into w), then each net's forward summed
+    over its launches."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    dt = "bfloat16"
+    nets = {}
+    for name, _, per_net in ZOO_FUSED:
+        rows = []
+        for (m1, k, n), per_fwd in shapes[name]:
+            m = m1 * ZOO_B
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            w = (torch.randn(k, n, generator=gen, device="cuda") /
+                 math.sqrt(k)).bfloat16()
+            scale = torch.rand(n, generator=gen, device="cuda") + 0.5
+            bias = torch.rand(n, generator=gen, device="cuda") - 0.5
+            got = cbr.fused_matmul_affine_relu(x, w, scale, bias)
+            ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(),
+                                                      scale, bias)
+            diff = (got.float() - ref).abs()
+            largest = ref.abs().max().item()
+            ok = bool((diff <= FUSED_REL_TOL[dt] * ref.abs() +
+                       FUSED_ABS_TOL[dt] * largest).all()) and \
+                got.shape == (m, n) and bool(torch.isfinite(got).all())
+            err = diff.max().item()
+            iters = 20 if m * k * n > 1e9 else 100
+            w_lib = (w.float() * scale).bfloat16()
+            b_lib = bias.bfloat16()
+            row = dict(
+                phase="fused_kernel_zoo", net=name, M=m, K=k, N=n,
+                launches_per_forward=per_fwd, max_abs_err=err,
+                max_abs_ref=largest,
+                kernel_ms=time_ms(torch, lambda: cbr.fused_matmul_affine_relu(
+                    x, w, scale, bias), iters),
+                plain_ms=time_ms(
+                    torch, lambda: cbr._fused_matmul_affine_relu_plain(
+                        x, w, scale, bias), max(iters // 4, 5)),
+                library_ms=time_ms(torch, lambda: torch.relu(torch.addmm(
+                    b_lib, x, w_lib)), iters))
+            row["bound_ms"], row["bound_by"] = roofline_ms(
+                2.0 * m * k * n, 2 * (m * k + k * n + m * n) + 8 * n, dt)
+            row["ok"] = ok
+            emit(row)
+            rows.append(row)
+            if not ok:
+                failures.append(f"fused kernel {name} ({m}, {k}, {n}): "
+                                f"max err {err} (largest {largest})")
+            del x, w, got, ref, diff
+        total = dict(phase="fused_kernel_zoo_forward", net=name, B=ZOO_B,
+                     dtype=dt, shapes=len(rows),
+                     launches=sum(r["launches_per_forward"] for r in rows),
+                     max_abs_err=max(r["max_abs_err"] for r in rows),
+                     **{key: sum(r[key] * r["launches_per_forward"]
+                                 for r in rows)
+                        for key in ("kernel_ms", "bound_ms", "plain_ms",
+                                    "library_ms")})
+        total["gflop"] = sum(2.0 * r["M"] * r["K"] * r["N"] *
+                             r["launches_per_forward"] for r in rows) * 1e-9
+        by_bytes = sum(r["bound_ms"] * r["launches_per_forward"]
+                       for r in rows if r["bound_by"] == "bytes")
+        total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] \
+            else "operations"
+        total["shapes_losing_to_library"] = sum(
+            r["kernel_ms"] > r["library_ms"] for r in rows)
+        total["ok"] = total["launches"] == per_net
+        emit(total)
+        if not total["ok"]:
+            failures.append(f"{name}: {total['launches']} fused launches a "
+                            f"forward in the probe, expected {per_net}")
+        nets[name] = total
+    return nets
+
+
+def zoo_f32_phase(torch, mx, vision, cbr, failures):
+    """Phase 15: each family at full width in f32, B=2, weights drawn on
+    the CPU from the seed: the card's forward (the fused kernel's FMA
+    design where 1x1 runs fuse, no TF32) against the CPU's (the plain
+    version)."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    fn = cbr.fused_matmul_affine_relu
+    for name, image, expected in ZOO_F32:
+        free_card(torch)
+        shape = (2, 3, image, image)
+        arrays = _resnet_arrays(torch, mx, lambda: vision.get_model(name),
+                                shape)
+        x = torch.rand(shape,
+                       generator=torch.Generator().manual_seed(SEED + 21))
+        cpu_net, gpu_net = vision.get_model(name), vision.get_model(name)
+        load_numpy_params(cpu_net, arrays, ctx=mx.cpu())
+        load_numpy_params(gpu_net, arrays, ctx=mx.gpu(0))
+        before = (fn.launches, fn.launches_mma)
+        got = gpu_net(mx.nd.array(x, ctx=mx.gpu(0)))._data.float().cpu()
+        launched = fn.launches - before[0]
+        mma = fn.launches_mma - before[1]
+        ref = cpu_net(mx.nd.array(x, ctx=mx.cpu()))._data
+        largest = ref.abs().max().item()
+        share = (got - ref).abs().max().item() / largest
+        ok = launched == expected and mma == 0 and \
+            share <= ZOO_F32_TOL and got.shape == (2, 1000) and \
+            bool(torch.isfinite(got).all())
+        emit(dict(phase="zoo_f32_check", net=name, B=2, image=image,
+                  params=sum(a.size for a in arrays.values()),
+                  launches=launched, launches_mma=mma,
+                  max_abs_logit=largest, max_err_share=share,
+                  tol=ZOO_F32_TOL, ok=ok))
+        if not ok:
+            failures.append(f"{name} f32 check: launches {launched} "
+                            f"(expected {expected}, tensor-core {mma}), "
+                            f"error share {share}")
+        del cpu_net, gpu_net, arrays
+    free_card(torch)
+
+
+def _copy_probe(torch, mx, net, x):
+    """One forward of ``net`` on ``x`` through a wrapper of the fused
+    path's ``conv1x1_bn_relu`` that times the NCHW -> (M, K) copy it
+    makes where its input is not channels-last already: (calls, copies,
+    summed copy ms)."""
+    from mxnet_tpu_torch.gluon.nn import basic_layers
+
+    orig = basic_layers.conv1x1_bn_relu
+    stats = [0, 0, 0.0]
+
+    def probe(x, weight, *rest):
+        sh, sw = rest[-2]
+        xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
+        stats[0] += 1
+        if not xs.permute(0, 2, 3, 1).is_contiguous():
+            stats[1] += 1
+            stats[2] += time_ms(torch, lambda: xs.permute(0, 2, 3, 1).reshape(
+                -1, xs.shape[1]).contiguous(), 5)
+        return orig(x, weight, *rest)
+
+    basic_layers.conv1x1_bn_relu = probe
+    try:
+        net(x)
+    finally:
+        basic_layers.conv1x1_bn_relu = orig
+    torch.cuda.synchronize()
+    return tuple(stats)
+
+
+def zoo_infer_phase(torch, mx, vision, cbr, failures):
+    """Phase 15b: ``mobilenet1.0`` and ``densenet121`` at 224x224 and
+    ``inceptionv3`` at 299x299, bf16, B=128: four eager forwards, then
+    hybridized (the first call captures, the next replay), each forward
+    launching the fused kernel's tensor-core design exactly 13, 58 and 40
+    times; the replayed logits against the eager ones, images/s, and the
+    NCHW -> (M, K) copies of the fused path (a probe forward before the
+    counted path)."""
+    fn = cbr.fused_matmul_affine_relu
+    per_net = {}
+    for name, image, expected in ZOO_FUSED:
+        free_card(torch)
+        mx.random.seed(SEED)
+        net = vision.get_model(name)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.cast("bfloat16")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 22)
+        x = mx.nd.array(torch.rand((ZOO_B, 3, image, image), generator=gen,
+                                   device="cuda").bfloat16())
+        net(x[0:1])  # resolve deferred shapes
+        calls, copies, copy_ms = _copy_probe(torch, mx, net, x)
+        torch.cuda.synchronize()
+        fn.launches = fn.launches_mma = 0  # this net's main path starts
+        runs = {}
+        for mode in ("eager", "graph"):
+            if mode == "graph":
+                net.hybridize(static_alloc=True, static_shape=True)
+            torch.cuda.reset_peak_memory_stats()
+            ms, launched = [], []
+            for _ in range(4):
+                before = (fn.launches, fn.launches_mma)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = net(x)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                launched.append((fn.launches - before[0],
+                                 fn.launches_mma - before[1]))
+            runs[mode] = dict(out=out._data, ms=ms, launched=launched,
+                              warm_ms=sum(ms[1:]) / 3,
+                              peak=torch.cuda.max_memory_allocated())
+            del out
+        launches, launches_mma = fn.launches, fn.launches_mma  # ... ends
+        eager, graph = runs["eager"], runs["graph"]
+        diff = (graph["out"].float() - eager["out"].float()).abs().max()
+        tol = GRAPH_BF16_TOL * eager["out"].float().abs().max().item()
+        finite = bool(torch.isfinite(eager["out"]).all())
+        ok = eager["launched"] == [(expected, expected)] * 4 and \
+            graph["launched"] == [(expected, expected)] * 4 and \
+            diff.item() <= tol and finite and \
+            tuple(eager["out"].shape) == (ZOO_B, 1000)
+        row = dict(phase="zoo_infer", net=name, B=ZOO_B, image=image,
+                   dtype="bfloat16",
+                   launches_per_forward=[n for n, _ in eager["launched"]],
+                   launches_mma_per_forward=[
+                       n for _, n in eager["launched"] + graph["launched"]],
+                   eager_ms=eager["ms"], graph_ms=graph["ms"],
+                   eager_images_per_s=ZOO_B / eager["warm_ms"] * 1e3,
+                   graph_images_per_s=ZOO_B / graph["warm_ms"] * 1e3,
+                   max_abs_diff_graph=diff.item(), tol=tol,
+                   identical_to_eager=bool(torch.equal(graph["out"],
+                                                       eager["out"])),
+                   fused_calls=calls, nchw_to_mk_copies=copies,
+                   nchw_to_mk_copy_ms=copy_ms,
+                   eager_peak_bytes=eager["peak"],
+                   graph_peak_bytes=graph["peak"],
+                   cache_stats=net.cache_stats(), finite=finite, ok=ok)
+        emit(row)
+        if not ok:
+            failures.append(f"{name} bf16 inference: launches (all, "
+                            f"tensor-core) {eager['launched']} / "
+                            f"{graph['launched']}, expected {expected} a "
+                            f"forward; graph diff {diff.item()} (tol {tol})")
+        per_net[name] = (launches, launches_mma)
+        net.hybridize(False)
+        del net, x, runs, eager, graph
+    free_card(torch)
+    return per_net
+
+
+def inception_train_phase(torch, mx, vision, cbr, mt, failures):
+    """Phase 15c: ``inceptionv3`` at full width, 299x299, bf16, B=128,
+    through the image-classification loop: ``SoftmaxCrossEntropyLoss``,
+    ``gluon.Trainer`` with RMSProp (decay 0.9, epsilon 1.0, gradients
+    clipped at 2.0, lr ``INCEPTION_LR``), ``metric.Accuracy`` and
+    ``TopKAccuracy(5)`` updated each step and ``callback.Speedometer``:
+    eight eager steps on one batch (the first the warm-up), then
+    ``FusedTrainStep`` with K=8 on a fresh net from the same seed: its
+    eight losses against the eager eight, both falling, then one timed
+    call.  RMSProp has no rule code of the fused update kernel, so no
+    multi-tensor launch; BatchNorm normalizes by the batch while
+    recording, so no fused conv launch either."""
+    import logging
+
+    free_card(torch)
+    kw = {"learning_rate": INCEPTION_LR, "gamma1": 0.9, "epsilon": 1.0,
+          "clip_gradient": 2.0}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+    x = mx.nd.array(torch.rand((ZOO_B, 3, 299, 299), generator=gen,
+                               device="cuda").bfloat16())
+    y = mx.nd.array(torch.randint(0, 1000, (ZOO_B,), generator=gen,
+                                  device="cuda").float())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make():
+        mx.random.seed(SEED)
+        net = vision.inception_v3(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.zeros((1, 3, 299, 299), ctx=mx.gpu(0)))
+        net.cast("bfloat16")
+        return net, mx.gluon.Trainer(net.collect_params(), "rmsprop",
+                                     dict(kw))
+
+    logged = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    handler = _Keep(level=logging.INFO)
+    root = logging.getLogger()
+    old_level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    fn = cbr.fused_matmul_affine_relu
+    fused_launches = 0  # while training (make()'s shape pass runs it)
+    mt_before = mt.multi_tensor_update.launches
+    try:
+        net, tr = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fn.launches
+        metric = mx.metric.CompositeEvalMetric(
+            [mx.metric.Accuracy(), mx.metric.TopKAccuracy(5)])
+        speed = mx.callback.Speedometer(ZOO_B, frequent=1,
+                                        auto_reset=False)
+        eager, eager_ms = [], []
+        for step in range(INCEPTION_K):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mx.autograd.record():
+                out = net(x)
+                loss = loss_fn(out, y)
+            loss.backward()
+            tr.step(ZOO_B)
+            metric.update([y], [out])
+            speed(mx.callback.BatchEndParam(0, step, metric))
+            eager.append(float(loss.sum().asscalar()))
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+        names, values = metric.get()
+        fused_launches += fn.launches - before
+        eager_peak = torch.cuda.max_memory_allocated()
+        del net, tr, out, loss
+        free_card(torch)
+        net, tr = make()
+        fstep = mx.gluon.FusedTrainStep(
+            net, tr, lambda n, a, c: loss_fn(n(a), c),
+            steps_per_execution=INCEPTION_K, batch_size=ZOO_B)
+        torch.cuda.synchronize()
+        before = fn.launches
+        t = time.perf_counter()
+        fused = fstep(x, y).asnumpy().tolist()
+        first_call_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = fstep(x, y).asnumpy()
+        call_ms = (time.perf_counter() - t) * 1e3
+        fused_launches += fn.launches - before
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(old_level)
+    mt_launches = mt.multi_tensor_update.launches - mt_before
+    graph = next(iter(fstep._graphs.values()))["graph"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(fused, eager))
+    falling = eager[-1] < eager[0] and fused[-1] < fused[0]
+    step_ms = call_ms / INCEPTION_K
+    warm = sum(eager_ms[1:4]) / 3
+    ok = rel <= FUSED_LOSS_RTOL and falling and mt_launches == 0 and \
+        fused_launches == 0 and bool(np.isfinite(more).all()) and \
+        len(fstep._graphs) == 1 and len(logged) >= INCEPTION_K - 1
+    emit(dict(phase="inception_train", B=ZOO_B, image=299,
+              dtype="bfloat16", optimizer="rmsprop", **kw,
+              K=INCEPTION_K, eager_losses=eager, fused_losses=fused,
+              falling=falling, max_loss_rel_err=rel, tol=FUSED_LOSS_RTOL,
+              eager_step_ms=eager_ms, eager_warm_ms=warm,
+              eager_images_per_s=ZOO_B / warm * 1e3,
+              metrics=dict(zip(names, values)),
+              speedometer_lines=len(logged),
+              speedometer_last=logged[-1] if logged else None,
+              first_call_s=first_call_s, call_ms=call_ms, step_ms=step_ms,
+              images_per_s=ZOO_B / step_ms * 1e3,
+              next_losses=more.tolist(), graph_replays=graph.replays,
+              graph_pool_bytes=graph.pool_bytes,
+              eager_peak_bytes=eager_peak,
+              replay_peak_bytes_outside_pool=torch.cuda.max_memory_allocated(),
+              multi_tensor_launches=mt_launches,
+              fused_conv_launches=fused_launches, ok=ok))
+    if not ok:
+        failures.append(f"inception training: eager {eager}, fused {fused} "
+                        f"(worst {rel}), multi-tensor launches "
+                        f"{mt_launches}, fused conv launches "
+                        f"{fused_launches}, speedometer lines {len(logged)}")
+    del net, tr, fstep, graph
+    free_card(torch)
+
+
 def main():
     import torch
 
@@ -2769,6 +3200,8 @@ def main():
     rows = kernel_phase(torch, fa, failures)
     brows = backward_phase(torch, fa, failures)
     fused = fused_kernel_phase(torch, cbr, failures)
+    zoo = zoo_kernel_phase(torch, cbr, zoo_shapes(torch, mx, vision, cbr),
+                           failures)
     mtrow = multi_tensor_phase(torch, mx, llama, mt, failures)
     f32_phase(torch, mx, llama, fa, failures)
     f32_train_phase(torch, mx, llama, fa, failures)
@@ -2797,6 +3230,11 @@ def main():
     fused_launches += served
     fused_mma += served_mma
     bert_serve_phase(torch, mx, bert, fa, serving, failures)
+    zoo_f32_phase(torch, mx, vision, cbr, failures)
+    zoo_launches = zoo_infer_phase(torch, mx, vision, cbr, failures)
+    fused_launches += sum(n for n, _ in zoo_launches.values())
+    fused_mma += sum(n for _, n in zoo_launches.values())
+    inception_train_phase(torch, mx, vision, cbr, mt, failures)
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -2873,6 +3311,18 @@ def main():
          "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
          "library_ms": fused["library_ms"]},
+        *[{"name": "fused_matmul_affine_relu", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/fused_matmul_affine_relu.cu",
+           "replaces": "tools/pallas_conv_probe.py:35",
+           "design": design_name("mma", "bfloat16"), "net": name,
+           "B": ZOO_B, "launches": zoo_launches[name][0],
+           "launches_mma": zoo_launches[name][1],
+           "max_abs_err": zoo[name]["max_abs_err"],
+           "ms": zoo[name]["kernel_ms"], "plain_ms": zoo[name]["plain_ms"],
+           "bound_ms": zoo[name]["bound_ms"],
+           "bound_by": zoo[name]["bound_by"],
+           "library_ms": zoo[name]["library_ms"],
+           "gflop": zoo[name]["gflop"]} for name, _, _ in ZOO_FUSED],
         {"name": "multi_tensor_update", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
          "replaces": "mxnet_tpu/gluon/trainer.py:516",

@@ -28,9 +28,11 @@ Slices so far: Llama inference, Llama training, ResNet inference
 (through a fused 1×1 conv+BN+ReLU kernel) and training
 (``gluon.model_zoo.vision``), Llama serving (``serving``: continuous
 batching over a paged KV pool, speculative verify, radix prefix reuse),
-step fusion and checkpoints, and BERT-base under ``amp`` with stateless
-serving (``serving.InferenceServer``); ROADMAP Queue 1 lists what
-follows.
+step fusion and checkpoints, BERT-base under ``amp`` with stateless
+serving (``serving.InferenceServer``), and the op library, the rest of
+Gluon, ``metric`` and ``callback`` with the rest of the vision model zoo
+(MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet); ROADMAP
+Queue 1 lists what follows.
 
 Precision: importing the package turns off, once and for the whole
 process, the torch flags that would let an f32 product run in TF32
@@ -67,6 +69,9 @@ from . import initializer
 from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
+from . import metric
+from . import callback
+from . import profiler
 from . import kvstore
 from . import kvstore as kv
 from . import gluon

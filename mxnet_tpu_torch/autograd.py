@@ -19,8 +19,8 @@ reference.
 ``retain_graph=False`` frees the graph after one backward; a second
 backward through it raises ``MXNetError`` and leaves the reached
 ``"write"`` gradients zero.  Higher-order gradients
-(``create_graph=True``) port with the op library (ROADMAP Queue 1
-item 1).
+(``create_graph=True``) are left out of slice 9 (ROADMAP.md): they
+raise.
 """
 from __future__ import annotations
 
@@ -244,7 +244,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if create_graph:
         raise MXNetError(
             "autograd.grad(create_graph=True) (higher-order gradients) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 1)")
+            "left out of slice 9 (ROADMAP.md, \"Left out of slice 9\")")
     if isinstance(variables, NDArray):
         variables = [variables]
     for v in variables:

@@ -1,19 +1,26 @@
-"""Gluon losses: ``Loss``, ``L2Loss``, ``L1Loss`` and
-``SoftmaxCrossEntropyLoss``.
+"""Gluon losses.
 
 Counterpart of ``mxnet_tpu/gluon/loss.py`` (reference
-``python/mxnet/gluon/loss.py``).  Each returns a per-sample loss vector
-(the mean over the non-batch axes), so ``loss.backward()`` seeds ones
-per sample.  The other losses port with the op library (ROADMAP Queue 1
-item 2).
+``python/mxnet/gluon/loss.py``): ``L2Loss``, ``L1Loss``,
+``SigmoidBinaryCrossEntropyLoss``, ``SoftmaxCrossEntropyLoss``,
+``KLDivLoss``, ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``,
+``LogisticLoss``, ``TripletLoss``, ``PoissonNLLLoss`` and
+``CosineEmbeddingLoss``.  Each returns a per-sample loss vector (the mean
+over the non-batch axes), so ``loss.backward()`` seeds ones per sample.
+``CTCLoss`` is left out of slice 9 (ROADMAP.md): it raises.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from ..base import MXNetError
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
-           "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss",
+           "PoissonNLLLoss", "CosineEmbeddingLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -78,6 +85,44 @@ class L1Loss(Loss):
         return _batch_mean(F, loss, self._batch_axis)
 
 
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """BCE over logits (default) or probabilities (reference:
+    ``SigmoidBCELoss``, numerically-stable logit form)."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = _reshape_like(F, pred, label)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + \
+                    F.activation(-F.abs(pred), act_type="softrelu")
+            else:
+                log_wt = F.log(pos_weight) * label
+                loss = F.relu(pred) - pred * label + F.exp(
+                    F.activation(-F.abs(pred), act_type="softrelu") + log_wt)
+                loss = (F.activation(-F.abs(pred), act_type="softrelu") *
+                        ((pos_weight - 1) * label + 1)) + \
+                    F.relu(pred) - pred * label
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label +
+                         F.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(F.log(pred + eps) * label * pos_weight +
+                         F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
 class SoftmaxCrossEntropyLoss(Loss):
     """Reference ``SoftmaxCELoss``: log-softmax + pick (sparse labels) or
     -sum(label · log_softmax) (dense labels); ``from_logits`` takes
@@ -103,3 +148,139 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+class CTCLoss(Loss):
+    """Left out of slice 9: connectionist temporal classification ports
+    with ``rnn_ops`` (ROADMAP.md, Queue 1 item 8)."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("gluon.loss.CTCLoss is left out of slice 9; it "
+                         "ports with rnn_ops (ROADMAP.md, \"Left out of "
+                         "slice 9\")")
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1.0, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho,
+                       loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+class LogisticLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        if label_format not in ("signed", "binary"):
+            raise MXNetError(f"bad label_format {label_format!r}")
+        self._label_format = label_format
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, pred, label)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.activation(-F.abs(pred), act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _batch_mean(F, loss, self._batch_axis)
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = _reshape_like(F, pred, positive)
+        negative = _reshape_like(F, pred, negative)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        target = _reshape_like(F, pred, target)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            stirling = target * F.log(target + epsilon) - target + \
+                0.5 * F.log(2 * np.pi * (target + epsilon))
+            stirling = F.where(target <= 1, F.zeros_like(target), stirling)
+            loss = loss + stirling
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)
+
+
+class CosineEmbeddingLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        input1 = _reshape_like(F, input1, input2)
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape(cos.shape)
+        loss = F.where(label == 1, 1.0 - cos,
+                       F.relu(cos - self._margin))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return loss

@@ -255,9 +255,15 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
     net = resnet_class(block_class, layers, channels, **kwargs)
+    return _finish(net, f"resnet{num_layers}_v{version}", pretrained, ctx,
+                   root)
+
+
+def _finish(net, name, pretrained, ctx, root):
+    """``net`` with the weights of ``<root>/<name>.params`` when
+    ``pretrained``, else initialized on ``ctx`` when one is given."""
     if pretrained:
-        net.load_parameters(_local_params(f"resnet{num_layers}_v{version}",
-                                          root), ctx=ctx)
+        net.load_parameters(_local_params(name, root), ctx=ctx)
     elif ctx is not None:
         net.initialize(ctx=ctx)
     return net

@@ -1,9 +1,9 @@
-"""Gluon basic layers: HybridSequential, Dense, Dropout, BatchNorm,
-LayerNorm, Flatten and Embedding.
+"""Gluon basic layers: Sequential, HybridSequential, Dense, Dropout,
+BatchNorm, LayerNorm, InstanceNorm, GroupNorm, Flatten, Embedding,
+Lambda, HybridLambda, HybridConcatenate and Identity.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  The other layers
-(InstanceNorm, GroupNorm, Lambda, ...) port with the op library (ROADMAP
-Queue 1).
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  ``SyncBatchNorm``
+is left out of slice 9 (ROADMAP.md): it raises.
 
 ``HybridSequential`` runs each ``Conv2D → BatchNorm → Activation("relu")``
 run of its children whose conv is 1×1 (pad 0, dilation 1, one group,
@@ -13,7 +13,10 @@ folding the BatchNorm into the conv is exact: BatchNorm uses its moving
 statistics (``not autograd.is_training() or use_global_stats``, the
 reference ``batch_norm``'s own test) and no gradient is recorded (the
 fused kernel has no backward).  In ResNet-50 v1 that is the first three
-layers of each bottleneck's body: 16 fused calls a forward.
+layers of each bottleneck's body: 16 fused calls a forward; in MobileNet
+v1 1.0 the 13 pointwise convolutions, in Inception v3 the 40 1×1
+``_make_basic_conv``s (BatchNorm eps 0.001), in DenseNet-121 the 58
+bottleneck 1×1 convolutions of the dense layers.
 """
 from __future__ import annotations
 
@@ -25,13 +28,16 @@ from ... import amp
 from ... import autograd
 from ...base import resolve_dtype
 from ...ops.conv_bn_relu import conv1x1_bn_relu
+from ...base import MXNetError
 from ...ops.registry import apply_op
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 from .activations import Activation
 from .conv_layers import Conv2D
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "BatchNorm", "LayerNorm",
-           "Flatten", "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "BatchNorm", "SyncBatchNorm", "Embedding", "Flatten", "LayerNorm",
+           "InstanceNorm", "GroupNorm", "Lambda", "HybridLambda",
+           "HybridConcatenate", "Identity"]
 
 
 def _fusable(conv, bn, act):
@@ -67,13 +73,42 @@ def _conv1x1_bn_relu(x, conv, bn):
     return apply_op(f, *args, name="conv1x1_bn_relu")
 
 
-class HybridSequential(HybridBlock):
-    """Hybridizable Sequential (reference ``nn.HybridSequential``), with
-    the inference fusion of 1×1 conv, BatchNorm and ReLU."""
+class _SequentialAccess:
+    """add, iteration, len and indexing (a slice gives a new container of
+    the same kind, under the same prefix) of the sequential blocks."""
 
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())
+        if isinstance(key, slice):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers[key])
+            return net
+        return layers[key]
+
+
+class Sequential(_SequentialAccess, Block):
+    """Blocks run one after another (reference ``nn.Sequential``)."""
+
+    def forward(self, x, *args):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+
+class HybridSequential(_SequentialAccess, HybridBlock):
+    """Hybridizable Sequential (reference ``nn.HybridSequential``), with
+    the inference fusion of 1×1 conv, BatchNorm and ReLU."""
 
     def hybrid_forward(self, F, x):
         blocks = list(self._children.values())
@@ -90,15 +125,6 @@ class HybridSequential(HybridBlock):
                 x = blocks[i](x)
                 i += 1
         return x
-
-    def __iter__(self):
-        return iter(self._children.values())
-
-    def __len__(self):
-        return len(self._children)
-
-    def __getitem__(self, key):
-        return list(self._children.values())[key]
 
 
 class Dense(HybridBlock):
@@ -260,19 +286,139 @@ class Flatten(HybridBlock):
 
 class Embedding(HybridBlock):
     """Rows of the (input_dim, output_dim) table gathered by integer ids;
-    out-of-range ids are clipped as in the reference."""
+    out-of-range ids are clipped as in the reference.  ``matmul_lookup``
+    computes them as a one-hot product (``F.embedding``); ``sparse_grad``
+    is accepted, and the gradient is dense, as the reference's op
+    computes it."""
 
     def __init__(self, input_dim, output_dim, dtype=torch.float32,
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False,
+                 matmul_lookup=False, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._matmul_lookup = matmul_lookup
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
                 init=weight_initializer)
 
     def hybrid_forward(self, F, x, weight):
-        def f(idx, w):
-            return w[idx.long().clamp(0, w.shape[0] - 1)]
+        return F.embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim,
+                           matmul_lookup=self._matmul_lookup)
 
-        return apply_op(f, x, weight, name="embedding")
+
+class SyncBatchNorm(BatchNorm):
+    """Left out of slice 9: cross-device BatchNorm ports with multi-GPU
+    data parallelism (ROADMAP.md, Queue 1 item 5)."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("nn.SyncBatchNorm is left out of slice 9; it ports "
+                         "with multi-GPU data parallelism (ROADMAP.md, "
+                         "\"Left out of slice 9\")")
+
+
+class _ChannelNorm(HybridBlock):
+    """gamma and beta of the channel axis (1), deferred until the first
+    input."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix, params):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x):
+        c = int(x.shape[1])
+        self.gamma._finish_deferred_init((c,))
+        self.beta._finish_deferred_init((c,))
+
+
+class InstanceNorm(_ChannelNorm):
+    """Each sample's channels normalized over the spatial axes (reference
+    ``nn.InstanceNorm``; ``axis`` is accepted, the channel axis is 1)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.instance_norm(x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_ChannelNorm):
+    """Channels normalized in ``num_groups`` groups (reference
+    ``nn.GroupNorm``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.group_norm(x, gamma, beta, num_groups=self._num_groups,
+                            eps=self._epsilon)
+
+
+class Lambda(Block):
+    """An NDArray function (or the name of an ``nd`` op) as a Block
+    (reference ``nn.Lambda``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function of the inputs (or the name of an ``F`` op) as a
+    HybridBlock (reference ``nn.HybridLambda``, which calls it without
+    ``F``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name, self._func = function, None
+        else:
+            self._func = function
+            self._func_name = getattr(function, "__name__", "lambda")
+
+    def hybrid_forward(self, F, *args):
+        return (self._func or getattr(F, self._func_name))(*args)
+
+
+class HybridConcatenate(_SequentialAccess, HybridBlock):
+    """Every child on the same input, the outputs joined along ``axis``
+    (reference ``nn.HybridConcatenate``)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[block(x) for block in self._children.values()],
+                        dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """The input, copied (reference ``nn.Identity``)."""
+
+    def hybrid_forward(self, F, x):
+        return F.identity(x)

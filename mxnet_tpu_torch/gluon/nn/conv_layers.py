@@ -1,10 +1,9 @@
 """Convolution and pooling layers.
 
-Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``Conv2D`` (with
-deferred ``in_channels``), ``MaxPool2D``, ``AvgPool2D`` and
-``GlobalAvgPool2D``, as far as the ResNet slice needs.  The 1D and 3D
-layers, the transposed convolutions and the global max pools raise
-``MXNetError`` naming ROADMAP.md.
+Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``Conv1D/2D/3D``
+and their transposes (with deferred ``in_channels``), the max, average,
+global max and global average pools in 1, 2 and 3 dimensions, and
+``ReflectionPad2D``.
 """
 from __future__ import annotations
 
@@ -16,7 +15,8 @@ __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
            "Conv1D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose", "MaxPool1D", "MaxPool3D", "AvgPool1D",
            "AvgPool3D", "GlobalMaxPool1D", "GlobalMaxPool2D",
-           "GlobalMaxPool3D", "GlobalAvgPool1D", "GlobalAvgPool3D"]
+           "GlobalMaxPool3D", "GlobalAvgPool1D", "GlobalAvgPool3D",
+           "ReflectionPad2D"]
 
 
 def _ntuple(val, n):
@@ -27,17 +27,19 @@ def _ntuple(val, n):
 
 class _Conv(HybridBlock):
     """N-d convolution over a channel-first layout; weight
-    (channels, in_channels/groups, *kernel), ``in_channels`` inferred at
-    the first forward when 0."""
+    (channels, in_channels/groups, *kernel), or (in_channels,
+    channels/groups, *kernel) when ``transposed``; ``in_channels``
+    inferred at the first forward when 0."""
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 bias_initializer="zeros", transposed=False,
+                 output_padding=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if not layout.startswith("NC"):
             raise MXNetError(f"layout {layout!r}: the channel-first layouts "
-                             "are ported (ROADMAP.md, Queue 1 item 2)")
+                             "only, as in the reference")
         self._channels = channels
         self._in_channels = in_channels
         self._kernel = kernel_size
@@ -46,9 +48,14 @@ class _Conv(HybridBlock):
         self._dilation = dilation
         self._groups = groups
         self._layout = layout
+        self._transposed = transposed
+        self._output_padding = output_padding
         with self.name_scope():
-            wshape = (channels, in_channels // groups if in_channels else 0) \
-                + kernel_size
+            if transposed:
+                wshape = (in_channels, channels // groups) + kernel_size
+            else:
+                wshape = (channels, in_channels // groups if in_channels
+                          else 0) + kernel_size
             self.weight = self.params.get(
                 "weight", shape=wshape, init=weight_initializer,
                 allow_deferred_init=True)
@@ -67,20 +74,42 @@ class _Conv(HybridBlock):
         c = int(x.shape[1])
         self._in_channels = c
         shape = list(self.weight.shape)
-        shape[1] = c // self._groups
+        if self._transposed:
+            shape[0] = c
+        else:
+            shape[1] = c // self._groups
         self.weight._finish_deferred_init(tuple(shape))
         if self.bias is not None:
             self.bias._finish_deferred_init((self._channels,))
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.convolution(
-            x, weight, bias, kernel=self._kernel, stride=self._strides,
-            dilate=self._dilation, pad=self._padding,
-            num_filter=self._channels, num_group=self._groups,
-            no_bias=bias is None)
+        if self._transposed:
+            out = F.deconvolution(
+                x, weight, bias, kernel=self._kernel, stride=self._strides,
+                dilate=self._dilation, pad=self._padding,
+                adj=self._output_padding, num_filter=self._channels,
+                num_group=self._groups, no_bias=bias is None)
+        else:
+            out = F.convolution(
+                x, weight, bias, kernel=self._kernel, stride=self._strides,
+                dilate=self._dilation, pad=self._padding,
+                num_filter=self._channels, num_group=self._groups,
+                no_bias=bias is None)
         if self.act is not None:
             out = self.act(out)
         return out
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _ntuple(kernel_size, 1),
+                         _ntuple(strides, 1), _ntuple(padding, 1),
+                         _ntuple(dilation, 1), groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
 
 
 class Conv2D(_Conv):
@@ -93,6 +122,40 @@ class Conv2D(_Conv):
                          _ntuple(dilation, 2), groups, layout, in_channels,
                          activation, use_bias, weight_initializer,
                          bias_initializer, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _ntuple(kernel_size, 3),
+                         _ntuple(strides, 3), _ntuple(padding, 3),
+                         _ntuple(dilation, 3), groups, layout, in_channels,
+                         activation, use_bias, weight_initializer,
+                         bias_initializer, **kwargs)
+
+
+def _transposed(n, layout):
+    """The transposed convolution of ``n`` spatial dims."""
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout=layout,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        _Conv.__init__(self, channels, _ntuple(kernel_size, n),
+                       _ntuple(strides, n), _ntuple(padding, n),
+                       _ntuple(dilation, n), groups, layout, in_channels,
+                       activation, use_bias, weight_initializer,
+                       bias_initializer, transposed=True,
+                       output_padding=_ntuple(output_padding, n), **kwargs)
+
+    return type(f"Conv{n}DTranspose", (_Conv,), {"__init__": __init__})
+
+
+Conv1DTranspose = _transposed(1, "NCW")
+Conv2DTranspose = _transposed(2, "NCHW")
+Conv3DTranspose = _transposed(3, "NCDHW")
 
 
 class _Pooling(HybridBlock):
@@ -119,54 +182,58 @@ class _Pooling(HybridBlock):
             count_include_pad=self._count_include_pad)
 
 
-class MaxPool2D(_Pooling):
-    """Max over windows; the padding is −inf and the output size floors
-    (``ceil_mode=False``: ``pooling_convention="valid"``)."""
+def _pool(n, pool_type, layout, doc):
+    """The ``pool_type`` pooling layer of ``n`` spatial dims."""
+    def __init__(self, pool_size=2, strides=None, padding=0, layout=layout,
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        _Pooling.__init__(
+            self, _ntuple(pool_size, n),
+            _ntuple(strides, n) if strides is not None else None,
+            _ntuple(padding, n), ceil_mode, False, pool_type,
+            count_include_pad, **kwargs)
 
-    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", ceil_mode=False, **kwargs):
-        super().__init__(_ntuple(pool_size, 2),
-                         _ntuple(strides, 2) if strides is not None else None,
-                         _ntuple(padding, 2), ceil_mode, False, "max",
-                         **kwargs)
-
-
-class AvgPool2D(_Pooling):
-    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
-                 layout="NCHW", ceil_mode=False, count_include_pad=True,
-                 **kwargs):
-        super().__init__(_ntuple(pool_size, 2),
-                         _ntuple(strides, 2) if strides is not None else None,
-                         _ntuple(padding, 2), ceil_mode, False, "avg",
-                         count_include_pad, **kwargs)
+    name = {"max": "Max", "avg": "Avg"}[pool_type] + f"Pool{n}D"
+    return type(name, (_Pooling,), {"__init__": __init__, "__doc__": doc})
 
 
-class GlobalAvgPool2D(_Pooling):
-    """Mean over H and W, keeping them: (B, C, H, W) → (B, C, 1, 1)."""
+def _global_pool(n, pool_type, layout):
+    """The global ``pool_type`` pooling layer of ``n`` spatial dims: the
+    spatial axes reduced to 1."""
+    def __init__(self, layout=layout, **kwargs):
+        _Pooling.__init__(self, (1,) * n, None, (0,) * n, False, True,
+                          pool_type, **kwargs)
 
-    def __init__(self, layout="NCHW", **kwargs):
-        super().__init__((1, 1), None, (0, 0), False, True, "avg", **kwargs)
-
-
-def _not_ported(name):
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(f"gluon.nn.{name} is not ported yet (ROADMAP.md, "
-                         "Queue 1 item 2)")
-
-    return type(name, (HybridBlock,), {"__init__": __init__})
+    name = "Global" + {"max": "Max", "avg": "Avg"}[pool_type] + f"Pool{n}D"
+    return type(name, (_Pooling,), {"__init__": __init__})
 
 
-Conv1D = _not_ported("Conv1D")
-Conv3D = _not_ported("Conv3D")
-Conv1DTranspose = _not_ported("Conv1DTranspose")
-Conv2DTranspose = _not_ported("Conv2DTranspose")
-Conv3DTranspose = _not_ported("Conv3DTranspose")
-MaxPool1D = _not_ported("MaxPool1D")
-MaxPool3D = _not_ported("MaxPool3D")
-AvgPool1D = _not_ported("AvgPool1D")
-AvgPool3D = _not_ported("AvgPool3D")
-GlobalMaxPool1D = _not_ported("GlobalMaxPool1D")
-GlobalMaxPool2D = _not_ported("GlobalMaxPool2D")
-GlobalMaxPool3D = _not_ported("GlobalMaxPool3D")
-GlobalAvgPool1D = _not_ported("GlobalAvgPool1D")
-GlobalAvgPool3D = _not_ported("GlobalAvgPool3D")
+_MAX_DOC = ("Max over windows; the padding is −inf and the output size "
+            "floors (``ceil_mode=False``: ``pooling_convention=\"valid\"``; "
+            "``True``: MXNet's \"full\" rule, padded explicitly).")
+_AVG_DOC = ("Mean over windows (``count_include_pad=False`` divides by the "
+            "input elements a window covers).")
+MaxPool1D = _pool(1, "max", "NCW", _MAX_DOC)
+MaxPool2D = _pool(2, "max", "NCHW", _MAX_DOC)
+MaxPool3D = _pool(3, "max", "NCDHW", _MAX_DOC)
+AvgPool1D = _pool(1, "avg", "NCW", _AVG_DOC)
+AvgPool2D = _pool(2, "avg", "NCHW", _AVG_DOC)
+AvgPool3D = _pool(3, "avg", "NCDHW", _AVG_DOC)
+GlobalMaxPool1D = _global_pool(1, "max", "NCW")
+GlobalMaxPool2D = _global_pool(2, "max", "NCHW")
+GlobalMaxPool3D = _global_pool(3, "max", "NCDHW")
+GlobalAvgPool1D = _global_pool(1, "avg", "NCW")
+GlobalAvgPool2D = _global_pool(2, "avg", "NCHW")
+GlobalAvgPool3D = _global_pool(3, "avg", "NCDHW")
+
+
+class ReflectionPad2D(HybridBlock):
+    """H and W padded by reflection (reference ``nn.ReflectionPad2D``)."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._padding = _ntuple(padding, 2)
+
+    def hybrid_forward(self, F, x):
+        ph, pw = self._padding
+        return F.pad(x, mode="reflect",
+                     pad_width=(0, 0, 0, 0, ph, ph, pw, pw))

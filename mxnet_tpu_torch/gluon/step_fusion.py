@@ -18,8 +18,13 @@ Semantics, as the reference's:
 - lr and wd are read once a call (an lr schedule advances a call at a
   time); the update count t advances every step (Adam's bias correction
   stays exact): the update reads lr, wd and t from a device table the
-  host rewrites before each replay, so the graph is never captured
-  again for a new lr or t;
+  host rewrites before each replay (the kernel's table, or, for a
+  per-tensor rule, a (3, n) f32 table whose entries ``_step`` takes as
+  0-d tensors), so the graph is never captured again for a new lr or t.
+  For f16/bf16 weights without f32 masters a per-tensor rule's replay
+  meets lr and wd in the weight's dtype (torch casts a 0-d operand to
+  the other operand's dtype) where the eager rule keeps them f32: a
+  relative difference of up to 2^-9 (bf16) in lr and wd;
 - BatchNorm's moving statistics (the ``grad_req="null"`` parameters) are
   updated in place by each step;
 - ``stacked_inputs=True``: every batch array leads with K and step k reads
@@ -92,10 +97,6 @@ class FusedTrainStep:
         self._graphs = {}
         self._validated = set()
         self._pool = None
-        if trainer._optimizer._kernel_rule() is None:
-            raise MXNetError(
-                f"optimizer {type(trainer._optimizer).__name__} has no rule "
-                "of the fused update; FusedTrainStep needs one")
         if not trainer._kv_initialized:
             trainer._init_kvstore()
         if trainer._update_on_kvstore:
@@ -136,6 +137,16 @@ class FusedTrainStep:
         return opt._update_items(mp_flags, w_raws, m_raws, g_raws, states,
                                  lrs, wds, t)
 
+    @staticmethod
+    def _update(optzr, items):
+        """One eager update: the kernel's launch (its plain version on
+        the CPU) for an optimizer with a rule code, else the optimizer's
+        per-tensor rule."""
+        if optzr._kernel_rule() is None:
+            multi_tensor._update_plain(optzr, items)
+        else:
+            multi_tensor.multi_tensor_update(optzr, items)
+
     # -- dispatch ------------------------------------------------------------
     def __call__(self, *batch):
         trainer = self.trainer
@@ -160,7 +171,7 @@ class FusedTrainStep:
                          for i in self._live)
         device = trainer._params[self._live[0]]._data._data.device \
             if self._live else torch.device("cpu")
-        sig = (type(optzr).__name__, multi_tensor.hyper(optzr), mp_flags,
+        sig = (type(optzr).__name__, _hyper(optzr), mp_flags,
                tuple((b.shape, b.dtype, b._data.device) for b in batch),
                amp.target_dtype())
         snapshot = None if sig in self._validated else self._snapshot()
@@ -193,7 +204,7 @@ class FusedTrainStep:
         for k in range(self.k):
             losses.append(self._loss_and_grads(self._inputs(batch, k)))
             items = self._items(mp_flags, lrs, wds, [t + k for t in t0])
-            multi_tensor.multi_tensor_update(self.trainer._optimizer, items)
+            self._update(self.trainer._optimizer, items)
         return torch.stack(losses)
 
     def _addresses(self):
@@ -226,8 +237,11 @@ class FusedTrainStep:
             if self.stacked_inputs:
                 for s, b in zip(entry["inputs"], batch):
                     s.copy_(b._data[k])
-            plan.write(self._static_items(entry, lrs, wds,
-                                          [t + k for t in t0]), optzr)
+            t = [t + k for t in t0]
+            if plan is None:
+                _write_scalars(entry["scalars"], lrs, wds, t)
+            else:
+                plan.write(self._static_items(entry, lrs, wds, t), optzr)
             graph.replay()
             losses[k].copy_(graph.outputs[0])
         return losses
@@ -244,19 +258,30 @@ class FusedTrainStep:
 
         def eager_step():
             loss = self._loss_and_grads(inputs)
-            multi_tensor.multi_tensor_update(
-                optzr, self._items(mp_flags, lrs, wds, t0))
+            self._update(optzr, self._items(mp_flags, lrs, wds, t0))
             return loss
 
         losses[0].copy_(cuda_graph.warmup(eager_step))
         statics = [x._data.clone() for x in inputs]
-        numels = [self.trainer._params[i]._data.size for i in self._live]
-        plan = multi_tensor.UpdatePlan(numels, losses.device)
+        if optzr._kernel_rule() is None:
+            plan = None
+            scalars = torch.zeros((3, len(self._live)), dtype=torch.float32,
+                                  device=losses.device)
+        else:
+            numels = [self.trainer._params[i]._data.size for i in self._live]
+            plan = multi_tensor.UpdatePlan(numels, losses.device)
+            scalars = None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
 
         def step():
             loss = self._loss_and_grads([NDArray(s) for s in statics])
+            if plan is None:
+                # the per-tensor rule, reading lr, wd and t from the table
+                multi_tensor._update_plain(optzr, self._items(
+                    mp_flags, list(scalars[0]), list(scalars[1]),
+                    list(scalars[2])))
+                return loss, None
             # the operands as the graph holds them (its own gradients):
             # their addresses go into the update's table before each replay
             items = self._items(mp_flags, lrs, wds, t0)
@@ -266,8 +291,9 @@ class FusedTrainStep:
         graph = cuda_graph.capture(
             step, pool=self._pool,
             generators=(mx_random.generator(losses.device),))
-        return {"graph": graph, "plan": plan, "inputs": statics,
-                "items": graph.outputs[1], "ptrs": self._addresses()}
+        return {"graph": graph, "plan": plan, "scalars": scalars,
+                "inputs": statics, "items": graph.outputs[1],
+                "ptrs": self._addresses()}
 
     # -- first-call safety ---------------------------------------------------
     def _snapshot(self):
@@ -296,3 +322,24 @@ class FusedTrainStep:
         optzr._index_update_count.clear()
         optzr._index_update_count.update(counts)
         optzr.num_update = num_update
+
+
+def _hyper(optzr):
+    """What a captured update bakes in besides lr, wd and t: the kernel's
+    scalars for an optimizer with a rule code, else the optimizer's
+    scalar attributes (those its ``_step`` reads as python numbers)."""
+    if optzr._kernel_rule() is not None:
+        return multi_tensor.hyper(optzr)
+    skip = ("lr", "wd", "num_update", "begin_num_update", "aggregate_num")
+    return tuple(sorted(
+        (k, v) for k, v in vars(optzr).items()
+        if k not in skip and (v is None or isinstance(v, (bool, int, float,
+                                                           str)))))
+
+
+def _write_scalars(table, lrs, wds, t):
+    """Copy this step's lr, wd and t into the (3, n) device table, from
+    pinned memory (the host does not wait for the card)."""
+    host = torch.tensor([lrs, wds, [float(x) for x in t]],
+                        dtype=torch.float32).pin_memory()
+    table.copy_(host, non_blocking=True)

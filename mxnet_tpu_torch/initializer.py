@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/initializer.py`` (reference
 ``python/mxnet/initializer.py``): the registry, the name-pattern dispatch
 (weight→init, bias→zero, gamma→one, ...) and Zero/One/Constant/Uniform/
-Normal/Xavier.
+Normal/Orthogonal/Xavier/MSRAPrelu/Bilinear/LSTMBias/Mixed.
 
 Values are drawn in place, on the parameter's device and in its dtype,
 from that device's generator (``random.generator``): drawing an 8B-value
@@ -13,7 +13,9 @@ GB of host memory.
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError
@@ -52,8 +54,9 @@ class Initializer:
     def __call__(self, name, arr):
         name = str(name).lower()
         with torch.no_grad():
-            if name.endswith(("bias", "beta", "running_mean",
-                              "moving_mean")):
+            if name.endswith("bias"):
+                self._init_bias(name, arr)
+            elif name.endswith(("beta", "running_mean", "moving_mean")):
                 self._init_zero(name, arr)
             elif name.endswith(("gamma", "running_var", "moving_var")):
                 self._init_one(name, arr)
@@ -62,6 +65,14 @@ class Initializer:
 
     def _init_weight(self, name, arr):
         raise NotImplementedError
+
+    def _init_bias(self, name, arr):
+        self._init_zero(name, arr)
+
+    @staticmethod
+    def _set(arr, value):
+        """Copy a host array into ``arr`` (its dtype and device)."""
+        arr._data.copy_(torch.as_tensor(np.asarray(value, dtype=np.float32)))
 
     @staticmethod
     def _init_zero(name, arr):
@@ -156,3 +167,87 @@ class Xavier(Initializer):
                                generator=self._generator(arr))
         else:
             arr._data.normal_(0.0, scale, generator=self._generator(arr))
+
+
+@register
+class Orthogonal(Initializer):
+    """A (scaled) orthonormal matrix of the weight's (out, in) shape, from
+    the SVD of a U(-1, 1) or N(0, 1) draw (reference ``Orthogonal``)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        gen = self._generator(arr)
+        dev = arr._data.device
+        if self.rand_type == "uniform":
+            tmp = torch.rand((nout, nin), generator=gen, device=dev) * 2 - 1
+        else:
+            tmp = torch.randn((nout, nin), generator=gen, device=dev)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        arr._data.copy_((self.scale * q).reshape(arr.shape))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialization (reference ``MSRAPrelu``): gaussian Xavier with
+    magnitude 2 / (1 + slope²)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a deconvolution weight
+    (reference ``Bilinear``)."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(math.prod(shape))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        w = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        self._set(arr, w.reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """LSTM bias: 0, with the forget gate's quarter at ``forget_bias``
+    (reference ``LSTMBias``)."""
+
+    def __init__(self, forget_bias=1.0):
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+    _init_bias = _init_weight
+
+
+@register
+class Mixed(Initializer):
+    """The first initializer whose pattern matches the parameter's name
+    (reference ``Mixed``)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers length mismatch")
+        self.map = [(re.compile(p), create(i)) for p, i in
+                    zip(patterns, initializers)]
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError(f"parameter {name} did not match any pattern; add "
+                         "'.*' as the last pattern")

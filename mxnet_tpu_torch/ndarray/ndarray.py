@@ -139,39 +139,132 @@ class NDArray:
     def __rtruediv__(self, o):
         return self._binary(o, torch.true_divide, "rdiv", reflected=True)
 
+    def __floordiv__(self, o):
+        return self._binary(o, torch.floor_divide, "floor_divide")
+
+    def __mod__(self, o):
+        return self._binary(o, torch.remainder, "mod")
+
+    def __rmod__(self, o):
+        return self._binary(o, torch.remainder, "rmod", reflected=True)
+
+    def __pow__(self, o):
+        return self._binary(o, torch.pow, "power")
+
+    def __rpow__(self, o):
+        return self._binary(o, torch.pow, "rpower", reflected=True)
+
+    def __matmul__(self, o):
+        from .. import ndarray as nd
+
+        return nd.dot(self, o)
+
     def __neg__(self):
         from ..ops.registry import apply_op
 
         return apply_op(torch.neg, self, name="negative")
 
+    def __abs__(self):
+        from .. import ndarray as nd
+
+        return nd.abs(self)
+
+    # in-place forms rebind the handle to the result (a recorded result
+    # stays on the tape), as the reference's do
+    def __iadd__(self, o):
+        self._data = (self + o)._data
+        return self
+
+    def __isub__(self, o):
+        self._data = (self - o)._data
+        return self
+
+    def __imul__(self, o):
+        self._data = (self * o)._data
+        return self
+
+    def __itruediv__(self, o):
+        self._data = (self / o)._data
+        return self
+
+    # comparisons: 0/1 in the left operand's dtype (``ops/elemwise.py``)
+    def _cmp(self, o, name):
+        from .. import ndarray as nd
+
+        if not isinstance(o, (NDArray, int, float, bool)):
+            return NotImplemented
+        return getattr(nd, name)(self, o)
+
+    def __eq__(self, o):
+        return self._cmp(o, "equal")
+
+    def __ne__(self, o):
+        return self._cmp(o, "not_equal")
+
+    def __gt__(self, o):
+        return self._cmp(o, "greater")
+
+    def __ge__(self, o):
+        return self._cmp(o, "greater_equal")
+
+    def __lt__(self, o):
+        return self._cmp(o, "lesser")
+
+    def __le__(self, o):
+        return self._cmp(o, "lesser_equal")
+
+    __hash__ = object.__hash__  # identity hash despite elementwise __eq__
+
+    def __bool__(self):
+        if self.size != 1:
+            raise MXNetError("the truth value of an NDArray with more than "
+                             "one element is ambiguous")
+        return bool(self.asscalar())
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def item(self):
+        return self.asscalar()
+
+    def copyto(self, other):
+        """Copy into ``other`` (an NDArray, whose handle takes a copy) or
+        onto a context (a new NDArray)."""
+        if isinstance(other, Context):
+            return NDArray(self._data.to(other.device, copy=True))
+        other._data = self._data.to(other._data.device, dtype=other.dtype,
+                                    copy=True)
+        return other
+
     # -- method forms of ops (delegate to the nd namespace) ------------------
     def reshape(self, *shape, **kwargs):
-        """Reshape with the reference's 0 (keep) and -1 (infer) codes."""
+        """Reshape with the reference's codes (0, -1, -2, -3, -4)."""
         from .. import ndarray as nd
 
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
-        return nd.reshape(self, shape=shape)
+        return nd.reshape(self, shape=shape, **kwargs)
 
-    def expand_dims(self, axis):
+    def sum(self, axis=None, keepdims=False, **kwargs):
         from .. import ndarray as nd
 
-        return nd.expand_dims(self, axis)
+        return nd.sum(self, axis=axis, keepdims=keepdims, **kwargs)
 
-    def squeeze(self, axis=None):
+    def mean(self, axis=None, keepdims=False, **kwargs):
         from .. import ndarray as nd
 
-        return nd.squeeze(self, axis=axis)
-
-    def sum(self, axis=None, keepdims=False):
-        from .. import ndarray as nd
-
-        return nd.sum(self, axis=axis, keepdims=keepdims)
-
-    def mean(self, axis=None, keepdims=False):
-        from .. import ndarray as nd
-
-        return nd.mean(self, axis=axis, keepdims=keepdims)
+        return nd.mean(self, axis=axis, keepdims=keepdims, **kwargs)
 
     # -- autograd ------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
@@ -235,3 +328,24 @@ class NDArray:
     def __repr__(self):
         return (f"\n{self.asnumpy()}\n<NDArray "
                 f"{'x'.join(map(str, self.shape))} @{self.context}>")
+
+
+def _method(op, doc=None):
+    def m(self, *args, **kwargs):
+        from .. import ndarray as nd
+
+        return getattr(nd, op)(self, *args, **kwargs)
+
+    m.__name__ = op
+    m.__doc__ = doc or f"``nd.{op}(self, ...)``."
+    return m
+
+
+for _op in ("reshape_like", "transpose", "swapaxes", "flatten",
+            "expand_dims", "squeeze", "broadcast_to", "broadcast_like",
+            "tile", "repeat", "flip", "nansum", "prod", "max", "min",
+            "norm", "argmax", "argmin", "argsort", "sort", "topk", "clip",
+            "abs", "sign", "exp", "log", "sqrt", "square", "sigmoid", "tanh",
+            "relu", "softmax", "log_softmax", "dot", "one_hot", "take",
+            "pick", "slice_axis", "split", "zeros_like", "ones_like"):
+    setattr(NDArray, _op, _method(_op))

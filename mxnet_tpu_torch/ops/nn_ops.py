@@ -1,11 +1,13 @@
-"""Neural-network ops: activations (``activation``, ``leaky_relu``),
-``fully_connected``, ``convolution``, ``pooling``, ``batch_norm``,
-``layer_norm``, ``dropout``, ``flatten``, ``softmax``, ``log_softmax``
-and ``softmax_cross_entropy``.
+"""Neural-network ops: activations (``activation``, ``leaky_relu``,
+``hard_sigmoid``), ``fully_connected``, ``convolution``,
+``deconvolution``, ``upsampling``, ``pooling``, the norms (``batch_norm``,
+``layer_norm``, ``group_norm``, ``instance_norm``, ``l2_normalization``),
+``dropout``, ``embedding``, ``flatten``, ``softmax``, ``log_softmax``,
+``softmax_cross_entropy`` and the low-precision products
+``mxu_matmul_nt``/``mxu_batch_matmul``.
 
-Counterpart of ``mxnet_tpu/ops/nn_ops.py``, as far as the Llama, ResNet
-and BERT slices need; the rest ports with the op library (ROADMAP Queue
-1 item 1).  Three dtype contracts are kept:
+Counterpart of ``mxnet_tpu/ops/nn_ops.py``.  ``ctc_loss`` is left out of
+slice 9 (ROADMAP.md): it raises.  Four dtype contracts are kept:
 
 - ``softmax_cross_entropy``: f32 math inside whatever the logits' dtype,
   the **sum** over rows as the result, and a backward written directly in
@@ -15,7 +17,11 @@ and BERT slices need; the rest ports with the op library (ROADMAP Queue
   in f32, y and dx in the input's dtype, dgamma and dbeta in the
   parameters';
 - ``layer_norm`` (the reference's ``_ln_train``): the same, over the
-  normalized axis.
+  normalized axis; ``group_norm`` and ``instance_norm`` standardize the
+  same way (``_Standardize``) and apply their affine in f32;
+- ``mxu_matmul_nt``/``mxu_batch_matmul`` (the reference's
+  ``_mxu_matmul`` contract): bf16/f16 operands, f32 accumulation, the
+  product and both gradients in the operands' dtype.
 
 ``dropout`` draws its mask from the package's generator of the tensor's
 device (``random.generator``), never from torch's global one, so a CUDA
@@ -35,9 +41,16 @@ import torch.nn.functional as tnf
 from ..base import MXNetError
 from .registry import apply_op
 
-__all__ = ["activation", "relu", "leaky_relu", "fully_connected",
-           "convolution", "pooling", "batch_norm", "layer_norm", "dropout",
-           "flatten", "softmax", "log_softmax", "softmax_cross_entropy"]
+__all__ = ["activation", "leaky_relu", "hard_sigmoid", "fully_connected",
+           "convolution", "deconvolution", "upsampling", "pooling",
+           "batch_norm", "layer_norm", "group_norm", "instance_norm",
+           "l2_normalization", "dropout", "embedding", "flatten", "softmax",
+           "log_softmax", "softmax_cross_entropy", "ctc_loss",
+           "mxu_matmul_nt", "mxu_batch_matmul",
+           "Activation", "LeakyReLU", "FullyConnected", "Convolution",
+           "Deconvolution", "UpSampling", "Pooling", "BatchNorm",
+           "LayerNorm", "GroupNorm", "InstanceNorm", "L2Normalization",
+           "Dropout", "Embedding", "Flatten", "CTCLoss"]
 
 _ACTS = {
     "relu": torch.relu,
@@ -54,10 +67,6 @@ def activation(data, act_type="relu", **kwargs):
     if act_type not in _ACTS:
         raise MXNetError(f"unknown act_type {act_type!r}")
     return apply_op(_ACTS[act_type], data, name=f"activation_{act_type}")
-
-
-def relu(data):
-    return apply_op(torch.relu, data, name="relu")
 
 
 _SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
@@ -85,6 +94,12 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
         return apply_op(lambda a: tnf.gelu(a, approximate="none"), data,
                         name="gelu")
     raise MXNetError(f"unknown LeakyReLU act_type {act_type!r}")
+
+
+def hard_sigmoid(data, alpha=0.2, beta=0.5, **kwargs):
+    """Reference ``hard_sigmoid``: ``clip(alpha·x + beta, 0, 1)``."""
+    return apply_op(lambda a: torch.clamp(alpha * a + beta, 0, 1), data,
+                    name="hard_sigmoid")
 
 
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
@@ -147,23 +162,26 @@ _MAX_POOL = {1: tnf.max_pool1d, 2: tnf.max_pool2d, 3: tnf.max_pool3d}
 def pooling(data, kernel=None, pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, **kwargs):
-    """Reference ``Pooling`` (max/avg; NCW/NCHW/NCDHW).
+    """Reference ``Pooling`` (max/avg/sum/lp; NCW/NCHW/NCDHW).
 
     The padding is explicit, as the reference's ``reduce_window`` has it:
     −inf for max, 0 for avg, and for ``pooling_convention="full"``
     extra padding at the upper edge so that the last window fits (ceil
     instead of floor).  ``count_include_pad=False`` divides each window's
-    sum by the number of input elements it covers."""
+    sum by the number of input elements it covers.  ``"sum"`` is the
+    window's sum; ``"lp"`` takes the average's path, as the reference's
+    does."""
     nsp = data.ndim - 2
-    if pool_type not in ("max", "avg"):
-        raise MXNetError(f"pooling: pool_type {pool_type!r} is not ported "
-                         "yet (ROADMAP.md, Queue 1 item 1)")
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"pooling: unknown pool_type {pool_type!r}")
     if global_pool:
         ax = tuple(range(2, 2 + nsp))
 
         def g(a):
             if pool_type == "max":
                 return a.amax(dim=ax, keepdim=True)
+            if pool_type == "sum":
+                return a.sum(dim=ax, keepdim=True)
             return a.mean(dim=ax, keepdim=True)
 
         return apply_op(g, data, name="global_pool")
@@ -185,6 +203,8 @@ def pooling(data, kernel=None, pool_type="max", global_pool=False,
             padded = tnf.pad(a, widths, value=float("-inf"))
             return _MAX_POOL[nsp](padded, k, s)
         mean = _AVG_POOL[nsp](tnf.pad(a, widths), k, s)
+        if pool_type == "sum":
+            return mean * math.prod(k)
         if count_include_pad:
             return mean
         share = _AVG_POOL[nsp](tnf.pad(torch.ones_like(a), widths), k, s)
@@ -390,3 +410,227 @@ def softmax_cross_entropy(data, label, **kwargs):
     entropy, summed over all rows."""
     return apply_op(lambda x, lab: _SoftmaxCESum.apply(x, lab.long()),
                     data, label, name="softmax_cross_entropy")
+
+
+_DECONV = {1: tnf.conv_transpose1d, 2: tnf.conv_transpose2d,
+           3: tnf.conv_transpose3d}
+
+
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=True, layout=None, target_shape=None,
+                  **kwargs):
+    """Reference ``Deconvolution`` (the transposed convolution, the
+    convolution's data gradient): weight (C_in, num_filter/num_group,
+    *kernel); ``adj`` adds to the upper edge of the output."""
+    nsp = len(kernel)
+    if nsp not in _DECONV:
+        raise MXNetError(f"deconvolution: {nsp} spatial dims; 1 to 3 are "
+                         "ported")
+    strides = _tup(stride, nsp, "stride")
+    dil = _tup(dilate, nsp, "dilate")
+    pads = _tup(pad, nsp, "pad")
+    adjs = _tup(adj, nsp, "adj") if adj is not None else (0,) * nsp
+
+    def f(x, w, *b):
+        return _DECONV[nsp](x, w, b[0] if b else None, strides, pads, adjs,
+                            num_group, dil)
+
+    args = (data, weight) if (no_bias or bias is None) else \
+        (data, weight, bias)
+    return apply_op(f, *args, name="deconvolution")
+
+
+def upsampling(*data, scale=2, sample_type="nearest", num_args=1,
+               num_filter=0, **kwargs):
+    """Reference ``UpSampling``: NCHW nearest (each pixel repeated) or
+    bilinear (half-pixel centres, edges clamped) by an integer ``scale``;
+    a bilinear weight operand is accepted and not used, as in the
+    reference."""
+    scale = int(scale)
+
+    def f(x):
+        if sample_type == "nearest":
+            return x.repeat_interleave(scale, dim=2).repeat_interleave(
+                scale, dim=3)
+        return tnf.interpolate(x, scale_factor=scale, mode="bilinear",
+                               align_corners=False)
+
+    return apply_op(f, data[0], name="upsampling")
+
+
+class _Standardize(torch.autograd.Function):
+    """(x − mean) / sqrt(var + eps) over the ``red`` axes (the
+    reference's ``_standardize``): statistics in f32, y and dx in x's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, eps, red):
+        xf = x.float()
+        mean = xf.mean(dim=red, keepdim=True)
+        inv = torch.rsqrt(xf.var(dim=red, unbiased=False, keepdim=True) + eps)
+        ctx.save_for_backward(x, mean, inv)
+        ctx.red = red
+        return ((xf - mean) * inv).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, inv = ctx.saved_tensors
+        red = ctx.red
+        xhat = (x.float() - mean) * inv
+        dyf = dy.float()
+        dx = inv * (dyf - dyf.mean(dim=red, keepdim=True) -
+                    xhat * (dyf * xhat).mean(dim=red, keepdim=True))
+        return dx.to(x.dtype), None, None
+
+
+def _affine(y, g, b, x):
+    """y·gamma + beta per channel (axis 1), in f32, back in x's dtype."""
+    shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+    return (y.float() * g.float().reshape(shape) +
+            b.float().reshape(shape)).to(x.dtype)
+
+
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5, **kwargs):
+    """Reference ``GroupNorm``: standardized over each group of channels
+    (and the spatial axes), then gamma and beta per channel."""
+    def f(x, g, b):
+        n, c = x.shape[0], x.shape[1]
+        xr = x.reshape((n, num_groups, c // num_groups) + x.shape[2:])
+        y = _Standardize.apply(xr, float(eps),
+                               tuple(range(2, xr.ndim))).reshape(x.shape)
+        return _affine(y, g, b, x)
+
+    return apply_op(f, data, gamma, beta, name="group_norm")
+
+
+def instance_norm(data, gamma, beta, eps=1e-5, **kwargs):
+    """Reference ``InstanceNorm``: each sample's channel standardized over
+    the spatial axes, then gamma and beta per channel."""
+    def f(x, g, b):
+        y = _Standardize.apply(x, float(eps), tuple(range(2, x.ndim)))
+        return _affine(y, g, b, x)
+
+    return apply_op(f, data, gamma, beta, name="instance_norm")
+
+
+def l2_normalization(data, eps=1e-10, mode="instance", **kwargs):
+    """Reference ``L2Normalization``: x / sqrt(Σx² + eps) over every axis
+    but the batch (``instance``), the channel axis (``channel``) or the
+    spatial axes (``spatial``)."""
+    def f(x):
+        if mode == "instance":
+            red = tuple(range(1, x.ndim))
+        elif mode == "channel":
+            red = (1,)
+        else:
+            red = tuple(range(2, x.ndim))
+        return x / torch.sqrt(torch.square(x).sum(dim=red, keepdim=True) +
+                              eps)
+
+    return apply_op(f, data, name="l2_normalization")
+
+
+def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
+              sparse_grad=False, matmul_lookup=False, **kwargs):
+    """Reference ``Embedding``: rows of ``weight`` gathered by integer ids
+    (clipped into range); ``matmul_lookup`` computes the same rows as
+    ``one_hot(ids) @ weight`` through ``mxu_matmul_nt``."""
+    def f(idx, w):
+        ii = idx.long().clamp(0, w.shape[0] - 1)
+        if matmul_lookup:
+            oh = (ii.unsqueeze(-1) == torch.arange(
+                w.shape[0], device=w.device)).to(w.dtype)
+            return _MxuMatmulNT.apply(oh, w)
+        return w[ii]
+
+    return apply_op(f, data, weight, name="embedding")
+
+
+def _unbroadcast(d, shape):
+    """Sum a gradient over the axes its operand was broadcast along."""
+    if tuple(d.shape) == tuple(shape):
+        return d
+    extra = d.ndim - len(shape)
+    if extra > 0:
+        d = d.sum(dim=tuple(range(extra)))
+    axes = tuple(i for i, (ds, s) in enumerate(zip(d.shape, shape))
+                 if ds != s)
+    return d.sum(dim=axes, keepdim=True) if axes else d
+
+
+class _MxuMatmulNT(torch.autograd.Function):
+    """x (..., K) @ w (K, N): f32 accumulation, the product and both
+    gradients in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.t())
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                          g.reshape(-1, g.shape[-1]))
+        return dx, dw.to(w.dtype)
+
+
+class _MxuBatchMatmul(torch.autograd.Function):
+    """(..., M, K) @ (..., K, N) with the same contract, batch axes
+    broadcast."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = torch.matmul(g, b.transpose(-1, -2))
+        db = torch.matmul(a.transpose(-1, -2), g)
+        return (_unbroadcast(da, a.shape),
+                _unbroadcast(db, b.shape).to(b.dtype))
+
+
+def mxu_matmul_nt(x, w):
+    """y = x·w on raw tensors, w stored (K, N): f32 accumulation with the
+    product and the gradients in the operands' dtype (the reference's
+    ``mxu_matmul_nt``)."""
+    return _MxuMatmulNT.apply(x, w)
+
+
+def mxu_batch_matmul(a, b):
+    """Batched (..., M, K) @ (..., K, N) on raw tensors under the same
+    contract (the reference's ``mxu_batch_matmul``)."""
+    return _MxuBatchMatmul.apply(a, b)
+
+
+def ctc_loss(*args, **kwargs):
+    """Left out of slice 9: the connectionist temporal classification loss
+    ports with ``rnn_ops`` (ROADMAP.md, Queue 1 item 8)."""
+    raise MXNetError("ctc_loss is left out of slice 9; it ports with "
+                     "rnn_ops (ROADMAP.md, \"Left out of slice 9\")")
+
+
+# the reference's operator-style names
+Activation = activation
+LeakyReLU = leaky_relu
+FullyConnected = fully_connected
+Convolution = convolution
+Deconvolution = deconvolution
+UpSampling = upsampling
+Pooling = pooling
+BatchNorm = batch_norm
+LayerNorm = layer_norm
+GroupNorm = group_norm
+InstanceNorm = instance_norm
+L2Normalization = l2_normalization
+Dropout = dropout
+Embedding = embedding
+Flatten = flatten
+CTCLoss = ctc_loss

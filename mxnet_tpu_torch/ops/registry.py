@@ -7,22 +7,28 @@ is recorded exactly when the reference would tape it) and wraps what it
 returns.  While ``amp`` is active, the operands first pass through
 ``amp.maybe_cast_args`` under the op's ``name`` (the key of amp's op
 lists), as the reference's ``apply_op`` does; the casts are recorded, so
-a gradient reaches an f32 parameter in f32.  The reference's bulking and
-profiler hooks port with later slices (ROADMAP Queue 1).
+a gradient reaches an f32 parameter in f32.  An op the reference
+registers as non-differentiable (``no_grad``: rounding, predicates,
+comparisons, index outputs) runs with torch's gradient mode off, so its
+result carries no graph.  ``exporter`` builds a module's ``__all__`` with
+the reference's aliases.  The reference's bulking hook ports with a later
+slice, its profiler hook is left out of slice 9 (ROADMAP.md).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 
-def apply_op(fun: Callable, *nd_args, name: str = ""):
+def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     """Apply tensor function ``fun`` to NDArray operands; returns an
     NDArray, or a tuple of them when ``fun`` returns a tuple or list."""
+    import torch
+
     from .. import amp
     from ..autograd import grad_mode
     from ..ndarray.ndarray import NDArray
 
-    with grad_mode():
+    with (torch.no_grad() if no_grad else grad_mode()):
         raws = [a._data for a in nd_args]
         if amp.is_active():
             raws = amp.maybe_cast_args(name, raws)
@@ -30,3 +36,20 @@ def apply_op(fun: Callable, *nd_args, name: str = ""):
     if isinstance(outs, (tuple, list)):
         return tuple(NDArray(o) for o in outs)
     return NDArray(outs)
+
+
+def exporter(module_all):
+    """``export(fn, name=None, aliases=())``: put ``fn`` in the calling
+    module under ``name`` (default its own) and each alias, and list them
+    in ``module_all`` (the module's ``__all__``)."""
+    import sys
+
+    def export(fn, name=None, aliases=()):
+        mod = sys.modules[fn.__module__]
+        name = name or fn.__name__
+        for n in (name,) + tuple(aliases):
+            setattr(mod, n, fn)
+            module_all.append(n)
+        return fn
+
+    return export

@@ -1,5 +1,7 @@
-"""Optimizers: the ``Optimizer`` base, ``SGD``, ``NAG``, ``Adam`` and
-``AdamW``.
+"""Optimizers: the ``Optimizer`` base, ``SGD``, ``NAG``, ``Adam``,
+``AdamW``, ``LAMB``, ``RMSProp`` (plain and centered), ``AdaGrad``,
+``AdaDelta``, ``Ftrl``, ``Signum``, ``SignSGD``, ``LARS`` and ``Test``,
+with ``Updater``/``get_updater``.
 
 Counterpart of ``mxnet_tpu/optimizer/__init__.py`` (reference
 ``python/mxnet/optimizer/optimizer.py`` over the update ops of
@@ -16,22 +18,30 @@ plain version of the fused multi-tensor kernel
 ``gluon.FusedTrainStep`` run through ``_fused_param_updates``: one launch
 a step, by the rule code each optimizer names (``_fused_rule``).  State
 is f32 for f16/bf16 weights (SGD momentum, Adam moments);
-``multi_precision=True`` adds an f32 master weight.  The other optimizers (LAMB, RMSProp, ...)
-port later (ROADMAP Queue 1 item 2).
+``multi_precision=True`` adds an f32 master weight.  The optimizers
+after AdamW have no rule code in the kernel (ROADMAP Queue 2): the
+Trainer runs their ``_step`` tensor by tensor, and ``FusedTrainStep``
+captures that rule in its graph.  There lr, wd and t are 0-d f32 tensors
+on the card that the host rewrites before each replay, so every
+``_step`` takes them as python numbers or as such tensors: no branch on
+their values, no ``math`` on them.
 """
 from __future__ import annotations
 
 import math
+import pickle
 import warnings
 
+import numpy as np
 import torch
 
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ops import multi_tensor
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create",
-           "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "LAMB", "RMSProp",
+           "AdaGrad", "AdaDelta", "Ftrl", "Signum", "SignSGD", "LARS",
+           "Test", "Updater", "get_updater", "create", "register"]
 
 _LOW = (torch.float16, torch.bfloat16)
 
@@ -79,9 +89,7 @@ class Optimizer:
     def create_optimizer(name, **kwargs):
         if name.lower() not in Optimizer.opt_registry:
             raise MXNetError(f"unknown optimizer {name!r}; registered: "
-                             f"{sorted(Optimizer.opt_registry)} (the others "
-                             "are not ported yet: ROADMAP.md, Queue 1 "
-                             "item 2)")
+                             f"{sorted(Optimizer.opt_registry)}")
         return Optimizer.opt_registry[name.lower()](**kwargs)
 
     # -- lr/wd ---------------------------------------------------------------
@@ -176,7 +184,7 @@ class Optimizer:
             g = g * self.rescale_grad
         if self.clip_gradient is not None:
             g = g.clamp(-self.clip_gradient, self.clip_gradient)
-        if include_wd and wd:
+        if include_wd and (torch.is_tensor(wd) or wd):
             g = g + wd * w.to(g.dtype)
         return g
 
@@ -261,6 +269,20 @@ def _states_to_numpy(state):
     if isinstance(state, NDArray):
         return state.asnumpy()
     return tuple(_states_to_numpy(s) for s in state)
+
+
+def _states_from_numpy(state, like=None):
+    """``_states_to_numpy``'s inverse, on the device and in the dtypes of
+    ``like`` (a state of the same nesting) when given."""
+    if state is None:
+        return None
+    if isinstance(state, np.ndarray):
+        if like is None:
+            return NDArray(torch.from_numpy(state.copy()))
+        return NDArray(torch.from_numpy(state.copy()).to(
+            device=like._data.device, dtype=like.dtype))
+    likes = like if like is not None else (None,) * len(state)
+    return tuple(_states_from_numpy(s, lk) for s, lk in zip(state, likes))
 
 
 register = Optimizer.register
@@ -378,3 +400,281 @@ class AdamW(Adam):
         g = self._prep_grad(g.to(m.dtype), w, 0.0, include_wd=False)
         upd = self._moments(m, v, g, lr, t) + lr * wd * w.to(m.dtype)
         w.sub_(upd.to(w.dtype))
+
+
+def _norm(t):
+    return torch.linalg.vector_norm(t)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive large-batch optimizer (reference
+    ``lamb_update_phase1/2``): Adam's direction with weight decay, scaled
+    by ‖w‖/‖direction‖ (bounded by ``lower_bound``/``upper_bound``);
+    moments in f32 for f16/bf16 weights."""
+
+    def __init__(self, learning_rate=None, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.001, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        dt = torch.float32 if weight.dtype in _LOW else None
+        return (_state_zeros(weight, dt), _state_zeros(weight, dt))
+
+    def _step(self, w, g, states, lr, wd, t):
+        m, v = states
+        wf = w.to(m.dtype)
+        g = self._prep_grad(g.to(m.dtype), wf, 0.0, include_wd=False)
+        m.mul_(self.beta1).add_((1 - self.beta1) * g)
+        v.mul_(self.beta2).add_((1 - self.beta2) * torch.square(g))
+        if self.bias_correction:
+            mhat = m / (1 - self.beta1 ** t)
+            vhat = v / (1 - self.beta2 ** t)
+        else:
+            mhat, vhat = m, v
+        gprime = mhat / (torch.sqrt(vhat) + self.epsilon) + wd * wf
+        r1 = _norm(wf)
+        if self.lower_bound is not None:
+            r1 = r1.clamp_min(self.lower_bound)
+        if self.upper_bound is not None:
+            r1 = r1.clamp_max(self.upper_bound)
+        r2 = _norm(gprime)
+        ratio = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
+                            torch.ones_like(r1))
+        w.sub_((lr * ratio * gprime).to(w.dtype))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (reference ``rmsprop_update``: ``n = (1−γ1)·g² + γ1·n;
+    w −= lr·g/√(n + ε)``) and, with ``centered``, Graves' variant
+    (``rmspropalex_update``); states in the weight's dtype, weights
+    clipped to ±``clip_weights`` when given."""
+
+    def __init__(self, learning_rate=None, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.001, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_state_zeros(weight), _state_zeros(weight),
+                    _state_zeros(weight))
+        return (_state_zeros(weight),)
+
+    def _step(self, w, g, states, lr, wd, t):
+        g = self._prep_grad(g.to(w.dtype), w, wd)
+        n = states[0]
+        n.mul_(self.gamma1).add_((1 - self.gamma1) * torch.square(g))
+        if not self.centered:
+            w.sub_(lr * g / torch.sqrt(n + self.epsilon))
+        else:
+            _, gbar, delta = states
+            gbar.mul_(self.gamma1).add_((1 - self.gamma1) * g)
+            delta.mul_(self.gamma2).sub_(lr * g / torch.sqrt(
+                n - torch.square(gbar) + self.epsilon))
+            w.add_(delta)
+        if self.clip_weights:
+            w.clamp_(-self.clip_weights, self.clip_weights)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference ``adagrad_update``): ``h += g²;
+    w −= lr·g/(√h + eps)``."""
+
+    def __init__(self, learning_rate=None, eps=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.01, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _state_zeros(weight)
+
+    def _step(self, w, g, states, lr, wd, t):
+        (hist,) = states
+        g = self._prep_grad(g.to(w.dtype), w, wd)
+        hist.add_(torch.square(g))
+        w.sub_(lr * g / (torch.sqrt(hist) + self.float_stable_eps))
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference ``adadelta_update``); the learning rate is not
+    used."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_state_zeros(weight), _state_zeros(weight))
+
+    def _step(self, w, g, states, lr, wd, t):
+        acc_g, acc_delta = states
+        g = self._prep_grad(g.to(w.dtype), w, wd)
+        acc_g.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        delta = torch.sqrt(acc_delta + self.epsilon) / torch.sqrt(
+            acc_g + self.epsilon) * g
+        acc_delta.mul_(self.rho).add_((1 - self.rho) * torch.square(delta))
+        w.sub_(delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference ``ftrl_update``), L1 strength
+    ``lamda1``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=None, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.1, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_state_zeros(weight), _state_zeros(weight))  # z, n
+
+    def _step(self, w, g, states, lr, wd, t):
+        z, n = states
+        g = self._prep_grad(g.to(w.dtype), w, 0.0, include_wd=False)
+        sq = torch.square(g)
+        sigma = (torch.sqrt(n + sq) - torch.sqrt(n)) / lr
+        z.copy_(z + g - sigma * w)
+        n.add_(sq)
+        new_w = -(z - torch.sign(z) * self.lamda1) / \
+            ((self.beta + torch.sqrt(n)) / lr + wd)
+        w.copy_(torch.where(torch.abs(z) > self.lamda1, new_w,
+                            torch.zeros_like(w)))
+
+
+@register
+class Signum(Optimizer):
+    """signSGD with momentum (reference ``signum_update``): ``mom =
+    μ·mom − (1−μ)·g; w = (1 − lr·wd_lh)·w + lr·sign(mom)``; without
+    momentum ``w −= lr·sign(g)``."""
+
+    def __init__(self, learning_rate=None, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.01, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _state_zeros(weight)
+
+    def _step(self, w, g, states, lr, wd, t):
+        g = self._prep_grad(g.to(w.dtype), w, wd)
+        if self.momentum == 0.0:
+            w.sub_(lr * torch.sign(g))
+            return
+        (mom,) = states
+        mom.mul_(self.momentum).sub_((1 - self.momentum) * g)
+        w.copy_((1 - lr * self.wd_lh) * w + lr * torch.sign(mom))
+
+
+@register
+class SignSGD(Signum):
+    """Signum without momentum (reference ``signsgd_update``)."""
+
+    def __init__(self, learning_rate=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, momentum=0.0, **kwargs)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling with momentum: the step scaled by
+    ``eta·‖w‖/(‖g‖ + wd·‖w‖ + ε)``."""
+
+    def __init__(self, learning_rate=None, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate
+                         if learning_rate is not None else 0.1, **kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _state_zeros(weight)
+
+    def _step(self, w, g, states, lr, wd, t):
+        (mom,) = states
+        g = self._prep_grad(g.to(w.dtype), w, 0.0, include_wd=False)
+        w_norm, g_norm = _norm(w), _norm(g)
+        trust = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self.eta * w_norm / (g_norm + wd * w_norm + self.epsilon),
+            torch.ones_like(w_norm))
+        mom.mul_(self.momentum).add_(lr * trust * (g + wd * w))
+        w.sub_(mom)
+
+
+@register
+class Test(Optimizer):
+    """The reference's test optimizer: ``w −= lr·rescale_grad·g``."""
+
+    def _step(self, w, g, states, lr, wd, t):
+        w.sub_(lr * (g * self.rescale_grad).to(w.dtype))
+
+
+class Updater:
+    """An optimizer applied per (index, grad, weight) — the reference's
+    kvstore-side updater (``mx.optimizer.get_updater``)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+        self.aggregate_updates = optimizer.aggregate_num > 0
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+            self.states_synced[index] = True
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states as a pickle of numpy arrays (with the optimizer's
+        name when ``dump_optimizer``)."""
+        states = {k: _states_to_numpy(v) for k, v in self.states.items()}
+        if dump_optimizer:
+            return pickle.dumps((states, _OptimizerConfig(self.optimizer)))
+        return pickle.dumps(states)
+
+    def set_states(self, states):
+        """Restore ``get_states``'s result (on the devices and in the
+        dtypes of the states already held, else on the CPU)."""
+        loaded = pickle.loads(states)
+        if isinstance(loaded, tuple):
+            loaded = loaded[0]
+        self.states = {k: _states_from_numpy(v, self.states.get(k))
+                       for k, v in loaded.items()}
+        self.states_synced = {k: True for k in self.states}
+
+
+class _OptimizerConfig:
+    def __init__(self, opt):
+        self.name = type(opt).__name__.lower()
+
+
+def get_updater(optimizer):
+    """An ``Updater`` over ``optimizer`` (reference ``get_updater``)."""
+    return Updater(optimizer)

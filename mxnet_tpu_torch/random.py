@@ -13,6 +13,13 @@ re-seed and restore it in place, because a captured CUDA graph replays
 with the generator object it registered (``cuda_graph.capture``) and
 reads that object's seed and offset at each replay.  (The reference's
 per-context ``seed(s, ctx)`` is not ported: no caller needs it yet.)
+
+The samplers (``uniform``, ``normal``, ``randint``, ``exponential``,
+``gamma``, ``poisson``, ``multinomial``, ``shuffle``, ``bernoulli``) draw
+on the generator of the device they fill, on ``ctx`` (default: the
+current context) or the input's device.  Their streams are torch's, not
+the reference's jax keys: the same seed gives the same draws here, not
+the reference's values.
 """
 from __future__ import annotations
 
@@ -83,3 +90,110 @@ def set_state(state):
     for dev, arr in saved.items():
         generator(dev).set_state(torch.from_numpy(np.array(arr,
                                                            dtype=np.uint8)))
+
+
+# --- samplers (reference src/operator/random/sample_op.cc) ------------------
+
+def _sample(fn, shape, dtype, ctx, out=None, default=torch.float32):
+    from .base import resolve_dtype
+    from .context import current_context
+    from .ndarray.ndarray import NDArray
+
+    shape = (shape,) if isinstance(shape, int) else tuple(shape or ())
+    device = (ctx or current_context()).device
+    raw = fn(shape, resolve_dtype(dtype) or default, device,
+             generator(device))
+    if out is not None:
+        out._data = raw
+        return out
+    return NDArray(raw)
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), dtype=None, ctx=None, out=None,
+            **kwargs):
+    """U[low, high) of ``shape``."""
+    return _sample(lambda s, dt, dev, g: torch.rand(
+        s, generator=g, device=dev, dtype=dt) * (high - low) + low,
+        shape, dtype, ctx, out)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), dtype=None, ctx=None, out=None,
+           **kwargs):
+    """N(loc, scale²) of ``shape``."""
+    return _sample(lambda s, dt, dev, g: loc + scale * torch.randn(
+        s, generator=g, device=dev, dtype=dt), shape, dtype, ctx, out)
+
+
+randn = normal
+
+
+def randint(low, high, shape=(1,), dtype=None, ctx=None, out=None,
+            **kwargs):
+    """Integers in [low, high), int32 unless ``dtype`` says otherwise."""
+    return _sample(lambda s, dt, dev, g: torch.randint(
+        low, high, s, generator=g, device=dev, dtype=dt), shape, dtype, ctx,
+        out, default=torch.int32)
+
+
+def exponential(scale=1.0, shape=(1,), dtype=None, ctx=None, out=None,
+                **kwargs):
+    """Exponential with mean ``scale``."""
+    return _sample(lambda s, dt, dev, g: scale * torch.empty(
+        s, device=dev, dtype=dt).exponential_(1.0, generator=g), shape,
+        dtype, ctx, out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=(1,), dtype=None, ctx=None, out=None,
+          **kwargs):
+    """Gamma with shape ``alpha`` and scale ``beta``."""
+    return _sample(lambda s, dt, dev, g: beta * torch._standard_gamma(
+        torch.full(s, float(alpha), device=dev, dtype=dt), generator=g),
+        shape, dtype, ctx, out)
+
+
+def poisson(lam=1.0, shape=(1,), dtype=None, ctx=None, out=None, **kwargs):
+    """Poisson with rate ``lam``."""
+    return _sample(lambda s, dt, dev, g: torch.poisson(
+        torch.full(s, float(lam), device=dev), generator=g).to(dt),
+        shape, dtype, ctx, out)
+
+
+def bernoulli(prob=0.5, shape=(1,), dtype=None, ctx=None, **kwargs):
+    """1 with probability ``prob``, else 0."""
+    return _sample(lambda s, dt, dev, g: (torch.rand(
+        s, generator=g, device=dev) < prob).to(dt), shape, dtype, ctx)
+
+
+def multinomial(data, shape=1, get_prob=False, dtype="int32", **kwargs):
+    """Category indices drawn from each row of probabilities ``data``
+    (..., C): ``shape`` draws a row (the last axis dropped when 1), and
+    with ``get_prob`` the log-probabilities of the draws."""
+    from . import ndarray as nd
+    from .base import resolve_dtype
+    from .ndarray.ndarray import NDArray
+
+    n = shape if isinstance(shape, int) else int(np.prod(shape))
+    p = data._data.detach().float()
+    rows = p.reshape(-1, p.shape[-1])
+    idx = torch.multinomial(rows, n, replacement=True,
+                            generator=generator(p.device))
+    idx = idx.reshape(p.shape[:-1] + (n,))
+    if n == 1:
+        idx = idx[..., 0]
+    out = NDArray(idx.to(resolve_dtype(dtype)))
+    if get_prob:
+        return out, nd.log(nd.pick(data, out.astype("float32"), axis=-1))
+    return out
+
+
+sample_multinomial = multinomial
+
+
+def shuffle(data, **kwargs):
+    """``data`` with its first axis permuted at random."""
+    from .ops.registry import apply_op
+
+    dev = data._data.device
+    perm = torch.randperm(data.shape[0], generator=generator(dev),
+                          device=dev)
+    return apply_op(lambda a: a.index_select(0, perm), data, name="shuffle")

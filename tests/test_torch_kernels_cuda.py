@@ -1315,3 +1315,102 @@ def test_servers_capture_while_another_server_replays_on_card(cuda_nvcc,
     assert len(c_replies) >= 2
     for i, got in c_replies:
         np.testing.assert_allclose(got, solo[2][i], rtol=1e-5, atol=1e-5)
+
+
+# -- slice 9: the vision model zoo ---------------------------------------------
+# The distinct 1×1 (H'·W', K, N) of the nets whose Conv2D → BatchNorm →
+# ReLU runs fuse (MobileNet v1 1.0 at 224, Inception v3 at 299,
+# DenseNet-121 at 224), here at B=2 (M = 2·H'·W'); ``chip_smoke.py`` holds
+# them at B=128.
+_MOBILENET_1X1 = [(12544, 32, 64), (3136, 64, 128), (3136, 128, 128),
+                  (784, 128, 256), (784, 256, 256), (196, 256, 512),
+                  (196, 512, 512), (49, 512, 1024), (49, 1024, 1024)]
+_INCEPTION_1X1 = [(5329, 64, 80)] + [
+    (1225, k, n) for k in (192, 256, 288) for n in (32, 48, 64)
+    if (k, n) != (256, 32) and (k, n) != (288, 32)] + [
+    (289, 768, n) for n in (128, 160, 192)] + [
+    (64, k, n) for k in (1280, 2048) for n in (192, 320, 384, 448)]
+_DENSENET_1X1 = [(hw, k0 + 32 * i, 128) for hw, k0, layers in
+                 ((3136, 64, 6), (784, 128, 12), (196, 256, 24),
+                  (49, 512, 16)) for i in range(layers)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,k,n", _MOBILENET_1X1 + _INCEPTION_1X1 +
+                         _DENSENET_1X1)
+def test_fused_kernel_at_vision_zoo_shapes_matches_plain_on_card(
+        cuda_nvcc, hw, k, n):
+    """bf16 on the tensor cores, within 2^-8 of each value and 1e-4 of the
+    largest (the tolerances of the ResNet shapes above)."""
+    m = 2 * hw
+    x, w, scale, bias = _mm_operands(cuda_nvcc, torch.bfloat16, m, k, n)
+    fn = cbr.fused_matmul_affine_relu
+    before = fn.launches_mma
+    got = fn(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert fn.launches_mma == before + 1
+    ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(), scale,
+                                              bias)
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= 2.0 ** -8 * ref.abs() +
+                 1e-4 * ref.abs().max()).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_mobilenet_bf16_hybridized_launches_13_tensor_core_kernels(
+        cuda_nvcc):
+    """``mobilenet1.0`` in bf16, hybridized: the capturing call and each
+    replay launch the fused kernel's tensor-core design 13 times (one per
+    pointwise convolution), and a replay equals the eager forward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(0)
+    net = vision.mobilenet1_0()
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = mx.nd.array(torch.rand((2, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    fn = cbr.fused_matmul_affine_relu
+    eager = net(x)._data.clone()
+    net.hybridize(static_alloc=True)
+    for _ in range(3):
+        before = (fn.launches, fn.launches_mma)
+        out = net(x)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0], fn.launches_mma - before[1]) == \
+            (13, 13)
+    assert net.cache_stats()["hits"] == 2
+    assert torch.equal(out._data, eager)
+
+
+@pytest.mark.cuda
+def test_fused_train_step_with_rmsprop_matches_eager_on_card(cuda_nvcc):
+    """``FusedTrainStep`` with RMSProp, which has no rule code of the
+    multi-tensor kernel: the optimizer's own rule is captured in the step
+    graph (lr, wd and t read from a device table), no multi-tensor launch,
+    and K=4 steps equal four eager ``Trainer.step``s within 1e-5 (f32)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(8)
+    batch = (mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32),
+                         ctx=ctx),
+             mx.nd.array(rng.randint(0, 4, 8).astype(np.float32), ctx=ctx))
+    before = mt.multi_tensor_update.launches
+    kw = {"learning_rate": 0.01, "gamma1": 0.9, "epsilon": 1.0,
+          "clip_gradient": 2.0, "centered": True, "wd": 1e-3}
+    eager, fused, net_e, net_f, fstep = _fused_vs_eager(
+        mx, lambda: _mlp(mx, ctx, 7), batch, 4, "rmsprop", kw, 8)
+    np.testing.assert_allclose(fused, eager, rtol=1e-5, atol=1e-6)
+    for (n, a), (_, b) in zip(net_e.collect_params().items(),
+                              net_f.collect_params().items()):
+        np.testing.assert_allclose(b.data().asnumpy(), a.data().asnumpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+    assert mt.multi_tensor_update.launches == before
+    entry, = fstep._graphs.values()
+    assert entry["plan"] is None
+    more = fstep(*batch).asnumpy()
+    assert np.isfinite(more).all() and entry["graph"].replays == 3 + 4

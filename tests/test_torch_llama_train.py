@@ -211,6 +211,5 @@ def test_training_refusals_name_the_roadmap(arrays):
             tmx.gluon.Trainer(params, "sgd", **kw).step(1)
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         tmx.gluon.trainer.drain_consensus()  # multi-host, item 5
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.optimizer.create("lamb")
+    assert isinstance(tmx.optimizer.create("lamb"), tmx.optimizer.LAMB)
     assert torch.is_grad_enabled()  # the port never flips global state

@@ -120,8 +120,9 @@ def test_lr_mult_wd_mult_and_update_counts():
         opt._update_count(0)
     opt._update_count(1)
     assert opt.num_update == 3 and opt._index_update_count == {0: 3, 1: 1}
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        topt.create("rmsprop")
+    assert isinstance(topt.create("rmsprop"), topt.RMSProp)
+    with pytest.raises(tmx.MXNetError, match="unknown optimizer"):
+        topt.create("no_such_optimizer")
 
 
 @pytest.mark.parametrize("make", [

@@ -26,7 +26,13 @@ def test_import_pulls_in_no_jax_in_a_fresh_process():
             "mxnet_tpu_torch.serving, mxnet_tpu_torch.amp, "
             "mxnet_tpu_torch.models.bert, "
             "mxnet_tpu_torch.models.transformer, "
-            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.tensor\n"
+            "mxnet_tpu_torch.ops.attention, mxnet_tpu_torch.ops.tensor, "
+            "mxnet_tpu_torch.ops.elemwise, mxnet_tpu_torch.ops.output_ops, "
+            "mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, "
+            "mxnet_tpu_torch.gluon.utils, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.inception, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet, "
+            "mxnet_tpu_torch.gluon.model_zoo.vision.densenet\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"

@@ -214,16 +214,16 @@ def test_get_model_and_pretrained():
             assert isinstance(net, (tresnet.ResNetV1, tresnet.ResNetV2))
     for name in ("vgg16", "alexnet", "densenet121", "squeezenet1.0",
                  "inceptionv3", "mobilenet1.0", "mobilenetv2_1.0"):
-        with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-            tvision.get_model(name)
+        assert isinstance(tvision.get_model(name, classes=4),
+                          tmx.gluon.HybridBlock)
     with pytest.raises(tmx.MXNetError, match="not found"):
         tvision.get_model("resnet99_v1")
     with pytest.raises(tmx.MXNetError, match="pretrained"):
         tvision.resnet50_v1(pretrained=True)
-    for name in ("Conv1D", "Conv2DTranspose", "GlobalMaxPool2D",
-                 "MaxPool3D"):
-        with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-            getattr(tmx.gluon.nn, name)(4, 3)
+    nn = tmx.gluon.nn
+    for layer in (nn.Conv1D(4, 3), nn.Conv2DTranspose(4, 3),
+                  nn.GlobalMaxPool2D(), nn.MaxPool3D()):
+        assert isinstance(layer, tmx.gluon.HybridBlock)
 
 
 def test_cast_keeps_batch_norm_f32_and_trains_in_bf16():
