@@ -16,7 +16,12 @@ ResNet-50 and a BERT-base classifier); the rest of the vision model zoo
 (MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet) in f32
 against the CPU, MobileNet v1, DenseNet-121 and Inception v3 inference
 through the fused 1x1 kernel at 13, 58 and 40 launches a forward, and
-Inception v3 training with RMSProp, the metrics and ``Speedometer``.
+Inception v3 training with RMSProp, the metrics and ``Speedometer``; and
+the data plane: JPEG ``.rec`` shards through ``io.ImageRecordIter`` (the
+native reader, built by g++), ``gluon.data.DataLoader`` and
+``data.StreamingLoader`` with the CUDA-stream ``DevicePrefetcher`` into
+ResNet-50 training and a hybridized eval pass, and packed Llama
+pretraining (``segment_ids``, ``packed_lm_loss``).
 
     python3 chip_smoke.py
 
@@ -160,11 +165,44 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     and ``TopKAccuracy(5)`` each step and ``Speedometer``: eight eager
     steps, then ``FusedTrainStep`` K=8 on a fresh net (the optimizer's
     own rule in the graph: no multi-tensor launch) against them, both
-    falling; ms a step, images/s, graph pool, peak memory.
+    falling; ms a step, images/s, graph pool, peak memory;
+16. the image lane: 2,560 ImageNet-style JPEGs (quality 95, short side
+    256, smooth random textures, label i % 1000) in ``train.rec``, the
+    same records in four ``part*.rec`` shards, and 256 in ``val.rec``,
+    written by ``recordio.pack_img``; the native library built by g++.
+    ``io.ImageRecordIter`` (``rand_crop``, ``rand_mirror``, mean/std,
+    one decode thread a host core) on the native reader against the
+    Python reader (the same batches, bit for bit, on the card) and
+    images/s of each; ``DataLoader(ImageRecordDataset(...)
+    .transform_first(...), pin_memory=True)`` images/s with thread and
+    process workers; ``resnet50_v1`` bf16 B=128 trained eagerly (lr 0.1)
+    on a resident batch, from ``ImageRecordIter``, from the
+    ``DataLoader`` and from ``ShardedRecordReader`` →
+    ``StreamingLoader`` → ``DevicePrefetcher`` (its first batch equal to
+    the host batch of the same draw; rows with other decode thread
+    counts and a shorter switch interval), and as
+    ``FusedTrainStep`` K=8 (lr 0.01) on a resident batch, on 8 new
+    batches a call from ``ImageRecordIter`` and from the prefetcher: ms a
+    step, images/s, each feed over the resident step, the prefetcher's
+    waits and depth; then a hybridized eval pass over ``val.rec``
+    (center crops): 16 tensor-core launches of the fused kernel a
+    forward;
+17. the packed-LLM lane: 512 token documents (lengths log-uniform over
+    32-2048) in four ``.rec`` shards → ``ShardedRecordReader`` (8 a
+    step) → ``StreamingLoader(packer=SequencePacker(1, 2048))`` →
+    ``DevicePrefetcher`` → ``llama3_8b`` at 16 layers, bf16,
+    ``net(tokens, segment_ids)`` (the dense segment-masked route: no
+    flash launch) → ``packed_lm_loss`` → ``Trainer.step``: two warm-up
+    and three timed steps split into forward, backward and update,
+    tokens/s, packing efficiency, peak memory, the first batch against
+    the host packing of its draw; then two sample-mode steps on the same
+    documents (cut or padded to 2048, no segment ids: the flash kernels,
+    16 tensor-core launches each a step) beside them.
 
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
-13b, 14, 14b, each net of 15b; the update's in 9, 12, 12b and 13b) and
-read just after,
+13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
+steps of 17; the update's in 9, 12, 12b, 13b, 16 and 17) and read just
+after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -3150,6 +3188,666 @@ def inception_train_phase(torch, mx, vision, cbr, mt, failures):
     free_card(torch)
 
 
+# -- slice 10: the data plane -------------------------------------------------
+# The image lane (phase 16): ImageNet-style JPEG shards, the short side 256
+# as ``im2rec --resize 256`` writes them, smooth random textures (so that
+# the encoded sizes are realistic), quality 95; ``resnet50_v1`` bf16, B=128.
+IMG_N = 2560                 # 20 batches of 128
+IMG_VAL_N = 256              # the validation shard: two eval forwards
+IMG_SHARDS = 4
+IMG_B = 128
+IMG_SHORT, IMG_LONG = 256, 384
+IMG_QUALITY = 95
+IMG_MEAN = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53,
+                std_r=58.395, std_g=57.12, std_b=57.375)
+IMG_LR = 0.01                # FusedTrainStep's (phase 12b); eager 0.1
+IMG_STEPS = 8                # timed eager steps a feed (after 2 warm-ups)
+IMG_CALLS = 3                # timed FusedTrainStep calls a feed (K=8)
+IMG_SWITCH_S = 0.0005        # the interpreter's switch interval, one row
+IMG_WORKER_ROWS = (2, 8)     # decode threads of the prefetcher rows beside
+                             # the default (half the host's cores)
+# The packed-LLM lane (phase 17): ``llama3_8b`` widths, 16 layers (the
+# training slice's depth), bf16, B=1, T=2048; documents log-uniform over
+# 32-2048 tokens, one a record, eight drawn a step.
+PACK_LAYERS = 16
+PACK_B, PACK_T = 1, 2048
+PACK_DOCS = 512
+PACK_DOCS_PER_STEP = 8
+PACK_WARMUP = 2              # the first update makes the momentum
+PACK_STEPS = 5               # states, so the second step still allocates
+
+
+def _card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them
+    (printed beside every data-plane measurement)."""
+    return run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+
+
+def _texture(cv2, i):
+    """Image i of the lane: a coarse random field resized up (smooth
+    shapes), plus a per-pixel grain; short side 256, long side 256-384,
+    every third image portrait."""
+    rng = np.random.RandomState(SEED * 7919 + i)
+    long_side = int(rng.randint(IMG_SHORT, IMG_LONG + 1))
+    h, w = (IMG_SHORT, long_side) if i % 3 else (long_side, IMG_SHORT)
+    coarse = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3))
+    img = cv2.resize(coarse.astype(np.uint8), (w, h),
+                     interpolation=cv2.INTER_CUBIC).astype(np.int16)
+    img += rng.randint(-12, 13, (h, w, 1)).astype(np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_image_shards(mx, root):
+    """``train.rec`` (2,560 images) for ``ImageRecordIter`` and
+    ``ImageRecordDataset``, the same records in four ``part*.rec`` shards
+    for ``ShardedRecordReader``, and ``val.rec`` (256); each with its
+    ``.idx``.  Label i % 1000."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    rio = mx.recordio
+
+    def encode(i):
+        return rio.pack_img((0, float(i % 1000), i, 0), _texture(cv2, i),
+                            quality=IMG_QUALITY, img_fmt=".jpg")
+
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        payloads = list(ex.map(encode, range(IMG_N + IMG_VAL_N)))
+
+    def writer(name):
+        return rio.MXIndexedRecordIO(os.path.join(root, name + ".idx"),
+                                     os.path.join(root, name + ".rec"), "w")
+
+    train, val = writer("train"), writer("val")
+    parts = [writer(f"part{s}") for s in range(IMG_SHARDS)]
+    for i, p in enumerate(payloads):
+        if i < IMG_N:
+            train.write_idx(i, p)
+            parts[i % IMG_SHARDS].write_idx(i, p)
+        else:
+            val.write_idx(i, p)
+    for w in [train, val] + parts:
+        w.close()
+    return float(np.mean([len(p) for p in payloads]))
+
+
+def _record_iter(mx, path, train=True, **kw):
+    return mx.io.ImageRecordIter(
+        path_imgrec=path, data_shape=(3, 224, 224), batch_size=IMG_B,
+        rand_crop=train, rand_mirror=train, shuffle=train, seed=SEED,
+        preprocess_threads=os.cpu_count(), **IMG_MEAN, **kw)
+
+
+def _endless(make):
+    """Batches of an iterator made by ``make``, epoch after epoch."""
+    it = make()
+    while True:
+        for b in it:
+            yield b.data[0], b.label[0]
+        it.reset()
+
+
+def _resnet_for_lane(mx, vision, lr):
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+    net.cast("bfloat16")
+    return net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                 {"learning_rate": lr, "momentum": 0.9})
+
+
+def _eager_feed_run(torch, mx, net, tr, loss_fn, feed, steps=None,
+                    warm=2):
+    """``warm`` + ``steps`` (default ``IMG_STEPS``) eager steps, each on
+    the batch ``feed()`` gives (f32 or bf16 on the card); ms a timed step
+    (host clock, the card drained at both ends) and the last loss."""
+    steps = IMG_STEPS if steps is None else steps
+    batch = feed()
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        x, y = batch
+        with mx.autograd.record():
+            loss = loss_fn(net(x.astype("bfloat16", copy=False)), y)
+        loss.backward()
+        tr.step(IMG_B)
+        if i + 1 < warm + steps:
+            batch = feed()  # the next batch while the card runs this step
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    return ms, float(loss.mean().asscalar())
+
+
+def _fused_feed_run(torch, mx, net, tr, loss_fn, feed, stacked):
+    """A ``FusedTrainStep`` (K=8): one call to capture, then
+    ``IMG_CALLS`` timed calls, each call's batches fetched while the card
+    runs the call before (the first timed call's before the clock starts).
+    ``stacked``: each call takes 8 new batches from ``feed`` (a new batch
+    a step); else each step reads the one batch ``feed()`` gives (the
+    resident protocol).  Returns ms a step and every loss."""
+    fstep = mx.gluon.FusedTrainStep(
+        net, tr, lambda n, a, c: loss_fn(n(a), c),
+        steps_per_execution=FUSED_STEP_K, batch_size=IMG_B,
+        stacked_inputs=stacked)
+
+    def args():
+        if not stacked:
+            x, y = feed()
+            return x.astype("bfloat16", copy=False), y
+        xs, ys = zip(*(feed() for _ in range(FUSED_STEP_K)))
+        return (mx.nd.stack(*[x.astype("bfloat16", copy=False)
+                              for x in xs]), mx.nd.stack(*ys))
+
+    losses = [fstep(*args())]
+    nxt = args()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for c in range(IMG_CALLS):
+        losses.append(fstep(*nxt))
+        if c + 1 < IMG_CALLS:
+            nxt = args()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / (IMG_CALLS * FUSED_STEP_K)
+    return ms, [v for nd_ in losses for v in nd_.asnumpy().tolist()], fstep
+
+
+def image_lane_phase(torch, mx, vision, cbr, mt, failures):
+    """Phase 16, the image lane: JPEG shards through ``io.ImageRecordIter``
+    (the native reader and, for the check, the Python reader),
+    ``gluon.data.DataLoader`` (thread and process workers) and
+    ``data.ShardedRecordReader`` → ``StreamingLoader`` →
+    ``DevicePrefetcher`` into ``resnet50_v1`` bf16 training, eager and
+    ``FusedTrainStep`` (K=8), each beside the same step on one resident
+    batch; then a hybridized eval pass over the validation shard (16
+    launches of the fused kernel a forward).  Returns the eval pass's
+    (launches, tensor-core launches) and the update's launches."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch import _native
+
+    free_card(torch)
+    cpus = os.cpu_count()
+    t = time.perf_counter()
+    build = _native.build(force=True)
+    build_s = time.perf_counter() - t
+    _native.lib()
+    root = tempfile.mkdtemp(prefix="mxt_images_")
+    try:
+        t = time.perf_counter()
+        mean_bytes = write_image_shards(mx, root)
+        emit(dict(phase="image_data", images=IMG_N, val_images=IMG_VAL_N,
+                  shards=IMG_SHARDS, codec="jpeg", quality=IMG_QUALITY,
+                  short_side=IMG_SHORT, mean_record_bytes=mean_bytes,
+                  write_s=time.perf_counter() - t, cpu_count=cpus,
+                  native_build_s=build_s, native_build_log=build[-500:]))
+        return _image_lane(torch, mx, vision, cbr, mt, root, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _image_lane(torch, mx, vision, cbr, mt, root, failures):
+    train = os.path.join(root, "train.rec")
+    cpus = os.cpu_count()
+
+    # the native and the Python reader give the same batches
+    a, b = _record_iter(mx, train), _record_iter(mx, train, no_native=True)
+    same = True
+    for _ in range(2):
+        ba, bb = next(a), next(b)
+        same &= torch.equal(ba.data[0]._data, bb.data[0]._data) and \
+            torch.equal(ba.label[0]._data, bb.label[0]._data)
+        on_card = ba.data[0]._data.is_cuda and ba.label[0]._data.is_cuda
+    a.close()
+    b.close()
+    if not (same and on_card):
+        failures.append(f"ImageRecordIter: native batches equal to the "
+                        f"Python reader's: {same}; on the card: {on_card}")
+
+    # ImageRecordIter alone, one epoch on each reader
+    rates = {}
+    for name, kw in (("native", {}), ("no_native", {"no_native": True})):
+        it = _record_iter(mx, train, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = sum(bt.data[0].shape[0] for bt in it)
+        torch.cuda.synchronize()
+        rates[name] = n / (time.perf_counter() - t)
+        it.close()
+
+    # DataLoader over ImageRecordDataset, thread and process workers
+    T = mx.gluon.data.vision.transforms
+    tf = T.Compose([T.RandomResizedCrop(224), T.RandomFlipLeftRight(),
+                    T.ToTensor(),
+                    T.Normalize((0.485, 0.456, 0.406),
+                                (0.229, 0.224, 0.225))])
+    ds = mx.gluon.data.vision.ImageRecordDataset(train).transform_first(tf)
+    loader_rates = {}
+    for wt in ("thread", "process"):
+        loader = mx.gluon.data.DataLoader(
+            ds, batch_size=IMG_B, shuffle=True, last_batch="discard",
+            num_workers=cpus, pin_memory=True, worker_type=wt)
+        t = time.perf_counter()
+        it = iter(loader)
+        x, y = next(it)
+        first_s = time.perf_counter() - t
+        pinned = x._data.is_pinned() and not x._data.is_cuda
+        t = time.perf_counter()
+        n = sum(xb.shape[0] for xb, _ in it)
+        loader_rates[wt] = dict(images_per_s=n / (time.perf_counter() - t),
+                                first_batch_s=first_s, pinned=pinned)
+        loader.close()
+        if not pinned:
+            failures.append(f"DataLoader({wt}, pin_memory=True): batch "
+                            "not in pinned host memory")
+    emit(dict(phase="image_input", card=_card(), cpu_count=cpus,
+              record_iter_images_per_s=rates,
+              dataloader=loader_rates, native_equals_python=same,
+              batches_on_card=on_card))
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    xr = mx.nd.array(torch.rand((IMG_B, 3, 224, 224), generator=gen,
+                                device="cuda").bfloat16())
+    yr = mx.nd.array(torch.randint(0, 1000, (IMG_B,), generator=gen,
+                                   device="cuda").float())
+    mt.multi_tensor_update.launches = 0  # the update's main path starts
+    rows = {}
+
+    # eager, bench.py's lr 0.1: resident batch, then ImageRecordIter
+    net, tr = _resnet_for_lane(mx, vision, RESNET_LR)
+    rows["eager_resident"] = _eager_feed_run(torch, mx, net, tr, loss_fn,
+                                             lambda: (xr, yr))
+    feed = _endless(lambda: _record_iter(mx, train))
+    rows["eager_record_iter"] = _eager_feed_run(
+        torch, mx, net, tr, loss_fn, lambda: next(feed))
+    del feed
+
+    # DataLoader (thread workers) into the same step
+    loader = mx.gluon.data.DataLoader(ds, batch_size=IMG_B, shuffle=True,
+                                      last_batch="discard",
+                                      num_workers=cpus, pin_memory=True)
+
+    def epochs():
+        while True:
+            yield from loader
+
+    dl_feed = epochs()
+
+    def from_loader():
+        xb, yb = next(dl_feed)
+        return (xb.as_in_context(mx.gpu(0)), yb.as_in_context(mx.gpu(0)))
+
+    rows["eager_dataloader"] = _eager_feed_run(
+        torch, mx, net, tr, loss_fn, from_loader, steps=6)
+    del dl_feed, loader
+
+    # the sharded route: ShardedRecordReader -> StreamingLoader ->
+    # DevicePrefetcher (the copy on its own stream), normalize on the card
+    reader = mx.data.ShardedRecordReader(os.path.join(root, "part*.rec"),
+                                         batch_size=IMG_B, seed=SEED)
+
+    def decode(raw):
+        header, payload = mx.recordio.unpack(raw)
+        rng = np.random.RandomState(SEED + header.id)
+        img = mx.image.augment_geom(mx.image.imdecode_raw(payload),
+                                    (3, 224, 224), rng, rand_crop=True,
+                                    rand_mirror=True)
+        return np.ascontiguousarray(img), np.float32(header.label)
+
+    n_stream = 2 * (2 + IMG_STEPS) + (1 + IMG_CALLS) * FUSED_STEP_K
+    stream = mx.data.StreamingLoader(reader, transform=decode,
+                                     num_workers=max(cpus // 2, 1),
+                                     prefetch_depth=2, num_steps=n_stream)
+    tr.attach_data_prefetcher(stream)
+    mean = mx.nd.array(np.array([IMG_MEAN[k] for k in
+                                 ("mean_r", "mean_g", "mean_b")], "f"))
+    std = mx.nd.array(np.array([IMG_MEAN[k] for k in
+                                ("std_r", "std_g", "std_b")], "f"))
+    first = []
+
+    def from_stream(src=None):
+        u8, yb = (src or stream).get(timeout=120)
+        if not first:
+            first.append((u8._data.clone(), yb._data.clone()))
+        if not (u8._data.is_cuda and yb._data.is_cuda):
+            failures.append("a prefetched leaf is not on the card")
+        x = ((u8.astype("float32") - mean) / std).transpose((0, 3, 1, 2))
+        # the transpose is a view with NHWC strides: made contiguous, the
+        # batch is the NCHW one ImageRecordIter gives
+        return mx.nd.NDArray(x._data.contiguous()), yb
+
+    rows["eager_prefetcher"] = _eager_feed_run(torch, mx, net, tr, loss_fn,
+                                               from_stream)
+    # the decode threads take the GIL back between images while the main
+    # thread dispatches the eager step; a shorter switch interval hands it
+    # over sooner
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(IMG_SWITCH_S)
+    try:
+        rows["eager_prefetcher_switch_0.5ms"] = _eager_feed_run(
+            torch, mx, net, tr, loss_fn, from_stream)
+    finally:
+        sys.setswitchinterval(interval)
+    # other decode thread counts: fewer starve the step of batches, more
+    # contend with the main thread for the GIL and the host's cores.  The
+    # stream is endless, so its threads decode during the timed steps (a
+    # stream of only the steps a row takes is decoded before they run)
+    for workers in IMG_WORKER_ROWS:
+        few = mx.data.StreamingLoader(reader, transform=decode,
+                                      num_workers=workers, prefetch_depth=2)
+        rows[f"eager_prefetcher_{workers}_workers"] = _eager_feed_run(
+            torch, mx, net, tr, loss_fn,
+            lambda few=few: from_stream(src=few))
+        few.close()
+    host = [decode(reader.read(i)) for i in reader.batch_indices_for_step(0)]
+    same_stream = torch.equal(
+        first[0][0].cpu(), torch.from_numpy(np.stack([h[0] for h in host])))
+    same_stream &= torch.equal(first[0][1].cpu(), torch.from_numpy(
+        np.array([h[1] for h in host], np.float32)))
+    if not same_stream:
+        failures.append("StreamingLoader's first batch differs from the "
+                        "host batch of the same draw")
+    trainer_stats = tr.stats()
+    del net, tr
+    free_card(torch)
+
+    # FusedTrainStep (K=8), lr 0.01: resident, ImageRecordIter, prefetcher
+    fused = {}
+    net, tr = _resnet_for_lane(mx, vision, IMG_LR)
+    fused["fused_resident"] = _fused_feed_run(torch, mx, net, tr, loss_fn,
+                                              lambda: (xr, yr), False)
+    del net, tr
+    free_card(torch)
+    net, tr = _resnet_for_lane(mx, vision, IMG_LR)
+    feed = _endless(lambda: _record_iter(mx, train))
+    fused["fused_record_iter"] = _fused_feed_run(
+        torch, mx, net, tr, loss_fn, lambda: next(feed), True)
+    del feed, net, tr
+    free_card(torch)
+    net, tr = _resnet_for_lane(mx, vision, IMG_LR)
+    fused["fused_prefetcher"] = _fused_feed_run(torch, mx, net, tr, loss_fn,
+                                                from_stream, True)
+    pf_stats = stream.stats()
+    stream.close()
+    for name, (ms, losses, _) in fused.items():
+        rows[name] = (ms, losses[-1])
+        if not all(math.isfinite(v) for v in losses):
+            failures.append(f"image lane {name}: losses {losses}")
+    update_launches = mt.multi_tensor_update.launches  # ... ends
+    for name, (ms, loss) in rows.items():
+        if not math.isfinite(loss):
+            failures.append(f"image lane {name}: loss {loss}")
+    res = {k: v[0] for k, v in rows.items()}
+    emit(dict(phase="image_train", card=_card(), B=IMG_B,
+              dtype="bfloat16",
+              K=FUSED_STEP_K, cpu_count=cpus,
+              step_ms=res,
+              images_per_s={k: IMG_B / v * 1e3 for k, v in res.items()},
+              data_over_resident={
+                  "eager_record_iter": res["eager_record_iter"] /
+                  res["eager_resident"],
+                  "eager_prefetcher": res["eager_prefetcher"] /
+                  res["eager_resident"],
+                  "eager_dataloader": res["eager_dataloader"] /
+                  res["eager_resident"],
+                  "fused_record_iter": res["fused_record_iter"] /
+                  res["fused_resident"],
+                  "fused_prefetcher": res["fused_prefetcher"] /
+                  res["fused_resident"]},
+              losses={k: v[1] for k, v in rows.items()},
+              prefetcher=dict(
+                  wait_ms_p50=pf_stats["wait_ms_p50"],
+                  wait_ms_p99=pf_stats["wait_ms_p99"],
+                  wait_ms_total=pf_stats["wait_ms_total"],
+                  depth_mean=pf_stats["depth_mean"],
+                  batches=pf_stats["batches"],
+                  trainer_depth_mean=trainer_stats[
+                      "data_prefetch_depth_mean"],
+                  trainer_depth_samples=trainer_stats[
+                      "data_prefetch_depth_samples"]),
+              stream_equals_host=same_stream,
+              update_launches=update_launches))
+
+    # the hybridized eval pass over the validation shard (center crops):
+    # the fused 1x1 kernel, 16 launches a forward
+    net.hybridize()
+    val = _record_iter(mx, os.path.join(root, "val.rec"), train=False)
+    k = cbr.fused_matmul_affine_relu
+    k.launches = k.launches_mma = 0  # the eval pass's main path starts
+    forwards, finite, ms = 0, True, []
+    metric = mx.metric.Accuracy()
+    for bt in val:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = net(bt.data[0].astype("bfloat16"))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        finite &= bool(torch.isfinite(out._data).all())
+        metric.update([bt.label[0]], [out])
+        forwards += 1
+    launches, mma = k.launches, k.launches_mma  # ... and ends here
+    val.close()
+    ok = forwards == IMG_VAL_N // IMG_B and launches == 16 * forwards and \
+        mma == launches and finite
+    emit(dict(phase="image_eval", card=_card(), forwards=forwards,
+              launches=launches,
+              launches_mma=mma, launches_per_forward=launches / forwards,
+              forward_ms=ms, accuracy=metric.get()[1], finite=finite,
+              ok=ok))
+    if not ok:
+        failures.append(f"image eval: {forwards} forwards, {launches} "
+                        f"fused launches ({mma} tensor-core), finite "
+                        f"{finite}; expected 16 a forward")
+    del net, tr, fused
+    free_card(torch)
+    return launches, mma, update_launches
+
+
+def _write_docs(mx, root, vocab):
+    """``PACK_DOCS`` token documents, lengths log-uniform over 32-2048,
+    one a record, in four ``docs*.rec`` shards."""
+    rng = np.random.RandomState(SEED + 17)
+    lens = np.exp(rng.uniform(np.log(32), np.log(2048), PACK_DOCS))
+    parts = [mx.recordio.MXIndexedRecordIO(
+        os.path.join(root, f"docs{s}.idx"),
+        os.path.join(root, f"docs{s}.rec"), "w") for s in range(4)]
+    for i, n in enumerate(lens.astype(np.int64)):
+        parts[i % 4].write_idx(i, rng.randint(1, vocab, int(n))
+                               .astype(np.int32).tobytes())
+    for p in parts:
+        p.close()
+    return float(lens.mean())
+
+
+def _tokens(raw):
+    return np.frombuffer(raw, dtype=np.int32)
+
+
+def packed_llama_phase(torch, mx, llama, fa, failures):
+    """Phase 17, the packed-LLM lane: ``.rec`` documents through
+    ``ShardedRecordReader`` → ``StreamingLoader(packer=SequencePacker(1,
+    2048))`` → ``DevicePrefetcher`` → ``LlamaForCausalLM(input_ids,
+    segment_ids)`` (the dense segment-masked route: no flash launch) →
+    ``packed_lm_loss`` → ``backward`` → ``Trainer.step``, at
+    ``llama3_8b`` width, 16 layers, bf16; then one sample-mode step on
+    the same documents (each cut or padded to 2048, no segment ids: the
+    flash kernels).  Returns the sample-mode steps' flash launches
+    (forward, dQ, dK/dV) and tensor-core launches, and the update's
+    launches."""
+    import shutil
+    import tempfile
+
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=PACK_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    vocab = net.config.vocab_size
+    root = tempfile.mkdtemp(prefix="mxt_docs_")
+    try:
+        mean_len = _write_docs(mx, root, vocab)
+        return _packed_lane(torch, mx, llama, fa, net, tr, root, mean_len,
+                            failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del net, tr
+        free_card(torch)
+
+
+def _packed_lane(torch, mx, llama, fa, net, tr, root, mean_len, failures):
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    shards = os.path.join(root, "docs*.rec")
+    reader = mx.data.ShardedRecordReader(shards, PACK_DOCS_PER_STEP,
+                                         seed=SEED)
+    packer = mx.data.SequencePacker(PACK_B, PACK_T)
+    loader = mx.data.StreamingLoader(reader, packer=packer,
+                                     tokenize=_tokens, num_workers=2,
+                                     prefetch_depth=2, num_steps=PACK_STEPS)
+    tr.attach_data_prefetcher(loader)
+    _zero_counts(fa)
+    mt.multi_tensor_update.launches = 0
+    steps, first = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(PACK_STEPS):
+        stamps, peaks = [], []
+
+        def mark():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        mark()
+        peaks.clear()
+        pb = loader.get(timeout=300)
+        mark()
+        if first is None:
+            first = {f: getattr(pb, f).asnumpy() for f in
+                     ("tokens", "segment_ids", "labels", "loss_mask")}
+        leaves = (pb.tokens, pb.segment_ids, pb.labels, pb.loss_mask)
+        on_card = all(v._data.is_cuda for v in leaves)
+        with mx.autograd.record():
+            logits = net(pb.tokens, pb.segment_ids)
+            loss = llama.packed_lm_loss(logits, pb.labels, pb.loss_mask)
+        mark()
+        loss.backward()
+        mark()
+        tr.step(PACK_B)
+        mark()
+        del logits
+        kept = int((pb.segment_ids._data > 0).sum())
+        lv = float(loss.asscalar())
+        get_ms, fwd_ms, bwd_ms, upd_ms = ((b - a) * 1e3 for a, b in
+                                          zip(stamps, stamps[1:]))
+        ms = fwd_ms + bwd_ms + upd_ms
+        steps.append(dict(step=step, warmup=step < PACK_WARMUP, loss=lv,
+                          ms=ms,
+                          get_ms=get_ms, forward_ms=fwd_ms,
+                          backward_ms=bwd_ms, update_ms=upd_ms,
+                          tokens_kept=kept,
+                          tokens_per_s=kept / ms * 1e3,
+                          grid_tokens_per_s=PACK_B * PACK_T / ms * 1e3,
+                          max_memory_allocated=dict(zip(
+                              ("get", "forward", "backward", "update"),
+                              peaks)), on_card=on_card))
+        if not (on_card and math.isfinite(lv)):
+            failures.append(f"packed step {step}: loss {lv}, leaves on "
+                            f"the card {on_card}")
+    flash = [c.launches for c in _counters(fa)]
+    updates = mt.multi_tensor_update.launches
+    pf = loader.stats()
+    pstats = loader.packing_stats.as_dict()
+    loader.close()
+    # the loader's first batch is the host packing of step 0's draw
+    check = mx.data.SequencePacker(PACK_B, PACK_T).pack(
+        [_tokens(reader.read(i))
+         for i in reader.global_indices_for_step(0)])
+    same = all(np.array_equal(first[f], getattr(check, f)) for f in first)
+    timed = [s["ms"] for s in steps[PACK_WARMUP:]]
+    ok = same and flash == [0, 0, 0] and updates == PACK_STEPS
+    emit(dict(phase="packed_llama", card=_card(), layers=PACK_LAYERS,
+              B=PACK_B, T=PACK_T,
+              dtype="bfloat16", docs=PACK_DOCS,
+              docs_per_step=PACK_DOCS_PER_STEP, mean_doc_tokens=mean_len,
+              steps=steps, step_ms=timed,
+              tokens_per_s=float(np.median([s["tokens_per_s"]
+                                            for s in
+                                            steps[PACK_WARMUP:]])),
+              packing=pstats, flash_launches=flash, update_launches=updates,
+              prefetcher=dict(wait_ms_p50=pf["wait_ms_p50"],
+                              wait_ms_p99=pf["wait_ms_p99"],
+                              depth_mean=pf["depth_mean"]),
+              trainer_stats=tr.stats(), batch_equals_host=same,
+              max_memory_allocated=max(
+                  max(s["max_memory_allocated"].values()) for s in steps),
+              ok=ok))
+    if not ok:
+        failures.append(f"packed lane: batch equals host {same}, flash "
+                        f"launches {flash} (expected 0), updates {updates}, "
+                        f"losses {[s['loss'] for s in steps]}")
+
+    # the sample-mode comparison: the same documents cut or padded to T,
+    # no segment ids, so the flash route (kernels #1-#3)
+    def cut(raw):
+        toks = np.zeros(PACK_T + 1, np.int32)
+        d = _tokens(raw)[:PACK_T + 1]
+        toks[:len(d)] = d
+        return toks
+
+    sample = mx.data.StreamingLoader(
+        mx.data.ShardedRecordReader(shards, PACK_B, seed=SEED),
+        transform=cut, num_workers=1, num_steps=2)
+    _zero_counts(fa)  # the sample-mode main path starts
+    rows = []
+    for step in range(2):
+        batch = sample.get(timeout=300)
+        ids, labels = batch[:, :-1], batch[:, 1:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = _lm_forward(mx, net, ids, labels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tr.step(PACK_B)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rows.append(dict(step=step, warmup=step == 0,
+                         loss=float(loss.asscalar()),
+                         ms=(t3 - t0) * 1e3, forward_ms=(t1 - t0) * 1e3,
+                         backward_ms=(t2 - t1) * 1e3,
+                         update_ms=(t3 - t2) * 1e3,
+                         max_memory_allocated=
+                         torch.cuda.max_memory_allocated()))
+    sample.close()
+    launches = [c.launches for c in _counters(fa)]  # ... and ends here
+    mma = _mma_counts(fa)
+    updates += mt.multi_tensor_update.launches - PACK_STEPS
+    ok = launches == [2 * PACK_LAYERS] * 3 and mma == launches and \
+        all(math.isfinite(r["loss"]) for r in rows)
+    emit(dict(phase="packed_llama_sample_mode", card=_card(),
+              steps=rows,
+              dense_packed_over_flash=float(np.median(timed)) /
+              rows[1]["ms"],
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)), ok=ok))
+    if not ok:
+        failures.append(f"sample-mode step: flash launches {launches} "
+                        f"({mma} tensor-core), losses "
+                        f"{[r['loss'] for r in rows]}")
+    return launches, mma, updates
+
+
 def main():
     import torch
 
@@ -3178,7 +3876,8 @@ def main():
                   "matmul.allow_fp16_reduced_precision_reduction":
                       flags.allow_fp16_reduced_precision_reduction},
               name=torch.cuda.get_device_name(0),
-              count=torch.cuda.device_count(), torch=torch.__version__,
+              count=torch.cuda.device_count(), cpu_count=os.cpu_count(),
+              torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               nvcc=run([_kernels.nvcc(), "--version"]).splitlines()[-1]))
 
@@ -3235,6 +3934,14 @@ def main():
     fused_launches += sum(n for n, _ in zoo_launches.values())
     fused_mma += sum(n for _, n in zoo_launches.values())
     inception_train_phase(torch, mx, vision, cbr, mt, failures)
+    eval_launches, eval_mma, lane_updates = image_lane_phase(
+        torch, mx, vision, cbr, mt, failures)
+    fused_launches += eval_launches
+    fused_mma += eval_mma
+    update_launches += lane_updates
+    packed_launches, packed_mma, packed_updates = packed_llama_phase(
+        torch, mx, llama, fa, failures)
+    update_launches += packed_updates
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -3248,12 +3955,13 @@ def main():
     # forward's shapes for the fused kernel), its time and bound at
     # BERT-base's shape beside them, and the main paths' launches of each
     # design (the f32 FMA design's are the rest)
-    fwd_launches = infer_launches + train_launches[0] + bert_launches[0]
-    fwd_mma = infer_mma + train_mma[0] + bert_mma[0]
-    dq_launches = train_launches[1] + bert_launches[1]
-    dq_mma = train_mma[1] + bert_mma[1]
-    dkv_launches = train_launches[2] + bert_launches[2]
-    dkv_mma = train_mma[2] + bert_mma[2]
+    fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
+        packed_launches[0]
+    fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0]
+    dq_launches = train_launches[1] + bert_launches[1] + packed_launches[1]
+    dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1]
+    dkv_launches = train_launches[2] + bert_launches[2] + packed_launches[2]
+    dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2]
     bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
                     bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
                     library_ms=sb["library_ms"],
@@ -3305,7 +4013,7 @@ def main():
          "design": design_name(fused["design"], "bfloat16"),
          "launches": fused_launches, "launches_mma": fused_mma,
          "launches_fma": fused_launches - fused_mma,
-         "launches_served": served,
+         "launches_served": served, "launches_eval": eval_launches,
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],

@@ -31,8 +31,10 @@ batching over a paged KV pool, speculative verify, radix prefix reuse),
 step fusion and checkpoints, BERT-base under ``amp`` with stateless
 serving (``serving.InferenceServer``), and the op library, the rest of
 Gluon, ``metric`` and ``callback`` with the rest of the vision model zoo
-(MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet); ROADMAP
-Queue 1 lists what follows.
+(MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet), and the
+data plane: ``recordio`` with the native reader (``_native``), ``io``,
+``image``, ``gluon.data`` and the streaming ``data`` loader with packed
+Llama pretraining; ROADMAP Queue 1 lists what follows.
 
 Precision: importing the package turns off, once and for the whole
 process, the torch flags that would let an f32 product run in TF32
@@ -82,3 +84,7 @@ from . import serialization
 from . import checkpoint
 from . import elastic
 from . import serving
+from . import recordio
+from . import image
+from . import io
+from . import data

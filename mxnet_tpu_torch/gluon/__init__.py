@@ -1,7 +1,6 @@
 """gluon — the high-level API (counterpart of ``mxnet_tpu/gluon``): blocks,
 parameters, layers, losses, the ``Trainer``, ``FusedTrainStep``,
-``utils`` and the vision model zoo.  The data API ports with a later
-slice."""
+``utils``, the vision model zoo and the data API (``gluon.data``)."""
 from . import parameter
 from .parameter import Parameter, ParameterDict
 from . import block
@@ -14,3 +13,4 @@ from . import step_fusion
 from .step_fusion import FusedTrainStep
 from . import utils
 from . import model_zoo
+from . import data

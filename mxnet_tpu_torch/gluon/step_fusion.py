@@ -29,7 +29,8 @@ Semantics, as the reference's:
   updated in place by each step;
 - ``stacked_inputs=True``: every batch array leads with K and step k reads
   slice k (copied into the graph's static inputs before replay k);
-  otherwise every step reads the same batch;
+  otherwise every step of a call reads that call's batch (copied into
+  the static inputs before the call's first replay);
 - the first call of a signature snapshots the parameters, optimizer
   states and update counts, and restores them if it fails; then the
   error is raised.  No route falls back to another.
@@ -233,6 +234,11 @@ class FusedTrainStep:
             self._graphs[sig] = entry
             start = 1
         plan, graph = entry["plan"], entry["graph"]
+        if start == 0 and not self.stacked_inputs:
+            # this call's batch into the graph's static inputs (a capture
+            # made its statics from the batch it ran on)
+            for s, b in zip(entry["inputs"], batch):
+                s.copy_(b._data)
         for k in range(start, self.k):
             if self.stacked_inputs:
                 for s, b in zip(entry["inputs"], batch):

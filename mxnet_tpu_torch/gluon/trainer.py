@@ -125,6 +125,8 @@ class Trainer:
         self._update_on_kvstore = False
         self._kvstore = None
         self._kv_initialized = False
+        self._data_prefetcher = None
+        self._data_depths = []
 
     def _check_contexts(self):
         contexts = None
@@ -175,6 +177,24 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def attach_data_prefetcher(self, prefetcher):
+        """Tie a ``data.DevicePrefetcher`` (or a ``data.StreamingLoader``
+        over one) to this trainer: each ``step()`` samples its queue depth
+        right after the update is dispatched, when the next batch's copy
+        should already be in flight.  A fed pipeline holds the depth near
+        its configured value; a starving one sits at 0 (``stats()``)."""
+        self._data_prefetcher = getattr(prefetcher, "prefetcher",
+                                        prefetcher)
+        self._data_depths = []
+
+    def stats(self):
+        """Host-side numbers of this trainer: the attached prefetcher's
+        depth samples (one a step) and their mean."""
+        depths = self._data_depths
+        return {"data_prefetch_depth_samples": len(depths),
+                "data_prefetch_depth_mean":
+                    sum(depths) / len(depths) if depths else 0.0}
+
     # -- the step ------------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
         """Aggregate gradients and apply one optimizer update, scaling
@@ -184,6 +204,8 @@ class Trainer:
             self._init_kvstore()
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        if self._data_prefetcher is not None:
+            self._data_depths.append(self._data_prefetcher.depth())
 
     def allreduce_grads(self):
         if not self._kv_initialized:

@@ -32,8 +32,10 @@ signature (batch, sampling settings) for its decode steps
 Not ported yet, each raising ``MXNetError`` that names the ROADMAP
 item: MoE (``num_experts``, the mixtral configs),
 ``scan_layers``/``set_remat`` (slice 7's left-out list), ring/ulysses
-attention, packed ``segment_ids`` and ``packed_lm_loss``, and the
-pipeline and sharding functions.
+attention, and the pipeline and sharding functions.  Packed
+``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
+route, as the reference's; ``scan_layers`` with them stays in slice 7's
+left-out list.
 
 Sampling cannot reproduce the reference's draws (JAX's PRNG is not
 torch's): the filters are the reference's arithmetic on the same
@@ -215,14 +217,17 @@ class LlamaAttention(HybridBlock):
         self._rope = _RopeCache(hd, cfg.rope_theta)
 
     def hybrid_forward(self, F, x, segment_ids=None):
+        """``segment_ids`` (B, T) int: a packed batch
+        (``data.SequencePacker``).  Attention is then causal AND
+        same-segment, through the dense ``_sdpa_segmented`` in either
+        ``attn_mode`` (the flash kernels take no mask, as the
+        reference's)."""
         cfg = self._cfg
-        if segment_ids is not None:
-            raise MXNetError(f"packed segment_ids {_LATER}")
         b, t = x.shape[0], x.shape[1]
         hd = cfg.head_dim
         scale = 1.0 / math.sqrt(hd)
 
-        def _attend(qr, kr, vr):
+        def _heads(qr, kr, vr):
             cos, sin = self._rope.get(t, qr.device)
             qh = qr.reshape(b, t, cfg.num_heads, hd).transpose(1, 2)
             kh = kr.reshape(b, t, cfg.num_kv_heads, hd).transpose(1, 2)
@@ -233,6 +238,10 @@ class LlamaAttention(HybridBlock):
             if rep > 1:
                 kh = kh.repeat_interleave(rep, dim=1)
                 vh = vh.repeat_interleave(rep, dim=1)
+            return qh, kh, vh
+
+        def _attend(qr, kr, vr):
+            qh, kh, vh = _heads(qr, kr, vr)
             if cfg.attn_mode == "flash":
                 out = flash_attention_raw(qh.contiguous(), kh.contiguous(),
                                           vh.contiguous(), True, scale)
@@ -240,9 +249,41 @@ class LlamaAttention(HybridBlock):
                 out = _sdpa_ref(qh, kh, vh, True, scale)
             return out.transpose(1, 2).reshape(b, t, -1)
 
-        ctx = apply_op(_attend, self.q_proj(x), self.k_proj(x),
-                       self.v_proj(x), name="llama_attention")
+        def _attend_packed(qr, kr, vr, segr):
+            out = _sdpa_segmented(*_heads(qr, kr, vr), segr, scale)
+            return out.transpose(1, 2).reshape(b, t, -1)
+
+        if segment_ids is None:
+            ctx = apply_op(_attend, self.q_proj(x), self.k_proj(x),
+                           self.v_proj(x), name="llama_attention")
+        else:
+            ctx = apply_op(_attend_packed, self.q_proj(x), self.k_proj(x),
+                           self.v_proj(x), segment_ids,
+                           name="llama_attention_packed")
         return self.o_proj(ctx)
+
+
+def _segment_causal_mask(seg):
+    """(B, T) int segment ids → (B, 1, T, T) bool mask: causal AND
+    same-segment (reference ``_segment_causal_mask``).  The diagonal is
+    always kept, so no row is fully masked and the softmax has no NaN
+    even on padding rows (segment 0), which see only padding and whose
+    loss ``PackedBatch.loss_mask`` drops."""
+    t = seg.shape[1]
+    same = seg[:, :, None] == seg[:, None, :]
+    causal = torch.ones(t, t, dtype=torch.bool, device=seg.device).tril()
+    return (same & causal[None])[:, None]
+
+
+def _sdpa_segmented(q, k, v, seg, scale):
+    """Dense attention under the segment-causal mask (reference
+    ``_sdpa_segmented``): f32 scores and softmax, P cast to v's dtype
+    before the PV product.  q/k/v (B, H, T, D) after the GQA repeat, seg
+    (B, T) int."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s.masked_fill(~_segment_causal_mask(seg), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), v)
 
 
 class LlamaMLP(HybridBlock):
@@ -279,8 +320,11 @@ class LlamaDecoderLayer(HybridBlock):
                 cfg.hidden_size, cfg.rms_eps, prefix="ln_post_")
             self.mlp = LlamaMLP(cfg, prefix="mlp_")
 
-    def hybrid_forward(self, F, x):
-        x = x + self.self_attn(self.input_layernorm(x))
+    def hybrid_forward(self, F, x, segment_ids=None):
+        if segment_ids is None:
+            x = x + self.self_attn(self.input_layernorm(x))
+        else:
+            x = x + self.self_attn(self.input_layernorm(x), segment_ids)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -298,10 +342,10 @@ class LlamaModel(HybridBlock):
             self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps,
                                 prefix="norm_")
 
-    def hybrid_forward(self, F, input_ids):
+    def hybrid_forward(self, F, input_ids, segment_ids=None):
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h) if segment_ids is None else layer(h, segment_ids)
         return self.norm(h)
 
 
@@ -323,9 +367,12 @@ class LlamaForCausalLM(HybridBlock):
         return self._cfg
 
     def hybrid_forward(self, F, input_ids, segment_ids=None):
-        if segment_ids is not None:
-            raise MXNetError(f"packed segment_ids {_LATER}")
-        return _lm_head(self, self.model(input_ids))
+        """``segment_ids`` (B, T) int: packed pretraining
+        (``data.SequencePacker``); attention is masked to causal AND
+        same-segment so packed documents never see each other."""
+        if segment_ids is None:
+            return _lm_head(self, self.model(input_ids))
+        return _lm_head(self, self.model(input_ids, segment_ids))
 
     set_remat = _not_ported("LlamaForCausalLM.set_remat", _LATER7)
 
@@ -977,7 +1024,21 @@ shard_llama = _not_ported("shard_llama")
 llama_param_pspecs = _not_ported("llama_param_pspecs")
 llama_pipeline_forward = _not_ported("llama_pipeline_forward")
 llama_pipeline_train_step = _not_ported("llama_pipeline_train_step")
-packed_lm_loss = _not_ported("packed_lm_loss")
+
+
+def packed_lm_loss(logits, labels, loss_mask):
+    """Mean next-token cross entropy over a packed batch, masked to the
+    real targets (reference ``packed_lm_loss``; ``data.PackedBatch``:
+    padding and each document's last position carry ``loss_mask`` 0).
+    f32 log-softmax.  logits (B, T, V), labels (B, T) int, loss_mask
+    (B, T) float."""
+    def f(lg, lb, m):
+        lp = torch.log_softmax(lg.float(), dim=-1)
+        ll = torch.gather(lp, -1, lb.long()[..., None])[..., 0]
+        mf = m.float()
+        return -(ll * mf).sum() / mf.sum().clamp_min(1.0)
+
+    return apply_op(f, logits, labels, loss_mask, name="packed_lm_loss")
 
 
 def _lm_head(net, h):

@@ -101,9 +101,16 @@ class NDArray:
         return NDArray(self._data.clone())
 
     def as_in_context(self, ctx: Context):
+        """This array on ``ctx`` (itself if it is there).  A copy from
+        page-locked host memory to a card does not block the host (as
+        MXNet's copies do not); torch's pinned allocator keeps the source
+        until the copy has run."""
         if ctx == self.context:
             return self
-        return NDArray(self._data.to(ctx.device))
+        t = self._data
+        async_ok = ctx.device.type == "cuda" and not t.is_cuda and \
+            t.is_pinned()
+        return NDArray(t.to(ctx.device, non_blocking=async_ok))
 
     # -- arithmetic ----------------------------------------------------------
     def _binary(self, other, fn, name, reflected=False):

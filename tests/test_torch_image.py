@@ -1,0 +1,132 @@
+"""Image decode and augmentation of the PyTorch/CUDA port against the JAX
+package: the same encoded bytes and the same seeded generators give the
+same pixels."""
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+from mxnet_tpu import image as jimg
+from mxnet_tpu import recordio as jrec
+
+import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch import image as timg
+from mxnet_tpu_torch.base import MXNetError
+
+CPU = tmx.cpu()
+
+
+def _img(h=37, w=53, seed=0):
+    return (np.random.RandomState(seed).rand(h, w, 3) * 255).astype(np.uint8)
+
+
+def _encoded(fmt=".jpg", **kw):
+    _, payload = jrec.unpack(jrec.pack_img((0, 0.0, 0, 0), _img(**kw),
+                                           img_fmt=fmt))
+    return payload
+
+
+@pytest.mark.parametrize("fmt", [".jpg", ".png"])
+@pytest.mark.parametrize("flag", [1, 0])
+def test_imdecode_matches(fmt, flag):
+    buf = _encoded(fmt)
+    ref = jimg.imdecode(buf, flag=flag).asnumpy()
+    with CPU:
+        got = timg.imdecode(buf, flag=flag)
+    assert got.context == CPU and got.dtype == tmx.nd.array(
+        np.zeros(1, np.uint8), ctx=CPU).dtype
+    np.testing.assert_array_equal(got.asnumpy(), ref)
+    np.testing.assert_array_equal(timg.imdecode_raw(buf, flag),
+                                  jimg.imdecode_raw(buf, flag))
+
+
+def test_imdecode_bad_bytes_raise():
+    with CPU, pytest.raises(MXNetError, match="decode"):
+        timg.imdecode(b"not an image")
+
+
+def test_resize_and_crops_match():
+    img = _img()
+    np.testing.assert_array_equal(timg.imresize(img, 20, 11),
+                                  jimg.imresize(img, 20, 11))
+    np.testing.assert_array_equal(timg.resize_short(img, 24),
+                                  jimg.resize_short(img, 24))
+    np.testing.assert_array_equal(timg.fixed_crop(img, 3, 4, 10, 12, (8, 8)),
+                                  jimg.fixed_crop(img, 3, 4, 10, 12, (8, 8)))
+    t, tbox = timg.center_crop(img, (30, 20))
+    j, jbox = jimg.center_crop(img, (30, 20))
+    assert tbox == jbox
+    np.testing.assert_array_equal(t, j)
+    t, tbox = timg.random_crop(img, (16, 16), rng=np.random.RandomState(3))
+    j, jbox = jimg.random_crop(img, (16, 16), rng=np.random.RandomState(3))
+    assert tbox == jbox
+    np.testing.assert_array_equal(t, j)
+    np.testing.assert_allclose(
+        timg.color_normalize(img, (120, 110, 100), (50, 60, 70)),
+        jimg.color_normalize(img, (120, 110, 100), (50, 60, 70)),
+        rtol=0, atol=1e-6)
+
+
+def test_ndarray_inputs_stay_on_their_context():
+    img = _img()
+    with CPU:
+        nd = tmx.nd.array(img, ctx=CPU, dtype="uint8")
+        out = timg.resize_short(nd, 24)
+    assert isinstance(out, tmx.NDArray) and out.context == CPU
+    np.testing.assert_array_equal(out.asnumpy(), jimg.resize_short(img, 24))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(rand_crop=True, rand_mirror=True),
+    dict(rand_crop=False, rand_mirror=True, resize=40),
+    dict(rand_crop=True, rand_mirror=False, resize=30),
+])
+def test_augment_chains_draw_in_the_same_order(kw):
+    """Twelve images through one RandomState each side: the crops and
+    mirrors agree, and so does the full host chain (within 1e-6)."""
+    shape = (3, 24, 28)
+    trng, jrng = np.random.RandomState(11), np.random.RandomState(11)
+    for i in range(12):
+        img = _img(30 + i, 35 + 2 * i, seed=i)
+        np.testing.assert_array_equal(
+            timg.augment_geom(img, shape, trng, **kw),
+            jimg.augment_geom(img, shape, jrng, **kw))
+    norm = dict(mean=(123.7, 116.3, 103.5), std=(58.4, 57.1, 57.4),
+                scale=1.0, **kw)
+    for i in range(4):
+        img = _img(30, 40, seed=20 + i)
+        np.testing.assert_allclose(
+            timg.augment_basic(img, shape, trng, **norm),
+            jimg.augment_basic(img, shape, jrng, **norm),
+            rtol=0, atol=1e-6)
+
+
+def test_augmenters_match():
+    img = _img(40, 50)
+    taugs = timg.CreateAugmenter((3, 24, 24), resize=32, rand_crop=True,
+                                 rand_mirror=True)
+    jaugs = jimg.CreateAugmenter((3, 24, 24), resize=32, rand_crop=True,
+                                 rand_mirror=True)
+    assert [type(a).__name__ for a in taugs] == \
+        [type(a).__name__ for a in jaugs]
+    assert [a.dumps() for a in taugs] == [a.dumps() for a in jaugs]
+    for seed in range(4):
+        t, j = img, img
+        np.random.seed(seed)
+        for a in taugs:
+            t = a(t)
+        np.random.seed(seed)
+        for a in jaugs:
+            j = a(j)
+        assert t.dtype == np.float32 and t.shape == (24, 24, 3)
+        np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(timg.ForceResizeAug((13, 9))(img),
+                                  jimg.ForceResizeAug((13, 9))(img))
+    np.testing.assert_array_equal(timg.CenterCropAug((13, 9))(img),
+                                  jimg.CenterCropAug((13, 9))(img))
+
+
+def test_detection_iterator_names_the_roadmap():
+    with pytest.raises(MXNetError, match="Left out of slice 10"):
+        timg.ImageDetIter(4, (3, 8, 8), path_imgrec="x.rec")
+    with pytest.raises(MXNetError, match="Left out of slice 10"):
+        timg.CreateDetAugmenter((3, 8, 8))

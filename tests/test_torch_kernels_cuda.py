@@ -1414,3 +1414,168 @@ def test_fused_train_step_with_rmsprop_matches_eager_on_card(cuda_nvcc):
     assert entry["plan"] is None
     more = fstep(*batch).asnumpy()
     assert np.isfinite(more).all() and entry["graph"].replays == 3 + 4
+
+
+# -- slice 10: the data plane on the card -------------------------------------
+
+@pytest.mark.cuda
+def test_prefetcher_copies_on_its_stream_and_the_consumer_never_syncs(
+        cuda_nvcc, monkeypatch):
+    """``DevicePrefetcher`` copies pinned batches on a stream of its own;
+    ``get()`` makes the current stream wait for the batch's event and
+    the consumer thread never synchronizes the host (every synchronize
+    entry point raises there).  Large batches, read at once on the
+    current stream, come out exact."""
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import data
+
+    consumer = threading.current_thread()
+
+    def guard(orig):
+        def call(*a, **kw):
+            if threading.current_thread() is consumer:
+                raise AssertionError("host synchronize in the consumer")
+            return orig(*a, **kw)
+        return call
+
+    waits = []
+    orig_wait = torch.cuda.Stream.wait_event
+
+    def wait_event(self, event):
+        waits.append(self)
+        return orig_wait(self, event)
+
+    rng = np.random.RandomState(0)
+    host = [rng.normal(size=(8, 1 << 20)).astype(np.float32)
+            for _ in range(4)]
+    p = data.DevicePrefetcher(iter(host), depth=2, ctx=mx.gpu(0))
+    doubled = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        guard(torch.cuda.synchronize))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        guard(torch.cuda.Event.synchronize))
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize",
+                        guard(torch.cuda.Stream.synchronize))
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", wait_event)
+    for _ in host:
+        x = p.get(timeout=120)
+        assert x._data.is_cuda
+        doubled.append(x._data * 2)  # on the current stream, at once
+    monkeypatch.undo()
+    current = torch.cuda.current_stream()
+    assert p._stream is not None and p._stream != current
+    assert len(waits) == len(host) and all(w == current for w in waits)
+    for h, d in zip(host, doubled):
+        assert torch.equal(d.cpu(), torch.from_numpy(h) * 2)
+    with pytest.raises(StopIteration):
+        p.get(timeout=120)
+    assert p.stats()["batches"] == len(host) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers,worker_type", [(0, "thread"),
+                                                 (2, "thread"),
+                                                 (2, "process")])
+def test_dataloader_pin_memory_pins_host_batches_on_card(cuda_nvcc, workers,
+                                                         worker_type):
+    import mxnet_tpu_torch as mx
+
+    ds = mx.gluon.data.ArrayDataset(
+        np.arange(40, dtype=np.float32).reshape(20, 2),
+        np.arange(20, dtype=np.float32))
+    loader = mx.gluon.data.DataLoader(ds, batch_size=8, pin_memory=True,
+                                      num_workers=workers,
+                                      worker_type=worker_type)
+    try:
+        batches = list(loader)
+    finally:
+        loader.close()
+    assert [d.shape for d, _ in batches] == [(8, 2), (8, 2), (4, 2)]
+    for d, lab in batches:
+        for b in (d, lab):
+            assert b._data.is_pinned() and not b._data.is_cuda
+    np.testing.assert_array_equal(batches[2][1].asnumpy(),
+                                  np.arange(16, 20, dtype=np.float32))
+    plain = next(iter(mx.gluon.data.DataLoader(ds, batch_size=8)))
+    assert not plain[0]._data.is_pinned()
+
+
+@pytest.mark.cuda
+def test_fused_train_step_fed_by_the_prefetcher_matches_resident(cuda_nvcc):
+    """``FusedTrainStep`` (K=2, captured) over three prefetched batches
+    equals the same step over the same batches made on the card (bit for
+    bit: the same graph), and equals two eager ``Trainer.step``s a batch
+    within 1e-5: each call trains on its own batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import data
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(9)
+    host = [(rng.normal(size=(8, 8)).astype(np.float32),
+             rng.randint(0, 4, 8).astype(np.float32)) for _ in range(3)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    hp = {"learning_rate": 0.1, "momentum": 0.9}
+
+    def fused(feed):
+        net = _mlp(mx, ctx, 7)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd", dict(hp))
+        fstep = mx.gluon.FusedTrainStep(
+            net, tr, lambda n, a, b: loss_fn(n(a), b),
+            steps_per_execution=2, batch_size=8)
+        losses = np.concatenate([fstep(*b).asnumpy() for b in feed])
+        assert len(fstep._graphs) == 1
+        return losses, net
+
+    with data.DevicePrefetcher(host, depth=2, ctx=ctx) as pf:
+        fed, net_p = fused(pf)
+    resident, net_r = fused([(mx.nd.array(x, ctx=ctx),
+                              mx.nd.array(y, ctx=ctx)) for x, y in host])
+    np.testing.assert_array_equal(fed, resident)
+    net_e = _mlp(mx, ctx, 7)
+    tr = mx.gluon.Trainer(net_e.collect_params(), "sgd", dict(hp))
+    eager = []
+    for x, y in host:
+        xb, yb = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        for _ in range(2):
+            with mx.autograd.record():
+                loss = loss_fn(net_e(xb), yb)
+            loss.backward()
+            tr.step(8)
+            eager.append(float(loss.sum().asscalar()))
+    np.testing.assert_allclose(fed, eager, rtol=1e-5, atol=1e-6)
+    for (n, a), (_, b) in zip(net_e.collect_params().items(),
+                              net_p.collect_params().items()):
+        np.testing.assert_allclose(b.data().asnumpy(), a.data().asnumpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_image_record_iter_batches_land_on_the_card(cuda_nvcc, tmp_path):
+    """``ImageRecordIter`` on the card: the uint8 batch is copied once and
+    finished there, equal to the same iterator's batch on the CPU."""
+    import mxnet_tpu_torch as mx
+
+    path = str(tmp_path / "i.rec")
+    rec = mx.recordio.MXRecordIO(path, "w")
+    rng = np.random.RandomState(3)
+    for i in range(10):
+        img = rng.randint(0, 256, (30, 34, 3)).astype(np.uint8)
+        rec.write(mx.recordio.pack_img((0, float(i), i, 0), img,
+                                       quality=3, img_fmt=".png"))
+    rec.close()
+    kw = dict(path_imgrec=path, data_shape=(3, 24, 24), batch_size=4,
+              shuffle=True, rand_crop=True, rand_mirror=True, seed=2,
+              mean_r=120.0, mean_g=110.0, mean_b=100.0, std_r=50.0,
+              std_g=60.0, std_b=70.0)
+    with mx.gpu(0):
+        card = [(b.data[0], b.label[0]) for b in mx.io.ImageRecordIter(**kw)]
+    with mx.cpu():
+        host = [(b.data[0], b.label[0]) for b in mx.io.ImageRecordIter(**kw)]
+    assert len(card) == len(host) == 3
+    for (d, lab), (hd, hl) in zip(card, host):
+        assert d._data.is_cuda and lab._data.is_cuda
+        np.testing.assert_allclose(d.asnumpy(), hd.asnumpy(), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(lab.asnumpy(), hl.asnumpy())

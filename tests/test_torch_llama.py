@@ -233,13 +233,11 @@ def test_unported_features_raise_naming_the_roadmap(pair):
     with pytest.raises(tmx.MXNetError, match="KV-cache path"):
         tnet.generate(ids, max_new_tokens=2, use_cache=False,
                       do_sample=True)
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tnet(ids, ids)  # packed segment_ids
     with pytest.raises(tmx.MXNetError, match="max_seq_len"):
         tnet.generate(ids, max_new_tokens=200)
     for fn in (tllama.shard_llama, tllama.llama_param_pspecs,
                tllama.llama_pipeline_forward,
-               tllama.llama_pipeline_train_step, tllama.packed_lm_loss,
+               tllama.llama_pipeline_train_step,
                tllama.mixtral_8x7b, tllama.mixtral_tiny):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 1"):
             fn(tnet)
