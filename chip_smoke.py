@@ -21,7 +21,10 @@ the data plane: JPEG ``.rec`` shards through ``io.ImageRecordIter`` (the
 native reader, built by g++), ``gluon.data.DataLoader`` and
 ``data.StreamingLoader`` with the CUDA-stream ``DevicePrefetcher`` into
 ResNet-50 training and a hybridized eval pass, and packed Llama
-pretraining (``segment_ids``, ``packed_lm_loss``).
+pretraining (``segment_ids``, ``packed_lm_loss``); and synchronous
+multi-GPU on a one-rank NCCL group: the ``dist_sync`` store, phase 9's
+Llama step over a mesh of ``DTensor`` parameters, the ring and Ulysses
+bodies at full width, and SyncBatchNorm.
 
     python3 chip_smoke.py
 
@@ -197,12 +200,35 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     tokens/s, packing efficiency, peak memory, the first batch against
     the host packing of its draw; then two sample-mode steps on the same
     documents (cut or padded to 2048, no segment ids: the flash kernels,
-    16 tensor-core launches each a step) beside them.
+    16 tensor-core launches each a step) beside them;
+18a. an NCCL group of one (``parallel.initialize`` on 127.0.0.1, a free
+    port) and a ``{'dp': 1, 'tp': 1}`` mesh on the card: backend
+    ``nccl``; ``all_sum``, ``KVStore.broadcast`` and the store's
+    ``allreduce_grads`` return their inputs exactly;
+18b. phase 9's net, seed and batch through ``Trainer(...,
+    kvstore="dist_sync", partition_rules=LLAMA_RULES, mesh=...)`` (every
+    parameter a DTensor, the kernels on each rank's local pieces): the
+    losses step for step against phase 9's, #1-#3 launched as often a
+    step, step ms, ``allreduce_grads`` ms and peak memory beside phase
+    9's;
+18c. ``llama3_8b``'s attention (B1·H32·T2048·D128, causal, bf16) cut
+    into 4 sequence chunks: the ring and Ulysses bodies for each virtual
+    rank over a local transport, forward and backward against one flash
+    call; Ulysses launches #1-#3 once a virtual rank;
+18d. ``resnet50_v1`` bf16 B=128 steps through ``Trainer(kvstore=
+    "dist_sync")`` beside the ``device`` store's (losses equal, step
+    times side by side), and ``SyncBatchNorm`` on the group against
+    ``BatchNorm`` on the card.
+
+One card holds one rank: the card runs the NCCL route at world size 1;
+multi-rank behaviour is held on the CPU in gloo groups
+(``tests/test_torch_{parallel,partition,ring,kvstore_dist,
+llama_parallel}.py``).
 
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
-steps of 17; the update's in 9, 12, 12b, 13b, 16 and 17) and read just
-after,
+steps of 17, 18b, 18c's Ulysses bodies; the update's in 9, 12, 12b, 13b,
+16, 17, 18b and 18d) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -897,6 +923,8 @@ def train_phase(torch, mx, llama, fa, mt, failures):
     if min(launches + launches_mma) == 0:
         failures.append(f"the training path left a kernel unlaunched: "
                         f"{launches}, tensor-core {launches_mma}")
+    PLAIN9.update(losses=losses, step_ms=step_ms, peak=max(peaks),
+                  launches_per_step=[TRAIN_LAYERS] * 3)
     emit(dict(phase="train_summary", losses=losses,
               losses_fma_design=FMA_DESIGN_LOSSES,
               losses_fma_dq=FMA_DQ_LOSSES,
@@ -1670,6 +1698,11 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
     del net, inputs, loaded
     free_card(torch)
     return launches, launches_mma
+
+
+#: phase 9's losses, step times and peak memory, which phase 18b (the
+#: same net and batch on the mesh route) is held to and printed beside
+PLAIN9 = {}
 
 
 def _resnet_step(mx, net, trainer, loss_fn, x, y, stamps=None):
@@ -3848,6 +3881,334 @@ def _packed_lane(torch, mx, llama, fa, net, tr, root, mean_len, failures):
     return launches, mma, updates
 
 
+# Phases 18a-18d: synchronous multi-GPU (slice 11).  One card holds one
+# rank (NCCL puts no two ranks of a communicator on one device), so the
+# card runs the NCCL route at world size 1 and the sequence-parallel
+# bodies over local chunks; multi-rank behaviour is held on the CPU with
+# gloo groups (tests/test_torch_{parallel,partition,ring,kvstore_dist,
+# llama_parallel}.py).
+MESH_LOSS_RTOL = 2e-2     # the mesh route's losses vs phase 9's (bf16)
+SP_CHUNKS = 4             # 18c: virtual ranks on the sequence axis
+SP_TOL = 2e-2             # 18c: relative norm vs one flash call (bf16)
+SP_T, SP_H, SP_D = 2048, 32, 128
+SYNC_BN_TOL = 1e-5        # 18d: SyncBatchNorm vs BatchNorm, f32, relative
+
+
+def nccl_phase(torch, mx, parallel, failures):
+    """Phase 18a: an NCCL group of one on 127.0.0.1 (a free port), a
+    {'dp': 1, 'tp': 1} mesh on the card, and the collectives on card
+    tensors: ``all_sum``, ``KVStore.broadcast`` and the store's
+    ``allreduce_grads`` each return its input."""
+    t = time.perf_counter()
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0,
+                        init_timeout=120)
+    mesh = parallel.make_mesh({"dp": 1, "tp": 1})
+    backend = torch.distributed.get_backend()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 18)
+    x = mx.nd.array(torch.randn((1024, 257), generator=gen, device="cuda"))
+    summed = parallel.all_sum([x.copy()])[0]
+    kv = mx.kv.create("dist_tpu_sync")
+    out = mx.nd.zeros(x.shape, ctx=mx.gpu(0))
+    kv.broadcast("x", x, out=out)
+    net = mx.gluon.nn.Dense(64, in_units=257)
+    net.initialize(ctx=mx.gpu(0))
+    with mx.autograd.record():
+        loss = net(x).sum()
+    loss.backward()
+    before = [p.grad().asnumpy() for p in net.collect_params().values()]
+    kv.allreduce_grads(list(net.collect_params().values()))
+    after = [p.grad().asnumpy() for p in net.collect_params().values()]
+    errs = dict(
+        all_sum=float((summed._data - x._data).abs().max()),
+        broadcast=float((out._data - x._data).abs().max()),
+        allreduce_grads=max(float(np.abs(a - b).max())
+                            for a, b in zip(after, before)))
+    ok = backend == "nccl" and max(errs.values()) == 0.0 and \
+        str(mesh.device_type) == "cuda"
+    emit(dict(phase="nccl_group", backend=backend,
+              world_size=parallel.world_size(),
+              mesh=parallel.mesh_axes(mesh), mesh_device=mesh.device_type,
+              seconds=time.perf_counter() - t, max_abs_err=errs, ok=ok))
+    if not ok:
+        failures.append(f"NCCL group of one: backend {backend}, "
+                        f"errors {errs}")
+    return mesh
+
+
+def mesh_train_phase(torch, mx, llama, fa, mt, parallel, mesh, failures):
+    """Phase 18b: phase 9's net (``llama3_8b`` width, 16 layers, bf16, the
+    same seed, so the same weights) and batch through
+    ``Trainer(..., kvstore="dist_sync", partition_rules=LLAMA_RULES,
+    mesh={'dp': 1, 'tp': 1})``: every parameter a DTensor on the mesh,
+    the flash kernels on each rank's local pieces, the store's NCCL
+    all-reduce.  One warm-up and three timed steps, the losses step for
+    step against phase 9's, #1-#3 launched as often a step, step ms, the
+    store's ``allreduce_grads`` ms and peak memory beside phase 9's: at
+    world size 1 the difference is the mesh machinery's own cost."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(
+        net.collect_params(), "sgd",
+        {"learning_rate": TRAIN_LR, "momentum": 0.9}, kvstore="dist_sync",
+        partition_rules=parallel.LLAMA_RULES, mesh=mesh)
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                              SEED + 5)
+    ids = parallel.shard_batch(ids, mesh)
+    labels = parallel.shard_batch(labels, mesh)
+    torch.cuda.synchronize()
+    emit(dict(phase="mesh_train_init", seconds=time.perf_counter() - t,
+              placement=trainer.placement.summary(),
+              memory_allocated=torch.cuda.memory_allocated()))
+    _zero_counts(fa)  # the mesh route's main path starts here
+    mt.multi_tensor_update.launches = 0
+    losses, step_ms, ar_ms, peaks, per_step = [], [], [], [], []
+    for step in range(4):
+        before = [c.launches for c in _counters(fa)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_nd = _lm_forward(mx, net, ids, labels)
+        loss_nd.backward()
+        # Trainer.step(1) is allreduce_grads() then update(1): the first
+        # timed alone, the card synchronized on both sides of it
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.allreduce_grads()
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t1) * 1e3)
+        trainer.update(1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(loss_nd.asscalar()))
+        launched = [c.launches - n for c, n in zip(_counters(fa), before)]
+        per_step.append(launched)
+        if step:
+            step_ms.append(ms)
+        emit(dict(phase="mesh_train_step", step=step, warmup=step == 0,
+                  loss=losses[-1], plain_loss=PLAIN9["losses"][step],
+                  ms=ms, allreduce_grads_ms=ar_ms[-1],
+                  launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  max_memory_allocated=peaks[-1]))
+    launches = [c.launches for c in _counters(fa)]  # ... ends
+    launches_mma = _mma_counts(fa)
+    updates = mt.multi_tensor_update.launches  # ... ends
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, PLAIN9["losses"])]
+    ok = max(rel) <= MESH_LOSS_RTOL and \
+        all(s == PLAIN9["launches_per_step"] for s in per_step) and \
+        launches_mma == launches and updates == 4
+    grads = [p.grad()._data for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    emit(dict(phase="mesh_train_summary", losses=losses,
+              plain_losses=PLAIN9["losses"], max_rel_loss_diff=max(rel),
+              step_ms=step_ms, plain_step_ms=PLAIN9["step_ms"],
+              allreduce_grads_ms=ar_ms[1:], peak_memory=max(peaks),
+              plain_peak_memory=PLAIN9["peak"],
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
+              update_launches=updates,
+              grad_placements=sorted({str(g.placements) for g in grads}),
+              ok=ok))
+    if not ok:
+        failures.append(f"mesh route: losses {losses} vs {PLAIN9['losses']}"
+                        f", launches a step {per_step}, update launches "
+                        f"{updates}")
+    del net, trainer, ids, labels, loss_nd, grads
+    free_card(torch)
+    return launches, launches_mma, updates
+
+
+class _LocalRing:
+    """The ring's transport for virtual ranks in one process: before
+    step r, virtual rank ``idx`` holds chunk (idx - r) mod n, so a shift
+    hands it chunk (idx - r - 1) mod n (the real transport receives the
+    same chunk from rank idx - 1)."""
+
+    def __init__(self, k_chunks, v_chunks, idx):
+        self.k, self.v, self.idx = k_chunks, v_chunks, idx
+
+    def __call__(self, _k, _v, r):
+        j = (self.idx - r - 1) % len(self.k)
+        return self.k[j], self.v[j]
+
+
+class _LocalAllToAll:
+    """Ulysses' transport for virtual rank ``idx`` in one process:
+    ``to_heads`` gathers head group idx of every rank's sequence chunk
+    (what the all-to-all delivers), ``to_seq`` keeps the head group over
+    the whole sequence (the inverse all-to-all's input; the phase lays
+    the groups side by side)."""
+
+    def __init__(self, chunks, idx):
+        self.chunks, self.idx = chunks, idx
+
+    def to_heads(self, x):
+        group = next(c for c in self.chunks if any(t is x for t in c))
+        h = x.shape[2] // len(group)
+        return __import__("torch").cat(
+            [c[:, :, self.idx * h:(self.idx + 1) * h] for c in group],
+            dim=1)
+
+    @staticmethod
+    def to_seq(x):
+        return x
+
+
+def sp_bodies_phase(torch, mx, fa, ring, failures):
+    """Phase 18c: ``llama3_8b``'s attention (B1·H32·T2048·D128, causal,
+    bf16, GQA already repeated) cut into 4 sequence chunks; the ring body
+    and the Ulysses body run for each virtual rank over a local
+    transport, forward and backward, against one flash call and its
+    backward (relative norms).  Ulysses attends through ``sdpa_raw``:
+    #1-#3 once per virtual rank (the counts are zeroed just before its
+    bodies and read just after, apart from the reference flash call)."""
+    free_card(torch)
+    n, tc = SP_CHUNKS, SP_T // SP_CHUNKS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    full = [torch.randn((1, SP_T, SP_H, SP_D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(3)]
+    w = torch.randn((1, SP_T, SP_H, SP_D), generator=gen, device="cuda")
+    scale = 1.0 / math.sqrt(SP_D)
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in full]
+
+    # the reference: one flash call over the whole sequence
+    q, k, v = leaves()
+    ref = fa.flash_attention_raw(
+        *(t.transpose(1, 2).contiguous() for t in (q, k, v)), True,
+        scale).transpose(1, 2)
+    (ref.float() * w).sum().backward()
+    ref_grads = [q.grad, k.grad, v.grad]
+    rows = {}
+    for kind in ("ring", "ulysses"):
+        q, k, v = leaves()
+        chunks = [list(t.split(tc, dim=1)) for t in (q, k, v)]
+        _zero_counts(fa)  # the bodies' launches start here
+        t0 = time.perf_counter()
+        outs = []
+        for idx in range(n):
+            qc, kc, vc = (c[idx] for c in chunks)
+            if kind == "ring":
+                outs.append(ring._ring_body(
+                    qc, kc, vc, idx, n, True, scale,
+                    _LocalRing(chunks[1], chunks[2], idx)))
+            else:
+                tr = _LocalAllToAll(chunks, idx)
+                outs.append(ring._ulysses_body(qc, kc, vc, True, scale,
+                                               tr.to_heads, tr.to_seq))
+        out = torch.cat(outs, dim=1 if kind == "ring" else 2)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = [c.launches for c in _counters(fa)]  # ... ends
+        mma = _mma_counts(fa)
+        errs = dict(out=_rel_norm(torch, out, ref),
+                    **{f"d{nm}": _rel_norm(torch, g, r) for nm, g, r in
+                       zip("qkv", (q.grad, k.grad, v.grad), ref_grads)})
+        want = [0, 0, 0] if kind == "ring" else [n] * 3
+        # bf16: every launch the tensor-core design's
+        ok = max(errs.values()) <= SP_TOL and launched == want and \
+            mma == launched
+        rows[kind] = dict(rel_err=errs, launches=launched, mma=mma, ms=ms,
+                          ok=ok)
+        emit(dict(phase="sp_bodies", kind=kind, chunks=n,
+                  shape=[1, SP_H, SP_T, SP_D], rel_err=errs,
+                  launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
+                  host_ms=ms, ok=ok))
+        if not ok:
+            failures.append(f"{kind} body: relative errors {errs}, "
+                            f"launches {launched} (want {want}), "
+                            f"tensor-core {mma}")
+        del q, k, v, chunks, outs, out
+    free_card(torch)
+    return rows["ulysses"]["launches"], rows["ulysses"]["mma"]
+
+
+def classic_dp_phase(torch, mx, vision, mt, failures):
+    """Phase 18d: ``resnet50_v1`` bf16 B=128 steps through
+    ``Trainer(kvstore="dist_sync")`` on the group of one, beside the same
+    steps through the ``device`` store (same seed, same batch): the
+    losses agree and the step times stand side by side; then a
+    ``SyncBatchNorm`` block on the group equals ``BatchNorm`` on the
+    card (forward, backward, moving statistics; each within
+    ``SYNC_BN_TOL`` of its largest value)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    b = RESNET_BATCHES[0]
+    x = mx.nd.array(torch.rand((b, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    y = mx.nd.array(torch.randint(0, 1000, (b,), generator=gen,
+                                  device="cuda").float())
+    mt.multi_tensor_update.launches = 0  # the update's main path starts
+    rows = {}
+    for store in ("device", "dist_sync"):
+        free_card(torch)
+        mx.random.seed(SEED)
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+        net.cast("bfloat16")
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": RESNET_LR,
+                                    "momentum": 0.9}, kvstore=store)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, step_ms = [], []
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(_resnet_step(mx, net, trainer, loss_fn, x, y))
+            torch.cuda.synchronize()
+            if step:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows[store] = dict(losses=losses, step_ms=step_ms,
+                           type=trainer._kvstore.type)
+        del net, trainer
+    updates = mt.multi_tensor_update.launches  # ... ends
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(rows["dist_sync"]["losses"], rows["device"]["losses"]))
+    # SyncBatchNorm against BatchNorm on the card
+    bx = torch.randn((32, 64, 28, 28), generator=gen, device="cuda")
+    dy = torch.randn((32, 64, 28, 28), generator=gen, device="cuda")
+    got = []
+    for cls in ("BatchNorm", "SyncBatchNorm"):
+        bn = getattr(mx.gluon.nn, cls)(in_channels=64, momentum=0.8)
+        bn.initialize(ctx=mx.gpu(0))
+        bn.gamma.set_data(torch.linspace(0.5, 1.5, 64))
+        xx = mx.nd.array(bx)
+        xx.attach_grad()
+        with mx.autograd.record():
+            yy = bn(xx)
+        yy.backward(mx.nd.array(dy))
+        got.append([yy._data, xx.grad._data, bn.gamma.grad()._data,
+                    bn.beta.grad()._data, bn.running_mean.data()._data,
+                    bn.running_var.data()._data])
+    # relative to each tensor's largest value: the synchronized route sums
+    # (x, x²) where BatchNorm takes a two-pass variance
+    bn_err = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(*(map(torch.Tensor.detach, g) for g in got)))
+    ok = rel <= MESH_LOSS_RTOL and updates == 6 and bn_err <= SYNC_BN_TOL and \
+        rows["dist_sync"]["type"] == "dist_tpu_sync"
+    emit(dict(phase="classic_dp", B=b, stores=rows,
+              max_rel_loss_diff=rel, update_launches=updates,
+              sync_batch_norm_max_rel_err=bn_err, ok=ok))
+    if not ok:
+        failures.append(f"classic data parallelism: {rows}, loss diff {rel}"
+                        f", update launches {updates}, SyncBatchNorm error "
+                        f"{bn_err}")
+    del x, y
+    free_card(torch)
+    return updates
+
+
+
 def main():
     import torch
 
@@ -3942,6 +4303,17 @@ def main():
     packed_launches, packed_mma, packed_updates = packed_llama_phase(
         torch, mx, llama, fa, failures)
     update_launches += packed_updates
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import ring
+
+    mesh = nccl_phase(torch, mx, parallel, failures)
+    mesh_launches, mesh_mma, mesh_updates = mesh_train_phase(
+        torch, mx, llama, fa, mt, parallel, mesh, failures)
+    update_launches += mesh_updates
+    ulysses_launches, ulysses_mma = sp_bodies_phase(torch, mx, fa, ring,
+                                                    failures)
+    update_launches += classic_dp_phase(torch, mx, vision, mt, failures)
+    parallel.shutdown()
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -3956,12 +4328,17 @@ def main():
     # BERT-base's shape beside them, and the main paths' launches of each
     # design (the f32 FMA design's are the rest)
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
-        packed_launches[0]
-    fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0]
-    dq_launches = train_launches[1] + bert_launches[1] + packed_launches[1]
-    dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1]
-    dkv_launches = train_launches[2] + bert_launches[2] + packed_launches[2]
-    dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2]
+        packed_launches[0] + mesh_launches[0] + ulysses_launches[0]
+    fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
+        mesh_mma[0] + ulysses_mma[0]
+    dq_launches = train_launches[1] + bert_launches[1] + \
+        packed_launches[1] + mesh_launches[1] + ulysses_launches[1]
+    dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
+        ulysses_mma[1]
+    dkv_launches = train_launches[2] + bert_launches[2] + \
+        packed_launches[2] + mesh_launches[2] + ulysses_launches[2]
+    dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
+        ulysses_mma[2]
     bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
                     bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
                     library_ms=sb["library_ms"],
@@ -3982,6 +4359,8 @@ def main():
          "launches": fwd_launches, "launches_mma": fwd_mma,
          "launches_fma": fwd_launches - fwd_mma,
          "launches_bert": bert_launches[0], "at_bert_shape": bert_fwd,
+         "launches_mesh": mesh_launches[0],
+         "launches_ulysses": ulysses_launches[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -3992,6 +4371,8 @@ def main():
          "launches": dq_launches, "launches_mma": dq_mma,
          "launches_fma": dq_launches - dq_mma,
          "launches_bert": bert_launches[1], "at_bert_shape": bert_dq,
+         "launches_mesh": mesh_launches[1],
+         "launches_ulysses": ulysses_launches[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -4002,6 +4383,8 @@ def main():
          "launches": dkv_launches, "launches_mma": dkv_mma,
          "launches_fma": dkv_launches - dkv_mma,
          "launches_bert": bert_launches[2], "at_bert_shape": bert_dkv,
+         "launches_mesh": mesh_launches[2],
+         "launches_ulysses": ulysses_launches[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],

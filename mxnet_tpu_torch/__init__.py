@@ -59,7 +59,8 @@ _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from . import base
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context, num_gpus
+from .context import Context, cpu, gpu, tpu, current_context, num_gpus, \
+    num_tpus, num_devices
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -88,3 +89,8 @@ from . import recordio
 from . import image
 from . import io
 from . import data
+from . import parallel
+
+from . import _left_out
+
+__getattr__ = _left_out.refuse(_left_out.MX, "mxnet_tpu_torch")

@@ -1,0 +1,61 @@
+"""Public names of the reference that the port has not ported yet, with
+the ROADMAP.md list that owns each: reading one raises ``MXNetError``
+naming that list (never ``AttributeError``).  ``mx`` and ``nd`` install
+``refuse`` as their module ``__getattr__``."""
+from __future__ import annotations
+
+from .base import MXNetError
+
+_8B = "Queue 1 item 8b, int8"
+_8C = "Queue 1 item 8c, RNN"
+_8D = "Queue 1 item 8d, detection and the contrib ops"
+_8E = "Queue 1 item 8e, sparse"
+_8F = "Queue 1 item 8f, symbols and export"
+_8G = "Queue 1 item 8g"
+_9 = "Queue 1 item 9, observability and tooling"
+
+MX = {
+    **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
+                     "sym", "symbol"), _8F),
+    **dict.fromkeys(("contrib", "np", "npx", "numpy", "numpy_extension",
+                     "operator", "rtc"), _8G),
+    **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
+                     "test_utils", "util", "visualization", "viz"), _9),
+    "rnn": _8C,
+}
+
+ND = {
+    **dict.fromkeys((
+        "AdaptiveAvgPooling2D", "BilinearResize2D", "DeformableConvolution",
+        "ModulatedDeformableConvolution", "MultiBoxDetection",
+        "MultiBoxPrior", "MultiBoxTarget", "Proposal", "ROIAlign",
+        "ROIPooling", "adaptive_avg_pooling_2d", "allclose", "amp_cast",
+        "amp_multicast", "arange_like", "bilinear_resize_2d",
+        "bipartite_matching", "box_decode", "box_encode", "box_iou",
+        "box_nms", "box_non_maximum_suppression", "contrib",
+        "deformable_convolution", "fft", "gradientmultiplier", "ifft",
+        "index_array", "index_copy", "modulated_deformable_convolution",
+        "multibox_detection", "multibox_prior", "multibox_target",
+        "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
+    **dict.fromkeys(("dequantize", "quantize", "quantize_v2",
+                     "quantized_conv", "quantized_flatten",
+                     "quantized_fully_connected", "quantized_pooling",
+                     "requantize"), _8B),
+    "Custom": _8G, "RNN": _8C, "rnn": _8C,
+    "cast_storage": _8E, "sparse": _8E,
+}
+
+
+GLUON = {"rnn": _8C}
+
+
+def refuse(table, module):
+    """A module ``__getattr__`` raising ``MXNetError`` for ``table``'s
+    names and ``AttributeError`` for any other."""
+    def __getattr__(name):
+        if name in table:
+            raise MXNetError(f"{module}.{name} is not ported yet "
+                             f"(ROADMAP.md, {table[name]})")
+        raise AttributeError(f"module {module!r} has no attribute {name!r}")
+
+    return __getattr__

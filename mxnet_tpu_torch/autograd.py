@@ -176,9 +176,33 @@ def _as_lists(heads, head_grads):
                 "graph (call .attach_grad() or compute it inside "
                 "autograd.record())")
         roots.append(h._data)
-    seeds = [torch.ones_like(r) if g is None else g._data.to(r.dtype)
+    seeds = [_ones_seed(r) if g is None else _given_seed(r, g._data)
              for r, g in zip(roots, head_grads)]
     return roots, seeds
+
+
+def _ones_seed(r):
+    """The head gradient of ones.  A head that is a sum over a mesh's
+    ranks (``Partial``) is seeded with replicated ones: every rank's
+    share gets gradient 1."""
+    from .parallel.local import is_dtensor
+
+    if is_dtensor(r) and any(p.is_partial() for p in r.placements):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(
+            torch.ones_like(r.to_local()), r.device_mesh,
+            [Replicate() if p.is_partial() else p for p in r.placements],
+            run_check=False)
+    return torch.ones_like(r)
+
+
+def _given_seed(r, g):
+    """A head gradient given for ``r``; a plain one for a head on a mesh
+    is the replicated global array."""
+    from .parallel.local import replicate_plain
+
+    return replicate_plain([r, g.to(r.dtype)])[1]
 
 
 def _grads(roots, seeds, tensors, retain_graph):

@@ -23,7 +23,7 @@ Counterpart of ``mxnet_tpu/checkpoint.py``:
   cut a final checkpoint and exit with ``PREEMPTED_EXIT_CODE`` (75).
 
 Sharded checkpoints (``sharded=True``) and the multi-host protocol raise:
-they go with multi-GPU (ROADMAP Queue 1 item 5).
+they are left out of slice 11 (ROADMAP.md, Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -50,7 +50,8 @@ _PREFIX = "ckpt-"
 def _refuse_sharded(sharded):
     if sharded:
         raise MXNetError("sharded checkpoints are not ported yet "
-                         "(ROADMAP.md, Queue 1 item 5, multi-GPU)")
+                         "(ROADMAP.md, \"Left out of slice 11\", Queue 1 "
+                         "item 5)")
 
 
 def _fsync_file(path):

@@ -85,10 +85,35 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
-def gpu(device_id: int = 0) -> Context:
+def gpu(device_id: int = 0, mesh=None) -> Context:
     """CUDA device ``cuda:device_id`` (reference ``mx.gpu``); raises
-    ``MXNetError`` when the process has no such card."""
-    return Context("gpu", device_id)
+    ``MXNetError`` when the process has no such card.
+
+    ``mesh`` activates a device mesh for the process in the same call
+    (``mx.gpu(mesh={'dp': 2, 'tp': 2})``, the counterpart of the
+    reference's ``mx.tpu(mesh=)``): a dict builds one with
+    ``parallel.make_mesh`` over the process group, a ``DeviceMesh`` is
+    used as it is.  ``Trainer(partition_rules=...)`` and
+    ``parallel.shard_batch`` then pick it up."""
+    ctx = Context("gpu", device_id)
+    if mesh is not None:
+        from . import parallel  # deferred: parallel imports context
+
+        if isinstance(mesh, dict):
+            mesh = parallel.make_mesh(mesh)
+        parallel.set_mesh(mesh)
+    return ctx
+
+
+def tpu(device_id: int = 0, mesh=None) -> Context:
+    """The reference's accelerator context, so its scripts run unchanged:
+    here the CUDA card ``gpu(device_id)`` (``mesh`` as ``gpu``'s)."""
+    return gpu(device_id, mesh=mesh)
+
+
+def num_tpus() -> int:
+    """The reference's accelerator count: the CUDA cards here."""
+    return num_gpus()
 
 
 def current_context() -> Context:
@@ -100,3 +125,19 @@ def num_gpus() -> int:
     """Number of CUDA devices this process sees (reference
     ``mx.context.num_gpus``)."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_devices(device_type=None) -> int:
+    """Devices this process sees (reference ``num_devices``): its CUDA
+    cards, or 1 for ``'cpu'``."""
+    if device_type == "cpu":
+        return 1
+    return num_gpus()
+
+
+def global_num_devices() -> int:
+    """Devices across the process group: one a rank (reference
+    ``global_num_devices``)."""
+    from . import parallel
+
+    return parallel.world_size()

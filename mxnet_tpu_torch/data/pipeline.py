@@ -32,7 +32,7 @@ import numpy as np
 
 from .. import elastic
 from ..base import MXNetError
-from .prefetch import _LATER10, DevicePrefetcher
+from .prefetch import DevicePrefetcher
 
 __all__ = ["StreamingLoader"]
 
@@ -71,6 +71,9 @@ class StreamingLoader:
         buffer).
     ctx : Context, optional
         Where the batches go (default: the current context).
+    mesh : DeviceMesh, optional
+        Every rank assembles the global batch and the prefetcher copies
+        only its ``dp`` rows (one sharded array over the mesh).
     start_step, num_steps
         First step to emit and how many (None = endless stream).
     world_size, rank
@@ -81,8 +84,6 @@ class StreamingLoader:
                  tokenize=None, batchify=None, num_workers=2,
                  prefetch_depth=2, mesh=None, start_step=0,
                  num_steps=None, world_size=None, rank=None, ctx=None):
-        if mesh is not None:
-            raise MXNetError(f"StreamingLoader(mesh=) {_LATER10}")
         if packer is not None and tokenize is None:
             raise MXNetError("packed mode needs tokenize= (raw bytes -> "
                              "1-D int token array)")
@@ -102,12 +103,16 @@ class StreamingLoader:
             r, w = elastic.world_info()
             rank = r if rank is None else rank
             world_size = w if world_size is None else world_size
+        if mesh is not None:
+            # every rank assembles the global batch; the prefetcher
+            # copies only its own dp rows of it
+            world_size, rank = 1, 0
         self._world, self._rank = int(world_size), int(rank)
         self._stop = threading.Event()
         self._threads = []
         self._prefetcher = DevicePrefetcher(self._host_batches(),
                                             depth=self._prefetch_depth,
-                                            ctx=ctx)
+                                            mesh=mesh, ctx=ctx)
 
     @property
     def prefetcher(self):

@@ -21,8 +21,11 @@ On the CPU (a ``cpu`` context) the leaves become host NDArrays and no
 stream is involved.  ``stats()`` gives the consumer's wait (ms, p50/p99)
 and the queue depth sampled at each ``get()``, as plain numbers.
 
-Not ported yet: ``mesh=`` (dp sharding of the batch) raises
-``MXNetError`` naming ROADMAP Queue 1, "Left out of slice 10".
+With ``mesh=`` (a ``DeviceMesh`` with the ``axis_name`` axis, default
+``dp``) the source yields the global batch and each rank copies only its
+own rows of every leaf (dim 0 split over the axis), which ``get()``
+hands out as one ``dp``-sharded array over the mesh
+(``parallel.shard_batch``'s layout).
 """
 from __future__ import annotations
 
@@ -40,9 +43,6 @@ from ..ndarray import NDArray
 from .packing import PackedBatch
 
 __all__ = ["DevicePrefetcher"]
-
-_LATER10 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
-            "10\": item 5, multi-GPU)")
 
 
 def _map_leaves(fn, batch):
@@ -95,11 +95,22 @@ class DevicePrefetcher:
         buffering).
     ctx : Context, optional
         Where the batches go.
+    mesh : DeviceMesh, optional
+        Shard every leaf's rows over ``axis_name`` (default ``dp``):
+        each rank copies only its own rows.
     """
 
-    def __init__(self, source, depth=2, mesh=None, ctx=None):
+    def __init__(self, source, depth=2, mesh=None, ctx=None,
+                 axis_name="dp"):
+        self._mesh, self._axis = mesh, axis_name
         if mesh is not None:
-            raise MXNetError(f"DevicePrefetcher(mesh=) {_LATER10}")
+            names = getattr(mesh, "mesh_dim_names", None) or ()
+            if axis_name not in names:
+                raise MXNetError(
+                    f"DevicePrefetcher(mesh=) needs a DeviceMesh with a "
+                    f"{axis_name!r} axis (parallel.make_mesh), got {mesh!r}")
+            n = mesh.size(names.index(axis_name))
+            self._shard = (mesh.get_local_rank(axis_name), n)
         if depth < 1:
             raise MXNetError("prefetch depth must be >= 1")
         self._source = iter(source)
@@ -139,7 +150,7 @@ class DevicePrefetcher:
                     # a copy, as a copy to a card would be: the source
                     # may reuse its buffers
                     if not self._put(("ok", (_map_leaves(
-                            lambda x: NDArray(_host_tensor(x).clone()),
+                            lambda x: self._local_rows(x).clone(),
                             host), None))):
                         return
             self._put(("end", None))
@@ -158,7 +169,7 @@ class DevicePrefetcher:
                     inflight.popleft()
                 pinned = _map_leaves(
                     lambda x: x if x.is_pinned() else x.pin_memory(),
-                    _map_leaves(_host_tensor, host))
+                    _map_leaves(self._local_rows, host))
                 with torch.cuda.stream(stream):
                     dev = _map_leaves(
                         lambda x: x.to(device, non_blocking=True), pinned)
@@ -199,13 +210,38 @@ class DevicePrefetcher:
             self.close()
             raise StopIteration
         batch, event = payload
-        if event is None:
-            return batch
-        current = torch.cuda.current_stream(self._ctx.device)
-        current.wait_event(event)
-        for leaf in _iter_leaves(batch):
-            leaf.record_stream(current)
-        return _map_leaves(NDArray, batch)
+        if event is not None:
+            current = torch.cuda.current_stream(self._ctx.device)
+            current.wait_event(event)
+            for leaf in _iter_leaves(batch):
+                leaf.record_stream(current)
+        return _map_leaves(lambda t: NDArray(self._global(t)), batch)
+
+    def _local_rows(self, x):
+        """The host tensor of a leaf: this rank's rows under a mesh."""
+        t = _host_tensor(x)
+        if self._mesh is None:
+            return t
+        i, n = self._shard
+        if t.shape[0] % n:
+            raise MXNetError(f"DevicePrefetcher: batch of {t.shape[0]} rows "
+                             f"is not divisible by {self._axis}={n}")
+        rows = t.shape[0] // n
+        return t[i * rows:(i + 1) * rows]
+
+    def _global(self, t):
+        """A copied leaf as the consumer sees it: under a mesh, this
+        rank's rows of one array sharded over the axis."""
+        if self._mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel import placements
+
+        spec = (self._axis,) + (None,) * (t.dim() - 1)
+        return DTensor.from_local(t, self._mesh,
+                                  placements(spec, self._mesh),
+                                  run_check=False)
 
     def depth(self):
         """Batches waiting on the card right now."""

@@ -109,8 +109,12 @@ def shard_rows(num_rows, world_size, rank):
 
 def world_info():
     """``(rank, world_size)`` of this process: the launcher's
-    ``MXT_PROCESS_ID``/``MXT_NUM_PROCESSES``, else ``(0, 1)``.  (The
-    reference asks its process group first; multi-GPU process groups are
-    ROADMAP Queue 1 item 5.)"""
+    process group's when ``parallel.initialize`` formed one, else the
+    launcher's ``MXT_PROCESS_ID``/``MXT_NUM_PROCESSES``, else ``(0, 1)``
+    (the reference asks its process group first)."""
+    from . import parallel
+
+    if parallel.is_initialized():
+        return parallel.rank(), parallel.world_size()
     return (int(os.environ.get("MXT_PROCESS_ID", "0")),
             int(os.environ.get("MXT_NUM_PROCESSES", "1")))

@@ -2,9 +2,9 @@
 parameters, layers, losses, the ``Trainer``, ``FusedTrainStep``,
 ``utils``, the vision model zoo and the data API (``gluon.data``)."""
 from . import parameter
-from .parameter import Parameter, ParameterDict
+from .parameter import Constant, Parameter, ParameterDict
 from . import block
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
 from . import trainer
@@ -14,3 +14,7 @@ from .step_fusion import FusedTrainStep
 from . import utils
 from . import model_zoo
 from . import data
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(_lo.GLUON, "mxnet_tpu_torch.gluon")

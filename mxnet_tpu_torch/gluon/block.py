@@ -23,6 +23,7 @@ recorded forward and ``hybridize(remat=...)`` are left out of slice 7
 """
 from __future__ import annotations
 
+import math
 import re
 import threading
 from collections import OrderedDict
@@ -34,6 +35,7 @@ from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
 from .. import engine
+from ..parallel.local import any_dtensor
 from ..context import current_context
 from .parameter import (Parameter, ParameterDict,
                         DeferredInitializationError)
@@ -114,6 +116,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_pre_hooks = OrderedDict()
+        self._forward_hooks = OrderedDict()
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -254,8 +258,61 @@ class Block:
             p.set_data(value)
 
     def __call__(self, *args):
+        # tuple(): a hook may detach itself while they run
+        for hook in tuple(self._forward_pre_hooks.values()):
+            hook(self, args)
         with ag.grad_mode():
-            return self.forward(*args)
+            out = self.forward(*args)
+        for hook in tuple(self._forward_hooks.values()):
+            hook(self, args, out)
+        return out
+
+    def register_forward_pre_hook(self, hook):
+        """Run ``hook(block, inputs)`` before each ``forward`` (reference
+        ``Block.register_forward_pre_hook``); returns a ``HookHandle``."""
+        from .utils import HookHandle
+
+        handle = HookHandle()
+        handle.attach(self._forward_pre_hooks, hook)
+        return handle
+
+    def register_forward_hook(self, hook):
+        """Run ``hook(block, inputs, outputs)`` after each ``forward``
+        (reference ``Block.register_forward_hook``)."""
+        from .utils import HookHandle
+
+        handle = HookHandle()
+        handle.attach(self._forward_hooks, hook)
+        return handle
+
+    def apply(self, fn):
+        """``fn`` on every child, depth first, then on this block
+        (reference ``Block.apply``)."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def summary(self, *inputs):
+        """Print each block's type, name and parameter count, indented by
+        depth, and the total (reference ``Block.summary``)."""
+        rows = []
+
+        def walk(block, depth):
+            n_params = sum(
+                math.prod(p.shape) for p in block._reg_params.values()
+                if p.shape is not None and all(s > 0 for s in p.shape))
+            rows.append(("  " * depth + type(block).__name__,
+                         block.name, n_params))
+            for c in block._children.values():
+                walk(c, depth + 1)
+
+        walk(self, 0)
+        total = sum(r[2] for r in rows)
+        lines = [f"{'Layer':<40}{'Name':<28}{'Params':>12}", "-" * 80]
+        lines += [f"{r[0]:<40}{r[1]:<28}{r[2]:>12}" for r in rows]
+        lines += ["-" * 80, f"Total params: {total}"]
+        print("\n".join(lines))
 
     def forward(self, *args):
         raise NotImplementedError(
@@ -293,6 +350,16 @@ class CachedOp:
     def __call__(self, *args):
         from ..ndarray import NDArray
 
+        params = list(self.block.collect_params().values())
+        if any_dtensor([a._data for a in args if isinstance(a, NDArray)] +
+                       [p._data._data for p in params
+                        if p._data is not None]):
+            # recorded calls too: none runs eagerly in its place
+            raise MXNetError(
+                "hybridize() of a block over a mesh (DTensor parameters or "
+                "inputs: the collectives inside the graph) is not ported "
+                "yet (ROADMAP.md, \"Left out of slice 11\"); call it "
+                "without hybridize()")
         if ag.is_recording():
             self._recorded += 1
             return self._inline(args)
@@ -300,7 +367,6 @@ class CachedOp:
             if a is not None and not isinstance(a, NDArray):
                 raise MXNetError("hybridized blocks take NDArray (or None) "
                                  f"inputs only, got {type(a)}")
-        params = list(self.block.collect_params().values())
         if any(p._data is None for p in params):
             # deferred shapes: one eager pass resolves them (the reference
             # builds its graph after the same pass)
@@ -390,6 +456,18 @@ class HybridBlock(Block):
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        """Reference ``optimize_for`` (a subgraph backend's partitioning):
+        the port has one backend, so it is ``hybridize(**kwargs)`` and one
+        warm-up call on the inputs."""
+        self.hybridize(True, **kwargs)
+        self(x, *args)
+
+    def export(self, path, epoch=0):
+        """Symbol JSON + params for serving: Queue 1 item 8f."""
+        raise MXNetError("HybridBlock.export (symbols and export) is not "
+                         "ported yet (ROADMAP.md, Queue 1 item 8f)")
+
     def cache_stats(self):
         """The ``CachedOp``'s counters (all 0 before the first call)."""
         if self._cached_op is None:
@@ -429,3 +507,16 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, *args, **params):
         raise NotImplementedError(
             f"{type(self).__name__} must implement hybrid_forward")
+
+
+class SymbolBlock(HybridBlock):
+    """A block built from an exported symbol graph: Queue 1 item 8f."""
+
+    def __init__(self, *args, **kwargs):
+        raise MXNetError("gluon.SymbolBlock (symbols and export) is not "
+                         "ported yet (ROADMAP.md, Queue 1 item 8f)")
+
+    @staticmethod
+    def imports(*args, **kwargs):
+        raise MXNetError("gluon.SymbolBlock.imports is not ported yet "
+                         "(ROADMAP.md, Queue 1 item 8f)")

@@ -310,13 +310,47 @@ class Embedding(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """Left out of slice 9: cross-device BatchNorm ports with multi-GPU
-    data parallelism (ROADMAP.md, Queue 1 item 5)."""
+    """Cross-device BatchNorm (reference ``nn.SyncBatchNorm``,
+    ``contrib/sync_batch_norm.cc``): in training its statistics and its
+    input gradient cover the batch of every rank (``ops.nn_ops.
+    _SyncBNTrain``: the forward all-reduces (Σx, Σx², count), the
+    backward (Σdy, Σdy·x̂)), with the reference's population variance,
+    ``momentum`` (the weight of the old moving value) and ``fix_gamma``.
+    Each rank's own batch (plain tensors) sums over the whole process
+    group; an input over a mesh sums over its ``dp`` axis.  Without a
+    process group, or in inference, it is ``BatchNorm``.  ``num_devices``
+    is accepted and unused, as in the reference."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("nn.SyncBatchNorm is left out of slice 9; it ports "
-                         "with multi-GPU data parallelism (ROADMAP.md, "
-                         "\"Left out of slice 9\")")
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, center=True, scale=True,
+                 use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", prefix=None,
+                 params=None, **kwargs):
+        super().__init__(
+            axis=1, momentum=momentum, epsilon=epsilon, center=center,
+            scale=scale, use_global_stats=use_global_stats,
+            beta_initializer=beta_initializer,
+            gamma_initializer=gamma_initializer,
+            running_mean_initializer=running_mean_initializer,
+            running_variance_initializer=running_variance_initializer,
+            in_channels=in_channels, prefix=prefix, params=params)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        if not autograd.is_training() or self._use_global_stats:
+            return super().hybrid_forward(F, x, gamma, beta, running_mean,
+                                          running_var)
+        from ...ops.nn_ops import sync_batch_norm
+
+        y, new_mean, new_var = sync_batch_norm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            axis=self._axis)
+        with torch.no_grad():
+            running_mean._data.copy_(new_mean._data)
+            running_var._data.copy_(new_var._data)
+        return y
 
 
 class _ChannelNorm(HybridBlock):

@@ -10,18 +10,21 @@ initialization (shape resolved at the first forward) is kept.
 ``set_data`` copies into the parameter's own tensor, so a CUDA graph
 that captured it reads the new values; ``cast`` and a forced
 re-initialization replace the tensor (a graph keyed on its address is
-captured again).  Multi-device copies port with multi-GPU (ROADMAP
-Queue 1 item 5).
+captured again).  Over a mesh the tensor is a ``DTensor`` leaf
+(``parallel.place_params``); one process holds one device, so a
+Parameter has one copy.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, current_context
 from ..ndarray import NDArray
+from ..parallel.local import is_dtensor
 from .. import initializer as init_mod
 
 
@@ -124,7 +127,8 @@ class Parameter:
 
     def set_data(self, data):
         """Copy ``data`` (NDArray, tensor or array-like) into the
-        parameter, in its dtype and on its device; a deferred
+        parameter, in its dtype and on its device (over a mesh: in its
+        placement, each rank taking its piece of ``data``); a deferred
         initialization is finished first with ``data``'s shape."""
         src = data._data if isinstance(data, NDArray) else \
             torch.as_tensor(data)
@@ -135,8 +139,15 @@ class Parameter:
             raise MXNetError(
                 f"set_data shape mismatch for {self.name!r}: "
                 f"{tuple(src.shape)} vs {self.shape}")
+        dst = self._data._data
+        if is_dtensor(dst):  # over a mesh: keep the placement
+            from torch.distributed.tensor import distribute_tensor
+
+            src = distribute_tensor(
+                src.detach().to(dst.device_mesh.device_type),
+                dst.device_mesh, dst.placements, src_data_rank=None)
         with torch.no_grad():
-            self._data._data.copy_(src)
+            dst.copy_(src)
 
     # -- access --------------------------------------------------------------
     def _check_initialized(self):
@@ -165,6 +176,42 @@ class Parameter:
     def list_grad(self):
         return [self.grad()]
 
+    def list_data(self):
+        """The value on each context: one (one device a process)."""
+        self._check_initialized()
+        return [self._data]
+
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (a Context or a one-element list);
+        its gradient buffer starts again."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        self._ctx_list = list(ctx)
+        if self._data is not None:
+            old = self._data._data
+            self._data._data = torch.nn.Parameter(
+                old.detach().to(ctx[0].device),
+                requires_grad=old.requires_grad)
+            if self._grad_req != "null":
+                self._data.attach_grad(self._grad_req)
+        elif self._deferred_init is not None:
+            self._deferred_init = (self._deferred_init[0], list(ctx))
+
+    @property
+    def dtype_np(self):
+        """The dtype (reference ``dtype_np``)."""
+        return self.dtype
+
+    @property
+    def stype(self):
+        """Storage type: dense only (sparse storage is Queue 1 item
+        8e)."""
+        return "default"
+
+    def var(self):
+        raise MXNetError("Parameter.var() (symbols) is not ported yet "
+                         "(ROADMAP.md, Queue 1 item 8f)")
+
     def list_ctx(self):
         if self._data is None and self._deferred_init is not None:
             return list(self._deferred_init[1])
@@ -191,6 +238,26 @@ class Parameter:
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+
+class Constant(Parameter):
+    """A non-trainable parameter holding ``value`` (reference
+    ``gluon.Constant``)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = NDArray(torch.as_tensor(np.asarray(value,
+                                                       dtype=np.float32)))
+        self.value = value
+
+        class _ConstInit(init_mod.Initializer):
+            def _init_weight(self, _name, arr):
+                with torch.no_grad():
+                    arr._data.copy_(value._data)
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ConstInit(),
+                         differentiable=False)
 
 
 class ParameterDict:
@@ -247,7 +314,24 @@ class ParameterDict:
                 raise MXNetError(f"duplicate parameter name {k!r}")
             self._params[k] = v
 
-    def initialize(self, init=None, ctx=None, force_reinit=False):
+    def get_constant(self, name, value=None):
+        """Create-or-fetch the constant ``prefix+name`` (reference
+        ``get_constant``)."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None and self._shared is not None:
+            param = self._shared._params.get(name)
+            if param is not None:
+                self._params[name] = param
+        if param is None:
+            if value is None:
+                raise MXNetError(
+                    f"no constant named {name!r}; provide a value")
+            param = self._params[name] = Constant(name, value)
+        return param
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
         if init is None:
             init = init_mod.Uniform()
         for p in self._params.values():
@@ -257,3 +341,57 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (e.g. ``grad_req``,
+        ``lr_mult``)."""
+        for p in self._params.values():
+            setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write the values to an MXNet ``.params`` file, by name (with
+        ``strip_prefix`` taken off)."""
+        from .. import ndarray as nd
+
+        arrays = {}
+        for name, p in self._params.items():
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arrays[name] = p.data()
+        nd.save(filename, arrays)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Read a ``.params`` file into the parameters by name
+        (``arg:``/``aux:`` prefixes dropped, ``restore_prefix`` put
+        before each name); an uninitialized parameter takes the file's
+        shape."""
+        from .. import ndarray as nd
+
+        loaded = nd.load(filename)
+        if isinstance(loaded, list):
+            raise MXNetError("parameter file must contain a dict of arrays")
+        loaded = {restore_prefix + k.removeprefix("arg:").removeprefix(
+            "aux:"): v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self._params:
+                if name not in loaded:
+                    raise MXNetError(
+                        f"parameter {name!r} missing from file {filename!r}")
+        for name, value in loaded.items():
+            if name not in self._params:
+                if ignore_extra:
+                    continue
+                raise MXNetError(
+                    f"file {filename!r} has parameter {name!r} not present "
+                    "in this ParameterDict (set ignore_extra=True to skip)")
+            p = self._params[name]
+            if p._data is None and p._deferred_init is None:
+                p.shape = value.shape
+                p.initialize(ctx=ctx or [current_context()],
+                             default_init=init_mod.Zero())
+            p.set_data(value)

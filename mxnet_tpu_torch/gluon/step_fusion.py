@@ -105,10 +105,13 @@ class FusedTrainStep:
                 "FusedTrainStep cannot fuse update_on_kvstore modes (the "
                 "store owns the update); use per-step Trainer.step")
         kv = trainer._kvstore
-        if kv is not None and (str(kv.type).startswith("dist") or
-                               kv.num_workers > 1):
-            raise MXNetError("FusedTrainStep cannot fuse a distributed "
-                             "kvstore; use per-step Trainer.step")
+        if trainer._mesh is not None or (kv is not None and (
+                str(kv.type).startswith("dist") or kv.num_workers > 1)):
+            raise MXNetError(
+                "FusedTrainStep over a mesh or a distributed kvstore (the "
+                "collectives inside the graph) is not ported yet "
+                "(ROADMAP.md, \"Left out of slice 11\"); use per-step "
+                "Trainer.step")
         self._live, self._aux = [], []
         for i, param in enumerate(trainer._params):
             if param._data is None:

@@ -2,23 +2,31 @@
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` (reference
 ``python/mxnet/gluon/trainer.py``): ``step(batch_size)`` aggregates the
-gradients through the KVStore (push then pull; on one device this moves
-nothing) and applies the optimizer with ``rescale_grad = scale /
-batch_size``.  The update is the reference's fused multi-tensor route
-(``_try_fused_update``): every live parameter in one launch of the
-hand-written kernel (``ops/multi_tensor.py``; its plain version, the
-per-tensor rule, on the CPU).  Under ``NaiveEngine`` (the user's explicit
-choice, ``engine.set_engine_type``) each parameter is updated in turn by
-its eager rule, as the reference does.
+gradients through the KVStore and applies the optimizer with
+``rescale_grad = scale / batch_size``.  The update is the reference's
+fused multi-tensor route (``_try_fused_update``): every live parameter
+in one launch of the hand-written kernel (``ops/multi_tensor.py``; its
+plain version, the per-tensor rule, on the CPU), fed each rank's local
+pieces (``parallel.local``).  Under ``NaiveEngine`` each parameter is
+updated in turn by its eager rule, as the reference does.
+
+Distributed training (``parallel``): ``kvstore="dist_sync"`` (or
+``dist_tpu_sync``, ``dist_device_sync``, ``horovod``) sums the ranks'
+gradients; ``mesh=`` (a ``DeviceMesh`` or a ``{'dp': 2, 'tp': 2}``
+dict) with ``partition_rules=`` (a table, a family name such as
+``"llama"``, or a ``PartitionRules``) places every parameter as a
+``DTensor`` at construction (``mesh=`` alone: pure data parallelism),
+and ``placement`` is the coverage report.  A gradient still ``Partial``
+over the mesh when the update runs (no store, or a local one) is
+reduced first, so the optimizer and ``clip_global_norm`` see the summed
+gradient.  ``update_on_kvstore=True`` moves the update into the store;
+``compression_params`` sets the store's 2-bit compression.
 
 ``save_states``/``load_states`` write and read the reference's pickle of
 numpy states, so the files interchange with it both ways.  The
 single-host preemption handlers are here (``install_preemption_handler``,
 ``drain_requested``, ``request_drain``, ``reset_drain``);
-``drain_consensus`` needs more than one host and raises (Queue 1 item
-5).  Not ported, each raising ``MXNetError`` that names its ROADMAP
-item: ``partition_rules``/``mesh`` and ``update_on_kvstore=True`` and
-gradient compression (multi-GPU, Queue 1 item 5), and
+``drain_consensus`` is left out of slice 11 and raises, as does
 ``offload="host"`` (Queue 1, "Left out of slice 2").
 """
 from __future__ import annotations
@@ -34,6 +42,7 @@ from .. import engine
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..ndarray import NDArray
+from ..parallel.local import local
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer", "PREEMPTED_EXIT_CODE", "install_preemption_handler",
@@ -68,11 +77,10 @@ def drain_requested():
 
 def drain_consensus():
     """Whether any rank asked to drain: a collective over the ranks of a
-    multi-host job, which is ROADMAP Queue 1 item 5 (multi-GPU)."""
-    raise MXNetError("drain_consensus (the ranks' agreement to drain) "
-                     "needs more than one host and is not ported yet "
-                     "(ROADMAP.md, Queue 1 item 5, multi-GPU); one process "
-                     "polls drain_requested()")
+    multi-host job, left out of slice 11 (ROADMAP.md)."""
+    raise MXNetError("drain_consensus (the ranks' agreement to drain) is "
+                     "not ported yet (ROADMAP.md, \"Left out of slice 11\", "
+                     "Queue 1 item 5); one process polls drain_requested()")
 
 
 def request_drain():
@@ -95,14 +103,6 @@ class Trainer:
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, partition_rules=None, mesh=None,
                  offload=None):
-        if partition_rules is not None or mesh is not None:
-            raise _not_ported("Trainer(partition_rules=..., mesh=...)",
-                              "item 5, multi-GPU")
-        if update_on_kvstore:
-            raise _not_ported("Trainer(update_on_kvstore=True)",
-                              "item 5, multi-GPU")
-        if compression_params:
-            raise _not_ported("gradient compression", "item 5, multi-GPU")
         if offload is not None:
             raise _not_ported(f"Trainer(offload={offload!r})",
                               "\"Left out of slice 2\"")
@@ -118,15 +118,44 @@ class Trainer:
                 raise MXNetError(f"element {i} is not a Parameter")
             self._param2idx[param.name] = i
             self._params.append(param)
+        self._mesh = None
+        self._placement = None
+        if partition_rules is not None or mesh is not None:
+            self._place(partition_rules, mesh)
+        self._compression_params = compression_params
         self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params or {})
         self._scale = self._optimizer.rescale_grad
         self._kvstore_type = kvstore
+        self._update_on_kvstore_arg = update_on_kvstore
         self._update_on_kvstore = False
         self._kvstore = None
         self._kv_initialized = False
         self._data_prefetcher = None
         self._data_depths = []
+
+    def _place(self, partition_rules, mesh):
+        """Place every initialized parameter over the mesh by the rule
+        table (``mesh=`` alone: all replicated, pure data parallelism);
+        the mesh becomes the current one when none is."""
+        from .. import parallel
+
+        if isinstance(mesh, dict):
+            mesh = parallel.make_mesh(mesh)
+        mesh = mesh if mesh is not None else parallel.current_mesh()
+        if mesh is None:
+            raise MXNetError(
+                "Trainer(partition_rules=...) needs a device mesh: pass "
+                "mesh= or activate one (mx.gpu(mesh=...) / "
+                "parallel.set_mesh)")
+        if parallel.current_mesh() is None:
+            parallel.set_mesh(mesh)
+        self._mesh = mesh
+        rules = parallel.as_rules(partition_rules) \
+            if partition_rules is not None else \
+            parallel.PartitionRules(((r".*", ()),))
+        self._placement = parallel.place_params(self._params, rules,
+                                                mesh=mesh)
 
     def _check_contexts(self):
         contexts = None
@@ -161,8 +190,23 @@ class Trainer:
             self._states_initialized[i] = True
 
     def _init_kvstore(self):
-        if self._kvstore_type is not None:
-            self._kvstore = kvs.create(self._kvstore_type)
+        update_on_kvstore = self._update_on_kvstore_arg
+        if self._kvstore_type is None:
+            self._kvstore = None
+            update_on_kvstore = False
+        else:
+            kv = kvs.create(self._kvstore_type) \
+                if isinstance(self._kvstore_type, str) else self._kvstore_type
+            self._kvstore = kv
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            update_on_kvstore = bool(update_on_kvstore)
+            if update_on_kvstore:
+                for i, param in enumerate(self._params):
+                    if param.grad_req != "null":
+                        kv.init(i, param.data())
+                kv.set_optimizer(self._optimizer)
+        self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = True
 
     # -- public properties ---------------------------------------------------
@@ -173,6 +217,12 @@ class Trainer:
     @property
     def optimizer(self):
         return self._optimizer
+
+    @property
+    def placement(self):
+        """The partition rules' ``Coverage`` report from construction
+        (None without ``partition_rules``/``mesh``)."""
+        return self._placement
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
@@ -210,24 +260,54 @@ class Trainer:
     def allreduce_grads(self):
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError(
+                "allreduce_grads() is not supported when update_on_kvstore "
+                "is True (the store owns the update)")
         self._allreduce_grads()
 
     def _allreduce_grads(self):
-        if self._kvstore is None:
-            return
-        for i, param in enumerate(self._params):
-            if param.grad_req != "null":
-                self._kvstore.init(i, param.grad())
-                self._kvstore.push(i, param.grad())
-                self._kvstore.pull(i, param.grad())
+        if self._kvstore is not None and not self._update_on_kvstore:
+            self._kvstore.allreduce_grads(self._params)
+
+    def _reduce_partial_grads(self):
+        """Gradients still ``Partial`` over a mesh (no store, a local
+        store, or ``update_on_kvstore``) are summed here, and laid out as
+        their weights: the optimizer never sees a partial sum.  Runs once
+        an update, before it."""
+        from ..parallel.local import is_dtensor
+
+        for param in self._params:
+            if param.grad_req == "null" or param._data is None:
+                continue
+            g = param._data._grad
+            if g is not None and is_dtensor(g._data):
+                from ..parallel import reduce_partial
+
+                w = param._data._data
+                g._data = reduce_partial(g._data)
+                if g._data.placements != w.placements:
+                    g._data = g._data.redistribute(w.device_mesh,
+                                                   w.placements)
 
     def update(self, batch_size, ignore_stale_grad=False):
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError(
+                "update() is not supported when update_on_kvstore is True")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        self._reduce_partial_grads()
+        if self._update_on_kvstore:
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null" or param._data is None:
+                    continue
+                self._kvstore.push(i, param.grad())
+                self._kvstore.pull(i, param.data())
+            return
         if self._try_fused_update():
             return
         for i, param in enumerate(self._params):
@@ -270,9 +350,12 @@ class Trainer:
                 master, state = state
                 m_raws.append(master._data)
             mp_flags.append(use_mp)
-            states.append(opt._flatten_state(state))
-        w_raws = [self._params[i].data()._data for i in live]
-        g_raws = [self._params[i].grad()._data.contiguous() for i in live]
+            states.append(tuple(local(t) for t in opt._flatten_state(state)))
+        # the kernel writes through data_ptr: each rank's local pieces
+        w_raws = [local(self._params[i].data()._data) for i in live]
+        g_raws = [local(self._params[i].grad()._data).contiguous()
+                  for i in live]
+        m_raws = [local(m) for m in m_raws]
         return mp_flags, w_raws, m_raws, g_raws, states
 
     def _try_fused_update(self):
@@ -304,6 +387,9 @@ class Trainer:
         file, and this one reads its files)."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         for i, param in enumerate(self._params):
             if param.grad_req != "null" and param._data is not None:
                 self._init_states(i)
@@ -324,6 +410,9 @@ class Trainer:
         device, so a captured ``FusedTrainStep`` keeps its addresses."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             payload = pickle.load(f)
         saved = payload["states"]

@@ -35,12 +35,21 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """One slice of the batch on each context of ``ctx_list``."""
+    """One slice of the batch on each context of ``ctx_list``.  With a
+    mesh active and more than one context, the batch becomes one
+    ``dp``-sharded array (``parallel.shard_batch``), returned as a
+    one-element list, as the reference returns one sharded array."""
     if not isinstance(data, NDArray):
         data = NDArray(np.asarray(data), ctx=ctx_list[0]
                        if not isinstance(ctx_list, Context) else ctx_list)
     if isinstance(ctx_list, Context):
         ctx_list = [ctx_list]
+    if len(ctx_list) > 1:
+        from .. import parallel
+
+        mesh = parallel.current_mesh()
+        if mesh is not None:
+            return [parallel.shard_batch(data, mesh, axis=batch_axis)]
     if len(ctx_list) == 1:
         return [data.as_in_context(ctx_list[0])]
     slices = split_data(data, len(ctx_list), batch_axis, even_split)

@@ -45,6 +45,17 @@ def create(init, **kwargs):
     raise MXNetError(f"cannot create initializer from {init!r}")
 
 
+class InitDesc(str):
+    """A parameter name carrying init attributes (reference
+    ``InitDesc``); initializers take it where they take a name."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
 class Initializer:
     """Base initializer; ``__call__(name, arr)`` fills the NDArray ``arr``
     in place, dispatching on the parameter name's suffix as the reference
@@ -93,6 +104,9 @@ class Zero(Initializer):
         self._init_zero(name, arr)
 
 
+Zeros = Zero
+
+
 _INIT_REGISTRY["zeros"] = Zero
 
 
@@ -100,6 +114,9 @@ _INIT_REGISTRY["zeros"] = Zero
 class One(Initializer):
     def _init_weight(self, name, arr):
         self._init_one(name, arr)
+
+
+Ones = One
 
 
 _INIT_REGISTRY["ones"] = One

@@ -29,10 +29,15 @@ On a CUDA card ``generate`` replays one captured CUDA graph per decode
 signature (batch, sampling settings) for its decode steps
 (``LlamaDecoder.generate``); the prefill runs eagerly.
 
+``attn_mode="ring"``/``"ulysses"`` route attention through
+``parallel.ring`` (sequence parallelism over the mesh's ``sp`` axis;
+without one, the flash call), and ``shard_llama``/``llama_param_pspecs``
+place the weights in the Megatron layout over a mesh.
+
 Not ported yet, each raising ``MXNetError`` that names the ROADMAP
 item: MoE (``num_experts``, the mixtral configs),
-``scan_layers``/``set_remat`` (slice 7's left-out list), ring/ulysses
-attention, and the pipeline and sharding functions.  Packed
+``scan_layers``/``set_remat`` (slice 7's left-out list) and the
+pipeline functions (slice 11's left-out list).  Packed
 ``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
 route, as the reference's; ``scan_layers`` with them stays in slice 7's
 left-out list.
@@ -63,6 +68,7 @@ from ..gluon.block import HybridBlock
 from ..ndarray import NDArray
 from ..ops.flash_attention import _sdpa_ref, flash_attention_raw
 from ..ops.registry import apply_op
+from ..parallel.local import as_global, is_dtensor
 
 __all__ = ["LlamaConfig", "RMSNorm", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
@@ -98,9 +104,8 @@ class LlamaConfig:
                  vocab_size=128256, max_seq_len=8192, rope_theta=500000.0,
                  rms_eps=1e-5, tie_embeddings=False, attn_mode="flash",
                  num_experts=0, scan_layers=False):
-        if attn_mode not in ("flash", "sdpa"):
-            raise MXNetError(f"attn_mode={attn_mode!r} (ring/ulysses "
-                             f"sequence parallelism) {_LATER}")
+        if attn_mode not in ("flash", "sdpa", "ring", "ulysses"):
+            raise MXNetError(f"unknown attn_mode {attn_mode!r}")
         if num_experts:
             raise MXNetError(f"MoE (num_experts > 0) {_LATER}")
         if scan_layers:
@@ -170,6 +175,9 @@ def _apply_rope(x, cos, sin):
     """x (..., T, D) with D even; rotate interleaved pairs
     (x[..., ::2], x[..., 1::2]).  x·cos promotes to f32; the result is
     cast back to x's dtype."""
+    if is_dtensor(x):  # the tables are the same on every rank
+        cos, sin = as_global(cos, x.device_mesh), as_global(sin,
+                                                           x.device_mesh)
     x1 = x[..., ::2]
     x2 = x[..., 1::2]
     xr1 = x1 * cos - x2 * sin
@@ -242,7 +250,13 @@ class LlamaAttention(HybridBlock):
 
         def _attend(qr, kr, vr):
             qh, kh, vh = _heads(qr, kr, vr)
-            if cfg.attn_mode == "flash":
+            if cfg.attn_mode in ("ring", "ulysses"):
+                from ..parallel import ring as _ring
+
+                fn = (_ring.ring_attention_raw if cfg.attn_mode == "ring"
+                      else _ring.ulysses_attention_raw)
+                out = fn(qh, kh, vh, causal=True, scale=scale)
+            elif cfg.attn_mode == "flash":
                 out = flash_attention_raw(qh.contiguous(), kh.contiguous(),
                                           vh.contiguous(), True, scale)
             else:
@@ -1020,10 +1034,53 @@ def llama_tiny(**overrides):
 
 mixtral_8x7b = _not_ported("mixtral_8x7b (MoE)")
 mixtral_tiny = _not_ported("mixtral_tiny (MoE)")
-shard_llama = _not_ported("shard_llama")
-llama_param_pspecs = _not_ported("llama_param_pspecs")
-llama_pipeline_forward = _not_ported("llama_pipeline_forward")
-llama_pipeline_train_step = _not_ported("llama_pipeline_train_step")
+_LATER11 = ("is not ported yet (ROADMAP.md, \"Left out of slice 11\", "
+            "Queue 1 item 5)")
+llama_pipeline_forward = _not_ported("llama_pipeline_forward", _LATER11)
+llama_pipeline_train_step = _not_ported("llama_pipeline_train_step",
+                                        _LATER11)
+
+
+def llama_param_pspecs(net, mesh, tp_axis="tp", ep_axis="ep"):
+    """{structural param name: partition spec} for the Megatron TP/EP
+    layout over ``mesh`` (reference ``llama_param_pspecs``): the rules of
+    ``parallel.partition.MIXTRAL_RULES`` (the llama table plus the MoE
+    bank rows, which match nothing on a dense net) resolved against the
+    net's parameter paths, with the canonical ``tp``/``ep`` axes renamed
+    when asked.  Parameters not listed replicate."""
+    from ..parallel import partition as _pt
+
+    rename = {"tp": tp_axis, "ep": ep_axis}
+    rules = _pt.PartitionRules(
+        [(pat, tuple(rename.get(a, a) if isinstance(a, str) else a
+                     for a in spec))
+         for pat, spec in _pt.MIXTRAL_RULES])
+    shapes = {name: p.shape
+              for name, p in net._collect_params_with_prefix().items()}
+    specs = rules.specs(shapes, mesh)
+    if net._cfg.tie_embeddings:
+        # the tied head reads the embedding matrix; its own weight stays
+        # replicated
+        specs.pop("lm_head.weight", None)
+    return specs
+
+
+def shard_llama(net, mesh=None, tp_axis="tp", dp_axis="dp", ep_axis="ep"):
+    """Place the net's initialized parameters in the Megatron layout over
+    ``mesh`` (reference ``shard_llama``): q/k/v/gate/up column-parallel,
+    o/down row-parallel, embed/lm_head vocab-parallel (weights are stored
+    (out, in)), everything else replicated; each becomes a ``DTensor``
+    with rank 0's values."""
+    from .. import parallel
+
+    mesh = mesh if mesh is not None else parallel.current_mesh()
+    if mesh is None:
+        raise MXNetError("no active mesh; call parallel.set_mesh first")
+    specs = llama_param_pspecs(net, mesh, tp_axis=tp_axis, ep_axis=ep_axis)
+    for name, p in net._collect_params_with_prefix().items():
+        if p._data is not None:
+            parallel.shard_param(p, specs.get(name, ()), mesh)
+    return net
 
 
 def packed_lm_loss(logits, labels, loss_mask):

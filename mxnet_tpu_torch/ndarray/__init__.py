@@ -10,6 +10,7 @@ names and aliases.
 from __future__ import annotations
 
 import torch
+import torch.utils.dlpack
 
 from ..base import resolve_dtype as _resolve_dtype
 from ..context import current_context
@@ -137,3 +138,28 @@ def save(fname, data):
     from .. import serialization
 
     serialization.save_ndarrays(fname, data)
+
+
+def to_dlpack_for_read(data):
+    """Zero-copy DLPack export (reference ``nd.to_dlpack_for_read``): the
+    array's tensor, which implements ``__dlpack__``/``__dlpack_device__``
+    (any consumer's ``from_dlpack`` takes it)."""
+    return data._data.detach()
+
+
+def to_dlpack_for_write(data):
+    """Zero-copy DLPack export whose consumer writes land in the array
+    (reference ``nd.to_dlpack_for_write``): torch tensors are mutable,
+    so this is the same shared buffer as ``to_dlpack_for_read``."""
+    return data._data.detach()
+
+
+def from_dlpack(capsule):
+    """An NDArray over a DLPack capsule or any ``__dlpack__`` object,
+    sharing its memory (reference ``nd.from_dlpack``)."""
+    return NDArray(torch.utils.dlpack.from_dlpack(capsule))
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(_lo.ND, "mxnet_tpu_torch.ndarray")

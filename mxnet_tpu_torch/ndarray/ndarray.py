@@ -17,6 +17,7 @@ import torch
 
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, context_of, current_context
+from ..parallel.local import is_dtensor as _is_dtensor
 
 
 def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
@@ -68,13 +69,31 @@ class NDArray:
     def context(self) -> Context:
         return context_of(self._data.device)
 
+    ctx = context
+
+    @property
+    def stype(self):
+        """Storage type: dense (sparse storage is Queue 1 item 8e)."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage ``stype``: ``"default"`` is itself; the
+        sparse types are ROADMAP Queue 1 item 8e."""
+        if stype == "default":
+            return self
+        raise MXNetError(f"tostype({stype!r}) (sparse storage) is not "
+                         "ported yet (ROADMAP.md, Queue 1 item 8e)")
+
     # -- host sync -----------------------------------------------------------
     def asnumpy(self) -> np.ndarray:
         """Blocking device→host copy, a new array on every device (a CPU
         tensor's own memory is never shared: the optimizers and BatchNorm
         update in place).  numpy has no bfloat16, so a bf16 array comes
-        back as float32 (exact)."""
+        back as float32 (exact).  An array over a mesh (a DTensor) comes
+        back whole: every rank gets the global value (a collective)."""
         t = self._data.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -90,6 +109,12 @@ class NDArray:
             torch.cuda.current_stream(self._data.device).synchronize()
         return self
 
+    def wait_to_write(self):
+        """Block until pending writes to the array have run (reference
+        ``wait_to_write``): the card's queue is in order, so this is
+        ``wait_to_read``."""
+        return self.wait_to_read()
+
     # -- conversion / movement ----------------------------------------------
     def astype(self, dtype, copy=True):
         dt = resolve_dtype(dtype)
@@ -99,6 +124,14 @@ class NDArray:
 
     def copy(self):
         return NDArray(self._data.clone())
+
+    def as_nd_ndarray(self):
+        return self
+
+    def asnative(self):
+        """The ``torch.Tensor`` (reference ``asnative``: the backend's own
+        array)."""
+        return self._data
 
     def as_in_context(self, ctx: Context):
         """This array on ``ctx`` (itself if it is there).  A copy from
@@ -111,6 +144,8 @@ class NDArray:
         async_ok = ctx.device.type == "cuda" and not t.is_cuda and \
             t.is_pinned()
         return NDArray(t.to(ctx.device, non_blocking=async_ok))
+
+    as_in_ctx = as_in_context
 
     # -- arithmetic ----------------------------------------------------------
     def _binary(self, other, fn, name, reflected=False):

@@ -27,7 +27,8 @@ in exact f32.
 
 ``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
 whose forward saves (q, k, v, O, lse) and whose backward recomputes the
-probabilities from lse in the two backward kernels.
+probabilities from lse in the two backward kernels.  Under a dp/tp mesh
+it runs them on each rank's local batch and heads.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ import torch
 
 from ..base import MXNetError
 from .. import _kernels, cuda_graph
+from ..parallel.local import any_dtensor, as_global, is_dtensor, \
+    sharded_call
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -366,5 +369,21 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_raw(q, k, v, causal=False, scale=None):
     """q (B, H, Tq, D), k/v (B, H, Tk, D) → O (B, H, Tq, D);
-    differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, _scale(q, scale))
+    differentiable in q, k and v.
+
+    Under a mesh (DTensor operands) each rank launches the kernels on its
+    local batch and heads: batch over ``dp``, heads over ``tp``, the
+    sequence whole (the reference's ``_pallas_maybe_sharded``, through
+    ``parallel.local.sharded_call``).  On the card a batch or head count
+    those axes do not divide raises; on the CPU that axis is computed
+    whole on every rank."""
+    scale = _scale(q, scale)
+    if any_dtensor((q, k, v)):
+        mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
+        q, k, v = (as_global(t, mesh) for t in (q, k, v))
+        spec = ("dp", "tp", None, None)
+        return sharded_call(
+            lambda a, b, c: _FlashAttention.apply(a, b, c, causal, scale),
+            (q, k, v), (spec, spec, spec), spec,
+            strict=q.device.type == "cuda", what="flash_attention")
+    return _FlashAttention.apply(q, k, v, causal, scale)

@@ -255,6 +255,93 @@ class _BNTrain(torch.autograd.Function):
                 None, None, None)
 
 
+class _SyncBNTrain(torch.autograd.Function):
+    """Training batch norm over the batch of every rank of ``group``
+    (the reference's ``_SyncBNCrossProcess``): the forward all-reduces
+    the per-channel (Σx, Σx², count), the backward (Σdy, Σdy·x̂), so the
+    statistics and dx are the global batch's.  The population variance
+    (clamped at 0 against f32 cancellation) as ``_BNTrain``; dgamma and
+    dbeta stay this rank's sums (parameter gradients, which the store
+    all-reduces)."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps, red, shape, group):
+        xf = x.float()
+        c = xf.shape[[i for i in range(x.dim()) if i not in red][0]]
+        count = float(math.prod(x.shape[i] for i in red))
+        sums = torch.cat([xf.sum(dim=red), (xf * xf).sum(dim=red),
+                          torch.full((1,), count, device=x.device)])
+        _all_reduce(sums, group)
+        n = float(sums[2 * c])
+        mean = sums[:c] / n
+        var = (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        y = ((xf - mean.reshape(shape)) * inv.reshape(shape) *
+             g.float().reshape(shape) + b.float().reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(x, g, mean, inv)
+        ctx.red, ctx.shape, ctx.b_dtype = red, shape, b.dtype
+        ctx.group, ctx.count = group, n
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g, mean, inv = ctx.saved_tensors
+        red, shape = ctx.red, ctx.shape
+        xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
+        dyf = dy.float()
+        dbeta = dyf.sum(dim=red)
+        dgamma = (dyf * xhat).sum(dim=red)
+        tot = torch.cat([dbeta, dgamma])
+        _all_reduce(tot, ctx.group)
+        c = dbeta.shape[0]
+        gi = (g.float() * inv).reshape(shape)
+        dx = gi * (dyf - (tot[:c] / ctx.count).reshape(shape) -
+                   xhat * (tot[c:] / ctx.count).reshape(shape))
+        return (dx.to(x.dtype), dgamma.to(g.dtype), dbeta.to(ctx.b_dtype),
+                None, None, None, None)
+
+
+def _all_reduce(t, group):
+    """Sum ``t`` in place over ``group`` (the identity without a process
+    group)."""
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        torch.distributed.all_reduce(t, group=group)
+
+
+def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+                    momentum=0.9, fix_gamma=False, axis=1, group=None):
+    """Training batch norm whose statistics cover every rank's batch
+    (``nn.SyncBatchNorm``'s op): (out, new_moving_mean, new_moving_var)
+    as ``batch_norm``.  Plain tensors are each rank's own batch, summed
+    over ``group`` (default: the whole process group); over a mesh each
+    rank takes its ``dp`` rows and the sums run over the ``dp`` axis."""
+    from ..parallel.local import is_dtensor, sharded_call
+
+    def f(x, g, b, mmean, mvar):
+        ax = axis % x.ndim
+        red = tuple(i for i in range(x.ndim) if i != ax)
+        shape = tuple(x.shape[i] if i == ax else 1 for i in range(x.ndim))
+        g_ = torch.ones_like(g) if fix_gamma else g
+        grp = group
+        spec = ("dp",) + (None,) * (x.ndim - 1)
+        if is_dtensor(x) and "dp" in x.device_mesh.mesh_dim_names:
+            grp = x.device_mesh.get_group("dp")
+        y, mean, var = sharded_call(
+            lambda xl, gl, bl: _SyncBNTrain.apply(xl, gl, bl, float(eps),
+                                                  red, shape, grp),
+            (x, g_, b), (spec, (None,), (None,)),
+            (spec, (None,), (None,)), what="SyncBatchNorm")
+        with torch.no_grad():
+            new_mean = momentum * mmean + (1 - momentum) * mean
+            new_var = momentum * mvar + (1 - momentum) * var
+        return y, new_mean, new_var
+
+    return apply_op(f, data, gamma, beta, moving_mean, moving_var,
+                    name="sync_batch_norm")
+
+
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
                momentum=0.9, fix_gamma=False, use_global_stats=False,
                output_mean_var=False, axis=1, **kwargs):
@@ -407,9 +494,16 @@ class _SoftmaxCESum(torch.autograd.Function):
 
 def softmax_cross_entropy(data, label, **kwargs):
     """Reference ``softmax_cross_entropy``: fused logits + label cross
-    entropy, summed over all rows."""
-    return apply_op(lambda x, lab: _SoftmaxCESum.apply(x, lab.long()),
-                    data, label, name="softmax_cross_entropy")
+    entropy, summed over all rows.  Under a mesh each rank sums its
+    ``dp`` rows over the whole vocabulary (``Partial`` over ``dp``)."""
+    from ..parallel.local import sharded_call
+
+    def f(x, lab):
+        return sharded_call(
+            lambda a, b: _SoftmaxCESum.apply(a, b.long()), (x, lab),
+            (("dp", None), ("dp",)), "sum", what="softmax_cross_entropy")
+
+    return apply_op(f, data, label, name="softmax_cross_entropy")
 
 
 _DECONV = {1: tnf.conv_transpose1d, 2: tnf.conv_transpose2d,

@@ -10,7 +10,9 @@ lists), as the reference's ``apply_op`` does; the casts are recorded, so
 a gradient reaches an f32 parameter in f32.  An op the reference
 registers as non-differentiable (``no_grad``: rounding, predicates,
 comparisons, index outputs) runs with torch's gradient mode off, so its
-result carries no graph.  ``exporter`` builds a module's ``__all__`` with
+result carries no graph.  Under a mesh (an operand is a ``DTensor``)
+the plain operands become replicated ``DTensor``s.
+``exporter`` builds a module's ``__all__`` with
 the reference's aliases.  The reference's bulking hook ports with a later
 slice, its profiler hook is left out of slice 9 (ROADMAP.md).
 """
@@ -27,9 +29,11 @@ def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     from .. import amp
     from ..autograd import grad_mode
     from ..ndarray.ndarray import NDArray
+    from ..parallel.local import replicate_plain
 
-    with (torch.no_grad() if no_grad else grad_mode()):
-        raws = [a._data for a in nd_args]
+    raws = [a._data for a in nd_args]
+    with torch.no_grad() if no_grad else grad_mode():
+        raws = replicate_plain(raws)
         if amp.is_active():
             raws = amp.maybe_cast_args(name, raws)
         outs = fun(*raws)

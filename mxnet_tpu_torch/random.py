@@ -29,6 +29,8 @@ import threading
 import numpy as np
 import torch
 
+from .base import MXNetError
+
 
 class _RandState(threading.local):
     def __init__(self):
@@ -46,13 +48,34 @@ def _base_seed() -> int:
     return _STATE.seed
 
 
-def seed(seed_state: int):
+def seed(seed_state: int, ctx="all"):
     """Reference ``mx.random.seed``: re-seed every device's generator
-    and numpy's global stream."""
+    and numpy's global stream, or with ``ctx`` a Context only that
+    device's generator (in place: a captured graph keeps drawing from
+    it)."""
+    if ctx != "all":
+        generator(ctx.device).manual_seed(int(seed_state))
+        return
     _STATE.seed = int(seed_state)
     for gen in _STATE.generators.values():
         gen.manual_seed(_STATE.seed)
     np.random.seed(_STATE.seed % (2**32))
+
+
+def next_key():
+    """JAX's PRNG key plumbing has no counterpart: the port draws from
+    torch generators (``generator``)."""
+    raise MXNetError("random.next_key (JAX PRNG keys) is not carried over "
+                     "(ROADMAP.md, \"Not carried over\"); the port draws "
+                     "from torch generators, random.generator(device)")
+
+
+class key_provider:
+    """JAX's counter-based key provider has no counterpart (see
+    ``next_key``)."""
+
+    def __init__(self, *args, **kwargs):
+        next_key()
 
 
 def generator(device) -> torch.Generator:

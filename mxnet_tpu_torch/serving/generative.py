@@ -124,8 +124,9 @@ class LlamaServingEngine:
             raise MXNetError(f"unknown kv_mode {kv_mode!r}; "
                              "expected 'paged' or 'slots'")
         if mesh is not None or partition_rules is not None:
-            raise MXNetError(f"serving on a mesh (mesh=, partition_rules=) "
-                             f"{_LATER}")
+            raise MXNetError("serving on a mesh (mesh=, partition_rules=) "
+                             "is not ported yet (ROADMAP.md, \"Left out of "
+                             "slice 6\", now \"Left out of slice 11\")")
         self.spec_k = int(spec_k)
         if self.spec_k and kv_mode != "paged":
             raise MXNetError("speculative verify (spec_k > 0) requires "

@@ -272,8 +272,10 @@ class GenerativeServer(_ServerBase):
         from .lanes import Replica, ReplicaDispatcher
 
         if mesh is not None or partition_rules is not None:
-            raise MXNetError(f"GenerativeServer(mesh=, partition_rules=) "
-                             f"(tensor-parallel and dp replicas) {_LATER}")
+            raise MXNetError("GenerativeServer(mesh=, partition_rules=) "
+                             "(tensor-parallel and dp replicas) is not ported "
+                             "yet (ROADMAP.md, \"Left out of slice 6\", now "
+                             "\"Left out of slice 11\")")
         cfg = self.config
         self._replicas = None
         self._dispatcher = None

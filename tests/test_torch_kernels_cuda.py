@@ -1579,3 +1579,111 @@ def test_image_record_iter_batches_land_on_the_card(cuda_nvcc, tmp_path):
         np.testing.assert_allclose(d.asnumpy(), hd.asnumpy(), rtol=0,
                                    atol=1e-6)
         np.testing.assert_array_equal(lab.asnumpy(), hl.asnumpy())
+
+
+# -- slice 11: the NCCL route at world size 1, the sequence-parallel bodies
+
+@pytest.fixture
+def nccl_group(cuda_nvcc):
+    """A one-rank NCCL group on a free port, left after the test."""
+    from mxnet_tpu_torch import parallel
+
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0,
+                        init_timeout=60)
+    yield parallel
+    parallel.shutdown()
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_runs_the_store_and_a_mesh_step(nccl_group):
+    """``all_sum``, ``broadcast`` and ``allreduce_grads`` are the identity
+    at world size 1, and a Dense step through a {'dp': 1, 'tp': 1} mesh
+    (DTensor parameters, ``dist_sync``) equals the plain step."""
+    import mxnet_tpu_torch as mx
+
+    parallel = nccl_group
+    assert torch.distributed.get_backend() == "nccl"
+    assert mx.gpu(0, mesh={"dp": 1}) == mx.gpu(0)  # and makes it current
+    assert parallel.mesh_axes(parallel.current_mesh()) == {"dp": 1}
+    parallel.set_mesh(None)
+    x = mx.nd.array(torch.randn(8, 16, device="cuda"))
+    assert torch.equal(parallel.all_sum([x])[0]._data, x._data)
+    out = mx.nd.zeros((8, 16), ctx=mx.gpu(0))
+    mx.kv.create("dist_tpu_sync").broadcast("x", x, out=out)
+    assert torch.equal(out._data, x._data)
+    weights = []
+    for mesh in (None, parallel.make_mesh({"dp": 1, "tp": 1})):
+        net = mx.gluon.nn.Dense(4, in_units=16)
+        net.initialize(ctx=mx.gpu(0))
+        net.weight.set_data(torch.linspace(-1, 1, 64).reshape(4, 16))
+        kw = {} if mesh is None else dict(
+            mesh=mesh, partition_rules=[(r"weight$", (None, "tp")),
+                                        (r".*", ())])
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1}, kvstore="dist_sync",
+                              **kw)
+        xx = x if mesh is None else parallel.shard_batch(x, mesh)
+        with mx.autograd.record():
+            loss = (net(xx) ** 2).sum()
+        loss.backward()
+        tr.step(8)
+        weights.append(net.weight.data().asnumpy())
+    parallel.set_mesh(None)
+    np.testing.assert_allclose(weights[1], weights[0], rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ring", "ulysses"])
+def test_sequence_parallel_bodies_match_one_flash_call_on_card(cuda_nvcc,
+                                                               kind):
+    """The ring and Ulysses bodies for 4 virtual ranks over local
+    transports (as ``chip_smoke.py`` phase 18c, at B1·H8·T512·D64, bf16,
+    causal) against one flash call, forward and backward; Ulysses
+    launches #1-#3 once per virtual rank, each the tensor-core design."""
+    import chip_smoke as cs
+    from mxnet_tpu_torch.parallel import ring
+
+    n, t, h, d = 4, 512, 8, 64
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    full = [torch.randn((1, t, h, d), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(3)]
+    w = torch.randn((1, t, h, d), generator=g, device="cuda")
+
+    def run(fn):
+        leaves = [a.clone().requires_grad_(True) for a in full]
+        out = fn(*leaves)
+        (out.float() * w).sum().backward()
+        return [out] + [a.grad for a in leaves]
+
+    ref = run(lambda q, k, v: tfa.flash_attention_raw(
+        *(a.transpose(1, 2).contiguous() for a in (q, k, v)), True,
+        d ** -0.5).transpose(1, 2))
+
+    def bodies(q, k, v):
+        chunks = [list(a.split(t // n, dim=1)) for a in (q, k, v)]
+        outs = []
+        for idx in range(n):
+            qc, kc, vc = (c[idx] for c in chunks)
+            if kind == "ring":
+                outs.append(ring._ring_body(
+                    qc, kc, vc, idx, n, True, d ** -0.5,
+                    cs._LocalRing(chunks[1], chunks[2], idx)))
+            else:
+                tr = cs._LocalAllToAll(chunks, idx)
+                outs.append(ring._ulysses_body(qc, kc, vc, True, d ** -0.5,
+                                               tr.to_heads, tr.to_seq))
+        return torch.cat(outs, dim=1 if kind == "ring" else 2)
+
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    before_mma = [c.launches_mma for c in counters]
+    got = run(bodies)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    mma = [c.launches_mma - b for c, b in zip(counters, before_mma)]
+    assert launched == ([0, 0, 0] if kind == "ring" else [n] * 3)
+    assert mma == launched  # bf16: the tensor-core designs
+    for a, b in zip(got, ref):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel < 2e-2, rel

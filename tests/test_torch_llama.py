@@ -224,10 +224,11 @@ def test_load_numpy_params_rejects_bad_names(pair):
 
 
 def test_unported_features_raise_naming_the_roadmap(pair):
-    for kw in (dict(attn_mode="ring"), dict(num_experts=4),
-               dict(scan_layers=True)):
+    for kw in (dict(num_experts=4), dict(scan_layers=True)):
         with pytest.raises(tmx.MXNetError, match="ROADMAP"):
             tllama.llama_tiny(**kw)
+    # ring/ulysses attention ported in slice 11 (test_torch_llama_parallel)
+    assert tllama.llama_tiny(attn_mode="ring").config.attn_mode == "ring"
     _, _, tnet = pair
     ids = tmx.nd.array(_ids(1, 4), ctx=CPU, dtype="int32")
     with pytest.raises(tmx.MXNetError, match="KV-cache path"):
@@ -235,11 +236,12 @@ def test_unported_features_raise_naming_the_roadmap(pair):
                       do_sample=True)
     with pytest.raises(tmx.MXNetError, match="max_seq_len"):
         tnet.generate(ids, max_new_tokens=200)
-    for fn in (tllama.shard_llama, tllama.llama_param_pspecs,
-               tllama.llama_pipeline_forward,
-               tllama.llama_pipeline_train_step,
-               tllama.mixtral_8x7b, tllama.mixtral_tiny):
+    for fn in (tllama.mixtral_8x7b, tllama.mixtral_tiny):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 1"):
+            fn(tnet)
+    for fn in (tllama.llama_pipeline_forward,
+               tllama.llama_pipeline_train_step):
+        with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
             fn(tnet)
     with pytest.raises(tmx.MXNetError, match="Left out of slice 7"):
         tnet.set_remat(tnet)  # rematerialization waits for item 9

@@ -205,11 +205,9 @@ def test_training_refusals_name_the_roadmap(arrays):
             fn()
     tnet.hybridize(static_alloc=True)  # accepted; on the CPU, eager
     params = tnet.collect_params()
-    for kw in (dict(kvstore="dist_sync"), dict(update_on_kvstore=True),
-               dict(offload="host"), dict(mesh={"dp": 2})):
-        with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-            tmx.gluon.Trainer(params, "sgd", **kw).step(1)
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tmx.gluon.trainer.drain_consensus()  # multi-host, item 5
+        tmx.gluon.Trainer(params, "sgd", offload="host").step(1)
+    with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
+        tmx.gluon.trainer.drain_consensus()  # multi-host
     assert isinstance(tmx.optimizer.create("lamb"), tmx.optimizer.LAMB)
     assert torch.is_grad_enabled()  # the port never flips global state

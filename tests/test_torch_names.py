@@ -1,0 +1,318 @@
+"""Public names of the port against the JAX package: the names ROADMAP
+Queue 3 open fault 1 found missing, each held to the reference, and a pin
+of the whole name set.
+
+The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
+``gluon``, ``Block``, ``HybridBlock``, ``Parameter``, ``ParameterDict``,
+``Trainer``, ``KVStore``, ``init``, ``random`` and ``parallel`` in both
+packages with an explicit list of names left out, each with the ROADMAP
+list that owns it; reading a left-out name raises ``MXNetError`` naming
+that list, never ``AttributeError``.
+"""
+import io
+import contextlib
+import typing
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as jmx
+import mxnet_tpu_torch as tmx
+
+CPU = tmx.cpu()
+_8B, _8C, _8D, _8E = "item 8b", "item 8c", "item 8d", "item 8e"
+_8F, _8G, _9 = "item 8f", "item 8g", "item 9"
+
+LEFT_OUT = {
+    "mx": {
+        **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
+                         "sym", "symbol"), _8F),
+        **dict.fromkeys(("contrib", "np", "npx", "numpy", "numpy_extension",
+                         "operator", "rtc"), _8G),
+        **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
+                         "test_utils", "util", "visualization", "viz"), _9),
+        "rnn": _8C,
+    },
+    "nd": {
+        **dict.fromkeys((
+            "AdaptiveAvgPooling2D", "BilinearResize2D",
+            "DeformableConvolution", "ModulatedDeformableConvolution",
+            "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+            "Proposal", "ROIAlign", "ROIPooling", "adaptive_avg_pooling_2d",
+            "allclose", "amp_cast", "amp_multicast", "arange_like",
+            "bilinear_resize_2d", "bipartite_matching", "box_decode",
+            "box_encode", "box_iou", "box_nms",
+            "box_non_maximum_suppression", "contrib",
+            "deformable_convolution", "fft", "gradientmultiplier", "ifft",
+            "index_array", "index_copy", "modulated_deformable_convolution",
+            "multibox_detection", "multibox_prior", "multibox_target",
+            "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
+        **dict.fromkeys(("dequantize", "quantize", "quantize_v2",
+                         "quantized_conv", "quantized_flatten",
+                         "quantized_fully_connected", "quantized_pooling",
+                         "requantize"), _8B),
+        "Custom": _8G, "RNN": _8C, "rnn": _8C, "cast_storage": _8E,
+        "sparse": _8E,
+    },
+    "parallel": {"telemetry": _9},
+    "gluon": {"rnn": _8C},
+}
+
+
+def _namespaces():
+    from mxnet_tpu import gluon as jg, kvstore as jkv, parallel as jpar
+    from mxnet_tpu import initializer as jinit, random as jrand
+
+    return {
+        "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
+        "NDArray": (jmx.nd.NDArray, tmx.nd.NDArray),
+        "gluon": (jg, tmx.gluon), "Block": (jg.Block, tmx.gluon.Block),
+        "HybridBlock": (jg.HybridBlock, tmx.gluon.HybridBlock),
+        "Parameter": (jg.Parameter, tmx.gluon.Parameter),
+        "ParameterDict": (jg.ParameterDict, tmx.gluon.ParameterDict),
+        "Trainer": (jg.Trainer, tmx.gluon.Trainer),
+        "KVStore": (jkv.KVStore, tmx.kv.KVStore),
+        "init": (jinit, tmx.init), "random": (jrand, tmx.random),
+        "parallel": (jpar, tmx.parallel),
+    }
+
+
+def _public(ns, obj):
+    names = {n for n in dir(obj) if not n.startswith("_")}
+    if ns == "mx":
+        names |= set(jmx._LAZY) if obj is jmx else set()
+    # typing helpers a module imported are not its API
+    return {n for n in names
+            if getattr(typing, n, None) is not getattr(obj, n, 0)}
+
+
+@pytest.fixture(scope="module")
+def fresh_names():
+    """Each namespace's public names in a fresh interpreter that imported
+    only the two packages: a submodule another test imported (say
+    ``mxnet_tpu.gluon.rnn``) becomes an attribute of its package for the
+    rest of the process, so the names are read where none was."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    out = subprocess.run([sys.executable, __file__], capture_output=True,
+                         text=True, env=env, timeout=120, check=True,
+                         cwd=root)
+    return {ns: (set(a), set(b))
+            for ns, (a, b) in json.loads(out.stdout.splitlines()[-1])
+            .items()}
+
+
+@pytest.mark.parametrize("ns", sorted(_namespaces()))
+def test_public_names_match_the_reference_but_the_listed(ns, fresh_names):
+    ref, port = fresh_names[ns]
+    missing = ref - port
+    assert missing == set(LEFT_OUT.get(ns, {})), sorted(missing)
+    for name, owner in LEFT_OUT.get(ns, {}).items():
+        with pytest.raises(tmx.MXNetError, match=owner):
+            getattr(_namespaces()[ns][1], name)
+
+
+# -- NDArray ---
+
+def test_ndarray_ctx_as_in_ctx_and_wait_to_write():
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    j, t = jmx.nd.array(a), tmx.nd.array(a, ctx=CPU)
+    assert t.ctx == t.context == CPU
+    assert str(j.ctx.device_type) == "cpu" and t.ctx.device_type == "cpu"
+    assert t.as_in_ctx(CPU) is t
+    np.testing.assert_array_equal(t.as_in_ctx(CPU).asnumpy(),
+                                  j.as_in_ctx(j.ctx).asnumpy())
+    assert t.wait_to_write() is t and j.wait_to_write() is j
+    assert t.as_nd_ndarray() is t and t.asnative() is t._data
+    assert t.stype == j.stype == "default"
+    assert t.tostype("default") is t
+    with pytest.raises(tmx.MXNetError, match="8e"):
+        t.tostype("row_sparse")
+
+
+def test_dlpack_round_trips_and_crosses_packages():
+    a = np.arange(5, dtype=np.float32)
+    t = tmx.nd.array(a, ctx=CPU)
+    back = tmx.nd.from_dlpack(tmx.nd.to_dlpack_for_read(t))
+    np.testing.assert_array_equal(back.asnumpy(), a)
+    w = tmx.nd.from_dlpack(tmx.nd.to_dlpack_for_write(t))
+    w._data.add_(1.0)  # the writer's buffer is the array's
+    np.testing.assert_array_equal(t.asnumpy(), a + 1)
+    # the reference reads the port's export, and the port the reference's
+    j = jmx.nd.from_dlpack(tmx.nd.to_dlpack_for_read(t))
+    np.testing.assert_array_equal(j.asnumpy(), a + 1)
+    back = tmx.nd.from_dlpack(jmx.nd.to_dlpack_for_read(j))
+    np.testing.assert_array_equal(back.asnumpy(), a + 1)
+
+
+# -- Block ---
+
+def _mlps():
+    nets = []
+    for mx, kw in ((jmx, {}), (tmx, {"ctx": CPU})):
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(5, in_units=3, activation="relu",
+                                  prefix="fc1_"),
+                mx.gluon.nn.Dense(2, in_units=5, prefix="fc2_"))
+        net.initialize(mx.init.One(), **kw)
+        nets.append(net)
+    return nets
+
+
+def test_block_apply_hooks_and_summary():
+    x = np.random.RandomState(0).rand(4, 3).astype(np.float32)
+    seen, outs = [], []
+    for mx, net, kw in zip((jmx, tmx), _mlps(), ({}, {"ctx": CPU})):
+        order = []
+        net.apply(lambda b: order.append(type(b).__name__))
+        calls = []
+        pre = net.register_forward_pre_hook(
+            lambda b, a: calls.append(("pre", len(a))))
+        post = net.register_forward_hook(
+            lambda b, a, o: calls.append(("post", o.shape)))
+        y = net(mx.nd.array(x, **kw))
+        pre.detach()
+        post.detach()
+        net(mx.nd.array(x, **kw))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            net.summary(mx.nd.array(x, **kw))
+        total = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("Total params")]
+        seen.append((order, calls, total))
+        outs.append(y.asnumpy())
+    assert seen[0] == seen[1]
+    assert seen[1][1] == [("pre", 1), ("post", (4, 2))]
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-6)
+
+
+def test_optimize_for_export_and_symbol_block():
+    x = np.random.RandomState(1).rand(2, 3).astype(np.float32)
+    jnet, tnet = _mlps()
+    jnet.optimize_for(jmx.nd.array(x))
+    tnet.optimize_for(tmx.nd.array(x, ctx=CPU))
+    assert tnet._active
+    np.testing.assert_allclose(tnet(tmx.nd.array(x, ctx=CPU)).asnumpy(),
+                               jnet(jmx.nd.array(x)).asnumpy(), rtol=1e-6)
+    with pytest.raises(tmx.MXNetError, match="8f"):
+        tnet.export("/nonexistent/net")
+    with pytest.raises(tmx.MXNetError, match="8f"):
+        tmx.gluon.SymbolBlock()
+
+
+# -- Parameter, ParameterDict, Constant ---
+
+def test_constant_and_get_constant():
+    value = np.array([[1.0, 2.0], [3.0, 4.0]], np.float32)
+    got = []
+    for mx, kw in ((jmx, {}), (tmx, {"ctx": CPU})):
+        c = mx.gluon.Constant("c", value)
+        c.initialize(**kw)
+        pd = mx.gluon.ParameterDict("blk_")
+        k = pd.get_constant("k", value * 2)
+        assert pd.get_constant("k") is k
+        k.initialize(**kw)
+        assert c.grad_req == "null"
+        got.append((c.data().asnumpy(), k.data().asnumpy(), k.name))
+        with pytest.raises(Exception, match="provide a value"):
+            pd.get_constant("missing")
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def test_parameter_list_data_reset_ctx_and_dict_methods(tmp_path):
+    jnet, tnet = _mlps()
+    tp, jp = tnet.collect_params(), jnet.collect_params()
+    p = next(iter(tp.values()))
+    assert len(p.list_data()) == len(next(iter(jp.values())).list_data())
+    assert p.list_data()[0] is p.data()
+    p.reset_ctx(CPU)
+    tp.reset_ctx([CPU])
+    assert p.list_ctx() == [CPU] and p.data().ctx == CPU
+    assert p.dtype_np == p.dtype and p.stype == "default"
+    tp.setattr("lr_mult", 0.5)
+    jp.setattr("lr_mult", 0.5)
+    assert all(q.lr_mult == 0.5 for q in tp.values())
+    tp.initialize(verbose=True)  # accepted (already initialized)
+    # port save → reference load, and back (the same names: fc1_weight..)
+    tp.save(str(tmp_path / "t.params"), strip_prefix="fc")
+    jp.load(str(tmp_path / "t.params"), restore_prefix="fc")
+    for (_, a), (_, b) in zip(jp.items(), tp.items()):
+        np.testing.assert_array_equal(a.data().asnumpy(), b.data().asnumpy())
+    for q in jp.values():
+        q.set_data(q.data() * 3)
+    jp.save(str(tmp_path / "j.params"))
+    tp.load(str(tmp_path / "j.params"))
+    for (_, a), (_, b) in zip(jp.items(), tp.items()):
+        np.testing.assert_array_equal(a.data().asnumpy(), b.data().asnumpy())
+
+
+# -- KVStore ---
+
+def test_kvstore_broadcast_set_updater_and_optimizer_states(tmp_path):
+    w0 = np.array([1.0, 2.0, 3.0], np.float32)
+    g = np.array([0.5, -0.5, 1.0], np.float32)
+    res = []
+    for mx, kw in ((jmx, {}), (tmx, {"ctx": CPU})):
+        kv = mx.kv.create("local")
+        out = mx.nd.zeros((3,), **kw)
+        kv.broadcast("b", mx.nd.array(w0, **kw), out=out)
+        got = [out.asnumpy()]
+        kv.init(0, mx.nd.array(w0, **kw))
+        kv.set_updater(lambda k, grad, weight: weight.__isub__(grad * 2))
+        kv.push(0, mx.nd.array(g, **kw))
+        kv.pull(0, out=out)
+        got.append(out.asnumpy())
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9))
+        kv.push(0, mx.nd.array(g, **kw))
+        kv.save_optimizer_states(str(tmp_path / "s"))
+        kv.push(0, mx.nd.array(g, **kw))
+        kv.pull(0, out=out)
+        got.append(out.asnumpy())
+        kv.load_optimizer_states(str(tmp_path / "s"))
+        kv.push(0, mx.nd.array(g, **kw))
+        kv.pull(0, out=out)
+        got.append(out.asnumpy())
+        res.append(got)
+    for a, b in zip(*res):
+        np.testing.assert_allclose(b, a, rtol=1e-6)
+    with pytest.raises(tmx.MXNetError, match="8e"):
+        tmx.kv.create("local").row_sparse_pull(0, row_ids=[0])
+
+
+# -- init, random ---
+
+def test_init_aliases_and_init_desc():
+    assert tmx.init.Zeros is tmx.init.Zero and tmx.init.Ones is tmx.init.One
+    for mx in (jmx, tmx):
+        d = mx.init.InitDesc("fc_weight", attrs={"lr_mult": "2"})
+        assert d == "fc_weight" and d.attrs == {"lr_mult": "2"}
+    a = tmx.nd.zeros((2, 2), ctx=CPU)
+    tmx.init.Ones()(tmx.init.InitDesc("w_weight"), a)
+    np.testing.assert_array_equal(a.asnumpy(), np.ones((2, 2)))
+
+
+def test_random_seed_of_one_context():
+    tmx.random.seed(5)
+    first = tmx.nd.random.uniform(shape=(4,), ctx=CPU).asnumpy()
+    tmx.random.seed(5, ctx=CPU)
+    again = tmx.nd.random.uniform(shape=(4,), ctx=CPU).asnumpy()
+    np.testing.assert_array_equal(first, again)
+    jmx.random.seed(5, ctx="all")  # the reference takes the keyword too
+    with pytest.raises(tmx.MXNetError, match="Not carried over"):
+        tmx.random.next_key()
+
+
+if __name__ == "__main__":
+    import json
+
+    print(json.dumps({ns: [sorted(_public(ns, r)), sorted(_public(ns, t))]
+                      for ns, (r, t) in _namespaces().items()}))

@@ -170,10 +170,11 @@ def test_kvstore_push_pull_leaves_the_gradient_uncopied():
     assert (kv.rank, kv.num_workers) == (0, 1)
     with pytest.raises(tmx.MXNetError, match="not initialized"):
         kv.push(9, g)
-    for name in ("dist_sync", "dist_device_sync", "dist_async",
-                 "dist_tpu_sync", "horovod"):
-        with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-            tmx.kv.create(name)
+    for name in ("dist_sync", "dist_device_sync", "dist_tpu_sync",
+                 "horovod"):  # the synchronous store (slice 11)
+        assert isinstance(tmx.kv.create(name), tmx.parallel.TPUSyncKVStore)
+    with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
+        tmx.kv.create("dist_async")
 
 
 def test_trainer_step_rescales_by_batch_size_and_matches_reference():
