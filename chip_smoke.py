@@ -24,7 +24,9 @@ ResNet-50 training and a hybridized eval pass, and packed Llama
 pretraining (``segment_ids``, ``packed_lm_loss``); and synchronous
 multi-GPU on a one-rank NCCL group: the ``dist_sync`` store, phase 9's
 Llama step over a mesh of ``DTensor`` parameters, the ring and Ulysses
-bodies at full width, and SyncBatchNorm.
+bodies at full width, and SyncBatchNorm; and the 1F1B pipeline over 4
+stages on the card, ``FusedTrainStep`` and ``hybridize()`` graphs over
+the mesh, serving on a mesh, and a sharded checkpoint.
 
     python3 chip_smoke.py
 
@@ -218,7 +220,30 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 18d. ``resnet50_v1`` bf16 B=128 steps through ``Trainer(kvstore=
     "dist_sync")`` beside the ``device`` store's (losses equal, step
     times side by side), and ``SyncBatchNorm`` on the group against
-    ``BatchNorm`` on the card.
+    ``BatchNorm`` on the card;
+19a. the pipeline: phase 9's net and optimizer, B=4 as 4 microbatches
+    of 1 over 4 stages of 4 layers (``mesh={'pp': 4}``, every stage on
+    the card): GPipe's forward against the plain one, the 1F1B step's
+    loss and every gradient against the plain route's accumulated over
+    the same microbatches, three ``Trainer`` steps of each route from
+    the same weights, ms, tokens/s and peak beside phase 9's, and
+    112/64/64 launches of #1-#3 a 1F1B step; the gradients parameter by
+    parameter also against a plain route that ends in the 1F1B step's
+    own loss (RMSNorm in f32 cast back to bf16, the head, log-softmax in
+    f32), within 5e-3;
+19b. graphs over a mesh: 18b's step under ``FusedTrainStep`` (K=4; the
+    store's all-reduce in the graph) against 18b's losses and beside its
+    eager step and the plain route's captured step; ResNet-50 bf16
+    B=128 through ``dist_sync`` under ``FusedTrainStep`` K=8 beside 12b;
+    a hybridized 2-layer block placed on the mesh, its replay against
+    the eager logits;
+19c. phase 8b's serving on ``GenerativeServer(mesh={'dp': 1, 'tp':
+    1})``: TTFT and tick beside 8b's, and the replies of both servers,
+    one prompt a prefill, equal;
+19d. ``save_checkpoint(sharded=True)`` of 7d's configuration on the
+    mesh with its trainer and ``resume`` into a fresh net: bit for bit,
+    the next loss equal, seconds beside 7d's ``.params`` route; and
+    ``drain_consensus()`` on the NCCL group of one.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -227,8 +252,9 @@ llama_parallel}.py``).
 
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
-steps of 17, 18b, 18c's Ulysses bodies; the update's in 9, 12, 12b, 13b,
-16, 17, 18b and 18d) and read just after,
+steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
+captured mesh steps; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
+19a and 19b) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -998,18 +1024,18 @@ def _serve_prompts(vocab):
     return plain, shared
 
 
-def _serve(serving, net, prompts, first_wave=None, **kw):
+def _serve(serving, net, prompts, first_wave=None, mesh=None, **kw):
     """Serve ``prompts`` (SERVE_NEW tokens each) through a fresh
-    ``GenerativeServer``: all at once, or in two waves, the first
-    ``first_wave`` prompts, then the rest once those are decoding.
+    ``GenerativeServer`` (on ``mesh``): all at once, or in two waves, the
+    first ``first_wave`` prompts, then the rest once those are decoding.
     Returns (replies, server, stats, wall seconds from the first submit
     to the last reply)."""
-    cfg = serving.ServerConfig(max_batch=SERVE_SLOTS,
-                               max_length=SERVE_MAX_LEN,
+    kw.setdefault("max_batch", SERVE_SLOTS)
+    cfg = serving.ServerConfig(max_length=SERVE_MAX_LEN,
                                num_slots=SERVE_SLOTS,
                                block_size=SERVE_BLOCK,
                                queue_capacity=4 * SERVE_PROMPTS, **kw)
-    srv = serving.GenerativeServer(net, cfg)
+    srv = serving.GenerativeServer(net, cfg, mesh=mesh)
     cut = first_wave or len(prompts)
     with srv:
         t = time.perf_counter()
@@ -1207,6 +1233,8 @@ def serving_bf16_phase(torch, mx, llama, serving, fa, net, failures):
         path_launches == 0 and \
         launches == launches_mma == 2 * len(plain) * net.config.num_layers
     row["ok"] = ok
+    STASH["serve"] = dict(replies=replies, ttft_ms=row["ttft_ms"],
+                          decode_step_ms_median=row["decode_step_ms_median"])
     emit(row)
     if not ok:
         failures.append(f"serving bf16: a token {worst['server']} ulps off "
@@ -1703,6 +1731,9 @@ def resnet_infer_phase(torch, mx, vision, cbr, failures):
 #: phase 9's losses, step times and peak memory, which phase 18b (the
 #: same net and batch on the mesh route) is held to and printed beside
 PLAIN9 = {}
+# what later phases are held beside: phase 7d's checkpoint round trip, 8b's
+# serving, 12b's fused ResNet-50 step, 18b's mesh route
+STASH = {}
 
 
 def _resnet_step(mx, net, trainer, loss_fn, x, y, stamps=None):
@@ -2158,6 +2189,8 @@ def fused_llama_phase(torch, mx, llama, fa, mt, checkpoint, failures):
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     ok = step == FUSED_LLAMA_K and loss_a == loss_b and diff == 0.0
+    STASH["ckpt"] = dict(save_s=save_s, resume_s=resume_s,
+                         bytes=ckpt_bytes)
     emit(dict(phase="checkpoint_round_trip", layers=2, dtype="float32",
               step=step, loss_uninterrupted=loss_a, loss_resumed=loss_b,
               max_abs_weight_diff=diff, checkpoint_bytes=ckpt_bytes,
@@ -2233,6 +2266,7 @@ def fused_resnet_phase(torch, mx, vision, mt, failures):
         launched_all == 2 * FUSED_STEP_K and \
         bool(np.isfinite(more).all()) and len(fstep._graphs) == 1
     step_ms = call_ms / FUSED_STEP_K
+    STASH["fused_resnet"] = dict(losses=fused, step_ms=step_ms)
     emit(dict(phase="fused_step_resnet", B=b, dtype="bfloat16",
               K=FUSED_STEP_K, lr=FUSED_RESNET_LR, losses=fused,
               eager_losses=eager, falling=falling,
@@ -4004,6 +4038,7 @@ def mesh_train_phase(torch, mx, llama, fa, mt, parallel, mesh, failures):
         launches_mma == launches and updates == 4
     grads = [p.grad()._data for p in net.collect_params().values()
              if p.grad_req != "null"]
+    STASH["mesh"] = dict(losses=losses, step_ms=step_ms)
     emit(dict(phase="mesh_train_summary", losses=losses,
               plain_losses=PLAIN9["losses"], max_rel_loss_diff=max(rel),
               step_ms=step_ms, plain_step_ms=PLAIN9["step_ms"],
@@ -4209,6 +4244,529 @@ def classic_dp_phase(torch, mx, vision, mt, failures):
 
 
 
+# Phases 19a-19d: pipeline parallelism, graphs over a mesh, serving on a
+# mesh and sharded checkpoints (slice 12).  One card: the pipeline's
+# stages run over the local transport, the mesh is the NCCL group of one
+# of 18a; multi-rank behaviour is held on the CPU in gloo groups
+# (tests/test_torch_{pipeline,llama_pipeline,graph_mesh,serving_mesh,
+# checkpoint_sharded}.py).
+PP_B, PP_M, PP_S = 4, 4, 4   # 19a: batch, microbatches, stages
+PP_STEPS = 3                 # 19a: Trainer steps of each route
+PP_TOL = 2e-2                # 19a: relative norm / loss difference, bf16
+PP_INLINE_TOL = 5e-3         # 19a: against the plain route with 1F1B's loss
+
+
+def _pp_batch(torch, mx, vocab, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, vocab, (PP_B, 2049), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return mx.nd.array(tokens[:, :-1]), mx.nd.array(tokens[:, 1:])
+
+
+def _plain_accumulated(mx, llama, net, ids, labels, inline=False):
+    """The plain route's gradients of the mean token loss over the B·T
+    tokens, accumulated over B microbatches of 1 (``grad_req="add"``) →
+    the summed loss.  ``inline=True`` ends each microbatch with the 1F1B
+    step's own loss (``llama._pipeline_loss_fn``: RMSNorm in f32 cast
+    back to bf16, the head, log-softmax in f32) in place of the net's
+    ``norm`` and ``lm_head`` and ``softmax_cross_entropy``."""
+    from mxnet_tpu_torch.ops.registry import apply_op
+
+    vocab = net.config.vocab_size
+    loss_fn = llama._pipeline_loss_fn(float(net.config.rms_eps))
+    total = 0.0
+    for b in range(PP_B):
+        with mx.autograd.record():
+            if inline:
+                h = net.model.embed_tokens(ids[b:b + 1])
+                for layer in net.model.layers:
+                    h = layer(h)
+                loss = apply_op(
+                    lambda hr, lr, nw, hw: loss_fn(hr, lr, (nw, hw)), h,
+                    labels[b:b + 1], net.model.norm.weight.data(),
+                    net.lm_head.weight.data(), name="pipeline_loss") / \
+                    labels.size
+            else:
+                loss = mx.nd.softmax_cross_entropy(
+                    net(ids[b:b + 1]).reshape((-1, vocab)),
+                    labels[b:b + 1].reshape((-1,))) / labels.size
+        loss.backward()
+        total += float(loss.asscalar())
+    return total
+
+
+def _set_grad_req(net, req):
+    for p in net.collect_params().values():
+        if p.grad_req != "null":
+            p.grad_req = req
+            p.zero_grad()
+
+
+def _grad_errors(torch, params, grads):
+    """{parameter name: relative norm of its ``grad()`` against ``grads``
+    (the 1F1B step's)}."""
+    return {p.name: _rel_norm(torch, g, p.grad()._data)
+            for p, g in zip(params, grads)}
+
+
+def pipeline_phase(torch, mx, llama, fa, mt, failures):
+    """Phase 19a: ``llama3_8b`` width at 16 layers, bf16 (phase 9's net,
+    seed and optimizer), B=4 as M=4 microbatches of 1, T=2048, over 4
+    stages of 4 layers on the local transport (``mesh={'pp': 4}``):
+    GPipe's forward against the plain forward; the 1F1B step's loss and
+    every gradient, parameter by parameter, against the plain route's
+    accumulated over the same 4 microbatches, once ending in the net's
+    norm, head and cross entropy (the worst parameter named) and once in
+    the 1F1B step's own loss; three ``Trainer`` steps of each route from
+    the same weights (losses side by side), ms and tokens/s a step, peak
+    memory and #1-#3 launches a 1F1B step ((2L - L/S)·M, L·M, L·M: the
+    last stage's forward leg only stashes its input).  The launch counts
+    are set to 0 just before each 1F1B step and read just after it."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    params = [p for p in net.collect_params().values()]
+    trained = [p for p in params if p.grad_req != "null"]
+    w0 = [p.data()._data.clone() for p in params]
+    ids, labels = _pp_batch(torch, mx, net.config.vocab_size, SEED + 19)
+    mesh = {"pp": PP_S}
+    torch.cuda.synchronize()
+    emit(dict(phase="pipeline_init", seconds=time.perf_counter() - t,
+              stages=PP_S, microbatches=PP_M, batch=PP_B,
+              memory_allocated=torch.cuda.memory_allocated()))
+    # 1. GPipe's forward, not recorded, against the plain forward
+    _zero_counts(fa)
+    piped = llama.llama_pipeline_forward(net, ids, PP_M, mesh=mesh)._data
+    gpipe_launches = [c.launches for c in _counters(fa)]
+    plain = net(ids)._data
+    gpipe_err = _rel_norm(torch, piped, plain)
+    del piped, plain
+    free_card(torch)
+    # 2. the 1F1B step against both plain routes' accumulated gradients
+    per_step, per_step_mma = [], []
+
+    def pipeline_step():
+        _zero_counts(fa)  # the pipeline's main path: each 1F1B step
+        with mx.autograd.record():
+            loss_nd = llama.llama_pipeline_train_step(net, ids, labels, PP_M,
+                                                      mesh=mesh)
+        loss_nd.backward()
+        loss = float(loss_nd.asscalar())
+        per_step.append([c.launches for c in _counters(fa)])
+        per_step_mma.append(_mma_counts(fa))
+        return loss
+
+    _set_grad_req(net, "write")
+    pp_loss = pipeline_step()
+    pp_grads = [p.grad()._data.clone() for p in trained]
+    _set_grad_req(net, "add")
+    plain_loss = _plain_accumulated(mx, llama, net, ids, labels)
+    grad_errs = _grad_errors(torch, trained, pp_grads)
+    _set_grad_req(net, "add")
+    inline_loss = _plain_accumulated(mx, llama, net, ids, labels,
+                                     inline=True)
+    inline_errs = _grad_errors(torch, trained, pp_grads)
+    grad_err = max(grad_errs.values())
+    inline_err = max(inline_errs.values())
+    worst = max(grad_errs, key=grad_errs.get)
+    del pp_grads
+    free_card(torch)
+    # 3. three Trainer steps of each route from the same weights
+    routes = {}
+    updates = 0
+    for route in ("plain", "pipeline"):
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.data()._data.copy_(w)
+        if route == "pipeline":
+            del w0
+        _set_grad_req(net, "add" if route == "plain" else "write")
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": TRAIN_LR,
+                                    "momentum": 0.9})
+        losses, step_ms, peak = [], [], 0
+        for step in range(PP_STEPS):
+            free_card(torch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mt.multi_tensor_update.launches = 0
+            t0 = time.perf_counter()
+            if route == "plain":
+                _set_grad_req(net, "add")
+                losses.append(_plain_accumulated(mx, llama, net, ids,
+                                                 labels))
+            else:
+                losses.append(pipeline_step())
+            trainer.step(1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            if route == "pipeline":
+                updates += mt.multi_tensor_update.launches
+        routes[route] = dict(losses=losses, step_ms=step_ms, peak=peak)
+        del trainer
+        free_card(torch)
+    launches = [sum(s[k] for s in per_step) for k in range(3)]
+    launches_mma = [sum(s[k] for s in per_step_mma) for k in range(3)]
+    lps = TRAIN_LAYERS // PP_S
+    want = [(2 * TRAIN_LAYERS - lps) * PP_M, TRAIN_LAYERS * PP_M,
+            TRAIN_LAYERS * PP_M]
+    loss_rel = [abs(a - b) / abs(b) for a, b in
+                zip(routes["pipeline"]["losses"], routes["plain"]["losses"])]
+    tokens = PP_B * 2048
+    ms = routes["pipeline"]["step_ms"]
+    ok = gpipe_err <= PP_TOL and grad_err <= PP_TOL and \
+        inline_err <= PP_INLINE_TOL and \
+        abs(pp_loss - plain_loss) / abs(plain_loss) <= PP_TOL and \
+        abs(pp_loss - inline_loss) / abs(inline_loss) <= PP_INLINE_TOL and \
+        max(loss_rel) <= PP_TOL and all(s == want for s in per_step) and \
+        launches_mma == launches and updates == PP_STEPS and \
+        routes["pipeline"]["losses"][-1] < routes["pipeline"]["losses"][0]
+    emit(dict(phase="pipeline_grads", rel_err=grad_errs,
+              inline_rel_err=inline_errs))
+    emit(dict(phase="pipeline_summary", gpipe_rel_err=gpipe_err,
+              gpipe_launches=dict(zip(("fwd", "dq", "dkv"),
+                                      gpipe_launches)),
+              loss_1f1b=pp_loss, loss_plain=plain_loss,
+              loss_plain_inline=inline_loss,
+              max_grad_rel_err=grad_err, worst_grad=worst,
+              max_grad_rel_err_inline=inline_err,
+              worst_grad_inline=max(inline_errs, key=inline_errs.get),
+              losses=routes["pipeline"]["losses"],
+              plain_losses=routes["plain"]["losses"],
+              max_rel_loss_diff=max(loss_rel), step_ms=ms,
+              tokens_per_s=[tokens / m * 1e3 for m in ms],
+              plain_step_ms=routes["plain"]["step_ms"],
+              phase9_step_ms=PLAIN9.get("step_ms"),
+              phase9_tokens_per_s=[2048 / m * 1e3 for m in
+                                   PLAIN9.get("step_ms", [])],
+              peak_memory=routes["pipeline"]["peak"],
+              plain_peak_memory=routes["plain"]["peak"],
+              phase9_peak_memory=PLAIN9.get("peak"),
+              launches_per_step=per_step, predicted_per_step=want,
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
+              update_launches=updates, tolerance=PP_TOL,
+              inline_tolerance=PP_INLINE_TOL, ok=ok))
+    if not ok:
+        failures.append(f"pipeline: gpipe {gpipe_err}, grads {grad_err} "
+                        f"(worst {worst}), inline {inline_err}, loss "
+                        f"{pp_loss} vs {plain_loss} / {inline_loss}, losses "
+                        f"{routes['pipeline']['losses']} vs "
+                        f"{routes['plain']['losses']}, launches {per_step}")
+    del net, params, trained
+    free_card(torch)
+    return launches, launches_mma, updates
+
+
+def graph_mesh_phase(torch, mx, llama, vision, fa, mt, parallel, mesh,
+                     failures):
+    """Phase 19b: graphs over a mesh.  Phase 18b's step (``llama3_8b``
+    width, 16 layers, bf16, the same seed and batch; ``Trainer(...,
+    kvstore="dist_sync", partition_rules=LLAMA_RULES, mesh=...)``)
+    captured by ``FusedTrainStep`` (K=4): its losses against 18b's eager
+    mesh route step for step, then a call of 4 replays timed beside 18b's
+    eager mesh step and beside the plain route's captured step (no mesh,
+    the same net); ResNet-50 bf16 B=128 through ``dist_sync`` under
+    ``FusedTrainStep`` K=8 beside 12b's ``device`` store; and a
+    hybridized ``llama3_8b`` 2-layer bf16 block placed on the mesh
+    (``shard_llama``): the replay's logits against the eager forward's.
+    At world size 1 the collectives in the graphs are NCCL's no-op
+    all-reduces; the question is the host cost the replay removes."""
+    k = 4
+    rows = {}
+    updates = 0
+    for route in ("mesh", "plain"):
+        free_card(torch)
+        mx.random.seed(SEED)
+        net = llama.llama3_8b(num_layers=TRAIN_LAYERS)
+        net.cast("bfloat16")
+        net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+        kw = dict(kvstore="dist_sync", partition_rules=parallel.LLAMA_RULES,
+                  mesh=mesh) if route == "mesh" else {}
+        trainer = mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": TRAIN_LR, "momentum": 0.9}, **kw)
+        ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                                  SEED + 5)
+        if route == "mesh":
+            ids = parallel.shard_batch(ids, mesh)
+            labels = parallel.shard_batch(labels, mesh)
+
+        def lm_loss(n, a, b):
+            vocab = n.config.vocab_size
+            return mx.nd.softmax_cross_entropy(
+                n(a).reshape((-1, vocab)), b.reshape((-1,))) / b.size
+
+        fstep = mx.gluon.FusedTrainStep(net, trainer, lm_loss,
+                                        steps_per_execution=k, batch_size=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(fa)  # the mesh route's captured steps start here
+        mt.multi_tensor_update.launches = 0
+        t = time.perf_counter()
+        losses = fstep(ids, labels).asnumpy().tolist()
+        first_call_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = fstep(ids, labels).asnumpy().tolist()
+        step_ms = (time.perf_counter() - t) * 1e3 / k
+        got = [c.launches for c in _counters(fa)]  # ... and end here
+        got_mma = _mma_counts(fa)
+        if route == "mesh":
+            launches, launches_mma = got, got_mma
+            updates += mt.multi_tensor_update.launches
+        graph = next(iter(fstep._graphs.values()))["graph"]
+        rows[route] = dict(losses=losses, next_losses=more,
+                           first_call_s=first_call_s, step_ms=step_ms,
+                           launches=got, graph_pool_bytes=graph.pool_bytes,
+                           peak=torch.cuda.max_memory_allocated())
+        del net, trainer, fstep, graph, ids, labels
+    ref = STASH.get("mesh", {})
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(rows["mesh"]["losses"], ref.get("losses", []))]
+    plain_rel = [abs(a - b) / abs(b) for a, b in
+                 zip(rows["plain"]["losses"], PLAIN9.get("losses", []))]
+    want = [2 * k * TRAIN_LAYERS] * 3
+    ok = len(rel) == k and max(rel) <= MESH_LOSS_RTOL and \
+        len(plain_rel) == k and max(plain_rel) <= MESH_LOSS_RTOL and \
+        rows["mesh"]["launches"] == want and launches_mma == launches
+    mesh_ms = rows["mesh"]["step_ms"]
+    emit(dict(phase="graph_mesh_llama", K=k, rows=rows,
+              eager_mesh_losses=ref.get("losses"),
+              eager_mesh_step_ms=ref.get("step_ms"),
+              plain_eager_step_ms=PLAIN9.get("step_ms"),
+              max_rel_loss_diff=max(rel) if rel else None,
+              plain_max_rel_loss_diff=max(plain_rel) if plain_rel else None,
+              replay_over_eager_mesh=[mesh_ms / m for m in
+                                      ref.get("step_ms", [])],
+              mesh_over_plain_replay=mesh_ms / rows["plain"]["step_ms"],
+              ok=ok))
+    if not ok:
+        failures.append(f"graphs over a mesh (llama): {rows}, eager mesh "
+                        f"losses {ref.get('losses')}")
+    free_card(torch)
+
+    # ResNet-50 through dist_sync under FusedTrainStep, beside 12b
+    b = RESNET_BATCHES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    x = mx.nd.array(torch.rand((b, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    y = mx.nd.array(torch.randint(0, 1000, (b,), generator=gen,
+                                  device="cuda").float())
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+    net.cast("bfloat16")
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": FUSED_RESNET_LR, "momentum": 0.9},
+        kvstore="dist_sync")
+    fstep = mx.gluon.FusedTrainStep(
+        net, tr, lambda n, a, c: loss_fn(n(a), c),
+        steps_per_execution=FUSED_STEP_K, batch_size=b)
+    mt.multi_tensor_update.launches = 0  # the dist_sync steps start here
+    fused = fstep(x, y).asnumpy().tolist()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fstep(x, y).asnumpy()
+    step_ms = (time.perf_counter() - t) * 1e3 / FUSED_STEP_K
+    updates += mt.multi_tensor_update.launches  # ... and end here
+    ref = STASH.get("fused_resnet", {})
+    rrel = [abs(a - c) / abs(c) for a, c in zip(fused, ref.get("losses",
+                                                              []))]
+    ok = len(rrel) == FUSED_STEP_K and max(rrel) <= FUSED_LOSS_RTOL and \
+        tr._kvstore.type == "dist_tpu_sync"
+    emit(dict(phase="graph_mesh_resnet", B=b, K=FUSED_STEP_K,
+              losses=fused, device_store_losses=ref.get("losses"),
+              max_rel_loss_diff=max(rrel) if rrel else None,
+              step_ms=step_ms, device_store_step_ms=ref.get("step_ms"),
+              images_per_s=b / step_ms * 1e3, ok=ok))
+    if not ok:
+        failures.append(f"graphs over dist_sync (resnet): losses {fused} vs "
+                        f"{ref.get('losses')}")
+    del net, tr, fstep, x, y
+    free_card(torch)
+
+    # a hybridized block placed on the mesh: replays against eager
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=2)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    llama.shard_llama(net, mesh)
+    ids, _ = _ids_labels(torch, mx, net.config.vocab_size, 2048, SEED + 6)
+    from mxnet_tpu_torch.parallel.local import local
+
+    with torch.no_grad():
+        eager = local(net(ids)._data).clone()
+        eager_ms = time_ms(torch, lambda: net(ids), 3)
+        net.hybridize()
+        _zero_counts(fa)
+        net(ids)                      # the capture (its warm-up's result)
+        replayed = local(net(ids)._data)  # a replay
+        replay_ms = time_ms(torch, lambda: net(ids), 3)
+        replay_launches = fa.flash_attention_fwd.launches
+    err = (replayed.float() - eager.float()).abs().max().item()
+    tol = GRAPH_BF16_TOL * eager.float().abs().max().item()
+    stats = net.cache_stats()
+    # the capture's warm-up, then five replays (one, and time_ms's 1 + 3)
+    ok = err <= tol and stats["misses"] == 1 and stats["hits"] == 5 and \
+        replay_launches == 2 * (1 + 5)
+    emit(dict(phase="graph_mesh_hybridize", layers=2, dtype="bfloat16",
+              T=2048, max_abs_err=err, tol=tol, eager_ms=eager_ms,
+              replay_ms=replay_ms, cache=stats,
+              flash_launches=replay_launches, ok=ok))
+    if not ok:
+        failures.append(f"hybridize over a mesh: error {err} (tol {tol}), "
+                        f"cache {stats}, launches {replay_launches}")
+    del net, eager, replayed
+    free_card(torch)
+    return launches, launches_mma, updates
+
+
+def serving_mesh_phase(torch, mx, serving, net, failures):
+    """Phase 19c: ``GenerativeServer(net, mesh={'dp': 1, 'tp': 1})`` on
+    phase 8's net (``llama3_8b``, 32 layers, bf16) with phase 8b's 8
+    requests in its two waves: TTFT and tick ms beside 8b's.  Then the
+    token check: both servers, without a mesh and on it, admitting one
+    prompt a prefill (``max_batch=1``), so that every request's programs
+    have the same shapes in both runs whatever the lanes' timing (a
+    prefill batch's shape decides its rounding; the decode tick's rows
+    are independent): the replies equal, token for token."""
+    mesh = {"dp": 1, "tp": 1}
+    plain, _ = _serve_prompts(net.config.vocab_size)
+    replies, srv, stats, wall_s = _serve(serving, net, plain, first_wave=2,
+                                         mesh=mesh)
+    recs = srv.request_records()
+    ticks = list(srv.replicas[0].tick_ms)
+    ref = STASH.get("serve", {})
+    same_8b = sum(int(np.array_equal(a, b)) for a, b in
+                  zip(replies, ref.get("replies", [])))
+    mesh_ok = stats["completed"] == len(plain) and \
+        stats["num_replicas"] == 1 and srv.engine.mesh is not None
+    replica_mesh = repr(srv.engine.mesh)
+    del srv, replies
+    pair = [_serve(serving, net, plain, first_wave=2, mesh=m,
+                   max_batch=1)[0] for m in (None, mesh)]
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(*pair))
+    ok = mesh_ok and same == len(plain)
+    emit(dict(phase="serving_mesh", mesh=mesh, replica_mesh=replica_mesh,
+              replies_equal_one_prompt_a_prefill=same,
+              replies_equal_8b=same_8b,
+              ttft_ms=[r["ttft_ms"] for r in recs],
+              ttft_ms_8b=ref.get("ttft_ms"),
+              decode_step_ms_median=float(np.median(ticks)) if ticks
+              else None,
+              decode_step_ms_median_8b=ref.get("decode_step_ms_median"),
+              wall_s=wall_s, ok=ok))
+    if not ok:
+        failures.append(f"serving on a mesh: {same} of {len(plain)} replies "
+                        f"equal the server's without a mesh; stats {stats}")
+
+
+def sharded_checkpoint_phase(torch, mx, llama, checkpoint, parallel, mesh,
+                             failures):
+    """Phase 19d: ``save_checkpoint(sharded=True)`` of phase 7d's
+    checkpoint configuration (``llama3_8b`` width, 2 layers, f32, SGD
+    momentum; 11.9 GB with its states) placed on the ``{'dp': 1, 'tp':
+    1}`` mesh with its trainer (``dist_sync``), then ``resume`` into a
+    fresh net: the restored weights bit for bit, the next step's loss
+    equal to the uninterrupted run's; save and resume seconds beside 7d's
+    ``.params`` route; ``drain_consensus()`` on the NCCL group of one."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.gluon import trainer as trainer_mod
+
+    kw = {"learning_rate": 0.01, "momentum": 0.9}
+
+    def make(seed):
+        mx.random.seed(seed)
+        net = llama.llama3_8b(num_layers=2)
+        net.initialize(ctx=mx.gpu(0))
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd", dict(kw),
+                              kvstore="dist_sync",
+                              partition_rules=parallel.LLAMA_RULES,
+                              mesh=mesh)
+        return net, tr
+
+    def one_step(net, tr):
+        vocab = net.config.vocab_size
+        with mx.autograd.record():
+            loss = mx.nd.softmax_cross_entropy(
+                net(ids).reshape((-1, vocab)), labels.reshape((-1,))) / \
+                labels.size
+        loss.backward()
+        tr.step(1)
+        return float(loss.asscalar())
+
+    free_card(torch)
+    net, tr = make(SEED)
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 1024,
+                              SEED + 12)
+    one_step(net, tr)
+    saved = {k: p.data()._data.to_local().clone() for k, p in
+             net._collect_params_with_prefix().items()}
+    ckpt_dir = tempfile.mkdtemp(prefix="mxt_ckpt_sharded_")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = checkpoint.save_checkpoint(ckpt_dir, 1, net, tr, sharded=True)
+        save_s = time.perf_counter() - t
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(ckpt_dir) for f in fs)
+        with open(os.path.join(path, "manifest.json")) as f:
+            sharded = json.load(f).get("sharded")
+        loss_a = one_step(net, tr)
+        after_a = {k: p.data()._data.to_local().clone() for k, p in
+                   net._collect_params_with_prefix().items()}
+        del net, tr
+        free_card(torch)
+        net_r, tr_r = make(SEED + 1)  # other weights: all come from disk
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step, _ = checkpoint.resume(ckpt_dir, net_r, tr_r)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        exact = all(torch.equal(p.data()._data.to_local(), saved[k])
+                    for k, p in net_r._collect_params_with_prefix().items())
+        del saved
+        loss_b = one_step(net_r, tr_r)
+        diff = max((p.data()._data.to_local() - after_a[k]).abs().max()
+                   .item() for k, p in
+                   net_r._collect_params_with_prefix().items())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    before = trainer_mod.drain_consensus()
+    trainer_mod.request_drain()
+    after = trainer_mod.drain_consensus()
+    trainer_mod.reset_drain()
+    ref = STASH.get("ckpt", {})
+    ok = sharded is True and step == 1 and exact and loss_a == loss_b and \
+        diff == 0.0 and before is False and after is True and \
+        torch.distributed.get_backend() == "nccl"
+    emit(dict(phase="sharded_checkpoint", layers=2, dtype="float32",
+              mesh=parallel.mesh_axes(mesh), step=step,
+              restored_exact=exact, loss_uninterrupted=loss_a,
+              loss_resumed=loss_b, max_abs_weight_diff=diff,
+              checkpoint_bytes=ckpt_bytes, save_s=save_s, resume_s=resume_s,
+              params_route_save_s=ref.get("save_s"),
+              params_route_resume_s=ref.get("resume_s"),
+              params_route_bytes=ref.get("bytes"),
+              drain_consensus=[before, after], ok=ok))
+    if not ok:
+        failures.append(f"sharded checkpoint: step {step}, exact {exact}, "
+                        f"loss {loss_b} vs {loss_a}, weights differ by "
+                        f"{diff}, drain consensus {before}/{after}")
+    del net_r, tr_r, after_a
+    free_card(torch)
+
+
 def main():
     import torch
 
@@ -4271,6 +4829,7 @@ def main():
     infer_launches, infer_mma, net = slice_phase(torch, mx, llama, fa,
                                                  failures)
     serving_bf16_phase(torch, mx, llama, serving, fa, net, failures)
+    serving_mesh_phase(torch, mx, serving, net, failures)
     del net
     train_launches, train_mma, update_launches = train_phase(
         torch, mx, llama, fa, mt, failures)
@@ -4313,6 +4872,14 @@ def main():
     ulysses_launches, ulysses_mma = sp_bodies_phase(torch, mx, fa, ring,
                                                     failures)
     update_launches += classic_dp_phase(torch, mx, vision, mt, failures)
+    pp_launches, pp_mma, pp_updates = pipeline_phase(torch, mx, llama, fa,
+                                                     mt, failures)
+    update_launches += pp_updates
+    gm_launches, gm_mma, gm_updates = graph_mesh_phase(
+        torch, mx, llama, vision, fa, mt, parallel, mesh, failures)
+    update_launches += gm_updates
+    sharded_checkpoint_phase(torch, mx, llama, checkpoint, parallel, mesh,
+                             failures)
     parallel.shutdown()
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
@@ -4328,17 +4895,20 @@ def main():
     # BERT-base's shape beside them, and the main paths' launches of each
     # design (the f32 FMA design's are the rest)
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
-        packed_launches[0] + mesh_launches[0] + ulysses_launches[0]
+        packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
+        pp_launches[0] + gm_launches[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
-        mesh_mma[0] + ulysses_mma[0]
+        mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
-        packed_launches[1] + mesh_launches[1] + ulysses_launches[1]
+        packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
+        pp_launches[1] + gm_launches[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
-        ulysses_mma[1]
+        ulysses_mma[1] + pp_mma[1] + gm_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
-        packed_launches[2] + mesh_launches[2] + ulysses_launches[2]
+        packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
+        pp_launches[2] + gm_launches[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
-        ulysses_mma[2]
+        ulysses_mma[2] + pp_mma[2] + gm_mma[2]
     bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
                     bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
                     library_ms=sb["library_ms"],
@@ -4361,6 +4931,8 @@ def main():
          "launches_bert": bert_launches[0], "at_bert_shape": bert_fwd,
          "launches_mesh": mesh_launches[0],
          "launches_ulysses": ulysses_launches[0],
+         "launches_pipeline": pp_launches[0],
+         "launches_graph_mesh": gm_launches[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -4373,6 +4945,8 @@ def main():
          "launches_bert": bert_launches[1], "at_bert_shape": bert_dq,
          "launches_mesh": mesh_launches[1],
          "launches_ulysses": ulysses_launches[1],
+         "launches_pipeline": pp_launches[1],
+         "launches_graph_mesh": gm_launches[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -4385,6 +4959,8 @@ def main():
          "launches_bert": bert_launches[2], "at_bert_shape": bert_dkv,
          "launches_mesh": mesh_launches[2],
          "launches_ulysses": ulysses_launches[2],
+         "launches_pipeline": pp_launches[2],
+         "launches_graph_mesh": gm_launches[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],

@@ -22,11 +22,22 @@ Counterpart of ``mxnet_tpu/checkpoint.py``:
   (``gluon.trainer.install_preemption_handler``), wait for the writer,
   cut a final checkpoint and exit with ``PREEMPTED_EXIT_CODE`` (75).
 
-Sharded checkpoints (``sharded=True``) and the multi-host protocol raise:
-they are left out of slice 11 (ROADMAP.md, Queue 1 item 5).
+- **Sharded** (``sharded=True``): each rank writes only the pieces of the
+  parameters it holds (``shards/rank<r>.pt``; a piece replicated over
+  ranks is written once, by its first holder), and the manifest records
+  each parameter's global shape, dtype, mesh, placement and pieces.
+  Over a process group the save is collective: the ranks write into one
+  staging directory (rank 0's name), meet at a barrier, then rank 0
+  writes the trainer's states (gathered whole by every rank), the random
+  state and the manifest, and renames the directory.  Resume lays each
+  parameter out on its CURRENT placement, so a checkpoint saved on one
+  mesh restores onto another (or onto none).  The format is the port's
+  own: the reference writes orbax/tensorstore, and a directory it wrote
+  raises, saying why.  ``.params`` stays the interchange format.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import queue
@@ -45,13 +56,6 @@ __all__ = ["save_checkpoint", "save_checkpoint_async", "AsyncCheckpointer",
            "resume", "prune_checkpoints", "drain_checkpoint_and_exit"]
 
 _PREFIX = "ckpt-"
-
-
-def _refuse_sharded(sharded):
-    if sharded:
-        raise MXNetError("sharded checkpoints are not ported yet "
-                         "(ROADMAP.md, \"Left out of slice 11\", Queue 1 "
-                         "item 5)")
 
 
 def _fsync_file(path):
@@ -86,12 +90,91 @@ _STAGE_SEQ = 0
 
 class _Snapshot:
     """Host image of one checkpoint: what the writer needs, with no
-    reference to a device tensor."""
+    reference to a device tensor (``shards``: this rank's pieces of a
+    sharded checkpoint, else None)."""
 
-    __slots__ = ("step", "params", "rng", "manifest")
+    __slots__ = ("step", "params", "shards", "rng", "manifest")
 
 
-def _stage_snapshot(ckpt_dir, step, net, trainer, extra):
+# -- sharded pieces -------------------------------------------------------------
+
+_SHARD_FORMAT = "mxnet_tpu_torch.sharded/1"
+
+
+def _pieces_of(t):
+    """[(rank, offset, shape)] of every rank's piece of ``t`` (a DTensor:
+    its mesh's ranks, each dim split over the axes that shard it, in mesh
+    order, as ``torch.chunk`` splits; a plain tensor: rank 0 holds it
+    whole), each distinct piece once, held by its lowest rank."""
+    from .parallel.local import is_dtensor
+
+    shape = list(t.shape)
+    if not is_dtensor(t):
+        return [(0, [0] * len(shape), shape)]
+    mesh = t.device_mesh
+    ranks = mesh.mesh
+    seen, out = set(), []
+    for coord in itertools.product(*(range(n) for n in ranks.shape)):
+        off, shp = [0] * len(shape), list(shape)
+        for ax, pl in enumerate(t.placements):
+            if not pl.is_shard():
+                continue
+            d, n = pl.dim, ranks.shape[ax]
+            step = -(-shp[d] // n)
+            lo = min(coord[ax] * step, shp[d])
+            hi = min(lo + step, shp[d])
+            off[d] += lo
+            shp[d] = hi - lo
+        key = (tuple(off), tuple(shp))
+        if key not in seen:
+            seen.add(key)
+            out.append((int(ranks[coord]), off, shp))
+    return sorted(out)
+
+
+def _placement_meta(t):
+    from .parallel.local import is_dtensor
+
+    if not is_dtensor(t):
+        return None, []
+    mesh = t.device_mesh
+    return (dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            [str(p) for p in t.placements])
+
+
+def _stage_shards(net):
+    """This rank's pieces of the net's initialized parameters, on the host
+    ({name: tensor}), and every parameter's manifest entry."""
+    from . import parallel
+    from .parallel.local import local
+
+    me = parallel.rank()
+    pieces, meta = {}, {}
+    for name, p in net._collect_params_with_prefix().items():
+        if p._data is None:
+            continue
+        t = p.data()._data.detach()
+        owners = _pieces_of(t)
+        mesh, placements = _placement_meta(t)
+        meta[name] = {"shape": list(t.shape),
+                      "dtype": str(t.dtype).removeprefix("torch."),
+                      "mesh": mesh, "placements": placements,
+                      "pieces": [[r, off, shp] for r, off, shp in owners]}
+        if any(r == me for r, _, _ in owners):
+            pieces[name] = local(t).to("cpu", copy=True)
+    return pieces, meta
+
+
+def _write_shards(tmp, rank, pieces):
+    import torch
+
+    os.makedirs(os.path.join(tmp, "shards"), exist_ok=True)
+    path = os.path.join(tmp, "shards", f"rank{rank}.pt")
+    torch.save(pieces, path)
+    _fsync_file(path)
+
+
+def _stage_snapshot(ckpt_dir, step, net, trainer, extra, sharded=False):
     """Create the staging directory and copy all state to the host: the
     weights, the trainer's states (written into the staging directory),
     the random state.  Training may go on once this returns."""
@@ -111,17 +194,23 @@ def _stage_snapshot(ckpt_dir, step, net, trainer, extra):
     snap = _Snapshot()
     snap.step = step
     try:
-        # the member set of Block.save_parameters, copied to the host
-        snap.params = {
-            key: val.data().asnumpy()
-            for key, val in net._collect_params_with_prefix().items()
-            if val._data is not None or val._deferred_init is None}
+        snap.params = snap.shards = None
+        manifest = {"step": step, "time": time.time(),
+                    "has_trainer": trainer is not None,
+                    "sharded": bool(sharded), "extra": extra or {}}
+        if sharded:
+            snap.shards, manifest["params"] = _stage_shards(net)
+            manifest.update(format=_SHARD_FORMAT, world_size=1)
+        else:
+            # the member set of Block.save_parameters, copied to the host
+            snap.params = {
+                key: val.data().asnumpy()
+                for key, val in net._collect_params_with_prefix().items()
+                if val._data is not None or val._deferred_init is None}
         if trainer is not None:
             trainer.save_states(os.path.join(tmp, "trainer.states"))
         snap.rng = mx_random.get_state()
-        snap.manifest = {"step": step, "time": time.time(),
-                         "has_trainer": trainer is not None,
-                         "sharded": False, "extra": extra or {}}
+        snap.manifest = manifest
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -133,7 +222,15 @@ def _write_snapshot(tmp, snap):
     durable (host I/O only)."""
     from .serialization import save_ndarrays
 
-    save_ndarrays(os.path.join(tmp, "model.params"), snap.params)
+    if snap.shards is not None:
+        _write_shards(tmp, 0, snap.shards)
+    else:
+        save_ndarrays(os.path.join(tmp, "model.params"), snap.params)
+    _write_sidecars(tmp, snap)
+
+
+def _write_sidecars(tmp, snap):
+    """The random state and the manifest (written last), made durable."""
     gens = snap.rng["generators"]
     np.savez(os.path.join(tmp, "rng.npz"),
              seed=np.array(-1 if snap.rng["seed"] is None
@@ -157,12 +254,75 @@ def _commit_stage(ckpt_dir, tmp, step):
     return final
 
 
+def _save_sharded_collective(ckpt_dir, step, net, trainer, extra, keep):
+    """The sharded save over a process group (every rank calls it): the
+    ranks write their pieces into rank 0's staging directory, then a
+    barrier, then rank 0 writes the trainer's states (gathered by every
+    rank), the random state and the manifest, and renames the directory;
+    a last barrier returns every rank after the rename."""
+    import pickle
+
+    from . import parallel
+    from . import random as mx_random
+
+    global _STAGE_SEQ
+    step = int(step)
+    me = parallel.rank()
+    tmp = None
+    if me == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with _STAGE_LOCK:
+            _STAGE_SEQ += 1
+            seq = _STAGE_SEQ
+        tmp = os.path.join(ckpt_dir, f".tmp-{step}-{seq}-{os.getpid()}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    tmp = parallel.broadcast_object(tmp)
+    pieces, meta = _stage_shards(net)
+    _write_shards(tmp, me, pieces)
+    del pieces
+    payload = trainer._states_payload() if trainer is not None else None
+    parallel.barrier()
+    final = os.path.join(ckpt_dir, f"{_PREFIX}{step}")
+    if me == 0:
+        try:
+            if payload is not None:
+                path = os.path.join(tmp, "trainer.states")
+                with open(path, "wb") as f:
+                    pickle.dump(payload, f)
+            snap = _Snapshot()
+            snap.rng = mx_random.get_state()
+            snap.manifest = {"step": step, "time": time.time(),
+                             "has_trainer": trainer is not None,
+                             "sharded": True, "format": _SHARD_FORMAT,
+                             "world_size": parallel.world_size(),
+                             "params": meta, "extra": extra or {}}
+            _write_sidecars(tmp, snap)
+            final = _commit_stage(ckpt_dir, tmp, step)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        if keep is not None:
+            prune_checkpoints(ckpt_dir, keep)
+    parallel.barrier()
+    return final
+
+
 def save_checkpoint(ckpt_dir, step, net, trainer=None, extra=None,
                     keep=None, sharded=False):
     """Write ``<ckpt_dir>/ckpt-<step>`` atomically and return its path;
-    ``keep``: then prune to the newest ``keep`` checkpoints."""
-    _refuse_sharded(sharded)
-    tmp, snap = _stage_snapshot(ckpt_dir, step, net, trainer, extra)
+    ``keep``: then prune to the newest ``keep`` checkpoints.
+    ``sharded=True``: each rank writes its own pieces (the module
+    docstring); over a process group every rank calls it, on a shared
+    file system."""
+    from . import parallel
+
+    if sharded and parallel.world_size() > 1:
+        return _save_sharded_collective(ckpt_dir, step, net, trainer, extra,
+                                        keep)
+    tmp, snap = _stage_snapshot(ckpt_dir, step, net, trainer, extra,
+                                sharded)
     try:
         _write_snapshot(tmp, snap)
         final = _commit_stage(ckpt_dir, tmp, snap.step)
@@ -219,10 +379,16 @@ class AsyncCheckpointer:
     def save(self, ckpt_dir, step, net, trainer=None, extra=None,
              keep=None, sharded=False):
         """Take the host copy now, queue the write; a ``CheckpointTicket``."""
-        _refuse_sharded(sharded)
+        from . import parallel
+
+        if sharded and parallel.world_size() > 1:
+            raise MXNetError(
+                "multi-process sharded checkpoints are a collective write; "
+                "call save_checkpoint(sharded=True) on every process")
         self._raise_pending_error()
         self._backpressure()
-        tmp, snap = _stage_snapshot(ckpt_dir, step, net, trainer, extra)
+        tmp, snap = _stage_snapshot(ckpt_dir, step, net, trainer, extra,
+                                    sharded)
         ticket = CheckpointTicket(snap.step)
         with self._lock:
             self._pending.append(ticket)
@@ -412,14 +578,65 @@ def _load_checkpoint(path, net, trainer, ctx):
         raise _ResumeContractError(
             f"checkpoint {path!r} has no trainer state; pass trainer=None "
             "or checkpoint with the trainer")
-    _refuse_sharded(manifest.get("sharded"))
-    net.load_parameters(os.path.join(path, "model.params"), ctx=ctx)
+    if manifest.get("sharded"):
+        _restore_params_sharded(path, manifest, net)
+    else:
+        net.load_parameters(os.path.join(path, "model.params"), ctx=ctx)
     if trainer is not None:
         trainer.load_states(os.path.join(path, "trainer.states"))
     rng = os.path.join(path, "rng.npz")
     if os.path.exists(rng):
         _load_rng(rng)
     return step, manifest.get("extra", {})
+
+
+def _restore_params_sharded(path, manifest, net):
+    """Load a sharded checkpoint into the net's initialized parameters,
+    each laid out on its CURRENT placement (the mesh the resumed job runs
+    on, or none): the pieces are read (memory-mapped) into the global
+    array, and each rank keeps its own part of it."""
+    import torch
+
+    from .parallel.local import copy_global_into
+
+    if manifest.get("format") != _SHARD_FORMAT:
+        orbax = os.path.isdir(os.path.join(path, "model.orbax"))
+        raise _ResumeContractError(
+            f"sharded checkpoint at {path!r} is not in this port's format"
+            + (" (an orbax/tensorstore tree written by the JAX package, "
+               "which this port cannot read; save it there with "
+               "sharded=False, whose .params file crosses)" if orbax else
+               f" (manifest format {manifest.get('format')!r})"))
+    params = {name: p for name, p in net._collect_params_with_prefix()
+              .items() if p._data is not None}
+    saved = manifest["params"]
+    missing = sorted(set(params) - set(saved))
+    extra = sorted(set(saved) - set(params))
+    wrong = sorted(n for n in set(params) & set(saved)
+                   if list(params[n].shape) != saved[n]["shape"])
+    if missing or extra or wrong:
+        raise _ResumeContractError(
+            f"sharded checkpoint at {path!r} does not match this model's "
+            f"parameter structure: missing {missing[:5]}, unexpected "
+            f"{extra[:5]}, shape differs {wrong[:5]}")
+    files = {}
+
+    def shard(rank):
+        if rank not in files:
+            files[rank] = torch.load(
+                os.path.join(path, "shards", f"rank{rank}.pt"),
+                mmap=True, weights_only=True)
+        return files[rank]
+
+    for name, p in params.items():
+        entry = saved[name]
+        dst = p.data()._data
+        full = torch.empty(entry["shape"],
+                           dtype=getattr(torch, entry["dtype"]))
+        for rank, off, shp in entry["pieces"]:
+            idx = tuple(slice(o, o + n) for o, n in zip(off, shp))
+            full[idx] = shard(rank)[name]
+        copy_global_into(dst, full.to(dst.dtype))
 
 
 def resume(ckpt_dir, net, trainer=None, ctx=None):

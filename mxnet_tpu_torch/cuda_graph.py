@@ -30,6 +30,13 @@ where its caller asks for it, and the garbage collector stays off while
 any capture runs.  What another thread must not do during a capture is
 a device-wide ``torch.cuda.synchronize()``: CUDA refuses it, and the
 capture fails with it.
+
+Collectives inside a graph (``FusedTrainStep`` and ``hybridize()`` over
+a mesh or a ``dist_*`` store): ``warm_groups`` runs one eager collective
+on every NCCL group a capture will use before it begins, because
+creating a communicator cannot be captured.  gloo collectives cannot be
+captured at all: on the CPU those calls run eagerly, as every CPU call
+does.
 """
 from __future__ import annotations
 
@@ -196,3 +203,50 @@ def capture(fn, pool=None, generators=(), mode="global"):
             del _TALLIES[stream.cuda_stream]
         _gc_hold(False)
     return Graph(graph, outputs, delta, grown)
+
+
+def _nccl_groups(tensors):
+    """The NCCL process groups the collectives of a step over ``tensors``
+    use: every group of each DTensor's mesh, and the default group."""
+    from .parallel.local import is_dtensor
+
+    dist = torch.distributed
+    if not dist.is_available() or not dist.is_initialized():
+        return []
+    groups, seen = [dist.group.WORLD], set()
+    for t in tensors:
+        if not is_dtensor(t):
+            continue
+        mesh = t.device_mesh
+        if id(mesh) in seen:
+            continue
+        seen.add(id(mesh))
+        groups.extend(mesh.get_group(d) for d in range(mesh.ndim))
+    return [g for g in groups if dist.get_backend(g) == "nccl"]
+
+
+def warm_groups(tensors=(), groups=()):
+    """Run one eager all-reduce on every NCCL group that a capture over
+    ``tensors`` may use (and on ``groups``), and wait for it.
+
+    What torch's NCCL process group needs in order to be captured: the
+    group's communicator must already exist, since ``ncclCommInitRank``
+    (run at a group's first collective, or at ``init_process_group``
+    when a ``device_id`` is bound) cannot run inside a capture; this
+    warm-up creates it outside.  During the capture the process group
+    sees that the current stream is capturing and leaves the collective's
+    work object out of its watchdog (whose event queries would
+    invalidate the capture); the collective runs on the group's NCCL
+    stream, which joins the capture through the event it waits on, and
+    the capture stream waits on the NCCL stream's end event in turn, so
+    the collective lands in the graph and replays with it.  NCCL 2.9.6
+    or later."""
+    groups = _nccl_groups(tensors) + [
+        g for g in groups if torch.distributed.get_backend(g) == "nccl"]
+    if not groups:
+        return
+    dev = torch.cuda.current_device()
+    probe = torch.zeros(1, device=f"cuda:{dev}")
+    for g in groups:
+        torch.distributed.all_reduce(probe, group=g)
+    torch.cuda.current_stream().synchronize()

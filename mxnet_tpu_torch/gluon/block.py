@@ -16,7 +16,10 @@ signature copies its inputs into the graph's and replays it.  A graph is
 keyed on the parameters' addresses too: after ``cast`` or a forced
 re-initialization moves a parameter, the next call captures again.
 Under ``autograd.record()`` the block runs eagerly (training capture is
-``FusedTrainStep``'s); on the CPU it always runs eagerly.  Graphing a
+``FusedTrainStep``'s); on the CPU it always runs eagerly.  Over a mesh
+(``DTensor`` parameters or inputs) the graph holds the forward's
+collectives and is keyed on each rank's local pieces; every NCCL group
+is warmed by an eager collective before the capture.  Graphing a
 recorded forward and ``hybridize(remat=...)`` are left out of slice 7
 (ROADMAP).  A forward runs with torch's gradient mode set to
 ``autograd.is_recording()``, so inference builds no autograd graph.
@@ -35,7 +38,7 @@ from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
 from .. import engine
-from ..parallel.local import any_dtensor
+from ..parallel.local import any_dtensor, local
 from ..context import current_context
 from .parameter import (Parameter, ParameterDict,
                         DeferredInitializationError)
@@ -351,15 +354,6 @@ class CachedOp:
         from ..ndarray import NDArray
 
         params = list(self.block.collect_params().values())
-        if any_dtensor([a._data for a in args if isinstance(a, NDArray)] +
-                       [p._data._data for p in params
-                        if p._data is not None]):
-            # recorded calls too: none runs eagerly in its place
-            raise MXNetError(
-                "hybridize() of a block over a mesh (DTensor parameters or "
-                "inputs: the collectives inside the graph) is not ported "
-                "yet (ROADMAP.md, \"Left out of slice 11\"); call it "
-                "without hybridize()")
         if ag.is_recording():
             self._recorded += 1
             return self._inline(args)
@@ -388,7 +382,8 @@ class CachedOp:
                 self._hits += 1
             return self._inline(args)
         # addresses within a signature, which holds shapes and dtypes
-        ptrs = tuple(p._data._data.data_ptr() for p in params)
+        # (each rank's local pieces under a mesh)
+        ptrs = tuple(local(p._data._data).data_ptr() for p in params)
         if entry is None or entry[0] != ptrs:
             self._misses += 1
             out, self._graphs[sig] = self._capture(args, ptrs)
@@ -397,7 +392,7 @@ class CachedOp:
         _, statics, graph = entry
         for s, a in zip(statics, args):
             if s is not None:
-                s.copy_(a._data)
+                local(s).copy_(local(a._data))
         graph.replay()
         return _map_out(graph.outputs, lambda t: NDArray(t.clone()))
 
@@ -414,6 +409,10 @@ class CachedOp:
             *args))
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        placed = [a._data for a in args if a is not None] + \
+            [p._data._data for p in self.block.collect_params().values()]
+        if any_dtensor(placed):  # collectives inside the graph
+            cuda_graph.warm_groups(placed)
         graph = cuda_graph.capture(
             lambda: _map_out(self.block._imperative_forward(
                 *(None if s is None else NDArray(s) for s in statics)),

@@ -43,9 +43,19 @@ references before the first call.
 
 A graph is keyed on the batch's shapes and dtypes, the optimizer's
 hyperparameters, amp's dtype, and the addresses of the weights, masters,
-states and moving statistics: after ``cast`` or ``load_states`` into new
-tensors the next call captures again.  ``update_on_kvstore`` and
-distributed stores are refused, as in the reference.
+states and moving statistics (each rank's local pieces under a mesh):
+after ``cast`` or ``load_states`` into new tensors the next call
+captures again.  ``update_on_kvstore`` is refused, as in the reference.
+
+Over a mesh or a ``dist_*`` store (the reference's jitted step over a
+mesh), each step also runs the store's ``allreduce_grads`` and sums what
+is still ``Partial``, as ``Trainer.step`` does, so the collectives are
+inside the graph (``DTensor`` redistributions included); every NCCL
+group is warmed by an eager collective first (``cuda_graph.
+warm_groups``), and step 0, the warm-up, runs them eagerly too.  gloo
+collectives cannot be captured: on the CPU the K steps run eagerly, as
+every CPU call does.  A capture that fails raises; nothing runs eagerly
+in its place on the card.
 """
 from __future__ import annotations
 
@@ -59,6 +69,8 @@ from .. import random as mx_random
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ops import multi_tensor
+from ..parallel import reduce_partial
+from ..parallel.local import is_dtensor, local
 
 __all__ = ["FusedTrainStep"]
 
@@ -105,13 +117,10 @@ class FusedTrainStep:
                 "FusedTrainStep cannot fuse update_on_kvstore modes (the "
                 "store owns the update); use per-step Trainer.step")
         kv = trainer._kvstore
-        if trainer._mesh is not None or (kv is not None and (
-                str(kv.type).startswith("dist") or kv.num_workers > 1)):
-            raise MXNetError(
-                "FusedTrainStep over a mesh or a distributed kvstore (the "
-                "collectives inside the graph) is not ported yet "
-                "(ROADMAP.md, \"Left out of slice 11\"); use per-step "
-                "Trainer.step")
+        # the collectives of Trainer.step run inside each step
+        self._collective = trainer._mesh is not None or (
+            kv is not None and (str(kv.type).startswith("dist") or
+                                kv.num_workers > 1))
         self._live, self._aux = [], []
         for i, param in enumerate(trainer._params):
             if param._data is None:
@@ -131,6 +140,11 @@ class FusedTrainStep:
             leaves = _leaves(self.forward_loss(self.net, *inputs))
         total = sum(leaf._data.detach().float().sum() for leaf in leaves)
         ag.backward(leaves)
+        if self._collective:
+            self.trainer._allreduce_grads()
+            self.trainer._reduce_partial_grads()
+        if is_dtensor(total):  # each rank's copy of the summed loss
+            total = reduce_partial(total).to_local()
         return total
 
     def _items(self, mp_flags, lrs, wds, t):
@@ -222,7 +236,7 @@ class FusedTrainStep:
             tensors += [h._data for h in
                         opt._state_holders(trainer._states[i])]
         tensors += [p._data._data for p in self._aux]
-        return tuple((t.data_ptr(), t.dtype) for t in tensors)
+        return tuple((local(t).data_ptr(), t.dtype) for t in tensors)
 
     def _run_graph(self, sig, batch, mp_flags, lrs, wds, t0, device):
         """Replay this signature's step graph K times, capturing it first
@@ -241,11 +255,11 @@ class FusedTrainStep:
             # this call's batch into the graph's static inputs (a capture
             # made its statics from the batch it ran on)
             for s, b in zip(entry["inputs"], batch):
-                s.copy_(b._data)
+                local(s).copy_(local(b._data))
         for k in range(start, self.k):
             if self.stacked_inputs:
                 for s, b in zip(entry["inputs"], batch):
-                    s.copy_(b._data[k])
+                    local(s).copy_(local(b._data)[k])
             t = [t + k for t in t0]
             if plan is None:
                 _write_scalars(entry["scalars"], lrs, wds, t)
@@ -282,6 +296,10 @@ class FusedTrainStep:
             scalars = None
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        if self._collective:
+            cuda_graph.warm_groups(
+                [p._data._data for p in self.trainer._params
+                 if p._data is not None] + [x._data for x in inputs])
 
         def step():
             loss = self._loss_and_grads([NDArray(s) for s in statics])

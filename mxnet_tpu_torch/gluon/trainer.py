@@ -23,11 +23,13 @@ gradient.  ``update_on_kvstore=True`` moves the update into the store;
 ``compression_params`` sets the store's 2-bit compression.
 
 ``save_states``/``load_states`` write and read the reference's pickle of
-numpy states, so the files interchange with it both ways.  The
-single-host preemption handlers are here (``install_preemption_handler``,
-``drain_requested``, ``request_drain``, ``reset_drain``);
-``drain_consensus`` is left out of slice 11 and raises, as does
-``offload="host"`` (Queue 1, "Left out of slice 2").
+numpy states, so the files interchange with it both ways (states over a
+mesh are gathered whole, and loaded into each rank's pieces).  The
+preemption handlers are here (``install_preemption_handler``,
+``drain_requested``, ``request_drain``, ``reset_drain``), with
+``drain_consensus``, the ranks' agreement to drain: a host-vector sum
+over the group.  ``offload="host"`` raises (Queue 1, "Left out of slice
+2").
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from .. import engine
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..ndarray import NDArray
-from ..parallel.local import local
+from ..parallel.local import copy_global_into, local
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer", "PREEMPTED_EXIT_CODE", "install_preemption_handler",
@@ -76,11 +78,24 @@ def drain_requested():
 
 
 def drain_consensus():
-    """Whether any rank asked to drain: a collective over the ranks of a
-    multi-host job, left out of slice 11 (ROADMAP.md)."""
-    raise MXNetError("drain_consensus (the ranks' agreement to drain) is "
-                     "not ported yet (ROADMAP.md, \"Left out of slice 11\", "
-                     "Queue 1 item 5); one process polls drain_requested()")
+    """True iff ANY rank has ``drain_requested()``, agreed by every rank.
+
+    A preemption signals one host, not the whole group; a rank leaving
+    the step loop alone would strand its peers in the next gradient
+    all-reduce.  Polled after each step instead, the flag rides a
+    host-vector sum over the group (``parallel.process_sum_hostvec``, a
+    synchronization point), so every rank learns of the drain at the same
+    step boundary and the drain checkpoint is consistent.  Collective:
+    every rank calls it.  One process: ``drain_requested()``."""
+    import numpy as np
+
+    from .. import parallel
+
+    local_flag = _DRAIN.is_set()
+    if not parallel.is_initialized():
+        return local_flag
+    return bool(parallel.process_sum_hostvec(
+        np.array([1.0 if local_flag else 0.0]))[0] > 0)
 
 
 def request_drain():
@@ -390,18 +405,23 @@ class Trainer:
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
             return
+        payload = self._states_payload()
+        with open(fname, "wb") as f:
+            pickle.dump(payload, f)
+
+    def _states_payload(self):
+        """``save_states``' payload (states over a mesh gathered whole:
+        collective, every rank calls it)."""
         for i, param in enumerate(self._params):
             if param.grad_req != "null" and param._data is not None:
                 self._init_states(i)
-        payload = {
+        return {
             "states": {i: opt._states_to_numpy(s)
                        for i, s in enumerate(self._states)},
             "num_update": self._optimizer.num_update,
             "index_update_count": dict(
                 self._optimizer._index_update_count),
         }
-        with open(fname, "wb") as f:
-            pickle.dump(payload, f)
 
     def load_states(self, fname):
         """Load ``save_states``' file (or the reference's): each state is
@@ -440,8 +460,7 @@ def _copy_state(holder, value, name):
         if tuple(src.shape) != holder.shape:
             raise MXNetError(f"load_states: state of {name} has shape "
                              f"{tuple(src.shape)}, expected {holder.shape}")
-        with torch.no_grad():
-            holder._data.copy_(src)
+        copy_global_into(holder._data, src)
         return
     if not isinstance(holder, tuple) or not isinstance(value, tuple) or \
             len(holder) != len(value):

@@ -12,7 +12,7 @@ quantizes each pushed value with its per-key residual.
 ``dist_tpu_sync`` and its aliases ``dist_sync``, ``dist_device_sync``
 and ``horovod`` return ``parallel.TPUSyncKVStore``, the synchronous
 store (NCCL on the card, gloo on the host), with the reference's alias
-warning.  ``dist_async`` is left out of slice 11 (ROADMAP.md) and
+warning.  ``dist_async`` is left out of slice 12 (ROADMAP.md) and
 raises; so does ``row_sparse_pull`` (sparse storage, Queue 1 item 8e).
 """
 from __future__ import annotations
@@ -185,5 +185,5 @@ def create(name="local"):
         return TPUSyncKVStore()
     if lname == "dist_async":
         raise MXNetError("kvstore 'dist_async' is not ported yet "
-                         "(ROADMAP.md, \"Left out of slice 11\")")
+                         "(ROADMAP.md, \"Left out of slice 12\")")
     raise MXNetError(f"unknown kvstore type {name!r}")

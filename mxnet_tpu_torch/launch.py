@@ -6,7 +6,7 @@ command with the env contract ``parallel.initialize`` reads:
 
     python -m mxnet_tpu_torch.launch -n 4 python train.py --lr 0.1
 
-sets ``MXT_COORDINATOR=127.0.0.1:<port>`` (a port the OS had free),
+sets ``MXT_COORDINATOR=127.0.0.1:<port>`` (a free port, ``free_port``),
 ``MXT_NUM_PROCESSES=4``, ``MXT_PROCESS_ID=0..3`` and
 ``MXT_INIT_TIMEOUT`` (the group's collective timeout) for each rank.  A
 script then calls ``mx.parallel.initialize()`` (NCCL, one card a rank)
@@ -18,13 +18,14 @@ so a rank stuck in a collective never outlives its job.  The exit
 status is the first failing rank's (124 on a timeout).  ``run`` is the
 same as a function (the multi-rank tests start their ranks with it).
 
-Left out of slice 11 (ROADMAP.md): the ``ssh`` launcher and its per-job
+Left out of slice 12 (ROADMAP.md): the ``ssh`` launcher and its per-job
 secret, and relaunch on failure (elastic re-formation).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -35,7 +36,19 @@ __all__ = ["run", "main", "free_port"]
 
 
 def free_port():
-    """A TCP port on 127.0.0.1 that the OS had free just now."""
+    """A TCP port on 127.0.0.1 that was free just now, drawn below the
+    kernel's ephemeral range: the rendezvous binds it seconds later, and
+    a port from that range could meanwhile go to another process's
+    outgoing connection (a gloo group's, say)."""
+    rng = random.SystemRandom()
+    for _ in range(100):
+        port = rng.randrange(20000, 32768)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -121,7 +134,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.launcher != "local":
         print(f"launcher {args.launcher!r} is not ported yet (ROADMAP.md, "
-              "\"Left out of slice 11\")", file=sys.stderr)
+              "\"Left out of slice 12\")", file=sys.stderr)
         return 2
     if not args.command:
         p.error("no command to run")

@@ -34,10 +34,14 @@ signature (batch, sampling settings) for its decode steps
 without one, the flash call), and ``shard_llama``/``llama_param_pspecs``
 place the weights in the Megatron layout over a mesh.
 
+``llama_pipeline_forward`` (GPipe) and ``llama_pipeline_train_step``
+(1F1B) cut the decoder stack into the ``pp`` axis's stages
+(``parallel.pipeline``), each stage running layer 0's own code with its
+layers' weights swapped in.
+
 Not ported yet, each raising ``MXNetError`` that names the ROADMAP
-item: MoE (``num_experts``, the mixtral configs),
-``scan_layers``/``set_remat`` (slice 7's left-out list) and the
-pipeline functions (slice 11's left-out list).  Packed
+item: MoE (``num_experts``, the mixtral configs) and
+``scan_layers``/``set_remat`` (slice 7's left-out list).  Packed
 ``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
 route, as the reference's; ``scan_layers`` with them stays in slice 7's
 left-out list.
@@ -558,13 +562,25 @@ class LlamaDecoder:
         attn = torch.softmax(scores, dim=-1).to(q.dtype)
         return torch.matmul(attn, v.to(q.dtype))
 
+    def _embed(self, w, ids):
+        """Token ids (any shape) → their embedding rows."""
+        return w["emb"][ids.long()]
+
+    @staticmethod
+    def _reduce(t):
+        """The sum of a row-parallel product's partial results over the
+        tensor-parallel ranks: one rank holds it whole (the serving
+        engine's tensor-parallel decoder sums over its group)."""
+        return t
+
     def _layer(self, L, x, ctx_fn):
         """Residual wiring: x + attn(ln(x)), then + mlp(ln(x))."""
         eps = self.cfg.rms_eps
         x = x + ctx_fn(_rms(x, L["ln_in"], eps))
         h2 = _rms(x, L["ln_post"], eps)
         g = _mm(h2, L["gate"])
-        return x + _mm(g * torch.sigmoid(g) * _mm(h2, L["up"]), L["down"])
+        return x + self._reduce(_mm(g * torch.sigmoid(g) * _mm(h2, L["up"]),
+                                    L["down"]))
 
     def _qkv(self, L, h, cos, sin):
         """RoPE'd q, k and v of ``h`` (*lead, T, hidden) as (*lead, heads,
@@ -583,7 +599,7 @@ class LlamaDecoder:
     def _out(self, L, ctx):
         """Context (*lead, H, T, D) → o_proj of (*lead, T, H·D)."""
         ctx = ctx.transpose(-3, -2)
-        return _mm(ctx.reshape(*ctx.shape[:-2], -1), L["o"])
+        return self._reduce(_mm(ctx.reshape(*ctx.shape[:-2], -1), L["o"]))
 
     def _logits(self, w, x):
         return _mm(_rms(x, w["norm"], self.cfg.rms_eps), w["head"])
@@ -599,7 +615,7 @@ class LlamaDecoder:
         pos = pos.reshape(1).long()
         cos, sin = self._rope.get(self.max_len, dev)
         cos, sin = cos.index_select(0, pos), sin.index_select(0, pos)
-        x = w["emb"][ids_t.long()][:, None]                     # (B, 1, H)
+        x = self._embed(w, ids_t)[:, None]                     # (B, 1, H)
         mask = (torch.arange(self.max_len, device=dev) <= pos)[None]
         for L, (kc, vc) in zip(w["layers"], caches):
 
@@ -623,7 +639,7 @@ class LlamaDecoder:
         pos = pos.long()
         cos, sin = self._rope.get(self.max_len, ids_t.device)
         cos, sin = cos[pos][:, None, None], sin[pos][:, None, None]
-        x = w["emb"][ids_t.long()][:, None]                     # (S, 1, H)
+        x = self._embed(w, ids_t)[:, None]                     # (S, 1, H)
         mask = (torch.arange(self.max_len, device=x.device)[None]
                 <= pos[:, None])[:, None, None]                 # (S,1,1,T)
         rows = torch.arange(s, device=x.device)
@@ -657,7 +673,7 @@ class LlamaDecoder:
         pos = pos.long()
         cos, sin = self._rope.get(self.max_len, ids_t.device)
         cos, sin = cos[pos][:, None, None], sin[pos][:, None, None]
-        x = w["emb"][ids_t.long()][:, None]                     # (S, 1, H)
+        x = self._embed(w, ids_t)[:, None]                     # (S, 1, H)
         mask = (torch.arange(t, device=x.device)[None]
                 <= pos[:, None])[:, None, None]                 # (S,1,1,T)
         blk = tables.gather(1, (pos // bs)[:, None])[:, 0]      # (S,)
@@ -702,7 +718,7 @@ class LlamaDecoder:
         cos, sin = self._rope.get(self.max_len, dev)
         pwc = pw.clamp(max=self.max_len - 1)   # RoPE rows of real columns
         cos, sin = cos[pwc][:, None], sin[pwc][:, None]         # (S,1,K,·)
-        x = w["emb"][toks.long()]                               # (S, K, H)
+        x = self._embed(w, toks)                               # (S, K, H)
         mask = (torch.arange(t, device=dev)[None, None]
                 <= pw[:, :, None])[:, None]                     # (S,1,K,T)
         blk = tables.gather(1, (pw // bs).clamp(max=mb - 1))
@@ -731,7 +747,7 @@ class LlamaDecoder:
         b, lp = ids.shape
         cos, sin = self._rope.get(self.max_len, ids.device)
         cos, sin = cos[:lp], sin[:lp]
-        x = w["emb"][ids.long()]                                # (B, Lp, H)
+        x = self._embed(w, ids)                                # (B, Lp, H)
         causal = torch.ones((lp, lp), dtype=torch.bool,
                             device=x.device).tril()
         rows = []
@@ -785,7 +801,7 @@ class LlamaDecoder:
             max=self.max_len - 1)
         cos, sin = self._rope.get(self.max_len, dev)
         cos, sin = cos[pw][:, None], sin[pw][:, None]           # (B,1,Ls,·)
-        x = w["emb"][ids.long()]                                # (B, Ls, H)
+        x = self._embed(w, ids)                                # (B, Ls, H)
         mask_pre = (torch.arange(lpre, device=dev)[None, None, None]
                     < s0[:, None, None, None]).expand(b, 1, ls, lpre)
         mask_suf = torch.ones((ls, ls), dtype=torch.bool, device=dev) \
@@ -1034,11 +1050,6 @@ def llama_tiny(**overrides):
 
 mixtral_8x7b = _not_ported("mixtral_8x7b (MoE)")
 mixtral_tiny = _not_ported("mixtral_tiny (MoE)")
-_LATER11 = ("is not ported yet (ROADMAP.md, \"Left out of slice 11\", "
-            "Queue 1 item 5)")
-llama_pipeline_forward = _not_ported("llama_pipeline_forward", _LATER11)
-llama_pipeline_train_step = _not_ported("llama_pipeline_train_step",
-                                        _LATER11)
 
 
 def llama_param_pspecs(net, mesh, tp_axis="tp", ep_axis="ep"):
@@ -1106,3 +1117,206 @@ def _lm_head(net, h):
         return apply_op(lambda hr, wr: hr @ wr.t(), h, w,
                         name="tied_lm_head")
     return net.lm_head(h)
+
+
+# -- pipeline parallelism -------------------------------------------------------
+
+def _check_microbatches(batch, n_microbatches):
+    if batch % n_microbatches:
+        raise MXNetError(f"batch {batch} not divisible by {n_microbatches} "
+                         "microbatches")
+
+
+def _layer_template(layers):
+    """(layer-0 Block, its sorted parameter names, their NDArrays): the
+    handle-swap machinery's ingredients.  The stage function points each
+    NDArray at a layer's tensor and runs layer 0's own code."""
+    template = layers[0]
+    tparams = template._collect_params_with_prefix()
+    names = sorted(tparams)
+    shells = [tparams[n].data() for n in names]
+    return template, names, shells
+
+
+def _pipeline_machinery(net, n_stages):
+    """Per-(net, n_stages) pipeline plumbing, cached on the net so the
+    stage function keeps its identity from step to step: the template
+    layer, its parameter shells and the stage function (tensors in and
+    out; hybridized layers run inline).  Shared by the GPipe forward and
+    the 1F1B step."""
+    cache = getattr(net, "_pp_machinery", None)
+    if cache is not None and cache["n_stages"] == n_stages:
+        return cache
+    layers = list(net.model.layers)
+    if len(layers) % n_stages:
+        raise MXNetError(f"{len(layers)} decoder layers not divisible into "
+                         f"{n_stages} pipeline stages")
+    lps = len(layers) // n_stages
+    template, names, shells = _layer_template(layers)
+
+    def stage_fn(ptree, x_raw):
+        out = x_raw
+        with cuda_graph_mod.scope():
+            for i in range(lps):
+                for sh, name in zip(shells, names):
+                    sh._data = ptree[name][i]
+                out = template(NDArray(out))._data
+        return out
+
+    cache = {"n_stages": n_stages, "names": names, "shells": shells,
+             "template": template, "lps": lps, "stage_fn": stage_fn,
+             "loss_fn": None}
+    object.__setattr__(net, "_pp_machinery", cache)
+    return cache
+
+
+def _stacked_layer_params(net, names, n_stages, lps):
+    """{name: (S, L/S, *shape)} stacks of the per-layer parameters through
+    recorded ops, so gradients through a stack reach each layer's own
+    Parameter."""
+    from ..ops import tensor as tops
+
+    per_layer = [ly._collect_params_with_prefix() for ly in net.model.layers]
+    stacked = {}
+    for name in names:
+        flat = tops.stack(*[lp[name].data() for lp in per_layer], axis=0)
+        stacked[name] = flat.reshape((n_stages, lps) + tuple(flat.shape[1:]))
+    return stacked
+
+
+def llama_pipeline_forward(net, input_ids, n_microbatches, mesh=None,
+                           axis_name="pp"):
+    """Forward the same ``LlamaForCausalLM`` over a GPipe pipeline
+    (``parallel.pipeline_apply``; reference ``llama_pipeline_forward``).
+
+    The decoder stack is cut into ``mesh[axis_name]`` equal stages, each
+    applying its layers with layer 0's own code; the embedding, the final
+    norm and the LM head run outside the pipeline.  The per-layer stacks
+    are recorded ops, so ``backward()`` reaches every layer's own
+    ``Parameter.grad()`` and ``gluon.Trainer`` works unchanged.
+    ``input_ids`` (B, T) with ``B % n_microbatches == 0`` → logits (B, T,
+    vocab)."""
+    from .. import parallel
+
+    mesh, n_stages = parallel.pipeline.stage_count(mesh, axis_name)
+    batch = input_ids.shape[0]
+    _check_microbatches(batch, n_microbatches)
+    mach = _pipeline_machinery(net, n_stages)
+    h = net.model.embed_tokens(input_ids)
+    t_len, hidden = h.shape[1], h.shape[2]
+    mbs = h.reshape((n_microbatches, batch // n_microbatches, t_len,
+                     hidden))
+    stacked = _stacked_layer_params(net, mach["names"], n_stages,
+                                    mach["lps"])
+    saved = [sh._data for sh in mach["shells"]]
+    try:
+        out = parallel.pipeline_apply(mach["stage_fn"], stacked, mbs,
+                                      mesh=mesh, axis_name=axis_name)
+    finally:
+        for sh, raw in zip(mach["shells"], saved):
+            sh._data = raw
+    h_out = net.model.norm(out.reshape((batch, t_len, hidden)))
+    return _lm_head(net, h_out)
+
+
+class _FusedGradStep(autograd.Function):
+    """A fused train step (the loss and its precomputed gradients, e.g.
+    the 1F1B schedule's) as one node of the tape: the forward runs the
+    runner, the backward returns the stashed gradients times the incoming
+    cotangent (scaled in place: the runner's gradients are its own)."""
+
+    def __init__(self, runner):
+        super().__init__()
+        self._runner = runner
+        self._grads = None
+
+    def forward(self, *inputs):
+        loss, self._grads = self._runner(*inputs)
+        return loss
+
+    def backward(self, dloss):
+        grads, self._grads = self._grads, None
+        scale = dloss._data
+        out = []
+        for g in grads:
+            if g is not None:
+                g.mul_(scale.to(g.dtype))
+            out.append(None if g is None else NDArray(g))
+        return tuple(out)
+
+
+def _pipeline_loss_fn(eps):
+    """The 1F1B step's loss on the last stage (the reference's inline
+    ``loss_fn``): RMSNorm in f32 cast back to the activation dtype, the
+    head product, log-softmax in f32, the summed NLL."""
+    def loss_fn(out, lab, tail):
+        nw, hw = tail
+        xf = out.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        hn = (xf * torch.rsqrt(var + eps) * nw.float()).to(out.dtype)
+        ls = torch.log_softmax((hn @ hw.t()).float(), dim=-1)
+        return -ls.gather(-1, lab.long()[..., None]).sum()
+
+    return loss_fn
+
+
+def llama_pipeline_train_step(net, input_ids, labels, n_microbatches,
+                              mesh=None, axis_name="pp"):
+    """One 1F1B pipeline train step of a ``LlamaForCausalLM``
+    (``parallel.pipeline_train_1f1b``; reference
+    ``llama_pipeline_train_step``): each microbatch's backward right
+    behind its forward, with the final RMSNorm, the LM head and the token
+    cross entropy on the last stage and the embedding outside the
+    schedule.  Returns the MEAN token loss as a recorded NDArray:
+    ``loss.backward()`` deposits every gradient (the layers from the
+    schedule's stage gradients, the embedding through the input
+    cotangent, the norm and the head from the tail gradients; a tied
+    embedding gets both), so ``gluon.Trainer`` works unchanged.  On
+    several ranks the schedule's gradients are summed over ``pp``, so
+    every rank holds every layer's gradient."""
+    from .. import parallel
+
+    mesh, n_stages = parallel.pipeline.stage_count(mesh, axis_name)
+    batch = input_ids.shape[0]
+    _check_microbatches(batch, n_microbatches)
+    cfg = net.config
+    mach = _pipeline_machinery(net, n_stages)
+    names, shells, lps = mach["names"], mach["shells"], mach["lps"]
+    if mach["loss_fn"] is None:
+        mach["loss_fn"] = _pipeline_loss_fn(float(cfg.rms_eps))
+    h = net.model.embed_tokens(input_ids)
+    t_len, hidden = h.shape[1], h.shape[2]
+    mbs = h.reshape((n_microbatches, batch // n_microbatches, t_len,
+                     hidden))
+    lab_mbs = labels.reshape((n_microbatches, batch // n_microbatches,
+                              t_len))
+    per_layer = [ly._collect_params_with_prefix() for ly in net.model.layers]
+    layer_nds = [lp[name].data() for name in names for lp in per_layer]
+    norm_w = net.model.norm.weight.data()
+    head_w = net.model.embed_tokens.weight.data() if cfg.tie_embeddings \
+        else net.lm_head.weight.data()
+    n_layers = len(per_layer)
+
+    def runner(mbs_nd, lab_nd, *leaf_nds):
+        # stage s's tree: {name: its layers' own tensors}, no stacked copy
+        k = len(names) * n_layers
+        stages = [{name: [leaf_nds[a * n_layers + s * lps + i]._data
+                          for i in range(lps)]
+                   for a, name in enumerate(names)}
+                  for s in range(n_stages)]
+        saved = [sh._data for sh in shells]
+        try:
+            loss, grads, tgrads, dxs = parallel.pipeline.train_1f1b_stages(
+                mach["stage_fn"], mach["loss_fn"], stages, mbs_nd, lab_nd,
+                tail_params=tuple(leaf_nds[k:]), mesh=mesh,
+                axis_name=axis_name)
+        finally:
+            for sh, raw in zip(shells, saved):
+                sh._data = raw
+        layer_grads = [g for name in names for gs in grads
+                       for g in gs[name]]
+        return NDArray(loss), [dxs, None, *layer_grads, *tgrads]
+
+    loss_sum = _FusedGradStep(runner)(mbs, lab_mbs, *layer_nds, norm_w,
+                                      head_w)
+    return loss_sum / float(batch * t_len)

@@ -629,14 +629,27 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
               sparse_grad=False, matmul_lookup=False, **kwargs):
     """Reference ``Embedding``: rows of ``weight`` gathered by integer ids
     (clipped into range); ``matmul_lookup`` computes the same rows as
-    ``one_hot(ids) @ weight`` through ``mxu_matmul_nt``."""
-    def f(idx, w):
+    ``one_hot(ids) @ weight`` through ``mxu_matmul_nt``.  Over a mesh, a
+    replicated table is read on each rank's local ids (``sharded_call``:
+    its gradient is each rank's share, a partial sum over the axes that
+    shard the ids), where ``DTensor``'s own propagation of the lookup's
+    backward (``index_put`` with sharded ids) fails on torch 2.11."""
+    from ..parallel.local import is_dtensor, sharded_call, spec_of
+
+    def lookup(idx, w):
         ii = idx.long().clamp(0, w.shape[0] - 1)
         if matmul_lookup:
             oh = (ii.unsqueeze(-1) == torch.arange(
                 w.shape[0], device=w.device)).to(w.dtype)
             return _MxuMatmulNT.apply(oh, w)
         return w[ii]
+
+    def f(idx, w):
+        if is_dtensor(w) and all(p.is_replicate() for p in w.placements):
+            spec = spec_of(idx)
+            return sharded_call(lookup, (idx, w), (spec, (None,) * w.ndim),
+                                spec + (None,), what="embedding")
+        return lookup(idx, w)
 
     return apply_op(f, data, weight, name="embedding")
 

@@ -31,8 +31,9 @@ One card holds one rank: NCCL does not put two ranks of a communicator
 on one device.  Multi-rank behaviour is held on the CPU with gloo
 groups; a one-card machine runs the NCCL route at world size 1.
 
-Not ported yet (ROADMAP.md, "Left out of slice 11"): the pipeline
-schedules (``parallel.pipeline``), which raise.
+The pipeline schedules (``parallel.pipeline``: GPipe and 1F1B over the
+``pp`` axis, point to point between ranks or every stage in one
+process) are ported in slice 12.
 """
 from __future__ import annotations
 
@@ -393,7 +394,7 @@ def reduce_partial(t):
                               shape=t.shape, stride=t.stride())
 
 
-def all_sum(arrays):
+def all_sum(arrays, group=None):
     """Cross-replica sum of gradients (reference ``parallel.all_sum``).
 
     A DTensor that is ``Partial`` becomes ``Replicate`` (one in-place
@@ -401,7 +402,8 @@ def all_sum(arrays):
     passes.  Plain tensors are host-local (each rank its own batch):
     they are all-summed over the group, one all-reduce per dtype over a
     flattened buffer, as the reference's multi-process branch does.  One
-    process: the identity.  Every rank must call it (SPMD)."""
+    process: the identity.  Every rank must call it (SPMD).  ``group``:
+    the group plain tensors are summed over (default: every rank)."""
     if isinstance(arrays, NDArray):
         arrays = [arrays]
     out = list(arrays)
@@ -420,7 +422,7 @@ def all_sum(arrays):
         by_dtype.setdefault(raws[i].dtype, []).append(i)
     for dtype, idxs in by_dtype.items():
         flat = torch.cat([raws[i].reshape(-1) for i in idxs])
-        torch.distributed.all_reduce(flat)
+        torch.distributed.all_reduce(flat, group=group)
         off = 0
         for i in idxs:
             n = raws[i].numel()
@@ -440,6 +442,22 @@ def process_sum_hostvec(vec):
     t = torch.from_numpy(np.ascontiguousarray(vec, dtype=np.float64))
     torch.distributed.all_reduce(t, group=_HOST_GROUP)
     return t.numpy().astype(vec.dtype, copy=False).reshape(vec.shape)
+
+
+def broadcast_object(obj, src=0):
+    """Rank ``src``'s picklable ``obj`` on every rank (the identity in one
+    process)."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(box, src=src, group=_HOST_GROUP)
+    return box[0]
+
+
+def barrier():
+    """Wait for every rank (host side; a no-op in one process)."""
+    if world_size() > 1:
+        torch.distributed.barrier(group=_HOST_GROUP)
 
 
 def process_gather_hostvec(vec):
@@ -494,11 +512,28 @@ class TPUSyncKVStore:
                     NDArray(loc), self._residuals.get(p.name))
                 with torch.no_grad():
                     loc.copy_(q._data)
-        summed = all_sum([g for _, g in grads])
+        sum_plain, group = self._plain_group()
+        if not sum_plain:
+            grads = [(p, g) for p, g in grads if is_dtensor(g._data)]
+        summed = all_sum([g for _, g in grads], group=group)
         for (_, g), s in zip(grads, summed):
             if s._data is not g._data:
                 g._data = s._data
         return params
+
+    def _plain_group(self):
+        """(whether host-local (plain) gradients are summed, the group
+        they are summed over): every rank, except under a mesh with a
+        ``pp`` axis, whose stages already hold the same (gathered)
+        gradients: there only the ``dp`` ranks are summed, and nothing
+        without a ``dp`` axis."""
+        mesh = self._mesh or current_mesh()
+        axes = mesh_axes(mesh) if hasattr(mesh, "get_group") else {}
+        if axes.get("pp", 1) <= 1:
+            return True, None
+        if axes.get("dp", 1) <= 1:
+            return False, None
+        return True, mesh.get_group("dp")
 
     @property
     def rank(self):

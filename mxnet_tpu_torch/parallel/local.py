@@ -44,6 +44,24 @@ def local(t):
     return t.to_local() if is_dtensor(t) else t
 
 
+def copy_global_into(dst, src):
+    """Copy the global array ``src`` (a plain tensor, e.g. from the host)
+    into ``dst`` in place: a DTensor takes each rank's own piece of it
+    (no communication), a plain tensor the whole."""
+    import torch
+
+    with torch.no_grad():
+        if is_dtensor(dst):
+            from torch.distributed.tensor import distribute_tensor
+
+            piece = distribute_tensor(
+                src.to(dst.device_mesh.device_type), dst.device_mesh,
+                dst.placements, src_data_rank=None).to_local()
+            dst.to_local().copy_(piece)
+        else:
+            dst.copy_(src)
+
+
 def as_global(t, mesh):
     """A plain tensor as the replicated global array on ``mesh`` (a
     DTensor as it is)."""
@@ -65,6 +83,18 @@ def replicate_plain(tensors):
     if mesh is None:
         return list(tensors)
     return [as_global(t, mesh) for t in tensors]
+
+
+def spec_of(t):
+    """The partition spec of a DTensor's placements (per dim: the axis
+    name that shards it, a tuple of names, or None)."""
+    names = t.device_mesh.mesh_dim_names
+    spec = [[] for _ in range(t.ndim)]
+    for ax, p in zip(names, t.placements):
+        if p.is_shard():
+            spec[p.dim % t.ndim].append(ax)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in spec)
 
 
 def resolve_spec(spec, shape, mesh, strict=False, what="operand"):

@@ -25,10 +25,10 @@ Quick start::
 
 The server runs on the device of the net's weights (``mx.gpu(0)`` by
 default); a net initialized with ``ctx=mx.cpu()`` serves on the CPU.
-Not ported yet (ROADMAP.md, Queue 1, "Left out of slice 6"):
-``InferenceServer`` and ``BatchScheduler`` (stateless models), meshes
-and dp replicas, and the observability of ``metrics.py`` and the
-telemetry package.
+``GenerativeServer(mesh=, partition_rules=)`` serves dp replicas and
+tensor-parallel replicas (``server.py``).  Not ported yet (ROADMAP.md,
+Queue 1, "Left out of slice 6"): the observability of ``metrics.py``
+and the telemetry package.
 """
 from .protocol import (Request, ServerClosedError,     # noqa: F401
                        ServerOverloadedError)

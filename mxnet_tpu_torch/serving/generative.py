@@ -49,13 +49,38 @@ slots mode), is what ``compiled_signatures`` reports for the step; the
 prefill, scatter, gather and verify programs stay eager (ROADMAP "Left
 out of slice 7").
 
-Not ported (ROADMAP, "Left out of slice 6"): ``mesh=`` and
-``partition_rules=`` (tensor-parallel placement), and the telemetry,
-numerics taps and retrace hooks.  ``compiled_signatures`` keeps the
+``mesh=`` places the engine (``ReplicaMesh``: where one replica runs).
+The reference is one controller over the whole mesh; torch runs one
+process a tensor-parallel rank, so a replica with tp > 1 is SPMD:
+
+* every rank of the replica holds its shards of the weights and the KV
+  pool, placed by ``partition_rules`` (default ``SERVING_RULES``: q/k/v/
+  gate/up split by output rows, o/down by input columns, the embedding
+  and head by vocabulary rows, the pool's KV heads over ``tp``; int8
+  leaves keep the reference's layout, the q8 rows sharded like the
+  weight and the scales following the output dim), and runs the
+  decoder on them (``_TPDecoder``: o and down summed over the group, a
+  vocab-sharded embedding gathered by mask and sum, a vocab-sharded
+  head's logits gathered whole);
+* the replica's leader rank (its lowest) runs the lanes; each device
+  program call first sends its host inputs (token ids, lengths, block
+  ids, slot state) to the peers over a gloo channel, and each peer runs
+  the same call on its shards (``follow``), so every rank issues the
+  collectives in one order (all such calls take the channel's lock);
+* the graphed decode tick holds the group's collectives (the group is
+  warmed by an eager collective before the capture).
+
+A replica with tp = 1 runs in one process on its own device.  Not
+ported (ROADMAP, "Left out of slice 6"): the telemetry, numerics taps
+and retrace hooks; speculative decoding and the radix cache on a replica
+with tp > 1 are left out of slice 12.  ``compiled_signatures`` keeps the
 reference's signature keys: here the set of program shapes that ran.
 """
 from __future__ import annotations
 
+import copy
+import datetime
+import functools
 import threading
 import time
 from collections import deque
@@ -73,7 +98,6 @@ from .scheduler import _materialize
 
 __all__ = ["LlamaServingEngine", "GenerativeScheduler"]
 
-_LATER = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 6\")"
 
 #: matmul weights that the int8 option quantizes (per-output-channel);
 #: embeddings and the RMSNorm scales stay in the load dtype
@@ -112,6 +136,254 @@ def _dequantize_tree(w):
                 head=dq(w["head"]))
 
 
+def _named_weight_items(w):
+    """(rule-matchable name, path) of every leaf of the decoder's weight
+    tree: ``layers.0.q_weight`` meets the column-parallel rule as
+    ``...q_proj.weight`` does in training (reference
+    ``_named_weight_items``)."""
+    items = []
+    for i, L in enumerate(w["layers"]):
+        for key in L:
+            items.append((f"layers.{i}.{key}_weight", ("layers", i, key)))
+    items.append(("embed_weight", ("emb",)))
+    items.append(("norm_weight", ("norm",)))
+    items.append(("lm_head_weight", ("head",)))
+    return items
+
+
+def _leaf(tree, path):
+    return tree["layers"][path[1]][path[2]] if len(path) == 3 \
+        else tree[path[0]]
+
+
+def _set_leaf(tree, path, value):
+    if len(path) == 3:
+        tree["layers"][path[1]][path[2]] = value
+    else:
+        tree[path[0]] = value
+
+
+#: the Megatron layout a tensor-parallel replica's decoder runs
+_TP_LAYOUT = {"q": ("tp", None), "k": ("tp", None), "v": ("tp", None),
+              "gate": ("tp", None), "up": ("tp", None),
+              "o": (None, "tp"), "down": (None, "tp"),
+              "ln_in": (), "ln_post": ()}
+
+
+class ReplicaMesh:
+    """Where one serving replica runs: ``device`` (a card of this process,
+    or the CPU) and, for tp > 1, its tensor-parallel ranks (``ranks``,
+    global; the leader is the first), this rank's place ``tp_rank``, the
+    group of its collectives (``group``) and the gloo group of its
+    command channel (``channel_group``).  ``local``: this process holds a
+    rank of it."""
+
+    def __init__(self, device=None, tp=1, ranks=None, tp_rank=0, group=None,
+                 channel_group=None, local=True):
+        self.device = device
+        self.tp = int(tp)
+        self.ranks = tuple(ranks) if ranks is not None else None
+        self.tp_rank = int(tp_rank)
+        self.group = group
+        self.channel_group = channel_group
+        self.local = bool(local)
+
+    @property
+    def leader(self):
+        return self.ranks[0] if self.ranks else 0
+
+    @property
+    def is_leader(self):
+        from .. import parallel
+
+        return self.ranks is None or parallel.rank() == self.leader
+
+    def __repr__(self):
+        return (f"ReplicaMesh(device={self.device}, tp={self.tp}, "
+                f"ranks={self.ranks}, local={self.local})")
+
+
+#: how long a peer's channel waits for its leader's next call (a server
+#: may idle that long between requests)
+CHANNEL_TIMEOUT = datetime.timedelta(days=1)
+
+
+def _split_mesh(mesh, dp_axis="dp", device=None):
+    """One ``ReplicaMesh`` a dp replica (reference ``server._split_mesh``):
+    no mesh → ``[None]`` (one replica on the net's device); no dp axis →
+    the whole mesh is one replica; a dict mesh (or a mesh of one process)
+    → in-process replicas with tp = 1, dp slice i on card i of this
+    process (or the CPU, with ``device`` a CPU device); a ``DeviceMesh``
+    over ranks → each dp slice's tp ranks, with the groups made
+    collectively (every rank calls this, in one order)."""
+    from .. import parallel
+
+    if mesh is None:
+        return [None]
+    if not isinstance(mesh, dict) and not hasattr(mesh, "mesh_dim_names"):
+        raise MXNetError("a serving mesh is a dict of axis sizes or a "
+                         f"parallel.make_mesh, got {type(mesh).__name__}")
+    axes = parallel.mesh_axes(mesh)
+    other = {k: v for k, v in axes.items() if k not in (dp_axis, "tp")}
+    if any(v > 1 for v in other.values()):
+        raise MXNetError(f"a serving mesh has dp and tp axes only: {axes}")
+    dp, tp = int(axes.get(dp_axis, 1)), int(axes.get("tp", 1))
+    if not hasattr(mesh, "get_group") or parallel.world_size() == 1:
+        if tp > 1:
+            raise MXNetError(
+                f"tensor parallelism inside a replica (tp={tp}) runs one "
+                "process a tp rank: start dp·tp ranks (python -m "
+                "mxnet_tpu_torch.launch) and pass a parallel.make_mesh")
+        device = torch.device(device) if device is not None else None
+        if device is not None and device.type == "cuda":
+            if dp > torch.cuda.device_count():
+                raise MXNetError(f"{dp} dp replicas need {dp} cards; this "
+                                 f"process sees {torch.cuda.device_count()}")
+            return [ReplicaMesh(torch.device("cuda", i)) for i in range(dp)]
+        return [ReplicaMesh(device) for _ in range(dp)]
+    names = list(mesh.mesh_dim_names)
+    ranks = mesh.mesh
+    if dp_axis in names:
+        ranks = ranks.movedim(names.index(dp_axis), 0)
+    else:
+        ranks = ranks.unsqueeze(0)
+    ranks = ranks.reshape(dp, -1)
+    me = parallel.rank()
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+    out = []
+    for i in range(dp):
+        members = [int(r) for r in ranks[i]]
+        channel = None
+        if tp > 1:
+            # every rank makes every slice's channel group, in one order
+            channel = torch.distributed.new_group(
+                members, backend="gloo", timeout=CHANNEL_TIMEOUT)
+        local = me in members
+        out.append(ReplicaMesh(
+            dev, tp, members, members.index(me) if local else 0,
+            mesh.get_group("tp") if local and "tp" in names and tp > 1
+            else None, channel, local))
+    return out
+
+
+def _as_replica_mesh(mesh, device):
+    """The engine's ``mesh=``: None, a ``ReplicaMesh``, a dict or a
+    ``DeviceMesh`` (this rank's dp slice of it)."""
+    if mesh is None or isinstance(mesh, ReplicaMesh):
+        return mesh
+    reps = [r for r in _split_mesh(mesh, device=device) if r.local]
+    if len(reps) != 1:
+        raise MXNetError(f"one engine serves one replica; mesh {mesh} "
+                         f"holds {len(reps)} here (split it with dp)")
+    return reps[0]
+
+
+class _Channel:
+    """A tensor-parallel replica's command channel: the leader broadcasts
+    each device program call's name and host arguments to its peers."""
+
+    def __init__(self, rm):
+        self.group = rm.channel_group
+        self.leader = rm.leader
+        self.lock = threading.RLock()
+
+    def send(self, msg):
+        torch.distributed.broadcast_object_list([msg], src=self.leader,
+                                                group=self.group)
+
+    def recv(self):
+        box = [None]
+        torch.distributed.broadcast_object_list(box, src=self.leader,
+                                                group=self.group)
+        return box[0]
+
+
+def _mirrored(fn):
+    """A device program of the engine.  Over a tensor-parallel replica
+    the leader sends the call (name and host arguments) to its peers
+    before running it, and each peer runs the same program on its shards
+    (``follow``); the channel's lock makes every rank issue the
+    collectives in one order."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        ch = self._channel
+        if ch is None:
+            return fn(self, *args, **kwargs)
+        with ch.lock:
+            ch.send((fn.__name__, args, kwargs))
+            return fn(self, *args, **kwargs)
+
+    return call
+
+
+class _Held:
+    """A handle to device state a program left on every rank of a
+    tensor-parallel replica (the prefilled rows), passed to the program
+    that consumes it in their place."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key):
+        self.key = key
+
+
+class _TPDecoder(LlamaDecoder):
+    """The decoder on one tensor-parallel rank's shards (the Megatron
+    layout): its heads and MLP columns are this rank's, the row-parallel
+    products (o, down) are summed over the group, a vocab-sharded
+    embedding gathers its rows by mask and sum, and a vocab-sharded
+    head's logits are gathered whole."""
+
+    def __init__(self, net, max_len, rm):
+        super().__init__(net, max_len)
+        cfg = copy.copy(net.config)
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("num_kv_heads", cfg.num_kv_heads),
+                        ("intermediate_size", cfg.intermediate_size)):
+            if n % rm.tp:
+                raise MXNetError(f"tensor-parallel serving: {what}={n} is "
+                                 f"not divisible by tp={rm.tp}")
+        cfg.num_heads //= rm.tp
+        cfg.num_kv_heads //= rm.tp
+        self.cfg = cfg
+        self._rm = rm
+        self.emb_rows = None      # (first row, rows) of a sharded embedding
+        self.head_sharded = False
+
+    def _reduce(self, t):
+        torch.distributed.all_reduce(t, group=self._rm.group)
+        return t
+
+    def _embed(self, w, ids):
+        if self.emb_rows is None:
+            return super()._embed(w, ids)
+        lo, n = self.emb_rows
+        ids = ids.long() - lo
+        hit = (ids >= 0) & (ids < n)
+        x = w["emb"][ids.clamp(0, n - 1)] * hit[..., None].to(
+            w["emb"].dtype)
+        return self._reduce(x)
+
+    def _logits(self, w, x):
+        part = super()._logits(w, x)
+        if not self.head_sharded:
+            return part
+        rm = self._rm
+        flat = part.reshape(-1, part.shape[-1]).contiguous()
+        if torch.distributed.get_backend(rm.group) == "nccl":
+            out = torch.empty((rm.tp,) + tuple(flat.shape), dtype=flat.dtype,
+                              device=flat.device)
+            torch.distributed.all_gather_into_tensor(out, flat,
+                                                     group=rm.group)
+        else:
+            parts = [torch.empty_like(flat) for _ in range(rm.tp)]
+            torch.distributed.all_gather(parts, flat, group=rm.group)
+            out = torch.stack(parts)
+        return out.permute(1, 0, 2).reshape(*part.shape[:-1],
+                                            rm.tp * part.shape[-1])
+
+
 class LlamaServingEngine:
     """Device-side half of continuous batching for a LlamaForCausalLM."""
 
@@ -123,10 +395,6 @@ class LlamaServingEngine:
         if kv_mode not in ("paged", "slots"):
             raise MXNetError(f"unknown kv_mode {kv_mode!r}; "
                              "expected 'paged' or 'slots'")
-        if mesh is not None or partition_rules is not None:
-            raise MXNetError("serving on a mesh (mesh=, partition_rules=) "
-                             "is not ported yet (ROADMAP.md, \"Left out of "
-                             "slice 6\", now \"Left out of slice 11\")")
         self.spec_k = int(spec_k)
         if self.spec_k and kv_mode != "paged":
             raise MXNetError("speculative verify (spec_k > 0) requires "
@@ -137,11 +405,25 @@ class LlamaServingEngine:
         self.kv_mode = kv_mode
         self.replica_id = int(replica_id)
         self.dev_lock = threading.RLock()
-        self._dec = LlamaDecoder(net, self.max_len)
+        self.partition_rules = partition_rules
+        rm = self.mesh = _as_replica_mesh(
+            mesh, net.model.embed_tokens.weight.data()._data.device)
+        tp = rm is not None and rm.tp > 1
+        if tp and self.spec_k:
+            raise MXNetError(
+                "speculative decoding on a tensor-parallel replica is not "
+                "ported yet (ROADMAP.md, \"Left out of slice 12\")")
+        self._dec = _TPDecoder(net, self.max_len, rm) if tp \
+            else LlamaDecoder(net, self.max_len)
         w = self._dec._weights()
-        self._w = _quantize_tree(w) if self.int8 else w
-        self.device = w["emb"].device
-        cfg = net.config
+        w = _quantize_tree(w) if self.int8 else w
+        self._w = w if rm is None else self._place(w, rm)
+        self.device = self._w["emb"].device
+        self._channel = _Channel(rm) if tp else None
+        self._held = {}
+        self._held_seq = 0
+        self._follower = None
+        cfg = self._dec.cfg
         dt = w["emb"].dtype
         if kv_mode == "paged":
             self.block_size = int(block_size)
@@ -181,8 +463,134 @@ class LlamaServingEngine:
         self._step_graph = None
         if self.device.type == "cuda" and not self.spec_k and \
                 not engine.is_naive():
-            with self.dev_lock:
+            with self.dev_lock, torch.cuda.device(self.device):
                 self._capture_step()
+
+    # -- placement ------------------------------------------------------------
+    def _place(self, w, rm):
+        """The weight tree on ``rm``: each leaf on the replica's device,
+        and over tp > 1 cut to this rank's shard by ``partition_rules``
+        (default ``SERVING_RULES``; an int8 leaf's q8 rows like the weight,
+        its scales along the output dim), in the layout ``_TPDecoder``
+        runs (reference ``_place_on_mesh_locked``)."""
+        from ..parallel.partition import as_rules
+
+        rules = as_rules(self.partition_rules
+                         if self.partition_rules is not None
+                         else "llama_serving")
+        cfg = self._dec.cfg
+        items = _named_weight_items(w)
+        shapes = {}
+        for name, path in items:
+            leaf = _leaf(w, path)
+            shapes[name] = tuple((leaf["q8"] if isinstance(leaf, dict)
+                                  else leaf).shape)
+        for i in range(len(w["layers"])):
+            shapes[f"layers.{i}.kv_pool"] = (
+                1, cfg.num_kv_heads * rm.tp, 1, cfg.head_dim)
+        specs = rules.specs(shapes, {"tp": rm.tp})
+        if rm.tp > 1:
+            self._check_layout(specs, len(w["layers"]), rm.tp)
+
+        def cut(t, spec):
+            for d, ax in enumerate(spec or ()):
+                if ax == "tp":
+                    t = t.chunk(rm.tp, d)[rm.tp_rank]
+            return t.to(rm.device).contiguous()
+
+        out = {"layers": [dict(L) for L in w["layers"]], "emb": w["emb"],
+               "norm": w["norm"], "head": w["head"]}
+        done = {}
+        for name, path in items:
+            leaf, spec = _leaf(w, path), specs.get(name, ())
+            if id(leaf) not in done:  # a tied head is the embedding
+                if isinstance(leaf, dict):
+                    done[id(leaf)] = {
+                        "q8": cut(leaf["q8"], spec),
+                        "scale": cut(leaf["scale"],
+                                     ((spec[0] if spec else None), None))}
+                else:
+                    done[id(leaf)] = cut(leaf, spec)
+            _set_leaf(out, path, done[id(leaf)])
+        if rm.tp > 1:
+            emb = specs.get("embed_weight", ())
+            if emb and emb[0] == "tp":
+                n = out["emb"].shape[0]
+                self._dec.emb_rows = (rm.tp_rank * n, n)
+            head = specs.get("lm_head_weight", ())
+            self._dec.head_sharded = bool(head and head[0] == "tp")
+        return out
+
+    @staticmethod
+    def _check_layout(specs, n_layers, tp):
+        """A tensor-parallel replica runs the Megatron layout: refuse rules
+        that resolve to another."""
+        want = {f"layers.{i}.{k}_weight": v for i in range(n_layers)
+                for k, v in _TP_LAYOUT.items()}
+        want.update({f"layers.{i}.kv_pool": (None, "tp", None, None)
+                     for i in range(n_layers)})
+        want["norm_weight"] = ()
+        bad = [(n, specs.get(n, ())) for n, v in want.items()
+               if tuple(specs.get(n, ())) != v]
+        for n in ("embed_weight", "lm_head_weight"):
+            if tuple(specs.get(n, ())) not in ((), ("tp", None)):
+                bad.append((n, specs.get(n)))
+        if bad:
+            raise MXNetError(
+                f"tensor-parallel serving runs the Megatron layout of "
+                f"SERVING_RULES (heads, KV heads and the MLP width divisible "
+                f"by tp={tp}); these resolved otherwise: {bad[:4]}")
+
+    # -- tensor-parallel peers ------------------------------------------------
+    def follow_in_background(self):
+        """A peer's ``follow`` on a thread of its own (between a server's
+        start and stop); ``join_follower`` waits for its release."""
+        self._follower = threading.Thread(
+            target=self.follow, name=f"mxt-follow-{self.replica_id}",
+            daemon=True)
+        self._follower.start()
+
+    def join_follower(self):
+        if self._follower is not None:
+            self._follower.join()
+            self._follower = None
+
+    def follow(self):
+        """A tensor-parallel peer's loop: run each program its leader
+        sends, on this rank's shards, until the leader releases it."""
+        ch = self._channel
+        while True:
+            name, args, kwargs = ch.recv()
+            if name is None:
+                return
+            getattr(type(self), name).__wrapped__(self, *args, **kwargs)
+
+    def release(self):
+        """The leader's last word to its peers: their ``follow`` ends."""
+        if self._channel is not None and self.mesh.is_leader:
+            with self._channel.lock:
+                self._channel.send((None, (), {}))
+
+    def _hold(self, value):
+        """Keep device state for a later program (on every rank alike) and
+        return its handle; without peers, the state itself."""
+        if self._channel is None:
+            return value
+        self._held_seq += 1
+        self._held[self._held_seq] = value
+        return _Held(self._held_seq)
+
+    def _serial(self):
+        """The channel's lock over a tensor-parallel replica (no lock
+        otherwise)."""
+        import contextlib
+
+        return self._channel.lock if self._channel is not None \
+            else contextlib.nullcontext()
+
+    def _take(self, value):
+        return self._held.pop(value.key) if isinstance(value, _Held) \
+            else value
 
     def _step_program(self, state):
         """The decode step over all slots from one int64 (S, 2 [+ width])
@@ -212,6 +620,8 @@ class LlamaServingEngine:
         self._state = torch.from_numpy(host).to(self.device)
         # each tick's state goes through pinned memory without a host wait
         self._pinned = torch.from_numpy(host).pin_memory()
+        if self.mesh is not None and self.mesh.group is not None:
+            cuda_graph.warm_groups(groups=[self.mesh.group])
         cuda_graph.warmup(lambda: self._step_program(self._state))
         self._step_graph = cuda_graph.capture(
             lambda: self._step_program(self._state), mode="thread_local")
@@ -240,6 +650,7 @@ class LlamaServingEngine:
             return int(sum(k.nbytes + v.nbytes for k, v in self._caches))
 
     # -- transitions (slots mode) ---------------------------------------------
+    @_mirrored
     @torch.inference_mode()
     def admit(self, prompts_pad, t0s, slots):
         """Prefill ``prompts_pad`` (kb, lp) with true lengths ``t0s``
@@ -273,19 +684,22 @@ class LlamaServingEngine:
         return first
 
     # -- transitions (paged mode: disaggregated lanes) ------------------------
+    @_mirrored
     @torch.inference_mode()
     def prefill_rows(self, prompts_pad, t0s):
         """Prefill lane, phase 1: the prompt forward, WITHOUT the device
         lock.  Returns (first-token device tensor, per-layer raw K/V
-        rows) for :meth:`commit_rows`."""
+        rows) for :meth:`commit_rows` (over a tensor-parallel replica a
+        handle to the rows each rank keeps)."""
         if self.kv_mode != "paged":
             raise MXNetError("prefill_rows() requires kv_mode='paged'")
         kb, lp = prompts_pad.shape
         self._note(("prefill", kb, lp))
         rows, logits = self._dec._prefill_rows_impl(
             self._w, self._dev(prompts_pad), self._dev(t0s))
-        return logits.argmax(dim=-1), rows
+        return logits.argmax(dim=-1), self._hold(rows)
 
+    @_mirrored
     @torch.inference_mode()
     def commit_rows(self, rows, slots, block_lists, t0s, first,
                     skip_blocks=None):
@@ -301,6 +715,7 @@ class LlamaServingEngine:
         novel suffix, the scatter targets the block list past the shared
         prefix, and ``t0s`` stays the FULL prompt length (the decode
         cursor).  Shared blocks are never written."""
+        rows = self._take(rows)
         kb = len(slots)
         bs = self.block_size
         lp = rows[0][0].shape[2]
@@ -381,16 +796,10 @@ class LlamaServingEngine:
         (slots mode) or the trash block (paged).  The device lock covers
         dispatch and mirror updates, NOT the host materialization wait."""
         self._note(self._step_key)
-        with self.dev_lock:
-            if self._step_graph is None:
-                toks = self._step_program(torch.from_numpy(
-                    self._host_state()).to(self.device))
-            else:
-                # the previous tick's copy has run: its tokens were read
-                self._pinned.numpy()[:] = self._host_state()
-                self._state.copy_(self._pinned, non_blocking=True)
-                self._step_graph.replay()
-                toks = self._step_graph.outputs.clone()
+        # the channel's lock before the device lock, as the other
+        # programs take them
+        with self._serial(), self.dev_lock:
+            toks = self._step_state(self._host_state())
             self.steps += 1
         out = _materialize([toks])[0]
         with self.dev_lock:
@@ -398,6 +807,21 @@ class LlamaServingEngine:
                 self._last[s] = out[s]
                 self._pos[s] += 1
         return out
+
+    @_mirrored
+    @torch.inference_mode()
+    def _step_state(self, state):
+        """The decode program on the slot state ``state`` (``_host_state``'s
+        array) → the next tokens on the device: the graph's replay, or the
+        eager step."""
+        if self._step_graph is None:
+            return self._step_program(torch.from_numpy(state).to(
+                self.device))
+        # the previous tick's copy has run: its tokens were read
+        self._pinned.numpy()[:] = state
+        self._state.copy_(self._pinned, non_blocking=True)
+        self._step_graph.replay()
+        return self._step_graph.outputs.clone()
 
     @torch.inference_mode()
     def verify(self, drafts):

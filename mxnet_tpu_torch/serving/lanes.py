@@ -17,8 +17,10 @@ connected by an explicit KV handoff:
   speculative window).
 * :class:`Replica` — one engine + manager + lane pair, fed by a bounded
   queue; :class:`ReplicaDispatcher` routes the server's front queue to
-  it.  The reference's dp replicas over a mesh are not ported (ROADMAP,
-  "Left out of slice 6"): the port runs one replica on one card.
+  the least loaded replica.  A replica runs where its ``ReplicaMesh``
+  says (``generative.py``): on a card (or the CPU) of this process, or,
+  with tp > 1, over its tensor-parallel ranks, where the leader runs the
+  lanes and each peer only ``follow``s its leader's programs.
 
 Both lanes share one engine and one CUDA stream; every device→host wait
 is ``scheduler._materialize`` (first tokens at the handoff, token vectors
@@ -36,6 +38,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..base import MXNetError
 from .bucketing import pad_batch
 from .kv_cache import PagedKVCacheManager
 from .protocol import ServerClosedError
@@ -94,6 +97,9 @@ class _Lane:
         # lane-machinery bugs so the thread never dies silently.  A new
         # thread starts with grad mode on: the lane runs without autograd
         try:
+            dev = self.r.engine.device
+            if dev.type == "cuda":  # the replica's card, for its streams
+                torch.cuda.set_device(dev)
             with torch.inference_mode():
                 self._run()
         except Exception as exc:
@@ -443,7 +449,8 @@ class Replica:
     """One model replica: engine + paged-KV manager + lane pair, fed by a
     bounded internal queue."""
 
-    def __init__(self, net, policy, index=0, num_slots=4, int8=False,
+    def __init__(self, net, policy, index=0, mesh=None,
+                 partition_rules=None, num_slots=4, int8=False,
                  block_size=16, num_blocks=None, queue_capacity=64,
                  max_prefill_tokens=None, draft_net=None, spec_k=0,
                  radix_cache=False, prefix_cache_tokens=None,
@@ -456,8 +463,16 @@ class Replica:
         self.engine = LlamaServingEngine(
             net, max_len=policy.max_length, num_slots=num_slots,
             int8=int8, kv_mode="paged", block_size=block_size,
-            num_blocks=num_blocks, replica_id=self.index,
+            num_blocks=num_blocks, mesh=mesh,
+            partition_rules=partition_rules, replica_id=self.index,
             spec_k=self.spec_k)
+        rm = self.engine.mesh
+        #: a tensor-parallel peer: it runs its leader's programs only
+        self.follower = rm is not None and not rm.is_leader
+        if radix_cache and rm is not None and rm.tp > 1:
+            raise MXNetError(
+                "the radix prefix cache on a tensor-parallel replica is not "
+                "ported yet (ROADMAP.md, \"Left out of slice 12\")")
         self.draft = None
         if self.spec_k > 0:
             # the draft runs the slot-ledger engine: fixed per-slot cache
@@ -466,6 +481,7 @@ class Replica:
             self.draft = LlamaServingEngine(
                 draft_net, max_len=policy.max_length,
                 num_slots=num_slots, int8=int8, kv_mode="slots",
+                mesh=rm, partition_rules=partition_rules,
                 replica_id=self.index)
         self.mgr = PagedKVCacheManager(
             num_slots, policy.max_length,
@@ -514,13 +530,21 @@ class Replica:
 
     # -- lifecycle ------------------------------------------------------------
     def start(self):
+        if self.follower:
+            self.engine.follow_in_background()
+            return
         self.prefill.start()
         self.decode.start()
 
     def stop(self, drain=True):
         """Drain order matters: prefill first (with decode still live,
         so draining admissions can wait for blocks decode will free),
-        then decode finishes the in-flight slot set."""
+        then decode finishes the in-flight slot set; then the leader
+        releases its tensor-parallel peers (a peer's stop waits for
+        that)."""
+        if self.follower:
+            self.engine.join_follower()
+            return
         self.queue.close()
         self.prefill.request_stop(drain)
         try:
@@ -528,6 +552,7 @@ class Replica:
         finally:
             self.decode.request_stop()
             self.decode.join()
+            self.engine.release()
         for req in self.queue.take_group(lambda r: 0, 1 << 30):
             req.future.set_exception(
                 ServerClosedError("server stopped before execution"))

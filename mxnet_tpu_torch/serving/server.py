@@ -18,12 +18,21 @@ weight-only per-channel int8 on a ``GenerativeServer``.
 Synchronous convenience: ``server.infer(...)`` and
 ``server.generate(...)`` submit and wait.
 
-Not ported, each raising ``MXNetError``: ``mesh=``/``partition_rules=``
-and dp replicas, and ``ServerConfig(http_port=, slo=)`` (the metrics
-endpoint and SLO accounting; ROADMAP.md, Queue 1, "Left out of slice
-6"); a ``Predictor`` model, ``int8=True`` on an ``InferenceServer``, and
-``ServerConfig(summary_every=, calib_data=)`` (ROADMAP.md, Queue 1,
-"Left out of slice 8").
+``GenerativeServer(mesh=, partition_rules=)``: a ``dp`` axis runs one
+replica a dp slice behind the front queue (``_split_mesh``), each
+placed tensor-parallel over its ``tp`` ranks by the rules (default
+``SERVING_RULES``).  With tp = 1 the replicas run in this process, dp
+slice i on card i; with tp > 1 each process holds one tp rank of one
+replica (``python -m mxnet_tpu_torch.launch``): the replica's leader
+rank takes that replica's requests and runs its lanes, and its peers
+run what the leader sends (``generative.py``).  Across processes each
+leader takes its own requests; a router in front spreads them.
+
+Not ported, each raising ``MXNetError``: ``ServerConfig(http_port=,
+slo=)`` (the metrics endpoint and SLO accounting; ROADMAP.md, Queue 1,
+"Left out of slice 6"); a ``Predictor`` model, ``int8=True`` on an
+``InferenceServer``, and ``ServerConfig(summary_every=, calib_data=)``
+(ROADMAP.md, Queue 1, "Left out of slice 8").
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 
 from ..base import MXNetError
 from .bucketing import BucketPolicy
+from .generative import _split_mesh  # noqa: F401  (the reference's home)
 from .protocol import Request, ServerClosedError
 from .scheduler import BatchScheduler, RequestQueue
 
@@ -263,7 +273,13 @@ class GenerativeServer(_ServerBase):
 
     ``config.kv_mode`` selects the paged block-pool storage with
     disaggregated prefill/decode lanes (default) or the slot ledger and
-    single-loop scheduler (``"slots"``, the A/B baseline).
+    single-loop scheduler (``"slots"``, the A/B baseline; one replica).
+    ``mesh=`` (a dict such as ``{'dp': 2, 'tp': 1}``, or a
+    ``parallel.make_mesh`` over ranks) and ``partition_rules=`` (default
+    ``SERVING_RULES``): one replica a dp slice, each tensor-parallel over
+    its tp ranks (the module docstring).  On a tensor-parallel peer rank
+    the server runs its leader's programs between ``start`` and ``stop``
+    and takes no requests (``serves_requests``).
     """
 
     def __init__(self, net, config=None, mesh=None, partition_rules=None):
@@ -271,34 +287,40 @@ class GenerativeServer(_ServerBase):
         from .generative import GenerativeScheduler, LlamaServingEngine
         from .lanes import Replica, ReplicaDispatcher
 
-        if mesh is not None or partition_rules is not None:
-            raise MXNetError("GenerativeServer(mesh=, partition_rules=) "
-                             "(tensor-parallel and dp replicas) is not ported "
-                             "yet (ROADMAP.md, \"Left out of slice 6\", now "
-                             "\"Left out of slice 11\")")
         cfg = self.config
+        self.mesh = mesh
         self._replicas = None
         self._dispatcher = None
+        subs = _split_mesh(
+            mesh, device=net.model.embed_tokens.weight.data()._data.device)
         if cfg.kv_mode == "slots":
+            if len(subs) > 1:
+                raise MXNetError(
+                    "kv_mode='slots' runs the single-loop scheduler; "
+                    "dp replicas need kv_mode='paged'")
             if cfg.draft_net is not None or cfg.radix_cache:
                 raise MXNetError(
                     "speculative decoding and the radix prefix cache "
                     "require kv_mode='paged'")
             self.engine = LlamaServingEngine(
                 net, max_len=cfg.policy.max_length,
-                num_slots=cfg.num_slots, int8=cfg.int8, kv_mode="slots")
+                num_slots=cfg.num_slots, int8=cfg.int8, kv_mode="slots",
+                mesh=subs[0], partition_rules=partition_rules)
             self._sched = GenerativeScheduler(self.engine, self.queue,
                                               policy=cfg.policy)
             return
         self._replicas = [
-            Replica(net, cfg.policy, index=0, num_slots=cfg.num_slots,
-                    int8=cfg.int8, block_size=cfg.block_size,
-                    num_blocks=cfg.num_blocks,
+            Replica(net, cfg.policy, index=i, mesh=sub,
+                    partition_rules=partition_rules,
+                    num_slots=cfg.num_slots, int8=cfg.int8,
+                    block_size=cfg.block_size, num_blocks=cfg.num_blocks,
                     queue_capacity=cfg.queue_capacity,
                     draft_net=cfg.draft_net, spec_k=cfg.spec_k,
                     radix_cache=cfg.radix_cache,
-                    prefix_cache_tokens=cfg.prefix_cache_tokens)]
-        self._dispatcher = ReplicaDispatcher(self.queue, self._replicas)
+                    prefix_cache_tokens=cfg.prefix_cache_tokens)
+            for i, sub in enumerate(subs) if sub is None or sub.local]
+        self._dispatcher = ReplicaDispatcher(
+            self.queue, [r for r in self._replicas if not r.follower])
         self.engine = self._replicas[0].engine
         self._sched = None
 
@@ -306,9 +328,20 @@ class GenerativeServer(_ServerBase):
     def replicas(self):
         return self._replicas or []
 
+    @property
+    def serves_requests(self):
+        """False on a tensor-parallel peer rank: its replica's leader
+        takes the requests."""
+        rm = self.engine.mesh
+        return rm is None or rm.is_leader
+
     # -- lifecycle ------------------------------------------------------------
     def start(self):
         if self._replicas is None:
+            if not self.serves_requests:
+                self.engine.follow_in_background()
+                self._running = True
+                return self
             return super().start()
         for rep in self._replicas:
             rep.start()
@@ -321,7 +354,13 @@ class GenerativeServer(_ServerBase):
             return
         self._running = False
         if self._replicas is None:
-            self._sched.stop(drain=drain)
+            if not self.serves_requests:
+                self.engine.join_follower()
+                return
+            try:
+                self._sched.stop(drain=drain)
+            finally:
+                self.engine.release()
             return
         # flush the front queue into the replicas first, then drain each
         # replica (prefill lane before decode lane)
@@ -335,6 +374,12 @@ class GenerativeServer(_ServerBase):
     def submit(self, prompt_ids, max_new_tokens=None, tenant=None):
         """Async: 1-D prompt token ids → Future resolving to the full
         sequence (prompt + generated, int32 numpy), greedy decode."""
+        if not self.serves_requests:
+            rm = self.engine.mesh
+            raise MXNetError(
+                f"this rank is tensor-parallel rank {rm.tp_rank} of a "
+                f"replica whose leader, rank {rm.leader}, takes its "
+                "requests")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         n = int(max_new_tokens or self.config.max_new_tokens)
         if n < 1:

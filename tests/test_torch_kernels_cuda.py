@@ -1687,3 +1687,150 @@ def test_sequence_parallel_bodies_match_one_flash_call_on_card(cuda_nvcc,
     for a, b in zip(got, ref):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel < 2e-2, rel
+
+
+# -- slice 12: the pipeline, graphs over a mesh, serving on a mesh ---------
+
+@pytest.mark.cuda
+def test_pipeline_launches_the_flash_kernels_as_predicted_on_card(
+        cuda_nvcc):
+    """``llama_tiny`` (4 layers, f32) over 2 stages of the local transport
+    with M=2 microbatches: one 1F1B step launches the forward (2L - L/S)·M
+    times (the forward leg of stages 0..S-2 and every stage's recompute),
+    dQ and dK/dV L·M times each; its
+    loss and gradients equal the plain route's accumulated over the same
+    microbatches; GPipe's forward launches the forward L·M times."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import llama
+
+    ctx = mx.gpu(0)
+    vocab, layers, m = 256, 4, 2
+    ids = np.random.RandomState(12).randint(0, vocab, (m, 33))
+    x = mx.nd.array(ids[:, :-1], ctx=ctx, dtype="int32")
+    y = mx.nd.array(ids[:, 1:], ctx=ctx, dtype="int32")
+    mx.random.seed(13)
+    net = llama.llama_tiny(num_layers=layers)
+    net.initialize(ctx=ctx)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    for p in params:
+        p.grad_req = "add"
+        p.zero_grad()
+    plain = 0.0
+    for b in range(m):
+        with mx.autograd.record():
+            loss = mx.nd.softmax_cross_entropy(
+                net(x[b:b + 1]).reshape((-1, vocab)),
+                y[b:b + 1].reshape((-1,))) / y.size
+        loss.backward()
+        plain += float(loss.asscalar())
+    ref = [p.grad()._data.clone() for p in params]
+    for p in params:
+        p.grad_req = "write"
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+                tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    with mx.autograd.record():
+        loss = llama.llama_pipeline_train_step(net, x, y, m,
+                                               mesh={"pp": 2})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == \
+        [(2 * layers - layers // 2) * m, layers * m, layers * m]
+    np.testing.assert_allclose(float(loss.asscalar()), plain, rtol=1e-5)
+    for p, r in zip(params, ref):
+        g = p.grad()._data
+        assert ((g - r).norm() / r.norm()).item() < 1e-4, p.name
+    before = counters[0].launches
+    gpipe = llama.llama_pipeline_forward(net, x, m, mesh={"pp": 2})
+    assert counters[0].launches - before == layers * m
+    np.testing.assert_allclose(gpipe.asnumpy(), net(x).asnumpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_captured_mesh_step_equals_the_eager_one_on_card(nccl_group):
+    """``FusedTrainStep`` (K=3) of ``llama_tiny`` placed on a {'dp': 1,
+    'tp': 1} mesh through ``dist_sync``: the graph holds the step's NCCL
+    all-reduces; its losses and weights equal three eager mesh steps',
+    and a hybridized forward of the placed net replays its eager logits."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import llama
+    from mxnet_tpu_torch.parallel.local import local
+
+    parallel = nccl_group
+    mesh = parallel.make_mesh({"dp": 1, "tp": 1})
+    ctx = mx.gpu(0)
+    vocab = 256
+    ids = np.random.RandomState(14).randint(0, vocab, (2, 33))
+    # dp-sharded ids at B=2: before the embedding read a replicated table
+    # on local ids, torch 2.11's DTensor failed to propagate the lookup's
+    # backward (``index_put``) here
+    x = parallel.shard_batch(mx.nd.array(ids[:, :-1], ctx=ctx,
+                                         dtype="int32"), mesh)
+    y = parallel.shard_batch(mx.nd.array(ids[:, 1:].astype(np.float32),
+                                         ctx=ctx), mesh)
+
+    def make():
+        net = _tiny_llama(mx, ctx, seed=15)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9},
+                              kvstore="dist_sync",
+                              partition_rules=parallel.LLAMA_RULES,
+                              mesh=mesh)
+        return net, tr
+
+    def lm_loss(n, a, b):
+        return mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, vocab)), b.reshape((-1,))) / 64
+
+    net, tr = make()
+    eager = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = lm_loss(net, x, y)
+        loss.backward()
+        tr.step(1)
+        eager.append(float(loss.asscalar()))
+    del loss
+    net2, tr2 = make()
+    fstep = mx.gluon.FusedTrainStep(net2, tr2, lm_loss,
+                                    steps_per_execution=3, batch_size=1)
+    fused = fstep(x, y).asnumpy()
+    np.testing.assert_allclose(fused, eager, rtol=1e-5)
+    got = net2._collect_params_with_prefix()
+    for k, p in net._collect_params_with_prefix().items():
+        np.testing.assert_allclose(got[k].data().asnumpy(),
+                                   p.data().asnumpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    with torch.no_grad():
+        want = local(net2(x)._data).clone()
+        net2.hybridize()
+        net2(x)
+        got = local(net2(x)._data)
+    assert net2.cache_stats()["hits"] == 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    parallel.set_mesh(None)
+
+
+@pytest.mark.cuda
+def test_serving_on_a_one_card_mesh_replays_the_tick_on_card(cuda_nvcc):
+    """``GenerativeServer(mesh={'dp': 1, 'tp': 1})`` on the card: one
+    replica with its graphed tick, replies equal the server's without a
+    mesh."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    net = _tiny_llama(mx, mx.gpu(0), seed=16)
+    prompts = [np.random.RandomState(i).randint(1, 250, size=n)
+               for i, n in enumerate((5, 9, 12, 7))]
+    replies = []
+    for mesh in (None, {"dp": 1, "tp": 1}):
+        cfg = serving.ServerConfig(max_batch=1, max_length=64, num_slots=2)
+        with serving.GenerativeServer(net, cfg, mesh=mesh) as srv:
+            replies.append([srv.generate(p, max_new_tokens=6)
+                            for p in prompts])
+            assert srv.engine._step_graph is not None
+            assert (srv.engine.mesh is None) == (mesh is None)
+    for a, b in zip(*replies):
+        np.testing.assert_array_equal(a, b)

@@ -241,8 +241,11 @@ def test_unported_features_raise_naming_the_roadmap(pair):
             fn(tnet)
     for fn in (tllama.llama_pipeline_forward,
                tllama.llama_pipeline_train_step):
-        with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
-            fn(tnet)
+        # ported in slice 12 (test_torch_llama_pipeline): without a mesh
+        # they raise the reference's error
+        with pytest.raises(tmx.MXNetError, match="no active mesh"):
+            fn(tnet, ids, ids, 1) if fn is \
+                tllama.llama_pipeline_train_step else fn(tnet, ids, 1)
     with pytest.raises(tmx.MXNetError, match="Left out of slice 7"):
         tnet.set_remat(tnet)  # rematerialization waits for item 9
 

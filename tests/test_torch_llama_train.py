@@ -207,7 +207,7 @@ def test_training_refusals_name_the_roadmap(arrays):
     params = tnet.collect_params()
     with pytest.raises(tmx.MXNetError, match="ROADMAP"):
         tmx.gluon.Trainer(params, "sgd", offload="host").step(1)
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
-        tmx.gluon.trainer.drain_consensus()  # multi-host
+    # ported in slice 12: one process agrees with itself
+    assert tmx.gluon.trainer.drain_consensus() is False
     assert isinstance(tmx.optimizer.create("lamb"), tmx.optimizer.LAMB)
     assert torch.is_grad_enabled()  # the port never flips global state

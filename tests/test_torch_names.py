@@ -119,6 +119,66 @@ def test_public_names_match_the_reference_but_the_listed(ns, fresh_names):
             getattr(_namespaces()[ns][1], name)
 
 
+def _slice12_calls():
+    """One working call of each name ported in slice 12 (each was a
+    refusal naming "Left out of slice 11")."""
+    from mxnet_tpu_torch import checkpoint, gluon, nd, parallel, serving
+    from mxnet_tpu_torch.models import llama
+
+    def pipeline_apply():
+        return parallel.pipeline_apply(
+            lambda p, x: x * p, nd.ones((2, 1), ctx=CPU),
+            nd.ones((3, 1), ctx=CPU), mesh={"pp": 2}).shape == (3, 1)
+
+    def pipeline_train_1f1b():
+        loss = parallel.pipeline_train_1f1b(
+            lambda p, x: x * p, lambda o, lab, t: (o - lab).sum(),
+            nd.ones((2, 1), ctx=CPU), nd.ones((3, 1), ctx=CPU),
+            nd.zeros((3, 1), ctx=CPU), mesh={"pp": 2})[0]
+        return float(loss.asscalar()) == 3.0
+
+    def net():
+        n = llama.llama_tiny()
+        n.initialize(ctx=CPU)
+        return n, nd.array(np.zeros((2, 4)), ctx=CPU, dtype="int32")
+
+    def llama_pipeline_forward():
+        n, ids = net()
+        return llama.llama_pipeline_forward(n, ids, 2, mesh={"pp": 2}) \
+            .shape == (2, 4, 256)
+
+    def llama_pipeline_train_step():
+        n, ids = net()
+        return llama.llama_pipeline_train_step(
+            n, ids, ids, 2, mesh={"pp": 2}).shape in ((), (1,))
+
+    def drain_consensus():
+        return gluon.trainer.drain_consensus() is False
+
+    def serving_mesh():
+        n, _ = net()
+        srv = serving.GenerativeServer(n, mesh={"dp": 2})
+        return len(srv.replicas) == 2
+
+    def sharded_checkpoint():
+        import tempfile
+
+        n, _ = net()
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save_checkpoint(d, 1, n, sharded=True)
+            return checkpoint.resume(d, n)[0] == 1
+
+    return {f.__name__: f for f in (
+        pipeline_apply, pipeline_train_1f1b, llama_pipeline_forward,
+        llama_pipeline_train_step, drain_consensus, serving_mesh,
+        sharded_checkpoint)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice12_calls()))
+def test_names_ported_in_slice_12_resolve_to_working_functions(name):
+    assert _slice12_calls()[name]()
+
+
 # -- NDArray ---
 
 def test_ndarray_ctx_as_in_ctx_and_wait_to_write():

@@ -173,7 +173,7 @@ def test_kvstore_push_pull_leaves_the_gradient_uncopied():
     for name in ("dist_sync", "dist_device_sync", "dist_tpu_sync",
                  "horovod"):  # the synchronous store (slice 11)
         assert isinstance(tmx.kv.create(name), tmx.parallel.TPUSyncKVStore)
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 11"):
+    with pytest.raises(tmx.MXNetError, match="Left out of slice 12"):
         tmx.kv.create("dist_async")
 
 
