@@ -26,7 +26,9 @@ multi-GPU on a one-rank NCCL group: the ``dist_sync`` store, phase 9's
 Llama step over a mesh of ``DTensor`` parameters, the ring and Ulysses
 bodies at full width, and SyncBatchNorm; and the 1F1B pipeline over 4
 stages on the card, ``FusedTrainStep`` and ``hybridize()`` graphs over
-the mesh, serving on a mesh, and a sharded checkpoint.
+the mesh, serving on a mesh, and a sharded checkpoint; and Mixtral-8x7B
+(MoE) inference and training at full width through the flash kernels,
+its expert-parallel route, and the ``dist_async`` parameter server.
 
     python3 chip_smoke.py
 
@@ -243,7 +245,33 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 19d. ``save_checkpoint(sharded=True)`` of 7d's configuration on the
     mesh with its trainer and ``resume`` into a fresh net: bit for bit,
     the next loss equal, seconds beside 7d's ``.params`` route; and
-    ``drain_consensus()`` on the NCCL group of one.
+    ``drain_consensus()`` on the NCCL group of one;
+20a. ``mixtral_8x7b`` widths at 2 layers in f32, B=1, T=256: logits on
+    the card (#1's FMA design) against the same weights on the CPU (the
+    plain versions), within 1e-3 of the largest logit; then layer 0's
+    ``MoEMLP`` in bf16 at full width on the card against the CPU's f32
+    run on the same bf16 values (relative norm 2e-2, aux within 1e-5);
+20b. the Mixtral serving path: ``mixtral_8x7b`` at full width and 16
+    layers in bf16 (23.22 B parameters; 32 layers need 93 GB): one
+    warm-up and three prompt forwards at B=1, T=2048 (16 tensor-core
+    launches of #1 each), ms beside the reckoned bound and peak memory;
+    greedy ``generate`` of 8 tokens from a 128-token prompt on the
+    oracle route, twice: ms a token, the two runs' tokens equal;
+20c. Mixtral training: full width, 2 layers, bf16, B=1, T=2048, phase
+    9's optimizer; ``with collect_aux()``: loss + 0.01·Σaux →
+    ``backward`` → ``Trainer.step``, 2/2/2 launches of #1-#3 and one
+    update launch a step, ms and peak; the same net without aux under
+    ``FusedTrainStep`` (K=3) against three eager steps (1e-5 relative),
+    and ``collect_aux`` inside the capture raises;
+20d. the mesh and the store: 20c's steps through ``Trainer(kvstore=
+    "dist_sync", partition_rules=MIXTRAL_RULES, mesh={'ep': 1})`` on the
+    NCCL group of one, the losses against 20c's; the ep body over 4
+    virtual ranks of 2 experts each (full width, bf16, T=2048), summed,
+    against the unsharded layer; ``resnet18_v1`` f32 B=32, three steps
+    through ``Trainer(kvstore=AsyncPSKVStore(...))`` against a
+    ``dist_async`` server on 127.0.0.1 with a per-run secret, in lockstep
+    with the ``device`` store on the same gradients: the losses and
+    weights against the ``device`` store's and push+pull ms a step.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -253,8 +281,9 @@ llama_parallel}.py``).
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
-captured mesh steps; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
-19a and 19b) and read just after,
+captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps; the
+update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d, 19a, 19b and 20c) and
+read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -4767,6 +4796,591 @@ def sharded_checkpoint_phase(torch, mx, llama, checkpoint, parallel, mesh,
     free_card(torch)
 
 
+
+# Phases 20a-20d: Mixtral-8x7B (MoE) and the rest of multi-GPU (slice 13).
+# 32 layers of mixtral_8x7b in bf16 hold 93 GB of weights: the serving
+# path runs at 16 layers (46.44 GB of layers, 0.52 GB of embedding and
+# head), the training path at 2.  The MoE dispatch, the expert bank and
+# the combine are plain torch ops (the reference's are jnp); #1-#3 run on
+# the attention.
+MOE_SERVE_LAYERS = 16
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3        # timed steps, after one warm-up
+MOE_FUSED_K = 3
+MOE_AUX_W = 0.01
+MOE_PROMPT = 128           # 20b: the oracle generate's prompt
+MOE_NEW = 8                # ... and its new tokens
+MOE_BF16_TOL = 2e-2        # relative norm, bf16 against f32 or the CPU
+MOE_EP_CHUNKS = 4          # 20d: virtual ep ranks, 2 experts each
+PS_B = 32                  # 20d: resnet18_v1 f32 through dist_async
+PS_STEPS = 3
+
+
+def moe_check_phase(torch, mx, llama, moe, fa, failures):
+    """Phase 20a: ``mixtral_8x7b`` widths at 2 layers in f32, B=1, T=256:
+    the weights drawn on the CPU from the seed and copied to the card;
+    the logits on the card (#1's FMA design, 2 launches) against the
+    CPU's (the plain versions) within 1e-3 of the largest logit; then
+    layer 0's ``MoEMLP`` alone in bf16 at full width on the card against
+    the CPU's f32 run on the same bf16 values (the router is f32 on
+    both, so the same tokens reach the same slots): the output by
+    relative norm, the aux loss within 1e-5."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    cpu_net = llama.mixtral_8x7b(num_layers=2)
+    cpu_net.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    card_net = llama.mixtral_8x7b(num_layers=2)
+    card_net.initialize(mx.init.Zero(), ctx=mx.gpu(0))
+    cpu_params = cpu_net._collect_params_with_prefix()
+    for name, p in card_net._collect_params_with_prefix().items():
+        p.set_data(cpu_params[name].data()._data.cuda())
+    init_s = time.perf_counter() - t
+    gen = torch.Generator().manual_seed(SEED + 20)
+    ids = torch.randint(0, cpu_net.config.vocab_size, (1, 256),
+                        generator=gen, dtype=torch.int32)
+    _zero_counts(fa)
+    got = card_net(mx.nd.array(ids.cuda()))._data.float().cpu()
+    launched, mma = fa.flash_attention_fwd.launches, \
+        fa.flash_attention_fwd.launches_mma
+    t = time.perf_counter()
+    ref = cpu_net(mx.nd.array(ids, ctx=mx.cpu()))._data
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    largest = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    ok = launched == 2 and mma == 0 and err <= 1e-3 * largest and \
+        bool(torch.isfinite(got).all())
+    emit(dict(phase="moe_f32_check", layers=2, B=1, T=256, dtype="float32",
+              launches=launched, launches_mma=mma, max_abs_err=err,
+              max_abs_logit=largest, tol=1e-3 * largest, init_s=init_s,
+              cpu_forward_ms=cpu_ms, ok=ok))
+    if not ok:
+        failures.append(f"moe f32 check: launches {launched} (tensor-core "
+                        f"{mma}), err {err} vs {1e-3 * largest}")
+    # layer 0's MoE layer alone: bf16 on the card; on the CPU its plain
+    # f32 run on the same bf16 values (weights and input), the witness
+    cpu_blk, card_blk = (n.model.layers[0].mlp for n in (cpu_net, card_net))
+    del cpu_params, got, ref
+    card_blk.cast("bfloat16")
+    for p in cpu_blk.collect_params().values():
+        p.set_data(p.data()._data.bfloat16().float())
+    cfg = cpu_net.config
+    x = torch.randn((1, 256, cfg.hidden_size), generator=gen).bfloat16()
+    outs = []
+    for blk, xx, ctx in ((cpu_blk, x.float(), mx.cpu()),
+                         (card_blk, x.cuda(), mx.gpu(0))):
+        with moe.collect_aux() as aux:
+            y = blk(mx.nd.array(xx, ctx=ctx))
+        outs.append((y._data.float().cpu(), aux[0]._data.cpu()))
+    y_err = _rel_norm(torch, outs[1][0], outs[0][0])
+    aux_err = abs(outs[1][1].item() - outs[0][1].item()) / \
+        max(abs(outs[0][1].item()), 1e-30)
+    ok = y_err <= MOE_BF16_TOL and aux_err <= 1e-5 and \
+        bool(torch.isfinite(outs[1][0]).all())
+    emit(dict(phase="moe_bf16_layer_check", B=1, T=256,
+              hidden=cfg.hidden_size, intermediate=cfg.intermediate_size,
+              experts=cfg.num_experts, capacity=moe.capacity(
+                  256, cfg.num_experts_per_tok, cfg.capacity_factor,
+                  cfg.num_experts), rel_err=y_err, aux=outs[1][1].item(),
+              aux_cpu=outs[0][1].item(), aux_rel_err=aux_err,
+              tol=MOE_BF16_TOL, ok=ok))
+    if not ok:
+        failures.append(f"moe bf16 layer: relative error {y_err}, aux "
+                        f"{aux_err}")
+    del cpu_net, card_net, cpu_blk, card_blk, outs
+    free_card(torch)
+
+
+def moe_flops(cfg, t, causal=True):
+    """Forward FLOPs of one Mixtral layer at ``t`` tokens (B=1).  The
+    work the function needs (``useful``, which the bounds read): the
+    projections, the attention products and the k·t routed token rows
+    through the expert bank.  Beside it, what the port's fixed-capacity
+    formulation adds: the bank's padding to capacity (E·C − k·t rows)
+    and the one-hot dispatch and combine einsums (``computed`` is all
+    of it; ``PERF.md``'s reckoning)."""
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    k = cfg.num_experts_per_tok
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    c = min(max(1, math.ceil(t * k * cfg.capacity_factor / e)), t)
+    proj = 2 * t * h * (2 * h + 2 * kvd)
+    attn = 2 * 2 * visible_pairs(t, t, causal) * h
+    bank = 3 * 2 * k * t * h * i
+    padding = 3 * 2 * max(0, e * c - k * t) * h * i
+    route = 2 * 2 * t * e * c * h
+    useful = proj + attn + bank
+    return dict(projections=proj, attention=attn, bank_routed_rows=bank,
+                useful=useful, capacity_padding=padding,
+                dispatch_combine=route, computed=useful + padding + route)
+
+
+def mixtral_infer_phase(torch, mx, llama, fa, failures):
+    """Phase 20b: ``mixtral_8x7b`` at full width and 16 layers in bf16
+    (23.22 B parameters), weights drawn on the card from the seed: one
+    warm-up and three prompt forwards at B=1, T=2048 (16 tensor-core
+    launches of #1 each), ms beside the reckoned bound, peak memory;
+    then greedy ``generate`` of 8 tokens from a 128-token prompt on the
+    oracle route (an MoE net re-forwards the sequence a token), twice:
+    ms a token and the tokens of the two runs equal.  The counts are set
+    to 0 just before the forwards and read after the second generate."""
+    free_card(torch)
+    t = time.perf_counter()
+    mx.random.seed(SEED)
+    net = llama.mixtral_8x7b(num_layers=MOE_SERVE_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    torch.cuda.synchronize()
+    cfg = net.config
+    params = sum(p.data().size for p in net.collect_params().values())
+    emit(dict(phase="moe_init", layers=MOE_SERVE_LAYERS,
+              seconds=time.perf_counter() - t, params=params,
+              memory_allocated=torch.cuda.memory_allocated()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    ids = mx.nd.array(torch.randint(0, cfg.vocab_size, (1, 2048),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32))
+    fl = moe_flops(cfg, 2048)
+    head = 2 * 2048 * cfg.hidden_size * cfg.vocab_size
+    flops = MOE_SERVE_LAYERS * fl["useful"] + head
+    bound = roofline_ms(flops, 2 * params, "bfloat16")[0]
+    # what the fixed-capacity formulation computes besides, at that rate
+    overhead_ms = {key: roofline_ms(MOE_SERVE_LAYERS * fl[key], 0,
+                                    "bfloat16")[0]
+                   for key in ("capacity_padding", "dispatch_combine")}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)  # the main path starts here
+    times, ok_all = [], True
+    for run_i in range(4):  # the first warms up cuBLAS
+        before = fa.flash_attention_fwd.launches
+        before_mma = fa.flash_attention_fwd.launches_mma
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mx.autograd.pause():
+            logits = net(ids)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched = fa.flash_attention_fwd.launches - before
+        mma = fa.flash_attention_fwd.launches_mma - before_mma
+        finite = bool(torch.isfinite(logits._data).all())
+        ok = launched == mma == MOE_SERVE_LAYERS and finite and \
+            logits.shape == (1, 2048, cfg.vocab_size)
+        ok_all &= ok
+        if run_i:
+            times.append(ms)
+        emit(dict(phase="moe_prompt_forward", run=run_i, warmup=run_i == 0,
+                  B=1, T=2048, ms=ms, tokens_per_s=2048 / ms * 1e3,
+                  bound_ms=bound, launches=launched, launches_mma=mma,
+                  finite=finite, ok=ok))
+        del logits
+    peak_fwd = torch.cuda.max_memory_allocated()
+    prompt = mx.nd.array(torch.randint(0, cfg.vocab_size, (1, MOE_PROMPT),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int32))
+    runs = []
+    for run_i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = net.generate(prompt, max_new_tokens=MOE_NEW)
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t) * 1e3, out._data.clone()))
+    launches = fa.flash_attention_fwd.launches  # the main path ends here
+    launches_mma = fa.flash_attention_fwd.launches_mma
+    same = bool(torch.equal(runs[0][1], runs[1][1]))
+    want = MOE_SERVE_LAYERS * (4 + 2 * MOE_NEW)
+    ok = ok_all and same and launches == launches_mma == want and \
+        runs[1][1].shape == (1, MOE_PROMPT + MOE_NEW) and \
+        not net.__dict__.get("_kv_decoders")
+    # a token of the oracle route: one forward of the whole sequence
+    token_bound = roofline_ms(
+        MOE_SERVE_LAYERS * moe_flops(cfg, MOE_PROMPT)["useful"] + 2 *
+        MOE_PROMPT * cfg.hidden_size * cfg.vocab_size, 2 * params,
+        "bfloat16")[0]
+    emit(dict(phase="moe_serving", layers=MOE_SERVE_LAYERS, params=params,
+              prompt_forward_ms=times, forward_bound_ms=bound,
+              forward_gflop=flops / 1e9,
+              layer_gflop={k: v / 1e9 for k, v in fl.items()},
+              overhead_ms_at_peak=overhead_ms,
+              prompt=MOE_PROMPT, new_tokens=MOE_NEW,
+              generate_ms=[r[0] for r in runs],
+              ms_per_token=[r[0] / MOE_NEW for r in runs],
+              weight_read_bound_ms_per_token=token_bound,
+              tokens_equal_across_runs=same,
+              tokens=runs[1][1][0, MOE_PROMPT:].tolist(),
+              launches=launches, launches_mma=launches_mma,
+              launches_expected=want,
+              peak_forward_bytes=peak_fwd,
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              ok=ok))
+    if not ok:
+        failures.append(f"moe serving: launches {launches} (tensor-core "
+                        f"{launches_mma}, want {want}), tokens equal "
+                        f"{same}")
+    del net, runs, out, ids, prompt
+    free_card(torch)
+    return launches, launches_mma
+
+
+def _moe_net(mx, llama, layers):
+    mx.random.seed(SEED)
+    net = llama.mixtral_8x7b(num_layers=layers)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    return net
+
+
+def _moe_step(mx, moe, net, trainer, ids, labels, aux_w=MOE_AUX_W):
+    """One eager step of cross entropy + aux_w·Σaux → (loss, aux)."""
+    with moe.collect_aux() as aux:
+        loss = _lm_forward(mx, net, ids, labels)
+        with mx.autograd.record():
+            loss = loss + aux_w * sum(aux)
+    loss.backward()
+    trainer.step(1)
+    return float(loss.asscalar()), [float(a.asscalar()) for a in aux]
+
+
+def mixtral_train_phase(torch, mx, llama, moe, fa, mt, failures):
+    """Phase 20c: ``mixtral_8x7b`` at full width and 2 layers in bf16,
+    B=1, T=2048, phase 9's optimizer (SGD lr 0.1, momentum 0.9):
+    ``with collect_aux()``: loss + 0.01·Σaux → ``backward`` →
+    ``Trainer.step``, one warm-up and three timed steps, each 2/2/2
+    tensor-core launches of #1-#3 and one update launch; ms and peak.
+    Then the same net without aux under ``FusedTrainStep`` (K=3) against
+    three eager steps from the same weights (phase 7d's 1e-5 relative),
+    and ``collect_aux`` inside the capture raises."""
+    free_card(torch)
+    net = _moe_net(mx, llama, MOE_TRAIN_LAYERS)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                              SEED + 22)
+    fl = moe_flops(net.config, 2048)
+    head = 2 * 2048 * net.config.hidden_size * net.config.vocab_size
+    step_flops = 3 * (MOE_TRAIN_LAYERS * fl["useful"] + head)
+    nbytes = 2 * sum(p.data().size for p in net.collect_params().values())
+    # the forward's and the backward's products (3x the forward), and the
+    # weights read twice, the gradients written once, the momentum read
+    # and written once
+    bound = roofline_ms(step_flops, 5 * nbytes, "bfloat16")[0]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)  # the main path starts here
+    mt.multi_tensor_update.launches = 0
+    losses, auxes, step_ms = [], [], []
+    for step in range(1 + MOE_TRAIN_STEPS):
+        before = [c.launches for c in _counters(fa)]
+        before_mma = _mma_counts(fa)
+        mt_before = mt.multi_tensor_update.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, aux = _moe_step(mx, moe, net, trainer, ids, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched = [c.launches - n for c, n in zip(_counters(fa), before)]
+        mma = [c - n for c, n in zip(_mma_counts(fa), before_mma)]
+        upd = mt.multi_tensor_update.launches - mt_before
+        losses.append(loss)
+        auxes.append(aux)
+        if step:
+            step_ms.append(ms)
+        ok = math.isfinite(loss) and launched == mma == \
+            [MOE_TRAIN_LAYERS] * 3 and upd == 1 and len(aux) == 2
+        emit(dict(phase="moe_train_step", step=step, warmup=step == 0,
+                  loss=loss, aux=aux, ms=ms, tokens_per_s=2048 / ms * 1e3,
+                  bound_ms=bound, launches=dict(zip(("fwd", "dq", "dkv"),
+                                                     launched)),
+                  launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
+                  update_launches=upd, ok=ok))
+        if not ok:
+            failures.append(f"moe train step {step}: loss {loss}, aux "
+                            f"{aux}, launches {launched} (tensor-core "
+                            f"{mma}), update launches {upd}")
+    launches = [c.launches for c in _counters(fa)]  # the main path ends
+    launches_mma = _mma_counts(fa)
+    updates = mt.multi_tensor_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    STASH["moe_train"] = dict(losses=losses, step_ms=step_ms)
+    if not losses[-1] < losses[0]:
+        failures.append(f"moe training loss did not fall: {losses}")
+    del net, trainer
+    free_card(torch)
+
+    # the same net without aux: three eager steps, then FusedTrainStep
+    def lm_loss(n, a, b):
+        vocab = n.config.vocab_size
+        return mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, vocab)), b.reshape((-1,))) / b.size
+
+    net = _moe_net(mx, llama, MOE_TRAIN_LAYERS)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    eager = []
+    for _ in range(MOE_FUSED_K):
+        with mx.autograd.record():
+            loss = lm_loss(net, ids, labels)
+        loss.backward()
+        tr.step(1)
+        eager.append(float(loss.asscalar()))
+    del net, tr, loss
+    free_card(torch)
+    net = _moe_net(mx, llama, MOE_TRAIN_LAYERS)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    fstep = mx.gluon.FusedTrainStep(net, tr, lm_loss,
+                                    steps_per_execution=MOE_FUSED_K,
+                                    batch_size=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fused = fstep(ids, labels).asnumpy().tolist()
+    first_call_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = fstep(ids, labels).asnumpy().tolist()
+    replay_ms = (time.perf_counter() - t) * 1e3 / MOE_FUSED_K
+    graph = next(iter(fstep._graphs.values()))["graph"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fused, eager))
+    refused = ""
+    try:
+        with moe.collect_aux():
+            mx.gluon.FusedTrainStep(net, tr, lm_loss, steps_per_execution=2,
+                                    batch_size=1)(ids, labels)
+    except mx.MXNetError as e:
+        refused = str(e)
+    ok = rel <= 1e-5 and "hybridize" in refused and \
+        all(math.isfinite(v) for v in again)
+    emit(dict(phase="moe_train", layers=MOE_TRAIN_LAYERS, B=1, T=2048,
+              losses=losses, aux=auxes, step_ms=step_ms, bound_ms=bound,
+              step_gflop=step_flops / 1e9,
+              step_overhead_gflop={
+                  key: 3 * MOE_TRAIN_LAYERS * fl[key] / 1e9
+                  for key in ("capacity_padding", "dispatch_combine")},
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
+              update_launches=updates, max_memory_allocated=peak,
+              fused_losses=fused, eager_losses=eager,
+              fused_max_rel_err=rel, fused_next_losses=again,
+              fused_step_ms=replay_ms, fused_first_call_s=first_call_s,
+              graph_pool_bytes=graph.pool_bytes,
+              collect_aux_in_capture=refused, ok=ok))
+    if not ok:
+        failures.append(f"moe fused step: losses {fused} vs {eager} "
+                        f"({rel}), collect_aux refusal {refused!r}")
+    del net, tr, fstep, graph
+    free_card(torch)
+    return launches, launches_mma, updates
+
+
+
+def moe_mesh_phase(torch, mx, llama, moe, fa, mt, parallel, vision,
+                   failures):
+    """Phase 20d: the mesh and the store.  (1) 20c's net, seed and batch
+    through ``Trainer(kvstore="dist_sync", partition_rules=MIXTRAL_RULES,
+    mesh={'ep': 1})`` on the NCCL group of one: the DTensor route with
+    the banks replicated (a size-1 ``ep`` axis shards nothing, so the
+    per-expert slicing of the ep route runs only in (2) and in the gloo
+    tests; the placement is checked), the losses step for step against
+    20c's, #1-#3 2/2/2 a step; (2) the ep body over 4
+    virtual ranks of 2 experts each on the card (layer widths of
+    ``mixtral_8x7b``, bf16, T=2048; as 18c cuts attention): each rank's
+    experts on its bank slices, summed, against the unsharded layer, and
+    the times of both; (3) ``resnet18_v1`` f32 B=32, three steps through
+    ``Trainer(kvstore=dist_async)``, against a parameter server on
+    127.0.0.1 with a per-run secret and in process (no wire), in
+    lockstep with the ``device`` store's steps on the same gradients:
+    the losses and the weights within 1e-5, each server's table on the
+    card and updated there by the fused multi-tensor kernel, and
+    push+pull ms a step."""
+    import secrets
+
+    from mxnet_tpu_torch.kvstore import dist_async
+
+    # (1) the mesh route on the group of one (ep=1: banks replicated)
+    free_card(torch)
+    mesh = parallel.make_mesh({"ep": 1})
+    net = _moe_net(mx, llama, MOE_TRAIN_LAYERS)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": TRAIN_LR, "momentum": 0.9},
+                               kvstore="dist_sync",
+                               partition_rules=parallel.MIXTRAL_RULES,
+                               mesh=mesh)
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                              SEED + 22)
+    _zero_counts(fa)  # the mesh route's main path starts here
+    losses, step_ms = [], []
+    for step in range(1 + MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(_moe_step(mx, moe, net, trainer, ids, labels)[0])
+        torch.cuda.synchronize()
+        if step:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = [c.launches for c in _counters(fa)]  # ... ends
+    launches_mma = _mma_counts(fa)
+    want = STASH.get("moe_train", {})
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(losses, want.get("losses", [float("nan")])))
+    placed = str(net.model.layers[0].mlp.gate_weight.data()._data
+                 .placements)
+    parallel.set_mesh(None)
+    ok = rel <= 1e-5 and placed == "(Replicate(),)" and \
+        launches == launches_mma == \
+        [MOE_TRAIN_LAYERS * (1 + MOE_TRAIN_STEPS)] * 3
+    emit(dict(phase="moe_mesh_ep1", mesh={"ep": 1},
+              route="DTensor, banks replicated (ep=1 shards nothing)",
+              losses=losses,
+              losses_20c=want.get("losses"), max_rel_loss_diff=rel,
+              step_ms=step_ms, step_ms_20c=want.get("step_ms"),
+              bank_placements=placed,
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), launches_mma)),
+              ok=ok))
+    if not ok:
+        failures.append(f"moe mesh ep=1: losses {losses} vs 20c's "
+                        f"{want.get('losses')}, launches {launches}, "
+                        f"bank placements {placed}")
+    del net, trainer
+    free_card(torch)
+
+    # (2) the ep body over virtual ranks
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+    widths = llama.LLAMA_CONFIGS["mixtral_8x7b"]
+    h, i, e, t = (widths["hidden_size"], widths["intermediate_size"],
+                  widths["num_experts"], 2048)
+
+    def rnd(*shape, scale=0.02):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) * scale
+
+    x, rw = rnd(t, h, scale=1.0), rnd(e, h)
+    gw, uw, dw = rnd(e, i, h), rnd(e, i, h), rnd(e, h, i)
+    c = moe.capacity(t, 2, 1.25, e)
+    with torch.no_grad():
+        disp, comb, _ = moe.route(x, rw, e, 2, c, "topk")
+        whole = moe.experts(x, disp, comb, gw, uw, dw)
+        per = e // MOE_EP_CHUNKS
+
+        def body():
+            return sum(moe.experts(x, disp[:, r * per:(r + 1) * per],
+                                   comb[:, r * per:(r + 1) * per],
+                                   gw[r * per:(r + 1) * per],
+                                   uw[r * per:(r + 1) * per],
+                                   dw[r * per:(r + 1) * per])
+                       for r in range(MOE_EP_CHUNKS))
+
+        summed = body()
+        err = _rel_norm(torch, summed, whole)
+        whole_ms = time_ms(torch, lambda: moe.experts(
+            x, disp, comb, gw, uw, dw), 5)
+        body_ms = time_ms(torch, body, 5)
+        route_ms = time_ms(torch, lambda: moe.route(x, rw, e, 2, c, "topk"),
+                           5)
+    kept = int(disp.sum().item())
+    ok = err <= MOE_BF16_TOL and bool(torch.isfinite(summed).all())
+    emit(dict(phase="moe_ep_body", virtual_ranks=MOE_EP_CHUNKS,
+              experts_per_rank=per, T=t, capacity=c, tokens_kept=kept,
+              tokens_routed=2 * t, rel_err=err, tol=MOE_BF16_TOL,
+              unsharded_ms=whole_ms, summed_bodies_ms=body_ms,
+              route_ms=route_ms, ok=ok))
+    if not ok:
+        failures.append(f"moe ep body: relative error {err}")
+    del x, rw, gw, uw, dw, disp, comb, whole, summed
+    free_card(torch)
+
+    # (3) dist_async: a parameter server on 127.0.0.1, a per-run secret.
+    # The two nets step in lockstep from the same weights, and the
+    # dist_async net's gradients are replaced by the device net's before
+    # each update: cuDNN's backward (and max pooling's) sums in no fixed
+    # order, so two runs of one step differ in the last bits, and the
+    # comparison is to hold the store alone
+    gen.manual_seed(SEED + 24)
+    xb = mx.nd.array(torch.rand((PS_B, 3, 224, 224), generator=gen,
+                                device="cuda"))
+    yb = mx.nd.array(torch.randint(0, 1000, (PS_B,), generator=gen,
+                                   device="cuda").float())
+    secret = secrets.token_hex(16)
+    uri = f"127.0.0.1:{parallel.free_port()}"
+    srv = dist_async.serve_forever(uri, secret=secret)
+    free_card(torch)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nets, trainers, rows = {}, {}, {}
+    stores = {"device": lambda: "device",
+              "dist_async": lambda: dist_async.AsyncPSKVStore(
+                  root_uri=uri, secret=secret),
+              "dist_async_in_process": dist_async.AsyncPSKVStore}
+    try:
+        for store, make_kv in stores.items():
+            mx.random.seed(SEED)
+            net = vision.resnet18_v1(classes=1000)
+            net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+            net(mx.nd.zeros((1, 3, 224, 224), ctx=mx.gpu(0)))
+            kv = make_kv()
+            nets[store] = net
+            trainers[store] = mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": 0.05, "momentum": 0.9}, kvstore=kv)
+            rows[store] = dict(losses=[], step_update_ms=[],
+                               update_launches=[])
+        for _ in range(PS_STEPS):
+            for store, net in nets.items():
+                with mx.autograd.record():
+                    loss = loss_fn(net(xb), yb).mean()
+                loss.backward()
+                rows[store]["losses"].append(float(loss.asscalar()))
+            for store in ("dist_async", "dist_async_in_process"):
+                for pd, pa in zip(nets["device"].collect_params().values(),
+                                  nets[store].collect_params().values()):
+                    if pd.grad_req != "null":
+                        pa.grad()._data.copy_(pd.grad()._data)
+            for store, tr in trainers.items():
+                torch.cuda.synchronize()
+                mt.multi_tensor_update.launches = 0  # this store's step
+                t0 = time.perf_counter()
+                tr.step(1)  # a dist_async step ends in its pulls
+                torch.cuda.synchronize()
+                rows[store]["step_update_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                rows[store]["update_launches"].append(
+                    mt.multi_tensor_update.launches)  # ... ends
+        for store, tr in trainers.items():
+            rows[store].update(type=tr._kvstore.type,
+                               update_on_kvstore=tr._update_on_kvstore)
+        rows["dist_async"]["server_table_device"] = str(srv.ps.device)
+        rows["dist_async_in_process"]["server_table_device"] = str(
+            trainers["dist_async_in_process"]._kvstore._local.device)
+        pdev = nets["device"]._collect_params_with_prefix()
+        w_rel = max(_rel_norm(torch, p.data()._data, pdev[k].data()._data)
+                    for store in ("dist_async", "dist_async_in_process")
+                    for k, p in nets[store]
+                    ._collect_params_with_prefix().items())
+        for store in ("dist_async", "dist_async_in_process"):
+            trainers[store]._kvstore.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rel = max(abs(a - b) / abs(b)
+              for store in ("dist_async", "dist_async_in_process")
+              for a, b in zip(rows[store]["losses"],
+                              rows["device"]["losses"]))
+    ok = rel <= 1e-5 and w_rel <= 1e-5 and all(
+        rows[store]["update_on_kvstore"] and
+        rows[store]["type"] == "dist_async" and
+        rows[store]["server_table_device"].startswith("cuda") and
+        min(rows[store]["update_launches"]) >= 1
+        for store in ("dist_async", "dist_async_in_process"))
+    emit(dict(phase="dist_async", net="resnet18_v1", dtype="float32",
+              B=PS_B, server=uri, signed=True, stores=rows,
+              max_rel_loss_diff=rel, max_rel_weight_diff=w_rel, ok=ok))
+    if not ok:
+        failures.append(f"dist_async: {rows}, loss diff {rel}, weight "
+                        f"diff {w_rel}")
+    del nets, trainers
+    free_card(torch)
+    server_updates = sum(sum(rows[store]["update_launches"]) for store in
+                         ("dist_async", "dist_async_in_process"))
+    return launches, launches_mma, server_updates
+
+
 def main():
     import torch
 
@@ -4880,6 +5494,15 @@ def main():
     update_launches += gm_updates
     sharded_checkpoint_phase(torch, mx, llama, checkpoint, parallel, mesh,
                              failures)
+    from mxnet_tpu_torch.models import moe
+
+    moe_check_phase(torch, mx, llama, moe, fa, failures)
+    moe_infer = mixtral_infer_phase(torch, mx, llama, fa, failures)
+    moe_train = mixtral_train_phase(torch, mx, llama, moe, fa, mt, failures)
+    update_launches += moe_train[2]
+    moe_ep = moe_mesh_phase(torch, mx, llama, moe, fa, mt, parallel, vision,
+                            failures)
+    update_launches += moe_ep[2]
     parallel.shutdown()
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
@@ -4894,21 +5517,29 @@ def main():
     # forward's shapes for the fused kernel), its time and bound at
     # BERT-base's shape beside them, and the main paths' launches of each
     # design (the f32 FMA design's are the rest)
+    # the MoE paths: 20b's forwards and generates (#1 only), 20c's eager
+    # steps and 20d's ep-route steps
+    moe_tr = [a + b for a, b in zip(moe_train[0], moe_ep[0])]
+    moe_tr_mma = [a + b for a, b in zip(moe_train[1], moe_ep[1])]
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
-        pp_launches[0] + gm_launches[0]
+        pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
-        mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0]
+        mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
+        moe_infer[1] + moe_tr_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
-        pp_launches[1] + gm_launches[1]
+        pp_launches[1] + gm_launches[1] + moe_tr[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
-        ulysses_mma[1] + pp_mma[1] + gm_mma[1]
+        ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
         packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
-        pp_launches[2] + gm_launches[2]
+        pp_launches[2] + gm_launches[2] + moe_tr[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
-        ulysses_mma[2] + pp_mma[2] + gm_mma[2]
+        ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2]
+    if moe_infer[0] == 0 or 0 in moe_tr:
+        failures.append(f"the MoE paths left a kernel unlaunched: "
+                        f"{moe_infer}, {moe_tr}")
     bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
                     bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
                     library_ms=sb["library_ms"],
@@ -4933,6 +5564,8 @@ def main():
          "launches_ulysses": ulysses_launches[0],
          "launches_pipeline": pp_launches[0],
          "launches_graph_mesh": gm_launches[0],
+         "launches_moe": moe_infer[0],
+         "launches_moe_train": moe_tr[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -4947,6 +5580,8 @@ def main():
          "launches_ulysses": ulysses_launches[1],
          "launches_pipeline": pp_launches[1],
          "launches_graph_mesh": gm_launches[1],
+         "launches_moe": 0,
+         "launches_moe_train": moe_tr[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -4961,6 +5596,8 @@ def main():
          "launches_ulysses": ulysses_launches[2],
          "launches_pipeline": pp_launches[2],
          "launches_graph_mesh": gm_launches[2],
+         "launches_moe": 0,
+         "launches_moe_train": moe_tr[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],

@@ -19,7 +19,9 @@ dict) with ``partition_rules=`` (a table, a family name such as
 and ``placement`` is the coverage report.  A gradient still ``Partial``
 over the mesh when the update runs (no store, or a local one) is
 reduced first, so the optimizer and ``clip_global_norm`` see the summed
-gradient.  ``update_on_kvstore=True`` moves the update into the store;
+gradient.  ``update_on_kvstore=True`` moves the update into the store
+(``kvstore="dist_async"`` requires it: its parameter server applies the
+updates, and ``step`` ships a changed lr, rescale_grad or wd to it);
 ``compression_params`` sets the store's 2-bit compression.
 
 ``save_states``/``load_states`` write and read the reference's pickle of
@@ -215,14 +217,41 @@ class Trainer:
             self._kvstore = kv
             if self._compression_params:
                 kv.set_gradient_compression(self._compression_params)
+            if getattr(kv, "type", "") == "dist_async":
+                # the parameter server applies each update as it arrives;
+                # an update here would race stale pulls (reference
+                # kvstore_dist.h has the same requirement)
+                if update_on_kvstore is False:
+                    raise MXNetError(
+                        "dist_async requires update_on_kvstore=True")
+                update_on_kvstore = True
             update_on_kvstore = bool(update_on_kvstore)
             if update_on_kvstore:
                 for i, param in enumerate(self._params):
                     if param.grad_req != "null":
                         kv.init(i, param.data())
                 kv.set_optimizer(self._optimizer)
+                self._shipped_hparams = self._hparams_sig()
         self._update_on_kvstore = update_on_kvstore
         self._kv_initialized = True
+
+    def _hparams_sig(self):
+        lr = None if self._optimizer.lr_scheduler is not None \
+            else self._optimizer.lr
+        return (lr, self._optimizer.rescale_grad, self._optimizer.wd)
+
+    def _sync_kvstore_hparams(self):
+        """A parameter server holds a pickled copy of the optimizer: ship
+        lr, rescale_grad and wd again whenever they changed here
+        (``set_learning_rate``, another batch size).  An lr schedule
+        advances on the server, with its own update count."""
+        ship = getattr(self._kvstore, "set_optimizer_hparams", None)
+        if ship is None:
+            return
+        sig = self._hparams_sig()
+        if sig != getattr(self, "_shipped_hparams", None):
+            ship(lr=sig[0], rescale_grad=sig[1], wd=sig[2])
+            self._shipped_hparams = sig
 
     # -- public properties ---------------------------------------------------
     @property
@@ -267,6 +296,8 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            self._sync_kvstore_hparams()
         self._allreduce_grads()
         self._update(ignore_stale_grad)
         if self._data_prefetcher is not None:
@@ -317,10 +348,14 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         self._reduce_partial_grads()
         if self._update_on_kvstore:
-            for i, param in enumerate(self._params):
-                if param.grad_req == "null" or param._data is None:
-                    continue
+            # every push before the first pull: a pull waits for the
+            # store's queue, and the pushes queued together are updated
+            # together (the parameter server's batch)
+            live = [(i, p) for i, p in enumerate(self._params)
+                    if p.grad_req != "null" and p._data is not None]
+            for i, param in live:
                 self._kvstore.push(i, param.grad())
+            for i, param in live:
                 self._kvstore.pull(i, param.data())
             return
         if self._try_fused_update():

@@ -12,8 +12,10 @@ quantizes each pushed value with its per-key residual.
 ``dist_tpu_sync`` and its aliases ``dist_sync``, ``dist_device_sync``
 and ``horovod`` return ``parallel.TPUSyncKVStore``, the synchronous
 store (NCCL on the card, gloo on the host), with the reference's alias
-warning.  ``dist_async`` is left out of slice 12 (ROADMAP.md) and
-raises; so does ``row_sparse_pull`` (sparse storage, Queue 1 item 8e).
+warning.  ``dist_async`` returns ``dist_async.AsyncPSKVStore``, the
+asynchronous parameter server (host-side: its table and updates live in
+host memory, its wire is the reference's).  ``row_sparse_pull`` raises
+(sparse storage, Queue 1 item 8e).
 """
 from __future__ import annotations
 
@@ -184,6 +186,7 @@ def create(name="local"):
                 "ps-lite)")
         return TPUSyncKVStore()
     if lname == "dist_async":
-        raise MXNetError("kvstore 'dist_async' is not ported yet "
-                         "(ROADMAP.md, \"Left out of slice 12\")")
+        from .dist_async import AsyncPSKVStore
+
+        return AsyncPSKVStore()
     raise MXNetError(f"unknown kvstore type {name!r}")

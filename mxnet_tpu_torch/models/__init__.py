@@ -1,8 +1,9 @@
-"""Model families (counterpart of ``mxnet_tpu/models``): Llama,
-Transformer and BERT.  MoE and FM come with later slices (ROADMAP
-Queue 1)."""
+"""Model families (counterpart of ``mxnet_tpu/models``): Llama (with the
+Mixtral MoE configs), MoE, Transformer and BERT.  FM comes with a later
+slice (ROADMAP Queue 1 item 8g)."""
 from . import llama
 from .llama import (LlamaConfig, LlamaForCausalLM, LlamaDecoder, llama3_8b,
-                    llama_tiny)
+                    llama_tiny, mixtral_8x7b, mixtral_tiny)
+from . import moe
 from . import transformer
 from . import bert

@@ -39,8 +39,14 @@ place the weights in the Megatron layout over a mesh.
 (``parallel.pipeline``), each stage running layer 0's own code with its
 layers' weights swapped in.
 
-Not ported yet, each raising ``MXNetError`` that names the ROADMAP
-item: MoE (``num_experts``, the mixtral configs) and
+MoE (``num_experts > 0``: ``mixtral_8x7b``, ``mixtral_tiny``) builds
+each layer's MLP as ``models.moe.MoEMLP``; ``generate`` then takes the
+uncached greedy oracle route whatever ``use_cache`` says (the KV-cached
+``LlamaDecoder``, and so the serving engine, runs dense MLPs only, as
+the reference's), and ``shard_llama`` places the expert banks over
+``ep`` by ``MIXTRAL_RULES``.
+
+Not ported yet, raising ``MXNetError`` that names the ROADMAP list:
 ``scan_layers``/``set_remat`` (slice 7's left-out list).  Packed
 ``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
 route, as the reference's; ``scan_layers`` with them stays in slice 7's
@@ -84,15 +90,11 @@ __all__ = ["LlamaConfig", "RMSNorm", "LlamaAttention", "LlamaMLP",
 # batch sizes whose decode graph states (caches included) a decoder keeps,
 # and sampling keys whose graphs each of them keeps
 _DECODE_BATCHES_KEPT = 4
-_LATER = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
-          "1\")")
-
-
 _LATER7 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
            "7\": it waits for the memory-policy tiers, item 9)")
 
 
-def _not_ported(what, later=_LATER):
+def _not_ported(what, later):
     """A function or method of the reference that a later slice ports:
     calling it raises ``MXNetError`` naming the ROADMAP item."""
     def refuse(*args, **kwargs):
@@ -107,11 +109,11 @@ class LlamaConfig:
                  num_layers=32, num_heads=32, num_kv_heads=8,
                  vocab_size=128256, max_seq_len=8192, rope_theta=500000.0,
                  rms_eps=1e-5, tie_embeddings=False, attn_mode="flash",
-                 num_experts=0, scan_layers=False):
+                 num_experts=0, num_experts_per_tok=2,
+                 capacity_factor=1.25, moe_router="topk",
+                 scan_layers=False):
         if attn_mode not in ("flash", "sdpa", "ring", "ulysses"):
             raise MXNetError(f"unknown attn_mode {attn_mode!r}")
-        if num_experts:
-            raise MXNetError(f"MoE (num_experts > 0) {_LATER}")
         if scan_layers:
             raise MXNetError(f"scan_layers {_LATER7}")
         if hidden_size % num_heads:
@@ -129,6 +131,12 @@ class LlamaConfig:
         self.rms_eps = rms_eps
         self.tie_embeddings = tie_embeddings
         self.attn_mode = attn_mode
+        # MoE (Mixtral-style): 0 experts = dense SwiGLU MLP; the router
+        # is topk or expert_choice (models/moe.py)
+        self.num_experts = num_experts
+        self.num_experts_per_tok = num_experts_per_tok
+        self.capacity_factor = capacity_factor
+        self.moe_router = moe_router
         self.head_dim = hidden_size // num_heads
 
 
@@ -139,6 +147,15 @@ LLAMA_CONFIGS = {
     "llama_tiny": dict(hidden_size=64, intermediate_size=176,
                        num_layers=2, num_heads=4, num_kv_heads=2,
                        vocab_size=256, max_seq_len=128),
+    # Mixtral-8x7B architecture (sparse MoE decoder, top-2 of 8 experts)
+    "mixtral_8x7b": dict(hidden_size=4096, intermediate_size=14336,
+                         num_layers=32, num_heads=32, num_kv_heads=8,
+                         vocab_size=32000, rope_theta=1e6,
+                         num_experts=8, num_experts_per_tok=2),
+    "mixtral_tiny": dict(hidden_size=64, intermediate_size=176,
+                         num_layers=2, num_heads=4, num_kv_heads=2,
+                         vocab_size=256, max_seq_len=128,
+                         num_experts=4, num_experts_per_tok=2),
 }
 
 
@@ -336,7 +353,15 @@ class LlamaDecoderLayer(HybridBlock):
             self.self_attn = LlamaAttention(cfg, prefix="attn_")
             self.post_attention_layernorm = RMSNorm(
                 cfg.hidden_size, cfg.rms_eps, prefix="ln_post_")
-            self.mlp = LlamaMLP(cfg, prefix="mlp_")
+            if cfg.num_experts > 0:
+                from .moe import MoEMLP
+
+                self.mlp = MoEMLP(cfg.hidden_size, cfg.intermediate_size,
+                                  cfg.num_experts, cfg.num_experts_per_tok,
+                                  cfg.capacity_factor, cfg.moe_router,
+                                  prefix="moe_")
+            else:
+                self.mlp = LlamaMLP(cfg, prefix="mlp_")
 
     def hybrid_forward(self, F, x, segment_ids=None):
         if segment_ids is None:
@@ -398,10 +423,10 @@ class LlamaForCausalLM(HybridBlock):
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  seed=None):
         """Decoding.  ``use_cache=True`` (default) runs the KV-cached
-        ``LlamaDecoder``; ``use_cache=False`` re-forwards the whole
-        sequence per token (the reference's greedy oracle path).
-        ``do_sample=True`` draws from the temperature / top-k / top-p
-        filtered distribution (cached path only)."""
+        ``LlamaDecoder``; ``use_cache=False``, and any MoE config,
+        re-forwards the whole sequence per token (the reference's greedy
+        oracle path).  ``do_sample=True`` draws from the temperature /
+        top-k / top-p filtered distribution (cached path only)."""
         need = input_ids.shape[1] + max_new_tokens
         max_ctx = self._cfg.max_seq_len
         if need > max_ctx:
@@ -410,14 +435,14 @@ class LlamaForCausalLM(HybridBlock):
                 f"({max_new_tokens}) = {need} exceeds the model's "
                 f"max_seq_len ({max_ctx}); RoPE tables and KV caches are "
                 f"only valid inside the trained context window")
-        if use_cache:
+        if use_cache and self._cfg.num_experts == 0:
             return self._generate_cached(
                 input_ids, max_new_tokens, do_sample=do_sample,
                 temperature=temperature, top_k=top_k, top_p=top_p,
                 seed=seed)
         if do_sample:
             raise MXNetError("do_sample requires the KV-cache path "
-                             "(use_cache=True)")
+                             "(use_cache=True, dense MLP config)")
         cur = input_ids
         with autograd.pause():
             for _ in range(max_new_tokens):
@@ -514,6 +539,8 @@ class LlamaDecoder:
 
     def __init__(self, net: "LlamaForCausalLM", max_len: int):
         cfg = net.config
+        if cfg.num_experts:
+            raise MXNetError("LlamaDecoder supports dense MLP configs")
         self.cfg = cfg
         self.max_len = int(max_len)
         self._net = net
@@ -1048,8 +1075,16 @@ def llama_tiny(**overrides):
                                            **overrides}))
 
 
-mixtral_8x7b = _not_ported("mixtral_8x7b (MoE)")
-mixtral_tiny = _not_ported("mixtral_tiny (MoE)")
+def mixtral_8x7b(**overrides):
+    """Mixtral-8x7B architecture (sparse MoE decoder, top-2 of 8)."""
+    return LlamaForCausalLM(LlamaConfig(**{**LLAMA_CONFIGS["mixtral_8x7b"],
+                                           **overrides}))
+
+
+def mixtral_tiny(**overrides):
+    """Tiny MoE config for tests."""
+    return LlamaForCausalLM(LlamaConfig(**{**LLAMA_CONFIGS["mixtral_tiny"],
+                                           **overrides}))
 
 
 def llama_param_pspecs(net, mesh, tp_axis="tp", ep_axis="ep"):

@@ -35,6 +35,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import engine
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ops import multi_tensor
@@ -44,13 +45,16 @@ __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "LAMB", "RMSProp",
            "Test", "Updater", "get_updater", "create", "register"]
 
 _LOW = (torch.float16, torch.bfloat16)
+_FUSED_DTYPES = (torch.float32,) + _LOW  # the fused kernel's weights
 
 
 def _state_zeros(weight, dtype=None):
     """Zeros of the weight's shape on its device (in ``dtype``, default
-    the weight's)."""
-    return NDArray(torch.zeros(weight.shape, dtype=dtype or weight.dtype,
-                               device=weight._data.device))
+    the weight's); over a mesh laid out as the weight (a sharded weight's
+    state holds each rank's piece only)."""
+    return NDArray(torch.zeros_like(weight._data,
+                                    dtype=dtype or weight.dtype,
+                                    memory_format=torch.contiguous_format))
 
 
 class Optimizer:
@@ -78,6 +82,19 @@ class Optimizer:
         self.param_dict = param_dict if param_dict else {}
         self.lr_mult = {}
         self.wd_mult = {}
+
+    def __getstate__(self):
+        """The optimizer as pickled for a parameter server
+        (``kvstore.dist_async``): each Parameter of ``param_dict`` stands
+        as its ``lr_mult`` and ``wd_mult``, all the update reads of it
+        (its arrays stay with the worker)."""
+        import types
+
+        state = dict(self.__dict__)
+        state["param_dict"] = {
+            k: types.SimpleNamespace(lr_mult=p.lr_mult, wd_mult=p.wd_mult)
+            for k, p in self.param_dict.items()}
+        return state
 
     # -- registry ------------------------------------------------------------
     @staticmethod
@@ -650,6 +667,40 @@ class Updater:
             self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def update_many(self, indices, grads, weights):
+        """Apply the optimizer to (index, grad, weight) triples of distinct
+        indices: all in one launch of the fused multi-tensor kernel where
+        its rule applies (``gluon.Trainer``'s route, ``_fused_param_
+        updates``), else one by one (``__call__``)."""
+        optzr = self.optimizer
+        fusable = not engine.is_naive() and \
+            optzr._kernel_rule() is not None and all(
+                w.dtype in _FUSED_DTYPES and g.dtype == w.dtype and
+                g.shape == w.shape for g, w in zip(grads, weights))
+        if not fusable:
+            for i, g, w in zip(indices, grads, weights):
+                self(i, g, w)
+            return
+        mp_flags, m_raws, s_raws = [], [], []
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = optzr.create_state_multi_precision(i, w)
+                self.states_synced[i] = True
+            state = self.states[i]
+            use_mp = optzr.multi_precision and w.dtype in _LOW
+            if use_mp:
+                master, state = state
+                m_raws.append(master._data)
+            mp_flags.append(use_mp)
+            s_raws.append(_flatten_state(state))
+            optzr._update_count(i)
+        _fused_param_updates(
+            optzr, mp_flags, [w._data for w in weights], m_raws,
+            [g._data.contiguous() for g in grads], s_raws,
+            [optzr._get_lr(i) for i in indices],
+            [optzr._get_wd(i) for i in indices],
+            [optzr._index_update_count[i] for i in indices])
 
     def get_states(self, dump_optimizer=False):
         """The states as a pickle of numpy arrays (with the optimizer's

@@ -70,10 +70,13 @@ process a tensor-parallel rank, so a replica with tp > 1 is SPMD:
 * the graphed decode tick holds the group's collectives (the group is
   warmed by an eager collective before the capture).
 
-A replica with tp = 1 runs in one process on its own device.  Not
-ported (ROADMAP, "Left out of slice 6"): the telemetry, numerics taps
-and retrace hooks; speculative decoding and the radix cache on a replica
-with tp > 1 are left out of slice 12.  ``compiled_signatures`` keeps the
+A replica with tp = 1 runs in one process on its own device.  With tp >
+1 the speculative draft is a second engine on the same ranks and the
+same channel (its slot-cache programs mirrored as the target's are), and
+the radix cache's trie and block ids stay with the leader, which sends
+the ids of each gather, suffix prefill and commit.  Not ported (ROADMAP,
+"Left out of slice 6"): the telemetry, numerics taps and retrace
+hooks.  ``compiled_signatures`` keeps the
 reference's signature keys: here the set of program shapes that ran.
 """
 from __future__ import annotations
@@ -281,12 +284,20 @@ def _as_replica_mesh(mesh, device):
 
 class _Channel:
     """A tensor-parallel replica's command channel: the leader broadcasts
-    each device program call's name and host arguments to its peers."""
+    each device program call (its engine's tag, the program's name, the
+    host arguments) to its peers.  A replica's engines share it (the
+    target and the speculative draft), each under the tag ``register``
+    gives it; they are built in one order on every rank."""
 
     def __init__(self, rm):
         self.group = rm.channel_group
         self.leader = rm.leader
         self.lock = threading.RLock()
+        self.engines = []
+
+    def register(self, engine):
+        self.engines.append(engine)
+        return len(self.engines) - 1
 
     def send(self, msg):
         torch.distributed.broadcast_object_list([msg], src=self.leader,
@@ -311,7 +322,7 @@ def _mirrored(fn):
         if ch is None:
             return fn(self, *args, **kwargs)
         with ch.lock:
-            ch.send((fn.__name__, args, kwargs))
+            ch.send((self._tag, fn.__name__, args, kwargs))
             return fn(self, *args, **kwargs)
 
     return call
@@ -391,7 +402,7 @@ class LlamaServingEngine:
     def __init__(self, net, max_len=None, num_slots=4, int8=False,
                  kv_mode="slots", block_size=16, num_blocks=None,
                  mesh=None, partition_rules=None, replica_id=0,
-                 spec_k=0):
+                 spec_k=0, channel=None):
         if kv_mode not in ("paged", "slots"):
             raise MXNetError(f"unknown kv_mode {kv_mode!r}; "
                              "expected 'paged' or 'slots'")
@@ -409,17 +420,17 @@ class LlamaServingEngine:
         rm = self.mesh = _as_replica_mesh(
             mesh, net.model.embed_tokens.weight.data()._data.device)
         tp = rm is not None and rm.tp > 1
-        if tp and self.spec_k:
-            raise MXNetError(
-                "speculative decoding on a tensor-parallel replica is not "
-                "ported yet (ROADMAP.md, \"Left out of slice 12\")")
         self._dec = _TPDecoder(net, self.max_len, rm) if tp \
             else LlamaDecoder(net, self.max_len)
         w = self._dec._weights()
         w = _quantize_tree(w) if self.int8 else w
         self._w = w if rm is None else self._place(w, rm)
         self.device = self._w["emb"].device
-        self._channel = _Channel(rm) if tp else None
+        self._channel = None
+        if tp:
+            # a draft engine shares its target's channel (``channel``)
+            self._channel = channel if channel is not None else _Channel(rm)
+            self._tag = self._channel.register(self)
         self._held = {}
         self._held_seq = 0
         self._follower = None
@@ -560,16 +571,17 @@ class LlamaServingEngine:
         sends, on this rank's shards, until the leader releases it."""
         ch = self._channel
         while True:
-            name, args, kwargs = ch.recv()
+            tag, name, args, kwargs = ch.recv()
             if name is None:
                 return
-            getattr(type(self), name).__wrapped__(self, *args, **kwargs)
+            eng = ch.engines[tag]
+            getattr(type(eng), name).__wrapped__(eng, *args, **kwargs)
 
     def release(self):
         """The leader's last word to its peers: their ``follow`` ends."""
         if self._channel is not None and self.mesh.is_leader:
             with self._channel.lock:
-                self._channel.send((None, (), {}))
+                self._channel.send((None, None, (), {}))
 
     def _hold(self, value):
         """Keep device state for a later program (on every rank alike) and
@@ -751,23 +763,27 @@ class LlamaServingEngine:
                     self._last[s] = first[i]
                     self._pos[s] = t0s[i]
 
+    @_mirrored
     @torch.inference_mode()
     def gather_prefix(self, rows_idx):
         """Radix-hit prefill, phase 0: dense per-request copies of the
         shared prefix blocks' K/V, ``rows_idx`` (kb, nbp) physical ids
         sentinel-padded (clamped to garbage rows the suffix mask never
         exposes).  Under the device lock; the copies are fresh tensors,
-        safe to use outside it."""
+        safe to use outside it (over a tensor-parallel replica a handle
+        to the copies each rank keeps).  The radix trie and the block
+        ids are the leader's: a peer gets the ids with the call."""
         if self.kv_mode != "paged":
             raise MXNetError("gather_prefix() requires kv_mode='paged'")
         kb, nbp = rows_idx.shape
         self._note(("gather", kb, nbp * self.block_size))
         g = self._dev(rows_idx).clamp(max=self.num_blocks - 1)
         with self.dev_lock:
-            return [tuple(p[g].transpose(1, 2).reshape(
+            return self._hold([tuple(p[g].transpose(1, 2).reshape(
                 kb, p.shape[1], nbp * self.block_size, p.shape[3])
-                for p in kv) for kv in self._pool]
+                for p in kv) for kv in self._pool])
 
+    @_mirrored
     @torch.inference_mode()
     def prefill_suffix(self, prefix_kv, prompts_pad, t0s, s0s):
         """Radix-hit prefill, phase 1: the novel-suffix forward against
@@ -778,13 +794,14 @@ class LlamaServingEngine:
         tensor, suffix K/V rows) for ``commit_rows(..., skip_blocks=)``."""
         if self.kv_mode != "paged":
             raise MXNetError("prefill_suffix() requires kv_mode='paged'")
+        prefix_kv = self._take(prefix_kv)
         kb, ls = prompts_pad.shape
         lpre = prefix_kv[0][0].shape[2]
         self._note(("prefill_sfx", kb, lpre, ls))
         rows, logits = self._dec._prefill_suffix_impl(
             self._w, prefix_kv, self._dev(prompts_pad),
             self._dev(t0s), self._dev(s0s))
-        return logits.argmax(dim=-1), rows
+        return logits.argmax(dim=-1), self._hold(rows)
 
     # -- transitions (both modes) ---------------------------------------------
     @torch.inference_mode()
@@ -836,16 +853,25 @@ class LlamaServingEngine:
         if self.kv_mode != "paged":
             raise MXNetError("verify() requires kv_mode='paged'")
         self._note(("verify",))
-        with self.dev_lock:
+        # the channel's lock before the device lock, as everywhere
+        with self._serial(), self.dev_lock:
             toks_mat = np.concatenate(
                 [self._last[:, None], np.asarray(drafts, np.int32)],
                 axis=1)
-            logits = self._dec._verify_blocks_impl(
-                self._w, self._pool, self._dev(self._tables),
-                self._dev(toks_mat), self._dev(self._pos))
-            out = logits.argmax(dim=-1)
+            out = self._verify_state(toks_mat, self._tables, self._pos)
             self.steps += 1
         return _materialize([out])[0]
+
+    @_mirrored
+    @torch.inference_mode()
+    def _verify_state(self, toks_mat, tables, pos):
+        """The verify program on host state (the windows, the block
+        tables, the write cursors) → the greedy verdicts on the
+        device."""
+        logits = self._dec._verify_blocks_impl(
+            self._w, self._pool, self._dev(tables), self._dev(toks_mat),
+            self._dev(pos))
+        return logits.argmax(dim=-1)
 
     def last_tokens(self):
         """Snapshot of the per-slot last-committed-token mirror."""

@@ -38,7 +38,6 @@ from collections import deque
 import numpy as np
 import torch
 
-from ..base import MXNetError
 from .bucketing import pad_batch
 from .kv_cache import PagedKVCacheManager
 from .protocol import ServerClosedError
@@ -469,20 +468,16 @@ class Replica:
         rm = self.engine.mesh
         #: a tensor-parallel peer: it runs its leader's programs only
         self.follower = rm is not None and not rm.is_leader
-        if radix_cache and rm is not None and rm.tp > 1:
-            raise MXNetError(
-                "the radix prefix cache on a tensor-parallel replica is not "
-                "ported yet (ROADMAP.md, \"Left out of slice 12\")")
         self.draft = None
         if self.spec_k > 0:
             # the draft runs the slot-ledger engine: fixed per-slot cache
             # rows, no block bookkeeping to keep consistent with the
-            # target's pool
+            # target's pool; over tp > 1 on the target's ranks and channel
             self.draft = LlamaServingEngine(
                 draft_net, max_len=policy.max_length,
                 num_slots=num_slots, int8=int8, kv_mode="slots",
                 mesh=rm, partition_rules=partition_rules,
-                replica_id=self.index)
+                replica_id=self.index, channel=self.engine._channel)
         self.mgr = PagedKVCacheManager(
             num_slots, policy.max_length,
             num_blocks=self.engine.num_blocks,

@@ -1834,3 +1834,195 @@ def test_serving_on_a_one_card_mesh_replays_the_tick_on_card(cuda_nvcc):
             assert (srv.engine.mesh is None) == (mesh is None)
     for a, b in zip(*replies):
         np.testing.assert_array_equal(a, b)
+
+
+def _moe_pair(mx, router, dtype, seed=20):
+    """An MoEMLP (H=256, I=512, 8 experts, top 2) on the CPU from a seed
+    and the same weights on the card."""
+    from mxnet_tpu_torch.models import moe
+
+    mx.random.seed(seed)
+    cpu = moe.MoEMLP(256, 512, 8, 2, 1.25, router)
+    cpu.initialize(mx.init.Normal(0.05), ctx=mx.cpu())
+    card = moe.MoEMLP(256, 512, 8, 2, 1.25, router)
+    card.initialize(ctx=mx.gpu(0))
+    for name, p in cpu._collect_params_with_prefix().items():
+        card._collect_params_with_prefix()[name].set_data(
+            p.data()._data.cuda())
+    if dtype != "float32":
+        cpu.cast(dtype)
+        card.cast(dtype)
+    return cpu, card
+
+
+# f32: cuBLAS and the CPU sum in other orders (TF32 off): 1e-4 of the
+# largest output; bf16: each product rounds to 8 bits on either side:
+# relative norm within 2e-2.  The router runs in f32 on both, so the same
+# tokens reach the same slots.
+@pytest.mark.cuda
+@pytest.mark.parametrize("router", ["topk", "expert_choice"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_card_matches_its_cpu_run(cuda_nvcc, router, dtype):
+    """The MoE layer's forward, aux loss and gradients of x and the
+    router and banks, B=2, T=128 (capacity 80 of 256 tokens: drops)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import moe
+
+    cpu, card = _moe_pair(mx, router, dtype)
+    x = torch.from_numpy(np.random.RandomState(21).normal(
+        size=(2, 128, 256)).astype(np.float32)).to(getattr(torch, dtype))
+    head = torch.from_numpy(np.random.RandomState(22).normal(
+        size=(2, 128, 256)).astype(np.float32))
+    outs = []
+    for blk, ctx in ((cpu, mx.cpu()), (card, mx.gpu(0))):
+        xn = mx.nd.array(x.to(ctx.device), ctx=ctx)
+        xn.attach_grad()
+        with moe.collect_aux() as aux:
+            with mx.autograd.record():
+                y = blk(xn)
+                loss = (y.astype("float32") * mx.nd.array(
+                    head, ctx=ctx)).sum() + 0.3 * aux[0]
+            loss.backward()
+        grads = {n: p.grad()._data.float().cpu() for n, p in
+                 blk._collect_params_with_prefix().items()}
+        outs.append((y._data.float().cpu(), aux[0]._data.cpu(),
+                     xn.grad._data.float().cpu(), grads))
+    (y0, a0, gx0, g0), (y1, a1, gx1, g1) = outs
+    torch.testing.assert_close(a1, a0, rtol=1e-5, atol=1e-6)
+    pairs = [(y1, y0), (gx1, gx0)] + [(g1[n], g0[n]) for n in g0]
+    for got, want in pairs:
+        if dtype == "float32":
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        else:
+            norm = torch.linalg.vector_norm(got - want) / \
+                torch.linalg.vector_norm(want)
+            assert norm <= 2e-2, norm
+
+
+@pytest.mark.cuda
+def test_captured_moe_step_equals_the_eager_one_on_card(cuda_nvcc):
+    """``FusedTrainStep`` (K=3) of a 2-layer Mixtral (width 256, 8
+    experts) on the card: the routing, the expert bank and the combine
+    are captured with the flash kernels and the update (no host read in
+    the step); losses and weights equal three eager steps' (f32, rtol
+    1e-5); ``collect_aux`` inside the capture raises."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import llama, moe
+
+    ctx, vocab = mx.gpu(0), 512
+    ids = np.random.RandomState(23).randint(0, vocab, (2, 129))
+    x = mx.nd.array(ids[:, :-1], ctx=ctx, dtype="int32")
+    y = mx.nd.array(ids[:, 1:].astype(np.float32), ctx=ctx)
+
+    def make():
+        mx.random.seed(24)
+        net = llama.mixtral_tiny(hidden_size=256, intermediate_size=512,
+                                 num_heads=4, num_kv_heads=2,
+                                 num_experts=8, vocab_size=vocab)
+        net.initialize(mx.init.Normal(0.05), ctx=ctx)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.05, "momentum": 0.9})
+        return net, tr
+
+    def lm_loss(n, a, b):
+        return mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, vocab)), b.reshape((-1,))) / 256
+
+    net, tr = make()
+    eager = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = lm_loss(net, x, y)
+        loss.backward()
+        tr.step(1)
+        eager.append(float(loss.asscalar()))
+    del loss
+    net2, tr2 = make()
+    fstep = mx.gluon.FusedTrainStep(net2, tr2, lm_loss,
+                                    steps_per_execution=3, batch_size=1)
+    fused = fstep(x, y).asnumpy()
+    assert next(iter(fstep._graphs.values()))["graph"].replays == 2
+    np.testing.assert_allclose(fused, eager, rtol=1e-5)
+    got = net2._collect_params_with_prefix()
+    for k, p in net._collect_params_with_prefix().items():
+        np.testing.assert_allclose(got[k].data().asnumpy(),
+                                   p.data().asnumpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    net3, tr3 = make()
+    fstep3 = mx.gluon.FusedTrainStep(net3, tr3, lm_loss,
+                                     steps_per_execution=2, batch_size=1)
+    with moe.collect_aux():
+        with pytest.raises(MXNetError, match="hybridize"):
+            fstep3(x, y)
+
+
+@pytest.mark.cuda
+def test_moe_ep_route_on_a_one_rank_group_equals_the_plain_route(
+        nccl_group):
+    """The mesh route at ep = 1 (``shard_llama`` over {'ep': 1}: DTensor
+    banks, replicated, since a size-1 axis shards nothing; the
+    routing and the experts through ``sharded_call``) of a 2-layer
+    Mixtral on the card: logits and loss equal the plain route's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import llama
+
+    parallel = nccl_group
+    ids = mx.nd.array(np.random.RandomState(25).randint(0, 256, (2, 64)),
+                      ctx=mx.gpu(0), dtype="int32")
+    outs = []
+    for mesh in (None, parallel.make_mesh({"ep": 1})):
+        mx.random.seed(26)
+        net = llama.mixtral_tiny(hidden_size=256, intermediate_size=512,
+                                 num_heads=4, num_kv_heads=2, num_experts=8)
+        net.initialize(mx.init.Normal(0.05), ctx=mx.gpu(0))
+        if mesh is not None:
+            llama.shard_llama(net, mesh)
+        outs.append(net(ids).asnumpy())
+        parallel.set_mesh(None)
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+def test_dist_async_table_and_update_stay_on_the_card(cuda_nvcc):
+    """The in-process ``dist_async`` store on the card: its table lies on
+    the card, and each step's pushes are applied by the fused
+    multi-tensor kernel there.  A Dense net stepped through it in
+    lockstep with the ``device`` store's (the same gradients) ends with
+    the same weights (f32, rtol 1e-6: both run the same kernel)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kvstore import dist_async
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    ctx = mx.gpu(0)
+    x = mx.nd.array(np.random.RandomState(27).randn(8, 32), ctx=ctx,
+                    dtype="float32")
+    nets, trainers = [], []
+    for store in ("device", dist_async.AsyncPSKVStore()):
+        mx.random.seed(28)
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(64, in_units=32, activation="relu"),
+                mx.gluon.nn.Dense(16, in_units=64))
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        nets.append(net)
+        trainers.append(mx.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9}, kvstore=store))
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = (nets[0](x) ** 2).mean()
+        loss.backward()
+        for pd, pa in zip(nets[0].collect_params().values(),
+                          nets[1].collect_params().values()):
+            pa.grad()._data.copy_(pd.grad()._data)
+        trainers[0].step(8)
+        before = mt.multi_tensor_update.launches
+        trainers[1].step(8)
+        assert mt.multi_tensor_update.launches > before
+    kv = trainers[1]._kvstore
+    assert kv.type == "dist_async" and kv._local.device.type == "cuda"
+    assert all(v._data.is_cuda for v in kv._local._store.values())
+    for pd, pa in zip(nets[0].collect_params().values(),
+                      nets[1].collect_params().values()):
+        np.testing.assert_allclose(pa.data().asnumpy(), pd.data().asnumpy(),
+                                   rtol=1e-6, atol=1e-7)
+    kv.close()

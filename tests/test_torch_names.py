@@ -179,6 +179,52 @@ def test_names_ported_in_slice_12_resolve_to_working_functions(name):
     assert _slice12_calls()[name]()
 
 
+def _slice13_calls():
+    """One working call of each name ported in slice 13 (each was a
+    refusal naming "Left out of slice 1" or "Left out of slice 12")."""
+    from mxnet_tpu_torch import launch, nd
+    from mxnet_tpu_torch.models import llama, moe
+
+    def mixtral_tiny():
+        net = llama.mixtral_tiny()
+        net.initialize(ctx=CPU)
+        ids = nd.array(np.zeros((1, 4)), ctx=CPU, dtype="int32")
+        return net(ids).shape == (1, 4, 256)
+
+    def llama_num_experts():
+        return isinstance(llama.llama_tiny(num_experts=2).model.layers[0]
+                          .mlp, moe.MoEMLP)
+
+    def mixtral_8x7b():
+        return llama.mixtral_8x7b(num_layers=1).config.num_experts == 8
+
+    def dist_async():
+        kv = tmx.kv.create("dist_async")
+        kv.init(0, nd.ones((2,), ctx=CPU))
+        out = nd.zeros((2,), ctx=CPU)
+        kv.pull(0, out=out)
+        kv.close()
+        return out.asnumpy().tolist() == [1.0, 1.0]
+
+    def launcher_ssh():
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = launch.main(["-n", "2", "--launcher", "ssh", "--dry-run",
+                              "python", "t.py"])
+        return rc == 0 and len(buf.getvalue().splitlines()) == 2
+
+    def relaunch_on_failure():
+        return launch._backoff_delay(2, 1.0, 30.0, lambda: 1.0) == 4.0
+
+    return {f.__name__: f for f in (
+        mixtral_tiny, llama_num_experts, mixtral_8x7b, dist_async,
+        launcher_ssh, relaunch_on_failure)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice13_calls()))
+def test_names_ported_in_slice_13_resolve_to_working_functions(name):
+    assert _slice13_calls()[name]()
+
+
 # -- NDArray ---
 
 def test_ndarray_ctx_as_in_ctx_and_wait_to_write():

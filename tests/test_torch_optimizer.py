@@ -173,8 +173,10 @@ def test_kvstore_push_pull_leaves_the_gradient_uncopied():
     for name in ("dist_sync", "dist_device_sync", "dist_tpu_sync",
                  "horovod"):  # the synchronous store (slice 11)
         assert isinstance(tmx.kv.create(name), tmx.parallel.TPUSyncKVStore)
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 12"):
-        tmx.kv.create("dist_async")
+    # the asynchronous parameter server (slice 13, test_torch_dist_async)
+    ps = tmx.kv.create("dist_async")
+    assert ps.type == "dist_async" and (ps.rank, ps.num_workers) == (0, 1)
+    ps.close()
 
 
 def test_trainer_step_rescales_by_batch_size_and_matches_reference():

@@ -12,13 +12,22 @@ cross to the port as numpy arrays by structural name.  Four prompts of
     device each);
   * the port on gloo groups: two ranks at ``{'tp': 2}`` (one replica:
     the leader rank takes the requests, its peer runs what the leader
-    sends), also with ``int8=True`` and in the slots mode, and four
-    ranks at ``{'dp': 2, 'tp': 2}`` (two replicas; each leader takes its
-    own requests).
+    sends), also with ``int8=True``, in the slots mode, with speculative
+    decoding (the net as its own draft) and with the radix cache (four
+    prompts sharing a 20-token prefix), and four ranks at ``{'dp': 2,
+    'tp': 2}`` (two replicas; each leader takes its own requests).
 
-Every reply equals the reference's token for token.  ``_split_mesh``'s
+The speculative cases run twice: with the net as its own draft (every
+proposal accepted) and with a draft of its own weights (the target's
+plus seeded noise), whose rejected proposals roll the verify window,
+the write cursors and the block tables back on both ranks.
+
+Every reply equals the reference's token for token, and the speculative
+and radix replies at tp = 2 equal tp = 1's, as do the speculative
+requests' counts of proposals and acceptances.  ``_split_mesh``'s
 cases are held to the reference's replica count and width.
 """
+import json
 import os
 import sys
 
@@ -31,11 +40,44 @@ from test_torch_parallel import spawn  # noqa: E402
 PROMPTS = [np.random.RandomState(5).randint(1, 250, size=n)
            for n in (5, 9, 12, 7)]
 NEW = 6
+# the radix cache's prompts: a 20-token prefix (one 16-token block to
+# share) and suffixes of 3-6 tokens; the first request runs alone, the
+# rest reuse its block
+_HEAD = np.random.RandomState(6).randint(1, 250, size=20)
+RADIX_PROMPTS = [np.concatenate([_HEAD, np.random.RandomState(7 + i)
+                                 .randint(1, 250, size=n)])
+                 for i, n in enumerate((3, 6, 4, 5))]
 
 
-def _config(serving):
+def _config(serving, **kw):
     return serving.ServerConfig(max_batch=2, max_length=64, min_length=8,
-                                num_slots=2)
+                                num_slots=2, **kw)
+
+
+def _spec_radix(net, draft):
+    """(name, prompts, ServerConfig keywords) of the speculative cases (2
+    proposals a window; the net as its own draft, then ``draft``) and the
+    radix case."""
+    return [("spec", PROMPTS, dict(draft_net=net, spec_k=2)),
+            ("spec_draft", PROMPTS, dict(draft_net=draft, spec_k=2)),
+            ("radix", RADIX_PROMPTS, dict(radix_cache=True))]
+
+
+def _draft_weights(weights):
+    """The draft's weights: the target's plus seeded noise of a third of
+    each tensor's spread, so that it agrees with the target on some
+    proposals and not on others."""
+    rng = np.random.RandomState(11)
+    return {k: (v + v.std() / 3 * rng.standard_normal(v.shape))
+            .astype(v.dtype) for k, v in weights.items()}
+
+
+def _serve_in_turn(srv, prompts):
+    """The first prompt alone (its blocks enter the radix trie), then the
+    rest together."""
+    first = srv.submit(prompts[0], max_new_tokens=NEW).result(120)
+    futs = [srv.submit(p, max_new_tokens=NEW) for p in prompts[1:]]
+    return [first] + [f.result(120) for f in futs]
 
 
 def _worker(tmp):
@@ -55,6 +97,8 @@ def _worker(tmp):
     r, n = parallel.rank(), parallel.world_size()
     net = llama.llama_tiny()
     load_numpy_params(net, dict(np.load(tmp / "weights.npz")), ctx=cpu)
+    draft = llama.llama_tiny()
+    load_numpy_params(draft, dict(np.load(tmp / "draft.npz")), ctx=cpu)
     out = {}
     cases = [("tp2", {"tp": 2}, False, "paged"),
              ("tp2_int8", {"tp": 2}, True, "paged"),
@@ -93,16 +137,15 @@ def _worker(tmp):
                 out[f"{name}.reply{i}"] = f.result(120)
     if n == 2:
         mesh = parallel.make_mesh({"tp": 2})
-        for name, kw in (("spec", dict(draft_net=net, spec_k=2)),
-                         ("radix", dict(radix_cache=True))):
-            cfg = _config(serving)
-            for k, v in kw.items():
-                setattr(cfg, k, v)
-            try:
-                serving.GenerativeServer(net, cfg, mesh=mesh)
-                out["refused." + name] = ""
-            except tmx.MXNetError as e:
-                out["refused." + name] = str(e)
+        for name, prompts, kw in _spec_radix(net, draft):
+            srv = serving.GenerativeServer(net, _config(serving, **kw),
+                                           mesh=mesh)
+            with srv:
+                if srv.serves_requests:
+                    for i, reply in enumerate(_serve_in_turn(srv, prompts)):
+                        out[f"{name}.reply{i}"] = reply
+                    out[name + ".records"] = json.dumps(
+                        srv.request_records())
     parallel.set_mesh(None)
     np.savez(tmp / f"rank{r}.npz", **out)
 
@@ -124,6 +167,7 @@ def ranks(weights, tmp_path_factory):
     for n in (2, 4):
         tmp = tmp_path_factory.mktemp(f"serving_mesh{n}")
         np.savez(tmp / "weights.npz", **weights)
+        np.savez(tmp / "draft.npz", **_draft_weights(weights))
         runs[n] = spawn(n, tmp, __file__, timeout=240, background=True)
     return runs
 
@@ -210,10 +254,65 @@ def test_tensor_parallel_layout_and_int8_leaves(ranks, weights):
         assert o["tp2.pool_shape"][1] == 1  # llama_tiny's 2 KV heads / 2
 
 
-def test_speculation_and_radix_on_a_tp_replica_name_their_list(ranks):
-    for o in ranks[2].result():
-        for name in ("spec", "radix"):
-            assert "Left out of slice 12" in str(o["refused." + name])
+@pytest.fixture(scope="module")
+def tp1(weights):
+    """The port's replies at tp = 1 (no mesh): plain, speculative and
+    radix, on each case's prompts."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.convert import load_numpy_params
+    from mxnet_tpu_torch.models import llama
+
+    net = llama.llama_tiny()
+    load_numpy_params(net, weights, ctx=tmx.cpu())
+    draft = llama.llama_tiny()
+    load_numpy_params(draft, _draft_weights(weights), ctx=tmx.cpu())
+    out = {}
+    for name, prompts, kw in _spec_radix(net, draft):
+        for case, cfg in (("plain", _config(serving)),
+                          (name, _config(serving, **kw))):
+            with serving.GenerativeServer(net, cfg) as srv:
+                out[f"{name}.{case}"] = _serve_in_turn(srv, prompts)
+                recs = srv.request_records()
+            if case == name:
+                out[name + ".records"] = recs
+    return out
+
+
+def test_speculation_and_radix_on_a_tp_replica_name_their_list(ranks, tp1):
+    """Speculative decoding and the radix cache on a tp = 2 replica (the
+    draft's programs, the verify program and the radix cache's gather,
+    suffix prefill and commit mirrored to the peer): the replies equal
+    tp = 1's with the same option and plain greedy decoding's, token for
+    token; the windows were scored and the prefix block reused.  The
+    draft of its own weights had proposals rejected and others accepted,
+    each request's counts as at tp = 1."""
+    outs = ranks[2].result()
+    leader = next(o for o in outs if "spec.reply0" in o)
+    assert sum("spec.reply0" in o for o in outs) == 1
+    for name, prompts in (("spec", PROMPTS), ("spec_draft", PROMPTS),
+                          ("radix", RADIX_PROMPTS)):
+        got = [leader[f"{name}.reply{i}"] for i in range(len(prompts))]
+        for g, one, plain in zip(got, tp1[f"{name}.{name}"],
+                                 tp1[f"{name}.plain"]):
+            np.testing.assert_array_equal(g, one)
+            np.testing.assert_array_equal(g, plain)
+        recs = json.loads(str(leader[name + ".records"]))
+        for want in (recs, tp1[name + ".records"]):
+            if name.startswith("spec"):
+                assert all(r["draft_tokens"] > 0 for r in want)
+            else:
+                assert [r["prefix_hit_tokens"] for r in want] == \
+                    [0, 16, 16, 16]
+        if name == "spec_draft":
+            def counts(rs):
+                return sorted((r["draft_tokens"], r["accepted_tokens"])
+                              for r in rs)
+
+            assert counts(recs) == counts(tp1[name + ".records"])
+            drafted = sum(d for d, _ in counts(recs))
+            accepted = sum(a for _, a in counts(recs))
+            assert 0 < accepted < drafted - len(recs) * 2, counts(recs)
 
 
 def test_dp_replicas_in_one_process_equal_the_reference(weights, ref):
