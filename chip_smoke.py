@@ -28,7 +28,10 @@ bodies at full width, and SyncBatchNorm; and the 1F1B pipeline over 4
 stages on the card, ``FusedTrainStep`` and ``hybridize()`` graphs over
 the mesh, serving on a mesh, and a sharded checkpoint; and Mixtral-8x7B
 (MoE) inference and training at full width through the flash kernels,
-its expert-parallel route, and the ``dist_async`` parameter server.
+its expert-parallel route, and the ``dist_async`` parameter server; and
+int8 inference (the quantized ops, ``quantize_net`` on ResNet-50, int8
+``InferenceServer`` and ``GenerativeServer``) and recurrent nets
+(``nd.RNN``, an LSTM word language model, a BiLSTM with ``CTCLoss``).
 
     python3 chip_smoke.py
 
@@ -271,7 +274,33 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     through ``Trainer(kvstore=AsyncPSKVStore(...))`` against a
     ``dist_async`` server on 127.0.0.1 with a per-run secret, in lockstep
     with the ``device`` store on the same gradients: the losses and
-    weights against the ``device`` store's and push+pull ms a step.
+    weights against the ``device`` store's and push+pull ms a step;
+21a. the int8 ops (``ops/quantization.py``) on the card against the CPU
+    route on the same inputs, int32 outputs equal: FC at K = 147 and at
+    M <= 16, the uint8 FC path at its range row, int8 convs with stride,
+    padding and dilation; the int8 product alone at ResNet-50's
+    3x3x512 reduction, exact, with its time;
+21b. ``contrib.quantization.quantize_net`` on ``resnet50_v1`` (f32
+    weights from the seed, 224x224), calibrated on two batches of 128:
+    the int8 forward at B=128 eagerly and hybridized (images/s, peak,
+    the bound), top-1 agreement with the f32 net, no launch of #4; the
+    card against the CPU at B=4;
+21c. 21b's weights through ``InferenceServer(ServerConfig(int8=True,
+    calib_data=...))`` with phase 14's traffic, beside phase 14;
+21d. ``GenerativeServer(ServerConfig(int8=True))`` on phase 8's net
+    (``llama3_8b``, 32 layers) with 8b's traffic: tick ms, tokens/s and
+    peak beside 8b's, tokens equal to 8b's counted;
+22a. ``nd.RNN`` in every mode, 2 layers, both directions, states in and
+    out: outputs and gradients on the card against the CPU; an
+    ``LSTMCell``'s ``unroll`` against the fused ``LSTM``;
+22b. the LSTM word language model at the upstream Gluon example's
+    widths (650, 2 layers, tied, bptt 35, batch 32, 33,278 words):
+    eager steps with ``clip_global_norm`` and ``FusedTrainStep`` steps,
+    step ms, tokens/s, launches a step and the bound, beside cuDNN's
+    LSTM at the same shape;
+22c. ``examples/train_ctc_ocr.py``'s BiLSTM + ``CTCLoss`` net at its
+    shapes: eager and ``FusedTrainStep`` steps; ``ctc_loss`` on the card
+    against the CPU and ``F.ctc_loss``, an infeasible label's ~1e30.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -281,9 +310,10 @@ llama_parallel}.py``).
 The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
-captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps; the
-update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d, 19a, 19b and 20c) and
-read just after,
+captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
+int8 forwards (#4 must launch 0 times there); the update's in 9, 12,
+12b, 13b, 16, 17, 18b, 18d, 19a, 19b, 20c, 22b and 22c) and read just
+after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -2790,6 +2820,8 @@ def resnet_serve_phase(torch, mx, vision, cbr, serving, failures):
         worst_norm <= SERVE_BF16_TOL and launches == 16 * batches and \
         mma == launches and cache["signatures"] <= ceiling and \
         cache["misses"] == cache["signatures"] and stats["failed"] == 0
+    STASH["resnet_serve"] = dict(images_per_s=rate["requests_per_s"],
+                                 p50_ms=rate["p50_ms"], p99_ms=rate["p99_ms"])
     emit(dict(phase="resnet_serve", net="resnet50_v1", dtype="bfloat16",
               image=SERVE_IMAGE, requests=SERVE_REQUESTS,
               clients=SERVE_CLIENTS,
@@ -5381,6 +5413,745 @@ def moe_mesh_phase(torch, mx, llama, moe, fa, mt, parallel, vision,
     return launches, launches_mma, server_updates
 
 
+# -- slice 14: int8 inference and recurrent nets ------------------------------
+INT8_B = 128                 # 21b: bench.py's ResNet-50 batch
+INT8_IMAGE = 224
+INT8_CALIB_BATCHES = 2
+INT8_CHECK_B = 4
+# 21b's B=4 check: the card's int8 net against the CPU's on the same
+# weights, each calibrated on the same batch.  Every int32 product is
+# exact on both; the float steps between (dequantize, BatchNorm, ReLU)
+# may round 1 ulp apart and move an element across a rounding edge of
+# the next quantization (one int8 step, 1/127 of a layer's range): the
+# logits within 2e-2 by relative norm
+INT8_CPU_TOL = 2e-2
+# 21b: the replayed graph against the eager int8 forward, relative norm
+# (the same kernels on the same inputs)
+INT8_GRAPH_TOL = 1e-5
+# 21c: each served reply against its request's solo int8 forward, as 21b
+INT8_SERVE_TOL = 2e-2
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 (data sheet, 700 W)
+# 22a: nd.RNN on the card against the CPU, f32 (no TF32): every output
+# and gradient within this share of its tensor's largest value (the same
+# products summed in other orders through 2 layers and 24 steps)
+RNN_TOL = 1e-4
+RNN_T, RNN_N, RNN_C, RNN_H = 24, 8, 64, 128
+# 22b: the LSTM word language model of the upstream MXNet Gluon example
+# (example/gluon/word_language_model; its widths recalled, the upstream
+# tree is not in this repository): embedding and hidden 650, 2 layers,
+# dropout 0.5, tied weights, bptt 35, batch 32, WikiText-2's 33,278-word
+# vocabulary, SGD lr 20, gradient clip 0.25
+WLM_VOCAB = 33278
+WLM_UNITS = 650
+WLM_LAYERS = 2
+WLM_DROPOUT = 0.5
+WLM_BPTT = 35
+WLM_B = 32
+WLM_LR = 20.0
+WLM_CLIP = 0.25
+WLM_STEPS = 5                # timed eager steps, after 2 warm-ups
+WLM_K = 5                    # FusedTrainStep steps a call
+# 22c: the BiLSTM + CTC net of examples/train_ctc_ocr.py at its shapes
+CTC_B, CTC_T, CTC_FEAT, CTC_HID = 32, 32, 8, 32
+CTC_CLASSES, CTC_LABEL, CTC_STEPS = 10, 6, 5
+CTC_TOL = 1e-5               # ctc_loss card vs CPU and vs F.ctc_loss (f32)
+
+
+def _conv_macs(mx, net, x):
+    """Multiply-adds of every ``Conv2D`` and ``Dense`` of ``net`` in one
+    forward of ``x``, read off forward hooks (each output's size times
+    its reduction length)."""
+    nn = mx.gluon.nn
+    macs, handles = [], []
+
+    def hook(block, inputs, out):
+        w = block.weight.shape
+        per = math.prod(w[1:]) if isinstance(block, nn.Conv2D) else w[1]
+        macs.append(math.prod(out.shape) * per)
+
+    net.apply(lambda b: handles.append(b.register_forward_hook(hook))
+              if isinstance(b, (nn.Conv2D, nn.Dense)) else None)
+    net(x)
+    for h in handles:
+        h.detach()
+    return sum(macs)
+
+
+def _quantized_layers(mx, net):
+    """(layers with the int8 chain, ``Conv2D`` and ``Dense`` layers)."""
+    nn = mx.gluon.nn
+    blocks = []
+    net.apply(blocks.append)
+    layers = [b for b in blocks if isinstance(b, (nn.Conv2D, nn.Dense))]
+    return sum("hybrid_forward" in b.__dict__ for b in layers), len(layers)
+
+
+def int8_ops_phase(torch, mx, failures):
+    """Phase 21a: each quantized op on the card against the port's CPU
+    route on the same inputs: the int32 and int8 outputs equal, the
+    ranges within f32 rounding.  Covers K = 147 (ResNet's 7x7x3 stem, not
+    a multiple of 8), M <= 16, int8 convs with stride, padding and
+    dilation, and the uint8 FC path at its range row (the top of int32,
+    where the cast saturates); then the int8 product alone at ResNet-50's
+    3x3x512 reduction, exact, with its time."""
+    from mxnet_tpu_torch.ops import quantization as q
+
+    rs = np.random.RandomState(SEED + 21)
+    rows = []
+
+    def both(fn, *arrays):
+        outs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            res = fn(*[mx.nd.array(a, ctx=ctx) for a in arrays])
+            outs.append([r._data.cpu() for r in res])
+        return outs
+
+    def same(name, outs):
+        card, cpu = outs
+        equal = all(torch.allclose(a, b, rtol=1e-6, atol=0)
+                    if a.is_floating_point() else torch.equal(a, b)
+                    for a, b in zip(card, cpu))
+        top = max(int(r.long().abs().max()) for r in card
+                  if not r.is_floating_point())
+        rows.append(dict(case=name, shape=list(card[0].shape),
+                         dtype=str(card[0].dtype).replace("torch.", ""),
+                         equal=equal, largest_abs=top))
+        if not equal:
+            failures.append(f"int8 op {name}: the card differs from the CPU")
+
+    def fc(data_type, m, k, n):
+        x = rs.normal(0, 1, (m, k)).astype(np.float32)
+        w = rs.normal(0, 0.2, (n, k)).astype(np.float32)
+
+        def f(xa, wa):
+            qd = mx.nd.quantize_v2(xa, out_type=data_type)
+            qw = mx.nd.quantize_v2(wa)
+            return mx.nd.quantized_fully_connected(
+                qd[0], qw[0], qd[1], qd[2], qw[1], qw[2], no_bias=True,
+                num_hidden=n)
+        return both(f, x, w)
+
+    for data_type, m, k, n in (("int8", 4, 147, 64), ("int8", 16, 2048, 1000),
+                               ("int8", 128, 2048, 1000),
+                               ("uint8", 9, 147, 13), ("uint8", 64, 512, 24)):
+        same(f"fc_{data_type}_m{m}_k{k}_n{n}", fc(data_type, m, k, n))
+    for name, xs, ws, stride, pad, dil in (
+            ("stem_7x7_k147", (4, 3, 224, 224), (64, 3, 7, 7), 2, 3, 1),
+            ("3x3_s1", (8, 64, 56, 56), (64, 64, 3, 3), 1, 1, 1),
+            ("3x3_s2_dil2", (2, 32, 29, 31), (48, 32, 3, 3), 2, 2, 2),
+            ("1x1_s2", (8, 256, 56, 56), (512, 256, 1, 1), 2, 0, 1),
+            ("1x1_m9", (1, 512, 3, 3), (40, 512, 1, 1), 1, 0, 1)):
+        x = rs.normal(0, 1, xs).astype(np.float32)
+        w = rs.normal(0, 0.1, ws).astype(np.float32)
+
+        def f(xa, wa, ws=ws, stride=stride, pad=pad, dil=dil):
+            qd = mx.nd.quantize_v2(xa)
+            qw = mx.nd.quantize_v2(wa)
+            return mx.nd.quantized_conv(
+                qd[0], qw[0], qd[1], qd[2], qw[1], qw[2], no_bias=True,
+                kernel=ws[2:], stride=stride, pad=pad, dilate=dil,
+                num_filter=ws[0])
+        same(f"conv_{name}", both(f, x, w))
+
+    def chain(xa):
+        qd = mx.nd.quantize_v2(xa)
+        mn = mx.nd.array([-4.0], ctx=xa.context)
+        mx_ = mx.nd.array([4.0], ctx=xa.context)
+        acc = mx.nd.array(qd[0]._data.int() * 3000, ctx=xa.context)
+        r = mx.nd.requantize(acc, mn, mx_)
+        return mx.nd.quantized_flatten(*mx.nd.quantized_pooling(
+            *r, kernel=(2, 2), pool_type="max", stride=(2, 2)))
+
+    same("requantize_pool_flatten", both(
+        chain, rs.normal(0, 1, (8, 64, 28, 28)).astype(np.float32)))
+    a = torch.randint(-127, 128, (6272, 4608), dtype=torch.int8,
+                      device="cuda")
+    w = torch.randint(-127, 128, (512, 4608), dtype=torch.int8,
+                      device="cuda")
+    exact = torch.equal(q._int8_matmul(a, w).cpu(),
+                        q._int8_matmul(a.cpu(), w.cpu()))
+    ms = time_ms(torch, lambda: q._int8_matmul(a, w), 20)
+    # the same product with the weight copied K-major, (K, N) row-major
+    # (cuBLASLt's "NN" int8 layout): a yardstick of the layout choice
+    wkn = w.t().contiguous()
+    nn_ms = time_ms(torch, lambda: torch._int_mm(a, wkn), 20)
+    ops = 2 * 6272 * 4608 * 512
+    ok = all(r["equal"] for r in rows) and exact
+    emit(dict(phase="int8_ops", nvidia_smi=_card(), cases=rows,
+              int_mm=dict(m=6272, k=4608, n=512, exact=exact, ms=ms,
+                          tops=ops / ms / 1e9, nn_layout_ms=nn_ms,
+                          bound_ms=ops / PEAK_INT8_OPS * 1e3), ok=ok))
+    if not exact:
+        failures.append("int8 product at 6272x4608x512: card != CPU")
+    del a, w, wkn
+
+
+def int8_resnet_phase(torch, mx, vision, cbr, failures):
+    """Phase 21b: ``quantize_net`` on ``resnet50_v1`` (f32 weights from
+    the seed, 224x224), calibrated on INT8_CALIB_BATCHES seeded batches
+    of INT8_B; the int8 forward at B=INT8_B eagerly and hybridized, with
+    images/s, peak memory and the bound (int8 operations at the dense
+    int8 rate against the bytes at 3.35 TB/s), its top-1 agreement with
+    the f32 net and the logits' relative distance; #4 launches 0 times
+    (every 1x1 conv is rewritten, so none fuses).  Then the same weights
+    on the card and on the CPU at B=INT8_CHECK_B, each calibrated on the
+    same batch, within INT8_CPU_TOL."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    arrays = _resnet_arrays(torch, mx, vision.resnet50_v1,
+                            (1, 3, INT8_IMAGE, INT8_IMAGE))
+    STASH["int8_arrays"] = arrays
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+
+    def batch(b):
+        return mx.nd.array(torch.rand((b, 3, INT8_IMAGE, INT8_IMAGE),
+                                      generator=gen, device="cuda"))
+
+    calib = [batch(INT8_B) for _ in range(INT8_CALIB_BATCHES)]
+    x = batch(INT8_B)
+    f32 = vision.resnet50_v1()
+    load_numpy_params(f32, arrays, ctx=gpu)
+    ref = f32(x)._data.clone()
+    f32_ms = time_ms(torch, lambda: f32(x), 3)
+    del f32
+    net = vision.resnet50_v1()
+    load_numpy_params(net, arrays, ctx=gpu)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    quantize_net(net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    done, total = _quantized_layers(mx, net)
+    macs = _conv_macs(mx, net, x)
+    fn = cbr.fused_matmul_affine_relu
+    fn.launches = fn.launches_mma = 0  # the int8 path starts here
+    res = {}
+    for mode in ("eager", "graph"):
+        if mode == "graph":
+            net.hybridize(static_alloc=True, static_shape=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(4):  # a warm-up (the capture), then three
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        warm = sum(ms[1:]) / 3
+        res[mode] = dict(
+            ms=ms, warm_ms=warm, images_per_s=INT8_B / warm * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            out=out._data.clone())
+        del out
+    fused_launches = fn.launches  # ... and ends here
+    net.hybridize(False)
+    got = res["eager"].pop("out")
+    graph_norm = _rel_norm(torch, res["graph"].pop("out"), got)
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    dist = _rel_norm(torch, got, ref)
+    ops = 2 * macs
+    # the images read once (f32), the weights once (int8), the logits
+    nbytes = x._data.numel() * 4 + sum(a.size for a in arrays.values()) \
+        + INT8_B * 1000 * 4
+    bound_ops = ops / PEAK_INT8_OPS * 1e3
+    bound_bytes = nbytes / PEAK_BYTES * 1e3
+    xc = torch.rand((INT8_CHECK_B, 3, INT8_IMAGE, INT8_IMAGE),
+                    generator=torch.Generator().manual_seed(SEED + 23))
+    outs = []
+    for ctx in (gpu, mx.cpu()):
+        n = vision.resnet50_v1()
+        load_numpy_params(n, arrays, ctx=ctx)
+        xa = mx.nd.array(xc, ctx=ctx)
+        quantize_net(n, calib_data=[xa], calib_mode="naive")
+        outs.append(n(xa)._data.float().cpu())
+        del n
+    cpu_norm = _rel_norm(torch, outs[0], outs[1])
+    cpu_agree = float((outs[0].argmax(1) == outs[1].argmax(1))
+                      .float().mean())
+    ok = done == total == 54 and fused_launches == 0 and \
+        bool(torch.isfinite(got).all()) and graph_norm <= INT8_GRAPH_TOL \
+        and cpu_norm <= INT8_CPU_TOL
+    emit(dict(phase="int8_resnet", nvidia_smi=_card(), net="resnet50_v1",
+              B=INT8_B, image=INT8_IMAGE, calib_batches=INT8_CALIB_BATCHES,
+              quantize_net_s=quant_s, quantized_layers=done, layers=total,
+              fused_launches=fused_launches, eager=res["eager"],
+              graph=res["graph"], f32_forward_ms=f32_ms,
+              int8_gop=ops / 1e9, bound_ms=max(bound_ops, bound_bytes),
+              bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+              bound_ops_ms=bound_ops, bound_bytes_ms=bound_bytes,
+              top1_agreement_with_f32=agree, logits_rel_norm_vs_f32=dist,
+              graph_rel_norm_vs_eager=graph_norm, graph_tol=INT8_GRAPH_TOL,
+              cpu_check=dict(B=INT8_CHECK_B, rel_norm=cpu_norm,
+                             top1_agreement=cpu_agree, tol=INT8_CPU_TOL),
+              ok=ok))
+    if not ok:
+        failures.append(f"int8 resnet: {done}/{total} layers quantized, #4 "
+                        f"launched {fused_launches} times, graph vs eager "
+                        f"{graph_norm}, card vs CPU {cpu_norm}")
+    del net, calib, x, res, got, ref
+    free_card(torch)
+
+
+def int8_serve_phase(torch, mx, vision, serving, failures):
+    """Phase 21c: 21b's ResNet-50 weights through ``InferenceServer`` with
+    ``ServerConfig(int8=True, calib_data=...)`` (``quantize_net`` on two
+    batches of 32 of the requests, naive) and phase 14's traffic: 64
+    requests from 8 clients in nine waves, max_batch 32; the rate and
+    latencies over the later eight waves beside phase 14's bf16 ones;
+    every reply against its request's solo int8 forward."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    net = vision.resnet50_v1()
+    load_numpy_params(net, STASH["int8_arrays"], ctx=gpu)
+    rng = np.random.RandomState(SEED + 14)  # phase 14's requests
+    images = [rng.rand(3, SERVE_IMAGE, SERVE_IMAGE).astype(np.float32)
+              for _ in range(SERVE_REQUESTS)]
+    calib = [mx.nd.array(np.stack(images[i:i + SERVE_MAX_BATCH]), ctx=gpu)
+             for i in range(0, 2 * SERVE_MAX_BATCH, SERVE_MAX_BATCH)]
+    net.hybridize(static_alloc=True)
+    config = serving.ServerConfig(
+        max_batch=SERVE_MAX_BATCH, min_batch=1, max_length=SERVE_IMAGE,
+        min_length=SERVE_IMAGE, length_axis=1, batch_window_ms=5.0,
+        queue_capacity=SERVE_REQUESTS, int8=True, calib_data=calib)
+    replies, waves, rate, stats = _serve_waves(
+        serving, net, config, images, net.cache_stats)
+    done, total = _quantized_layers(mx, net)
+    cache = net.cache_stats()
+    net.hybridize(False)
+    worst = 0.0
+    for i, x in enumerate(images):
+        solo = net(mx.nd.array(x[None], ctx=gpu))._data[0].float().cpu()
+        for wave in replies:
+            got = torch.from_numpy(np.asarray(wave[i], np.float32))
+            worst = max(worst, _rel_norm(torch, got, solo))
+    ceiling = len(config.policy.signatures())
+    ok = done == total == 54 and worst <= INT8_SERVE_TOL and \
+        not any(w["errors"] for w in waves) and stats["failed"] == 0 and \
+        cache["signatures"] <= ceiling
+    emit(dict(phase="int8_serve", nvidia_smi=_card(), net="resnet50_v1",
+              dtype="int8 (f32 between layers)", image=SERVE_IMAGE,
+              requests=SERVE_REQUESTS, clients=SERVE_CLIENTS,
+              max_batch=SERVE_MAX_BATCH, waves=waves,
+              images_per_s=rate["requests_per_s"], after_first_wave=rate,
+              bf16_phase14=STASH.get("resnet_serve"),
+              quantized_layers=done, cache_stats=cache,
+              signature_ceiling=ceiling, worst_rel_norm_vs_solo=worst,
+              tol=INT8_SERVE_TOL, ok=ok))
+    if not ok:
+        failures.append(f"int8 serving: {done}/{total} layers quantized, "
+                        f"worst reply {worst}, errors "
+                        f"{[w['errors'] for w in waves]}")
+    del net, replies
+    free_card(torch)
+
+
+def _leaves_of(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves_of(v)
+    elif hasattr(tree, "dtype"):
+        yield tree
+
+
+def int8_generative_phase(torch, mx, llama, serving, fa, failures):
+    """Phase 21d: ``GenerativeServer`` with ``ServerConfig(int8=True)`` on
+    phase 8's net (``llama3_8b``, 32 layers, bf16, the same seed):
+    weight-only per-channel int8, each matrix dequantized to f32 per
+    product as the reference does; 8b's traffic (8 prompts, two waves).
+    Tick ms, decode tokens/s and peak memory beside 8b's bf16 server, and
+    how many tokens equal 8b's (not required to be equal)."""
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = llama.llama3_8b()
+    net.cast("bfloat16")
+    net.initialize(ctx=mx.gpu(0))
+    plain, _ = _serve_prompts(net.config.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)
+    replies, srv, stats, wall_s = _serve(serving, net, plain, first_wave=2,
+                                         int8=True)
+    peak = torch.cuda.max_memory_allocated()
+    launches = sum(c.launches for c in _counters(fa))
+    rep = srv.replicas[0]
+    ticks = list(rep.tick_ms)
+    bf16 = STASH.get("serve", {})
+    same = sum(int((r[len(p):] == b[len(p):]).sum()) for p, r, b in
+               zip(plain, replies, bf16.get("replies", replies)))
+    leaves = list(_leaves_of(srv.engine._w))
+    int8_leaves = sum(1 for v in leaves if v.dtype == torch.int8)
+    ok = stats["completed"] == len(plain) and stats["failed"] == 0 and \
+        all(len(r) == len(p) + SERVE_NEW for p, r in zip(plain, replies)) \
+        and int8_leaves > 0 and launches == 0
+    emit(dict(phase="int8_generative", nvidia_smi=_card(),
+              layers=net.config.num_layers, mode="paged", int8=True,
+              waves=[2, len(plain) - 2], new_tokens=SERVE_NEW,
+              decode_step_ms=ticks,
+              decode_step_ms_median=float(np.median(ticks)) if ticks
+              else None,
+              bf16_decode_step_ms_median=bf16.get("decode_step_ms_median"),
+              decode_tokens_per_s=sum(rep.tick_slots) / sum(ticks) * 1e3
+              if ticks else None,
+              overall_tokens_per_s=len(plain) * SERVE_NEW / wall_s,
+              ttft_ms=[r["ttft_ms"] for r in srv.request_records()],
+              bf16_ttft_ms=bf16.get("ttft_ms"),
+              prefill_ms=list(rep.prefill_ms), max_memory_allocated=peak,
+              weight_leaves=len(leaves), int8_leaves=int8_leaves,
+              weight_bytes=sum(v.numel() * v.element_size()
+                               for v in leaves),
+              path_launches=launches, tokens_same_as_bf16=same,
+              positions=len(plain) * SERVE_NEW, ok=ok))
+    if not ok:
+        failures.append(f"int8 generative serving: {stats}, int8 leaves "
+                        f"{int8_leaves}, launches {launches}")
+    del srv, replies, net
+    free_card(torch)
+
+
+def _rnn_case(mx, mode, ctx, arrays, head):
+    x, states, params = arrays
+    ins = [mx.nd.array(a, ctx=ctx) for a in [x] + states + params]
+    for a in ins:
+        a.attach_grad()
+    with mx.autograd.record():
+        outs = mx.nd.RNN(ins[0], ins[1:1 + len(states)],
+                         ins[1 + len(states):], mode=mode,
+                         state_size=RNN_H, num_layers=2, bidirectional=True)
+        total = None
+        for o, h in zip(outs, head):
+            term = (o * mx.nd.array(h, ctx=ctx)).sum()
+            total = term if total is None else total + term
+    total.backward()
+    return [o._data.float().cpu() for o in outs] + \
+        [a.grad._data.float().cpu() for a in ins]
+
+
+def rnn_ops_phase(torch, mx, failures):
+    """Phase 22a: ``nd.RNN`` in every mode, 2 layers, both directions,
+    states in and out (T=24, N=8, C=64, H=128, f32): outputs, final
+    states and the gradients of the data, the states and every weight on
+    the card against the CPU, each within RNN_TOL of its tensor's largest
+    value; then an ``LSTMCell``'s ``unroll`` against the fused ``LSTM``
+    layer on the same weights, on the card."""
+    gates = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+    rows = []
+    for mode, g in gates.items():
+        rs = np.random.RandomState(SEED + 30 + len(mode))
+        x = rs.normal(0, 1, (RNN_T, RNN_N, RNN_C)).astype(np.float32)
+        states = [rs.normal(0, 0.5, (4, RNN_N, RNN_H)).astype(np.float32)
+                  for _ in range(2 if mode == "lstm" else 1)]
+        params = []
+        for layer in range(2):
+            ni = RNN_C if layer == 0 else 2 * RNN_H
+            for _ in range(2):
+                params += [rs.normal(0, 0.1, s).astype(np.float32) for s in
+                           ((g * RNN_H, ni), (g * RNN_H, RNN_H),
+                            (g * RNN_H,), (g * RNN_H,))]
+        head = [rs.normal(size=s).astype(np.float32) for s in
+                [(RNN_T, RNN_N, 2 * RNN_H)] + [(4, RNN_N, RNN_H)] *
+                len(states)]
+        arrays = (x, states, params)
+        card = _rnn_case(mx, mode, mx.gpu(0), arrays, head)
+        cpu = _rnn_case(mx, mode, mx.cpu(), arrays, head)
+        worst = max((a - b).abs().max().item() /
+                    max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(card, cpu))
+        rows.append(dict(mode=mode, tensors=len(card), worst_share=worst,
+                         ok=worst <= RNN_TOL))
+    layer = mx.gluon.rnn.LSTM(RNN_H, input_size=RNN_C)
+    cell = mx.gluon.rnn.LSTMCell(RNN_H, input_size=RNN_C)
+    mx.random.seed(SEED)
+    layer.initialize(mx.init.Uniform(0.1), ctx=mx.gpu(0))
+    cell.initialize(ctx=mx.gpu(0))
+    for name in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+        getattr(cell, name).set_data(getattr(layer, f"l0_{name}").data())
+    xs = mx.nd.array(np.random.RandomState(SEED + 35).normal(
+        0, 1, (RNN_T, RNN_N, RNN_C)).astype(np.float32), ctx=mx.gpu(0))
+    fused = layer(xs)._data
+    unrolled, _ = cell.unroll(RNN_T, xs, layout="TNC", merge_outputs=True)
+    cell_share = (unrolled._data - fused).abs().max().item() / \
+        fused.abs().max().item()
+    ok = all(r["ok"] for r in rows) and cell_share <= RNN_TOL
+    emit(dict(phase="rnn_ops", nvidia_smi=_card(), T=RNN_T, N=RNN_N,
+              C=RNN_C, H=RNN_H, layers=2, bidirectional=True, modes=rows,
+              cell_unroll_vs_layer=cell_share, tol=RNN_TOL, ok=ok))
+    if not ok:
+        failures.append(f"nd.RNN card vs CPU: {rows}; cell unroll vs layer "
+                        f"{cell_share}")
+
+
+def _word_lm(mx, dropout):
+    """The upstream example's ``RNNModel``: embedding, dropout, a 2-layer
+    LSTM, dropout, and the decoder tied to the embedding's weight."""
+    nn = mx.gluon.nn
+
+    class RNNModel(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(WLM_VOCAB, WLM_UNITS)
+                self.rnn = mx.gluon.rnn.LSTM(
+                    WLM_UNITS, WLM_LAYERS, dropout=dropout,
+                    input_size=WLM_UNITS)
+                self.decoder = nn.Dense(WLM_VOCAB, in_units=WLM_UNITS,
+                                        flatten=False,
+                                        params=self.encoder.params)
+
+        def hybrid_forward(self, F, ids):
+            out = self.rnn(self.drop(self.encoder(ids)))
+            return self.decoder(self.drop(out))
+
+    return RNNModel()
+
+
+def _wlm_flops():
+    """Forward FLOPs of one (bptt, batch) step: the LSTM layers' input
+    and recurrent products and the decoder."""
+    tokens = WLM_BPTT * WLM_B
+    lstm = WLM_LAYERS * 2 * tokens * (2 * WLM_UNITS) * 4 * WLM_UNITS
+    return lstm + 2 * tokens * WLM_UNITS * WLM_VOCAB
+
+
+def _count_launches(torch, fn):
+    """Device kernels of one ``fn()`` on the card, read off
+    ``torch.profiler`` ((None, the reason) where it records none)."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        return (n, None) if n else (None, "no device events")
+    except Exception as e:  # noqa: BLE001 - reported, not a failure
+        return None, repr(e)
+
+
+def word_lm_phase(torch, mx, mt, failures):
+    """Phase 22b: the LSTM word language model at the upstream Gluon
+    example's widths (WLM_*), random ids from the seed: eager steps with
+    ``clip_global_norm`` (the example's step) and ``FusedTrainStep``
+    steps (K=WLM_K; like the reference's it has no hook between backward
+    and update, so its steps clip each gradient element at WLM_CLIP
+    through the optimizer's ``clip_gradient``, inside the update kernel);
+    step ms, tokens/s, launches a step and the step's bound (3x the
+    forward FLOPs at the f32 rate); ``torch.nn.LSTM`` (cuDNN) at the same
+    shape as a yardstick, forward and backward."""
+    free_card(torch)
+    gpu = mx.gpu(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+
+    def ids():
+        return mx.nd.array(torch.randint(0, WLM_VOCAB, (WLM_BPTT, WLM_B),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32))
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(net, x, y):
+        return loss_fn(net(x).reshape((-1, WLM_VOCAB)), y.reshape((-1,)))
+
+    tokens = WLM_BPTT * WLM_B
+    res = {}
+    for route in ("eager", "fused"):
+        mx.random.seed(SEED)
+        net = _word_lm(mx, WLM_DROPOUT)
+        net.initialize(mx.init.Uniform(0.1), ctx=gpu)
+        net.hybridize(static_alloc=True)
+        params = [p for p in net.collect_params().values()
+                  if p.grad_req != "null"]
+        opt = {"learning_rate": WLM_LR}
+        if route == "fused":
+            opt["clip_gradient"] = WLM_CLIP
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", opt)
+        batches = [(ids(), ids()) for _ in range(WLM_STEPS + 2)]
+        torch.cuda.reset_peak_memory_stats()
+        mt.multi_tensor_update.launches = 0
+        if route == "eager":
+            def step(x, y):
+                with mx.autograd.record():
+                    loss = lm_loss(net, x, y)
+                loss.backward()
+                mx.gluon.utils.clip_global_norm(
+                    [p.grad() for p in params], WLM_CLIP * tokens)
+                trainer.step(tokens)
+                return float(loss.mean().asscalar())
+
+            losses, ms = [], []
+            for x, y in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(step(x, y))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            warm = sum(ms[2:]) / len(ms[2:])
+            updates = mt.multi_tensor_update.launches
+            launches, why = _count_launches(torch, lambda: step(*batches[0]))
+        else:
+            fstep = mx.gluon.FusedTrainStep(
+                net, trainer, lm_loss, steps_per_execution=WLM_K,
+                batch_size=tokens)
+            losses, ms = [], []
+            for x, y in batches[:3]:  # step 0 eager (the warm-up), replays
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fstep(x, y).asnumpy()
+                ms.append((time.perf_counter() - t) * 1e3)
+                losses += [float(v) / tokens for v in out]
+            warm = sum(ms[1:]) / len(ms[1:]) / WLM_K
+            updates = mt.multi_tensor_update.launches
+            launches, why = _count_launches(torch, lambda: fstep(x, y))
+            launches = launches / WLM_K if launches else launches
+        res[route] = dict(
+            losses=losses, ms=ms, step_ms=warm,
+            tokens_per_s=tokens / warm * 1e3, launches_per_step=launches,
+            profiler_error=why, update_launches=updates,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        del net, trainer, params
+        free_card(torch)
+    # cuDNN's LSTM at the same shape, forward and backward: a yardstick
+    lstm = torch.nn.LSTM(WLM_UNITS, WLM_UNITS, WLM_LAYERS,
+                         dropout=WLM_DROPOUT).cuda()
+    xin = torch.randn(WLM_BPTT, WLM_B, WLM_UNITS, device="cuda",
+                      requires_grad=True)
+
+    def cudnn_step():
+        out, _ = lstm(xin)
+        out.sum().backward()
+
+    cudnn_ms = time_ms(torch, cudnn_step, 10)
+    flops = 3 * _wlm_flops()
+    bound = flops / PEAK_FLOPS["float32"] * 1e3
+    first = res["eager"]["losses"][0]
+    ok = all(math.isfinite(v) for r in res.values() for v in r["losses"]) \
+        and abs(first - math.log(WLM_VOCAB)) < 1.0 and \
+        res["eager"]["update_launches"] > 0 and \
+        res["fused"]["update_launches"] > 0
+    emit(dict(phase="word_lm", nvidia_smi=_card(), vocab=WLM_VOCAB,
+              units=WLM_UNITS, layers=WLM_LAYERS, bptt=WLM_BPTT, B=WLM_B,
+              dropout=WLM_DROPOUT, lr=WLM_LR, clip=WLM_CLIP,
+              eager=res["eager"], fused=res["fused"],
+              cudnn_lstm_fwd_bwd_ms=cudnn_ms, step_gflop=flops / 1e9,
+              bound_ms=bound, bound_by="operations",
+              ln_vocab=math.log(WLM_VOCAB), ok=ok))
+    if not ok:
+        failures.append(f"word LM: losses {res['eager']['losses']} / "
+                        f"{res['fused']['losses']}")
+    del lstm, xin
+    free_card(torch)
+    return res["eager"]["update_launches"] + res["fused"]["update_launches"]
+
+
+def _ctc_net(mx):
+    """``examples/train_ctc_ocr.py``'s ``CTCNet``."""
+    class CTCNet(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.encoder = mx.gluon.rnn.LSTM(
+                    CTC_HID, num_layers=1, layout="NTC", bidirectional=True,
+                    input_size=CTC_FEAT)
+                self.head = mx.gluon.nn.Dense(CTC_CLASSES + 1, flatten=False,
+                                              in_units=2 * CTC_HID)
+
+        def hybrid_forward(self, F, x):
+            return self.head(self.encoder(x))
+
+    return CTCNet()
+
+
+def ctc_phase(torch, mx, mt, failures):
+    """Phase 22c: the BiLSTM + ``CTCLoss`` net of
+    ``examples/train_ctc_ocr.py`` at its shapes (B=32, T=32, 8 features,
+    hidden 32 each way, 10 classes and the blank last, labels of 2-6
+    digits padded with -1), Adam: eager steps and ``FusedTrainStep``
+    steps (the host label checks skipped while the graph captures);
+    ``ctc_loss`` on the card against the CPU route and ``F.ctc_loss`` on
+    the same activations, within CTC_TOL; an infeasible label gives the
+    reference's finite ~1e30."""
+    gpu = mx.gpu(0)
+    rs = np.random.RandomState(SEED + 50)
+    xs = rs.normal(0, 1, (CTC_B, CTC_T, CTC_FEAT)).astype(np.float32)
+    lab = np.full((CTC_B, CTC_LABEL), -1, np.float32)
+    lens = rs.randint(2, CTC_LABEL + 1, CTC_B)
+    for i, n in enumerate(lens):
+        lab[i, :n] = rs.randint(0, CTC_CLASSES, n)
+    x, y = mx.nd.array(xs, ctx=gpu), mx.nd.array(lab, ctx=gpu)
+    loss_fn = mx.gluon.loss.CTCLoss(layout="NTC")
+    res = {}
+    mt.multi_tensor_update.launches = 0  # the training path starts here
+    for route in ("eager", "fused"):
+        mx.random.seed(SEED)
+        net = _ctc_net(mx)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        net.hybridize(static_alloc=True)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 1e-2})
+        ms, losses = [], []
+        if route == "eager":
+            for _ in range(CTC_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y).mean()
+                loss.backward()
+                trainer.step(1)
+                losses.append(float(loss.asscalar()))
+                ms.append((time.perf_counter() - t) * 1e3)
+            del loss
+            logits = net(x)._data.detach()
+        else:
+            fstep = mx.gluon.FusedTrainStep(
+                net, trainer, lambda n, a, b: loss_fn(n(a), b).mean(),
+                steps_per_execution=CTC_STEPS, batch_size=1)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses += [float(v) for v in fstep(x, y).asnumpy()]
+                ms.append((time.perf_counter() - t) * 1e3 / CTC_STEPS)
+        res[route] = dict(losses=losses, step_ms=ms)
+        del net, trainer
+    updates = mt.multi_tensor_update.launches  # ... and ends here
+    tnc = mx.nd.array(logits.transpose(0, 1).contiguous())
+    card = mx.nd.ctc_loss(tnc, y, blank_label="last")._data.cpu()
+    cpu = mx.nd.ctc_loss(mx.nd.array(tnc._data.cpu(), ctx=mx.cpu()),
+                         mx.nd.array(lab, ctx=mx.cpu()),
+                         blank_label="last")._data
+    oracle = torch.nn.functional.ctc_loss(
+        torch.log_softmax(tnc._data.cpu(), -1),
+        torch.from_numpy(np.where(lab < 0, 0, lab)).long(),
+        torch.full((CTC_B,), CTC_T, dtype=torch.long),
+        torch.from_numpy(lens).long(), blank=CTC_CLASSES, reduction="none")
+    vs_cpu = (card - cpu).abs().max().item() / cpu.abs().max().item()
+    vs_torch = (card - oracle).abs().max().item() / oracle.abs().max().item()
+    bad = np.zeros((1, CTC_LABEL), np.float32)  # 6 equal labels need 11
+    infeasible = mx.nd.ctc_loss(tnc[:5, :1], mx.nd.array(bad, ctx=gpu),
+                                blank_label="last")._data.item()
+    ok = vs_cpu <= CTC_TOL and vs_torch <= CTC_TOL and \
+        1e29 < infeasible < 1e31 and all(
+            math.isfinite(v) for r in res.values() for v in r["losses"])
+    emit(dict(phase="ctc", nvidia_smi=_card(), B=CTC_B, T=CTC_T,
+              hidden=CTC_HID, classes=CTC_CLASSES + 1, eager=res["eager"],
+              fused=res["fused"], update_launches=updates, ctc_vs_cpu=vs_cpu,
+              ctc_vs_torch_ctc=vs_torch, tol=CTC_TOL,
+              infeasible_loss=infeasible, ok=ok))
+    if not ok:
+        failures.append(f"ctc: card vs CPU {vs_cpu}, vs torch {vs_torch}, "
+                        f"infeasible {infeasible}")
+    return updates
+
+
 def main():
     import torch
 
@@ -5504,6 +6275,14 @@ def main():
                             failures)
     update_launches += moe_ep[2]
     parallel.shutdown()
+    # slice 14: int8 inference and recurrent nets
+    int8_ops_phase(torch, mx, failures)
+    int8_resnet_phase(torch, mx, vision, cbr, failures)
+    int8_serve_phase(torch, mx, vision, serving, failures)
+    int8_generative_phase(torch, mx, llama, serving, fa, failures)
+    rnn_ops_phase(torch, mx, failures)
+    update_launches += word_lm_phase(torch, mx, mt, failures)
+    update_launches += ctc_phase(torch, mx, mt, failures)
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")

@@ -90,6 +90,8 @@ from . import image
 from . import io
 from . import data
 from . import parallel
+from . import contrib
+from . import rnn
 
 from . import _left_out
 

@@ -6,8 +6,6 @@ from __future__ import annotations
 
 from .base import MXNetError
 
-_8B = "Queue 1 item 8b, int8"
-_8C = "Queue 1 item 8c, RNN"
 _8D = "Queue 1 item 8d, detection and the contrib ops"
 _8E = "Queue 1 item 8e, sparse"
 _8F = "Queue 1 item 8f, symbols and export"
@@ -17,11 +15,10 @@ _9 = "Queue 1 item 9, observability and tooling"
 MX = {
     **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
                      "sym", "symbol"), _8F),
-    **dict.fromkeys(("contrib", "np", "npx", "numpy", "numpy_extension",
+    **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
                      "operator", "rtc"), _8G),
     **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
                      "test_utils", "util", "visualization", "viz"), _9),
-    "rnn": _8C,
 }
 
 ND = {
@@ -37,16 +34,11 @@ ND = {
         "index_array", "index_copy", "modulated_deformable_convolution",
         "multibox_detection", "multibox_prior", "multibox_target",
         "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
-    **dict.fromkeys(("dequantize", "quantize", "quantize_v2",
-                     "quantized_conv", "quantized_flatten",
-                     "quantized_fully_connected", "quantized_pooling",
-                     "requantize"), _8B),
-    "Custom": _8G, "RNN": _8C, "rnn": _8C,
+    "Custom": _8G,
     "cast_storage": _8E, "sparse": _8E,
 }
 
-
-GLUON = {"rnn": _8C}
+CONTRIB = {"ndarray": _8D, "onnx": _8F, "symbol": _8F}
 
 
 def refuse(table, module):

@@ -1,6 +1,7 @@
 """gluon — the high-level API (counterpart of ``mxnet_tpu/gluon``): blocks,
 parameters, layers, losses, the ``Trainer``, ``FusedTrainStep``,
-``utils``, the vision model zoo and the data API (``gluon.data``)."""
+``utils``, the vision model zoo, the data API (``gluon.data``) and the
+recurrent layers and cells (``gluon.rnn``)."""
 from . import parameter
 from .parameter import Constant, Parameter, ParameterDict
 from . import block
@@ -14,7 +15,4 @@ from .step_fusion import FusedTrainStep
 from . import utils
 from . import model_zoo
 from . import data
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(_lo.GLUON, "mxnet_tpu_torch.gluon")
+from . import rnn

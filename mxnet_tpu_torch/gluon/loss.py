@@ -4,10 +4,10 @@ Counterpart of ``mxnet_tpu/gluon/loss.py`` (reference
 ``python/mxnet/gluon/loss.py``): ``L2Loss``, ``L1Loss``,
 ``SigmoidBinaryCrossEntropyLoss``, ``SoftmaxCrossEntropyLoss``,
 ``KLDivLoss``, ``HuberLoss``, ``HingeLoss``, ``SquaredHingeLoss``,
-``LogisticLoss``, ``TripletLoss``, ``PoissonNLLLoss`` and
-``CosineEmbeddingLoss``.  Each returns a per-sample loss vector (the mean
-over the non-batch axes), so ``loss.backward()`` seeds ones per sample.
-``CTCLoss`` is left out of slice 9 (ROADMAP.md): it raises.
+``LogisticLoss``, ``TripletLoss``, ``PoissonNLLLoss``,
+``CosineEmbeddingLoss`` and ``CTCLoss``.  Each returns a per-sample loss
+vector (the mean over the non-batch axes), so ``loss.backward()`` seeds
+ones per sample.
 """
 from __future__ import annotations
 
@@ -166,13 +166,32 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Left out of slice 9: connectionist temporal classification ports
-    with ``rnn_ops`` (ROADMAP.md, Queue 1 item 8)."""
+    """Connectionist temporal classification (reference
+    ``gluon.loss.CTCLoss``).  Layouts 'NTC'/'TNC'.  As in the reference,
+    the op runs with ``blank_label='last'``: labels 0..alphabet_size-2,
+    class alphabet_size-1 is blank, rows padded with -1 when
+    ``label_lengths`` is not given."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("gluon.loss.CTCLoss is left out of slice 9; it "
-                         "ports with rnn_ops (ROADMAP.md, \"Left out of "
-                         "slice 9\")")
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise MXNetError(f"bad layout {layout!r}")
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths,
+                          use_data_lengths=pred_lengths is not None,
+                          use_label_lengths=label_lengths is not None,
+                          blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -16,7 +16,10 @@ fused kernel has no backward).  In ResNet-50 v1 that is the first three
 layers of each bottleneck's body: 16 fused calls a forward; in MobileNet
 v1 1.0 the 13 pointwise convolutions, in Inception v3 the 40 1×1
 ``_make_basic_conv``s (BatchNorm eps 0.001), in DenseNet-121 the 58
-bottleneck 1×1 convolutions of the dense layers.
+bottleneck 1×1 convolutions of the dense layers.  A run whose blocks
+carry a forward hook or pre-hook, or whose conv had its forward rewritten
+on the instance (``quantize_net``), runs block by block, as the
+reference runs every run.
 """
 from __future__ import annotations
 
@@ -42,12 +45,18 @@ __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
 
 def _fusable(conv, bn, act):
     """Whether three consecutive children are a 1×1 conv, a BatchNorm
-    over the channel axis and a ReLU."""
+    over the channel axis and a ReLU that may run as one op: none of the
+    three has a forward hook or pre-hook (the fused op calls none of
+    them), and the conv's ``hybrid_forward`` is its class's (not one
+    that ``contrib.quantization.quantize_net`` set on the instance)."""
     return (isinstance(conv, Conv2D) and isinstance(bn, BatchNorm) and
             isinstance(act, Activation) and act._act_type == "relu" and
             conv._kernel == (1, 1) and conv._padding == (0, 0) and
             conv._dilation == (1, 1) and conv._groups == 1 and
-            conv._layout == "NCHW" and conv.act is None and bn._axis == 1)
+            conv._layout == "NCHW" and conv.act is None and bn._axis == 1
+            and "hybrid_forward" not in conv.__dict__ and
+            not any(b._forward_hooks or b._forward_pre_hooks
+                    for b in (conv, bn, act)))
 
 
 def _conv1x1_bn_relu(x, conv, bn):

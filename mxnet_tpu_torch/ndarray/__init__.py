@@ -4,8 +4,8 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the ops of
 ``ops/elemwise.py``, ``ops/tensor.py``, ``ops/nn_ops.py``,
-``ops/output_ops.py`` and ``ops/attention.py`` under the reference's
-names and aliases.
+``ops/output_ops.py``, ``ops/quantization.py``, ``ops/rnn_ops.py`` and
+``ops/attention.py`` under the reference's names and aliases.
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ from ..ops.elemwise import *  # noqa: F401,F403
 from ..ops.tensor import *  # noqa: F401,F403
 from ..ops.nn_ops import *  # noqa: F401,F403
 from ..ops.output_ops import *  # noqa: F401,F403
+from ..ops.quantization import *  # noqa: F401,F403
+from ..ops.rnn_ops import *  # noqa: F401,F403
 from ..ops.attention import (div_sqrt_dim,  # noqa: F401
                              dot_product_attention,
                              interleaved_matmul_selfatt_qk,

@@ -3,11 +3,11 @@
 ``deconvolution``, ``upsampling``, ``pooling``, the norms (``batch_norm``,
 ``layer_norm``, ``group_norm``, ``instance_norm``, ``l2_normalization``),
 ``dropout``, ``embedding``, ``flatten``, ``softmax``, ``log_softmax``,
-``softmax_cross_entropy`` and the low-precision products
+``softmax_cross_entropy``, ``ctc_loss`` and the low-precision products
 ``mxu_matmul_nt``/``mxu_batch_matmul``.
 
-Counterpart of ``mxnet_tpu/ops/nn_ops.py``.  ``ctc_loss`` is left out of
-slice 9 (ROADMAP.md): it raises.  Four dtype contracts are kept:
+Counterpart of ``mxnet_tpu/ops/nn_ops.py``, with ``ctc_loss`` (since
+slice 14).  Four dtype contracts are kept:
 
 - ``softmax_cross_entropy``: f32 math inside whatever the logits' dtype,
   the **sum** over rows as the result, and a backward written directly in
@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as tnf
 
@@ -717,11 +718,134 @@ def mxu_batch_matmul(a, b):
     return _MxuBatchMatmul.apply(a, b)
 
 
-def ctc_loss(*args, **kwargs):
-    """Left out of slice 9: the connectionist temporal classification loss
-    ports with ``rnn_ops`` (ROADMAP.md, Queue 1 item 8)."""
-    raise MXNetError("ctc_loss is left out of slice 9; it ports with "
-                     "rnn_ops (ROADMAP.md, \"Left out of slice 9\")")
+def _capturing():
+    """True while the current CUDA stream is being captured into a
+    graph (host reads are refused there)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=None, use_label_lengths=None,
+             blank_label="first", **kwargs):
+    """Connectionist temporal classification loss (reference
+    ``src/operator/nn/ctc_loss.cc``, ``CTCLoss``).
+
+    ``data``: (T, N, C) unnormalized activations (log-softmax over C
+    inside); ``label``: (N, L) class indices.  ``blank_label='first'``:
+    class 0 is blank, labels 1..C-1, rows padded with 0 when
+    ``label_lengths`` is absent; ``'last'``: class C-1 is blank, labels
+    0..C-2, padding -1.  Returns each sequence's negative log
+    likelihood, shape (N,), in float32 (float64 for float64 data).
+
+    The reference's lattice as torch ops: a loop over time on the
+    (N, 2L+1) alpha lattice in log space, −1e30 standing for −inf (so an
+    infeasible label gives a loss near 1e30, not ``inf``), gradients by
+    autograd through the loop.  ``torch.nn.functional.ctc_loss`` is not
+    the route.  The label and length checks read those small arrays on
+    the host, except while a CUDA graph captures (as the reference skips
+    them under tracing)."""
+    if blank_label not in ("first", "last"):
+        raise MXNetError(f"bad blank_label {blank_label!r}")
+    blank_first = blank_label == "first"
+    # a symbol-style call passes the one length array positionally with
+    # only ``use_label_lengths`` set: it is the label lengths
+    if use_label_lengths and label_lengths is None and \
+            data_lengths is not None and not use_data_lengths:
+        label_lengths, data_lengths = data_lengths, None
+    if use_data_lengths is None:
+        use_data_lengths = data_lengths is not None
+    if use_label_lengths is None:
+        use_label_lengths = label_lengths is not None
+    if use_data_lengths and data_lengths is None:
+        raise MXNetError("use_data_lengths=True but no data_lengths given")
+    if use_label_lengths and label_lengths is None:
+        raise MXNetError("use_label_lengths=True but no label_lengths "
+                         "given")
+    args = [data, label]
+    if use_data_lengths:
+        args.append(data_lengths)
+    if use_label_lengths:
+        args.append(label_lengths)
+    if not _capturing():
+        _ctc_check(data.shape, label.asnumpy(), blank_first, blank_label,
+                   label_lengths.asnumpy() if use_label_lengths else None,
+                   data_lengths.asnumpy() if use_data_lengths else None)
+
+    def f(*raws):
+        logits, lab = raws[0], raws[1].long()
+        in_len = raws[2] if use_data_lengths else None
+        lab_len = raws[-1] if use_label_lengths else None
+        t_len, n, c = logits.shape
+        big_l = lab.shape[1]
+        s = 2 * big_l + 1
+        dev = logits.device
+        blank = 0 if blank_first else c - 1
+        pad_val = 0 if blank_first else -1
+        in_len = torch.full((n,), t_len, dtype=torch.long, device=dev) \
+            if in_len is None else in_len.long()
+        if lab_len is None:
+            # the reference's LabelTensorToPackedVector: the length is the
+            # position of the first padding value
+            lab_len = torch.cumprod((lab != pad_val).long(), 1).sum(1)
+        else:
+            lab_len = lab_len.long()
+        ftype = torch.float64 if logits.dtype == torch.float64 \
+            else torch.float32
+        logp = torch.log_softmax(logits.to(ftype), dim=-1)
+        neg = torch.full((), -1e30, dtype=ftype, device=dev)
+        # the extended label sequence [blank, l1, blank, ..., lL, blank]
+        valid = torch.arange(big_l, device=dev)[None, :] < lab_len[:, None]
+        lab_v = torch.where(valid, lab.clamp(0, c - 1),
+                            torch.full_like(lab, blank))
+        ext = torch.full((n, s), blank, dtype=torch.long, device=dev)
+        ext[:, 1::2] = lab_v
+        ext_m2 = torch.cat([torch.full((n, 2), -1, dtype=torch.long,
+                                       device=dev), ext[:, :-2]], 1)
+        can_skip = (ext != blank) & (ext != ext_m2)
+        emit = torch.gather(logp, 2, ext[None].expand(t_len, n, s))
+        pad1 = neg.expand(n, 1)
+        pad2 = neg.expand(n, 2)
+        s_idx = torch.arange(s, device=dev)
+        alpha = torch.where(s_idx[None, :] < 2, emit[0], neg)
+        for t in range(1, t_len):
+            a1 = torch.cat([pad1, alpha[:, :-1]], 1)
+            a2 = torch.where(can_skip,
+                             torch.cat([pad2, alpha[:, :-2]], 1), neg)
+            new = torch.logaddexp(torch.logaddexp(alpha, a1), a2) + emit[t]
+            # past a sequence's own length the lattice is frozen
+            alpha = torch.where(t < in_len[:, None], new, alpha)
+        s_end = 2 * lab_len
+        last = torch.gather(alpha, 1, s_end[:, None])[:, 0]
+        last2 = torch.gather(alpha, 1, (s_end - 1).clamp(min=0)[:, None])
+        last2 = torch.where(lab_len > 0, last2[:, 0], neg)
+        return -torch.logaddexp(last, last2)
+
+    return apply_op(f, *args, name="ctc_loss")
+
+
+def _ctc_check(data_shape, label, blank_first, blank_label, label_lengths,
+               data_lengths):
+    """The reference's host checks (ctc_loss.cc's CHECKs): live labels
+    in the alphabet, data lengths within T."""
+    t_len, _, c = data_shape
+    lo, hi = (1, c - 1) if blank_first else (0, c - 2)
+    pad = 0 if blank_first else -1
+    if label_lengths is not None:
+        live = np.arange(label.shape[1])[None, :] < \
+            np.asarray(label_lengths).astype(np.int64)[:, None]
+    else:
+        live = label != pad
+    bad = label[live]
+    if bad.size and (bad.min() < lo or bad.max() > hi):
+        raise MXNetError(
+            f"ctc_loss: label values must lie in [{lo}, {hi}] for "
+            f"blank_label={blank_label!r} (got range "
+            f"[{bad.min()}, {bad.max()}])")
+    if data_lengths is not None and np.asarray(data_lengths).max() > t_len:
+        raise MXNetError(
+            f"ctc_loss: data_lengths exceed the time dimension T={t_len} "
+            f"(max {np.asarray(data_lengths).max()})")
 
 
 # the reference's operator-style names

@@ -12,8 +12,11 @@ K/V in a paged block pool with disaggregated prefill and decode lanes
 (``lanes.py``), optionally with speculative decoding
 (``ServerConfig(draft_net=, spec_k=)``) and the radix prefix cache
 (``radix_cache=True``); ``kv_mode="slots"`` runs the slot ledger and
-single-loop scheduler for A/B.  ``ServerConfig(int8=True)`` serves
-weight-only per-channel int8 on a ``GenerativeServer``.
+single-loop scheduler for A/B.  ``ServerConfig(int8=True)`` applies
+weight quantization at load time: an ``InferenceServer``'s block goes
+through ``contrib.quantization.quantize_net`` (calibrated on
+``calib_data``), a ``GenerativeServer`` serves weight-only per-channel
+int8.
 
 Synchronous convenience: ``server.infer(...)`` and
 ``server.generate(...)`` submit and wait.
@@ -30,9 +33,9 @@ leader takes its own requests; a router in front spreads them.
 
 Not ported, each raising ``MXNetError``: ``ServerConfig(http_port=,
 slo=)`` (the metrics endpoint and SLO accounting; ROADMAP.md, Queue 1,
-"Left out of slice 6"); a ``Predictor`` model, ``int8=True`` on an
-``InferenceServer``, and ``ServerConfig(summary_every=, calib_data=)``
-(ROADMAP.md, Queue 1, "Left out of slice 8").
+"Left out of slice 6"); a ``Predictor`` model and
+``ServerConfig(summary_every=)`` (ROADMAP.md, Queue 1, "Left out of slice
+8").
 """
 from __future__ import annotations
 
@@ -66,19 +69,20 @@ class ServerConfig:
     ``output_length_axis`` (the per-example output axis trimmed back at
     demux, or None).  ``num_slots`` is the decode batch = max
     concurrent sequences; ``int8`` switches on load-time weight
-    quantization.  ``kv_mode``: ``"paged"`` (block pool + lanes, the
-    default) or ``"slots"``; ``num_blocks=None`` sizes the pool at
+    quantization, which an ``InferenceServer`` calibrates on
+    ``calib_data`` (an iterable of input batches).  ``kv_mode``:
+    ``"paged"`` (block pool + lanes, the default) or ``"slots"``;
+    ``num_blocks=None`` sizes the pool at
     ledger parity (``num_slots × max_len`` tokens).  ``draft_net``
     switches speculation on (``spec_k`` proposals a slot a verify);
     ``radix_cache`` turns on prompt-prefix reuse within
     ``prefix_cache_tokens`` (None = half the pool).
 
-    The reference's settings of its telemetry, SLO and int8-calibration
-    surfaces are not taken: ``summary_every`` and ``calib_data`` raise
-    (they come back with the telemetry package and ``quantize_net``,
-    ROADMAP.md "Left out of slice 8"), ``http_port`` and ``slo`` raise
-    ("Left out of slice 6"), and ``http_host`` and ``slo_window`` are
-    not parameters."""
+    The reference's settings of its telemetry and SLO surfaces are not
+    taken: ``summary_every`` raises (it comes back with the telemetry
+    package, ROADMAP.md "Left out of slice 8"), ``http_port`` and
+    ``slo`` raise ("Left out of slice 6"), and ``http_host`` and
+    ``slo_window`` are not parameters."""
 
     def __init__(self, max_batch=8, max_length=128, min_batch=1,
                  min_length=8, queue_capacity=64, batch_window_ms=2.0,
@@ -91,9 +95,6 @@ class ServerConfig:
             raise MXNetError(f"ServerConfig(summary_every=) (the rolling "
                              f"latency summary of the telemetry package) "
                              f"{_LATER8}")
-        if calib_data is not None:
-            raise MXNetError(f"ServerConfig(calib_data=) (int8 calibration "
-                             f"through quantize_net) {_LATER8}")
         if http_port is not None:
             raise MXNetError(f"ServerConfig(http_port=) (the metrics "
                              f"endpoint) {_LATER}")
@@ -111,6 +112,7 @@ class ServerConfig:
         self.num_slots = int(num_slots)
         self.max_new_tokens = int(max_new_tokens)
         self.int8 = bool(int8)
+        self.calib_data = calib_data
         if kv_mode not in ("paged", "slots"):
             raise MXNetError(f"unknown kv_mode {kv_mode!r}; "
                              "expected 'paged' or 'slots'")
@@ -169,17 +171,24 @@ class InferenceServer(_ServerBase):
     hybridized runs each (batch, length) bucket as its own CUDA graph,
     captured on the scheduler thread at the bucket's first batch; the
     signature count stays within ``len(config.policy.signatures())``.
-    A ``Predictor`` (the reference's third model form) and
-    ``config.int8`` are refused."""
+    With ``config.int8`` the block is first quantized in place by
+    ``quantize_net(calib_data=config.calib_data, calib_mode="naive")``,
+    as in the reference.  A ``Predictor`` (the reference's third model
+    form) is refused."""
 
     def __init__(self, model, config=None, input_names=None):
         super().__init__(config)
         if hasattr(model, "forward") and hasattr(model, "input_names"):
             raise MXNetError(f"InferenceServer(Predictor) (symbol graphs "
                              f"need the symbol API) {_LATER8}")
-        if self.config.int8:
-            raise MXNetError(f"InferenceServer with ServerConfig(int8=True) "
-                             f"(quantize_net) {_LATER8}")
+        if self.config.int8 and hasattr(model, "collect_params"):
+            from ..contrib.quantization import quantize_net
+
+            if self.config.calib_data is None:
+                raise MXNetError("int8 block serving needs "
+                                 "config.calib_data for calibration")
+            model = quantize_net(model, calib_data=self.config.calib_data,
+                                 calib_mode="naive")
         self.model = model
         self.input_names = list(input_names or ["data"])
         self._block = hasattr(model, "collect_params")

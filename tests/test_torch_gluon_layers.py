@@ -233,8 +233,8 @@ def test_three_input_losses_match_reference(name):
         outs.append((loss.asnumpy(), x.grad.asnumpy(), y.grad.asnumpy()))
     for g, r in zip(*outs):
         np.testing.assert_allclose(g, r, **TOL)
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 9"):
-        tmx.gluon.loss.CTCLoss()
+    # CTCLoss is ported in slice 14 (tests/test_torch_ctc.py)
+    assert isinstance(tmx.gluon.loss.CTCLoss(), tmx.gluon.loss.Loss)
 
 
 def test_initializers():

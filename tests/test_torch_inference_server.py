@@ -285,12 +285,18 @@ def test_refused_forms_name_the_slice():
             return kw
 
     for make in (lambda: tserving.InferenceServer(FakePredictor()),
-                 lambda: tserving.InferenceServer(
-                     lambda b: b, tserving.ServerConfig(int8=True)),
-                 lambda: tserving.ServerConfig(summary_every=32),
-                 lambda: tserving.ServerConfig(calib_data=[1])):
+                 lambda: tserving.ServerConfig(summary_every=32)):
         with pytest.raises(tmx.MXNetError, match="Left out of slice 8"):
             make()
+    # int8 and calib_data are ported in slice 14: a callable is served as
+    # it is (the reference quantizes blocks only), a block needs
+    # calib_data
+    srv = tserving.InferenceServer(lambda b: b,
+                                   tserving.ServerConfig(int8=True))
+    assert srv.model is not None
+    with pytest.raises(tmx.MXNetError, match="calib_data"):
+        tserving.InferenceServer(_dense(tmx), tserving.ServerConfig(
+            int8=True))
 
 
 def test_config_reads_the_inference_keys():

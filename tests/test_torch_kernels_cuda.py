@@ -2026,3 +2026,215 @@ def test_dist_async_table_and_update_stay_on_the_card(cuda_nvcc):
         np.testing.assert_allclose(pa.data().asnumpy(), pd.data().asnumpy(),
                                    rtol=1e-6, atol=1e-7)
     kv.close()
+
+
+# -- slice 14: int8 products and recurrent nets on the card ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 147, 64), (9, 15, 13), (16, 64, 8),
+                                   (17, 3, 5), (200, 576, 64), (75, 32, 40)])
+def test_int8_matmul_pads_to_what_cublaslt_takes_on_card(cuda_nvcc, m, k,
+                                                         n):
+    """``torch._int_mm`` on the card takes M > 16 and K, N multiples of 8;
+    ``_int8_matmul`` zero-pads up to that and slices, with both operands
+    K-contiguous: the int32 product equals the CPU's exact one at ragged
+    M, K and N, and at (75, 32, 40), which cuBLASLt refused with the
+    weight copied K-major."""
+    from mxnet_tpu_torch.ops import quantization as q
+
+    g = torch.Generator().manual_seed(m * 1000 + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = q._int8_matmul(a.to(cuda_nvcc), w.to(cuda_nvcc))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), a.long().matmul(w.long().t()).int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,ws,stride,pad,dilate", [
+    ((2, 3, 30, 30), (16, 3, 7, 7), 2, 3, 1),
+    ((2, 16, 13, 11), (24, 16, 3, 3), 1, 1, 1),
+    ((1, 8, 17, 17), (8, 8, 3, 3), 2, 2, 2),
+    ((3, 32, 9, 9), (40, 32, 1, 1), 2, 0, 1)])
+def test_int8_conv_matches_cpu_on_card(cuda_nvcc, xs, ws, stride, pad,
+                                       dilate):
+    """``nd.quantized_conv`` (f16 unfold, int8 product) on the card: the
+    int32 output equals the CPU route's, the range too."""
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(sum(xs) + sum(ws))
+    x = rng.normal(size=xs).astype(np.float32)
+    w = rng.normal(0, 0.2, ws).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        qd = mx.nd.quantize_v2(mx.nd.array(x, ctx=ctx))
+        qw = mx.nd.quantize_v2(mx.nd.array(w, ctx=ctx))
+        out = mx.nd.quantized_conv(
+            qd[0], qw[0], qd[1], qd[2], qw[1], qw[2], kernel=ws[2:],
+            stride=stride, pad=pad, dilate=dilate, num_filter=ws[0],
+            no_bias=True)
+        outs.append([o._data.cpu() for o in out])
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][2], outs[1][2])
+
+
+@pytest.mark.cuda
+def test_quantized_net_replays_its_graph_on_card(cuda_nvcc):
+    """``quantize_net`` on a hybridized ``mobilenet0.25``: the next call
+    captures the int8 graph (depthwise convs stay f32), replays equal the
+    eager int8 forward bit for bit, and no 1×1 conv runs the fused
+    kernel #4 (each is rewritten)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = mx.gpu(0)
+    mx.random.seed(3)
+    net = vision.get_model("mobilenet0.25", classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    rng = np.random.RandomState(4)
+    x = mx.nd.array(rng.uniform(-1, 1, (4, 3, 64, 64)).astype(np.float32),
+                    ctx=ctx)
+    net.hybridize(static_alloc=True)
+    net(x)
+    quantize_net(net, calib_data=[x])
+    fn = cbr.fused_matmul_affine_relu
+    before = fn.launches
+    net.hybridize(False)
+    eager = net(x).asnumpy()
+    net.hybridize(static_alloc=True)
+    outs = [net(x).asnumpy() for _ in range(3)]
+    assert fn.launches == before
+    assert net.cache_stats()["hits"] == 2
+    for got in outs:
+        np.testing.assert_array_equal(got, eager)
+
+
+def _lstm_lm(mx, ctx, vocab=50, units=32):
+    class LM(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.emb = mx.gluon.nn.Embedding(vocab, units)
+                self.rnn = mx.gluon.rnn.LSTM(units, 2, input_size=units)
+                self.out = mx.gluon.nn.Dense(vocab, flatten=False,
+                                             in_units=units)
+
+        def hybrid_forward(self, F, ids):
+            return self.out(self.rnn(self.emb(ids)))
+
+    mx.random.seed(9)
+    net = LM()
+    net.initialize(mx.init.Uniform(0.1), ctx=ctx)
+    return net
+
+
+@pytest.mark.cuda
+def test_captured_lstm_step_replays_like_eager_on_card(cuda_nvcc):
+    """An LSTM language model's step (the T-step loop of both layers,
+    forward and backward, and the update) under ``FusedTrainStep``: one
+    CUDA graph a step, no host read inside; K=3 replayed steps equal 3
+    eager ``Trainer.step``s within 1e-5 (f32, the same kernels; cuBLAS may
+    pick another algorithm inside a capture)."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(10)
+    x = mx.nd.array(rng.randint(0, 50, (12, 4)), ctx=ctx, dtype="int32")
+    y = mx.nd.array(rng.randint(0, 50, (12, 4)), ctx=ctx, dtype="int32")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def lm_loss(n, a, b):
+        return loss_fn(n(a).reshape((-1, 50)), b.reshape((-1,)))
+
+    net_e, net_f = _lstm_lm(mx, ctx), _lstm_lm(mx, ctx)
+    tr = mx.gluon.Trainer(net_e.collect_params(), "sgd",
+                          {"learning_rate": 0.5, "clip_gradient": 0.1})
+    eager = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = lm_loss(net_e, x, y)
+        loss.backward()
+        tr.step(48)
+        eager.append(float(loss.sum().asscalar()))
+    del loss
+    tr2 = mx.gluon.Trainer(net_f.collect_params(), "sgd",
+                           {"learning_rate": 0.5, "clip_gradient": 0.1})
+    fstep = mx.gluon.FusedTrainStep(net_f, tr2, lm_loss,
+                                    steps_per_execution=3, batch_size=48)
+    fused = fstep(x, y).asnumpy()
+    np.testing.assert_allclose(fused, eager, rtol=1e-5)
+    entry, = fstep._graphs.values()
+    assert entry["graph"].replays == 2
+    for (n, a), (_, b) in zip(net_e.collect_params().items(),
+                              net_f.collect_params().items()):
+        np.testing.assert_allclose(b.data().asnumpy(), a.data().asnumpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_hybridized_rnn_layer_with_states_replays_on_card(cuda_nvcc):
+    """A hybridized ``GRU`` with states in and out: the first call
+    captures, the later ones replay, output and states equal the eager
+    call's bit for bit."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    layer = mx.gluon.rnn.GRU(16, num_layers=2, bidirectional=True,
+                             layout="NTC", input_size=8)
+    layer.initialize(mx.init.Uniform(0.2), ctx=ctx)
+    rng = np.random.RandomState(11)
+    x = mx.nd.array(rng.normal(size=(3, 7, 8)).astype(np.float32), ctx=ctx)
+    h = mx.nd.array(rng.normal(size=(4, 3, 16)).astype(np.float32), ctx=ctx)
+    out, (h1,) = layer(x, [h])
+    eager = (out.asnumpy(), h1.asnumpy())
+    layer.hybridize(static_alloc=True)
+    for _ in range(3):
+        out, (h1,) = layer(x, [h])
+        np.testing.assert_array_equal(out.asnumpy(), eager[0])
+        np.testing.assert_array_equal(h1.asnumpy(), eager[1])
+    assert layer.cache_stats()["hits"] == 2
+
+
+@pytest.mark.cuda
+def test_ctc_training_step_captures_on_card(cuda_nvcc):
+    """A BiLSTM + ``CTCLoss`` step under ``FusedTrainStep``: the label
+    checks read the host in the eager warm-up and are skipped while the
+    graph captures; K=3 replayed steps equal 3 eager steps within
+    1e-5."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(12)
+    x = mx.nd.array(rng.normal(size=(4, 16, 8)).astype(np.float32), ctx=ctx)
+    lab = np.full((4, 3), -1, np.float32)
+    lab[:, :2] = rng.randint(0, 5, (4, 2))
+    y = mx.nd.array(lab, ctx=ctx)
+    loss_fn = mx.gluon.loss.CTCLoss()
+
+    def make():
+        mx.random.seed(13)
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.rnn.LSTM(8, layout="NTC", bidirectional=True,
+                                  input_size=8),
+                mx.gluon.nn.Dense(6, flatten=False, in_units=16))
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        return net
+
+    net_e, net_f = make(), make()
+    tr = mx.gluon.Trainer(net_e.collect_params(), "adam",
+                          {"learning_rate": 1e-2})
+    eager = []
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = loss_fn(net_e(x), y).mean()
+        loss.backward()
+        tr.step(1)
+        eager.append(float(loss.asscalar()))
+    del loss
+    tr2 = mx.gluon.Trainer(net_f.collect_params(), "adam",
+                           {"learning_rate": 1e-2})
+    fstep = mx.gluon.FusedTrainStep(
+        net_f, tr2, lambda n, a, b: loss_fn(n(a), b).mean(),
+        steps_per_execution=3, batch_size=1)
+    np.testing.assert_allclose(fstep(x, y).asnumpy(), eager, rtol=1e-5)

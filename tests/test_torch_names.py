@@ -4,7 +4,8 @@ of the whole name set.
 
 The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``gluon``, ``Block``, ``HybridBlock``, ``Parameter``, ``ParameterDict``,
-``Trainer``, ``KVStore``, ``init``, ``random`` and ``parallel`` in both
+``Trainer``, ``KVStore``, ``init``, ``random``, ``parallel``,
+``contrib`` and ``gluon.rnn`` in both
 packages with an explicit list of names left out, each with the ROADMAP
 list that owns it; reading a left-out name raises ``MXNetError`` naming
 that list, never ``AttributeError``.
@@ -20,18 +21,17 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
 CPU = tmx.cpu()
-_8B, _8C, _8D, _8E = "item 8b", "item 8c", "item 8d", "item 8e"
+_8D, _8E = "item 8d", "item 8e"
 _8F, _8G, _9 = "item 8f", "item 8g", "item 9"
 
 LEFT_OUT = {
     "mx": {
         **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
                          "sym", "symbol"), _8F),
-        **dict.fromkeys(("contrib", "np", "npx", "numpy", "numpy_extension",
+        **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
                          "operator", "rtc"), _8G),
         **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
                          "test_utils", "util", "visualization", "viz"), _9),
-        "rnn": _8C,
     },
     "nd": {
         **dict.fromkeys((
@@ -47,15 +47,10 @@ LEFT_OUT = {
             "index_array", "index_copy", "modulated_deformable_convolution",
             "multibox_detection", "multibox_prior", "multibox_target",
             "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
-        **dict.fromkeys(("dequantize", "quantize", "quantize_v2",
-                         "quantized_conv", "quantized_flatten",
-                         "quantized_fully_connected", "quantized_pooling",
-                         "requantize"), _8B),
-        "Custom": _8G, "RNN": _8C, "rnn": _8C, "cast_storage": _8E,
-        "sparse": _8E,
+        "Custom": _8G, "cast_storage": _8E, "sparse": _8E,
     },
     "parallel": {"telemetry": _9},
-    "gluon": {"rnn": _8C},
+    "contrib": {"ndarray": _8D, "symbol": _8F},
 }
 
 
@@ -74,6 +69,8 @@ def _namespaces():
         "KVStore": (jkv.KVStore, tmx.kv.KVStore),
         "init": (jinit, tmx.init), "random": (jrand, tmx.random),
         "parallel": (jpar, tmx.parallel),
+        "contrib": (jmx.contrib, tmx.contrib),
+        "gluon.rnn": (jg.rnn, tmx.gluon.rnn),
     }
 
 
@@ -223,6 +220,66 @@ def _slice13_calls():
 @pytest.mark.parametrize("name", sorted(_slice13_calls()))
 def test_names_ported_in_slice_13_resolve_to_working_functions(name):
     assert _slice13_calls()[name]()
+
+
+def _slice14_calls():
+    """One working call of each name ported in slice 14 (each was a
+    refusal naming item 8b or 8c); the parity tests are
+    ``test_torch_{quantization,rnn,ctc}.py``."""
+    from mxnet_tpu_torch import contrib, gluon, nd, rnn
+
+    x = nd.array((np.arange(6).reshape(2, 3) - 2.5).astype(np.float32),
+                 ctx=CPU)
+
+    def quantize_ops():
+        q, mn, mx = nd.quantize_v2(x)
+        back = nd.dequantize(q, mn, mx)
+        return q.asnumpy().dtype == np.int8 and \
+            float(np.abs(back.asnumpy() - x.asnumpy()).max()) < 0.02
+
+    def contrib_aliases():
+        return nd._contrib_quantize_v2 is nd.quantize_v2 and \
+            contrib.amp is tmx.amp
+
+    def quantize_net():
+        net = gluon.nn.HybridSequential()
+        net.add(gluon.nn.Dense(2, in_units=3))
+        net.initialize(ctx=CPU)
+        contrib.quantization.quantize_net(net, calib_data=[x])
+        return "hybrid_forward" in net[0].__dict__ and \
+            net(x).shape == (2, 2)
+
+    def nd_rnn():
+        return nd.RNN is nd.rnn
+
+    def gluon_rnn():
+        layer = gluon.rnn.GRU(4, input_size=3)
+        layer.initialize(ctx=CPU)
+        return layer(nd.zeros((5, 2, 3), ctx=CPU)).shape == (5, 2, 4)
+
+    def mx_rnn():
+        with tmx.cpu():
+            it = rnn.BucketSentenceIter([[1, 2, 3]] * 4, 2, buckets=[4])
+        return next(it).data[0].shape == (2, 4) and \
+            rnn.LSTMCell is gluon.rnn.LSTMCell
+
+    def ctc():
+        return nd.CTCLoss is nd.ctc_loss and \
+            isinstance(gluon.loss.CTCLoss(), gluon.loss.Loss)
+
+    def contrib_onnx_refused():
+        with pytest.raises(tmx.MXNetError, match="item 8f"):
+            contrib.onnx  # noqa: B018
+        return True
+
+    return {f.__name__: f for f in (
+        quantize_ops, contrib_aliases, quantize_net, nd_rnn, gluon_rnn,
+        mx_rnn, ctc, contrib_onnx_refused)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice14_calls()))
+def test_names_ported_in_slice_14_resolve_to_working_functions(name):
+    assert _slice14_calls()[name]()
 
 
 # -- NDArray ---
