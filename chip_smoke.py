@@ -31,7 +31,10 @@ the mesh, serving on a mesh, and a sharded checkpoint; and Mixtral-8x7B
 its expert-parallel route, and the ``dist_async`` parameter server; and
 int8 inference (the quantized ops, ``quantize_net`` on ResNet-50, int8
 ``InferenceServer`` and ``GenerativeServer``) and recurrent nets
-(``nd.RNN``, an LSTM word language model, a BiLSTM with ``CTCLoss``).
+(``nd.RNN``, an LSTM word language model, a BiLSTM with ``CTCLoss``);
+and detection: the contrib ops, SSD-512, Faster R-CNN and YOLOv3
+inference through the hand-written NMS scan kernel (``nms_keep``) and
+SSD-512 training fed by ``ImageDetIter``.
 
     python3 chip_smoke.py
 
@@ -302,6 +305,29 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     shapes: eager and ``FusedTrainStep`` steps; ``ctc_loss`` on the card
     against the CPU and ``F.ctc_loss``, an infeasible label's ~1e30.
 
+23a. the detection ops (``nd.contrib``) on the card against the CPU at
+    the detectors' shapes: ``box_nms`` (SSD-512's 32 x 1,364 rows,
+    class-aware, topk 400, exact), ``Proposal`` (Faster R-CNN's RPN map
+    at 600x1000), ``ROIAlign`` forward and backward, ``MultiBoxTarget``,
+    ``bipartite_matching``, ``BilinearResize2D``, deformable
+    convolution, the control-flow ops eager and inside a CUDA graph;
+    the ``nms_keep`` kernel against its plain version bit for bit at
+    n = 128 .. 11,200 (past shared memory), with its time, the plain
+    version's and the bound;
+23b. ``ssd_512_resnet50_v1`` (20 classes, 512x512): f32 card vs CPU
+    (pre-NMS rows; the CPU's NMS of the card's rows equal to the
+    card's), bf16 at B=32 and B=1 eager and hybridized (the replay equal
+    to the eager forward), 20 launches of #4 and one of ``nms_keep`` a
+    forward;
+23c. ``faster_rcnn_resnet50_v1`` at 600x1000, f32, B=1, the same (16
+    launches of #4, two of ``nms_keep``), the check at 320x480;
+23d. ``yolo3_darknet53`` at 416x416, bf16, B=16, the same (no #4, one
+    ``nms_keep``), the check at B=2;
+23e. SSD-512 bf16 training at B=16 fed by ``image.ImageDetIter`` over a
+    ``.rec`` of synthetic JPEGs (crop, mirror), ``MultiBoxTarget`` with
+    negative mining: eager steps, ``FusedTrainStep`` against them, and
+    fed steps with the iterator's wait.
+
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
 (``tests/test_torch_{parallel,partition,ring,kvstore_dist,
@@ -311,9 +337,9 @@ The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
 captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
-int8 forwards (#4 must launch 0 times there); the update's in 9, 12,
-12b, 13b, 16, 17, 18b, 18d, 19a, 19b, 20c, 22b and 22c) and read just
-after,
+int8 forwards (#4 must launch 0 times there), each detector's forwards
+of 23b-23d (#4 and ``nms_keep``); the update's in 9, 12, 12b, 13b, 16,
+17, 18b, 18d, 19a, 19b, 20c, 22b, 22c and 23e) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -6152,6 +6178,646 @@ def ctc_phase(torch, mx, mt, failures):
     return updates
 
 
+# -- slice 15: detection -----------------------------------------------------
+DET_CLASSES = 20               # VOC
+SSD_IMAGE = 512
+SSD_BATCHES = (32, 1)          # 23b: bf16 inference batches
+SSD_CHECK_B = 2                # 23b: f32 card-vs-CPU batch
+SSD_POST = 100                 # the detectors' post-NMS rows
+FRCNN_IMAGE = (600, 1000)      # GluonCV's VOC test scale
+FRCNN_CHECK_IMAGE = (320, 480)
+YOLO_IMAGE = 416
+YOLO_B = 16
+YOLO_CHECK_B = 2
+DET_REPS = 3                   # timed forwards of each mode, after a warm-up
+DET_PROB_TOL = 1e-4            # f32 card vs CPU: pre-NMS scores, absolute
+DET_BOX_TOL = 1e-4             # ... boxes, of the largest coordinate
+DET_AGREE_MIN = 0.999          # ... class ids and valid flags: equal share
+DET_ROI_AGREE_MIN = 0.9        # ... Faster R-CNN's proposals: equal share
+OPS_TOL = 1e-5                 # 23a: f32 ops card vs CPU, relative norm
+# 23a: (images, boxes, class ids) of the NMS scan; 11,200 boxes with ids
+# (21 bytes a box) are past the block's 227 KB of shared memory
+NMS_SIZES = [(32, 128, True), (32, 400, True), (16, 1364, True),
+             (1, 2000, False), (1, 10647, True), (1, 11200, True)]
+NMS_MAIN = (32, 400, True)     # SSD-512 at B=32: the kernels line's shape
+SSD_TRAIN_B = 16
+SSD_TRAIN_IMAGES = 96          # 23e: synthetic JPEGs in the .rec
+SSD_TRAIN_STEPS = 6            # 23e: fed eager steps timed, after a warm-up
+SSD_TRAIN_K = 4                # 23e: FusedTrainStep steps a call
+SSD_TRAIN_LR = 1e-3            # with f32 master weights (multi_precision)
+
+
+def _det_nms_rows(run):
+    """``run()`` with the port's ``box_nms`` recording each input (SSD
+    reaches it inside ``MultiBoxDetection``, YOLOv3 and Faster R-CNN
+    through ``F.contrib``) and ``Proposal`` each output: → (run's
+    outputs, [(rows, kwargs)], [proposals])."""
+    from mxnet_tpu_torch.ndarray import contrib as ndc
+    from mxnet_tpu_torch.ops import contrib as oc
+
+    seen, rois = [], []
+    nms, prop = oc.box_nms, ndc.Proposal
+
+    def record(data, **kw):
+        seen.append((data._data.detach().float().cpu(), kw))
+        return nms(data, **kw)
+
+    def record_rois(*args, **kw):
+        out = prop(*args, **kw)
+        rois.append(out._data.detach().float().cpu())
+        return out
+
+    oc.box_nms = ndc.box_nms = record
+    ndc.Proposal = record_rois
+    try:
+        out = run()
+    finally:
+        oc.box_nms = ndc.box_nms = nms
+        ndc.Proposal = prop
+    return out, seen, rois
+
+
+def _det_f32_check(torch, mx, make, arrays, x):
+    """The same f32 weights on the card and on the CPU, one forward of
+    the CPU tensor ``x`` each: the pre-NMS rows (class ids and valid
+    flags equal on DET_AGREE_MIN of the rows, scores within DET_PROB_TOL,
+    boxes within DET_BOX_TOL of the largest coordinate), and the CPU's
+    plain NMS on the card's own pre-NMS rows equal to the card's output
+    bit for bit.  Faster R-CNN's rows each belong to a proposal, a
+    discrete pick (the top 2,000 of its RPN scores, then NMS) that a
+    score rounded otherwise can swap: its rows are compared where the
+    two proposals agree (within 1e-3 px), and DET_ROI_AGREE_MIN of them
+    must."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+    from mxnet_tpu_torch.ops import contrib as oc
+
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = make()
+        load_numpy_params(net, arrays, ctx=ctx)
+        xa = mx.nd.array(x, ctx=ctx)
+        out, seen, rois = _det_nms_rows(lambda: net(xa))
+        runs.append((torch.cat([o._data.float().cpu() for o in out], -1),
+                     seen[0][0], seen[0][1], rois))
+        del net, out
+    (g_out, g_rows, kw, g_rois), (_, c_rows, _, c_rois) = runs
+    vt = kw.get("valid_thresh", 0)
+    gv, cv = g_rows[..., 1] > vt, c_rows[..., 1] > vt
+    both = gv & cv
+    roi_agreement = None
+    if g_rois:
+        same = ((g_rois[0] - c_rois[0]).abs().amax(-1) <= 1e-3) \
+            .reshape(both.shape)
+        roi_agreement = float(same.float().mean())
+        both &= same
+    ids_equal = (g_rows[..., 0] == c_rows[..., 0])[both].float().mean()
+    prob_err = (g_rows[..., 1] - c_rows[..., 1])[both].abs().max()
+    boxes = c_rows[..., 2:6][both]
+    box_err = (g_rows[..., 2:6][both] - boxes).abs().max() / \
+        boxes.abs().max().clamp_min(1.0)
+    plain = oc.box_nms(mx.nd.array(g_rows, ctx=mx.cpu()), **kw)._data
+    plain = plain[:, :g_out.shape[1]]
+    res = dict(B=x.shape[0], image=list(x.shape[2:]),
+               valid_rows=int(both.sum()),
+               valid_agreement=float((gv == cv).float().mean()),
+               id_agreement=float(ids_equal), max_score_err=float(prob_err),
+               max_box_err=float(box_err), roi_agreement=roi_agreement,
+               kept_rows=int((g_out[..., 0] >= 0).sum()),
+               cpu_nms_of_card_rows_equal=bool(torch.equal(plain, g_out)),
+               finite=bool(torch.isfinite(g_rows).all()))
+    res["ok"] = res["finite"] and res["cpu_nms_of_card_rows_equal"] and \
+        res["valid_agreement"] >= DET_AGREE_MIN and \
+        res["id_agreement"] >= DET_AGREE_MIN and \
+        res["max_score_err"] <= DET_PROB_TOL and \
+        res["max_box_err"] <= DET_BOX_TOL and res["kept_rows"] > 0 and \
+        (roi_agreement is None or roi_agreement >= DET_ROI_AGREE_MIN)
+    return res
+
+
+def _det_infer(torch, mx, cbr, tc, net, x):
+    """Eager then hybridized forwards of ``net`` on ``x`` (card tensors),
+    DET_REPS timed of each after a warm-up (the graph's warm-up is its
+    capture): ms, images/s, peak memory, the replay equal to the eager
+    forward bit for bit; the launches of #4 and ``nms_keep`` of one
+    eager forward, and of the whole run (all counts set to 0 at its
+    start)."""
+    fused = cbr.fused_matmul_affine_relu
+    fused.launches = fused.launches_mma = tc.nms_keep.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(B=x.shape[0], dtype=str(x.dtype))
+    eager = [o._data.clone() for o in net(x)]
+    torch.cuda.synchronize()
+    res["fused_launches_a_forward"] = fused.launches
+    res["nms_launches_a_forward"] = tc.nms_keep.launches
+    for mode in ("eager", "graph"):
+        if mode == "graph":
+            net.hybridize(static_alloc=True, static_shape=True)
+        ms = []
+        for _ in range(DET_REPS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = net(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        warm = sum(ms[1:]) / DET_REPS
+        res[mode] = dict(ms=ms, warm_ms=warm,
+                         images_per_s=x.shape[0] / warm * 1e3)
+    res["replay_equals_eager"] = all(
+        torch.equal(o._data, e) for o, e in zip(out, eager))
+    res["kept_rows"] = int((eager[0] >= 0).sum())
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    res["fused_launches"] = fused.launches
+    res["fused_launches_mma"] = fused.launches_mma
+    res["nms_launches"] = tc.nms_keep.launches
+    net.hybridize(False)
+    del out, eager
+    return res
+
+
+def _det_bound(mx, net, x, dtype):
+    """(GFLOP, bound ms, bound_by) of one forward: 2·MACs of its convs and
+    dense layers (``_conv_macs``) at the dtype's peak, against the input,
+    the weights and the pre-NMS rows read or written once."""
+    macs = _conv_macs(mx, net, x)
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = x._data.numel() * item + item * sum(
+        p.data()._data.numel() for p in net.collect_params().values())
+    ms, by = roofline_ms(2.0 * macs, nbytes, dtype)
+    return 2.0 * macs / 1e9, ms, by
+
+
+def detection_ops_phase(torch, mx, tc, failures):
+    """Phase 23a: the contrib ops on the card against the port's CPU route
+    at the detectors' shapes (f32, TF32 off): ``box_nms`` at SSD-512's
+    (32, 1364, 6) class-aware with topk 400 (exact), ``Proposal`` at
+    Faster R-CNN's (1, 18, 38, 63) with pre 2000 and post 128,
+    ``ROIAlign`` of its 128 proposals on (1, 1024, 38, 63) pooled 14,
+    forward and backward, ``MultiBoxTarget`` at 1,364 anchors and 8
+    objects with negative mining 3, ``bipartite_matching``,
+    ``BilinearResize2D``, deformable convolution at (8, 64, 32, 32) 3x3,
+    and the control-flow ops eager and captured; then the ``nms_keep``
+    kernel against ``_nms_keep_plain`` on the card at every size of
+    NMS_SIZES, bit for bit, with its time, the plain version's and the
+    bound.  Returns the kernels line's row at NMS_MAIN."""
+    free_card(torch)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    gen = torch.Generator().manual_seed(SEED + 41)
+    nd = mx.nd
+    res, bad = {}, []
+
+    def both(fn, *arrays, **kw):
+        outs = []
+        for ctx in (gpu, cpu):
+            r = fn(*[nd.array(a, ctx=ctx) for a in arrays], **kw)
+            r = r if isinstance(r, (tuple, list)) else [r]
+            outs.append([o._data.detach().float().cpu() for o in r])
+        return outs
+
+    def rel(name, g, c, tol=OPS_TOL):
+        err = max(_rel_norm(torch, a, b) for a, b in zip(g, c))
+        res[name] = dict(rel_norm=err, tol=tol)
+        if not err <= tol:
+            bad.append(f"{name} {err}")
+
+    def exact(name, g, c):
+        eq = all(torch.equal(a, b) for a, b in zip(g, c))
+        res[name] = dict(equal=eq)
+        if not eq:
+            bad.append(f"{name} not equal")
+
+    # box_nms at SSD-512's rows, bf16-rounded scores (ties)
+    n = 1364
+    dets = torch.cat([
+        torch.randint(0, DET_CLASSES, (32, n, 1), generator=gen).float(),
+        torch.rand((32, n, 1), generator=gen).bfloat16().float(),
+        _det_boxes(torch, gen, (32, n), 1.0)], -1)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, topk=400,
+              coord_start=2, score_index=1, id_index=0)
+    exact("box_nms", *both(nd.contrib.box_nms, dets, **kw))
+    g_dets = nd.array(dets, ctx=gpu)
+    res["box_nms"]["op_ms"] = time_ms(
+        torch, lambda: nd.contrib.box_nms(g_dets, **kw), 10)
+    # Proposal at Faster R-CNN's 600x1000 RPN map
+    fg = torch.rand((1, 9, 38, 63), generator=gen)
+    cls_prob = torch.cat([1 - fg, fg], 1)
+    bbox = torch.randn((1, 36, 38, 63), generator=gen) * 0.2
+    info = torch.tensor([[600.0, 1000.0, 1.0]])
+    pkw = dict(rpn_pre_nms_top_n=2000, rpn_post_nms_top_n=128,
+               threshold=0.7, rpn_min_size=1, scales=(8, 16, 32),
+               ratios=(0.5, 1, 2), feature_stride=16)
+    g, c = both(nd.contrib.Proposal, cls_prob, bbox, info, **pkw)
+    err = float((g[0] - c[0]).abs().max())
+    res["proposal"] = dict(max_abs_err_px=err, tol_px=1e-3,
+                           rois=list(g[0].shape))
+    if not err <= 1e-3:
+        bad.append(f"proposal {err}")
+    rois = c[0]
+    # ROIAlign of those proposals, forward and backward
+    feat = torch.randn((1, 1024, 38, 63), generator=gen)
+    cot = torch.randn((128, 1024, 14, 14), generator=gen)
+    outs = []
+    for ctx in (gpu, cpu):
+        d = nd.array(feat, ctx=ctx)
+        d.attach_grad()
+        with mx.autograd.record():
+            y = nd.contrib.ROIAlign(d, nd.array(rois, ctx=ctx),
+                                    pooled_size=14, spatial_scale=1 / 16,
+                                    sample_ratio=2)
+            loss = (y * nd.array(cot, ctx=ctx)).sum()
+        loss.backward()
+        outs.append([y._data.float().cpu(), d.grad._data.float().cpu()])
+        del d, y, loss
+    rel("roi_align", *outs)
+    # MultiBoxTarget at SSD-512's anchors
+    anchors = nd.concat(*[nd.contrib.MultiBoxPrior(
+        nd.zeros((1, 1, s, s), ctx=cpu), sizes=sz, ratios=(1, 2, 0.5))
+        for s, sz in zip((16, 8, 4, 2, 1), _ssd512_sizes())], dim=1)._data
+    lab = -torch.ones((SSD_TRAIN_B, 8, 5))
+    for i in range(SSD_TRAIN_B):
+        k = 1 + i % 8
+        lab[i, :k, 0] = torch.randint(0, DET_CLASSES, (k,), generator=gen)
+        lab[i, :k, 1:] = _det_boxes(torch, gen, (k,), 1.0)
+    cp = torch.randn((SSD_TRAIN_B, DET_CLASSES + 1, anchors.shape[1]),
+                     generator=gen)
+    g, c = both(nd.contrib.MultiBoxTarget, anchors, lab, cp,
+                negative_mining_ratio=3)
+    rel("multibox_target_loc", g[:2], c[:2])
+    agree = float((g[2] == c[2]).float().mean())
+    res["multibox_target_cls"] = dict(agreement=agree, min=DET_AGREE_MIN)
+    if not agree >= DET_AGREE_MIN:
+        bad.append(f"multibox_target cls {agree}")
+    # bipartite matching of those labels' IoUs against the anchors
+    iou = nd.contrib.box_iou(nd.array(lab[:, :, 1:], ctx=cpu),
+                             nd.array(anchors[0], ctx=cpu))._data
+    exact("bipartite_matching", *both(nd.contrib.bipartite_matching, iou,
+                                      threshold=0.1))
+    fmap = torch.randn((8, 64, 32, 32), generator=gen)
+    rel("bilinear_resize_2d", *both(nd.contrib.BilinearResize2D, fmap,
+                                    height=64, width=64))
+    off = torch.randn((8, 18, 32, 32), generator=gen) * 2
+    wt = torch.randn((64, 64, 3, 3), generator=gen) * 0.05
+    rel("deformable_convolution", *both(
+        nd.contrib.DeformableConvolution, fmap, off, wt, kernel=(3, 3),
+        pad=(1, 1), num_filter=64, no_bias=True))
+    # control flow, eager on both, and captured inside a graph on the card
+    xs = torch.randn((6, 4), generator=gen)
+
+    def flow(x):
+        outs, last = nd.contrib.foreach(lambda a, s: (a * s, a + s), x,
+                                        nd.ones_like(x[0]))
+        steps, v = nd.contrib.while_loop(
+            lambda v: v.sum() < 40, lambda v: ([v * 2], [v + 3]), [last],
+            max_iterations=8)
+        pick = nd.contrib.cond(v[0].sum() > 0, lambda: v[0] * 2,
+                               lambda: v[0] - 1)
+        return outs, steps, pick
+
+    rel("control_flow", *both(flow, xs), tol=1e-6)
+
+    class Flow(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return flow(x)
+
+    blk = Flow()
+    xg = nd.array(xs, ctx=gpu)
+    eager = [o._data.clone() for o in blk(xg)]
+    blk.hybridize()
+    blk(xg)  # the capture
+    replay = blk(xg)
+    exact("control_flow_graph", [o._data.cpu() for o in replay],
+          [e.cpu() for e in eager])
+    # the nms_keep kernel against its plain version on the card
+    scans, main = [], None
+    for g_, n_, with_cls in NMS_SIZES:
+        boxes = _det_boxes(torch, gen, (g_, n_), math.sqrt(n_) * 4,
+                           (2.0, 12.0)).cuda()
+        valid = (torch.rand((g_, n_), generator=gen) > 0.1).cuda()
+        ids = torch.randint(0, 3, (g_, n_), generator=gen).float().cuda() \
+            if with_cls else None
+        got = tc.nms_keep(boxes, valid, ids, 0.45)
+        ref = tc._nms_keep_plain(boxes, valid, ids, 0.45)
+        equal = bool(torch.equal(got, ref))
+        k_ms = time_ms(torch, lambda: tc.nms_keep(boxes, valid, ids, 0.45),
+                       20)
+        p_ms = time_ms(torch, lambda: tc._nms_keep_plain(boxes, valid, ids,
+                                                          0.45),
+                       1 if n_ > 2000 else 3)
+        nbytes = g_ * n_ * (16 + 1 + 1 + (4 if with_cls else 0))
+        row = dict(G=g_, n=n_, class_ids=with_cls, equal=equal,
+                   shared_memory=n_ * (21 if with_cls else 17) <= 232448,
+                   kept=int(got.sum()), valid=int(valid.sum()), ms=k_ms,
+                   us_per_scanned_box=k_ms * 1e3 / n_, plain_ms=p_ms,
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   max_abs_err=float((got.float() - ref.float()).abs()
+                                     .max()))
+        scans.append(row)
+        if (g_, n_, with_cls) == NMS_MAIN:
+            main = row
+        if not equal:
+            bad.append(f"nms_keep at {g_}x{n_} differs from the plain "
+                       "version")
+        del boxes, valid, ids, got, ref
+    emit(dict(phase="detection_ops", nvidia_smi=_card(), ops=res,
+              nms_keep=scans, ok=not bad))
+    if bad:
+        failures.append("detection ops: " + "; ".join(bad))
+    free_card(torch)
+    return main
+
+
+def _det_boxes(torch, gen, shape, size, wh=(0.02, 0.3)):
+    """Random corner boxes (*shape, 4) in [0, size] (CPU, from ``gen``):
+    centers uniform, sides uniform in ``wh`` (fractions of size when
+    size is 1)."""
+    c = torch.rand(shape + (2,), generator=gen) * size
+    s = wh[0] + torch.rand(shape + (2,), generator=gen) * (wh[1] - wh[0])
+    return torch.cat([c - s / 2, c + s / 2], -1)
+
+
+def _ssd512_sizes():
+    """``get_ssd``'s anchor sizes at 512 (5 levels)."""
+    s = np.linspace(0.1, 0.9, 6)
+    return [(float(s[i]), float(np.sqrt(s[i] * s[i + 1]))) for i in range(5)]
+
+
+def _det_phase(torch, mx, cbr, tc, name, make, arrays, x, check_x,
+               dtype, expect_fused, expect_nms, failures, phase):
+    """A detector's inference phase: the f32 card-vs-CPU check on
+    ``check_x``, then ``_det_infer`` on ``x`` (each a card tensor) in
+    ``dtype``; returns (#4's launches, its tensor-core launches, the
+    NMS launches) of the timed runs."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    check = _det_f32_check(torch, mx, make, arrays, check_x)
+    net = make()
+    load_numpy_params(net, arrays, ctx=mx.gpu(0))
+    if dtype != "float32":
+        net.cast(dtype)
+    runs, totals = [], [0, 0, 0]
+    for xb in x:
+        gflop, bound, by = _det_bound(mx, net, xb, dtype)
+        r = _det_infer(torch, mx, cbr, tc, net, xb)
+        r.update(gflop=gflop, bound_ms=bound, bound_by=by)
+        runs.append(r)
+        totals = [totals[0] + r["fused_launches"],
+                  totals[1] + r["fused_launches_mma"],
+                  totals[2] + r["nms_launches"]]
+    ok = check["ok"] and all(
+        r["replay_equals_eager"] and r["kept_rows"] > 0 and
+        r["fused_launches_a_forward"] == expect_fused and
+        r["nms_launches_a_forward"] == expect_nms for r in runs)
+    emit(dict(phase=phase, nvidia_smi=_card(), net=name, dtype=dtype,
+              f32_check=check, runs=runs, expect_fused=expect_fused,
+              expect_nms=expect_nms, ok=ok))
+    if not ok:
+        failures.append(f"{name}: check {check}, runs " + "; ".join(
+            f"B={r['B']} replay equal {r['replay_equals_eager']}, #4 "
+            f"{r['fused_launches_a_forward']}, nms "
+            f"{r['nms_launches_a_forward']}" for r in runs))
+    del net
+    free_card(torch)
+    return totals
+
+
+def ssd_infer_phase(torch, mx, detection, cbr, tc, failures):
+    """Phase 23b: ``ssd_512_resnet50_v1`` (20 classes) at 512x512: the f32
+    check at B=SSD_CHECK_B, then bf16 (``net.cast``) at B=32 and B=1,
+    eager and hybridized: 20 launches of #4 (16 bottlenecks, 4 extras)
+    and one of ``nms_keep`` a forward."""
+    def make():
+        return detection.ssd_512_resnet50_v1(classes=DET_CLASSES)
+
+    arrays = _resnet_arrays(torch, mx, make, (1, 3, 128, 128))
+    STASH["ssd512_arrays"] = arrays
+    gen = torch.Generator().manual_seed(SEED + 42)
+    check_x = torch.rand((SSD_CHECK_B, 3, SSD_IMAGE, SSD_IMAGE),
+                         generator=gen)
+    xs = [mx.nd.array(torch.rand((b, 3, SSD_IMAGE, SSD_IMAGE),
+                                 generator=gen).bfloat16(), ctx=mx.gpu(0))
+          for b in SSD_BATCHES]
+    return _det_phase(torch, mx, cbr, tc, "ssd_512_resnet50_v1", make,
+                      arrays, xs, check_x, "bfloat16", 20, 1, failures,
+                      "ssd512_infer")
+
+
+def frcnn_infer_phase(torch, mx, detection, cbr, tc, failures):
+    """Phase 23c: ``faster_rcnn_resnet50_v1`` (20 classes; pre 2000,
+    post 128) at 600x1000, B=1, in f32 (a bf16 cast fails in both
+    packages: ROIAlign's f32 output meets stage 4's bf16 weights), eager
+    and hybridized: 16 launches of #4 (13 in stages 1-3, 3 in stage 4 on
+    the ROI batch) and two of ``nms_keep`` (the RPN's, the final
+    ``box_nms``) a forward; the f32 check at 320x480."""
+    def make():
+        return detection.faster_rcnn_resnet50_v1(classes=DET_CLASSES)
+
+    arrays = _resnet_arrays(torch, mx, make, (1, 3, 128, 128))
+    gen = torch.Generator().manual_seed(SEED + 43)
+    check_x = torch.rand((1, 3) + FRCNN_CHECK_IMAGE, generator=gen)
+    x = mx.nd.array(torch.rand((1, 3) + FRCNN_IMAGE, generator=gen),
+                    ctx=mx.gpu(0))
+    return _det_phase(torch, mx, cbr, tc, "faster_rcnn_resnet50_v1", make,
+                      arrays, [x], check_x, "float32", 16, 2, failures,
+                      "frcnn_infer")
+
+
+def yolo_infer_phase(torch, mx, detection, cbr, tc, failures):
+    """Phase 23d: ``yolo3_darknet53`` (20 classes) at 416x416, bf16 at
+    B=16, eager and hybridized: #4 never (Darknet's blocks end in
+    LeakyReLU) and ``nms_keep`` once a forward; the f32 check at B=2."""
+    def make():
+        return detection.yolo3_darknet53(classes=DET_CLASSES)
+
+    arrays = _resnet_arrays(torch, mx, make, (1, 3, 128, 128))
+    gen = torch.Generator().manual_seed(SEED + 44)
+    check_x = torch.rand((YOLO_CHECK_B, 3, YOLO_IMAGE, YOLO_IMAGE),
+                         generator=gen)
+    x = mx.nd.array(torch.rand((YOLO_B, 3, YOLO_IMAGE, YOLO_IMAGE),
+                               generator=gen).bfloat16(), ctx=mx.gpu(0))
+    return _det_phase(torch, mx, cbr, tc, "yolo3_darknet53", make, arrays,
+                      [x], check_x, "bfloat16", 0, 1, failures,
+                      "yolo_infer")
+
+
+def write_det_records(mx, root, n, seed):
+    """``n`` synthetic JPEGs (384-640 px a side, 1-8 filled boxes of the
+    20 classes on a noise texture) in a ``.rec``/``.idx`` pair with the
+    reference's detection label ``[2, 5, cls, x1, y1, x2, y2, ...]``
+    (corners normalized to [0, 1]); returns the ``.rec`` path."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    rec, idx = os.path.join(root, "det.rec"), os.path.join(root, "det.idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in range(n):
+        h, wd = rng.randint(384, 641, 2)
+        img = rng.randint(0, 256, (h, wd, 3)).astype(np.uint8)
+        k = 1 + i % 8
+        objs = []
+        for _ in range(k):
+            bw, bh = rng.uniform(0.1, 0.5, 2)
+            x1, y1 = rng.uniform(0, 1 - bw), rng.uniform(0, 1 - bh)
+            cls = rng.randint(DET_CLASSES)
+            img[int(y1 * h):int((y1 + bh) * h),
+                int(x1 * wd):int((x1 + bw) * wd)] = (cls * 12, 255 - cls * 12,
+                                                     128)
+            objs += [cls, x1, y1, x1 + bw, y1 + bh]
+        label = np.asarray([2, 5] + objs, np.float32)
+        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        assert ok
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, label, i, 0), buf.tobytes()))
+    w.close()
+    return rec
+
+
+def _ssd_loss(mx, net, x, label):
+    """The SSD loss of ``tests/test_detection_models.py`` with negative
+    mining 3: softmax cross-entropy over the anchors that
+    ``MultiBoxTarget`` keeps (it marks the mined-away negatives -1) plus
+    the L1 box loss on the matched anchors, per image, over the image's
+    matched anchors (as GluonCV's ``SSDMultiBoxLoss`` normalizes)."""
+    nd = mx.nd
+    cls_p, box_p, anchors = net(x)
+    loc_t, loc_m, cls_t = nd.contrib.MultiBoxTarget(
+        anchors, label, nd.transpose(cls_p, axes=(0, 2, 1)),
+        negative_mining_ratio=3)
+    logp = nd.log_softmax(cls_p.astype("float32"), axis=-1)
+    cls_loss = -nd.pick(logp, nd.maximum(cls_t, 0), axis=-1) * (cls_t >= 0)
+    box = box_p.astype("float32").reshape((x.shape[0], -1))
+    loc_loss = nd.abs(box - loc_t) * loc_m
+    matched = nd.maximum(loc_m.sum(axis=1) / 4, 1)
+    return (cls_loss.sum(axis=1) + loc_loss.sum(axis=1)) / matched
+
+
+def ssd_train_phase(torch, mx, detection, mt, failures):
+    """Phase 23e: ``ssd_512_resnet50_v1`` bf16 training at 512x512, B=16,
+    fed by ``image.ImageDetIter`` over a ``.rec`` of SSD_TRAIN_IMAGES
+    synthetic JPEGs written here (``CreateDetAugmenter``: random crop,
+    mirror, mean/std), ``MultiBoxTarget`` with negative mining 3 and SGD
+    (lr SSD_TRAIN_LR, momentum 0.9, f32 masters): SSD_TRAIN_K eager
+    steps and one
+    ``FusedTrainStep`` call over the same K batches from the same weights
+    (losses within FUSED_LOSS_RTOL), a timed call of replays, then
+    SSD_TRAIN_STEPS eager steps fed by the iterator: step ms and the
+    iterator's wait.  Returns the update's launches."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    root = tempfile.mkdtemp(prefix="mxt_det_")
+    try:
+        t = time.perf_counter()
+        rec = write_det_records(mx, root, SSD_TRAIN_IMAGES, SEED + 45)
+        write_s = time.perf_counter() - t
+        shape = (3, SSD_IMAGE, SSD_IMAGE)
+        it = mx.image.ImageDetIter(
+            SSD_TRAIN_B, shape, path_imgrec=rec, shuffle=True, seed=SEED,
+            aug_list=mx.image.CreateDetAugmenter(
+                shape, rand_crop=0.5, rand_mirror=True,
+                mean=(123.68, 116.28, 103.53), std=(58.4, 57.1, 57.4)))
+
+        def next_batch():
+            try:
+                b = it.next()
+            except StopIteration:
+                it.reset()
+                b = it.next()
+            return b.data[0].astype("bfloat16"), b.label[0]
+
+        arrays = STASH.pop("ssd512_arrays")
+
+        def make():
+            net = detection.ssd_512_resnet50_v1(classes=DET_CLASSES)
+            load_numpy_params(net, arrays, ctx=mx.gpu(0))
+            net.cast("bfloat16")
+            return net, mx.gluon.Trainer(net.collect_params(), "sgd", {
+                "learning_rate": SSD_TRAIN_LR, "momentum": 0.9,
+                "multi_precision": True})
+
+        batches = [next_batch() for _ in range(SSD_TRAIN_K)]
+        mt.multi_tensor_update.launches = 0  # the main path starts here
+        net, tr = make()
+        eager, eager_ms = [], []
+        for xb, yb in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mx.autograd.record():
+                loss = _ssd_loss(mx, net, xb, yb)
+            loss.backward()
+            tr.step(SSD_TRAIN_B)
+            eager.append(float(loss.sum().asscalar()))
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+        # fed by the iterator: the next batch is fetched while the step
+        # runs on the card
+        fed_ms, waits, fed = [], [], []
+        xb, yb = next_batch()
+        for _ in range(SSD_TRAIN_STEPS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mx.autograd.record():
+                loss = _ssd_loss(mx, net, xb, yb)
+            loss.backward()
+            tr.step(SSD_TRAIN_B)
+            tw = time.perf_counter()
+            xb, yb = next_batch()
+            waits.append((time.perf_counter() - tw) * 1e3)
+            fed.append(float(loss.sum().asscalar()))
+            fed_ms.append((time.perf_counter() - t) * 1e3)
+        del net, tr, loss
+        free_card(torch)
+        net, tr = make()
+        fstep = mx.gluon.FusedTrainStep(
+            net, tr, lambda n, a, c: _ssd_loss(mx, n, a, c),
+            steps_per_execution=SSD_TRAIN_K, batch_size=SSD_TRAIN_B,
+            stacked_inputs=True)
+        xs = mx.nd.stack(*[b[0] for b in batches], axis=0)
+        ys = mx.nd.stack(*[b[1] for b in batches], axis=0)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fused = fstep(xs, ys).asnumpy().tolist()
+        first_call_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        more = fstep(xs, ys).asnumpy()
+        call_ms = (time.perf_counter() - t) * 1e3
+        updates = mt.multi_tensor_update.launches  # ... and ends here
+        rel = max(abs(a - c) / abs(c) for a, c in zip(fused, eager))
+        finite = all(math.isfinite(v) for v in eager + fed + fused) and \
+            bool(np.isfinite(more).all())
+        ok = finite and rel <= FUSED_LOSS_RTOL and len(fstep._graphs) == 1 \
+            and updates == 2 * SSD_TRAIN_K + SSD_TRAIN_STEPS + 1 + \
+            SSD_TRAIN_K
+        step_ms = call_ms / SSD_TRAIN_K
+        emit(dict(phase="ssd512_train", nvidia_smi=_card(), B=SSD_TRAIN_B,
+                  image=SSD_IMAGE, dtype="bfloat16", lr=SSD_TRAIN_LR,
+                  records=SSD_TRAIN_IMAGES, write_s=write_s,
+                  label_shape=list(batches[0][1].shape),
+                  eager_losses=eager, eager_step_ms=eager_ms,
+                  fed_losses=fed, fed_step_ms=fed_ms,
+                  iterator_wait_ms=waits,
+                  fed_warm_step_ms=sum(fed_ms[1:]) / SSD_TRAIN_STEPS,
+                  fused_losses=fused, next_losses=more.tolist(),
+                  max_loss_rel_err=rel, tol=FUSED_LOSS_RTOL,
+                  first_call_s=first_call_s, fused_call_ms=call_ms,
+                  fused_step_ms=step_ms,
+                  images_per_s=SSD_TRAIN_B / step_ms * 1e3,
+                  multi_tensor_launches=updates,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(),
+                  ok=ok))
+        if not ok:
+            failures.append(f"ssd512 training: eager {eager} vs fused "
+                            f"{fused} (worst {rel}), fed {fed}, updates "
+                            f"{updates}")
+        del net, tr, fstep, xs, ys, batches
+        free_card(torch)
+        return updates
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -6283,6 +6949,24 @@ def main():
     rnn_ops_phase(torch, mx, failures)
     update_launches += word_lm_phase(torch, mx, mt, failures)
     update_launches += ctc_phase(torch, mx, mt, failures)
+    # slice 15: detection
+    from mxnet_tpu_torch.gluon.model_zoo import detection
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    nms_row = detection_ops_phase(torch, mx, tc, failures)
+    det = {"ssd_512_resnet50_v1": ssd_infer_phase(
+               torch, mx, detection, cbr, tc, failures),
+           "faster_rcnn_resnet50_v1": frcnn_infer_phase(
+               torch, mx, detection, cbr, tc, failures),
+           "yolo3_darknet53": yolo_infer_phase(
+               torch, mx, detection, cbr, tc, failures)}
+    update_launches += ssd_train_phase(torch, mx, detection, mt, failures)
+    det_launches = sum(v[0] for v in det.values())
+    fused_launches += det_launches
+    fused_mma += sum(v[1] for v in det.values())
+    nms_launches = sum(v[2] for v in det.values())
+    if 0 in [v[2] for v in det.values()] or nms_row is None:
+        failures.append(f"a detector launched no nms_keep: {det}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -6389,6 +7073,8 @@ def main():
          "launches": fused_launches, "launches_mma": fused_mma,
          "launches_fma": fused_launches - fused_mma,
          "launches_served": served, "launches_eval": eval_launches,
+         "launches_detection": det_launches,
+         "launches_detection_by_net": {k: v[0] for k, v in det.items()},
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -6414,7 +7100,20 @@ def main():
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],
-         "library_ms": mtrow["library_ms"]}]})
+         "library_ms": mtrow["library_ms"]},
+        {"name": "nms_keep", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/nms_keep.cu",
+         "replaces": "mxnet_tpu/ops/contrib.py:84 (lax.fori_loop; no "
+                     "Pallas kernel)",
+         "design": "one block an image, a barrier a kept box, the mask "
+                   "and boxes in shared memory",
+         "at": dict(zip(("G", "n", "class_ids"), NMS_MAIN)),
+         "launches": nms_launches,
+         "launches_by_net": {k: v[2] for k, v in det.items()},
+         "max_abs_err": nms_row["max_abs_err"], "ms": nms_row["ms"],
+         "us_per_scanned_box": nms_row["us_per_scanned_box"],
+         "plain_ms": nms_row["plain_ms"], "bound_ms": nms_row["bound_ms"],
+         "bound_by": nms_row["bound_by"], "library_ms": None}]})
     if failures:
         for f in failures:
             print("FAILED: " + f, file=sys.stderr)

@@ -6,7 +6,6 @@ from __future__ import annotations
 
 from .base import MXNetError
 
-_8D = "Queue 1 item 8d, detection and the contrib ops"
 _8E = "Queue 1 item 8e, sparse"
 _8F = "Queue 1 item 8f, symbols and export"
 _8G = "Queue 1 item 8g"
@@ -22,23 +21,11 @@ MX = {
 }
 
 ND = {
-    **dict.fromkeys((
-        "AdaptiveAvgPooling2D", "BilinearResize2D", "DeformableConvolution",
-        "ModulatedDeformableConvolution", "MultiBoxDetection",
-        "MultiBoxPrior", "MultiBoxTarget", "Proposal", "ROIAlign",
-        "ROIPooling", "adaptive_avg_pooling_2d", "allclose", "amp_cast",
-        "amp_multicast", "arange_like", "bilinear_resize_2d",
-        "bipartite_matching", "box_decode", "box_encode", "box_iou",
-        "box_nms", "box_non_maximum_suppression", "contrib",
-        "deformable_convolution", "fft", "gradientmultiplier", "ifft",
-        "index_array", "index_copy", "modulated_deformable_convolution",
-        "multibox_detection", "multibox_prior", "multibox_target",
-        "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
     "Custom": _8G,
     "cast_storage": _8E, "sparse": _8E,
 }
 
-CONTRIB = {"ndarray": _8D, "onnx": _8F, "symbol": _8F}
+CONTRIB = {"onnx": _8F, "symbol": _8F}
 
 
 def refuse(table, module):

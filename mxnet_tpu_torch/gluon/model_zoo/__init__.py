@@ -1,5 +1,6 @@
 """gluon.model_zoo (counterpart of ``mxnet_tpu/gluon/model_zoo``): the
-``vision`` families.  ``detection`` ports later (ROADMAP.md, Queue 1
-item 8)."""
+``vision`` families and the ``detection`` zoo (SSD, YOLOv3, Faster
+R-CNN)."""
 from . import vision
+from . import detection
 from .vision import get_model

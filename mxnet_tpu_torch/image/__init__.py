@@ -12,9 +12,9 @@ array's context.  The pipelines
 (``io.ImageRecordIter``, ``gluon.data``, ``data.StreamingLoader``) keep
 images as numpy until one host-to-device copy a batch.
 
-The detection iterator and its box-aware augmenters (the reference's
-``image/detection.py``, ``ImageDetIter``) are not ported yet: they raise
-``MXNetError`` naming ROADMAP Queue 1, "Left out of slice 10".
+The detection iterator and its box-aware augmenters (``ImageDetIter``,
+``CreateDetAugmenter``, the ``Det*`` augmenters) are in
+``image/detection.py``.
 """
 from __future__ import annotations
 
@@ -28,11 +28,8 @@ __all__ = ["imdecode", "imdecode_raw", "imresize", "imread",
            "color_normalize", "ImageIter", "augment_basic", "augment_geom",
            "CreateAugmenter", "Augmenter", "ResizeAug", "ForceResizeAug",
            "RandomCropAug", "CenterCropAug", "HorizontalFlipAug", "CastAug",
-           "ImageDetIter", "CreateDetAugmenter"]
-
-_LATER10 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
-            "10\": item 8, with model_zoo.detection)")
-
+           "ImageDetIter", "CreateDetAugmenter", "DetAugmenter",
+           "DetHorizontalFlipAug", "DetResizeAug", "DetRandomCropAug"]
 
 def _cv2(what):
     """OpenCV, or ``MXNetError`` naming it (the host codec and resizer)."""
@@ -303,9 +300,7 @@ class ImageIter:
         return self._inner.provide_label
 
 
-def ImageDetIter(*args, **kwargs):
-    raise MXNetError(f"ImageDetIter {_LATER10}")
-
-
-def CreateDetAugmenter(*args, **kwargs):
-    raise MXNetError(f"CreateDetAugmenter {_LATER10}")
+# detection iterator + box-aware augmenters (reference image/detection.py)
+from .detection import (ImageDetIter, CreateDetAugmenter,  # noqa: E402,F401
+                        DetAugmenter, DetHorizontalFlipAug, DetResizeAug,
+                        DetRandomCropAug)

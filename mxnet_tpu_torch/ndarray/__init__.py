@@ -4,8 +4,9 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the ops of
 ``ops/elemwise.py``, ``ops/tensor.py``, ``ops/nn_ops.py``,
-``ops/output_ops.py``, ``ops/quantization.py``, ``ops/rnn_ops.py`` and
-``ops/attention.py`` under the reference's names and aliases.
+``ops/output_ops.py``, ``ops/contrib.py``, ``ops/quantization.py``,
+``ops/rnn_ops.py`` and ``ops/attention.py`` under the reference's names
+and aliases, and the ``contrib`` namespace (``ndarray/contrib.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..ops.elemwise import *  # noqa: F401,F403
 from ..ops.tensor import *  # noqa: F401,F403
 from ..ops.nn_ops import *  # noqa: F401,F403
 from ..ops.output_ops import *  # noqa: F401,F403
+from ..ops.contrib import *  # noqa: F401,F403  (legacy top-level names)
 from ..ops.quantization import *  # noqa: F401,F403
 from ..ops.rnn_ops import *  # noqa: F401,F403
 from ..ops.attention import (div_sqrt_dim,  # noqa: F401
@@ -30,6 +32,7 @@ from ..random import uniform as random_uniform  # noqa: F401
 from ..random import normal as random_normal  # noqa: F401
 from ..random import shuffle, multinomial, sample_multinomial  # noqa: F401
 from .ndarray import NDArray
+from . import contrib  # noqa: F401  (mx.nd.contrib namespace)
 
 
 def array(source_array, ctx=None, dtype=None):

@@ -52,10 +52,10 @@ def test_flash_attention_sources_depend_on_the_shared_header():
 
 def test_every_source_builds_with_its_flags_and_declares_its_symbols(
         tmp_path, monkeypatch):
-    """``build`` starts one nvcc a stale source, all together, and the
-    update kernel's alone carries ``--fmad=false`` (it must round where
-    the plain rule's separate ops round); every library declares its C
-    entry points."""
+    """``build`` starts one nvcc a stale source, all together, and only
+    the update kernel's and the NMS scan's carry ``--fmad=false`` (each
+    must round where its plain version's separate ops round); every
+    library declares its C entry points."""
     import subprocess
 
     cmds = []
@@ -78,6 +78,7 @@ def test_every_source_builds_with_its_flags_and_declares_its_symbols(
         sorted(_kernels.SYMBOLS)
     for cmd in cmds:
         name = os.path.basename(cmd[-1])[:-3]
-        assert ("--fmad=false" in cmd) == (name == "multi_tensor_update")
+        assert ("--fmad=false" in cmd) == \
+            (name in ("multi_tensor_update", "nms_keep"))
         assert (tmp_path / f"lib{name}.so").exists()
     assert _kernels.build() == {}  # nothing stale now

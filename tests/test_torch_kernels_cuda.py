@@ -2238,3 +2238,79 @@ def test_ctc_training_step_captures_on_card(cuda_nvcc):
         net_f, tr2, lambda n, a, b: loss_fn(n(a), b).mean(),
         steps_per_execution=3, batch_size=1)
     np.testing.assert_allclose(fstep(x, y).asnumpy(), eager, rtol=1e-5)
+
+
+# -- slice 15: the NMS scan kernel and a hybridized detector ---
+
+def _nms_case(device, g, n, with_cls, seed):
+    """Sorted-order NMS operands: boxes (G, n, 4) clustered so that many
+    overlap, ~10% invalid, three classes or none."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(0, 1, (g, n, 2)) * np.sqrt(n) * 4
+    wh = rng.uniform(2, 12, (g, n, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    valid = rng.rand(g, n) > 0.1
+    cls = rng.randint(0, 3, (g, n)).astype(np.float32) if with_cls else None
+    to = (lambda a: None if a is None else torch.from_numpy(a).to(device))
+    return to(boxes), to(valid), to(cls)
+
+
+# (G, n, class ids): chip_smoke's 23a sizes; 11,200 boxes with ids (21
+# bytes a box) and 14,000 without (17) are past the block's shared memory
+NMS_SHAPES = [(32, 128, True), (32, 400, True), (32, 1364, True),
+              (1, 2000, False), (1, 10647, True), (1, 11200, True),
+              (2, 14000, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g, n, with_cls", NMS_SHAPES)
+def test_nms_keep_kernel_matches_plain_on_card(cuda_nvcc, g, n, with_cls):
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    boxes, valid, cls = _nms_case(cuda_nvcc, g, n, with_cls, seed=n)
+    before = tc.nms_keep.launches
+    got = tc.nms_keep(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert tc.nms_keep.launches == before + 1
+    ref = tc._nms_keep_plain(boxes, valid, cls, 0.45)
+    assert torch.equal(got, ref)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.cuda
+def test_nms_keep_kernel_rejects_what_it_does_not_take(cuda_nvcc):
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    boxes, valid, cls = _nms_case(cuda_nvcc, 2, 16, True, seed=0)
+    for args in ((boxes.half(), valid, cls), (boxes, valid.float(), cls),
+                 (boxes, valid, cls[:, :8]), (boxes.cpu(), valid, cls)):
+        with pytest.raises(MXNetError, match="nms_keep"):
+            tc.nms_keep(*args, 0.5)
+
+
+@pytest.mark.cuda
+def test_hybridized_ssd_replays_its_eager_forward_on_card(cuda_nvcc):
+    """``ssd_300_resnet18_v1`` f32 at 96×96: the captured graph's replays
+    give the eager forward's ids, scores and boxes bit for bit, and each
+    forward launches ``nms_keep`` once (eager and replayed)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import detection
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    ctx = mx.gpu(0)
+    mx.random.seed(3)
+    net = detection.ssd_300_resnet18_v1(classes=3)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    x = mx.nd.array(np.random.RandomState(4).rand(2, 3, 96, 96)
+                    .astype(np.float32), ctx=ctx)
+    before = tc.nms_keep.launches
+    eager = [o.asnumpy() for o in net(x)]
+    assert tc.nms_keep.launches == before + 1
+    net.hybridize()
+    for _ in range(3):
+        before = tc.nms_keep.launches
+        got = [o.asnumpy() for o in net(x)]
+        assert tc.nms_keep.launches == before + 1
+        for g, e in zip(got, eager):
+            np.testing.assert_array_equal(g, e)
+    assert net.cache_stats()["hits"] == 2

@@ -5,7 +5,8 @@ of the whole name set.
 The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``gluon``, ``Block``, ``HybridBlock``, ``Parameter``, ``ParameterDict``,
 ``Trainer``, ``KVStore``, ``init``, ``random``, ``parallel``,
-``contrib`` and ``gluon.rnn`` in both
+``contrib``, ``gluon.rnn``, ``gluon.model_zoo``,
+``gluon.model_zoo.detection``, ``nd.contrib`` and ``image`` in both
 packages with an explicit list of names left out, each with the ROADMAP
 list that owns it; reading a left-out name raises ``MXNetError`` naming
 that list, never ``AttributeError``.
@@ -21,7 +22,7 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
 CPU = tmx.cpu()
-_8D, _8E = "item 8d", "item 8e"
+_8E = "item 8e"
 _8F, _8G, _9 = "item 8f", "item 8g", "item 9"
 
 LEFT_OUT = {
@@ -33,30 +34,19 @@ LEFT_OUT = {
         **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
                          "test_utils", "util", "visualization", "viz"), _9),
     },
-    "nd": {
-        **dict.fromkeys((
-            "AdaptiveAvgPooling2D", "BilinearResize2D",
-            "DeformableConvolution", "ModulatedDeformableConvolution",
-            "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-            "Proposal", "ROIAlign", "ROIPooling", "adaptive_avg_pooling_2d",
-            "allclose", "amp_cast", "amp_multicast", "arange_like",
-            "bilinear_resize_2d", "bipartite_matching", "box_decode",
-            "box_encode", "box_iou", "box_nms",
-            "box_non_maximum_suppression", "contrib",
-            "deformable_convolution", "fft", "gradientmultiplier", "ifft",
-            "index_array", "index_copy", "modulated_deformable_convolution",
-            "multibox_detection", "multibox_prior", "multibox_target",
-            "proposal", "quadratic", "roi_align", "roi_pooling"), _8D),
-        "Custom": _8G, "cast_storage": _8E, "sparse": _8E,
-    },
+    "nd": {"Custom": _8G, "cast_storage": _8E, "sparse": _8E},
     "parallel": {"telemetry": _9},
-    "contrib": {"ndarray": _8D, "symbol": _8F},
+    "contrib": {"symbol": _8F},
 }
 
 
 def _namespaces():
     from mxnet_tpu import gluon as jg, kvstore as jkv, parallel as jpar
+    from mxnet_tpu import image as jimage
     from mxnet_tpu import initializer as jinit, random as jrand
+    from mxnet_tpu.gluon import model_zoo as jzoo
+    from mxnet_tpu_torch import image as timage
+    from mxnet_tpu_torch.gluon import model_zoo as tzoo
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -71,6 +61,10 @@ def _namespaces():
         "parallel": (jpar, tmx.parallel),
         "contrib": (jmx.contrib, tmx.contrib),
         "gluon.rnn": (jg.rnn, tmx.gluon.rnn),
+        "gluon.model_zoo": (jzoo, tzoo),
+        "gluon.model_zoo.detection": (jzoo.detection, tzoo.detection),
+        "nd.contrib": (jmx.nd.contrib, tmx.nd.contrib),
+        "image": (jimage, timage),
     }
 
 
@@ -280,6 +274,59 @@ def _slice14_calls():
 @pytest.mark.parametrize("name", sorted(_slice14_calls()))
 def test_names_ported_in_slice_14_resolve_to_working_functions(name):
     assert _slice14_calls()[name]()
+
+
+def _slice15_calls():
+    """One working call of each name ported in slice 15 (each was a
+    refusal naming item 8d or "Left out of slice 10", or, for
+    ``gluon.model_zoo.detection``, an ``AttributeError``); the parity
+    tests are ``test_torch_{contrib,control_flow,detection_ssd,
+    detection_yolo_frcnn,image_det}.py``."""
+    from mxnet_tpu_torch import contrib, gluon, image, nd
+
+    def model_zoo_detection():
+        return isinstance(gluon.model_zoo.detection.get_model(
+            "ssd_300_resnet18_v1", classes=2), gluon.model_zoo.detection.SSD)
+
+    def nd_contrib_ops():
+        d = nd.array([[[0, 0.9, 0, 0, 1, 1], [0, 0.8, 0, 0, 1, 0.9]]],
+                     ctx=CPU)
+        out = nd.contrib.box_nms(d, overlap_thresh=0.5, id_index=0)
+        return out.asnumpy()[0, :, 1].tolist() == [np.float32(0.9), -1.0]
+
+    def legacy_nd_names():
+        return nd.MultiBoxPrior is nd.contrib.MultiBoxPrior and \
+            nd.ROIAlign is nd.contrib.roi_align
+
+    def contrib_ndarray():
+        return contrib.ndarray is nd.contrib
+
+    def control_flow():
+        outs, final = nd.contrib.foreach(
+            lambda x, s: (x + s, x + s), nd.ones((3, 2), ctx=CPU),
+            nd.zeros((2,), ctx=CPU))
+        return final.asnumpy().tolist() == [3.0, 3.0]
+
+    def image_det_iter():
+        with tmx.cpu():
+            it = image.ImageDetIter(1, (3, 8, 8), imglist=[
+                (np.zeros((8, 8, 3), np.float32), [[0, 0.1, 0.1, 0.5, 0.5]])])
+            return next(iter(it)).label[0].shape == (1, 1, 5)
+
+    def create_det_augmenter():
+        return isinstance(image.CreateDetAugmenter((3, 8, 8), rand_crop=1,
+                                                   rand_mirror=True)[0],
+                          image.DetRandomCropAug)
+
+    return {f.__name__: f for f in (
+        model_zoo_detection, nd_contrib_ops, legacy_nd_names,
+        contrib_ndarray, control_flow, image_det_iter,
+        create_det_augmenter)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice15_calls()))
+def test_names_ported_in_slice_15_resolve_to_working_functions(name):
+    assert _slice15_calls()[name]()
 
 
 # -- NDArray ---
