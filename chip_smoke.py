@@ -34,7 +34,12 @@ int8 inference (the quantized ops, ``quantize_net`` on ResNet-50, int8
 (``nd.RNN``, an LSTM word language model, a BiLSTM with ``CTCLoss``);
 and detection: the contrib ops, SSD-512, Faster R-CNN and YOLOv3
 inference through the hand-written NMS scan kernel (``nms_keep``) and
-SSD-512 training fed by ``ImageDetIter``.
+SSD-512 training fed by ``ImageDetIter``; and sparse storage: the
+row_sparse and CSR ops at the factorization machine's width, ``FMModel``
+at Criteo width through ``LibSVMIter`` and the lazy Adam rows, the
+sparse linear classification example, row-sparse values through the
+``dist_sync`` and ``dist_async`` stores, and a profile of an FM step and
+a ResNet-50 forward.
 
     python3 chip_smoke.py
 
@@ -326,7 +331,28 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 23e. SSD-512 bf16 training at B=16 fed by ``image.ImageDetIter`` over a
     ``.rec`` of synthetic JPEGs (crop, mirror), ``MultiBoxTarget`` with
     negative mining: eager steps, ``FusedTrainStep`` against them, and
-    fed steps with the iterator's wait.
+    fed steps with the iterator's wait;
+24a. the sparse ops at the factorization machine's width on the card
+    against the CPU: every ``cast_storage`` pair, the union and
+    intersection merges, ``retain``, and the CSR product (1,000 x
+    1,000,000 with 39 nonzeros a row, times the 1,000,000 x 16 table)
+    forward and transposed, each product's ms beside ``torch.sparse.mm``
+    (cuSPARSE, a yardstick) and its bytes bound;
+24b. the slice's main path: ``FMModel(1_000_000, 16)`` with a local store
+    running Adam (the lazy row updates), fed by ``LibSVMIter(batch_size=
+    1000)`` over a Criteo-shaped file of 64,000 rows written from the
+    seed: 64 steps, the untouched rows of the tables and of Adam's state
+    bit-equal after each, the loss falling, step 1 against the CPU; the
+    step split into iterator, forward, push+update and pull, samples/s,
+    peak memory;
+24c. ``examples/sparse_linear_classification.py``'s loop at its defaults,
+    written against the port: the loss falls, the accuracy beats 0.5;
+24d. 10 FM steps through ``local``, a one-rank NCCL ``dist_sync`` and
+    ``dist_async`` over loopback TCP to a server process on the card, in
+    lockstep: the tables equal, push+pull ms;
+24e. ``mx.profiler`` with a ``torch.profiler`` device trace over one FM
+    step and one ResNet-50 bf16 B=128 forward: device time split between
+    the hand-written kernels, cuBLAS/cuDNN and the rest, the host share.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -339,7 +365,9 @@ steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
 captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
 int8 forwards (#4 must launch 0 times there), each detector's forwards
 of 23b-23d (#4 and ``nms_keep``); the update's in 9, 12, 12b, 13b, 16,
-17, 18b, 18d, 19a, 19b, 20c, 22b, 22c and 23e) and read just after,
+17, 18b, 18d, 19a, 19b, 20c, 22b, 22c and 23e, and in 24b, where it
+must stay 0: the lazy row updates are not the update kernel's) and
+read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -6818,6 +6846,673 @@ def ssd_train_phase(torch, mx, detection, mt, failures):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- slice 16: sparse storage ------------------------------------------------
+
+FM_FEATURES = 1_000_000      # LIBSVM's criteo: 1,000,000 features
+FM_INT_FIELDS = 13           # ... 13 integer fields
+FM_CAT_FIELDS = 26           # ... and 26 categorical ones a row
+FM_FACTOR = 16               # the MXNet FM example's factor size
+FM_B = 1000                  # ... and batch
+FM_ROWS = 64_000             # 64 batches
+FM_STEPS = 64
+FM_LR = 0.01                 # Adam
+FM_CHECK_RTOL = 1e-5         # card vs CPU, f32 (index_add_'s atomics)
+FM_STORE_STEPS = 10          # 24d
+SPARSE_LIN = dict(n=40000, d=4096, density=0.02, steps=40, batch=512,
+                  lr=5.0)    # examples/sparse_linear_classification.py
+SPARSE_OPS_REPS = 20
+PROF_B, PROF_IMAGE = 128, 224  # 24e: the ResNet-50 forward profiled
+
+
+def write_criteo(path, rows, seed):
+    """A Criteo-shaped LibSVM file: ``rows`` lines of 39 features, one a
+    field, each field's ids in its own slice of the 1,000,000 (skewed to
+    the slice's start: id = start + span·u³, so some ids are hot, as
+    hashed categorical values are), values in (0, 1] for the 13 integer
+    fields and 1 for the 26 categorical ones, and labels 0/1 from a
+    hidden linear rule (the score's median splits them)."""
+    rng = np.random.RandomState(seed)
+    fields = FM_INT_FIELDS + FM_CAT_FIELDS
+    span = FM_FEATURES // fields
+    ids = np.arange(fields) * span + \
+        (span * rng.rand(rows, fields) ** 3).astype(np.int64)
+    vals = np.ones((rows, fields))
+    vals[:, :FM_INT_FIELDS] = 1.0 - rng.rand(rows, FM_INT_FIELDS)
+    w_true = rng.randn(FM_FEATURES)
+    score = (w_true[ids] * vals).sum(1)
+    labels = (score > np.median(score)).astype(int)
+    with open(path, "w") as f:
+        for lab, i_row, v_row in zip(labels, ids, vals):
+            f.write(f"{lab} " + " ".join(
+                f"{i}:{v:.6g}" for i, v in zip(i_row, v_row)) + "\n")
+    return labels.mean()
+
+
+def _sparse_pair(mx, card, host):
+    """(max error, whether the stored indices are equal) of a result on
+    the card against the same call's result on the CPU."""
+    sp = mx.nd.sparse
+    if isinstance(card, sp.BaseSparseNDArray):
+        parts = ["indices"] + (["indptr"] if card.stype == "csr" else [])
+        same_idx = all(np.array_equal(getattr(card, p).asnumpy(),
+                                      getattr(host, p).asnumpy())
+                       for p in parts)
+        on_card = all(getattr(card, p)._data.is_cuda
+                      for p in ["data"] + parts)
+        c, h = card.data.asnumpy(), host.data.asnumpy()
+    else:
+        same_idx, on_card = True, card._data.is_cuda
+        c, h = card.asnumpy(), host.asnumpy()
+    err = float(np.abs(c - h).max()) if c.size else 0.0
+    scale = float(np.abs(h).max()) if h.size else 0.0
+    return err, scale, same_idx and c.shape == h.shape, on_card
+
+
+def sparse_ops_phase(torch, mx, failures):
+    """Phase 24a: the sparse ops at the factorization machine's width, on
+    the card against the same calls on CPU tensors: every
+    ``cast_storage`` pair on a gradient-shaped row_sparse array (the
+    1,000,000 x 16 table's rows of a 1,000-row batch), the union and
+    intersection merges of two such arrays and of two CSR batches,
+    ``retain``, and the CSR batch (1,000 x 1,000,000, 39 nonzeros a row)
+    times the table and its transpose times a (1,000, 16) array.  Every
+    result lies on the card; stored indices equal, values within 1e-6
+    of the largest (1e-5 for the products: ``index_add_``'s atomics).
+    Each product's ms beside ``torch.sparse.mm`` on the same CSR tensor
+    (cuSPARSE; a yardstick only) and its bytes bound."""
+    sp = mx.nd.sparse
+    rng = np.random.RandomState(SEED + 240)
+    nnz = FM_INT_FIELDS + FM_CAT_FIELDS
+
+    def batch(seed):
+        r = np.random.RandomState(seed)
+        cols = np.sort(r.randint(0, FM_FEATURES - nnz, (FM_B, nnz)), 1) + \
+            np.arange(nnz)  # distinct and increasing in each row
+        return (r.uniform(0.01, 1.0, FM_B * nnz).astype(np.float32),
+                cols.reshape(-1), np.arange(0, FM_B * nnz + 1, nnz))
+
+    b1, b2 = batch(SEED + 241), batch(SEED + 242)
+    table = rng.randn(FM_FEATURES, FM_FACTOR).astype(np.float32)
+    d = rng.randn(FM_B, FM_FACTOR).astype(np.float32)
+
+    def calls(ctx):
+        c1 = sp.csr_matrix(b1, shape=(FM_B, FM_FEATURES), ctx=ctx)
+        c2 = sp.csr_matrix(b2, shape=(FM_B, FM_FEATURES), ctx=ctx)
+        v = mx.nd.array(table, ctx=ctx)
+        g1 = sp.row_sparse_array((v._data[torch.unique(c1.indices._data)],
+                                  torch.unique(c1.indices._data)),
+                                 shape=table.shape, ctx=ctx)
+        g2 = sp.row_sparse_array((v._data[torch.unique(c2.indices._data)]
+                                  * 0.5, torch.unique(c2.indices._data)),
+                                 shape=table.shape, ctx=ctx)
+        out = {}
+        for src in ("default", "row_sparse", "csr"):
+            x = g1.todense() if src == "default" else g1.tostype(src)
+            for dst in ("default", "row_sparse", "csr"):
+                out[f"cast {src}->{dst}"] = mx.nd.cast_storage(x, dst)
+        out.update({"rsp + rsp": g1 + g2, "rsp - rsp": g1 - g2,
+                    "rsp * rsp": g1 * g2, "csr + csr": c1 + c2,
+                    "csr * csr": c1 * c2,
+                    "retain": sp.retain(g1, g2.indices),
+                    "dot": mx.nd.dot(c1, v),
+                    "dot transpose_a": mx.nd.dot(
+                        c1, mx.nd.array(d, ctx=ctx), transpose_a=True)})
+        return out, (c1, v, mx.nd.array(d, ctx=ctx))
+
+    card, (c1, v, dd) = calls(mx.gpu(0))
+    host, _ = calls(mx.cpu())
+    rows, ok = {}, True
+    for name in card:
+        err, scale, same, on_card = _sparse_pair(mx, card[name], host[name])
+        tol = (1e-5 if name.startswith("dot") else 1e-6) * max(scale, 1.0)
+        good = same and on_card and err <= tol
+        rows[name] = dict(max_abs_err=err, tol=tol, indices_equal=same,
+                          on_card=on_card, ok=good)
+        ok = ok and good
+    del host
+    # the products' times: the port's route, cuSPARSE, and the bound
+    crow = torch.sparse_csr_tensor(c1.indptr._data, c1.indices._data,
+                                   c1.data._data, size=c1.shape)
+    csc_t = crow.t()  # for the transposed product
+    touched = int(torch.unique(c1.indices._data).numel())
+    nnz_all = FM_B * nnz
+    aux = nnz_all * (4 + 8) + (FM_B + 1) * 8
+    times = {}
+    for name, fn, lib, nbytes in (
+            ("dot", lambda: mx.nd.dot(c1, v),
+             lambda: torch.sparse.mm(crow, v._data),
+             aux + touched * FM_FACTOR * 4 + FM_B * FM_FACTOR * 4),
+            ("dot transpose_a",
+             lambda: mx.nd.dot(c1, dd, transpose_a=True),
+             lambda: torch.sparse.mm(csc_t, dd._data),
+             aux + FM_B * FM_FACTOR * 4 + FM_FEATURES * FM_FACTOR * 4)):
+        ms = time_ms(torch, fn, SPARSE_OPS_REPS)
+        try:
+            lib_ms = time_ms(torch, lib, SPARSE_OPS_REPS)
+            lib_err = float((lib() - fn()._data).abs().max())
+        except RuntimeError as e:  # a layout cuSPARSE does not take
+            lib_ms, lib_err = None, repr(e)[:200]
+        bound, by = roofline_ms(2 * nnz_all * FM_FACTOR, nbytes, "float32")
+        times[name] = dict(ms=ms, library_ms=lib_ms, library_max_abs_diff=
+                           lib_err, bound_ms=bound, bound_by=by,
+                           bytes=nbytes)
+    emit(dict(phase="sparse_ops", card=STASH["smi"], B=FM_B,
+              features=FM_FEATURES, factor=FM_FACTOR, nnz_per_row=nnz,
+              touched_rows=touched, checks=rows, dot=times, ok=ok))
+    if not ok:
+        failures.append(f"sparse ops: {rows}")
+    STASH["sparse_dot"] = times
+    del card, c1, v, dd, crow, csc_t
+    free_card(torch)
+    return times
+
+
+def _fm_tables(model):
+    """The model's tables and the store's Adam state (when made)."""
+    out = {"w": model.w._data, "v": model.v._data}
+    upd = model.kv._updater
+    for key in ("fm_w", "fm_v"):
+        for i, s in enumerate(upd.states.get(key, ()) if upd else ()):
+            out[f"{key}.state{i}"] = s._data
+    return out
+
+
+def fm_cpu_check(torch, mx, fm, first, card_loss, pushed, card_rows,
+                 rows):
+    """Step 1 of phase 24b against a CPU model on the same batch and
+    tables: the loss and the pushed gradients within FM_CHECK_RTOL (of
+    the step's largest gradient: the transposed products sum with atomics
+    on the card, and w0's gradient, a sum that nearly cancels, in another
+    order), and the card's updated rows against the CPU's Adam applied to
+    the card's own gradients, within FM_CHECK_RTOL.  (The tables after
+    the step are not compared with the CPU model's directly: Adam's
+    first step is lr·g/(|g| + 3.2e-7), so a row whose gradient nearly
+    cancels turns the atomics' last bits into differences of up to
+    ~1e-4 of lr.)  The direct differences are printed beside."""
+    def record(kv, into):
+        push = kv.push
+
+        def call(key, value, priority=0):
+            into[key] = value.copy()
+            push(key, value, priority)
+        kv.push = call
+
+    cpu_pushed = {}
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+    record(kv, cpu_pushed)
+    model = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244, kvstore=kv,
+                       ctx=mx.cpu())
+    cpu_loss = model.step(*first)
+    out = dict(loss_rel=abs(card_loss - cpu_loss) / abs(cpu_loss))
+    # w0's gradient is a sum over the batch that nearly cancels: every
+    # gradient is held to the step's largest one
+    scale = max(float(np.abs(g.asnumpy()).max())
+                for g in cpu_pushed.values())
+    for key, g in cpu_pushed.items():
+        c = pushed[key].as_in_context(mx.cpu())
+        cd, gd = (c.data, g.data) if hasattr(g, "indices") else (c, g)
+        same = not hasattr(g, "indices") or torch.equal(
+            c.indices._data, g.indices._data)
+        out[f"grad_{key}_rel"] = float(
+            (cd._data - gd._data).abs().max() / scale) \
+            if same else float("inf")
+    replay = mx.kv.create("local")
+    replay.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+    fresh = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244,
+                       kvstore=replay, ctx=mx.cpu())
+    for key, g in pushed.items():
+        replay.push(key, g.as_in_context(mx.cpu()))
+    for k, key in (("w", "fm_w"), ("v", "fm_v")):
+        want = replay._store[key]._data[rows]
+        out[f"{k}_replay_max_abs_err"] = float(
+            (card_rows[k] - want).abs().max())
+        out[f"{k}_replay_ok"] = bool(torch.allclose(
+            card_rows[k], want, rtol=FM_CHECK_RTOL, atol=1e-7))
+        out[f"{k}_vs_cpu_model_max_abs_diff"] = float(
+            (card_rows[k] - getattr(model, k)._data[rows]).abs().max())
+    out["ok"] = out["loss_rel"] <= FM_CHECK_RTOL and all(
+        v <= FM_CHECK_RTOL for k, v in out.items()
+        if k.startswith("grad_")) and out["w_replay_ok"] and \
+        out["v_replay_ok"]
+    del model, fresh, kv, replay
+    return out
+
+
+def fm_phase(torch, mx, fm, mt, failures):
+    """Phase 24b, the slice's main path: ``FMModel(1_000_000, 16)`` on the
+    card with a ``local`` store running Adam (lr FM_LR: the lazy row
+    updates), fed by ``io.LibSVMIter(batch_size=1000)`` over a
+    Criteo-shaped file of 64,000 rows written here from the seed; 64
+    steps.  After each step the rows the batch did not touch are
+    bit-equal to before in ``w``, ``v`` and Adam's state; the loss is
+    finite and lower over the last 8 steps than over the first 8; step
+    1 matches a CPU model's step on the same batch and tables
+    (``fm_cpu_check``).  Each step is split (a synchronize
+    at each boundary) into the iterator's wait, the forward and
+    gradients, push + update, and the pulls; samples/s and peak memory.
+    No hand-written kernel is on this path (the lazy update is not the
+    multi-tensor kernel's: 0 launches)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mxt_fm_")
+    path = os.path.join(root, "criteo_shaped.libsvm")
+    t = time.perf_counter()
+    pos = write_criteo(path, FM_ROWS, SEED + 243)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with mx.gpu(0):
+        it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(FM_FEATURES,),
+                              batch_size=FM_B)
+    parse_s = time.perf_counter() - t
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+    model = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244, kvstore=kv,
+                       ctx=mx.gpu(0))
+    marks, pushed = [], {}
+
+    def timed(fn, tag):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            marks.append((tag, t0, time.perf_counter()))
+            if tag == "push" and not losses:  # step 1's gradients
+                pushed[a[0]] = a[1].copy()
+            return r
+        return call
+
+    kv.push = timed(kv.push, "push")
+    kv.row_sparse_pull = timed(kv.row_sparse_pull, "pull")
+    kv.pull = timed(kv.pull, "pull")
+    losses, split, untouched_ok, first = [], [], True, None
+    mt.multi_tensor_update.launches = 0
+    batches = iter(it)
+    for step in range(FM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        csr, label = b.data[0], b.label[0]
+        rows = torch.unique(csr.indices._data)
+        before = {k: v.clone() for k, v in _fm_tables(model).items()}
+        if step == 0:
+            first = (csr.as_in_context(mx.cpu()),
+                     label.as_in_context(mx.cpu()))
+        del marks[:]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(model.step(csr, label))
+        t3 = time.perf_counter()
+        push = [m for m in marks if m[0] == "push"]
+        pull = [m for m in marks if m[0] == "pull"]
+        split.append(dict(
+            iterator_ms=(t1 - t0) * 1e3,
+            forward_ms=(push[0][1] - t2) * 1e3,
+            push_update_ms=sum(e - s for _, s, e in push) * 1e3,
+            pull_ms=(sum(e - s for _, s, e in pull) + t3 - pull[-1][2]) *
+            1e3, step_ms=(t3 - t2) * 1e3))
+        keep = torch.ones(FM_FEATURES, dtype=torch.bool, device=rows.device)
+        keep[rows] = False
+        after = _fm_tables(model)
+        for k, old in before.items():
+            if not torch.equal(after[k][keep], old[keep]):
+                untouched_ok = False
+                failures.append(f"fm step {step}: untouched rows of {k} "
+                                "changed")
+        if step == 0:
+            card_rows = {k: after[k][rows].cpu() for k in ("w", "v")}
+            card_rows_idx = rows.cpu()
+    launches = mt.multi_tensor_update.launches
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check = fm_cpu_check(torch, mx, fm, first, losses[0], pushed,
+                         card_rows, card_rows_idx)
+    # the first step allocates and warms the sort and gather kernels
+    mean = {k: float(np.mean([s[k] for s in split[1:]])) for k in split[0]}
+    fed_ms = mean["iterator_ms"] + mean["step_ms"]
+    head, tail = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    ok = untouched_ok and bool(np.isfinite(losses).all()) and \
+        tail < head and check["ok"] and launches == 0 and \
+        model.v._data.is_cuda
+    row = dict(phase="fm", card=STASH["smi"], features=FM_FEATURES,
+               factor=FM_FACTOR, B=FM_B, rows=FM_ROWS, steps=FM_STEPS,
+               optimizer="adam", lr=FM_LR, store="local",
+               positive_share=float(pos), write_s=write_s, parse_s=parse_s,
+               losses=losses, first8=head, last8=tail,
+               untouched_rows_bit_equal=untouched_ok, cpu_check=check,
+               mean_split_ms_after_first=mean,
+               samples_per_s=FM_B / fed_ms * 1e3,
+               samples_per_s_step_only=FM_B / mean["step_ms"] * 1e3,
+               split_first3=split[:3], peak_bytes=peak,
+               table_bytes=FM_FEATURES * (FM_FACTOR + 1) * 4,
+               update_kernel_launches=launches, ok=ok)
+    emit(row)
+    if not ok:
+        failures.append(f"fm: head {head} tail {tail} check {check} "
+                        f"launches {launches}")
+    STASH["fm"] = dict(path=path, root=root, it=it, mean=mean)
+    del model, kv
+    free_card(torch)
+    return row
+
+
+def sparse_linear_phase(torch, mx, failures):
+    """Phase 24c: ``examples/sparse_linear_classification.py``'s loop at
+    its defaults (N=40,000, D=4,096, density 0.02, batch 512, 40 steps,
+    SGD lr 5.0), written against the port on the card (the example
+    imports the JAX package): CSR features, the dense weight's gradient
+    through the CSR ``dot`` under ``autograd.record()``.  The loss falls
+    (last < 0.8 x first) and the full-set accuracy beats 0.5 by 0.1."""
+    cfg = SPARSE_LIN
+    rs = np.random.RandomState(0)
+    x = rs.randn(cfg["n"], cfg["d"]).astype(np.float32)
+    x[rs.rand(cfg["n"], cfg["d"]) > cfg["density"]] = 0.0
+    w_true = rs.randn(cfg["d"]).astype(np.float32)
+    y = (x @ w_true > 0).astype(np.float32)
+    nd = mx.nd
+    with mx.gpu(0):
+        x_csr = nd.tanh(nd.array(x).tostype("csr") * 1.0)
+        xn = x_csr.asnumpy()
+        w = nd.zeros((cfg["d"], 1))
+        w.attach_grad()
+        b = nd.zeros((1,))
+        b.attach_grad()
+        opt = mx.optimizer.SGD(learning_rate=cfg["lr"])
+        states = {0: opt.create_state(0, w), 1: opt.create_state(1, b)}
+        rs = np.random.RandomState(1)
+        losses, step_ms = [], []
+        for _ in range(cfg["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx = rs.randint(0, cfg["n"], cfg["batch"])
+            xb = nd.array(xn[idx]).tostype("csr")
+            yb = nd.array(y[idx].reshape(-1, 1))
+            with mx.autograd.record():
+                logits = nd.dot(xb, w) + b
+                ls = nd.log_softmax(nd.concat(nd.zeros_like(logits),
+                                              logits, dim=1))
+                nll = -(yb * ls[:, 1:2] + (1 - yb) * ls[:, 0:1])
+                nll = nll.mean()
+            nll.backward()
+            for i, p in ((0, w), (1, b)):
+                opt.update(i, p, p.grad, states[i])
+            losses.append(float(nll.asscalar()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        pred = (nd.dot(x_csr, w) + b).asnumpy().ravel() > 0
+        acc = float((pred == (y > 0.5)).mean())
+        on_card = x_csr.data._data.is_cuda and w.grad._data.is_cuda
+    ok = losses[-1] < losses[0] * 0.8 and acc > 0.6 and on_card
+    emit(dict(phase="sparse_linear", card=STASH["smi"], **cfg,
+              nnz=int(x_csr.data.shape[0]), losses=losses, accuracy=acc,
+              step_ms_mean=float(np.mean(step_ms[1:])), on_card=on_card,
+              ok=ok))
+    if not ok:
+        failures.append(f"sparse linear: losses {losses[0]} -> "
+                        f"{losses[-1]}, accuracy {acc}")
+    del x, xn, x_csr
+    free_card(torch)
+
+
+def _ps_server(uri, secret):
+    """A ``dist_async`` parameter server in a process of its own on this
+    card; returns the process once the port takes connections."""
+    import socket
+
+    env = dict(os.environ, MXT_PS_SECRET=secret,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(os.path.abspath(__file__))] +
+                   [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "from mxnet_tpu_torch.kvstore import dist_async as d; "
+         f"d.serve_forever({uri!r}, background=False)"], env=env)
+    host, port = uri.rsplit(":", 1)
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            raise RuntimeError(f"parameter server exited {proc.returncode}")
+        try:
+            socket.create_connection((host, int(port)), timeout=1).close()
+            return proc
+        except OSError:
+            time.sleep(0.2)
+    proc.kill()
+    raise RuntimeError("parameter server did not start")
+
+
+def fm_stores_phase(torch, mx, fm, parallel, failures):
+    """Phase 24d: FM_STORE_STEPS steps of phase 24b's model and batches
+    through three stores side by side, each with Adam: ``local``, a
+    one-rank NCCL ``dist_sync`` store (its push and ``row_sparse_pull``
+    go to its local store), and ``dist_async`` over loopback TCP to a
+    parameter server process on this card (per-run secret).  Each
+    model's pushes are also given to a ``local`` store of its own (its
+    shadow): after each step the model's tables, which its pulls wrote,
+    must equal its shadow store's bit for bit.  Across the three models
+    the tables differ only as their gradients do (each model's
+    transposed products sum with atomics): the relative norm of the
+    difference from the ``local`` model's is printed and held to 1e-4.
+    The ms of each store's push + pulls a step."""
+    import secrets
+
+    from mxnet_tpu_torch.kvstore import dist_async
+
+    it = STASH["fm"]["it"]
+    it.reset()
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0,
+                        init_timeout=120)
+    secret = secrets.token_hex(16)
+    uri = f"127.0.0.1:{parallel.free_port()}"
+    proc = _ps_server(uri, secret)
+    models, shadows, io_ms, diffs, exact = {}, {}, {}, [], True
+    try:
+        stores = {"local": mx.kv.create("local"),
+                  "dist_sync": mx.kv.create("dist_sync"),
+                  "dist_async": dist_async.AsyncPSKVStore(root_uri=uri,
+                                                          secret=secret)}
+        for name, kv in stores.items():
+            kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+            shadow = shadows[name] = mx.kv.create("local")
+            shadow.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+            marks = []
+
+            def timed(fn, marks=marks, shadow=shadow, push=False):
+                def call(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter() - t0)
+                    if push:
+                        shadow.push(a[0], a[1])
+                    return r
+                return call
+
+            init = kv.init
+
+            def init_both(key, value, init=init, shadow=shadow):
+                shadow.init(key, value)
+                init(key, value)
+
+            kv.init = init_both
+            kv.push = timed(kv.push, push=True)
+            kv.row_sparse_pull, kv.pull = (timed(kv.row_sparse_pull),
+                                           timed(kv.pull))
+            models[name] = fm.FMModel(FM_FEATURES, FM_FACTOR,
+                                      seed=SEED + 244, kvstore=kv,
+                                      ctx=mx.gpu(0))
+            models[name]._marks = marks
+            io_ms[name] = []
+        losses = {n: [] for n in models}
+        for step, b in zip(range(FM_STORE_STEPS), it):
+            row = {}
+            for name, model in models.items():
+                del model._marks[:]
+                losses[name].append(model.step(b.data[0], b.label[0]))
+                io_ms[name].append(sum(model._marks) * 1e3)
+                for k, key in (("w0", "fm_w0"), ("w", "fm_w"),
+                               ("v", "fm_v")):
+                    mine = getattr(model, k)._data
+                    if not torch.equal(mine, shadows[name]._store[key]
+                                       ._data):
+                        exact = False
+                        failures.append(f"fm stores: {name}'s {k} is not "
+                                        f"its shadow store's at step "
+                                        f"{step}")
+                    ref = getattr(models["local"], k)._data
+                    row[f"{name}.{k}"] = float(
+                        torch.linalg.vector_norm(mine - ref) /
+                        torch.linalg.vector_norm(ref).clamp_min(1e-30))
+            diffs.append(row)
+        stores["dist_async"].close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+        parallel.shutdown()
+    worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
+    ok = exact and len(diffs) == FM_STORE_STEPS and \
+        max(worst.values()) <= 1e-4 and all(
+            np.allclose(losses[n], losses["local"], rtol=FM_CHECK_RTOL)
+            for n in losses)
+    emit(dict(phase="fm_stores", card=STASH["smi"], steps=FM_STORE_STEPS,
+              features=FM_FEATURES, factor=FM_FACTOR, B=FM_B,
+              server="a process of its own, its table on this card",
+              signed=True, losses=losses, tables_equal_shadow_store=exact,
+              max_rel_norm_diff_vs_local_model=worst,
+              push_pull_ms={n: float(np.mean(v[1:]))
+                            for n, v in io_ms.items()}, ok=ok))
+    if not ok:
+        failures.append(f"fm stores: {worst}, losses {losses}")
+    del models, shadows
+    free_card(torch)
+
+
+_HAND_WRITTEN = ("fa_fwd", "fa_bwd", "fused_mm_affine_relu",
+                 "multi_tensor_update", "nms_keep")
+_LIBRARY = ("gemm", "cutlass", "cudnn", "cublas", "xmma", "sm90_", "sm80_",
+            "implicit_convolve", "conv2d", "winograd", "nhwc", "cusparse",
+            "dgrad", "wgrad")
+
+
+def _device_split(torch, prof, wall_ms):
+    """The device time of a ``torch.profiler`` run split between the
+    port's hand-written kernels, cuBLAS/cuDNN, other kernels and memory
+    copies, with the host's share of the wall time (the wall time less
+    the union of the device's busy intervals)."""
+    kinds = dict(hand_written=0.0, cublas_cudnn=0.0, other_kernels=0.0,
+                 memcpy_memset=0.0)
+    spans, names = [], {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        name = e.name.lower()
+        if "memcpy" in name or "memset" in name:
+            kind = "memcpy_memset"
+        elif any(k in name for k in _HAND_WRITTEN):
+            kind = "hand_written"
+        elif any(k in name for k in _LIBRARY):
+            kind = "cublas_cudnn"
+        else:
+            kind = "other_kernels"
+        kinds[kind] += us / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+        names[e.name[:200]] = names.get(e.name[:200], 0.0) + us / 1e3
+    busy, end = 0.0, -1e30
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy_ms = busy / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                host_only_ms=max(wall_ms - busy_ms, 0.0),
+                idle_share=max(wall_ms - busy_ms, 0.0) / wall_ms,
+                device_ms=kinds, kernels=len(spans), top=top)
+
+
+def profile_phase(torch, mx, fm, vision, failures):
+    """Phase 24e: ``mx.profiler`` with ``profile_device_trace`` (a
+    ``torch.profiler`` CUDA trace) over one fed phase-24b step (the
+    iterator's batch included) and one
+    ResNet-50 v1 bf16 B=128 forward (the fused 1x1 kernel's route),
+    each after a warm-up: the device time split between the port's
+    hand-written kernels, cuBLAS/cuDNN, other kernels and copies, and
+    the host's share of the step's wall time; the op events' aggregate
+    (``profiler.dumps``) beside it."""
+    import tempfile
+
+    prof = mx.profiler
+    root = tempfile.mkdtemp(prefix="mxt_prof_")
+    out = {}
+
+    def profiled(name, fn):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        prof.set_config(filename=os.path.join(root, f"{name}.json"),
+                        profile_device_trace=True, aggregate_stats=True)
+        prof.set_state("run")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.set_state("stop")
+        split = _device_split(torch, prof.device_profile(), wall)
+        if split["kernels"] == 0:  # no device events: CUDA events
+            split["event_ms"] = time_ms(torch, fn, 1)
+        ops = json.loads(prof.dumps(format="json", reset=True))
+        split["host_op_events"] = sum(v["count"] for v in ops.values())
+        out[name] = split
+
+    it = STASH["fm"]["it"]
+    it.reset()
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+    model = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244, kvstore=kv,
+                       ctx=mx.gpu(0))
+    batches = iter(it)
+
+    def fm_step():
+        b = next(batches)
+        model.step(b.data[0], b.label[0])
+
+    profiled("fm_step", fm_step)
+    del model, kv
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 245)
+    x = mx.nd.array(torch.rand((PROF_B, 3, PROF_IMAGE, PROF_IMAGE),
+                               generator=gen, device="cuda").bfloat16())
+    profiled("resnet50_bf16_b128_forward",
+             lambda: net(x).wait_to_read())
+    # without device events (CUPTI unavailable) the split is not measured;
+    # the resnet forward's own kernels must show where there are events
+    traced = all(v["kernels"] > 0 for v in out.values())
+    ok = not traced or \
+        out["resnet50_bf16_b128_forward"]["device_ms"]["hand_written"] > 0
+    emit(dict(phase="profile", card=STASH["smi"], device_trace=traced,
+              splits=out, ok=ok))
+    if not ok:
+        failures.append(f"profile: the resnet forward showed no "
+                        f"hand-written kernel: {out}")
+    del net, x
+    free_card(torch)
+    return out
+
+
 def main():
     import torch
 
@@ -6836,6 +7531,7 @@ def main():
 
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
+    STASH["smi"] = smi
     flags = torch.backends.cuda.matmul
     emit(dict(phase="card", nvidia_smi=smi,
               precision_flags={  # set by the package at import
@@ -6967,6 +7663,14 @@ def main():
     nms_launches = sum(v[2] for v in det.values())
     if 0 in [v[2] for v in det.values()] or nms_row is None:
         failures.append(f"a detector launched no nms_keep: {det}")
+    # slice 16: sparse storage (no hand-written kernel on its paths)
+    from mxnet_tpu_torch.models import fm
+
+    sparse_ops_phase(torch, mx, failures)
+    fm_phase(torch, mx, fm, mt, failures)
+    sparse_linear_phase(torch, mx, failures)
+    fm_stores_phase(torch, mx, fm, parallel, failures)
+    profile_phase(torch, mx, fm, vision, failures)
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")

@@ -6,10 +6,12 @@ from __future__ import annotations
 
 from .base import MXNetError
 
-_8E = "Queue 1 item 8e, sparse"
+_6 = "Left out of slice 6"
+_7 = "Left out of slice 7"
 _8F = "Queue 1 item 8f, symbols and export"
 _8G = "Queue 1 item 8g"
 _9 = "Queue 1 item 9, observability and tooling"
+_NC = "Not carried over"
 
 MX = {
     **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
@@ -20,12 +22,24 @@ MX = {
                      "test_utils", "util", "visualization", "viz"), _9),
 }
 
-ND = {
-    "Custom": _8G,
-    "cast_storage": _8E, "sparse": _8E,
-}
+ND = {"Custom": _8G}
 
 CONTRIB = {"onnx": _8F, "symbol": _8F}
+
+# the reference's bulk segment compiler and async executor: a CUDA stream
+# is already asynchronous (``engine.py``)
+ENGINE = {
+    **dict.fromkeys(("cached_vjp", "clear_segment_cache", "key_intern_stats",
+                     "maybe_defer", "register_dispatch_callback",
+                     "segment_cache_stats", "unregister_dispatch_callback"),
+                    _7),
+    "telemetry": _9,
+}
+
+SERVING = dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
+                         "prometheus_text"), _6)
+
+AUTOGRAD = {"Node": _NC, "get_symbol": _8F}
 
 
 def refuse(table, module):
@@ -33,7 +47,9 @@ def refuse(table, module):
     names and ``AttributeError`` for any other."""
     def __getattr__(name):
         if name in table:
-            raise MXNetError(f"{module}.{name} is not ported yet "
+            what = "has no counterpart in the port" \
+                if table[name] == _NC else "is not ported yet"
+            raise MXNetError(f"{module}.{name} {what} "
                              f"(ROADMAP.md, {table[name]})")
         raise AttributeError(f"module {module!r} has no attribute {name!r}")
 

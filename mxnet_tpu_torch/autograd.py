@@ -20,7 +20,9 @@ reference.
 backward through it raises ``MXNetError`` and leaves the reached
 ``"write"`` gradients zero.  Higher-order gradients
 (``create_graph=True``) are left out of slice 9 (ROADMAP.md): they
-raise.
+raise.  The reference's tape node (``Node``) has no counterpart here and
+``get_symbol`` waits on the symbol API (item 8f): reading either raises
+``MXNetError`` naming its ROADMAP list.
 """
 from __future__ import annotations
 
@@ -353,3 +355,8 @@ class Function:
 
     def backward(self, *output_grads):
         raise NotImplementedError
+
+
+from . import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(_lo.AUTOGRAD, "mxnet_tpu_torch.autograd")

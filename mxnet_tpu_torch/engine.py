@@ -7,7 +7,14 @@ CUDA stream and the host runs ahead until a read (``asnumpy``,
 ``asscalar``) or a ``flush`` waits for it.  So the reference's deferred
 bulk segments and their compiler (``_Segment``, ``cached_vjp``) have no
 counterpart: ``bulk`` is accepted and changes nothing, and ``flush``
-drains the current stream.
+drains the current stream.  The switches of the reference's bulking and
+async tiers (``set_bulk_enabled``, ``set_async_enabled``) are accepted
+the same way and their reads report what was set; ``pending_ops`` is
+always 0, ``async_stats`` all zeros, and ``shutdown_async`` drains the
+stream as ``flush`` does.  The compiler's own entry points
+(``cached_vjp``, ``maybe_defer``, the segment cache, the dispatch
+callbacks) raise ``MXNetError`` naming ROADMAP.md's "Left out of slice
+7".
 
 ``NaiveEngine`` is the user's choice of op-by-op execution, as in the
 reference: the Trainer then updates each parameter with its own eager
@@ -25,11 +32,17 @@ import torch
 from .base import MXNetError
 
 __all__ = ["engine_type", "set_engine_type", "is_naive", "bulk",
-           "set_bulk_size", "bulk_size", "flush"]
+           "set_bulk_size", "bulk_size", "flush", "set_bulk_enabled",
+           "bulk_enabled", "set_async_enabled", "async_enabled",
+           "async_stats", "pending_ops", "shutdown_async"]
 
 _TYPES = ("ThreadedEnginePerDevice", "ThreadedEngine", "NaiveEngine")
 _type = None
 _bulk_size = 15
+_bulk_on = os.environ.get("MXT_ENGINE_BULK", "0").strip().lower() in \
+    ("1", "true", "yes", "on")
+_async_on = os.environ.get("MXNET_ENGINE_ASYNC", "1").strip().lower() \
+    not in ("0", "false", "no", "off")
 
 
 def engine_type():
@@ -92,3 +105,56 @@ def flush(reason="explicit"):
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.current_stream().synchronize()
     return 0
+
+
+def set_bulk_enabled(flag):
+    """Accepted for the reference API (its deferred dispatch); returns
+    the previous setting and drains the stream when turned off, as the
+    reference flushes its segment."""
+    global _bulk_on
+    prev, _bulk_on = _bulk_on, bool(flag)
+    if not _bulk_on:
+        flush()
+    return prev
+
+
+def bulk_enabled():
+    return _bulk_on
+
+
+def set_async_enabled(flag):
+    """Accepted for the reference API (its async executor tier); returns
+    the previous setting and drains the stream when turned off."""
+    global _async_on
+    prev, _async_on = _async_on, bool(flag)
+    if not _async_on:
+        flush()
+    return prev
+
+
+def async_enabled():
+    return _async_on
+
+
+def async_stats():
+    """The reference's async-tier counters: no segment is ever held back
+    on the host here, so all are 0."""
+    return {"submitted": 0, "stitched_segments": 0, "stitched_inputs": 0,
+            "max_queue_depth": 0, "wait_ms": 0.0}
+
+
+def pending_ops():
+    """Ops held back on the host: always 0 (each op is enqueued on the
+    stream as it comes)."""
+    return 0
+
+
+def shutdown_async(join=True):
+    """Drain the stream, as ``flush`` does (there is no executor thread
+    to stop)."""
+    flush()
+
+
+from . import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(_lo.ENGINE, "mxnet_tpu_torch.engine")

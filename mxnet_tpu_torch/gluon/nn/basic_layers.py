@@ -297,8 +297,9 @@ class Embedding(HybridBlock):
     """Rows of the (input_dim, output_dim) table gathered by integer ids;
     out-of-range ids are clipped as in the reference.  ``matmul_lookup``
     computes them as a one-hot product (``F.embedding``); ``sparse_grad``
-    is accepted, and the gradient is dense, as the reference's op
-    computes it."""
+    marks the weight's ``grad_stype`` as ``"row_sparse"`` (so step fusion
+    leaves it to the Trainer), and the gradient is dense, as the
+    reference's op computes it."""
 
     def __init__(self, input_dim, output_dim, dtype=torch.float32,
                  weight_initializer=None, sparse_grad=False,
@@ -310,7 +311,8 @@ class Embedding(HybridBlock):
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.embedding(x, weight, input_dim=self._input_dim,

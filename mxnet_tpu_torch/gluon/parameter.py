@@ -42,7 +42,8 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None,
                  dtype=torch.float32, lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
         # a non-differentiable parameter (BatchNorm's moving statistics)
         # never has a gradient: its grad_req is "null" whatever is asked
@@ -56,6 +57,13 @@ class Parameter:
         self.dtype = resolve_dtype(dtype)
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        # storage types, validated as the reference does; the data stays
+        # dense, and a "row_sparse" grad_stype (Embedding(sparse_grad=
+        # True)) keeps the parameter out of step fusion's graph
+        if stype not in ("default", "row_sparse", "csr"):
+            raise MXNetError(f"invalid stype {stype!r}")
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._data = None          # NDArray over a torch.nn.Parameter
         self._ctx_list = None
         self._deferred_init = None  # (init, ctx_list) pending shape
@@ -204,9 +212,8 @@ class Parameter:
 
     @property
     def stype(self):
-        """Storage type: dense only (sparse storage is Queue 1 item
-        8e)."""
-        return "default"
+        """The storage type given at construction (the data is dense)."""
+        return self._stype
 
     def var(self):
         raise MXNetError("Parameter.var() (symbols) is not ported yet "

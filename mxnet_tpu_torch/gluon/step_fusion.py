@@ -129,8 +129,12 @@ class FusedTrainStep:
                     "shape or was not initialized: run one forward first")
             if param.grad_req == "null":
                 self._aux.append(param)
-            else:
-                self._live.append(i)
+                continue
+            if param._grad_stype != "default":
+                raise MXNetError(
+                    f"parameter {param.name} has sparse grad "
+                    f"({param._grad_stype}); not fusable")
+            self._live.append(i)
 
     # -- one step ------------------------------------------------------------
     def _loss_and_grads(self, inputs):

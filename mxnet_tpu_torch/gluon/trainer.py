@@ -327,7 +327,7 @@ class Trainer:
             if param.grad_req == "null" or param._data is None:
                 continue
             g = param._data._grad
-            if g is not None and is_dtensor(g._data):
+            if isinstance(g, NDArray) and is_dtensor(g._data):
                 from ..parallel import reduce_partial
 
                 w = param._data._data
@@ -412,14 +412,20 @@ class Trainer:
         """Every live parameter in one launch of the multi-tensor kernel
         (reference ``Trainer._try_fused_update``).  False when the
         NaiveEngine is chosen or the optimizer has no rule of the
-        kernel (or overrides the rule's ``_step``): the caller then
-        updates parameter by parameter."""
+        kernel (or overrides the rule's ``_step``), or a gradient is
+        sparse: the caller then updates parameter by parameter (a
+        row-sparse gradient takes the optimizer's lazy row update)."""
+        from ..ndarray import sparse as sp
+
         optzr = self._optimizer
         if engine.is_naive() or optzr._kernel_rule() is None:
             return False
         live = self._live()
         if not live:
             return True
+        if any(isinstance(self._params[i].grad(), sp.BaseSparseNDArray)
+               for i in live):
+            return False
         for i in live:
             self._init_states(i)
             optzr._update_count(i)

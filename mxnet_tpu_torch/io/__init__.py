@@ -16,8 +16,9 @@ the host in the reference's draw order, and runs the numeric half (cast,
 scale, mean, std, NCHW) as torch ops on the batch's device after a uint8
 copy.
 
-``LibSVMIter`` (CSR batches) is not ported yet: it raises ``MXNetError``
-naming ROADMAP Queue 1, "Left out of slice 10".
+``LibSVMIter`` reads LibSVM text into ``CSRNDArray`` batches
+(``ndarray/sparse.py``) on the iterator's context, with the label file
+override and ``round_batch`` wrap-around padding of the reference.
 """
 from __future__ import annotations
 
@@ -38,8 +39,6 @@ __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "LibSVMIter", "ResizeIter", "PrefetchingIter",
            "ImageRecordIter", "MNISTIter"]
 
-_LATER10 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
-            "10\": item 8, with ndarray/sparse.py)")
 
 
 def _to_device(host, ctx):
@@ -240,10 +239,102 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM text reader to CSR batches: not ported yet."""
+    """LibSVM text reader to CSR batches (reference C++ ``LibSVMIter``,
+    ``src/io/iter_libsvm.cc``): each line ``label idx:value ...``; a
+    ``label_libsvm`` file overrides the labels (one row a data row);
+    with ``round_batch`` the last batch wraps around to the first rows
+    (``pad`` counts them), else it is dropped when short.  Batches lie
+    on the context current at construction."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(f"LibSVMIter {_LATER10}")
+    def __init__(self, data_libsvm, data_shape, batch_size=1,
+                 label_libsvm=None, round_batch=True, **kwargs):
+        super().__init__(batch_size)
+        self._num_features = int(data_shape[0]) \
+            if isinstance(data_shape, (tuple, list)) else int(data_shape)
+        labels, indices, values = [], [], []
+        indptr = [0]
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    i, v = tok.split(":")
+                    indices.append(int(i))
+                    values.append(float(v))
+                indptr.append(len(indices))
+        if label_libsvm is not None:
+            labels = []
+            with open(label_libsvm) as f:
+                for line in f:
+                    parts = line.split()
+                    if parts:
+                        labels.append(float(parts[0]))
+            if len(labels) != len(indptr) - 1:
+                raise MXNetError(
+                    f"label file has {len(labels)} rows but data file has "
+                    f"{len(indptr) - 1}")
+        self._labels = np.asarray(labels, np.float32)
+        self._indptr = np.asarray(indptr, np.int64)
+        self._indices = np.asarray(indices, np.int64)
+        self._values = np.asarray(values, np.float32)
+        self._n = len(labels)
+        self._cursor = 0
+        self._round = round_batch
+        self._ctx = current_context()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size, self._num_features))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _rows(self, lo, hi):
+        """(values, indices, indptr) of rows [lo, hi), on the host."""
+        start, end = self._indptr[lo], self._indptr[hi]
+        return (self._values[start:end], self._indices[start:end],
+                self._indptr[lo:hi + 1] - start)
+
+    def next(self):
+        from ..ndarray import sparse as sp
+
+        if self._cursor >= self._n:
+            raise StopIteration
+        lo = self._cursor
+        hi = min(lo + self.batch_size, self._n)
+        pad = self.batch_size - (hi - lo)
+        if pad and not self._round:
+            raise StopIteration
+        vals, idx, ptr = self._rows(lo, hi)
+        label = self._labels[lo:hi]
+        if pad:
+            # wrap around to the first rows, as often as a batch larger
+            # than the data needs
+            vals, idx, ptrs, labels = [vals], [idx], [ptr], [label]
+            remaining = pad
+            while remaining > 0:
+                take = min(remaining, self._n)
+                v, i, p = self._rows(0, take)
+                vals.append(v)
+                idx.append(i)
+                ptrs.append(p[1:] + ptrs[-1][-1])
+                labels.append(self._labels[:take])
+                remaining -= take
+            vals, idx = np.concatenate(vals), np.concatenate(idx)
+            ptr, label = np.concatenate(ptrs), np.concatenate(labels)
+        self._cursor = hi
+        csr = sp.CSRNDArray(_to_device(vals, self._ctx),
+                            _to_device(idx, self._ctx),
+                            _to_device(ptr, self._ctx),
+                            (self.batch_size, self._num_features))
+        return DataBatch(data=[csr], label=[_to_device(label, self._ctx)],
+                         pad=pad)
 
 
 class ResizeIter(DataIter):

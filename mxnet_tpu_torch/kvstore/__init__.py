@@ -13,16 +13,24 @@ quantizes each pushed value with its per-key residual.
 and ``horovod`` return ``parallel.TPUSyncKVStore``, the synchronous
 store (NCCL on the card, gloo on the host), with the reference's alias
 warning.  ``dist_async`` returns ``dist_async.AsyncPSKVStore``, the
-asynchronous parameter server (host-side: its table and updates live in
-host memory, its wire is the reference's).  ``row_sparse_pull`` raises
-(sparse storage, Queue 1 item 8e).
+asynchronous parameter server (its wire is the reference's).
+
+Row-sparse values (``ndarray/sparse.py``) pass through every store: a
+pushed ``RowSparseNDArray`` reaches the updater as it is (the
+optimizers' lazy row update), a list of them is summed over the union
+of their rows, and ``row_sparse_pull`` gives a ``RowSparseNDArray``
+target the requested rows, or writes only those rows of a dense target
+in place (the reference's ``PullRowSparse``).
 """
 from __future__ import annotations
 
 import warnings
 
+import torch
+
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..ndarray import sparse as sp
 
 __all__ = ["KVStore", "create"]
 
@@ -55,7 +63,7 @@ class KVStore:
         """Store a copy of each value (a key already held is kept)."""
         for k, v in zip(*_pairs(key, value)):
             if str(k) not in self._store:
-                self._store[str(k)] = NDArray(_merge(v)._data.clone())
+                self._store[str(k)] = _merge(v).copy()
 
     def push(self, key, value, priority=0):
         """Aggregate value(s) into the store: a list pushed to one key is
@@ -68,7 +76,7 @@ class KVStore:
             merged = _merge(v)
             if self._compression is not None:
                 merged, self._residuals[k] = self._compression.roundtrip(
-                    merged, self._residuals.get(k))
+                    _dense(merged), self._residuals.get(k))
             if self._updater is not None:
                 self._updater(int(k) if k.isdigit() else k, merged,
                               self._store[k])
@@ -84,11 +92,12 @@ class KVStore:
             k = str(k)
             if k not in self._store:
                 raise MXNetError(f"key {k!r} not initialized")
-            stored = self._store[k]._data
+            stored = _dense(self._store[k])._data
             for target in (o if isinstance(o, (list, tuple)) else [o]):
-                if self._updater is not None:
-                    import torch
-
+                if isinstance(target, sp.RowSparseNDArray):
+                    sp.cast_storage(NDArray(stored), "row_sparse") \
+                        .copyto(target)
+                elif self._updater is not None:
                     with torch.no_grad():
                         target._data.copy_(stored)
                 else:
@@ -116,8 +125,21 @@ class KVStore:
         return params
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("KVStore.row_sparse_pull (sparse storage) is not "
-                         "ported yet (ROADMAP.md, Queue 1 item 8e)")
+        """Pull only the rows ``row_ids`` (reference ``PullRowSparse``,
+        the embedding-table path): a ``RowSparseNDArray`` target gets
+        them, a dense target has just those rows written in place."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        keys, outs = _pairs(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) and \
+            isinstance(key, (list, tuple)) else [row_ids] * len(keys)
+        for k, o, r in zip(keys, outs, rids):
+            k = str(k)
+            if k not in self._store:
+                raise MXNetError(f"key {k!r} not initialized")
+            dense = _dense(self._store[k])._data
+            idx = sp._index_tensor(r, dense.device)
+            write_rows(o, idx, dense[idx], dense.shape)
 
     def set_optimizer(self, optimizer):
         """Updates move into the store (``update_on_kvstore``)."""
@@ -158,13 +180,41 @@ def _pairs(key, value):
 
 
 def _merge(v):
-    """One NDArray: a list of values is summed."""
+    """One value: a list of values is summed (row_sparse ones over the
+    union of their rows, others dense)."""
     if isinstance(v, (list, tuple)):
-        total = v[0]._data
+        total = v[0]
         for x in v[1:]:
-            total = total + x._data
-        return NDArray(total)
+            total = _add(total, x)
+        return total
     return v
+
+
+def _add(a, b):
+    if isinstance(a, sp.RowSparseNDArray) and \
+            isinstance(b, sp.RowSparseNDArray):
+        return sp.add(a, b)
+    return NDArray(_dense(a)._data + _dense(b)._data)
+
+
+def _dense(v):
+    return v.todense() if isinstance(v, sp.BaseSparseNDArray) else v
+
+
+def write_rows(targets, idx, rows, shape):
+    """Deliver pulled rows ``rows`` (at ``idx`` of a table of ``shape``):
+    a ``RowSparseNDArray`` target takes them; a dense target has only
+    those rows written, in place, on its own device and in its dtype."""
+    for target in (targets if isinstance(targets, (list, tuple))
+                   else [targets]):
+        if isinstance(target, sp.RowSparseNDArray):
+            sp.RowSparseNDArray(NDArray(rows.clone()), idx.clone(),
+                                shape).copyto(target)
+        else:
+            t = target._data
+            with torch.no_grad():
+                t[idx.to(t.device)] = rows.to(device=t.device,
+                                              dtype=t.dtype)
 
 
 def create(name="local"):

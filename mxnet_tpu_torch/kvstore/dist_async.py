@@ -36,8 +36,11 @@ connection nonce, the direction (``b"C"`` worker to server, ``b"S"``
 replies), a per-direction sequence number and the body; the one pickled
 payload, ``set_optimizer``, is refused over an unsigned connection.
 
-Not ported here: row-sparse values on the wire and ``row_sparse_pull``
-(ROADMAP Queue 1 item 8e), and the telemetry spans and counters (item
+Row-sparse values cross the wire both ways in the reference's form,
+``("row_sparse", data, indices, shape)``: a pushed ``RowSparseNDArray``
+reaches the server's optimizer as one (its lazy row update), and
+``row_sparse_pull`` asks for the rows it needs (``("rows", values,
+ids)`` back).  Not ported here: the telemetry spans and counters (item
 9).
 """
 from __future__ import annotations
@@ -59,6 +62,8 @@ import torch
 
 from ..base import MXNetError
 from ..ndarray import NDArray
+from ..ndarray import sparse as sp
+from . import _dense
 
 __all__ = ["AsyncPSKVStore", "PSServer", "serve_forever"]
 
@@ -72,8 +77,6 @@ _SAFE_DTYPES = frozenset([
     "complex64", "complex128",
 ])
 _NOTHING = object()  # the dispatcher holds no message
-_SPARSE = ("row-sparse values on the dist_async wire are not ported yet "
-           "(ROADMAP.md, Queue 1 item 8e, sparse)")
 
 
 def _secret():
@@ -275,8 +278,12 @@ def _snapshot(t):
 
 
 def _to_wire(v):
-    """A value as the wire's ``("dense", array)``; the array stays on its
-    device until a frame is packed (``_array_bytes``)."""
+    """A value as the wire's ``("dense", array)`` or ``("row_sparse",
+    data, indices, shape)``; the arrays stay on their device until a
+    frame is packed (``_array_bytes``)."""
+    if isinstance(v, sp.RowSparseNDArray):
+        return ("row_sparse", _snapshot(v.data._data),
+                _snapshot(v.indices._data), tuple(v.shape))
     if isinstance(v, NDArray):
         return ("dense", _snapshot(v._data))
     if isinstance(v, torch.Tensor):
@@ -284,14 +291,25 @@ def _to_wire(v):
     return ("dense", np.asarray(v))
 
 
-def _from_wire(w, device=None):
-    """A wire value as an NDArray, on ``device`` (default: where it
-    lies)."""
-    if w[0] != "dense":
-        raise MXNetError(_SPARSE)
-    v = w[1]
+def _tensor(v, device=None):
     v = v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
-    return NDArray(v if device is None else v.to(device))
+    return v if device is None else v.to(device)
+
+
+def _from_wire(w, device=None):
+    """A wire value as an NDArray or a ``RowSparseNDArray``, on
+    ``device`` (default: where it lies)."""
+    if w[0] == "row_sparse":
+        _, data, idx, shape = w
+        return sp.RowSparseNDArray(NDArray(_tensor(data, device)),
+                                   _tensor(idx, device), shape)
+    if w[0] != "dense":
+        raise MXNetError(f"unknown wire value kind {w[0]!r}")
+    return NDArray(_tensor(w[1], device))
+
+
+def _first_target(o):
+    return o[0] if isinstance(o, (list, tuple)) else o
 
 
 def _ready(wire):
@@ -348,7 +366,9 @@ class PSServer:
                 if k not in self._store:
                     raise MXNetError(f"key {k!r} not initialized")
             if self._updater is None:
-                self._store.update(zip(keys, grads))
+                # the pushed values replace the stored ones, dense (the
+                # reference's server)
+                self._store.update(zip(keys, map(_dense, grads)))
                 return
             self._updater.update_many(
                 [int(k) if k.isdigit() else k for k in keys], grads,
@@ -375,7 +395,13 @@ class PSServer:
                     raise MXNetError(f"key {k!r} not initialized")
                 return _to_wire(self._store[k])
         if cmd == "row_sparse_pull":
-            raise MXNetError(_SPARSE)
+            k, rows = args
+            with self._lock:
+                if k not in self._store:
+                    raise MXNetError(f"key {k!r} not initialized")
+                dense = _dense(self._store[k])._data
+                ids = sp._index_tensor(rows, dense.device)
+                return ("rows", dense[ids], ids)
         if cmd == "set_optimizer":
             if not trusted:
                 raise MXNetError(
@@ -506,6 +532,7 @@ class AsyncPSKVStore:
         self._sock_lock = threading.Lock()
         self._compression = None
         self._residuals = {}
+        self.updates_on_server = False  # set_optimizer was called
         if self._uri:
             self._connect()
         else:
@@ -644,7 +671,7 @@ class AsyncPSKVStore:
             if self._compression is not None:
                 merged, self._residuals[self._key(k)] = \
                     self._compression.roundtrip(
-                        merged, self._residuals.get(self._key(k)))
+                        _dense(merged), self._residuals.get(self._key(k)))
             self._enqueue("push", self._key(k), _to_wire(merged))
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
@@ -656,7 +683,7 @@ class AsyncPSKVStore:
 
         self.wait_all()
         for k, o in zip(*_pairs(key, out)):
-            stored = _from_wire(self._rpc("pull", self._key(k)))._data
+            stored = _dense(_from_wire(self._rpc("pull", self._key(k))))._data
             for target in (o if isinstance(o, (list, tuple)) else [o]):
                 copy_global_into(target._data, stored.to(target.dtype))
 
@@ -666,7 +693,22 @@ class AsyncPSKVStore:
             self.pull(key, out, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError(_SPARSE)
+        """Blocking, as ``pull``: only the rows ``row_ids`` come over the
+        wire; a ``RowSparseNDArray`` target gets them, a dense target has
+        just those rows written in place."""
+        from . import _pairs, write_rows
+
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        self.wait_all()
+        keys, outs = _pairs(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) and \
+            isinstance(key, (list, tuple)) else [row_ids] * len(keys)
+        for k, o, r in zip(keys, outs, rids):
+            ids = sp._index_tensor(r, "cpu")
+            shape = _first_target(o).shape
+            _, rows, ids = self._rpc("row_sparse_pull", self._key(k), ids)
+            write_rows(o, _tensor(ids), _tensor(rows), shape)
 
     def broadcast(self, key, value, out=None, priority=0):
         self.init(key, value)
@@ -681,6 +723,7 @@ class AsyncPSKVStore:
         wd through ``set_optimizer_hparams``."""
         self.wait_all()
         self._rpc("set_optimizer", pickle.dumps(optimizer))
+        self.updates_on_server = True
 
     def set_optimizer_hparams(self, lr=None, rescale_grad=None, wd=None):
         """Refresh the server's optimizer hyperparameters in place (its

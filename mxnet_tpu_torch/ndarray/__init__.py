@@ -6,7 +6,9 @@ Counterpart of ``mxnet_tpu/ndarray/__init__.py``: the ops of
 ``ops/elemwise.py``, ``ops/tensor.py``, ``ops/nn_ops.py``,
 ``ops/output_ops.py``, ``ops/contrib.py``, ``ops/quantization.py``,
 ``ops/rnn_ops.py`` and ``ops/attention.py`` under the reference's names
-and aliases, and the ``contrib`` namespace (``ndarray/contrib.py``).
+and aliases, the ``contrib`` namespace (``ndarray/contrib.py``), and the
+sparse storage types (``nd.sparse``, ``nd.cast_storage``;
+``ndarray/sparse.py``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from ..random import normal as random_normal  # noqa: F401
 from ..random import shuffle, multinomial, sample_multinomial  # noqa: F401
 from .ndarray import NDArray
 from . import contrib  # noqa: F401  (mx.nd.contrib namespace)
+from . import sparse  # noqa: F401  (mx.nd.sparse namespace)
+from .sparse import cast_storage  # noqa: F401
 
 
 def array(source_array, ctx=None, dtype=None):

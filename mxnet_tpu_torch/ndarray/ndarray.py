@@ -73,16 +73,18 @@ class NDArray:
 
     @property
     def stype(self):
-        """Storage type: dense (sparse storage is Queue 1 item 8e)."""
+        """Storage type: ``"default"`` (dense); the sparse types are
+        ``ndarray/sparse.py``'s."""
         return "default"
 
     def tostype(self, stype):
-        """This array in storage ``stype``: ``"default"`` is itself; the
-        sparse types are ROADMAP Queue 1 item 8e."""
+        """This array in storage ``stype``: ``"default"`` is itself,
+        ``"row_sparse"`` and ``"csr"`` a cast (``sparse.cast_storage``)."""
         if stype == "default":
             return self
-        raise MXNetError(f"tostype({stype!r}) (sparse storage) is not "
-                         "ported yet (ROADMAP.md, Queue 1 item 8e)")
+        from . import sparse
+
+        return sparse.cast_storage(self, stype)
 
     # -- host sync -----------------------------------------------------------
     def asnumpy(self) -> np.ndarray:
@@ -150,7 +152,14 @@ class NDArray:
     # -- arithmetic ----------------------------------------------------------
     def _binary(self, other, fn, name, reflected=False):
         from ..ops.registry import apply_op
+        from . import sparse
 
+        if isinstance(other, sparse.BaseSparseNDArray):
+            canon = {"add": "add", "sub": "subtract", "mul": "multiply",
+                     "div": "divide"}.get(name, name)
+            if reflected:
+                return sparse.dispatch_binary(canon, fn, other, self)
+            return sparse.dispatch_binary(canon, fn, self, other)
         if isinstance(other, NDArray):
             if reflected:
                 return apply_op(lambda a, b: fn(b, a), self, other, name=name)

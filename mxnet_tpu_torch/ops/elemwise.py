@@ -7,7 +7,9 @@ op is one torch call on the operands.  A comparison or logical op returns
 0/1 in its left operand's dtype (float32 for a bool operand), as MXNet's
 do; ``isnan``/``isinf``/``isfinite`` return bools, as the reference's do.
 A python scalar operand takes the dtype torch's scalar promotion gives it
-against the array (``torch.result_type``).
+against the array (``torch.result_type``).  A sparse operand
+(``ndarray/sparse.py``) dispatches on its storage type, as the
+reference's FComputeEx ops do; ``out=`` is refused there.
 """
 from __future__ import annotations
 
@@ -29,8 +31,22 @@ _NO_GRAD = frozenset([
 ])
 
 
+def _refuse_out(name, out):
+    if out is not None:
+        from ..base import MXNetError
+
+        raise MXNetError(f"{name}: out= is not supported with sparse "
+                         "operands")
+
+
 def _make_unary(name, tf, aliases=()):
     def fn(data, out=None, **kwargs):
+        from ..ndarray import sparse as sp
+
+        if isinstance(data, sp.BaseSparseNDArray):
+            # stype dispatch: zero-preserving ops keep the structure
+            _refuse_out(name, out)
+            return sp.dispatch_unary(name, tf, data)
         return apply_op(tf, data, name=name, no_grad=name in _NO_GRAD)
 
     fn.__name__ = name
@@ -48,8 +64,13 @@ def _scalar(c, like):
 
 def _make_binary(name, tf, aliases=()):
     def fn(lhs, rhs, out=None, **kwargs):
+        from ..ndarray import sparse as sp
         from ..ndarray.ndarray import NDArray
 
+        if isinstance(lhs, sp.BaseSparseNDArray) or \
+                isinstance(rhs, sp.BaseSparseNDArray):
+            _refuse_out(name, out)
+            return sp.dispatch_binary(name, tf, lhs, rhs)
         ng = name in _NO_GRAD
         if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
             return apply_op(tf, lhs, rhs, name=name, no_grad=ng)

@@ -13,12 +13,23 @@ comparisons, index outputs) runs with torch's gradient mode off, so its
 result carries no graph.  Under a mesh (an operand is a ``DTensor``)
 the plain operands become replicated ``DTensor``s.
 ``exporter`` builds a module's ``__all__`` with
-the reference's aliases.  The reference's bulking hook ports with a later
-slice, its profiler hook is left out of slice 9 (ROADMAP.md).
+the reference's aliases.  While the profiler runs (``profiler.py``),
+each op's dispatch is timed and recorded under its scope and name, as
+the reference's hook does; otherwise dispatch does not look at it.  The
+reference's bulking hook has no counterpart (``engine.py``).
 """
 from __future__ import annotations
 
+import sys
+import time
 from typing import Callable
+
+
+def _profiler():
+    """The profiler module iff it is loaded and running (the reference
+    engine's ``IsProfiling()`` check an op)."""
+    prof = sys.modules.get("mxnet_tpu_torch.profiler")
+    return prof if prof is not None and prof.is_running() else None
 
 
 def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
@@ -31,12 +42,18 @@ def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     from ..ndarray.ndarray import NDArray
     from ..parallel.local import replicate_plain
 
+    prof = _profiler()
+    if prof is not None:
+        t0 = time.perf_counter()
     raws = [a._data for a in nd_args]
     with torch.no_grad() if no_grad else grad_mode():
         raws = replicate_plain(raws)
         if amp.is_active():
             raws = amp.maybe_cast_args(name, raws)
         outs = fun(*raws)
+    if prof is not None:
+        prof.record_op_event(prof.current_scope_prefix() + (name or "op"),
+                             time.perf_counter() - t0)
     if isinstance(outs, (tuple, list)):
         return tuple(NDArray(o) for o in outs)
     return NDArray(outs)

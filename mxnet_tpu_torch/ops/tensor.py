@@ -789,8 +789,15 @@ _export(sequence_reverse, aliases=("SequenceReverse",))
 def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kwargs):
     """Reference ``dot``: the last axis of ``lhs`` contracted with the
     first of ``rhs`` (after the optional transposes, which reverse all
-    axes); bf16/f16 through ``mxu_matmul_nt``."""
+    axes); bf16/f16 through ``mxu_matmul_nt``.  A sparse operand takes
+    ``ndarray/sparse.dot``."""
+    from ..ndarray import sparse as _sparse
     from .nn_ops import mxu_matmul_nt
+
+    if isinstance(lhs, _sparse.BaseSparseNDArray) or \
+            isinstance(rhs, _sparse.BaseSparseNDArray):
+        return _sparse.dot(lhs, rhs, transpose_a=transpose_a,
+                           transpose_b=transpose_b)
 
     def f(a, b):
         if transpose_a:

@@ -18,7 +18,10 @@ plain version of the fused multi-tensor kernel
 ``gluon.FusedTrainStep`` run through ``_fused_param_updates``: one launch
 a step, by the rule code each optimizer names (``_fused_rule``).  State
 is f32 for f16/bf16 weights (SGD momentum, Adam moments);
-``multi_precision=True`` adds an f32 master weight.  The optimizers
+``multi_precision=True`` adds an f32 master weight.  A ``row_sparse``
+gradient (``ndarray/sparse.py``) takes the lazy row update of SGD and
+Adam (``_sparse_step``: only the stored rows and their state change);
+another optimizer takes it dense.  The optimizers
 after AdamW have no rule code in the kernel (ROADMAP Queue 2): the
 Trainer runs their ``_step`` tensor by tensor, and ``FusedTrainStep``
 captures that rule in its graph.  There lr, wd and t are 0-d f32 tensors
@@ -194,6 +197,15 @@ class Optimizer:
         ``states`` tensors in place.  Subclasses implement it."""
         raise NotImplementedError
 
+    def _sparse_rows(self, weight, grad, wd):
+        """(row ids, rescaled and clipped gradient rows + wd·w rows) of a
+        row_sparse gradient, in the reference's order of operations."""
+        idx = grad.indices._data
+        g = grad.data._data * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        return idx, g + wd * weight._data[idx]
+
     def _prep_grad(self, g, w, wd, include_wd=True):
         """rescale, clip, + wd·w in g's dtype (new tensors; ``g`` itself
         is left alone).  Steps that change nothing are skipped."""
@@ -221,6 +233,18 @@ class Optimizer:
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         t = self._index_update_count[index]
+        from ..ndarray import sparse as sp
+
+        if isinstance(grad, sp.BaseSparseNDArray):
+            # the lazy row update: only the rows a row_sparse gradient
+            # stores are touched (reference ``lazy_update``); an
+            # optimizer without one takes the gradient dense
+            if isinstance(grad, sp.RowSparseNDArray) and \
+                    hasattr(self, "_sparse_step"):
+                with torch.no_grad():
+                    self._sparse_step(index, weight, grad, state, lr, wd, t)
+                return
+            grad = grad.todense()
         with torch.no_grad():
             if multi_precision:
                 master, sub_state = state
@@ -338,6 +362,20 @@ class SGD(Optimizer):
         mom.mul_(self.momentum).sub_(lr * g.to(mom.dtype))
         w.add_(mom.to(w.dtype))
 
+    def _sparse_step(self, index, weight, grad, state, lr, wd, t):
+        """The lazy row update (reference ``sgd_update(lazy_update=
+        True)``): the rows the gradient stores, and their momentum, are
+        updated in place; every other row keeps its bits."""
+        idx, g = self._sparse_rows(weight, grad, wd)
+        w = weight._data
+        if self.momentum == 0.0:
+            w.index_add_(0, idx, (-lr * g).to(w.dtype))
+            return
+        mom = state._data
+        rows = self.momentum * mom[idx] - lr * g
+        mom[idx] = rows
+        w.index_add_(0, idx, rows.to(w.dtype))
+
 
 @register
 class NAG(Optimizer):
@@ -402,6 +440,23 @@ class Adam(Optimizer):
         m, v = states
         g = self._prep_grad(g.to(m.dtype), w, wd)
         w.sub_(self._moments(m, v, g, lr, t).to(w.dtype))
+
+    def _sparse_step(self, index, weight, grad, state, lr, wd, t):
+        """The lazy row update (reference ``adam_update(lazy_update=
+        True)``): the moments and weights of the rows the gradient
+        stores; every other row, and its moments, keep their bits."""
+        m, v = (s._data for s in state)
+        idx, g = self._sparse_rows(weight, grad, wd)
+        m_rows = self.beta1 * m[idx] + (1 - self.beta1) * g
+        v_rows = self.beta2 * v[idx] + (1 - self.beta2) * torch.square(g)
+        lr_t = lr * math.sqrt(1.0 - self.beta2 ** t) / \
+            (1.0 - self.beta1 ** t)
+        m[idx] = m_rows
+        v[idx] = v_rows
+        w = weight._data
+        w.index_add_(0, idx, (-lr_t * m_rows /
+                              (torch.sqrt(v_rows) + self.epsilon))
+                     .to(w.dtype))
 
 
 @register
@@ -672,8 +727,20 @@ class Updater:
         """Apply the optimizer to (index, grad, weight) triples of distinct
         indices: all in one launch of the fused multi-tensor kernel where
         its rule applies (``gluon.Trainer``'s route, ``_fused_param_
-        updates``), else one by one (``__call__``)."""
+        updates``), else one by one (``__call__``).  A sparse gradient
+        takes its own lazy row update."""
+        from ..ndarray import sparse as sp
+
         optzr = self.optimizer
+        dense = []
+        for i, g, w in zip(indices, grads, weights):
+            if isinstance(g, sp.BaseSparseNDArray):
+                self(i, g, w)  # the lazy row update
+            else:
+                dense.append((i, g, w))
+        if not dense:
+            return
+        indices, grads, weights = zip(*dense)
         fusable = not engine.is_naive() and \
             optzr._kernel_rule() is not None and all(
                 w.dtype in _FUSED_DTYPES and g.dtype == w.dtype and

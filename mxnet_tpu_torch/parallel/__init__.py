@@ -58,7 +58,8 @@ __all__ = ["initialize", "is_initialized", "make_mesh", "set_mesh",
            "place_params", "stacked_spec", "LLAMA_RULES", "MIXTRAL_RULES",
            "FAMILY_RULES", "last_placement", "process_sum_hostvec",
            "process_gather_hostvec", "replicate_block_params",
-           "mesh_axes", "placements", "world_size", "rank"]
+           "mesh_axes", "placements", "world_size", "rank",
+           "row_sparse_sum"]
 
 _STATE = threading.local()
 _INITIALIZED = False
@@ -487,7 +488,9 @@ class TPUSyncKVStore:
     ``parallel/__init__.py:481-488``).  ``init``/``push``/``pull``/
     ``broadcast`` behave like one logical store for eager code:
     ``broadcast`` and ``init`` take rank 0's value, ``push`` sums the
-    ranks' values."""
+    ranks' values (row_sparse ones over the union of the ranks' rows,
+    ``row_sparse_sum``), and ``row_sparse_pull`` reads the local
+    store."""
 
     def __init__(self):
         from .. import kvstore as kvs
@@ -562,9 +565,20 @@ class TPUSyncKVStore:
     def push(self, key, value, priority=0):
         """Sum value(s) over local devices, then over the ranks."""
         from ..kvstore import _merge, _pairs
+        from ..ndarray import sparse as sp
 
         for k, v in zip(*_pairs(key, value)):
-            self._local.push(k, all_sum([_merge(v)])[0], priority)
+            merged = _merge(v)
+            if isinstance(merged, sp.RowSparseNDArray):
+                merged = row_sparse_sum(merged)
+            else:
+                merged = all_sum([merged])[0]
+            self._local.push(k, merged, priority)
+
+    @property
+    def _updater(self):
+        """The local store's updater (``set_optimizer``)."""
+        return self._local._updater
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         self._local.pull(key, out, priority, ignore_sparse)
@@ -601,11 +615,40 @@ class TPUSyncKVStore:
         self._local.load_optimizer_states(fname)
 
 
-def _broadcast0(v):
-    """An NDArray with rank 0's value (a copy on every rank)."""
-    from ..kvstore import _merge
+def row_sparse_sum(v, group=None):
+    """A ``RowSparseNDArray`` summed over the ranks of ``group`` (default:
+    every rank): the row ids are all-gathered, each rank scatters its
+    rows into the sorted union of them, and one all-reduce sums those.
+    Every rank must call it (SPMD).  One process: the identity."""
+    from ..ndarray import sparse as sp
 
-    v = _merge(v)
+    if world_size() == 1:
+        return v
+    idx, vals = v.indices._data, v.data._data
+    n = torch.tensor([idx.numel()], device=idx.device)
+    counts = [torch.zeros_like(n)
+              for _ in range(torch.distributed.get_world_size(group))]
+    torch.distributed.all_gather(counts, n, group=group)
+    width = int(max(c.item() for c in counts))
+    padded = torch.full((width,), -1, dtype=torch.int64, device=idx.device)
+    padded[:idx.numel()] = idx
+    every = [torch.empty_like(padded) for _ in counts]
+    torch.distributed.all_gather(every, padded, group=group)
+    every = torch.cat(every)
+    union = torch.unique(every[every >= 0], sorted=True)
+    total = torch.zeros((len(union),) + tuple(vals.shape[1:]),
+                        dtype=vals.dtype, device=vals.device)
+    total.index_add_(0, torch.searchsorted(union, idx), vals)
+    torch.distributed.all_reduce(total, group=group)
+    return sp.RowSparseNDArray(NDArray(total), union, v.shape)
+
+
+def _broadcast0(v):
+    """An NDArray with rank 0's value (a copy on every rank; a sparse
+    value is broadcast in its dense form)."""
+    from ..kvstore import _dense, _merge
+
+    v = _dense(_merge(v))
     t = v._data
     if is_dtensor(t):  # placed from rank 0's values already
         return NDArray(t.clone())

@@ -21,9 +21,12 @@ Per-array payload (dense V2):
 
 Writes are V2 dense, with bfloat16 written as float32 (as the reference
 does), so a file written here is byte for byte the reference's for the
-same arrays; reads take V1 and V2 dense.  Row-sparse arrays raise (sparse
-storage is ROADMAP Queue 1 item 8).  Loaded arrays lie on the CPU; a
-parameter's ``set_data`` copies them to its device.
+same arrays; a sparse array is written in its dense form, as the
+reference writes it.  Reads take V1 and V2 dense and V2 row_sparse (the
+reference reader's layout: the shape, the aux count and aux shapes, the
+indices' body, then the values' body), which loads as a
+``RowSparseNDArray``; CSR raises, as in the reference.  Loaded arrays lie
+on the CPU; a parameter's ``set_data`` copies them to its device.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray
+from .ndarray import sparse as sp
 
 _LIST_MAGIC = 0x112
 _V1_MAGIC = 0xF993FAC8
@@ -55,8 +59,8 @@ def _host_array(arr):
         return arr
     if isinstance(arr, torch.Tensor):
         arr = NDArray(arr)
-    if isinstance(arr, NDArray):
-        return arr.asnumpy()
+    if isinstance(arr, (NDArray, sp.BaseSparseNDArray)):
+        return arr.asnumpy()  # a sparse array: its dense form
     return np.asarray(arr)
 
 
@@ -124,12 +128,20 @@ def _read_ndarray(cur):
     if magic not in (_V1_MAGIC, _V2_MAGIC):
         raise MXNetError(f"bad NDArray magic 0x{magic:X} in .params")
     stype = cur.i32() if magic == _V2_MAGIC else 0
-    if stype != 0:
-        raise MXNetError(
-            f"storage type {stype} (row_sparse/csr) in .params: sparse "
-            "arrays are not ported yet (ROADMAP.md, Queue 1 item 8)")
-    shape = _read_shape(cur, magic)
-    return NDArray(torch.from_numpy(np.array(_read_dense_body(cur, shape))))
+    if stype == 0:
+        shape = _read_shape(cur, magic)
+        return NDArray(torch.from_numpy(
+            np.array(_read_dense_body(cur, shape))))
+    if stype == 1:  # row_sparse: aux shapes, the indices, the values
+        shape = _read_shape(cur, magic)
+        aux_shapes = [_read_shape(cur, _V2_MAGIC)
+                      for _ in range(cur.u32())]
+        idx = _read_dense_body(cur, aux_shapes[0])
+        vals = _read_dense_body(cur, (aux_shapes[0][0],) + shape[1:])
+        return sp.RowSparseNDArray(
+            NDArray(torch.from_numpy(np.array(vals))),
+            torch.from_numpy(idx.astype(np.int64)), shape)
+    raise MXNetError(f"unsupported storage type {stype} in .params")
 
 
 def save_ndarrays(fname, data):

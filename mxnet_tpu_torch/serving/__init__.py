@@ -28,7 +28,8 @@ default); a net initialized with ``ctx=mx.cpu()`` serves on the CPU.
 ``GenerativeServer(mesh=, partition_rules=)`` serves dp replicas and
 tensor-parallel replicas (``server.py``).  Not ported yet (ROADMAP.md,
 Queue 1, "Left out of slice 6"): the observability of ``metrics.py``
-and the telemetry package.
+(``MetricsServer``, ``SLOTracker``, ``prometheus_text``; reading one
+raises ``MXNetError`` naming that list) and the telemetry package.
 """
 from .protocol import (Request, ServerClosedError,     # noqa: F401
                        ServerOverloadedError)
@@ -51,3 +52,8 @@ __all__ = ["Request", "ServerOverloadedError", "ServerClosedError",
            "GenerativeScheduler", "ServerConfig", "InferenceServer",
            "GenerativeServer", "PrefillLane", "DecodeLane", "Replica",
            "ReplicaDispatcher"]
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(_lo.SERVING, "mxnet_tpu_torch.serving")

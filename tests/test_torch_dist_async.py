@@ -213,14 +213,24 @@ def test_tcp_server_side_optimizer_no_barrier(ps_secret, uri):
 
 
 def test_row_sparse_values_name_their_item(uri):
+    """Row-sparse values, refused naming item 8e until slice 16, now
+    cross the wire: a row_sparse_pull into a dense target writes only
+    the requested rows, and the raw reply is the reference's
+    ``("rows", values, ids)`` (``test_torch_fm.py`` holds the wire both
+    ways against the reference)."""
     srv = serve_forever(uri, PSServer(), secret=None)
     try:
         kv = AsyncPSKVStore(root_uri=uri, secret=None)
-        kv.init("emb", nd.ones((10, 2)))
-        with pytest.raises(tmx.MXNetError, match="item 8e"):
-            kv.row_sparse_pull("emb", out=nd.zeros((10, 2)), row_ids=[1])
-        with pytest.raises(tmx.MXNetError, match="item 8e"):
-            kv._rpc("row_sparse_pull", "emb", np.array([1]))
+        table = np.arange(20, dtype=np.float32).reshape(10, 2)
+        kv.init("emb", nd.array(table))
+        out = nd.zeros((10, 2))
+        kv.row_sparse_pull("emb", out=out, row_ids=[1, 7])
+        want = np.zeros((10, 2), np.float32)
+        want[[1, 7]] = table[[1, 7]]
+        np.testing.assert_array_equal(out.asnumpy(), want)
+        kind, rows, ids = kv._rpc("row_sparse_pull", "emb", np.array([1]))
+        assert kind == "rows" and ids.tolist() == [1]
+        np.testing.assert_array_equal(np.asarray(rows), table[[1]])
         kv.close()
     finally:
         srv.shutdown()

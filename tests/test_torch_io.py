@@ -223,5 +223,18 @@ def test_mnist_iter_matches(tmp_path):
 
 
 def test_libsvm_iter_names_the_roadmap(tmp_path):
-    with pytest.raises(MXNetError, match="Left out of slice 10"):
-        tmx.io.LibSVMIter(data_libsvm=str(tmp_path / "x"), data_shape=(4,))
+    """``LibSVMIter``, refused naming "Left out of slice 10" until slice
+    16, now reads CSR batches equal to the reference's
+    (``test_torch_fm.py`` holds padding and the label file)."""
+    path = tmp_path / "x"
+    path.write_text("1 0:0.5 3:2\n0 1:1\n1 2:0.25 3:1\n")
+    ref = [b.data[0].asnumpy() for b in
+           jmx.io.LibSVMIter(data_libsvm=str(path), data_shape=(4,),
+                             batch_size=2)]
+    with CPU:
+        got = [b.data[0].asnumpy() for b in
+               tmx.io.LibSVMIter(data_libsvm=str(path), data_shape=(4,),
+                                 batch_size=2)]
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)

@@ -2314,3 +2314,167 @@ def test_hybridized_ssd_replays_its_eager_forward_on_card(cuda_nvcc):
         for g, e in zip(got, eager):
             np.testing.assert_array_equal(g, e)
     assert net.cache_stats()["hits"] == 2
+
+
+# -- slice 16: sparse storage on the card -------------------------------------
+# No kernel of the port's own: the sparse ops are torch ops on the card.
+# index_add_ sums with atomics there, so the card is held to the CPU at
+# rtol 1e-5 (f32); indices and untouched rows exactly.
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda", 0)
+
+
+def _fm_csr(mx, ctx, rows=64, features=5000, nnz=39, seed=0):
+    rng = np.random.RandomState(seed)
+    cols = np.sort(np.stack([rng.choice(features, nnz, replace=False)
+                             for _ in range(rows)]), axis=1).reshape(-1)
+    vals = rng.uniform(0.01, 1.0, rows * nnz).astype(np.float32)
+    indptr = np.arange(0, rows * nnz + 1, nnz)
+    return mx.nd.sparse.csr_matrix((vals, cols, indptr),
+                                   shape=(rows, features), ctx=ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_csr_dot_on_card_matches_the_cpu(cuda_card, transpose_a):
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(1)
+    w = rng.randn(64 if transpose_a else 5000, 16).astype(np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        csr = _fm_csr(mx, ctx)
+        out = mx.nd.dot(csr, mx.nd.array(w, ctx=ctx),
+                        transpose_a=transpose_a)
+        assert out._data.device.type == ctx.device.type
+        outs.append(out.asnumpy())
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"learning_rate": 0.1}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.01})])
+def test_lazy_rows_on_card_leave_the_others_bit_equal(cuda_card, name, kw):
+    import mxnet_tpu_torch as mx
+
+    rng = np.random.RandomState(2)
+    w0 = rng.randn(1000, 16).astype(np.float32)
+    rows = np.sort(rng.choice(1000, 50, replace=False))
+    g = rng.randn(50, 16).astype(np.float32)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        opt = mx.optimizer.create(name, **kw)
+        w = mx.nd.array(w0, ctx=ctx)
+        state = opt.create_state(0, w)
+        states = [s for s in (state if isinstance(state, tuple)
+                              else (state,)) if s is not None]
+        before = [s.asnumpy() for s in states]
+        grad = mx.nd.sparse.row_sparse_array((g, rows), shape=w0.shape,
+                                             ctx=ctx)
+        for _ in range(2):
+            opt.update(0, w, grad, state)
+        assert w._data.device.type == ctx.device.type
+        untouched = np.setdiff1d(np.arange(1000), rows)
+        np.testing.assert_array_equal(w.asnumpy()[untouched],
+                                      w0[untouched])
+        for s, b in zip(states, before):
+            np.testing.assert_array_equal(s.asnumpy()[untouched],
+                                          b[untouched])
+        res.append(w.asnumpy())
+    np.testing.assert_allclose(res[0], res[1], rtol=1e-5, atol=1e-6)
+
+
+def _recording_store(mx, pushed):
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=0.01))
+    push = kv.push
+
+    def call(key, value, priority=0):
+        pushed[key] = value.copy()
+        push(key, value, priority)
+
+    kv.push = call
+    return kv
+
+
+@pytest.mark.cuda
+def test_fm_step_on_card_matches_the_cpu(cuda_card):
+    """One FM step with the store's Adam on the card against the CPU:
+    the loss and the pushed gradients within 1e-5 (of the step's largest
+    gradient), and the card's tables equal to the CPU's Adam applied to
+    the card's own gradients (Adam's first step, lr·g/(|g| + 3.2e-7),
+    turns the atomics' last bits in a nearly cancelling gradient into
+    differences of ~1e-4 of lr, so the two models' tables are not held
+    to each other element by element)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import fm
+
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        pushed = {}
+        model = fm.FMModel(5000, 16, seed=5, ctx=ctx,
+                           kvstore=_recording_store(mx, pushed))
+        csr = _fm_csr(mx, ctx, seed=6)
+        labels = mx.nd.array(np.arange(64) % 2, ctx=ctx)
+        loss = model.step(csr, labels)
+        assert model.v._data.device.type == ctx.device.type
+        res.append((loss, pushed, model))
+    (loss, pushed, model), (cpu_loss, cpu_pushed, _) = res
+    np.testing.assert_allclose(loss, cpu_loss, rtol=1e-5)
+    # w0's gradient is a sum over the batch that nearly cancels: every
+    # gradient is held within 1e-5 of the step's largest one
+    scale = max(float(np.abs(g.asnumpy()).max()) for g in cpu_pushed.values())
+    for key, g in cpu_pushed.items():
+        c = pushed[key].as_in_context(mx.cpu())
+        if hasattr(g, "indices"):
+            assert torch.equal(c.indices._data, g.indices._data)
+            c, g = c.data, g.data
+        np.testing.assert_allclose(c.asnumpy(), g.asnumpy(), rtol=0,
+                                   atol=1e-5 * scale)
+    replay = fm.FMModel(5000, 16, seed=5, ctx=mx.cpu(),
+                        kvstore=_recording_store(mx, {}))
+    for key, g in pushed.items():
+        replay.kv.push(key, g.as_in_context(mx.cpu()))
+    for k, key in (("w0", "fm_w0"), ("w", "fm_w"), ("v", "fm_v")):
+        np.testing.assert_allclose(getattr(model, k).asnumpy(),
+                                   replay.kv._store[key].asnumpy(),
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_sparse_results_stay_on_the_card(cuda_card, tmp_path):
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    csr = _fm_csr(mx, ctx, rows=8, features=100, nnz=5)
+    rsp = csr.tostype("row_sparse")
+    dense = mx.nd.array(np.eye(8, 100, dtype=np.float32), ctx=ctx)
+    outs = [csr, rsp, csr.tostype("csr"), rsp.tostype("csr"),
+            dense.tostype("row_sparse"), dense.tostype("csr"), rsp + rsp,
+            rsp * rsp, csr + csr, csr * csr, csr * dense, rsp * 2.0,
+            mx.nd.square(csr), mx.nd.sparse.retain(rsp, [0, 3]),
+            mx.nd.sparse.zeros("row_sparse", (4, 2), ctx=ctx)]
+    for x in outs:
+        parts = [x.data, x.indices] + ([x.indptr] if x.stype == "csr"
+                                       else [])
+        assert all(p._data.device.type == "cuda" for p in parts), x
+    assert rsp.todense()._data.is_cuda and \
+        mx.nd.dot(csr, mx.nd.ones((100, 2), ctx=ctx))._data.is_cuda
+    path = tmp_path / "d.libsvm"
+    path.write_text("1 0:0.5 3:2\n0 1:1\n")
+    with ctx:
+        batch = next(iter(mx.io.LibSVMIter(data_libsvm=str(path),
+                                           data_shape=(4,), batch_size=2)))
+    assert batch.data[0].data._data.is_cuda and batch.label[0]._data.is_cuda
+    kv = mx.kv.create("local")
+    kv.init("t", mx.nd.ones((10, 2), ctx=ctx))
+    out = mx.nd.zeros((10, 2), ctx=ctx)
+    kv.row_sparse_pull("t", out=out, row_ids=mx.nd.array([2, 5], ctx=ctx))
+    assert out._data.is_cuda and out.asnumpy().sum() == 4.0

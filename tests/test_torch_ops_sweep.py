@@ -507,8 +507,11 @@ def test_every_reference_op_name_resolves():
             ref = getattr(jmx.nd, name)(shape=(2, 3), dtype="float16")
             assert got.dtype == torch.float16
             np.testing.assert_array_equal(got.asnumpy(), ref.asnumpy())
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 9"):
-        tmx.profiler.set_state("run")
+    # the profiler, left out of slice 9, is ported in slice 16
+    # (tests/test_torch_profiler.py): it starts and stops
+    tmx.profiler.set_state("run")
+    assert tmx.profiler.is_running()
+    tmx.profiler.set_state("stop")
     assert not tmx.profiler.is_running()
 
 

@@ -32,7 +32,10 @@ def test_import_pulls_in_no_jax_in_a_fresh_process():
             "mxnet_tpu_torch.gluon.utils, "
             "mxnet_tpu_torch.gluon.model_zoo.vision.inception, "
             "mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet, "
-            "mxnet_tpu_torch.gluon.model_zoo.vision.densenet\n"
+            "mxnet_tpu_torch.gluon.model_zoo.vision.densenet, "
+            "mxnet_tpu_torch.ndarray.sparse, mxnet_tpu_torch.models.fm, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.io, "
+            "mxnet_tpu_torch.kvstore.dist_async\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.'))\n"

@@ -108,11 +108,20 @@ def test_bad_files_raise(tmp_path):
         (tmp_path / "t.params").read_bytes()[:-20])
     with pytest.raises(tmx.MXNetError, match="truncated"):
         tmx.nd.load(str(tmp_path / "cut.params"))
+    # row_sparse arrays are read since slice 16 (test_torch_sparse_stores):
+    # one cut short after its storage type is truncated; CSR raises, as
+    # in the reference
     sparse = bytearray(struct.pack("<QQQ", 0x112, 0, 1))
     sparse += struct.pack("<Ii", 0xF993FAC9, 1)
     (tmp_path / "rsp.params").write_bytes(bytes(sparse))
-    with pytest.raises(tmx.MXNetError, match="item 8"):
+    with pytest.raises(tmx.MXNetError, match="truncated"):
         tmx.nd.load(str(tmp_path / "rsp.params"))
+    csr = bytearray(struct.pack("<QQQ", 0x112, 0, 1))
+    csr += struct.pack("<IiIqq", 0xF993FAC9, 2, 2, 3, 3)
+    (tmp_path / "csr.params").write_bytes(bytes(csr))
+    for pkg in (tmx, jmx):
+        with pytest.raises(pkg.MXNetError, match="storage type 2"):
+            pkg.nd.load(str(tmp_path / "csr.params"))
 
 
 def test_module_checkpoint_files_match(tmp_path):
