@@ -39,7 +39,12 @@ row_sparse and CSR ops at the factorization machine's width, ``FMModel``
 at Criteo width through ``LibSVMIter`` and the lazy Adam rows, the
 sparse linear classification example, row-sparse values through the
 ``dist_sync`` and ``dist_async`` stores, and a profile of an FM step and
-a ResNet-50 forward.
+a ResNet-50 forward; and symbols and export: ResNet-50 as an ``mx.sym``
+graph through ``Executor``, ``Module.fit`` and a ``BucketingModule``
+LSTM, ResNet-50 and BERT-base exported as ``torch.export`` programs that
+hold the flash forward and the fused 1x1 kernel as custom ops, served
+through ``Predictor`` and ``InferenceServer(Predictor)``, BERT-base
+through ``bert_to_symbol`` and ONNX, and the symbol quantizer.
 
     python3 chip_smoke.py
 
@@ -352,7 +357,27 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     lockstep: the tables equal, push+pull ms;
 24e. ``mx.profiler`` with a ``torch.profiler`` device trace over one FM
     step and one ResNet-50 bf16 B=128 forward: device time split between
-    the hand-written kernels, cuBLAS/cuDNN and the rest, the host share.
+    the hand-written kernels, cuBLAS/cuDNN and the rest, the host share;
+25a. ``resnet50_v1`` built with ``mx.sym`` (``resnet50_symbol``), the
+    Gluon net's weights by structural name: the ``simple_bind`` forward
+    at f32 B=32 against the Gluon forward, ``Module.fit`` (8 steps of SGD
+    with momentum through the update kernel; step ms, images/s, the
+    loss falling) and ``BucketingModule`` over a ``sym.RNN`` LSTM at two
+    lengths sharing its parameters;
+25b. ``resnet50_v1`` bf16 exported on the card (``HybridBlock.export``:
+    a ``torch.export`` program whose 16 #4 nodes are custom ops), read
+    back by ``SymbolBlock.imports`` and ``Predictor`` (16 launches a
+    forward, outputs against the live hybridized block), and 64 requests
+    from 8 clients through ``InferenceServer(Predictor)`` beside phase
+    14's numbers;
+25c. ``bert_base``: ``bert_to_symbol`` → ``Executor`` and
+    ``export_bert_onnx`` → ``import_model`` → bind at f32 against
+    ``BERTModel``'s forward; the bf16 export at B=64, T=128 (12 #1 nodes,
+    12 launches a ``Predictor.forward``) against the live block;
+25d. 25a's trained symbol through ``save_checkpoint`` →
+    ``load_checkpoint`` → ``Predictor`` (the nnvm replay, a CUDA graph a
+    signature), and ``quantize_model`` (naive) of it: the int8 graph on
+    the card, and at B=2 against the CPU (int32 products equal).
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -364,8 +389,9 @@ The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
 captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
 int8 forwards (#4 must launch 0 times there), each detector's forwards
-of 23b-23d (#4 and ``nms_keep``); the update's in 9, 12, 12b, 13b, 16,
-17, 18b, 18d, 19a, 19b, 20c, 22b, 22c and 23e, and in 24b, where it
+of 23b-23d (#4 and ``nms_keep``), the served exported program of 25b
+and the exported program's forwards of 25c; the update's in 9, 12, 12b, 13b, 16,
+17, 18b, 18d, 19a, 19b, 20c, 22b, 22c, 23e and 25a, and in 24b, where it
 must stay 0: the lazy row updates are not the update kernel's) and
 read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
@@ -7513,6 +7539,559 @@ def profile_phase(torch, mx, fm, vision, failures):
     return out
 
 
+# -- slice 17: symbols and export -------------------------------------------
+SYM_B = 32                   # 25a: Module and Executor batch (f32)
+SYM_IMAGE = 224
+SYM_STEPS = 8                # 25a: Module.fit steps (2 batches x 4 epochs)
+SYM_LR = 0.01                # 25a: SGD with momentum 0.9
+SYM_TOL = 1e-4               # 25a: symbol vs Gluon forward, relative norm
+LSTM_HIDDEN = 256            # 25a: the bucketing LSTM
+LSTM_LENS = (35, 20)         # 25a: its two buckets (default first)
+LSTM_ROUNDS = 6              # 25a: steps of each bucket, alternating
+LSTM_LR = 0.02               # 25a: SGD
+EXPORT_B = 32                # 25b: the exported ResNet-50's batch (bf16)
+EXPORT_TOL = 2.0 ** -8       # 25b, 25c: program vs live block, rel. norm
+BERT_SYM_B = 16              # 25c: bert_to_symbol / ONNX batch (f32)
+BERT_SYM_TOL = 1e-4          # 25c: relative norm vs BERTModel (f32)
+QUANT_CHECK_B = 2            # 25d: the int8 graph, card vs CPU
+QUANT_TOL = INT8_CPU_TOL     # 25d: of the largest output, card vs CPU
+
+
+def resnet50_symbol(mx, classes=1000, label=True):
+    """``resnet50_v1`` as an ``mx.sym`` graph, layer for layer the Gluon
+    net (``gluon/model_zoo/vision/resnet.py``: BottleneckV1, stages of
+    3, 4, 6, 3 units, the stride on each unit's first 1x1 conv, which has
+    a bias), each node named after the Gluon layer's structural name with
+    ``_`` for ``.``; returns (symbol, {symbol argument or auxiliary name:
+    Gluon structural name})."""
+    S = mx.sym
+    names = {}
+
+    def conv(x, key, c, k, stride=1, pad=0, bias=False):
+        n = key.replace(".", "_")
+        names[n + "_weight"] = key + ".weight"
+        if bias:
+            names[n + "_bias"] = key + ".bias"
+        return S.Convolution(x, kernel=(k, k), stride=(stride, stride),
+                             pad=(pad, pad), num_filter=c, no_bias=not bias,
+                             name=n)
+
+    def bn(x, key):
+        n = key.replace(".", "_")
+        for sym_name, gluon_name in (("gamma", "gamma"), ("beta", "beta"),
+                                     ("moving_mean", "running_mean"),
+                                     ("moving_var", "running_var")):
+            names[f"{n}_{sym_name}"] = f"{key}.{gluon_name}"
+        return S.BatchNorm(x, eps=1e-5, momentum=0.9, fix_gamma=False,
+                           name=n)
+
+    def relu(x, key):
+        return S.Activation(x, act_type="relu", name=key.replace(".", "_"))
+
+    with mx.name.NameManager():
+        x = S.var("data")
+        x = relu(bn(conv(x, "features.0", 64, 7, 2, 3), "features.1"),
+                 "features.2")
+        x = S.Pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                      pool_type="max", name="features_3")
+        in_c = 64
+        for i, (units, c) in enumerate(zip((3, 4, 6, 3),
+                                           (256, 512, 1024, 2048))):
+            for u in range(units):
+                key = f"features.{4 + i}.{u}"
+                stride = 2 if i and not u else 1
+                h = relu(bn(conv(x, key + ".body.0", c // 4, 1, stride,
+                                 bias=True), key + ".body.1"),
+                         key + ".body.2")
+                h = relu(bn(conv(h, key + ".body.3", c // 4, 3, 1, 1),
+                            key + ".body.4"), key + ".body.5")
+                h = bn(conv(h, key + ".body.6", c, 1, bias=True),
+                       key + ".body.7")
+                res = x
+                if not u and c != in_c:
+                    res = bn(conv(x, key + ".downsample.0", c, 1, stride),
+                             key + ".downsample.1")
+                x = S.Activation(h + res, act_type="relu",
+                                 name=key.replace(".", "_") + "_out")
+            in_c = c
+        x = S.Pooling(x, kernel=(1, 1), global_pool=True, pool_type="avg",
+                      name="features_8")
+        names["output_weight"] = "output.weight"
+        names["output_bias"] = "output.bias"
+        x = S.FullyConnected(x, num_hidden=classes, name="output")
+        if label:
+            x = S.SoftmaxOutput(x, name="softmax")
+    return x, names
+
+
+def _sym_params(mx, names, arrays, ctx, aux_names):
+    """(arg_params, aux_params) of the symbol from the Gluon arrays."""
+    arg, aux = {}, {}
+    for n, key in names.items():
+        (aux if n in aux_names else arg)[n] = mx.nd.array(arrays[key],
+                                                          ctx=ctx)
+    return arg, aux
+
+
+def symbol_module_phase(torch, mx, vision, mt, failures):
+    """Phase 25a: ``resnet50_v1`` built with ``mx.sym``
+    (``resnet50_symbol``), weights copied from an initialized Gluon
+    ``resnet50_v1`` by structural name: its ``simple_bind`` inference
+    forward at f32 B=32 against the Gluon forward (relative norm within
+    SYM_TOL); ``Module.fit`` SGD with momentum over SYM_STEPS steps (two
+    seeded batches, four epochs) through the fused update kernel, its
+    step ms and images/s and the loss falling; then ``BucketingModule``
+    over a one-layer ``sym.RNN`` LSTM at two sequence lengths sharing
+    its parameters.  Returns the update kernel's launches."""
+    free_card(torch)
+    gpu = mx.gpu(0)
+    arrays = _resnet_arrays(torch, mx, vision.resnet50_v1, (1, 3, 64, 64))
+    STASH["resnet50_arrays"] = arrays
+    sym, names = resnet50_symbol(mx)
+    aux_names = set(sym.list_auxiliary_states())
+    arg, aux = _sym_params(mx, names, arrays, gpu, aux_names)
+    missing = set(sym.list_arguments()) - set(arg) - {"data",
+                                                      "softmax_label"}
+    gen = torch.Generator().manual_seed(SEED + 25)
+    x = torch.rand((SYM_B, 3, SYM_IMAGE, SYM_IMAGE), generator=gen)
+    net = vision.resnet50_v1()
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    load_numpy_params(net, arrays, ctx=gpu)
+    with mx.gpu(0):
+        want = net(mx.nd.array(x, ctx=gpu))._data
+    del net
+    exe = sym.simple_bind(gpu, data=(SYM_B, 3, SYM_IMAGE, SYM_IMAGE), grad_req="null")
+    exe.copy_params_from(arg, aux)
+    got = exe.forward(is_train=False, data=mx.nd.array(x, ctx=gpu))[0]
+    # SoftmaxOutput's inference output is the softmax: compare logits'
+    # softmax
+    rel = _rel_norm(torch, got._data, torch.softmax(want.float(), -1))
+    infer_ms = time_ms(torch, lambda: exe.forward(is_train=False), 3)
+    del exe
+    free_card(torch)
+    # Module.fit: two seeded batches, four epochs
+    xs = torch.rand((2 * SYM_B, 3, SYM_IMAGE, SYM_IMAGE), generator=gen).numpy()
+    ys = torch.randint(0, 1000, (2 * SYM_B,), generator=gen).float().numpy()
+    losses, stamps = [], []
+    mt.multi_tensor_update.launches = 0  # the main path starts here
+    with mx.gpu(0):
+        it = mx.io.NDArrayIter(xs, ys, batch_size=SYM_B)
+        mod = mx.mod.Module(sym, context=gpu)
+
+        def on_batch(param):
+            out = mod.get_outputs()[0]._data.detach().float()
+            lab = torch.from_numpy(ys[param.nbatch * SYM_B:
+                                      (param.nbatch + 1) * SYM_B]).long()
+            p = out[torch.arange(SYM_B), lab.to(out.device)]
+            losses.append(float(-torch.log(p.clamp_min(1e-30)).mean()))
+            stamps.append(time.perf_counter())
+
+        stamps.append(time.perf_counter())
+        mod.fit(it, num_epoch=SYM_STEPS // 2, optimizer="sgd",
+                optimizer_params={"learning_rate": SYM_LR,
+                                  "momentum": 0.9},
+                arg_params=arg, aux_params=aux, batch_end_callback=on_batch)
+    updates = mt.multi_tensor_update.launches  # ... and ends here
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    warm = step_ms[2:]
+    fit = dict(losses=losses, step_ms=step_ms,
+               warm_step_ms=sum(warm) / len(warm),
+               images_per_s=SYM_B / (sum(warm) / len(warm)) * 1e3,
+               update_launches=updates)
+    STASH["sym_module"] = (mod, sym)
+    # BucketingModule over a sym.RNN LSTM, shared parameters
+    bucket = _bucketing_lstm(torch, mx, gen)
+    ok = rel <= SYM_TOL and not missing and \
+        losses[-2:] and max(losses[-2:]) < min(losses[:2]) and \
+        updates == SYM_STEPS and bucket["ok"]
+    emit(dict(phase="symbol_module", nvidia_smi=_card(), net="resnet50_v1",
+              B=SYM_B, dtype="float32", nodes=len(sym._topo()),
+              args=len(sym.list_arguments()),
+              aux=len(sym.list_auxiliary_states()),
+              forward_vs_gluon_rel_norm=rel, tol=SYM_TOL,
+              executor_forward_ms=infer_ms, fit=fit, bucketing=bucket,
+              ok=ok))
+    if not ok:
+        failures.append(f"25a: rel {rel}, missing {missing}, losses "
+                        f"{losses}, updates {updates}, bucketing {bucket}")
+    free_card(torch)
+    return updates
+
+
+def _bucketing_lstm(torch, mx, gen):
+    """``BucketingModule`` over a one-layer ``sym.RNN`` LSTM tagger at
+    LSTM_LENS, LSTM_ROUNDS steps a bucket in turn, each step's label the
+    argmax of the step's first 10 input features (learnable); both
+    buckets read one set of parameter arrays and each bucket's loss
+    falls."""
+    gpu, nb, hid = mx.gpu(0), 32, LSTM_HIDDEN
+
+    def sym_gen(seq_len):
+        S = mx.sym
+        with mx.name.NameManager():
+            params = [S.var(f"lstm_{n}", shape=s) for n, s in (
+                ("i2h_weight", (4 * hid, 64)), ("h2h_weight", (4 * hid, hid)),
+                ("i2h_bias", (4 * hid,)), ("h2h_bias", (4 * hid,)))]
+            out = S.RNN(S.var("data"), [S.var("lstm_h"), S.var("lstm_c")],
+                        params, state_size=hid, mode="lstm", name="lstm")
+            out = S.Reshape(out, shape=(-1, hid))
+            fc = S.FullyConnected(out, num_hidden=10, name="fc")
+            lab = S.Reshape(S.var("softmax_label"), shape=(-1,))
+            return S.SoftmaxOutput(fc, lab, name="softmax"), \
+                ("data", "lstm_h", "lstm_c"), ("softmax_label",)
+
+    def shapes(t):
+        return [("data", (t, nb, 64)), ("lstm_h", (1, nb, hid)),
+                ("lstm_c", (1, nb, hid))]
+
+    with mx.gpu(0):
+        bm = mx.mod.BucketingModule(sym_gen, default_bucket_key=LSTM_LENS[0],
+                                    context=gpu)
+        bm.bind(shapes(LSTM_LENS[0]),
+                [("softmax_label", (LSTM_LENS[0], nb))])
+        bm.init_params(mx.init.Xavier())
+        # Module's rescale_grad is 1 / T: each step sums the gradients of
+        # nb rows, so the rate is small
+        bm.init_optimizer(optimizer="sgd",
+                          optimizer_params={"learning_rate": LSTM_LR})
+        data = {}
+        for t in LSTM_LENS:
+            x = torch.randn((t, nb, 64), generator=gen)
+            data[t] = (x, x[..., :10].argmax(-1).float())
+        zeros = mx.nd.zeros((1, nb, hid), ctx=gpu)
+        losses = {t: [] for t in LSTM_LENS}
+        for _ in range(LSTM_ROUNDS):
+            for t in LSTM_LENS:
+                x, y = data[t]
+                batch = mx.io.DataBatch(
+                    [mx.nd.array(x, ctx=gpu), zeros, zeros],
+                    [mx.nd.array(y, ctx=gpu)], bucket_key=t,
+                    provide_data=shapes(t),
+                    provide_label=[("softmax_label", (t, nb))])
+                bm.forward(batch, is_train=True)
+                prob = bm.get_outputs()[0]._data.detach()
+                p = prob[torch.arange(t * nb), y.reshape(-1).long()
+                         .to(prob.device)]
+                losses[t].append(float(-torch.log(p.clamp_min(1e-30))
+                                       .mean()))
+                bm.backward()
+                bm.update()
+    mods = bm._buckets
+    shared = all(mods[LSTM_LENS[0]]._exec.arg_dict[n] is
+                 mods[LSTM_LENS[1]]._exec.arg_dict[n]
+                 for n in mods[LSTM_LENS[0]]._param_names)
+    ok = shared and all(v[-1] < v[0] for v in losses.values())
+    return dict(lengths=list(LSTM_LENS), hidden=hid, batch=nb,
+                losses={str(k): v for k, v in losses.items()},
+                shared_parameters=shared, ok=ok)
+
+
+def _program_nodes(program, op):
+    return sum(1 for n in program.graph.nodes
+               if n.op == "call_function" and str(n.target) ==
+               f"mxnet_tpu_torch.{op}.default")
+
+
+def export_resnet_phase(torch, mx, vision, cbr, serving, failures):
+    """Phase 25b: ``resnet50_v1`` bf16 (the seed's weights, as phase 14),
+    hybridized and called once at B=EXPORT_B, exported on the card
+    (``HybridBlock.export``: a ``torch.export`` program with the fused
+    kernel #4 as its custom-op nodes), read back by
+    ``SymbolBlock.imports`` and ``Predictor``: 16 #4 nodes in the
+    program, 16 launches a ``Predictor.forward`` (captured once, then
+    replayed), outputs against the live hybridized block; then 64
+    requests from 8 clients through ``InferenceServer(Predictor)`` (nine
+    waves, as phase 14; one batch bucket, the program's B) with its
+    images/s and latencies beside phase 14's.  Returns (#4's launches,
+    its tensor-core launches) of the served path."""
+    import tempfile
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net(mx.nd.zeros((1, 3, SERVE_IMAGE, SERVE_IMAGE), ctx=gpu))
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    gen = torch.Generator().manual_seed(SEED + 26)
+    x = torch.rand((EXPORT_B, 3, SERVE_IMAGE, SERVE_IMAGE), generator=gen)
+    xb = mx.nd.array(x.bfloat16(), ctx=gpu)
+    live = net(xb)._data.clone()
+    live_ms = time_ms(torch, lambda: net(xb), 5)
+    fn = cbr.fused_matmul_affine_relu
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "resnet50_v1")
+        t = time.perf_counter()
+        sym_file, params_file = net.export(prefix)
+        res["export_s"] = time.perf_counter() - t
+        res["program_bytes"] = os.path.getsize(prefix + "-0000.pt2")
+        res["params_bytes"] = os.path.getsize(params_file)
+        block = mx.gluon.SymbolBlock.imports(sym_file, ["data"],
+                                             params_file, ctx=gpu)
+        res["program_fused_nodes"] = _program_nodes(block._program,
+                                                    "fused_matmul_affine_relu")
+        sb_out = block(xb)._data
+        res["symbol_block_vs_live_rel_norm"] = _rel_norm(torch, sb_out, live)
+        pred = mx.predictor.Predictor(sym_file, params_file, ctx=gpu)
+    per_forward = []
+    for _ in range(3):  # the capture, then replays
+        before = fn.launches
+        out = pred.forward(data=xb)[0]._data
+        torch.cuda.synchronize()
+        per_forward.append(fn.launches - before)
+    res["launches_a_predictor_forward"] = per_forward
+    res["predictor_vs_live_rel_norm"] = _rel_norm(torch, out, live)
+    res["predictor_vs_live_max_abs"] = (out.float() - live.float()).abs() \
+        .max().item()
+    res["predictor_ms"] = time_ms(torch, lambda: pred.forward(data=xb), 5)
+    res["live_block_ms"] = live_ms
+    res["predictor_cache"] = pred.cache_stats()
+    del net, block
+    rng = np.random.RandomState(SEED + 14)
+    images = [rng.rand(3, SERVE_IMAGE, SERVE_IMAGE).astype(np.float32)
+              for _ in range(SERVE_REQUESTS)]
+    config = serving.ServerConfig(
+        max_batch=EXPORT_B, min_batch=EXPORT_B, max_length=SERVE_IMAGE,
+        min_length=SERVE_IMAGE, length_axis=1, batch_window_ms=5.0,
+        queue_capacity=SERVE_REQUESTS)
+    fn.launches = fn.launches_mma = 0  # the main path starts here
+    replies, waves, rate, stats = _serve_waves(
+        serving, pred, config, images, pred.cache_stats)
+    launches, mma = fn.launches, fn.launches_mma  # ... and ends here
+    # each reply against a solo forward of its image through the program
+    # (padded to the program's batch)
+    worst = 0.0
+    for i in range(0, SERVE_REQUESTS, EXPORT_B):
+        ref = pred.forward(data=np.stack(images[i:i + EXPORT_B]))[0]._data
+        ref = ref.float().cpu()
+        for j in range(EXPORT_B):
+            for wave in replies:
+                got = torch.from_numpy(np.asarray(wave[i + j], np.float32))
+                worst = max(worst, _rel_norm(torch, got, ref[j]))
+    ok = res["program_fused_nodes"] == 16 and per_forward == [16] * 3 and \
+        res["predictor_vs_live_rel_norm"] <= EXPORT_TOL and \
+        res["symbol_block_vs_live_rel_norm"] <= EXPORT_TOL and \
+        launches == 16 * stats["batches"] and mma == launches and \
+        worst <= EXPORT_TOL and not any(w["errors"] for w in waves) and \
+        stats["failed"] == 0
+    emit(dict(phase="export_resnet", nvidia_smi=_card(), net="resnet50_v1",
+              dtype="bfloat16", B=EXPORT_B, tol=EXPORT_TOL, **res,
+              served=dict(requests=SERVE_REQUESTS, clients=SERVE_CLIENTS,
+                          waves=waves, images_per_s=rate["requests_per_s"],
+                          p50_ms=rate["p50_ms"], p99_ms=rate["p99_ms"],
+                          after_first_wave=rate, batches=stats["batches"],
+                          fused_launches=launches, worst_rel_norm=worst),
+              phase14=STASH.get("resnet_serve"), ok=ok))
+    if not ok:
+        failures.append(f"25b: {res}, served launches {launches} for "
+                        f"{stats['batches']} batches, worst {worst}")
+    del pred
+    free_card(torch)
+    return launches, mma
+
+
+def export_bert_phase(torch, mx, bert, fa, failures):
+    """Phase 25c: ``bert_base`` (vocab 30522, dropout 0) from the seed:
+    in f32 at B=BERT_SYM_B, T=128, ``bert_to_symbol`` → ``Executor`` and
+    ``export_bert_onnx`` → ``import_model`` → bind, each against
+    ``BERTModel``'s forward (relative norm within BERT_SYM_TOL); then in
+    bf16 at B=64, T=128, hybridized and exported: 12 flash-forward nodes
+    in the program, 12 launches of #1 a ``Predictor.forward``, outputs
+    against the live block.  Each forward's ms.  Returns #1's launches
+    (and its tensor-core launches) of the exported program's forwards."""
+    import tempfile
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    mx.random.seed(SEED)
+    net = bert.bert_base(vocab_size=BERT_VOCAB, dropout=0.0)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    gen = torch.Generator().manual_seed(SEED + 27)
+    b, t = BERT_SYM_B, BERT_T
+    ids = torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                        dtype=torch.int32)
+    tt = torch.randint(0, 2, (b, t), generator=gen, dtype=torch.int32)
+    args = [mx.nd.array(a, ctx=gpu, dtype="int32") for a in (ids, tt)]
+    want = [o._data for o in net(*args)]
+    res = dict(live_f32_ms=time_ms(torch, lambda: net(*args), 3))
+    sym, params = bert.bert_to_symbol(net, b, t)
+    inputs = {"data0": args[0], "data1": args[1]}
+    exe = sym.bind(gpu, args={**params, **inputs}, grad_req="null")
+    outs = exe.forward()
+    res["symbol_rel_norm"] = [_rel_norm(torch, o._data, w)
+                              for o, w in zip(outs, want)]
+    res["symbol_ms"] = time_ms(torch, lambda: exe.forward(), 3)
+    del exe
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bert_base.onnx")
+        t0 = time.perf_counter()
+        bert.export_bert_onnx(net, path, b, t)
+        res["onnx_export_s"] = time.perf_counter() - t0
+        res["onnx_bytes"] = os.path.getsize(path)
+        with mx.gpu(0):
+            isym, iarg, iaux = mx.contrib.onnx.import_model(path)
+    iexe = isym.bind(gpu, args={**iarg, **inputs}, aux_states=iaux,
+                     grad_req="null")
+    iouts = iexe.forward()
+    res["onnx_rel_norm"] = [_rel_norm(torch, o._data, w)
+                            for o, w in zip(iouts, want)]
+    res["onnx_ms"] = time_ms(torch, lambda: iexe.forward(), 3)
+    del iexe, iarg, iaux, params, outs, iouts
+    free_card(torch)
+    # the bf16 export at bench.py's BERT shape
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    ids = torch.randint(0, BERT_VOCAB, (BERT_B, t), generator=gen,
+                        dtype=torch.int32)
+    tt = torch.zeros((BERT_B, t), dtype=torch.int32)
+    args = [mx.nd.array(a, ctx=gpu, dtype="int32") for a in (ids, tt)]
+    live = [o._data.clone() for o in net(*args)]
+    res["live_bf16_ms"] = time_ms(torch, lambda: net(*args), 5)
+    counters = _counters(fa)
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "bert_base")
+        t0 = time.perf_counter()
+        sym_file, params_file = net.export(prefix)
+        res["export_s"] = time.perf_counter() - t0
+        pred = mx.predictor.Predictor(sym_file, params_file, ctx=gpu)
+        res["program_flash_nodes"] = _program_nodes(pred._block._program,
+                                                    "flash_attention_fwd")
+    per_forward = []
+    _zero_counts(fa)  # the main path starts here
+    for _ in range(3):
+        before = counters[0].launches
+        outs = pred.forward(data0=args[0], data1=args[1])
+        torch.cuda.synchronize()
+        per_forward.append(counters[0].launches - before)
+    launches = counters[0].launches  # ... and ends here
+    mma = counters[0].launches_mma
+    other = [c.launches for c in counters[1:]]
+    res["launches_a_predictor_forward"] = per_forward
+    res["predictor_rel_norm"] = [_rel_norm(torch, o._data, w)
+                                 for o, w in zip(outs, live)]
+    res["predictor_ms"] = time_ms(
+        torch, lambda: pred.forward(data0=args[0], data1=args[1]), 5)
+    ok = max(res["symbol_rel_norm"]) <= BERT_SYM_TOL and \
+        max(res["onnx_rel_norm"]) <= BERT_SYM_TOL and \
+        res["program_flash_nodes"] == 12 and per_forward == [12] * 3 and \
+        max(res["predictor_rel_norm"]) <= EXPORT_TOL and mma == launches \
+        and other == [0, 0]
+    emit(dict(phase="export_bert", nvidia_smi=_card(), net="bert_base",
+              f32_B=b, bf16_B=BERT_B, T=t, tol=dict(
+                  symbol=BERT_SYM_TOL, program=EXPORT_TOL), **res,
+              flash_launches=launches, ok=ok))
+    if not ok:
+        failures.append(f"25c: {res}, backward launches {other}")
+    del net, pred
+    free_card(torch)
+    return launches, mma
+
+
+def checkpoint_quant_phase(torch, mx, failures):
+    """Phase 25d: 25a's trained symbol through ``mx.model.
+    save_checkpoint`` → ``load_checkpoint`` → ``Predictor`` (the nnvm
+    replay route, one CUDA graph a signature) at f32 B=SYM_B, against the
+    module's own forward, with its ms a batch; then ``quantize_model``
+    (naive calibration, two batches) of the same symbol: its int8 graph
+    on the card at B=SYM_B (ms), and at B=QUANT_CHECK_B against the same
+    graph on the CPU: each int32 product of the card's graph equal to
+    the CPU's op on the same int8 operands (the card's, read by a
+    monitor), and the outputs within QUANT_TOL of the largest (each
+    layer's float side — dequantize, BatchNorm, requantize — rounds a
+    little differently on the two devices, so later layers see a few
+    int8 values one step apart, as in phase 21b)."""
+    import tempfile
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    mod, train_sym = STASH.pop("sym_module")
+    arg, aux = mod.get_params()
+    gen = torch.Generator().manual_seed(SEED + 28)
+    x = torch.rand((SYM_B, 3, SYM_IMAGE, SYM_IMAGE), generator=gen)
+    xa = mx.nd.array(x, ctx=gpu)
+    mod.forward(mx.io.DataBatch([xa], [mx.nd.zeros((SYM_B,), ctx=gpu)]),
+                is_train=False)
+    want = mod.get_outputs()[0]._data.clone()
+    del mod
+    free_card(torch)
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "resnet50_sym")
+        mx.model.save_checkpoint(prefix, SYM_STEPS, train_sym, arg, aux)
+        sym, larg, laux = mx.model.load_checkpoint(prefix, SYM_STEPS)
+        pred = mx.predictor.Predictor(
+            prefix + "-symbol.json", f"{prefix}-{SYM_STEPS:04d}.params",
+            ctx=gpu, input_names=["data"])
+    got = pred.forward(data=xa)[0]._data
+    res["replay_vs_module_rel_norm"] = _rel_norm(torch, got, want)
+    res["predictor_ms"] = time_ms(torch, lambda: pred.forward(data=xa), 5)
+    res["predictor_cache"] = pred.cache_stats()
+    del pred
+    # the symbol quantizer on the inference symbol (no label head)
+    qsrc, names = resnet50_symbol(mx, label=False)
+    calib = [mx.nd.array(torch.rand((SYM_B, 3, SYM_IMAGE, SYM_IMAGE), generator=gen),
+                         ctx=gpu) for _ in range(2)]
+    t0 = time.perf_counter()
+    qsym, qarg, qaux = mx.contrib.quantization.quantize_model(
+        qsrc, larg, laux, ctx=gpu, calib_mode="naive", calib_data=calib)
+    res["quantize_s"] = time.perf_counter() - t0
+    res["quantized_nodes"] = sum(
+        1 for n in qsym._topo() if n.op in ("quantized_conv",
+                                            "quantized_fully_connected"))
+    exe = qsym.simple_bind(gpu, data=(SYM_B, 3, SYM_IMAGE, SYM_IMAGE), grad_req="null")
+    exe.copy_params_from(qarg, qaux)
+    exe.forward(data=xa)
+    res["int8_graph_ms"] = time_ms(torch, lambda: exe.forward(), 3)
+    del exe
+    free_card(torch)
+    xc = x[:QUANT_CHECK_B]
+    outs, seen = [], {}
+    for ctx in (gpu, mx.cpu()):
+        e = qsym.simple_bind(ctx, data=tuple(xc.shape), grad_req="null")
+        e.copy_params_from(qarg, qaux)
+        if ctx is gpu:  # the quantized ops' operands and products
+            e.set_monitor_callback(
+                lambda n, a: seen.__setitem__(n, a._data.cpu())
+                if n.startswith("quantized_") else None, monitor_all=True)
+        outs.append(e.forward(data=mx.nd.array(xc, ctx=ctx))[0]._data.cpu())
+        del e
+    card_out, cpu_out = outs
+    from mxnet_tpu_torch.ops import registry
+
+    equal, products = True, 0
+    for node in qsym._topo():
+        if not node.name.startswith("quantized_") or node.is_var():
+            continue
+        ins = [mx.nd.array(seen[f"{node.name}_input{i}"], ctx=mx.cpu())
+               for i in range(len(node.inputs))]
+        attrs = {k: v for k, v in node.attrs.items()
+                 if not k.startswith("__")}
+        cpu_q = registry.get_op(node.op)(*ins, **attrs)[0]._data
+        card_q = seen[f"{node.name}_output0"]
+        products += 1
+        equal = equal and card_q.dtype == torch.int32 and \
+            torch.equal(cpu_q, card_q)
+    res["int32_products"] = products
+    res["int32_equal"] = equal
+    scale = cpu_out.abs().max().item()
+    res["card_vs_cpu_max_err_share"] = \
+        (card_out - cpu_out).abs().max().item() / scale
+    ok = res["replay_vs_module_rel_norm"] <= SYM_TOL and \
+        res["predictor_cache"]["signatures"] == 1 and \
+        res["quantized_nodes"] == 54 and res["int32_equal"] and \
+        res["int32_products"] == 54 and \
+        res["card_vs_cpu_max_err_share"] <= QUANT_TOL
+    emit(dict(phase="checkpoint_quant", nvidia_smi=_card(),
+              net="resnet50_v1 (mx.sym)", B=SYM_B, check_B=QUANT_CHECK_B,
+              tol=dict(replay=SYM_TOL, int8=QUANT_TOL), **res, ok=ok))
+    if not ok:
+        failures.append(f"25d: {res}")
+    free_card(torch)
+
+
 def main():
     import torch
 
@@ -7671,6 +8250,17 @@ def main():
     sparse_linear_phase(torch, mx, failures)
     fm_stores_phase(torch, mx, fm, parallel, failures)
     profile_phase(torch, mx, fm, vision, failures)
+    # slice 17: symbols and export
+    update_launches += symbol_module_phase(torch, mx, vision, mt, failures)
+    exp_fused = export_resnet_phase(torch, mx, vision, cbr, serving,
+                                    failures)
+    fused_launches += exp_fused[0]
+    fused_mma += exp_fused[1]
+    exp_flash = export_bert_phase(torch, mx, bert, fa, failures)
+    checkpoint_quant_phase(torch, mx, failures)
+    if 0 in (exp_fused[0], exp_flash[0]):
+        failures.append(f"an exported program launched no kernel: #4 "
+                        f"{exp_fused}, #1 {exp_flash}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -7690,10 +8280,11 @@ def main():
     moe_tr_mma = [a + b for a, b in zip(moe_train[1], moe_ep[1])]
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
-        pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0]
+        pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0] + \
+        exp_flash[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
         mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
-        moe_infer[1] + moe_tr_mma[0]
+        moe_infer[1] + moe_tr_mma[0] + exp_flash[1]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
         pp_launches[1] + gm_launches[1] + moe_tr[1]
@@ -7733,6 +8324,7 @@ def main():
          "launches_graph_mesh": gm_launches[0],
          "launches_moe": moe_infer[0],
          "launches_moe_train": moe_tr[0],
+         "launches_exported": exp_flash[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -7779,6 +8371,7 @@ def main():
          "launches_served": served, "launches_eval": eval_launches,
          "launches_detection": det_launches,
          "launches_detection_by_net": {k: v[0] for k, v in det.items()},
+         "launches_exported": exp_fused[0],
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],

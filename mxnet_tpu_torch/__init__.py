@@ -90,6 +90,13 @@ from . import image
 from . import io
 from . import data
 from . import parallel
+from . import symbol
+from . import symbol as sym
+from . import executor
+from . import module
+from . import module as mod
+from . import model
+from . import predictor
 from . import contrib
 from . import rnn
 

@@ -179,3 +179,16 @@ def check(lib, err: int, what: str):
     if err:
         msg = lib.mxt_cuda_error_string(err).decode()
         raise MXNetError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_trace(name, *tensors):
+    """Raise ``MXNetError`` naming "Left out of slice 17" when a tensor
+    is a fake one of a trace (``torch.export``): the kernel ``name`` is
+    launched through ``ctypes``, not through an op a program can hold, so
+    a block that reaches it does not export."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise MXNetError(
+            f"exporting a block that reaches the {name} kernel is not "
+            "ported (ROADMAP.md, \"Left out of slice 17\")")

@@ -8,14 +8,11 @@ from .base import MXNetError
 
 _6 = "Left out of slice 6"
 _7 = "Left out of slice 7"
-_8F = "Queue 1 item 8f, symbols and export"
 _8G = "Queue 1 item 8g"
 _9 = "Queue 1 item 9, observability and tooling"
 _NC = "Not carried over"
 
 MX = {
-    **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
-                     "sym", "symbol"), _8F),
     **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
                      "operator", "rtc"), _8G),
     **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
@@ -23,8 +20,6 @@ MX = {
 }
 
 ND = {"Custom": _8G}
-
-CONTRIB = {"onnx": _8F, "symbol": _8F}
 
 # the reference's bulk segment compiler and async executor: a CUDA stream
 # is already asynchronous (``engine.py``)
@@ -39,7 +34,7 @@ ENGINE = {
 SERVING = dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
                          "prometheus_text"), _6)
 
-AUTOGRAD = {"Node": _NC, "get_symbol": _8F}
+AUTOGRAD = {"Node": _NC}
 
 
 def refuse(table, module):

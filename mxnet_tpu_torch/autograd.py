@@ -20,9 +20,10 @@ reference.
 backward through it raises ``MXNetError`` and leaves the reached
 ``"write"`` gradients zero.  Higher-order gradients
 (``create_graph=True``) are left out of slice 9 (ROADMAP.md): they
-raise.  The reference's tape node (``Node``) has no counterpart here and
-``get_symbol`` waits on the symbol API (item 8f): reading either raises
-``MXNetError`` naming its ROADMAP list.
+raise.  The reference's tape node (``Node``) has no counterpart here:
+reading it raises ``MXNetError`` naming its ROADMAP list.
+``get_symbol`` raises ``NotImplementedError`` as the reference's stub
+does.
 """
 from __future__ import annotations
 
@@ -358,5 +359,13 @@ class Function:
 
 
 from . import _left_out as _lo  # noqa: E402
+
+def get_symbol(x):
+    """The reference's compatibility stub: raises ``NotImplementedError``
+    (graph capture is ``HybridBlock.export``)."""
+    raise NotImplementedError(
+        "autograd.get_symbol (legacy symbolic extraction) is not supported; "
+        "use HybridBlock.export for graph capture")
+
 
 __getattr__ = _lo.refuse(_lo.AUTOGRAD, "mxnet_tpu_torch.autograd")

@@ -463,9 +463,13 @@ class HybridBlock(Block):
         self(x, *args)
 
     def export(self, path, epoch=0):
-        """Symbol JSON + params for serving: Queue 1 item 8f."""
-        raise MXNetError("HybridBlock.export (symbols and export) is not "
-                         "ported yet (ROADMAP.md, Queue 1 item 8f)")
+        """Write ``path-symbol.json``, ``path-%04d.params`` and the
+        ``torch.export`` program ``path-%04d.pt2`` of the inference
+        forward at the first cached signature (``gluon/symbol_block.py``);
+        returns the symbol and params file names."""
+        from . import symbol_block
+
+        return symbol_block.export_block(self, path, epoch)
 
     def cache_stats(self):
         """The ``CachedOp``'s counters (all 0 before the first call)."""
@@ -509,13 +513,34 @@ class HybridBlock(Block):
 
 
 class SymbolBlock(HybridBlock):
-    """A block built from an exported symbol graph: Queue 1 item 8f."""
+    """A block over a symbol graph (reference ``gluon.SymbolBlock``):
+    ``SymbolBlock(outputs, inputs, params)`` over a ``Symbol``, whose
+    other arguments become the block's parameters, or
+    ``SymbolBlock.imports`` of an export or an nnvm graph
+    (``gluon/symbol_block.py``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("gluon.SymbolBlock (symbols and export) is not "
-                         "ported yet (ROADMAP.md, Queue 1 item 8f)")
+    def __init__(self, outputs=None, inputs=None, params=None, prefix=None):
+        super().__init__(prefix=prefix,
+                         params=None if outputs is not None else params)
+        self._fn = None
+        if outputs is not None:
+            from . import symbol_block
+
+            self._fn = symbol_block.symbol_block_fn(self, outputs, inputs,
+                                                    params)
 
     @staticmethod
-    def imports(*args, **kwargs):
-        raise MXNetError("gluon.SymbolBlock.imports is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 8f)")
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """The block of an exported program or an nnvm symbol JSON, its
+        parameters read from ``param_file`` onto ``ctx`` (default: the
+        current context)."""
+        from . import symbol_block
+
+        return symbol_block.import_block(symbol_file, input_names,
+                                         param_file, ctx)
+
+    def hybrid_forward(self, F, *args, **params):
+        if self._fn is None:
+            raise MXNetError(
+                "SymbolBlock not bound; construct via SymbolBlock.imports")
+        return self._fn(F, args, params)

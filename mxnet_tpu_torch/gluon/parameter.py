@@ -216,8 +216,14 @@ class Parameter:
         return self._stype
 
     def var(self):
-        raise MXNetError("Parameter.var() (symbols) is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 8f)")
+        """The parameter as a symbol variable (MXNet's ``Parameter.var``:
+        its name, shape, dtype and multipliers; the JAX package's raises
+        ``NotImplementedError``)."""
+        from .. import symbol
+
+        shape = self.shape if _shape_known(self.shape) else None
+        return symbol.var(self.name, shape=shape, dtype=self.dtype,
+                          lr_mult=self.lr_mult, wd_mult=self.wd_mult)
 
     def list_ctx(self):
         if self._data is None and self._deferred_init is not None:

@@ -11,12 +11,13 @@ Attention: without ``valid_length`` every layer's attention is unmasked
 and runs the flash kernels (``ops/attention.py``); with it, the
 (B, 1, 1, T) padding mask sends every layer to the plain masked route.
 
-``bert_to_symbol`` and ``export_bert_onnx`` need the symbol API, which
-is not ported (ROADMAP.md, Queue 1, "Left out of slice 8"); they raise.
+``bert_to_symbol`` rebuilds the inference forward as a ``Symbol`` graph
+(dense attention), and ``export_bert_onnx`` writes it as ONNX.
 """
 from __future__ import annotations
 
-from ..base import MXNetError
+import numpy as np
+
 from ..gluon.block import HybridBlock
 from ..gluon import nn
 from .transformer import MultiHeadAttention
@@ -192,18 +193,116 @@ def bert_tiny(**kwargs):
     return _make("bert_tiny", **kwargs)
 
 
-def _left_out(what):
-    return MXNetError(f"{what} needs the symbol API, which is not ported "
-                      "yet (ROADMAP.md, Queue 1, \"Left out of slice 8\")")
-
-
 def bert_to_symbol(net, batch, seq_len):
-    """The reference rebuilds a BERTModel's inference forward as a symbol
-    graph; not ported (raises ``MXNetError``)."""
-    raise _left_out("bert_to_symbol")
+    """Rebuild a trained :class:`BERTModel`'s INFERENCE forward as an
+    ``Symbol`` graph whose variable names are the net's own
+    parameter names, so ``net.collect_params()`` binds it directly —
+    the bridge from Gluon to the op-graph consumers (``Executor``, ONNX
+    via :func:`export_bert_onnx`; GluonNLP exported its BERT through the
+    symbol API the same way).  Attention is a dense ``batch_dot`` graph,
+    as in the reference.
+
+    Matches ``BERTModel.hybrid_forward`` with ``token_types`` given and
+    ``valid_length=None`` (full attention), dropout=identity
+    (inference).  Returns ``(symbol_group, param_dict)`` where the
+    group outputs are (sequence, pooled, nsp_logits, mlm_logits) — the
+    heads present on ``net``.
+    """
+    from .. import symbol as S
+
+    params = net.collect_params()
+    pname = {}
+    for name, p in params.items():
+        pname[p] = name
+
+    def var(p):
+        return S.var(pname[p])
+
+    enc = net.encoder
+    units = enc._units
+    cells = list(enc.transformer_cells)
+    heads = cells[0].attention._num_heads
+    d = units // heads
+
+    ids = S.var("data0")
+    seg = S.var("data1")
+    x = S.Embedding(ids, var(net.word_embed.weight),
+                    input_dim=net.word_embed._input_dim,
+                    output_dim=units, name="word_embed")
+    x = S.broadcast_add(
+        x, S.Embedding(seg, var(net.token_type_embed.weight),
+                       input_dim=net.token_type_embed._input_dim,
+                       output_dim=units, name="seg_embed"),
+        name="embed_sum")
+    pos = S.slice_axis(var(enc.position_weight), axis=0, begin=0,
+                       end=seq_len, name="pos_slice")
+    x = S.broadcast_add(x, S.expand_dims(pos, axis=0), name="pos_add")
+    x = S.LayerNorm(x, var(enc.layer_norm.gamma),
+                    var(enc.layer_norm.beta), name="embed_ln")
+
+    def dense(t, layer, tag):
+        return S.FullyConnected(t, var(layer.weight), var(layer.bias),
+                                num_hidden=layer.weight.shape[0],
+                                flatten=False, name=tag)
+
+    for i, cell in enumerate(cells):
+        att = cell.attention
+
+        def split(t, tag):
+            t = S.Reshape(t, shape=(batch, seq_len, heads, d),
+                          name=f"{tag}_split")
+            return S.transpose(t, axes=(0, 2, 1, 3), name=f"{tag}_bhtd")
+
+        q = split(dense(x, att.proj_query, f"l{i}_q"), f"l{i}_qh")
+        k = split(dense(x, att.proj_key, f"l{i}_k"), f"l{i}_kh")
+        v = split(dense(x, att.proj_value, f"l{i}_v"), f"l{i}_vh")
+        kt = S.transpose(k, axes=(0, 1, 3, 2), name=f"l{i}_kT")
+        scores = S.batch_dot(q, kt, name=f"l{i}_scores") / float(
+            np.sqrt(d))
+        prob = S.softmax(scores, axis=-1, name=f"l{i}_att")
+        ctx = S.batch_dot(prob, v, name=f"l{i}_ctx")
+        ctx = S.transpose(ctx, axes=(0, 2, 1, 3), name=f"l{i}_bthd")
+        ctx = S.Reshape(ctx, shape=(batch, seq_len, units),
+                        name=f"l{i}_merge")
+        proj = dense(ctx, att.proj_out, f"l{i}_attout")
+        x = S.LayerNorm(S.broadcast_add(x, proj, name=f"l{i}_res1"),
+                        var(cell.layer_norm_att.gamma),
+                        var(cell.layer_norm_att.beta), name=f"l{i}_ln1")
+        h = S.LeakyReLU(dense(x, cell.ffn_1, f"l{i}_ffn1"),
+                        act_type="gelu", name=f"l{i}_gelu")
+        h = dense(h, cell.ffn_2, f"l{i}_ffn2")
+        x = S.LayerNorm(S.broadcast_add(x, h, name=f"l{i}_res2"),
+                        var(cell.layer_norm_ffn.gamma),
+                        var(cell.layer_norm_ffn.beta), name=f"l{i}_ln2")
+
+    outs = [x]
+    if net._use_pooler:
+        first = S.Reshape(S.slice_axis(x, axis=1, begin=0, end=1,
+                                       name="cls_slice"),
+                          shape=(batch, units), name="cls_tok")
+        pooled = S.tanh(dense(first, net.pooler, "pooler_fc"),
+                        name="pooled")
+        outs.append(pooled)
+        if net._use_classifier:
+            outs.append(dense(pooled, net.classifier, "nsp"))
+    if net._use_decoder:
+        dec = list(net.decoder)
+        hme = dense(x, dec[0], "mlm_fc")
+        hme = S.LeakyReLU(hme, act_type="gelu", name="mlm_gelu")
+        hme = S.LayerNorm(hme, var(dec[2].gamma), var(dec[2].beta),
+                          name="mlm_ln")
+        outs.append(dense(hme, dec[3], "mlm_logits"))
+
+    pdict = {name: p.data() for name, p in params.items()}
+    return S.Group(outs), pdict
 
 
 def export_bert_onnx(net, path, batch, seq_len):
-    """The reference exports a BERTModel to ONNX through
-    :func:`bert_to_symbol`; not ported (raises ``MXNetError``)."""
-    raise _left_out("export_bert_onnx")
+    """Export a trained BERTModel to ONNX (opset 13) via
+    :func:`bert_to_symbol` and ``contrib.onnx.export_model``."""
+    from ..contrib.onnx import export_model
+
+    sym, params = bert_to_symbol(net, batch, seq_len)
+    return export_model(
+        sym, params, [(batch, seq_len), (batch, seq_len)],
+        input_types=[np.int32, np.int32], onnx_file_path=path)

@@ -29,6 +29,7 @@ from ..ops.attention import (div_sqrt_dim,  # noqa: F401
                              interleaved_matmul_selfatt_qk,
                              interleaved_matmul_selfatt_valatt)
 from ..ops.registry import apply_op as _apply_op
+from ..ops.registry import defop as _defop
 from .. import random  # noqa: F401
 from ..random import uniform as random_uniform  # noqa: F401
 from ..random import normal as random_normal  # noqa: F401
@@ -66,6 +67,7 @@ def _full(shape, value, ctx, dtype):
                               device=(ctx or current_context()).device))
 
 
+@_defop()
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None,
            **kwargs):
     """Reference ``arange``: evenly spaced values in ``[start, stop)``,

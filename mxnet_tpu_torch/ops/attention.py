@@ -34,7 +34,7 @@ import math
 import torch
 
 from .flash_attention import flash_attention_raw
-from .registry import apply_op
+from .registry import apply_op, register
 
 __all__ = ["sdpa_raw", "dot_product_attention", "div_sqrt_dim",
            "interleaved_matmul_selfatt_qk",
@@ -142,3 +142,8 @@ def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
 
     return apply_op(f, queries_keys_values, attention,
                     name="interleaved_selfatt_valatt")
+
+for _name in ("div_sqrt_dim", "interleaved_matmul_selfatt_qk",
+              "interleaved_matmul_selfatt_valatt"):
+    register(_name, globals()[_name], ("_contrib_" + _name,))
+register("dot_product_attention", dot_product_attention)

@@ -159,6 +159,7 @@ def nms_keep(boxes, valid, cls, overlap_thresh):
     ``nms_keep.launches`` counts the launches); CPU tensors take the
     plain version."""
     given = (boxes, valid) if cls is None else (boxes, valid, cls)
+    _kernels.refuse_trace("nms_keep", *given)
     if all(t.device.type == "cpu" for t in given):
         return _nms_keep_plain(boxes, valid, cls, overlap_thresh)
     g, n = valid.shape

@@ -11,7 +11,11 @@ that per-channel affine to run ``Convolution → BatchNorm(use_global_stats)
 Here every CUDA tensor goes to ``csrc/fused_matmul_affine_relu.cu`` (any
 M, N, K), and only a CPU tensor takes the plain PyTorch version
 ``_fused_matmul_affine_relu_plain``; there is no fallback from one to the
-other and no switch between them.
+other and no switch between them.  The two are the CUDA and CPU
+implementations of one ``torch.library`` custom op
+(``mxnet_tpu_torch::fused_matmul_affine_relu``, with a fake
+implementation for tracing), so the dispatcher chooses by device and an
+exported program holds the op as a node.
 
 Operand dtypes: bf16 x and w give the exact products of the bf16 values,
 summed in f32 — what the Pallas kernel computes — on the tensor cores
@@ -72,13 +76,29 @@ def fused_matmul_affine_relu(x, w, scale, bias):
     """relu(scale·(x @ w) + bias): x (M, K) and w (K, N) in bf16, f16 or
     f32, scale and bias (N,) f32 → (M, N) in x's dtype.
 
-    A CUDA tensor launches the kernel of its dtype's design: bf16 and f16
-    the tensor cores' (``_mma``), f32 the FMA pipes' (``_fma``);
-    ``fused_matmul_affine_relu.launches`` counts every launch and
-    ``.launches_mma`` the tensor-core design's.  CPU tensors take the
-    plain version."""
-    if all(t.device.type == "cpu" for t in (x, w, scale, bias)):
-        return _fused_matmul_affine_relu_plain(x, w, scale, bias)
+    One call of the custom op ``torch.ops.mxnet_tpu_torch.
+    fused_matmul_affine_relu`` on every route, eager or traced by
+    ``torch.export`` (``HybridBlock.export`` keeps it as a node of the
+    program): the dispatcher sends CUDA tensors to the kernel and CPU
+    tensors to the plain version.  On CUDA tensors it launches the kernel
+    of their dtype's design: bf16 and f16 the tensor cores' (``_mma``),
+    f32 the FMA pipes' (``_fma``); ``fused_matmul_affine_relu.launches``
+    counts every launch and ``.launches_mma`` the tensor-core design's."""
+    return _fmar_op(x, w, scale, bias)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::fused_matmul_affine_relu",
+                         mutates_args=(), device_types="cpu")
+def _fmar_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return _fused_matmul_affine_relu_plain(x, w, scale, bias)
+
+
+@_fmar_op.register_kernel("cuda")
+def _fmar_cuda(x, w, scale, bias):
+    """The op's CUDA implementation: the kernel, through its C entry
+    point on the current stream."""
     _check_kernel_operands(x, w, scale, bias)
     design = "fma" if x.dtype == torch.float32 else "mma"
     (m, k), n = x.shape, w.shape[1]
@@ -94,6 +114,12 @@ def fused_matmul_affine_relu(x, w, scale, bias):
     if design == "mma":
         cuda_graph.count(fused_matmul_affine_relu, "launches_mma")
     return out
+
+
+@_fmar_op.register_fake
+def _fmar_fake(x, w, scale, bias):
+    """The op's output under a trace: (M, N) in x's dtype."""
+    return x.new_empty((x.shape[0], w.shape[1]))
 
 
 fused_matmul_affine_relu.launches = 0

@@ -51,7 +51,7 @@ def _make_unary(name, tf, aliases=()):
 
     fn.__name__ = name
     fn.__doc__ = f"Elementwise ``{name}`` (one torch call)."
-    _export(fn, name, aliases)
+    _export(fn, name, aliases, no_grad=name in _NO_GRAD)
 
 
 def _scalar(c, like):
@@ -85,7 +85,7 @@ def _make_binary(name, tf, aliases=()):
     fn.__name__ = name
     fn.__doc__ = (f"Elementwise/broadcast ``{name}`` (numpy broadcasting; "
                   "the broadcast_* aliases are the same op).")
-    _export(fn, name, aliases)
+    _export(fn, name, aliases, no_grad=name in _NO_GRAD)
 
 
 def _cbrt(x):

@@ -9,7 +9,12 @@ kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
 (any Tq, Tk; instances at D = 16/32/64/128), and only a CPU tensor takes
 the plain PyTorch versions ``_fa_forward_plain`` and
 ``_fa_backward_plain``.  There is no fallback from one to the other and
-no switch between them.
+no switch between them.  The forward's two are the CUDA and CPU
+implementations of one ``torch.library`` custom op
+(``mxnet_tpu_torch::flash_attention_fwd``, with a fake implementation for
+tracing), so the dispatcher chooses by device and an exported program
+holds the op as a node; the backward kernels stay ``ctypes`` launches
+(training is not exported).
 
 Any head dim up to 128 runs: the wrappers zero-pad D up to the next
 instance (``_padded_head_dim``) on every device and slice O, dQ, dK and
@@ -214,17 +219,33 @@ def _count(fn, design):
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Attention forward over (B, H, T, D) tensors → (O, lse).
 
-    A CUDA tensor launches the kernel of its dtype's design (``_design``;
-    ``flash_attention_fwd.launches`` counts the launches); a CPU tensor
+    One call of the custom op ``torch.ops.mxnet_tpu_torch.
+    flash_attention_fwd`` on every route, eager or traced by
+    ``torch.export`` (an exported program holds it as a node): a CUDA
+    tensor launches the kernel of its dtype's design (``_design``;
+    ``flash_attention_fwd.launches`` counts the launches), a CPU tensor
     takes ``_fa_forward_plain``.  D is zero-padded to its instance first
     and O sliced back."""
     scale = _scale(q, scale)
     d0 = q.shape[-1]
     q, k, v = _pad_head(q, k, v)
-    if q.device.type == "cpu" and k.device.type == "cpu" and \
-            v.device.type == "cpu":
-        out, lse = _fa_forward_plain(q, k, v, causal, scale)
-        return out[..., :d0], lse
+    out, lse = _fa_fwd_op(q, k, v, bool(causal), scale)
+    return out[..., :d0], lse
+
+
+@torch.library.custom_op("mxnet_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _fa_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The op's CPU implementation: the plain version."""
+    return _fa_forward_plain(q, k, v, causal, scale)
+
+
+@_fa_fwd_op.register_kernel("cuda")
+def _fa_fwd_cuda(q, k, v, causal, scale):
+    """The op's CUDA implementation: the kernel of the dtype's design,
+    through its C entry point on the current stream."""
     _check_kernel_operands(q, k, v)
     design = _design(q.dtype)
     if design == "mma":
@@ -239,10 +260,17 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         err = getattr(lib, f"mxt_flash_attention_fwd_{design}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b * h, tq, tk, d, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), scale, stream)
+            int(causal), scale, stream)
     _kernels.check(lib, err, f"flash_attention_fwd ({design}) launch")
     _count(flash_attention_fwd, design)
-    return out[..., :d0], lse
+    return out, lse
+
+
+@_fa_fwd_op.register_fake
+def _fa_fwd_fake(q, k, v, causal, scale):
+    """The op's outputs under a trace: O like q, lse (B, H, Tq) f32."""
+    return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                            dtype=torch.float32)
 
 
 flash_attention_fwd.launches = 0
@@ -258,6 +286,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
     (``flash_attention_bwd_dkv``); a CPU tensor takes
     ``_fa_backward_plain``.  D is zero-padded to its instance first and
     dq, dk and dv sliced back."""
+    _kernels.refuse_trace("flash_attention_bwd", q, k, v, o, do, lse)
     scale = _scale(q, scale)
     d0 = q.shape[-1]
     q, k, v, o, do = _pad_head(q, k, v, o, do)

@@ -237,6 +237,7 @@ def multi_tensor_update(optimizer, items):
     items = list(items)
     if not items:
         return
+    _kernels.refuse_trace("multi_tensor_update", *(it.w for it in items))
     if all(it.w.device.type == "cpu" for it in items):
         _update_plain(optimizer, items)
         return

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as tnf
 
 from ..base import MXNetError
-from .registry import apply_op
+from .registry import apply_op, register
 
 __all__ = ["activation", "leaky_relu", "hard_sigmoid", "fully_connected",
            "convolution", "deconvolution", "upsampling", "pooling",
@@ -865,3 +865,18 @@ Dropout = dropout
 Embedding = embedding
 Flatten = flatten
 CTCLoss = ctc_loss
+
+for _name, _alias in (
+        ("activation", "Activation"), ("batch_norm", "BatchNorm"),
+        ("ctc_loss", "CTCLoss"), ("convolution", "Convolution"),
+        ("deconvolution", "Deconvolution"), ("dropout", "Dropout"),
+        ("embedding", "Embedding"), ("flatten", "Flatten"),
+        ("fully_connected", "FullyConnected"), ("group_norm", "GroupNorm"),
+        ("instance_norm", "InstanceNorm"),
+        ("l2_normalization", "L2Normalization"), ("layer_norm", "LayerNorm"),
+        ("leaky_relu", "LeakyReLU"), ("pooling", "Pooling"),
+        ("upsampling", "UpSampling")):
+    register(_name, globals()[_name], (_alias,))
+for _name in ("hard_sigmoid", "log_softmax", "softmax",
+              "softmax_cross_entropy"):
+    register(_name, globals()[_name])

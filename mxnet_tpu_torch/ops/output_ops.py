@@ -125,12 +125,13 @@ logistic_regression_output = _regression_output(
 mae_regression_output = _regression_output(
     lambda d: d, lambda o, lab: torch.sign(o - lab), "MAERegressionOutput")
 
-_export(linear_regression_output, "linear_regression_output",
-        ("LinearRegressionOutput",))
-_export(logistic_regression_output, "logistic_regression_output",
-        ("LogisticRegressionOutput",))
-_export(mae_regression_output, "mae_regression_output",
-        ("MAERegressionOutput",))
+# registered as the reference registers them: under their operator names
+# (with themselves as the alias); the snake-case names are module names
+for _op in (linear_regression_output, logistic_regression_output,
+            mae_regression_output):
+    _export(_op, _op.__name__, (_op.__name__,))
+__all__ += ["linear_regression_output", "logistic_regression_output",
+            "mae_regression_output"]
 
 
 class _MakeLoss(torch.autograd.Function):
@@ -222,7 +223,8 @@ def _scalar_op(opname, fn):
 
 
 for _name, _fn in _SCALAR_OPS.items():
-    _export(_scalar_op(_name, _fn), _name)
+    _export(_scalar_op(_name, _fn), _name,
+            no_grad=_name in _NO_GRAD_SCALAR)
 
 
 def _zeros(shape=(), dtype="float32", **kwargs):

@@ -294,7 +294,8 @@ def quantized_pooling(data, min_data, max_data, kernel=None,
     return q, min_data, max_data
 
 
-_export(quantized_pooling, aliases=("_contrib_quantized_pooling",))
+_export(quantized_pooling, aliases=("_contrib_quantized_pooling",),
+        no_grad=True)
 
 
 def quantized_flatten(data, min_data, max_data, **kwargs):

@@ -73,18 +73,25 @@ def _run_direction(x, carry, i2h_w, i2h_b, h2h_w, h2h_b, mode, reverse):
     return carry, torch.stack(ys)
 
 
-def rnn(data, states, params, mode="lstm", state_size=None, num_layers=1,
+def rnn(data, *arrays, mode="lstm", state_size=None, num_layers=1,
         bidirectional=False, p=0.0, **kwargs):
     """Fused multi-layer RNN (reference fused ``RNN`` op).
 
-    ``data``: (T, N, C); ``states``: list of (L·D, N, H) arrays (h, and c
-    for lstm); ``params``: flat list, per layer and direction,
-    ``[i2h_w, h2h_w, i2h_b, h2h_b]``.  Returns (output (T, N, H·D),
-    *out_states)."""
+    ``data``: (T, N, C), then ``states, params``: a list of (L·D, N, H)
+    arrays (h, and c for lstm) and a flat list, per layer and direction,
+    of ``[i2h_w, h2h_w, i2h_b, h2h_b]``.  The two lists may also come
+    flattened into one run of arrays, states first — how a symbol graph's
+    ``RNN`` node passes them (the reference's symbol ``RNN`` node cannot
+    run: its executor passes the flattened arrays to the two-list
+    signature).  Returns (output (T, N, H·D), *out_states)."""
     if mode not in _GATES:
         raise MXNetError(f"unknown RNN mode {mode!r}")
     d_count = 2 if bidirectional else 1
     n_states = 2 if mode == "lstm" else 1
+    if len(arrays) == 2 and isinstance(arrays[0], (list, tuple)):
+        states, params = arrays
+    else:
+        states, params = arrays[:n_states], arrays[n_states:]
 
     def f(x, *flat):
         from .. import autograd as ag

@@ -530,8 +530,8 @@ def argmin(data, axis=None, keepdims=False, **kwargs):
                     data, name="argmin", no_grad=True)
 
 
-_export(argmax)
-_export(argmin)
+_export(argmax, no_grad=True)
+_export(argmin, no_grad=True)
 
 
 def argsort(data, axis=-1, is_ascend=True, dtype=np.float32, **kwargs):
@@ -543,7 +543,7 @@ def argsort(data, axis=-1, is_ascend=True, dtype=np.float32, **kwargs):
                     data, name="argsort", no_grad=True)
 
 
-_export(argsort)
+_export(argsort, no_grad=True)
 
 
 def sort(data, axis=-1, is_ascend=True, **kwargs):
@@ -653,7 +653,7 @@ def one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype=np.float32,
     return apply_op(f, indices, name="one_hot", no_grad=True)
 
 
-_export(one_hot)
+_export(one_hot, no_grad=True)
 
 
 def gather_nd(data, indices, **kwargs):
@@ -718,8 +718,8 @@ def size_array(data, **kwargs):
                                 device=data._data.device))
 
 
-_export(shape_array)
-_export(size_array)
+_export(shape_array, no_grad=True)
+_export(size_array, no_grad=True)
 
 
 # --- sequence ops -------------------------------------------------------------

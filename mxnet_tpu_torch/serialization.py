@@ -30,6 +30,7 @@ on the CPU; a parameter's ``set_data`` copies them to its device.
 """
 from __future__ import annotations
 
+import json
 import os
 import struct
 
@@ -202,12 +203,15 @@ def load_ndarrays(fname):
 
 def save_checkpoint(prefix, epoch, symbol=None, arg_params=None,
                     aux_params=None):
-    """Module-style checkpoint ``prefix-%04d.params`` with ``arg:``/``aux:``
-    key prefixes (reference ``mx.model.save_checkpoint``).  A symbol
-    raises: the symbol API is ROADMAP Queue 1 item 8."""
-    if symbol is not None:
-        raise MXNetError("save_checkpoint(symbol=...): the symbol API is "
-                         "not ported yet (ROADMAP.md, Queue 1 item 8)")
+    """Module-style checkpoint: ``prefix-symbol.json`` (a ``Symbol``'s
+    JSON; a block with ``export`` is exported instead) and
+    ``prefix-%04d.params`` with ``arg:``/``aux:`` key prefixes (reference
+    ``mx.model.save_checkpoint``)."""
+    if symbol is not None and hasattr(symbol, "export"):
+        symbol.export(prefix, epoch)
+        return
+    if symbol is not None and hasattr(symbol, "tojson"):
+        symbol.save(f"{prefix}-symbol.json")
     payload = {}
     for k, v in (arg_params or {}).items():
         payload[f"arg:{k}"] = v
@@ -217,12 +221,10 @@ def save_checkpoint(prefix, epoch, symbol=None, arg_params=None,
 
 
 def load_checkpoint(prefix, epoch):
-    """→ (None, arg_params, aux_params) (reference
-    ``mx.model.load_checkpoint``); a ``prefix-symbol.json`` beside the
-    file raises, as the symbol API is ROADMAP Queue 1 item 8."""
-    if os.path.isfile(f"{prefix}-symbol.json"):
-        raise MXNetError(f"{prefix}-symbol.json: the symbol API is not "
-                         "ported yet (ROADMAP.md, Queue 1 item 8)")
+    """→ (symbol or None, arg_params, aux_params) (reference
+    ``mx.model.load_checkpoint``): the symbol is read from
+    ``prefix-symbol.json`` when that is an nnvm graph; an export's meta
+    file raises (``gluon.SymbolBlock.imports`` reads it)."""
     loaded = load_ndarrays(f"{prefix}-{epoch:04d}.params")
     arg_params, aux_params = {}, {}
     for k, v in loaded.items():
@@ -232,4 +234,18 @@ def load_checkpoint(prefix, epoch):
             aux_params[k[4:]] = v
         else:
             arg_params[k] = v
-    return None, arg_params, aux_params
+    sym = None
+    if os.path.isfile(f"{prefix}-symbol.json"):
+        with open(f"{prefix}-symbol.json") as f:
+            text = f.read()
+        meta = json.loads(text)
+        if "nodes" not in meta:
+            raise MXNetError(
+                f"{prefix}-symbol.json is a "
+                f"{meta.get('mxnet_tpu_format', 'unknown')}-format export, "
+                "not an nnvm symbol graph; load it with "
+                "gluon.SymbolBlock.imports instead of load_checkpoint")
+        from . import symbol as _sym
+
+        sym = _sym.load_json(text)
+    return sym, arg_params, aux_params

@@ -164,24 +164,27 @@ class _ServerBase:
 class InferenceServer(_ServerBase):
     """Dynamic-batching server for stateless models.
 
-    ``model`` is a gluon block (called with one NDArray an input name,
+    ``model`` is a ``Predictor`` (its ``forward`` takes the batch by
+    input name), a gluon block (called with one NDArray an input name,
     in ``input_names`` order, on the device of its parameters) or a
     callable taking a dict of stacked numpy arrays and returning its
-    outputs.  ``input_names`` defaults to ``["data"]``.  A block that is
+    outputs.  ``input_names`` defaults to the Predictor's own, or
+    ``["data"]``.  A block that is
     hybridized runs each (batch, length) bucket as its own CUDA graph,
     captured on the scheduler thread at the bucket's first batch; the
     signature count stays within ``len(config.policy.signatures())``.
     With ``config.int8`` the block is first quantized in place by
     ``quantize_net(calib_data=config.calib_data, calib_mode="naive")``,
-    as in the reference.  A ``Predictor`` (the reference's third model
-    form) is refused."""
+    as in the reference."""
 
     def __init__(self, model, config=None, input_names=None):
         super().__init__(config)
-        if hasattr(model, "forward") and hasattr(model, "input_names"):
-            raise MXNetError(f"InferenceServer(Predictor) (symbol graphs "
-                             f"need the symbol API) {_LATER8}")
-        if self.config.int8 and hasattr(model, "collect_params"):
+        self._predictor = model if hasattr(model, "forward") and \
+            hasattr(model, "input_names") else None
+        if input_names is None and self._predictor is not None:
+            input_names = self._predictor.input_names
+        if self.config.int8 and self._predictor is None and \
+                hasattr(model, "collect_params"):
             from ..contrib.quantization import quantize_net
 
             if self.config.calib_data is None:
@@ -203,6 +206,8 @@ class InferenceServer(_ServerBase):
         from ..context import context_of
         from ..ndarray import NDArray
 
+        if self._predictor is not None:
+            return self._predictor.forward(**batch)
         if not self._block:
             return self.model(batch)
         param = next(iter(self.model.collect_params().values()))
@@ -270,7 +275,9 @@ class InferenceServer(_ServerBase):
             "pending": len(self.queue),
             "signature_ceiling": len(self.config.policy.signatures()),
         }
-        if getattr(self.model, "_cached_op", None) is not None:
+        if self._predictor is not None:
+            out["cache"] = self._predictor.cache_stats()
+        elif getattr(self.model, "_cached_op", None) is not None:
             out["cache"] = self.model._cached_op.cache_stats()
         return out
 

@@ -2478,3 +2478,137 @@ def test_sparse_results_stay_on_the_card(cuda_card, tmp_path):
     out = mx.nd.zeros((10, 2), ctx=ctx)
     kv.row_sparse_pull("t", out=out, row_ids=mx.nd.array([2, 5], ctx=ctx))
     assert out._data.is_cuda and out.asnumpy().sum() == 4.0
+
+
+# -- slice 17: the kernels as custom ops, and exported programs ---
+
+def _fmar_operands(dev, dtype, m=300, k=64, n=96, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(dev, dtype)
+    w = (torch.randn((k, n), generator=g) * 0.1).to(dev, dtype)
+    scale = (torch.rand(n, generator=g) + 0.5).to(dev)
+    bias = torch.randn(n, generator=g).to(dev)
+    return x, w, scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_launch_the_kernels_and_match_plain_on_card(cuda_nvcc,
+                                                               dtype):
+    """``torch.ops.mxnet_tpu_torch.*`` on CUDA tensors launch the kernels
+    (the counters rise) and agree with the plain versions within the
+    tolerances of the wrappers' own card tests."""
+    ops = torch.ops.mxnet_tpu_torch
+    x, w, scale, bias = _fmar_operands(cuda_nvcc, dtype)
+    before = cbr.fused_matmul_affine_relu.launches
+    got = ops.fused_matmul_affine_relu(x, w, scale, bias)
+    assert cbr.fused_matmul_affine_relu.launches == before + 1
+    ref = cbr._fused_matmul_affine_relu_plain(x, w, scale, bias)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                               atol=1e-4)
+    q, k, v = (torch.from_numpy(a).to(cuda_nvcc, dtype)
+               for a in _qkv(1, 2, 2, 128, 128, 64))
+    before = tfa.flash_attention_fwd.launches
+    o, lse = ops.flash_attention_fwd(q, k, v, False, 0.125)
+    assert tfa.flash_attention_fwd.launches == before + 1
+    ro, rlse = tfa._fa_forward_plain(q, k, v, False, 0.125,
+                                     round_p=dtype != torch.float32)
+    torch.testing.assert_close(o.float(), ro.float(),
+                               rtol=0, atol=1e-4 if dtype == torch.float32
+                               else 2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_fake_implementations_give_the_real_shapes_on_card(cuda_nvcc):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ops = torch.ops.mxnet_tpu_torch
+    real = (ops.fused_matmul_affine_relu(*_fmar_operands(
+        cuda_nvcc, torch.bfloat16)),)
+    q = torch.randn((1, 2, 70, 32), device=cuda_nvcc, dtype=torch.bfloat16)
+    real += ops.flash_attention_fwd(q, q, q, True, 0.2)
+    with FakeTensorMode() as mode:
+        fx, fw, fs, fb = (mode.from_tensor(t) for t in _fmar_operands(
+            cuda_nvcc, torch.bfloat16))
+        fq = mode.from_tensor(q)
+        fake = (ops.fused_matmul_affine_relu(fx, fw, fs, fb),) + \
+            tuple(ops.flash_attention_fwd(fq, fq, fq, True, 0.2))
+    for f, r in zip(fake, real):
+        assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)
+
+
+def _export_on_cpu(tmp_path):
+    """A conv + BN + ReLU net (one fused 1x1 run) and a tiny BERT (two
+    flash forwards), each exported on the CPU; returns [(symbol file,
+    params file, inputs, the CPU outputs)]."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models import bert
+
+    cpu = mx.cpu()
+    out = []
+    mx.random.seed(0)
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1), nn.BatchNorm(), nn.Activation("relu"),
+            nn.Conv2D(16, 1), nn.BatchNorm(), nn.Activation("relu"),
+            nn.GlobalAvgPool2D(), nn.Dense(5))
+    net.initialize(mx.init.Xavier(), ctx=cpu)
+    net.hybridize()
+    x = np.random.RandomState(0).rand(2, 3, 8, 8).astype(np.float32)
+    y = net(mx.nd.array(x, ctx=cpu))
+    files = net.export(str(tmp_path / "conv"))
+    out.append(files + ({"data": x}, [y.asnumpy()]))
+    b = bert.bert_tiny(vocab_size=50)
+    b.initialize(mx.init.Xavier(), ctx=cpu)
+    b.hybridize()
+    ids = np.random.RandomState(1).randint(0, 50, (2, 16)).astype(np.int32)
+    tt = np.zeros_like(ids)
+    ys = b(mx.nd.array(ids, ctx=cpu, dtype="int32"),
+           mx.nd.array(tt, ctx=cpu, dtype="int32"))
+    files = b.export(str(tmp_path / "bert"))
+    out.append(files + ({"data0": ids, "data1": tt},
+                        [o.asnumpy() for o in ys]))
+    return out
+
+
+@pytest.mark.cuda
+def test_program_exported_on_cpu_launches_the_kernels_on_card(cuda_nvcc,
+                                                               tmp_path):
+    import mxnet_tpu_torch as mx
+
+    (conv_sym, conv_params, conv_in, conv_out), \
+        (bert_sym, bert_params, bert_in, bert_out) = _export_on_cpu(tmp_path)
+    fused, flash = cbr.fused_matmul_affine_relu, tfa.flash_attention_fwd
+    for sym, params, inputs, want, fn, per_forward in (
+            (conv_sym, conv_params, conv_in, conv_out, fused, 1),
+            (bert_sym, bert_params, bert_in, bert_out, flash, 2)):
+        pred = mx.predictor.Predictor(sym, params, ctx=mx.gpu(0))
+        for _ in range(3):  # capture, then two replays
+            before = fn.launches
+            outs = pred.forward(**inputs)
+            torch.cuda.synchronize()
+            assert fn.launches == before + per_forward
+        assert pred.cache_stats() == {"hits": 2, "misses": 1,
+                                      "signatures": 1}
+        for o, r in zip(outs, want):
+            assert o.context == mx.gpu(0)
+            np.testing.assert_allclose(o.asnumpy(), r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_export_reaching_nms_keep_is_refused_on_card(cuda_nvcc, tmp_path):
+    import mxnet_tpu_torch as mx
+
+    class Nms(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.contrib.box_nms(x, overlap_thresh=0.5)
+
+    net = Nms()
+    net.hybridize()
+    x = np.array([[[0, 0.9, 0, 0, 1, 1], [0, 0.8, 0, 0, 1, 0.9]]],
+                 np.float32)
+    net(mx.nd.array(x, ctx=mx.gpu(0)))
+    with pytest.raises(MXNetError, match="Left out of slice 17"):
+        net.export(str(tmp_path / "nms"))

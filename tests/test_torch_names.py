@@ -8,7 +8,9 @@ The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``contrib``, ``gluon.rnn``, ``gluon.model_zoo``,
 ``gluon.model_zoo.detection``, ``nd.contrib``, ``image``, ``models``,
 ``serving``, ``engine``, ``autograd``, ``profiler``, ``base``,
-``nd.sparse`` and ``io`` in both packages with an explicit list of names
+``nd.sparse``, ``io``, ``sym``, ``mod``, ``executor``, ``model``,
+``predictor``, ``contrib.onnx``, ``contrib.quantization`` and
+``ops.registry`` in both packages with an explicit list of names
 left out, each with the ROADMAP list that owns it; reading a left-out
 name raises ``MXNetError`` naming that list, never ``AttributeError``.
 In the namespaces pinned since slice 16 (``MODULE_NS``), names bound to
@@ -31,8 +33,6 @@ _6, _7, _NC = "slice 6", "slice 7", "Not carried over"
 
 LEFT_OUT = {
     "mx": {
-        **dict.fromkeys(("executor", "mod", "module", "model", "predictor",
-                         "sym", "symbol"), _8F),
         **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
                          "operator", "rtc"), _8G),
         **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
@@ -40,20 +40,21 @@ LEFT_OUT = {
     },
     "nd": {"Custom": _8G},
     "parallel": {"telemetry": _9},
-    "contrib": {"symbol": _8F},
     "serving": dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
                               "prometheus_text"), _6),
     "engine": {**dict.fromkeys(
         ("cached_vjp", "clear_segment_cache", "key_intern_stats",
          "maybe_defer", "register_dispatch_callback", "segment_cache_stats",
          "unregister_dispatch_callback"), _7), "telemetry": _9},
-    "autograd": {"Node": _NC, "get_symbol": _8F},
+    "autograd": {"Node": _NC},
 }
 
 #: namespaces pinned since slice 16: modules whose imports of foreign
 #: objects are not compared
 MODULE_NS = ("models", "serving", "engine", "autograd", "profiler", "base",
-             "nd.sparse", "io")
+             "nd.sparse", "io", "sym", "mod", "executor", "model",
+             "predictor", "contrib.onnx", "contrib.quantization",
+             "ops.registry")
 
 
 def _namespaces():
@@ -79,6 +80,15 @@ def _namespaces():
     import mxnet_tpu_torch.base as tbase
     import mxnet_tpu_torch.ndarray.sparse as tsparse
     import mxnet_tpu_torch.io as tio
+    import mxnet_tpu.symbol as jsym
+    import mxnet_tpu.module as jmod
+    import mxnet_tpu.executor as jexec
+    import mxnet_tpu.model as jmodel
+    import mxnet_tpu.predictor as jpred
+    import mxnet_tpu.contrib.onnx as jonnx
+    import mxnet_tpu.contrib.quantization as jquant
+    import mxnet_tpu.ops.registry as jreg
+    import mxnet_tpu_torch.ops.registry as treg
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -101,6 +111,12 @@ def _namespaces():
         "engine": (jengine, tengine), "autograd": (jautograd, tautograd),
         "profiler": (jprofiler, tprofiler), "base": (jbase, tbase),
         "nd.sparse": (jsparse, tsparse), "io": (jio, tio),
+        "sym": (jsym, tmx.sym), "mod": (jmod, tmx.mod),
+        "executor": (jexec, tmx.executor), "model": (jmodel, tmx.model),
+        "predictor": (jpred, tmx.predictor),
+        "contrib.onnx": (jonnx, tmx.contrib.onnx),
+        "contrib.quantization": (jquant, tmx.contrib.quantization),
+        "ops.registry": (jreg, treg),
     }
 
 
@@ -314,9 +330,9 @@ def _slice14_calls():
             isinstance(gluon.loss.CTCLoss(), gluon.loss.Loss)
 
     def contrib_onnx_refused():
-        with pytest.raises(tmx.MXNetError, match="item 8f"):
-            contrib.onnx  # noqa: B018
-        return True
+        # refused until slice 17, which ported it
+        return contrib.onnx.export_model is \
+            tmx.contrib.onnx.mx2onnx.export_model
 
     return {f.__name__: f for f in (
         quantize_ops, contrib_aliases, quantize_net, nd_rnn, gluon_rnn,
@@ -432,10 +448,13 @@ def _slice16_calls():
     def refusals_name_their_list():
         for ns, name, owner in (("serving", "MetricsServer", _6),
                                 ("engine", "cached_vjp", _7),
-                                ("autograd", "Node", _NC),
-                                ("autograd", "get_symbol", _8F)):
+                                ("autograd", "Node", _NC)):
             with pytest.raises(tmx.MXNetError, match=owner):
                 getattr(_namespaces()[ns][1], name)
+        # since slice 17 get_symbol raises as the reference's stub does
+        for mx in (jmx, tmx):
+            with pytest.raises(NotImplementedError, match="get_symbol"):
+                mx.autograd.get_symbol(None)
         return autograd.is_recording() is False
 
     def parameter_stype():
@@ -481,6 +500,125 @@ def _slice16_calls():
 @pytest.mark.parametrize("name", sorted(_slice16_calls()))
 def test_repairs_of_slice_16_resolve_to_working_functions(name):
     assert _slice16_calls()[name]()
+
+
+def _slice17_calls():
+    """One working call of each name ported in slice 17 (each was a
+    refusal naming item 8f, or, in ``ops.registry``, an
+    ``AttributeError``); the parity tests are ``test_torch_{symbol,
+    module,export,onnx,quantization_symbol,registry}.py``."""
+    import os
+    import tempfile
+
+    from mxnet_tpu_torch import contrib, gluon, nd, sym
+    from mxnet_tpu_torch.ops import registry
+
+    def mlp(head=True):
+        data = sym.var("data")
+        fc = sym.FullyConnected(data, num_hidden=2, name="fc")
+        return sym.SoftmaxOutput(fc, name="softmax") if head else \
+            sym.softmax(fc, name="softmax")
+
+    def arrays():
+        return {"fc_weight": nd.ones((2, 3), ctx=CPU),
+                "fc_bias": nd.zeros((2,), ctx=CPU)}
+
+    def symbol():
+        net = mlp()
+        return net.infer_shape(data=(4, 3))[1] == [(4, 2)] and \
+            sym.load_json(net.tojson()).tojson() == net.tojson()
+
+    def executor():
+        exe = mlp().simple_bind(CPU, data=(4, 3))
+        out = exe.forward(data=np.ones((4, 3), np.float32))[0]
+        return isinstance(exe, tmx.executor.Executor) and \
+            out.shape == (4, 2)
+
+    def module():
+        with tmx.cpu():
+            it = tmx.io.NDArrayIter(np.ones((4, 3), np.float32),
+                                    np.zeros(4, np.float32), batch_size=2)
+            m = tmx.mod.Module(mlp(), context=CPU)
+            m.fit(it, num_epoch=1)
+            return m.predict(it).shape == (4, 2)
+
+    def model_checkpoint():
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, "m")
+            tmx.model.save_checkpoint(prefix, 1, mlp(), arrays(), {})
+            s, arg, _ = tmx.model.load_checkpoint(prefix, 1)
+            return s.list_arguments() == mlp().list_arguments() and \
+                sorted(arg) == ["fc_bias", "fc_weight"]
+
+    def predictor():
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, "m")
+            tmx.model.save_checkpoint(prefix, 0, mlp(False), arrays(), {})
+            p = tmx.predictor.create(prefix + "-symbol.json",
+                                     prefix + "-0000.params", ctx=CPU)
+            return p.input_names == ["data"] and \
+                p.predict(np.ones((1, 3), np.float32)).shape == (1, 2)
+
+    def symbol_block():
+        block = gluon.SymbolBlock(mlp(), sym.var("data"), arrays())
+        return block(nd.ones((1, 3), ctx=CPU)).shape == (1, 2) and \
+            sorted(block.collect_params().keys()) == ["fc_bias",
+                                                      "fc_weight"]
+
+    def onnx():
+        with tempfile.TemporaryDirectory() as d:
+            path = contrib.onnx.export_model(
+                mlp(False), arrays(), [(1, 3)],
+                onnx_file_path=os.path.join(d, "m.onnx"))
+            with tmx.cpu():
+                s, arg, _ = contrib.onnx.import_model(path)
+            return sorted(arg) == ["fc_bias", "fc_weight"]
+
+    def quantize_model():
+        qsym, qarg, _ = contrib.quantization.quantize_model(
+            mlp(), arrays(), {}, ctx=CPU, calib_mode="naive",
+            calib_data=[nd.ones((2, 3), ctx=CPU)])
+        return "quantized_fc" in [n["name"] for n in
+                                  __import__("json").loads(
+                                      qsym.tojson())["nodes"]]
+
+    def registry_table():
+        return len(registry.list_ops()) == 342 and \
+            registry.get_op("FullyConnected") is nd.FullyConnected and \
+            registry.op_meta("argmax")["no_grad"] and \
+            registry.duplicate_registrations() == []
+
+    def parameter_var():
+        # the reference raises NotImplementedError; MXNet returns the
+        # parameter's variable
+        v = gluon.Parameter("w", shape=(2, 3)).var()
+        return v.list_arguments() == ["w"] and \
+            v.infer_shape()[0] == [(2, 3)]
+
+    def contrib_symbol():
+        return contrib.symbol is sym.contrib and \
+            "box_nms" in contrib.symbol.__all__
+
+    def bert_to_symbol():
+        from mxnet_tpu_torch.models import bert
+
+        net = bert.bert_tiny(vocab_size=10, num_layers=1)
+        net.initialize(ctx=CPU)
+        ids = nd.zeros((1, 4), ctx=CPU, dtype="int32")
+        net(ids, ids)  # the deferred shapes
+        s, params = bert.bert_to_symbol(net, 1, 4)
+        return len(s.list_outputs()) == 4 and \
+            set(params) <= set(s.list_arguments())
+
+    return {f.__name__: f for f in (
+        symbol, executor, module, model_checkpoint, predictor,
+        symbol_block, onnx, quantize_model, registry_table, parameter_var,
+        contrib_symbol, bert_to_symbol)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice17_calls()))
+def test_names_ported_in_slice_17_resolve_to_working_functions(name):
+    assert _slice17_calls()[name]()
 
 
 # -- NDArray ---
@@ -563,7 +701,7 @@ def test_block_apply_hooks_and_summary():
     np.testing.assert_allclose(outs[1], outs[0], rtol=1e-6)
 
 
-def test_optimize_for_export_and_symbol_block():
+def test_optimize_for_export_and_symbol_block(tmp_path):
     x = np.random.RandomState(1).rand(2, 3).astype(np.float32)
     jnet, tnet = _mlps()
     jnet.optimize_for(jmx.nd.array(x))
@@ -571,10 +709,15 @@ def test_optimize_for_export_and_symbol_block():
     assert tnet._active
     np.testing.assert_allclose(tnet(tmx.nd.array(x, ctx=CPU)).asnumpy(),
                                jnet(jmx.nd.array(x)).asnumpy(), rtol=1e-6)
-    with pytest.raises(tmx.MXNetError, match="8f"):
-        tnet.export("/nonexistent/net")
-    with pytest.raises(tmx.MXNetError, match="8f"):
-        tmx.gluon.SymbolBlock()
+    # export and SymbolBlock are ported in slice 17 (the parity tests are
+    # tests/test_torch_export.py)
+    sym_file, params_file = tnet.export(str(tmp_path / "net"))
+    block = tmx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                          ctx=CPU)
+    np.testing.assert_allclose(block(tmx.nd.array(x, ctx=CPU)).asnumpy(),
+                               jnet(jmx.nd.array(x)).asnumpy(), rtol=1e-6)
+    with pytest.raises(tmx.MXNetError, match="not bound"):
+        tmx.gluon.SymbolBlock()(tmx.nd.array(x, ctx=CPU))
 
 
 # -- Parameter, ParameterDict, Constant ---
