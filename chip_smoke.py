@@ -44,7 +44,13 @@ graph through ``Executor``, ``Module.fit`` and a ``BucketingModule``
 LSTM, ResNet-50 and BERT-base exported as ``torch.export`` programs that
 hold the flash forward and the fused 1x1 kernel as custom ops, served
 through ``Predictor`` and ``InferenceServer(Predictor)``, BERT-base
-through ``bert_to_symbol`` and ONNX, and the symbol quantizer.
+through ``bert_to_symbol`` and ONNX, and the symbol quantizer; and the
+NumPy front end and the Estimator: ``gluon.contrib.estimator.
+Estimator.fit`` on a BERT-base classifier in np mode through the flash
+kernels and the fused update, every name of ``mx.np`` on the card
+against the CPU, ``nd.Custom`` and ``rtc.PallasKernel``, and the tools
+(``Monitor`` on ResNet-50 through the fused 1x1 kernel, ``runtime``,
+``test_utils.check_consistency``, ``visualization``).
 
     python3 chip_smoke.py
 
@@ -377,7 +383,24 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 25d. 25a's trained symbol through ``save_checkpoint`` →
     ``load_checkpoint`` → ``Predictor`` (the nnvm replay, a CUDA graph a
     signature), and ``quantize_model`` (naive) of it: the int8 graph on
-    the card, and at B=2 against the CPU (int32 products equal).
+    the card, and at B=2 against the CPU (int32 products equal);
+26a. ``Estimator.fit`` on a ``bert_base`` classifier (2 classes) in np
+    mode, amp bf16, Adam, B=32, T=128, 8 batches and 2 validation
+    batches (#1 12 × 10 launches, #2 and #3 12 × 8, the update 8), with
+    ``evaluate`` against a hand-written loop, the checkpoint's bit-equal
+    reload, fit's ms a batch against a hand-written step loop and a
+    device-trace split of one batch;
+26b. every name of the ``mx.np`` table on the card against the CPU
+    (elementwise, reductions and products at (4096, 4096), the sorts,
+    statistics, index and shape families at (1024, 1024)),
+    ``np.random``'s moments and ``np.linalg``'s reconstructions at
+    (1024, 1024);
+26c. ``nd.Custom`` eager, recorded and in a hybridized block on two
+    inputs (eager every call, no stale replay), a capture that reaches it
+    refused, and ``rtc.PallasKernel`` with its gradient;
+26d. ``Monitor`` on an eager ResNet-50 bf16 B=32 forward (#4 launching
+    16 times), ``runtime.Features()``, ``check_consistency([cpu, gpu])``
+    on a BERT-base layer, ``visualization.print_summary``.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -389,9 +412,10 @@ The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
 captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
 int8 forwards (#4 must launch 0 times there), each detector's forwards
-of 23b-23d (#4 and ``nms_keep``), the served exported program of 25b
-and the exported program's forwards of 25c; the update's in 9, 12, 12b, 13b, 16,
-17, 18b, 18d, 19a, 19b, 20c, 22b, 22c, 23e and 25a, and in 24b, where it
+of 23b-23d (#4 and ``nms_keep``), the served exported program of 25b,
+the exported program's forwards of 25c, 26a's ``fit`` and 26d's
+monitored forward; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
+19a, 19b, 20c, 22b, 22c, 23e, 25a and 26a, and in 24b, where it
 must stay 0: the lazy row updates are not the update kernel's) and
 read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
@@ -8092,6 +8116,769 @@ def checkpoint_quant_phase(torch, mx, failures):
     free_card(torch)
 
 
+# --- slice 18: the NumPy front end, custom ops, the Estimator, the tools ----
+
+NP_N = 4096                  # 26b: (4096, 4096) f32 for the np table's
+NP_WIDE = ("unary", "binary", "compare", "logical", "integer",
+           "reduction", "product")   # ... elementwise, reductions, products
+NP_N_SORTS = 1024            # 26b: the sorts, statistics, index and shape
+#                              families (their CPU side takes seconds a call)
+NP_TOL = 1e-4                # 26b: card vs CPU, of the largest |value|
+NP_RANDOM_N = 1 << 20        # 26b: draws a distribution on the card
+LINALG_N = 1024              # 26b: linalg reconstructions on the card
+LINALG_TOL = 1e-3            # ... relative norm, f32
+
+
+def np_cases(n, seed=0):
+    """One call of every name of ``mx.np``'s function table
+    (``mxnet_tpu_torch.numpy.FUNCTIONS``): ``(name, family, args,
+    kwargs)`` with numpy arrays where the call takes arrays (the caller
+    makes them ``mx.np`` arrays on its device), at the width ``n``: (n, n)
+    f32 for the elementwise ops, the reductions and ``matmul``, n-long
+    vectors for the 1-d ones, small blocks where the output grows faster
+    (``kron``: (√n, √n) each)."""
+    rng = np.random.RandomState(seed)
+    k = max(2, int(round(n ** 0.5)))
+    X = rng.uniform(0.5, 2.0, (n, n)).astype(np.float32)
+    S = rng.standard_normal((n, n)).astype(np.float32)
+    U = rng.uniform(-0.9, 0.9, (n, n)).astype(np.float32)
+    V = rng.standard_normal(n).astype(np.float32)
+    I = rng.randint(-50, 50, (n, n)).astype(np.int64)
+    P = rng.randint(1, 50, (n, n)).astype(np.int64)
+    SH = rng.randint(0, 8, (n, n)).astype(np.int64)
+    B = rng.rand(n, n) > 0.5
+    C = B.copy()
+    C[rng.rand(n, n) > 0.5] = False
+    K = rng.standard_normal((k, k)).astype(np.float32)
+    V3 = rng.standard_normal((n, 3)).astype(np.float32)
+    W = rng.standard_normal(9).astype(np.float32)
+    SV = np.sort(V)
+    Q = rng.standard_normal(n).astype(np.float32)
+    ids = rng.randint(0, 1000, n * 4).astype(np.int64)
+    take = rng.randint(-n, n, n).astype(np.int64)
+    order = np.argsort(S, axis=1, kind="stable")
+    x1 = X.copy()
+    x1[0, 0] += 1.0
+    xp = np.linspace(0.0, 3.0, 101).astype(np.float32)
+    fp = np.sin(xp).astype(np.float32)
+    nanS = S.copy()
+    nanS[::7, 3] = np.nan
+    INF = np.where(S > 0, S, np.inf).astype(np.float32)
+    u = lambda fam, *names: [(nm, fam, (X,), {}) for nm in names]  # noqa
+    cases = u("unary", "sin", "cos", "tan", "arctan", "sinh", "cosh",
+              "tanh", "arcsinh", "exp", "expm1", "log", "log2", "log10",
+              "log1p", "sqrt", "cbrt", "square", "reciprocal", "degrees",
+              "radians", "rint", "floor", "ceil", "trunc", "ravel", "copy",
+              "conj", "real", "imag", "angle", "atleast_1d", "atleast_2d",
+              "atleast_3d", "negative")
+    cases += [("arcsin", "unary", (U,), {}), ("arccos", "unary", (U,), {}),
+              ("arctanh", "unary", (U,), {}),
+              ("arccosh", "unary", (X + 1,), {}),
+              ("absolute", "unary", (S,), {}), ("abs", "unary", (S,), {}),
+              ("sign", "unary", (S,), {}),
+              ("logical_not", "predicate", (B,), {}),
+              ("isnan", "predicate", (nanS,), {}),
+              ("isinf", "predicate", (INF,), {}),
+              ("isfinite", "predicate", (INF,), {}),
+              ("isneginf", "predicate", (-INF,), {}),
+              ("isposinf", "predicate", (INF,), {}),
+              ("sort", "sort", (S,), {"axis": -1}),
+              ("argsort", "sort", (S,), {"axis": -1}),
+              ("partition", "sort", (S, 3), {}),
+              ("argpartition", "sort", (S, 3), {}),
+              ("unique", "sort", (ids,), {"return_index": True,
+                                         "return_inverse": True,
+                                         "return_counts": True}),
+              ("nonzero", "index", (B,), {}),
+              ("flatnonzero", "index", (B,), {}),
+              ("diag", "shape", (V,), {"k": 1}),
+              ("diagonal", "shape", (S,), {"offset": -2})]
+    b = lambda fam, x, y, *names: [(nm, fam, (x, y), {})  # noqa: E731
+                                   for nm in names]
+    cases += b("binary", X, S, "add", "subtract", "multiply", "divide",
+               "true_divide", "maximum", "minimum", "fmax", "fmin",
+               "arctan2", "hypot", "logaddexp", "logaddexp2", "copysign",
+               "nextafter")
+    cases += b("binary", S, X, "floor_divide", "mod", "remainder")
+    cases += b("binary", X, U, "power", "float_power")
+    cases += b("compare", X, x1, "equal", "not_equal", "greater",
+               "greater_equal", "less", "less_equal")
+    cases += b("logical", B, C, "logical_and", "logical_or", "logical_xor")
+    cases += b("integer", I, P, "bitwise_and", "bitwise_or", "bitwise_xor",
+               "gcd", "lcm")
+    cases += b("integer", I, SH, "left_shift", "right_shift")
+    cases += [("invert", "integer", (I,), {}),
+              ("heaviside", "binary", (S, X), {}),
+              ("ldexp", "binary", (X, SH), {}),
+              ("add", "binary", (X, 2.5), {}),
+              ("matmul", "product", (S, X), {}),
+              ("dot", "product", (S, X), {}),
+              ("inner", "product", (S, X), {}),
+              ("vdot", "product", (S, X), {}),
+              ("outer", "product", (V, Q), {}),
+              ("kron", "product", (K, K), {}),
+              ("tensordot", "product", (S, X), {"axes": 1}),
+              ("einsum", "product", ("ij,jk->ik", S, X), {}),
+              ("cross", "product", (V3, V3[::-1].copy()), {}),
+              ("convolve", "product", (V, W), {}),
+              ("correlate", "product", (V, W), {"mode": "same"}),
+              ("searchsorted", "index", (SV, Q), {"side": "right"})]
+    r = lambda nm, x, **kw: (nm, "reduction", (x,), kw)  # noqa: E731
+    cases += [r("sum", S, axis=1), r("mean", S, axis=0), r("max", S),
+              r("min", S, axis=1), r("amax", S, axis=0), r("amin", S),
+              r("prod", X[:, :8], axis=1), r("nanprod", X[:, :8], axis=1),
+              r("nansum", nanS, axis=1), r("std", S, axis=1, ddof=1),
+              r("var", S, axis=0), r("ptp", S, axis=1),
+              r("argmax", nanS, axis=0), r("argmin", S, axis=1),
+              r("nanargmax", nanS, axis=1), r("nanargmin", nanS, axis=1),
+              r("all", B, axis=0), r("any", C, axis=1),
+              r("cumsum", S, axis=1), r("cumprod", X[:, :8], axis=1),
+              r("nancumsum", nanS, axis=0), r("count_nonzero", B, axis=1),
+              r("average", S, axis=1, weights=V), r("trace", S)]
+    st = lambda nm, x, *a, **kw: (nm, "statistics", (x,) + a, kw)  # noqa
+    cases += [st("median", S, axis=1),
+              st("percentile", S, np.array([5.0, 50, 95]), axis=1),
+              st("quantile", S, 0.3), st("histogram", X, bins=50),
+              st("bincount", ids, minlength=1000),
+              st("digitize", X, xp),
+              st("interp", X, xp, fp, left=-1.0, right=2.0),
+              st("trapz", S, axis=-1), st("gradient", S, axis=1),
+              st("diff", S, axis=0, n=2),
+              st("ediff1d", V, to_end=np.ones(1, np.float32)),
+              st("allclose", X, x1), st("isclose", X, x1),
+              st("array_equal", X, x1), st("array_equiv", X, X[:1]),
+              st("clip", S, -0.5, 0.5), st("round", S * 100, decimals=1),
+              st("around", S * 10)]
+    s = lambda nm, x, *a, **kw: (nm, "shape", (x,) + a, kw)  # noqa: E731
+    cases += [s("reshape", S, (n // 2, 2 * n)), s("transpose", S),
+              s("swapaxes", S, 0, 1), s("moveaxis", S, 0, 1),
+              s("rollaxis", S, 1), s("expand_dims", S, (0, 2)),
+              s("squeeze", S[None]), s("tile", K, (3, 2)),
+              s("repeat", V, 3), s("roll", S, 7, axis=1), s("flip", S),
+              s("fliplr", S), s("flipud", S), s("rot90", S),
+              s("broadcast_to", V, (4, n)), s("append", V, Q),
+              s("pad", K, ((2, 3), (1, 0)), mode="reflect"),
+              s("triu", S, 1), s("tril", S, -1), s("resize", V, (3, n)),
+              s("insert", V, np.array([1, 5]),
+                np.array([9.0, 8.0], np.float32)),
+              s("delete", V, np.array([0, 2])),
+              s("take", S, take, axis=0),
+              s("take_along_axis", S, order, 1),
+              s("where", B, S, X), s("unravel_index", ids, (10, 100)),
+              ("ravel_multi_index", "index",
+               ((ids % 10, ids // 10),), {"dims": (10, 100)}),
+              ("concatenate", "shape", ([S, X],), {"axis": 1}),
+              ("stack", "shape", ([V, Q],), {}),
+              ("vstack", "shape", ([S, X],), {}),
+              ("hstack", "shape", ([V, Q],), {}),
+              ("dstack", "shape", ([S, X],), {}),
+              ("column_stack", "shape", ([V, Q],), {}),
+              ("split", "shape", (S, 4), {"axis": 1}),
+              ("array_split", "shape", (V, 3), {}),
+              ("hsplit", "shape", (S, 2), {}),
+              ("vsplit", "shape", (S, 2), {}),
+              ("dsplit", "shape", (S[:, :, None].repeat(2, 2), 2), {}),
+              ("broadcast_arrays", "shape", (V, S), {}),
+              ("meshgrid", "shape", (V[:k], Q[:k]), {})]
+    return cases
+
+
+def np_outputs(out):
+    """A call's outputs as a flat list of numpy arrays."""
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in np_outputs(o)]
+    if hasattr(out, "asnumpy"):
+        return [out.asnumpy()]
+    return [np.asarray(out)]
+
+
+def np_rel_err(got, want):
+    """Worst |got − want| over the largest |want| (0 for exact equality,
+    NaN where both are NaN)."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    if g.shape != w.shape:
+        return float("inf")
+    if g.size == 0:
+        return 0.0
+    both = np.isnan(g) & np.isnan(w)
+    if (np.isnan(g) != np.isnan(w)).any():
+        return float("inf")
+    d = np.where(both, 0.0, np.abs(g - w))
+    inf_eq = np.isinf(g) & (g == w)
+    d = np.where(inf_eq, 0.0, d)
+    scale = np.abs(np.where(both | np.isinf(w), 0.0, w)).max()
+    return float(d.max() / max(scale, 1e-30))
+
+
+EST_B, EST_T = 32, 128        # 26a: Estimator.fit batch (bf16 under amp)
+EST_STEPS = 8                 # 26a: StoppingHandler(max_batch=8)
+EST_DISTINCT = 64             # 26a: distinct samples, repeated 4 times
+EST_VAL_BATCHES = 2
+EST_LR = 1e-4                 # 26a: Adam
+MON_B = 32                    # 26d: the monitored ResNet-50 forward (bf16)
+CONSIST_B = 4                 # 26d: check_consistency of a BERT-base layer
+CONSIST_RTOL, CONSIST_ATOL = 1e-3, 1e-4   # f32 card vs CPU
+
+
+def _np_batchify(mx):
+    """A ``DataLoader`` batchify that yields ``mx.np`` arrays in
+    page-locked host memory (the Estimator copies them to the card
+    without blocking)."""
+    def batchify(samples):
+        cols = []
+        for col in zip(*samples):
+            a = mx.np.array(np.stack(col), ctx=mx.cpu())
+            a._data = a._data.pin_memory()
+            cols.append(a)
+        return cols
+
+    return batchify
+
+
+def estimator_bert_phase(torch, mx, bert, fa, mt, failures):
+    """Phase 26a: ``gluon.contrib.estimator.Estimator.fit`` on a
+    ``bert_base`` classifier (12 layers, width 768, 12 heads, vocab
+    30522, 2 classes) at full width in np mode (``npx.set_np()``, batches
+    of ``mx.np`` arrays from a ``DataLoader`` over an ``ArrayDataset``),
+    under ``amp.init("bfloat16")``, Adam through ``Trainer`` (the fused
+    update kernel), with ``StoppingHandler(max_batch=8)``,
+    ``CheckpointHandler``, ``EarlyStoppingHandler`` and
+    ``LoggingHandler``: #1 launches 12 × (8 + 2) times (8 training
+    forwards, 2 validation batches), #2 and #3 12 × 8, the update 8.
+    Then ``evaluate`` against a hand-written loop, the checkpoint's
+    reload to a bit-equal forward, the ms a batch of ``fit`` against a
+    hand-written step loop on the same net and batch, and a device-trace
+    split of one batch of ``fit``.  Returns the launches (forward, dQ,
+    dK/dV, update) and the tensor-core ones."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.contrib import estimator as est
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 26)
+    distinct = rng.randint(0, BERT_VOCAB, (EST_DISTINCT, EST_T)) \
+        .astype(np.int32)
+    labels = (distinct[:, 0] % 2).astype(np.float32)
+    reps = EST_STEPS * EST_B // EST_DISTINCT
+    train_ids, train_lab = np.tile(distinct, (reps, 1)), \
+        np.tile(labels, reps)
+    val_ids = rng.randint(0, BERT_VOCAB, (EST_VAL_BATCHES * EST_B, EST_T)) \
+        .astype(np.int32)
+    val_lab = (val_ids[:, 0] % 2).astype(np.float32)
+    data = mx.gluon.data
+    mx.npx.set_np()
+    amp.init("bfloat16")
+    ckpt_dir = tempfile.mkdtemp(prefix="mxt_est_")
+    try:
+        mx.random.seed(SEED)
+        net = bert.BERTClassifier(bert.bert_base(vocab_size=BERT_VOCAB),
+                                  num_classes=2)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        batchify = _np_batchify(mx)
+        train = data.DataLoader(data.ArrayDataset(train_ids, train_lab),
+                                batch_size=EST_B, batchify_fn=batchify)
+        val = data.DataLoader(data.ArrayDataset(val_ids, val_lab),
+                              batch_size=EST_B, batchify_fn=batchify)
+        first = next(iter(train))
+        assert type(first[0]).__name__ == "ndarray"
+        with mx.autograd.predict_mode():
+            net(first[0].as_in_context(mx.gpu(0)))  # the deferred shapes
+        torch.cuda.synchronize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": EST_LR})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, stamps = [], []
+
+        class Watch(est.BatchEnd):
+            def batch_end(self, estimator, *args, **kwargs):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+
+        def recorded_loss(out, label):
+            loss = loss_fn(out, label)
+            losses.append(loss.mean())
+            return loss
+
+        val_acc = mx.metric.Accuracy()
+        e = est.Estimator(net, recorded_loss,
+                          train_metrics=[mx.metric.Accuracy()],
+                          val_metrics=[val_acc], trainer=trainer)
+        handlers = [est.StoppingHandler(max_batch=EST_STEPS),
+                    est.CheckpointHandler(ckpt_dir, model_prefix="bert"),
+                    est.EarlyStoppingHandler(val_acc, patience=2),
+                    est.LoggingHandler(), Watch()]
+        log = io.StringIO()
+        _zero_counts(fa)  # the main path starts here
+        mt.multi_tensor_update.launches = 0
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            e.fit(train, val_data=val, epochs=1, event_handlers=handlers)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        counts = [c.launches for c in _counters(fa)] + \
+            [mt.multi_tensor_update.launches]  # ... and ends here
+        mma = _mma_counts(fa)
+        values = [float(v.item()) for v in losses]
+        layers = len(net.bert.encoder.transformer_cells)
+        want = [layers * (EST_STEPS + EST_VAL_BATCHES), layers * EST_STEPS,
+                layers * EST_STEPS, EST_STEPS]
+        # the same 64 samples come back every 2 batches: the loss of the
+        # last pass over them against the first
+        falls = np.mean(values[-2:]) < np.mean(values[:2])
+        finite = bool(np.isfinite(values).all())
+        ev = e.evaluate(val)
+        acc = mx.metric.Accuracy()
+        for x, y in val:
+            x, y = x.as_in_context(mx.gpu(0)), y.as_in_context(mx.gpu(0))
+            with mx.autograd.predict_mode():
+                acc.update(y, net(x))
+        hand_eval = {acc.get()[0]: acc.get()[1]}
+        # the checkpoint reloads to a bit-equal forward
+        path = os.path.join(ckpt_dir, "bert-0001.params")
+        net2 = bert.BERTClassifier(bert.bert_base(vocab_size=BERT_VOCAB),
+                                   num_classes=2)
+        net2.load_parameters(path, ctx=mx.gpu(0))
+        x0 = first[0].as_in_context(mx.gpu(0))
+        with mx.autograd.predict_mode():
+            o1 = net(x0)._data
+            o2 = net2(x0)._data
+        bit_equal = bool(torch.equal(o1, o2))
+        del net2
+        # ms a batch: fit's (between batch ends, the first excluded)
+        # against a hand-written record/backward/step loop on the same net
+        fit_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+        y0 = first[1].as_in_context(mx.gpu(0))
+        hand_ms = []
+        for _ in range(EST_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with mx.autograd.record():
+                loss = loss_fn(net(x0), y0)
+            loss.backward()
+            trainer.step(EST_B)
+            torch.cuda.synchronize()
+            hand_ms.append((time.perf_counter() - t1) * 1e3)
+        del loss
+        split = _fit_split(torch, mx, e, train, est)
+    finally:
+        amp.turn_off()
+        mx.npx.reset_np()
+    res = dict(phase="estimator_fit", card=STASH["smi"], B=EST_B, T=EST_T,
+               layers=layers, batches=EST_STEPS, losses=values,
+               launches_fwd_dq_dkv_update=counts, want=want,
+               launches_mma=mma, evaluate=ev, hand_evaluate=hand_eval,
+               checkpoint_bit_equal=bit_equal, fit_s=fit_s,
+               fit_batch_ms=fit_ms, fit_batch_ms_median=float(
+                   np.median(fit_ms)), hand_step_ms=hand_ms[1:],
+               hand_step_ms_median=float(np.median(hand_ms[1:])),
+               fit_over_hand=float(np.median(fit_ms) /
+                                   np.median(hand_ms[1:])),
+               log_lines=log.getvalue().splitlines()[:4],
+               cache_stats=net.cache_stats(), device_split=split,
+               seconds=time.perf_counter() - t0)
+    res["ok"] = ok = finite and falls and counts == want and \
+        ev == hand_eval and bit_equal
+    emit(res)
+    if not ok:
+        failures.append(f"estimator fit: losses {values}, launches "
+                        f"{counts} (want {want}), evaluate {ev} vs "
+                        f"{hand_eval}, checkpoint bit-equal {bit_equal}")
+    del net, e, trainer
+    free_card(torch)
+    return counts, mma
+
+
+def _host_ms(torch, fn, iters):
+    """Median wall ms of ``fn`` over ``iters`` synchronised calls, after
+    one warm-up call."""
+    fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(out))
+
+
+def _fit_split(torch, mx, e, train, est):
+    """The device-trace split of one batch of ``Estimator.fit`` (a fit of
+    one batch, after the phase's batches warmed it), as phase 24e splits
+    its step."""
+    import contextlib
+    import io
+
+    prof = mx.profiler
+    one = [next(iter(train))]
+    with contextlib.redirect_stdout(io.StringIO()):
+        e.fit(one, epochs=1)  # warm-up
+        torch.cuda.synchronize()
+        prof.set_config(profile_device_trace=True, aggregate_stats=True)
+        prof.set_state("run")
+        t0 = time.perf_counter()
+        e.fit(one, epochs=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.set_state("stop")
+    split = _device_split(torch, prof.device_profile(), wall)
+    if split["kernels"] == 0:
+        split["event_ms"] = time_ms(torch, lambda: e.fit(one, epochs=1), 1)
+    prof.dumps(reset=True)
+    return split
+
+
+def np_card_phase(torch, mx, failures):
+    """Phase 26b: every name of the ``mx.np`` table (``np_cases``: f32
+    elementwise ops, reductions and products such as ``matmul`` at
+    (NP_N, NP_N) = 4096², the sorts, statistics, index and shape
+    families at 1024²) on CUDA tensors against the same call on the
+    CPU, each output
+    within NP_TOL of the largest |value| (integers and bools exact); the
+    count checked and the worst error by family.  Then ``np.random``'s
+    moments (and a Kolmogorov–Smirnov test) on the card, and ``linalg``
+    reconstructions at (LINALG_N, LINALG_N)."""
+    t0 = time.perf_counter()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    names = set(mx.np.FUNCTIONS)
+    cache = {}
+
+    def conv(a, ctx):
+        if isinstance(a, np.ndarray):
+            key = (id(a), ctx)
+            if key not in cache:
+                cache[key] = (a, mx.np.array(a, ctx=ctx))
+            return cache[key][1]
+        if isinstance(a, (list, tuple)) and a and \
+                isinstance(a[0], np.ndarray):
+            return type(a)(conv(x, ctx) for x in a)
+        return a
+
+    worst, checked, bad, ms = {}, set(), [], {}
+    cases = [c for c in np_cases(NP_N) if c[1] in NP_WIDE] + \
+        [c for c in np_cases(NP_N_SORTS) if c[1] not in NP_WIDE]
+    for name, fam, args, kw in cases:
+        fn = getattr(mx.np, name)
+        try:
+            g_args = [conv(a, gpu) for a in args]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = np_outputs(fn(*g_args, **kw))
+            ms[name] = (time.perf_counter() - t1) * 1e3
+            with cpu:
+                want = np_outputs(fn(*[conv(a, cpu) for a in args], **kw))
+        except Exception as exc:  # noqa: BLE001 (each name is reported)
+            bad.append(f"{name}: {type(exc).__name__}: {exc}"[:300])
+            continue
+        errs = [np_rel_err(g, w) for g, w in zip(got, want)] \
+            if len(got) == len(want) else [float("inf")]
+        err = max(errs, default=0.0)
+        worst[fam] = max(worst.get(fam, 0.0), err)
+        checked.add(name)
+        if err > NP_TOL:
+            bad.append(f"{name}: {err}")
+    cache.clear()
+    missing = sorted(names - checked)
+    rnd = _np_random_card(mx)
+    lin = _linalg_card(torch, mx)
+    slowest = sorted(ms.items(), key=lambda kv: -kv[1])[:5]
+    ok = not bad and not missing and rnd["ok"] and lin["ok"]
+    emit(dict(phase="np_card", card=STASH["smi"], n=NP_N,
+              n_sorts=NP_N_SORTS,
+              checked=len(checked), table=len(names), missing=missing,
+              worst_by_family=worst, failed=bad[:10],
+              slowest_card_ms=slowest, random=rnd, linalg=lin,
+              seconds=time.perf_counter() - t0, ok=ok))
+    if not ok:
+        failures.append(f"np on the card: {bad[:5]}, missing {missing}, "
+                        f"random {rnd['ok']}, linalg {lin['ok']}")
+    free_card(torch)
+
+
+def _np_random_card(mx):
+    """Moments of ``np.random``'s distributions drawn on the card, within
+    6 standard errors, and a KS test (p > 1e-4) where scipy is here."""
+    try:
+        import scipy.stats as st
+    except ImportError:  # the moments still hold the draws
+        st = None
+    n = NP_RANDOM_N
+    mx.np.random.seed(SEED + 262)
+    gpu = mx.gpu(0)
+    cases = {"uniform": ((-1.0, 3.0), (1.0, 16 / 12),
+                         ("uniform", (-1.0, 4.0))),
+             "normal": ((0.5, 2.0), (0.5, 4.0), ("norm", (0.5, 2.0))),
+             "gamma": ((2.5, 1.5), (3.75, 5.625),
+                       ("gamma", (2.5, 0, 1.5))),
+             "beta": ((2.0, 5.0), (2 / 7, 10 / 392),
+                      ("beta", (2.0, 5.0))),
+             "exponential": ((2.0,), (2.0, 4.0), ("expon", (0, 2.0))),
+             "chisquare": ((3.0,), (3.0, 6.0), ("chi2", (3.0,)))}
+    out, ok = {}, True
+    for name, (args, (mean, var), (dist, params)) in cases.items():
+        x = getattr(mx.np.random, name)(*args, size=(n,), ctx=gpu) \
+            .asnumpy().astype(np.float64)
+        dm = abs(x.mean() - mean) / np.sqrt(var / n)
+        dv = abs(x.var() - var) / var
+        p = float(st.kstest(x, getattr(st, dist)(*params).cdf).pvalue) \
+            if st else None
+        good = dm < 6 and dv < 0.02 and (p is None or p > 1e-4)
+        ok &= good
+        out[name] = dict(mean_se=float(dm), var_rel=float(dv), ks_p=p,
+                         ok=good)
+    c = mx.np.random.choice(4, size=(n,), p=[0.1, 0.2, 0.3, 0.4],
+                            ctx=gpu).asnumpy()
+    freq = np.bincount(c, minlength=4) / n
+    out["choice"] = freq.tolist()
+    ok &= bool(np.abs(freq - [0.1, 0.2, 0.3, 0.4]).max() < 0.005)
+    return dict(draws=n, dists=out, ok=bool(ok))
+
+
+def _linalg_card(torch, mx):
+    """``np.linalg`` at (LINALG_N, LINALG_N) f32 on the card: each
+    result's reconstruction (relative norm within LINALG_TOL), the
+    inverses and solves on a symmetric positive definite matrix, the
+    factorizations on a Gaussian one."""
+    rng = np.random.RandomState(SEED + 263)
+    n = LINALG_N
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    spd = (a @ a.T / n + np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, 4)).astype(np.float32)
+    la = mx.np.linalg
+    A, S, B = (mx.np.array(x, ctx=mx.gpu(0)) for x in (a, spd, b))
+
+    def rel(x, y):
+        x, y = (t._data if hasattr(t, "_data") else t for t in (x, y))
+        return float(torch.linalg.norm((x - y).to(torch.complex128)) /
+                     torch.linalg.norm(y.to(torch.complex128)))
+
+    eye = mx.np.eye(n, ctx=mx.gpu(0))
+    errs = {}
+    # the inverses and solves on the well-conditioned S (a Gaussian A of
+    # this size is near-singular at f32's tolerance); the factorizations
+    # on A
+    errs["inv"] = rel(mx.np.matmul(S, la.inv(S)), eye)
+    errs["solve"] = rel(mx.np.matmul(S, la.solve(S, B)), B)
+    u, s, vh = la.svd(A, full_matrices=False)
+    errs["svd"] = rel(mx.np.matmul(u * s, vh), A)
+    w, v = la.eigh(S)
+    errs["eigh"] = rel(mx.np.matmul(S, v), v * w)
+    q, r = la.qr(A)
+    errs["qr"] = rel(mx.np.matmul(q, r), A)
+    l_ = la.cholesky(S)
+    errs["cholesky"] = rel(mx.np.matmul(l_, mx.np.transpose(l_)), S)
+    we, ve = la.eig(A)
+    Ac = A._data.to(torch.complex64)
+    errs["eig"] = rel(Ac @ ve._data, ve._data * we._data)
+    errs["pinv"] = rel(mx.np.matmul(S, la.pinv(S)), eye)
+    x, _, rank, _ = la.lstsq(S, B)
+    errs["lstsq"] = rel(mx.np.matmul(S, x), B)
+    sign, logdet = la.slogdet(S)
+    errs["slogdet_vs_cpu"] = abs(float(logdet.item()) - float(
+        np.linalg.slogdet(spd.astype(np.float64))[1])) / abs(float(
+            logdet.item()))
+    worst = max(errs.values())
+    return dict(n=n, rel_norm=errs, worst=worst, rank=int(rank.item()),
+                ok=worst <= LINALG_TOL and int(rank.item()) == n)
+
+
+def custom_rtc_phase(torch, mx, failures):
+    """Phase 26c: ``nd.Custom`` on the card (a sigmoid whose forward and
+    backward go through the host, ``asnumpy`` and ``nd.array``), eager
+    and under ``record()``, against torch's sigmoid; the same op inside
+    a hybridized block on two different inputs: each output follows its
+    own input and the block runs eagerly (``cache_stats()["eager"]``,
+    no graph); a capture that reaches it raises naming the op; and
+    ``rtc.PallasKernel`` wrapping a torch callable, value and gradient
+    against plain torch."""
+    from mxnet_tpu_torch import cuda_graph
+
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0],
+                        mx.nd.array(1.0 / (1.0 + np.exp(-x))))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad,
+                     aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0], mx.nd.array(
+                out_grad[0].asnumpy() * y * (1 - y)))
+
+    @mx.operator.register("chip_sigmoid")
+    class SigmoidProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 264)
+    x = torch.randn((256, 512), generator=gen, device="cuda")
+    xa = mx.nd.array(x)
+    eager = mx.nd.Custom(xa, op_type="chip_sigmoid")
+    res = {"eager_err": float((eager._data - torch.sigmoid(x)).abs().max()),
+           "on_card": eager._data.is_cuda}
+    xa.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.Custom(xa, op_type="chip_sigmoid")
+        (y * y).sum().backward()
+    s = torch.sigmoid(x)
+    res["grad_err"] = float((xa.grad._data.detach() - 2 * s * s * (1 - s))
+                            .abs().max())
+
+    class Block(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, a):
+            return F.Custom(a * 2, op_type="chip_sigmoid") + 1
+
+    blk = Block()
+    blk.hybridize(static_alloc=True)
+    x2 = torch.randn((256, 512), generator=gen, device="cuda")
+    o1 = blk(mx.nd.array(x))._data.clone()
+    o2 = blk(mx.nd.array(x2))._data.clone()
+    res["hybrid_errs"] = [float((o - torch.sigmoid(2 * v) - 1).abs().max())
+                          for o, v in ((o1, x), (o2, x2))]
+    res["hybrid_cache_stats"] = blk.cache_stats()
+    try:
+        cuda_graph.capture(lambda: mx.nd.Custom(
+            mx.nd.array(x), op_type="chip_sigmoid")._data)
+        res["capture"] = "captured"
+    except mx.MXNetError as exc:
+        res["capture"] = str(exc)[:120]
+    torch.cuda.synchronize()
+
+    k = mx.rtc.PallasKernel(lambda a, b: torch.tanh(a) * b, name="tanh_mul")
+    a = mx.nd.array(x)
+    b = mx.nd.array(x2)
+    a.attach_grad()
+    with mx.autograd.record():
+        out = k(a, b)
+        (out * out).sum().backward()
+    t = torch.tanh(x)
+    res["pallas_kernel_err"] = float((out._data - t * x2).abs().max())
+    res["pallas_kernel_grad_err"] = float(
+        (a.grad._data - 2 * t * x2 * x2 * (1 - t * t)).abs().max())
+    errs = [res["eager_err"], res["grad_err"], *res["hybrid_errs"],
+            res["pallas_kernel_err"], res["pallas_kernel_grad_err"]]
+    stats = res["hybrid_cache_stats"]
+    res["ok"] = ok = res["on_card"] and max(errs) < 1e-5 and \
+        stats.get("eager") == 2 and stats["signatures"] == 1 and \
+        "chip_sigmoid" in res["capture"]
+    emit(dict(phase="custom_rtc", card=STASH["smi"], **res))
+    if not ok:
+        failures.append(f"custom/rtc on the card: {res}")
+
+
+def tools_phase(torch, mx, vision, bert, cbr, failures):
+    """Phase 26d: ``Monitor`` on an eager ResNet-50 v1 bf16 B=32
+    evaluation forward (its stats collected, #4 still launching 16
+    times: observers leave the fused runs fused), its ms against the
+    unmonitored forward's; ``runtime.Features()``
+    (CUDA true, TPU false); ``test_utils.check_consistency([mx.cpu(),
+    mx.gpu(0)])`` on a BERT-base encoder layer (f32, flash on the card,
+    its plain version on the CPU); ``visualization.print_summary`` of
+    phase 25a's ResNet-50 symbol (its text in ``chiprun_out/``).
+    Returns #4's launches (and its tensor-core ones) in the monitored
+    forward."""
+    import contextlib
+    import io
+
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    res = {}
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 265)
+    x = mx.nd.array(torch.rand((MON_B, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+    def forward():
+        with mx.autograd.predict_mode():
+            return net(x)._data
+
+    plain = forward().clone()
+    plain_ms = _host_ms(torch, forward, 3)
+    mon = mx.monitor.Monitor(1, sort=True)
+    mon.install(net)
+
+    def monitored():
+        mon.tic()
+        forward()
+        return mon.toc()
+
+    monitored_ms = _host_ms(torch, monitored, 3)
+    fused = cbr.fused_matmul_affine_relu
+    fused.launches = fused.launches_mma = 0  # the monitored forward
+    mon.tic()
+    with mx.autograd.predict_mode():
+        out = net(x)._data
+    rows = mon.toc()
+    launches, mma = fused.launches, fused.launches_mma  # ... ends here
+    mon.uninstall()
+    stats = [float(r[2]) for r in rows]
+    res["monitor"] = dict(rows=len(rows), launches=launches,
+                          launches_mma=mma, first=rows[:2],
+                          plain_forward_ms=plain_ms,
+                          monitored_forward_ms=monitored_ms,
+                          finite=bool(np.isfinite(stats).all()),
+                          output_equal=bool(torch.equal(out, plain)))
+    del net, x, out, plain
+    free_card(torch)
+    feats = mx.runtime.Features()
+    res["features"] = {k: feats.is_enabled(k) for k in
+                       ("CUDA", "CUDNN", "NCCL", "TPU", "PALLAS",
+                        "NATIVE_ENGINE")}
+    # check_consistency on a BERT-base encoder layer, CPU then card
+    cells = {}
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        cell = bert.BERTEncoderCell(768, 3072, 12, dropout=0.0,
+                                    prefix="cell_")
+        cells[ctx] = cell
+    xs = np.random.RandomState(SEED + 266).standard_normal(
+        (CONSIST_B, BERT_T, 768)).astype(np.float32)
+    host = cells[mx.cpu()]
+    mx.random.seed(SEED)
+    host.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    host(mx.nd.array(xs, ctx=mx.cpu()))
+    load_numpy_params(cells[mx.gpu(0)], {
+        k: p.data().asnumpy()
+        for k, p in host._collect_params_with_prefix().items()},
+        ctx=mx.gpu(0))
+    worst = []
+    mx.test_utils.check_consistency(
+        lambda a: cells[a.context](a), [xs], [mx.cpu(), mx.gpu(0)],
+        rtol=CONSIST_RTOL, atol=CONSIST_ATOL, collect=worst.append)
+    res["consistency_max_rel_err"] = worst[0]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        total = mx.visualization.print_summary(
+            resnet50_symbol(mx)[0], shape={"data": (1, 3, 224, 224),
+                                        "softmax_label": (1,)})
+    text = buf.getvalue()
+    if os.path.isdir("chiprun_out"):
+        with open("chiprun_out/print_summary_resnet50.txt", "w") as f:
+            f.write(text)
+    res["print_summary"] = dict(total_params=total,
+                                lines=len(text.splitlines()))
+    want_feats = {"CUDA": True, "TPU": False, "PALLAS": False}
+    ok = launches == 16 and res["monitor"]["rows"] > 100 and \
+        res["monitor"]["finite"] and res["monitor"]["output_equal"] and \
+        all(res["features"][k] == v for k, v in want_feats.items()) and \
+        25_000_000 < total < 26_000_000
+    emit(dict(phase="tools", card=STASH["smi"], ok=ok, **res))
+    if not ok:
+        failures.append(f"tools on the card: {res}")
+    free_card(torch)
+    return launches, mma
+
+
 def main():
     import torch
 
@@ -8261,6 +9048,17 @@ def main():
     if 0 in (exp_fused[0], exp_flash[0]):
         failures.append(f"an exported program launched no kernel: #4 "
                         f"{exp_fused}, #1 {exp_flash}")
+    # slice 18: the NumPy front end, custom ops, the Estimator, the tools
+    est, est_mma = estimator_bert_phase(torch, mx, bert, fa, mt, failures)
+    update_launches += est[3]
+    np_card_phase(torch, mx, failures)
+    custom_rtc_phase(torch, mx, failures)
+    mon = tools_phase(torch, mx, vision, bert, cbr, failures)
+    fused_launches += mon[0]
+    fused_mma += mon[1]
+    if 0 in est or mon[0] == 0:
+        failures.append(f"slice 18 left a kernel unlaunched: fit {est}, "
+                        f"monitored forward {mon}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -8281,20 +9079,20 @@ def main():
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
         pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0] + \
-        exp_flash[0]
+        exp_flash[0] + est[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
         mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
-        moe_infer[1] + moe_tr_mma[0] + exp_flash[1]
+        moe_infer[1] + moe_tr_mma[0] + exp_flash[1] + est_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
-        pp_launches[1] + gm_launches[1] + moe_tr[1]
+        pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
-        ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1]
+        ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1] + est_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
         packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
-        pp_launches[2] + gm_launches[2] + moe_tr[2]
+        pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
-        ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2]
+        ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2] + est_mma[2]
     if moe_infer[0] == 0 or 0 in moe_tr:
         failures.append(f"the MoE paths left a kernel unlaunched: "
                         f"{moe_infer}, {moe_tr}")
@@ -8325,6 +9123,7 @@ def main():
          "launches_moe": moe_infer[0],
          "launches_moe_train": moe_tr[0],
          "launches_exported": exp_flash[0],
+         "launches_estimator": est[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -8341,6 +9140,7 @@ def main():
          "launches_graph_mesh": gm_launches[1],
          "launches_moe": 0,
          "launches_moe_train": moe_tr[1],
+         "launches_estimator": est[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -8357,6 +9157,7 @@ def main():
          "launches_graph_mesh": gm_launches[2],
          "launches_moe": 0,
          "launches_moe_train": moe_tr[2],
+         "launches_estimator": est[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -8372,6 +9173,7 @@ def main():
          "launches_detection": det_launches,
          "launches_detection_by_net": {k: v[0] for k, v in det.items()},
          "launches_exported": exp_fused[0],
+         "launches_monitor": mon[0],
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -8393,7 +9195,7 @@ def main():
          "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",
          "replaces": "mxnet_tpu/gluon/trainer.py:516",
          "design": "one launch over a device table, bf16 SGD momentum",
-         "launches_bert": bert_updates,
+         "launches_bert": bert_updates, "launches_estimator": est[3],
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],

@@ -34,7 +34,11 @@ Gluon, ``metric`` and ``callback`` with the rest of the vision model zoo
 (MobileNet, Inception v3, DenseNet, VGG, AlexNet, SqueezeNet), and the
 data plane: ``recordio`` with the native reader (``_native``), ``io``,
 ``image``, ``gluon.data`` and the streaming ``data`` loader with packed
-Llama pretraining; ROADMAP Queue 1 lists what follows.
+Llama pretraining, and the rest through the NumPy front end (``np``,
+``npx``), custom ops (``operator``, ``nd.Custom``), ``rtc``,
+``gluon.contrib`` (the Estimator) and the tools (``util``, ``runtime``,
+``test_utils``, ``monitor``, ``visualization``); ROADMAP Queue 1 lists
+what follows.
 
 Precision: importing the package turns off, once and for the whole
 process, the torch flags that would let an f32 product run in TF32
@@ -99,6 +103,18 @@ from . import model
 from . import predictor
 from . import contrib
 from . import rnn
+from . import util
+from . import numpy
+from . import numpy as np
+from . import numpy_extension
+from . import numpy_extension as npx
+from . import operator
+from . import rtc
+from . import test_utils
+from . import runtime
+from . import monitor
+from . import visualization
+from . import visualization as viz
 
 from . import _left_out
 

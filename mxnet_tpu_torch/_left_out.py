@@ -1,25 +1,17 @@
 """Public names of the reference that the port has not ported yet, with
 the ROADMAP.md list that owns each: reading one raises ``MXNetError``
-naming that list (never ``AttributeError``).  ``mx`` and ``nd`` install
-``refuse`` as their module ``__getattr__``."""
+naming that list (never ``AttributeError``).  ``mx`` and the modules
+with such names install ``refuse`` as their module ``__getattr__``."""
 from __future__ import annotations
 
 from .base import MXNetError
 
 _6 = "Left out of slice 6"
 _7 = "Left out of slice 7"
-_8G = "Queue 1 item 8g"
 _9 = "Queue 1 item 9, observability and tooling"
 _NC = "Not carried over"
 
-MX = {
-    **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
-                     "operator", "rtc"), _8G),
-    **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
-                     "test_utils", "util", "visualization", "viz"), _9),
-}
-
-ND = {"Custom": _8G}
+MX = dict.fromkeys(("sanitizer", "telemetry"), _9)
 
 # the reference's bulk segment compiler and async executor: a CUDA stream
 # is already asynchronous (``engine.py``)

@@ -126,6 +126,16 @@ def lib():
         return _LIB
 
 
+def available():
+    """Whether the native library builds and loads here (the reference's
+    ``_native.available()``)."""
+    try:
+        lib()
+    except Exception:
+        return False
+    return True
+
+
 def _i64arr(values):
     return (ctypes.c_int64 * len(values))(*values)
 

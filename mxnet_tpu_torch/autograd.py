@@ -18,9 +18,11 @@ reference.
 
 ``retain_graph=False`` frees the graph after one backward; a second
 backward through it raises ``MXNetError`` and leaves the reached
-``"write"`` gradients zero.  Higher-order gradients
-(``create_graph=True``) are left out of slice 9 (ROADMAP.md): they
-raise.  The reference's tape node (``Node``) has no counterpart here:
+``"write"`` gradients zero.  ``grad(create_graph=True)`` returns
+gradients that stay in torch's graph, so a later backward through them
+gives higher-order gradients; an op whose backward is first-order only
+(the flash kernels, the norms and the fused losses, ``first_order_only``)
+raises there rather than return a wrong second derivative.  The reference's tape node (``Node``) has no counterpart here:
 reading it raises ``MXNetError`` naming its ROADMAP list.
 ``get_symbol`` raises ``NotImplementedError`` as the reference's stub
 does.
@@ -208,10 +210,11 @@ def _given_seed(r, g):
     return replicate_plain([r, g.to(r.dtype)])[1]
 
 
-def _grads(roots, seeds, tensors, retain_graph):
+def _grads(roots, seeds, tensors, retain_graph, create_graph=False):
     try:
         return torch.autograd.grad(roots, tensors, seeds,
                                    retain_graph=retain_graph,
+                                   create_graph=create_graph,
                                    allow_unused=True)
     except RuntimeError as exc:
         if "second time" not in str(exc):
@@ -268,10 +271,6 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     ``autograd.grad``).  A variable the heads do not reach gets zeros."""
     from .ndarray import NDArray
 
-    if create_graph:
-        raise MXNetError(
-            "autograd.grad(create_graph=True) (higher-order gradients) is "
-            "left out of slice 9 (ROADMAP.md, \"Left out of slice 9\")")
     if isinstance(variables, NDArray):
         variables = [variables]
     for v in variables:
@@ -279,10 +278,28 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
             raise MXNetError("autograd.grad: a variable was not attached "
                              "(call .attach_grad() before recording)")
     roots, seeds = _as_lists(heads, head_grads)
+    if retain_graph is None:
+        retain_graph = create_graph
     grads = _grads(roots, seeds, [v._data for v in variables],
-                   bool(retain_graph))
+                   bool(retain_graph), create_graph)
+    if create_graph:  # the gradients stay in the graph
+        return [NDArray(torch.zeros_like(v._data) if g is None else g)
+                for v, g in zip(variables, grads)]
     return [NDArray(torch.zeros_like(v._data) if g is None else g.detach())
             for v, g in zip(variables, grads)]
+
+
+def first_order_only(what):
+    """Called first in the backward of an op whose backward is not itself
+    differentiable (a hand-written kernel's, or one that reuses forward
+    statistics as constants): raises ``MXNetError`` when that backward
+    runs under ``grad(create_graph=True)``, which torch runs with its
+    gradient mode on, so a second derivative is never silently wrong."""
+    if torch.is_grad_enabled():
+        raise MXNetError(
+            f"{what} has a first-order backward only: "
+            "autograd.grad(create_graph=True) cannot differentiate it "
+            "again (its second derivative would be wrong)")
 
 
 def mark_variables(variables, gradients, grad_reqs="write"):

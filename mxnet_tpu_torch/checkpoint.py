@@ -669,3 +669,9 @@ def prune_checkpoints(ckpt_dir, keep=3):
     for _step, path in ckpts[:-keep] if keep > 0 else ckpts:
         shutil.rmtree(path, ignore_errors=True)
     _sweep_stale_tmp(ckpt_dir)
+
+
+from . import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.checkpoint")

@@ -67,6 +67,27 @@ def count(fn, attr="launches"):
             tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
 
 
+def host_op(name):
+    """Note that an op that runs host code (``nd.Custom``) ran on this
+    thread; raises ``MXNetError`` naming it while the current stream
+    captures: a graph would replay its first result.  ``CachedOp`` reads
+    ``host_ops()`` around a signature's first run and runs such a
+    signature eagerly on every call."""
+    if torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing():
+        raise MXNetError(
+            f"{name} runs host code, which a CUDA graph cannot capture "
+            "(its replays would return the first call's result); run the "
+            "block without capture (hybridize(False)) or outside "
+            "FusedTrainStep")
+    _STATE.host_ops = getattr(_STATE, "host_ops", 0) + 1
+
+
+def host_ops():
+    """How many host-code ops this thread has run (``host_op``)."""
+    return getattr(_STATE, "host_ops", 0)
+
+
 def capturing():
     """True while this thread runs a capture or its warm-up (nested
     hybridized blocks then run their forwards inline)."""

@@ -41,6 +41,7 @@ from ..base import MXNetError
 from ..context import current_context
 from ..ndarray import NDArray
 from .packing import PackedBatch
+from .. import engine  # noqa: F401  (the reference's import)
 
 __all__ = ["DevicePrefetcher"]
 
@@ -288,3 +289,9 @@ class DevicePrefetcher:
             self.close()
         except Exception:
             pass
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.data.prefetch")

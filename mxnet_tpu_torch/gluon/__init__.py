@@ -16,3 +16,4 @@ from . import utils
 from . import model_zoo
 from . import data
 from . import rnn
+from . import contrib

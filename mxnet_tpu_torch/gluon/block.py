@@ -42,6 +42,9 @@ from ..parallel.local import any_dtensor, local
 from ..context import current_context
 from .parameter import (Parameter, ParameterDict,
                         DeferredInitializationError)
+from ..context import Context  # noqa: F401,E402
+from ..ndarray import NDArray  # noqa: F401,E402
+from .utils import HookHandle  # noqa: F401,E402
 
 
 def _left_out(what):
@@ -121,6 +124,7 @@ class Block:
         self._reg_params = {}
         self._forward_pre_hooks = OrderedDict()
         self._forward_hooks = OrderedDict()
+        self._observers = OrderedDict()
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -268,6 +272,8 @@ class Block:
             out = self.forward(*args)
         for hook in tuple(self._forward_hooks.values()):
             hook(self, args, out)
+        for obs in tuple(self._observers.values()):
+            obs(self, args, out)
         return out
 
     def register_forward_pre_hook(self, hook):
@@ -286,6 +292,17 @@ class Block:
 
         handle = HookHandle()
         handle.attach(self._forward_hooks, hook)
+        return handle
+
+    def _register_observer(self, hook):
+        """Run ``hook(block, inputs, outputs)`` after each forward, like a
+        forward hook, but as an observer that changes nothing: a fused
+        1×1 conv + BatchNorm + ReLU run stays fused and reports each of
+        its blocks' outputs (``monitor.Monitor``)."""
+        from .utils import HookHandle
+
+        handle = HookHandle()
+        handle.attach(self._observers, hook)
         return handle
 
     def apply(self, fn):
@@ -337,20 +354,42 @@ class CachedOp:
         self._hits = 0
         self._misses = 0
         self._recorded = 0
+        self._eager = 0
 
     def cache_stats(self):
         """``{"hits", "misses", "signatures"}`` as in the reference, and
         ``"recorded"``: calls under ``autograd.record()``, which ran
-        eagerly."""
-        return {"hits": self._hits, "misses": self._misses,
-                "signatures": len(self._graphs),
-                "recorded": self._recorded}
+        eagerly.  Once a signature's forward has reached a host-code op
+        (``nd.Custom``), ``"eager"`` counts its calls, each run eagerly
+        (a graph would replay the first call's result)."""
+        stats = {"hits": self._hits, "misses": self._misses,
+                 "signatures": len(self._graphs),
+                 "recorded": self._recorded}
+        if self._eager:
+            stats["eager"] = self._eager
+        return stats
+
+    def _first_run(self, run):
+        """``run()`` for a signature's first call; its entry is
+        ``"eager"`` when the forward ran a host-code op."""
+        n = cuda_graph.host_ops()
+        out = run()
+        if cuda_graph.host_ops() != n:
+            self._eager += 1
+            return out, "eager"
+        return out, None
 
     def _inline(self, args):
         with cuda_graph.scope():
             return self.block._imperative_forward(*args)
 
     def __call__(self, *args):
+        """The block's outputs as the classic ``NDArray``, on every route
+        (the reference's compiled graph returns that type, also for a
+        forward that makes ``mx.np`` arrays)."""
+        return _map_out(self._call(*args), _classic)
+
+    def _call(self, *args):
         from ..ndarray import NDArray
 
         params = list(self.block.collect_params().values())
@@ -373,13 +412,17 @@ class CachedOp:
                ag.is_training(), amp.target_dtype(),
                tuple((p.shape, p.dtype) for p in params))
         entry = self._graphs.get(sig)
+        if entry == "eager":
+            self._eager += 1
+            return self._inline(args)
         if not all(a._data.is_cuda for a in arrays) or \
                 not all(p._data._data.is_cuda for p in params):
             if entry is None:
                 self._misses += 1
-                self._graphs[sig] = True
-            else:
-                self._hits += 1
+                out, eager = self._first_run(lambda: self._inline(args))
+                self._graphs[sig] = eager or True
+                return out
+            self._hits += 1
             return self._inline(args)
         # addresses within a signature, which holds shapes and dtypes
         # (each rank's local pieces under a mesh)
@@ -405,8 +448,10 @@ class CachedOp:
         from ..ndarray import NDArray
 
         statics = [None if a is None else a._data.clone() for a in args]
-        out = cuda_graph.warmup(lambda: self.block._imperative_forward(
-            *args))
+        out, eager = self._first_run(lambda: cuda_graph.warmup(
+            lambda: self.block._imperative_forward(*args)))
+        if eager:
+            return out, eager
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         placed = [a._data for a in args if a is not None] + \
@@ -419,6 +464,14 @@ class CachedOp:
                 lambda o: o._data),
             pool=self._pool, mode="thread_local")
         return out, (ptrs, statics, graph)
+
+
+def _classic(o):
+    """An ``mx.np`` array as the classic ``NDArray`` over the same tensor;
+    anything else as it is."""
+    from ..numpy import ndarray
+
+    return o.as_nd_ndarray() if isinstance(o, ndarray) else o
 
 
 def _map_out(out, fn):
@@ -544,3 +597,9 @@ class SymbolBlock(HybridBlock):
             raise MXNetError(
                 "SymbolBlock not bound; construct via SymbolBlock.imports")
         return self._fn(F, args, params)
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.gluon.block")

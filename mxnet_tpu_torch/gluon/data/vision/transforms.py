@@ -11,6 +11,9 @@ import numpy as np
 from ...block import Block, HybridBlock
 from ...nn import Sequential
 from .... import ndarray as nd
+from ....base import MXNetError  # noqa: F401
+from ....ndarray import NDArray  # noqa: F401
+from ...nn import HybridSequential  # noqa: F401
 
 __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize",
            "CenterCrop", "RandomResizedCrop", "RandomFlipLeftRight",

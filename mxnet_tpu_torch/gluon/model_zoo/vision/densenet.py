@@ -12,6 +12,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ... import nn
 from .resnet import _finish
+from ....base import MXNetError  # noqa: F401
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201"]

@@ -13,6 +13,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ... import nn
 from .resnet import _finish
+from ....base import MXNetError  # noqa: F401
 
 __all__ = ["MobileNet", "MobileNetV2",
            "mobilenet1_0", "mobilenet0_75", "mobilenet0_5", "mobilenet0_25",

@@ -9,6 +9,7 @@ from __future__ import annotations
 from ...block import HybridBlock
 from ... import nn
 from .resnet import _finish
+from ....base import MXNetError  # noqa: F401
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn",
            "vgg13_bn", "vgg16_bn", "vgg19_bn", "get_vgg"]

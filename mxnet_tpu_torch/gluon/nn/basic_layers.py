@@ -19,7 +19,9 @@ v1 1.0 the 13 pointwise convolutions, in Inception v3 the 40 1×1
 bottleneck 1×1 convolutions of the dense layers.  A run whose blocks
 carry a forward hook or pre-hook, or whose conv had its forward rewritten
 on the instance (``quantize_net``), runs block by block, as the
-reference runs every run.
+reference runs every run.  Observers (``Monitor``) do not unfuse a run:
+they get the conv's and the BatchNorm's outputs from those layers,
+computed for them alone, and the ReLU's from the fused op.
 """
 from __future__ import annotations
 
@@ -82,6 +84,19 @@ def _conv1x1_bn_relu(x, conv, bn):
     return apply_op(f, *args, name="conv1x1_bn_relu")
 
 
+def _observe_fused(blocks, x, out):
+    """Report a fused run's blocks to their observers (``Monitor``): the
+    conv's and the BatchNorm's outputs from their own layers, computed
+    for the observers alone, and the ReLU's from the fused op."""
+    conv, bn, act = blocks
+    if not (conv._observers or bn._observers or act._observers):
+        return
+    with autograd.pause():
+        y = bn(conv(x))
+    for obs in tuple(act._observers.values()):
+        obs(act, (y,), out)
+
+
 class _SequentialAccess:
     """add, iteration, len and indexing (a slice gives a new container of
     the same kind, under the same prefix) of the sequential blocks."""
@@ -128,7 +143,9 @@ class HybridSequential(_SequentialAccess, HybridBlock):
             if fold_bn and i + 2 < len(blocks) and \
                     _fusable(*blocks[i:i + 3]) and \
                     (not training or blocks[i + 1]._use_global_stats):
+                x_in = x
                 x = _conv1x1_bn_relu(x, blocks[i], blocks[i + 1])
+                _observe_fused(blocks[i:i + 3], x_in, x)
                 i += 3
             else:
                 x = blocks[i](x)

@@ -374,3 +374,9 @@ def _write_scalars(table, lrs, wds, t):
     host = torch.tensor([lrs, wds, [float(x) for x in t]],
                         dtype=torch.float32).pin_memory()
     table.copy_(host, non_blocking=True)
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.gluon.step_fusion")

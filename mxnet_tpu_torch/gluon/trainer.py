@@ -509,3 +509,9 @@ def _copy_state(holder, value, name):
                          "this optimizer's")
     for h, v in zip(holder, value):
         _copy_state(h, v, name)
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.gluon.trainer")

@@ -21,6 +21,7 @@ from ..base import MXNetError
 from ..context import current_context
 from ..io import DataBatch, DataDesc, DataIter, _to_device
 from . import imdecode_raw, imresize
+from ..ndarray import NDArray  # noqa: F401
 
 __all__ = ["DetAugmenter", "DetHorizontalFlipAug", "DetResizeAug",
            "DetRandomCropAug", "CreateDetAugmenter", "ImageDetIter"]

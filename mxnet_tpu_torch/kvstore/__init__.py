@@ -240,3 +240,9 @@ def create(name="local"):
 
         return AsyncPSKVStore()
     raise MXNetError(f"unknown kvstore type {name!r}")
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.kvstore")

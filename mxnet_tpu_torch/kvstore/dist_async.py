@@ -770,3 +770,9 @@ class AsyncPSKVStore:
             self.close()
         except Exception:
             pass
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.kvstore.dist_async")

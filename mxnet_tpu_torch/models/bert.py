@@ -21,6 +21,7 @@ import numpy as np
 from ..gluon.block import HybridBlock
 from ..gluon import nn
 from .transformer import MultiHeadAttention
+from ..base import MXNetError  # noqa: F401
 
 __all__ = ["BERTEncoder", "BERTModel", "bert_base", "bert_large",
            "bert_tiny", "BERTClassifier", "BERT_CONFIGS", "bert_to_symbol",

@@ -32,6 +32,7 @@ import torch
 
 from ..context import current_context
 from ..ndarray import NDArray
+from ..base import MXNetError  # noqa: F401
 
 __all__ = ["FMModel"]
 

@@ -38,6 +38,7 @@ from .ndarray import NDArray
 from . import contrib  # noqa: F401  (mx.nd.contrib namespace)
 from . import sparse  # noqa: F401  (mx.nd.sparse namespace)
 from .sparse import cast_storage  # noqa: F401
+from ..operator import custom as Custom  # noqa: F401  (mx.nd.Custom)
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -169,8 +170,3 @@ def from_dlpack(capsule):
     """An NDArray over a DLPack capsule or any ``__dlpack__`` object,
     sharing its memory (reference ``nd.from_dlpack``)."""
     return NDArray(torch.utils.dlpack.from_dlpack(capsule))
-
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(_lo.ND, "mxnet_tpu_torch.ndarray")

@@ -36,6 +36,14 @@ def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
     return torch.as_tensor(np.array(value), device=device).to(dtype=dtype)
 
 
+def creation_place(raw, ctx=None):
+    """``raw`` placed for a newly created array: on ``ctx``, else the
+    current context (the reference's placement helper; under an active
+    mesh the port's ops replicate plain operands themselves,
+    ``parallel.local.replicate_plain``)."""
+    return raw.to((ctx or current_context()).device)
+
+
 class NDArray:
     """A tensor handle with MXNet NDArray semantics over ``torch.Tensor``."""
 
@@ -400,3 +408,9 @@ for _op in ("reshape_like", "transpose", "swapaxes", "flatten",
             "relu", "softmax", "log_softmax", "dot", "one_hot", "take",
             "pick", "slice_axis", "split", "zeros_like", "ones_like"):
     setattr(NDArray, _op, _method(_op))
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
+                         "mxnet_tpu_torch.ndarray.ndarray")

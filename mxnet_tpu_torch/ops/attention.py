@@ -35,6 +35,8 @@ import torch
 
 from .flash_attention import flash_attention_raw
 from .registry import apply_op, register
+from ..base import MXNetError  # noqa: F401
+from .registry import make_exporter  # noqa: F401
 
 __all__ = ["sdpa_raw", "dot_product_attention", "div_sqrt_dim",
            "interleaved_matmul_selfatt_qk",

@@ -34,6 +34,7 @@ from .. import _kernels, cuda_graph
 from ..base import MXNetError, resolve_dtype
 from .nn_ops import _capturing, _tup
 from .registry import apply_op, exporter
+from .registry import make_exporter  # noqa: F401
 
 __all__ = []
 _export = exporter(__all__)

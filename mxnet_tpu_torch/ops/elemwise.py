@@ -18,6 +18,7 @@ import math
 import torch
 
 from .registry import apply_op, exporter
+from .registry import commit_out, make_exporter  # noqa: F401
 
 __all__ = []
 _export = exporter(__all__)

@@ -43,6 +43,7 @@ import torch
 
 from ..base import MXNetError
 from .. import _kernels, cuda_graph
+from .. import autograd as ag
 from ..parallel.local import any_dtensor, as_global, is_dtensor, \
     sharded_call
 
@@ -390,6 +391,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        ag.first_order_only("flash attention (the dQ and dK/dV kernels)")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
                                          ctx.causal, ctx.scale)
@@ -416,3 +418,13 @@ def flash_attention_raw(q, k, v, causal=False, scale=None):
             (q, k, v), (spec, spec, spec), spec,
             strict=q.device.type == "cuda", what="flash_attention")
     return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+def flash_attention(query, key, value, causal=False, scale=None, **kwargs):
+    """NDArray-level op over (B, H, T, D) operands: ``flash_attention_raw``
+    through ``apply_op`` (the reference's ``flash_attention``)."""
+    from .registry import apply_op
+
+    return apply_op(
+        lambda q, k, v: flash_attention_raw(q, k, v, causal, scale),
+        query, key, value, name="flash_attention")

@@ -40,7 +40,9 @@ import torch
 import torch.nn.functional as tnf
 
 from ..base import MXNetError
+from .. import autograd as ag
 from .registry import apply_op, register
+from .registry import accum_dtype, make_exporter  # noqa: F401
 
 __all__ = ["activation", "leaky_relu", "hard_sigmoid", "fully_connected",
            "convolution", "deconvolution", "upsampling", "pooling",
@@ -242,6 +244,7 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
+        ag.first_order_only("BatchNorm")
         x, g, mean, inv = ctx.saved_tensors
         red, shape = ctx.red, ctx.shape
         m = math.prod(x.shape[i] for i in red)
@@ -287,6 +290,7 @@ class _SyncBNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
+        ag.first_order_only("SyncBatchNorm")
         x, g, mean, inv = ctx.saved_tensors
         red, shape = ctx.red, ctx.shape
         xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
@@ -400,6 +404,7 @@ class _LNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        ag.first_order_only("LayerNorm")
         x, g, mean, inv = ctx.saved_tensors
         ax, shape = ctx.ax, ctx.shape
         xhat = (x.float() - mean) * inv
@@ -485,6 +490,7 @@ class _SoftmaxCESum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        ag.first_order_only("softmax_cross_entropy")
         x, lse, label = ctx.saved_tensors
         p = x.to(torch.float32, copy=True)  # one f32 buffer, in place
         p.sub_(lse[..., None]).exp_()
@@ -570,6 +576,7 @@ class _Standardize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        ag.first_order_only("InstanceNorm/GroupNorm")
         x, mean, inv = ctx.saved_tensors
         red = ctx.red
         xhat = (x.float() - mean) * inv

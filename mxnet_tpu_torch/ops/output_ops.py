@@ -14,6 +14,8 @@ import math
 import torch
 
 from .registry import apply_op, exporter
+from .. import autograd as ag
+from .registry import make_exporter  # noqa: F401
 
 __all__ = []
 _export = exporter(__all__)
@@ -46,6 +48,7 @@ class _SoftmaxOutput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        ag.first_order_only("SoftmaxOutput")
         out, label = ctx.saved_tensors
         o = ctx.opts
         axis = o["axis"]
@@ -96,6 +99,7 @@ class _RegressionOutput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        ag.first_order_only("a regression output")
         out, label = ctx.saved_tensors
         num_output = max(math.prod(out.shape[1:]), 1)
         grad = ctx.grad_fn(out, label.reshape(out.shape)) * \

@@ -33,6 +33,7 @@ import torch.nn.functional as tnf
 
 from ..base import MXNetError
 from .registry import apply_op, exporter
+from .registry import make_exporter  # noqa: F401
 
 __all__ = []
 _export = exporter(__all__)

@@ -22,6 +22,8 @@ import torch.nn.functional as tnf
 
 from ..base import MXNetError, resolve_dtype
 from .registry import apply_op, exporter
+from .registry import commit_out, make_exporter  # noqa: F401
+from .nn_ops import Flatten, flatten  # noqa: F401  (the reference's home)
 
 __all__ = []
 _export = exporter(__all__)

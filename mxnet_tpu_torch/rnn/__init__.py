@@ -17,6 +17,7 @@ from ..context import current_context
 from ..io import DataBatch, DataDesc, _to_device
 from ..gluon.rnn import (LSTMCell, GRUCell, RNNCell,  # noqa: F401
                          SequentialRNNCell)
+from ..ndarray import NDArray  # noqa: F401
 
 __all__ = ["BucketSentenceIter", "LSTMCell", "GRUCell", "RNNCell",
            "SequentialRNNCell"]

@@ -1060,3 +1060,9 @@ class GenerativeScheduler:
         req.t_done = time.perf_counter()
         self.records.append(req.record(lane=lane, status="error",
                                        error=repr(exc)))
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._9),
+                         "mxnet_tpu_torch.serving.generative")

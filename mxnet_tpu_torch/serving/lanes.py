@@ -659,3 +659,10 @@ class ReplicaDispatcher:
                 self._held = None
             else:
                 time.sleep(self.poll_s)
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(
+    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._9),
+    "mxnet_tpu_torch.serving.lanes")

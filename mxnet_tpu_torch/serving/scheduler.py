@@ -278,3 +278,9 @@ class BatchScheduler:
                               axis=self.output_length_axis)
             picked.append(row)
         return picked if len(picked) > 1 else picked[0]
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._9),
+                         "mxnet_tpu_torch.serving.scheduler")

@@ -49,6 +49,7 @@ from .bucketing import BucketPolicy
 from .generative import _split_mesh  # noqa: F401  (the reference's home)
 from .protocol import Request, ServerClosedError
 from .scheduler import BatchScheduler, RequestQueue
+from .protocol import ServerOverloadedError  # noqa: F401
 
 __all__ = ["ServerConfig", "InferenceServer", "GenerativeServer"]
 
@@ -507,3 +508,10 @@ class GenerativeServer(_ServerBase):
                 for k in ("hits", "misses", "hit_tokens", "evictions",
                           "inserted_blocks", "cached_tokens")}
         return out
+
+
+from .. import _left_out as _lo  # noqa: E402
+
+__getattr__ = _lo.refuse(
+    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._9),
+    "mxnet_tpu_torch.serving.server")

@@ -186,8 +186,19 @@ def test_autograd_grad_and_mark_variables():
     (tg,) = tag.grad(ty, [tx])
     np.testing.assert_allclose(tg.asnumpy(), jg.asnumpy(), rtol=1e-5)
     assert not tx.grad.asnumpy().any()  # grad() leaves the buffer alone
-    with pytest.raises(tmx.MXNetError, match="ROADMAP"):
-        tag.grad(ty, [tx], create_graph=True)
+    # higher-order gradients (ported in slice 18): the gradient stays in
+    # the graph, and its own gradient is the reference's
+    seconds = []
+    for ag, x in ((jag, jx), (tag, tx)):
+        with ag.record():
+            y = (x * x * x).sum()
+            (g,) = ag.grad(y, [x], create_graph=True)
+            z = (g * g).sum()
+        z.backward()
+        seconds.append(x.grad.asnumpy())
+    np.testing.assert_allclose(seconds[1], seconds[0], rtol=1e-5)
+    np.testing.assert_allclose(seconds[1], 36 * a ** 3, rtol=1e-5)
+    tx.grad._data.zero_()
     buf = tmx.nd.array(np.zeros_like(a), ctx=CPU)
     v = tmx.nd.array(a, ctx=CPU)
     tag.mark_variables([v], [buf])

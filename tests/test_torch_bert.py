@@ -42,8 +42,12 @@ def amp_off():
     tamp.turn_off()
 
 
-def _pair(make):
+def _pair(make, seed=0):
+    """The reference net, initialized from ``seed`` (its initializer
+    draws from a key that is otherwise seeded from numpy's global state
+    at the process's first draw), and the port's net with its weights."""
     jnet = make(jbert)
+    jmx.random.seed(seed)
     jnet.initialize(jmx.init.Xavier())
     jnet(jmx.nd.array(np.ones((1, 4), np.int32), dtype="int32"))
     arrays = {k: p.data().asnumpy() for k, p in
@@ -55,7 +59,9 @@ def _pair(make):
 
 @pytest.fixture(scope="module")
 def tiny():
-    return _pair(lambda m: m.bert_tiny(vocab_size=V))
+    # an explicit prefix: the automatic one counts the BERT models built
+    # before in the process, in each package on its own
+    return _pair(lambda m: m.bert_tiny(vocab_size=V, prefix="berttiny_"))
 
 
 def _ids(b, t, seed, lo=0):
@@ -293,9 +299,9 @@ def test_loss_scaler_and_convert_hybrid_block(amp_off):
     assert net.weight.data().dtype == torch.bfloat16
 
 
-def test_symbol_exports_are_left_out(tiny):
-    # left out until slice 17, which ported them (their parity test is
-    # tests/test_torch_onnx.py): the symbol has the reference's JSON
+def test_bert_to_symbol_matches_the_reference(tiny):
+    # the symbol of the same net has the reference's JSON and parameter
+    # names (the ONNX parity test is tests/test_torch_onnx.py)
     jnet, tnet, _ = tiny
     with jmx.name.NameManager(), tmx.name.NameManager():
         tsym, tparams = tbert.bert_to_symbol(tnet, 1, 8)

@@ -2612,3 +2612,178 @@ def test_export_reaching_nms_keep_is_refused_on_card(cuda_nvcc, tmp_path):
     net(mx.nd.array(x, ctx=mx.gpu(0)))
     with pytest.raises(MXNetError, match="Left out of slice 17"):
         net.export(str(tmp_path / "nms"))
+
+
+# -- slice 18: the NumPy front end, custom ops, the tools ----------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _register_host_sigmoid(mx, name):
+    """A custom sigmoid whose forward and backward go through the host
+    (``asnumpy``, ``nd.array``)."""
+    class Sigmoid(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            self.assign(out_data[0], req[0],
+                        mx.nd.array(1.0 / (1.0 + np.exp(-x))))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad,
+                     aux):
+            y = out_data[0].asnumpy()
+            self.assign(in_grad[0], req[0], mx.nd.array(
+                out_grad[0].asnumpy() * y * (1 - y)))
+
+    @mx.operator.register(name)
+    class Prop(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sigmoid()
+
+
+@pytest.mark.cuda
+def test_custom_in_a_hybridized_block_follows_each_input_on_card(
+        cuda_nvcc):
+    """Trap 3: two calls on different inputs; the second output follows
+    its own input (a graph replay would return the first call's), and
+    the block runs eagerly on every call."""
+    import mxnet_tpu_torch as mx
+
+    _register_host_sigmoid(mx, "card_sigmoid")
+
+    class Block(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, a):
+            return F.Custom(a * 2, op_type="card_sigmoid") + 1
+
+    blk = Block()
+    blk.hybridize(static_alloc=True)
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        x = rng.normal(size=(4, 5)).astype(np.float32)
+        out = blk(mx.nd.array(x, ctx=mx.gpu(0)))
+        assert out.context == mx.gpu(0)
+        np.testing.assert_allclose(out.asnumpy(),
+                                   1 / (1 + np.exp(-2 * x)) + 1, rtol=1e-6)
+    assert blk.cache_stats() == {"hits": 0, "misses": 1, "signatures": 1,
+                                 "recorded": 0, "eager": 3}
+    a = mx.nd.array(x, ctx=mx.gpu(0))
+    a.attach_grad()
+    with mx.autograd.record():
+        blk(a).backward()
+    s = 1 / (1 + np.exp(-2 * x))
+    np.testing.assert_allclose(a.grad.asnumpy(), 2 * s * (1 - s),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_reaches_custom_is_refused_on_card(cuda_nvcc):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cuda_graph
+
+    _register_host_sigmoid(mx, "card_sigmoid_capture")
+    x = mx.nd.array(np.ones((2, 3), np.float32), ctx=mx.gpu(0))
+    with pytest.raises(MXNetError, match="card_sigmoid_capture"):
+        cuda_graph.capture(lambda: mx.nd.Custom(
+            x, op_type="card_sigmoid_capture")._data)
+    # the card still works after the refused capture
+    y = mx.nd.Custom(x, op_type="card_sigmoid_capture")
+    np.testing.assert_allclose(y.asnumpy(), 1 / (1 + np.exp(-1.0)),
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_np_table_on_card_matches_the_cpu(cuda_nvcc):
+    """Every name of the np table (``chip_smoke.np_cases`` at n = 64) on
+    CUDA tensors against the same call on the CPU, within 1e-5 of the
+    largest |value| (integers and bools exact)."""
+    import mxnet_tpu_torch as mx
+
+    cs = _chip_smoke()
+
+    def conv(a, ctx):
+        if isinstance(a, np.ndarray):
+            return mx.np.array(a, ctx=ctx)
+        if isinstance(a, (list, tuple)) and a and \
+                isinstance(a[0], np.ndarray):
+            return type(a)(conv(x, ctx) for x in a)
+        return a
+
+    seen, bad = set(), []
+    for name, fam, args, kw in cs.np_cases(64):
+        fn = getattr(mx.np, name)
+        got = cs.np_outputs(fn(*[conv(a, mx.gpu(0)) for a in args], **kw))
+        want = cs.np_outputs(fn(*[conv(a, mx.cpu()) for a in args], **kw))
+        errs = [cs.np_rel_err(g, w) for g, w in zip(got, want)]
+        if len(got) != len(want) or max(errs, default=0.0) > 1e-5:
+            bad.append((name, errs))
+        seen.add(name)
+    assert bad == [] and seen == set(mx.np.FUNCTIONS)
+
+
+@pytest.mark.cuda
+def test_monitor_keeps_the_fused_kernel_launching_on_card(cuda_nvcc):
+    """Trap 6: a monitored fusable run still launches #4 and reports its
+    three blocks' outputs; the net's output is the unmonitored one."""
+    import mxnet_tpu_torch as mx
+
+    nn = mx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(64, 1, in_channels=32), nn.BatchNorm(in_channels=64),
+            nn.Activation("relu"))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    x = mx.nd.array(np.random.RandomState(1).normal(
+        size=(2, 32, 14, 14)).astype(np.float32), ctx=mx.gpu(0)) \
+        .astype("bfloat16")
+    plain = net(x).asnumpy()
+    mon = mx.monitor.Monitor(1)
+    mon.install(net)
+    before = cbr.fused_matmul_affine_relu.launches
+    mon.tic()
+    out = net(x).asnumpy()
+    rows = mon.toc()
+    assert cbr.fused_matmul_affine_relu.launches == before + 1
+    assert len(rows) == 3
+    np.testing.assert_array_equal(out, plain)
+    net.hybridize()
+    with pytest.raises(MXNetError, match="item 9"):
+        mx.monitor.Monitor(1).install(net)
+
+
+@pytest.mark.cuda
+def test_runtime_features_on_card(cuda_nvcc):
+    import mxnet_tpu_torch as mx
+
+    feats = mx.runtime.Features()
+    assert feats.is_enabled("CUDA") and feats.is_enabled("CUDNN")
+    assert not feats.is_enabled("TPU") and not feats.is_enabled("PALLAS")
+    assert mx.util.get_gpu_count() == torch.cuda.device_count()
+    free, total = mx.util.get_gpu_memory(0)
+    assert 0 < free <= total
+    assert mx.test_utils.default_context() == mx.gpu(0)
+
+
+@pytest.mark.cuda
+def test_create_graph_through_the_flash_kernels_raises_on_card(cuda_nvcc):
+    """Trap 7: higher-order gradients through #1-#3 raise."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+
+    q = mx.nd.array(np.random.RandomState(2).normal(
+        size=(1, 2, 128, 64)).astype(np.float32), ctx=mx.gpu(0))
+    q.attach_grad()
+    with mx.autograd.record():
+        y = flash_attention(q, q * 0.5, q * 2.0).sum()
+        with pytest.raises(MXNetError, match="first-order"):
+            mx.autograd.grad(y, [q], create_graph=True)
+    with mx.autograd.record():
+        y = flash_attention(q, q * 0.5, q * 2.0).sum()
+    g, = mx.autograd.grad(y, [q])
+    assert np.isfinite(g.asnumpy()).all()

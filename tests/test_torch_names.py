@@ -9,10 +9,16 @@ The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``gluon.model_zoo.detection``, ``nd.contrib``, ``image``, ``models``,
 ``serving``, ``engine``, ``autograd``, ``profiler``, ``base``,
 ``nd.sparse``, ``io``, ``sym``, ``mod``, ``executor``, ``model``,
-``predictor``, ``contrib.onnx``, ``contrib.quantization`` and
-``ops.registry`` in both packages with an explicit list of names
-left out, each with the ROADMAP list that owns it; reading a left-out
-name raises ``MXNetError`` naming that list, never ``AttributeError``.
+``predictor``, ``contrib.onnx``, ``contrib.quantization``,
+``ops.registry``, ``ops``, ``kvstore``, ``checkpoint`` and slice 18's
+``np``, ``np.random``, ``np.linalg``, ``npx``, ``operator``, ``rtc``,
+``gluon.contrib`` (with ``.nn`` and ``.estimator``), ``util``,
+``runtime``, ``test_utils``, ``monitor`` and ``visualization`` in both
+packages with an explicit list of names left out, each with the ROADMAP
+list that owns it; reading a left-out name raises ``MXNetError`` naming
+that list, never ``AttributeError``.  Beyond the pinned namespaces, every
+module the two packages share resolves every public name of the
+reference's (``test_every_shared_module_resolves_the_reference_names``).
 In the namespaces pinned since slice 16 (``MODULE_NS``), names bound to
 objects from outside the two packages (``np``, ``os``, ``OrderedDict``)
 are not API and are not compared.
@@ -28,18 +34,14 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
 CPU = tmx.cpu()
-_8F, _8G, _9 = "item 8f", "item 8g", "item 9"
+_9 = "item 9"
 _6, _7, _NC = "slice 6", "slice 7", "Not carried over"
 
 LEFT_OUT = {
-    "mx": {
-        **dict.fromkeys(("np", "npx", "numpy", "numpy_extension",
-                         "operator", "rtc"), _8G),
-        **dict.fromkeys(("monitor", "runtime", "sanitizer", "telemetry",
-                         "test_utils", "util", "visualization", "viz"), _9),
-    },
-    "nd": {"Custom": _8G},
+    "mx": dict.fromkeys(("sanitizer", "telemetry"), _9),
     "parallel": {"telemetry": _9},
+    "kvstore": {"telemetry": _9},
+    "checkpoint": {"telemetry": _9},
     "serving": dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
                               "prometheus_text"), _6),
     "engine": {**dict.fromkeys(
@@ -54,7 +56,10 @@ LEFT_OUT = {
 MODULE_NS = ("models", "serving", "engine", "autograd", "profiler", "base",
              "nd.sparse", "io", "sym", "mod", "executor", "model",
              "predictor", "contrib.onnx", "contrib.quantization",
-             "ops.registry")
+             "ops.registry", "ops", "kvstore", "checkpoint", "np",
+             "np.random", "np.linalg", "npx", "operator", "rtc",
+             "gluon.contrib", "gluon.contrib.nn", "gluon.contrib.estimator",
+             "util", "runtime", "test_utils", "monitor", "visualization")
 
 
 def _namespaces():
@@ -89,6 +94,20 @@ def _namespaces():
     import mxnet_tpu.contrib.quantization as jquant
     import mxnet_tpu.ops.registry as jreg
     import mxnet_tpu_torch.ops.registry as treg
+    import mxnet_tpu.ops as jops
+    import mxnet_tpu_torch.ops as tops
+    import mxnet_tpu.kvstore as jkvmod
+    import mxnet_tpu.checkpoint as jckpt
+    import mxnet_tpu.numpy as jnp_
+    import mxnet_tpu.numpy_extension as jnpx
+    import mxnet_tpu.operator as jop
+    import mxnet_tpu.rtc as jrtc
+    import mxnet_tpu.gluon.contrib as jgc
+    import mxnet_tpu.util as jutil
+    import mxnet_tpu.runtime as jrt
+    import mxnet_tpu.test_utils as jtu
+    import mxnet_tpu.monitor as jmon
+    import mxnet_tpu.visualization as jviz
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -116,7 +135,19 @@ def _namespaces():
         "predictor": (jpred, tmx.predictor),
         "contrib.onnx": (jonnx, tmx.contrib.onnx),
         "contrib.quantization": (jquant, tmx.contrib.quantization),
-        "ops.registry": (jreg, treg),
+        "ops.registry": (jreg, treg), "ops": (jops, tops),
+        "kvstore": (jkvmod, tmx.kvstore),
+        "checkpoint": (jckpt, tmx.checkpoint),
+        "np": (jnp_, tmx.np), "np.random": (jnp_.random, tmx.np.random),
+        "np.linalg": (jnp_.linalg, tmx.np.linalg), "npx": (jnpx, tmx.npx),
+        "operator": (jop, tmx.operator), "rtc": (jrtc, tmx.rtc),
+        "gluon.contrib": (jgc, tmx.gluon.contrib),
+        "gluon.contrib.nn": (jgc.nn, tmx.gluon.contrib.nn),
+        "gluon.contrib.estimator": (jgc.estimator,
+                                    tmx.gluon.contrib.estimator),
+        "util": (jutil, tmx.util), "runtime": (jrt, tmx.runtime),
+        "test_utils": (jtu, tmx.test_utils), "monitor": (jmon, tmx.monitor),
+        "visualization": (jviz, tmx.visualization),
     }
 
 
@@ -619,6 +650,107 @@ def _slice17_calls():
 @pytest.mark.parametrize("name", sorted(_slice17_calls()))
 def test_names_ported_in_slice_17_resolve_to_working_functions(name):
     assert _slice17_calls()[name]()
+
+
+#: public names of reference modules that are not API: the loop variable
+#: ``row`` of ``ops/elemwise.py``'s op tables
+NOT_API = {"ops.elemwise": {"row"}}
+
+
+def _shared_modules():
+    import importlib
+    import pkgutil
+
+    import mxnet_tpu_torch
+
+    def walk(pkg):
+        return {m.name[len(pkg.__name__) + 1:] for m in
+                pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+
+    shared = sorted(walk(jmx) & walk(mxnet_tpu_torch))
+    return [(rel, importlib.import_module("mxnet_tpu." + rel),
+             importlib.import_module("mxnet_tpu_torch." + rel))
+            for rel in shared if not rel.startswith("_native.lib")]
+
+
+def test_every_shared_module_resolves_the_reference_names():
+    """The dir() diff of every module both packages have: each public
+    name of the reference's (its imports from outside the two packages
+    aside) resolves in the port or raises ``MXNetError``."""
+    missing = {}
+    for rel, ref, port in _shared_modules():
+        names = {n for n in dir(ref) if not n.startswith("_")
+                 and not _foreign(getattr(ref, n))
+                 and getattr(typing, n, None) is not getattr(ref, n)}
+        for n in sorted(names - NOT_API.get(rel, set())):
+            try:
+                getattr(port, n)
+            except AttributeError:
+                missing.setdefault(rel, []).append(n)
+            except tmx.MXNetError:
+                pass
+    assert missing == {}
+    assert len(_shared_modules()) > 100
+
+
+def _slice18_calls():
+    """One working call of each name ported in slice 18 (each was a
+    refusal naming item 8g or item 9, or an ``AttributeError``); the
+    parity tests are ``test_torch_{numpy,numpy_random_linalg,custom_op,
+    gluon_contrib,tools}.py``."""
+    from mxnet_tpu_torch import _native, checkpoint, kvstore, ops
+
+    def np_front_end():
+        a = tmx.np.arange(6, ctx=CPU).reshape(2, 3)
+        return type(tmx.np.sum(a, axis=0)).__name__ == "ndarray"
+
+    def npx():
+        return tmx.npx.relu(tmx.np.array([-1.0], ctx=CPU)).item() == 0.0
+
+    def nd_custom():
+        return tmx.nd.Custom is not None and \
+            callable(tmx.operator.register)
+
+    def ops_reexports():
+        from mxnet_tpu_torch.ops import registry
+
+        return ops.apply_op is registry.apply_op and \
+            ops.defop is registry.defop
+
+    def telemetry_refusals():
+        for mod in (kvstore, checkpoint):
+            with pytest.raises(tmx.MXNetError, match="item 9"):
+                mod.telemetry
+        return True
+
+    def native_available():
+        return _native.available() is True
+
+    def gluon_contrib():
+        return tmx.gluon.contrib.estimator.Estimator is not None and \
+            tmx.gluon.contrib.nn.Identity()(tmx.nd.ones((1,), ctx=CPU)) \
+            .shape == (1,)
+
+    def tools():
+        return not tmx.runtime.Features().is_enabled("TPU") and \
+            tmx.viz is tmx.visualization and \
+            tmx.util.is_np_array() is False and \
+            tmx.test_utils.max_rel_err([1.0], [1.0]) == 0.0 and \
+            tmx.monitor.Monitor(1).step == 0
+
+    def rtc():
+        k = tmx.rtc.PallasKernel(lambda a: a + 1)
+        return k(tmx.nd.zeros((2,), ctx=CPU)).asnumpy().tolist() == \
+            [1.0, 1.0]
+
+    return {f.__name__: f for f in (
+        np_front_end, npx, nd_custom, ops_reexports, telemetry_refusals,
+        native_available, gluon_contrib, tools, rtc)}
+
+
+@pytest.mark.parametrize("name", sorted(_slice18_calls()))
+def test_names_ported_in_slice_18_resolve_to_working_functions(name):
+    assert _slice18_calls()[name]()
 
 
 # -- NDArray ---
