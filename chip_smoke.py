@@ -8543,7 +8543,10 @@ def np_card_phase(torch, mx, failures):
     within NP_TOL of the largest |value| (integers and bools exact); the
     count checked and the worst error by family.  Then ``np.random``'s
     moments (and a Kolmogorov–Smirnov test) on the card, and ``linalg``
-    reconstructions at (LINALG_N, LINALG_N)."""
+    reconstructions at (LINALG_N, LINALG_N).  The comparison of each
+    output pair (``np_rel_err``'s number) runs on the card
+    (``_card_rel_err``): in numpy on the host it took about 0.65 s an
+    output at 4096², most of the phase."""
     t0 = time.perf_counter()
     gpu, cpu = mx.gpu(0), mx.cpu()
     names = set(mx.np.FUNCTIONS)
@@ -8576,7 +8579,7 @@ def np_card_phase(torch, mx, failures):
         except Exception as exc:  # noqa: BLE001 (each name is reported)
             bad.append(f"{name}: {type(exc).__name__}: {exc}"[:300])
             continue
-        errs = [np_rel_err(g, w) for g, w in zip(got, want)] \
+        errs = [_card_rel_err(torch, g, w) for g, w in zip(got, want)] \
             if len(got) == len(want) else [float("inf")]
         err = max(errs, default=0.0)
         worst[fam] = max(worst.get(fam, 0.0), err)
@@ -8599,6 +8602,35 @@ def np_card_phase(torch, mx, failures):
         failures.append(f"np on the card: {bad[:5]}, missing {missing}, "
                         f"random {rnd['ok']}, linalg {lin['ok']}")
     free_card(torch)
+
+
+def _card_rel_err(torch, got, want):
+    """``np_rel_err``'s number, computed on the card in float64: worst
+    |got − want| over the largest |want| (0 for exact equality, NaN where
+    both are NaN, a complex output's real part, as numpy's float64 cast
+    takes it)."""
+    g, w = np.asarray(got), np.asarray(want)
+    if g.shape != w.shape:
+        return float("inf")
+    if g.size == 0:
+        return 0.0
+
+    def card(a):
+        if a.dtype.kind == "c":
+            a = a.real
+        if a.dtype.kind == "u" and a.dtype.itemsize > 1:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda().double()
+
+    g, w = card(g), card(w)
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    if bool((gn != wn).any()):
+        return float("inf")
+    both = gn & wn
+    d = torch.where(both, 0.0, (g - w).abs())
+    d = torch.where(torch.isinf(g) & (g == w), 0.0, d)
+    scale = torch.where(both | torch.isinf(w), 0.0, w).abs().max()
+    return float(d.max() / scale.clamp_min(1e-30))
 
 
 def _np_random_card(mx):
@@ -8879,6 +8911,544 @@ def tools_phase(torch, mx, vision, bert, cbr, failures):
     return launches, mma
 
 
+# --- slice 19: training telemetry ------------------------------------------
+
+TEL_LAYERS = 8               # 27a: llama3_8b widths, bf16; at phase 9's 16
+#                              the numerics-on FusedTrainStep capture (its
+#                              graph's gradients and the weights' copy for
+#                              update. stats) ran out of the 80 GB
+TEL_T = 2048                 # ... B=1, T=2048
+TEL_STRIDE = 2               # 27a: numerics harvested every 2nd step
+TEL_FUSED_K = 2              # 27a: FusedTrainStep steps a call
+TEL_GRAD_NORM_RTOL = 1e-3    # 27a: grad_norm vs a separate vector_norm
+TEL_FLOPS_RTOL = 0.05        # 27a: model_flops vs 6·params·tokens + attn
+MON_GRAPH_B = 32             # 27b: the monitored ResNet-50 (bf16)
+MON_GRAPH_REPLAYS = 3        # 27b: timed replays of each mode
+MON_STAT_RTOL = 2.0 ** -8    # 27b: graph vs eager monitor l2 (f32 of bf16)
+MEM_STEPS = 10               # 27c: ResNet-50 training steps under memwatch
+MEM_B = 32                   # ... bf16 batch
+TIMELINE_B, TIMELINE_T = 8, 128   # 27d: the profiled BERT-base step
+#: the keys of the reference's step record (``mxnet_tpu/telemetry/
+#: __init__.py::step_end`` with ``examples``, memwatch and costs on);
+#: tests/test_torch_telemetry.py holds the port's keys to the reference's
+#: on the CPU.  REF_STEP_KEYS_IF: the keys it adds when they apply (a
+#: harvested step; a mesh or a placement reported by ``parallel``)
+REF_STEP_KEYS = frozenset((
+    "step", "wall_time", "step_ms", "phases_ms", "counters", "gauges",
+    "host_sync", "cachedop_cache_hit", "cachedop_cache_miss", "bulk_flush",
+    "bulk_async_wait_ms", "data_wait_ms", "ckpt_saves", "ckpt_bytes",
+    "ckpt_async_overlap_ms", "compile_count", "allreduce_bytes",
+    "examples", "examples_per_sec", "live_bytes", "peak_live_bytes",
+    "live_bytes_by_device", "model_flops", "bytes_accessed", "mfu"))
+REF_STEP_KEYS_IF = frozenset(("numerics", "mesh_shape", "sharded_params",
+                              "replicated_params"))
+
+
+def _out_path(name):
+    """A file in ``chiprun_out/`` (listed in .gitignore) when it exists,
+    else in a temporary directory."""
+    import tempfile
+
+    root = "chiprun_out" if os.path.isdir("chiprun_out") else \
+        tempfile.mkdtemp(prefix="mxt_tel_")
+    return os.path.join(root, name)
+
+
+def llama_step_flops(cfg, params, t, layers):
+    """6·(matrix-product parameters)·tokens + the flash kernels' formula
+    flops (forward 4·D, dQ 6·D, dK/dV 8·D a visible pair, causal as
+    half): the training step's work as the cost registry counts it.  The
+    embedding table's gather has no products; an untied head's matrix
+    does."""
+    from mxnet_tpu_torch.ops.flash_attention import visible_pairs
+
+    matmul = sum(p.data().size for p in params.values()
+                 if len(p.shape) == 2)
+    if not cfg.tie_embeddings:
+        matmul -= cfg.vocab_size * cfg.hidden_size
+    d = cfg.hidden_size // cfg.num_heads
+    attn = 18.0 * d * visible_pairs(t, t, True) * cfg.num_heads * layers
+    return 6.0 * matmul * t + attn
+
+
+def telemetry_llama_phase(torch, mx, llama, fa, mt, failures):
+    """Phase 27a: ``llama3_8b`` widths at TEL_LAYERS layers, bf16, B=1,
+    T=2048, SGD with momentum, hybridized, under ``telemetry.enable(
+    jsonl_path=..., numerics=True, retrace="raise")`` with numerics at
+    stride 2: two eager ``Trainer`` steps and two ``FusedTrainStep``
+    calls (K=2) with numerics off, four eager steps with it on, one
+    profiled step, two fused calls with it on, and one forward with a NaN
+    in decoder layer 1.  Each step window ends with the loss's
+    ``wait_to_read`` (a host sync, the same in every step), so
+    ``step_ms`` holds the card's work.  Checks: every record has the
+    reference's keys; the harvested records list ``embed``,
+    ``decoder.0…L-1``, ``norm``, ``logits`` and every ``grad.``/
+    ``update.`` path; ``grad_norm`` against a separate vector norm of the
+    gradients; off-stride steps make no ``_materialize`` call and no more
+    syncs than a numerics-off step (``torch.cuda.set_sync_debug_mode``'s
+    implicit-sync warnings and explicit ``torch.cuda.synchronize``
+    calls); no retrace after warmup, and a changed shape raises
+    ``RetraceError`` naming the aval; the NaN is ``first_nan`` =
+    ``decoder.1``; ``mfu`` in (0, 1] and ``model_flops`` within 5% of
+    ``llama_step_flops``; #1, #2, #3 and the update kernel at their
+    counts.  Returns the launches (#1, #2, #3, the tensor-core ones,
+    the update)."""
+    import warnings
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import numerics, retrace
+
+    free_card(torch)
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=TEL_LAYERS)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    net.hybridize()
+    cfg = net.config
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd",
+                               {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    ids, labels = _ids_labels(torch, mx, cfg.vocab_size, TEL_T, SEED + 27)
+    vocab = cfg.vocab_size
+
+    def lm_loss(n, a, b):
+        return mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, vocab)), b.reshape((-1,))) / b.size
+
+    jsonl = _out_path("telemetry_27a.jsonl")
+    counts = {"sync": 0, "materialize": 0}
+    real_sync, real_mat = torch.cuda.synchronize, numerics._materialize
+
+    def counting_sync(*a, **k):
+        counts["sync"] += 1
+        return real_sync(*a, **k)
+
+    def counting_mat(entries):
+        counts["materialize"] += 1
+        return real_mat(entries)
+
+    rows = []
+
+    def window(label, run):
+        """One telemetry step of ``run()`` (which returns an NDArray it
+        waits for): the record, its wall ms, explicit and implicit syncs,
+        ``_materialize`` calls and the peak of allocated memory."""
+        real_sync()
+        torch.cuda.reset_peak_memory_stats()
+        s0, m0 = counts["sync"], counts["materialize"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t = time.perf_counter()
+                with telemetry.step(examples=TEL_T) as scope:
+                    run().wait_to_read()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ms = (time.perf_counter() - t) * 1e3
+        implicit = sum("synchroniz" in str(w.message) for w in caught)
+        rec = scope.record
+        row = dict(label=label, step=rec["step"], ms=ms,
+                   step_ms=rec["step_ms"],
+                   harvested="numerics" in rec,
+                   explicit_syncs=counts["sync"] - s0,
+                   implicit_syncs=implicit,
+                   materialize=counts["materialize"] - m0,
+                   peak=torch.cuda.max_memory_allocated(),
+                   model_flops=rec.get("model_flops"), mfu=rec.get("mfu"),
+                   host_sync=rec["host_sync"])
+        rows.append(row)
+        return rec, row
+
+    def eager():
+        loss = _lm_forward(mx, net, ids, labels)
+        loss.backward()
+        trainer.step(1)
+        return loss
+
+    fused_calls = 0
+
+    def fused(step):
+        nonlocal fused_calls
+        fused_calls += 1
+        return lambda: step(ids, labels)
+
+    torch.cuda.synchronize = counting_sync
+    numerics._materialize = counting_mat
+    _zero_counts(fa)  # the main path starts here
+    mt.multi_tensor_update.launches = 0
+    forwards = backwards = updates = 0
+    try:
+        telemetry.enable(jsonl_path=jsonl, numerics=True, retrace="raise")
+        numerics.enable(stride=TEL_STRIDE)
+        numerics.disable()
+        for i in range(2):  # numerics off: the first is the warm-up
+            window("eager_off", eager)
+        fstep = mx.gluon.FusedTrainStep(net, trainer, lm_loss,
+                                        steps_per_execution=TEL_FUSED_K,
+                                        batch_size=1)
+        for i in range(2):
+            window("fused_off", fused(fstep))
+        del fstep
+        free_card(torch)
+        numerics.enable(stride=TEL_STRIDE)
+        for i in range(4):
+            rec_g, _ = window("eager_on", eager)
+            if i == 0:
+                retrace.warm()  # the numerics-on signatures are in
+        # the last one was harvested: its grad_norm against the gradients
+        # the parameters still hold
+        grad_norm = rec_g["numerics"]["grad_norm"]
+        grad_ref = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad()._data.float())
+             for p in params.values() if p.grad_req != "null"])))
+        # one more step under the device trace
+        prof = mx.profiler
+        prof.set_config(filename=_out_path("telemetry_27a_profile.json"),
+                        profile_device_trace=True, aggregate_stats=True)
+        prof.set_state("run")
+        rec_p, row_p = window("eager_on_profiled", eager)
+        prof.set_state("stop")
+        split = _device_split(torch, prof.device_profile(), row_p["ms"])
+        fstep = mx.gluon.FusedTrainStep(net, trainer, lm_loss,
+                                        steps_per_execution=TEL_FUSED_K,
+                                        batch_size=1)
+        fused_recs = []
+        for i in range(2):
+            fused_recs.append(window("fused_on", fused(fstep))[0])
+        del fstep
+        forwards = 2 + 4 + 1 + fused_calls * TEL_FUSED_K
+        backwards = forwards
+        updates = forwards
+        violations = retrace.violations()
+        # an injected shape change raises before anything runs
+        short = mx.nd.array(ids._data[:, :TEL_T // 2])
+        try:
+            with mx.autograd.record():
+                net(short)
+            retrace_error = None
+        except retrace.RetraceError as exc:
+            retrace_error = str(exc)
+        retrace.disable()
+        retrace.reset()
+        # trap 4: NaN into decoder layer 1's first weight, one eager
+        # forward at a harvested step
+        victim = next(iter(net.model.layers[1].collect_params().values()))
+        with torch.no_grad():
+            victim.data()._data.view(-1)[0] = float("nan")
+        while (telemetry._step_idx + 1) % TEL_STRIDE:
+            with telemetry.step(examples=0):
+                pass
+        net.hybridize(False)
+        rec_nan, _ = window("nan_forward", lambda: net(ids))
+        forwards += 1
+    finally:
+        torch.cuda.synchronize = real_sync
+        numerics._materialize = real_mat
+        telemetry.disable()
+        numerics.clear()
+        retrace.disable()
+        retrace.reset()
+    launches = [c.launches for c in _counters(fa)]  # the main path ends
+    mma = _mma_counts(fa)
+    update_launches = mt.multi_tensor_update.launches
+    records = telemetry.read_jsonl(jsonl)
+    steps = [r for r in records if r.get("record") is None]
+    bad_keys = [sorted(set(r) - REF_STEP_KEYS_IF ^ REF_STEP_KEYS)
+                for r in steps if set(r) - REF_STEP_KEYS_IF != REF_STEP_KEYS]
+    harvested = [r for r in steps if "numerics" in r]
+    live = [p for p in params.values() if p.grad_req != "null"]
+    want_paths = {"embed", "norm", "logits"} | {
+        f"decoder.{i}" for i in range(TEL_LAYERS)} | {
+        f"{k}.{p.name}" for p in live for k in ("grad", "update")}
+    on = [r for r in harvested if r["step"] in
+          {row["step"] for row in rows if row["label"] in
+           ("eager_on", "fused_on")}]
+    paths_ok = bool(on) and all(set(r["numerics"]["tensors"]) == want_paths
+                                and list(r["numerics"]["tensors"])[:3] ==
+                                ["embed", "decoder.0", "decoder.1"]
+                                for r in on)
+    grad_rel = abs(grad_norm - grad_ref) / grad_ref
+    off_rows = [row for row in rows if row["label"] == "eager_off"][1:]
+    offstride = [row for row in rows if row["label"] in ("eager_on",)
+                 and not row["harvested"]]
+    base_syncs = (off_rows[0]["explicit_syncs"], off_rows[0]["implicit_syncs"])
+    syncs_ok = all(row["materialize"] == 0 and
+                   (row["explicit_syncs"], row["implicit_syncs"]) ==
+                   base_syncs for row in offstride) and all(
+        row["materialize"] == 1 for row in rows
+        if row["harvested"] and row["label"] != "nan_forward")
+    step_flops = llama_step_flops(cfg, params, TEL_T, TEL_LAYERS)
+    steady = [r for r in steps if r["step"] in
+              {row["step"] for row in rows[1:]
+               if row["label"] in ("eager_off", "eager_on")}] + \
+        fused_recs[1:]
+    flops_err = [abs(r["model_flops"] / (step_flops * (
+        TEL_FUSED_K if r in fused_recs else 1)) - 1.0) for r in steady]
+    mfu_ok = all(r["mfu"] is not None and 0.0 < r["mfu"] <= 1.0
+                 for r in steady)
+    first_nan = rec_nan.get("numerics", {}).get("first_nan")
+    want_launches = [TEL_LAYERS * forwards, TEL_LAYERS * backwards,
+                     TEL_LAYERS * backwards]
+    res = dict(
+        layers=TEL_LAYERS, t=TEL_T, stride=TEL_STRIDE, k=TEL_FUSED_K,
+        records=len(steps), bad_keys=bad_keys[:3], harvested=len(harvested),
+        paths_ok=paths_ok, grad_norm=grad_norm,
+        grad_vector_norm=grad_ref, grad_norm_rel_err=grad_rel,
+        syncs_numerics_off=base_syncs, syncs_ok=syncs_ok,
+        violations=violations, retrace_error=(retrace_error or "")[:300],
+        first_nan=first_nan, step_flops=step_flops,
+        flops_rel_err=max(flops_err), mfu_ok=mfu_ok,
+        mfu=[r["mfu"] for r in steady], launches=launches,
+        launches_mma=mma, update_launches=update_launches,
+        want_launches=want_launches + [updates], windows=rows,
+        profile_split=split,
+        seconds=time.perf_counter() - t0)
+    ok = not bad_keys and paths_ok and syncs_ok and violations == [] and \
+        grad_rel <= TEL_GRAD_NORM_RTOL and \
+        retrace_error is not None and "args[0].shape" in retrace_error and \
+        first_nan is not None and first_nan["path"] == "decoder.1" and \
+        first_nan["layer"] == 1 and max(flops_err) <= TEL_FLOPS_RTOL and \
+        mfu_ok and launches == want_launches and \
+        update_launches == updates and min(mma) > 0
+    emit(dict(phase="telemetry_llama", card=STASH["smi"], ok=ok, **res))
+    if not ok:
+        failures.append(f"27a telemetry on the Llama step: {res}")
+    del net, trainer, params
+    free_card(torch)
+    return launches, mma, update_launches
+
+
+def monitor_graph_phase(torch, mx, vision, cbr, failures):
+    """Phase 27b: ``Monitor`` on a hybridized ResNet-50 v1, bf16, B=32,
+    predict mode: the taps are outputs of the CUDA graph, every replay
+    launches #4 16 times, and each ``monitor.<name>`` row matches an
+    eager monitor's f32 l2 norm of the same child's output within
+    MON_STAT_RTOL; the monitored replay's ms beside the plain replay's.
+    Returns #4's launches (and its tensor-core ones) in the monitored
+    replays."""
+    from mxnet_tpu_torch.telemetry import numerics
+
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.cast("bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 271)
+    x = mx.nd.array(torch.rand((MON_GRAPH_B, 3, 224, 224), generator=gen,
+                               device="cuda").bfloat16())
+
+    def forward():
+        with mx.autograd.predict_mode():
+            return net(x)._data
+
+    eager = mx.monitor.Monitor(
+        1, stat_func=lambda a: mx.nd.norm(a.astype("float32")), sort=True)
+    eager.install(net)
+    eager.tic()
+    plain = forward().clone()
+    want = eager.toc()
+    eager.uninstall()
+    net.hybridize()
+    plain_ms = _host_ms(torch, forward, MON_GRAPH_REPLAYS)
+    fused = cbr.fused_matmul_affine_relu
+    try:
+        mon = mx.monitor.Monitor(1, sort=True).install(net)
+
+        def monitored():
+            mon.tic()
+            out = forward()
+            return out, mon.toc()
+
+        monitored()  # the capture with the taps inside
+        fused.launches = fused.launches_mma = 0  # the monitored replays
+        rows_all, equal = [], True
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MON_GRAPH_REPLAYS):
+            t = time.perf_counter()
+            out, rows = monitored()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            rows_all.append(rows)
+            equal &= bool(torch.equal(out, plain))
+        launches, mma = fused.launches, fused.launches_mma  # ... end
+        mon.uninstall()
+    finally:
+        numerics.clear()
+    # a name that several children share is one numerics path, holding
+    # the last of them in forward order (the reference's dict semantics)
+    last = {}
+    for r in want:
+        last[r[1]] = float(r[2])
+    names_ok = all([r[1] for r in rows] == sorted(last)
+                   for rows in rows_all)
+    worst = max(abs(float(g[2]) / last[g[1]] - 1.0)
+                for rows in rows_all for g in rows if g[1] in last)
+    res = dict(b=MON_GRAPH_B, rows=len(want), paths=len(last),
+               names_ok=names_ok,
+               worst_rel=worst, launches=launches, launches_mma=mma,
+               per_forward=launches / MON_GRAPH_REPLAYS,
+               plain_replay_ms=plain_ms,
+               monitored_replay_ms=float(np.median(times)),
+               output_equal=equal)
+    ok = names_ok and worst <= MON_STAT_RTOL and equal and \
+        launches == 16 * MON_GRAPH_REPLAYS and len(last) > 100
+    emit(dict(phase="monitor_graph", card=STASH["smi"], ok=ok, **res))
+    if not ok:
+        failures.append(f"27b Monitor on the hybridized ResNet-50: {res}")
+    del net, x, plain
+    free_card(torch)
+    return launches, mma
+
+
+def memwatch_phase(torch, mx, vision, failures):
+    """Phase 27c: memwatch over MEM_STEPS ResNet-50 v1 bf16 B=32 training
+    steps (SGD, momentum 0.9): the ledger's ``live_bytes`` the same after
+    every step from the second on (no leak), printed beside the caching
+    allocator's ``memory_allocated`` and its per-step
+    ``peak_live_bytes`` beside ``max_memory_allocated`` (the gap is
+    autograd's saved activations and temporaries, which no NDArray
+    binds); then an allocation beyond the card's memory inside an
+    ``apply_op`` raises ``OOMError`` naming the largest live buffer, and
+    a shape error passes through unchanged."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops.registry import apply_op
+    from mxnet_tpu_torch.telemetry import memwatch
+
+    free_card(torch)
+    telemetry.enable(cost=False)
+    memwatch.enable(report_path=_out_path("memwatch_oom_27c.json"))
+    try:
+        mx.random.seed(SEED)
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.cast("bfloat16")
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 272)
+        x = mx.nd.array(torch.rand((MEM_B, 3, 224, 224), generator=gen,
+                                   device="cuda").bfloat16())
+        y = mx.nd.array(torch.randint(0, 1000, (MEM_B,), generator=gen,
+                                      device="cuda").float())
+        steps = []
+        for _ in range(MEM_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            with telemetry.step() as scope:
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(MEM_B)
+                loss.wait_to_read()
+            del loss
+            rec = scope.record
+            steps.append(dict(live_bytes=memwatch.live_bytes(),
+                              ledger_size=memwatch.ledger_size(),
+                              peak_live_bytes=rec["peak_live_bytes"],
+                              memory_allocated=torch.cuda.memory_allocated(),
+                              max_memory_allocated=
+                              torch.cuda.max_memory_allocated()))
+        steady = {s["live_bytes"] for s in steps[1:]}
+        top = memwatch.snapshot()[0]
+        total = torch.cuda.get_device_properties(0).total_memory
+        try:
+            apply_op(lambda a: torch.empty(2 * total, dtype=torch.uint8,
+                                           device=a.device), x, name="huge")
+            oom = None
+        except memwatch.OOMError as exc:
+            oom = str(exc)
+        try:
+            apply_op(lambda a: a @ a[..., :3, :], x, name="bad_shapes")
+            other = None
+        except memwatch.OOMError:
+            other = "OOMError"
+        except RuntimeError as exc:
+            other = type(exc).__name__
+    finally:
+        telemetry.disable()
+    named = oom is not None and str(top["shape"]) in oom and \
+        (top["owner"] is None or top["owner"] in oom)
+    res = dict(b=MEM_B, steps=steps, steady_live_bytes=sorted(steady),
+               largest=top, oom_message=(oom or "")[:400],
+               non_oom_error=other)
+    ok = len(steady) == 1 and named and other == "RuntimeError"
+    emit(dict(phase="memwatch", card=STASH["smi"], ok=ok, **res))
+    if not ok:
+        failures.append(f"27c memwatch: {res}")
+    del net, trainer, x, y
+    free_card(torch)
+
+
+def timeline_phase(torch, mx, bert, failures):
+    """Phase 27d: one profiled BERT-base training step (f32, B=8, T=128,
+    Adam, hybridized, after a warm-up step) with telemetry on:
+    ``profiler.dump()`` writes one chrome trace that holds the
+    ``trainer.step``/``trainer.allreduce``/``trainer.update`` spans
+    (category ``telemetry``) and the op events (``operator``), on one
+    clock, the ops of the update inside its span."""
+    from mxnet_tpu_torch import telemetry
+
+    free_card(torch)
+    mx.random.seed(SEED)
+    b, t = TIMELINE_B, TIMELINE_T
+    net = bert.bert_base(vocab_size=BERT_VOCAB)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.hybridize()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 273)
+    ids = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                                    device="cuda", dtype=torch.int32))
+    seg = mx.nd.zeros((b, t), ctx=mx.gpu(0), dtype="int32")
+    labels = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                                       device="cuda", dtype=torch.int32))
+    net(ids, seg)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": BERT_LR})
+
+    def step():
+        with mx.autograd.record():
+            out = net(ids, seg)
+            mlm = out[-1] if isinstance(out, (list, tuple)) else out
+            loss = mx.nd.softmax_cross_entropy(
+                mlm.reshape((-1, BERT_VOCAB)), labels.reshape((-1,)))
+        loss.backward()
+        trainer.step(b)
+        loss.wait_to_read()
+
+    prof = mx.profiler
+    path = _out_path("telemetry_27d_trace.json")
+    try:
+        telemetry.enable()
+        step()  # the warm-up
+        prof.set_config(filename=path, profile_device_trace=False)
+        prof.dump(finished=True)
+        prof.set_state("run")
+        with telemetry.step(examples=b):
+            step()
+        prof.dump(finished=True)
+    finally:
+        telemetry.disable()
+    events = json.load(open(path))["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "telemetry"}
+    ops = [e for e in events if e.get("cat") == "operator"]
+    upd = spans.get("trainer.update")
+    in_update = [e for e in ops if upd is not None and
+                 upd["ts"] <= e["ts"] <= upd["ts"] + upd["dur"]]
+    res = dict(b=b, t=t, spans=sorted(spans), op_events=len(ops),
+               ops_in_update=len(in_update), events=len(events))
+    ok = {"trainer.step", "trainer.allreduce", "trainer.update"} <= \
+        set(spans) and len(ops) > 100
+    emit(dict(phase="timeline", card=STASH["smi"], ok=ok, **res))
+    if not ok:
+        failures.append(f"27d one timeline: {res}")
+    del net, trainer
+    free_card(torch)
+
+
 def main():
     import torch
 
@@ -9059,6 +9629,18 @@ def main():
     if 0 in est or mon[0] == 0:
         failures.append(f"slice 18 left a kernel unlaunched: fit {est}, "
                         f"monitored forward {mon}")
+    # slice 19: training telemetry
+    tel, tel_mma, tel_updates = telemetry_llama_phase(torch, mx, llama, fa,
+                                                      mt, failures)
+    update_launches += tel_updates
+    mon_g = monitor_graph_phase(torch, mx, vision, cbr, failures)
+    fused_launches += mon_g[0]
+    fused_mma += mon_g[1]
+    memwatch_phase(torch, mx, vision, failures)
+    timeline_phase(torch, mx, bert, failures)
+    if 0 in tel or tel_updates == 0 or mon_g[0] == 0:
+        failures.append(f"slice 19 left a kernel unlaunched: 27a {tel}, "
+                        f"updates {tel_updates}, 27b {mon_g}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -9079,20 +9661,23 @@ def main():
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
         pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0] + \
-        exp_flash[0] + est[0]
+        exp_flash[0] + est[0] + tel[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
         mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
-        moe_infer[1] + moe_tr_mma[0] + exp_flash[1] + est_mma[0]
+        moe_infer[1] + moe_tr_mma[0] + exp_flash[1] + est_mma[0] + \
+        tel_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
-        pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1]
+        pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1] + tel[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
-        ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1] + est_mma[1]
+        ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1] + \
+        est_mma[1] + tel_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
         packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
-        pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2]
+        pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2] + tel[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
-        ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2] + est_mma[2]
+        ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2] + \
+        est_mma[2] + tel_mma[2]
     if moe_infer[0] == 0 or 0 in moe_tr:
         failures.append(f"the MoE paths left a kernel unlaunched: "
                         f"{moe_infer}, {moe_tr}")
@@ -9124,6 +9709,7 @@ def main():
          "launches_moe_train": moe_tr[0],
          "launches_exported": exp_flash[0],
          "launches_estimator": est[0],
+         "launches_telemetry": tel[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -9141,6 +9727,7 @@ def main():
          "launches_moe": 0,
          "launches_moe_train": moe_tr[1],
          "launches_estimator": est[1],
+         "launches_telemetry": tel[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -9158,6 +9745,7 @@ def main():
          "launches_moe": 0,
          "launches_moe_train": moe_tr[2],
          "launches_estimator": est[2],
+         "launches_telemetry": tel[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -9174,6 +9762,7 @@ def main():
          "launches_detection_by_net": {k: v[0] for k, v in det.items()},
          "launches_exported": exp_fused[0],
          "launches_monitor": mon[0],
+         "launches_monitor_graph": mon_g[0],
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -9196,6 +9785,7 @@ def main():
          "replaces": "mxnet_tpu/gluon/trainer.py:516",
          "design": "one launch over a device table, bf16 SGD momentum",
          "launches_bert": bert_updates, "launches_estimator": est[3],
+         "launches_telemetry": tel_updates,
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],

@@ -113,6 +113,7 @@ from . import rtc
 from . import test_utils
 from . import runtime
 from . import monitor
+from . import telemetry
 from . import visualization
 from . import visualization as viz
 

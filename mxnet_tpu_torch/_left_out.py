@@ -9,9 +9,10 @@ from .base import MXNetError
 _6 = "Left out of slice 6"
 _7 = "Left out of slice 7"
 _9 = "Queue 1 item 9, observability and tooling"
+_19 = "Left out of slice 19"
 _NC = "Not carried over"
 
-MX = dict.fromkeys(("sanitizer", "telemetry"), _9)
+MX = {"sanitizer": _9}
 
 # the reference's bulk segment compiler and async executor: a CUDA stream
 # is already asynchronous (``engine.py``)
@@ -20,7 +21,6 @@ ENGINE = {
                      "maybe_defer", "register_dispatch_callback",
                      "segment_cache_stats", "unregister_dispatch_callback"),
                     _7),
-    "telemetry": _9,
 }
 
 SERVING = dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",

@@ -36,12 +36,14 @@ import weakref
 import torch
 
 from .base import MXNetError
+from .telemetry import memwatch as _mw
 
 
 class _AGState(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        self.after_backward = {}
 
 
 _STATE = _AGState()
@@ -224,6 +226,17 @@ def _grads(roots, seeds, tensors, retain_graph, create_graph=False):
             "backward() to backprop twice through the same graph") from exc
 
 
+def after_backward(key, hook, count=False):
+    """Run ``hook(variables, grads, counted)`` after the next ``backward``
+    on this thread (``gluon.CachedOp``'s recorded calls: the numerics
+    tier's per-parameter ``grad.`` statistics and the cost registry's
+    backward).  One hook a ``key`` (the latest), so recorded calls that
+    no backward follows keep no more than one each.  ``count=True`` runs
+    that backward under ``telemetry.costs.counting()``, whose result is
+    ``counted`` (else None)."""
+    _STATE.after_backward[key] = (hook, count)
+
+
 def backward(heads, head_grads=None, retain_graph: bool = False,
              train_mode: bool = True):
     """Run backward from ``heads``; fill the gradient buffers of the
@@ -231,6 +244,10 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     ``autograd.backward``)."""
     roots, seeds = _as_lists(heads, head_grads)
     variables = _reached_variables(roots)
+    hooks = _STATE.after_backward
+    if hooks:
+        _STATE.after_backward = {}
+        hooks = list(hooks.values())
     if not variables:
         return
     # "write" buffers are overwritten: release the old gradients before
@@ -239,13 +256,23 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                if v._grad_req == "write" and v._grad is not None]
     for v in dropped:
         v._grad._data = None
+    counted = None
     try:
-        grads = _grads(roots, seeds, [v._data for v in variables],
-                       retain_graph)
+        if any(count for _, count in hooks):
+            from .telemetry import costs
+
+            with costs.counting() as counted:
+                grads = _grads(roots, seeds, [v._data for v in variables],
+                               retain_graph)
+        else:
+            grads = _grads(roots, seeds, [v._data for v in variables],
+                           retain_graph)
     except BaseException:
         for v in dropped:  # the old values are gone: leave zeros
             v._grad._data = torch.zeros_like(v._data)
         raise
+    for hook, _ in hooks:
+        hook(variables, grads, counted)
     for v, g in zip(variables, grads):
         if g is None:
             if v._grad is not None and v._grad._data is None:  # released
@@ -262,6 +289,8 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                 v._grad = NDArray(g)
             else:
                 v._grad._data = g
+        if _mw._enabled:
+            _mw.track(v._grad._data)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -34,6 +34,11 @@ Counterpart of ``mxnet_tpu/checkpoint.py``:
   mesh restores onto another (or onto none).  The format is the port's
   own: the reference writes orbax/tensorstore, and a directory it wrote
   raises, saying why.  ``.params`` stays the interchange format.
+
+Telemetry, under the reference's names: the ``ckpt.snapshot`` and
+``ckpt.write`` spans, and the ``ckpt.save``, ``ckpt.bytes``,
+``ckpt.async_overlap_ms`` (the asynchronous writer's time) and
+``trainer.drain_checkpoint`` counters.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import warnings
 
 import numpy as np
 
+from . import telemetry
 from .base import MXNetError
 
 __all__ = ["save_checkpoint", "save_checkpoint_async", "AsyncCheckpointer",
@@ -178,8 +184,6 @@ def _stage_snapshot(ckpt_dir, step, net, trainer, extra, sharded=False):
     """Create the staging directory and copy all state to the host: the
     weights, the trainer's states (written into the staging directory),
     the random state.  Training may go on once this returns."""
-    from . import random as mx_random
-
     global _STAGE_SEQ
     step = int(step)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -194,27 +198,35 @@ def _stage_snapshot(ckpt_dir, step, net, trainer, extra, sharded=False):
     snap = _Snapshot()
     snap.step = step
     try:
-        snap.params = snap.shards = None
-        manifest = {"step": step, "time": time.time(),
-                    "has_trainer": trainer is not None,
-                    "sharded": bool(sharded), "extra": extra or {}}
-        if sharded:
-            snap.shards, manifest["params"] = _stage_shards(net)
-            manifest.update(format=_SHARD_FORMAT, world_size=1)
-        else:
-            # the member set of Block.save_parameters, copied to the host
-            snap.params = {
-                key: val.data().asnumpy()
-                for key, val in net._collect_params_with_prefix().items()
-                if val._data is not None or val._deferred_init is None}
-        if trainer is not None:
-            trainer.save_states(os.path.join(tmp, "trainer.states"))
-        snap.rng = mx_random.get_state()
-        snap.manifest = manifest
+        with telemetry.span("ckpt.snapshot"):
+            _fill_snapshot(snap, tmp, step, net, trainer, extra, sharded)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return tmp, snap
+
+
+def _fill_snapshot(snap, tmp, step, net, trainer, extra, sharded):
+    """The host copies of ``_stage_snapshot``."""
+    from . import random as mx_random
+
+    snap.params = snap.shards = None
+    manifest = {"step": step, "time": time.time(),
+                "has_trainer": trainer is not None,
+                "sharded": bool(sharded), "extra": extra or {}}
+    if sharded:
+        snap.shards, manifest["params"] = _stage_shards(net)
+        manifest.update(format=_SHARD_FORMAT, world_size=1)
+    else:
+        # the member set of Block.save_parameters, copied to the host
+        snap.params = {
+            key: val.data().asnumpy()
+            for key, val in net._collect_params_with_prefix().items()
+            if val._data is not None or val._deferred_init is None}
+    if trainer is not None:
+        trainer.save_states(os.path.join(tmp, "trainer.states"))
+    snap.rng = mx_random.get_state()
+    snap.manifest = manifest
 
 
 def _write_snapshot(tmp, snap):
@@ -247,11 +259,26 @@ def _write_sidecars(tmp, snap):
 def _commit_stage(ckpt_dir, tmp, step):
     """Atomic publish: staging directory → ``ckpt-<step>``."""
     final = os.path.join(ckpt_dir, f"{_PREFIX}{step}")
+    if telemetry.is_enabled():
+        telemetry.count("ckpt.bytes", _tree_bytes(tmp))
     if os.path.exists(final):
         shutil.rmtree(final)  # a re-checkpoint of the same step
     os.rename(tmp, final)
     _fsync_dir(ckpt_dir)
+    telemetry.count("ckpt.save")
     return final
+
+
+def _tree_bytes(root):
+    """Total file bytes under ``root`` (the ``ckpt.bytes`` counter)."""
+    total = 0
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for fn in filenames:
+            try:
+                total += os.path.getsize(os.path.join(dirpath, fn))
+            except OSError:
+                pass
+    return total
 
 
 def _save_sharded_collective(ckpt_dir, step, net, trainer, extra, keep):
@@ -324,8 +351,9 @@ def save_checkpoint(ckpt_dir, step, net, trainer=None, extra=None,
     tmp, snap = _stage_snapshot(ckpt_dir, step, net, trainer, extra,
                                 sharded)
     try:
-        _write_snapshot(tmp, snap)
-        final = _commit_stage(ckpt_dir, tmp, snap.step)
+        with telemetry.span("ckpt.write"):
+            _write_snapshot(tmp, snap)
+            final = _commit_stage(ckpt_dir, tmp, snap.step)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
@@ -454,8 +482,15 @@ class AsyncCheckpointer:
                 return
             ckpt_dir, tmp, snap, keep, ticket = item
             try:
-                _write_snapshot(tmp, snap)
-                ticket._path = _commit_stage(ckpt_dir, tmp, snap.step)
+                t0 = time.perf_counter()
+                with telemetry.span("ckpt.write"):
+                    _write_snapshot(tmp, snap)
+                    path = _commit_stage(ckpt_dir, tmp, snap.step)
+                # the writer's wall time while the training loop ran on:
+                # what a synchronous save would have added to the step
+                telemetry.count("ckpt.async_overlap_ms",
+                                (time.perf_counter() - t0) * 1e3)
+                ticket._path = path
                 if keep is not None:
                     prune_checkpoints(ckpt_dir, keep)
             except BaseException as exc:  # raised by ticket/wait/save
@@ -507,6 +542,7 @@ def drain_checkpoint_and_exit(ckpt_dir, step, net, trainer=None, extra=None,
 
     wait_async()
     save_checkpoint(ckpt_dir, step, net, trainer, extra=extra, keep=keep)
+    telemetry.count("trainer.drain_checkpoint")
     sys.exit(_trainer_mod.PREEMPTED_EXIT_CODE)
 
 
@@ -670,8 +706,3 @@ def prune_checkpoints(ckpt_dir, keep=3):
         shutil.rmtree(path, ignore_errors=True)
     _sweep_stale_tmp(ckpt_dir)
 
-
-from . import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.checkpoint")

@@ -20,6 +20,11 @@ inputs on the current stream, so it runs after the copy too.
 On the CPU (a ``cpu`` context) the leaves become host NDArrays and no
 stream is involved.  ``stats()`` gives the consumer's wait (ms, p50/p99)
 and the queue depth sampled at each ``get()``, as plain numbers.
+Telemetry, under the reference's names, at each ``get()``: the wait as
+``data.wait_ms``, the queue depth as the ``data.prefetch_depth`` gauge,
+and ``data.overlap_dispatch`` when a later batch's copy had already been
+issued as this one was handed out (the consumer's step then overlaps a
+copy; the reference counts its dispatches during a copy).
 
 With ``mesh=`` (a ``DeviceMesh`` with the ``axis_name`` axis, default
 ``dp``) the source yields the global batch and each rank copies only its
@@ -37,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray import NDArray
@@ -202,8 +208,14 @@ class DevicePrefetcher:
             raise MXNetError(
                 f"DevicePrefetcher timed out after {timeout}s waiting "
                 "for the next batch") from None
-        self._waits_ms.append((time.perf_counter() - t0) * 1e3)
-        self._depths.append(self._q.qsize())
+        waited = (time.perf_counter() - t0) * 1e3
+        depth = self._q.qsize()
+        self._waits_ms.append(waited)
+        self._depths.append(depth)
+        telemetry.count("data.wait_ms", waited)
+        telemetry.gauge("data.prefetch_depth", depth)
+        if depth:
+            telemetry.count("data.overlap_dispatch")
         if kind == "err":
             self.close()
             raise payload
@@ -290,8 +302,3 @@ class DevicePrefetcher:
         except Exception:
             pass
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.data.prefetch")

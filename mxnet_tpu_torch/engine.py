@@ -155,6 +155,7 @@ def shutdown_async(join=True):
     flush()
 
 
+from . import telemetry  # noqa: E402,F401  (the reference's name)
 from . import _left_out as _lo  # noqa: E402
 
 __getattr__ = _lo.refuse(_lo.ENGINE, "mxnet_tpu_torch.engine")

@@ -9,7 +9,8 @@ files, keyed by structural name) and ``hybridize``.
 ``hybridize()`` gives the block a ``CachedOp`` (reference ``CachedOp``
 and ``_CachedGraph``): outside ``autograd.record()`` and on a CUDA card,
 the first call of each input signature (shapes, dtypes, device, training
-mode, amp's dtype, parameter shapes and dtypes; an input may be None)
+mode, amp's dtype, parameter shapes and dtypes, the numerics mode; an
+input may be None)
 runs the forward eagerly and captures it into a CUDA graph
 (``cuda_graph.py``), and every later call of that
 signature copies its inputs into the graph's and replays it.  A graph is
@@ -38,6 +39,11 @@ from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
 from .. import engine
+from .. import telemetry
+from ..telemetry import costs as _costs
+from ..telemetry import memwatch as _mw
+from ..telemetry import numerics as _numerics
+from ..telemetry import retrace as _retrace
 from ..parallel.local import any_dtensor, local
 from ..context import current_context
 from .parameter import (Parameter, ParameterDict,
@@ -342,7 +348,19 @@ class Block:
 class CachedOp:
     """Per-signature CUDA graphs of a hybridized block (reference
     ``CachedOp``).  ``static_alloc``/``static_shape`` are accepted: a
-    graph already keeps its memory and its shapes."""
+    graph already keeps its memory and its shapes.
+
+    Telemetry, under the reference's names: ``cachedop.cache_hit`` and
+    ``cachedop.cache_miss`` for every call (a recorded call's signature
+    is kept apart from the graphs' keys), ``cachedop.compile`` for a
+    signature's first call (on a card, the one that captures its graph),
+    the ``cachedop.build``/``compile``/``replay`` spans, a
+    ``retrace.observe`` and a ``costs.note`` on each miss.  With
+    numerics on, the taps of a captured forward are graph outputs,
+    queued after each replay, and a recorded call queues each
+    parameter's ``grad.<name>`` statistics after its backward
+    (``autograd.after_backward``) on a step whose statistics will be
+    harvested."""
 
     def __init__(self, block, static_alloc=False, static_shape=False,
                  **flags):
@@ -354,6 +372,7 @@ class CachedOp:
         self._hits = 0
         self._misses = 0
         self._recorded = 0
+        self._recorded_sigs = set()
         self._eager = 0
 
     def cache_stats(self):
@@ -389,13 +408,37 @@ class CachedOp:
         forward that makes ``mx.np`` arrays)."""
         return _map_out(self._call(*args), _classic)
 
+    def _site(self):
+        return f"mxnet_tpu_torch.gluon.block:CachedOp.__call__ " \
+            f"({self.block.name})"
+
+    def _miss(self, sig, args, params, ptrs=None, recorded=False):
+        """A signature's first call (or a moved parameter): the counters
+        (``cache_stats`` keeps recorded calls apart) and the sanitizer's
+        observation."""
+        if not recorded:
+            self._misses += 1
+        telemetry.count("cachedop.cache_miss")
+        if _retrace._enabled:
+            _retrace.observe("cachedop", id(self),
+                             _components(sig, args, params, ptrs),
+                             site=self._site())
+
+    def _hit(self):
+        self._hits += 1
+        telemetry.count("cachedop.cache_hit")
+
     def _call(self, *args):
         from ..ndarray import NDArray
 
         params = list(self.block.collect_params().values())
         if ag.is_recording():
             self._recorded += 1
-            return self._inline(args)
+            if _QUIET_STATE.depth or not (
+                    telemetry._enabled or _numerics._enabled or
+                    _costs._enabled or _retrace._enabled):
+                return self._inline(args)
+            return self._recorded_call(args, params)
         for a in args:
             if a is not None and not isinstance(a, NDArray):
                 raise MXNetError("hybridized blocks take NDArray (or None) "
@@ -407,10 +450,7 @@ class CachedOp:
             if any(p._data is None for p in params):
                 return out
         arrays = [a for a in args if a is not None]
-        sig = (tuple(None if a is None else (a.shape, a.dtype, a._data.device)
-                     for a in args),
-               ag.is_training(), amp.target_dtype(),
-               tuple((p.shape, p.dtype) for p in params))
+        sig = _signature(args, params)
         entry = self._graphs.get(sig)
         if entry == "eager":
             self._eager += 1
@@ -418,38 +458,124 @@ class CachedOp:
         if not all(a._data.is_cuda for a in arrays) or \
                 not all(p._data._data.is_cuda for p in params):
             if entry is None:
-                self._misses += 1
-                out, eager = self._first_run(lambda: self._inline(args))
+                with telemetry.span("cachedop.build"):
+                    self._miss(sig, args, params)
+                with telemetry.span("cachedop.compile"), \
+                        _costs.first("cachedop", (id(self), sig, "fwd")) as c:
+                    out, eager = self._first_run(lambda: self._inline(args))
                 self._graphs[sig] = eager or True
+                telemetry.count("cachedop.compile")
+                self._note_cost(sig, c)
                 return out
-            self._hits += 1
-            return self._inline(args)
+            self._hit()
+            with telemetry.span("cachedop.replay"):
+                out = self._inline(args)
+            self._note_cost(sig)
+            return out
         # addresses within a signature, which holds shapes and dtypes
         # (each rank's local pieces under a mesh)
         ptrs = tuple(local(p._data._data).data_ptr() for p in params)
         if entry is None or entry[0] != ptrs:
-            self._misses += 1
-            out, self._graphs[sig] = self._capture(args, ptrs)
+            with telemetry.span("cachedop.build"):
+                self._miss(sig, args, params, ptrs)
+            with telemetry.span("cachedop.compile"):
+                out, self._graphs[sig] = self._guarded(
+                    lambda: self._capture(args, ptrs, sig))
+            telemetry.count("cachedop.compile")
             return out
-        self._hits += 1
-        _, statics, graph = entry
-        for s, a in zip(statics, args):
-            if s is not None:
-                local(s).copy_(local(a._data))
-        graph.replay()
-        return _map_out(graph.outputs, lambda t: NDArray(t.clone()))
+        self._hit()
+        _, statics, graph, stat_names = entry
+        with telemetry.span("cachedop.replay"):
+            for s, a in zip(statics, args):
+                if s is not None:
+                    local(s).copy_(local(a._data))
+            self._guarded(graph.replay)
+        outputs = graph.outputs
+        if stat_names:
+            outputs, stats = outputs
+            # one copy of the static stats: the next replay overwrites them
+            _numerics.record_compiled(stat_names, stats.clone())
+        self._note_cost(sig)
+        return _map_out(outputs, lambda t: NDArray(t.clone()))
 
-    def _capture(self, args, ptrs):
+    def _guarded(self, run):
+        """``run()``, an allocation failure turned into memwatch's
+        post-mortem."""
+        try:
+            return run()
+        except Exception as exc:
+            if _mw._enabled:
+                _mw.annotate_oom(
+                    exc, context=f"CachedOp forward ({self.block.name})")
+            raise
+
+    def _note_cost(self, sig, counted=None, mode="fwd"):
+        if _costs._enabled:
+            _costs.note("cachedop", (id(self), sig, mode), counted,
+                        site=self._site())
+
+    def _recorded_call(self, args, params):
+        """A call under ``autograd.record()`` with telemetry on: the block
+        runs eagerly (training capture is ``FusedTrainStep``'s), with the
+        counters, the sanitizer and the cost registry of a signature's
+        first call, and the numerics tier's per-parameter ``grad.``
+        statistics after the backward.  A call that finishes the
+        parameters' deferred shapes is counted under the resolved
+        signature (as the reference builds its graph after that pass)."""
+        out = None
+        if any(p._data is None for p in params):
+            out = self._inline(args)
+            if any(p._data is None for p in params):
+                return out
+        sig = _signature(args, params)
+        first = sig not in self._recorded_sigs
+        key = (id(self), sig, "fwd_rec")
+        if first:
+            self._recorded_sigs.add(sig)
+            with telemetry.span("cachedop.build"):
+                self._miss(sig, args, params, recorded=True)
+        else:
+            telemetry.count("cachedop.cache_hit")
+        with telemetry.span("cachedop.compile" if first
+                            else "cachedop.replay"), \
+                _costs.first("cachedop", key) if out is None \
+                else _costs._NULL as c:
+            if out is None:
+                out = self._guarded(lambda: self._inline(args))
+        if first:
+            telemetry.count("cachedop.compile")
+            if _retrace._enabled:
+                _retrace.observe(
+                    "cachedop_bwd", id(self.block),
+                    {"params": _components(sig, args, params)["params"],
+                     "training": sig[1], "remat": "none",
+                     "numerics": sig[4]},
+                    site=f"{self._site()[:-1]}, bwd)")
+        self._note_cost(sig, c, mode="fwd_rec")
+        stats = _numerics.harvesting()
+        if stats or _costs._enabled:
+            bwd_key = (id(self), sig, "bwd")
+            ag.after_backward(
+                id(self), _grad_hook(params, bwd_key, self._site(), stats),
+                count=_costs._enabled and _costs.get("cachedop_bwd",
+                                                     bwd_key) is None)
+        return out
+
+    def _capture(self, args, ptrs, sig):
         """Run the forward eagerly (the warm-up, whose result this call
         returns) and capture it on static copies of the inputs (a None
         input stays None).  The capture is thread-local: other threads
         (another server's scheduler, a client) may use the card while it
-        runs."""
+        runs.  With numerics on, the taps of the captured forward are the
+        graph's second output (their names kept in the entry); the cost
+        registry counts the warm-up, never the capture."""
         from ..ndarray import NDArray
 
         statics = [None if a is None else a._data.clone() for a in args]
-        out, eager = self._first_run(lambda: cuda_graph.warmup(
-            lambda: self.block._imperative_forward(*args)))
+        with _costs.first("cachedop", (id(self), sig, "fwd")) as c:
+            out, eager = self._first_run(lambda: cuda_graph.warmup(
+                lambda: self.block._imperative_forward(*args)))
+        self._note_cost(sig, c)
         if eager:
             return out, eager
         if self._pool is None:
@@ -458,12 +584,106 @@ class CachedOp:
             [p._data._data for p in self.block.collect_params().values()]
         if any_dtensor(placed):  # collectives inside the graph
             cuda_graph.warm_groups(placed)
-        graph = cuda_graph.capture(
-            lambda: _map_out(self.block._imperative_forward(
+        names = []
+
+        def forward():
+            return _map_out(self.block._imperative_forward(
                 *(None if s is None else NDArray(s) for s in statics)),
-                lambda o: o._data),
+                lambda o: o._data)
+
+        def forward_with_stats():
+            with _numerics.collecting() as col:
+                outs = forward()
+            tapped, stats = col.drain()
+            names.extend(tapped)
+            return (outs, stats) if tapped else outs
+
+        graph = cuda_graph.capture(
+            forward_with_stats if sig[4] else forward,
             pool=self._pool, mode="thread_local")
-        return out, (ptrs, statics, graph)
+        return out, (ptrs, statics, graph, tuple(names))
+
+
+class _Quiet(threading.local):
+    depth = 0
+
+
+_QUIET_STATE = _Quiet()
+
+
+class _quiet:
+    """Inside, a hybridized block's recorded call records no telemetry:
+    ``FusedTrainStep`` runs its steps so, as the reference's fused
+    program holds its net's forward without a CachedOp of its own."""
+
+    def __enter__(self):
+        _QUIET_STATE.depth += 1
+
+    def __exit__(self, *exc):
+        _QUIET_STATE.depth -= 1
+
+
+def _signature(args, params):
+    """A call's graph key: each input's shape, dtype and device (an input
+    may be None), the training mode, amp's dtype, the parameters' shapes
+    and dtypes, and the numerics mode."""
+    return (tuple(None if a is None else (a.shape, a.dtype, a._data.device)
+                  for a in args),
+            ag.is_training(), amp.target_dtype(),
+            tuple((p.shape, p.dtype) for p in params),
+            _numerics.signature())
+
+
+def _dtype_name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def _components(sig, args, params, ptrs=None):
+    """The named signature components the recapture sanitizer diffs: the
+    reference's (``retrace.cachedop_components``), amp's dtype, and on a
+    card the parameters' addresses (a graph bakes them in)."""
+    from ..parallel.local import is_dtensor
+
+    arrays = [a._data for a in args if a is not None]
+    mesh = next((tuple(t.device_mesh.shape) for t in arrays +
+                 [p._data._data for p in params] if is_dtensor(t)), None)
+    comps = {
+        "args": tuple(None if a is None else
+                      (tuple(a.shape), _dtype_name(a.dtype)) for a in args),
+        "training": sig[1],
+        "platform": arrays[0].device.type if arrays else None,
+        "params": tuple((tuple(p.shape), _dtype_name(p.dtype))
+                        for p in params),
+        "mesh": mesh,
+        "numerics": sig[4],
+        "amp": _dtype_name(sig[2]) if sig[2] is not None else None,
+    }
+    if ptrs is not None:
+        comps["param_addresses"] = tuple(
+            f"{p.name}@{ptr:#x}" for p, ptr in zip(params, ptrs))
+    return comps
+
+
+def _grad_hook(params, bwd_key, site, stats):
+    """The recorded call's ``autograd.after_backward`` hook: each
+    parameter's ``grad.<name>`` statistics (zeros for one the backward
+    did not reach), and the backward's cost entry."""
+    names = tuple("grad." + p.name for p in params)
+
+    def hook(variables, grads, counted):
+        if stats and _numerics._enabled:
+            by_id = {id(v): g for v, g in zip(variables, grads)}
+            rows = []
+            for p in params:
+                g = by_id.get(id(p._data))
+                rows.append(_numerics.stats_of(g) if g is not None else
+                            torch.zeros(5, dtype=torch.float64,
+                                        device=p._data._data.device))
+            _numerics.record_compiled(names, torch.stack(rows))
+        if _costs._enabled:
+            _costs.note("cachedop_bwd", bwd_key, counted, site=site)
+
+    return hook
 
 
 def _classic(o):
@@ -598,8 +818,3 @@ class SymbolBlock(HybridBlock):
                 "SymbolBlock not bound; construct via SymbolBlock.imports")
         return self._fn(F, args, params)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.gluon.block")

@@ -25,6 +25,7 @@ from ..base import MXNetError, resolve_dtype
 from ..context import Context, current_context
 from ..ndarray import NDArray
 from ..parallel.local import is_dtensor
+from ..telemetry import memwatch as _mw
 from .. import initializer as init_mod
 
 
@@ -117,6 +118,17 @@ class Parameter:
         self._deferred_init = None
         if self._grad_req != "null":
             self._data.attach_grad(self._grad_req)
+        self._adopt()
+
+    def _adopt(self):
+        """Label the data holder in memwatch's ledger, so its post-mortem
+        names the storages of the value and the gradient (``<name>.grad``)
+        by parameter across rebinds (``cast``, the gradient buffers
+        backward binds)."""
+        if not _mw._enabled:
+            return
+        _mw.track(self._data._data, owner=self.name)
+        _mw.adopt(self._data, self.name)
 
     def _finish_deferred_init(self, shape):
         """Complete a deferred init once the shape is known."""
@@ -202,6 +214,7 @@ class Parameter:
                 requires_grad=old.requires_grad)
             if self._grad_req != "null":
                 self._data.attach_grad(self._grad_req)
+            self._adopt()
         elif self._deferred_init is not None:
             self._deferred_init = (self._deferred_init[0], list(ctx))
 
@@ -247,6 +260,7 @@ class Parameter:
                 requires_grad=old.requires_grad)
             if self._grad_req != "null":
                 self._data.attach_grad(self._grad_req)
+            self._adopt()
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

@@ -42,10 +42,28 @@ the capture then fails with a stream-capture error.  Drop such
 references before the first call.
 
 A graph is keyed on the batch's shapes and dtypes, the optimizer's
-hyperparameters, amp's dtype, and the addresses of the weights, masters,
+hyperparameters, amp's dtype, the numerics mode (``telemetry.numerics``:
+each mode keeps one graph), and the addresses of the weights, masters,
 states and moving statistics (each rank's local pieces under a mesh):
 after ``cast`` or ``load_states`` into new tensors the next call
-captures again.  ``update_on_kvstore`` is refused, as in the reference.
+captures again.
+
+Telemetry, under the reference's names: ``step_fusion.cache_miss`` (a
+new signature, or moved addresses) with a ``retrace.observe``, the
+``step_fusion.build``/``compile``/``replay`` spans, ``step_fusion.compile``
+once a signature's first call has run, ``step_fusion.steps`` (K a call)
+and the ``step_fusion.steps_per_execution`` gauge, and a ``costs.note``
+whose work is counted in step 0 of the signature's first call (eager,
+before the capture) and scaled by K.  With numerics on, each step also
+takes the forward's taps and every live parameter's ``grad.<name>`` and
+``update.<name>`` (new weight − old weight, from a copy of the weights
+taken before the in-place update) statistics, and folds them over the K
+steps as the reference's ``_reduce_k`` does (nan and inf summed, l2 and
+mean of the last step, maxabs the worst): inside the graph, into a
+device accumulator that one copy queues after the call's last step.
+The reference's fused program drops the forward's taps (its trace has
+no collector there); the port keeps them, so ``first_nan`` names the
+layer inside a fused step too.  ``update_on_kvstore`` is refused, as in the reference.
 
 Over a mesh or a ``dist_*`` store (the reference's jitted step over a
 mesh), each step also runs the store's ``allreduce_grads`` and sums what
@@ -66,11 +84,17 @@ from .. import autograd as ag
 from .. import cuda_graph
 from .. import optimizer as opt
 from .. import random as mx_random
+from .. import telemetry
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ops import multi_tensor
 from ..parallel import reduce_partial
 from ..parallel.local import is_dtensor, local
+from ..telemetry import costs as _costs
+from ..telemetry import memwatch as _mw
+from ..telemetry import numerics as _numerics
+from ..telemetry import retrace as _retrace
+from .block import _quiet
 
 __all__ = ["FusedTrainStep"]
 
@@ -109,6 +133,7 @@ class FusedTrainStep:
         self.stacked_inputs = bool(stacked_inputs)
         self._graphs = {}
         self._validated = set()
+        self._seen = set()
         self._pool = None
         if not trainer._kv_initialized:
             trainer._init_kvstore()
@@ -140,7 +165,7 @@ class FusedTrainStep:
     def _loss_and_grads(self, inputs):
         """Forward, summed f32 loss and backward of one step → the loss
         (a 0-d f32 tensor)."""
-        with ag.record():
+        with _quiet(), ag.record():
             leaves = _leaves(self.forward_loss(self.net, *inputs))
         total = sum(leaf._data.detach().float().sum() for leaf in leaves)
         ag.backward(leaves)
@@ -169,6 +194,34 @@ class FusedTrainStep:
         else:
             multi_tensor.multi_tensor_update(optzr, items)
 
+    def _stat_step(self, stats, run):
+        """One step ``run()`` → (loss, items); with ``stats`` inside a
+        numerics scope that takes the forward's taps and, around the
+        in-place update, each live parameter's ``grad.`` and ``update.``
+        statistics → (loss, items, names, (n, 5) bundles)."""
+        if not stats:
+            loss, items = run(None)
+            return loss, items, (), None
+        with _numerics.collecting() as col:
+            loss, items = run(col)
+        names, rows = col.drain()
+        return loss, items, names, rows
+
+    def _update_with_stats(self, col, optzr, items, update):
+        """``update()`` of ``items``; with a numerics scope ``col``, the
+        weights copied first and the ``grad.``/``update.`` bundles
+        appended to it after."""
+        if col is None:
+            update()
+            return
+        old = [it.w.detach().clone() for it in items]
+        update()
+        for i, it, ow in zip(self._live, items, old):
+            pname = self.trainer._params[i].name
+            col.names += ["grad." + pname, "update." + pname]
+            col.stats += [_numerics.stats_of(it.g),
+                          _numerics.stats_of(it.w.detach() - ow)]
+
     # -- dispatch ------------------------------------------------------------
     def __call__(self, *batch):
         trainer = self.trainer
@@ -195,20 +248,35 @@ class FusedTrainStep:
             if self._live else torch.device("cpu")
         sig = (type(optzr).__name__, _hyper(optzr), mp_flags,
                tuple((b.shape, b.dtype, b._data.device) for b in batch),
-               amp.target_dtype())
-        snapshot = None if sig in self._validated else self._snapshot()
+               amp.target_dtype(), _numerics.signature())
+        if sig not in self._seen:
+            with telemetry.span("step_fusion.build"):
+                self._miss(sig, batch, None)
+            self._seen.add(sig)
+        first = sig not in self._validated
+        snapshot = self._snapshot() if first else None
+        telemetry.gauge("step_fusion.steps_per_execution", self.k)
+        telemetry.count("step_fusion.steps", self.k)
+        key = (id(self), sig)
         try:
-            if device.type == "cuda":
-                losses = self._run_graph(sig, batch, mp_flags, lrs, wds, t0,
-                                         device)
-            else:
-                losses = self._run_unrolled(batch, mp_flags, lrs, wds, t0)
-            if snapshot is not None and device.type == "cuda":
-                torch.cuda.synchronize(device)  # a fault surfaces here
-        except BaseException:
+            with telemetry.span("step_fusion.compile" if first
+                                else "step_fusion.replay"):
+                if device.type == "cuda":
+                    losses = self._run_graph(sig, batch, mp_flags, lrs, wds,
+                                             t0, device, key)
+                else:
+                    losses = self._run_unrolled(batch, mp_flags, lrs, wds,
+                                                t0, key)
+                if snapshot is not None and device.type == "cuda":
+                    torch.cuda.synchronize(device)  # a fault surfaces here
+        except BaseException as exc:
             if snapshot is not None:
                 self._restore(snapshot)
+            if _mw._enabled and isinstance(exc, Exception):
+                _mw.annotate_oom(exc, context="FusedTrainStep dispatch")
             raise
+        if first:
+            telemetry.count("step_fusion.compile")
         self._validated.add(sig)
         for i in self._live:
             optzr._index_update_count[i] = optzr._index_update_count.get(
@@ -220,13 +288,58 @@ class FusedTrainStep:
     def _inputs(self, batch, k):
         return [b[k] for b in batch] if self.stacked_inputs else list(batch)
 
-    def _run_unrolled(self, batch, mp_flags, lrs, wds, t0):
-        """The K steps eagerly, one after another (CPU parameters)."""
-        losses = []
+    def _miss(self, sig, batch, ptrs):
+        """A new signature (or moved addresses): the counter and the
+        sanitizer's observation."""
+        telemetry.count("step_fusion.cache_miss")
+        if not _retrace._enabled:
+            return
+        comps = {"optimizer": sig[0],
+                 "rescale_grad": float(self.trainer._optimizer.rescale_grad),
+                 "hyper": sig[1], "mp_flags": sig[2],
+                 "batch": tuple((tuple(b.shape),
+                                 str(b.dtype).replace("torch.", ""))
+                                for b in batch),
+                 "amp": str(sig[4]), "numerics": sig[5]}
+        if ptrs is not None:
+            comps["param_addresses"] = tuple(f"{p:#x}" for p, _ in ptrs)
+        _retrace.observe("step_fusion", id(self), comps,
+                         site="mxnet_tpu_torch.gluon.step_fusion:"
+                              "FusedTrainStep.__call__")
+
+    def _note_cost(self, key, counted):
+        if _costs._enabled and key is not None:
+            _costs.note("step_fusion", key, counted, scale=self.k,
+                        site="mxnet_tpu_torch.gluon.step_fusion:"
+                             "FusedTrainStep.__call__")
+
+    def _run_unrolled(self, batch, mp_flags, lrs, wds, t0, key):
+        """The K steps eagerly, one after another (CPU parameters); the
+        numerics bundles folded over them."""
+        optzr = self.trainer._optimizer
+        stats = _numerics.signature()
+        losses, acc, names = [], None, ()
         for k in range(self.k):
-            losses.append(self._loss_and_grads(self._inputs(batch, k)))
-            items = self._items(mp_flags, lrs, wds, [t + k for t in t0])
-            self._update(self.trainer._optimizer, items)
+            inputs = self._inputs(batch, k)
+
+            def run(col, k=k, inputs=inputs):
+                loss = self._loss_and_grads(inputs)
+                items = self._items(mp_flags, lrs, wds, [t + k for t in t0])
+                self._update_with_stats(col, optzr, items,
+                                        lambda: self._update(optzr, items))
+                return loss, items
+
+            with _costs.first("step_fusion", key) if k == 0 \
+                    else _costs._NULL as c:
+                loss, _, names, rows = self._stat_step(stats, run)
+            if k == 0:
+                self._note_cost(key, c)
+            losses.append(loss)
+            if rows is not None:
+                acc = rows.clone() if acc is None else \
+                    _numerics.fold(acc, rows)
+        if names:
+            _numerics.record_compiled(names, acc)
         return torch.stack(losses)
 
     def _addresses(self):
@@ -242,7 +355,8 @@ class FusedTrainStep:
         tensors += [p._data._data for p in self._aux]
         return tuple((local(t).data_ptr(), t.dtype) for t in tensors)
 
-    def _run_graph(self, sig, batch, mp_flags, lrs, wds, t0, device):
+    def _run_graph(self, sig, batch, mp_flags, lrs, wds, t0, device,
+                   key=None):
         """Replay this signature's step graph K times, capturing it first
         (after one eager warm-up step, which is step 0) when there is
         none or the addresses it baked in have moved."""
@@ -250,10 +364,19 @@ class FusedTrainStep:
         losses = torch.empty(self.k, dtype=torch.float32, device=device)
         entry = self._graphs.get(sig)
         start = 0
-        if entry is None or entry["ptrs"] != self._addresses():
-            entry = self._capture(batch, mp_flags, lrs, wds, t0, losses)
+        ptrs = self._addresses()
+        if entry is None or entry["ptrs"] != ptrs:
+            if entry is not None:  # moved addresses: a miss of its own
+                with telemetry.span("step_fusion.build"):
+                    self._miss(sig, batch, ptrs)
+            entry = self._capture(batch, mp_flags, lrs, wds, t0, losses,
+                                  key, sig[5])
             self._graphs[sig] = entry
             start = 1
+        else:
+            self._note_cost(key, None)  # a replayed call: a registry hit
+            if entry.get("acc") is not None:
+                entry["acc"].zero_()
         plan, graph = entry["plan"], entry["graph"]
         if start == 0 and not self.stacked_inputs:
             # this call's batch into the graph's static inputs (a capture
@@ -271,24 +394,36 @@ class FusedTrainStep:
                 plan.write(self._static_items(entry, lrs, wds, t), optzr)
             graph.replay()
             losses[k].copy_(graph.outputs[0])
+        if entry.get("acc") is not None:
+            # one copy of the folded bundles: the next call overwrites them
+            _numerics.record_compiled(entry["names"], entry["acc"].clone())
         return losses
 
     def _static_items(self, entry, lrs, wds, t):
         return [it._replace(lr=lr, wd=wd, t=tk)
                 for it, lr, wd, tk in zip(entry["items"], lrs, wds, t)]
 
-    def _capture(self, batch, mp_flags, lrs, wds, t0, losses):
-        """Step 0 eagerly on a side stream (the warm-up), then the capture
-        of one step on static copies of the inputs."""
+    def _capture(self, batch, mp_flags, lrs, wds, t0, losses, key, stats):
+        """Step 0 eagerly on a side stream (the warm-up, where the cost
+        registry counts a step), then the capture of one step on static
+        copies of the inputs.  With numerics on, the warm-up's bundles
+        start the device accumulator the captured step folds into."""
         optzr = self.trainer._optimizer
         inputs = self._inputs(batch, 0)
 
-        def eager_step():
+        def eager_step(col):
             loss = self._loss_and_grads(inputs)
-            self._update(optzr, self._items(mp_flags, lrs, wds, t0))
-            return loss
+            items = self._items(mp_flags, lrs, wds, t0)
+            self._update_with_stats(col, optzr, items,
+                                    lambda: self._update(optzr, items))
+            return loss, items
 
-        losses[0].copy_(cuda_graph.warmup(eager_step))
+        with _costs.first("step_fusion", key) as c:
+            loss0, _, names, rows0 = cuda_graph.warmup(
+                lambda: self._stat_step(stats, eager_step))
+        self._note_cost(key, c)
+        losses[0].copy_(loss0)
+        acc = rows0.clone() if rows0 is not None else None
         statics = [x._data.clone() for x in inputs]
         if optzr._kernel_rule() is None:
             plan = None
@@ -305,18 +440,27 @@ class FusedTrainStep:
                 [p._data._data for p in self.trainer._params
                  if p._data is not None] + [x._data for x in inputs])
 
-        def step():
+        def one_step(col):
             loss = self._loss_and_grads([NDArray(s) for s in statics])
             if plan is None:
                 # the per-tensor rule, reading lr, wd and t from the table
-                multi_tensor._update_plain(optzr, self._items(
-                    mp_flags, list(scalars[0]), list(scalars[1]),
-                    list(scalars[2])))
+                items = self._items(mp_flags, list(scalars[0]),
+                                    list(scalars[1]), list(scalars[2]))
+                self._update_with_stats(
+                    col, optzr, items,
+                    lambda: multi_tensor._update_plain(optzr, items))
                 return loss, None
             # the operands as the graph holds them (its own gradients):
             # their addresses go into the update's table before each replay
             items = self._items(mp_flags, lrs, wds, t0)
-            plan.launch(optzr)
+            self._update_with_stats(col, optzr, items,
+                                    lambda: plan.launch(optzr))
+            return loss, items
+
+        def step():
+            loss, items, _, rows = self._stat_step(stats, one_step)
+            if rows is not None:
+                _numerics.fold(acc, rows)  # inside the graph
             return loss, items
 
         graph = cuda_graph.capture(
@@ -324,7 +468,7 @@ class FusedTrainStep:
             generators=(mx_random.generator(losses.device),))
         return {"graph": graph, "plan": plan, "scalars": scalars,
                 "inputs": statics, "items": graph.outputs[1],
-                "ptrs": self._addresses()}
+                "ptrs": self._addresses(), "acc": acc, "names": names}
 
     # -- first-call safety ---------------------------------------------------
     def _snapshot(self):
@@ -375,8 +519,3 @@ def _write_scalars(table, lrs, wds, t):
                         dtype=torch.float32).pin_memory()
     table.copy_(host, non_blocking=True)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.gluon.step_fusion")

@@ -38,11 +38,17 @@ from __future__ import annotations
 import pickle
 import signal
 import threading
+import time
 
 import torch
 
 from ..base import MXNetError
 from .. import engine
+from .. import telemetry
+from ..telemetry import costs as _costs
+from ..telemetry import memwatch as _mw
+from ..telemetry import numerics as _numerics
+from ..telemetry import retrace as _retrace
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..ndarray import NDArray
@@ -149,6 +155,7 @@ class Trainer:
         self._kvstore = None
         self._kv_initialized = False
         self._data_prefetcher = None
+        self._fused_sigs = set()  # the fused update's signatures seen
         self._data_depths = []
 
     def _place(self, partition_rules, mesh):
@@ -293,15 +300,18 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """Aggregate gradients and apply one optimizer update, scaling
         gradients by 1/batch_size (reference ``Trainer.step``)."""
-        self._optimizer.rescale_grad = self._scale / batch_size
-        if not self._kv_initialized:
-            self._init_kvstore()
-        if self._update_on_kvstore:
-            self._sync_kvstore_hparams()
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
-        if self._data_prefetcher is not None:
-            self._data_depths.append(self._data_prefetcher.depth())
+        with telemetry.span("trainer.step"):
+            self._optimizer.rescale_grad = self._scale / batch_size
+            if not self._kv_initialized:
+                self._init_kvstore()
+            if self._update_on_kvstore:
+                self._sync_kvstore_hparams()
+            self._allreduce_grads()
+            self._update(ignore_stale_grad)
+            if self._data_prefetcher is not None:
+                depth = self._data_prefetcher.depth()
+                self._data_depths.append(depth)
+                telemetry.gauge("data.prefetch_depth", depth)
 
     def allreduce_grads(self):
         if not self._kv_initialized:
@@ -313,8 +323,25 @@ class Trainer:
         self._allreduce_grads()
 
     def _allreduce_grads(self):
-        if self._kvstore is not None and not self._update_on_kvstore:
+        if self._kvstore is None or self._update_on_kvstore:
+            return
+        if not telemetry.is_enabled():
             self._kvstore.allreduce_grads(self._params)
+            return
+        t0 = time.perf_counter()
+        try:
+            with telemetry.span("trainer.allreduce"):
+                if type(self._kvstore) is kvs.KVStore:
+                    # the push/pull path; a store with its own reducer
+                    # counts the same payload as kvstore.allreduce_bytes
+                    telemetry.count("trainer.allreduce_bytes", sum(
+                        telemetry.nbytes_of(p._data.grad)
+                        for p in self._params
+                        if p.grad_req != "null" and p._data is not None))
+                self._kvstore.allreduce_grads(self._params)
+        finally:
+            telemetry.count("trainer.allreduce_wait_ms",
+                            (time.perf_counter() - t0) * 1e3)
 
     def _reduce_partial_grads(self):
         """Gradients still ``Partial`` over a mesh (no store, a local
@@ -346,6 +373,10 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
+        with telemetry.span("trainer.update"):
+            self._update_impl()
+
+    def _update_impl(self):
         self._reduce_partial_grads()
         if self._update_on_kvstore:
             # every push before the first pull: a pull waits for the
@@ -360,17 +391,26 @@ class Trainer:
             return
         if self._try_fused_update():
             return
-        for i, param in enumerate(self._params):
-            if param.grad_req == "null":
-                continue
-            if param._data is None:
-                if param._deferred_init is not None:
-                    continue  # untouched deferred param: nothing to update
-                raise MXNetError(
-                    f"parameter {param.name} was not initialized")
-            self._init_states(i)
-            self._optimizer.update_multi_precision(
-                i, param.data(), param.grad(), self._states[i])
+        live = self._live()
+
+        def update_each():
+            for i in live:
+                self._init_states(i)
+                self._optimizer.update_multi_precision(
+                    i, self._params[i].data(), self._params[i].grad(),
+                    self._states[i])
+
+        from ..ndarray import sparse as sp
+
+        if engine.is_naive() or any(
+                isinstance(self._params[i].grad(), sp.BaseSparseNDArray)
+                for i in live):
+            update_each()  # the reference's eager routes take no stats
+            return
+        self._with_update_stats(
+            live, [local(self._params[i].data()._data) for i in live],
+            [local(self._params[i].grad()._data) for i in live],
+            update_each)
 
     def _live(self):
         """Indices of the parameters a step updates."""
@@ -432,9 +472,58 @@ class Trainer:
         lrs = [optzr._get_lr(i) for i in live]
         wds = [optzr._get_wd(i) for i in live]
         ts = [optzr._index_update_count[i] for i in live]
-        opt._fused_param_updates(optzr, *self._fused_operands(live), lrs,
-                                 wds, ts)
+        operands = self._fused_operands(live)
+        mp_flags, w_raws, _, g_raws, states = operands
+        sig = (type(optzr).__name__, tuple(mp_flags),
+               tuple((tuple(w.shape), str(w.dtype).replace("torch.", ""))
+                     for w in w_raws),
+               tuple(len(st) for st in states), _numerics.signature())
+        compiling = sig not in self._fused_sigs
+        site = "mxnet_tpu_torch.gluon.trainer:Trainer._try_fused_update"
+        if compiling:
+            self._fused_sigs.add(sig)
+            telemetry.count("trainer.fused_cache_miss")
+            if _retrace._enabled:
+                _retrace.observe(
+                    "trainer_fused", id(self),
+                    {"optimizer": sig[0], "mp_flags": sig[1],
+                     "weights": sig[2], "state_widths": sig[3],
+                     "mesh": None, "numerics": sig[4]}, site=site)
+
+        def update():
+            with telemetry.span("trainer.fused_compile" if compiling
+                                else "trainer.fused_update"), \
+                    _costs.first("trainer_fused", (id(self), sig)) as c:
+                opt._fused_param_updates(optzr, *operands, lrs, wds, ts)
+            if _costs._enabled:
+                _costs.note("trainer_fused", (id(self), sig), c, site=site)
+
+        self._with_update_stats(live, w_raws, g_raws, update)
         return True
+
+    def _with_update_stats(self, live, w_raws, g_raws, update):
+        """Run ``update()`` (which updates ``w_raws`` in place); on a step
+        whose numerics will be harvested, queue each parameter's
+        ``grad.`` and ``update.`` statistics, the latter from a copy of
+        the weights taken first.  An allocation failure becomes
+        memwatch's post-mortem."""
+        stats = _numerics.harvesting()
+        old = [w.detach().clone() for w in w_raws] if stats else None
+        try:
+            update()
+        except Exception as exc:
+            if _mw._enabled:
+                _mw.annotate_oom(exc, context="Trainer fused update")
+            raise
+        if stats:
+            names, rows = [], []
+            for i, g, nw, ow in zip(live, g_raws, w_raws, old):
+                pname = self._params[i].name
+                names += ["grad." + pname, "update." + pname]
+                rows += [_numerics.stats_of(g),
+                         _numerics.stats_of(nw.detach() - ow)]
+            del old
+            _numerics.record_compiled(names, torch.stack(rows))
 
     # -- state persistence ---------------------------------------------------
     def save_states(self, fname):
@@ -510,8 +599,3 @@ def _copy_state(holder, value, name):
     for h, v in zip(holder, value):
         _copy_state(h, v, name)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.gluon.trainer")

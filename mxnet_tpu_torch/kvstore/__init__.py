@@ -21,6 +21,11 @@ optimizers' lazy row update), a list of them is summed over the union
 of their rows, and ``row_sparse_pull`` gives a ``RowSparseNDArray``
 target the requested rows, or writes only those rows of a dense target
 in place (the reference's ``PullRowSparse``).
+
+Telemetry, under the reference's names: the ``kvstore.push`` and
+``kvstore.pull`` spans and the ``kvstore.push_bytes`` /
+``kvstore.pull_bytes`` counters (a row-sparse value counts its stored
+rows and indices; ``row_sparse_pull`` counts the rows it pulls).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import warnings
 
 import torch
 
+from .. import telemetry
+from ..telemetry import memwatch as _mw
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import sparse as sp
@@ -69,7 +76,15 @@ class KVStore:
         """Aggregate value(s) into the store: a list pushed to one key is
         summed (the reference's device reduce); with an updater the stored
         weight is updated in place, else the value replaces it."""
-        for k, v in zip(*_pairs(key, value)):
+        with telemetry.span("kvstore.push"):
+            self._push_impl(key, value)
+
+    def _push_impl(self, key, value):
+        keys, values = _pairs(key, value)
+        if telemetry.is_enabled():
+            telemetry.count("kvstore.push_bytes",
+                            sum(telemetry.nbytes_of(v) for v in values))
+        for k, v in zip(keys, values):
             k = str(k)
             if k not in self._store:
                 raise MXNetError(f"key {k!r} not initialized")
@@ -88,7 +103,15 @@ class KVStore:
         dtype; no copy when it already has it).  With an updater the
         stored value is the weight the store owns, so the target gets a
         copy of it."""
-        for k, o in zip(*_pairs(key, out)):
+        with telemetry.span("kvstore.pull"):
+            self._pull_impl(key, out)
+
+    def _pull_impl(self, key, out):
+        keys, outs = _pairs(key, out)
+        if telemetry.is_enabled():
+            telemetry.count("kvstore.pull_bytes",
+                            sum(telemetry.nbytes_of(o) for o in outs))
+        for k, o in zip(keys, outs):
             k = str(k)
             if k not in self._store:
                 raise MXNetError(f"key {k!r} not initialized")
@@ -102,6 +125,8 @@ class KVStore:
                         target._data.copy_(stored)
                 else:
                     target._data = stored.to(target.dtype)
+                    if _mw._enabled:
+                        _mw.track(target._data)
 
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
@@ -133,13 +158,19 @@ class KVStore:
         keys, outs = _pairs(key, out)
         rids = row_ids if isinstance(row_ids, (list, tuple)) and \
             isinstance(key, (list, tuple)) else [row_ids] * len(keys)
-        for k, o, r in zip(keys, outs, rids):
-            k = str(k)
-            if k not in self._store:
-                raise MXNetError(f"key {k!r} not initialized")
-            dense = _dense(self._store[k])._data
-            idx = sp._index_tensor(r, dense.device)
-            write_rows(o, idx, dense[idx], dense.shape)
+        with telemetry.span("kvstore.pull"):
+            for k, o, r in zip(keys, outs, rids):
+                k = str(k)
+                if k not in self._store:
+                    raise MXNetError(f"key {k!r} not initialized")
+                dense = _dense(self._store[k])._data
+                idx = sp._index_tensor(r, dense.device)
+                rows = dense[idx]
+                if telemetry.is_enabled():
+                    telemetry.count("kvstore.pull_bytes",
+                                    telemetry.nbytes_of(rows) +
+                                    telemetry.nbytes_of(idx))
+                write_rows(o, idx, rows, dense.shape)
 
     def set_optimizer(self, optimizer):
         """Updates move into the store (``update_on_kvstore``)."""
@@ -241,8 +272,3 @@ def create(name="local"):
         return AsyncPSKVStore()
     raise MXNetError(f"unknown kvstore type {name!r}")
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.kvstore")

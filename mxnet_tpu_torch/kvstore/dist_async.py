@@ -40,8 +40,10 @@ Row-sparse values cross the wire both ways in the reference's form,
 ``("row_sparse", data, indices, shape)``: a pushed ``RowSparseNDArray``
 reaches the server's optimizer as one (its lazy row update), and
 ``row_sparse_pull`` asks for the rows it needs (``("rows", values,
-ids)`` back).  Not ported here: the telemetry spans and counters (item
-9).
+ids)`` back).  Telemetry, as the local store's: the ``kvstore.push`` and
+``kvstore.pull`` spans and the ``kvstore.push_bytes`` /
+``kvstore.pull_bytes`` counters (a row-sparse push counts its rows and
+indices, ``row_sparse_pull`` the rows that came over the wire).
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..ndarray import NDArray
 from ..ndarray import sparse as sp
@@ -666,13 +669,19 @@ class AsyncPSKVStore:
         list pushed to one key is summed first."""
         from . import _merge, _pairs
 
-        for k, v in zip(*_pairs(key, value)):
-            merged = _merge(v)
-            if self._compression is not None:
-                merged, self._residuals[self._key(k)] = \
-                    self._compression.roundtrip(
-                        _dense(merged), self._residuals.get(self._key(k)))
-            self._enqueue("push", self._key(k), _to_wire(merged))
+        with telemetry.span("kvstore.push"):
+            keys, values = _pairs(key, value)
+            if telemetry.is_enabled():
+                telemetry.count("kvstore.push_bytes",
+                                sum(telemetry.nbytes_of(v) for v in values))
+            for k, v in zip(keys, values):
+                merged = _merge(v)
+                if self._compression is not None:
+                    merged, self._residuals[self._key(k)] = \
+                        self._compression.roundtrip(
+                            _dense(merged),
+                            self._residuals.get(self._key(k)))
+                self._enqueue("push", self._key(k), _to_wire(merged))
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Blocking: reflects this worker's pushes (each worker's FIFO),
@@ -681,11 +690,17 @@ class AsyncPSKVStore:
         from ..parallel.local import copy_global_into
         from . import _pairs
 
-        self.wait_all()
-        for k, o in zip(*_pairs(key, out)):
-            stored = _dense(_from_wire(self._rpc("pull", self._key(k))))._data
-            for target in (o if isinstance(o, (list, tuple)) else [o]):
-                copy_global_into(target._data, stored.to(target.dtype))
+        with telemetry.span("kvstore.pull"):
+            self.wait_all()
+            keys, outs = _pairs(key, out)
+            if telemetry.is_enabled():
+                telemetry.count("kvstore.pull_bytes",
+                                sum(telemetry.nbytes_of(o) for o in outs))
+            for k, o in zip(keys, outs):
+                stored = _dense(_from_wire(
+                    self._rpc("pull", self._key(k))))._data
+                for target in (o if isinstance(o, (list, tuple)) else [o]):
+                    copy_global_into(target._data, stored.to(target.dtype))
 
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
@@ -700,15 +715,22 @@ class AsyncPSKVStore:
 
         if row_ids is None:
             raise MXNetError("row_sparse_pull requires row_ids")
-        self.wait_all()
-        keys, outs = _pairs(key, out)
-        rids = row_ids if isinstance(row_ids, (list, tuple)) and \
-            isinstance(key, (list, tuple)) else [row_ids] * len(keys)
-        for k, o, r in zip(keys, outs, rids):
-            ids = sp._index_tensor(r, "cpu")
-            shape = _first_target(o).shape
-            _, rows, ids = self._rpc("row_sparse_pull", self._key(k), ids)
-            write_rows(o, _tensor(ids), _tensor(rows), shape)
+        with telemetry.span("kvstore.pull"):
+            self.wait_all()
+            keys, outs = _pairs(key, out)
+            rids = row_ids if isinstance(row_ids, (list, tuple)) and \
+                isinstance(key, (list, tuple)) else [row_ids] * len(keys)
+            for k, o, r in zip(keys, outs, rids):
+                ids = sp._index_tensor(r, "cpu")
+                shape = _first_target(o).shape
+                _, rows, ids = self._rpc("row_sparse_pull", self._key(k),
+                                         ids)
+                rows, ids = _tensor(rows), _tensor(ids)
+                if telemetry.is_enabled():
+                    telemetry.count("kvstore.pull_bytes",
+                                    telemetry.nbytes_of(rows) +
+                                    telemetry.nbytes_of(ids))
+                write_rows(o, ids, rows, shape)
 
     def broadcast(self, key, value, out=None, priority=0):
         self.init(key, value)
@@ -771,8 +793,3 @@ class AsyncPSKVStore:
         except Exception:
             pass
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.kvstore.dist_async")

@@ -46,6 +46,10 @@ uncached greedy oracle route whatever ``use_cache`` says (the KV-cached
 the reference's), and ``shard_llama`` places the expert banks over
 ``ep`` by ``MIXTRAL_RULES``.
 
+The numerics taps of the reference (``telemetry.numerics``): ``embed``,
+``decoder.<i>`` after every decoder layer, ``norm`` and ``logits``; with
+the tier off each is one boolean test.
+
 Not ported yet, raising ``MXNetError`` that names the ROADMAP list:
 ``scan_layers``/``set_remat`` (slice 7's left-out list).  Packed
 ``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
@@ -79,6 +83,7 @@ from ..ndarray import NDArray
 from ..ops.flash_attention import _sdpa_ref, flash_attention_raw
 from ..ops.registry import apply_op
 from ..parallel.local import as_global, is_dtensor
+from ..telemetry import numerics as _numerics
 
 __all__ = ["LlamaConfig", "RMSNorm", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
@@ -387,9 +392,13 @@ class LlamaModel(HybridBlock):
 
     def hybrid_forward(self, F, input_ids, segment_ids=None):
         h = self.embed_tokens(input_ids)
-        for layer in self.layers:
+        _numerics.tap("embed", h)
+        for i, layer in enumerate(self.layers):
             h = layer(h) if segment_ids is None else layer(h, segment_ids)
-        return self.norm(h)
+            _numerics.tap(f"decoder.{i}", h)
+        h = self.norm(h)
+        _numerics.tap("norm", h)
+        return h
 
 
 class LlamaForCausalLM(HybridBlock):
@@ -414,8 +423,11 @@ class LlamaForCausalLM(HybridBlock):
         (``data.SequencePacker``); attention is masked to causal AND
         same-segment so packed documents never see each other."""
         if segment_ids is None:
-            return _lm_head(self, self.model(input_ids))
-        return _lm_head(self, self.model(input_ids, segment_ids))
+            out = _lm_head(self, self.model(input_ids))
+        else:
+            out = _lm_head(self, self.model(input_ids, segment_ids))
+        _numerics.tap("logits", out)
+        return out
 
     set_remat = _not_ported("LlamaForCausalLM.set_remat", _LATER7)
 

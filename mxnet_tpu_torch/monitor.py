@@ -8,20 +8,26 @@ after it returns ``[(step, name, stat_str), ...]`` every ``interval``
 batches, ``toc_print()`` prints them; ``install_executor`` takes an
 ``Executor``'s monitor callback.
 
-The eager path is ported: the hooks are block observers
-(``Block._register_observer``), which leave a fused 1×1 conv +
-BatchNorm + ReLU run fused (the kernel still launches) and report each of
-its blocks.  The stats stay on the device until ``toc``, which reads them
-with one copy.  On a hybridized block the reference bakes its stats into
-the compiled graph through the numerics taps (ROADMAP.md Queue 1 item 9,
-``telemetry/numerics``); a CUDA graph replay runs no Python, so
-``install`` on a hybridized block raises ``MXNetError`` naming item 9.
+The hooks are block observers (``Block._register_observer``), which
+leave a fused 1×1 conv + BatchNorm + ReLU run fused (the kernel still
+launches) and report each of its blocks.  On an eager block the stats
+(``stat_func``) stay on the device until ``toc``, which reads them with
+one copy.  On a hybridized block, as in the reference, the hooks ride the
+numerics tier (``telemetry.numerics``, switched on by ``install``): each
+monitored output is tapped as ``monitor.<name>``, and since a CUDA graph
+replay runs no Python, the taps made while the block's graph is captured
+are outputs of that graph and record on every replay.  ``toc`` drains
+them (``numerics.consume("monitor.")``, one copy) and shows their l2
+norm; ``stat_func`` applies on the eager path only.  ``install`` drops
+the graphs captured before the hooks existed, so the next call captures
+again with them.
 """
 from __future__ import annotations
 
 import re
 
-from .base import MXNetError
+from .base import MXNetError  # noqa: F401  (the reference's name)
+from .telemetry import numerics as _numerics
 
 
 def _default_stat(x):
@@ -44,16 +50,19 @@ class Monitor:
         self.activated = False
         self.queue = []
         self._handles = []
+        self._compiled = False
 
     def install(self, block, monitor_all=False):
         """Watch every child block's forward output (with
         ``monitor_all`` its inputs too)."""
         if getattr(block, "_active", False):
-            raise MXNetError(
-                "Monitor on a hybridized block is not ported yet "
-                "(ROADMAP.md, Queue 1 item 9, observability and tooling: "
-                "the numerics taps); call it before hybridize() or on "
-                "hybridize(False)")
+            # the graph route needs the tier on, and a graph captured
+            # before these hooks existed must be captured again
+            if not _numerics.is_enabled():
+                _numerics.enable()
+            self._compiled = True
+            block.apply(lambda b: setattr(b, "_cached_op", None)
+                        if hasattr(b, "_cached_op") else None)
 
         def make_hook(name):
             def hook(blk, inputs, outputs):
@@ -83,7 +92,14 @@ class Monitor:
         executor.set_monitor_callback(self._stat)
 
     def _stat(self, name, arr):
-        if not self.activated or not self.re_pattern.match(name):
+        if not self.re_pattern.match(name):
+            return
+        if self._compiled and _numerics.is_enabled():
+            # the numerics bundle, not stat_func: inside a capture no
+            # host callable can run at replay time
+            _numerics.tap("monitor." + name, arr, keep=True)
+            return
+        if not self.activated:
             return
         self.queue.append((self.step, name, self.stat_func(arr)))
 
@@ -94,12 +110,19 @@ class Monitor:
         self.step += 1
 
     def toc(self):
+        # the graph route's taps record on every call: drain them each
+        # toc (off-interval ones are dropped) so the queue stays bounded
+        compiled = _numerics.consume("monitor.") \
+            if _numerics.is_enabled() else {}
         if not self.activated:
             return []
         self.activated = False
         stats = self._gather_stats([arr for _, _, arr in self.queue])
         res = [(step, name, s)
                for (step, name, _), s in zip(self.queue, stats)]
+        for path, st in compiled.items():
+            res.append((self.step - 1, path[len("monitor."):],
+                        str(st["l2"])))
         if self.sort:
             res.sort(key=lambda t: t[1])
         self.queue = []
@@ -108,12 +131,15 @@ class Monitor:
     @staticmethod
     def _gather_stats(arrs):
         """Each stat's first element as a string, the NDArray ones read
-        from the device with one copy."""
+        from the device with one copy (one ``host_sync``)."""
         import torch
+
+        from . import telemetry
 
         out = [None] * len(arrs)
         slots = [i for i, a in enumerate(arrs) if hasattr(a, "_data")]
         if slots:
+            telemetry.count("host_sync")
             firsts = torch.stack([arrs[i]._data.detach().reshape(-1)[0]
                                   .float() for i in slots]).cpu().tolist()
             for i, v in zip(slots, firsts):

@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/ndarray/ndarray.py`` (reference
 ``torch.Tensor`` (``_data``) on an explicit device; every op unwraps the
 operands, calls torch and wraps the result (``ops.registry.apply_op``).
 Device work is asynchronous on the CUDA stream; ``asnumpy``,
-``asscalar`` and ``wait_to_read`` synchronise.  ``attach_grad`` makes the
+``asscalar`` and ``wait_to_read`` synchronise, each counted as a
+``host_sync`` by telemetry, and each array made registers its storage
+with ``telemetry.memwatch`` while that is on.  ``attach_grad`` makes the
 array a variable of the autograd tape (``autograd.py``); its gradient
 buffer has the array's dtype and device and is allocated at the first
 read or backward.
@@ -18,6 +20,8 @@ import torch
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, context_of, current_context
 from ..parallel.local import is_dtensor as _is_dtensor
+from .. import telemetry
+from ..telemetry import memwatch as _mw
 
 
 def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
@@ -55,6 +59,8 @@ class NDArray:
         self._data = _to_tensor(data, resolve_dtype(dtype), ctx)
         self._grad = None
         self._grad_req = "null"
+        if _mw._enabled:
+            _mw.track(self._data)
 
     # -- basic properties ----------------------------------------------------
     @property
@@ -101,12 +107,18 @@ class NDArray:
         update in place).  numpy has no bfloat16, so a bf16 array comes
         back as float32 (exact).  An array over a mesh (a DTensor) comes
         back whole: every rank gets the global value (a collective)."""
+        telemetry.count("host_sync")
         t = self._data.detach()
         if _is_dtensor(t):
             t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.to("cpu", copy=True).numpy()
+        try:
+            return t.to("cpu", copy=True).numpy()
+        except Exception as exc:
+            if _mw._enabled:
+                _mw.annotate_oom(exc, context="asnumpy")
+            raise
 
     def asscalar(self):
         if self.size != 1:
@@ -115,6 +127,7 @@ class NDArray:
 
     def wait_to_read(self):
         """Block until the value is computed."""
+        telemetry.count("host_sync")
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
         return self
@@ -347,6 +360,8 @@ class NDArray:
     def zero_grad(self):
         if self._grad is not None:
             self._grad._data = torch.zeros_like(self._grad._data)
+            if _mw._enabled:
+                _mw.track(self._grad._data)
 
     def detach(self):
         return NDArray(self._data.detach())
@@ -409,8 +424,3 @@ for _op in ("reshape_like", "transpose", "swapaxes", "flatten",
             "pick", "slice_axis", "split", "zeros_like", "ones_like"):
     setattr(NDArray, _op, _method(_op))
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry",), _lo._9),
-                         "mxnet_tpu_torch.ndarray.ndarray")

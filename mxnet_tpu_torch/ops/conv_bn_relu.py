@@ -36,6 +36,7 @@ import torch
 
 from .. import _kernels, cuda_graph
 from ..base import MXNetError
+from ..telemetry import costs as _costs
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -84,7 +85,19 @@ def fused_matmul_affine_relu(x, w, scale, bias):
     of their dtype's design: bf16 and f16 the tensor cores' (``_mma``),
     f32 the FMA pipes' (``_fma``); ``fused_matmul_affine_relu.launches``
     counts every launch and ``.launches_mma`` the tensor-core design's."""
+    if _costs._counting:  # a cost count runs (telemetry.costs)
+        with _costs.kernel(_fmar_cost, x, w):
+            return _fmar_op(x, w, scale, bias)
     return _fmar_op(x, w, scale, bias)
+
+
+def _fmar_cost(x, w):
+    """(flops, bytes) of the kernel, as its bound counts them in
+    ``chip_smoke.py``: 2·M·N·K; x, w, scale and bias read and the output
+    written once."""
+    (m, k), n = x.shape, w.shape[1]
+    return 2.0 * m * k * n, \
+        x.element_size() * (m * k + k * n + m * n) + 8 * n
 
 
 @torch.library.custom_op("mxnet_tpu_torch::fused_matmul_affine_relu",

@@ -44,6 +44,7 @@ import torch
 from ..base import MXNetError
 from .. import _kernels, cuda_graph
 from .. import autograd as ag
+from ..telemetry import costs as _costs
 from ..parallel.local import any_dtensor, as_global, is_dtensor, \
     sharded_call
 
@@ -217,6 +218,39 @@ def _count(fn, design):
         cuda_graph.count(fn, "launches_mma")
 
 
+def visible_pairs(tq, tk, causal):
+    """(query, key) pairs the mask keeps (bottom-right causal)."""
+    if not causal:
+        return tq * tk
+    if tk >= tq:
+        return tq * (tk - tq) + tq * (tq + 1) // 2
+    return tk * (tk + 1) // 2
+
+
+def _fwd_cost(q, k, causal):
+    """(flops, bytes) of the forward kernel, as its bound counts them in
+    ``chip_smoke.py``: 2 products of 2·D flops a visible pair; q, k, v
+    read and O and lse written once."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    flops = 4.0 * d * visible_pairs(tq, tk, causal) * b * h
+    nbytes = q.element_size() * b * h * d * (2 * tq + 2 * tk) + \
+        4 * b * h * tq
+    return flops, nbytes
+
+
+def _bwd_cost(q, k, causal):
+    """(flops, bytes) of the dQ kernel (3 products of 2·D flops a visible
+    pair; q, k, v, dO, lse, δ read, dq written) and the dK/dV kernel (4
+    products; dk, dv written) together, as their bounds count them."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    flops = 2.0 * d * 7 * visible_pairs(tq, tk, causal) * b * h
+    rows = 2 * (2 * tq + 2 * tk) + tq + 2 * tk
+    nbytes = q.element_size() * b * h * d * rows + 2 * 8 * b * h * tq
+    return flops, nbytes
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Attention forward over (B, H, T, D) tensors → (O, lse).
 
@@ -230,7 +264,11 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     scale = _scale(q, scale)
     d0 = q.shape[-1]
     q, k, v = _pad_head(q, k, v)
-    out, lse = _fa_fwd_op(q, k, v, bool(causal), scale)
+    if _costs._counting:  # a cost count runs (telemetry.costs)
+        with _costs.kernel(_fwd_cost, q, k, causal):
+            out, lse = _fa_fwd_op(q, k, v, bool(causal), scale)
+    else:
+        out, lse = _fa_fwd_op(q, k, v, bool(causal), scale)
     return out[..., :d0], lse
 
 
@@ -291,6 +329,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
     scale = _scale(q, scale)
     d0 = q.shape[-1]
     q, k, v, o, do = _pad_head(q, k, v, o, do)
+    if _costs._counting:  # a cost count runs (telemetry.costs)
+        with _costs.kernel(_bwd_cost, q, k, causal):
+            return _flash_attention_bwd(q, k, v, o, do, lse, causal, scale,
+                                        d0)
+    return _flash_attention_bwd(q, k, v, o, do, lse, causal, scale, d0)
+
+
+def _flash_attention_bwd(q, k, v, o, do, lse, causal, scale, d0):
     if all(t.device.type == "cpu" for t in (q, k, v, o, do, lse)):
         dq, dk, dv = _fa_backward_plain(q, k, v, o, do, lse, causal, scale)
         return dq[..., :d0], dk[..., :d0], dv[..., :d0]

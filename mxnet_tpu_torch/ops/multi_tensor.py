@@ -31,6 +31,7 @@ import torch
 
 from .. import _kernels, cuda_graph
 from ..base import MXNetError
+from ..telemetry import costs as _costs
 
 #: rule name -> the kernel's rule code
 RULES = {"sgd": 0, "sgd_mom": 1, "nag_mom": 2, "adam": 3, "adamw": 4}
@@ -238,6 +239,14 @@ def multi_tensor_update(optimizer, items):
     if not items:
         return
     _kernels.refuse_trace("multi_tensor_update", *(it.w for it in items))
+    if _costs._counting:  # a cost count runs (telemetry.costs)
+        with _costs.kernel(_update_cost, items):
+            _multi_tensor_update(optimizer, items)
+    else:
+        _multi_tensor_update(optimizer, items)
+
+
+def _multi_tensor_update(optimizer, items):
     if all(it.w.device.type == "cpu" for it in items):
         _update_plain(optimizer, items)
         return
@@ -247,6 +256,20 @@ def multi_tensor_update(optimizer, items):
     plan = plan_for(items)
     plan.write(items, optimizer)
     plan.launch(optimizer)
+
+
+def _update_cost(items):
+    """(flops, bytes) of one update, as its bound counts them in
+    ``chip_smoke.py``: elementwise work, no products (0 flops by the cost
+    registry's rules); each weight, state and master read and written
+    once, each gradient read once."""
+    nbytes = 0
+    for it in items:
+        tensors = (it.w,) + tuple(it.states) + \
+            (() if it.master is None else (it.master,))
+        nbytes += sum(2 * t.numel() * t.element_size() for t in tensors)
+        nbytes += it.g.numel() * it.g.element_size()
+    return 0.0, nbytes
 
 
 multi_tensor_update.launches = 0

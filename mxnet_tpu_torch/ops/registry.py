@@ -20,7 +20,11 @@ nnvm graph's node resolve their op.  While the profiler runs
 (``profiler.py``), each op's dispatch is timed and recorded under its
 scope and name, as the reference's hook does; otherwise dispatch does
 not look at it.  The reference's bulking hook has no counterpart
-(``engine.py``).
+(``engine.py``).  Two telemetry hooks sit here as in the reference: an
+op that fails with a device allocation failure raises
+``telemetry.memwatch``'s post-mortem ``OOMError`` while the ledger is
+on, and ``telemetry.numerics.bisect()`` journals every op's nan/inf
+verdicts.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Callable, Dict
 
 from .. import autograd as ag
 from ..base import MXNetError
+from ..telemetry import memwatch as _mw
 
 #: every registered name (canonical and aliases) -> its NDArray op
 _OPS: Dict[str, Callable] = {}
@@ -38,6 +43,9 @@ _OP_META: Dict[str, dict] = {}
 #: (name, previous canonical, new canonical) of each registration that
 #: replaced another op under a name; empty in the package
 _DUPLICATE_REGISTRATIONS = []
+#: per-op NaN hook ``hook(name, raws, outs)``, installed by
+#: ``telemetry.numerics.bisect()`` for an eager replay
+_bisect_hook = None
 
 
 def _profiler():
@@ -60,11 +68,19 @@ def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     if prof is not None:
         t0 = time.perf_counter()
     raws = [a._data for a in nd_args]
-    with torch.no_grad() if no_grad else ag.grad_mode():
-        raws = replicate_plain(raws)
-        if amp.is_active():
-            raws = amp.maybe_cast_args(name, raws)
-        outs = fun(*raws)
+    try:
+        with torch.no_grad() if no_grad else ag.grad_mode():
+            raws = replicate_plain(raws)
+            if amp.is_active():
+                raws = amp.maybe_cast_args(name, raws)
+            outs = fun(*raws)
+    except Exception as exc:
+        if _mw._enabled:
+            _mw.annotate_oom(exc, context=f"op {name or '<anonymous>'}")
+        raise
+    if _bisect_hook is not None:
+        _bisect_hook(name, raws, outs if isinstance(outs, (tuple, list))
+                     else (outs,))
     if prof is not None:
         prof.record_op_event(prof.current_scope_prefix() + (name or "op"),
                              time.perf_counter() - t0)

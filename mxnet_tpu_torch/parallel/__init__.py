@@ -502,11 +502,18 @@ class TPUSyncKVStore:
         self._residuals = {}
 
     def allreduce_grads(self, params):
+        with telemetry.span("kvstore.allreduce"):
+            return self._allreduce_grads_impl(params)
+
+    def _allreduce_grads_impl(self, params):
         grads = []
         for p in params:
             if p._data is None or p.grad_req == "null":
                 continue
             grads.append((p, p.grad()))
+        if telemetry.is_enabled():
+            telemetry.count("kvstore.allreduce_bytes",
+                            sum(telemetry.nbytes_of(g) for _, g in grads))
         if self._compression is not None:
             # each rank quantizes its own (local) gradient before the hop
             for p, g in grads:
@@ -664,7 +671,4 @@ from .partition import (PartitionRules, as_rules, place_params,  # noqa: E402
                         stacked_spec, LLAMA_RULES, MIXTRAL_RULES,
                         FAMILY_RULES, last_placement)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse({"telemetry": _lo._9}, "mxnet_tpu_torch.parallel")
+from .. import telemetry  # noqa: E402

@@ -27,7 +27,9 @@ import tempfile
 import numpy as np
 
 from . import ndarray as nd
+from . import telemetry
 from .base import MXNetError
+from .telemetry import retrace as _retrace
 from .context import current_context
 from .ndarray.ndarray import NDArray
 
@@ -100,6 +102,7 @@ class Predictor:
         self._block.hybridize(static_alloc=True)
         self._inputs = {}
         self._outputs = None
+        self._seen_signatures = 0
 
     # -- input materialisation ------------------------------------------------
     def _tmp(self):
@@ -223,11 +226,31 @@ class Predictor:
         if missing:
             raise MXNetError(f"inputs not set: {missing}")
         args = [self._inputs[n] for n in self._input_names]
-        with autograd.pause():
+        with autograd.pause(), telemetry.span("predictor.forward"):
             out = self._block(*args)
         self._outputs = list(out) if isinstance(out, (list, tuple)) \
             else [out]
+        self._note_signature(args)
         return self._outputs
+
+    def _note_signature(self, args):
+        """``predictor.compile`` (a forward that made a new graph
+        signature) or ``predictor.cache_hit`` telemetry, from the block's
+        signature count; a new one is observed by the recapture
+        sanitizer (its flops are the CachedOp's)."""
+        n = self._block.cache_stats()["signatures"]
+        if n <= self._seen_signatures:
+            telemetry.count("predictor.cache_hit")
+            return
+        self._seen_signatures = n
+        telemetry.count("predictor.compile")
+        if _retrace._enabled:
+            _retrace.observe(
+                "predictor", id(self),
+                {"inputs": tuple((tuple(a.shape),
+                                  str(a.dtype).replace("torch.", ""))
+                                 for a in args)},
+                site="mxnet_tpu_torch.predictor:Predictor.forward")
 
     # -- compile-cache observability ------------------------------------------
     def cache_stats(self):

@@ -29,7 +29,8 @@ default); a net initialized with ``ctx=mx.cpu()`` serves on the CPU.
 tensor-parallel replicas (``server.py``).  Not ported yet (ROADMAP.md,
 Queue 1, "Left out of slice 6"): the observability of ``metrics.py``
 (``MetricsServer``, ``SLOTracker``, ``prometheus_text``; reading one
-raises ``MXNetError`` naming that list) and the telemetry package.
+raises ``MXNetError`` naming that list) and the serving emits of the
+telemetry package ("Left out of slice 19").
 """
 from .protocol import (Request, ServerClosedError,     # noqa: F401
                        ServerOverloadedError)

@@ -75,8 +75,9 @@ A replica with tp = 1 runs in one process on its own device.  With tp >
 same channel (its slot-cache programs mirrored as the target's are), and
 the radix cache's trie and block ids stay with the leader, which sends
 the ids of each gather, suffix prefill and commit.  Not ported (ROADMAP,
-"Left out of slice 6"): the telemetry, numerics taps and retrace
-hooks.  ``compiled_signatures`` keeps the
+"Left out of slice 19"): the serving side's telemetry, numerics taps
+and retrace hooks (reading ``telemetry`` or ``tracing`` here raises
+``MXNetError`` naming that list).  ``compiled_signatures`` keeps the
 reference's signature keys: here the set of program shapes that ran.
 """
 from __future__ import annotations
@@ -1064,5 +1065,5 @@ class GenerativeScheduler:
 
 from .. import _left_out as _lo  # noqa: E402
 
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._9),
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._19),
                          "mxnet_tpu_torch.serving.generative")

@@ -26,7 +26,7 @@ Both lanes share one engine and one CUDA stream; every device→host wait
 is ``scheduler._materialize`` (first tokens at the handoff, token vectors
 at each tick).  Each lane thread runs under ``torch.inference_mode()``.
 The reference's telemetry, tracing spans, capacity ledgers and flight
-recorder are not ported (ROADMAP, "Left out of slice 6"); the request
+recorder are not ported (ROADMAP, "Left out of slice 19"); the request
 records are, kept in ``Replica.records``.
 """
 from __future__ import annotations
@@ -664,5 +664,5 @@ class ReplicaDispatcher:
 from .. import _left_out as _lo  # noqa: E402
 
 __getattr__ = _lo.refuse(
-    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._9),
+    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._19),
     "mxnet_tpu_torch.serving.lanes")

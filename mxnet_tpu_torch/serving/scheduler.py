@@ -14,8 +14,9 @@ host (``.cpu()``), at the batch boundary, after the whole batch was
 dispatched.
 
 The reference's telemetry spans, histograms and rolling summary
-(``emit_summary``) come back with the telemetry package (ROADMAP Queue 1
-item 9); the counters ``batches``, ``completed`` and ``failed`` are here.
+(``emit_summary``) come back with the serving side of the telemetry
+package (ROADMAP Queue 1, "Left out of slice 19"); the counters
+``batches``, ``completed`` and ``failed`` are here.
 """
 from __future__ import annotations
 
@@ -282,5 +283,5 @@ class BatchScheduler:
 
 from .. import _left_out as _lo  # noqa: E402
 
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._9),
+__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._19),
                          "mxnet_tpu_torch.serving.scheduler")

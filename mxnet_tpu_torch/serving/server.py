@@ -513,5 +513,5 @@ class GenerativeServer(_ServerBase):
 from .. import _left_out as _lo  # noqa: E402
 
 __getattr__ = _lo.refuse(
-    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._9),
+    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._19),
     "mxnet_tpu_torch.serving.server")

@@ -2752,9 +2752,34 @@ def test_monitor_keeps_the_fused_kernel_launching_on_card(cuda_nvcc):
     assert cbr.fused_matmul_affine_relu.launches == before + 1
     assert len(rows) == 3
     np.testing.assert_array_equal(out, plain)
+    mon.uninstall()
+    # slice 19: on the hybridized block the taps are outputs of its CUDA
+    # graph; every replay launches #4 once and reports the three blocks
+    # with the l2 norms an eager monitor computes (bf16 tolerance)
+    from mxnet_tpu_torch.telemetry import numerics
+
+    eager = mx.monitor.Monitor(1, stat_func=mx.nd.norm, sort=True)
+    eager.install(net)
+    eager.tic()
+    net(x)
+    want = eager.toc()
+    eager.uninstall()
     net.hybridize()
-    with pytest.raises(MXNetError, match="item 9"):
-        mx.monitor.Monitor(1).install(net)
+    try:
+        mon = mx.monitor.Monitor(1, sort=True).install(net)
+        for _ in range(3):  # the capture's call, then two replays
+            before = cbr.fused_matmul_affine_relu.launches
+            mon.tic()
+            got = net(x).asnumpy()
+            rows = mon.toc()
+            assert cbr.fused_matmul_affine_relu.launches == before + 1
+            np.testing.assert_array_equal(got, plain)
+            assert [r[1] for r in rows] == [r[1] for r in want]
+            for g, w in zip(rows, want):
+                assert float(g[2]) == pytest.approx(float(w[2]), rel=1e-2)
+        mon.uninstall()
+    finally:
+        numerics.clear()
 
 
 @pytest.mark.cuda
@@ -2787,3 +2812,157 @@ def test_create_graph_through_the_flash_kernels_raises_on_card(cuda_nvcc):
         y = flash_attention(q, q * 0.5, q * 2.0).sum()
     g, = mx.autograd.grad(y, [q])
     assert np.isfinite(g.asnumpy()).all()
+
+
+# -- slice 19: telemetry on the card -------------------------------------------
+
+def _tel_llama(mx, ctx, seed=19):
+    """A 2-layer tiny Llama, f32, weights from a seed, on ``ctx``."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+    from mxnet_tpu_torch.models import llama
+
+    cfg = {**llama.LLAMA_CONFIGS["llama_tiny"], "num_layers": 2}
+    src = llama.LlamaForCausalLM(llama.LlamaConfig(**cfg), prefix="tl_")
+    mx.random.seed(seed)
+    src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    arrays = {k: p.data().asnumpy()
+              for k, p in src._collect_params_with_prefix().items()}
+    net = llama.LlamaForCausalLM(llama.LlamaConfig(**cfg), prefix="tl_")
+    net.initialize(ctx=ctx)
+    load_numpy_params(net, arrays, ctx=ctx)
+    return net
+
+
+def _stat_rows(tensors, paths=None):
+    paths = paths or list(tensors)
+    return np.array([[tensors[p][k] for k in ("l2", "maxabs", "mean", "nan",
+                                              "inf")] for p in paths])
+
+
+@pytest.mark.cuda
+def test_numerics_taps_are_outputs_of_the_cachedop_graph_on_card(cuda_nvcc):
+    """Trap 1: the forward's taps captured into a hybridized block's graph
+    equal the eager taps of the same inputs after each replay, two
+    replays on different inputs give their own stats (none stale), and
+    numerics on and off keep one graph each."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.telemetry import numerics
+
+    gpu = mx.gpu(0)
+    eager, hyb = _tel_llama(mx, gpu), _tel_llama(mx, gpu)
+    hyb.hybridize()
+    rs = np.random.RandomState(3)
+    batches = [mx.nd.array(rs.randint(0, 256, (2, 16)).astype(np.int32),
+                           ctx=gpu) for _ in range(3)]
+    try:
+        numerics.enable(stride=1)
+        got, want = [], []
+        for ids in batches:  # capture, then two replays
+            hyb(ids)
+            got.append(numerics.step_summary(0)["tensors"])
+            eager(ids)
+            want.append(numerics.step_summary(0)["tensors"])
+        for g, w in zip(got, want):
+            assert list(g) == list(w) == ["embed", "decoder.0", "decoder.1",
+                                          "norm", "logits"]
+            np.testing.assert_allclose(_stat_rows(g), _stat_rows(w),
+                                       rtol=1e-5, atol=1e-6)
+        assert not np.allclose(_stat_rows(got[1]), _stat_rows(got[2]))
+        numerics.disable()
+        hyb(batches[0])
+        assert hyb.cache_stats()["signatures"] == 2
+    finally:
+        numerics.clear()
+
+
+@pytest.mark.cuda
+def test_numerics_folded_inside_the_fused_step_graph_on_card(cuda_nvcc):
+    """The K = 2 fused step's bundles, folded over its inner steps inside
+    the graph (the capture's call and a replayed call), against the same
+    fused step on the CPU (the unrolled route), f32 within 1e-4."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.telemetry import numerics
+
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, 256, (2, 16)).astype(np.int32)
+    summaries = {}
+    try:
+        numerics.enable(stride=1)
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = _tel_llama(mx, ctx)
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.1, "momentum": 0.9})
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            step = mx.gluon.FusedTrainStep(
+                net, tr, lambda n, a, b: loss_fn(n(a), b),
+                steps_per_execution=2, batch_size=2)
+            x = mx.nd.array(ids, ctx=ctx)
+            out = []
+            for _ in range(2):
+                step(x, x)
+                out.append(numerics.step_summary(0)["tensors"])
+            summaries[ctx.device_type] = out
+    finally:
+        numerics.clear()
+    for g, c in zip(summaries["gpu"], summaries["cpu"]):
+        assert list(g) == list(c)
+        assert any(p.startswith("update.") for p in g)
+        np.testing.assert_allclose(_stat_rows(g), _stat_rows(c), rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_retrace_names_param_addresses_on_card(cuda_nvcc):
+    """Trap 7: a parameter rebound to new storage after warmup makes the
+    CachedOp capture again; the sanitizer names ``param_addresses``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.telemetry import retrace
+
+    net = mx.gluon.nn.Dense(8, in_units=16, prefix="mv_")
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    x = mx.nd.ones((4, 16), ctx=mx.gpu(0))
+    try:
+        retrace.enable("raise")
+        net(x)
+        retrace.warm()
+        net(x)
+        w = net.weight
+        w._data._data = torch.nn.Parameter(w._data._data.detach().clone())
+        with pytest.raises(retrace.RetraceError, match="param_addresses"):
+            net(x)
+        (v,) = retrace.violations()
+        assert len(v["diff"]) == 1 and "mv_weight@" in v["diff"][0]
+    finally:
+        retrace.disable()
+        retrace.reset()
+
+
+@pytest.mark.cuda
+def test_oom_postmortem_names_the_largest_buffer_on_card(cuda_nvcc, tmp_path):
+    """An allocation beyond the card's memory inside an op raises
+    ``OOMError`` naming the largest live buffer; any other error passes
+    through unchanged."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops.registry import apply_op
+    from mxnet_tpu_torch.telemetry import memwatch
+
+    try:
+        telemetry.enable()
+        memwatch.enable(report_path=str(tmp_path / "oom.json"))
+        net = mx.gluon.nn.Dense(1024, in_units=2048, prefix="big_")
+        net.initialize(ctx=mx.gpu(0))
+        x = mx.nd.ones((2, 2048), ctx=mx.gpu(0))
+        total = torch.cuda.get_device_properties(0).total_memory
+        with pytest.raises(memwatch.OOMError) as ei:
+            apply_op(lambda a: torch.empty(2 * total, dtype=torch.uint8,
+                                           device=a.device), x,
+                     name="huge")
+        assert isinstance(ei.value.__cause__, torch.cuda.OutOfMemoryError)
+        assert "big_weight" in str(ei.value)
+        with pytest.raises(RuntimeError) as ei:
+            apply_op(lambda a: a @ a, x, name="bad_shapes")
+        assert not isinstance(ei.value, memwatch.OOMError)
+    finally:
+        telemetry.disable()

@@ -13,7 +13,9 @@ The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``ops.registry``, ``ops``, ``kvstore``, ``checkpoint`` and slice 18's
 ``np``, ``np.random``, ``np.linalg``, ``npx``, ``operator``, ``rtc``,
 ``gluon.contrib`` (with ``.nn`` and ``.estimator``), ``util``,
-``runtime``, ``test_utils``, ``monitor`` and ``visualization`` in both
+``runtime``, ``test_utils``, ``monitor``, ``visualization`` and slice
+19's ``telemetry``, ``telemetry.numerics``, ``telemetry.memwatch``,
+``telemetry.retrace``, ``telemetry.costs`` and ``telemetry.sinks`` in both
 packages with an explicit list of names left out, each with the ROADMAP
 list that owns it; reading a left-out name raises ``MXNetError`` naming
 that list, never ``AttributeError``.  Beyond the pinned namespaces, every
@@ -36,19 +38,19 @@ import mxnet_tpu_torch as tmx
 CPU = tmx.cpu()
 _9 = "item 9"
 _6, _7, _NC = "slice 6", "slice 7", "Not carried over"
+_19 = "slice 19"
 
 LEFT_OUT = {
-    "mx": dict.fromkeys(("sanitizer", "telemetry"), _9),
-    "parallel": {"telemetry": _9},
-    "kvstore": {"telemetry": _9},
-    "checkpoint": {"telemetry": _9},
+    "mx": {"sanitizer": _9},
     "serving": dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
                               "prometheus_text"), _6),
-    "engine": {**dict.fromkeys(
+    "engine": dict.fromkeys(
         ("cached_vjp", "clear_segment_cache", "key_intern_stats",
          "maybe_defer", "register_dispatch_callback", "segment_cache_stats",
-         "unregister_dispatch_callback"), _7), "telemetry": _9},
+         "unregister_dispatch_callback"), _7),
     "autograd": {"Node": _NC},
+    "telemetry": dict.fromkeys(("tracing", "fleet", "capacity", "promtext"),
+                               _19),
 }
 
 #: namespaces pinned since slice 16: modules whose imports of foreign
@@ -59,7 +61,9 @@ MODULE_NS = ("models", "serving", "engine", "autograd", "profiler", "base",
              "ops.registry", "ops", "kvstore", "checkpoint", "np",
              "np.random", "np.linalg", "npx", "operator", "rtc",
              "gluon.contrib", "gluon.contrib.nn", "gluon.contrib.estimator",
-             "util", "runtime", "test_utils", "monitor", "visualization")
+             "util", "runtime", "test_utils", "monitor", "visualization",
+             "telemetry", "telemetry.numerics", "telemetry.memwatch",
+             "telemetry.retrace", "telemetry.costs", "telemetry.sinks")
 
 
 def _namespaces():
@@ -108,6 +112,8 @@ def _namespaces():
     import mxnet_tpu.test_utils as jtu
     import mxnet_tpu.monitor as jmon
     import mxnet_tpu.visualization as jviz
+    import mxnet_tpu.telemetry as jtel
+    import mxnet_tpu_torch.telemetry as ttel
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -148,6 +154,9 @@ def _namespaces():
         "util": (jutil, tmx.util), "runtime": (jrt, tmx.runtime),
         "test_utils": (jtu, tmx.test_utils), "monitor": (jmon, tmx.monitor),
         "visualization": (jviz, tmx.visualization),
+        "telemetry": (jtel, ttel),
+        **{f"telemetry.{m}": (getattr(jtel, m), getattr(ttel, m))
+           for m in ("numerics", "memwatch", "retrace", "costs", "sinks")},
     }
 
 
@@ -718,10 +727,9 @@ def _slice18_calls():
             ops.defop is registry.defop
 
     def telemetry_refusals():
-        for mod in (kvstore, checkpoint):
-            with pytest.raises(tmx.MXNetError, match="item 9"):
-                mod.telemetry
-        return True
+        # refused naming item 9 until slice 19 ported the package
+        return all(mod.telemetry is tmx.telemetry
+                   for mod in (kvstore, checkpoint))
 
     def native_available():
         return _native.available() is True

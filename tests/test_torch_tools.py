@@ -8,8 +8,9 @@ false; TPU, XLA and PALLAS false everywhere); ``test_utils``' helpers
 give the reference's results on the same numbers; ``Monitor`` on an
 eager net collects the reference's rows, with the same stats within
 1e-6 (the same weights), keeps a fused 1×1 conv + BatchNorm + ReLU run
-fused while it reports each of its blocks, and refuses a hybridized net
-(ROADMAP item 9); ``visualization`` prints and returns the reference's
+fused while it reports each of its blocks, and on a hybridized net
+reports the reference's rows through the numerics taps (slice 19);
+``visualization`` prints and returns the reference's
 text for the same symbol, character for character.
 """
 import threading
@@ -205,11 +206,37 @@ def test_monitor_interval_monitor_all_and_print(capsys):
 
 
 def test_monitor_on_a_hybridized_net_is_left_out():
-    net = _mlp(tmx)
-    net.initialize(ctx=CPU)
-    net.hybridize()
-    with pytest.raises(tmx.MXNetError, match="item 9"):
-        tmx.monitor.Monitor(1).install(net)
+    """Ported in slice 19 (until then ``install`` on a hybridized block
+    raised naming item 9): in both packages the hooks ride the numerics
+    taps, installed after the block's graph was built; the rows name the
+    same outputs, with the reference's l2 norms within 1e-5 relative."""
+    from mxnet_tpu.telemetry import numerics as jnum
+    from mxnet_tpu_torch.telemetry import numerics as tnum
+
+    x = onp.random.RandomState(5).randn(2, 3).astype(onp.float32)
+    jnet, tnet = _mlp(jmx), _mlp(tmx)
+    jnet.initialize(jmx.init.Xavier())
+    load_numpy_params(tnet, {k: p.data().asnumpy() for k, p in
+                             jnet._collect_params_with_prefix().items()},
+                      ctx=CPU)
+    rows = {}
+    try:
+        for pkg, net in ((jmx, jnet), (tmx, tnet)):
+            arr = pkg.nd.array(x, **({"ctx": CPU} if pkg is tmx else {}))
+            net.hybridize()
+            net(arr)  # the graph is built before the hooks exist
+            mon = pkg.monitor.Monitor(1, sort=True).install(net)
+            mon.tic()
+            net(arr)
+            rows[pkg] = mon.toc()
+            mon.uninstall()
+    finally:
+        jnum.clear()
+        tnum.clear()
+    assert [r[1] for r in rows[tmx]] == [r[1] for r in rows[jmx]] == \
+        ["mlp_dense0_output", "mlp_dense1_output"]
+    for g, r in zip(rows[tmx], rows[jmx]):
+        assert float(g[2]) == pytest.approx(float(r[2]), rel=1e-5)
 
 
 def _fusable(pkg):
