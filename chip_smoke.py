@@ -400,7 +400,19 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     refused, and ``rtc.PallasKernel`` with its gradient;
 26d. ``Monitor`` on an eager ResNet-50 bf16 B=32 forward (#4 launching
     16 times), ``runtime.Features()``, ``check_consistency([cpu, gpu])``
-    on a BERT-base layer, ``visualization.print_summary``.
+    on a BERT-base layer, ``visualization.print_summary``;
+27a-27d. training telemetry: the Llama step's records, numerics taps and
+    retrace sanitizer, ``Monitor`` inside a CUDA graph, memwatch, one
+    timeline;
+28a. phase 8b's server under full observability (tracing, capacity,
+    the numerics taps inside the graphed tick, retrace, ``/metrics``, SLO
+    goodput), an overloaded server's one flight dump, and a device-trace
+    split of one graphed tick (run right after 19c, on phase 8's net);
+28b. ``InferenceServer`` on BERT-base (#1) and ResNet-50 (#4) with
+    observability off and on;
+28c. the fleet watchdog on 27a's Llama training step on a one-rank NCCL
+    group (the exchange, a retrace incident, NaN at layer 1 and its dump);
+28d. 28a's first wave under the lock sanitizer.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -1396,7 +1408,8 @@ def serving_bf16_phase(torch, mx, llama, serving, fa, net, failures):
         path_launches == 0 and \
         launches == launches_mma == 2 * len(plain) * net.config.num_layers
     row["ok"] = ok
-    STASH["serve"] = dict(replies=replies, ttft_ms=row["ttft_ms"],
+    STASH["serve"] = dict(replies=replies, offline=offline,
+                          ttft_ms=row["ttft_ms"],
                           decode_step_ms_median=row["decode_step_ms_median"])
     emit(row)
     if not ok:
@@ -2798,14 +2811,15 @@ def _percentile(values, q):
 
 
 def _serve_waves(serving, model, config, requests, cache_stats,
-                 waves=SERVE_WAVES):
+                 waves=SERVE_WAVES, before_stop=None):
     """Serve ``requests`` (numpy arrays) through an ``InferenceServer``
     from SERVE_CLIENTS client threads, each submitting its share and then
     waiting for it, ``waves`` times over one live server; returns every
     wave's replies, each wave's timing and captures (``cache_stats()``'s
     misses in it), the rates and latencies over the waves after the
     first (and the rate over those of them that captured nothing), and
-    the server's stats."""
+    the server's stats.  ``before_stop(server)`` runs after the last
+    wave, while the server still runs."""
     import threading
 
     srv = serving.InferenceServer(model, config)
@@ -2852,6 +2866,8 @@ def _serve_waves(serving, model, config, requests, cache_stats,
                 p50_ms=_percentile(done, 50), p99_ms=_percentile(done, 99),
                 batches=srv.stats()["batches"] - before,
                 captures=cache_stats()["misses"] - misses, errors=errors))
+        if before_stop is not None:
+            before_stop(srv)
     later = stats[1:]
     steady = [w for w in later if not w["captures"]]
 
@@ -9449,7 +9465,694 @@ def timeline_phase(torch, mx, bert, failures):
     free_card(torch)
 
 
+
+OBS_SLO = {"default": {"ttft_ms": 2000.0, "tpot_ms": 60.0}}  # 28a targets
+OBS_WINDOW_S = 2.0           # 28a: the capacity ledgers' sliding window
+OBS_UTIL_MIN = 0.8           # 28a: decode utilization, saturated lane
+OBS_SUMMARY_EVERY = 4        # 28a, 28b: serving.latency every N completions
+OBS_REQUESTS = 64            # 28b: requests a wave (8 clients)
+OBS_WAVES = 3                # 28b: waves a server (the first captures)
+OBS_BERT_T = 128             # 28b: BERT-base, every request at T=128
+OBS_OVERLOAD_SUBMITS = 16    # 28a: submits into queue_capacity=2
+FLEET_STRIDE = 2             # 28c: the fleet exchange's stride
+FLEET_ON_STEPS = 6           # 28c: eager steps with the fleet on
+FLEET_OFF_STEPS = 3          # 28c: ... and off (the first is the warm-up)
+# 28b: the emit_summary keys of the reference's BatchScheduler
+# (mxnet_tpu/serving/scheduler.py:314-326)
+REF_BATCH_SUMMARY_KEYS = frozenset((
+    "record", "completed", "failed", "batches", "rejected",
+    "queue_wait_ms", "total_ms", "ttft_ms", "batch_size"))
+# 28a: the reference's replica summary (mxnet_tpu/serving/lanes.py:777-807)
+REF_REPLICA_SUMMARY_KEYS = frozenset((
+    "record", "replica", "completed", "failed", "batches", "queue_wait_ms",
+    "total_ms", "ttft_ms", "handoff_ms", "batch_size", "kv_cache",
+    "capacity"))
+
+
+def _prom_samples(text):
+    """Prometheus text → {sample: value}; raises on a malformed line."""
+    out = {}
+    for ln in text.splitlines():
+        if not ln:
+            continue
+        if ln.startswith("#"):
+            if not ln.startswith("# TYPE mxt_"):
+                raise ValueError(f"bad comment line {ln!r}")
+            continue
+        name, value = ln.rsplit(" ", 1)
+        if not name.startswith("mxt_"):
+            raise ValueError(f"bad sample line {ln!r}")
+        out[name] = float(value)
+    return out
+
+
+def _connected(trace):
+    """A finished trace is one tree: one ``request`` root, every other
+    span's parent among the trace's spans, and the serving path's
+    spans present."""
+    spans = trace["spans"]
+    ids = {s["id"] for s in spans}
+    roots = [s for s in spans if s["parent"] is None]
+    names = [s["name"] for s in spans]
+    return (len(roots) == 1 and roots[0]["name"] == "request" and
+            all(s["parent"] in ids for s in spans if s["parent"] is not None)
+            and all(n in names for n in ("queue", "prefill", "handoff",
+                                         "evict")) and
+            names.count("decode.step") >= 1)
+
+
+def serving_observability_phase(torch, mx, llama, serving, fa, net,
+                                failures):
+    """Phases 28a and 28d: phase 8b's server and requests (``llama3_8b``,
+    32 layers, bf16, paged, 8 requests of 64-1024 tokens, 32 new tokens
+    each, two waves) under ``telemetry.enable(jsonl_path=..., trace=True,
+    capacity=True, numerics=True, retrace="raise")`` with
+    ``ServerConfig(http_port=0, slo=OBS_SLO, summary_every=4)``.  The
+    engine is built with the numerics taps on, so its graphed tick also
+    returns ``stats_of(logits)``.  Every prefill shape the traffic can
+    meet runs once (batch buckets 1, 2, 4 × the prompts' length buckets),
+    then ``retrace.warm()`` and the run of the two waves, with
+    ``in_flight()`` and ``capacity.snapshot`` read while it decodes.
+    Checks: one connected trace a request and its completion record; trace ids in ``in_flight()`` while decoding;
+    ``GET /metrics`` parses and counts 8 completions; ``stats()["slo"]``
+    goodput in [0, 1]; decode utilization at least OBS_UTIL_MIN while
+    the lane decodes 4 slots in the second wave, and rho, headroom and
+    the KV fraction in the snapshot; every tick's ``serving.logits``
+    bundle finite (nan and inf 0); no retrace; the replicas' summaries
+    with the reference's keys; the tokens within 8b's check (gap
+    SERVE_ULPS, at least SERVE_SAME_MIN equal to 8b's offline decoder).
+    Then 28d: the first wave again with the lock sanitizer on: its order
+    edges, no violation, no held-while-blocking event.  An overloaded
+    second server (``queue_capacity=2``, 16 submits) writes exactly one
+    flight dump, where ``MXNET_TRACE_DUMP`` says.  Printed: the graphed
+    tick's ms off (8b) and on, and a device-trace split of one graphed
+    tick with its idle share.  The serving path launches no kernel of
+    the port (dense ``_attend``, as the reference's); the check's
+    ``net(ids)`` launches are reported apart."""
+    import tempfile
+    import urllib.request
+
+    from mxnet_tpu_torch import sanitizer, telemetry
+    from mxnet_tpu_torch.telemetry import capacity, numerics, retrace
+    from mxnet_tpu_torch.telemetry import tracing
+    from mxnet_tpu_torch.telemetry.sinks import ListSink
+
+    free_card(torch)
+    plain, _ = _serve_prompts(net.config.vocab_size)
+    dump_dir = tempfile.mkdtemp(prefix="mxt_flight_")
+    old_dump = os.environ.get("MXNET_TRACE_DUMP")
+    os.environ["MXNET_TRACE_DUMP"] = os.path.join(dump_dir, "flight.json")
+    jsonl = _out_path("serving_28a.jsonl")
+    sink = ListSink()
+    telemetry.enable(jsonl_path=jsonl, trace=True, capacity=True,
+                     numerics=True, retrace="raise")
+    telemetry.add_sink(sink)
+    capacity.enable(window_s=OBS_WINDOW_S)
+    res = {}
+    try:
+        cfg = serving.ServerConfig(
+            max_length=SERVE_MAX_LEN, num_slots=SERVE_SLOTS,
+            max_batch=SERVE_SLOTS, block_size=SERVE_BLOCK,
+            queue_capacity=4 * SERVE_PROMPTS, http_port=0, slo=OBS_SLO,
+            summary_every=OBS_SUMMARY_EVERY)
+        srv = serving.GenerativeServer(net, cfg)
+        eng = srv.engine
+        rep = srv.replicas[0]
+
+        def waves():
+            futs = [srv.submit(p, max_new_tokens=SERVE_NEW)
+                    for p in plain[:2]]
+            deadline = time.time() + 300
+            while eng.steps - steps0 < 2 and time.time() < deadline:
+                time.sleep(0.001)
+            t_wave2 = time.perf_counter()
+            futs += [srv.submit(p, max_new_tokens=SERVE_NEW)
+                     for p in plain[2:]]
+            samples, flights = [], []
+            while not all(f.done() for f in futs):
+                rows = srv.in_flight()
+                dec = [r for r in rows
+                       if r["state"] in ("decoding", "handoff")]
+                flights.append([r["trace_id"] for r in dec])
+                snap = capacity.snapshot(0)
+                if snap is not None:
+                    samples.append(dict(
+                        t=time.perf_counter() - t_wave2,
+                        decoding=len(dec), utilization=snap["utilization"],
+                        rho=snap["rho"], headroom_rps=snap["headroom_rps"],
+                        kv_free_frac=snap["kv_free_frac"]))
+                time.sleep(0.05)
+            return [f.result(600) for f in futs], samples, flights
+
+        with srv:
+            url = srv.metrics_url
+            # every prefill program shape the traffic can meet, before
+            # the warmup is declared: (batch bucket, length bucket)
+            lbs = sorted({cfg.policy.length_bucket(len(p)) for p in plain})
+            with torch.inference_mode():
+                for kb in sorted({cfg.policy.batch_bucket(n)
+                                  for n in range(1, SERVE_SLOTS + 1)}):
+                    for lb in lbs:
+                        eng.prefill_rows(np.ones((kb, lb), np.int32),
+                                         np.full(kb, lb, np.int32))
+            torch.cuda.synchronize()
+            retrace.warm()
+            ticks0 = len(rep.tick_ms)
+            steps0 = eng.steps
+            t = time.perf_counter()
+            replies, samples, flights = waves()
+            wall_s = time.perf_counter() - t
+            deadline = time.time() + 60
+            while srv.stats()["completed"] < len(plain) and \
+                    time.time() < deadline:
+                time.sleep(0.01)
+            scrape = urllib.request.urlopen(url + "/metrics",
+                                            timeout=30).read().decode()
+            health = json.loads(urllib.request.urlopen(
+                url + "/healthz", timeout=30).read())
+            stats = srv.stats()
+            ticks = list(rep.tick_ms)[ticks0:]
+            pend = [e[1].reshape(-1, 5) for e in list(numerics._pending)
+                    if e[0] == ("serving.logits",)]
+            logit_stats = torch.cat(pend).cpu() if pend else None
+            violations = retrace.violations()
+            measured = list(sink.records)
+            # 28d: the first wave again with the lock sanitizer on
+            sanitizer.reset_locks()
+            sanitizer.enable_locks()
+            try:
+                lock_futs = [srv.submit(p, max_new_tokens=SERVE_NEW)
+                             for p in plain[:2]]
+                [f.result(600) for f in lock_futs]
+            finally:
+                sanitizer.disable_locks()
+            edges = sanitizer.lock_order_edges()
+            lock_violations = sanitizer.lock_order_violations()
+            blocked = sanitizer.held_blocking_events()
+        telemetry.disable()
+        capacity.disable()
+        numerics.clear()
+        retrace.disable()
+        retrace.reset()
+        # the graphed tick alone, on the engine's vacant state: its wall
+        # time off and on the profiler's device trace, and the split
+        active = list(range(SERVE_SLOTS))
+        for _ in range(3):
+            eng.step(active)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            eng.step(active)
+        tick_alone_ms = (time.perf_counter() - t) * 1e2
+        prof = mx.profiler
+        prof.set_config(filename=_out_path("serving_28a_profile.json"),
+                        profile_device_trace=True, aggregate_stats=True)
+        prof.set_state("run")
+        t = time.perf_counter()
+        eng.step(active)
+        wall = (time.perf_counter() - t) * 1e3
+        prof.set_state("stop")
+        split = _device_split(torch, prof.device_profile(), wall)
+        prof.dumps(reset=True)
+
+        # trap 8: an overloaded second server writes one dump, in a
+        # directory of its own (28a's run may have dumped a saturation)
+        run_dumps = sorted(os.listdir(dump_dir))
+        dump_dir = tempfile.mkdtemp(prefix="mxt_flight_overload_")
+        os.environ["MXNET_TRACE_DUMP"] = os.path.join(dump_dir,
+                                                      "flight.json")
+        telemetry.enable(memory=False, cost=False, trace=True)
+        small = serving.ServerConfig(max_length=256, num_slots=1,
+                                     max_batch=1, block_size=SERVE_BLOCK,
+                                     queue_capacity=2)
+        over = serving.GenerativeServer(net, small)
+        rejected = 0
+        with over:
+            over.generate(plain[0][:64], max_new_tokens=4, timeout=300)
+            futs = []
+            for i in range(OBS_OVERLOAD_SUBMITS):
+                try:
+                    futs.append(over.submit(plain[i % len(plain)][:64],
+                                            max_new_tokens=4))
+                except serving.ServerOverloadedError:
+                    rejected += 1
+            [f.result(600) for f in futs]
+        dumps = sorted(os.listdir(dump_dir))
+        report = json.loads(open(os.path.join(dump_dir, dumps[0])).read()) \
+            if dumps else {}
+        del over
+    finally:
+        telemetry.disable()
+        capacity.disable()
+        numerics.clear()
+        retrace.disable()
+        retrace.reset()
+        sanitizer.disable_locks()
+        tracing.clear()
+        if old_dump is None:
+            os.environ.pop("MXNET_TRACE_DUMP", None)
+        else:
+            os.environ["MXNET_TRACE_DUMP"] = old_dump
+
+    traces = [r for r in measured if r.get("record") == "trace"]
+    recs = [r for r in measured if r.get("record") == "serving.request"]
+    sums = [r for r in measured if r.get("record") == "serving.latency"]
+    trace_ids = sorted(t["trace_id"] for t in traces)
+    trees_ok = len(traces) == len(plain) and \
+        all(t["status"] == "ok" and _connected(t) for t in traces) and \
+        sorted(r["trace_id"] for r in recs) == trace_ids and \
+        len(set(trace_ids)) == len(plain)
+    flight_ids = {tid for row in flights for tid in row}
+    flights_ok = bool(flight_ids) and flight_ids <= set(trace_ids)
+    # the saturated lane: every slot decoding (the second wave)
+    samples_ok = [s for s in samples if s["decoding"] == SERVE_SLOTS]
+    util_max = max((s["utilization"] for s in samples_ok), default=None)
+    cap_end = stats.get("capacity", [{}])[0]
+    samples_prom = _prom_samples(scrape)
+    completed_prom = samples_prom.get("mxt_serving_completed_total")
+    slo = stats["slo"]["tenants"].get("default", {})
+    goodput = slo.get("goodput")
+    nan_inf = None if logit_stats is None else \
+        (int(logit_stats[:, 3].sum()), int(logit_stats[:, 4].sum()))
+    sums_ok = bool(sums) and all(set(s) == REF_REPLICA_SUMMARY_KEYS
+                                 for s in sums)
+
+    # 8b's token check on the measured replies
+    ref = STASH.get("serve", {})
+    offline = ref.get("offline", [])
+    _zero_counts(fa)  # the check's own launches
+    worst_gap, same = 0.0, 0
+    for p, r, o in zip(plain, replies, offline):
+        t0 = len(p)
+        ids = mx.nd.array(torch.from_numpy(
+            r[None, :-1].astype(np.int32)).cuda())
+        with torch.no_grad():
+            lf = net(ids)._data[0, t0 - 1:].float()
+        top = lf.max(dim=-1).values
+        toks = torch.from_numpy(r[t0:].astype(np.int64)).cuda()
+        gap = (top - lf.gather(1, toks[:, None])[:, 0]) / \
+            _bf16_ulp(torch, top)
+        worst_gap = max(worst_gap, gap.max().item())
+        same += int((r[t0:] == o[t0:]).sum())
+        del lf
+    check_launches = fa.flash_attention_fwd.launches
+    same_8b = sum(int(np.array_equal(a, b)) for a, b in
+                  zip(replies, ref.get("replies", [])))
+    tick_on = float(np.median(ticks)) if ticks else None
+    tick_off = ref.get("decode_step_ms_median")
+    smi = STASH.get("smi")
+    res.update(
+        phase="serving_observability", card=smi, layers=net.config.num_layers,
+        dtype="bfloat16", waves=[2, len(plain) - 2],
+        traces=len(traces), records=len(recs), trees_connected=trees_ok,
+        in_flight_trace_ids=len(flight_ids), in_flight_ok=flights_ok,
+        metrics_completed=completed_prom, metrics_samples=len(samples_prom),
+        health=health.get("status"), slo=slo, goodput=goodput,
+        capacity_samples=samples, decode_utilization_max_at_4_slots=util_max,
+        capacity_end=cap_end, logit_bundles=None if logit_stats is None
+        else int(logit_stats.shape[0]), logit_nan_inf=nan_inf,
+        retrace_violations=violations, summaries=len(sums),
+        summary_keys_ok=sums_ok, worst_gap_ulps=worst_gap,
+        tol_ulps=SERVE_ULPS, tokens_same_as_offline=same,
+        tokens_same_min=SERVE_SAME_MIN, replies_equal_to_8b=same_8b,
+        check_launches=check_launches,
+        tick_ms_observability_off_8b=tick_off,
+        tick_ms_observability_on=tick_on,
+        tick_on_over_off=tick_on / tick_off if tick_on and tick_off
+        else None,
+        tick_ms_on=ticks, tick_alone_ms=tick_alone_ms,
+        tick_device_split=split, wall_s=wall_s,
+        step_graph_key=list(eng._step_key),
+        run_dumps=run_dumps, overload_rejected=rejected,
+        overload_dumps=dumps,
+        overload_dump_reason=report.get("reason"),
+        overload_dump_traces=len(report.get("traces", [])))
+    ok = trees_ok and flights_ok and completed_prom == len(plain) and \
+        goodput is not None and 0.0 <= goodput <= 1.0 and \
+        util_max is not None and util_max >= OBS_UTIL_MIN and \
+        cap_end.get("rho") is not None and \
+        cap_end.get("headroom_rps") is not None and \
+        cap_end.get("kv_free_frac") is not None and \
+        nan_inf == (0, 0) and logit_stats.shape[0] >= len(ticks) and \
+        violations == [] and sums_ok and worst_gap <= SERVE_ULPS and \
+        same >= SERVE_SAME_MIN and stats["failed"] == 0 and \
+        eng._step_key[-1] == "numerics" and eng._step_graph is not None \
+        and rejected >= 1 and len(dumps) == 1 and \
+        report.get("reason") == "overload_rejection" and \
+        len(report.get("traces", [])) >= 1
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        failures.append(
+            f"28a serving observability: trees {trees_ok}, in_flight "
+            f"{flights_ok}, /metrics completed {completed_prom}, goodput "
+            f"{goodput}, utilization {util_max}, end {cap_end}, logits "
+            f"nan/inf {nan_inf}, retrace {violations[:1]}, summaries "
+            f"{sums_ok}, gap {worst_gap}, same {same}, dumps {dumps} "
+            f"({report.get('reason')}), rejected {rejected}")
+    lock_ok = lock_violations == [] and blocked == []
+    emit(dict(phase="lock_sanitizer", card=smi,
+              order_edges=sorted(list(k) for k in edges),
+              violations=lock_violations, held_while_blocking=blocked,
+              ok=lock_ok))
+    if not lock_ok:
+        failures.append(f"28d lock sanitizer: violations {lock_violations}, "
+                        f"held while blocking {blocked}")
+    del srv, replies
+    free_card(torch)
+
+
+def _serve_observed(torch, serving, telemetry, model, config, requests,
+                    cache_stats, counters):
+    """One ``InferenceServer`` of ``model`` over OBS_WAVES waves with
+    observability off, then one with tracing, a JSONL sink, ``/metrics``
+    and ``summary_every`` on; the launches of ``counters`` (kernel
+    wrappers) are counted over the second server's run alone.  Returns
+    (off summary, on summary, on stats, launches, sink records, scrape)."""
+    from mxnet_tpu_torch.telemetry import tracing
+    from mxnet_tpu_torch.telemetry.sinks import ListSink
+
+    _, _, off, _ = _serve_waves(serving, model, config, requests,
+                                cache_stats, waves=OBS_WAVES)
+    sink = ListSink()
+    telemetry.enable(memory=False, cost=False, trace=True)
+    telemetry.add_sink(sink)
+    on_cfg = serving.ServerConfig(
+        max_batch=config.policy.max_batch, min_batch=1,
+        max_length=config.policy.max_length,
+        min_length=config.policy.min_length, length_axis=config.length_axis,
+        batch_window_ms=config.batch_window_ms,
+        queue_capacity=config.queue_capacity,
+        summary_every=OBS_SUMMARY_EVERY, http_port=0)
+    scrape = []
+
+    def scrape_metrics(srv):
+        import urllib.request
+
+        scrape.append(urllib.request.urlopen(
+            srv.metrics_url + "/metrics", timeout=30).read().decode())
+
+    for c in counters:
+        for key in [a for a in vars(c) if a.startswith("launches")]:
+            setattr(c, key, 0)  # the main path starts here
+    try:
+        _, _, on, stats = _serve_waves(serving, model, on_cfg, requests,
+                                       cache_stats, waves=OBS_WAVES,
+                                       before_stop=scrape_metrics)
+    finally:
+        launches = [c.launches for c in counters]  # ... and ends here
+        telemetry.disable()
+        tracing.clear()
+    return off, on, stats, launches, list(sink.records), \
+        scrape[0] if scrape else ""
+
+
+def stateless_observability_phase(torch, mx, bert, vision, cbr, fa, serving,
+                                  failures):
+    """Phase 28b: ``InferenceServer`` on BERT-base (bf16, hybridized,
+    every request T=128, unmasked: the flash route, #1) and on ResNet-50
+    v1 (bf16, hybridized, 224x224: #4, 16 launches a forward), each
+    served OBS_WAVES waves of OBS_REQUESTS requests from 8 clients with
+    observability off and then on (tracing, a sink, ``summary_every``,
+    ``/metrics``).  Checks: each request one trace (``queue``, ``batch``,
+    ``request``) and one record; the ``serving.latency`` records with the
+    reference's keys; ``/metrics`` parses and counts the completions;
+    #1 launches 12 times a BERT batch and #4 16 times a ResNet batch,
+    counted over the observed server's run.  Printed: requests/s off and
+    on (over the waves after the first)."""
+    from mxnet_tpu_torch import telemetry
+
+    gpu = mx.gpu(0)
+    smi = STASH.get("smi")
+    out = {}
+
+    def checks(name, recs, stats, scrape, launches, per_batch):
+        traces = [r for r in recs if r.get("record") == "trace"]
+        reqs = [r for r in recs if r.get("record") == "serving.request"]
+        sums = [r for r in recs if r.get("record") == "serving.latency"]
+        n = OBS_REQUESTS * OBS_WAVES
+        prom = _prom_samples(scrape) if scrape else {}
+        ok = len(traces) == n and len(reqs) == n and \
+            all([s["name"] for s in t["spans"]] == ["queue", "batch",
+                                                    "request"]
+                for t in traces) and \
+            len(sums) == n // OBS_SUMMARY_EVERY and \
+            all(set(s) == REF_BATCH_SUMMARY_KEYS for s in sums) and \
+            prom.get("mxt_serving_completed_total") == n and \
+            stats["failed"] == 0 and launches == per_batch * stats["batches"]
+        return ok, dict(traces=len(traces), records=len(reqs),
+                        summaries=len(sums),
+                        metrics_completed=prom.get(
+                            "mxt_serving_completed_total"))
+
+    # BERT-base, the flash route
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = bert.BERTClassifier(bert.bert_base(
+        vocab_size=BERT_VOCAB, use_decoder=False, use_classifier=False),
+        num_classes=2)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net(mx.nd.ones((1, OBS_BERT_T), ctx=gpu, dtype="int32"))
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    rng = np.random.RandomState(SEED + 28)
+    requests = [rng.randint(1, BERT_VOCAB, OBS_BERT_T).astype(np.int32)
+                for _ in range(OBS_REQUESTS)]
+
+    def classify(batch):
+        return net(mx.nd.array(batch["data"], ctx=gpu, dtype="int32"))
+
+    config = serving.ServerConfig(
+        max_batch=SERVE_MAX_BATCH, min_batch=1, max_length=OBS_BERT_T,
+        min_length=OBS_BERT_T, batch_window_ms=5.0,
+        queue_capacity=OBS_REQUESTS)
+    off, on, stats, launches, recs, scrape = _serve_observed(
+        torch, serving, telemetry, classify, config, requests,
+        net.cache_stats, _counters(fa))
+    layers = 12
+    ok_b, detail = checks("bert", recs, stats, scrape, launches[0], layers)
+    ok_b = ok_b and launches[1:] == [0, 0]
+    out["bert"] = dict(requests_per_s_off=off["requests_per_s"],
+                       requests_per_s_on=on["requests_per_s"],
+                       p50_ms_off=off["p50_ms"], p50_ms_on=on["p50_ms"],
+                       p99_ms_off=off["p99_ms"], p99_ms_on=on["p99_ms"],
+                       batches=stats["batches"], flash_launches=launches,
+                       ok=ok_b, **detail)
+    bert_launches = launches[0]
+    bert_mma = fa.flash_attention_fwd.launches_mma
+    net.hybridize(False)
+    del net
+    free_card(torch)
+
+    # ResNet-50, the fused 1x1 route
+    mx.random.seed(SEED)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    net(mx.nd.zeros((1, 3, SERVE_IMAGE, SERVE_IMAGE), ctx=gpu))
+    net.cast("bfloat16")
+    net.hybridize(static_alloc=True)
+    images = [rng.rand(3, SERVE_IMAGE, SERVE_IMAGE).astype(np.float32)
+              for _ in range(OBS_REQUESTS)]
+
+    def forward(batch):
+        return net(mx.nd.array(batch["data"], ctx=gpu, dtype="bfloat16"))
+
+    config = serving.ServerConfig(
+        max_batch=SERVE_MAX_BATCH, min_batch=1, max_length=SERVE_IMAGE,
+        min_length=SERVE_IMAGE, length_axis=1, batch_window_ms=5.0,
+        queue_capacity=OBS_REQUESTS)
+    fn = cbr.fused_matmul_affine_relu
+    off, on, stats, launches, recs, scrape = _serve_observed(
+        torch, serving, telemetry, forward, config, images,
+        net.cache_stats, [fn])
+    ok_r, detail = checks("resnet", recs, stats, scrape, launches[0], 16)
+    res_mma = fn.launches_mma
+    ok_r = ok_r and res_mma == launches[0]
+    out["resnet"] = dict(requests_per_s_off=off["requests_per_s"],
+                         requests_per_s_on=on["requests_per_s"],
+                         p50_ms_off=off["p50_ms"], p50_ms_on=on["p50_ms"],
+                         p99_ms_off=off["p99_ms"], p99_ms_on=on["p99_ms"],
+                         batches=stats["batches"], fused_launches=launches[0],
+                         ok=ok_r, **detail)
+    net.hybridize(False)
+    del net
+    free_card(torch)
+    ok = ok_b and ok_r
+    emit(dict(phase="stateless_observability", card=smi,
+              requests=OBS_REQUESTS, waves=OBS_WAVES, clients=SERVE_CLIENTS,
+              ok=ok, **out))
+    if not ok:
+        failures.append(f"28b stateless observability: {out}")
+    return (bert_launches, bert_mma), (launches[0], res_mma)
+
+
+def fleet_llama_phase(torch, mx, llama, fa, mt, parallel, failures):
+    """Phase 28c: 27a's ``llama3_8b`` widths at TEL_LAYERS layers, bf16,
+    B=1, T=2048, SGD with momentum, eager steps under ``telemetry``
+    (JSONL) on a one-rank NCCL group: FLEET_OFF_STEPS steps with the
+    fleet off, then ``fleet.enable(stride=2, http_port=0)`` and
+    FLEET_ON_STEPS steps.  Checks: the fleet view's 7 columns of one
+    rank, ``duty_cycle`` in (0, 1]; ``fleet.prometheus_text()`` and the
+    endpoint's ``/metrics`` parse; an injected shape change after
+    ``retrace.warm()`` raises and trips ``fleet.incident("retrace")``;
+    NaN in decoder layer 1 gives a ``nan_tensor`` anomaly at layer 1 and
+    (with ``halt=True``) one fleet dump; #1, #2, #3 and the update kernel
+    at their counts.  Printed: the step's ms with the fleet off, on and
+    off the stride, and ``exchange_ms``."""
+    import tempfile
+    import urllib.request
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import fleet, numerics, retrace
+
+    free_card(torch)
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0,
+                        init_timeout=120)
+    dump_dir = tempfile.mkdtemp(prefix="mxt_fleet_")
+    old_dump = os.environ.get("MXNET_FLEET_DUMP")
+    os.environ.pop("MXNET_FLEET_DUMP", None)
+    smi = STASH.get("smi")
+    try:
+        mx.random.seed(SEED)
+        net = llama.llama3_8b(num_layers=TEL_LAYERS)
+        net.cast("bfloat16")
+        net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+        net.hybridize()
+        params = net.collect_params()
+        trainer = mx.gluon.Trainer(params, "sgd", {"learning_rate": TRAIN_LR,
+                                                   "momentum": 0.9})
+        ids, labels = _ids_labels(torch, mx, net.config.vocab_size, TEL_T,
+                                  SEED + 28)
+        anomalies = []
+
+        def step():
+            t = time.perf_counter()
+            with telemetry.step(examples=TEL_T) as scope:
+                loss = _lm_forward(mx, net, ids, labels)
+                loss.backward()
+                trainer.step(1)
+                loss.wait_to_read()
+            return scope.record, (time.perf_counter() - t) * 1e3
+
+        _zero_counts(fa)  # the main path starts here
+        mt.multi_tensor_update.launches = 0
+        jsonl = _out_path("fleet_28c.jsonl")
+        telemetry.enable(jsonl_path=jsonl, memory=True, cost=False,
+                         retrace="raise")
+        off_ms = [step()[1] for _ in range(FLEET_OFF_STEPS)][1:]
+        fleet.enable(stride=FLEET_STRIDE, http_port=0,
+                     on_anomaly=anomalies.append)
+        on = [step() for _ in range(FLEET_ON_STEPS)]
+        retrace.warm()
+        view = fleet.last_view()
+        text = fleet.prometheus_text()
+        scrape = urllib.request.urlopen(fleet.metrics_url() + "/metrics",
+                                        timeout=30).read().decode()
+        forwards = FLEET_OFF_STEPS + FLEET_ON_STEPS
+        # an injected shape change: a retrace violation, and the fleet's
+        # flight recorder writes its incident
+        os.environ["MXNET_FLEET_DUMP"] = os.path.join(dump_dir,
+                                                      "retrace.json")
+        short = mx.nd.array(ids._data[:, :TEL_T // 2])
+        try:
+            with mx.autograd.record():
+                net(short)
+            retrace_error = None
+        except retrace.RetraceError as exc:
+            retrace_error = str(exc)
+        retrace.disable()
+        retrace.reset()
+        retrace_dump = os.path.exists(os.path.join(dump_dir,
+                                                   "retrace.json"))
+        # NaN into decoder layer 1: one harvested eager forward with the
+        # watchdog's halt on
+        os.environ["MXNET_FLEET_DUMP"] = os.path.join(dump_dir, "nan.json")
+        fleet.enable(stride=FLEET_STRIDE, halt=True,
+                     on_anomaly=anomalies.append)
+        numerics.enable(stride=1)
+        victim = next(iter(net.model.layers[1].collect_params().values()))
+        with torch.no_grad():
+            victim.data()._data.view(-1)[0] = float("nan")
+        net.hybridize(False)
+        halted = None
+        try:
+            with telemetry.step(examples=TEL_T):
+                net(ids).wait_to_read()
+        except fleet.WatchdogHalt as exc:
+            halted = str(exc)
+        forwards += 1
+        nan_doc = json.loads(open(os.path.join(dump_dir, "nan.json")).read()) \
+            if os.path.exists(os.path.join(dump_dir, "nan.json")) else {}
+    finally:
+        telemetry.disable()
+        fleet.disable()
+        fleet.clear()
+        numerics.clear()
+        retrace.disable()
+        retrace.reset()
+        if old_dump is None:
+            os.environ.pop("MXNET_FLEET_DUMP", None)
+        else:
+            os.environ["MXNET_FLEET_DUMP"] = old_dump
+        parallel.shutdown()
+    launches = [c.launches for c in _counters(fa)]  # the main path ends
+    mma = _mma_counts(fa)
+    updates = mt.multi_tensor_update.launches
+    backwards = FLEET_OFF_STEPS + FLEET_ON_STEPS
+    want = [TEL_LAYERS * forwards, TEL_LAYERS * backwards,
+            TEL_LAYERS * backwards]
+    cols = ("step_ms", "allreduce_wait_ms", "compute_ms", "peak_live_bytes",
+            "examples_per_sec", "first_nan_layer", "duty_cycle")
+    view_ok = view is not None and all(
+        len(view.get(c, [])) == 1 for c in cols) and \
+        0.0 < view["duty_cycle"][0] <= 1.0 and view["world_size"] == 1
+    records = telemetry.read_jsonl(jsonl)
+    stamped = [r for r in records if r.get("record") is None
+               and "rank" in r]
+    on_stride = [ms for rec, ms in on if rec["step"] % FLEET_STRIDE == 0]
+    off_stride = [ms for rec, ms in on if rec["step"] % FLEET_STRIDE]
+    nan_evt = [a for a in anomalies if a["kind"] == "nan_tensor"]
+    dumps = sorted(os.listdir(dump_dir))
+    try:
+        _prom_samples(text)
+        prom = _prom_samples(scrape)
+        prom_ok = prom.get("mxt_fleet_world_size") == 1.0
+    except ValueError:
+        prom_ok = False
+    res = dict(
+        phase="fleet_llama", card=smi, layers=TEL_LAYERS, t=TEL_T,
+        stride=FLEET_STRIDE, step_ms_fleet_off=off_ms,
+        step_ms_fleet_on_stride=on_stride,
+        step_ms_fleet_off_stride=off_stride,
+        step_ms_median_off=float(np.median(off_ms)),
+        step_ms_median_on=float(np.median([ms for _, ms in on[1:]])),
+        exchange_ms=view.get("exchange_ms") if view else None,
+        view={c: view.get(c) for c in cols} if view else None,
+        view_ok=view_ok, stamped_records=len(stamped),
+        prometheus_ok=prom_ok, retrace_error=(retrace_error or "")[:200],
+        retrace_dump=retrace_dump, halted=halted,
+        nan_anomaly=nan_evt[:1], nan_dump_reason=nan_doc.get("reason"),
+        dumps=dumps, launches=launches, launches_mma=mma,
+        want_launches=want, update_launches=updates,
+        want_updates=backwards)
+    ok = view_ok and prom_ok and len(stamped) == FLEET_ON_STEPS and \
+        retrace_error is not None and retrace_dump and \
+        halted is not None and bool(nan_evt) and \
+        nan_evt[0]["layer"] == 1 and nan_evt[0]["path"] == "decoder.1" and \
+        nan_doc.get("reason") == "watchdog_halt" and \
+        dumps == ["nan.json", "retrace.json"] and launches == want and \
+        mma == want and updates == backwards
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        failures.append(f"28c fleet watchdog: {res}")
+    del net, trainer
+    free_card(torch)
+    return launches, mma, updates
+
+
 def main():
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -9513,6 +10216,9 @@ def main():
                                                  failures)
     serving_bf16_phase(torch, mx, llama, serving, fa, net, failures)
     serving_mesh_phase(torch, mx, serving, net, failures)
+    # slice 20: serving observability and the lock sanitizer (28a, 28d)
+    serving_observability_phase(torch, mx, llama, serving, fa, net,
+                                failures)
     del net
     train_launches, train_mma, update_launches = train_phase(
         torch, mx, llama, fa, mt, failures)
@@ -9641,6 +10347,19 @@ def main():
     if 0 in tel or tel_updates == 0 or mon_g[0] == 0:
         failures.append(f"slice 19 left a kernel unlaunched: 27a {tel}, "
                         f"updates {tel_updates}, 27b {mon_g}")
+    # slice 20: stateless serving under tracing (28b), the fleet
+    # watchdog on a training step (28c)
+    obs_bert, obs_resnet = stateless_observability_phase(
+        torch, mx, bert, vision, cbr, fa, serving, failures)
+    fused_launches += obs_resnet[0]
+    fused_mma += obs_resnet[1]
+    obs_fleet, obs_fleet_mma, obs_updates = fleet_llama_phase(
+        torch, mx, llama, fa, mt, parallel, failures)
+    update_launches += obs_updates
+    if 0 in (obs_bert[0], obs_resnet[0], obs_updates) or 0 in obs_fleet:
+        failures.append(f"slice 20 left a kernel unlaunched: 28b #1 "
+                        f"{obs_bert}, #4 {obs_resnet}, 28c {obs_fleet}, "
+                        f"updates {obs_updates}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -9661,23 +10380,25 @@ def main():
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
         pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0] + \
-        exp_flash[0] + est[0] + tel[0]
+        exp_flash[0] + est[0] + tel[0] + obs_bert[0] + obs_fleet[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
         mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
         moe_infer[1] + moe_tr_mma[0] + exp_flash[1] + est_mma[0] + \
-        tel_mma[0]
+        tel_mma[0] + obs_bert[1] + obs_fleet_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
-        pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1] + tel[1]
+        pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1] + tel[1] + \
+        obs_fleet[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
         ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1] + \
-        est_mma[1] + tel_mma[1]
+        est_mma[1] + tel_mma[1] + obs_fleet_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
         packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
-        pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2] + tel[2]
+        pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2] + tel[2] + \
+        obs_fleet[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
         ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2] + \
-        est_mma[2] + tel_mma[2]
+        est_mma[2] + tel_mma[2] + obs_fleet_mma[2]
     if moe_infer[0] == 0 or 0 in moe_tr:
         failures.append(f"the MoE paths left a kernel unlaunched: "
                         f"{moe_infer}, {moe_tr}")
@@ -9710,6 +10431,7 @@ def main():
          "launches_exported": exp_flash[0],
          "launches_estimator": est[0],
          "launches_telemetry": tel[0],
+         "launches_observability": obs_bert[0] + obs_fleet[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -9728,6 +10450,7 @@ def main():
          "launches_moe_train": moe_tr[1],
          "launches_estimator": est[1],
          "launches_telemetry": tel[1],
+         "launches_observability": obs_fleet[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -9746,6 +10469,7 @@ def main():
          "launches_moe_train": moe_tr[2],
          "launches_estimator": est[2],
          "launches_telemetry": tel[2],
+         "launches_observability": obs_fleet[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -9763,6 +10487,7 @@ def main():
          "launches_exported": exp_fused[0],
          "launches_monitor": mon[0],
          "launches_monitor_graph": mon_g[0],
+         "launches_observability": obs_resnet[0],
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -9786,6 +10511,7 @@ def main():
          "design": "one launch over a device table, bf16 SGD momentum",
          "launches_bert": bert_updates, "launches_estimator": est[3],
          "launches_telemetry": tel_updates,
+         "launches_observability": obs_updates,
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],
@@ -9803,6 +10529,8 @@ def main():
          "us_per_scanned_box": nms_row["us_per_scanned_box"],
          "plain_ms": nms_row["plain_ms"], "bound_ms": nms_row["bound_ms"],
          "bound_by": nms_row["bound_by"], "library_ms": None}]})
+    emit(dict(phase="script", card=smi,
+              seconds=time.perf_counter() - t_script))
     if failures:
         for f in failures:
             print("FAILED: " + f, file=sys.stderr)

@@ -63,6 +63,7 @@ _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 from . import base
 from .base import MXNetError
+from . import sanitizer
 from .context import Context, cpu, gpu, tpu, current_context, num_gpus, \
     num_tpus, num_devices
 from . import ndarray
@@ -116,7 +117,3 @@ from . import monitor
 from . import telemetry
 from . import visualization
 from . import visualization as viz
-
-from . import _left_out
-
-__getattr__ = _left_out.refuse(_left_out.MX, "mxnet_tpu_torch")

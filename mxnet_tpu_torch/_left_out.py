@@ -6,13 +6,8 @@ from __future__ import annotations
 
 from .base import MXNetError
 
-_6 = "Left out of slice 6"
 _7 = "Left out of slice 7"
-_9 = "Queue 1 item 9, observability and tooling"
-_19 = "Left out of slice 19"
 _NC = "Not carried over"
-
-MX = {"sanitizer": _9}
 
 # the reference's bulk segment compiler and async executor: a CUDA stream
 # is already asynchronous (``engine.py``)
@@ -22,9 +17,6 @@ ENGINE = {
                      "segment_cache_stats", "unregister_dispatch_callback"),
                     _7),
 }
-
-SERVING = dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
-                         "prometheus_text"), _6)
 
 AUTOGRAD = {"Node": _NC}
 

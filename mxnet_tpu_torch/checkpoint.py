@@ -54,6 +54,7 @@ import warnings
 
 import numpy as np
 
+from . import sanitizer as _san
 from . import telemetry
 from .base import MXNetError
 
@@ -90,7 +91,7 @@ def _fsync_tree(root):
 
 # -- snapshot / write / commit ------------------------------------------------
 
-_STAGE_LOCK = threading.Lock()
+_STAGE_LOCK = _san.wrap_lock(threading.Lock(), "checkpoint._STAGE_LOCK")
 _STAGE_SEQ = 0
 
 
@@ -401,7 +402,8 @@ class AsyncCheckpointer:
         self._queue = queue.Queue()
         self._pending = []
         self._errors = []
-        self._lock = threading.Lock()
+        self._lock = _san.wrap_lock(
+            threading.Lock(), "checkpoint.AsyncCheckpointer._lock")
         self._thread = None
 
     def save(self, ckpt_dir, step, net, trainer=None, extra=None,
@@ -503,7 +505,8 @@ class AsyncCheckpointer:
 
 
 _DEFAULT_ASYNC = None
-_DEFAULT_ASYNC_LOCK = threading.Lock()
+_DEFAULT_ASYNC_LOCK = _san.wrap_lock(threading.Lock(),
+                                     "checkpoint._DEFAULT_ASYNC_LOCK")
 
 
 def async_checkpointer():
@@ -543,6 +546,11 @@ def drain_checkpoint_and_exit(ckpt_dir, step, net, trainer=None, extra=None,
     wait_async()
     save_checkpoint(ckpt_dir, step, net, trainer, extra=extra, keep=keep)
     telemetry.count("trainer.drain_checkpoint")
+    # the training flight recorder captures the drain: what the fleet
+    # did in its last steps before the preemption
+    fl = sys.modules.get("mxnet_tpu_torch.telemetry.fleet")
+    if fl is not None and fl.is_enabled():
+        fl.incident("preemption_drain", context={"step": step})
     sys.exit(_trainer_mod.PREEMPTED_EXIT_CODE)
 
 

@@ -20,6 +20,7 @@ import torch
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, context_of, current_context
 from ..parallel.local import is_dtensor as _is_dtensor
+from .. import sanitizer as _san
 from .. import telemetry
 from ..telemetry import memwatch as _mw
 
@@ -29,6 +30,8 @@ def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
     on ``ctx`` (default: the current context) in ``dtype``."""
     if isinstance(value, NDArray):
         value = value._data
+        if _san._enabled:
+            _san.check(value, "wrap")
     if isinstance(value, torch.Tensor):
         device = ctx.device if ctx is not None else value.device
         return value.to(device=device, dtype=dtype)
@@ -107,6 +110,8 @@ class NDArray:
         update in place).  numpy has no bfloat16, so a bf16 array comes
         back as float32 (exact).  An array over a mesh (a DTensor) comes
         back whole: every rank gets the global value (a collective)."""
+        if _san._enabled:
+            _san.check(self._data, "asnumpy")
         telemetry.count("host_sync")
         t = self._data.detach()
         if _is_dtensor(t):
@@ -127,6 +132,8 @@ class NDArray:
 
     def wait_to_read(self):
         """Block until the value is computed."""
+        if _san._enabled:
+            _san.check(self._data, "wait_to_read")
         telemetry.count("host_sync")
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
@@ -154,7 +161,15 @@ class NDArray:
     def asnative(self):
         """The ``torch.Tensor`` (reference ``asnative``: the backend's own
         array)."""
+        if _san._enabled:
+            _san.check(self._data, "asnative")
         return self._data
+
+    @property
+    def _donated(self):
+        """The donation sanitizer's site string for this array's tensor
+        (``MXNET_SANITIZE_DONATION=1``), or None while it is live."""
+        return _san.site_of(self._data)
 
     def as_in_context(self, ctx: Context):
         """This array on ``ctx`` (itself if it is there).  A copy from
@@ -313,6 +328,8 @@ class NDArray:
     def copyto(self, other):
         """Copy into ``other`` (an NDArray, whose handle takes a copy) or
         onto a context (a new NDArray)."""
+        if _san._enabled:
+            _san.check(self._data, "copyto")
         if isinstance(other, Context):
             return NDArray(self._data.to(other.device, copy=True))
         other._data = self._data.to(other._data.device, dtype=other.dtype,

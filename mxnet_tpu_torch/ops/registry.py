@@ -33,6 +33,7 @@ import time
 from typing import Callable, Dict
 
 from .. import autograd as ag
+from .. import sanitizer as _san
 from ..base import MXNetError
 from ..telemetry import memwatch as _mw
 
@@ -68,6 +69,10 @@ def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     if prof is not None:
         t0 = time.perf_counter()
     raws = [a._data for a in nd_args]
+    if _san._enabled:
+        # a donated operand fails here, naming the donation site
+        for r in raws:
+            _san.check(r, f"operand of {name or 'op'!r}")
     try:
         with torch.no_grad() if no_grad else ag.grad_mode():
             raws = replicate_plain(raws)

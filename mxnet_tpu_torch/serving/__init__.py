@@ -26,11 +26,12 @@ Quick start::
 The server runs on the device of the net's weights (``mx.gpu(0)`` by
 default); a net initialized with ``ctx=mx.cpu()`` serves on the CPU.
 ``GenerativeServer(mesh=, partition_rules=)`` serves dp replicas and
-tensor-parallel replicas (``server.py``).  Not ported yet (ROADMAP.md,
-Queue 1, "Left out of slice 6"): the observability of ``metrics.py``
-(``MetricsServer``, ``SLOTracker``, ``prometheus_text``; reading one
-raises ``MXNetError`` naming that list) and the serving emits of the
-telemetry package ("Left out of slice 19").
+tensor-parallel replicas (``server.py``).  Observability: with
+``telemetry.enable(trace=True, capacity=True)`` every request carries a
+trace (``telemetry.tracing``) and the lanes keep capacity ledgers;
+``ServerConfig(http_port=0, slo={...}, summary_every=N)`` starts the
+``/metrics`` endpoint (``metrics.MetricsServer``), the goodput tracker
+(``metrics.SLOTracker``) and the rolling ``serving.latency`` records.
 """
 from .protocol import (Request, ServerClosedError,     # noqa: F401
                        ServerOverloadedError)
@@ -45,6 +46,8 @@ from .lanes import (DecodeLane, PrefillLane, Replica,  # noqa: F401
                     ReplicaDispatcher)
 from .server import (GenerativeServer, InferenceServer,  # noqa: F401
                      ServerConfig)
+from .metrics import (MetricsServer, SLOTracker,       # noqa: F401
+                      prometheus_text)
 
 __all__ = ["Request", "ServerOverloadedError", "ServerClosedError",
            "BucketPolicy", "pow2_bucket", "pad_batch", "KVCacheManager",
@@ -52,9 +55,5 @@ __all__ = ["Request", "ServerOverloadedError", "ServerClosedError",
            "RequestQueue", "BatchScheduler", "LlamaServingEngine",
            "GenerativeScheduler", "ServerConfig", "InferenceServer",
            "GenerativeServer", "PrefillLane", "DecodeLane", "Replica",
-           "ReplicaDispatcher"]
-
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(_lo.SERVING, "mxnet_tpu_torch.serving")
+           "ReplicaDispatcher", "MetricsServer", "SLOTracker",
+           "prometheus_text"]

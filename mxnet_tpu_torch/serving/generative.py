@@ -43,11 +43,21 @@ captured when the engine is built (before any lane thread runs, under
 ``dev_lock``) unless the NaiveEngine is chosen (``engine.
 set_engine_type``), which runs the step eagerly: each tick copies the slots' last tokens, positions and
 block tables into the graph's static input in one host-to-device copy
-(from pinned memory, so the host does not wait) and replays it.  Its key, ``("step", kv_mode, num_slots, table width,
-dtype)`` (the table width is ``max_blocks`` paged, ``max_len`` in the
-slots mode), is what ``compiled_signatures`` reports for the step; the
-prefill, scatter, gather and verify programs stay eager (ROADMAP "Left
-out of slice 7").
+(from pinned memory, so the host does not wait) and replays it.  Its
+key, ``("step", kv_mode, num_slots, table width, dtype)`` (the table
+width is ``max_blocks`` paged, ``max_len`` in the slots mode; a trailing
+``"numerics"`` when the taps are on), is what ``compiled_signatures``
+reports for the step; the prefill, scatter, gather and verify programs
+stay eager (ROADMAP "Left out of slice 7").
+
+With the numerics tier on when the engine is built, the decode and
+verify programs also return ``stats_of(logits)`` (``serving.logits``):
+inside the graphed tick it is an extra graph output, and each replay
+queues one copy of it for the stride harvest, never the static tensor
+itself.  The mode is fixed at construction (one graph a mode; rebuild
+the engine to toggle), and the tokens do not depend on it.  Each
+program shape's first call counts ``serving.engine_compile`` and goes
+to ``telemetry.retrace.observe``.
 
 ``mesh=`` places the engine (``ReplicaMesh``: where one replica runs).
 The reference is one controller over the whole mesh; torch runs one
@@ -74,11 +84,9 @@ A replica with tp = 1 runs in one process on its own device.  With tp >
 1 the speculative draft is a second engine on the same ranks and the
 same channel (its slot-cache programs mirrored as the target's are), and
 the radix cache's trie and block ids stay with the leader, which sends
-the ids of each gather, suffix prefill and commit.  Not ported (ROADMAP,
-"Left out of slice 19"): the serving side's telemetry, numerics taps
-and retrace hooks (reading ``telemetry`` or ``tracing`` here raises
-``MXNetError`` naming that list).  ``compiled_signatures`` keeps the
-reference's signature keys: here the set of program shapes that ran.
+the ids of each gather, suffix prefill and commit.  Traces, records and
+statistics come from the leader alone.  ``compiled_signatures`` keeps
+the reference's signature keys: here the set of program shapes that ran.
 """
 from __future__ import annotations
 
@@ -93,7 +101,11 @@ import numpy as np
 import torch
 
 from .. import cuda_graph, engine
+from .. import telemetry
 from ..base import MXNetError
+from ..telemetry import numerics as _numerics
+from ..telemetry import retrace as _retrace
+from ..telemetry import tracing
 from ..models.llama import LlamaDecoder, _dequantize
 from .bucketing import BucketPolicy, pad_batch
 from .kv_cache import KVCacheManager
@@ -470,8 +482,12 @@ class LlamaServingEngine:
         self.steps = 0
         self._signatures = set()
         width = self.max_blocks if kv_mode == "paged" else self.max_len
+        # the logits' statistics ride the decode and verify programs in
+        # one mode, fixed here: one graph a mode (rebuild to toggle)
+        self._numerics = _numerics.trace_enabled()
         self._step_key = ("step", kv_mode, self.num_slots, width,
-                          str(dt).removeprefix("torch."))
+                          str(dt).removeprefix("torch.")) \
+            + (("numerics",) if self._numerics else ())
         self._step_graph = None
         if self.device.type == "cuda" and not self.spec_k and \
                 not engine.is_naive():
@@ -616,6 +632,8 @@ class LlamaServingEngine:
         else:
             logits = self._dec._step_slots_impl(self._w, self._caches,
                                                 last, pos)
+        if self._numerics:
+            return logits.argmax(dim=-1), _numerics.stats_of(logits)
         return logits.argmax(dim=-1)
 
     def _host_state(self):
@@ -644,7 +662,25 @@ class LlamaServingEngine:
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
     def _note(self, key):
+        """A program shape ran: its first call counts a compile and goes
+        to the retrace sanitizer (a prefill bucket first seen after the
+        warmup is a retrace)."""
+        if key in self._signatures:
+            return
         self._signatures.add(key)
+        telemetry.count("serving.engine_compile")
+        if _retrace._enabled:
+            if len(key) == 4 and key[0] == "prefill_sfx":
+                comps = {"batch": key[1], "prefix_len": key[2],
+                         "suffix_len": key[3]}
+            elif len(key) == 3:
+                comps = {"batch": key[1], "prompt_len": key[2]}
+            else:
+                comps = {"program": key[0]}
+            _retrace.observe(
+                "serving_" + str(key[0]), id(self), comps,
+                site="mxnet_tpu_torch.serving.generative:"
+                     "LlamaServingEngine (%s)" % (key[0],))
 
     def compiled_signatures(self):
         """Every (program, *bucket) shape this engine has run — the
@@ -819,6 +855,10 @@ class LlamaServingEngine:
         with self._serial(), self.dev_lock:
             toks = self._step_state(self._host_state())
             self.steps += 1
+        if self._numerics:
+            toks, lstats = toks
+            # the tick's logit statistics (a copy), for the stride harvest
+            _numerics.record_compiled(("serving.logits",), (lstats,))
         out = _materialize([toks])[0]
         with self.dev_lock:
             for s in active:
@@ -839,7 +879,11 @@ class LlamaServingEngine:
         self._pinned.numpy()[:] = state
         self._state.copy_(self._pinned, non_blocking=True)
         self._step_graph.replay()
-        return self._step_graph.outputs.clone()
+        out = self._step_graph.outputs
+        if self._numerics:
+            # one copy of each static output: the next replay overwrites
+            return out[0].clone(), out[1].clone()
+        return out.clone()
 
     @torch.inference_mode()
     def verify(self, drafts):
@@ -861,6 +905,9 @@ class LlamaServingEngine:
                 axis=1)
             out = self._verify_state(toks_mat, self._tables, self._pos)
             self.steps += 1
+        if self._numerics:
+            out, lstats = out
+            _numerics.record_compiled(("serving.logits",), (lstats,))
         return _materialize([out])[0]
 
     @_mirrored
@@ -872,6 +919,8 @@ class LlamaServingEngine:
         logits = self._dec._verify_blocks_impl(
             self._w, self._pool, self._dev(tables), self._dev(toks_mat),
             self._dev(pos))
+        if self._numerics:
+            return logits.argmax(dim=-1), _numerics.stats_of(logits)
         return logits.argmax(dim=-1)
 
     def last_tokens(self):
@@ -908,11 +957,13 @@ class GenerativeScheduler:
     Admission happens between decode steps whenever slots are free — a
     late request joins the in-flight batch without stopping anyone
     else's decode (its ``joined_step``/``done_step`` land in its
-    record).  Finished requests' records are kept in ``records``.
+    record).  Finished requests' records are kept in ``records`` and
+    emitted as ``serving.request`` JSONL records; every ``summary_every``
+    completions it emits ``serving.latency``.
     """
 
-    def __init__(self, engine, queue, policy=None, poll_s=0.02,
-                 max_records=4096):
+    def __init__(self, engine, queue, policy=None, summary_every=16,
+                 poll_s=0.02, max_records=4096, slo=None):
         if engine.kv_mode != "slots":
             raise MXNetError(
                 "GenerativeScheduler drives the slot-ledger engine; "
@@ -923,6 +974,8 @@ class GenerativeScheduler:
             max_batch=engine.num_slots, max_length=engine.max_len,
             min_batch=1, min_length=8)
         self.mgr = KVCacheManager(engine.num_slots, engine.max_len)
+        self.summary_every = int(summary_every)
+        self.slo = slo   # the server's SLOTracker, or None
         self.poll_s = float(poll_s)
         self.completed = 0
         self.failed = 0
@@ -1014,17 +1067,31 @@ class GenerativeScheduler:
                 r.replica = self.engine.replica_id
                 r.future.set_exception(exc)
                 self._fail(r, exc, lane="prefill")
+            tracing.incident("replica_exception",
+                             context={"replica": self.engine.replica_id,
+                                      "lane": "prefill",
+                                      "error": repr(exc)})
             return False
         t_first = time.perf_counter()
+        mates = [r.id for r in group]
         for i, r in enumerate(group):
             r.t_first = t_first
+            if r.trace is not None:
+                r.trace.add("queue", r.t_submit, t_start,
+                            replica=r.replica)
+                r.trace.add("prefill", t_start, t_first,
+                            replica=r.replica, slot=r.slot,
+                            bucket=list(r.bucket),
+                            mates=[m for m in mates if m != r.id])
             self._seqs[r.slot] = (r, [int(first[i])])
             if self.mgr.consume(r.slot):
                 self._finish(r.slot)
+        telemetry.count("serving.admitted", len(group))
         return True
 
     def _decode_step(self):
         active = self.mgr.active_slots()
+        t0 = time.perf_counter()
         try:
             toks = self.engine.step(active)
         except Exception as exc:
@@ -1034,12 +1101,23 @@ class GenerativeScheduler:
                 self.engine.clear_slot(slot)
                 req.future.set_exception(exc)
                 self._fail(req, exc, lane="decode")
+            tracing.incident("replica_exception",
+                             context={"replica": self.engine.replica_id,
+                                      "lane": "decode",
+                                      "error": repr(exc)})
             return
+        t1 = time.perf_counter()
         self.batches += 1
+        telemetry.hist("serving.batch_size", len(active))
+        step_idx = self.engine.steps
         for slot in active:
             self.mgr.advance(slot)   # the step wrote K/V at slot's pos
             req, tokens = self._seqs[slot]
             tokens.append(int(toks[slot]))
+            if req.trace is not None:
+                req.trace.add("decode.step", t0, t1, step=step_idx,
+                              batch=len(active), replica=req.replica,
+                              slot=slot)
             if self.mgr.consume(slot):
                 self._finish(slot)
 
@@ -1050,20 +1128,59 @@ class GenerativeScheduler:
         req.t_done = time.perf_counter()
         req.done_step = self.engine.steps
         n = req.max_new_tokens
-        self.completed += 1
-        self.records.append(req.record(lane="decode"))
+        self._account(req)
         req.future.set_result(np.concatenate(
             [np.asarray(req.prompt_ids, np.int32),
              np.asarray(tokens[:n], np.int32)]))
+        if self.summary_every and self.completed % self.summary_every == 0:
+            self.emit_summary()
+
+    def _account(self, req):
+        self.completed += 1
+        telemetry.count("serving.completed")
+        telemetry.count(f"serving.completed|replica={req.replica}")
+        rec = req.record(lane="decode")
+        tag = f"|replica={req.replica}"
+        for key in ("queue_wait_ms", "total_ms", "ttft_ms", "tpot_ms"):
+            if rec.get(key) is not None:
+                telemetry.hist("serving." + key, rec[key])
+                telemetry.hist("serving." + key + tag, rec[key])
+        if self.slo is not None:
+            rec["slo_met"] = self.slo.observe(
+                tenant=req.tenant, ttft_ms=rec.get("ttft_ms"),
+                tpot_ms=rec.get("tpot_ms"))
+        self.records.append(rec)
+        telemetry.emit(rec)
+        if req.trace is not None:
+            req.trace.event("evict", replica=req.replica, slot=req.slot)
+            tracing.finish(req.trace, status="ok", replica=req.replica,
+                           lane="decode", request_id=req.id)
 
     def _fail(self, req, exc, lane):
+        """Failure-path twin of :meth:`_account`: the error record with
+        replica and lane, the failed counters, the trace seal."""
         self.failed += 1
+        telemetry.count("serving.failed")
+        telemetry.count(f"serving.failed|replica={req.replica}")
         req.t_done = time.perf_counter()
-        self.records.append(req.record(lane=lane, status="error",
-                                       error=repr(exc)))
+        rec = req.record(lane=lane, status="error", error=repr(exc))
+        self.records.append(rec)
+        telemetry.emit(rec)
+        if req.trace is not None:
+            tracing.finish(req.trace, status="error",
+                           replica=req.replica, lane=lane,
+                           error=repr(exc), request_id=req.id)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._19),
-                         "mxnet_tpu_torch.serving.generative")
+    def emit_summary(self):
+        telemetry.emit({
+            "record": "serving.latency",
+            "completed": self.completed,
+            "failed": self.failed,
+            "batches": self.batches,
+            "rejected": self.queue.rejected,
+            "queue_wait_ms": telemetry.hist_summary("serving.queue_wait_ms"),
+            "total_ms": telemetry.hist_summary("serving.total_ms"),
+            "ttft_ms": telemetry.hist_summary("serving.ttft_ms"),
+            "batch_size": telemetry.hist_summary("serving.batch_size"),
+            "kv_cache": self.mgr.stats(),
+        })

@@ -25,9 +25,21 @@ connected by an explicit KV handoff:
 Both lanes share one engine and one CUDA stream; every device→host wait
 is ``scheduler._materialize`` (first tokens at the handoff, token vectors
 at each tick).  Each lane thread runs under ``torch.inference_mode()``.
-The reference's telemetry, tracing spans, capacity ledgers and flight
-recorder are not ported (ROADMAP, "Left out of slice 19"); the request
-records are, kept in ``Replica.records``.
+
+Observability, from stamps the lanes already take: with
+``telemetry.tracing`` on, each request carries its span context across
+the lane threads (``req.trace``) — the prefill lane records the
+``queue`` and ``prefill`` spans, the decode lane ``handoff`` and one
+``decode.step`` a tick, and :meth:`Replica.finish` seals the trace
+(``evict``, then the root).  A decode tick's stamps close after the
+host has the tick's tokens, so a span (and the ``capacity`` ledgers'
+busy interval) covers the card's work, with no sync added for them.
+Lane failures trip the flight recorder (``tracing.incident``).  The
+request records are kept in ``Replica.records`` and emitted as
+``serving.request`` JSONL records; every ``summary_every`` completions a
+replica emits ``serving.latency`` with its ``capacity`` view.  On a
+tensor-parallel replica only the leader runs the lanes, so traces,
+records and capacity notes come from the leader alone.
 """
 from __future__ import annotations
 
@@ -38,6 +50,10 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import sanitizer as _san
+from .. import telemetry
+from ..telemetry import capacity
+from ..telemetry import tracing
 from .bucketing import pad_batch
 from .kv_cache import PagedKVCacheManager
 from .protocol import ServerClosedError
@@ -103,6 +119,10 @@ class _Lane:
                 self._run()
         except Exception as exc:
             self.error = exc
+            tracing.incident("lane_thread_error",
+                             context={"replica": self.r.index,
+                                      "lane": self._name,
+                                      "error": repr(exc)})
 
 
 class PrefillLane(_Lane):
@@ -188,14 +208,21 @@ class PrefillLane(_Lane):
             if rx is not None:
                 # the real lookup (bumps LRU, counts hits); references are
                 # taken by admit() under the manager lock
+                t_rx0 = time.perf_counter()
                 matched, shared = [], []
                 for req in group:
                     m, blks = rx.lookup(req.prompt_ids)
                     matched.append(m)
                     shared.append(blks)
                 t_rx1 = time.perf_counter()
+                hits = sum(1 for m in matched if m)
+                telemetry.count("serving.radix_hits", hits)
+                telemetry.count("serving.radix_misses", len(group) - hits)
+                if any(matched):
+                    telemetry.count("serving.radix_hit_tokens",
+                                    sum(matched))
             else:
-                t_rx1 = t_start
+                t_rx0 = t_rx1 = t_start
                 matched = [0] * len(group)
                 shared = [None] * len(group)
             prompts = pad_batch(
@@ -228,24 +255,28 @@ class PrefillLane(_Lane):
                 req.t_start = t_start
                 req.bucket = (kb, lb)
                 req.batch_size = len(group)
-            if rx is not None and any(matched):
-                # radix-hit path: dense prefix copies (locked gather)
-                # feed the suffix-only forward (unlocked); the commit
-                # writes ONLY the suffix rows, into the request's private
-                # blocks past the shared prefix
-                pre_lb = r.policy.length_bucket(max(matched))
-                nbp_pre = -(-pre_lb // mgr.block_size)
-                rows_idx = np.full((kb, nbp_pre), eng.num_blocks, np.int32)
-                for i in range(len(group)):
-                    rows_idx[i, :skip[i]] = block_lists[i][:skip[i]]
-                pre_kv = eng.gather_prefix(rows_idx)
-                toks, rows = eng.prefill_suffix(pre_kv, prompts, t0s_suf,
-                                                s0s)
-            else:
-                toks, rows = eng.prefill_rows(prompts, t0s_suf)
-            first = _materialize([toks])[0]
-            eng.commit_rows(rows, slots, block_lists, t0s, first,
-                            skip_blocks=skip)
+            with telemetry.span("serving.prefill",
+                                {"lane": "prefill", "replica": r.index,
+                                 "batch": kb, "length": lb}):
+                if rx is not None and any(matched):
+                    # radix-hit path: dense prefix copies (locked gather)
+                    # feed the suffix-only forward (unlocked); the commit
+                    # writes ONLY the suffix rows, into the request's
+                    # private blocks past the shared prefix
+                    pre_lb = r.policy.length_bucket(max(matched))
+                    nbp_pre = -(-pre_lb // mgr.block_size)
+                    rows_idx = np.full((kb, nbp_pre), eng.num_blocks,
+                                       np.int32)
+                    for i in range(len(group)):
+                        rows_idx[i, :skip[i]] = block_lists[i][:skip[i]]
+                    pre_kv = eng.gather_prefix(rows_idx)
+                    toks, rows = eng.prefill_suffix(pre_kv, prompts,
+                                                    t0s_suf, s0s)
+                else:
+                    toks, rows = eng.prefill_rows(prompts, t0s_suf)
+                first = _materialize([toks])[0]
+                eng.commit_rows(rows, slots, block_lists, t0s, first,
+                                skip_blocks=skip)
             if rx is not None:
                 # register the full prompt blocks (written by the commit
                 # above, on the same stream) so later requests share them
@@ -273,8 +304,16 @@ class PrefillLane(_Lane):
                 req.future.set_exception(exc)
                 r.fail(req, exc, lane="prefill")
             r.capacity_evt.set()
+            tracing.incident("replica_exception",
+                             context={"replica": r.index,
+                                      "lane": "prefill",
+                                      "error": repr(exc)})
             return True
         t_first = time.perf_counter()
+        # the prefill busy interval, from the stamps the lane already took
+        # (t_first follows the first tokens' host read)
+        capacity.lane_busy(r.index, "prefill", t_start, t_first)
+        mates = [req.id for req in group]
         for i, req in enumerate(group):
             req.t_first = t_first
             if rx is not None and matched[i] and t0s_suf[i] > 0:
@@ -284,12 +323,26 @@ class PrefillLane(_Lane):
                 pf_ms = (t_first - t_rx1) * 1e3
                 req.prefill_saved_ms = pf_ms * matched[i] \
                     / int(t0s_suf[i])
+            if req.trace is not None:
+                # retroactive spans from the stamps above: queue covers
+                # dispatch + bucket dwell, prefill the forward + commit
+                req.trace.add("queue", req.t_submit, t_start,
+                              replica=r.index)
+                if rx is not None:
+                    req.trace.add("radix_lookup", t_rx0, t_rx1,
+                                  replica=r.index, hit_tokens=matched[i])
+                req.trace.add("prefill", t_start, t_first,
+                              replica=r.index, slot=req.slot,
+                              kv_blocks=req.kv_blocks,
+                              bucket=list(req.bucket),
+                              mates=[m for m in mates if m != req.id])
             if mgr.consume(req.slot):
                 # max_new_tokens == 1: done at prefill, never decodes
                 r.finish(req, [int(first[i])])
             else:
                 r.decode.hand_off(_Handoff(req, req.slot, int(first[i])))
         r.prefill_ms.append((t_first - t_start) * 1e3)
+        telemetry.count("serving.admitted", len(group))
         return True
 
 
@@ -303,7 +356,8 @@ class DecodeLane(_Lane):
     def __init__(self, replica, poll_s=0.005):
         super().__init__(replica, poll_s)
         self._handoffs = deque()
-        self._hand_lock = threading.Lock()
+        self._hand_lock = _san.wrap_lock(
+            threading.Lock(), "lanes.DecodeLane._hand_lock")
         self._seqs = {}       # slot -> (request, [generated tokens])
         self._wake = threading.Event()   # set on hand_off: adopt now
 
@@ -318,6 +372,27 @@ class DecodeLane(_Lane):
 
     def request_stop(self):
         self._stop.set()
+
+    def snapshot(self):
+        """In-flight view for the /requests table: handoffs not yet
+        adopted and decoding slots, host-side bookkeeping only."""
+        rows = []
+        with self._hand_lock:
+            handoffs = list(self._handoffs)
+            seqs = dict(self._seqs)
+        for h in handoffs:
+            rows.append({"request_id": h.req.id, "state": "handoff",
+                         "slot": h.slot, "replica": self.r.index,
+                         "trace_id": h.req.trace.trace_id
+                         if h.req.trace is not None else None})
+        for slot, (req, tokens) in seqs.items():
+            rows.append({"request_id": req.id, "state": "decoding",
+                         "slot": slot, "replica": self.r.index,
+                         "trace_id": req.trace.trace_id
+                         if req.trace is not None else None,
+                         "tokens_done": len(tokens),
+                         "max_new_tokens": req.max_new_tokens})
+        return rows
 
     def _run(self):
         spec = self.r.spec_k > 0 and self.r.draft is not None
@@ -344,6 +419,14 @@ class DecodeLane(_Lane):
                     return
                 h = self._handoffs.popleft()
             h.req.t_handoff = time.perf_counter()
+            hand_ms = (h.req.t_handoff - h.req.t_first) * 1e3
+            telemetry.hist("serving.handoff_ms", hand_ms)
+            telemetry.hist(f"serving.handoff_ms|replica={self.r.index}",
+                           hand_ms)
+            if h.req.trace is not None:
+                h.req.trace.add("handoff", h.req.t_first,
+                                h.req.t_handoff, replica=self.r.index,
+                                slot=h.slot)
             with self._hand_lock:
                 self._seqs[h.slot] = (h.req, [h.first])
 
@@ -359,6 +442,9 @@ class DecodeLane(_Lane):
             req.future.set_exception(exc)
             r.fail(req, exc, lane="decode")
         r.capacity_evt.set()
+        tracing.incident("replica_exception",
+                         context={"replica": r.index, "lane": "decode",
+                                  "error": repr(exc)})
 
     def _tick(self):
         r = self.r
@@ -370,12 +456,21 @@ class DecodeLane(_Lane):
         except Exception as exc:
             self._fail_all(active, exc)
             return
-        r.note_tick(len(active), time.perf_counter() - t0)
+        # t1 follows the tokens' host read inside ``step``: the stamps
+        # bracket the card's work, not just the graph's launch
+        t1 = time.perf_counter()
+        r.note_tick(len(active), t0, t1)
+        step_idx = r.engine.steps
         for slot in active:
             r.mgr.advance(slot)   # the step wrote K/V at slot's pos
             with self._hand_lock:
                 req, tokens = self._seqs[slot]
             tokens.append(int(toks[slot]))
+            if req.trace is not None:
+                # one span per traced slot per tick (one dict append)
+                req.trace.add("decode.step", t0, t1, step=step_idx,
+                              batch=len(active), replica=r.index,
+                              slot=slot)
             if r.mgr.consume(slot):
                 with self._hand_lock:
                     del self._seqs[slot]
@@ -403,12 +498,16 @@ class DecodeLane(_Lane):
                 # draft mirrors auto-advance, so step j+1 is conditioned
                 # on the draft's own proposal j
                 proposals[:, j] = r.draft.step(active)
+            t_draft = time.perf_counter()
             pos0 = r.engine.positions()
             out = r.engine.verify(proposals)
         except Exception as exc:
             self._fail_all(active, exc)
             return
-        r.note_tick(len(active), time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        r.note_tick(len(active), t0, t1)
+        accepted_this_tick = 0
+        step_idx = r.engine.steps
         for slot in active:
             d, g = proposals[slot], out[slot]
             m = 0
@@ -434,6 +533,13 @@ class DecodeLane(_Lane):
             req.accepted_tokens += got
             r.draft_tokens += k
             r.accepted_tokens += got
+            accepted_this_tick += got
+            telemetry.count("serving.accepted_tokens", got)
+            if req.trace is not None:
+                req.trace.add("draft", t0, t_draft, step=step_idx,
+                              k=k, replica=r.index, slot=slot)
+                req.trace.add("verify", t_draft, t1, step=step_idx,
+                              accepted=acc, replica=r.index, slot=slot)
             done = False
             for _ in range(acc):
                 if r.mgr.consume(slot):
@@ -442,6 +548,11 @@ class DecodeLane(_Lane):
                 with self._hand_lock:
                     del self._seqs[slot]
                 r.finish(req, tokens)
+        telemetry.count("serving.draft_tokens", k * len(active))
+        capacity.note_spec(r.index, k * len(active), accepted_this_tick)
+        if r.draft_tokens:
+            telemetry.gauge("serving.accept_rate",
+                            round(r.accepted_tokens / r.draft_tokens, 4))
 
 
 class Replica:
@@ -453,7 +564,7 @@ class Replica:
                  block_size=16, num_blocks=None, queue_capacity=64,
                  max_prefill_tokens=None, draft_net=None, spec_k=0,
                  radix_cache=False, prefix_cache_tokens=None,
-                 max_records=4096):
+                 max_records=4096, summary_every=32, slo=None):
         from .generative import LlamaServingEngine
 
         self.index = int(index)
@@ -498,9 +609,11 @@ class Replica:
         self.max_prefill_tokens = int(max_prefill_tokens or
                                       policy.max_batch
                                       * policy.max_length)
+        self.summary_every = int(summary_every)
         self.prefill = PrefillLane(self)
         self.decode = DecodeLane(self)
         self.capacity_evt = threading.Event()  # set on evict: re-admit
+        self.slo = slo   # the server's SLOTracker, or None
         self.completed = 0
         self.failed = 0
         self.batches = 0
@@ -521,7 +634,12 @@ class Replica:
         return self.mgr.reserved_tokens() + queued
 
     def offer(self, req):
-        return self.queue.offer(req)
+        ok = self.queue.offer(req)
+        if ok:
+            # accepted offers only: a shed request never joins the
+            # arrival process the λ estimator models
+            capacity.note_arrival(self.index, t=req.t_submit)
+        return ok
 
     # -- lifecycle ------------------------------------------------------------
     def start(self):
@@ -553,11 +671,22 @@ class Replica:
                 ServerClosedError("server stopped before execution"))
 
     # -- accounting -----------------------------------------------------------
-    def note_tick(self, n_active, seconds):
-        """One decode tick (a step, or a speculative window) done."""
+    def note_tick(self, n_active, t0, t1):
+        """One decode tick (a step, or a speculative window) done between
+        the stamps ``t0`` and ``t1`` the lane took."""
         self.batches += 1
-        self.tick_ms.append(seconds * 1e3)
+        self.tick_ms.append((t1 - t0) * 1e3)
         self.tick_slots.append(n_active)
+        telemetry.hist("serving.batch_size", n_active)
+        telemetry.gauge("serving.kv_blocks_in_use",
+                        self.mgr.allocator.blocks_in_use)
+        # the busy interval, batch occupancy and pool pressure of the
+        # tick; gated so the arguments cost nothing while it is off
+        if capacity.is_enabled():
+            capacity.note_tick(self.index, n_active, self.engine.num_slots,
+                               t0, t1)
+            capacity.note_kv(self.index, self.mgr.allocator.free_blocks,
+                             self.mgr.num_blocks)
 
     def _keep(self, rec):
         with self._rec_lock:
@@ -573,18 +702,83 @@ class Replica:
         req.done_step = self.engine.steps
         n = req.max_new_tokens
         self.completed += 1
+        telemetry.count("serving.completed")
+        telemetry.count(f"serving.completed|replica={self.index}")
+        capacity.note_completion(self.index, t=req.t_done)
         lane = "decode" if req.t_handoff is not None else "prefill"
-        self._keep(req.record(lane=lane))
+        rec = req.record(lane=lane)
+        tag = f"|replica={self.index}"
+        for key in ("queue_wait_ms", "total_ms", "ttft_ms", "tpot_ms"):
+            if rec.get(key) is not None:
+                telemetry.hist("serving." + key, rec[key])
+                telemetry.hist("serving." + key + tag, rec[key])
+        if self.slo is not None:
+            rec["slo_met"] = self.slo.observe(
+                tenant=req.tenant, ttft_ms=rec.get("ttft_ms"),
+                tpot_ms=rec.get("tpot_ms"))
+        self._keep(rec)
+        telemetry.emit(rec)
+        if req.trace is not None:
+            req.trace.event("evict", replica=self.index, slot=req.slot)
+            tracing.finish(req.trace, status="ok", replica=self.index,
+                           lane=lane, request_id=req.id)
         req.future.set_result(np.concatenate(
             [np.asarray(req.prompt_ids, np.int32),
              np.asarray(tokens[:n], np.int32)]))
+        if self.summary_every and self.completed % self.summary_every == 0:
+            self.emit_summary()
 
     def fail(self, req, exc, lane):
         """Failure-path accounting: the ``status="error"`` request record
-        (tagged replica + lane) and the failed counter."""
+        (tagged replica + lane), the failed counters and the trace
+        seal."""
         self.failed += 1
+        telemetry.count("serving.failed")
+        telemetry.count(f"serving.failed|replica={self.index}")
         req.t_done = time.perf_counter()
-        self._keep(req.record(lane=lane, status="error", error=repr(exc)))
+        rec = req.record(lane=lane, status="error", error=repr(exc))
+        self._keep(rec)
+        telemetry.emit(rec)
+        if req.trace is not None:
+            tracing.finish(req.trace, status="error", replica=self.index,
+                           lane=lane, error=repr(exc), request_id=req.id)
+
+    def emit_summary(self):
+        """The rolling ``serving.latency`` record of this replica, with
+        its KV pool's stats and its ``capacity`` view."""
+        rec = {
+            "record": "serving.latency",
+            "replica": self.index,
+            "completed": self.completed,
+            "failed": self.failed,
+            "batches": self.batches,
+            "queue_wait_ms": telemetry.hist_summary("serving.queue_wait_ms"),
+            "total_ms": telemetry.hist_summary("serving.total_ms"),
+            "ttft_ms": telemetry.hist_summary("serving.ttft_ms"),
+            "handoff_ms": telemetry.hist_summary("serving.handoff_ms"),
+            "batch_size": telemetry.hist_summary("serving.batch_size"),
+            "kv_cache": self.mgr.stats(),
+        }
+        # the summary already paid for stats(): feed the pool's
+        # fragmentation to the capacity trend estimator here
+        capacity.note_kv(self.index, self.mgr.allocator.free_blocks,
+                         self.mgr.num_blocks,
+                         fragmentation=rec["kv_cache"].get("fragmentation"))
+        cap_view = capacity.snapshot(self.index)
+        if cap_view is not None:
+            rec["capacity"] = cap_view
+        if self.draft is not None:
+            rec["speculative"] = {
+                "k": self.spec_k,
+                "draft_tokens": self.draft_tokens,
+                "accepted_tokens": self.accepted_tokens,
+                "accept_rate": round(self.accepted_tokens
+                                     / self.draft_tokens, 4)
+                if self.draft_tokens else None,
+            }
+        if self.radix is not None:
+            rec["radix_cache"] = self.radix.stats()
+        telemetry.emit(rec)
 
 
 class ReplicaDispatcher:
@@ -646,6 +840,8 @@ class ReplicaDispatcher:
             self._run()
         except Exception as exc:
             self.error = exc
+            tracing.incident("dispatcher_thread_error",
+                             context={"error": repr(exc)})
 
     def _run(self):
         while not self._stop.is_set():
@@ -660,9 +856,3 @@ class ReplicaDispatcher:
             else:
                 time.sleep(self.poll_s)
 
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(
-    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._19),
-    "mxnet_tpu_torch.serving.lanes")

@@ -11,10 +11,10 @@ Backpressure is explicit: a full queue raises
 unbounded latency.  Clients treat it like HTTP 503 — back off and
 retry.
 
-The reference's request-scoped trace context is not ported (ROADMAP,
-"Left out of slice 6"); the per-request record (:meth:`Request.record`)
-is, and the servers keep the records of finished requests
-(``GenerativeServer.request_records``).
+A request carries its trace (``req.trace``, a ``telemetry.tracing.Trace``
+or None while tracing is off) across the serving threads; its record
+(:meth:`Request.record`) carries the trace id, and the servers keep the
+records of finished requests (``GenerativeServer.request_records``).
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ class Request:
                  "future", "t_submit", "t_start", "t_first", "t_done",
                  "batch_size", "bucket", "slot", "joined_step",
                  "done_step", "replica", "t_handoff", "kv_blocks",
-                 "tenant", "draft_tokens", "accepted_tokens",
+                 "trace", "tenant", "draft_tokens", "accepted_tokens",
                  "prefix_hit_tokens", "prefill_saved_ms")
 
     def __init__(self, inputs=None, length=None, prompt_ids=None,
@@ -79,6 +79,9 @@ class Request:
         self.replica = None     # which replica served the request
         self.t_handoff = None   # decode lane adopted the prefilled KV
         self.kv_blocks = None   # blocks reserved for the request
+        # the request-scoped span context (None while tracing is off:
+        # every serving call site guards on that None) and the SLO tenant
+        self.trace = None
         self.tenant = tenant
         # speculative decoding + radix prefix cache
         self.draft_tokens = 0        # draft proposals scored for us
@@ -118,6 +121,8 @@ class Request:
             rec["error"] = error
         if self.tenant is not None:
             rec["tenant"] = self.tenant
+        if self.trace is not None:
+            rec["trace_id"] = self.trace.trace_id
         if self.t_first is not None:
             rec["ttft_ms"] = (self.t_first - self.t_submit) * 1e3
         tpot = self.tpot_ms()

@@ -13,10 +13,12 @@ is :func:`_materialize` — the copy of a batch's result tensors to the
 host (``.cpu()``), at the batch boundary, after the whole batch was
 dispatched.
 
-The reference's telemetry spans, histograms and rolling summary
-(``emit_summary``) come back with the serving side of the telemetry
-package (ROADMAP Queue 1, "Left out of slice 19"); the counters
-``batches``, ``completed`` and ``failed`` are here.
+Every completed request emits a ``serving.request`` JSONL record, feeds
+the rolling latency histograms and seals its trace; every
+``summary_every`` completions the scheduler emits a ``serving.latency``
+record with p50/p90/p99 over the recent window
+(``telemetry.hist_summary``).  A batch's stamps close after
+``_materialize``, so they cover the card's work.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ import time
 import numpy as np
 import torch
 
+from .. import sanitizer as _san
+from .. import telemetry
+from ..telemetry import tracing
 from .bucketing import pad_batch
 from .protocol import ServerClosedError, ServerOverloadedError
 
@@ -62,7 +67,8 @@ class RequestQueue:
     def __init__(self, capacity=64):
         self.capacity = int(capacity)
         self._items = []
-        self._cond = threading.Condition()
+        self._cond = _san.wrap_lock(threading.Condition(),
+                                    "scheduler.RequestQueue._cond")
         self._closed = False
         self._rejected = 0
 
@@ -88,6 +94,7 @@ class RequestQueue:
                 raise ServerClosedError("server is not accepting requests")
             if len(self._items) >= self.capacity:
                 self._rejected += 1
+                telemetry.count("serving.rejected")
                 raise ServerOverloadedError(
                     f"request queue full ({self.capacity} pending); "
                     "retry with backoff")
@@ -177,13 +184,15 @@ class BatchScheduler:
     pooled outputs (classifiers) that have no length axis."""
 
     def __init__(self, runner, policy, queue, length_axis=0,
-                 output_length_axis=None, batch_window_ms=2.0, poll_s=0.05):
+                 output_length_axis=None, batch_window_ms=2.0,
+                 summary_every=32, poll_s=0.05):
         self.runner = runner
         self.policy = policy
         self.queue = queue
         self.length_axis = int(length_axis)
         self.output_length_axis = output_length_axis
         self.batch_window_s = float(batch_window_ms) * 1e-3
+        self.summary_every = int(summary_every)
         self.poll_s = float(poll_s)
         self.batches = 0
         self.completed = 0
@@ -254,20 +263,38 @@ class BatchScheduler:
                 name: pad_batch([r.inputs[name] for r in group], bb, lb,
                                 axis=self.length_axis)
                 for name in group[0].inputs}
-            outs = self.runner(batch)
+            with telemetry.span("serving.batch",
+                                {"batch": bb, "length": lb}):
+                outs = self.runner(batch)
             outs = _materialize(outs if isinstance(outs, (list, tuple))
                                 else [outs])
         except Exception as exc:
             self.failed += len(group)
+            telemetry.count("serving.failed", len(group))
             for r in group:
                 r.t_done = time.perf_counter()
                 r.future.set_exception(exc)
+                telemetry.emit(r.record(lane="batch", status="error",
+                                        error=repr(exc)))
+                if r.trace is not None:
+                    tracing.finish(r.trace, status="error",
+                                   lane="batch", error=repr(exc),
+                                   request_id=r.id)
             return
         self.batches += 1
         t_done = time.perf_counter()
+        telemetry.count("serving.batches")
+        telemetry.hist("serving.batch_size", len(group))
         for i, r in enumerate(group):
             r.t_done = t_done
-            self.completed += 1
+            if r.trace is not None:
+                r.trace.add("queue", r.t_submit, t_start)
+                r.trace.add("batch", t_start, t_done,
+                            bucket=list(r.bucket),
+                            batch=len(group))
+            # accounted before the future resolves: a client that holds
+            # its result sees its record, trace and counters in place
+            self._account(r)
             r.future.set_result(self._demux(outs, i, r.length))
 
     def _demux(self, outs, i, length):
@@ -280,8 +307,36 @@ class BatchScheduler:
             picked.append(row)
         return picked if len(picked) > 1 else picked[0]
 
+    def _account(self, req):
+        """Per-request telemetry: histograms, the JSONL record, the trace
+        seal and the rolling summary every ``summary_every``
+        completions."""
+        self.completed += 1
+        telemetry.count("serving.completed")
+        rec = req.record(lane="batch")
+        if req.trace is not None:
+            tracing.finish(req.trace, status="ok", lane="batch",
+                           request_id=req.id)
+        if rec["queue_wait_ms"] is not None:
+            telemetry.hist("serving.queue_wait_ms", rec["queue_wait_ms"])
+        if rec["total_ms"] is not None:
+            telemetry.hist("serving.total_ms", rec["total_ms"])
+        if rec.get("ttft_ms") is not None:
+            telemetry.hist("serving.ttft_ms", rec["ttft_ms"])
+        telemetry.emit(rec)
+        if self.summary_every and self.completed % self.summary_every == 0:
+            self.emit_summary()
 
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(dict.fromkeys(("telemetry", "tracing"), _lo._19),
-                         "mxnet_tpu_torch.serving.scheduler")
+    def emit_summary(self):
+        """Emit the rolling ``serving.latency`` percentile record."""
+        telemetry.emit({
+            "record": "serving.latency",
+            "completed": self.completed,
+            "failed": self.failed,
+            "batches": self.batches,
+            "rejected": self.queue.rejected,
+            "queue_wait_ms": telemetry.hist_summary("serving.queue_wait_ms"),
+            "total_ms": telemetry.hist_summary("serving.total_ms"),
+            "ttft_ms": telemetry.hist_summary("serving.ttft_ms"),
+            "batch_size": telemetry.hist_summary("serving.batch_size"),
+        })

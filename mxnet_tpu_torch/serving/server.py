@@ -31,11 +31,12 @@ rank takes that replica's requests and runs its lanes, and its peers
 run what the leader sends (``generative.py``).  Across processes each
 leader takes its own requests; a router in front spreads them.
 
-Not ported, each raising ``MXNetError``: ``ServerConfig(http_port=,
-slo=)`` (the metrics endpoint and SLO accounting; ROADMAP.md, Queue 1,
-"Left out of slice 6"); a ``Predictor`` model and
-``ServerConfig(summary_every=)`` (ROADMAP.md, Queue 1, "Left out of slice
-8").
+Observability: ``ServerConfig(http_port=)`` starts the ``/metrics``,
+``/healthz`` and ``/requests`` endpoint (``metrics.MetricsServer``;
+``server.metrics_url``), ``slo=`` the per-tenant goodput tracker
+(``stats()["slo"]``), ``summary_every`` the rolling ``serving.latency``
+records; with ``telemetry.tracing`` on each request gets its trace at
+submit, and an overload rejection trips the flight recorder.
 """
 from __future__ import annotations
 
@@ -44,7 +45,10 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
+from ..telemetry import capacity
+from ..telemetry import tracing
 from .bucketing import BucketPolicy
 from .generative import _split_mesh  # noqa: F401  (the reference's home)
 from .protocol import Request, ServerClosedError
@@ -52,9 +56,6 @@ from .scheduler import BatchScheduler, RequestQueue
 from .protocol import ServerOverloadedError  # noqa: F401
 
 __all__ = ["ServerConfig", "InferenceServer", "GenerativeServer"]
-
-_LATER = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 6\")"
-_LATER8 = "is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice 8\")"
 
 
 class ServerConfig:
@@ -79,35 +80,27 @@ class ServerConfig:
     ``radix_cache`` turns on prompt-prefix reuse within
     ``prefix_cache_tokens`` (None = half the pool).
 
-    The reference's settings of its telemetry and SLO surfaces are not
-    taken: ``summary_every`` raises (it comes back with the telemetry
-    package, ROADMAP.md "Left out of slice 8"), ``http_port`` and
-    ``slo`` raise ("Left out of slice 6"), and ``http_host`` and
-    ``slo_window`` are not parameters."""
+    Observability: ``summary_every`` completions between rolling
+    ``serving.latency`` records; ``http_port`` (0 = ephemeral) starts the
+    metrics endpoint on ``http_host``; ``slo`` maps tenant →
+    ``{"ttft_ms": x, "tpot_ms": y}`` (a flat dict is the ``"default"``
+    tenant) for goodput over the last ``slo_window`` requests."""
 
     def __init__(self, max_batch=8, max_length=128, min_batch=1,
                  min_length=8, queue_capacity=64, batch_window_ms=2.0,
-                 summary_every=None, length_axis=0, output_length_axis=None,
+                 summary_every=32, length_axis=0, output_length_axis=None,
                  num_slots=4, max_new_tokens=32, int8=False, calib_data=None,
                  kv_mode="paged", block_size=16, num_blocks=None,
-                 http_port=None, slo=None, draft_net=None, spec_k=3,
+                 http_port=None, http_host="127.0.0.1", slo=None,
+                 slo_window=256, draft_net=None, spec_k=3,
                  radix_cache=False, prefix_cache_tokens=None):
-        if summary_every is not None:
-            raise MXNetError(f"ServerConfig(summary_every=) (the rolling "
-                             f"latency summary of the telemetry package) "
-                             f"{_LATER8}")
-        if http_port is not None:
-            raise MXNetError(f"ServerConfig(http_port=) (the metrics "
-                             f"endpoint) {_LATER}")
-        if slo:
-            raise MXNetError(f"ServerConfig(slo=) (SLO accounting) "
-                             f"{_LATER}")
         self.policy = BucketPolicy(max_batch=max_batch,
                                    max_length=max_length,
                                    min_batch=min_batch,
                                    min_length=min_length)
         self.queue_capacity = int(queue_capacity)
         self.batch_window_ms = float(batch_window_ms)
+        self.summary_every = int(summary_every)
         self.length_axis = int(length_axis)
         self.output_length_axis = output_length_axis
         self.num_slots = int(num_slots)
@@ -125,20 +118,33 @@ class ServerConfig:
         self.radix_cache = bool(radix_cache)
         self.prefix_cache_tokens = prefix_cache_tokens \
             if prefix_cache_tokens is None else int(prefix_cache_tokens)
+        self.http_port = http_port
+        self.http_host = http_host
+        self.slo = slo
+        self.slo_window = int(slo_window)
 
 
 class _ServerBase:
     """start/stop/context-manager scaffolding: a bounded front queue and
-    a scheduler (``_sched``) behind it."""
+    a scheduler (``_sched``) behind it; the metrics endpoint's lifecycle,
+    the shared SLO tracker and trace creation at submit."""
 
     def __init__(self, config):
         self.config = config or ServerConfig()
         self.queue = RequestQueue(self.config.queue_capacity)
         self._running = False
+        self._metrics = None
+        self.slo = None
+        if self.config.slo:
+            from .metrics import SLOTracker
+
+            self.slo = SLOTracker(self.config.slo,
+                                  window=self.config.slo_window)
 
     def start(self):
         self._sched.start()
         self._running = True
+        self._start_http()
         return self
 
     def stop(self, drain=True):
@@ -146,6 +152,7 @@ class _ServerBase:
         if not self._running:
             return
         self._running = False
+        self._stop_http()
         self._sched.stop(drain=drain)
 
     def __enter__(self):
@@ -155,10 +162,54 @@ class _ServerBase:
         self.stop()
         return False
 
+    # -- metrics endpoint -----------------------------------------------------
+    def _start_http(self):
+        if self.config.http_port is None or self._metrics is not None:
+            return
+        from .metrics import MetricsServer
+
+        self._metrics = MetricsServer(
+            self, host=self.config.http_host,
+            port=self.config.http_port).start()
+
+    def _stop_http(self):
+        if self._metrics is not None:
+            self._metrics.stop()
+            self._metrics = None
+
+    @property
+    def metrics_url(self):
+        """Base URL of the live endpoint (None when not started)."""
+        return self._metrics.url if self._metrics is not None else None
+
+    def metrics_gauges(self):
+        """Live gauges the /metrics scrape adds on top of the telemetry
+        snapshot (subclasses extend)."""
+        return {"serving.queue_depth": len(self.queue),
+                "serving.rejected_total": self.queue.rejected}
+
+    # -- submission -----------------------------------------------------------
     def _submit(self, req):
         if not self._running:
             raise ServerClosedError("server is not running; call start()")
-        self.queue.put(req)
+        if tracing.is_enabled() and req.trace is None:
+            req.trace = tracing.start_trace(request_id=req.id,
+                                            tenant=req.tenant)
+        try:
+            self.queue.put(req)
+        except ServerOverloadedError as exc:
+            # shed-load accounting: the rejected request still lands in
+            # the JSONL stream (tagged) and trips the flight recorder
+            telemetry.emit(req.record(lane="queue", status="rejected",
+                                      error=repr(exc)))
+            if req.trace is not None:
+                tracing.finish(req.trace, status="rejected", lane="queue",
+                               error=repr(exc), request_id=req.id)
+                req.trace = None
+            tracing.incident("overload_rejection", context={
+                "queue_capacity": self.queue.capacity,
+                "rejected": self.queue.rejected})
+            raise
         return req.future
 
 
@@ -200,7 +251,8 @@ class InferenceServer(_ServerBase):
             self._run_batch, self.config.policy, self.queue,
             length_axis=self.config.length_axis,
             output_length_axis=self.config.output_length_axis,
-            batch_window_ms=self.config.batch_window_ms)
+            batch_window_ms=self.config.batch_window_ms,
+            summary_every=self.config.summary_every)
 
     def _run_batch(self, batch):
         """One padded bucket through the model (scheduler thread)."""
@@ -261,6 +313,8 @@ class InferenceServer(_ServerBase):
         now = time.perf_counter()
         return [{"request_id": r.id, "state": "queued",
                  "length": r.length, "tenant": r.tenant,
+                 "trace_id": r.trace.trace_id
+                 if r.trace is not None else None,
                  "age_ms": round((now - r.t_submit) * 1e3, 3)}
                 for r in items]
 
@@ -280,6 +334,8 @@ class InferenceServer(_ServerBase):
             out["cache"] = self._predictor.cache_stats()
         elif getattr(self.model, "_cached_op", None) is not None:
             out["cache"] = self.model._cached_op.cache_stats()
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
         return out
 
 
@@ -323,8 +379,9 @@ class GenerativeServer(_ServerBase):
                 net, max_len=cfg.policy.max_length,
                 num_slots=cfg.num_slots, int8=cfg.int8, kv_mode="slots",
                 mesh=subs[0], partition_rules=partition_rules)
-            self._sched = GenerativeScheduler(self.engine, self.queue,
-                                              policy=cfg.policy)
+            self._sched = GenerativeScheduler(
+                self.engine, self.queue, policy=cfg.policy,
+                summary_every=cfg.summary_every, slo=self.slo)
             return
         self._replicas = [
             Replica(net, cfg.policy, index=i, mesh=sub,
@@ -334,7 +391,8 @@ class GenerativeServer(_ServerBase):
                     queue_capacity=cfg.queue_capacity,
                     draft_net=cfg.draft_net, spec_k=cfg.spec_k,
                     radix_cache=cfg.radix_cache,
-                    prefix_cache_tokens=cfg.prefix_cache_tokens)
+                    prefix_cache_tokens=cfg.prefix_cache_tokens,
+                    summary_every=cfg.summary_every, slo=self.slo)
             for i, sub in enumerate(subs) if sub is None or sub.local]
         self._dispatcher = ReplicaDispatcher(
             self.queue, [r for r in self._replicas if not r.follower])
@@ -360,16 +418,22 @@ class GenerativeServer(_ServerBase):
                 self._running = True
                 return self
             return super().start()
+        # fresh ledgers per server lifetime: replica indices restart at
+        # 0, so a previous server's estimators must not leak in
+        capacity.reset()
         for rep in self._replicas:
             rep.start()
         self._dispatcher.start()
         self._running = True
+        if self.serves_requests:
+            self._start_http()
         return self
 
     def stop(self, drain=True):
         if not self._running:
             return
         self._running = False
+        self._stop_http()
         if self._replicas is None:
             if not self.serves_requests:
                 self.engine.join_follower()
@@ -446,11 +510,12 @@ class GenerativeServer(_ServerBase):
                     "kv_fragmentation": kv["fragmentation"]}
         reps = []
         all_alive = self._dispatcher.alive()
+        any_saturated = False
         for r in self._replicas:
             kv = r.mgr.stats()
             pa, da = r.prefill.alive(), r.decode.alive()
             all_alive = all_alive and pa and da
-            reps.append({
+            row = {
                 "replica": r.index,
                 "prefill_alive": pa,
                 "decode_alive": da,
@@ -459,19 +524,126 @@ class GenerativeServer(_ServerBase):
                 "failed": r.failed,
                 "kv_utilization": kv["utilization"],
                 "kv_fragmentation": kv["fragmentation"],
-                "kv_blocks_in_use": kv["blocks_in_use"]})
+                "kv_blocks_in_use": kv["blocks_in_use"]}
+            cap = capacity.snapshot(r.index)
+            if cap is not None:
+                row["saturated"] = cap["saturated"]
+                row["rho"] = cap["rho"]
+                row["headroom_rps"] = cap["headroom_rps"]
+                any_saturated = any_saturated or cap["saturated"]
+            reps.append(row)
         if not self._running:
             status = "stopped"
+        elif not all_alive:
+            status = "degraded"
+        elif any_saturated:
+            # alive but past the ρ threshold: still HTTP 200 (a readiness
+            # probe must not kill a replica for being busy)
+            status = "saturated"
         else:
-            status = "ok" if all_alive else "degraded"
+            status = "ok"
         return {"status": status, "running": self._running,
                 "queue_depth": len(self.queue),
                 "rejected": self.queue.rejected,
                 "replicas": reps}
 
+    def in_flight(self):
+        """The /requests table: every request queued (front queue and
+        replica queues) or decoding, with the ids the trace stream joins
+        on."""
+        now = time.perf_counter()
+
+        def queued(queue, replica=None):
+            with queue._cond:
+                items = list(queue._items)
+            return [{"request_id": r.id, "state": "queued",
+                     "replica": replica, "length": r.length,
+                     "tenant": r.tenant,
+                     "trace_id": r.trace.trace_id
+                     if r.trace is not None else None,
+                     "age_ms": round((now - r.t_submit) * 1e3, 3)}
+                    for r in items]
+
+        rows = queued(self.queue)
+        if self._replicas is None:
+            for slot, (req, tokens) in list(self._sched._seqs.items()):
+                rows.append({"request_id": req.id, "state": "decoding",
+                             "replica": req.replica, "slot": slot,
+                             "tenant": req.tenant,
+                             "trace_id": req.trace.trace_id
+                             if req.trace is not None else None,
+                             "tokens_done": len(tokens),
+                             "max_new_tokens": req.max_new_tokens})
+            return rows
+        for r in self._replicas:
+            rows.extend(queued(r.queue, replica=r.index))
+            rows.extend(r.decode.snapshot())
+        return rows
+
+    def metrics_gauges(self):
+        """The base scrape gauges plus the live KV-pool state, per
+        replica, and (with capacity accounting on) utilization, ρ and
+        headroom per replica with their fleet roll-ups."""
+        out = super().metrics_gauges()
+        if self._replicas is None:
+            kv = self._sched.mgr.stats()
+            out["serving.kv_occupancy"] = kv["occupancy"]
+            out["serving.kv_utilization"] = kv["utilization"]
+            out["serving.kv_fragmentation"] = kv["fragmentation"]
+            return out
+        drafted = accepted = 0
+        for r in self._replicas:
+            kv = r.mgr.stats()
+            tag = f"|replica={r.index}"
+            out["serving.kv_occupancy" + tag] = kv["occupancy"]
+            out["serving.kv_utilization" + tag] = kv["utilization"]
+            out["serving.kv_fragmentation" + tag] = kv["fragmentation"]
+            out["serving.kv_blocks_in_use" + tag] = kv["blocks_in_use"]
+            out["serving.replica_queue_depth" + tag] = len(r.queue)
+            if r.spec_k:
+                drafted += r.draft_tokens
+                accepted += r.accepted_tokens
+                if r.draft_tokens:
+                    out["serving.accept_rate" + tag] = round(
+                        r.accepted_tokens / r.draft_tokens, 4)
+            if r.radix is not None:
+                rx = r.radix.stats()
+                out["serving.radix_hits" + tag] = rx["hits"]
+                out["serving.radix_hit_tokens" + tag] = rx["hit_tokens"]
+                out["serving.radix_evictions" + tag] = rx["evictions"]
+                out["serving.radix_cached_tokens" + tag] = \
+                    rx["cached_tokens"]
+            cap = capacity.snapshot(r.index)
+            if cap is not None:
+                out["serving.utilization" + tag] = cap["utilization"]
+                out["serving.kv_free_frac" + tag] = cap["kv_free_frac"]
+                if cap["rho"] is not None:
+                    out["serving.rho" + tag] = cap["rho"]
+                if cap["headroom_rps"] is not None:
+                    out["serving.headroom_rps" + tag] = \
+                        cap["headroom_rps"]
+        if drafted:
+            out["serving.accept_rate"] = round(accepted / drafted, 4)
+        if capacity.is_enabled():
+            # fleet roll-up: the worst ρ (the replica nearest the knee
+            # governs admission) and the total spare request rate
+            rhos = [v for k, v in out.items()
+                    if k.startswith("serving.rho|")]
+            heads = [v for k, v in out.items()
+                     if k.startswith("serving.headroom_rps|")]
+            utils = [v for k, v in out.items()
+                     if k.startswith("serving.utilization|")]
+            if rhos:
+                out["serving.rho"] = max(rhos)
+            if heads:
+                out["serving.headroom_rps"] = round(sum(heads), 4)
+            if utils:
+                out["serving.utilization"] = max(utils)
+        return out
+
     def stats(self):
         if self._replicas is None:
-            return {
+            out = {
                 "completed": self._sched.completed,
                 "failed": self._sched.failed,
                 "decode_steps": self.engine.steps,
@@ -480,6 +652,11 @@ class GenerativeServer(_ServerBase):
                 "kv_cache": self._sched.mgr.stats(),
                 "compiled_signatures": self.engine.compiled_signatures(),
             }
+            telemetry.gauge("serving.kv_occupancy",
+                            out["kv_cache"]["occupancy"])
+            if self.slo is not None:
+                out["slo"] = self.slo.snapshot()
+            return out
         reps = self._replicas
         out = {
             "completed": sum(r.completed for r in reps),
@@ -507,11 +684,12 @@ class GenerativeServer(_ServerBase):
                 k: sum(s[k] for s in rx)
                 for k in ("hits", "misses", "hit_tokens", "evictions",
                           "inserted_blocks", "cached_tokens")}
+        telemetry.gauge("serving.kv_occupancy",
+                        sum(r.mgr.stats()["occupancy"] for r in reps))
+        telemetry.gauge("serving.kv_blocks_in_use",
+                        sum(r.mgr.allocator.blocks_in_use for r in reps))
+        if capacity.is_enabled():
+            out["capacity"] = [capacity.snapshot(r.index) for r in reps]
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
         return out
-
-
-from .. import _left_out as _lo  # noqa: E402
-
-__getattr__ = _lo.refuse(
-    dict.fromkeys(("capacity", "telemetry", "tracing"), _lo._19),
-    "mxnet_tpu_torch.serving.server")

@@ -25,18 +25,19 @@ Design constraints, as the reference's:
 The step record has the reference's key set.  Two keys name machinery
 the port does not have and read 0 on every record: ``bulk_flush`` and
 ``bulk_async_wait_ms`` (the reference's bulked engine segments; a CUDA
-stream is already asynchronous, ``engine.py``).  A "compile" in the
+stream is already asynchronous, ``engine.py``;
+ROADMAP.md, "Left out of slice 19").  A "compile" in the
 port is a signature's first call, which on a card captures its CUDA
 graph; ``compile_count`` sums those counters.
 
 Submodules: ``sinks`` (``JsonlSink``, ``read_jsonl``), ``numerics``
 (per-layer tensor statistics, also inside CUDA graphs), ``memwatch``
 (the live-storage ledger and the OOM post-mortem), ``retrace`` (the
-recapture sanitizer) and ``costs`` (flops and bytes per compile site,
-``mfu``).  The reference's ``tracing``, ``fleet``, ``capacity`` and
-``promtext`` are not ported yet (ROADMAP.md, "Left out of slice 19"):
-reading one, or ``enable(trace=, fleet=, capacity=)``, raises
-``MXNetError`` naming that list.
+recapture sanitizer), ``costs`` (flops and bytes per compile site,
+``mfu``), ``tracing`` (request-scoped spans and the flight recorder),
+``capacity`` (the serving lanes' duty cycle, λ/μ/ρ and headroom),
+``fleet`` (rank-aware step records, the straggler and anomaly watchdog,
+the training flight recorder) and ``promtext`` (Prometheus text).
 
 Typical use::
 
@@ -61,26 +62,29 @@ import sys
 import threading
 import time
 
-from ..base import MXNetError
 from .sinks import JsonlSink, read_jsonl  # noqa: F401  (re-exported)
 from . import costs
 from . import memwatch
+from . import tracing
+from . import promtext
+from . import fleet as _fleet_mod
 from . import numerics as _numerics_mod
 from . import retrace as _retrace_mod
+from . import capacity as _capacity_mod
 
-# ``enable(numerics=..., retrace=...)`` take keywords of the same names
+# ``enable(fleet=..., numerics=..., retrace=..., capacity=...)`` take
+# keywords of the same names
+fleet = _fleet_mod
 numerics = _numerics_mod
 retrace = _retrace_mod
+capacity = _capacity_mod
 
 __all__ = ["enable", "disable", "is_enabled", "span", "count", "gauge",
            "hist", "hist_summary", "hists", "emit",
            "step", "step_begin", "step_end", "counters", "gauges",
            "phases", "reset", "current_span", "JsonlSink", "read_jsonl",
-           "costs", "memwatch", "numerics", "retrace"]
-
-#: the reference's submodules that wait for the next slice
-_LATER = ("tracing", "fleet", "capacity", "promtext")
-_LEFT_OUT = "ROADMAP.md, Queue 1, \"Left out of slice 19\""
+           "costs", "memwatch", "numerics", "retrace", "tracing",
+           "promtext", "fleet", "capacity"]
 
 # -- state -------------------------------------------------------------------
 # _enabled is read unlocked on every recorder's fast path; it is only
@@ -168,9 +172,19 @@ class _Span:
                     _step_phases.get(self.name, 0.0) + dur
         prof = _active_profiler()
         if prof is not None:
+            args = self.attrs
+            if _fleet_mod._enabled:
+                # rank-aware spans: merged timelines tell the ranks apart
+                try:
+                    r, n = _fleet_mod.world()
+                    args = dict(args) if args else {}
+                    args["rank"] = r
+                    args["world_size"] = n
+                except Exception:  # noqa: BLE001 - never raises
+                    pass
             prof.record_span_event(
                 prof.current_scope_prefix() + self.name, self.t0, dur,
-                cat="telemetry", args=self.attrs)
+                cat="telemetry", args=args)
         return False
 
 
@@ -425,6 +439,11 @@ def step_end(examples=None, **extra):
                 record["numerics"] = ns
         except Exception:  # noqa: BLE001 - never raises into training
             pass
+    if _fleet_mod._enabled:
+        # rank/world_size stamped in place before the sinks see the
+        # record; the watchdog and (at the stride) the fleet exchange.
+        # Raises only the opt-in WatchdogHalt, at a step boundary
+        _fleet_mod.on_step_record(record)
     if _retrace_mod._enabled:
         _retrace_mod.on_step()
     for s in sinks:
@@ -480,14 +499,11 @@ def enable(jsonl_path=None, append=False, memory=True, cost=True,
     default.  ``numerics=True`` enables the tensor-statistics tier at its
     default stride (``numerics.enable(stride=...)`` to tune it);
     ``retrace=True``, ``"warn"`` or ``"raise"`` the recapture sanitizer.
-    ``trace``, ``fleet`` and ``capacity`` raise ``MXNetError``: their
-    modules are left out of slice 19."""
+    ``trace=True`` enables request tracing (``MXNET_TRACING=1`` does so
+    on its own), ``fleet=True`` the fleet layer at its default knobs
+    (``fleet.enable(...)`` to tune it), ``capacity=True`` the serving
+    capacity accounting (``capacity.enable(...)`` for thresholds)."""
     global _enabled
-    for name, on in (("trace", trace), ("fleet", fleet),
-                     ("capacity", capacity)):
-        if on:
-            raise MXNetError(f"telemetry.enable({name}=...) is not ported "
-                             f"yet ({_LEFT_OUT})")
     with _lock:
         _reset_locked()
         for s in _sinks:
@@ -500,11 +516,17 @@ def enable(jsonl_path=None, append=False, memory=True, cost=True,
         memwatch.enable()
     if cost:
         costs.enable()
+    if trace:
+        tracing.enable()
+    if fleet:
+        _fleet_mod.enable()
     if numerics:
         _numerics_mod.enable()
     if retrace:
         _retrace_mod.enable(mode=retrace if isinstance(retrace, str)
                             else "warn")
+    if capacity:
+        _capacity_mod.enable()
 
 
 def disable():
@@ -513,7 +535,10 @@ def disable():
     _enabled = False
     memwatch.disable()
     costs.disable()
+    tracing.disable()
+    _fleet_mod.disable()
     _numerics_mod.disable()
+    _capacity_mod.disable()
     with _lock:
         for s in _sinks:
             s.close()
@@ -569,14 +594,6 @@ def nbytes_of(value):
         return size * raw.dtype.itemsize
     except Exception:  # noqa: BLE001 - not an array: no payload
         return 0
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise MXNetError(f"mxnet_tpu_torch.telemetry.{name} is not ported "
-                         f"yet ({_LEFT_OUT})")
-    raise AttributeError(
-        f"module 'mxnet_tpu_torch.telemetry' has no attribute {name!r}")
 
 
 if os.environ.get("MXNET_TELEMETRY", "0") == "1":

@@ -345,6 +345,21 @@ def write_postmortem(path=None, context="", error=""):
     report["allocator"] = _allocator_stats()
     report["top_artifacts_by_temp_bytes"] = \
         _costs.top_artifacts(n=10, by="temp_bytes")
+    # the flight recorders join the post-mortem: the last completed
+    # request traces, and the last step records and anomalies (rank-
+    # stamped) before the OOM
+    tr = sys.modules.get("mxnet_tpu_torch.telemetry.tracing")
+    if tr is not None and tr.is_enabled():
+        try:
+            report["recent_traces"] = tr.recent(8)
+        except Exception:  # noqa: BLE001 - never masks the failure
+            pass
+    fl = sys.modules.get("mxnet_tpu_torch.telemetry.fleet")
+    if fl is not None and fl.is_enabled():
+        try:
+            report["recent_steps"] = fl.recent(16)
+        except Exception:  # noqa: BLE001 - never masks the failure
+            pass
     with open(path, "w", encoding="utf-8") as f:
         json.dump(report, f, indent=2)
     return path

@@ -342,5 +342,8 @@ def _emit_record(action, kind, instance, site, where, comps, sig_index,
             rec["diff"] = list(diff)
             rec["against"] = dict(against)
         telemetry.emit(rec)
+        if action != "baseline" and telemetry.fleet._enabled:
+            # a retrace trips the training flight recorder
+            telemetry.fleet.incident("retrace", context=rec)
     except Exception:  # noqa: BLE001 - observability is best-effort
         pass

@@ -2966,3 +2966,114 @@ def test_oom_postmortem_names_the_largest_buffer_on_card(cuda_nvcc, tmp_path):
         assert not isinstance(ei.value, memwatch.OOMError)
     finally:
         telemetry.disable()
+
+
+# -- slice 20: serving observability on the card ------------------------------
+
+def _tiny_card_net():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import llama_tiny
+
+    mx.random.seed(3)
+    net = llama_tiny()
+    net.initialize(ctx=mx.gpu(0))
+    return net
+
+
+@pytest.mark.cuda
+def test_graphed_tick_holds_the_logit_taps_on_card(cuda_nvcc):
+    """With numerics on at construction the engine captures its decode
+    tick with ``stats_of(logits)`` as a second graph output, keyed apart
+    from the tapless graph; each replay queues one copy of the statistics
+    (never the static output), and the tokens equal the tapless graph's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.serving import LlamaServingEngine
+    from mxnet_tpu_torch.telemetry import numerics
+
+    net = _tiny_card_net()
+    prompts = np.random.RandomState(4).randint(1, 250, (2, 16)) \
+        .astype(np.int32)
+    t0s = np.array([16, 9], np.int32)
+    runs = {}
+    try:
+        for mode in (False, True):
+            if mode:
+                numerics.enable(stride=1)
+            eng = LlamaServingEngine(net, max_len=64, num_slots=2,
+                                     kv_mode="paged", block_size=8)
+            assert eng._step_graph is not None
+            assert eng._numerics is mode
+            assert (eng._step_key[-1] == "numerics") is mode
+            from mxnet_tpu_torch.serving import PagedKVCacheManager
+
+            mgr = PagedKVCacheManager(2, 64, eng.num_blocks, 8)
+            admitted = [mgr.admit(i, int(t0s[i]), 8) for i in range(2)]
+            slots = np.array([s for s, _ in admitted], np.int32)
+            toks, rows = eng.prefill_rows(prompts, t0s)
+            eng.commit_rows(rows, slots, [b for _, b in admitted], t0s,
+                            toks.cpu().numpy())
+            steps = [eng.step(list(slots)).copy() for _ in range(4)]
+            runs[mode] = steps
+            if mode:
+                outs = eng._step_graph.outputs
+                assert isinstance(outs, tuple) and outs[1].shape == (5,)
+                pend = [e for e in numerics._pending
+                        if e[0] == ("serving.logits",)]
+                assert len(pend) == 4
+                assert all(e[1].data_ptr() != outs[1].data_ptr()
+                           for e in pend)
+                stats = torch.cat([e[1].reshape(-1, 5) for e in pend])
+                assert bool(torch.isfinite(stats).all())
+                assert stats[:, 3:].sum().item() == 0
+                assert len({tuple(r.tolist()) for r in stats}) > 1
+        for a, b in zip(runs[True], runs[False]):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        numerics.disable()
+        numerics.clear()
+    del mx
+
+
+@pytest.mark.cuda
+def test_tick_stamps_bracket_the_replay_on_card(cuda_nvcc):
+    """The lanes' stamps around a graphed tick close after the tick's
+    tokens reach the host: each ``decode.step`` span and busy interval
+    holds at least the replay's device time (CUDA events), with no sync
+    added for the stamps."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving, telemetry
+    from mxnet_tpu_torch.telemetry import capacity, tracing
+    from mxnet_tpu_torch.telemetry.sinks import ListSink
+
+    net = _tiny_card_net()
+    try:
+        telemetry.enable(memory=False, cost=False, trace=True,
+                         capacity=True)
+        sink = ListSink()
+        telemetry.add_sink(sink)
+        cfg = serving.ServerConfig(max_batch=2, max_length=64, min_length=8,
+                                   num_slots=2)
+        srv = serving.GenerativeServer(net, cfg)
+        eng = srv.engine
+        graph = eng._step_graph
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / 20
+        prompts = np.random.RandomState(5).randint(1, 250, (2, 12))
+        with srv:
+            futs = [srv.submit(p, max_new_tokens=8) for p in prompts]
+            [f.result(120) for f in futs]
+        steps = [s for r in sink.records if r.get("record") == "trace"
+                 for s in r["spans"] if s["name"] == "decode.step"]
+        assert steps and min(s["dur_ms"] for s in steps) >= replay_ms
+        led = capacity._replicas[0].lanes["decode"]
+        assert min(b - a for a, b in led._intervals) * 1e3 >= replay_ms
+    finally:
+        telemetry.disable()
+        tracing.clear()
+    del mx

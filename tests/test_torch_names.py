@@ -36,21 +36,14 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 
 CPU = tmx.cpu()
-_9 = "item 9"
-_6, _7, _NC = "slice 6", "slice 7", "Not carried over"
-_19 = "slice 19"
+_7, _NC = "slice 7", "Not carried over"
 
 LEFT_OUT = {
-    "mx": {"sanitizer": _9},
-    "serving": dict.fromkeys(("MetricsServer", "SLOTracker", "metrics",
-                              "prometheus_text"), _6),
     "engine": dict.fromkeys(
         ("cached_vjp", "clear_segment_cache", "key_intern_stats",
          "maybe_defer", "register_dispatch_callback", "segment_cache_stats",
          "unregister_dispatch_callback"), _7),
     "autograd": {"Node": _NC},
-    "telemetry": dict.fromkeys(("tracing", "fleet", "capacity", "promtext"),
-                               _19),
 }
 
 #: namespaces pinned since slice 16: modules whose imports of foreign
@@ -63,7 +56,10 @@ MODULE_NS = ("models", "serving", "engine", "autograd", "profiler", "base",
              "gluon.contrib", "gluon.contrib.nn", "gluon.contrib.estimator",
              "util", "runtime", "test_utils", "monitor", "visualization",
              "telemetry", "telemetry.numerics", "telemetry.memwatch",
-             "telemetry.retrace", "telemetry.costs", "telemetry.sinks")
+             "telemetry.retrace", "telemetry.costs", "telemetry.sinks",
+             "telemetry.tracing", "telemetry.capacity", "telemetry.fleet",
+             "telemetry.promtext", "serving.metrics", "serving.lanes",
+             "serving.scheduler", "serving.server", "sanitizer")
 
 
 def _namespaces():
@@ -114,6 +110,15 @@ def _namespaces():
     import mxnet_tpu.visualization as jviz
     import mxnet_tpu.telemetry as jtel
     import mxnet_tpu_torch.telemetry as ttel
+    import mxnet_tpu.sanitizer as jsan
+    import mxnet_tpu.serving.metrics as jsm
+    import mxnet_tpu.serving.lanes as jsl
+    import mxnet_tpu.serving.scheduler as jss
+    import mxnet_tpu.serving.server as jssv
+    import mxnet_tpu_torch.serving.metrics as tsm
+    import mxnet_tpu_torch.serving.lanes as tsl
+    import mxnet_tpu_torch.serving.scheduler as tss
+    import mxnet_tpu_torch.serving.server as tssv
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -156,7 +161,11 @@ def _namespaces():
         "visualization": (jviz, tmx.visualization),
         "telemetry": (jtel, ttel),
         **{f"telemetry.{m}": (getattr(jtel, m), getattr(ttel, m))
-           for m in ("numerics", "memwatch", "retrace", "costs", "sinks")},
+           for m in ("numerics", "memwatch", "retrace", "costs", "sinks",
+                     "tracing", "capacity", "fleet", "promtext")},
+        "serving.metrics": (jsm, tsm), "serving.lanes": (jsl, tsl),
+        "serving.scheduler": (jss, tss), "serving.server": (jssv, tssv),
+        "sanitizer": (jsan, tmx.sanitizer),
     }
 
 
@@ -486,8 +495,9 @@ def _slice16_calls():
         return got == ref and a != b and a.startswith("p")
 
     def refusals_name_their_list():
-        for ns, name, owner in (("serving", "MetricsServer", _6),
-                                ("engine", "cached_vjp", _7),
+        # serving.MetricsServer is ported in slice 20
+        assert tmx.serving.MetricsServer is not None
+        for ns, name, owner in (("engine", "cached_vjp", _7),
                                 ("autograd", "Node", _NC)):
             with pytest.raises(tmx.MXNetError, match=owner):
                 getattr(_namespaces()[ns][1], name)

@@ -260,12 +260,21 @@ def test_jsonl_append_mode(tmp_path):
 
 
 def test_left_out_parts_raise_naming_slice_19():
-    for kw in ("trace", "fleet", "capacity"):
-        with pytest.raises(MXNetError, match="Left out of slice 19"):
-            telemetry.enable(**{kw: True})
-    for name in ("tracing", "fleet", "capacity", "promtext"):
-        with pytest.raises(MXNetError, match="Left out of slice 19"):
-            getattr(telemetry, name)
+    # ported in slice 20: each keyword switches its tier on, disable()
+    # switches it off again, and the submodules resolve
+    mods = {"trace": telemetry.tracing, "fleet": telemetry.fleet,
+            "capacity": telemetry.capacity}
+    try:
+        for kw, mod in mods.items():
+            telemetry.enable(memory=False, cost=False, **{kw: True})
+            assert mod.is_enabled(), kw
+            telemetry.disable()
+            assert not mod.is_enabled(), kw
+    finally:
+        telemetry.disable()
+        telemetry.tracing.clear()
+        telemetry.fleet.clear()
+    assert callable(telemetry.promtext.prometheus_text)
     with pytest.raises(AttributeError):
         telemetry.no_such_name
 
