@@ -50,7 +50,11 @@ Estimator.fit`` on a BERT-base classifier in np mode through the flash
 kernels and the fused update, every name of ``mx.np`` on the card
 against the CPU, ``nd.Custom`` and ``rtc.PallasKernel``, and the tools
 (``Monitor`` on ResNet-50 through the fused 1x1 kernel, ``runtime``,
-``test_utils.check_consistency``, ``visualization``).
+``test_utils.check_consistency``, ``visualization``); and memory as a
+managed budget: the planner against the card's own figures, the remat
+tiers on a 16-layer ``llama3_8b`` step, the full 32-layer ``llama3_8b``
+trained under remat, and host-offloaded optimizer state
+(``Trainer(offload="host")``).
 
     python3 chip_smoke.py
 
@@ -348,7 +352,10 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     intersection merges, ``retain``, and the CSR product (1,000 x
     1,000,000 with 39 nonzeros a row, times the 1,000,000 x 16 table)
     forward and transposed, each product's ms beside ``torch.sparse.mm``
-    (cuSPARSE, a yardstick) and its bytes bound;
+    (cuSPARSE, a yardstick) and its bytes bound; and the non-transposed
+    product's kernel (``csrc/csr_dense_dot.cu``) at that shape, bit-equal
+    to its plain version on CPU copies, with its time, the plain
+    version's on the card and the library's;
 24b. the slice's main path: ``FMModel(1_000_000, 16)`` with a local store
     running Adam (the lazy row updates), fed by ``LibSVMIter(batch_size=
     1000)`` over a Criteo-shaped file of 64,000 rows written from the
@@ -412,7 +419,24 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     observability off and on;
 28c. the fleet watchdog on 27a's Llama training step on a one-rank NCCL
     group (the exchange, a retrace incident, NaN at layer 1 and its dump);
-28d. 28a's first wave under the lock sanitizer.
+28d. 28a's first wave under the lock sanitizer;
+29a. the memory planner on the card: a params-dominated MLP (8 x
+    Dense(8192), f32) trained with Adam and with SGD + momentum, the
+    plan's peak within 10% of memwatch's live bytes and of the
+    allocator's; the budget is the card's memory; ``plan_kv_pool`` equals
+    8b's engine's pool;
+29b. the remat ladder on the training slice's configuration
+    (``llama3_8b(scan_layers=True)``, 16 layers, f32, B=1, T=2048, SGD):
+    three steps at each of "none", "dots" and "layer" from the same
+    weights, the losses bit-equal across the tiers; each tier's step ms,
+    peak, the planner's prediction and the launches a step;
+29c. ``llama3_8b`` at all 32 layers, f32, ``set_remat("layer")``: two
+    training steps through #1-#3, the peak against the planner's
+    prediction, and "auto"'s pick with and without a measured hint;
+29d. host offload: ``llama3_8b`` bf16 with SGD + momentum and f32
+    masters, remat "layer": the deepest depth the host can pin (32
+    layers wanted), then ``Trainer(offload="host")`` against the
+    on-device trainer at 8 layers (weights bit-equal every step).
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -428,8 +452,9 @@ of 23b-23d (#4 and ``nms_keep``), the served exported program of 25b,
 the exported program's forwards of 25c, 26a's ``fit`` and 26d's
 monitored forward; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
 19a, 19b, 20c, 22b, 22c, 23e, 25a and 26a, and in 24b, where it
-must stay 0: the lazy row updates are not the update kernel's) and
-read just after,
+must stay 0: the lazy row updates are not the update kernel's; the CSR
+product's over 24b-24e; #1-#3's and the update's in each step of
+29b-29d) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -1408,9 +1433,19 @@ def serving_bf16_phase(torch, mx, llama, serving, fa, net, failures):
         path_launches == 0 and \
         launches == launches_mma == 2 * len(plain) * net.config.num_layers
     row["ok"] = ok
+    cfg = net.config
     STASH["serve"] = dict(replies=replies, offline=offline,
                           ttft_ms=row["ttft_ms"],
-                          decode_step_ms_median=row["decode_step_ms_median"])
+                          decode_step_ms_median=row["decode_step_ms_median"],
+                          kv_pool=dict(  # 29a's planner check
+                              bytes=srv.engine.kv_pool_bytes(),
+                              num_layers=cfg.num_layers,
+                              num_kv_heads=cfg.num_kv_heads,
+                              head_dim=cfg.head_dim,
+                              num_blocks=srv.engine.num_blocks,
+                              block_size=srv.engine.block_size,
+                              dtype=str(srv.engine._pool[0][0].dtype)
+                              .replace("torch.", "")))
     emit(row)
     if not ok:
         failures.append(f"serving bf16: a token {worst['server']} ulps off "
@@ -7068,9 +7103,45 @@ def sparse_ops_phase(torch, mx, failures):
     if not ok:
         failures.append(f"sparse ops: {rows}")
     STASH["sparse_dot"] = times
+    csr_row = csr_kernel_row(torch, c1, v, crow, times["dot"], failures)
     del card, c1, v, dd, crow, csc_t
     free_card(torch)
-    return times
+    return csr_row
+
+
+def csr_kernel_row(torch, c1, v, crow, dot_row, failures):
+    """The CSR product's kernel (``csrc/csr_dense_dot.cu``) at the
+    factorization machine's shape (phase 24a's batch times the table):
+    its wrapper's result against its plain version on CPU copies of the
+    same inputs, bit for bit (the kernel adds in the CPU's order with the
+    CPU's rounding); its time beside the plain version's on the card
+    (``index_add_``), ``torch.sparse.mm``'s (cuSPARSE) and the bound of
+    24a's ``dot`` row."""
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+
+    rows = tsp._csr_rows(c1)
+    args = (c1.data._data, c1.indices._data, c1.indptr._data, rows, v._data)
+    out = tsp.csr_dense_dot(*args)
+    host = tsp._csr_dense_dot(c1.data._data.cpu(), c1.indices._data.cpu(),
+                              rows.cpu(), FM_B, v._data.cpu())
+    got = out.cpu()
+    err = float((got - host).abs().max())
+    same = bool(torch.equal(got, host))
+    ms = time_ms(torch, lambda: tsp.csr_dense_dot(*args), SPARSE_OPS_REPS)
+    plain_ms = time_ms(torch, lambda: tsp._csr_dense_dot(
+        c1.data._data, c1.indices._data, rows, FM_B, v._data),
+        SPARSE_OPS_REPS)
+    lib_ms = time_ms(torch, lambda: torch.sparse.mm(crow, v._data),
+                     SPARSE_OPS_REPS)
+    row = dict(max_abs_err=err, bit_equal=same, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=dot_row["bound_ms"],
+               bound_by=dot_row["bound_by"], bytes=dot_row["bytes"])
+    emit(dict(phase="csr_kernel", card=STASH["smi"], B=FM_B,
+              features=FM_FEATURES, factor=FM_FACTOR, **row, ok=same))
+    if not same:
+        failures.append(f"csr_dense_dot: not bit-equal to its plain "
+                        f"version ({err} off)")
+    return row
 
 
 def _fm_tables(model):
@@ -10151,6 +10222,462 @@ def fleet_llama_phase(torch, mx, llama, fa, mt, parallel, failures):
     return launches, mma, updates
 
 
+# -- slice 21: memory as a managed budget ------------------------------------
+
+PLAN_HIDDEN, PLAN_LAYERS, PLAN_B = 8192, 8, 4  # 29a: params-dominated MLP
+PLAN_TOL = 0.10              # the planner against memwatch and the allocator
+REMAT_LAYERS = 16            # 29b: the training slice's depth
+REMAT_STEPS = 3
+FULL_LAYERS = 32             # 29c: llama3_8b's depth
+FULL_STEPS = 2
+OFFLOAD_LAYERS = 8           # 29d: offloaded against on-device, bit for bit
+OFFLOAD_STEPS = 3
+OFFLOAD_DEPTHS = (32, 24, 16)  # 29d: the deepest the host can pin
+OFFLOAD_FULL_STEPS = 2
+HOST_RESERVE = 8 << 30       # host memory left free beside the pinned state
+
+
+def _pow2(n):
+    """The caching host allocator's block for ``n`` bytes (it rounds each
+    pinned allocation up to a power of two)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _mem_available():
+    """``MemAvailable`` of the host in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def memory_plan_phase(torch, mx, memory, failures):
+    """Phase 29a: the planner on the card.  A params-dominated MLP
+    (PLAN_LAYERS x Dense(PLAN_HIDDEN), f32, B=PLAN_B, the reference
+    test's lane at card size) trained two steps with Adam and with SGD +
+    momentum under memwatch: ``plan_model``'s ``predicted_peak_bytes``
+    within PLAN_TOL of ``memwatch.live_bytes()`` and of
+    ``torch.cuda.memory_allocated``; ``budget_bytes()`` is the card's
+    total memory; ``plan_kv_pool`` equals phase 8b's engine's
+    ``kv_pool_bytes()``."""
+    from mxnet_tpu_torch.telemetry import memwatch
+
+    rows, ok = {}, True
+    for name, kw in (("adam", {"learning_rate": 1e-3}),
+                     ("sgd", {"learning_rate": 0.01, "momentum": 0.9})):
+        free_card(torch)
+        memwatch.enable()
+        try:
+            mx.random.seed(SEED)
+            net = mx.gluon.nn.HybridSequential()
+            for _ in range(PLAN_LAYERS):
+                net.add(mx.gluon.nn.Dense(PLAN_HIDDEN, activation="relu",
+                                          in_units=PLAN_HIDDEN))
+            net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+            net.hybridize(static_alloc=True)
+            trainer = mx.gluon.Trainer(net.collect_params(), name, kw)
+            x = mx.nd.ones((PLAN_B, PLAN_HIDDEN), ctx=mx.gpu(0))
+            y = mx.nd.ones((PLAN_B, PLAN_HIDDEN), ctx=mx.gpu(0)) * 0.5
+            loss_fn = mx.gluon.loss.L2Loss()
+            for _ in range(2):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(PLAN_B)
+            torch.cuda.synchronize()
+            del loss
+            gc.collect()
+            live = memwatch.live_bytes()
+            alloc = torch.cuda.memory_allocated()
+            plan = memory.plan_model(
+                net.collect_params(), optimizer=trainer._optimizer,
+                batch_bytes=2 * PLAN_B * PLAN_HIDDEN * 4, remat="none",
+                use_registry=False)
+        finally:
+            memwatch.disable()
+        pred = plan.predicted_peak_bytes
+        err_live, err_alloc = abs(pred - live) / live, \
+            abs(pred - alloc) / alloc
+        good = err_live <= PLAN_TOL and err_alloc <= PLAN_TOL and plan.fits
+        rows[name] = dict(predicted_peak_bytes=pred, live_bytes=live,
+                          memory_allocated=alloc, err_live=err_live,
+                          err_allocated=err_alloc, breakdown=plan.breakdown,
+                          ok=good)
+        ok = ok and good
+        del net, trainer, x, y
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = memory.budget_bytes()
+    kv = STASH.get("serve", {}).get("kv_pool")
+    kv_plan = None if kv is None else memory.plan_kv_pool(
+        kv["num_layers"], kv["num_kv_heads"], kv["head_dim"],
+        kv["num_blocks"], kv["block_size"], dtype=kv["dtype"])
+    kv_ok = kv is not None and kv_plan == kv["bytes"]
+    ok = ok and budget == total and kv_ok
+    emit(dict(phase="memory_plan", card=STASH["smi"], layers=PLAN_LAYERS,
+              hidden=PLAN_HIDDEN, B=PLAN_B, tol=PLAN_TOL, optimizers=rows,
+              budget_bytes=budget, total_memory=total,
+              kv_pool_bytes=None if kv is None else kv["bytes"],
+              plan_kv_pool=kv_plan, ok=ok))
+    if not ok:
+        failures.append(f"29a planner: {rows}, budget {budget} vs "
+                        f"{total}, kv pool {kv_plan} vs {kv}")
+    free_card(torch)
+
+
+def _llama_f32(torch, mx, llama, layers):
+    """``llama3_8b`` widths at ``layers``, f32, ``scan_layers=True``,
+    weights drawn on the card from the seed, and plain SGD."""
+    free_card(torch)
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=layers, scan_layers=True)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": TRAIN_LR})
+    return net, trainer
+
+
+def _remat_steps(torch, mx, fa, mt, net, trainer, ids, labels, steps):
+    """``steps`` eager training steps → per step (loss, ms, peak bytes,
+    #1/#2/#3 launches, their tensor-core launches, update launches)."""
+    out = []
+    for _ in range(steps):
+        before = [c.launches for c in _counters(fa)]
+        before_mma = _mma_counts(fa)
+        upd = mt.multi_tensor_update.launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = _lm_forward(mx, net, ids, labels)
+        loss.backward()
+        trainer.step(1)
+        value = float(loss.asscalar())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        out.append(dict(loss=value, ms=ms,
+                        peak=torch.cuda.max_memory_allocated(),
+                        launches=[c.launches - n for c, n in
+                                  zip(_counters(fa), before)],
+                        launches_mma=[c - n for c, n in
+                                      zip(_mma_counts(fa), before_mma)],
+                        update_launches=mt.multi_tensor_update.launches -
+                        upd))
+        del loss
+    return out
+
+
+def _state_bytes(net):
+    """Bytes of the net's weights (and so of its gradients)."""
+    return sum(p.data()._data.numel() * p.data()._data.element_size()
+               for p in net.collect_params().values())
+
+
+def remat_ladder_phase(torch, mx, llama, fa, mt, memory, failures):
+    """Phase 29b: the remat ladder on the training slice's configuration,
+    ``llama3_8b(scan_layers=True)`` at REMAT_LAYERS layers, f32, B=1,
+    T=2048, SGD: REMAT_STEPS steps from the same weights at each of
+    "none", "dots" and "layer".  Each tier's step ms, peak allocated
+    memory, the planner's prediction (its coarse prior, and with the
+    "none" tier's measured activation bytes as the hint) and the
+    launches of #1/#2/#3 and the update a step (#1: REMAT_LAYERS a step
+    under "none", 2 x REMAT_LAYERS under the others); the losses
+    bit-equal across the tiers.  Returns (launches, tensor-core
+    launches, update launches, the "none" tier's activation bytes)."""
+    from mxnet_tpu_torch.memory import policy
+
+    rows, losses, totals, upd_total = {}, {}, [0, 0, 0], 0
+    mma_total = [0, 0, 0]
+    act_none = None
+    for tier in policy.TIERS:
+        net, trainer = _llama_f32(torch, mx, llama, REMAT_LAYERS)
+        net.set_remat(tier)
+        ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                                  SEED + 5)
+        weights = _state_bytes(net)
+        steps = _remat_steps(torch, mx, fa, mt, net, trainer, ids, labels,
+                             REMAT_STEPS)
+        hidden_b = 2048 * net.config.hidden_size * 4
+        plan = memory.plan_model(net, optimizer=trainer._optimizer,
+                                 batch_bytes=hidden_b, remat=tier,
+                                 use_registry=False)
+        peak = max(s["peak"] for s in steps)
+        if tier == "none":
+            act_none = peak - 2 * weights
+        hinted = memory.plan_model(net, optimizer=trainer._optimizer,
+                                   batch_bytes=hidden_b, remat=tier,
+                                   activation_hint=act_none,
+                                   use_registry=False)
+        want = [(1 if tier == "none" else 2) * REMAT_LAYERS,
+                REMAT_LAYERS, REMAT_LAYERS]
+        # f32 runs the FMA designs: no tensor-core launch, recompute too
+        good = all(s["launches"] == want and
+                   s["launches_mma"] == [0, 0, 0] and
+                   s["update_launches"] == 1 for s in steps)
+        rows[tier] = dict(step_ms=[s["ms"] for s in steps],
+                          max_memory_allocated=peak,
+                          weights_bytes=weights,
+                          predicted_peak_bytes=plan.predicted_peak_bytes,
+                          predicted_with_hint=hinted.predicted_peak_bytes,
+                          launches_per_step=steps[-1]["launches"],
+                          launches_mma_per_step=steps[-1]["launches_mma"],
+                          update_launches_per_step=steps[-1]
+                          ["update_launches"], ok=good)
+        losses[tier] = [s["loss"] for s in steps]
+        for s in steps:
+            totals = [a + b for a, b in zip(totals, s["launches"])]
+            mma_total = [a + b for a, b in zip(mma_total, s["launches_mma"])]
+            upd_total += s["update_launches"]
+        if not good:
+            failures.append(f"29b {tier}: launches {steps}")
+        del net, trainer, ids, labels
+    ref = losses["none"]
+    diffs = {t: max(abs(a - b) for a, b in zip(v, ref))
+             for t, v in losses.items()}
+    same = all(v == ref for v in losses.values())
+    falling = ref[-1] < ref[0]
+    emit(dict(phase="remat_ladder", card=STASH["smi"], layers=REMAT_LAYERS,
+              dtype="float32", B=1, T=2048, tiers=rows, losses=losses,
+              largest_loss_difference=diffs,
+              activation_bytes_none=act_none,
+              ok=same and falling and all(r["ok"] for r in rows.values())))
+    if not same:
+        failures.append(f"29b: the tiers' losses differ: {diffs}")
+    if not falling:
+        failures.append(f"29b: the loss did not fall: {ref}")
+    free_card(torch)
+    return totals, mma_total, upd_total, act_none
+
+
+def full_depth_phase(torch, mx, llama, fa, mt, memory, act_none, failures):
+    """Phase 29c: ``llama3_8b`` at all FULL_LAYERS layers, f32, B=1,
+    T=2048, SGD, ``set_remat("layer")``: FULL_STEPS steps through the
+    flash kernels (#1 2 x FULL_LAYERS a step, #2 and #3 FULL_LAYERS).
+    Printed: the peak against the planner's prediction (its prior, and
+    with 29b's "none"-tier activation bytes scaled to FULL_LAYERS as the
+    hint), the step ms and the launches; and "auto"'s pick with no hint
+    (the reference's coarse prior, which may pick a tier that does not
+    fit: reported as it is) and with that hint."""
+    from mxnet_tpu_torch.memory import policy
+
+    net, trainer = _llama_f32(torch, mx, llama, FULL_LAYERS)
+    net.set_remat("layer")
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                              SEED + 5)
+    weights = _state_bytes(net)
+    steps = _remat_steps(torch, mx, fa, mt, net, trainer, ids, labels,
+                         FULL_STEPS)
+    hidden_b = 2048 * net.config.hidden_size * 4
+    hint = None if act_none is None else \
+        int(act_none * FULL_LAYERS / REMAT_LAYERS)
+    plan = memory.plan_model(net, optimizer=trainer._optimizer,
+                             batch_bytes=hidden_b, remat="layer",
+                             use_registry=False)
+    hinted = memory.plan_model(net, optimizer=trainer._optimizer,
+                               batch_bytes=hidden_b, remat="layer",
+                               activation_hint=hint, use_registry=False)
+    auto = policy.auto_tier(net, optimizer=trainer._optimizer,
+                            batch_bytes=hidden_b, record=False)
+    auto_hint = policy.auto_tier(net, optimizer=trainer._optimizer,
+                                 batch_bytes=hidden_b, activation_hint=hint,
+                                 record=False)
+    want = [2 * FULL_LAYERS, FULL_LAYERS, FULL_LAYERS]
+    losses = [s["loss"] for s in steps]
+    ok = all(s["launches"] == want and s["launches_mma"] == [0, 0, 0] and
+             s["update_launches"] == 1 and math.isfinite(s["loss"])
+             for s in steps) and losses[-1] < losses[0]
+    peak = max(s["peak"] for s in steps)
+    emit(dict(phase="full_depth", card=STASH["smi"], layers=FULL_LAYERS,
+              dtype="float32", B=1, T=2048, remat="layer", losses=losses,
+              step_ms=[s["ms"] for s in steps], max_memory_allocated=peak,
+              weights_bytes=weights,
+              predicted_peak_bytes=plan.predicted_peak_bytes,
+              predicted_with_hint=hinted.predicted_peak_bytes,
+              activation_hint=hint,
+              launches_per_step=[s["launches"] for s in steps],
+              launches_mma_per_step=[s["launches_mma"] for s in steps],
+              update_launches=[s["update_launches"] for s in steps],
+              auto_no_hint=dict(tier=auto[0],
+                                predicted_peak_bytes=auto[1]
+                                .predicted_peak_bytes, fits=auto[1].fits),
+              auto_with_hint=dict(tier=auto_hint[0],
+                                  predicted_peak_bytes=auto_hint[1]
+                                  .predicted_peak_bytes,
+                                  fits=auto_hint[1].fits),
+              budget_bytes=memory.budget_bytes(), ok=ok))
+    if not ok:
+        failures.append(f"29c full depth: losses {losses}, steps {steps}")
+    totals = [sum(s["launches"][i] for s in steps) for i in range(3)]
+    mma = [sum(s["launches_mma"][i] for s in steps) for i in range(3)]
+    upd = sum(s["update_launches"] for s in steps)
+    del net, trainer, ids, labels
+    free_card(torch)
+    return totals, mma, upd
+
+
+def _llama_bf16(torch, mx, llama, layers, offload=None):
+    """``llama3_8b`` widths at ``layers``, bf16 weights, ``scan_layers``
+    (remat "layer"), SGD with momentum and f32 masters."""
+    mx.random.seed(SEED)
+    net = llama.llama3_8b(num_layers=layers, scan_layers=True)
+    net.cast("bfloat16")
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    trainer = mx.gluon.Trainer(
+        net.collect_params(), "sgd",
+        {"learning_rate": TRAIN_LR, "momentum": 0.9,
+         "multi_precision": True}, offload=offload)
+    return net, trainer
+
+
+def _offload_step(torch, mx, fa, mt, offload, net, trainer, ids, labels):
+    """One step → (loss, ms, the card's peak during the update and its
+    rise over the update's start, the trainer's optimizer state on the
+    card (the staging buffer when offloaded), H2D and D2H bytes, update
+    launches, #1/#2/#3 launches, tensor-core launches)."""
+    before = [c.launches for c in _counters(fa)]
+    before_mma = _mma_counts(fa)
+    st = offload.stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = _lm_forward(mx, net, ids, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    upd = mt.multi_tensor_update.launches
+    trainer.step(1)
+    value = float(loss.asscalar())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    after = offload.stats()
+    state = [h._data for i in trainer._live()
+             for h in trainer._offloaded_ndarrays(i)]
+    stage = trainer._offload_stage
+    return dict(loss=value, ms=ms,
+                update_peak=torch.cuda.max_memory_allocated(),
+                update_extra=torch.cuda.max_memory_allocated() - start,
+                state_on_card=sum(x.numel() * x.element_size()
+                                  for x in state if x.is_cuda) +
+                (0 if stage is None else stage.numel()),
+                h2d_bytes=after["h2d_bytes_total"] - st["h2d_bytes_total"],
+                d2h_bytes=after["d2h_bytes_total"] - st["d2h_bytes_total"],
+                update_launches=mt.multi_tensor_update.launches - upd,
+                launches=[c.launches - n for c, n in
+                          zip(_counters(fa), before)],
+                launches_mma=[c - n for c, n in
+                              zip(_mma_counts(fa), before_mma)])
+
+
+def _host_need(net):
+    """Pinned host bytes of a bf16 net's offloaded state (f32 master and
+    momentum a parameter), each rounded as the caching host allocator
+    rounds it."""
+    return sum(2 * _pow2(p.data()._data.numel() * 4)
+               for p in net.collect_params().values())
+
+
+def offload_phase(torch, mx, llama, fa, mt, memory, failures):
+    """Phase 29d: host offload.  ``llama3_8b`` bf16 weights, SGD with
+    momentum and ``multi_precision=True``, remat "layer", B=1, T=2048.
+    First the deepest of OFFLOAD_DEPTHS whose state the host can pin
+    (``MemAvailable``, printed first, less HOST_RESERVE) for
+    OFFLOAD_FULL_STEPS offloaded steps: run first, while the host has
+    the most memory (torch keeps pinned blocks cached once made, and the
+    pair below reuses them).  Then at OFFLOAD_LAYERS layers
+    ``Trainer(offload="host")`` against the on-device trainer for
+    OFFLOAD_STEPS steps: the weights bit-equal after every step; each
+    trainer's optimizer state on the card and the card's peak during its
+    update (both nets are on the card), the H2D/D2H bytes, the step ms
+    and the update's launches a step (one a group)."""
+    from mxnet_tpu_torch.memory import offload
+
+    free_card(torch)
+    offload.reset()
+    host_avail = _mem_available()
+    emit(dict(phase="offload_host", card=STASH["smi"],
+              mem_available=host_avail))
+    totals, mma, upd = [0, 0, 0], [0, 0, 0], 0
+
+    def count(got):
+        nonlocal totals, mma, upd
+        totals = [a + b for a, b in zip(totals, got["launches"])]
+        mma = [a + b for a, b in zip(mma, got["launches_mma"])]
+        upd += got["update_launches"]
+
+    for layers in OFFLOAD_DEPTHS:
+        probe = llama.llama3_8b(num_layers=layers)
+        need = sum(2 * _pow2(int(np.prod(p.shape)) * 4)
+                   for p in probe.collect_params().values())
+        del probe
+        if host_avail is None or need + HOST_RESERVE <= host_avail:
+            break
+    else:
+        layers = None
+    if layers is None:
+        failures.append(f"29d: the host cannot pin the state of "
+                        f"{OFFLOAD_DEPTHS[-1]} layers ({host_avail} bytes "
+                        f"available)")
+    else:
+        t = time.perf_counter()
+        net, trainer = _llama_bf16(torch, mx, llama, layers,
+                                   offload="host")
+        ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 2048,
+                                  SEED + 5)
+        steps = [_offload_step(torch, mx, fa, mt, offload, net, trainer,
+                               ids, labels)
+                 for _ in range(OFFLOAD_FULL_STEPS)]
+        for g in steps:
+            count(g)
+        groups = len(trainer._offload_groups(trainer._live()))
+        losses = [s["loss"] for s in steps]
+        good = all(math.isfinite(x) for x in losses) and \
+            steps[-1]["update_launches"] == groups and \
+            steps[-1]["launches"] == [2 * layers, layers, layers]
+        emit(dict(phase="offload_full", card=STASH["smi"], layers=layers,
+                  wanted_layers=OFFLOAD_DEPTHS[0], mem_available=host_avail,
+                  pinned_need=_host_need(net),
+                  seconds=time.perf_counter() - t, steps=steps,
+                  groups=groups, stage_bytes=trainer._offload_stage.numel(),
+                  resident_bytes=offload.resident_bytes(),
+                  weights_bytes=_state_bytes(net), ok=good))
+        if not good:
+            failures.append(f"29d offload at {layers} layers: {steps}")
+        del net, trainer
+        free_card(torch)
+        offload.reset()
+    pair = [_llama_bf16(torch, mx, llama, OFFLOAD_LAYERS),
+            _llama_bf16(torch, mx, llama, OFFLOAD_LAYERS, offload="host")]
+    ids, labels = _ids_labels(torch, mx, pair[0][0].config.vocab_size,
+                              2048, SEED + 5)
+    rows, equal = [], True
+    for step in range(OFFLOAD_STEPS):
+        got = [_offload_step(torch, mx, fa, mt, offload, net, tr, ids,
+                             labels) for net, tr in pair]
+        same = all(torch.equal(a.data()._data, b.data()._data) for a, b in
+                   zip(pair[0][0].collect_params().values(),
+                       pair[1][0].collect_params().values()))
+        equal = equal and same and got[0]["loss"] == got[1]["loss"]
+        rows.append(dict(step=step, device=got[0], offloaded=got[1],
+                         weights_equal=same))
+        for g in got:
+            count(g)
+    groups = len(pair[1][1]._offload_groups(pair[1][1]._live()))
+    resident = offload.resident_bytes()
+    ok = equal and all(r["offloaded"]["update_launches"] == groups and
+                       r["device"]["update_launches"] == 1 for r in rows) \
+        and resident > 0
+    emit(dict(phase="offload_pair", card=STASH["smi"],
+              layers=OFFLOAD_LAYERS, steps=rows, groups=groups,
+              stage_bytes=pair[1][1]._offload_stage.numel(),
+              resident_bytes=resident, mem_available=_mem_available(),
+              ok=ok))
+    if not ok:
+        failures.append(f"29d offload at {OFFLOAD_LAYERS} layers: {rows}")
+    del pair
+    free_card(torch)
+    offload.reset()
+    return totals, mma, upd
+
+
 def main():
     t_script = time.perf_counter()
     import torch
@@ -10308,11 +10835,17 @@ def main():
     # slice 16: sparse storage (no hand-written kernel on its paths)
     from mxnet_tpu_torch.models import fm
 
-    sparse_ops_phase(torch, mx, failures)
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+
+    csr_row = sparse_ops_phase(torch, mx, failures)
+    tsp.csr_dense_dot.launches = 0  # the sparse main paths start here
     fm_phase(torch, mx, fm, mt, failures)
     sparse_linear_phase(torch, mx, failures)
     fm_stores_phase(torch, mx, fm, parallel, failures)
     profile_phase(torch, mx, fm, vision, failures)
+    csr_launches = tsp.csr_dense_dot.launches  # ... and end here
+    if csr_launches == 0:
+        failures.append("the sparse paths launched no csr_dense_dot")
     # slice 17: symbols and export
     update_launches += symbol_module_phase(torch, mx, vision, mt, failures)
     exp_fused = export_resnet_phase(torch, mx, vision, cbr, serving,
@@ -10360,6 +10893,23 @@ def main():
         failures.append(f"slice 20 left a kernel unlaunched: 28b #1 "
                         f"{obs_bert}, #4 {obs_resnet}, 28c {obs_fleet}, "
                         f"updates {obs_updates}")
+    # slice 21: memory as a managed budget (29a-29d)
+    from mxnet_tpu_torch import memory
+
+    memory_plan_phase(torch, mx, memory, failures)
+    lad, lad_mma, lad_upd, act_none = remat_ladder_phase(
+        torch, mx, llama, fa, mt, memory, failures)
+    full, full_mma, full_upd = full_depth_phase(
+        torch, mx, llama, fa, mt, memory, act_none, failures)
+    off, off_mma, off_upd = offload_phase(torch, mx, llama, fa, mt, memory,
+                                          failures)
+    update_launches += lad_upd + full_upd + off_upd
+    mem = [a + b + c for a, b, c in zip(lad, full, off)]
+    mem_mma = [a + b + c for a, b, c in zip(lad_mma, full_mma, off_mma)]
+    if 0 in mem or 0 in (lad_upd, full_upd, off_upd):
+        failures.append(f"slice 21 left a kernel unlaunched: 29b {lad}, "
+                        f"29c {full}, 29d {off}, updates "
+                        f"{(lad_upd, full_upd, off_upd)}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -10380,25 +10930,26 @@ def main():
     fwd_launches = infer_launches + train_launches[0] + bert_launches[0] + \
         packed_launches[0] + mesh_launches[0] + ulysses_launches[0] + \
         pp_launches[0] + gm_launches[0] + moe_infer[0] + moe_tr[0] + \
-        exp_flash[0] + est[0] + tel[0] + obs_bert[0] + obs_fleet[0]
+        exp_flash[0] + est[0] + tel[0] + obs_bert[0] + obs_fleet[0] + \
+        mem[0]
     fwd_mma = infer_mma + train_mma[0] + bert_mma[0] + packed_mma[0] + \
         mesh_mma[0] + ulysses_mma[0] + pp_mma[0] + gm_mma[0] + \
         moe_infer[1] + moe_tr_mma[0] + exp_flash[1] + est_mma[0] + \
-        tel_mma[0] + obs_bert[1] + obs_fleet_mma[0]
+        tel_mma[0] + obs_bert[1] + obs_fleet_mma[0] + mem_mma[0]
     dq_launches = train_launches[1] + bert_launches[1] + \
         packed_launches[1] + mesh_launches[1] + ulysses_launches[1] + \
         pp_launches[1] + gm_launches[1] + moe_tr[1] + est[1] + tel[1] + \
-        obs_fleet[1]
+        obs_fleet[1] + mem[1]
     dq_mma = train_mma[1] + bert_mma[1] + packed_mma[1] + mesh_mma[1] + \
         ulysses_mma[1] + pp_mma[1] + gm_mma[1] + moe_tr_mma[1] + \
-        est_mma[1] + tel_mma[1] + obs_fleet_mma[1]
+        est_mma[1] + tel_mma[1] + obs_fleet_mma[1] + mem_mma[1]
     dkv_launches = train_launches[2] + bert_launches[2] + \
         packed_launches[2] + mesh_launches[2] + ulysses_launches[2] + \
         pp_launches[2] + gm_launches[2] + moe_tr[2] + est[2] + tel[2] + \
-        obs_fleet[2]
+        obs_fleet[2] + mem[2]
     dkv_mma = train_mma[2] + bert_mma[2] + packed_mma[2] + mesh_mma[2] + \
         ulysses_mma[2] + pp_mma[2] + gm_mma[2] + moe_tr_mma[2] + \
-        est_mma[2] + tel_mma[2] + obs_fleet_mma[2]
+        est_mma[2] + tel_mma[2] + obs_fleet_mma[2] + mem_mma[2]
     if moe_infer[0] == 0 or 0 in moe_tr:
         failures.append(f"the MoE paths left a kernel unlaunched: "
                         f"{moe_infer}, {moe_tr}")
@@ -10432,6 +10983,7 @@ def main():
          "launches_estimator": est[0],
          "launches_telemetry": tel[0],
          "launches_observability": obs_bert[0] + obs_fleet[0],
+         "launches_memory": mem[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -10451,6 +11003,7 @@ def main():
          "launches_estimator": est[1],
          "launches_telemetry": tel[1],
          "launches_observability": obs_fleet[1],
+         "launches_memory": mem[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -10470,6 +11023,7 @@ def main():
          "launches_estimator": est[2],
          "launches_telemetry": tel[2],
          "launches_observability": obs_fleet[2],
+         "launches_memory": mem[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -10512,6 +11066,7 @@ def main():
          "launches_bert": bert_updates, "launches_estimator": est[3],
          "launches_telemetry": tel_updates,
          "launches_observability": obs_updates,
+         "launches_memory": lad_upd + full_upd + off_upd,
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],
@@ -10528,7 +11083,20 @@ def main():
          "max_abs_err": nms_row["max_abs_err"], "ms": nms_row["ms"],
          "us_per_scanned_box": nms_row["us_per_scanned_box"],
          "plain_ms": nms_row["plain_ms"], "bound_ms": nms_row["bound_ms"],
-         "bound_by": nms_row["bound_by"], "library_ms": None}]})
+         "bound_by": nms_row["bound_by"], "library_ms": None},
+        {"name": "csr_dense_dot", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/csr_dense_dot.cu",
+         "replaces": "mxnet_tpu/ndarray/sparse.py:587 (XLA's BCOO "
+                     "matmul; no Pallas kernel)",
+         "design": "one thread an output element, its row's entries in "
+                   "stored order, no atomics",
+         "at": dict(B=FM_B, features=FM_FEATURES, factor=FM_FACTOR,
+                    nnz_per_row=FM_INT_FIELDS + FM_CAT_FIELDS),
+         "launches": csr_launches, "max_abs_err": csr_row["max_abs_err"],
+         "bit_equal": csr_row["bit_equal"], "ms": csr_row["ms"],
+         "plain_ms": csr_row["plain_ms"], "bound_ms": csr_row["bound_ms"],
+         "bound_by": csr_row["bound_by"],
+         "library_ms": csr_row["library_ms"]}]})
     emit(dict(phase="script", card=smi,
               seconds=time.perf_counter() - t_script))
     if failures:

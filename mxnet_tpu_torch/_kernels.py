@@ -28,7 +28,8 @@ SOURCES = {"flash_attention_fwd": "csrc/flash_attention_fwd.cu",
            "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
            "fused_matmul_affine_relu": "csrc/fused_matmul_affine_relu.cu",
            "multi_tensor_update": "csrc/multi_tensor_update.cu",
-           "nms_keep": "csrc/nms_keep.cu"}
+           "nms_keep": "csrc/nms_keep.cu",
+           "csr_dense_dot": "csrc/csr_dense_dot.cu"}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _TAIL = [_INT] * 6 + [ctypes.c_float, _PTR]  # bh .. causal, scale, stream
 #: library name -> {C entry point: argtypes}; each returns a cudaError_t
@@ -59,14 +60,19 @@ SYMBOLS = {
     # boxes, valid, cls (or None), keep, groups, n, threshold, stream
     "nms_keep": {"mxt_nms_keep": [_PTR] * 4 + [_INT] * 2 +
                                  [ctypes.c_float, _PTR]},
+    # data, cols, indptr, rhs, out, rows, n, dtype, stream
+    "csr_dense_dot": {"mxt_csr_dense_dot": [_PTR] * 5 +
+                                           [ctypes.c_int64] * 2 +
+                                           [_INT, _PTR]},
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-#: library name -> flags of its own: the update kernel and the NMS scan
-#  round where their plain versions' separate torch ops round, so no
-#  multiply-add is contracted
+#: library name -> flags of its own: the update kernel, the NMS scan and
+#  the CSR product round where their plain versions' separate torch ops
+#  round, so no multiply-add is contracted
 EXTRA_FLAGS = {"multi_tensor_update": ["--fmad=false"],
-               "nms_keep": ["--fmad=false"]}
+               "nms_keep": ["--fmad=false"],
+               "csr_dense_dot": ["--fmad=false"]}
 
 _LOCK = threading.Lock()
 _LIBS = {}

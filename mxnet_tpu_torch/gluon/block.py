@@ -21,9 +21,16 @@ Under ``autograd.record()`` the block runs eagerly (training capture is
 (``DTensor`` parameters or inputs) the graph holds the forward's
 collectives and is keyed on each rank's local pieces; every NCCL group
 is warmed by an eager collective before the capture.  Graphing a
-recorded forward and ``hybridize(remat=...)`` are left out of slice 7
-(ROADMAP).  A forward runs with torch's gradient mode set to
-``autograd.is_recording()``, so inference builds no autograd graph.
+recorded forward is left out of slice 7 (ROADMAP).  A forward runs with
+torch's gradient mode set to ``autograd.is_recording()``, so inference
+builds no autograd graph.
+
+``hybridize(remat=<tier>)`` (``"none"``, ``"dots"``, ``"layer"`` or
+``"auto"``, with ``remat_margin=``; ``memory.policy``) rematerializes a
+recorded forward: the block runs under ``policy.checkpoint_wrap``, so its
+backward recomputes what the tier does not save.  The tier is resolved
+once a signature, ``"auto"`` by the planner (the cheapest tier that fits
+the device budget; ``cachedop.remat_auto.<tier>`` counts the picks).
 """
 from __future__ import annotations
 
@@ -51,11 +58,6 @@ from .parameter import (Parameter, ParameterDict,
 from ..context import Context  # noqa: F401,E402
 from ..ndarray import NDArray  # noqa: F401,E402
 from .utils import HookHandle  # noqa: F401,E402
-
-
-def _left_out(what):
-    return MXNetError(f"{what} is not ported yet (ROADMAP.md, Queue 1, "
-                      "\"Left out of slice 7\")")
 
 
 class _NameManager:
@@ -202,12 +204,7 @@ class Block:
 
     def hybridize(self, active=True, **kwargs):
         """Hybridize every HybridBlock below this one (reference
-        semantics: a plain Block itself runs eagerly).  ``remat`` raises:
-        activation rematerialization waits for the memory-policy tiers
-        (ROADMAP "Left out of slice 7")."""
-        if kwargs.get("remat"):
-            raise _left_out("hybridize(remat=...) (activation "
-                            "rematerialization)")
+        semantics: a plain Block itself runs eagerly)."""
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
@@ -374,6 +371,7 @@ class CachedOp:
         self._recorded = 0
         self._recorded_sigs = set()
         self._eager = 0
+        self._remat_tiers = {}  # signature -> resolved remat tier
 
     def cache_stats(self):
         """``{"hits", "misses", "signatures"}`` as in the reference, and
@@ -401,6 +399,48 @@ class CachedOp:
     def _inline(self, args):
         with cuda_graph.scope():
             return self.block._imperative_forward(*args)
+
+    def _remat_tier(self, args, params):
+        """The recorded forward's remat tier for this signature (resolved
+        at its first call; "none" while deferred shapes are unresolved)."""
+        if not self.flags.get("remat") or \
+                any(p._data is None for p in params):
+            return "none"
+        sig = _signature(args, params)
+        tier = self._remat_tiers.get(sig)
+        if tier is None:
+            tier = self._remat_tiers[sig] = self._resolve_remat(args, params)
+        return tier
+
+    def _resolve_remat(self, args, params):
+        """The remat tier this signature runs with.  ``remat="auto"``
+        asks the planner for the cheapest tier that fits the device
+        budget (margin via ``remat_margin=``); a concrete tier (or the
+        historical bool) passes through."""
+        from .. import parallel
+        from ..memory import policy as _mem_policy
+
+        tier = _mem_policy.normalize(self.flags.get("remat", False))
+        if tier != "auto":
+            if tier != "none":
+                _mem_policy.record_policy(tier, "forced")
+            return tier
+        batch_b = sum(a._data.numel() * a._data.element_size()
+                      for a in args if a is not None)
+        tier, _plan = _mem_policy.auto_tier(
+            {f"p{i}": (p.shape, p.dtype) for i, p in enumerate(params)},
+            mesh=parallel.current_mesh(), batch_bytes=batch_b,
+            margin=self.flags.get("remat_margin"))
+        telemetry.count(f"cachedop.remat_auto.{tier}")
+        return tier
+
+    def _forward(self, args, tier):
+        """The eager forward, under the remat tier's checkpoint."""
+        if tier == "none":
+            return self._inline(args)
+        from ..memory.policy import checkpoint_wrap
+
+        return checkpoint_wrap(lambda *a: self._inline(a), tier)(*args)
 
     def __call__(self, *args):
         """The block's outputs as the classic ``NDArray``, on every route
@@ -434,11 +474,12 @@ class CachedOp:
         params = list(self.block.collect_params().values())
         if ag.is_recording():
             self._recorded += 1
+            tier = self._remat_tier(args, params)
             if _QUIET_STATE.depth or not (
                     telemetry._enabled or _numerics._enabled or
                     _costs._enabled or _retrace._enabled):
-                return self._inline(args)
-            return self._recorded_call(args, params)
+                return self._forward(args, tier)
+            return self._recorded_call(args, params, tier)
         for a in args:
             if a is not None and not isinstance(a, NDArray):
                 raise MXNetError("hybridized blocks take NDArray (or None) "
@@ -514,7 +555,7 @@ class CachedOp:
             _costs.note("cachedop", (id(self), sig, mode), counted,
                         site=self._site())
 
-    def _recorded_call(self, args, params):
+    def _recorded_call(self, args, params, tier="none"):
         """A call under ``autograd.record()`` with telemetry on: the block
         runs eagerly (training capture is ``FusedTrainStep``'s), with the
         counters, the sanitizer and the cost registry of a signature's
@@ -541,14 +582,14 @@ class CachedOp:
                 _costs.first("cachedop", key) if out is None \
                 else _costs._NULL as c:
             if out is None:
-                out = self._guarded(lambda: self._inline(args))
+                out = self._guarded(lambda: self._forward(args, tier))
         if first:
             telemetry.count("cachedop.compile")
             if _retrace._enabled:
                 _retrace.observe(
                     "cachedop_bwd", id(self.block),
                     {"params": _components(sig, args, params)["params"],
-                     "training": sig[1], "remat": "none",
+                     "training": sig[1], "remat": tier,
                      "numerics": sig[4]},
                     site=f"{self._site()[:-1]}, bwd)")
         self._note_cost(sig, c, mode="fwd_rec")
@@ -717,10 +758,12 @@ class HybridBlock(Block):
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   **kwargs):
         """Run this block (and every HybridBlock below it) through CUDA
-        graphs, one per input signature; ``active=False`` turns it off."""
-        if kwargs.get("remat"):
-            raise _left_out("hybridize(remat=...) (activation "
-                            "rematerialization)")
+        graphs, one per input signature; ``active=False`` turns it off.
+        ``remat=`` picks the remat tier of its recorded forward."""
+        if "remat" in kwargs:
+            from ..memory import policy as _mem_policy
+
+            _mem_policy.normalize(kwargs["remat"])  # garbage raises here
         self._active = bool(active)
         self._flags = dict(static_alloc=static_alloc,
                            static_shape=static_shape, **kwargs)

@@ -2,8 +2,8 @@
 BatchNorm, LayerNorm, InstanceNorm, GroupNorm, Flatten, Embedding,
 Lambda, HybridLambda, HybridConcatenate and Identity.
 
-Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``.  ``SyncBatchNorm``
-is left out of slice 9 (ROADMAP.md): it raises.
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, ``SyncBatchNorm``
+included (its statistics summed over the process group, ``parallel``).
 
 ``HybridSequential`` runs each ``Conv2D → BatchNorm → Activation("relu")``
 run of its children whose conv is 1×1 (pad 0, dilation 1, one group,

@@ -48,14 +48,24 @@ states and moving statistics (each rank's local pieces under a mesh):
 after ``cast`` or ``load_states`` into new tensors the next call
 captures again.
 
+Over a ``Trainer(offload="host")`` the step does what the reference's
+does: its program takes the optimizer states where they are and returns
+them on the device, so the first call fetches them to the card, where
+they stay (released from ``memory.offload``'s books) until an eager
+``Trainer.step`` stashes them again.  A block hybridized with
+``remat=`` runs its checkpointed forward inside the capture (the
+recompute is part of the captured backward); the random draws of the
+region are saved, not replayed (``memory.policy``).
+
 Telemetry, under the reference's names: ``step_fusion.cache_miss`` (a
 new signature, or moved addresses) with a ``retrace.observe``, the
 ``step_fusion.build``/``compile``/``replay`` spans, ``step_fusion.compile``
 once a signature's first call has run, ``step_fusion.steps`` (K a call)
 and the ``step_fusion.steps_per_execution`` gauge, and a ``costs.note``
 whose work is counted in step 0 of the signature's first call (eager,
-before the capture) and scaled by K.  With numerics on, each step also
-takes the forward's taps and every live parameter's ``grad.<name>`` and
+before the capture) and scaled by K, stamped with the last remat tier
+the memory policy chose (``_mem_policy_tier``).  With numerics on, each
+step also takes the forward's taps and every live parameter's ``grad.<name>`` and
 ``update.<name>`` (new weight − old weight, from a copy of the weights
 taken before the in-place update) statistics, and folds them over the K
 steps as the reference's ``_reduce_k`` does (nan and inf summed, l2 and
@@ -110,6 +120,18 @@ def _leaves(loss):
         return [leaf for item in loss for leaf in _leaves(item)]
     raise MXNetError("forward_loss must return NDArrays (or nested lists, "
                      f"tuples or dicts of them), got {type(loss)}")
+
+
+def _mem_policy_tier():
+    """The last-selected remat tier, or None — probed via sys.modules so
+    the memory package stays unimported unless the user opted in."""
+    import sys
+
+    mem = sys.modules.get("mxnet_tpu_torch.memory")
+    if mem is None:
+        return None
+    pol = mem.policy.last_policy()
+    return pol["tier"] if pol is not None else None
 
 
 class FusedTrainStep:
@@ -229,6 +251,8 @@ class FusedTrainStep:
         optzr.rescale_grad = trainer._scale / self.batch_size
         for i in self._live:
             trainer._init_states(i)
+        if getattr(trainer, "_offload", None) == "host":
+            trainer._bring_offloaded_to_device(self._live)
         if self.stacked_inputs:
             for b in batch:
                 if b.ndim < 1 or b.shape[0] != self.k:
@@ -311,7 +335,8 @@ class FusedTrainStep:
         if _costs._enabled and key is not None:
             _costs.note("step_fusion", key, counted, scale=self.k,
                         site="mxnet_tpu_torch.gluon.step_fusion:"
-                             "FusedTrainStep.__call__")
+                             "FusedTrainStep.__call__",
+                        remat=_mem_policy_tier())
 
     def _run_unrolled(self, batch, mp_flags, lrs, wds, t0, key):
         """The K steps eagerly, one after another (CPU parameters); the

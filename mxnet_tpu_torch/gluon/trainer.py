@@ -30,8 +30,24 @@ mesh are gathered whole, and loaded into each rank's pieces).  The
 preemption handlers are here (``install_preemption_handler``,
 ``drain_requested``, ``request_drain``, ``reset_drain``), with
 ``drain_consensus``, the ranks' agreement to drain: a host-vector sum
-over the group.  ``offload="host"`` raises (Queue 1, "Left out of slice
-2").
+over the group.
+
+``offload="host"`` keeps the optimizer states and multi-precision
+masters in pinned host memory between steps (``memory.offload``).  The
+update fetches them, updates and stashes them back in groups of the
+device table, one launch of the fused update kernel a group.  A group
+holds at most as much state as the largest parameter has, so the one
+staging buffer on the card that every group is fetched into is the
+size that parameter needs anyway, and the update holds the weights, the
+gradients and one group's state.  The rule is elementwise, so each
+weight's result equals one launch over the whole table.  Each group is
+fetched right before its launch, after the gradient reduction: the
+current stream waits for the copy, so an earlier fetch would delay the
+reduction rather than overlap it.  A ``FusedTrainStep`` over an offloading
+trainer runs as the reference's does: its program takes the states
+where they are, so they come to the card at its first call and stay
+there (released from the host books) until an eager ``step`` stashes
+them again.
 """
 from __future__ import annotations
 
@@ -64,6 +80,9 @@ __all__ = ["Trainer", "PREEMPTED_EXIT_CODE", "install_preemption_handler",
 PREEMPTED_EXIT_CODE = 75
 
 _DRAIN = threading.Event()
+
+#: alignment of each tensor in the offload staging buffer
+_STAGE_ALIGN = 256
 
 
 def install_preemption_handler(signums=(signal.SIGTERM,)):
@@ -116,19 +135,22 @@ def reset_drain():
     _DRAIN.clear()
 
 
-def _not_ported(what, item):
-    return MXNetError(f"{what} is not ported yet (ROADMAP.md, Queue 1 "
-                      f"{item})")
-
-
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None, partition_rules=None, mesh=None,
                  offload=None):
-        if offload is not None:
-            raise _not_ported(f"Trainer(offload={offload!r})",
-                              "\"Left out of slice 2\"")
+        if offload not in (None, "host"):
+            raise MXNetError(
+                f'offload must be None or "host", got {offload!r}')
+        if offload is not None and (partition_rules is not None or
+                                    mesh is not None):
+            raise MXNetError(
+                'Trainer(offload="host") over a mesh is not ported yet '
+                '(ROADMAP.md, "Left out of slice 21")')
+        self._offload = offload
+        self._offload_stage = None
+        self._offload_fetched = []
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)):
@@ -212,6 +234,136 @@ class Trainer:
             self._states[i] = self._optimizer.create_state_multi_precision(
                 i, self._params[i].data())
             self._states_initialized[i] = True
+            if self._offload == "host":
+                from ..memory import offload as _mem_offload
+
+                for arr in self._offloaded_ndarrays(i):
+                    _mem_offload.stash(arr)
+
+    # -- host offload (memory.offload) ---------------------------------------
+    def _offloaded_ndarrays(self, i):
+        """The host-resident NDArrays of param i's optimizer state: the
+        f32 master (multi-precision) plus every flattened state tensor."""
+        st = self._states[i]
+        if st is None:
+            return []
+        use_mp = self._optimizer.multi_precision and \
+            self._params[i].dtype in opt._LOW
+        if use_mp and isinstance(st, tuple) and len(st) == 2:
+            master, sub = st
+            return [master, *opt._state_holders(sub)]
+        return list(opt._state_holders(st))
+
+    def _offload_groups(self, live):
+        """``live`` cut into consecutive groups, each holding at most the
+        offloaded state of the largest live parameter."""
+        sizes = [sum(_stage_bytes(a) for a in self._offloaded_ndarrays(i))
+                 for i in live]
+        cap = max(sizes, default=0)
+        groups, cur, cur_b = [], [], 0
+        for i, n in zip(live, sizes):
+            if cur and cur_b + n > cap:
+                groups.append(cur)
+                cur, cur_b = [], 0
+            cur.append(i)
+            cur_b += n
+        if cur:
+            groups.append(cur)
+        return groups
+
+    def _stage(self, groups, device):
+        """The staging buffer on ``device``: as large as the largest
+        group's state, made once (and again when a group outgrows it)."""
+        need = max(sum(_stage_bytes(a) for i in g
+                       for a in self._offloaded_ndarrays(i))
+                   for g in groups)
+        stage = self._offload_stage
+        if stage is None or stage.device != device or stage.numel() < need:
+            self._offload_stage = stage = None  # the old one goes first
+            stage = torch.empty(need, dtype=torch.uint8, device=device)
+            self._offload_stage = stage
+        return stage
+
+    def _fetch_group(self, group, stage):
+        """Fetch a group's stashed state into the staging buffer and bind
+        each NDArray to its device copy (booked off the host)."""
+        from ..memory import offload as _mem_offload
+
+        off = 0
+        for i in group:
+            for arr in self._offloaded_ndarrays(i):
+                n = _stage_bytes(arr)
+                if _mem_offload.is_stashed(arr):
+                    raw = arr._data
+                    view = stage[off:off + raw.numel() * raw.element_size()]
+                    dev = _mem_offload.fetch(
+                        arr, stage.device,
+                        out=view.view(raw.dtype).view(raw.shape))
+                    _mem_offload.release(arr)
+                    arr._data = dev
+                    self._offload_fetched.append(arr)
+                off += n
+
+    def _fetch_param(self, i):
+        """Fetch param i's stashed state into new device tensors (the
+        eager route)."""
+        from ..memory import offload as _mem_offload
+
+        device = local(self._params[i].data()._data).device
+        for arr in self._offloaded_ndarrays(i):
+            if _mem_offload.is_stashed(arr):
+                dev = _mem_offload.fetch(arr, device)
+                _mem_offload.release(arr)
+                arr._data = dev
+                self._offload_fetched.append(arr)
+
+    def _stash_offloaded(self, live):
+        """Move the freshly updated state back to host (D2H, async on the
+        card)."""
+        from ..memory import offload as _mem_offload
+
+        for i in live:
+            for arr in self._offloaded_ndarrays(i):
+                if not _mem_offload.is_stashed(arr):
+                    _mem_offload.stash(arr)
+        held = {id(a) for i in live for a in self._offloaded_ndarrays(i)}
+        self._offload_fetched = [a for a in self._offload_fetched
+                                 if id(a) not in held]
+
+    def _stash_pending(self):
+        """Stash whatever a failed update left fetched."""
+        from ..memory import offload as _mem_offload
+
+        pending, self._offload_fetched = self._offload_fetched, []
+        for arr in pending:
+            if not _mem_offload.is_stashed(arr):
+                _mem_offload.stash(arr)
+
+    def _offloaded_fused_update(self, live, lrs, wds, ts):
+        """The fused update over offloaded state: per group, fetch into
+        the staging buffer, one launch over the group's slice of the
+        table, stash back."""
+        pos = {i: k for k, i in enumerate(live)}
+        groups = self._offload_groups(live)
+        device = local(self._params[live[0]].data()._data).device
+        stage = self._stage(groups, device)
+        for group in groups:
+            self._fetch_group(group, stage)
+            ks = [pos[i] for i in group]
+            opt._fused_param_updates(
+                self._optimizer, *self._fused_operands(group),
+                [lrs[k] for k in ks], [wds[k] for k in ks],
+                [ts[k] for k in ks])
+            self._stash_offloaded(group)
+
+    def _bring_offloaded_to_device(self, live):
+        """``FusedTrainStep`` over an offloading trainer: the states come
+        to the weights' device and stay there (the reference's fused
+        program takes them where they are and returns them on the
+        device)."""
+        for i in live:
+            self._fetch_param(i)
+        self._offload_fetched = []
 
     def _init_kvstore(self):
         update_on_kvstore = self._update_on_kvstore_arg
@@ -306,8 +458,12 @@ class Trainer:
                 self._init_kvstore()
             if self._update_on_kvstore:
                 self._sync_kvstore_hparams()
-            self._allreduce_grads()
-            self._update(ignore_stale_grad)
+            try:
+                self._allreduce_grads()
+                self._update(ignore_stale_grad)
+            finally:
+                if self._offload_fetched:
+                    self._stash_pending()
             if self._data_prefetcher is not None:
                 depth = self._data_prefetcher.depth()
                 self._data_depths.append(depth)
@@ -396,9 +552,13 @@ class Trainer:
         def update_each():
             for i in live:
                 self._init_states(i)
+                if self._offload == "host":
+                    self._fetch_param(i)
                 self._optimizer.update_multi_precision(
                     i, self._params[i].data(), self._params[i].grad(),
                     self._states[i])
+                if self._offload == "host":
+                    self._stash_offloaded([i])
 
         from ..ndarray import sparse as sp
 
@@ -494,7 +654,10 @@ class Trainer:
             with telemetry.span("trainer.fused_compile" if compiling
                                 else "trainer.fused_update"), \
                     _costs.first("trainer_fused", (id(self), sig)) as c:
-                opt._fused_param_updates(optzr, *operands, lrs, wds, ts)
+                if self._offload == "host":
+                    self._offloaded_fused_update(live, lrs, wds, ts)
+                else:
+                    opt._fused_param_updates(optzr, *operands, lrs, wds, ts)
             if _costs._enabled:
                 _costs.note("trainer_fused", (id(self), sig), c, site=site)
 
@@ -545,6 +708,10 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req != "null" and param._data is not None:
                 self._init_states(i)
+        if self._offload == "host":
+            from ..memory import offload as _mem_offload
+
+            _mem_offload.synchronize()  # the stashed copies have landed
         return {
             "states": {i: opt._states_to_numpy(s)
                        for i, s in enumerate(self._states)},
@@ -565,6 +732,10 @@ class Trainer:
             return
         with open(fname, "rb") as f:
             payload = pickle.load(f)
+        if self._offload == "host":
+            from ..memory import offload as _mem_offload
+
+            _mem_offload.synchronize()  # no copy still reads a buffer
         saved = payload["states"]
         for i, param in enumerate(self._params):
             state = saved.get(i)
@@ -578,6 +749,12 @@ class Trainer:
         self._optimizer.num_update = payload["num_update"]
         self._optimizer._index_update_count.update(
             payload["index_update_count"])
+
+
+def _stage_bytes(arr):
+    """Bytes an NDArray takes in the offload staging buffer (aligned)."""
+    n = arr._data.numel() * arr._data.element_size()
+    return -(-n // _STAGE_ALIGN) * _STAGE_ALIGN
 
 
 def _copy_state(holder, value, name):

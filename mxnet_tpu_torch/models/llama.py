@@ -50,11 +50,16 @@ The numerics taps of the reference (``telemetry.numerics``): ``embed``,
 ``decoder.<i>`` after every decoder layer, ``norm`` and ``logits``; with
 the tier off each is one boolean test.
 
-Not ported yet, raising ``MXNetError`` that names the ROADMAP list:
-``scan_layers``/``set_remat`` (slice 7's left-out list).  Packed
-``segment_ids`` and ``packed_lm_loss`` (slice 10) take the dense masked
-route, as the reference's; ``scan_layers`` with them stays in slice 7's
-left-out list.
+``LlamaConfig(scan_layers=True)`` runs the decoder stack layer by layer,
+each layer on its own parameters under ``memory.policy.checkpoint_wrap``
+at the tier ``set_remat`` chose (default ``"layer"``; ``"auto"`` asks the
+planner at the live activation's size), with the ``decoder.<i>`` taps as
+on the plain route.  The reference scans one traced layer over stacked
+parameters, XLA's compile-once device; here the layers stay as they are
+(stacking would copy every layer's weights a step).  As in the
+reference, ``set_remat`` acts on the ``scan_layers`` route only: the
+plain layer loop keeps every activation.  Packed ``segment_ids`` and
+``packed_lm_loss`` (slice 10) take the dense masked route on both.
 
 Sampling cannot reproduce the reference's draws (JAX's PRNG is not
 torch's): the filters are the reference's arithmetic on the same
@@ -95,18 +100,6 @@ __all__ = ["LlamaConfig", "RMSNorm", "LlamaAttention", "LlamaMLP",
 # batch sizes whose decode graph states (caches included) a decoder keeps,
 # and sampling keys whose graphs each of them keeps
 _DECODE_BATCHES_KEPT = 4
-_LATER7 = ("is not ported yet (ROADMAP.md, Queue 1, \"Left out of slice "
-           "7\": it waits for the memory-policy tiers, item 9)")
-
-
-def _not_ported(what, later):
-    """A function or method of the reference that a later slice ports:
-    calling it raises ``MXNetError`` naming the ROADMAP item."""
-    def refuse(*args, **kwargs):
-        raise MXNetError(f"{what} {later}")
-
-    refuse.__name__ = what.rsplit(".", 1)[-1]
-    return refuse
 
 
 class LlamaConfig:
@@ -119,8 +112,6 @@ class LlamaConfig:
                  scan_layers=False):
         if attn_mode not in ("flash", "sdpa", "ring", "ulysses"):
             raise MXNetError(f"unknown attn_mode {attn_mode!r}")
-        if scan_layers:
-            raise MXNetError(f"scan_layers {_LATER7}")
         if hidden_size % num_heads:
             raise MXNetError("num_heads must evenly divide hidden_size")
         if num_heads % num_kv_heads:
@@ -142,6 +133,9 @@ class LlamaConfig:
         self.num_experts_per_tok = num_experts_per_tok
         self.capacity_factor = capacity_factor
         self.moe_router = moe_router
+        # scan_layers: the decoder stack under the remat tier of
+        # set_remat (default "layer"), one checkpoint a layer
+        self.scan_layers = scan_layers
         self.head_dim = hidden_size // num_heads
 
 
@@ -376,6 +370,25 @@ class LlamaDecoderLayer(HybridBlock):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+def _resolve_model_remat(model, h):
+    """The decoder stack's remat tier: ``set_remat()``'s choice, the
+    planner's pick for "auto" (cheapest tier that fits, sized at the
+    live activation ``h``), or the "layer" default."""
+    from .. import parallel
+    from ..memory import policy as _mem_policy
+
+    tier = _mem_policy.normalize(getattr(model, "_remat", "layer"))
+    if tier != "auto":
+        if tier != "none":
+            _mem_policy.record_policy(tier, "forced")
+        return tier
+    raw = h._data
+    batch_b = raw.numel() * raw.element_size()
+    tier, _plan = _mem_policy.auto_tier(
+        model, mesh=parallel.current_mesh(), batch_bytes=batch_b)
+    return tier
+
+
 class LlamaModel(HybridBlock):
     def __init__(self, cfg: LlamaConfig, **kwargs):
         super().__init__(**kwargs)
@@ -393,9 +406,19 @@ class LlamaModel(HybridBlock):
     def hybrid_forward(self, F, input_ids, segment_ids=None):
         h = self.embed_tokens(input_ids)
         _numerics.tap("embed", h)
-        for i, layer in enumerate(self.layers):
-            h = layer(h) if segment_ids is None else layer(h, segment_ids)
-            _numerics.tap(f"decoder.{i}", h)
+        if self._cfg.scan_layers and len(self.layers) > 1:
+            from ..memory.policy import checkpoint_wrap
+
+            tier = _resolve_model_remat(self, h)
+            for i, layer in enumerate(self.layers):
+                run = checkpoint_wrap(layer, tier)
+                h = run(h) if segment_ids is None else run(h, segment_ids)
+                _numerics.tap(f"decoder.{i}", h)
+        else:
+            for i, layer in enumerate(self.layers):
+                h = layer(h) if segment_ids is None \
+                    else layer(h, segment_ids)
+                _numerics.tap(f"decoder.{i}", h)
         h = self.norm(h)
         _numerics.tap("norm", h)
         return h
@@ -429,7 +452,16 @@ class LlamaForCausalLM(HybridBlock):
         _numerics.tap("logits", out)
         return out
 
-    set_remat = _not_ported("LlamaForCausalLM.set_remat", _LATER7)
+    def set_remat(self, tier):
+        """Set the decoder-stack remat tier ("none" / "dots" / "layer"
+        / "auto"; see ``mxnet_tpu_torch.memory.policy``) of the
+        ``scan_layers`` route.  "auto" asks the planner for the cheapest
+        tier that fits the device budget at each forward.  Default is
+        "layer": one checkpoint a decoder layer."""
+        from ..memory import policy as _mem_policy
+
+        self.model._remat = _mem_policy.normalize(tier)
+        return self
 
     def generate(self, input_ids, max_new_tokens=16, use_cache=True,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,

@@ -28,11 +28,14 @@ stored-entry kernels defer to that fallback for the same reason.
 ``dot`` of a CSR array and a dense one (with ``transpose_a`` /
 ``transpose_b``) gathers the dense rows by the stored columns (rows,
 transposed), scales them by the values and adds them into the output
-rows (columns) with ``index_add_``: plain torch ops that run the same on
-the CPU and the card, whose gradient reaches the dense operand (the
-sparse one is a constant, as in the reference).  ``index_add_`` on CUDA
-accumulates with atomics, so sums on the card may differ from the CPU's
-in the last bits.  ``to_bcoo`` (a ``jax.experimental.sparse`` type) has
+rows (columns) with ``index_add_`` on the CPU; its gradient reaches the
+dense operand (the sparse one is a constant, as in the reference).  On
+the card the non-transposed product is ``csr_dense_dot``, the
+hand-written kernel ``csrc/csr_dense_dot.cu``, which adds each output
+element's terms in stored order with the CPU's rounding, so card and CPU
+agree bit for bit; the transposed product (and so that kernel's
+gradient) stays on ``index_add_``, whose atomics on CUDA add in another
+order each run.  ``to_bcoo`` (a ``jax.experimental.sparse`` type) has
 no counterpart: it raises naming ROADMAP.md's "Not carried over".
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _kernels, cuda_graph
 from ..base import MXNetError, resolve_dtype
 from ..context import current_context
 from .ndarray import NDArray
@@ -575,6 +579,73 @@ def _csr_dense_dot(data, cols, rows, n_out, rhs, transpose_a=False):
     return out.index_add(0, dst, contrib)
 
 
+_DOT_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+              torch.bfloat16: 3}
+
+
+def csr_dense_dot(data, cols, indptr, rows, rhs):
+    """``A @ rhs`` for the CSR ``A`` given by its stored values ``data``,
+    their columns ``cols``, ``indptr`` and each entry's row ``rows``;
+    ``rhs`` is 2-D.  Differentiable in ``rhs``.  CPU tensors take the
+    plain version (``_csr_dense_dot``); CUDA tensors launch
+    ``csrc/csr_dense_dot.cu`` (``csr_dense_dot.launches`` counts the
+    launches), whose backward is the transposed product on the plain
+    route."""
+    if all(t.device.type == "cpu" for t in (data, cols, indptr, rhs)):
+        return _csr_dense_dot(data, cols, rows, indptr.numel() - 1, rhs)
+    _kernels.refuse_trace("csr_dense_dot", data, rhs)
+    return _CSRDenseDot.apply(rhs, data, cols, indptr, rows)
+
+
+csr_dense_dot.launches = 0
+
+
+class _CSRDenseDot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rhs, data, cols, indptr, rows):
+        ctx.save_for_backward(data, cols, rows)
+        ctx.rhs_meta = (rhs.shape[0], rhs.dtype)
+        return _csr_dense_dot_cuda(data, cols, indptr, rhs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, cols, rows = ctx.saved_tensors
+        n_in, dtype = ctx.rhs_meta
+        g = _csr_dense_dot(data, cols, rows, n_in, grad, transpose_a=True)
+        return g.to(dtype), None, None, None, None
+
+
+def _csr_dense_dot_cuda(data, cols, indptr, rhs):
+    """One launch of the kernel: the operands in their promoted dtype,
+    contiguous, on one card."""
+    dt = torch.promote_types(data.dtype, rhs.dtype)
+    dev = rhs.device
+    if rhs.ndim != 2 or dt not in _DOT_CODES or not rhs.is_cuda or \
+            cols.dtype != torch.int64 or indptr.dtype != torch.int64 or \
+            any(t.device != dev for t in (data, cols, indptr)) or \
+            data.shape != cols.shape:
+        raise MXNetError(
+            "csr_dense_dot: expected float data and int64 cols/indptr of "
+            "one CSR array and a 2-D float rhs on one CUDA device; got "
+            f"data {data.dtype} {tuple(data.shape)} on {data.device}, "
+            f"cols {cols.dtype}, indptr {indptr.dtype} on {indptr.device}, "
+            f"rhs {rhs.dtype} {tuple(rhs.shape)} on {dev}")
+    n_rows, n = indptr.numel() - 1, rhs.shape[1]
+    out = torch.empty((n_rows, n), dtype=dt, device=dev)
+    vals = data.to(dt).contiguous()
+    dense = rhs.to(dt).contiguous()
+    lib = _kernels.load("csr_dense_dot")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mxt_csr_dense_dot(
+            vals.data_ptr(), cols.contiguous().data_ptr(),
+            indptr.contiguous().data_ptr(), dense.data_ptr(),
+            out.data_ptr(), n_rows, n, _DOT_CODES[dt], stream)
+    _kernels.check(lib, err, "csr_dense_dot launch")
+    cuda_graph.count(csr_dense_dot)
+    return out
+
+
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """Sparse-aware ``dot``: CSR × dense through ``_csr_dense_dot``; any
     other sparse operand densifies (reference FComputeEx dispatch).
@@ -593,10 +664,15 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
             if transpose_b:
                 r = r.permute(*reversed(range(r.ndim)))
             vec = r.ndim == 1
-            out = _csr_dense_dot(lhs.data._data, lhs.indices._data, rows,
-                                n_out, r.unsqueeze(1) if vec else r,
-                                transpose_a)
-            return out.squeeze(1) if vec else out
+            r2 = r.unsqueeze(1) if vec else r.reshape(r.shape[0], -1)
+            if transpose_a:
+                out = _csr_dense_dot(lhs.data._data, lhs.indices._data,
+                                     rows, n_out, r2, True)
+            else:
+                out = csr_dense_dot(lhs.data._data, lhs.indices._data,
+                                    lhs.indptr._data, rows, r2)
+            return out.squeeze(1) if vec else \
+                out.reshape((n_out,) + tuple(r.shape[1:]))
 
         return apply_op(f, rhs, name="sparse_dot")
     from . import dot as dense_dot

@@ -689,9 +689,11 @@ class LlamaServingEngine:
         return sorted(self._signatures)
 
     def kv_pool_bytes(self):
-        """Bytes of the KV storage (pool or slot caches), summed over
-        layers and both of K/V — the paged pool's usable blocks only, as
-        in the reference (the trash block is not counted)."""
+        """Bytes of the KV storage (pool or slot caches) on this device,
+        summed over layers and both of K/V — the paged pool's usable
+        blocks only, as in the reference (the trash block is not
+        counted): the figure ``memory.planner.plan_kv_pool`` predicts
+        before the engine is built."""
         with self.dev_lock:
             if self.kv_mode == "paged":
                 return int(sum(2 * k[:self.num_blocks].nbytes

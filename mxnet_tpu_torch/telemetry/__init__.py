@@ -430,6 +430,14 @@ def step_end(examples=None, **extra):
                         placement["replicated_params"]
             except Exception:  # noqa: BLE001 - never raises into training
                 pass
+        # memory-budget context: remat_policy / predicted_peak_bytes /
+        # offload_bytes, only once mxnet_tpu_torch.memory was imported
+        mem = sys.modules.get("mxnet_tpu_torch.memory")
+        if mem is not None:
+            try:
+                record.update(mem.telemetry_fields())
+            except Exception:  # noqa: BLE001 - never raises into training
+                pass
         record.update(extra)
         sinks = list(_sinks)
     if _numerics_mod._enabled:

@@ -254,13 +254,16 @@ def kernel(cost_fn, *args):
 
 # -- the registry -------------------------------------------------------------
 
-def note(kind, key, counted=None, attribute=True, scale=1, site=None):
+def note(kind, key, counted=None, attribute=True, scale=1, site=None,
+         remat=None):
     """Register-or-attribute one execution of a site's signature.
     ``key`` is the site's own cache signature (hashable); ``counted`` the
     ``counting()`` result of its first sighting (None on later calls);
     ``scale`` multiplies the counted work when the first sighting ran a
     fraction of the signature's program (one of ``FusedTrainStep``'s K
-    steps).  Later sightings only attribute.  ``attribute=False``
+    steps).  ``remat`` stamps the remat tier the entry ran under (the
+    planner's registry lookup keys on it).  Later sightings only
+    attribute.  ``attribute=False``
     registers without counting an execution.  Returns the entry (None
     when disabled or the key is unhashable)."""
     if not _enabled:
@@ -275,6 +278,7 @@ def note(kind, key, counted=None, attribute=True, scale=1, site=None):
             art = _registry.get(rk)
         if art is None:
             art = _Artifact(kind, key, site=site)
+            art.remat = remat
             if counted is None or counted.flops is None:
                 art.error = "first sighting not counted"
                 _stats["errors"] += 1

@@ -345,6 +345,17 @@ def write_postmortem(path=None, context="", error=""):
     report["allocator"] = _allocator_stats()
     report["top_artifacts_by_temp_bytes"] = \
         _costs.top_artifacts(n=10, by="temp_bytes")
+    # prescription: when the memory planner is loaded, re-plan the last
+    # model under the escalation ladder (higher remat tier, host
+    # offload, smaller batch) and name the cheapest fix
+    mem = sys.modules.get("mxnet_tpu_torch.memory")
+    if mem is not None:
+        try:
+            rx = mem.prescribe()
+            if rx is not None:
+                report["prescription"] = rx
+        except Exception:  # noqa: BLE001 - never masks the failure
+            pass
     # the flight recorders join the post-mortem: the last completed
     # request traces, and the last step records and anomalies (rank-
     # stamped) before the OOM
@@ -392,11 +403,22 @@ def annotate_oom(exc, context=""):
     largest = "; ".join(
         f"{r['owner'] or '<unnamed>'} {r['shape']} {r['dtype']} "
         f"{r['nbytes']} bytes on {r['device']}" for r in top)
+    fix = ""
+    mem = sys.modules.get("mxnet_tpu_torch.memory")
+    if mem is not None:
+        try:
+            rx = mem.planner.last_prescription()
+            rec = rx and rx.get("recommendation")
+            if rec:
+                fix = (f"\ncheapest fix that fits: {rec['change']} "
+                       f"(predicted peak {rec['predicted_peak_gib']} GiB)")
+        except Exception:  # noqa: BLE001 - never masks the failure
+            pass
     raise OOMError(
         f"device allocation failure during {context or 'dispatch'}: {exc}\n"
         f"largest live buffers: {largest or 'none tracked'}\n"
-        f"memwatch post-mortem (ranked live buffers) written to {path}") \
-        from exc
+        f"memwatch post-mortem (ranked live buffers) written to {path}"
+        f"{fix}") from exc
 
 
 # -- lifecycle ----------------------------------------------------------------

@@ -250,6 +250,24 @@ def collecting():
         stack.pop()
 
 
+#: the scope of ``muted()``: taps inside it record nothing
+_MUTED = object()
+
+
+@contextmanager
+def muted():
+    """Scope a region whose taps record nothing (a rematerialized
+    forward's recompute: its taps fired in the forward).  Re-entrant."""
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    stack.append(_MUTED)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def _active_collector():
     stack = getattr(_tls, "stack", None)
     return stack[-1] if stack else None
@@ -287,6 +305,8 @@ def tap(name, x, keep=False):
     if raw is None:
         return
     col = _active_collector()
+    if col is _MUTED:
+        return
     try:
         if col is not None:
             col.stats.append(stats_of(raw))
@@ -304,8 +324,10 @@ def tap_stacked(name, stats):
     if not _enabled:
         return
     try:
-        stats = _as_rows(stats)
         col = _active_collector()
+        if col is _MUTED:
+            return
+        stats = _as_rows(stats)
         if col is not None:
             col.names.append("+" + str(name))  # '+' marks stacked
             col.stats.append(stats)
@@ -335,6 +357,8 @@ def record_compiled(names, stats):
     import torch
 
     col = _active_collector()
+    if col is _MUTED:
+        return
     if col is not None:
         for i, n in enumerate(names):
             col.names.append(n)

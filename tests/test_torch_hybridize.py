@@ -105,8 +105,17 @@ def test_hybridize_off_naive_engine_and_remat():
     finally:
         tmx.engine.set_engine_type("ThreadedEnginePerDevice")
     assert net.cache_stats()["misses"] == 0
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 7"):
-        net.hybridize(remat=True)
+    # remat is ported in slice 21 (tests/test_torch_remat.py): True is the
+    # "layer" tier; a spelling of no tier raises
+    net.hybridize(remat=True)
+    x = tmx.nd.array(_x(2), ctx=CPU)
+    with tmx.autograd.record():
+        y = net(x).sum()
+    y.backward()
+    assert net._cached_op._remat_tiers and \
+        set(net._cached_op._remat_tiers.values()) == {"layer"}
+    with pytest.raises(ValueError, match="unknown remat tier"):
+        net.hybridize(remat="everything")
 
 
 def test_deferred_shapes_resolve_on_the_first_hybridized_call():

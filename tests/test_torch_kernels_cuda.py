@@ -3077,3 +3077,180 @@ def test_tick_stamps_bracket_the_replay_on_card(cuda_nvcc):
         telemetry.disable()
         tracing.clear()
     del mx
+
+
+# -- slice 21: memory as a managed budget on the card ------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16",
+                                   "bfloat16"])
+def test_csr_dense_dot_kernel_is_bit_equal_to_the_cpu_over_runs(
+        cuda_nvcc, dtype):
+    """``csrc/csr_dense_dot.cu`` adds each output element's terms in
+    stored order with the plain version's rounding: 20 launches on the
+    card give one result, bit-equal to the CPU's ``index_add_`` route, at
+    the factorization machine's row width (39 entries, 16 columns) and at
+    a ragged one; each launch is counted."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3)
+    for rows, k, n, nnz in ((300, 5000, 16, 39), (33, 70, 5, 7)):
+        cols = np.sort(np.stack([rng.choice(k, nnz, replace=False)
+                                 for _ in range(rows)]), 1).reshape(-1)
+        vals = torch.from_numpy(
+            rng.uniform(-1, 1, rows * nnz).astype(np.float32)).to(dt)
+        rhs = torch.from_numpy(rng.normal(size=(k, n)).astype(
+            np.float32)).to(dt)
+        cols = torch.from_numpy(cols)
+        indptr = torch.arange(0, rows * nnz + 1, nnz)
+        rws = torch.repeat_interleave(torch.arange(rows), nnz)
+        host = sp.csr_dense_dot(vals, cols, indptr, rws, rhs)
+        on = [t.cuda() for t in (vals, cols, indptr, rws, rhs)]
+        before = sp.csr_dense_dot.launches
+        outs = [sp.csr_dense_dot(*on) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert sp.csr_dense_dot.launches - before == 20
+        for out in outs:
+            assert out.dtype == dt and out.is_cuda
+            assert torch.equal(out.cpu(), host)
+
+
+@pytest.mark.cuda
+def test_csr_dense_dot_gradient_is_the_transposed_product_on_card(
+        cuda_nvcc):
+    """The kernel's ``autograd.Function``: the gradient of ``rhs`` is the
+    transposed product (``index_add_`` on the card, within 1e-5 of the
+    CPU's: its atomics add in another order)."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rng = np.random.RandomState(4)
+    rows, k, n, nnz = 64, 500, 16, 39
+    cols = torch.from_numpy(np.sort(np.stack(
+        [rng.choice(k, nnz, replace=False) for _ in range(rows)]),
+        1).reshape(-1))
+    vals = torch.from_numpy(rng.uniform(0.1, 1, rows * nnz).astype("f"))
+    indptr = torch.arange(0, rows * nnz + 1, nnz)
+    rws = torch.repeat_interleave(torch.arange(rows), nnz)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        rhs = torch.tensor(w, device=dev, requires_grad=True)
+        out = sp.csr_dense_dot(vals.to(dev), cols.to(dev), indptr.to(dev),
+                               rws.to(dev), rhs)
+        out.backward(g.to(dev))
+        grads.append(rhs.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_offload_copies_on_a_side_stream_and_the_step_never_syncs(
+        cuda_nvcc, monkeypatch):
+    """``Trainer(offload="host")`` on the card: the optimizer state lives
+    in pinned host tensors between steps; a step fetches and stashes it
+    with copies on the offload side stream (the current stream waits for
+    each fetch, no host synchronize runs: every synchronize entry point
+    raises during the steps), one launch of the update kernel a group;
+    the weights equal an on-device trainer's bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.memory import offload
+    from mxnet_tpu_torch.ops import multi_tensor as mt
+
+    ctx = mx.gpu(0)
+    kw = {"learning_rate": 0.1, "momentum": 0.9, "multi_precision": True}
+    nets = []
+    for _ in range(2):
+        net = _mlp(mx, ctx, 21, bn=False)
+        net.cast("bfloat16")
+        nets.append(net)
+    _copy_params(nets[0], nets[1])
+    oracle = mx.gluon.Trainer(nets[0].collect_params(), "sgd", dict(kw))
+    offed = mx.gluon.Trainer(nets[1].collect_params(), "sgd", dict(kw),
+                             offload="host")
+    # every parameter a group of its own
+    monkeypatch.setattr(mx.gluon.Trainer, "_offload_groups",
+                        lambda self, live: [[i] for i in live])
+    rng = np.random.RandomState(8)
+    xs = [mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32),
+                      ctx=ctx).astype("bfloat16") for _ in range(3)]
+
+    def step(net, tr, x):
+        with mx.autograd.record():
+            loss = (net(x).astype("float32") ** 2).mean()
+        loss.backward()
+        tr.step(8)
+
+    for x in xs[:1]:  # the first step makes the states (host copies)
+        step(nets[0], oracle, x)
+        step(nets[1], offed, x)
+    for i in offed._live():
+        for arr in offed._offloaded_ndarrays(i):
+            assert offload.is_stashed(arr) and arr._data.is_pinned()
+
+    def refuse(*a, **k):
+        raise AssertionError("host synchronize during an offloaded step")
+
+    waits = []
+    orig_wait = torch.cuda.Stream.wait_stream
+
+    def wait_stream(self, other):
+        waits.append((self, other))
+        return orig_wait(self, other)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda.Stream, "synchronize", refuse)
+    monkeypatch.setattr(torch.cuda.Stream, "wait_stream", wait_stream)
+    before = mt.multi_tensor_update.launches
+    for x in xs[1:]:
+        step(nets[1], offed, x)
+    launches = mt.multi_tensor_update.launches - before
+    monkeypatch.undo()
+    for x in xs[1:]:
+        step(nets[0], oracle, x)
+    torch.cuda.synchronize()
+    side = offload._side(torch.device("cuda", 0))
+    current = torch.cuda.current_stream()
+    assert launches == 2 * len(offed._live())
+    assert any(s == current and o == side for s, o in waits)
+    assert any(s == side and o == current for s, o in waits)
+    for (n, a), (_, b) in zip(nets[0].collect_params().items(),
+                              nets[1].collect_params().items()):
+        assert torch.equal(a.data()._data, b.data()._data), n
+    assert offload.resident_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_remat_layer_inside_a_fused_train_step_capture(cuda_nvcc):
+    """A block hybridized with ``remat="layer"`` inside a
+    ``FusedTrainStep`` capture: the recompute is part of the captured
+    backward; the losses and weights equal the same step without remat
+    bit for bit (dropout at rate 0), over the eager warm-up and the
+    replays."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(9)
+    batch = (mx.nd.array(rng.normal(size=(8, 8)).astype(np.float32),
+                         ctx=ctx),
+             mx.nd.array(rng.randint(0, 4, 8).astype(np.float32), ctx=ctx))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    results = []
+    for tier in ("none", "layer"):
+        net = _mlp(mx, ctx, 12, bn=False)
+        net.hybridize(remat=tier)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1, "momentum": 0.9})
+        fstep = mx.gluon.FusedTrainStep(
+            net, tr, lambda n, a, b: loss_fn(n(a), b),
+            steps_per_execution=3, batch_size=8)
+        losses = np.concatenate([fstep(*batch).asnumpy(),
+                                 fstep(*batch).asnumpy()])
+        entry = next(iter(fstep._graphs.values()))
+        assert entry["graph"].replays == 2 + 3
+        results.append((losses, [p.data().asnumpy() for p in
+                                 net.collect_params().values()]))
+    np.testing.assert_array_equal(results[1][0], results[0][0])
+    for a, b in zip(results[0][1], results[1][1]):
+        np.testing.assert_array_equal(b, a)

@@ -15,7 +15,9 @@ The pin compares the public names of ``mx``, ``nd``, ``NDArray``,
 ``gluon.contrib`` (with ``.nn`` and ``.estimator``), ``util``,
 ``runtime``, ``test_utils``, ``monitor``, ``visualization`` and slice
 19's ``telemetry``, ``telemetry.numerics``, ``telemetry.memwatch``,
-``telemetry.retrace``, ``telemetry.costs`` and ``telemetry.sinks`` in both
+``telemetry.retrace``, ``telemetry.costs`` and ``telemetry.sinks`` and
+slice 21's ``memory``, ``memory.policy``, ``memory.planner``,
+``memory.offload`` and ``memory.lowering`` in both
 packages with an explicit list of names left out, each with the ROADMAP
 list that owns it; reading a left-out name raises ``MXNetError`` naming
 that list, never ``AttributeError``.  Beyond the pinned namespaces, every
@@ -44,6 +46,10 @@ LEFT_OUT = {
          "maybe_defer", "register_dispatch_callback", "segment_cache_stats",
          "unregister_dispatch_callback"), _7),
     "autograd": {"Node": _NC},
+    # XLA's lowering and memory analysis, and the TPU budget table
+    "memory.lowering": dict.fromkeys(
+        ("harvest_memory", "remat_forward", "shell_params"), _NC),
+    "memory.planner": {"DEVICE_BUDGET_GIB": _NC},
 }
 
 #: namespaces pinned since slice 16: modules whose imports of foreign
@@ -59,7 +65,9 @@ MODULE_NS = ("models", "serving", "engine", "autograd", "profiler", "base",
              "telemetry.retrace", "telemetry.costs", "telemetry.sinks",
              "telemetry.tracing", "telemetry.capacity", "telemetry.fleet",
              "telemetry.promtext", "serving.metrics", "serving.lanes",
-             "serving.scheduler", "serving.server", "sanitizer")
+             "serving.scheduler", "serving.server", "sanitizer",
+             "memory", "memory.policy", "memory.planner", "memory.offload",
+             "memory.lowering")
 
 
 def _namespaces():
@@ -119,6 +127,8 @@ def _namespaces():
     import mxnet_tpu_torch.serving.lanes as tsl
     import mxnet_tpu_torch.serving.scheduler as tss
     import mxnet_tpu_torch.serving.server as tssv
+    import mxnet_tpu.memory as jmem
+    import mxnet_tpu_torch.memory as tmem
 
     return {
         "mx": (jmx, tmx), "nd": (jmx.nd, tmx.nd),
@@ -166,6 +176,9 @@ def _namespaces():
         "serving.metrics": (jsm, tsm), "serving.lanes": (jsl, tsl),
         "serving.scheduler": (jss, tss), "serving.server": (jssv, tssv),
         "sanitizer": (jsan, tmx.sanitizer),
+        "memory": (jmem, tmem),
+        **{f"memory.{m}": (getattr(jmem, m), getattr(tmem, m))
+           for m in ("policy", "planner", "offload", "lowering")},
     }
 
 

@@ -78,11 +78,19 @@ def _config(pkg, **kw):
                             num_slots=2, **kw)
 
 
-def _serve(pkg, net, prompts, **kw):
+def _serve(pkg, net, prompts, first=None, **kw):
+    """Serve ``prompts``; with ``first``, the first ``first`` prompts
+    finish before the rest are submitted (a deterministic order: the
+    radix mode's sharers then always find their prefix committed)."""
     srv = pkg.GenerativeServer(net, _config(pkg, **kw))
     with srv:
-        futs = [srv.submit(p, max_new_tokens=NEW) for p in prompts]
+        futs = [srv.submit(p, max_new_tokens=NEW)
+                for p in prompts[:first]]
         outs = [f.result(WAIT) for f in futs]
+        if first is not None:
+            futs = [srv.submit(p, max_new_tokens=NEW)
+                    for p in prompts[first:]]
+            outs += [f.result(WAIT) for f in futs]
         stats = srv.stats()
     return outs, stats, srv
 
@@ -105,8 +113,11 @@ def _modes(nets):
 def test_server_modes_match_jax_server_and_generate(nets, oracle, mode):
     (jnet, tnet), _ = nets
     jkw, tkw = _modes(nets)[mode]
-    jouts, jstats, _ = _serve(jserving, jnet, PROMPTS, **jkw)
-    touts, tstats, srv = _serve(tserving, tnet, PROMPTS, **tkw)
+    # radix: the first prompt with the shared system prefix (index 3)
+    # finishes before its two sharers arrive, in both servers
+    first = 4 if mode == "radix" else None
+    jouts, jstats, _ = _serve(jserving, jnet, PROMPTS, first, **jkw)
+    touts, tstats, srv = _serve(tserving, tnet, PROMPTS, first, **tkw)
     for p, o, j, t in zip(PROMPTS, oracle, jouts, touts):
         assert t.dtype == np.int32 and t.shape == (len(p) + NEW,)
         np.testing.assert_array_equal(t, o)

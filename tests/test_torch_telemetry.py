@@ -13,10 +13,11 @@ the prefetcher and the checkpoints emit under the reference's names, and
 the same eager and hybridized tiny-Llama loop in both packages and holds
 the records' key sets and counter keys equal, step by step.  Numbers
 compared with the reference (percentiles, byte counts) are exact.  The
-reference's memory-budget keys (``remat_policy``,
-``predicted_peak_bytes``, ``offload_bytes``), which its records carry
-once anything in the process used its memory planner (``memory/*``, not
-ported yet: ROADMAP item 9), are left out of the key comparisons.
+memory-budget keys (``remat_policy``, ``predicted_peak_bytes``,
+``offload_bytes``), which the records carry once anything in the process
+used the memory package, are held to the reference's too: every test
+starts with both packages' memory state reset, and
+``test_memory_budget_keys_match_the_reference`` sets them in both.
 """
 import json
 import os
@@ -30,9 +31,10 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from mxnet_tpu import memory as jmemory
 from mxnet_tpu import telemetry as jtel
 from mxnet_tpu.models import llama as jllama
-from mxnet_tpu_torch import autograd, gluon, nd, telemetry
+from mxnet_tpu_torch import autograd, gluon, memory, nd, telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import load_numpy_params
 from mxnet_tpu_torch.models import llama as tllama
@@ -43,24 +45,31 @@ BATCH = 4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _reset_memory():
+    """Both packages' memory state as at import: no policy decision, no
+    plan, nothing offloaded (other tests of the process may have set
+    them)."""
+    for mem in (memory, jmemory):
+        mem.policy.reset()
+        mem.planner.set_budget(None)
+        mem.planner._last_plan = None
+        mem.planner._last_prescription = None
+        mem.offload.reset()
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     for t in (telemetry, jtel):
         t.disable()
         t.reset()
         t.numerics.clear()
+    _reset_memory()
     yield
     for t in (telemetry, jtel):
         t.disable()
         t.reset()
         t.numerics.clear()
-
-
-def _ref_memory_keys():
-    """The keys the reference's ``memory`` package adds to its records in
-    this process (none until something imported and used it)."""
-    mem = sys.modules.get("mxnet_tpu.memory")
-    return set(mem.telemetry_fields()) if mem is not None else set()
+    _reset_memory()
 
 
 def _net(units=(8, 4), in_dim=6):
@@ -235,7 +244,7 @@ def test_jsonl_schema_has_the_reference_keys(tmp_path):
         recs[name] = t.read_jsonl(path)
     assert len(recs["port"]) == 3
     for i, (rec, ref) in enumerate(zip(recs["port"], recs["ref"])):
-        assert set(rec) == set(ref) - _ref_memory_keys()
+        assert set(rec) == set(ref)
         assert rec["step"] == i + 1
         assert rec["step_ms"] > 0 and rec["phases_ms"]["trainer.step"] > 0
         assert rec["host_sync"] == 1 and rec["epoch"] == 0
@@ -521,7 +530,55 @@ def test_same_tiny_llama_loop_gives_equal_keys(hybridize):
     ref = _llama_loop(jmx, jtel, jllama, hybridize, arrays, ids, labels)
     assert len(port) == len(ref) == 3
     for p, r in zip(port, ref):
-        assert set(p) == set(r) - _ref_memory_keys()
+        assert set(p) == set(r)
         assert set(p["counters"]) == set(r["counters"])
         assert list(p["numerics"]["tensors"]) == \
             list(r["numerics"]["tensors"])
+
+
+def _memory_loop(pkg, tel, mem):
+    """Two recorded steps of a small MLP hybridized with ``remat="layer"``
+    under a host-offloading trainer, after a plan of it → the records."""
+    kw = {"ctx": CPU} if pkg is tmx else {}
+    pkg.random.seed(5)
+    net = pkg.gluon.nn.HybridSequential()
+    net.add(pkg.gluon.nn.Dense(8, activation="relu"),
+            pkg.gluon.nn.Dense(4))
+    net.initialize(pkg.init.Xavier(), **kw)
+    net(pkg.nd.ones((1, 6), **kw))
+    net.hybridize(remat="layer")
+    trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9},
+                                offload="host")
+    mem.plan_model(net.collect_params(), optimizer=trainer._optimizer,
+                   batch_bytes=BATCH * 6 * 4, remat="layer",
+                   offload="host", use_registry=False)
+    sink = (ListSink if pkg is tmx else jtel.sinks.ListSink)()
+    tel.enable()
+    tel.add_sink(sink)
+    x = pkg.nd.array(np.ones((BATCH, 6), np.float32), **kw)
+    for _ in range(2):
+        with tel.step(examples=BATCH):
+            with pkg.autograd.record():
+                loss = (net(x) ** 2).mean()
+            loss.backward()
+            trainer.step(BATCH)
+    tel.disable()
+    return sink.records
+
+
+def test_memory_budget_keys_match_the_reference():
+    """With a remat tier forced, a plan made and optimizer state
+    offloaded, every record carries ``remat_policy``,
+    ``predicted_peak_bytes`` and ``offload_bytes`` with the reference's
+    values."""
+    port = _memory_loop(tmx, telemetry, memory)
+    _reset_memory()
+    ref = _memory_loop(jmx, jtel, jmemory)
+    keys = ("remat_policy", "predicted_peak_bytes", "offload_bytes")
+    assert len(port) == len(ref) == 2
+    for p, r in zip(port, ref):
+        assert set(p) == set(r)
+        assert [p[k] for k in keys] == [r[k] for k in keys]
+    assert port[0]["remat_policy"] == "layer"
+    assert port[0]["offload_bytes"] == 4 * (6 * 8 + 8 + 8 * 4 + 4)
