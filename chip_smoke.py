@@ -331,9 +331,10 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     at 600x1000), ``ROIAlign`` forward and backward, ``MultiBoxTarget``,
     ``bipartite_matching``, ``BilinearResize2D``, deformable
     convolution, the control-flow ops eager and inside a CUDA graph;
-    the ``nms_keep`` kernel against its plain version bit for bit at
-    n = 128 .. 11,200 (past shared memory), with its time, the plain
-    version's and the bound;
+    the ``nms_keep`` bitmask scan against its plain version bit for bit
+    at n = 128 .. 11,200, with its device time, the plain version's, its
+    launches a call and the bound (the larger of its bytes and its
+    pairs' operations);
 23b. ``ssd_512_resnet50_v1`` (20 classes, 512x512): f32 card vs CPU
     (pre-NMS rows; the CPU's NMS of the card's rows equal to the
     card's), bf16 at B=32 and B=1 eager and hybridized (the replay equal
@@ -352,17 +353,17 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     intersection merges, ``retain``, and the CSR product (1,000 x
     1,000,000 with 39 nonzeros a row, times the 1,000,000 x 16 table)
     forward and transposed, each product's ms beside ``torch.sparse.mm``
-    (cuSPARSE, a yardstick) and its bytes bound; and the non-transposed
-    product's kernel (``csrc/csr_dense_dot.cu``) at that shape, bit-equal
-    to its plain version on CPU copies, with its time, the plain
-    version's on the card and the library's;
+    (cuSPARSE, a yardstick) and its bytes bound; and the product's kernel
+    (``csrc/csr_dense_dot.cu``) at that shape in both directions, 20
+    launches each bit-equal to its plain version on CPU copies, with its
+    time, the plain version's on the card and the library's;
 24b. the slice's main path: ``FMModel(1_000_000, 16)`` with a local store
     running Adam (the lazy row updates), fed by ``LibSVMIter(batch_size=
     1000)`` over a Criteo-shaped file of 64,000 rows written from the
     seed: 64 steps, the untouched rows of the tables and of Adam's state
-    bit-equal after each, the loss falling, step 1 against the CPU; the
-    step split into iterator, forward, push+update and pull, samples/s,
-    peak memory;
+    bit-equal after each, the loss falling, step 1 against the CPU and
+    again on the card from the same state, bit-identical; the step split
+    into iterator, forward, push+update and pull, samples/s, peak memory;
 24c. ``examples/sparse_linear_classification.py``'s loop at its defaults,
     written against the port: the loss falls, the accuracy beats 0.5;
 24d. 10 FM steps through ``local``, a one-rank NCCL ``dist_sync`` and
@@ -453,8 +454,8 @@ the exported program's forwards of 25c, 26a's ``fit`` and 26d's
 monitored forward; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
 19a, 19b, 20c, 22b, 22c, 23e, 25a and 26a, and in 24b, where it
 must stay 0: the lazy row updates are not the update kernel's; the CSR
-product's over 24b-24e; #1-#3's and the update's in each step of
-29b-29d) and read just after,
+product's, forward and transposed, over 24b-24e; #1-#3's and the
+update's in each step of 29b-29d) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -6324,11 +6325,17 @@ DET_BOX_TOL = 1e-4             # ... boxes, of the largest coordinate
 DET_AGREE_MIN = 0.999          # ... class ids and valid flags: equal share
 DET_ROI_AGREE_MIN = 0.9        # ... Faster R-CNN's proposals: equal share
 OPS_TOL = 1e-5                 # 23a: f32 ops card vs CPU, relative norm
-# 23a: (images, boxes, class ids) of the NMS scan; 11,200 boxes with ids
-# (21 bytes a box) are past the block's 227 KB of shared memory
+# 23a: (images, boxes, class ids) of the NMS scan: SSD-512's 400 kept by
+# topk and its 1,364 anchors, the RPN's 2,000, YOLOv3-416's 10,647, and
+# 11,200 boxes with ids, more than a block's 227 KB of shared memory holds
+# (21 bytes a box), which the bitmask scan does not need
 NMS_SIZES = [(32, 128, True), (32, 400, True), (16, 1364, True),
              (1, 2000, False), (1, 10647, True), (1, 11200, True)]
 NMS_MAIN = (32, 400, True)     # SSD-512 at B=32: the kernels line's shape
+# f32 operations of one pair in the scan's suppresses() (IoU: 4 for each
+# side of the intersection, 1 product, 5 for each area, 2 for the union,
+# the guard, the clamp, the division and the test), plus 1 class test
+NMS_PAIR_OPS = 25
 SSD_TRAIN_B = 16
 SSD_TRAIN_IMAGES = 96          # 23e: synthetic JPEGs in the .rec
 SSD_TRAIN_STEPS = 6            # 23e: fed eager steps timed, after a warm-up
@@ -6485,9 +6492,12 @@ def detection_ops_phase(torch, mx, tc, failures):
     objects with negative mining 3, ``bipartite_matching``,
     ``BilinearResize2D``, deformable convolution at (8, 64, 32, 32) 3x3,
     and the control-flow ops eager and captured; then the ``nms_keep``
-    kernel against ``_nms_keep_plain`` on the card at every size of
-    NMS_SIZES, bit for bit, with its time, the plain version's and the
-    bound.  Returns the kernels line's row at NMS_MAIN."""
+    bitmask scan against ``_nms_keep_plain`` on the card at every size of
+    NMS_SIZES, bit for bit, with its device time (the host's enqueue
+    hidden; the call's time beside it), the plain version's, its CUDA
+    launches a call and the bound (``_nms_pairs``: the larger of its
+    bytes and its pairs' operations).  Returns the kernels line's row at
+    NMS_MAIN."""
     free_card(torch)
     gpu, cpu = mx.gpu(0), mx.cpu()
     gen = torch.Generator().manual_seed(SEED + 41)
@@ -6623,20 +6633,30 @@ def detection_ops_phase(torch, mx, tc, failures):
         valid = (torch.rand((g_, n_), generator=gen) > 0.1).cuda()
         ids = torch.randint(0, 3, (g_, n_), generator=gen).float().cuda() \
             if with_cls else None
+        before = tc.nms_keep.cuda_launches
         got = tc.nms_keep(boxes, valid, ids, 0.45)
+        cuda_launches = tc.nms_keep.cuda_launches - before
         ref = tc._nms_keep_plain(boxes, valid, ids, 0.45)
         equal = bool(torch.equal(got, ref))
+        device_ms = time_ms(torch, lambda: tc.nms_keep(boxes, valid, ids,
+                                                       0.45),
+                            20, hide_host=True)
         k_ms = time_ms(torch, lambda: tc.nms_keep(boxes, valid, ids, 0.45),
                        20)
         p_ms = time_ms(torch, lambda: tc._nms_keep_plain(boxes, valid, ids,
                                                           0.45),
                        1 if n_ > 2000 else 3)
         nbytes = g_ * n_ * (16 + 1 + 1 + (4 if with_cls else 0))
+        pairs = _nms_pairs(torch, tc, boxes, valid, ids, ref, 0.45)
+        ops = pairs * (NMS_PAIR_OPS + (1 if with_cls else 0))
+        bound, by = roofline_ms(ops, nbytes, "float32")
         row = dict(G=g_, n=n_, class_ids=with_cls, equal=equal,
-                   shared_memory=n_ * (21 if with_cls else 17) <= 232448,
                    kept=int(got.sum()), valid=int(valid.sum()), ms=k_ms,
-                   us_per_scanned_box=k_ms * 1e3 / n_, plain_ms=p_ms,
-                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+                   device_ms=device_ms,
+                   us_per_scanned_box=device_ms * 1e3 / n_,
+                   cuda_launches_a_call=cuda_launches,
+                   plain_ms=p_ms, pairs=pairs, operations=ops,
+                   bytes=nbytes, bound_ms=bound, bound_by=by,
                    max_abs_err=float((got.float() - ref.float()).abs()
                                      .max()))
         scans.append(row)
@@ -6652,6 +6672,37 @@ def detection_ops_phase(torch, mx, tc, failures):
         failures.append("detection ops: " + "; ".join(bad))
     free_card(torch)
     return main
+
+
+def _nms_pairs(torch, tc, boxes, valid, ids, keep, thresh):
+    """The pairs a greedy scan of these boxes must test: each kept box i
+    against every later valid box j (of i's class, when ``ids`` are given)
+    that no kept box before i has removed, i.e. every kept i up to j's
+    first kept suppressor.  ``keep`` is the scan's result; counted on the
+    card a block of rows at a time."""
+    g, n = valid.shape
+    idx = torch.arange(n, device=boxes.device)
+    rows = max(1, (1 << 24) // max(1, g * n))
+
+    def met(i0, i1):  # kept i in [i0, i1) against later valid j
+        m = keep[:, i0:i1, None] & valid[:, None, :] & \
+            (idx[None, i0:i1, None] < idx[None, None, :])
+        if ids is not None:
+            m &= ids[:, i0:i1, None] == ids[:, None, :]
+        return m
+
+    first = torch.full((g, n), n, dtype=torch.long, device=boxes.device)
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        sup = met(i0, i1) & (tc._pair_iou(boxes[:, i0:i1], boxes) > thresh)
+        at = torch.where(sup, idx[None, i0:i1, None], n)
+        first = torch.minimum(first, at.min(1).values)
+    total = 0
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        total += int((met(i0, i1) & (idx[None, i0:i1, None] <=
+                                     first[:, None, :])).sum())
+    return total
 
 
 def _det_boxes(torch, gen, shape, size, wh=(0.02, 0.3)):
@@ -6957,7 +7008,7 @@ FM_B = 1000                  # ... and batch
 FM_ROWS = 64_000             # 64 batches
 FM_STEPS = 64
 FM_LR = 0.01                 # Adam
-FM_CHECK_RTOL = 1e-5         # card vs CPU, f32 (index_add_'s atomics)
+FM_CHECK_RTOL = 1e-5         # card vs CPU, f32 (the card's reductions)
 FM_STORE_STEPS = 10          # 24d
 SPARSE_LIN = dict(n=40000, d=4096, density=0.02, steps=40, batch=512,
                   lr=5.0)    # examples/sparse_linear_classification.py
@@ -7018,9 +7069,10 @@ def sparse_ops_phase(torch, mx, failures):
     ``retain``, and the CSR batch (1,000 x 1,000,000, 39 nonzeros a row)
     times the table and its transpose times a (1,000, 16) array.  Every
     result lies on the card; stored indices equal, values within 1e-6
-    of the largest (1e-5 for the products: ``index_add_``'s atomics).
-    Each product's ms beside ``torch.sparse.mm`` on the same CSR tensor
-    (cuSPARSE; a yardstick only) and its bytes bound."""
+    of the largest, the products bit for bit (``csrc/csr_dense_dot.cu``
+    in both directions adds in the CPU's order).  Each product's ms
+    beside ``torch.sparse.mm`` on the same CSR tensor (cuSPARSE; a
+    yardstick only) and its bound; then ``csr_kernel_row``."""
     sp = mx.nd.sparse
     rng = np.random.RandomState(SEED + 240)
     nnz = FM_INT_FIELDS + FM_CAT_FIELDS
@@ -7065,7 +7117,7 @@ def sparse_ops_phase(torch, mx, failures):
     rows, ok = {}, True
     for name in card:
         err, scale, same, on_card = _sparse_pair(mx, card[name], host[name])
-        tol = (1e-5 if name.startswith("dot") else 1e-6) * max(scale, 1.0)
+        tol = 0.0 if name.startswith("dot") else 1e-6 * max(scale, 1.0)
         good = same and on_card and err <= tol
         rows[name] = dict(max_abs_err=err, tol=tol, indices_equal=same,
                           on_card=on_card, ok=good)
@@ -7103,45 +7155,73 @@ def sparse_ops_phase(torch, mx, failures):
     if not ok:
         failures.append(f"sparse ops: {rows}")
     STASH["sparse_dot"] = times
-    csr_row = csr_kernel_row(torch, c1, v, crow, times["dot"], failures)
+    csr_row = csr_kernel_row(torch, c1, v, dd, crow, times, failures)
     del card, c1, v, dd, crow, csc_t
     free_card(torch)
     return csr_row
 
 
-def csr_kernel_row(torch, c1, v, crow, dot_row, failures):
+def csr_kernel_row(torch, c1, v, dd, crow, times, failures):
     """The CSR product's kernel (``csrc/csr_dense_dot.cu``) at the
-    factorization machine's shape (phase 24a's batch times the table):
-    its wrapper's result against its plain version on CPU copies of the
-    same inputs, bit for bit (the kernel adds in the CPU's order with the
-    CPU's rounding); its time beside the plain version's on the card
-    (``index_add_``), ``torch.sparse.mm``'s (cuSPARSE) and the bound of
-    24a's ``dot`` row."""
+    factorization machine's shape, in both directions: phase 24a's batch
+    times the table, and its transpose times a (1,000, 16) array (the
+    same kernel on the column-ordered view, the sort included).  Each
+    direction's 20 launches against its plain version on CPU copies of
+    the same inputs, bit for bit (the kernel adds in the CPU's order with
+    the CPU's rounding); its call's time (``ms``) and its device time
+    (``device_ms``, the host's enqueue hidden) beside the same two of the
+    plain version on the card (``index_add_``) and of
+    ``torch.sparse.mm`` (cuSPARSE), and the bound of 24a's row.  Returns
+    ``{"forward": row, "transposed": row}``."""
     from mxnet_tpu_torch.ndarray import sparse as tsp
 
     rows = tsp._csr_rows(c1)
-    args = (c1.data._data, c1.indices._data, c1.indptr._data, rows, v._data)
-    out = tsp.csr_dense_dot(*args)
-    host = tsp._csr_dense_dot(c1.data._data.cpu(), c1.indices._data.cpu(),
-                              rows.cpu(), FM_B, v._data.cpu())
-    got = out.cpu()
-    err = float((got - host).abs().max())
-    same = bool(torch.equal(got, host))
-    ms = time_ms(torch, lambda: tsp.csr_dense_dot(*args), SPARSE_OPS_REPS)
-    plain_ms = time_ms(torch, lambda: tsp._csr_dense_dot(
-        c1.data._data, c1.indices._data, rows, FM_B, v._data),
-        SPARSE_OPS_REPS)
-    lib_ms = time_ms(torch, lambda: torch.sparse.mm(crow, v._data),
-                     SPARSE_OPS_REPS)
-    row = dict(max_abs_err=err, bit_equal=same, ms=ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bound_ms=dot_row["bound_ms"],
-               bound_by=dot_row["bound_by"], bytes=dot_row["bytes"])
+    a = (c1.data._data, c1.indices._data, c1.indptr._data, rows)
+    host_a = [t.cpu() for t in a]
+    out, bad = {}, []
+    for name, rhs, kw, n_out, lib, dot_row in (
+            ("forward", v._data, {}, FM_B,
+             lambda: torch.sparse.mm(crow, v._data), times["dot"]),
+            ("transposed", dd._data,
+             dict(transpose_a=True, n_cols=FM_FEATURES), FM_FEATURES,
+             lambda: torch.sparse.mm(crow.t(), dd._data),
+             times["dot transpose_a"])):
+        host = tsp._csr_dense_dot(host_a[0], host_a[1], host_a[3], n_out,
+                                  rhs.cpu(), bool(kw))
+        runs = [tsp.csr_dense_dot(*a, rhs, **kw) for _ in range(20)]
+        got = [r.cpu() for r in runs]
+        same = all(torch.equal(g, host) for g in got)
+        err = max(float((g - host).abs().max()) for g in got)
+        del runs, got
+        out[name] = dict(max_abs_err=err, bit_equal=same, runs=20)
+        for key, fn in (("", lambda: tsp.csr_dense_dot(*a, rhs, **kw)),
+                        ("plain_", lambda: tsp._csr_dense_dot(
+                            a[0], a[1], a[3], n_out, rhs, bool(kw))),
+                        ("library_", lib)):
+            out[name][key + "ms"] = time_ms(torch, fn, SPARSE_OPS_REPS)
+            out[name][key + "device_ms"] = time_ms(
+                torch, fn, SPARSE_OPS_REPS, hide_host=True)
+        out[name].update(bound_ms=dot_row["bound_ms"],
+                         bound_by=dot_row["bound_by"],
+                         bytes=dot_row["bytes"])
+        if kw:  # the transposed call's parts: the view, then the kernel
+            view = tsp._csr_column_view(a[0], a[1], a[3], FM_FEATURES)
+            out[name]["view_device_ms"] = time_ms(
+                torch, lambda: tsp._csr_column_view(a[0], a[1], a[3],
+                                                    FM_FEATURES),
+                SPARSE_OPS_REPS, hide_host=True)
+            out[name]["kernel_device_ms"] = time_ms(
+                torch, lambda: tsp._csr_dense_dot_cuda(
+                    view[0], view[1], view[2], view[3], None, rhs, False),
+                SPARSE_OPS_REPS, hide_host=True)
+            del view
+        if not same:
+            bad.append(f"csr_dense_dot {name}: not bit-equal to its plain "
+                       f"version over 20 launches ({err} off)")
     emit(dict(phase="csr_kernel", card=STASH["smi"], B=FM_B,
-              features=FM_FEATURES, factor=FM_FACTOR, **row, ok=same))
-    if not same:
-        failures.append(f"csr_dense_dot: not bit-equal to its plain "
-                        f"version ({err} off)")
-    return row
+              features=FM_FEATURES, factor=FM_FACTOR, **out, ok=not bad))
+    failures.extend(bad)
+    return out
 
 
 def _fm_tables(model):
@@ -7158,14 +7238,15 @@ def fm_cpu_check(torch, mx, fm, first, card_loss, pushed, card_rows,
                  rows):
     """Step 1 of phase 24b against a CPU model on the same batch and
     tables: the loss and the pushed gradients within FM_CHECK_RTOL (of
-    the step's largest gradient: the transposed products sum with atomics
-    on the card, and w0's gradient, a sum that nearly cancels, in another
-    order), and the card's updated rows against the CPU's Adam applied to
-    the card's own gradients, within FM_CHECK_RTOL.  (The tables after
-    the step are not compared with the CPU model's directly: Adam's
-    first step is lr·g/(|g| + 3.2e-7), so a row whose gradient nearly
-    cancels turns the atomics' last bits into differences of up to
-    ~1e-4 of lr.)  The direct differences are printed beside."""
+    the step's largest gradient: the CSR products are bit-equal, but the
+    card's reductions (the logits' sum over the factors, w0's gradient,
+    a sum over the batch that nearly cancels) add in another order than
+    the CPU's), and the card's updated rows against the CPU's Adam
+    applied to the card's own gradients, within FM_CHECK_RTOL.  (The
+    tables after the step are not compared with the CPU model's directly:
+    Adam's first step is lr·g/(|g| + 3.2e-7), so a row whose gradient
+    nearly cancels turns those last bits into differences of up to ~1e-4
+    of lr.)  The direct differences are printed beside."""
     def record(kv, into):
         push = kv.push
 
@@ -7216,6 +7297,47 @@ def fm_cpu_check(torch, mx, fm, first, card_loss, pushed, card_rows,
     return out
 
 
+def fm_repeat_check(torch, mx, fm, model, csr, label):
+    """Step 1 of phase 24b again, on the card, from the state it starts
+    from: a twin model from the same seed (its tables checked bit-equal
+    to the model's before its first step) and a fresh ``local`` store
+    with Adam take the same batch.  Called before the model's step;
+    returns a function that, given the model's tables and pushed
+    gradients after that step, compares the twin's with them bit for
+    bit."""
+    before = {k: getattr(model, k)._data for k in ("w", "v", "w0")}
+    kv = mx.kv.create("local")
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+    twin = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244, kvstore=kv,
+                      ctx=mx.gpu(0))
+    same_start = all(torch.equal(getattr(twin, k)._data, t)
+                     for k, t in before.items())
+    pushed, push = {}, kv.push
+
+    def record(key, value, priority=0):
+        pushed[key] = value.copy()
+        push(key, value, priority)
+    kv.push = record
+    twin.step(csr, label)
+
+    def compare(tables, model_pushed):
+        mine = dict(_fm_tables(twin), w0=twin.w0._data)
+        theirs = dict(tables, w0=model.w0._data)
+        out = dict(same_start=same_start)
+        for k, t in mine.items():
+            out[f"{k}_bit_identical"] = bool(torch.equal(t, theirs[k]))
+        for key, g in pushed.items():
+            h = model_pushed[key]
+            parts = ("data", "indices") if hasattr(g, "indices") else ()
+            out[f"grad_{key}_bit_identical"] = all(
+                torch.equal(getattr(g, p)._data, getattr(h, p)._data)
+                for p in parts) if parts else bool(
+                torch.equal(g._data, h._data))
+        out["ok"] = all(out.values()) and len(pushed) == 3
+        return out
+    return compare
+
+
 def fm_phase(torch, mx, fm, mt, failures):
     """Phase 24b, the slice's main path: ``FMModel(1_000_000, 16)`` on the
     card with a ``local`` store running Adam (lr FM_LR: the lazy row
@@ -7225,11 +7347,15 @@ def fm_phase(torch, mx, fm, mt, failures):
     bit-equal to before in ``w``, ``v`` and Adam's state; the loss is
     finite and lower over the last 8 steps than over the first 8; step
     1 matches a CPU model's step on the same batch and tables
-    (``fm_cpu_check``).  Each step is split (a synchronize
-    at each boundary) into the iterator's wait, the forward and
-    gradients, push + update, and the pulls; samples/s and peak memory.
-    No hand-written kernel is on this path (the lazy update is not the
-    multi-tensor kernel's: 0 launches)."""
+    (``fm_cpu_check``), and step 1 run again on the card from the same
+    state (a twin model from the same seed, its tables checked equal
+    first) gives bit-identical tables, Adam state and pushed gradients
+    (``fm_repeat_check``: the CSR products, ``csrc/csr_dense_dot.cu`` in
+    both directions, add in a fixed order).  Each step is split (a
+    synchronize at each boundary) into the iterator's wait, the forward
+    and gradients, push + update, and the pulls; samples/s and peak
+    memory.  The lazy update is not the multi-tensor kernel's (0
+    launches)."""
     import tempfile
 
     root = tempfile.mkdtemp(prefix="mxt_fm_")
@@ -7281,6 +7407,7 @@ def fm_phase(torch, mx, fm, mt, failures):
         if step == 0:
             first = (csr.as_in_context(mx.cpu()),
                      label.as_in_context(mx.cpu()))
+            repeat = fm_repeat_check(torch, mx, fm, model, csr, label)
         del marks[:]
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -7305,6 +7432,7 @@ def fm_phase(torch, mx, fm, mt, failures):
         if step == 0:
             card_rows = {k: after[k][rows].cpu() for k in ("w", "v")}
             card_rows_idx = rows.cpu()
+            repeat = repeat(after, pushed)
     launches = mt.multi_tensor_update.launches
     peak = torch.cuda.max_memory_allocated() - base_mem
     check = fm_cpu_check(torch, mx, fm, first, losses[0], pushed,
@@ -7315,13 +7443,14 @@ def fm_phase(torch, mx, fm, mt, failures):
     head, tail = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
     ok = untouched_ok and bool(np.isfinite(losses).all()) and \
         tail < head and check["ok"] and launches == 0 and \
-        model.v._data.is_cuda
+        model.v._data.is_cuda and repeat["ok"]
     row = dict(phase="fm", card=STASH["smi"], features=FM_FEATURES,
                factor=FM_FACTOR, B=FM_B, rows=FM_ROWS, steps=FM_STEPS,
                optimizer="adam", lr=FM_LR, store="local",
                positive_share=float(pos), write_s=write_s, parse_s=parse_s,
                losses=losses, first8=head, last8=tail,
                untouched_rows_bit_equal=untouched_ok, cpu_check=check,
+               repeat_check=repeat,
                mean_split_ms_after_first=mean,
                samples_per_s=FM_B / fed_ms * 1e3,
                samples_per_s_step_only=FM_B / mean["step_ms"] * 1e3,
@@ -7331,7 +7460,7 @@ def fm_phase(torch, mx, fm, mt, failures):
     emit(row)
     if not ok:
         failures.append(f"fm: head {head} tail {tail} check {check} "
-                        f"launches {launches}")
+                        f"launches {launches} repeat {repeat}")
     STASH["fm"] = dict(path=path, root=root, it=it, mean=mean)
     del model, kv
     free_card(torch)
@@ -7431,9 +7560,8 @@ def fm_stores_phase(torch, mx, fm, parallel, failures):
     model's pushes are also given to a ``local`` store of its own (its
     shadow): after each step the model's tables, which its pulls wrote,
     must equal its shadow store's bit for bit.  Across the three models
-    the tables differ only as their gradients do (each model's
-    transposed products sum with atomics): the relative norm of the
-    difference from the ``local`` model's is printed and held to 1e-4.
+    the relative norm of each table's difference from the ``local``
+    model's is printed and held to 1e-4.
     The ms of each store's push + pulls a step."""
     import secrets
 
@@ -10832,20 +10960,24 @@ def main():
     nms_launches = sum(v[2] for v in det.values())
     if 0 in [v[2] for v in det.values()] or nms_row is None:
         failures.append(f"a detector launched no nms_keep: {det}")
-    # slice 16: sparse storage (no hand-written kernel on its paths)
+    # slice 16: sparse storage (the CSR products on csr_dense_dot)
     from mxnet_tpu_torch.models import fm
 
     from mxnet_tpu_torch.ndarray import sparse as tsp
 
     csr_row = sparse_ops_phase(torch, mx, failures)
-    tsp.csr_dense_dot.launches = 0  # the sparse main paths start here
+    # the sparse main paths start here
+    tsp.csr_dense_dot.launches = tsp.csr_dense_dot.launches_transposed = 0
     fm_phase(torch, mx, fm, mt, failures)
     sparse_linear_phase(torch, mx, failures)
     fm_stores_phase(torch, mx, fm, parallel, failures)
     profile_phase(torch, mx, fm, vision, failures)
     csr_launches = tsp.csr_dense_dot.launches  # ... and end here
-    if csr_launches == 0:
-        failures.append("the sparse paths launched no csr_dense_dot")
+    csr_launches_t = tsp.csr_dense_dot.launches_transposed
+    if 0 in (csr_launches, csr_launches_t):
+        failures.append(f"the sparse paths launched no csr_dense_dot "
+                        f"({csr_launches} forward, {csr_launches_t} "
+                        "transposed)")
     # slice 17: symbols and export
     update_launches += symbol_module_phase(torch, mx, vision, mt, failures)
     exp_fused = export_resnet_phase(torch, mx, vision, cbr, serving,
@@ -11075,28 +11207,37 @@ def main():
          "source": "mxnet_tpu_torch/csrc/nms_keep.cu",
          "replaces": "mxnet_tpu/ops/contrib.py:84 (lax.fori_loop; no "
                      "Pallas kernel)",
-         "design": "one block an image, a barrier a kept box, the mask "
-                   "and boxes in shared memory",
+         "design": "bitmask scan: the 64-bit suppression words of the "
+                   "pair blocks on and above the diagonal, then a warp an "
+                   "image walks them in word order",
          "at": dict(zip(("G", "n", "class_ids"), NMS_MAIN)),
          "launches": nms_launches,
          "launches_by_net": {k: v[2] for k, v in det.items()},
+         "cuda_launches_a_call": nms_row["cuda_launches_a_call"],
          "max_abs_err": nms_row["max_abs_err"], "ms": nms_row["ms"],
+         "device_ms": nms_row["device_ms"],
          "us_per_scanned_box": nms_row["us_per_scanned_box"],
          "plain_ms": nms_row["plain_ms"], "bound_ms": nms_row["bound_ms"],
          "bound_by": nms_row["bound_by"], "library_ms": None},
-        {"name": "csr_dense_dot", "route": "cuda",
-         "source": "mxnet_tpu_torch/csrc/csr_dense_dot.cu",
-         "replaces": "mxnet_tpu/ndarray/sparse.py:587 (XLA's BCOO "
-                     "matmul; no Pallas kernel)",
-         "design": "one thread an output element, its row's entries in "
-                   "stored order, no atomics",
-         "at": dict(B=FM_B, features=FM_FEATURES, factor=FM_FACTOR,
-                    nnz_per_row=FM_INT_FIELDS + FM_CAT_FIELDS),
-         "launches": csr_launches, "max_abs_err": csr_row["max_abs_err"],
-         "bit_equal": csr_row["bit_equal"], "ms": csr_row["ms"],
-         "plain_ms": csr_row["plain_ms"], "bound_ms": csr_row["bound_ms"],
-         "bound_by": csr_row["bound_by"],
-         "library_ms": csr_row["library_ms"]}]})
+        *[{"name": "csr_dense_dot" if d == "forward" else
+           "csr_dense_dot_transposed", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/csr_dense_dot.cu",
+           "replaces": "mxnet_tpu/ndarray/sparse.py:587 (XLA's BCOO "
+                       "matmul; no Pallas kernel)",
+           "design": "a group of lanes a row (4 at n = 16), 16 gathers in "
+                     "flight a lane while the next pairs load, the adds in "
+                     "stored order, no atomics" +
+                     ("" if d == "forward" else
+                      ", on the column-ordered view (a stable sort)"),
+           "at": dict(B=FM_B, features=FM_FEATURES, factor=FM_FACTOR,
+                      nnz_per_row=FM_INT_FIELDS + FM_CAT_FIELDS),
+           "launches": csr_launches if d == "forward" else csr_launches_t,
+           "max_abs_err": csr_row[d]["max_abs_err"],
+           "bit_equal": csr_row[d]["bit_equal"],
+           **{k: csr_row[d][k] for k in (
+               "ms", "device_ms", "plain_ms", "plain_device_ms",
+               "library_ms", "library_device_ms", "bound_ms", "bound_by")}}
+          for d in ("forward", "transposed")]]})
     emit(dict(phase="script", card=smi,
               seconds=time.perf_counter() - t_script))
     if failures:

@@ -57,9 +57,10 @@ SYMBOLS = {
                                 [_PTR] * 2 + [_INT] * 3 +
                                 [ctypes.c_float] * 8 +
                                 [ctypes.c_double] * 2 + [_PTR]},
-    # boxes, valid, cls (or None), keep, groups, n, threshold, stream
-    "nms_keep": {"mxt_nms_keep": [_PTR] * 4 + [_INT] * 2 +
-                                 [ctypes.c_float, _PTR]},
+    # boxes, valid, cls (or None), keep, scratch, groups, n, threshold,
+    # images a chunk, kernels launched (out), stream
+    "nms_keep": {"mxt_nms_keep": [_PTR] * 5 + [_INT] * 2 +
+                                 [ctypes.c_float, _INT, _PTR, _PTR]},
     # data, cols, indptr, rhs, out, rows, n, dtype, stream
     "csr_dense_dot": {"mxt_csr_dense_dot": [_PTR] * 5 +
                                            [ctypes.c_int64] * 2 +

@@ -54,17 +54,17 @@ _GC = {"captures": 0, "was_on": True}  # under _LOCK
 _TALLIES = {}  # capture stream handle -> its tally; under _LOCK
 
 
-def count(fn, attr="launches"):
-    """Add one launch to ``fn.<attr>``, or, when the current stream is
+def count(fn, attr="launches", n=1):
+    """Add ``n`` launches to ``fn.<attr>``, or, when the current stream is
     capturing, to that capture's tally (each replay of the graph adds
-    it)."""
+    them)."""
     with _LOCK:
         tally = _TALLIES.get(torch.cuda.current_stream().cuda_stream) \
             if _TALLIES else None
         if tally is None:
-            setattr(fn, attr, getattr(fn, attr) + 1)
+            setattr(fn, attr, getattr(fn, attr) + n)
         else:
-            tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
+            tally[(fn, attr)] = tally.get((fn, attr), 0) + n
 
 
 def host_op(name):

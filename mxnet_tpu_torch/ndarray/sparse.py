@@ -30,13 +30,16 @@ stored-entry kernels defer to that fallback for the same reason.
 transposed), scales them by the values and adds them into the output
 rows (columns) with ``index_add_`` on the CPU; its gradient reaches the
 dense operand (the sparse one is a constant, as in the reference).  On
-the card the non-transposed product is ``csr_dense_dot``, the
-hand-written kernel ``csrc/csr_dense_dot.cu``, which adds each output
-element's terms in stored order with the CPU's rounding, so card and CPU
-agree bit for bit; the transposed product (and so that kernel's
-gradient) stays on ``index_add_``, whose atomics on CUDA add in another
-order each run.  ``to_bcoo`` (a ``jax.experimental.sparse`` type) has
-no counterpart: it raises naming ROADMAP.md's "Not carried over".
+the card both directions are ``csr_dense_dot``, the hand-written kernel
+``csrc/csr_dense_dot.cu`` (a group of lanes a row, the gathers in
+flight, the adds in stored order with the CPU's rounding), so card and
+CPU agree bit for bit and every run gives the same bits.  The
+transposed product runs the same kernel on a column-ordered view of the
+array (``_csr_column_view``: a stable sort of the columns keeps each
+column's entries in stored order, the order of ``index_add_``); each
+direction's gradient is the other direction.  ``to_bcoo`` (a
+``jax.experimental.sparse`` type) has no counterpart: it raises naming
+ROADMAP.md's "Not carried over".
 """
 from __future__ import annotations
 
@@ -583,53 +586,95 @@ _DOT_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
               torch.bfloat16: 3}
 
 
-def csr_dense_dot(data, cols, indptr, rows, rhs):
-    """``A @ rhs`` for the CSR ``A`` given by its stored values ``data``,
-    their columns ``cols``, ``indptr`` and each entry's row ``rows``;
-    ``rhs`` is 2-D.  Differentiable in ``rhs``.  CPU tensors take the
-    plain version (``_csr_dense_dot``); CUDA tensors launch
-    ``csrc/csr_dense_dot.cu`` (``csr_dense_dot.launches`` counts the
-    launches), whose backward is the transposed product on the plain
-    route."""
+def _csr_column_view(data, cols, rows, n_cols):
+    """``A`` in column order, as the CSR array of ``Aᵀ``: ``(data, cols,
+    indptr, rows)`` of the transpose, each column's entries in their
+    stored order (a stable sort of the columns), so that a product that
+    adds each output row's terms in stored order adds ``Aᵀ @ rhs`` in the
+    order of ``index_add_`` over the original entries.  The columns are
+    sorted as int32 where they fit (half the radix passes of int64 on the
+    card); the column pointers are ``searchsorted`` over the sorted
+    columns (``bincount`` would read its bounds back to the host)."""
+    key = cols.to(torch.int32) if n_cols <= torch.iinfo(torch.int32).max \
+        else cols
+    sorted_key, perm = torch.sort(key, stable=True)
+    sorted_cols = sorted_key.to(torch.int64)
+    indptr = torch.searchsorted(
+        sorted_cols, torch.arange(n_cols + 1, device=cols.device))
+    return data[perm], rows[perm], indptr, sorted_cols
+
+
+def csr_dense_dot(data, cols, indptr, rows, rhs, transpose_a=False,
+                  n_cols=None):
+    """``A @ rhs`` (``Aᵀ @ rhs`` with ``transpose_a``; ``n_cols``, the
+    columns of ``A``, is then the output's row count) for the CSR ``A``
+    given by its stored values ``data``, their columns ``cols``,
+    ``indptr`` and each entry's row ``rows``; ``rhs`` is 2-D.
+    Differentiable in ``rhs``.  CPU tensors take the plain version
+    (``_csr_dense_dot``).  CUDA tensors launch ``csrc/csr_dense_dot.cu``
+    in both directions: the transposed product on the column-ordered view
+    (``_csr_column_view``); ``csr_dense_dot.launches`` counts the
+    non-transposed launches, ``.launches_transposed`` the others.  The
+    backward is the product in the other direction, on the same kernel."""
+    if transpose_a and n_cols is None:
+        raise MXNetError("csr_dense_dot: transpose_a needs n_cols")
     if all(t.device.type == "cpu" for t in (data, cols, indptr, rhs)):
-        return _csr_dense_dot(data, cols, rows, indptr.numel() - 1, rhs)
+        n_out = n_cols if transpose_a else indptr.numel() - 1
+        return _csr_dense_dot(data, cols, rows, n_out, rhs, transpose_a)
     _kernels.refuse_trace("csr_dense_dot", data, rhs)
-    return _CSRDenseDot.apply(rhs, data, cols, indptr, rows)
+    return _CSRDenseDot.apply(rhs, data, cols, indptr, rows, n_cols,
+                              transpose_a)
 
 
 csr_dense_dot.launches = 0
+csr_dense_dot.launches_transposed = 0
 
 
 class _CSRDenseDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rhs, data, cols, indptr, rows):
-        ctx.save_for_backward(data, cols, rows)
-        ctx.rhs_meta = (rhs.shape[0], rhs.dtype)
-        return _csr_dense_dot_cuda(data, cols, indptr, rhs)
+    def forward(ctx, rhs, data, cols, indptr, rows, n_cols, transpose_a):
+        ctx.save_for_backward(data, cols, indptr, rows)
+        # A's columns: the backward of A @ rhs is the transposed product,
+        # whose output has one row a row of rhs
+        ctx.meta = (n_cols if transpose_a else rhs.shape[0], transpose_a,
+                    rhs.dtype)
+        return _csr_dense_dot_cuda(data, cols, indptr, rows, n_cols, rhs,
+                                   transpose_a)
 
     @staticmethod
     def backward(ctx, grad):
-        data, cols, rows = ctx.saved_tensors
-        n_in, dtype = ctx.rhs_meta
-        g = _csr_dense_dot(data, cols, rows, n_in, grad, transpose_a=True)
-        return g.to(dtype), None, None, None, None
+        data, cols, indptr, rows = ctx.saved_tensors
+        n_cols, transpose_a, dtype = ctx.meta
+        g = _csr_dense_dot_cuda(data, cols, indptr, rows, n_cols, grad,
+                                not transpose_a)
+        return g.to(dtype), None, None, None, None, None, None
 
 
-def _csr_dense_dot_cuda(data, cols, indptr, rhs):
-    """One launch of the kernel: the operands in their promoted dtype,
-    contiguous, on one card."""
+def _csr_dense_dot_cuda(data, cols, indptr, rows, n_cols, rhs,
+                        transpose_a):
+    """One launch of the kernel (after the column-ordered view, with
+    ``transpose_a``): the operands in their promoted dtype, contiguous, on
+    one card."""
     dt = torch.promote_types(data.dtype, rhs.dtype)
     dev = rhs.device
+    # the rhs rows the entries name: A's columns, or with transpose_a its
+    # rows
+    k = indptr.numel() - 1 if transpose_a else n_cols
     if rhs.ndim != 2 or dt not in _DOT_CODES or not rhs.is_cuda or \
             cols.dtype != torch.int64 or indptr.dtype != torch.int64 or \
-            any(t.device != dev for t in (data, cols, indptr)) or \
-            data.shape != cols.shape:
+            rows.dtype != torch.int64 or \
+            any(t.device != dev for t in (data, cols, indptr, rows)) or \
+            data.shape != cols.shape or rows.shape != cols.shape or \
+            (k is not None and rhs.shape[0] != k):
         raise MXNetError(
-            "csr_dense_dot: expected float data and int64 cols/indptr of "
+            "csr_dense_dot: expected float data, int64 cols/indptr/rows of "
             "one CSR array and a 2-D float rhs on one CUDA device; got "
             f"data {data.dtype} {tuple(data.shape)} on {data.device}, "
             f"cols {cols.dtype}, indptr {indptr.dtype} on {indptr.device}, "
-            f"rhs {rhs.dtype} {tuple(rhs.shape)} on {dev}")
+            f"rows {rows.dtype}, rhs {rhs.dtype} {tuple(rhs.shape)} on "
+            f"{dev}")
+    if transpose_a:
+        data, cols, indptr, _ = _csr_column_view(data, cols, rows, n_cols)
     n_rows, n = indptr.numel() - 1, rhs.shape[1]
     out = torch.empty((n_rows, n), dtype=dt, device=dev)
     vals = data.to(dt).contiguous()
@@ -642,12 +687,13 @@ def _csr_dense_dot_cuda(data, cols, indptr, rhs):
             indptr.contiguous().data_ptr(), dense.data_ptr(),
             out.data_ptr(), n_rows, n, _DOT_CODES[dt], stream)
     _kernels.check(lib, err, "csr_dense_dot launch")
-    cuda_graph.count(csr_dense_dot)
+    cuda_graph.count(csr_dense_dot, "launches_transposed" if transpose_a
+                     else "launches")
     return out
 
 
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
-    """Sparse-aware ``dot``: CSR × dense through ``_csr_dense_dot``; any
+    """Sparse-aware ``dot``: CSR × dense through ``csr_dense_dot``; any
     other sparse operand densifies (reference FComputeEx dispatch).
 
     Autograd: the dense operand's gradient flows (the product runs
@@ -665,12 +711,9 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False):
                 r = r.permute(*reversed(range(r.ndim)))
             vec = r.ndim == 1
             r2 = r.unsqueeze(1) if vec else r.reshape(r.shape[0], -1)
-            if transpose_a:
-                out = _csr_dense_dot(lhs.data._data, lhs.indices._data,
-                                     rows, n_out, r2, True)
-            else:
-                out = csr_dense_dot(lhs.data._data, lhs.indices._data,
-                                    lhs.indptr._data, rows, r2)
+            out = csr_dense_dot(lhs.data._data, lhs.indices._data,
+                                lhs.indptr._data, rows, r2, transpose_a,
+                                lhs.shape[1])
             return out.squeeze(1) if vec else \
                 out.reshape((n_out,) + tuple(r.shape[1:]))
 

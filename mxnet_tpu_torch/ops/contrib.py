@@ -11,8 +11,9 @@ are made on the operand's device by fills (``_const``), never copied from
 host memory, which a capture refuses.
 
 The one sequential loop, greedy NMS (the reference's ``lax.fori_loop`` in
-``_nms_keep``), runs on the card as the hand-written kernel
-``csrc/nms_keep.cu`` behind ``nms_keep``; its plain version
+``_nms_keep``), runs on the card as the hand-written bitmask scan
+``csrc/nms_keep.cu`` behind ``nms_keep`` (the pairs' suppression words,
+then a warp an image walks them); its plain version
 ``_nms_keep_plain`` is a torch loop over the boxes, batched over images,
 which only a CPU tensor takes.  The IoU of both follows ``_pair_iou``'s
 operations in its order, in f32, so that the two give the same keep mask
@@ -25,6 +26,7 @@ computes in float32, what the reference computes without x64.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -149,6 +151,28 @@ def _nms_keep_plain(boxes, valid, cls, overlap_thresh):
     return keep
 
 
+#: bytes of scratch (suppression words, their summaries, the removed
+#  masks) one chunk of images of the scan may hold, unless one image's
+#  alone passes it
+_NMS_SCRATCH_CAP = 64 << 20
+
+
+def _nms_image_words(n):
+    """64-bit words of scratch an image of ``n`` boxes takes: n rows of
+    suppression words and of their summary, then its removed mask."""
+    nw = -(-n // 64)
+    return n * (nw + -(-nw // 64)) + nw
+
+
+def _nms_plan(g, n):
+    """Images a chunk of the scan (two launches and a memset each): as
+    many as keep the chunk's scratch within ``_NMS_SCRATCH_CAP``, at
+    least one (an image whose scratch alone passes the cap is a chunk of
+    its own, so no n is refused)."""
+    fit = _NMS_SCRATCH_CAP // (8 * _nms_image_words(n))
+    return max(1, min(g, 65535, fit))
+
+
 def nms_keep(boxes, valid, cls, overlap_thresh):
     """Greedy NMS over boxes sorted by descending score: boxes (G, n, 4)
     f32 corners, valid (G, n) bool, cls (G, n) f32 class ids or None
@@ -156,9 +180,12 @@ def nms_keep(boxes, valid, cls, overlap_thresh):
     when it is valid and no kept box before it overlaps it by more than
     ``overlap_thresh`` (of the same class, when ``cls`` is given).
 
-    A CUDA tensor launches ``csrc/nms_keep.cu`` (one block an image;
-    ``nms_keep.launches`` counts the launches); CPU tensors take the
-    plain version."""
+    A CUDA tensor launches ``csrc/nms_keep.cu``, a bitmask scan: the
+    64-bit suppression words of every pair block on or above the
+    diagonal, then a warp an image walks them in word order, two kernels
+    for each chunk of images (``_nms_plan``).  ``nms_keep.launches``
+    counts the calls, ``nms_keep.cuda_launches`` the kernels they
+    launched.  CPU tensors take the plain version."""
     given = (boxes, valid) if cls is None else (boxes, valid, cls)
     _kernels.refuse_trace("nms_keep", *given)
     if all(t.device.type == "cpu" for t in given):
@@ -179,21 +206,30 @@ def nms_keep(boxes, valid, cls, overlap_thresh):
     if g * n == 0:
         return keep.view(torch.bool)
     boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     flags = valid.contiguous().view(torch.uint8)
     ids = None if cls is None else cls.contiguous()
+    chunk = _nms_plan(g, n)
+    scratch = torch.empty(chunk * _nms_image_words(n), dtype=torch.int64,
+                          device=boxes.device)
+    launched = ctypes.c_int(0)
     lib = _kernels.load("nms_keep")
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.mxt_nms_keep(boxes.data_ptr(), flags.data_ptr(),
                                None if ids is None else ids.data_ptr(),
-                               keep.data_ptr(), g, n,
-                               float(overlap_thresh), stream)
+                               keep.data_ptr(), scratch.data_ptr(), g, n,
+                               float(overlap_thresh), chunk,
+                               ctypes.addressof(launched), stream)
     _kernels.check(lib, err, "nms_keep launch")
     cuda_graph.count(nms_keep)
+    cuda_graph.count(nms_keep, "cuda_launches", launched.value)
     return keep.view(torch.bool)
 
 
 nms_keep.launches = 0
+nms_keep.cuda_launches = 0
 
 
 def _nms_scan(boxes, valid, cls, overlap_thresh, topk=-1):

@@ -129,6 +129,23 @@ def test_nms_topk_restriction_equals_the_full_scan():
     assert full[:, :topk].any() and not full[:, topk:].any()
 
 
+@pytest.mark.parametrize("g, n", [(32, 400), (1, 2000), (1, 10647),
+                                  (32, 11200), (3, 23200), (1, 100000),
+                                  (70000, 4)])
+def test_nms_plan_holds_the_scratch_cap_and_covers_every_image(g, n):
+    """The card's scan takes its images in chunks (``_nms_plan``) whose
+    scratch stays within the cap, or one image a chunk when one image's
+    scratch alone passes it (23,200 and 100,000 boxes), never more than
+    the grid's 65,535; SSD-512's 32 x 400 is one chunk."""
+    chunk = tc._nms_plan(g, n)
+    scratch = 8 * tc._nms_image_words(n)
+    assert 1 <= chunk <= min(g, 65535)
+    assert chunk * scratch <= tc._NMS_SCRATCH_CAP or chunk == 1
+    assert (chunk == 1) == (scratch * 2 > tc._NMS_SCRATCH_CAP or g == 1)
+    if (g, n) == (32, 400):
+        assert chunk == 32
+
+
 def test_nms_plain_blocks_of_rows_match_one_block(monkeypatch):
     """The plain scan gives the same mask whatever block of rows makes
     its overlaps (one row at a time against all rows at once)."""

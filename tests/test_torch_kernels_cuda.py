@@ -2317,9 +2317,11 @@ def test_hybridized_ssd_replays_its_eager_forward_on_card(cuda_nvcc):
 
 
 # -- slice 16: sparse storage on the card -------------------------------------
-# No kernel of the port's own: the sparse ops are torch ops on the card.
-# index_add_ sums with atomics there, so the card is held to the CPU at
-# rtol 1e-5 (f32); indices and untouched rows exactly.
+# The sparse ops are torch ops on the card, but for the CSR products
+# (csrc/csr_dense_dot.cu in both directions, held bit for bit further
+# down).  These checks hold the card to the CPU at rtol 1e-5 (f32), which
+# the card's own reductions (sums over duplicates, the losses) stay
+# within; indices and untouched rows exactly.
 
 @pytest.fixture
 def cuda_card():
@@ -3120,8 +3122,9 @@ def test_csr_dense_dot_kernel_is_bit_equal_to_the_cpu_over_runs(
 def test_csr_dense_dot_gradient_is_the_transposed_product_on_card(
         cuda_nvcc):
     """The kernel's ``autograd.Function``: the gradient of ``rhs`` is the
-    transposed product (``index_add_`` on the card, within 1e-5 of the
-    CPU's: its atomics add in another order)."""
+    transposed product (the same kernel on the column-ordered view,
+    bit-equal: ``test_csr_dense_dot_gradients_are_bit_equal_to_the_cpu_
+    on_card``), within 1e-5 of the CPU's."""
     from mxnet_tpu_torch.ndarray import sparse as sp
 
     rng = np.random.RandomState(4)
@@ -3254,3 +3257,207 @@ def test_remat_layer_inside_a_fused_train_step_capture(cuda_nvcc):
     np.testing.assert_array_equal(results[1][0], results[0][0])
     for a, b in zip(results[0][1], results[1][1]):
         np.testing.assert_array_equal(b, a)
+
+
+# -- slice 22: the two kernels redesigned ------------------------------------
+
+def _csr_case(rng, rows, k, n, widths, dt):
+    """A CSR array with rows of the given widths (increasing distinct
+    columns), its entries' rows, and a (k, n) rhs, in ``dt``, on the
+    CPU."""
+    cols = np.concatenate([np.sort(rng.choice(k, w, replace=False))
+                           for w in widths]).astype(np.int64)
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(widths)])
+                              .astype(np.int64))
+    vals = torch.from_numpy(rng.uniform(-1, 1, cols.size).astype(
+        np.float32)).to(dt)
+    rhs = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dt)
+    rws = torch.repeat_interleave(torch.arange(rows), torch.diff(indptr))
+    return vals, torch.from_numpy(cols), indptr, rws, rhs
+
+
+def _csr_shapes(rng):
+    """(rows, columns, n, widths): the factorization machine's row width
+    at its factor size, a ragged one with empty rows, n not a multiple of
+    the vector width, one column, and wide rows (more than 32 vectors)."""
+    ragged = list(rng.randint(0, 12, 40))
+    ragged[0] = ragged[17] = 0
+    ragged[-1] = 70
+    return [(300, 5000, 16, [39] * 300), (40, 90, 5, ragged),
+            (40, 90, 1, ragged), (12, 400, 258, list(rng.randint(0, 60, 12))),
+            (12, 400, 256, list(rng.randint(0, 60, 12)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16",
+                                   "bfloat16"])
+def test_csr_dense_dot_transposed_kernel_is_bit_equal_to_the_cpu_over_runs(
+        cuda_nvcc, dtype):
+    """``Aᵀ @ g`` on the card is ``csrc/csr_dense_dot.cu`` on the
+    column-ordered view: 20 launches give one result, bit-equal to the
+    CPU's ``index_add_`` route, at every shape of ``_csr_shapes`` (the
+    forward kernel too, at the same shapes); each launch is counted on
+    ``launches_transposed``, the forward's on ``launches``."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(22)
+    for rows, k, n, widths in _csr_shapes(rng):
+        vals, cols, indptr, rws, rhs = _csr_case(rng, rows, k, n, widths, dt)
+        g = torch.from_numpy(rng.normal(size=(rows, n)).astype(
+            np.float32)).to(dt)
+        host_t = sp.csr_dense_dot(vals, cols, indptr, rws, g,
+                                  transpose_a=True, n_cols=k)
+        host = sp.csr_dense_dot(vals, cols, indptr, rws, rhs)
+        on = [t.cuda() for t in (vals, cols, indptr, rws)]
+        fwd, tr = sp.csr_dense_dot.launches, \
+            sp.csr_dense_dot.launches_transposed
+        outs = [sp.csr_dense_dot(*on, g.cuda(), transpose_a=True, n_cols=k)
+                for _ in range(20)]
+        outs_f = [sp.csr_dense_dot(*on, rhs.cuda()) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert sp.csr_dense_dot.launches_transposed - tr == 20
+        assert sp.csr_dense_dot.launches - fwd == 20
+        for out in outs:
+            assert out.dtype == dt and out.is_cuda and out.shape == (k, n)
+            assert torch.equal(out.cpu(), host_t)
+        for out in outs_f:
+            assert torch.equal(out.cpu(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_csr_dense_dot_gradients_are_bit_equal_to_the_cpu_on_card(
+        cuda_nvcc, transpose_a):
+    """Each direction's gradient of ``rhs`` is the product in the other
+    direction, on the kernel: ``torch.equal`` to the CPU's autograd
+    through ``index_add_``, at the factorization machine's row width."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rng = np.random.RandomState(23)
+    rows, k, n = 64, 500, 16
+    vals, cols, indptr, rws, _ = _csr_case(rng, rows, k, n, [39] * rows,
+                                           torch.float32)
+    w = rng.normal(size=(rows if transpose_a else k, n)).astype(np.float32)
+    g = rng.normal(size=(k if transpose_a else rows, n)).astype(np.float32)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        rhs = torch.tensor(w, device=dev, requires_grad=True)
+        out = sp.csr_dense_dot(vals.to(dev), cols.to(dev), indptr.to(dev),
+                               rws.to(dev), rhs, transpose_a=transpose_a,
+                               n_cols=k)
+        out.backward(torch.from_numpy(g).to(dev))
+        grads.append(rhs.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+def _nms_image(rng, n, kind):
+    """One image's sorted-order NMS boxes (n, 4) of a kind that exercises
+    the scan: 0 sparse (chip_smoke's field), 1 dense (about a box a unit
+    square), 2 a chain of boxes each overlapping the next (kept 0, 2, 4,
+    ...), 3 such chains in a random order, 4 identical boxes."""
+    if kind == 0:
+        c = rng.uniform(0, 1, (n, 2)) * np.sqrt(n) * 4
+        wh = rng.uniform(2, 12, (n, 2))
+    elif kind == 1:
+        c = rng.uniform(0, 1, (n, 2)) * np.sqrt(n)
+        wh = rng.uniform(2, 6, (n, 2))
+    elif kind in (2, 3):
+        x = np.arange(n) if kind == 2 else rng.permutation(n)
+        c = np.stack([x * 2.0, np.zeros(n)], 1)
+        wh = np.full((n, 2), 10.0)
+    else:
+        c, wh = np.zeros((n, 2)), np.full((n, 2), 4.0)
+    return np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+
+
+def _nms_hard_case(device, g, n, with_cls, seed):
+    """G images of ``_nms_image``'s kinds in turn (image i of kind
+    (i + n) % 5), ~5% invalid, image 5 all invalid when G > 5; two classes
+    or none."""
+    rng = np.random.RandomState(seed)
+    boxes = np.stack([_nms_image(rng, n, (i + n) % 5) for i in range(g)])
+    valid = rng.rand(g, n) > 0.05
+    if g > 5:
+        valid[5] = False
+    cls = rng.randint(0, 2, (g, n)).astype(np.float32) if with_cls else None
+    to = (lambda a: None if a is None else torch.from_numpy(a).to(device))
+    return to(boxes), to(valid), to(cls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cls", [True, False])
+@pytest.mark.parametrize("g", [1, 32])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 400, 2000,
+                               11200])
+def test_nms_keep_bitmask_scan_is_bit_equal_to_plain_on_card(
+        cuda_nvcc, n, g, with_cls):
+    """The bitmask scan's keep mask equals ``_nms_keep_plain``'s bit for
+    bit on either side of every word edge (63, 64, 65, 127, 128, 129), at
+    SSD's 400, the RPN's 2,000 and past the old kernel's shared memory
+    (11,200), one image and 32, on sparse, dense, chained and identical
+    boxes and an all-invalid image; one call counts one launch, and two
+    kernels a chunk of images."""
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    boxes, valid, cls = _nms_hard_case(cuda_nvcc, g, n, with_cls, seed=n)
+    before = tc.nms_keep.launches, tc.nms_keep.cuda_launches
+    got = tc.nms_keep(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert tc.nms_keep.launches == before[0] + 1
+    chunks = -(-g // tc._nms_plan(g, n))
+    assert tc.nms_keep.cuda_launches == before[1] + 2 * chunks
+    ref = tc._nms_keep_plain(boxes, valid, cls, 0.45)
+    assert torch.equal(got, ref)
+    if g > 5:
+        assert not got[5].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cls", [True, False])
+def test_nms_keep_all_invalid_and_identical_boxes_on_card(cuda_nvcc,
+                                                          with_cls):
+    """An image with no valid box keeps none; an image of identical boxes
+    keeps its first valid box of each class; a chain in score order keeps
+    every other box; each equal to the plain version."""
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    n = 130
+    rng = np.random.RandomState(5)
+    boxes = torch.from_numpy(np.stack(
+        [_nms_image(rng, n, 0), _nms_image(rng, n, 4),
+         _nms_image(rng, n, 2)])).to(cuda_nvcc)
+    valid = torch.ones((3, n), dtype=torch.bool, device=cuda_nvcc)
+    valid[0] = False
+    valid[1, 0] = False
+    cls = (torch.arange(n, device=cuda_nvcc) % 2).float().expand(3, n) \
+        .contiguous() if with_cls else None
+    got = tc.nms_keep(boxes, valid, cls, 0.45)
+    assert torch.equal(got, tc._nms_keep_plain(boxes, valid, cls, 0.45))
+    assert not got[0].any()
+    firsts = [1, 2] if with_cls else [1]
+    assert got[1].nonzero().flatten().tolist() == firsts
+    chain = list(range(0, n, 2)) if not with_cls else list(range(n))
+    assert got[2].nonzero().flatten().tolist() == chain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g, n, cap", [(3, 2000, 72 * 1024),
+                                       (40, 400, 110 * 1024)])
+def test_nms_keep_image_chunks_match_plain_on_card(cuda_nvcc, monkeypatch,
+                                                   g, n, cap):
+    """Under a small scratch cap the scan gives each 2,000-box image,
+    whose scratch alone passes the cap, a chunk and a scratch of its own,
+    and takes 40 images of 400 in chunks of 4: the keep mask stays equal
+    to the plain version's, refusing no n, and the call launches two
+    kernels a chunk (``nms_keep.cuda_launches``, counted from what the C
+    entry point reports)."""
+    from mxnet_tpu_torch.ops import contrib as tc
+
+    monkeypatch.setattr(tc, "_NMS_SCRATCH_CAP", cap)
+    assert tc._nms_plan(g, n) == (1 if n == 2000 else 4)
+    boxes, valid, cls = _nms_hard_case(cuda_nvcc, g, n, True, seed=g)
+    before = tc.nms_keep.cuda_launches
+    got = tc.nms_keep(boxes, valid, cls, 0.45)
+    assert tc.nms_keep.cuda_launches - before == (6 if n == 2000 else 20)
+    assert torch.equal(got, tc._nms_keep_plain(boxes, valid, cls, 0.45))

@@ -333,6 +333,57 @@ def test_csr_dot_transposes(transpose_a, transpose_b):
                                atol=1e-5)
 
 
+def _fm_like_csr(dtype, features=900, seed=9):
+    """A CSR batch with the factorization machine's row width (39 stored
+    entries, increasing columns) plus an empty row, a ragged row of one
+    entry and one of 250, and columns that no row names; the entries'
+    rows, values and a (rows, 16) rhs in ``dtype``."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    widths = [39] * 6 + [0, 1, 39, 0, 250, 39]
+    used = np.arange(0, features, 3)  # two columns in three never stored
+    cols = [np.sort(rs.choice(used, w, replace=False)) for w in widths]
+    indptr = np.concatenate([[0], np.cumsum(widths)])
+    vals = rs.uniform(-1, 1, indptr[-1]).astype(np.float32)
+    g = rs.normal(size=(len(widths), 16)).astype(np.float32)
+    to = (lambda a, dt=dtype: torch.from_numpy(a).to(dt))
+    rows = torch.repeat_interleave(torch.arange(len(widths)),
+                                   torch.from_numpy(np.diff(indptr)))
+    return (to(vals), to(np.concatenate(cols).astype(np.int64),
+                         torch.int64),
+            to(indptr.astype(np.int64), torch.int64), rows, to(g))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16",
+                                   "bfloat16"])
+def test_csr_column_view_through_the_plain_product_is_the_transpose(dtype):
+    """The transposed product's column-ordered view (``_csr_column_view``,
+    what the card's kernel runs ``Aᵀ @ rhs`` on), fed through the plain
+    version as a CSR array of ``Aᵀ``, equals ``_csr_dense_dot(...,
+    transpose_a=True)`` bit for bit: each column's entries keep their
+    stored order, the order in which ``index_add_`` adds them."""
+    import torch
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+
+    dt = getattr(torch, dtype)
+    features = 900
+    vals, cols, indptr, rows, g = _fm_like_csr(dt, features)
+    want = tsp._csr_dense_dot(vals, cols, rows, features, g,
+                              transpose_a=True)
+    d_t, c_t, p_t, r_t = tsp._csr_column_view(vals, cols, rows, features)
+    assert p_t.numel() == features + 1 and int(p_t[-1]) == vals.numel()
+    assert torch.equal(p_t[1:] - p_t[:-1],
+                       torch.bincount(cols, minlength=features))
+    assert torch.equal(r_t, torch.sort(cols).values)
+    got = tsp._csr_dense_dot(d_t, c_t, r_t, features, g)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    # and through the wrapper, which takes the plain version on the CPU
+    assert torch.equal(tsp.csr_dense_dot(vals, cols, indptr, rows, g,
+                                         transpose_a=True,
+                                         n_cols=features), want)
+
+
 def test_dot_of_a_vector_and_of_row_sparse_densifies():
     X = _sparse_np((6, 5), seed_off=4)
     v = np.arange(5, dtype=np.float32)
