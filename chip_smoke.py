@@ -199,7 +199,7 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     steps, then ``FusedTrainStep`` K=8 on a fresh net (the optimizer's
     own rule in the graph: no multi-tensor launch) against them, both
     falling; ms a step, images/s, graph pool, peak memory;
-16. the image lane: 2,560 ImageNet-style JPEGs (quality 95, short side
+16. the image lane: 1,280 ImageNet-style JPEGs (quality 95, short side
     256, smooth random textures, label i % 1000) in ``train.rec``, the
     same records in four ``part*.rec`` shards, and 256 in ``val.rec``,
     written by ``recordio.pack_img``; the native library built by g++.
@@ -272,7 +272,7 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
     mesh with its trainer and ``resume`` into a fresh net: bit for bit,
     the next loss equal, seconds beside 7d's ``.params`` route; and
     ``drain_consensus()`` on the NCCL group of one;
-20a. ``mixtral_8x7b`` widths at 2 layers in f32, B=1, T=256: logits on
+20a. ``mixtral_8x7b`` widths at 1 layer in f32, B=1, T=256: logits on
     the card (#1's FMA design) against the same weights on the CPU (the
     plain versions), within 1e-3 of the largest logit; then layer 0's
     ``MoEMLP`` in bf16 at full width on the card against the CPU's f32
@@ -437,7 +437,23 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 29d. host offload: ``llama3_8b`` bf16 with SGD + momentum and f32
     masters, remat "layer": the deepest depth the host can pin (32
     layers wanted), then ``Trainer(offload="host")`` against the
-    on-device trainer at 8 layers (weights bit-equal every step).
+    on-device trainer at 8 layers (weights bit-equal every step);
+30a. graphed recorded forwards: BERT-base (amp bf16, B=64, T=128),
+    ``llama3_8b`` at 4 layers and ResNet-50 (bf16, B=128) trained
+    through ``hybridize()`` + ``record()`` against the same loop
+    unhybridized from one state, ResNet-50 called twice before its
+    backward, and a Dropout's fresh masks in the replays;
+30b. the serving programs as graphs on phase 8's net: prefill buckets
+    and verify timed eager and graphed, and five serving modes' tokens
+    equal between the two; the paged, radix and int8 servers capture
+    their whole bucket table when built, and the engines' graph memory
+    (one pool and two arenas) is summed over it;
+30c. the detectors exported (23b-23d's weights) and their programs run
+    on the card bit-equal to the live blocks;
+30d. ``Trainer(offload="host")`` over a one-rank NCCL mesh, 8 layers,
+    bit-equal to the on-device mesh trainer;
+30e. SSD-512's B=1 forward, the word-LM step and the FM step under
+    ``engine.bulk(16)``, bit-equal to the same loops unbulked.
 
 One card holds one rank: the card runs the NCCL route at world size 1;
 multi-rank behaviour is held on the CPU in gloo groups
@@ -455,7 +471,9 @@ monitored forward; the update's in 9, 12, 12b, 13b, 16, 17, 18b, 18d,
 19a, 19b, 20c, 22b, 22c, 23e, 25a and 26a, and in 24b, where it
 must stay 0: the lazy row updates are not the update kernel's; the CSR
 product's, forward and transposed, over 24b-24e; #1-#3's and the
-update's in each step of 29b-29d) and read just after,
+update's in each step of 29b-29d; #1-#3's over 30a and 30d, the update's
+over 30d, ``nms_keep``'s through 30c's programs and #4's and
+``nms_keep``'s over 30e) and read just after,
 and at the start of each check that counts them (6, 7, 7b, 13); the
 bf16 slices must launch the tensor-core designs
 (``launches_mma``), the f32 checks the FMA designs.  It exits non-zero on any failed check, and with no
@@ -595,7 +613,18 @@ def design_name(design, dtype):
     return f"{names[design]} {short[dtype]}"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's line also carries the
+    script's seconds so far (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
+        torch = sys.modules.get("torch")
+        if torch is not None and torch.cuda.is_initialized():
+            obj["allocated_gb"] = round(torch.cuda.memory_allocated() / 1e9,
+                                        2)
     print(json.dumps(obj), flush=True)
 
 
@@ -3476,7 +3505,7 @@ def inception_train_phase(torch, mx, vision, cbr, mt, failures):
 # The image lane (phase 16): ImageNet-style JPEG shards, the short side 256
 # as ``im2rec --resize 256`` writes them, smooth random textures (so that
 # the encoded sizes are realistic), quality 95; ``resnet50_v1`` bf16, B=128.
-IMG_N = 2560                 # 20 batches of 128
+IMG_N = 1280                 # 10 batches of 128
 IMG_VAL_N = 256              # the validation shard: two eval forwards
 IMG_SHARDS = 4
 IMG_B = 128
@@ -3485,7 +3514,7 @@ IMG_QUALITY = 95
 IMG_MEAN = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53,
                 std_r=58.395, std_g=57.12, std_b=57.375)
 IMG_LR = 0.01                # FusedTrainStep's (phase 12b); eager 0.1
-IMG_STEPS = 8                # timed eager steps a feed (after 2 warm-ups)
+IMG_STEPS = 4                # timed eager steps a feed (after 2 warm-ups)
 IMG_CALLS = 3                # timed FusedTrainStep calls a feed (K=8)
 IMG_SWITCH_S = 0.0005        # the interpreter's switch interval, one row
 IMG_WORKER_ROWS = (2, 8)     # decode threads of the prefetcher rows beside
@@ -3523,7 +3552,7 @@ def _texture(cv2, i):
 
 
 def write_image_shards(mx, root):
-    """``train.rec`` (2,560 images) for ``ImageRecordIter`` and
+    """``train.rec`` (1,280 images) for ``ImageRecordIter`` and
     ``ImageRecordDataset``, the same records in four ``part*.rec`` shards
     for ``ShardedRecordReader``, and ``val.rec`` (256); each with its
     ``.idx``.  Label i % 1000."""
@@ -4991,6 +5020,7 @@ def sharded_checkpoint_phase(torch, mx, llama, checkpoint, parallel, mesh,
 # head), the training path at 2.  The MoE dispatch, the expert bank and
 # the combine are plain torch ops (the reference's are jnp); #1-#3 run on
 # the attention.
+MOE_CHECK_LAYERS = 1       # 20a: the f32 card-vs-CPU check's depth
 MOE_SERVE_LAYERS = 16
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 3        # timed steps, after one warm-up
@@ -5005,9 +5035,10 @@ PS_STEPS = 3
 
 
 def moe_check_phase(torch, mx, llama, moe, fa, failures):
-    """Phase 20a: ``mixtral_8x7b`` widths at 2 layers in f32, B=1, T=256:
+    """Phase 20a: ``mixtral_8x7b`` widths at MOE_CHECK_LAYERS layers in
+    f32, B=1, T=256:
     the weights drawn on the CPU from the seed and copied to the card;
-    the logits on the card (#1's FMA design, 2 launches) against the
+    the logits on the card (#1's FMA design, a launch a layer) against the
     CPU's (the plain versions) within 1e-3 of the largest logit; then
     layer 0's ``MoEMLP`` alone in bf16 at full width on the card against
     the CPU's f32 run on the same bf16 values (the router is f32 on
@@ -5016,9 +5047,9 @@ def moe_check_phase(torch, mx, llama, moe, fa, failures):
     free_card(torch)
     t = time.perf_counter()
     mx.random.seed(SEED)
-    cpu_net = llama.mixtral_8x7b(num_layers=2)
+    cpu_net = llama.mixtral_8x7b(num_layers=MOE_CHECK_LAYERS)
     cpu_net.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
-    card_net = llama.mixtral_8x7b(num_layers=2)
+    card_net = llama.mixtral_8x7b(num_layers=MOE_CHECK_LAYERS)
     card_net.initialize(mx.init.Zero(), ctx=mx.gpu(0))
     cpu_params = cpu_net._collect_params_with_prefix()
     for name, p in card_net._collect_params_with_prefix().items():
@@ -5036,9 +5067,10 @@ def moe_check_phase(torch, mx, llama, moe, fa, failures):
     cpu_ms = (time.perf_counter() - t) * 1e3
     largest = ref.abs().max().item()
     err = (got - ref).abs().max().item()
-    ok = launched == 2 and mma == 0 and err <= 1e-3 * largest and \
-        bool(torch.isfinite(got).all())
-    emit(dict(phase="moe_f32_check", layers=2, B=1, T=256, dtype="float32",
+    ok = launched == MOE_CHECK_LAYERS and mma == 0 and \
+        err <= 1e-3 * largest and bool(torch.isfinite(got).all())
+    emit(dict(phase="moe_f32_check", layers=MOE_CHECK_LAYERS, B=1, T=256,
+              dtype="float32",
               launches=launched, launches_mma=mma, max_abs_err=err,
               max_abs_logit=largest, tol=1e-3 * largest, init_s=init_s,
               cpu_forward_ms=cpu_ms, ok=ok))
@@ -6734,6 +6766,7 @@ def _det_phase(torch, mx, cbr, tc, name, make, arrays, x, check_x,
     load_numpy_params(net, arrays, ctx=mx.gpu(0))
     if dtype != "float32":
         net.cast(dtype)
+    STASH.setdefault("det", {})[name] = (make, arrays, x, dtype)
     runs, totals = [], [0, 0, 0]
     for xb in x:
         gflop, bound, by = _det_bound(mx, net, xb, dtype)
@@ -10806,6 +10839,726 @@ def offload_phase(torch, mx, llama, fa, mt, memory, failures):
     return totals, mma, upd
 
 
+
+# -- slice 23: graphed recorded forwards, the serving graphs, the detectors'
+# export, host offload over a mesh, bulk segments (phases 30a-30e) ----------
+
+REC_STEPS = 4               # 30a: recorded steps a loop (the first eager)
+REC_LLAMA_LAYERS = 4        # 30a: llama3_8b depth (phase 9 runs 16)
+REC_TWICE_B = 16            # 30a: ResNet-50's batch in the twice-called loop
+REC_DROP = 0.1              # 30a: the fresh-mask check's rate
+REC_DROP_N = 1 << 22        # ... over this many units
+GS_LENGTHS = (96, 400, 1000)  # 30b: prompt lengths served a mode
+GS_PREFIX = 512             # 30b: the radix mode's shared prefix
+GS_NEW = 8                  # 30b: new tokens a request
+GS_BUCKETS = ((1, 128), (1, 512), (1, 2048))  # 30b: timed prefills
+GS_MIN_LENGTH = 128         # 30b: the servers' shortest length bucket
+GS_REPS = 3                 # 30b: timed calls of each program, after two
+OFFMESH_LAYERS = 8          # 30d: llama3_8b depth
+OFFMESH_STEPS = 3
+BULK_N = 16                 # 30e: ops a segment
+BULK_STEPS = 4              # 30e: steps of each loop
+BULK_WLM_B = 32
+
+
+def _phase(fn, failures, default, *args):
+    """``fn(*args, failures)``; an exception fails the run (it is added to
+    ``failures`` with its traceback on stderr) and gives ``default``, so
+    the later phases still run and report."""
+    import traceback
+
+    try:
+        return fn(*args, failures)
+    except Exception as exc:
+        traceback.print_exc()
+        failures.append(f"{fn.__name__} raised {type(exc).__name__}: {exc}")
+        return default
+
+
+def _grad_diff(torch, a, b):
+    """(every gradient of ``a`` bit-equal to ``b``'s, the largest relative
+    norm of a difference) over two nets' parameter lists."""
+    equal, worst = True, 0.0
+    for p, q in zip(a, b):
+        if p.grad_req == "null":
+            continue
+        g, h = p.grad()._data.float(), q.grad()._data.float()
+        if not torch.equal(g, h):
+            equal = False
+            worst = max(worst, float((g - h).norm() /
+                                     h.norm().clamp_min(1e-30)))
+    return equal, worst
+
+
+def _params_equal(torch, a, b):
+    return all(torch.equal(p.data()._data, q.data()._data)
+               for p, q in zip(a.collect_params().values(),
+                               b.collect_params().values()))
+
+
+def _rec_pair(torch, mx, fa, name, make, inputs, loss_of, opt, batch,
+              failures):
+    """30a's loop: two nets of ``make()`` from one seed, the second
+    hybridized; REC_STEPS recorded steps of each, interleaved (forward,
+    backward, ``Trainer.step``), the first call of the hybridized net its
+    warm-up, the second its capture, the rest replays.  Returns the row
+    and the flash launches of the graphed route."""
+    nets, trainers = [], []
+    for hyb in (False, True):
+        mx.random.seed(SEED)
+        net = make()
+        net(*inputs)  # resolve deferred shapes, eagerly
+        if hyb:
+            net.hybridize()
+        nets.append(net)
+        trainers.append(mx.gluon.Trainer(net.collect_params(), *opt))
+    torch.cuda.synchronize()
+    rows, launches, mma = [], [0, 0, 0], [0, 0, 0]
+    for step in range(REC_STEPS):
+        row = dict(step=step)
+        for route, net, tr in zip(("eager", "graphed"), nets, trainers):
+            before = [c.launches for c in _counters(fa)]
+            before_mma = _mma_counts(fa)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with mx.autograd.record():
+                loss = loss_of(net, *inputs)
+            loss.backward()
+            tr.step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            got = [c.launches - n for c, n in zip(_counters(fa), before)]
+            row[route] = dict(loss=float(loss.mean().asscalar()), ms=ms,
+                              launches=got)
+            if route == "graphed":
+                launches = [a + b for a, b in zip(launches, got)]
+                mma = [a + c - d for a, c, d in
+                       zip(mma, _mma_counts(fa), before_mma)]
+            del loss
+        row["grads_bit_equal"], row["grad_rel_norm"] = _grad_diff(
+            torch, list(nets[1].collect_params().values()),
+            list(nets[0].collect_params().values()))
+        rows.append(row)
+    stats = nets[1].cache_stats()
+    weights_equal = _params_equal(torch, nets[1], nets[0])
+    instances = [len(e.instances) for e in
+                 nets[1]._cached_op._rec_graphs.values() if e != "eager"]
+    bit_equal = all(r["grads_bit_equal"] and
+                    r["graphed"]["loss"] == r["eager"]["loss"]
+                    for r in rows) and weights_equal
+    # the routes run the same kernels in the same order: bit-equal
+    good = stats.get("eager", 0) == 0 and stats["recorded"] == 0 and \
+        "over_budget" not in stats and \
+        stats["hits"] >= REC_STEPS - 1 and bit_equal
+    eager_ms = [r["eager"]["ms"] for r in rows[2:]]
+    graph_ms = [r["graphed"]["ms"] for r in rows[2:]]
+    row = dict(net=name, steps=rows, cache_stats=stats,
+               capture_error=nets[1]._cached_op.capture_error,
+               graph_instances=instances,
+               graph_pool_bytes=nets[1]._cached_op.recorded_graph_bytes(),
+               weights_bit_equal=weights_equal, bit_equal=bit_equal,
+               eager_step_ms=sum(eager_ms) / len(eager_ms),
+               graphed_step_ms=sum(graph_ms) / len(graph_ms),
+               launches_a_step=rows[-1]["graphed"]["launches"], ok=good)
+    if not good:
+        failures.append(f"30a {name}: {row}")
+    del nets, trainers
+    free_card(torch)
+    return row, (launches, mma)
+
+
+def recorded_graph_phase(torch, mx, bert, llama, vision, fa, failures):
+    """Phase 30a: hybridized blocks under ``autograd.record()`` replay a
+    forward and a backward CUDA graph as one tape node.  Against the same
+    loop unhybridized, from one state, REC_STEPS steps each: BERT-base
+    (B=64, T=128, amp bf16, Adam, dropout 0), ``llama3_8b`` at full width
+    and REC_LLAMA_LAYERS layers (bf16, B=1, T=2048, SGD with momentum)
+    and ResNet-50 (bf16, B=128, BatchNorm's batch statistics, SGD with
+    momentum): the losses, every gradient and the weights after the
+    steps bit-equal (the routes run the same kernels); the step ms of
+    each route; the graph pairs' pool bytes; #1-#3's launches a graphed
+    step.  Then ResNet-50
+    at B=REC_TWICE_B called twice before its backward (two instances of
+    the graph pair), and the fresh-mask check: a hybridized Dropout at
+    rate REC_DROP over REC_DROP_N units, whose two replays draw different
+    masks, each keeping 1 - REC_DROP of the units within 1%."""
+    from mxnet_tpu_torch import amp
+
+    free_card(torch)
+    gpu = mx.gpu(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 230)
+    rows, launches, mma = {}, [0, 0, 0], [0, 0, 0]
+    _zero_counts(fa)  # 30a's paths start here (each step's delta is read)
+
+    def add(name, got):
+        nonlocal launches, mma
+        rows[name], (n, m) = got
+        launches = [a + b for a, b in zip(launches, n)]
+        mma = [a + b for a, b in zip(mma, m)]
+
+    b, t = BERT_B, BERT_T
+    ids = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                                    device="cuda", dtype=torch.int32))
+    seg = mx.nd.zeros((b, t), ctx=gpu, dtype="int32")
+    labels = mx.nd.array(torch.randint(0, BERT_VOCAB, (b, t), generator=gen,
+                                       device="cuda", dtype=torch.int32))
+
+    def make_bert():
+        net = bert.bert_base(vocab_size=BERT_VOCAB, dropout=0.0)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        return net
+
+    amp.init("bfloat16")
+    try:
+        add("bert_base", _rec_pair(
+            torch, mx, fa, "bert_base", make_bert, (ids, seg),
+            lambda n, i, s: mx.nd.softmax_cross_entropy(
+                n(i, s)[-1], labels) / (b * t),
+            ("adam", {"learning_rate": BERT_LR}), 1, failures))
+    finally:
+        amp.turn_off()
+
+    def make_llama():
+        net = llama.llama3_8b(num_layers=REC_LLAMA_LAYERS)
+        net.cast("bfloat16")
+        net.initialize(mx.init.Normal(0.02), ctx=gpu)
+        return net
+
+    lids, llab = _ids_labels(torch, mx, 128256, 2048, SEED + 5)
+    add("llama3_8b", _rec_pair(
+        torch, mx, fa, f"llama3_8b_{REC_LLAMA_LAYERS}_layers", make_llama,
+        (lids,), lambda n, i: mx.nd.softmax_cross_entropy(
+            n(i).reshape((-1, n.config.vocab_size)), llab.reshape((-1,)))
+        / llab.size, ("sgd", {"learning_rate": TRAIN_LR, "momentum": 0.9}),
+        1, failures))
+
+    def make_resnet():
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=gpu)
+        net(mx.nd.zeros((1, 3, 224, 224), ctx=gpu))
+        net.cast("bfloat16")
+        return net
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    for tag, bsz, twice in (("resnet50_v1", RESNET_BATCHES[0], False),
+                            ("resnet50_v1_called_twice", REC_TWICE_B,
+                             True)):
+        x = mx.nd.array(torch.rand((bsz, 3, 224, 224), generator=gen,
+                                   device="cuda").bfloat16())
+        y = mx.nd.array(torch.randint(0, 1000, (bsz,), generator=gen,
+                                      device="cuda").float())
+        if twice:
+            def loss_of(n, x):
+                return loss_fn(n(x), y) + loss_fn(n(x * 0.5), y)
+        else:
+            def loss_of(n, x):
+                return loss_fn(n(x), y)
+        add(tag, _rec_pair(torch, mx, fa, tag, make_resnet, (x,), loss_of,
+                           ("sgd", {"learning_rate": RESNET_LR,
+                                    "momentum": 0.9}), bsz, failures))
+    twice_ok = rows["resnet50_v1_called_twice"]["graph_instances"] == [2]
+    drop = mx.gluon.nn.Dropout(REC_DROP)
+    drop.hybridize()
+    ones = mx.nd.ones((REC_DROP_N,), ctx=gpu)
+    ones.attach_grad()
+    masks = []
+    for _ in range(3):
+        with mx.autograd.record():
+            out = drop(ones)
+        out.backward()
+        masks.append(out._data != 0)
+    keep = [float(m.float().mean()) for m in masks]
+    fresh = not torch.equal(masks[1], masks[2])
+    drop_ok = fresh and drop.cache_stats()["hits"] == 2 and all(
+        abs(k - (1 - REC_DROP)) < 0.01 for k in keep)
+    ok = all(r["ok"] for r in rows.values()) and twice_ok and drop_ok
+    emit(dict(phase="recorded_graphs", card=STASH["smi"], runs=rows,
+              called_twice_instances_ok=twice_ok,
+              dropout=dict(rate=REC_DROP, units=REC_DROP_N,
+                           keep_rates=keep, fresh_masks=fresh, ok=drop_ok),
+              launches=dict(zip(("fwd", "dq", "dkv"), launches)), ok=ok))
+    if not (twice_ok and drop_ok):
+        failures.append(f"30a: twice-called instances {twice_ok}, dropout "
+                        f"keep {keep}, fresh {fresh}")
+    del masks, ones, drop
+    free_card(torch)
+    return launches, mma
+
+
+def _gs_prompts(vocab, radix):
+    rng = np.random.RandomState(SEED + 231)
+    if radix:
+        pre = rng.randint(1, vocab, size=GS_PREFIX)
+        return [np.concatenate([pre, rng.randint(1, vocab, size=n)])
+                .astype(np.int32) for n in (40, 200, 300)]
+    return [rng.randint(1, vocab, size=n).astype(np.int32)
+            for n in GS_LENGTHS]
+
+
+def _gs_serve(mx, serving, net, prompts, naive, radix=False, max_batch=4,
+              min_length=GS_MIN_LENGTH, **kw):
+    """Serve ``prompts`` (GS_NEW tokens each) twice in one server, with
+    the engine's programs eager (the NaiveEngine) or graphed; the radix
+    mode's first prompt goes alone first, so that the others find its
+    prefix.  The first wave captures the graphs the build did not, the
+    second replays them.  Returns (both waves' replies, stats, the
+    second wave's TTFTs in ms, the engine's graph pools, its KV pool
+    bytes, wall s, and the build's seconds, whether it captured the
+    whole prefill/scatter table, the programs captured while serving,
+    the graphs' budget)."""
+    prev = mx.engine.engine_type()
+    if naive:
+        mx.engine.set_engine_type("NaiveEngine")
+    try:
+        cfg = serving.ServerConfig(max_batch=max_batch,
+                                   max_length=SERVE_MAX_LEN,
+                                   min_length=min_length,
+                                   num_slots=SERVE_SLOTS,
+                                   block_size=SERVE_BLOCK, **kw)
+        t = time.perf_counter()
+        srv = serving.GenerativeServer(net, cfg)
+        built_s = time.perf_counter() - t
+        built = set(srv.engine.graph_pool_bytes())
+        replies = []
+        with srv:
+            for wave in range(2):
+                head = prompts[:1] if radix and wave == 0 else []
+                for group in (head, prompts[len(head):]):
+                    replies += [f.result(600) for f in
+                                [srv.submit(p, max_new_tokens=GS_NEW)
+                                 for p in group]]
+            stats = srv.stats()
+        wall = time.perf_counter() - t
+        ttft = [r["ttft_ms"] for r in srv.request_records()][len(prompts):]
+        pools = srv.engine.graph_pool_bytes()
+        kv = srv.engine.kv_pool_bytes()
+        sigs = cfg.policy.signatures()
+        table = {(p, kb, lb) for p in ("prefill", "scatter")
+                 for kb, lb in sigs}
+        if radix:
+            table |= {("gather", kb, lp) for kb, lp in sigs}
+            table |= {("prefill_sfx", kb, lp, lb) for kb, lp in sigs
+                      for kb2, lb in sigs if kb2 == kb}
+        extra = dict(build_s=built_s, table_captured_at_build=table <= built,
+                     captured_while_serving=len(set(pools) - built),
+                     graph_budget=srv.engine._graph_budget)
+        del srv
+        return replies, stats, ttft, pools, kv, wall, extra
+    finally:
+        mx.engine.set_engine_type(prev)
+
+
+def serving_graphs_phase(torch, mx, serving, net, failures):
+    """Phase 30b: the serving engine's programs as CUDA graphs, on phase
+    8's ``llama3_8b`` (32 layers, bf16).  First one paged engine with a
+    speculative window of 3, eager (the NaiveEngine) and graphed: each
+    GS_BUCKETS prefill and the verify program timed (GS_REPS calls after
+    two), and the graph pools' bytes beside ``kv_pool_bytes``.  Then
+    GenerativeServer in the paged, slots, radix, speculative (the net as
+    its own draft, spec_k=3) and int8 modes, eager and graphed, on three
+    prompts (GS_LENGTHS; the radix mode's share a GS_PREFIX-token
+    prefix) served twice, the second wave replaying what the first
+    captured: the greedy tokens equal, token for token; the second
+    wave's TTFTs; the graphed server's ``compiled_signatures``.  The
+    paged, radix and int8 servers (int8 at batch 1, radix at batch 1-2
+    from 512 tokens) capture their whole bucket table (lengths GS_MIN_LENGTH to
+    SERVE_MAX_LEN) when built and nothing while serving, and the
+    engine's graph memory (its pool's growth at every capture and the
+    two arenas) stays within ``cuda_graph.budget``."""
+    from mxnet_tpu_torch.serving import generative
+
+    free_card(torch)
+    vocab = net.config.vocab_size
+    rng = np.random.RandomState(SEED + 232)
+    timing, pools = {}, {}
+    for naive in (True, False):
+        prev = mx.engine.engine_type()
+        if naive:
+            mx.engine.set_engine_type("NaiveEngine")
+        try:
+            eng = generative.LlamaServingEngine(
+                net, max_len=SERVE_MAX_LEN, num_slots=SERVE_SLOTS,
+                kv_mode="paged", block_size=SERVE_BLOCK, spec_k=3)
+            route = "eager" if naive else "graphed"
+            res = {}
+            for kb, lp in GS_BUCKETS:
+                ids = rng.randint(1, vocab, size=(kb, lp)).astype(np.int32)
+                t0s = np.full(kb, lp, np.int32)
+                ms = []
+                for _ in range(GS_REPS + 2):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    toks, rows = eng.prefill_rows(ids, t0s)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    del rows
+                res[f"prefill_{kb}x{lp}_ms"] = sum(ms[2:]) / GS_REPS
+            drafts = np.zeros((SERVE_SLOTS, 3), np.int32)
+            ms = []
+            for _ in range(GS_REPS + 2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.verify(drafts)
+                ms.append((time.perf_counter() - t) * 1e3)
+            res["verify_ms"] = sum(ms[2:]) / GS_REPS
+            res["kv_pool_bytes"] = eng.kv_pool_bytes()
+            res["graph_bytes_total"] = sum(eng.graph_pool_bytes().values())
+            res["graph_pool_bytes"] = {
+                "/".join(map(str, k)): v
+                for k, v in eng.graph_pool_bytes().items()}
+            timing[route] = res
+            del eng
+            free_card(torch)
+        finally:
+            mx.engine.set_engine_type(prev)
+    modes = {"paged": {"capture_buckets": True},
+             "slots": {"kv_mode": "slots"},
+             # its table is cubic in the lengths: batch 1-2 from 512
+             "radix": {"radix_cache": True, "capture_buckets": True,
+                       "min_length": 512, "max_batch": 2},
+             "speculative": {"draft_net": net, "spec_k": 3},
+             # int8's f32 products make its prefill ~10x bf16's: its
+             # table is the batch-1 row
+             "int8": {"int8": True, "capture_buckets": True,
+                      "max_batch": 1}}
+    runs, equal = {}, True
+    for mode, kw in modes.items():
+        prompts = _gs_prompts(vocab, mode == "radix")
+        got = {}
+        for naive in (True, False):
+            got["eager" if naive else "graphed"] = _gs_serve(
+                mx, serving, net, prompts, naive, mode == "radix", **kw)
+            free_card(torch)
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(got["eager"][0], got["graphed"][0]))
+        equal = equal and same
+        runs[mode] = dict(
+            tokens_equal=same,
+            ttft_ms={k: v[2] for k, v in got.items()},
+            wall_s={k: v[5] for k, v in got.items()},
+            kv_pool_bytes=got["graphed"][4],
+            graph_bytes_total=sum(got["graphed"][3].values()),
+            **got["graphed"][6],
+            graph_pool_bytes={"/".join(map(str, k)): v
+                              for k, v in got["graphed"][3].items()},
+            compiled_signatures=[list(s) for s in
+                                 got["graphed"][1]["compiled_signatures"]])
+    kinds = {k.split("/")[0] for r in runs.values()
+             for k in r["graph_pool_bytes"]}
+    ok = equal and {"prefill", "scatter", "verify", "gather",
+                    "prefill_sfx"} <= kinds and \
+        not timing["eager"]["graph_pool_bytes"] and all(
+            runs[m]["table_captured_at_build"] and
+            runs[m]["captured_while_serving"] == 0 and
+            runs[m]["graph_bytes_total"] <= runs[m]["graph_budget"]
+            for m in ("paged", "radix", "int8"))
+    emit(dict(phase="serving_graphs", card=STASH["smi"], layers=len(
+        net.model.layers), engine=timing, servers=runs, ok=ok))
+    if not ok:
+        failures.append(f"30b: tokens equal {equal}, graphed programs "
+                        f"{sorted(kinds)}")
+
+
+def detector_export_phase(torch, mx, tc, failures):
+    """Phase 30c: the detectors' export.  SSD-512 and YOLOv3 (bf16) and
+    Faster R-CNN (f32) at B=1, with 23b-23d's weights: the hybridized
+    block's forward, ``HybridBlock.export`` (its seconds), the program
+    imported on the card (``SymbolBlock.imports``) and its forward:
+    ids, scores and boxes equal to the live block's bit for bit, with
+    ``nms_keep``'s launches through the program.  Also the custom op's
+    host cost: ``nms_keep`` through ``torch.library``'s dispatcher
+    against the ctypes launch it wraps (``_nms_keep_cuda``), at the
+    kernels line's shape."""
+    import tempfile
+
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    tmp = tempfile.mkdtemp(prefix="mxt_export_det_")
+    rows, launches, fused = {}, 0, [0, 0]
+    cbr = sys.modules["mxnet_tpu_torch.ops.conv_bn_relu"]
+    for name, (make, arrays, x, dtype) in STASH["det"].items():
+        net = make()
+        load_numpy_params(net, arrays, ctx=mx.gpu(0))
+        if dtype != "float32":
+            net.cast(dtype)
+        x = x[-1][:1]
+        net.hybridize()
+        live = [o._data.clone() for o in net(x)]
+        t = time.perf_counter()
+        sym, params = net.export(os.path.join(tmp, name))
+        export_s = time.perf_counter() - t
+        block = mx.gluon.SymbolBlock.imports(sym, ["data"], params,
+                                             ctx=mx.gpu(0))
+        tc.nms_keep.launches = 0
+        f0 = (cbr.fused_matmul_affine_relu.launches,
+              cbr.fused_matmul_affine_relu.launches_mma)
+        outs = [o._data for o in block(x)]
+        torch.cuda.synchronize()
+        nms = tc.nms_keep.launches
+        launches += nms
+        fused = [fused[0] + cbr.fused_matmul_affine_relu.launches - f0[0],
+                 fused[1] + cbr.fused_matmul_affine_relu.launches_mma -
+                 f0[1]]
+        equal = all(torch.equal(a, b) for a, b in zip(outs, live))
+        rows[name] = dict(dtype=dtype, export_s=export_s,
+                          nms_launches_a_forward=nms, bit_equal=equal,
+                          kept_rows=int((live[0] >= 0).sum()),
+                          ok=equal and nms > 0)
+        del net, block, live, outs
+        free_card(torch)
+    g, n, cls = NMS_MAIN
+    gen = torch.Generator().manual_seed(SEED + 233)
+    boxes = _det_boxes(torch, gen, (g, n), 512.0, wh=(10.0, 150.0)).cuda()
+    valid = (torch.rand((g, n), generator=gen) > 0.1).cuda()
+    ids = torch.randint(0, DET_CLASSES, (g, n),
+                        generator=gen).float().cuda() if cls else None
+    op_us = host_us(torch, lambda: tc.nms_keep(boxes, valid, ids, 0.45),
+                    200)
+    direct_us = host_us(torch, lambda: tc._nms_keep_cuda(boxes, valid, ids,
+                                                         0.45), 200)
+    same = torch.equal(tc.nms_keep(boxes, valid, ids, 0.45),
+                       tc._nms_keep_cuda(boxes, valid, ids, 0.45))
+    ok = all(r["ok"] for r in rows.values()) and same
+    emit(dict(phase="detector_export", card=STASH["smi"], nets=rows,
+              nms_host_us=dict(custom_op=op_us, ctypes_launch=direct_us,
+                               at=dict(G=g, n=n, class_ids=cls),
+                               same_mask=same), ok=ok))
+    if not ok:
+        failures.append(f"30c: {rows}, op and launch masks equal {same}")
+    return launches, fused
+
+
+def offload_mesh_phase(torch, mx, llama, fa, mt, parallel, failures):
+    """Phase 30d: ``Trainer(offload="host")`` over a mesh.  A one-rank
+    NCCL group, mesh {dp: 1, tp: 1}, ``LLAMA_RULES``, the ``dist_sync``
+    store; ``llama3_8b`` at OFFMESH_LAYERS layers, bf16 with f32 masters,
+    SGD with momentum, B=1, T=2048: the offloaded mesh trainer against
+    the on-device mesh trainer from one state for OFFMESH_STEPS steps,
+    the weights bit-equal after each; the step ms and the H2D/D2H bytes
+    of each step."""
+    from mxnet_tpu_torch.memory import offload
+
+    free_card(torch)
+    offload.reset()
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0)
+    try:
+        mesh = parallel.make_mesh({"dp": 1, "tp": 1})
+        pair = []
+        _zero_counts(fa)  # 30d's path starts here
+        mt.multi_tensor_update.launches = 0
+        for off in (None, "host"):
+            mx.random.seed(SEED)
+            net = llama.llama3_8b(num_layers=OFFMESH_LAYERS)
+            net.cast("bfloat16")
+            net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+            tr = mx.gluon.Trainer(
+                net.collect_params(), "sgd",
+                {"learning_rate": TRAIN_LR, "momentum": 0.9,
+                 "multi_precision": True}, kvstore="dist_sync",
+                partition_rules=parallel.LLAMA_RULES, mesh=mesh,
+                offload=off)
+            pair.append((net, tr))
+        ids, labels = _ids_labels(torch, mx, pair[0][0].config.vocab_size,
+                                  2048, SEED + 5)
+        ids = parallel.shard_batch(ids, mesh)
+        labels = parallel.shard_batch(labels, mesh)
+        rows, equal, totals, mma, upd = [], True, [0, 0, 0], [0, 0, 0], 0
+        for step in range(OFFMESH_STEPS):
+            got = [_offload_step(torch, mx, fa, mt, offload, net, tr, ids,
+                                 labels) for net, tr in pair]
+            same = all(torch.equal(parallel.local(a.data()._data),
+                                   parallel.local(b.data()._data))
+                       for a, b in zip(pair[0][0].collect_params().values(),
+                                       pair[1][0].collect_params().values()))
+            equal = equal and same and got[0]["loss"] == got[1]["loss"]
+            rows.append(dict(step=step, device=got[0], offloaded=got[1],
+                             weights_equal=same))
+            for g in got:
+                totals = [a + b for a, b in zip(totals, g["launches"])]
+                mma = [a + b for a, b in zip(mma, g["launches_mma"])]
+                upd += g["update_launches"]
+        states = [a for i in pair[1][1]._live()
+                  for a in pair[1][1]._offloaded_ndarrays(i)]
+        stashed = all(offload.is_stashed(a) for a in states)
+        ok = equal and stashed and offload.resident_bytes() > 0
+        emit(dict(phase="offload_mesh", card=STASH["smi"],
+                  layers=OFFMESH_LAYERS, mesh={"dp": 1, "tp": 1},
+                  steps=rows, states_stashed=stashed,
+                  resident_bytes=offload.resident_bytes(), ok=ok))
+        if not ok:
+            failures.append(f"30d offload over a mesh: equal {equal}, "
+                            f"stashed {stashed}: {rows}")
+        del pair, states
+    finally:
+        parallel.shutdown()
+        free_card(torch)
+        offload.reset()
+    return totals, mma, upd
+
+
+def _bulk_run(torch, mx, fn, n):
+    """``fn()`` under ``engine.bulk(n)`` (n > 1) or unbulked, timed to the
+    card's end, with the telemetry step record around it: (its result,
+    ms, the record's ``bulk_flush``, its flush counters)."""
+    tel = mx.telemetry
+    tel.enable(memory=False, cost=False)
+    try:
+        tel.step_begin()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if n > 1:
+            with mx.engine.bulk(n):
+                out = fn()
+        else:
+            out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        rec = tel.step_end()
+    finally:
+        tel.disable()
+    reasons = {k[len("engine.bulk_flush."):]: v
+               for k, v in rec["counters"].items()
+               if k.startswith("engine.bulk_flush.")}
+    return out, ms, rec["bulk_flush"], reasons
+
+
+def bulk_phase(torch, mx, fm, failures):
+    """Phase 30e: the engine's bulk segments (``engine.bulk(BULK_N)``, the
+    async tier on) on three eager loops, each against the same loop
+    unbulked from one state, BULK_STEPS times: SSD-512's B=1 bf16 forward
+    (23b's weights, unhybridized), the word LM's step (unhybridized,
+    dropout 0, ``clip_global_norm`` and the update outside ``record``)
+    and the FM step (24b's model and store, unhybridized).  Each bulked
+    result bit-equal to the unbulked one (the SSD rows; the word LM's
+    weights and the FM tables after the steps); the ms of a step bulked
+    and unbulked; the segment cache's hits and misses; ``bulk_flush`` and
+    the flush reasons of the last bulked step."""
+    from mxnet_tpu_torch.convert import load_numpy_params
+
+    free_card(torch)
+    engine = mx.engine
+    tc = sys.modules["mxnet_tpu_torch.ops.contrib"]
+    cbr = sys.modules["mxnet_tpu_torch.ops.conv_bn_relu"]
+    rows, nms, fused = {}, 0, [0, 0]
+    tc.nms_keep.launches = 0  # 30e's paths start here
+    cbr.fused_matmul_affine_relu.launches = 0
+    cbr.fused_matmul_affine_relu.launches_mma = 0
+
+    def loop(name, make_state, step, same):
+        nonlocal nms, fused
+        res = {}
+        for n in (1, BULK_N):
+            state = make_state()
+            engine.clear_segment_cache()
+            ms = []
+            for _ in range(BULK_STEPS):
+                n0 = tc.nms_keep.launches
+                f0 = (cbr.fused_matmul_affine_relu.launches,
+                      cbr.fused_matmul_affine_relu.launches_mma)
+                out, t, flushes, reasons = _bulk_run(
+                    torch, mx, lambda: step(state), n)
+                ms.append(t)
+                if n > 1:
+                    nms += tc.nms_keep.launches - n0
+                    fused = [
+                        fused[0] + cbr.fused_matmul_affine_relu.launches -
+                        f0[0], fused[1] +
+                        cbr.fused_matmul_affine_relu.launches_mma - f0[1]]
+            res[n] = dict(state=state, out=out, ms=ms, flushes=flushes,
+                          reasons=reasons,
+                          cache=engine.segment_cache_stats())
+        equal = same(res[1], res[BULK_N])
+        rows[name] = dict(
+            bit_equal=equal, unbulked_ms=res[1]["ms"],
+            bulked_ms=res[BULK_N]["ms"],
+            segment_cache=res[BULK_N]["cache"],
+            bulk_flush=res[BULK_N]["flushes"],
+            flush_reasons=res[BULK_N]["reasons"],
+            ok=equal and res[BULK_N]["flushes"] > 0 and
+            res[BULK_N]["cache"]["hit"] > 0)
+        del res
+        free_card(torch)
+
+    make_ssd, arrays, xs, dtype = STASH["det"]["ssd_512_resnet50_v1"]
+
+    def ssd_state():
+        net = make_ssd()
+        load_numpy_params(net, arrays, ctx=mx.gpu(0))
+        net.cast(dtype)
+        return net
+
+    loop("ssd_512_resnet50_v1_b1", ssd_state,
+         lambda net: [o._data for o in net(xs[-1][:1])],
+         lambda a, b: all(torch.equal(x, y)
+                          for x, y in zip(a["out"], b["out"])))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 234)
+    x = mx.nd.array(torch.randint(0, WLM_VOCAB, (WLM_BPTT, BULK_WLM_B),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32))
+    y = mx.nd.array(torch.randint(0, WLM_VOCAB, (WLM_BPTT, BULK_WLM_B),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    tokens = WLM_BPTT * BULK_WLM_B
+
+    def wlm_state():
+        mx.random.seed(SEED)
+        net = _word_lm(mx, 0.0)
+        net.initialize(mx.init.Uniform(0.1), ctx=mx.gpu(0))
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": WLM_LR})
+        return net, tr
+
+    def wlm_step(state):
+        net, tr = state
+        params = [p for p in net.collect_params().values()
+                  if p.grad_req != "null"]
+        with mx.autograd.record():
+            loss = loss_fn(net(x).reshape((-1, WLM_VOCAB)),
+                           y.reshape((-1,)))
+        loss.backward()
+        mx.gluon.utils.clip_global_norm([p.grad() for p in params],
+                                        WLM_CLIP * tokens)
+        tr.step(tokens)
+        return loss.mean()
+
+    loop("word_lm_step", wlm_state, wlm_step,
+         lambda a, b: _params_equal(torch, a["state"][0], b["state"][0]))
+
+    path = STASH["fm"]["path"]
+
+    def fm_state():
+        with mx.gpu(0):
+            it = mx.io.LibSVMIter(data_libsvm=path, data_shape=(FM_FEATURES,),
+                                  batch_size=FM_B)
+        kv = mx.kv.create("local")
+        kv.set_optimizer(mx.optimizer.Adam(learning_rate=FM_LR))
+        model = fm.FMModel(FM_FEATURES, FM_FACTOR, seed=SEED + 244,
+                           kvstore=kv, ctx=mx.gpu(0))
+        return model, iter(it)
+
+    def fm_step(state):
+        model, batches = state
+        b = next(batches)
+        return model.step(b.data[0], b.label[0])
+
+    loop("fm_step", fm_state, fm_step,
+         lambda a, b: all(torch.equal(u, v) for u, v in zip(
+             _fm_tables(a["state"][0]).values(),
+             _fm_tables(b["state"][0]).values())))
+    ok = all(r["ok"] for r in rows.values())
+    emit(dict(phase="bulk_segments", card=STASH["smi"], n=BULK_N,
+              steps=BULK_STEPS, async_tier=engine.async_enabled(),
+              loops=rows, ok=ok))
+    if not ok:
+        failures.append(f"30e bulk segments: {rows}")
+    return nms, fused
+
+
 def main():
     t_script = time.perf_counter()
     import torch
@@ -10874,6 +11627,8 @@ def main():
     # slice 20: serving observability and the lock sanitizer (28a, 28d)
     serving_observability_phase(torch, mx, llama, serving, fa, net,
                                 failures)
+    # slice 23: the serving programs as graphs (30b)
+    _phase(serving_graphs_phase, failures, None, torch, mx, serving, net)
     del net
     train_launches, train_mma, update_launches = train_phase(
         torch, mx, llama, fa, mt, failures)
@@ -11042,6 +11797,28 @@ def main():
         failures.append(f"slice 21 left a kernel unlaunched: 29b {lad}, "
                         f"29c {full}, 29d {off}, updates "
                         f"{(lad_upd, full_upd, off_upd)}")
+    # slice 23: graphed recorded forwards (30a), the detectors' export
+    # (30c), host offload over a mesh (30d), bulk segments (30e)
+    rec, rec_mma = _phase(recorded_graph_phase, failures,
+                          ([0, 0, 0], [0, 0, 0]), torch, mx, bert, llama,
+                          vision, fa)
+    exp_nms, exp_det = _phase(detector_export_phase, failures,
+                              (0, [0, 0]), torch, mx, tc)
+    offm, offm_mma, offm_upd = _phase(
+        offload_mesh_phase, failures, ([0, 0, 0], [0, 0, 0], 0), torch, mx,
+        llama, fa, mt, parallel)
+    update_launches += offm_upd
+    bulk_nms, bulk_fused = _phase(bulk_phase, failures, (0, [0, 0]), torch,
+                                  mx, fm)
+    nms_launches += exp_nms + bulk_nms
+    fused_launches += exp_det[0] + bulk_fused[0]
+    fused_mma += exp_det[1] + bulk_fused[1]
+    mem = [a + b + c for a, b, c in zip(mem, rec, offm)]
+    mem_mma = [a + b + c for a, b, c in zip(mem_mma, rec_mma, offm_mma)]
+    if 0 in rec or 0 in offm or 0 in (exp_nms, bulk_nms, offm_upd):
+        failures.append(f"slice 23 left a kernel unlaunched: 30a {rec}, "
+                        f"30c nms {exp_nms}, 30d {offm} updates {offm_upd}, "
+                        f"30e nms {bulk_nms}")
     if update_launches == 0:
         failures.append("the training paths launched no multi-tensor "
                         "update")
@@ -11116,6 +11893,7 @@ def main():
          "launches_telemetry": tel[0],
          "launches_observability": obs_bert[0] + obs_fleet[0],
          "launches_memory": mem[0],
+         "launches_recorded_graphs": rec[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
          "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -11136,6 +11914,7 @@ def main():
          "launches_telemetry": tel[1],
          "launches_observability": obs_fleet[1],
          "launches_memory": mem[1],
+         "launches_recorded_graphs": rec[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
@@ -11156,6 +11935,7 @@ def main():
          "launches_telemetry": tel[2],
          "launches_observability": obs_fleet[2],
          "launches_memory": mem[2],
+         "launches_recorded_graphs": rec[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
@@ -11174,6 +11954,8 @@ def main():
          "launches_monitor": mon[0],
          "launches_monitor_graph": mon_g[0],
          "launches_observability": obs_resnet[0],
+         "launches_exported_detectors": exp_det[0],
+         "launches_bulk": bulk_fused[0],
          "max_abs_err": fused["max_abs_err"],
          "ms": fused["kernel_ms"], "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
@@ -11199,6 +11981,7 @@ def main():
          "launches_telemetry": tel_updates,
          "launches_observability": obs_updates,
          "launches_memory": lad_upd + full_upd + off_upd,
+         "launches_offload_mesh": offm_upd,
          "launches": update_launches, "max_abs_err": mtrow["max_abs_err"],
          "ms": mtrow["kernel_ms"], "plain_ms": mtrow["plain_ms"],
          "bound_ms": mtrow["bound_ms"], "bound_by": mtrow["bound_by"],
@@ -11213,6 +11996,7 @@ def main():
          "at": dict(zip(("G", "n", "class_ids"), NMS_MAIN)),
          "launches": nms_launches,
          "launches_by_net": {k: v[2] for k, v in det.items()},
+         "launches_exported": exp_nms, "launches_bulk": bulk_nms,
          "cuda_launches_a_call": nms_row["cuda_launches_a_call"],
          "max_abs_err": nms_row["max_abs_err"], "ms": nms_row["ms"],
          "device_ms": nms_row["device_ms"],

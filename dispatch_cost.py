@@ -9,7 +9,10 @@ and power limit, the host time of one eager call of the flash-attention
 forward (#1, ``flash_attention_fwd``) and of the fused 1x1 conv kernel
 (#4, ``fused_matmul_affine_relu``) in us (calls enqueued back to back,
 on the host's clock, at a small shape so the card keeps up; the median
-of WINDOWS windows of HOST_ITERS calls), and the wall time of eager
+of WINDOWS windows of HOST_ITERS calls), the same of one eager NDArray
+op through ``apply_op`` (``nd.relu`` and ``a + 1.0`` on a (64, 64)
+array: the op layer's own cost, bulking off) and of ``nms_keep`` (G=1,
+n=400), and the wall time of eager
 ``resnet50_v1`` bf16 B=128 and ``ssd_512_resnet50_v1`` bf16 B=1
 forwards in ms (synchronized; the median of ``REPS`` after a warm-up).
 The host is shared with other work, so single windows vary.  To
@@ -79,6 +82,16 @@ def main():
         fa_us = host_us(lambda: fa.flash_attention_fwd(q, q, q))
         fused_us = host_us(lambda: cbr.fused_matmul_affine_relu(x, w, sc,
                                                                bi))
+    from mxnet_tpu_torch.ops import contrib
+
+    a = mx.nd.array(torch.randn((64, 64), device=dev, generator=gen),
+                    ctx=mx.gpu(0))
+    op_us = {"relu": host_us(lambda: mx.nd.relu(a)),
+             "add_scalar": host_us(lambda: a + 1.0)}
+    xy = torch.rand((1, 400, 2), device=dev, generator=gen) * 400
+    boxes = torch.cat([xy, xy + 40], dim=-1)
+    valid = torch.ones((1, 400), dtype=torch.bool, device=dev)
+    nms_us = host_us(lambda: contrib.nms_keep(boxes, valid, None, 0.5))
 
     def forward_ms(net, inp):
         net(inp)
@@ -112,6 +125,7 @@ def main():
                           torch=torch.__version__,
                           flash_attention_fwd_host_us=fa_us,
                           fused_matmul_affine_relu_host_us=fused_us,
+                          nd_op_host_us=op_us, nms_keep_host_us=nms_us,
                           eager_forward_ms=nets)), flush=True)
     return 0
 

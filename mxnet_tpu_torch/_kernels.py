@@ -190,12 +190,13 @@ def check(lib, err: int, what: str):
 
 def refuse_trace(name, *tensors):
     """Raise ``MXNetError`` naming "Left out of slice 17" when a tensor
-    is a fake one of a trace (``torch.export``): the kernel ``name`` is
-    launched through ``ctypes``, not through an op a program can hold, so
-    a block that reaches it does not export."""
+    is a fake one of a trace (``torch.export``): the training kernel
+    ``name`` is launched through ``ctypes``, not through an op a program
+    can hold; no inference forward reaches it, in either package."""
     from torch._subclasses.fake_tensor import FakeTensor
 
     if any(isinstance(t, FakeTensor) for t in tensors):
         raise MXNetError(
-            f"exporting a block that reaches the {name} kernel is not "
-            "ported (ROADMAP.md, \"Left out of slice 17\")")
+            f"exporting a block that reaches the {name} training kernel "
+            "is not supported: an export holds the inference forward "
+            "(ROADMAP.md, \"Left out of slice 17\")")

@@ -57,8 +57,19 @@ def is_training() -> bool:
     return _STATE.training
 
 
+def _flush_on_record(prev, new):
+    # entering a recording region is a bulk-flush boundary: pending ops
+    # become real tensors before the tape observes them
+    if new and not prev:
+        from . import engine as _engine
+
+        if _engine._bulk_on:
+            _engine.flush("record")
+
+
 def set_recording(is_record: bool) -> bool:
     prev, _STATE.recording = _STATE.recording, bool(is_record)
+    _flush_on_record(prev, _STATE.recording)
     return prev
 
 
@@ -76,6 +87,7 @@ class _RecordingStateScope:
         self._prev = (_STATE.recording, _STATE.training)
         if self._rec is not None:
             _STATE.recording = self._rec
+            _flush_on_record(self._prev[0], self._rec)
         if self._train is not None:
             _STATE.training = self._train
         return self
@@ -314,7 +326,11 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if create_graph:  # the gradients stay in the graph
         return [NDArray(torch.zeros_like(v._data) if g is None else g)
                 for v, g in zip(variables, grads)]
-    return [NDArray(torch.zeros_like(v._data) if g is None else g.detach())
+    # a graphed block's gradient is its graph's buffer (gluon/block.py),
+    # which the next replay overwrites: the caller gets a copy
+    return [NDArray(torch.zeros_like(v._data) if g is None else
+                    g.clone() if getattr(g, "_mx_graph_owned", False)
+                    else g.detach())
             for v, g in zip(variables, grads)]
 
 

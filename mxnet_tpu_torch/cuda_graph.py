@@ -49,7 +49,7 @@ from .base import MXNetError
 
 _STATE = threading.local()
 _SIDE = {}  # device index -> the warm-up stream
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()  # a finalizer run by a collection may take it
 _GC = {"captures": 0, "was_on": True}  # under _LOCK
 _TALLIES = {}  # capture stream handle -> its tally; under _LOCK
 
@@ -129,6 +129,20 @@ class Graph:
                 setattr(fn, attr, getattr(fn, attr) + d)
 
 
+#: the share of the card's memory budget (``memory.planner.budget_bytes``)
+#: that graphs kept for later calls may hold: the recorded graph pairs of
+#: all hybridized blocks together, and each serving engine's graphs
+GRAPH_SHARE = 0.25
+
+
+def budget(device=None):
+    """Bytes that kept graphs may hold on ``device`` (``GRAPH_SHARE``
+    of its budget): past it, callers run eagerly and count the call."""
+    from .memory import planner
+
+    return int(GRAPH_SHARE * planner.budget_bytes(device))
+
+
 def warmup(fn):
     """Run ``fn`` eagerly on a side stream (what torch asks of a capture's
     first run: lazy initialisations happen outside the capture); returns
@@ -144,16 +158,33 @@ def warmup(fn):
     return out
 
 
+_FREE_STREAMS = {}  # device index -> capture streams of ended threads
+
+
+class _Streams(dict):
+    """A thread's capture streams by device, given back to
+    ``_FREE_STREAMS`` when the thread ends: cuBLAS keeps a workspace for
+    every stream it has run on, for the life of the process, so a server
+    whose lane threads come and go must not make a new stream each."""
+
+    def __del__(self):
+        with _LOCK:
+            for dev, stream in self.items():
+                _FREE_STREAMS.setdefault(dev, []).append(stream)
+
+
 def _capture_stream():
     """This thread's capture stream on the current device (torch's
     default capture stream is one for the process, and a stream holds one
-    capture at a time)."""
+    capture at a time): one an ended thread gave back, else a new one."""
     streams = getattr(_STATE, "capture_streams", None)
     if streams is None:
-        streams = _STATE.capture_streams = {}
+        streams = _STATE.capture_streams = _Streams()
     dev = torch.cuda.current_device()
     if dev not in streams:
-        streams[dev] = torch.cuda.Stream()
+        with _LOCK:
+            free = _FREE_STREAMS.get(dev)
+            streams[dev] = free.pop() if free else torch.cuda.Stream()
     return streams[dev]
 
 

@@ -24,7 +24,8 @@ Telemetry, under the reference's names, at each ``get()``: the wait as
 ``data.wait_ms``, the queue depth as the ``data.prefetch_depth`` gauge,
 and ``data.overlap_dispatch`` when a later batch's copy had already been
 issued as this one was handed out (the consumer's step then overlaps a
-copy; the reference counts its dispatches during a copy).
+copy), and at each bulk segment the engine hands to its worker while a
+copy is issued (the reference's dispatch callback).
 
 With ``mesh=`` (a ``DeviceMesh`` with the ``axis_name`` axis, default
 ``dp``) the source yields the global batch and each rank copies only its
@@ -38,10 +39,12 @@ import collections
 import queue
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from .. import engine
 from .. import telemetry
 from ..base import MXNetError
 from ..context import current_context
@@ -130,6 +133,8 @@ class DevicePrefetcher:
         self._waits_ms = []
         self._depths = []
         self._stream = None  # the copy stream, made by the producer
+        self._dispatch_cb = _dispatch_observer(weakref.ref(self))
+        engine.register_dispatch_callback(self._dispatch_cb)
         self._thread = threading.Thread(target=self._produce,
                                         name="mxt-data-prefetch",
                                         daemon=True)
@@ -281,6 +286,7 @@ class DevicePrefetcher:
         if self._closed:
             return
         self._closed = True
+        engine.unregister_dispatch_callback(self._dispatch_cb)
         self._stop.set()
         if self._started:
             while True:  # unblock a producer stuck on a full queue
@@ -289,6 +295,14 @@ class DevicePrefetcher:
                 except queue.Empty:
                     break
             self._thread.join(timeout=30)
+
+    def _on_dispatch(self, reason):
+        """A bulk segment went to the engine's worker (``engine.py``):
+        counted as ``data.overlap_dispatch`` when a later batch's copy
+        has been issued, as the reference's callback counts a dispatch
+        during a transfer."""
+        if self._q.qsize():
+            telemetry.count("data.overlap_dispatch")
 
     def __enter__(self):
         return self
@@ -302,3 +316,13 @@ class DevicePrefetcher:
         except Exception:
             pass
 
+
+def _dispatch_observer(ref):
+    """The engine's dispatch callback of a prefetcher, holding it weakly
+    (a registered bound method would keep it alive)."""
+    def cb(reason):
+        pf = ref()
+        if pf is not None:
+            pf._on_dispatch(reason)
+
+    return cb

@@ -16,14 +16,35 @@ runs the forward eagerly and captures it into a CUDA graph
 signature copies its inputs into the graph's and replays it.  A graph is
 keyed on the parameters' addresses too: after ``cast`` or a forced
 re-initialization moves a parameter, the next call captures again.
-Under ``autograd.record()`` the block runs eagerly (training capture is
-``FusedTrainStep``'s); on the CPU it always runs eagerly.  Over a mesh
-(``DTensor`` parameters or inputs) the graph holds the forward's
-collectives and is keyed on each rank's local pieces; every NCCL group
-is warmed by an eager collective before the capture.  Graphing a
-recorded forward is left out of slice 7 (ROADMAP).  A forward runs with
-torch's gradient mode set to ``autograd.is_recording()``, so inference
-builds no autograd graph.
+Under ``autograd.record()`` on a card, a signature's first call runs
+eagerly (the warm-up, its backward included when it runs before the
+next call) and later calls replay two CUDA graphs that are one node of
+torch's tape (``_GraphedCall``, the counterpart of the reference's
+jitted ``_fwd_rec``/``_bwd`` pair): the forward graph, which also keeps
+the residuals, and the backward graph, which maps the outputs'
+gradients to the inputs' and parameters' (into buffers of its own: a
+parameter's gradient is then the graph's buffer until the next replay,
+as a captured ``FusedTrainStep``'s is).  The dropout generator
+advances on every replay; BatchNorm's moving statistics update inside
+the forward graph.  A call made while an earlier call of the signature
+still waits for its backward (a shared block, two micro-batches)
+replays another instance of the pair, captured into a pool of its own,
+so each keeps its residuals.  The pairs are bounded: a CachedOp keeps
+at most ``_MAX_RECORDED_GRAPHS`` (4) instances, and
+all the process's recorded instances together hold at most
+``cuda_graph.budget`` bytes; a capture first drops the free instances
+of the least recently used other signatures, and a call that still
+finds no room runs eagerly (``"over_budget"`` in ``cache_stats``).
+The graphed node differentiates once:
+``autograd.grad(create_graph=True)`` through it raises ``MXNetError``,
+as the reference's jitted node does.  A signature whose capture fails
+runs eagerly on every call (``"eager"`` in ``cache_stats``).  On the
+CPU, under ``FusedTrainStep`` and under the NaiveEngine the block runs
+eagerly.  Over a mesh (``DTensor`` parameters or inputs) the graphs hold
+the collectives and are keyed on each rank's local pieces; every NCCL
+group is warmed by an eager collective before a capture.  A forward
+runs with torch's gradient mode set to ``autograd.is_recording()``, so
+inference builds no autograd graph.
 
 ``hybridize(remat=<tier>)`` (``"none"``, ``"dots"``, ``"layer"`` or
 ``"auto"``, with ``remat_margin=``; ``memory.policy``) rematerializes a
@@ -34,9 +55,11 @@ the device budget; ``cachedop.remat_auto.<tier>`` counts the picks).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 import threading
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -370,21 +393,38 @@ class CachedOp:
         self._misses = 0
         self._recorded = 0
         self._recorded_sigs = set()
+        # signature -> _RecordedEntry or "eager", least recently used first
+        self._rec_graphs = OrderedDict()
+        self.capture_error = None  # why a recorded capture last failed
         self._eager = 0
+        self._over_budget = 0
         self._remat_tiers = {}  # signature -> resolved remat tier
 
     def cache_stats(self):
-        """``{"hits", "misses", "signatures"}`` as in the reference, and
-        ``"recorded"``: calls under ``autograd.record()``, which ran
-        eagerly.  Once a signature's forward has reached a host-code op
-        (``nd.Custom``), ``"eager"`` counts its calls, each run eagerly
-        (a graph would replay the first call's result)."""
+        """``{"hits", "misses", "signatures"}`` as in the reference (a
+        graphed recorded call counts as a hit or a miss of its
+        signature), and ``"recorded"``: calls under ``autograd.record()``
+        that ran eagerly (on the CPU, every one).  Once a signature's
+        forward has reached a host-code op (``nd.Custom``) or failed to
+        capture, ``"eager"`` counts its calls, each run eagerly;
+        ``"over_budget"`` counts graphed recorded calls that ran eagerly
+        because no instance of the graph pair was free and none could be
+        captured within the bounds."""
+        sigs = set(self._graphs) | set(self._rec_graphs)
         stats = {"hits": self._hits, "misses": self._misses,
-                 "signatures": len(self._graphs),
+                 "signatures": len(sigs),
                  "recorded": self._recorded}
         if self._eager:
             stats["eager"] = self._eager
+        if self._over_budget:
+            stats["over_budget"] = self._over_budget
         return stats
+
+    def recorded_graph_bytes(self):
+        """Device memory the pools of this CachedOp's recorded graph
+        pairs grew by at capture, summed over the instances it keeps."""
+        return sum(i.pool_bytes() for e in self._rec_graphs.values()
+                   if e != "eager" for i in e.instances)
 
     def _first_run(self, run):
         """``run()`` for a signature's first call; its entry is
@@ -445,7 +485,10 @@ class CachedOp:
     def __call__(self, *args):
         """The block's outputs as the classic ``NDArray``, on every route
         (the reference's compiled graph returns that type, also for a
-        forward that makes ``mx.np`` arrays)."""
+        forward that makes ``mx.np`` arrays).  A dispatch is a bulk-flush
+        boundary (``engine.py``)."""
+        if engine._bulk_on:
+            engine.flush("dispatch")
         return _map_out(self._call(*args), _classic)
 
     def _site(self):
@@ -473,8 +516,10 @@ class CachedOp:
 
         params = list(self.block.collect_params().values())
         if ag.is_recording():
-            self._recorded += 1
             tier = self._remat_tier(args, params)
+            if not _QUIET_STATE.depth and _on_card(args, params):
+                return self._graphed_recorded(args, params, tier)
+            self._recorded += 1
             if _QUIET_STATE.depth or not (
                     telemetry._enabled or _numerics._enabled or
                     _costs._enabled or _retrace._enabled):
@@ -643,6 +688,294 @@ class CachedOp:
             forward_with_stats if sig[4] else forward,
             pool=self._pool, mode="thread_local")
         return out, (ptrs, statics, graph, tuple(names))
+
+
+    # -- graphed recorded calls ---------------------------------------------
+    def _graphed_recorded(self, args, params, tier):
+        """A recorded call on a card: the signature's first call (for
+        these parameter addresses and gradient flags) runs eagerly as the
+        warm-up; later calls replay a free instance of its graph pair,
+        captured when none is free."""
+        sig = _signature(args, params)
+        arrays = [a for a in args if a is not None]
+        ptrs = tuple(local(p._data._data).data_ptr() for p in params)
+        key = (ptrs, tuple(a._data.requires_grad for a in arrays),
+               tuple(p._data._data.requires_grad for p in params), tier)
+        entry = self._rec_graphs.get(sig)
+        if entry == "eager":
+            self._eager += 1
+            self._hit()
+            return self._forward(args, tier)
+        if entry is None or entry.key != key:
+            seen = entry is not None or sig in self._graphs
+            if seen:
+                self._hit()
+            else:
+                self._misses += 1
+            self._rec_graphs[sig] = _RecordedEntry(key)
+            quiet = not (telemetry._enabled or _numerics._enabled or
+                         _costs._enabled or _retrace._enabled)
+            if quiet and not seen:
+                telemetry.count("cachedop.cache_miss")
+
+            def warm_up():
+                if quiet:
+                    return self._guarded(lambda: self._forward(args, tier))
+                return self._recorded_call(args, params, tier)
+
+            out, eager = self._first_run(warm_up)
+            if eager:  # a host-code op: a graph would replay its result
+                self._rec_graphs[sig] = eager
+            return out
+        self._rec_graphs.move_to_end(sig)
+        self._hit()
+        inst = entry.free()
+        if inst is None:
+            if not self._make_room(sig, local(params[0]._data._data).device
+                                   if params else arrays[0]._data.device):
+                self._over_budget += 1
+                telemetry.count("cachedop.graph_over_budget")
+                return self._forward(args, tier)
+            try:
+                with telemetry.span("cachedop.compile"):
+                    inst = self._guarded(lambda: self._capture_recorded(
+                        args, params, sig, tier))
+            except Exception as exc:
+                # a forward or backward that cannot be captured (it reads
+                # a value back): eager on every call from now, counted
+                self._rec_graphs[sig] = "eager"
+                self.capture_error = f"{type(exc).__name__}: {exc}"
+                self._eager += 1
+                telemetry.count("cachedop.capture_failed")
+                return self._forward(args, tier)
+            telemetry.count("cachedop.compile")
+            entry.instances.append(inst)
+        with telemetry.span("cachedop.replay"):
+            outs = self._guarded(lambda: _GraphedCall.apply(
+                inst, *(a._data for a in arrays),
+                *(p._data._data for p in params)))
+        stats = _numerics.harvesting()
+        if stats or _costs._enabled:
+            ag.after_backward(id(self), _grad_hook(
+                params, (id(self), sig, "bwd"), self._site(), stats))
+        self._note_cost(sig, mode="fwd_rec")
+        nds = [NDArray(o) for o in outs]
+        if inst.kind is None:
+            return nds[0]
+        return inst.kind(nds)
+
+    def _make_room(self, sig, device):
+        """Whether another instance of ``sig``'s graph pair may be
+        captured: this CachedOp keeps fewer than ``_MAX_RECORDED_GRAPHS``
+        instances and the process's recorded instances hold less than
+        ``cuda_graph.budget(device)``.  Free instances of the other
+        signatures are dropped, least recently used first, until it
+        may (their pools go back to the card at the next capture)."""
+        budget = cuda_graph.budget(device)
+
+        def room():
+            kept = sum(len(e.instances) for e in self._rec_graphs.values()
+                       if e != "eager")
+            return kept < _MAX_RECORDED_GRAPHS and \
+                _recorded_bytes() < budget
+
+        for s, e in self._rec_graphs.items():
+            if room():
+                return True
+            if s != sig and e != "eager":
+                e.drop_free()
+        return room()
+
+    def _capture_recorded(self, args, params, sig, tier):
+        """Capture a new instance of the recorded graph pair, into a pool
+        of its own (each instance keeps its own residuals): the forward
+        on static copies of the inputs (each requiring a gradient as its
+        input does) and the parameters where they lie, drawing from the
+        device's generator; then ``torch.autograd.grad`` of its
+        differentiable outputs on static output gradients.  The capture
+        sees each parameter through an alias (``detach``: the same
+        memory, a leaf of its own), so that no gradient accumulator of
+        an eager step still alive (the warm-up's loss) joins it: such a
+        node belongs to the stream it was made on, which a capture may
+        not wait for."""
+        arrays = [a for a in args if a is not None]
+        statics = [a._data.detach().clone().requires_grad_(
+            a._data.requires_grad) for a in arrays]
+        p_tensors = [p._data._data for p in params]
+        if any_dtensor(statics + p_tensors):
+            cuda_graph.warm_groups(statics + p_tensors)
+        aliases = [t.detach().requires_grad_(t.requires_grad)
+                   for t in p_tensors]
+        for p, a in zip(params, aliases):
+            p._data._raw = a
+        try:
+            return self._capture_pair(args, statics, aliases, sig, tier)
+        finally:
+            for p, t in zip(params, p_tensors):
+                p._data._raw = t
+
+    def _capture_pair(self, args, statics, p_tensors, sig, tier):
+        from .. import random as mx_random
+
+        it = iter(statics)
+        static_args = [None if a is None else NDArray(next(it))
+                       for a in args]
+        inst = _RecordedInstance()
+        pool = torch.cuda.graph_pool_handle()
+        device = local(statics[0] if statics else p_tensors[0]).device
+
+        def forward():
+            with _numerics.collecting() if sig[4] else \
+                    contextlib.nullcontext() as col:
+                out = self._forward(static_args, tier)
+            inst.kind = type(out) if isinstance(out, (tuple, list)) \
+                else None
+            outs = tuple(o._data for o in (out if inst.kind else (out,)))
+            if sig[4]:
+                names, stats = col.drain()
+                inst.stat_names = tuple(names)
+                return outs, stats if names else None
+            return outs, None
+
+        inst.fwd = cuda_graph.capture(
+            forward, pool=pool, mode="thread_local",
+            generators=(mx_random.generator(device),))
+        outs = inst.fwd.outputs[0]
+        inst.out_diff = tuple(o.requires_grad for o in outs)
+        diff_out = [o for o in outs if o.requires_grad]
+        inputs = statics + p_tensors
+        inst.in_diff = tuple(t.requires_grad for t in inputs)
+        diff_in = [t for t in inputs if t.requires_grad]
+        inst.gouts = [torch.zeros_like(o) for o in diff_out]
+
+        def backward():
+            return tuple(torch.autograd.grad(diff_out, diff_in, inst.gouts,
+                                             allow_unused=True))
+
+        inst.bwd = cuda_graph.capture(backward, pool=pool,
+                                      mode="thread_local")
+        for g in inst.bwd.outputs:
+            if g is not None:
+                g._mx_graph_owned = True  # ``autograd.grad`` copies it
+        inst.statics = statics
+        inst.name = self.block.name
+        inst.token = torch.empty(0, device=device)
+        _RECORDED.add(inst)
+        return inst
+
+
+class _RecordedEntry:
+    """A signature's recorded graphs: the key they were captured for (the
+    parameters' addresses, the gradient flags, the remat tier) and the
+    instances of the pair."""
+
+    def __init__(self, key):
+        self.key = key
+        self.instances = []
+
+    def free(self):
+        """An instance no outstanding call needs, or None."""
+        return next((i for i in self.instances if i.free()), None)
+
+    def drop_free(self):
+        """Drop the instances no outstanding call needs."""
+        self.instances = [i for i in self.instances if not i.free()]
+
+
+#: instances of recorded graph pairs a CachedOp keeps: a block called up
+#: to four times before its backward, or four input shapes in turn
+_MAX_RECORDED_GRAPHS = 4
+_RECORDED = weakref.WeakSet()  # every live _RecordedInstance
+
+
+def _recorded_bytes():
+    """What the pools of the process's recorded graph pairs grew by."""
+    return sum(i.pool_bytes() for i in list(_RECORDED))
+
+
+class _RecordedInstance:
+    """One captured forward/backward graph pair and its static tensors."""
+
+    owner = None
+    stat_names = ()
+
+    def free(self):
+        """Whether no outstanding call needs this instance (its node is
+        gone, or its backward ran without ``retain_graph``)."""
+        ctx = self.owner() if self.owner is not None else None
+        if ctx is None:
+            return True
+        try:
+            ctx.saved_tensors
+        except RuntimeError:  # freed by a backward
+            return True
+        return False
+
+    def pool_bytes(self):
+        return self.fwd.pool_bytes + self.bwd.pool_bytes
+
+
+class _GraphedCall(torch.autograd.Function):
+    """A graphed recorded call as one node of torch's tape: ``forward``
+    copies the inputs into the instance's static ones and replays its
+    forward graph, and copies the outputs out; ``backward`` copies the
+    output gradients in, replays its backward graph and hands on the
+    gradients it wrote, which the next replay of the instance
+    overwrites: a parameter's gradient is then the graph's own buffer,
+    as a captured ``FusedTrainStep``'s is (no second copy of every
+    gradient), and ``autograd.grad`` returns a copy of it."""
+
+    @staticmethod
+    def forward(ctx, inst, *tensors):
+        inst.owner = weakref.ref(ctx)
+        # the CachedOp owns its instances: an output kept after its block
+        # is dropped or re-hybridized does not keep their pools
+        ctx.inst = weakref.ref(inst)
+        ctx.save_for_backward(inst.token)
+        for s, t in zip(inst.statics, tensors):
+            local(s).copy_(local(t))
+        inst.fwd.replay()
+        outs, stats = inst.fwd.outputs
+        if stats is not None:
+            _numerics.record_compiled(inst.stat_names, stats.clone())
+        copies = tuple(o.detach().clone() for o in outs)
+        ctx.mark_non_differentiable(*(c for c, d in
+                                      zip(copies, inst.out_diff) if not d))
+        return copies
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        inst = ctx.inst()
+        if inst is None:
+            raise MXNetError(
+                "the CUDA graphs of this recorded call were released (its "
+                "block was dropped, hybridized again or cast, or a "
+                "FusedTrainStep captured it) before its backward")
+        ag.first_order_only(f"the CUDA graph of hybridized block "
+                            f"{inst.name}")
+        ctx.saved_tensors  # raises after a backward without retain_graph
+        for s, g in zip(inst.gouts, (g for g, d in zip(gouts, inst.out_diff)
+                                     if d)):
+            if g is None:
+                local(s).zero_()
+            else:
+                local(s).copy_(local(g))
+        inst.bwd.replay()
+        grads = iter(inst.bwd.outputs)
+        return (None, *(next(grads) if d else None for d in inst.in_diff))
+
+
+def _on_card(args, params):
+    """Whether a call's inputs and initialized parameters all lie on a
+    card (a graphed recorded call)."""
+    from ..ndarray import NDArray
+
+    arrays = [a for a in args if a is not None]
+    return bool(arrays) and torch.cuda.is_available() and \
+        all(isinstance(a, NDArray) and a._data.is_cuda for a in arrays) \
+        and all(p._data is not None and p._data._data.is_cuda
+                for p in params)
+
 
 
 class _Quiet(threading.local):

@@ -92,6 +92,7 @@ import torch
 from .. import amp
 from .. import autograd as ag
 from .. import cuda_graph
+from .. import engine
 from .. import optimizer as opt
 from .. import random as mx_random
 from .. import telemetry
@@ -246,6 +247,8 @@ class FusedTrainStep:
 
     # -- dispatch ------------------------------------------------------------
     def __call__(self, *batch):
+        if engine._bulk_on:
+            engine.flush("dispatch")
         trainer = self.trainer
         optzr = trainer._optimizer
         optzr.rescale_grad = trainer._scale / self.batch_size
@@ -435,6 +438,10 @@ class FusedTrainStep:
         start the device accumulator the captured step folds into."""
         optzr = self.trainer._optimizer
         inputs = self._inputs(batch, 0)
+        # this graph holds the net's forward and backward: the recorded
+        # graph pairs its hybridized blocks captured in eager steps would
+        # only hold their pools' memory
+        self.net.apply(_drop_recorded_graphs)
 
         def eager_step(col):
             loss = self._loss_and_grads(inputs)
@@ -544,3 +551,8 @@ def _write_scalars(table, lrs, wds, t):
                         dtype=torch.float32).pin_memory()
     table.copy_(host, non_blocking=True)
 
+
+def _drop_recorded_graphs(block):
+    cached = getattr(block, "_cached_op", None)
+    if cached is not None:
+        cached._rec_graphs.clear()

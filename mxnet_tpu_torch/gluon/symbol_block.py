@@ -12,12 +12,14 @@ loading them back).  Two formats, one importer:
   the block's inference forward at the signature of its first cached
   graph.  The parameters are inputs of the program, as the reference
   passes them to its StableHLO program, so the ``.pt2`` holds no weights.
-  The hand-written kernels that a forward reaches are ``torch.library``
-  custom ops (``mxnet_tpu_torch::flash_attention_fwd``,
-  ``mxnet_tpu_torch::fused_matmul_affine_relu``) and stay nodes of the
-  program: run on the card, they launch the kernels.  A block that
-  reaches a kernel launched through ``ctypes`` (``nms_keep``, the flash
-  backward, the fused update) does not export ("Left out of slice 17").
+  The hand-written kernels that an inference forward reaches are
+  ``torch.library`` custom ops (``mxnet_tpu_torch::flash_attention_fwd``,
+  ``mxnet_tpu_torch::fused_matmul_affine_relu``,
+  ``mxnet_tpu_torch::nms_keep``, which the detectors reach) and stay
+  nodes of the program: run on the card, they launch the kernels.  The
+  training kernels (the flash backward, the fused update, the CSR
+  product) are launched through ``ctypes`` and refuse a trace: no
+  inference forward reaches them, in either package.
 * **Import of nnvm symbol JSON** (``"nodes"``/``"arg_nodes"``/
   ``"heads"``, the reference's ``save_checkpoint`` of a ``Symbol`` or a
   graph written by MXNet): the graph runs node by node through the op
@@ -163,6 +165,13 @@ def _load_params(param_file, device):
     from .. import serialization
 
     loaded = serialization.load_ndarrays(param_file)
+    if isinstance(loaded, list):
+        # a block without parameters writes no names, which reads back as
+        # an empty list
+        if loaded:
+            raise MXNetError(f"{param_file!r} holds unnamed arrays; an "
+                             "exported block's parameters are named")
+        return {}
     return {k.removeprefix("arg:").removeprefix("aux:"):
             NDArray(v._data.to(device)) for k, v in loaded.items()}
 

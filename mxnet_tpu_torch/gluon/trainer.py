@@ -43,7 +43,9 @@ gradients and one group's state.  The rule is elementwise, so each
 weight's result equals one launch over the whole table.  Each group is
 fetched right before its launch, after the gradient reduction: the
 current stream waits for the copy, so an earlier fetch would delay the
-reduction rather than overlap it.  A ``FusedTrainStep`` over an offloading
+reduction rather than overlap it.  Over a mesh each rank stashes its
+own shard of every state (``memory.offload``), and the update runs over
+the fetched local shards.  A ``FusedTrainStep`` over an offloading
 trainer runs as the reference's does: its program takes the states
 where they are, so they come to the card at its first call and stay
 there (released from the host books) until an eager ``step`` stashes
@@ -51,6 +53,7 @@ them again.
 """
 from __future__ import annotations
 
+import contextlib
 import pickle
 import signal
 import threading
@@ -143,11 +146,6 @@ class Trainer:
         if offload not in (None, "host"):
             raise MXNetError(
                 f'offload must be None or "host", got {offload!r}')
-        if offload is not None and (partition_rules is not None or
-                                    mesh is not None):
-            raise MXNetError(
-                'Trainer(offload="host") over a mesh is not ported yet '
-                '(ROADMAP.md, "Left out of slice 21")')
         self._offload = offload
         self._offload_stage = None
         self._offload_fetched = []
@@ -712,13 +710,31 @@ class Trainer:
             from ..memory import offload as _mem_offload
 
             _mem_offload.synchronize()  # the stashed copies have landed
-        return {
-            "states": {i: opt._states_to_numpy(s)
-                       for i, s in enumerate(self._states)},
-            "num_update": self._optimizer.num_update,
-            "index_update_count": dict(
-                self._optimizer._index_update_count),
-        }
+        with self._sharded_states_fetched():
+            return {
+                "states": {i: opt._states_to_numpy(s)
+                           for i, s in enumerate(self._states)},
+                "num_update": self._optimizer.num_update,
+                "index_update_count": dict(
+                    self._optimizer._index_update_count),
+            }
+
+    @contextlib.contextmanager
+    def _sharded_states_fetched(self):
+        """Over a mesh with ``offload="host"``: every stashed state shard
+        on its device as its ``DTensor`` for the block (a host shard holds
+        only this rank's piece, and states are saved and loaded whole),
+        stashed back after it."""
+        if self._offload != "host" or self._mesh is None:
+            yield
+            return
+        try:
+            for i in range(len(self._params)):
+                if self._states[i] is not None:
+                    self._fetch_param(i)
+            yield
+        finally:
+            self._stash_pending()
 
     def load_states(self, fname):
         """Load ``save_states``' file (or the reference's): each state is
@@ -738,14 +754,15 @@ class Trainer:
             _mem_offload.synchronize()  # no copy still reads a buffer
         saved = payload["states"]
         for i, param in enumerate(self._params):
-            state = saved.get(i)
-            if state is None:
-                continue
-            if param._data is None:
-                raise MXNetError(f"load_states: parameter {param.name} is "
-                                 "not initialized")
-            self._init_states(i)
-            _copy_state(self._states[i], state, param.name)
+            if saved.get(i) is not None:
+                if param._data is None:
+                    raise MXNetError(f"load_states: parameter {param.name} "
+                                     "is not initialized")
+                self._init_states(i)
+        with self._sharded_states_fetched():
+            for i, param in enumerate(self._params):
+                if saved.get(i) is not None:
+                    _copy_state(self._states[i], saved[i], param.name)
         self._optimizer.num_update = payload["num_update"]
         self._optimizer._index_update_count.update(
             payload["index_update_count"])

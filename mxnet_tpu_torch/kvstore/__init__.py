@@ -46,6 +46,14 @@ _LOCAL = ("local", "local_update_cpu", "local_allreduce_cpu",
 _SYNC = ("dist_tpu_sync", "dist_sync", "dist_device_sync", "horovod")
 
 
+
+def _dispatch_flush():
+    """A kvstore dispatch is a bulk-flush boundary (``engine.py``)."""
+    from .. import engine as _engine
+
+    if _engine._bulk_on:
+        _engine.flush("dispatch")
+
 class KVStore:
     """Single-process store: ``local``/``device`` (reference
     ``KVStoreLocal``)."""
@@ -76,6 +84,7 @@ class KVStore:
         """Aggregate value(s) into the store: a list pushed to one key is
         summed (the reference's device reduce); with an updater the stored
         weight is updated in place, else the value replaces it."""
+        _dispatch_flush()
         with telemetry.span("kvstore.push"):
             self._push_impl(key, value)
 
@@ -103,6 +112,7 @@ class KVStore:
         dtype; no copy when it already has it).  With an updater the
         stored value is the weight the store owns, so the target gets a
         copy of it."""
+        _dispatch_flush()
         with telemetry.span("kvstore.pull"):
             self._pull_impl(key, out)
 

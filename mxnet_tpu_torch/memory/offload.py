@@ -21,6 +21,12 @@ multi-precision masters OFF the card between steps:
   buffer) or a new tensor.  On the CPU it is a copy, which keeps the
   contract: the update never writes the host-resident original.
 
+Over a mesh (a ``DTensor`` state) each rank stashes its own local shard,
+as the reference re-homes each shard to its sharding's pinned-host
+memory kind: the NDArray then holds the host shard, and ``fetch``
+rewraps the device copy with the state's mesh, placements, shape and
+stride, so the update and the collectives see the ``DTensor`` again.
+
 The update writes the fetched copies in place; the trainer then stashes
 them back into the same pinned buffers.  Host code that reads a stashed
 buffer (``save_states``) calls :func:`synchronize` first.  The module
@@ -36,7 +42,7 @@ _h2d_total = 0
 _d2h_total = 0
 
 _LOCK = threading.Lock()
-_HOST = {}   # id(NDArray) -> (weakref to it, its host tensor)
+_HOST = {}   # id(NDArray) -> (weakref to it, its host tensor, layout)
 _SIDE = {}   # device index -> the copy stream
 
 
@@ -88,6 +94,13 @@ def _host_buffer(arr):
     return entry[1]
 
 
+def _layout(arr):
+    """The DTensor layout (mesh, placements, shape, stride) a stashed
+    shard is rewrapped with, or None for a plain tensor."""
+    entry = _HOST.get(id(arr))
+    return None if entry is None or entry[0]() is not arr else entry[2]
+
+
 def is_stashed(arr):
     """True while the NDArray's buffer is its host tensor."""
     host = _host_buffer(arr)
@@ -100,7 +113,13 @@ def stash(arr):
     global _resident_bytes, _d2h_total
     import torch
 
+    from ..parallel.local import is_dtensor
+
     raw = arr._data
+    layout = None
+    if is_dtensor(raw):
+        layout = (raw.device_mesh, raw.placements, raw.shape, raw.stride())
+        raw = raw.to_local()
     host = _host_buffer(arr)
     if raw.is_cuda:
         if host is None or host.shape != raw.shape or \
@@ -118,7 +137,7 @@ def stash(arr):
     key = id(arr)
     if key not in _HOST:
         weakref.finalize(arr, _forget, key)
-    _HOST[key] = (weakref.ref(arr), host)
+    _HOST[key] = (weakref.ref(arr), host, layout)
     arr._data = host
     n = _nbytes(host)
     _resident_bytes += n
@@ -129,7 +148,8 @@ def stash(arr):
 
 def fetch(arr, device=None, out=None):
     """Device copy of a host-stashed NDArray's buffer (H2D, async on the
-    card) on ``device`` (default the CPU), into ``out`` when given.
+    card) on ``device`` (default the CPU), into ``out`` when given (a
+    stashed shard: its local shape, rewrapped as the state's DTensor).
     Returns the raw tensor: the caller rebinds the NDArray to it for the
     in-place update and stashes the result back.  A buffer that is not
     stashed (already on the device) comes back as it is, no copy."""
@@ -156,6 +176,13 @@ def fetch(arr, device=None, out=None):
     n = _nbytes(raw)
     _h2d_total += n
     _count("offload.h2d_bytes", n)
+    layout = _layout(arr)
+    if layout is not None:
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, shape, stride = layout
+        return DTensor.from_local(dst, mesh, placements, run_check=False,
+                                  shape=shape, stride=stride)
     return dst
 
 

@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/ndarray/ndarray.py`` (reference
 ``include/mxnet/ndarray.h``).  An NDArray is a handle to one
 ``torch.Tensor`` (``_data``) on an explicit device; every op unwraps the
 operands, calls torch and wraps the result (``ops.registry.apply_op``).
-Device work is asynchronous on the CUDA stream; ``asnumpy``,
+With bulking on (``engine.bulk``) an op's result may be pending: ``_data``
+runs its segment when read.  Device work is asynchronous on the CUDA
+stream; ``asnumpy``,
 ``asscalar`` and ``wait_to_read`` synchronise, each counted as a
 ``host_sync`` by telemetry, and each array made registers its storage
 with ``telemetry.memwatch`` while that is on.  ``attach_grad`` makes the
@@ -20,9 +22,12 @@ import torch
 from ..base import MXNetError, resolve_dtype
 from ..context import Context, context_of, current_context
 from ..parallel.local import is_dtensor as _is_dtensor
+from .. import engine as _engine
 from .. import sanitizer as _san
 from .. import telemetry
 from ..telemetry import memwatch as _mw
+
+_Pending = _engine._PendingArray
 
 
 def _to_tensor(value, dtype=None, ctx=None) -> torch.Tensor:
@@ -54,7 +59,7 @@ def creation_place(raw, ctx=None):
 class NDArray:
     """A tensor handle with MXNet NDArray semantics over ``torch.Tensor``."""
 
-    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_raw", "_grad", "_grad_req", "__weakref__")
 
     __array_priority__ = 100.0
 
@@ -65,26 +70,46 @@ class NDArray:
         if _mw._enabled:
             _mw.track(self._data)
 
+    # ``_data`` is the tensor.  While the array's op sits in a pending
+    # bulk segment (``engine.py``), ``_raw`` holds a placeholder, and any
+    # read of ``_data`` runs the segment first; with bulking on, a read of
+    # an input of the pending segment runs it too.  With bulking off the
+    # cost is a class test and a flag test.
+    @property
+    def _data(self):
+        raw = self._raw
+        if raw.__class__ is _Pending:
+            raw = self._raw = _engine._materialize(raw)
+            if _mw._enabled:
+                _mw.track(raw)
+        elif _engine._bulk_on:
+            _engine._before_read(raw)
+        return raw
+
+    @_data.setter
+    def _data(self, value):
+        self._raw = value
+
     # -- basic properties ----------------------------------------------------
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        return tuple(self._raw.shape)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self._data.dtype
+        return self._raw.dtype
 
     @property
     def size(self):
-        return self._data.numel()
+        return self._raw.numel()
 
     @property
     def ndim(self):
-        return self._data.ndim
+        return self._raw.ndim
 
     @property
     def context(self) -> Context:
-        return context_of(self._data.device)
+        return context_of(self._raw.device)
 
     ctx = context
 
@@ -259,19 +284,19 @@ class NDArray:
     # in-place forms rebind the handle to the result (a recorded result
     # stays on the tape), as the reference's do
     def __iadd__(self, o):
-        self._data = (self + o)._data
+        self._raw = (self + o)._raw
         return self
 
     def __isub__(self, o):
-        self._data = (self - o)._data
+        self._raw = (self - o)._raw
         return self
 
     def __imul__(self, o):
-        self._data = (self * o)._data
+        self._raw = (self * o)._raw
         return self
 
     def __itruediv__(self, o):
-        self._data = (self / o)._data
+        self._raw = (self / o)._raw
         return self
 
     # comparisons: 0/1 in the left operand's dtype (``ops/elemwise.py``)
@@ -408,6 +433,10 @@ class NDArray:
     def __getitem__(self, key):
         from ..ops.registry import apply_op
 
+        if self._raw.__class__ is _Pending:
+            # indexing a pending array is a sync point of the bulk engine
+            # (its flush contract); the slice may start a new segment
+            _engine.flush("host_sync")
         key = NDArray._raw_key(key)
         return apply_op(lambda a: a[key], self, name="slice")
 

@@ -113,7 +113,7 @@ class ndarray(NDArray):
 
 
 def _share(src, dst):
-    dst._data = src._data
+    dst._raw = src._raw
     dst._grad = src._grad
     dst._grad_req = src._grad_req
 

@@ -180,20 +180,34 @@ def nms_keep(boxes, valid, cls, overlap_thresh):
     when it is valid and no kept box before it overlaps it by more than
     ``overlap_thresh`` (of the same class, when ``cls`` is given).
 
-    A CUDA tensor launches ``csrc/nms_keep.cu``, a bitmask scan: the
-    64-bit suppression words of every pair block on or above the
-    diagonal, then a warp an image walks them in word order, two kernels
-    for each chunk of images (``_nms_plan``).  ``nms_keep.launches``
-    counts the calls, ``nms_keep.cuda_launches`` the kernels they
-    launched.  CPU tensors take the plain version."""
-    given = (boxes, valid) if cls is None else (boxes, valid, cls)
-    _kernels.refuse_trace("nms_keep", *given)
-    if all(t.device.type == "cpu" for t in given):
-        return _nms_keep_plain(boxes, valid, cls, overlap_thresh)
+    The custom op ``mxnet_tpu_torch::nms_keep``, so an exported program
+    (``HybridBlock.export``) holds it as one node.  A CUDA tensor
+    launches ``csrc/nms_keep.cu``, a bitmask scan: the 64-bit
+    suppression words of every pair block on or above the diagonal, then
+    a warp an image walks them in word order, two kernels for each chunk
+    of images (``_nms_plan``).  ``nms_keep.launches`` counts the calls,
+    ``nms_keep.cuda_launches`` the kernels they launched.  CPU tensors
+    take the plain version."""
+    return _nms_keep_op(boxes, valid, cls, float(overlap_thresh))
+
+
+@torch.library.custom_op("mxnet_tpu_torch::nms_keep", mutates_args=(),
+                         device_types="cpu")
+def _nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                 cls: torch.Tensor | None,
+                 overlap_thresh: float) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return _nms_keep_plain(boxes, valid, cls, overlap_thresh)
+
+
+@_nms_keep_op.register_kernel("cuda")
+def _nms_keep_cuda(boxes, valid, cls, overlap_thresh):
+    """The op's CUDA implementation: the scan's two kernels a chunk of
+    images, through its C entry point on the current stream."""
     g, n = valid.shape
-    if not boxes.is_cuda or boxes.dtype != _F32 or \
-            tuple(boxes.shape) != (g, n, 4) or valid.dtype != torch.bool \
-            or valid.device != boxes.device or (cls is not None and (
+    if boxes.dtype != _F32 or tuple(boxes.shape) != (g, n, 4) or \
+            valid.dtype != torch.bool or valid.device != boxes.device or \
+            (cls is not None and (
                 cls.dtype != _F32 or tuple(cls.shape) != (g, n) or
                 cls.device != boxes.device)):
         raise MXNetError(
@@ -226,6 +240,12 @@ def nms_keep(boxes, valid, cls, overlap_thresh):
     cuda_graph.count(nms_keep)
     cuda_graph.count(nms_keep, "cuda_launches", launched.value)
     return keep.view(torch.bool)
+
+
+@_nms_keep_op.register_fake
+def _nms_keep_fake(boxes, valid, cls, overlap_thresh):
+    """The op's output under a trace: the (G, n) bool keep mask."""
+    return valid.new_empty(valid.shape, dtype=torch.bool)
 
 
 nms_keep.launches = 0

@@ -19,8 +19,9 @@ aliases and ``no_grad`` flag, through which a ``Symbol`` node and an
 nnvm graph's node resolve their op.  While the profiler runs
 (``profiler.py``), each op's dispatch is timed and recorded under its
 scope and name, as the reference's hook does; otherwise dispatch does
-not look at it.  The reference's bulking hook has no counterpart
-(``engine.py``).  Two telemetry hooks sit here as in the reference: an
+not look at it.  With bulking on (``engine.py``), ``maybe_defer`` may
+append the op to the thread's pending segment instead of running it;
+the disabled path is one flag test.  Two telemetry hooks sit here as in the reference: an
 op that fails with a device allocation failure raises
 ``telemetry.memwatch``'s post-mortem ``OOMError`` while the ledger is
 on, and ``telemetry.numerics.bisect()`` journals every op's nan/inf
@@ -33,6 +34,7 @@ import time
 from typing import Callable, Dict
 
 from .. import autograd as ag
+from .. import engine as _engine
 from .. import sanitizer as _san
 from ..base import MXNetError
 from ..telemetry import memwatch as _mw
@@ -65,6 +67,18 @@ def apply_op(fun: Callable, *nd_args, name: str = "", no_grad=False):
     from ..ndarray.ndarray import NDArray
     from ..parallel.local import replicate_plain
 
+    if _engine._bulk_on:
+        # a deferred op runs with torch's gradient mode off, as every op
+        # outside record() does
+        deferred = _engine.maybe_defer(fun, nd_args, name)
+        if deferred is not None:
+            single, vals = deferred
+            outs = []
+            for v in vals:
+                o = NDArray.__new__(NDArray)
+                o._raw, o._grad, o._grad_req = v, None, "null"
+                outs.append(o)
+            return outs[0] if single else tuple(outs)
     prof = _profiler()
     if prof is not None:
         t0 = time.perf_counter()

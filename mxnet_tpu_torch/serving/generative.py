@@ -38,17 +38,38 @@ leaves and dequantize each to f32 just before its product, so only one
 f32 matrix exists at a time (the reference's jit fuses the same
 dequantization into each matmul).
 
-On a CUDA card the decode step is one CUDA graph (``cuda_graph.py``),
-captured when the engine is built (before any lane thread runs, under
-``dev_lock``) unless the NaiveEngine is chosen (``engine.
-set_engine_type``), which runs the step eagerly: each tick copies the slots' last tokens, positions and
-block tables into the graph's static input in one host-to-device copy
-(from pinned memory, so the host does not wait) and replays it.  Its
-key, ``("step", kv_mode, num_slots, table width, dtype)`` (the table
-width is ``max_blocks`` paged, ``max_len`` in the slots mode; a trailing
+On a CUDA card every program is a CUDA graph (``cuda_graph.py``) unless
+the NaiveEngine is chosen (``engine.set_engine_type``), which runs them
+eagerly.  The decode step is captured when the engine is built (before
+any lane thread runs, under ``dev_lock``), also with a speculative
+draft: each tick copies the slots' last tokens, positions and block
+tables into the graph's static input in one host-to-device copy (from
+pinned memory, so the host does not wait) and replays it.  Its key,
+``("step", kv_mode, num_slots, table width, dtype)`` (the table width is
+``max_blocks`` paged, ``max_len`` in the slots mode; a trailing
 ``"numerics"`` when the taps are on), is what ``compiled_signatures``
-reports for the step; the prefill, scatter, gather and verify programs
-stay eager (ROADMAP "Left out of slice 7").
+reports for the step.  The other programs are captured at their first
+call, one graph a shape as the reference compiles one program a shape
+(``_program``): ``prefill`` per (batch, prompt bucket), ``prefill_sfx``
+per (batch, prefix, suffix bucket), ``gather`` per (batch, prefix
+bucket), ``scatter`` (the handoff) per (batch, prompt bucket) and
+``verify`` once, at (num_slots, spec_k + 1); ``capture_buckets(policy)``
+(``ServerConfig(capture_buckets=True)``) captures every program of a
+bucket table when the server is built, so that no capture waits in
+front of a request.
+
+The graphs' memory is bounded by the largest program, not by the number
+of shapes: every graph of the engine (the tick's too) allocates from ONE
+memory pool, and a program's inputs and outputs are views of two arenas
+(device buffers outside the pool, shared by every program, as large as
+the largest program's inputs and outputs).  A replay copies its inputs
+into the input arena, replays and copies its outputs out of the output
+arena under ``_graph_lock``; both lanes enqueue on one stream, so no
+replay begins before the previous one's outputs are copied out.  What a
+capture adds is in ``graph_pool_bytes``; once the pool and the arenas
+hold ``cuda_graph.budget`` bytes, a new shape runs eagerly
+(``serving.graph_over_budget``).  A program whose capture fails (one
+that reads a value back) runs eagerly from then on.
 
 With the numerics tier on when the engine is built, the decode and
 verify programs also return ``stats_of(logits)`` (``serving.logits``):
@@ -341,6 +362,24 @@ def _mirrored(fn):
     return call
 
 
+def _tree(fn, x):
+    """``fn`` over every tensor of ``x`` (a tensor, or lists and tuples
+    of them), keeping the structure."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(fn, v) for v in x)
+    return fn(x)
+
+
+def _tree_copy(dst, src):
+    """Copy every tensor of ``src`` into the tensor of ``dst`` at its
+    place (a graph's static inputs)."""
+    if isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _tree_copy(d, s)
+    else:
+        dst.copy_(src)
+
+
 class _Held:
     """A handle to device state a program left on every rank of a
     tensor-parallel replica (the prefilled rows), passed to the program
@@ -489,8 +528,17 @@ class LlamaServingEngine:
                           str(dt).removeprefix("torch.")) \
             + (("numerics",) if self._numerics else ())
         self._step_graph = None
-        if self.device.type == "cuda" and not self.spec_k and \
-                not engine.is_naive():
+        #: program key -> (input views, graph, output views) or "eager";
+        #: None: every program eager
+        self._graphs = None
+        self._graph_pool = None
+        self._graph_lock = threading.Lock()
+        self._arenas = {"in": None, "out": None}
+        self._arena_bytes = 0  # every arena made, kept by its graphs
+        self._graph_budget = cuda_graph.budget(self.device)
+        if self.device.type == "cuda" and not engine.is_naive():
+            self._graphs = {}
+            self._graph_pool = torch.cuda.graph_pool_handle()
             with self.dev_lock, torch.cuda.device(self.device):
                 self._capture_step()
 
@@ -654,12 +702,159 @@ class LlamaServingEngine:
         if self.mesh is not None and self.mesh.group is not None:
             cuda_graph.warm_groups(groups=[self.mesh.group])
         cuda_graph.warmup(lambda: self._step_program(self._state))
-        self._step_graph = cuda_graph.capture(
-            lambda: self._step_program(self._state), mode="thread_local")
+        with self._graph_lock:
+            self._step_graph = cuda_graph.capture(
+                lambda: self._step_program(self._state),
+                pool=self._graph_pool, mode="thread_local")
 
     def _dev(self, a):
         """Host integer array → int64 tensor on the engine's device."""
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    def _program(self, key, fn, *inputs):
+        """``fn(*inputs)`` (tensors, or lists and tuples of them).  On a
+        card the replay of the graph captured for ``key`` at its first
+        call (``_capture_program``): the inputs are copied into the
+        input arena, and the outputs copied out of the output arena."""
+        if self._graphs is None:
+            return fn(*inputs)
+        with self._graph_lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = self._capture_program(
+                    fn, inputs)
+            if entry != "eager":
+                statics, graph, outs = entry
+                _tree_copy(statics, inputs)
+                graph.replay()
+                return _tree(torch.clone, outs)
+        return fn(*inputs)
+
+    def _capture_program(self, fn, inputs):
+        """A program's graph (under ``_graph_lock``): an eager warm-up on
+        the input arena's views (over a tensor-parallel replica after a
+        warm collective on its group; every rank captures at the same
+        call), then the capture into the engine's pool of ``fn`` and a
+        copy of its outputs into the output arena.  ``"eager"`` past the
+        budget or when the capture fails."""
+        if self._graph_bytes() >= self._graph_budget:
+            telemetry.count("serving.graph_over_budget")
+            return "eager"
+        try:
+            with torch.cuda.device(self.device):
+                statics = self._arena_views("in", inputs)
+                _tree_copy(statics, inputs)
+                if self.mesh is not None and self.mesh.group is not None:
+                    cuda_graph.warm_groups(groups=[self.mesh.group])
+                outs = self._arena_views(
+                    "out", cuda_graph.warmup(lambda: fn(*statics)))
+
+                def run():
+                    _tree_copy(outs, fn(*statics))
+                    return ()
+
+                graph = cuda_graph.capture(run, pool=self._graph_pool,
+                                           mode="thread_local")
+        except Exception:
+            telemetry.count("serving.graph_capture_failed")
+            return "eager"
+        return statics, graph, outs
+
+    def _arena_views(self, side, like):
+        """Views of the ``side`` arena shaped as the tensors of ``like``
+        (each at a 256-byte boundary).  An arena too small for them is
+        replaced by one twice as large (or as large as they need); the
+        graphs captured on the old one keep it."""
+        leaves = []
+        _tree(leaves.append, like)
+        if not leaves:
+            return like
+        sizes = [-(-t.numel() * t.element_size() // 256) * 256
+                 for t in leaves]
+        arena = self._arenas[side]
+        if arena is None or arena.numel() < sum(sizes):
+            n = max(sum(sizes), 2 * (0 if arena is None else arena.numel()))
+            arena = self._arenas[side] = torch.empty(
+                n, dtype=torch.uint8, device=self.device)
+            self._arena_bytes += n
+        views, off = {}, 0
+        for t, size in zip(leaves, sizes):
+            n = t.numel() * t.element_size()
+            views[id(t)] = arena[off:off + n].view(t.dtype).view(t.shape)
+            off += size
+        return _tree(lambda t: views[id(t)], like)
+
+    def _graph_bytes(self):
+        """What the engine's graphs hold: the pool's growth at each
+        capture and the arenas."""
+        return sum(self.graph_pool_bytes().values())
+
+    @torch.inference_mode()
+    def capture_buckets(self, policy, prefix=False):
+        """Capture now, under the device lock, the prefill program of
+        every (batch bucket, length bucket) of ``policy`` (a
+        ``BucketPolicy``) up to ``max_len``, the scatter program of each
+        (paged), with ``prefix`` (a radix cache) the gather program of
+        every (batch, prefix bucket) and the suffix prefill of every
+        (batch, prefix bucket, suffix bucket), and verify (with a
+        speculative window), on vacant rows whose writes land in the
+        trash block.  The largest programs go first, so that the smaller
+        ones reuse their memory: ``graph_pool_bytes`` then holds about
+        the largest program's.  On the CPU, under the NaiveEngine and
+        over a tensor-parallel replica (whose ranks capture at the calls
+        they share) it does nothing."""
+        if self._graphs is None or self._channel is not None:
+            return
+        lens = [lb for lb in policy.length_buckets() if lb <= self.max_len]
+        work = [(kb * lb, kb, lb, None) for kb in policy.batch_buckets()
+                for lb in lens]
+        if prefix and self.kv_mode == "paged":
+            work += [(kb * (lp + lb), kb, lb, lp)
+                     for kb in policy.batch_buckets() for lp in lens
+                     for lb in lens]
+        vacant = np.full(max(policy.batch_buckets()), self.num_slots,
+                         np.int32)
+        with self.dev_lock:
+            for _, kb, lb, lp in sorted(work, key=lambda w: w[0],
+                                        reverse=True):
+                ids = np.zeros((kb, lb), np.int32)
+                t0s = np.full(kb, lb, np.int32)
+                if self.kv_mode == "slots":
+                    self.admit(ids, t0s, vacant[:kb])
+                    continue
+                skip = None
+                if lp is None:
+                    _, rows = self.prefill_rows(ids, t0s)
+                else:
+                    pre = self.gather_prefix(np.full(
+                        (kb, -(-lp // self.block_size)), self.num_blocks,
+                        np.int32))
+                    # from position 0: the positions stay in range
+                    _, rows = self.prefill_suffix(pre, ids, t0s,
+                                                  np.zeros(kb, np.int32))
+                    skip = np.zeros(kb, np.int32)
+                self.commit_rows(rows, vacant[:kb], [None] * kb, t0s,
+                                 np.zeros(kb, np.int32), skip_blocks=skip)
+            if self.spec_k:
+                self._note(("verify",))
+                self._verify_state(
+                    np.zeros((self.num_slots, self.spec_k + 1), np.int32),
+                    self._tables, self._pos)
+
+    def graph_pool_bytes(self):
+        """Device memory the engine's graphs hold: by program key, what
+        the shared pool grew by at its capture (the decode step under its
+        own key), and under ``("arena",)`` the input and output arenas;
+        empty on the CPU and under the NaiveEngine."""
+        out = {}
+        if self._step_graph is not None:
+            out[self._step_key] = self._step_graph.pool_bytes
+        for key, entry in (self._graphs or {}).items():
+            if entry != "eager":
+                out[key] = entry[1].pool_bytes
+        if self._graphs is not None and self._arena_bytes:
+            out[("arena",)] = self._arena_bytes
+        return out
 
     def _note(self, key):
         """A program shape ran: its first call counts a compile and goes
@@ -714,9 +909,8 @@ class LlamaServingEngine:
                              "engine admits via prefill_rows/commit_rows")
         kb, lp = prompts_pad.shape
         self._note(("prefill", kb, lp))
-        rows, logits = self._dec._prefill_rows_impl(
-            self._w, self._dev(prompts_pad), self._dev(t0s))
-        toks = logits.argmax(dim=-1)
+        toks, rows = self._program(("prefill", kb, lp), self._prefill_fn,
+                                   self._dev(prompts_pad), self._dev(t0s))
         keep = [i for i, s in enumerate(slots) if s < self.num_slots]
         dst = self._dev([slots[i] for i in keep])
         src = self._dev(keep)
@@ -746,9 +940,13 @@ class LlamaServingEngine:
             raise MXNetError("prefill_rows() requires kv_mode='paged'")
         kb, lp = prompts_pad.shape
         self._note(("prefill", kb, lp))
-        rows, logits = self._dec._prefill_rows_impl(
-            self._w, self._dev(prompts_pad), self._dev(t0s))
-        return logits.argmax(dim=-1), self._hold(rows)
+        toks, rows = self._program(("prefill", kb, lp), self._prefill_fn,
+                                   self._dev(prompts_pad), self._dev(t0s))
+        return toks, self._hold(rows)
+
+    def _prefill_fn(self, ids, t0):
+        rows, logits = self._dec._prefill_rows_impl(self._w, ids, t0)
+        return logits.argmax(dim=-1), rows
 
     @_mirrored
     @torch.inference_mode()
@@ -788,10 +986,14 @@ class LlamaServingEngine:
             return a.reshape(kb_, hkv, nbp, bs, hd).transpose(1, 2) \
                 .reshape(kb_ * nbp, hkv, bs, hd)
 
-        with self.dev_lock:
+        def scatter(idx, rows):
             for (kp, vp), (k, v) in zip(self._pool, rows):
                 kp[idx] = chunk(k).to(kp.dtype)
                 vp[idx] = chunk(v).to(vp.dtype)
+            return ()
+
+        with self.dev_lock:
+            self._program(("scatter", kb, lp), scatter, idx, rows)
             for i, s in enumerate(slots):
                 if s < self.num_slots:
                     row = np.full(self.max_blocks, self.num_blocks,
@@ -817,10 +1019,15 @@ class LlamaServingEngine:
         kb, nbp = rows_idx.shape
         self._note(("gather", kb, nbp * self.block_size))
         g = self._dev(rows_idx).clamp(max=self.num_blocks - 1)
-        with self.dev_lock:
-            return self._hold([tuple(p[g].transpose(1, 2).reshape(
+
+        def gather(g):
+            return [tuple(p[g].transpose(1, 2).reshape(
                 kb, p.shape[1], nbp * self.block_size, p.shape[3])
-                for p in kv) for kv in self._pool])
+                for p in kv) for kv in self._pool]
+
+        with self.dev_lock:
+            return self._hold(self._program(
+                ("gather", kb, nbp * self.block_size), gather, g))
 
     @_mirrored
     @torch.inference_mode()
@@ -837,10 +1044,16 @@ class LlamaServingEngine:
         kb, ls = prompts_pad.shape
         lpre = prefix_kv[0][0].shape[2]
         self._note(("prefill_sfx", kb, lpre, ls))
-        rows, logits = self._dec._prefill_suffix_impl(
-            self._w, prefix_kv, self._dev(prompts_pad),
-            self._dev(t0s), self._dev(s0s))
-        return logits.argmax(dim=-1), self._hold(rows)
+
+        def suffix(prefix_kv, ids, t0, s0):
+            rows, logits = self._dec._prefill_suffix_impl(
+                self._w, prefix_kv, ids, t0, s0)
+            return logits.argmax(dim=-1), rows
+
+        toks, rows = self._program(
+            ("prefill_sfx", kb, lpre, ls), suffix, prefix_kv,
+            self._dev(prompts_pad), self._dev(t0s), self._dev(s0s))
+        return toks, self._hold(rows)
 
     # -- transitions (both modes) ---------------------------------------------
     @torch.inference_mode()
@@ -879,13 +1092,12 @@ class LlamaServingEngine:
                 self.device))
         # the previous tick's copy has run: its tokens were read
         self._pinned.numpy()[:] = state
-        self._state.copy_(self._pinned, non_blocking=True)
-        self._step_graph.replay()
-        out = self._step_graph.outputs
-        if self._numerics:
+        with self._graph_lock:
+            self._state.copy_(self._pinned, non_blocking=True)
+            self._step_graph.replay()
+            out = self._step_graph.outputs
             # one copy of each static output: the next replay overwrites
-            return out[0].clone(), out[1].clone()
-        return out.clone()
+            return _tree(torch.clone, out)
 
     @torch.inference_mode()
     def verify(self, drafts):
@@ -918,12 +1130,15 @@ class LlamaServingEngine:
         """The verify program on host state (the windows, the block
         tables, the write cursors) → the greedy verdicts on the
         device."""
-        logits = self._dec._verify_blocks_impl(
-            self._w, self._pool, self._dev(tables), self._dev(toks_mat),
-            self._dev(pos))
-        if self._numerics:
-            return logits.argmax(dim=-1), _numerics.stats_of(logits)
-        return logits.argmax(dim=-1)
+        def verify(tables, toks, pos):
+            logits = self._dec._verify_blocks_impl(
+                self._w, self._pool, tables, toks, pos)
+            if self._numerics:
+                return logits.argmax(dim=-1), _numerics.stats_of(logits)
+            return logits.argmax(dim=-1)
+
+        return self._program(("verify",), verify, self._dev(tables),
+                             self._dev(toks_mat), self._dev(pos))
 
     def last_tokens(self):
         """Snapshot of the per-slot last-committed-token mirror."""

@@ -78,7 +78,12 @@ class ServerConfig:
     ledger parity (``num_slots × max_len`` tokens).  ``draft_net``
     switches speculation on (``spec_k`` proposals a slot a verify);
     ``radix_cache`` turns on prompt-prefix reuse within
-    ``prefix_cache_tokens`` (None = half the pool).
+    ``prefix_cache_tokens`` (None = half the pool).  On a card,
+    ``capture_buckets=True`` captures the engines' prefill and scatter
+    graphs of every bucket (with the radix cache, the prefix gather and
+    the suffix prefill too), and verify, when the server is built
+    (``LlamaServingEngine.capture_buckets``); otherwise each program is
+    captured at its first call.
 
     Observability: ``summary_every`` completions between rolling
     ``serving.latency`` records; ``http_port`` (0 = ephemeral) starts the
@@ -93,7 +98,8 @@ class ServerConfig:
                  kv_mode="paged", block_size=16, num_blocks=None,
                  http_port=None, http_host="127.0.0.1", slo=None,
                  slo_window=256, draft_net=None, spec_k=3,
-                 radix_cache=False, prefix_cache_tokens=None):
+                 radix_cache=False, prefix_cache_tokens=None,
+                 capture_buckets=False):
         self.policy = BucketPolicy(max_batch=max_batch,
                                    max_length=max_length,
                                    min_batch=min_batch,
@@ -118,6 +124,7 @@ class ServerConfig:
         self.radix_cache = bool(radix_cache)
         self.prefix_cache_tokens = prefix_cache_tokens \
             if prefix_cache_tokens is None else int(prefix_cache_tokens)
+        self.capture_buckets = bool(capture_buckets)
         self.http_port = http_port
         self.http_host = http_host
         self.slo = slo
@@ -379,6 +386,8 @@ class GenerativeServer(_ServerBase):
                 net, max_len=cfg.policy.max_length,
                 num_slots=cfg.num_slots, int8=cfg.int8, kv_mode="slots",
                 mesh=subs[0], partition_rules=partition_rules)
+            if cfg.capture_buckets:
+                self.engine.capture_buckets(cfg.policy)
             self._sched = GenerativeScheduler(
                 self.engine, self.queue, policy=cfg.policy,
                 summary_every=cfg.summary_every, slo=self.slo)
@@ -394,6 +403,12 @@ class GenerativeServer(_ServerBase):
                     prefix_cache_tokens=cfg.prefix_cache_tokens,
                     summary_every=cfg.summary_every, slo=self.slo)
             for i, sub in enumerate(subs) if sub is None or sub.local]
+        if cfg.capture_buckets:
+            for r in self._replicas:
+                for eng in (r.engine, r.draft):
+                    if eng is not None:
+                        eng.capture_buckets(cfg.policy,
+                                            prefix=r.radix is not None)
         self._dispatcher = ReplicaDispatcher(
             self.queue, [r for r in self._replicas if not r.follower])
         self.engine = self._replicas[0].engine

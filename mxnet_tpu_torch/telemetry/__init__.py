@@ -22,11 +22,10 @@ Design constraints, as the reference's:
 * **Host-side only.**  Recording never touches a tensor's data and never
   synchronizes the card.  ``step_ms`` is host wall time.
 
-The step record has the reference's key set.  Two keys name machinery
-the port does not have and read 0 on every record: ``bulk_flush`` and
-``bulk_async_wait_ms`` (the reference's bulked engine segments; a CUDA
-stream is already asynchronous, ``engine.py``;
-ROADMAP.md, "Left out of slice 19").  A "compile" in the
+The step record has the reference's key set.  ``bulk_flush`` and
+``bulk_async_wait_ms`` read the bulk engine's ``engine.bulk_flush`` and
+``engine.bulk_async_wait_ms`` counters (its flushed segments and the
+callers' waits on the async worker, ``engine.py``).  A "compile" in the
 port is a signature's first call, which on a card captures its CUDA
 graph; ``compile_count`` sums those counters.
 

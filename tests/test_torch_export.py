@@ -289,6 +289,10 @@ def test_inference_server_serves_a_predictor(conv_pair, tmp_path):
 
 
 def test_export_of_a_block_reaching_nms_keep_is_refused(tmp_path):
+    """Refused until slice 23, which made ``nms_keep`` a custom op: the
+    block now exports, its program holds the op as one node, and the
+    imported program and the ``Predictor`` give the live block's
+    detections; the reference's ``box_nms`` gives the same rows."""
     class Nms(tmx.gluon.HybridBlock):
         def __init__(self):
             super().__init__()
@@ -305,15 +309,44 @@ def test_export_of_a_block_reaching_nms_keep_is_refused(tmp_path):
     x = np.array([[[0, 0.9, 0, 0, 1, 1], [0, 0.8, 0, 0, 1, 0.9]]],
                  np.float32)
     before = net(tmx.nd.array(x, ctx=CPU)).asnumpy()
+    rows = np.einsum("bnk,jk->bnj", x, np.ones((6, 6), np.float32))
+    ref = jmx.nd.contrib.box_nms(jmx.nd.array(rows),
+                                 overlap_thresh=0.5).asnumpy()
+    np.testing.assert_array_equal(before, np.asarray(ref, np.float32))
     tensors = [p.data()._data for p in net.collect_params().values()]
-    with pytest.raises(tmx.MXNetError, match="Left out of slice 17"):
-        net.export(str(tmp_path / "nms"))
-    assert not os.path.exists(str(tmp_path / "nms-symbol.json"))
-    # the failed trace restored every parameter's own tensor
+    prefix = str(tmp_path / "nms")
+    sym_file, params_file = net.export(prefix)
+    assert _program_targets(prefix + "-0000.pt2") == \
+        ["mxnet_tpu_torch.nms_keep.default"]
+    # the trace restored every parameter's own tensor
     assert all(p.data()._data is t for p, t in
                zip(net.collect_params().values(), tensors))
-    np.testing.assert_array_equal(net(tmx.nd.array(x, ctx=CPU)).asnumpy(),
-                                  before)
+    block = tmx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                          ctx=CPU)
+    np.testing.assert_array_equal(
+        block(tmx.nd.array(x, ctx=CPU)).asnumpy(), before)
+    pred = tmx.predictor.Predictor(sym_file, params_file, ctx=CPU)
+    np.testing.assert_array_equal(pred.predict(x).asnumpy(), before)
+
+
+def test_a_block_without_parameters_exports_and_imports(tmp_path):
+    """A block with no parameters writes a ``.params`` file without
+    names, which reads back as an empty list: the import takes it as no
+    parameters."""
+    class Nms(tmx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.contrib.box_nms(x, overlap_thresh=0.5)
+
+    net = Nms()
+    net.hybridize()
+    x = np.array([[[0, 0.9, 0, 0, 1, 1], [0, 0.8, 0, 0, 1, 0.9]]],
+                 np.float32)
+    live = net(tmx.nd.array(x, ctx=CPU)).asnumpy()
+    sym_file, params_file = net.export(str(tmp_path / "noparams"))
+    block = tmx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                          ctx=CPU)
+    np.testing.assert_array_equal(
+        block(tmx.nd.array(x, ctx=CPU)).asnumpy(), live)
 
 
 def test_sparse_arrays_are_written_dense_as_the_reference(tmp_path):

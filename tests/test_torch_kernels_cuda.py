@@ -2601,7 +2601,11 @@ def test_program_exported_on_cpu_launches_the_kernels_on_card(cuda_nvcc,
 
 @pytest.mark.cuda
 def test_export_reaching_nms_keep_is_refused_on_card(cuda_nvcc, tmp_path):
+    """Refused until slice 23, which made ``nms_keep`` a custom op: the
+    exported program launches the scan on the card and gives the live
+    block's rows bit for bit."""
     import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import contrib
 
     class Nms(mx.gluon.HybridBlock):
         def hybrid_forward(self, F, x):
@@ -2611,9 +2615,14 @@ def test_export_reaching_nms_keep_is_refused_on_card(cuda_nvcc, tmp_path):
     net.hybridize()
     x = np.array([[[0, 0.9, 0, 0, 1, 1], [0, 0.8, 0, 0, 1, 0.9]]],
                  np.float32)
-    net(mx.nd.array(x, ctx=mx.gpu(0)))
-    with pytest.raises(MXNetError, match="Left out of slice 17"):
-        net.export(str(tmp_path / "nms"))
+    live = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    sym_file, params_file = net.export(str(tmp_path / "nms"))
+    block = mx.gluon.SymbolBlock.imports(sym_file, ["data"], params_file,
+                                         ctx=mx.gpu(0))
+    before = contrib.nms_keep.launches
+    got = block(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    assert contrib.nms_keep.launches > before
+    np.testing.assert_array_equal(got, live)
 
 
 # -- slice 18: the NumPy front end, custom ops, the tools ----------------------
@@ -3461,3 +3470,290 @@ def test_nms_keep_image_chunks_match_plain_on_card(cuda_nvcc, monkeypatch,
     got = tc.nms_keep(boxes, valid, cls, 0.45)
     assert tc.nms_keep.cuda_launches - before == (6 if n == 2000 else 20)
     assert torch.equal(got, tc._nms_keep_plain(boxes, valid, cls, 0.45))
+
+
+# -- slice 23: graphed recorded forwards, serving graphs, bulk segments --------
+
+def _rec_net(mx, ctx, dropout=0.0, seed=4):
+    nn = mx.gluon.nn
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(64, activation="relu", in_units=32),
+            nn.BatchNorm(axis=-1, in_channels=64), nn.Dropout(dropout),
+            nn.Dense(8, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _rec_steps(mx, net, xs, twice=False):
+    """Recorded steps (SGD on the grads by hand); the losses, the
+    gradients of the last step and the moving mean after it."""
+    losses = []
+    for x in xs:
+        with mx.autograd.record():
+            out = net(x)
+            if twice:
+                out = out * net(x * 0.5)
+            loss = (out ** 2).mean()
+        loss.backward()
+        losses.append(float(loss.asscalar()))
+        with torch.no_grad():
+            for p in net.collect_params().values():
+                if p.grad_req != "null":
+                    p.data()._data.sub_(0.01 * p.grad()._data)
+    grads = [p.grad().asnumpy() for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    return losses, grads, net[1].running_mean.data().asnumpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("twice", [False, True])
+def test_graphed_recorded_forward_matches_eager_on_card(cuda_nvcc, twice):
+    """Steps of a hybridized Dense/BatchNorm net under ``record()``: the
+    first call of the signature runs eagerly, later ones replay the
+    forward and backward graphs as one tape node; losses, gradients and
+    the moving statistics equal the unhybridized net's bit for bit (the
+    same kernels), also when the block is called twice before its
+    backward (a second instance of the graph pair)."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    xs = [mx.nd.array(rng.normal(size=(16, 32)).astype(np.float32),
+                      ctx=ctx) for _ in range(4)]
+    plain, hyb = _rec_net(mx, ctx), _rec_net(mx, ctx)
+    hyb.hybridize()
+    want = _rec_steps(mx, plain, xs, twice)
+    got = _rec_steps(mx, hyb, xs, twice)
+    assert got[0] == want[0]
+    for g, w in zip(got[1], want[1]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[2], want[2])
+    stats = hyb.cache_stats()
+    assert stats["recorded"] == 0 and stats["misses"] == 1
+    assert stats["hits"] == (2 * len(xs) - 1 if twice else len(xs) - 1)
+    entry = next(iter(hyb._cached_op._rec_graphs.values()))
+    assert len(entry.instances) == (2 if twice else 1)
+
+
+@pytest.mark.cuda
+def test_graphed_recorded_dropout_draws_fresh_masks_on_card(cuda_nvcc):
+    """Dropout at rate 0.1 inside the graphed forward: two replays draw
+    different masks, each keeping 90% of the units within 1%."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    drop = mx.gluon.nn.Dropout(0.1)
+    drop.hybridize()
+    x = mx.nd.ones((1024, 1024), ctx=ctx)
+    x.attach_grad()
+    masks = []
+    for _ in range(3):
+        with mx.autograd.record():
+            y = drop(x)
+        y.backward()
+        masks.append(y.asnumpy() != 0)
+    assert drop.cache_stats()["hits"] == 2
+    assert not np.array_equal(masks[1], masks[2])
+    for m in masks[1:]:
+        assert abs(m.mean() - 0.9) < 0.01
+
+
+@pytest.mark.cuda
+def test_graphed_recorded_node_refuses_create_graph_on_card(cuda_nvcc):
+    """A second derivative through the graphed node raises, as the
+    reference's jitted node does; a second backward with
+    ``retain_graph=True`` replays the backward graph again."""
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    net = _rec_net(mx, ctx)
+    net.hybridize()
+    x = mx.nd.array(np.ones((16, 32), np.float32), ctx=ctx)
+    x.attach_grad("add")
+    for _ in range(2):  # the warm-up, then the capture
+        with mx.autograd.record():
+            y = (net(x) ** 2).sum()
+        y.backward()
+    with mx.autograd.record():
+        y = (net(x) ** 2).sum()
+        with pytest.raises(MXNetError, match="create_graph"):
+            mx.autograd.grad(y, [x], create_graph=True)
+    with mx.autograd.record():
+        y = (net(x) ** 2).sum()
+    x.zero_grad()
+    y.backward(retain_graph=True)
+    first = x.grad.asnumpy().copy()
+    y.backward()
+    np.testing.assert_allclose(x.grad.asnumpy(), 2 * first, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("asy", [False, True])
+def test_bulk_segments_replay_graphs_on_card(cuda_nvcc, asy):
+    """Bulked chains on the card: the first segment of a signature runs
+    eagerly and is captured, later ones replay its graph (with a changed
+    float attribute too); the results equal the eager ops' (bit for bit
+    but for a division by a float attribute, which the eager kernel takes
+    as a product with its reciprocal: within 1 ulp)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import engine, nd
+
+    ctx = mx.gpu(0)
+    a = nd.array(np.random.RandomState(3).randn(64, 64).astype(np.float32),
+                 ctx=ctx)
+
+    def chain(x, s):
+        return nd.tanh(nd.relu(x * s) + x).sum(axis=0) - s
+
+    prev = engine.set_async_enabled(asy)
+    engine.clear_segment_cache()
+    try:
+        for s in (2.5, 3.5, 4.5):
+            want = chain(a, s).asnumpy()
+            with engine.bulk(16):
+                got = chain(a, s).asnumpy()
+            np.testing.assert_array_equal(got, want)
+        stats = engine.segment_cache_stats()
+        assert stats["miss"] == 1 and stats["hit"] == 2
+        entry = next(iter(engine._SEG_CACHE.values()))
+        assert entry.graph not in (None, False) and entry.graph.replays == 2
+        want = (a / 1.7).asnumpy()
+        for _ in range(2):
+            with engine.bulk(4):
+                got = (a / 1.7).asnumpy()
+            np.testing.assert_allclose(got, want, rtol=2.4e-7, atol=0)
+    finally:
+        engine.set_async_enabled(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["paged", "radix", "spec", "slots",
+                                  "int8"])
+def test_serving_graphs_give_the_eager_tokens_on_card(cuda_nvcc, mode):
+    """``llama_tiny`` served on the card: every program a CUDA graph (the
+    tick in speculative mode too) gives the NaiveEngine's eager tokens,
+    token for token, in each mode."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
+
+    net = _tiny_llama(mx, mx.gpu(0), seed=3)
+    rs = np.random.RandomState(9)
+    sysp = rs.randint(1, 250, size=24)
+    prompts = [rs.randint(1, 250, size=n) for n in (5, 17)] + \
+        [np.concatenate([sysp, rs.randint(1, 250, size=n)])
+         for n in (3, 6)]
+    kw = dict(max_batch=2, max_length=64, min_length=8, num_slots=2)
+    kw.update({"paged": {}, "radix": {"radix_cache": True,
+                                      "block_size": 8},
+               "spec": {"draft_net": net, "spec_k": 3},
+               "slots": {"kv_mode": "slots"},
+               "int8": {"int8": True}}[mode])
+    outs = []
+    for naive in (True, False):
+        prev = mx.engine.engine_type()
+        if naive:
+            mx.engine.set_engine_type("NaiveEngine")
+        try:
+            srv = serving.GenerativeServer(net, serving.ServerConfig(**kw))
+            with srv:
+                got = [srv.submit(p, max_new_tokens=8).result(120)
+                       for p in prompts]
+            outs.append((got, srv.engine))
+        finally:
+            mx.engine.set_engine_type(prev)
+    (eager, e_eng), (graphed, g_eng) = outs
+    for a, b in zip(graphed, eager):
+        np.testing.assert_array_equal(a, b)
+    assert e_eng.graph_pool_bytes() == {}
+    kinds = {k[0] for k in g_eng.graph_pool_bytes()}
+    assert "prefill" in kinds and "step" in kinds
+    if mode == "spec":
+        assert "verify" in kinds
+    if mode == "radix":
+        assert {"gather", "prefill_sfx"} <= kinds
+
+
+@pytest.mark.cuda
+def test_graphed_recorded_pairs_stay_bounded_over_shapes_on_card(
+        cuda_nvcc, monkeypatch):
+    """Four input shapes, each trained on again and again, through a
+    block that keeps at most two recorded graph pairs: each call equals
+    the unhybridized net's bit for bit, two instances are kept, and the
+    card's reserved memory stops growing once the pairs are bounded (an
+    evicted pair's pool goes back at the next capture)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import block as gluon_block
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(2)
+    xs = [mx.nd.array(rng.normal(size=(n, 32)).astype(np.float32), ctx=ctx)
+          for n in (8192, 12288, 16384, 20480)]
+    plain, hyb = _rec_net(mx, ctx), _rec_net(mx, ctx)
+    monkeypatch.setattr(gluon_block, "_MAX_RECORDED_GRAPHS", 2)
+    hyb.hybridize()
+    reserved = []
+    for _ in range(4):
+        for x in xs:
+            want = _rec_steps(mx, plain, [x])
+            got = _rec_steps(mx, hyb, [x])
+            assert got[0] == want[0]
+            for g, w in zip(got[1], want[1]):
+                np.testing.assert_array_equal(g, w)
+        op = hyb._cached_op
+        # the first round is every shape's warm-up
+        assert sum(len(e.instances) for e in op._rec_graphs.values()) == \
+            (2 if reserved else 0)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert op.recorded_graph_bytes() > 0
+    assert max(reserved[2:]) <= reserved[1] + 4 * 2 ** 20, reserved
+    stats = hyb.cache_stats()
+    assert stats["recorded"] == 0 and "over_budget" not in stats
+
+
+@pytest.mark.cuda
+def test_serving_graph_table_and_budget_on_card(cuda_nvcc, monkeypatch):
+    """``capture_buckets=True``: the bucket table's prefill and scatter
+    graphs are captured when the server is built and serving captures
+    nothing more; past the graphs' budget every program runs eagerly.
+    Both give the NaiveEngine's tokens."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cuda_graph, serving
+
+    net = _tiny_llama(mx, mx.gpu(0), seed=3)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(1, 250, size=n) for n in (5, 17, 40)]
+    kw = dict(max_batch=2, max_length=64, min_length=8, num_slots=2)
+
+    def serve(**more):
+        srv = serving.GenerativeServer(net, serving.ServerConfig(**kw,
+                                                                 **more))
+        built = dict(srv.engine._graphs or {})
+        with srv:
+            got = [srv.submit(p, max_new_tokens=8).result(120)
+                   for p in prompts]
+        return got, srv.engine, built
+
+    prev = mx.engine.engine_type()
+    mx.engine.set_engine_type("NaiveEngine")
+    try:
+        eager, _, _ = serve()
+    finally:
+        mx.engine.set_engine_type(prev)
+    got, eng, built = serve(capture_buckets=True)
+    table = serving.ServerConfig(**kw).policy.signatures()
+    assert set(built) == {(p, kb, lb) for p in ("prefill", "scatter")
+                          for kb, lb in table}
+    assert set(eng._graphs) == set(built)
+    assert all(e != "eager" for e in eng._graphs.values())
+    pools = eng.graph_pool_bytes()
+    assert pools[("arena",)] > 0 and eng._graph_bytes() == sum(
+        pools.values())
+    for a, b in zip(got, eager):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(cuda_graph, "budget", lambda device: 1)
+    got, eng, _ = serve()
+    assert eng._graphs and all(e == "eager" for e in eng._graphs.values())
+    for a, b in zip(got, eager):
+        np.testing.assert_array_equal(a, b)
