@@ -68,13 +68,14 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 3. kernel: the forward kernel against its plain PyTorch version at every
    shape of ``KERNEL_SHAPES`` (bf16 and f16 at each D, Tq < Tk, rows
    that see no key, f32), O held row by row and by its relative norm,
-   with its time and TFLOP/s, the plain version's, torch SDPA's (a
+   with its time (the call, host included) and its device time (the
+   host's enqueue hidden) and TFLOP/s, the plain version's, torch SDPA's (a
    yardstick only, where Tq = Tk) and the card's bound; at the slice shape also the wrapper's host time and the
    kernel launched alone through its C entry point;
 4. backward kernels: ``flash_attention_bwd`` (dQ and dK/dV) against the
    plain backward at every shape of ``BWD_SHAPES``, each gradient held
-   row by row and by its relative norm, with each kernel's time and
-   TFLOP/s, delta's, the plain version's, torch SDPA's backward (where
+   row by row and by its relative norm, with each kernel's time, device
+   time and TFLOP/s, delta's, the plain version's, torch SDPA's backward (where
    Tq = Tk) and the bound; at the slice shape also each kernel's wrapper
    host time and its launch alone through its C entry point;
 5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
@@ -605,10 +606,11 @@ GRAPH_BF16_TOL = 2.0 ** -8
 NEW_TOKENS = 32
 
 
-def design_name(design, dtype):
+def design_name(design, dtype, tensor_cores="mma.sync"):
     """A kernel design as the ``kernels`` line names it, such as
-    ``"mma.sync bf16"``."""
-    names = {"mma": "mma.sync", "fma": "FMA"}
+    ``"mma.sync bf16"``; ``tensor_cores`` names the kernel's tensor-core
+    design (``"wgmma+TMA"`` for the flash forward and dK/dV)."""
+    names = {"mma": tensor_cores, "fma": "FMA"}
     short = {"float32": "f32", "float16": "f16", "bfloat16": "bf16"}
     return f"{names[design]} {short[dtype]}"
 
@@ -761,6 +763,8 @@ def kernel_phase(torch, fa, failures):
         iters = 20 if tq * tk * b * h > 1e7 else 100
         k_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal, scale), iters)
+        k_dev_ms = time_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal, scale), iters, hide_host=True)
         p_ms = time_ms(torch, lambda: fa._fa_forward_plain(
             q, k, v, causal, scale), max(iters // 4, 5))
         lib_ms = None
@@ -778,7 +782,7 @@ def kernel_phase(torch, fa, failures):
                    max_abs_err_lse=err_lse, masked_rows_agree=fin_same,
                    tol_o=O_TOL[dt], row_tol_o=O_ROW_TOL[dt],
                    norm_tol_o=O_NORM_TOL[dt], tol_lse=LSE_TOL,
-                   kernel_ms=k_ms,
+                   kernel_ms=k_ms, kernel_device_ms=k_dev_ms,
                    tflops=flops / k_ms * 1e-9,
                    plain_ms=p_ms, library_ms=lib_ms, bound_ms=bnd,
                    bound_by=by, ok=ok)
@@ -875,6 +879,14 @@ def backward_phase(torch, fa, failures):
             q, k, v, do, lse, delta, causal, scale), iters)
         row["dkv_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, causal, scale), iters)
+        row["dq_device_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale), iters,
+            hide_host=True)
+        row["dkv_device_ms"] = time_ms(
+            torch, lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale), iters,
+            hide_host=True)
         row["plain_ms"] = time_ms(torch, lambda: fa._fa_backward_plain(
             q, k, v, o, do, lse, causal, scale), max(iters // 4, 3))
         row["library_ms"] = None
@@ -11862,15 +11874,18 @@ def main():
     if moe_infer[0] == 0 or 0 in moe_tr:
         failures.append(f"the MoE paths left a kernel unlaunched: "
                         f"{moe_infer}, {moe_tr}")
-    bert_fwd = dict(ms=sb["kernel_ms"], bound_ms=sb["bound_ms"],
+    bert_fwd = dict(ms=sb["kernel_ms"], device_ms=sb["kernel_device_ms"],
+                    bound_ms=sb["bound_ms"],
                     bound_by=sb["bound_by"], plain_ms=sb["plain_ms"],
                     library_ms=sb["library_ms"],
                     max_abs_err=sb["max_abs_err_o"])
-    bert_dq = dict(ms=bb["dq_ms"], bound_ms=bb["dq_bound_ms"],
+    bert_dq = dict(ms=bb["dq_ms"], device_ms=bb["dq_device_ms"],
+                   bound_ms=bb["dq_bound_ms"],
                    bound_by=bb["dq_bound_by"], plain_ms=bb["plain_ms"],
                    library_ms=bb["library_ms"],
                    max_abs_err=bb["max_abs_err_dq"])
-    bert_dkv = dict(ms=bb["dkv_ms"], bound_ms=bb["dkv_bound_ms"],
+    bert_dkv = dict(ms=bb["dkv_ms"], device_ms=bb["dkv_device_ms"],
+                    bound_ms=bb["dkv_bound_ms"],
                     bound_by=bb["dkv_bound_by"], plain_ms=bb["plain_ms"],
                     library_ms=bb["library_ms"],
                     max_abs_err=max(bb["max_abs_err_dk"],
@@ -11878,7 +11893,7 @@ def main():
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src.format("fwd"), "replaces": replaces.format(132),
-         "design": design_name(s["design"], s["dtype"]),
+         "design": design_name(s["design"], s["dtype"], "wgmma+TMA"),
          "launches": fwd_launches, "launches_mma": fwd_mma,
          "launches_fma": fwd_launches - fwd_mma,
          "launches_bert": bert_launches[0], "at_bert_shape": bert_fwd,
@@ -11895,7 +11910,7 @@ def main():
          "launches_memory": mem[0],
          "launches_recorded_graphs": rec[0],
          "max_abs_err": s["max_abs_err_o"], "ms": s["kernel_ms"],
-         "tflops": s["tflops"],
+         "device_ms": s["kernel_device_ms"], "tflops": s["tflops"],
          "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
          "bound_by": s["bound_by"], "library_ms": s["library_ms"]},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
@@ -11916,12 +11931,12 @@ def main():
          "launches_memory": mem[1],
          "launches_recorded_graphs": rec[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
-         "tflops": bs["dq_tflops"],
+         "device_ms": bs["dq_device_ms"], "tflops": bs["dq_tflops"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
          "bound_by": bs["dq_bound_by"], "library_ms": bs["library_ms"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(302),
-         "design": design_name(bs["dkv_design"], bs["dtype"]),
+         "design": design_name(bs["dkv_design"], bs["dtype"], "wgmma+TMA"),
          "launches": dkv_launches, "launches_mma": dkv_mma,
          "launches_fma": dkv_launches - dkv_mma,
          "launches_bert": bert_launches[2], "at_bert_shape": bert_dkv,
@@ -11937,7 +11952,8 @@ def main():
          "launches_memory": mem[2],
          "launches_recorded_graphs": rec[2],
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
-         "ms": bs["dkv_ms"], "tflops": bs["dkv_tflops"],
+         "ms": bs["dkv_ms"], "device_ms": bs["dkv_device_ms"],
+         "tflops": bs["dkv_tflops"],
          "plain_ms": bs["plain_ms"],
          "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
          "library_ms": bs["library_ms"]},

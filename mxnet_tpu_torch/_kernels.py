@@ -5,7 +5,11 @@ shared library with a plain C interface, at first use, into ``build/``
 beside this file (listed in ``.gitignore``), and loaded with ``ctypes``.
 A library newer than its source and every local header the source
 includes (``#include "..."``, followed transitively: the attention and
-conv sources include ``csrc/flash_attention_mma.cuh``) is reused.  Sources build
+conv sources include ``csrc/flash_attention_mma.cuh``, the attention
+sources ``csrc/flash_attention_sm90.cuh`` too) is reused.  No library
+links ``-lcuda``: the attention kernels' TMA tensor maps are encoded
+through the entry point that the CUDA runtime hands out for
+``cuTensorMapEncodeTiled``.  Sources build
 in parallel, one ``nvcc`` per source.  Nothing here runs at import time:
 this module imports on machines without ``nvcc`` or a card.
 """

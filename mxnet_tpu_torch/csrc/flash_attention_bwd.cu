@@ -4,7 +4,8 @@
 // Replaces the two Pallas TPU kernels of mxnet_tpu/ops/flash_attention.py,
 // launched by _fa_backward_pallas:
 //   fa_bwd_dq_mma_kernel, fa_bwd_dq_kernel    <- _fa_bwd_dq_kernel  (dQ)
-//   fa_bwd_dkv_mma_kernel, fa_bwd_dkv_kernel  <- _fa_bwd_dkv_kernel (dK, dV)
+//   fa_bwd_dkv_wgmma_kernel, fa_bwd_dkv_kernel <- _fa_bwd_dkv_kernel (dK,
+//   dV)
 // Both recompute the probabilities from the forward's per-row lse:
 //   S = Q K^T * scale, P = exp(S - lse) (0 where masked or lse = -inf),
 //   dP = dO V^T, dS = P * (dP - delta) * scale, with delta = rowsum(dO * O)
@@ -55,23 +56,46 @@
 //   does.  dQ is stored in the input dtype with 4-byte stores.  What it
 //   still leaves: wgmma and TMA, warp specialisation, the masked halves of
 //   diagonal tiles, and S and dP computed by both backward kernels.
-// dK/dV, bf16 and f16 (mxt_flash_attention_bwd_dkv_mma): tensor cores,
-//   mma.sync (building blocks in flash_attention_mma.cuh).  One 128-thread
-//   block (4 warps, 16 keys each) per (b*h, 64-row k tile); K and V stay in
-//   padded shared memory; Q and dO tiles of 32 rows (D = 128) or 64 rows
-//   (D <= 64) are double-buffered with cp.async, with each q tile's lse and
-//   delta beside them.  The loop over q tiles starts at the first tile that
-//   sees this k tile.  Keys are the rows of every product: S^T = K Q^T and
-//   dP^T = V dO^T (Q and dO as ".col" B operands through ldmatrix) give
-//   P^T = exp(S^T * scale - lse[col]) and dS^T = P^T (dP^T - delta[col])
-//   * scale in the accumulator layout; rounded to the input dtype that
-//   layout is the A operand of dV += P^T dO and dK += dS^T Q (dO and Q
-//   through ldmatrix.trans), so neither goes through shared memory.  dK and
-//   dV accumulate in f32 registers (16 x D a warp each).  Masks are applied
-//   only on tiles that cross the causal diagonal or the Tk tail.  70 KB of
-//   shared memory at D = 128, three blocks an SM.  What it still leaves:
-//   wgmma and TMA, warp specialisation, the masked halves of diagonal
-//   tiles, and S and dP computed again by the dQ kernel.
+// dK/dV, bf16 and f16 (mxt_flash_attention_bwd_dkv_mma): Hopper's tensor
+//   cores, wgmma on tiles that the TMA unit loads into shared memory
+//   behind mbarriers (building blocks in flash_attention_sm90.cuh).  It
+//   replaces an earlier mma.sync design (4 warps of 16 keys, cp.async
+//   double buffering, ldmatrix) that reached a fifth of the bound:
+//   Ampere's instructions reach a fraction of this card's tensor-core
+//   rate.  One 256-thread block per (b*h, 128-key tile), early (heavy,
+//   causal) key tiles first: two warpgroups of 64 keys each.  K and V are
+//   loaded once and stay in shared memory; 64-row Q and dO tiles stream
+//   through a ring of two stages from the first q tile that sees the key
+//   tile.  Warp 0 is the producer: lane 0 issues the TMA loads (3-D maps:
+//   a ragged tail reads zeros, never the next head's rows) while every
+//   lane copies its rows' -lse * log2(e) (-inf past Tq and for rows that
+//   see no key) and delta beside them, first for two q tiles, then for
+//   each later one into the stage the last one leaves, once every warp has
+//   arrived on that stage's empty barrier; the full barrier counts the 32
+//   lanes and the tiles' bytes.  (A dedicated producer warpgroup with
+//   setmaxnreg giving the consumers 240 registers measured 0.26 ms against
+//   0.18 at the Llama slice shape on an H100 80GB HBM3 at 700 W: ptxas
+//   spilled and serialized every wgmma; with 256 threads each may hold
+//   255.)  Keys are the rows of every product, so dK and dV stay in f32
+//   registers (64 x D a warpgroup each, D registers a thread) and no block
+//   shares an output row: no atomics, and the gradients are the same bits
+//   from run to run.
+//   Each warpgroup, per q tile: S^T = K Q^T and dP^T = V dO^T on wgmma
+//   m64n64k16 (K, V, Q and dO K-major from shared memory), one commit
+//   group; P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and dS^T =
+//   P^T (dP^T - delta) * scale in the accumulator layout, masked only on
+//   tiles that cross the causal diagonal or the Tk tail, and a tile no
+//   query of which sees the warpgroup's keys is skipped; f16 scales each
+//   row of P^T and dS^T by a power of two (f16_row_scale), bf16 needs
+//   none; both are rounded to the input dtype in registers and are
+//   wgmma's A operand for dV += P^T dO and dK += dS^T Q, with dO and Q as
+//   MN-major B operands (the transposed descriptors of the same tiles), so
+//   neither goes through shared memory.  Shared memory: 128 KB at D = 128
+//   (K, V 32 KB each, two stages of Q and dO 32 KB each), one block an SM.
+//   What it still leaves: no overlap of one q tile's products with the
+//   last one's elementwise work within a warpgroup, dK and dV stored
+//   through registers rather than a TMA store, S and dP computed again by
+//   the dQ kernel (and delta by a separate pass), and no persistent grid.
 // dQ, f32 (mxt_flash_attention_bwd_dq_fma): one 256-thread block per (b*h,
 //   64-row q tile), a loop over 64-row k tiles that stops at the last tile
 //   the causal mask reaches; Q, dO, K, V and dS as f32 tiles in shared
@@ -89,6 +113,7 @@
 #include <type_traits>
 
 #include "flash_attention_mma.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -625,95 +650,140 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-constexpr int kMmaThreads = 128;  // dK/dV: 4 warps, 16 keys each
+// ---- dK/dV on the tensor cores (bf16, f16): wgmma on TMA tiles -------------
 
-// q rows a tile: 32 at D = 128 keeps dK, dV (64 + 64 registers a thread),
-// S^T and dP^T (16 + 16) in registers without spills (236 registers; 64
-// rows measured 10% faster in bf16 but needs all 255, with no room left
-// for the f16 row scaling)
+constexpr int kWgThreads = 256;  // two warpgroups of 64 keys
+constexpr int kWgBlockK = 128;   // keys a block
+constexpr int kWgBlockQ = 64;    // q rows a streamed Q/dO tile
+constexpr int kWgStages = 2;     // Q/dO tiles in flight
+
+// Shared memory of the dK/dV design at head dim D: the resident K and V
+// tiles, kWgStages (Q tile, dO tile) pairs (each tile kBlocks column
+// blocks of kSwz-byte rows), then -lse * log2(e) and delta of each stage's
+// rows, then the barriers; 1024 bytes of slack to align the start
 template <int D>
-__host__ __device__ constexpr int dkv_mma_block_q() {
-  return D == 128 ? 32 : 64;
-}
+struct DkvTiles {
+  static constexpr int kSwz = mxt_sm90::swizzle_bytes<D>();
+  static constexpr int kBlocks = 2 * D / kSwz;
+  static constexpr int kKRegion = kWgBlockK * kSwz;  // one column block
+  static constexpr int kQRegion = kWgBlockQ * kSwz;
+  static constexpr int kKBytes = kBlocks * kKRegion;
+  static constexpr int kQBytes = kBlocks * kQRegion;
+  static constexpr int kRowsOffset = 2 * kKBytes + 2 * kWgStages * kQBytes;
+  static constexpr int kBarOffset =
+      kRowsOffset + 2 * kWgStages * kWgBlockQ * (int)sizeof(float);
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kWgStages);
+};
 
+// Warp 0 fills stage (t - t_first) % kWgStages with q tile t: every lane
+// writes -lse * log2(e) (-inf past Tq and for rows that see no key) and
+// delta of its rows, lane 0 issues the Q and dO loads; the stage's full
+// barrier counts the 32 lanes and the tiles' bytes.
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // K and V tiles, two Q and two dO tiles (rows padded by 16 bytes), then
-  // two buffers of -lse * log2(e) and of delta
-  return 2 * (size_t)(2 * kBlock + 4 * dkv_mma_block_q<D>()) *
-             (D + mxt_mma::kPad) +
-         sizeof(float) * 4 * dkv_mma_block_q<D>();
-}
-
-// -lse * log2(e) (-inf for rows that see no key or lie past the end) and
-// delta of rows [row0, row0 + ROWS)
-template <int ROWS>
-__device__ __forceinline__ void load_rows_log2(float* nlse_s, float* delta_s,
-                                               const float* lse,
-                                               const float* delta, int row0,
-                                               int rows) {
-  for (int i = threadIdx.x; i < ROWS; i += kMmaThreads) {
-    const int r = row0 + i;
-    const float l = r < rows ? lse[r] : -INFINITY;
-    nlse_s[i] = isfinite(l) ? -l * kLog2e : -INFINITY;
-    delta_s[i] = r < rows ? delta[r] : 0.f;
+__device__ __forceinline__ void dkv_load_q(
+    const CUtensorMap* q_map, const CUtensorMap* do_map, const float* lse,
+    const float* delta, unsigned char* qdos, float* nlse_s, float* delta_s,
+    uint64_t* full, int t, int t_first, int bh, int tq, int lane) {
+  using namespace mxt_sm90;
+  using L = DkvTiles<D>;
+  const int s = (t - t_first) % kWgStages;
+  const int q0 = t * kWgBlockQ;
+  for (int r = lane; r < kWgBlockQ; r += 32) {
+    const int row = q0 + r;
+    const float l = row < tq ? lse[(size_t)bh * tq + row] : -INFINITY;
+    nlse_s[s * kWgBlockQ + r] = isfinite(l) ? -l * kLog2e : -INFINITY;
+    delta_s[s * kWgBlockQ + r] =
+        row < tq ? delta[(size_t)bh * tq + row] : 0.f;
+  }
+  if (lane == 0) {
+    unsigned char* qt = qdos + s * 2 * L::kQBytes;
+    mbar_arrive_expect_tx(&full[s], 2 * L::kQBytes);
+    for (int c = 0; c < L::kBlocks; ++c) {
+      tma_load_3d(qt + c * L::kQRegion, q_map, &full[s], c * L::kSwz / 2, q0,
+                  bh);
+      tma_load_3d(qt + L::kQBytes + c * L::kQRegion, do_map, &full[s],
+                  c * L::kSwz / 2, q0, bh);
+    }
+  } else {
+    mbar_arrive(&full[s]);
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    fa_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int tq,
-                          int tk, int causal, float scale) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int tq,
+                            int tk, int causal, float scale) {
+  using namespace mxt_sm90;
   using namespace mxt_mma;
-  constexpr int kBq = dkv_mma_block_q<D>();
-  constexpr int kLd = D + kPad;
-  constexpr int kDK = D / 16;  // k16 steps over D
-  constexpr int kDN = D / 8;   // n8 tiles over D
-  constexpr int kQN = kBq / 8;  // n8 tiles over a q tile
-  constexpr int kQTile = kBq * kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);  // kBlock x kLd, resident
-  T* vs = ks + kBlock * kLd;               // kBlock x kLd, resident
-  T* qs = vs + kBlock * kLd;               // 2 x kQTile
-  T* dos = qs + 2 * kQTile;                // 2 x kQTile
-  float* nlse_s = reinterpret_cast<float*>(dos + 2 * kQTile);  // 2 x kBq
-  float* delta_s = nlse_s + 2 * kBq;                           // 2 x kBq
+  using L = DkvTiles<D>;
+  constexpr int kSwz = L::kSwz;
+  constexpr int kSteps = kSwz / 32;   // k16 steps a column block row
+  constexpr int kQN = kWgBlockQ / 8;  // n8 tiles over a q tile
+  constexpr int kDN = D / 8;          // n8 tiles over D
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = ks + L::kKBytes;
+  unsigned char* qdos = vs + L::kKBytes;  // stage s: Q, then dO
+  float* nlse_s = reinterpret_cast<float*>(smem + L::kRowsOffset);
+  float* delta_s = nlse_s + kWgStages * kWgBlockQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kWgStages;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quad_col = 2 * (lane & 3);
-  const size_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlock;  // early (heavy) k tiles first
-  const T* qb = q + bh * (size_t)tq * D;
-  const T* dob = dout + bh * (size_t)tq * D;
-  const float* lseb = lse + bh * (size_t)tq;
-  const float* deltab = delta + bh * (size_t)tq;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kWgBlockK;  // early (heavy) k tiles first
   const int offset = tk - tq;
-  const int key_a = k0 + warp * 16 + (lane >> 2);  // and key_a + 8
-
   // causal: query i sees key j iff i >= j - offset, so the first q row that
   // sees any key of this tile is k0 - offset
   const int q_first = causal ? max(0, k0 - offset) : 0;
-  const int n_q = (tq + kBq - 1) / kBq;
-  const int t_first = q_first < tq ? q_first / kBq : n_q;
-
-  if (t_first < n_q) {
-    cp_async_tile<kBlock, D, kMmaThreads>(ks, k + bh * (size_t)tk * D, k0,
-                                          tk);
-    cp_async_tile<kBlock, D, kMmaThreads>(vs, v + bh * (size_t)tk * D, k0,
-                                          tk);
-    cp_async_tile<kBq, D, kMmaThreads>(qs, qb, t_first * kBq, tq);
-    cp_async_tile<kBq, D, kMmaThreads>(dos, dob, t_first * kBq, tq);
-    load_rows_log2<kBq>(nlse_s, delta_s, lseb, deltab, t_first * kBq, tq);
+  const int n_q = (tq + kWgBlockQ - 1) / kWgBlockQ;
+  const int t_first = q_first < tq ? q_first / kWgBlockQ : n_q;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 32);  // warp 0's lanes
+      mbar_init(&empty[s], 8);  // every warp
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
+  __syncthreads();
+  // warp 0 issues every load: K and V and the first kWgStages q tiles now,
+  // then each later q tile as the stage it goes to is released
+  if (threadIdx.x < 32 && t_first < n_q) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kKBytes);
+      for (int c = 0; c < L::kBlocks; ++c) {
+        tma_load_3d(ks + c * L::kKRegion, &k_map, kv_full, c * kSwz / 2, k0,
+                    bh);
+        tma_load_3d(vs + c * L::kKRegion, &v_map, kv_full, c * kSwz / 2, k0,
+                    bh);
+      }
+    }
+    for (int t = t_first; t < t_first + kWgStages && t < n_q; ++t)
+      dkv_load_q<D>(&q_map, &do_map, lse, delta, qdos, nlse_s, delta_s, full,
+                    t, t_first, bh, tq, lane);
+  }
+
+  // warpgroup wg: keys kw0 .. kw0 + 63
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x & 127) >> 5;
+  const int quad_col = 2 * (lane & 3);
+  const int kw0 = k0 + 64 * wg;
+  const int key_a = kw0 + warp * 16 + (lane >> 2);  // and key_a + 8
+  const uint32_t k_addr = smem_u32(ks) + 64 * wg * kSwz;
+  const uint32_t v_addr = smem_u32(vs) + 64 * wg * kSwz;
 
   const float scale_log2 = scale * kLog2e;
   // f16: per-row powers of two for P^T and dS^T (f16_row_scale)
-  constexpr bool kF16 = std::is_same<T, __half>::value;
   int e_p[2] = {kRowScaleMax, kRowScaleMax};
   int e_ds[2] = {kRowScaleMax, kRowScaleMax};
   float dk_acc[kDN][4], dv_acc[kDN][4];
@@ -722,52 +792,60 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
+  if (t_first < n_q) mbar_wait(kv_full, 0);
   for (int t = t_first; t < n_q; ++t) {
-    const int q0 = t * kBq;
-    const int buf = (t - t_first) & 1;
-    if (t + 1 < n_q) {  // the next q tile loads while this one computes
-      const int nb = buf ^ 1;
-      cp_async_tile<kBq, D, kMmaThreads>(qs + nb * kQTile, qb, q0 + kBq, tq);
-      cp_async_tile<kBq, D, kMmaThreads>(dos + nb * kQTile, dob, q0 + kBq,
-                                         tq);
-      load_rows_log2<kBq>(nlse_s + nb * kBq, delta_s + nb * kBq, lseb,
-                          deltab, q0 + kBq, tq);
+    const int i = t - t_first;
+    const int s = i % kWgStages;
+    const uint32_t parity = (i / kWgStages) & 1;
+    // the last tile's stage takes tile t - 1 + kWgStages once every warp
+    // is done with it
+    if (threadIdx.x < 32 && i > 0 && t - 1 + kWgStages < n_q) {
+      mbar_wait(&empty[(i - 1) % kWgStages], ((i - 1) / kWgStages) & 1);
+      dkv_load_q<D>(&q_map, &do_map, lse, delta, qdos, nlse_s, delta_s, full,
+                    t - 1 + kWgStages, t_first, bh, tq, lane);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group (and K's, V's) has landed
-    __syncthreads();
-    const T* qt = qs + buf * kQTile;
-    const T* dot = dos + buf * kQTile;
-    const float* nl = nlse_s + buf * kBq;
-    const float* dl = delta_s + buf * kBq;
+    const int q0 = t * kWgBlockQ;
+    // no query of the tile sees a key of this warpgroup
+    if (kw0 >= tk || (causal && kw0 > q0 + kWgBlockQ - 1 + offset)) {
+      // the stage is released only once filled: a warpgroup that skips
+      // never runs a round ahead of the other one on the empty barrier
+      mbar_wait(&full[s], parity);
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint32_t q_addr = smem_u32(qdos) + s * 2 * L::kQBytes;
+    const uint32_t do_addr = q_addr + L::kQBytes;
+    const float* nl = nlse_s + s * kWgBlockQ;
+    const float* dl = delta_s + s * kWgBlockQ;
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
+    // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys
     float st[kQN][4], dpt[kQN][4];
+    mbar_wait(&full[s], parity);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kQN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, frag_a<kLd>(ks, warp * 16, kk * 16, lane));
-      ldmatrix_x4(va, frag_a<kLd>(vs, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kQN / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, frag_b<kLd>(qt, np * 16, kk * 16, lane));
-        mma_16816<T>(st[2 * np], ka, b[0], b[1]);
-        mma_16816<T>(st[2 * np + 1], ka, b[2], b[3]);
-        ldmatrix_x4(b, frag_b<kLd>(dot, np * 16, kk * 16, lane));
-        mma_16816<T>(dpt[2 * np], va, b[0], b[1]);
-        mma_16816<T>(dpt[2 * np + 1], va, b[2], b[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % kSteps) * 32;
+      wgmma_ss_step<T>(st,
+                       desc<kSwz>(k_addr + (kk / kSteps) * L::kKRegion + col,
+                                  16, 8 * kSwz),
+                       desc<kSwz>(q_addr + (kk / kSteps) * L::kQRegion + col,
+                                  16, 8 * kSwz),
+                       kk);
+      wgmma_ss_step<T>(dpt,
+                       desc<kSwz>(v_addr + (kk / kSteps) * L::kKRegion + col,
+                                  16, 8 * kSwz),
+                       desc<kSwz>(do_addr + (kk / kSteps) * L::kQRegion + col,
+                                  16, 8 * kSwz),
+                       kk);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(st);
+    fence_operand(dpt);
 
     // P^T and dS^T in place; only tiles on the causal diagonal or the Tk
-    // tail hold masked pairs
-    const bool edge =
-        k0 + kBlock > tk || (causal && k0 + kBlock - 1 > q0 + offset);
+    // tail hold masked pairs (q rows past Tq have -lse = -inf: P^T = 0)
+    const bool edge = kw0 + 64 > tk || (causal && kw0 + 63 > q0 + offset);
 #pragma unroll
     for (int j = 0; j < kQN; ++j)
 #pragma unroll
@@ -789,33 +867,35 @@ __global__ void __launch_bounds__(kMmaThreads)
       }
     }
 
-    // dV += P^T dO, dK += dS^T Q, both A operands rounded to T in registers
+    // dV += P^T dO and dK += dS^T Q: both A operands rounded to T in
+    // registers, dO and Q MN-major
+    uint32_t pa[kWgBlockQ / 16][4], da[kWgBlockQ / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBq / 16; ++j) {
-      uint32_t ap[4], ads[4];
-      acc_to_a<T>(ap, st[2 * j], st[2 * j + 1]);
-      acc_to_a<T>(ads, dpt[2 * j], dpt[2 * j + 1]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, frag_a<kLd>(dot, j * 16, dp * 16, lane));
-        mma_16816<T>(dv_acc[2 * dp], ap, b[0], b[1]);
-        mma_16816<T>(dv_acc[2 * dp + 1], ap, b[2], b[3]);
-        ldmatrix_x4_trans(b, frag_a<kLd>(qt, j * 16, dp * 16, lane));
-        mma_16816<T>(dk_acc[2 * dp], ads, b[0], b[1]);
-        mma_16816<T>(dk_acc[2 * dp + 1], ads, b[2], b[3]);
-      }
+    for (int j = 0; j < kWgBlockQ / 16; ++j) {
+      acc_to_a<T>(pa[j], st[2 * j], st[2 * j + 1]);
+      acc_to_a<T>(da[j], dpt[2 * j], dpt[2 * j + 1]);
     }
-    __syncthreads();  // every warp is done with this buffer
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kWgBlockQ / 16; ++j) {
+      wgmma_rs<T>(dv_acc, pa[j],
+                  desc<kSwz>(do_addr + j * 16 * kSwz, L::kQRegion, 8 * kSwz));
+      wgmma_rs<T>(dk_acc, da[j],
+                  desc<kSwz>(q_addr + j * 16 * kSwz, L::kQRegion, 8 * kSwz));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(dv_acc);
+    fence_operand(dk_acc);
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key_a + 8 * h;
     if (key < tk) {
-      T* krow = dk + (bh * (size_t)tk + key) * D + quad_col;
-      T* vrow = dv + (bh * (size_t)tk + key) * D + quad_col;
+      T* krow = dk + ((size_t)bh * tk + key) * D + quad_col;
+      T* vrow = dv + ((size_t)bh * tk + key) * D + quad_col;
       const float fk = kF16 ? pow2(-e_ds[h]) : 1.f;
       const float fv = kF16 ? pow2(-e_p[h]) : 1.f;
 #pragma unroll
@@ -830,23 +910,33 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, void* dk, void* dv, int bh,
-                           int tq, int tk, int causal, float scale,
-                           cudaStream_t stream) {
-  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int bh,
+                             int tq, int tk, int causal, float scale,
+                             cudaStream_t stream) {
+  using L = DkvTiles<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_mma_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_bwd_dkv_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return err;
   if (bh == 0 || tk == 0) return cudaSuccess;
-  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
-  fa_bwd_dkv_mma_kernel<T, D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), tq, tk, causal, scale);
+  if (tq == 0) {  // no query: dK = dV = 0 (and no Q map to make)
+    const size_t bytes = (size_t)bh * tk * D * sizeof(T);
+    if ((err = cudaMemsetAsync(dk, 0, bytes, stream))) return err;
+    return cudaMemsetAsync(dv, 0, bytes, stream);
+  }
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if ((err = mxt_sm90::make_map<T, D>(&q_map, q, bh, tq, kWgBlockQ)) ||
+      (err = mxt_sm90::make_map<T, D>(&k_map, k, bh, tk, kWgBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&v_map, v, bh, tk, kWgBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&do_map, dout, bh, tq, kWgBlockQ)))
+    return err;
+  const dim3 grid(bh, (tk + kWgBlockK - 1) / kWgBlockK);
+  fa_bwd_dkv_wgmma_kernel<T, D><<<grid, kWgThreads, L::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), tq, tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -875,24 +965,24 @@ cudaError_t launch_dq_mma_d(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch_dkv_mma_d(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv, int bh,
-                             int tq, int tk, int d, int causal, float scale,
-                             cudaStream_t stream) {
+cudaError_t launch_dkv_wgmma_d(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dk, void* dv, int bh,
+                               int tq, int tk, int d, int causal, float scale,
+                               cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_dkv_mma<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh, tq,
-                                   tk, causal, scale, stream);
+      return launch_dkv_wgmma<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     tq, tk, causal, scale, stream);
     case 32:
-      return launch_dkv_mma<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, tq,
-                                   tk, causal, scale, stream);
+      return launch_dkv_wgmma<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     tq, tk, causal, scale, stream);
     case 64:
-      return launch_dkv_mma<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, tq,
-                                   tk, causal, scale, stream);
+      return launch_dkv_wgmma<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                     tq, tk, causal, scale, stream);
     case 128:
-      return launch_dkv_mma<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                    tq, tk, causal, scale, stream);
+      return launch_dkv_wgmma<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      tq, tk, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -954,12 +1044,12 @@ extern "C" int mxt_flash_attention_bwd_dkv_mma(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return launch_dkv_mma_d<__half>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      tq, tk, d, causal, scale, s);
+      return launch_dkv_wgmma_d<__half>(q, k, v, dout, lse, delta, dk, dv,
+                                        bh, tq, tk, d, causal, scale, s);
     case 2:
-      return launch_dkv_mma_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dk,
-                                             dv, bh, tq, tk, d, causal,
-                                             scale, s);
+      return launch_dkv_wgmma_d<__nv_bfloat16>(q, k, v, dout, lse, delta,
+                                               dk, dv, bh, tq, tk, d, causal,
+                                               scale, s);
     default:
       return cudaErrorInvalidValue;
   }

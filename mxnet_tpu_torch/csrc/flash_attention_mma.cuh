@@ -6,7 +6,10 @@
 // mxnet_tpu/ops/flash_attention.py (_fa_kernel, _fa_bwd_dq_kernel and
 // _fa_bwd_dkv_kernel) for bf16 and f16 inputs, the fused product the one of
 // tools/pallas_conv_probe.py (fused_matmul_affine_relu) for bf16; their
-// source notes give the bounds.  What this header holds, each an inline PTX wrapper
+// source notes give the bounds.  The forward and dK/dV run on wgmma
+// (flash_attention_sm90.cuh) and take from here only the packing, acc_to_a,
+// the quad reductions and f16_row_scale; dQ and the fused product use all
+// of it.  What this header holds, each an inline PTX wrapper
 // or a plain device function (sm_80-era instructions, valid for sm_90a, no
 // CUTLASS):
 //   - cp.async.cg of 16 bytes from global to shared memory, with the

@@ -25,10 +25,11 @@ and dV are zero.  D > 128 has no instance on the card (ROADMAP Queue 2,
 "D = 256 instance") and raises there; the plain versions take any D.
 
 Each of the three kernels has two designs, chosen here by dtype
-(``_design``): bf16 and f16 run on the tensor cores (``mma.sync``; P and
-dS are rounded to the input dtype before the products that take them,
-which ``round_p=True`` mirrors in the plain versions), f32 on the FMA pipes
-in exact f32.
+(``_design``): bf16 and f16 run on the tensor cores (``"mma"``: the
+forward and dK/dV on Hopper's ``wgmma`` over tiles the TMA unit loads,
+dQ on ``mma.sync``; P and dS are rounded to the input dtype before the
+products that take them, which ``round_p=True`` mirrors in the plain
+versions), f32 on the FMA pipes in exact f32.
 
 ``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
 whose forward saves (q, k, v, O, lse) and whose backward recomputes the
@@ -197,12 +198,14 @@ def _check_kernel_operands(q, k, v):
 
 def _design(dtype):
     """The kernel design a dtype launches: ``"mma"`` (bf16, f16: the
-    tensor cores) or ``"fma"`` (f32: the FMA pipes, exact f32)."""
+    tensor cores, ``wgmma`` in the forward and dK/dV, ``mma.sync`` in dQ)
+    or ``"fma"`` (f32: the FMA pipes, exact f32)."""
     return "fma" if dtype == torch.float32 else "mma"
 
 
 def _check_aligned(*tensors):
-    """The tensor-core kernels copy tiles 16 bytes at a time."""
+    """The tensor-core kernels copy tiles 16 bytes at a time (TMA's tensor
+    maps take only 16-byte aligned base addresses)."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise MXNetError("flash_attention: the bf16/f16 kernels need "
                          "16-byte aligned operands (a storage offset that "

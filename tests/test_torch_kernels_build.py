@@ -42,12 +42,82 @@ def test_library_older_than_an_included_header_is_stale(tmp_path,
 
 def test_flash_attention_sources_depend_on_the_shared_header():
     """The flash-attention sources and the fused 1x1 conv+BN+ReLU source
-    all include the tensor-core header, so an edit of it rebuilds each."""
-    header = _kernels._PKG / "csrc" / "flash_attention_mma.cuh"
-    for name in ("flash_attention_fwd", "flash_attention_bwd",
-                 "fused_matmul_affine_relu"):
-        deps = _kernels._dependencies(_kernels._PKG / _kernels.SOURCES[name])
-        assert deps == [_kernels._PKG / _kernels.SOURCES[name], header]
+    all include the tensor-core header, so an edit of it rebuilds each;
+    the flash-attention sources also include the Hopper header (TMA,
+    mbarriers, wgmma), and the conv source does not."""
+    csrc = _kernels._PKG / "csrc"
+    mma, sm90 = csrc / "flash_attention_mma.cuh", \
+        csrc / "flash_attention_sm90.cuh"
+    for name, headers in (("flash_attention_fwd", {mma, sm90}),
+                          ("flash_attention_bwd", {mma, sm90}),
+                          ("fused_matmul_affine_relu", {mma})):
+        src = _kernels._PKG / _kernels.SOURCES[name]
+        deps = _kernels._dependencies(src)
+        assert deps[0] == src and len(deps) == len(set(deps))
+        assert set(deps[1:]) == headers, name
+
+
+def _code(path):
+    """The text of a C++ source without its comments."""
+    import re
+
+    text = re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def _function(code, name):
+    """The body of the first function called ``name`` in ``code``."""
+    start = code.index(name + "(")
+    body = code.index("{", start)
+    depth, i = 0, body
+    while True:
+        depth += {"{": 1, "}": -1}.get(code[i], 0)
+        if depth == 0:
+            return code[body:i + 1]
+        i += 1
+
+
+def test_forward_and_dkv_issue_wgmma_on_tma_tiles():
+    """The bf16/f16 forward and dK/dV kernels issue ``wgmma.mma_async`` on
+    tiles that ``cp.async.bulk.tensor`` loads behind ``mbarrier``s: their
+    kernels call the Hopper header's wrappers, which hold those
+    instructions, and keep no ``mma.sync`` path (the header's ``mma_16816``
+    and ``ldmatrix``).  dQ keeps its ``mma.sync`` design."""
+    csrc = _kernels._PKG / "csrc"
+    sm90 = _code(csrc / "flash_attention_sm90.cuh")
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.3d",
+                "mbarrier.try_wait.parity", "mbarrier.arrive.expect_tx",
+                "wgmma.fence", "wgmma.commit_group", "wgmma.wait_group"):
+        assert ptx in sm90, ptx
+    fwd = _code(csrc / "flash_attention_fwd.cu")
+    bwd = _code(csrc / "flash_attention_bwd.cu")
+    for code, kernel in ((fwd, "fa_fwd_wgmma_kernel"),
+                         (bwd, "fa_bwd_dkv_wgmma_kernel")):
+        body = _function(code, kernel)
+        for call in ("tma_load_3d", "mbar_wait", "wgmma_ss_step",
+                     "wgmma_rs"):
+            assert call in code, (kernel, call)
+        for old in ("mma_16816", "ldmatrix", "cp_async"):
+            assert old not in body, (kernel, old)
+    assert "fa_fwd_mma_kernel" not in fwd
+    assert "fa_bwd_dkv_mma_kernel" not in bwd
+    dq = _function(bwd, "fa_bwd_dq_mma_kernel")
+    assert "mma_16816" in dq and "wgmma" not in dq
+    # each C entry point of the tensor-core design reaches its new kernel
+    assert "launch_wgmma_d" in _function(fwd, "mxt_flash_attention_fwd_mma")
+    assert "launch_dkv_wgmma_d" in _function(
+        bwd, "mxt_flash_attention_bwd_dkv_mma")
+
+
+def test_tensor_maps_need_no_libcuda():
+    """The TMA tensor maps are encoded through the entry point that the
+    CUDA runtime hands out, so no library links ``-lcuda``."""
+    flags = list(_kernels.NVCC_FLAGS) + [
+        f for extra in _kernels.EXTRA_FLAGS.values() for f in extra]
+    assert not any("cuda" in f and f.startswith("-l") for f in flags)
+    sm90 = _code(_kernels._PKG / "csrc" / "flash_attention_sm90.cuh")
+    assert "cuTensorMapEncodeTiled" in sm90
+    assert "cudaGetDriverEntryPoint" in sm90
 
 
 def test_every_source_builds_with_its_flags_and_declares_its_symbols(

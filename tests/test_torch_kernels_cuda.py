@@ -243,6 +243,187 @@ def test_backward_rejects_what_it_does_not_take(cuda_nvcc):
         tfa.flash_attention_bwd(q, q, q, q, q, lse.double())
 
 
+# Every bf16/f16 instance of chip_smoke.py's KERNEL_SHAPES, BWD_SHAPES and
+# MMA_SHAPES: (B, H, Tq, Tk, D, causal, dtype).  The Llama training slice,
+# BERT-base's attention, a ragged T at 32 heads, every D in bf16 and f16,
+# Tq < Tk and Tq > Tk.
+_SMOKE_SHAPES = [
+    (1, 32, 2048, 2048, 128, True, torch.bfloat16),
+    (64, 12, 128, 128, 64, False, torch.bfloat16),
+    (2, 32, 1000, 1000, 128, True, torch.bfloat16),
+    (2, 4, 200, 200, 16, True, torch.bfloat16),
+    (2, 4, 333, 333, 32, True, torch.bfloat16),
+    (2, 8, 512, 512, 64, False, torch.bfloat16),
+    (2, 4, 200, 200, 16, True, torch.float16),
+    (2, 4, 333, 333, 32, True, torch.float16),
+    (2, 8, 512, 512, 64, False, torch.float16),
+    (1, 8, 300, 700, 128, True, torch.bfloat16),
+    (1, 8, 700, 300, 128, True, torch.bfloat16)]
+# chip_smoke.py's tolerances: O within 2e-2, 2u of each row and 2u in norm
+# (u = 2^-8 / 2^-11), lse within 1e-3; gradients within 1e-2 / 2e-3 of
+# each row and 5e-3 / 1e-3 in norm (bf16 / f16)
+_O_ROW = {torch.bfloat16: 2 * 2.0 ** -8, torch.float16: 2 * 2.0 ** -11}
+_G_TOL = {torch.bfloat16: (1e-2, 5e-3), torch.float16: (2e-3, 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype", _SMOKE_SHAPES)
+def test_wgmma_kernels_match_plain_at_the_smoke_shapes(cuda_nvcc, b, h, tq,
+                                                       tk, d, causal, dtype):
+    """The forward (#1) and dK/dV (#3) tensor-core designs, and dQ beside
+    them, at every shape ``chip_smoke.py`` holds them at, against the plain
+    versions on f32 copies of the same inputs, with its tolerances."""
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(b * 1000 + tq + d)
+
+    def rnd(t):
+        return torch.randn(b, h, t, d, generator=g, device=cuda_nvcc,
+                           dtype=dtype)
+
+    q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+    scale = d ** -0.5
+    fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+           tfa.flash_attention_bwd_dkv)
+    before = [fn.launches_mma for fn in fns]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert [fn.launches_mma for fn in fns] == [n + 1 for n in before]
+    o_ref, lse_ref = tfa._fa_forward_plain(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    assert (o.float() - o_ref).abs().max().item() <= 2e-2
+    _assert_rows_close(o, o_ref, _O_ROW[dtype], _O_ROW[dtype])
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse - lse_ref)[fin].abs().max().item() <= 1e-3
+    ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                 do.float(), lse, causal, scale)
+    row_tol, norm_tol = _G_TOL[dtype]
+    zero_rows = (_dq_zero_row(causal, tq, tk), None, None)
+    for grad, r, zero_row in zip(got, ref, zero_rows):
+        assert bool(torch.isfinite(grad).all())
+        _assert_rows_close(grad, r, row_tol, norm_tol, zero_row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(128, True), (128, False),
+                                      (64, False), (32, True)])
+def test_wgmma_ragged_tails_stay_in_their_head(cuda_nvcc, d, causal):
+    """B·H = 6 heads of Tk = 1000 (no tile multiple), each head's K and V
+    (and Q and dO) at its own magnitude, 2^5 to 2^10: a tile that ran past
+    its head's last row into the next head's would read rows of another
+    size.  The kernels' 3-D tensor maps zero-fill the tails within each
+    head, so O, lse, dK and dV match the plain versions head by head."""
+    b, h, t = 2, 3, 1000
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(d + causal)
+    mag = (2.0 ** torch.arange(b * h, device=cuda_nvcc, dtype=torch.float32)
+           * 2.0 ** (10 - b * h + 1)).view(b, h, 1, 1)
+
+    def rnd(scale):
+        x = torch.randn(b, h, t, d, generator=g, device=cuda_nvcc) * scale
+        return x.to(torch.bfloat16)
+
+    q, do = rnd(1.0 / mag.sqrt()), rnd(1.0)
+    k, v = rnd(1.0 / mag.sqrt()), rnd(mag)
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    delta = tfa._delta(o, do)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                         scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tfa._fa_forward_plain(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    _, dk_ref, dv_ref = tfa._fa_backward_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, causal,
+        scale)
+    for bi in range(b):
+        for hi in range(h):
+            _assert_rows_close(o[bi, hi], o_ref[bi, hi], 2 * 2.0 ** -8,
+                               2 * 2.0 ** -8)
+            assert (lse[bi, hi] - lse_ref[bi, hi]).abs().max().item() <= \
+                1e-3
+            for grad, r in ((dk, dk_ref), (dv, dv_ref)):
+                _assert_rows_close(grad[bi, hi], r[bi, hi], 1e-2, 5e-3)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_replay_in_graphs_bit_equal_to_eager(cuda_nvcc):
+    """The forward and dK/dV kernels encode their tensor maps on the host
+    at each call, so a CUDA graph holds the maps of the tensors it was
+    captured with.  The port's graphs copy new inputs into those tensors
+    (the same addresses): the replays equal eager calls bit for bit.  New
+    tensors elsewhere leave the graph reading its own, and a graph captured
+    on them reads theirs: both equal eager calls bit for bit."""
+    from mxnet_tpu_torch import cuda_graph
+
+    b, h, t, d, causal, scale = 1, 4, 300, 128, True, 128 ** -0.5
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(24)
+
+    def fresh():
+        return [torch.randn(b, h, t, d, generator=g, device=cuda_nvcc,
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def eager(q, k, v, do):
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+        return (o, lse) + tfa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, tfa._delta(o, do), causal, scale)
+
+    static = fresh()
+    cuda_graph.warmup(lambda: eager(*static))
+    graph = cuda_graph.capture(lambda: eager(*static))
+    fwd, dkv = tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv
+    for _ in range(2):  # new inputs at the same addresses
+        new = fresh()
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        before = (fwd.launches, dkv.launches)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (fwd.launches, dkv.launches) == (before[0] + 1,
+                                                before[1] + 1)
+        for got, want in zip(graph.outputs, eager(*new)):
+            assert torch.equal(got, want)
+    elsewhere = fresh()  # new tensors at new addresses
+    assert all(a.data_ptr() != s.data_ptr()
+               for a, s in zip(elsewhere, static))
+    graph.replay()
+    for got, want in zip(graph.outputs, eager(*static)):
+        assert torch.equal(got, want)
+    cuda_graph.warmup(lambda: eager(*elsewhere))
+    second = cuda_graph.capture(lambda: eager(*elsewhere))
+    second.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(second.outputs, eager(*elsewhere)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wgmma_kernels_hold_no_device_memory_of_their_own(cuda_nvcc):
+    """The kernels allocate nothing (the tensor maps live on the host and
+    travel as launch parameters): forward, dQ and dK/dV called again and
+    again leave ``memory_reserved`` flat."""
+    b, h, t, d = 1, 8, 1024, 128
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(3)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g, device=cuda_nvcc,
+                               dtype=torch.bfloat16) for _ in range(4))
+
+    def step():
+        o, lse = tfa.flash_attention_fwd(q, k, v, True)
+        return tfa.flash_attention_bwd(q, k, v, o, do, lse, True)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(50):
+        step()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() == reserved
+
+
 @pytest.mark.cuda
 def test_llama_tiny_on_card_matches_cpu(cuda_nvcc):
     """The same weights on the card (flash kernel, once per layer) and on
