@@ -72,23 +72,28 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    host's enqueue hidden) and TFLOP/s, the plain version's, torch SDPA's (a
    yardstick only, where Tq = Tk) and the card's bound; at the slice shape also the wrapper's host time and the
    kernel launched alone through its C entry point;
-4. backward kernels: ``flash_attention_bwd`` (dQ and dK/dV) against the
-   plain backward at every shape of ``BWD_SHAPES``, each gradient held
-   row by row and by its relative norm, with each kernel's time, device
-   time and TFLOP/s, delta's, the plain version's, torch SDPA's backward (where
-   Tq = Tk) and the bound; at the slice shape also each kernel's wrapper
-   host time and its launch alone through its C entry point;
+4. backward kernels: ``flash_attention_bwd`` (dQ, which also writes δ =
+   rowsum(dO·O), then dK/dV on that δ) against the plain backward at
+   every shape of ``BWD_SHAPES``, each gradient held row by row and by its
+   relative norm and δ against ``_delta`` and, row by row, against an
+   f64 sum (bit-equal from run to run), with each kernel's time, device
+   time and TFLOP/s, the torch δ pass's (the plain version, which the
+   card route no longer runs), the plain version's, torch
+   SDPA's backward (where Tq = Tk) and the bound; at the slice shape also
+   each kernel's wrapper host time and its launch alone through its C
+   entry point;
 5. fused kernel: ``fused_matmul_affine_relu`` against its plain version
    at ResNet-50 v1's eight shapes (B=128) in bf16 and in f16, one f32
-   and one ragged shape, with its design, time, TFLOP/s, the plain
-   version's time, the library's (``addmm`` with the scale folded, then
-   ``relu``), the eager cuDNN chain's and the bound, and the NCHW ->
-   (M, K) copy's time; then one bf16 and one f16 forward's sums; and
-   every distinct bf16 shape of MobileNet v1 1.0 (9 shapes, 13 launches
-   a forward), Inception v3 (19, 40) and DenseNet-121 (58, 58) at B=128
-   (read off a CPU forward), each against the plain version with its
-   time, bound, plain time and ``addmm`` + ``relu``'s, and each net's
-   forward summed over its launches beside its bound;
+   and one ragged shape, with its design, time and device
+   time, TFLOP/s, the plain version's time, the library's (``addmm`` with
+   the scale folded, then ``relu``; time and device time), the eager
+   cuDNN chain's and the bound, and the NCHW -> (M, K) copy's time; then
+   one bf16 and one f16 forward's sums; and every distinct bf16 shape of
+   MobileNet v1 1.0 (9 shapes, 13 launches a forward), Inception v3 (19,
+   40) and DenseNet-121 (58, 58) at B=128 (read off a CPU forward), each
+   against the plain version with its times, bound, plain time and
+   ``addmm`` + ``relu``'s, and each net's forward summed over its
+   launches beside its bound;
 5b. multi-tensor update: ``csrc/multi_tensor_update.cu`` against its
    plain version (the optimizers' per-tensor rules) for SGD, SGD with
    momentum, NAG, Adam and AdamW in f32, bf16, bf16 with f32 masters and
@@ -555,6 +560,12 @@ BWD_SHAPES = [
 # (3.9e-3) of each value
 ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2e-3}
 NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-3, "float16": 1e-3}
+# δ = rowsum(dO·O) from the dQ kernel against the plain version's on the
+# same O and dO: both sum the same exact f32 products of D terms, in other
+# orders (about 1e-7 of the largest at D = 128).  Row by row against an f64
+# sum, each row's error is at most (D - 1)·2^-24 (7.6e-6 at D = 128) of
+# that row's sum of |dO·O|, whatever cancels in it
+DELTA_TOL = 1e-5
 # f32 training check: every gradient within this share of the largest
 # gradient of the same tensor; both routes are f32 (no TF32), the
 # attention sums run in other orders and the difference propagates
@@ -606,11 +617,10 @@ GRAPH_BF16_TOL = 2.0 ** -8
 NEW_TOKENS = 32
 
 
-def design_name(design, dtype, tensor_cores="mma.sync"):
+def design_name(design, dtype):
     """A kernel design as the ``kernels`` line names it, such as
-    ``"mma.sync bf16"``; ``tensor_cores`` names the kernel's tensor-core
-    design (``"wgmma+TMA"`` for the flash forward and dK/dV)."""
-    names = {"mma": tensor_cores, "fma": "FMA"}
+    ``"wgmma+TMA bf16"`` (every tensor-core design) or ``"FMA f32"``."""
+    names = {"mma": "wgmma+TMA", "fma": "FMA"}
     short = {"float32": "f32", "float16": "f16", "bfloat16": "bf16"}
     return f"{names[design]} {short[dtype]}"
 
@@ -832,11 +842,22 @@ def grad_errors(torch, g, r, zero_row=None):
     return diff.max().item(), share.max().item(), norm.item()
 
 
+def delta_row_err(delta, o, do):
+    """The largest over rows of |δ − rowsum(dO·O)| over the row's sum of
+    |dO·O|, both sums in f64: δ's error row by row, held at its scale
+    even where the row's terms cancel."""
+    prod = do.double() * o.double()
+    err = (delta.double() - prod.sum(-1)).abs()
+    return (err / prod.abs().sum(-1).clamp_min(1e-300)).max().item()
+
+
 def backward_phase(torch, fa, failures):
-    """Phase 4: ``flash_attention_bwd`` (δ, then the dQ and dK/dV kernels)
-    against the plain backward at each shape (the plain version on f32
-    copies of the same inputs and the kernel forward's O and lse); then
-    each kernel and δ timed alone."""
+    """Phase 4: ``flash_attention_bwd`` (the dQ kernel, which also writes
+    δ, then the dK/dV kernel on that δ) against the plain backward at each
+    shape (the plain version on f32 copies of the same inputs and the
+    kernel forward's O and lse), and the dQ kernel's δ against ``_delta``;
+    then each kernel and the torch δ pass (the plain version, which the
+    card route no longer runs) timed alone."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
     rows = []
@@ -851,10 +872,15 @@ def backward_phase(torch, fa, failures):
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal, scale)
+        # the dQ kernel's δ, held against the plain version's below; the
+        # plain backward runs on it, so that rows where dP - δ cancels
+        # compare the rest of the arithmetic, not two δ's rounding
+        dq1, delta = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                               scale)
         torch.cuda.synchronize()
         ref = fa._fa_backward_plain(q.float(), k.float(), v.float(),
                                     o.float(), do.float(), lse, causal,
-                                    scale)
+                                    scale, delta=delta)
         row = dict(phase="backward_kernels", shape=name, B=b, H=h, Tq=tq,
                    Tk=tk, D=d, causal=causal, dtype=dt,
                    row_tol=ROW_TOL[dt], norm_tol=NORM_TOL[dt])
@@ -872,16 +898,31 @@ def backward_phase(torch, fa, failures):
             row["masked_rows_dq_zero"] = bool(
                 (got[0][:, :, :masked] == 0).all())
             ok = ok and row["masked_rows_dq_zero"]
-        delta = fa._delta(o, do)
+        # the dQ kernel's δ against the plain version's (f32 sums of the
+        # same products in other orders: within DELTA_TOL of the largest)
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                                scale)
+        delta_ref = fa._delta(o, do)
+        row["delta_rel_err"] = ((delta - delta_ref).abs().max() /
+                                delta_ref.abs().max().clamp_min(1e-30)).item()
+        row["delta_row_err"] = delta_row_err(delta, o, do)
+        row["dq_delta_bit_equal"] = bool(
+            torch.equal(dq1, dq2) and torch.equal(delta, delta2) and
+            torch.equal(dq1, got[0]))
+        ok = ok and row["delta_rel_err"] <= DELTA_TOL and \
+            row["delta_row_err"] <= DELTA_TOL and row["dq_delta_bit_equal"]
+        del dq1, dq2, delta2
         iters = 10 if tq * tk * b * h > 1e7 else 50
         row["delta_ms"] = time_ms(torch, lambda: fa._delta(o, do), iters)
+        row["delta_device_ms"] = time_ms(torch, lambda: fa._delta(o, do),
+                                         iters, hide_host=True)
         row["dq_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal, scale), iters)
+            q, k, v, o, do, lse, causal, scale), iters)
         row["dkv_ms"] = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
             q, k, v, do, lse, delta, causal, scale), iters)
         row["dq_device_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, causal, scale), iters,
+                q, k, v, o, do, lse, causal, scale), iters,
             hide_host=True)
         row["dkv_device_ms"] = time_ms(
             torch, lambda: fa.flash_attention_bwd_dkv(
@@ -906,7 +947,7 @@ def backward_phase(torch, fa, failures):
         row["bound_ms"], row["bound_by"] = bwd_bound_ms(
             *shape, products=5, reads_o=True, writes=tq + 2 * tk)
         row["dq_bound_ms"], row["dq_bound_by"] = bwd_bound_ms(
-            *shape, products=3, reads_o=False, writes=tq)
+            *shape, products=3, reads_o=True, writes=tq)
         row["dkv_bound_ms"], row["dkv_bound_by"] = bwd_bound_ms(
             *shape, products=4, reads_o=False, writes=2 * tk)
         pairs = visible_pairs(tq, tk, causal) * b * h
@@ -919,11 +960,12 @@ def backward_phase(torch, fa, failures):
                     scale)
             row["dq_wrapper_host_us"] = host_us(
                 torch, lambda: fa.flash_attention_bwd_dq(
-                    q, k, v, do, lse, delta, causal, scale), iters)
+                    q, k, v, o, do, lse, causal, scale), iters)
             row["dq_launch_only_ms"] = launch_only_ms(
                 torch, "flash_attention_bwd",
                 f"mxt_flash_attention_bwd_dq_{design}",
-                (q, k, v, do, lse, delta, torch.empty_like(q)), tail, iters)
+                (q, k, v, o, do, lse, torch.empty_like(delta),
+                 torch.empty_like(q)), tail, iters)
             row["dkv_wrapper_host_us"] = host_us(
                 torch, lambda: fa.flash_attention_bwd_dkv(
                     q, k, v, do, lse, delta, causal, scale), iters)
@@ -1690,10 +1732,12 @@ RESNET_LR = 0.1
 
 def fused_kernel_phase(torch, cbr, failures):
     """The fused kernel against its plain version at each shape, with its
-    design, time, the plain version's, the library's (``addmm`` with the
-    scale folded into w, then ``relu``), the eager NCHW chain's
-    (``conv2d`` → ``batch_norm`` in eval → ``relu``), the card's bound and
-    the NCHW → (M, K) copy the fused path makes before each launch."""
+    design, time (host included, and the
+    device's alone: ``kernel_device_ms``), the plain version's, the
+    library's (``addmm`` with the scale folded into w, then ``relu``; also
+    its device time), the eager NCHW chain's (``conv2d`` → ``batch_norm``
+    in eval → ``relu``), the card's bound and the NCHW → (M, K) copy the
+    fused path makes before each launch."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
     tnf = torch.nn.functional
@@ -1740,10 +1784,15 @@ def fused_kernel_phase(torch, cbr, failures):
             first_call_s=first_call_s,
             kernel_ms=time_ms(torch, lambda: cbr.fused_matmul_affine_relu(
                 x, w, scale, bias), iters),
+            kernel_device_ms=time_ms(
+                torch, lambda: cbr.fused_matmul_affine_relu(
+                    x, w, scale, bias), iters, hide_host=True),
             plain_ms=time_ms(torch, lambda: cbr._fused_matmul_affine_relu_plain(
                 x, w, scale, bias), max(iters // 4, 5)),
             library_ms=time_ms(torch, lambda: torch.relu(torch.addmm(
                 b_lib, x, w_lib)), iters),
+            library_device_ms=time_ms(torch, lambda: torch.relu(torch.addmm(
+                b_lib, x, w_lib)), iters, hide_host=True),
             chain_ms=time_ms(torch, lambda: torch.relu(tnf.batch_norm(
                 tnf.conv2d(x_nchw, wconv), mean, var, gamma, beta,
                 training=False, eps=1e-5)), iters),
@@ -1768,11 +1817,12 @@ def fused_kernel_phase(torch, cbr, failures):
     # for an f16 forward, on its own line)
     f16 = [r for r in rows
            if r["launches_per_forward"] and r["dtype"] == "float16"]
+    sums = ("kernel_ms", "kernel_device_ms", "bound_ms", "plain_ms",
+            "library_ms", "library_device_ms", "chain_ms")
     emit(dict(phase="fused_kernel_forward_f16",
               launches=sum(r["launches_per_forward"] for r in f16),
               **{key: sum(r[key] * r["launches_per_forward"] for r in f16)
-                 for key in ("kernel_ms", "bound_ms", "plain_ms",
-                             "library_ms", "chain_ms")}))
+                 for key in sums}))
     forward = [r for r in rows
                if r["launches_per_forward"] and r["dtype"] == "bfloat16"]
     # the served B=32 bucket's forward: each b32_ shape times the
@@ -1783,18 +1833,14 @@ def fused_kernel_phase(torch, cbr, failures):
     emit(dict(phase="fused_kernel_forward_b32",
               launches=sum(n for _, n in b32),
               max_abs_err=max(r["max_abs_err"] for r, _ in b32),
-              **{key: sum(r[key] * n for r, n in b32)
-                 for key in ("kernel_ms", "bound_ms", "plain_ms",
-                             "library_ms", "chain_ms")}))
+              **{key: sum(r[key] * n for r, n in b32) for key in sums}))
     total = dict(phase="fused_kernel_forward",
                  launches=sum(r["launches_per_forward"] for r in forward),
                  design=forward[0]["design"],
                  max_abs_err=max(r["max_abs_err"] for r in rows),
                  **{key: sum(r[key] * r["launches_per_forward"]
                              for r in forward)
-                    for key in ("kernel_ms", "bound_ms", "plain_ms",
-                                "library_ms", "chain_ms",
-                                "nchw_to_mk_copy_ms")})
+                    for key in sums + ("nchw_to_mk_copy_ms",)})
     total["tflops"] = sum(2.0 * r["M"] * r["K"] * r["N"] *
                           r["launches_per_forward"] for r in forward) / \
         total["kernel_ms"] * 1e-9
@@ -3161,9 +3207,10 @@ def zoo_shapes(torch, mx, vision, cbr):
 def zoo_kernel_phase(torch, cbr, shapes, failures):
     """Phase 5 at the new shapes: the fused kernel against its plain
     version at every distinct bf16 shape of the three nets at B=128,
-    with its time, bound, the plain version's and cuBLAS ``addmm`` +
-    ``relu``'s (the scale folded into w), then each net's forward summed
-    over its launches."""
+    with its time (host included, and the device's alone), bound, the
+    plain version's and cuBLAS ``addmm`` + ``relu``'s (the scale folded
+    into w; also its device time), then each net's forward summed over its
+    launches."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 20)
     dt = "bfloat16"
@@ -3195,11 +3242,16 @@ def zoo_kernel_phase(torch, cbr, shapes, failures):
                 max_abs_ref=largest,
                 kernel_ms=time_ms(torch, lambda: cbr.fused_matmul_affine_relu(
                     x, w, scale, bias), iters),
+                kernel_device_ms=time_ms(
+                    torch, lambda: cbr.fused_matmul_affine_relu(
+                        x, w, scale, bias), iters, hide_host=True),
                 plain_ms=time_ms(
                     torch, lambda: cbr._fused_matmul_affine_relu_plain(
                         x, w, scale, bias), max(iters // 4, 5)),
                 library_ms=time_ms(torch, lambda: torch.relu(torch.addmm(
-                    b_lib, x, w_lib)), iters))
+                    b_lib, x, w_lib)), iters),
+                library_device_ms=time_ms(torch, lambda: torch.relu(
+                    torch.addmm(b_lib, x, w_lib)), iters, hide_host=True))
             row["bound_ms"], row["bound_by"] = roofline_ms(
                 2.0 * m * k * n, 2 * (m * k + k * n + m * n) + 8 * n, dt)
             row["ok"] = ok
@@ -3215,8 +3267,9 @@ def zoo_kernel_phase(torch, cbr, shapes, failures):
                      max_abs_err=max(r["max_abs_err"] for r in rows),
                      **{key: sum(r[key] * r["launches_per_forward"]
                                  for r in rows)
-                        for key in ("kernel_ms", "bound_ms", "plain_ms",
-                                    "library_ms")})
+                        for key in ("kernel_ms", "kernel_device_ms",
+                                    "bound_ms", "plain_ms", "library_ms",
+                                    "library_device_ms")})
         total["gflop"] = sum(2.0 * r["M"] * r["K"] * r["N"] *
                              r["launches_per_forward"] for r in rows) * 1e-9
         by_bytes = sum(r["bound_ms"] * r["launches_per_forward"]
@@ -3225,6 +3278,8 @@ def zoo_kernel_phase(torch, cbr, shapes, failures):
             else "operations"
         total["shapes_losing_to_library"] = sum(
             r["kernel_ms"] > r["library_ms"] for r in rows)
+        total["shapes_losing_to_library_device"] = sum(
+            r["kernel_device_ms"] > r["library_device_ms"] for r in rows)
         total["ok"] = total["launches"] == per_net
         emit(total)
         if not total["ok"]:
@@ -11880,6 +11935,7 @@ def main():
                     library_ms=sb["library_ms"],
                     max_abs_err=sb["max_abs_err_o"])
     bert_dq = dict(ms=bb["dq_ms"], device_ms=bb["dq_device_ms"],
+                   delta_device_ms=bb["delta_device_ms"],
                    bound_ms=bb["dq_bound_ms"],
                    bound_by=bb["dq_bound_by"], plain_ms=bb["plain_ms"],
                    library_ms=bb["library_ms"],
@@ -11893,7 +11949,7 @@ def main():
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src.format("fwd"), "replaces": replaces.format(132),
-         "design": design_name(s["design"], s["dtype"], "wgmma+TMA"),
+         "design": design_name(s["design"], s["dtype"]),
          "launches": fwd_launches, "launches_mma": fwd_mma,
          "launches_fma": fwd_launches - fwd_mma,
          "launches_bert": bert_launches[0], "at_bert_shape": bert_fwd,
@@ -11916,6 +11972,9 @@ def main():
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(259),
          "design": design_name(bs["dq_design"], bs["dtype"]),
+         "delta": "rowsum(dO*O) computed in the kernel (the reference's "
+                  "mxnet_tpu/ops/flash_attention.py:365, outside its "
+                  "kernels)",
          "launches": dq_launches, "launches_mma": dq_mma,
          "launches_fma": dq_launches - dq_mma,
          "launches_bert": bert_launches[1], "at_bert_shape": bert_dq,
@@ -11932,11 +11991,13 @@ def main():
          "launches_recorded_graphs": rec[1],
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "device_ms": bs["dq_device_ms"], "tflops": bs["dq_tflops"],
+         "delta_rel_err": bs["delta_rel_err"],
+         "delta_device_ms": bs["delta_device_ms"],
          "plain_ms": bs["plain_ms"], "bound_ms": bs["dq_bound_ms"],
          "bound_by": bs["dq_bound_by"], "library_ms": bs["library_ms"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": src.format("bwd"), "replaces": replaces.format(302),
-         "design": design_name(bs["dkv_design"], bs["dtype"], "wgmma+TMA"),
+         "design": design_name(bs["dkv_design"], bs["dtype"]),
          "launches": dkv_launches, "launches_mma": dkv_mma,
          "launches_fma": dkv_launches - dkv_mma,
          "launches_bert": bert_launches[2], "at_bert_shape": bert_dkv,
@@ -11973,21 +12034,27 @@ def main():
          "launches_exported_detectors": exp_det[0],
          "launches_bulk": bulk_fused[0],
          "max_abs_err": fused["max_abs_err"],
-         "ms": fused["kernel_ms"], "tflops": fused["tflops"],
+         "ms": fused["kernel_ms"], "device_ms": fused["kernel_device_ms"],
+         "tflops": fused["tflops"],
          "plain_ms": fused["plain_ms"],
          "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
-         "library_ms": fused["library_ms"]},
+         "library_ms": fused["library_ms"],
+         "library_device_ms": fused["library_device_ms"]},
         *[{"name": "fused_matmul_affine_relu", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/fused_matmul_affine_relu.cu",
            "replaces": "tools/pallas_conv_probe.py:35",
-           "design": design_name("mma", "bfloat16"), "net": name,
+           "design": design_name("mma", "bfloat16"),
+           "net": name,
            "B": ZOO_B, "launches": zoo_launches[name][0],
            "launches_mma": zoo_launches[name][1],
            "max_abs_err": zoo[name]["max_abs_err"],
-           "ms": zoo[name]["kernel_ms"], "plain_ms": zoo[name]["plain_ms"],
+           "ms": zoo[name]["kernel_ms"],
+           "device_ms": zoo[name]["kernel_device_ms"],
+           "plain_ms": zoo[name]["plain_ms"],
            "bound_ms": zoo[name]["bound_ms"],
            "bound_by": zoo[name]["bound_by"],
            "library_ms": zoo[name]["library_ms"],
+           "library_device_ms": zoo[name]["library_device_ms"],
            "gflop": zoo[name]["gflop"]} for name, _, _ in ZOO_FUSED],
         {"name": "multi_tensor_update", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/multi_tensor_update.cu",

@@ -16,10 +16,15 @@ the mean over REPS calls after a warm-up (CUDA events):
   back to back, on the host's clock) and its C entry point's alone
   (``entry_host_us``: the same calls through ``ctypes`` on preallocated
   outputs, no Python wrapper);
-- ``dq`` (#2) and ``dkv`` (#3): ``flash_attention_bwd_dq`` and
-  ``flash_attention_bwd_dkv`` on the forward's O and lse and δ =
-  rowsum(dO·O), with ``dkv``'s two host times too and whether two of its
-  runs give the same bits (``deterministic``);
+- ``dq`` (#2): δ = rowsum(dO·O) and dQ, the route's cost before dK/dV
+  runs: ``flash_attention_bwd_dq`` on the forward's O and lse where the
+  tree's dQ kernel computes δ itself (``flash_attention_bwd_dq(q, k, v,
+  o, do, lse, ...) -> (dq, delta)``), else the tree's ``_delta`` pass
+  then its dQ kernel (``delta_in_dq`` says which), with whether two runs
+  give the same bits of dq and δ (``deterministic``);
+- ``dkv`` (#3): ``flash_attention_bwd_dkv`` on that δ, with its two host
+  times too and whether two of its runs give the same bits
+  (``deterministic``);
 - ``sdpa_fwd`` and ``sdpa_bwd``: torch's ``scaled_dot_product_attention``
   on the same inputs, and its whole backward (the three gradients, on one
   retained graph): the library's yardsticks, which the port never calls.
@@ -28,6 +33,7 @@ To compare two trees, run it from each in one call on the same card,
 alternating (A, B, B, A).
 """
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -127,14 +133,21 @@ def main():
                                    dtype=torch.bfloat16) for _ in range(4))
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
-        delta = fa._delta(o, do)
+        delta_in_dq = "o" in inspect.signature(
+            fa.flash_attention_bwd_dq).parameters
 
         def fwd():
             return fa.flash_attention_fwd(q, k, v, causal, scale)
 
         def dq():
-            return fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
-                                             scale)
+            if delta_in_dq:
+                return fa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                                 scale)
+            d = fa._delta(o, do)
+            return fa.flash_attention_bwd_dq(q, k, v, do, lse, d, causal,
+                                             scale), d
+
+        delta = dq()[1]
 
         def dkv():
             return fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
@@ -142,6 +155,10 @@ def main():
 
         row = dict(fwd=both(torch, fwd), dq=both(torch, dq),
                    dkv=both(torch, dkv))
+        row["dq"]["delta_in_dq"] = delta_in_dq
+        first, second = dq(), dq()
+        row["dq"]["deterministic"] = all(
+            bool(torch.equal(a, c)) for a, c in zip(first, second))
         row["fwd"]["host_us"] = host_us(torch, fwd)
         row["dkv"]["host_us"] = host_us(torch, dkv)
         tail = (b * h, t, t, d, fa._DTYPE_CODES[q.dtype], int(causal),

@@ -6,8 +6,8 @@ beside this file (listed in ``.gitignore``), and loaded with ``ctypes``.
 A library newer than its source and every local header the source
 includes (``#include "..."``, followed transitively: the attention and
 conv sources include ``csrc/flash_attention_mma.cuh``, the attention
-sources ``csrc/flash_attention_sm90.cuh`` too) is reused.  No library
-links ``-lcuda``: the attention kernels' TMA tensor maps are encoded
+sources and the conv source ``csrc/flash_attention_sm90.cuh`` too) is
+reused.  No library links ``-lcuda``: the TMA tensor maps are encoded
 through the entry point that the CUDA runtime hands out for
 ``cuTensorMapEncodeTiled``.  Sources build
 in parallel, one ``nvcc`` per source.  Nothing here runs at import time:
@@ -42,10 +42,12 @@ SYMBOLS = {
     "flash_attention_fwd": {"mxt_flash_attention_fwd_mma": [_PTR] * 5 + _TAIL,
                             "mxt_flash_attention_fwd_fma":
                                 [_PTR] * 5 + _TAIL},
+    # dQ: q, k, v, O, dO, lse, delta (out), dq; dK/dV: q, k, v, dO, lse,
+    # delta, dk, dv
     "flash_attention_bwd": {"mxt_flash_attention_bwd_dq_mma":
-                                [_PTR] * 7 + _TAIL,
+                                [_PTR] * 8 + _TAIL,
                             "mxt_flash_attention_bwd_dq_fma":
-                                [_PTR] * 7 + _TAIL,
+                                [_PTR] * 8 + _TAIL,
                             "mxt_flash_attention_bwd_dkv_mma":
                                 [_PTR] * 8 + _TAIL,
                             "mxt_flash_attention_bwd_dkv_fma":

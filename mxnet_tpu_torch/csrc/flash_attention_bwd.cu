@@ -3,59 +3,74 @@
 //
 // Replaces the two Pallas TPU kernels of mxnet_tpu/ops/flash_attention.py,
 // launched by _fa_backward_pallas:
-//   fa_bwd_dq_mma_kernel, fa_bwd_dq_kernel    <- _fa_bwd_dq_kernel  (dQ)
+//   fa_bwd_dq_wgmma_kernel, fa_bwd_dq_kernel  <- _fa_bwd_dq_kernel  (dQ)
 //   fa_bwd_dkv_wgmma_kernel, fa_bwd_dkv_kernel <- _fa_bwd_dkv_kernel (dK,
 //   dV)
 // Both recompute the probabilities from the forward's per-row lse:
 //   S = Q K^T * scale, P = exp(S - lse) (0 where masked or lse = -inf),
 //   dP = dO V^T, dS = P * (dP - delta) * scale, with delta = rowsum(dO * O)
-//   computed in f32 by the caller before either kernel runs;
+//   in f32, which the reference computes outside its kernels and the dQ
+//   kernel here computes for its own rows and writes for dK/dV to read;
 //   dQ = dS K, dK = dS^T Q, dV = P^T dO.
 // Masking follows the port's forward, not the Pallas backward (which masks
 // q >= k and so is right only at Tq = Tk): key j is visible to query i iff
 // j < Tk and, when causal, j <= i + (Tk - Tq) (bottom-right alignment).
 // Ragged tails are masked here.  Rows that see no key (lse = -inf) get
 // dQ = 0 and add nothing to dK and dV.
-// Inputs: q, dO (B*H, Tq, D); k, v (B*H, Tk, D); contiguous, all of one dtype
-// (f32, f16 or bf16); lse, delta f32 (B*H, Tq); D in {16, 32, 64, 128}.
-// Outputs in the input dtype; accumulation in f32.
+// Inputs: q, O, dO (B*H, Tq, D); k, v (B*H, Tk, D); contiguous, all of one
+// dtype (f32, f16 or bf16); lse f32 (B*H, Tq); D in {16, 32, 64, 128}.
+// Outputs dQ, dK, dV in the input dtype, delta f32 (B*H, Tq) (dQ's output,
+// dK/dV's input); accumulation in f32.
 //
 // Each output tile is owned by exactly one thread block, as the TPU split
 // has it, so there are no atomics and the gradients are the same bits from
-// run to run.  Heavy tiles (late q tiles for dQ, early k tiles for dK/dV)
-// start first.
+// run to run; delta is summed in a fixed order, a pair of threads a row.
+// Heavy tiles (late q tiles for dQ, early k tiles for dK/dV) start first.
 //
 // Bound on this card (H100 SXM, 989 TFLOP/s bf16 dense, 3.35 TB/s): at the
 // Llama-3-8B slice shape B1 H32 T2048 D128 causal bf16, dK/dV's four
 // products come to 68.75 GFLOP (0.0695 ms) and dQ's three to 51.6 GFLOP
-// (0.0521 ms), against 50-70 MB moved (0.02 ms) each: bound by operations
-// (the f32 FMA pipes alone need 1.026 and 0.770 ms).
+// (0.0521 ms), against 50-85 MB moved (0.02-0.025 ms) each (dQ's reading
+// of O for delta adds 16.8 MB, 5 us): bound by operations (the f32 FMA
+// pipes alone need 1.026 and 0.770 ms).
 //
 // Each kernel has two designs, chosen by the caller (ops/flash_attention.py)
 // by dtype: bf16 and f16 on the tensor cores (_mma), f32 on the FMA pipes
 // in exact f32 (_fma; TF32 would change f32 users' results).
 //
-// dQ, bf16 and f16 (mxt_flash_attention_bwd_dq_mma): tensor cores,
-//   mma.sync (building blocks in flash_attention_mma.cuh), the forward's
-//   design with the backward's arithmetic.  One 256-thread block (8 warps,
-//   16 query rows each) per (b*h, 128-row q tile: faster than 64 rows and
-//   4 warps at the Llama slice shape, as for the forward); Q and dO are
-//   loaded once with cp.async into padded shared memory and read as A
-//   fragments (ldmatrix) at every k tile, which keeps the registers for
-//   the accumulators (holding them too would need 64 more a thread).  Each
-//   thread keeps -lse * log2(e) and delta of its two rows in registers.  K
-//   and V come in 64-row tiles, double-buffered with cp.async (136 KB of
-//   shared memory at D = 128, one block an SM), and the loop stops at the
-//   last tile the causal mask reaches.  S = Q K^T and dP = dO V^T run on
-//   mma.m16n8k16 with K and V as ".col" B operands; P = exp2(S * scale *
-//   log2(e) - lse * log2(e)) and dS = P (dP - delta) * scale are computed in
-//   the accumulator layout, masked only on diagonal and tail tiles; dS,
-//   rounded to the input dtype in registers, is the A operand of dQ += dS K
-//   with K through ldmatrix.trans, so it never goes through shared memory.
-//   f16 scales dS and the dQ accumulator per row (f16_row_scale), as dK/dV
-//   does.  dQ is stored in the input dtype with 4-byte stores.  What it
-//   still leaves: wgmma and TMA, warp specialisation, the masked halves of
-//   diagonal tiles, and S and dP computed by both backward kernels.
+// dQ, bf16 and f16 (mxt_flash_attention_bwd_dq_mma): Hopper's tensor cores,
+//   wgmma on tiles that the TMA unit loads behind mbarriers, the forward's
+//   design with the backward's arithmetic.  It replaces an earlier
+//   mma.sync design (8 warps of 16 rows, cp.async double buffering,
+//   ldmatrix) that reached a quarter of the bound, needed a separate delta
+//   pass and spilled at D = 16 and 32.  One block per (b*h, q tile), heavy
+//   (late, causal) tiles first: at D = 128 two warpgroups of 64 q rows (256
+//   threads, one block an SM: Q and dO 32 KB each, two stages of 64-key K
+//   and V tiles 32 KB each, 128 KB), at D <= 64 one warpgroup, so that
+//   several blocks share an SM.  Q and dO are loaded once and stay in
+//   shared memory; K and V stream through a ring of two stages, the loop
+//   stopping at the last tile the causal mask reaches.  Thread 0 is the
+//   producer, as in the forward: every TMA load (3-D maps: a ragged tail
+//   reads zeros, never the next head's rows), each later K/V tile into the
+//   stage the last one leaves once every warp has arrived on that stage's
+//   empty barrier.  Before its loop each warpgroup computes delta =
+//   rowsum(dO * O) in f32 for its 64 rows, reading O once from device
+//   memory and dO from its resident (swizzled) tile, two threads a row in a
+//   fixed order, and writes it for the dK/dV kernel, also for rows that see
+//   no key.  Per K/V tile: S = Q K^T and dP = dO V^T on wgmma m64n64k16
+//   (all four operands K-major from shared memory), one commit group; P =
+//   exp2(S * scale * log2(e) - lse * log2(e)) and dS = P (dP - delta) *
+//   scale in the accumulator layout, masked only on tiles that cross the
+//   causal diagonal or the Tk tail, and a tile no row of the warpgroup sees
+//   is skipped; f16 scales dS and the dQ accumulator per row
+//   (f16_row_scale), as dK/dV does; dS rounded to the input dtype in
+//   registers is wgmma's A operand for dQ += dS K, with K as the MN-major B
+//   operand (the transposed descriptor of the same tile), so dS never goes
+//   through shared memory.  dQ stays in f32 registers (D / 2 a thread) and
+//   is stored in the input dtype with 4-byte stores.  What it still leaves:
+//   S and dP computed by both backward kernels, no overlap of one tile's
+//   products with the last one's elementwise work within a warpgroup, and
+//   no persistent grid.
 // dK/dV, bf16 and f16 (mxt_flash_attention_bwd_dkv_mma): Hopper's tensor
 //   cores, wgmma on tiles that the TMA unit loads into shared memory
 //   behind mbarriers (building blocks in flash_attention_sm90.cuh).  It
@@ -95,10 +110,11 @@
 //   What it still leaves: no overlap of one q tile's products with the
 //   last one's elementwise work within a warpgroup, dK and dV stored
 //   through registers rather than a TMA store, S and dP computed again by
-//   the dQ kernel (and delta by a separate pass), and no persistent grid.
+//   the dQ kernel, and no persistent grid.
 // dQ, f32 (mxt_flash_attention_bwd_dq_fma): one 256-thread block per (b*h,
-//   64-row q tile), a loop over 64-row k tiles that stops at the last tile
-//   the causal mask reaches; Q, dO, K, V and dS as f32 tiles in shared
+//   64-row q tile), delta of its rows first (a thread a row, from the dO
+//   tile and O), then a loop over 64-row k tiles that stops at the last
+//   tile the causal mask reaches; Q, dO, K, V and dS as f32 tiles in shared
 //   memory (149 KB at D = 128), dQ in registers, synchronous loads.
 // dK/dV, f32 (mxt_flash_attention_bwd_dkv_fma): one 256-thread block per
 //   (b*h, 64-row k tile), K and V resident, a loop over 64-row q tiles;
@@ -162,11 +178,11 @@ constexpr size_t dkv_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+                     const float* __restrict__ v, const float* __restrict__ o,
                      const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int tq, int tk, int causal, float scale) {
+                     const float* __restrict__ lse, float* __restrict__ delta,
+                     float* __restrict__ dq, int tq, int tk, int causal,
+                     float scale) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -188,8 +204,20 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<D>(qs, q + bh * (size_t)tq * D, q0, tq);
   load_tile<D>(dos, dout + bh * (size_t)tq * D, q0, tq);
-  load_rows(lse_s, delta_s, lse + bh * (size_t)tq, delta + bh * (size_t)tq,
-            q0, tq);
+  __syncthreads();
+  // lse, and delta = rowsum(dO * O) of the tile's rows, in element order,
+  // written for every row (rows past the end see no key)
+  if (tid < kBlock) {
+    const int row = q0 + tid;
+    float sum = 0.f;
+    if (row < tq) {
+      const float* orow = o + (bh * (size_t)tq + row) * D;
+      for (int d = 0; d < D; ++d) sum = fmaf(dos[tid * kLd + d], orow[d], sum);
+      delta[bh * (size_t)tq + row] = sum;
+    }
+    lse_s[tid] = row < tq ? lse[bh * (size_t)tq + row] : -INFINITY;
+    delta_s[tid] = sum;
+  }
   __syncthreads();
   float lrow[4], drow[4];
 #pragma unroll
@@ -423,9 +451,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int tq, int tk, int causal,
-                      float scale, cudaStream_t stream) {
+                      const void* o, const void* dout, const void* lse,
+                      void* delta, void* dq, int bh, int tq, int tk,
+                      int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   // above 48 KB a block's shared memory must be opted into, per device
   cudaError_t err = cudaFuncSetAttribute(
@@ -436,9 +464,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   fa_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), tq, tk, causal, scale);
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<float*>(dq), tq, tk, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -463,75 +492,205 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- dQ and dK/dV on the tensor cores (bf16, f16) --------------------------
+// ---- dQ on the tensor cores (bf16, f16): wgmma on TMA tiles, delta in ---
 
-constexpr int kDqThreads = 256;  // dQ: 8 warps, 16 queries each
-constexpr int kDqBlockQ = kDqThreads / 32 * 16;  // q rows of a dQ tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDqStages = 2;   // K/V tiles in flight
+constexpr int kDqBlockK = 64;  // keys a K/V tile
 
+// The plan of the dQ design at head dim D: at D = 128 two warpgroups (128 q
+// rows) share each K/V tile, one block an SM; at D <= 64 one warpgroup (64
+// rows), so that several blocks share an SM (as the forward).  Shared
+// memory: the Q and dO tiles, kDqStages (K tile, V tile) pairs, each tile
+// kBlocks column blocks of kSwz-byte rows, then delta of the block's rows,
+// then the barriers; 1024 bytes of slack to align the start.
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  // the Q and dO tiles, then two K and two V tiles, rows padded by 16 bytes
-  return 2 * (size_t)(2 * kDqBlockQ + 4 * kBlock) * (D + mxt_mma::kPad);
+struct DqTiles {
+  static constexpr int kGroups = D == 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kBlockQ = 64 * kGroups;
+  static constexpr int kSwz = mxt_sm90::swizzle_bytes<D>();
+  static constexpr int kBlocks = 2 * D / kSwz;
+  static constexpr int kQRegion = kBlockQ * kSwz;  // one column block
+  static constexpr int kKRegion = kDqBlockK * kSwz;
+  static constexpr int kQBytes = kBlocks * kQRegion;
+  static constexpr int kKBytes = kBlocks * kKRegion;
+  static constexpr int kDeltaOffset = 2 * kQBytes + 2 * kDqStages * kKBytes;
+  static constexpr int kBarOffset =
+      kDeltaOffset + kBlockQ * (int)sizeof(float);
+  static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 3 * kDqStages);
+};
+
+// K/V tile t into stage t % kDqStages (thread 0); K and V complete on
+// barriers of their own
+template <int D>
+__device__ __forceinline__ void dq_load_kv(const CUtensorMap* k_map,
+                                           const CUtensorMap* v_map,
+                                           unsigned char* kvs,
+                                           uint64_t* k_full, uint64_t* v_full,
+                                           int t, int bh) {
+  using namespace mxt_sm90;
+  using L = DqTiles<D>;
+  const int s = t % kDqStages;
+  unsigned char* kt = kvs + s * 2 * L::kKBytes;
+  unsigned char* vt = kt + L::kKBytes;
+  mbar_arrive_expect_tx(&k_full[s], L::kKBytes);
+  for (int c = 0; c < L::kBlocks; ++c)
+    tma_load_3d(kt + c * L::kKRegion, k_map, &k_full[s], c * L::kSwz / 2,
+                t * kDqBlockK, bh);
+  mbar_arrive_expect_tx(&v_full[s], L::kKBytes);
+  for (int c = 0; c < L::kBlocks; ++c)
+    tma_load_3d(vt + c * L::kKRegion, v_map, &v_full[s], c * L::kSwz / 2,
+                t * kDqBlockK, bh);
+}
+
+// The two values of a packed pair of T as f32
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u);
+
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
+  __nv_bfloat162 v;
+  memcpy(&v, &u, sizeof(v));
+  return __bfloat1622float2(v);
+}
+
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
+  __half2 v;
+  memcpy(&v, &u, sizeof(v));
+  return __half22float2(v);
+}
+
+// sum + the dot product of eight values of T each, in element order
+template <typename T>
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b,
+                                      float sum) {
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = unpack2<T>(av[i]), y = unpack2<T>(bv[i]);
+    sum = fmaf(x.x, y.x, sum);
+    sum = fmaf(x.y, y.y, sum);
+  }
+  return sum;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kDqThreads)
-    fa_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dq,
-                         int tq, int tk, int causal, float scale) {
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+    fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const T* __restrict__ o,
+                           const float* __restrict__ lse,
+                           float* __restrict__ delta, T* __restrict__ dq,
+                           int tq, int tk, int causal, float scale) {
+  using namespace mxt_sm90;
   using namespace mxt_mma;
-  constexpr int kLd = D + kPad;
-  constexpr int kDK = D / 16;      // k16 steps over D
-  constexpr int kDN = D / 8;       // n8 tiles over D
-  constexpr int kKN = kBlock / 8;  // n8 tiles over a k tile
-  constexpr int kTile = kBlock * kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // kDqBlockQ x kLd
-  T* dos = qs + kDqBlockQ * kLd;           // kDqBlockQ x kLd
-  T* ks = dos + kDqBlockQ * kLd;           // 2 x kTile
-  T* vs = ks + 2 * kTile;                  // 2 x kTile
+  using L = DqTiles<D>;
+  constexpr int kSwz = L::kSwz;
+  constexpr int kSteps = kSwz / 32;     // k16 steps a column block row
+  constexpr int kKN = kDqBlockK / 8;    // n8 tiles of S and dP
+  constexpr int kDN = D / 8;            // n8 tiles of dQ
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = qs + L::kQBytes;
+  unsigned char* kvs = dos + L::kQBytes;  // stage s: K, then V
+  float* delta_s = reinterpret_cast<float*>(smem + L::kDeltaOffset);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kDqStages;
+  uint64_t* empty = v_full + kDqStages;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int quad_col = 2 * (lane & 3);
-  const size_t bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBlockQ;  // heavy first
-  const T* kb = k + bh * (size_t)tk * D;
-  const T* vb = v + bh * (size_t)tk * D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kBlockQ;  // heavy first
   const int offset = tk - tq;
-  const int row_a = q0 + warp * 16 + (lane >> 2);  // and row_a + 8
-
-  int n_tiles = (tk + kBlock - 1) / kBlock;
+  int n_tiles = (tk + kDqBlockK - 1) / kDqBlockK;
   if (causal) {
-    const int k_last = min(q0 + kDqBlockQ, tq) - 1 + offset;
-    n_tiles = k_last < 0 ? 0 : min(n_tiles, k_last / kBlock + 1);
+    const int k_last = min(q0 + L::kBlockQ, tq) - 1 + offset;
+    n_tiles = k_last < 0 ? 0 : min(n_tiles, k_last / kDqBlockK + 1);
   }
-  if (n_tiles > 0) {
-    cp_async_tile<kDqBlockQ, D, kDqThreads>(qs, q + bh * (size_t)tq * D, q0,
-                                             tq);
-    cp_async_tile<kDqBlockQ, D, kDqThreads>(
-        dos, dout + bh * (size_t)tq * D, q0, tq);
-    cp_async_tile<kBlock, D, kDqThreads>(ks, kb, 0, tk);
-    cp_async_tile<kBlock, D, kDqThreads>(vs, vb, 0, tk);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4 * L::kGroups);  // every warp
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
+  __syncthreads();
+  // thread 0 issues every load: Q and dO (always: delta needs dO even where
+  // no key is seen) and the first kDqStages K/V tiles now, then each later
+  // tile as the stage it goes to is released
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(q_full, 2 * L::kQBytes);
+    for (int c = 0; c < L::kBlocks; ++c) {
+      tma_load_3d(qs + c * L::kQRegion, &q_map, q_full, c * kSwz / 2, q0, bh);
+      tma_load_3d(dos + c * L::kQRegion, &do_map, q_full, c * kSwz / 2, q0,
+                  bh);
+    }
+    for (int t = 0; t < kDqStages && t < n_tiles; ++t)
+      dq_load_kv<D>(&k_map, &v_map, kvs, k_full, v_full, t, bh);
+  }
 
+  // warpgroup wg: q rows row0 .. row0 + 63
+  const int wg = threadIdx.x / 128;
+  const int wt = threadIdx.x & 127;  // thread of the warpgroup
+  const int warp = wt >> 5, lane = threadIdx.x & 31;
+  const int quad_col = 2 * (lane & 3);
+  const int row0 = q0 + 64 * wg;
+  const int row_a = row0 + warp * 16 + (lane >> 2);  // and row_a + 8
+  // the last key a row of this warpgroup sees (-1: it has no rows)
+  const int key_last = row0 >= tq ? -1
+                       : causal   ? min(row0 + 63, tq - 1) + offset
+                                  : tk - 1;
+  const uint32_t q_addr = smem_u32(qs) + 64 * wg * kSwz;
+  const uint32_t do_addr = smem_u32(dos) + 64 * wg * kSwz;
+
+  // delta = rowsum(dO * O) in f32 for the warpgroup's 64 rows, O read once
+  // from device memory and dO from its resident (swizzled) tile: two
+  // threads a row, each over its half of D in element order, then their
+  // sum; written for every row, also one that sees no key
+  mbar_wait(q_full, 0);
+  {
+    const int r = 64 * wg + (wt >> 1), half = wt & 1;  // r: row of the tile
+    const int row = q0 + r;
+    float sum = 0.f;
+    if (row < tq) {
+      const T* orow = o + ((size_t)bh * tq + row) * D;
+#pragma unroll
+      for (int c = half * D / 16; c < (half + 1) * D / 16; ++c) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            dos + (c * 16 / kSwz) * L::kQRegion +
+            swizzled<kSwz>(r, (c * 16) % kSwz));
+        sum = dot8<T>(gv, ov, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      delta_s[r] = sum;
+      if (row < tq) delta[(size_t)bh * tq + row] = sum;
+    }
+    warpgroup_sync(wg);
+  }
   // -lse * log2(e) (-inf for rows that see no key or lie past the end) and
   // delta of this thread's rows row_a + 8h
   float nlse[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row_a + 8 * h;
-    const float l = row < tq ? lse[bh * (size_t)tq + row] : -INFINITY;
+    const float l = row < tq ? lse[(size_t)bh * tq + row] : -INFINITY;
     nlse[h] = isfinite(l) ? -l * kLog2e : -INFINITY;
-    dl[h] = row < tq ? delta[bh * (size_t)tq + row] : 0.f;
+    dl[h] = delta_s[row - q0];
   }
 
   const float scale_log2 = scale * kLog2e;
   // f16: per-row powers of two for dS (f16_row_scale)
-  constexpr bool kF16 = std::is_same<T, __half>::value;
   int e_ds[2] = {kRowScaleMax, kRowScaleMax};
   float acc[kDN][4];
 #pragma unroll
@@ -540,53 +699,56 @@ __global__ void __launch_bounds__(kDqThreads)
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlock;
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // the next tile loads while this one computes
-      cp_async_tile<kBlock, D, kDqThreads>(ks + (buf ^ 1) * kTile, kb,
-                                            k0 + kBlock, tk);
-      cp_async_tile<kBlock, D, kDqThreads>(vs + (buf ^ 1) * kTile, vb,
-                                            k0 + kBlock, tk);
+    const int s = t % kDqStages;
+    const uint32_t parity = (t / kDqStages) & 1;
+    // the last tile's stage takes tile t - 1 + kDqStages once every warp
+    // is done with it
+    if (threadIdx.x == 0 && t > 0 && t - 1 + kDqStages < n_tiles) {
+      mbar_wait(&empty[(t - 1) % kDqStages], ((t - 1) / kDqStages) & 1);
+      dq_load_kv<D>(&k_map, &v_map, kvs, k_full, v_full, t - 1 + kDqStages,
+                    bh);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group (and Q's, dO's) has landed
-    __syncthreads();
-    const T* kt = ks + buf * kTile;
-    const T* vt = vs + buf * kTile;
+    const int k0 = t * kDqBlockK;
+    mbar_wait(&k_full[s], parity);
+    mbar_wait(&v_full[s], parity);
+    if (k0 > key_last) {  // no row of this warpgroup sees the tile
+      // the stage is released only once filled: a warpgroup that skips
+      // never runs a round ahead of the other one on the empty barrier
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint32_t k_addr = smem_u32(kvs) + s * 2 * L::kKBytes;
+    const uint32_t v_addr = k_addr + L::kKBytes;
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows and the tile's keys
-    float s[kKN][4], dp[kKN][4];
+    // S = Q K^T and dP = dO V^T for the warpgroup's 64 rows and the tile's
+    // 64 keys, one commit group
+    float sc[kKN][4], dp[kKN][4];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDK; ++kk) {
-      uint32_t qa[4], ga[4];
-      ldmatrix_x4(qa, frag_a<kLd>(qs, warp * 16, kk * 16, lane));
-      ldmatrix_x4(ga, frag_a<kLd>(dos, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int np = 0; np < kKN / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, frag_b<kLd>(kt, np * 16, kk * 16, lane));
-        mma_16816<T>(s[2 * np], qa, b[0], b[1]);
-        mma_16816<T>(s[2 * np + 1], qa, b[2], b[3]);
-        ldmatrix_x4(b, frag_b<kLd>(vt, np * 16, kk * 16, lane));
-        mma_16816<T>(dp[2 * np], ga, b[0], b[1]);
-        mma_16816<T>(dp[2 * np + 1], ga, b[2], b[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % kSteps) * 32;
+      const uint32_t qo = (kk / kSteps) * L::kQRegion + col;
+      const uint32_t ko = (kk / kSteps) * L::kKRegion + col;
+      wgmma_ss_step<T>(sc, desc<kSwz>(q_addr + qo, 16, 8 * kSwz),
+                       desc<kSwz>(k_addr + ko, 16, 8 * kSwz), kk);
+      wgmma_ss_step<T>(dp, desc<kSwz>(do_addr + qo, 16, 8 * kSwz),
+                       desc<kSwz>(v_addr + ko, 16, 8 * kSwz), kk);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(sc);
+    fence_operand(dp);
 
     // dS in place of dP; values e = 2h, 2h + 1 belong to row row_a + 8h.
     // Only tiles on the causal diagonal or the Tk tail hold masked pairs.
     const bool edge =
-        k0 + kBlock > tk || (causal && k0 + kBlock - 1 > q0 + offset);
+        k0 + kDqBlockK > tk || (causal && k0 + kDqBlockK - 1 > row0 + offset);
 #pragma unroll
     for (int j = 0; j < kKN; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
-        float p = exp2f(fmaf(s[j][e], scale_log2, nlse[h]));
+        float p = exp2f(fmaf(sc[j][e], scale_log2, nlse[h]));
         if (edge) {
           const int key = k0 + j * 8 + quad_col + (e & 1);
           if (key >= tk || (causal && key > row_a + 8 * h + offset)) p = 0.f;
@@ -598,28 +760,28 @@ __global__ void __launch_bounds__(kDqThreads)
       for (int h = 0; h < 2; ++h) f16_row_scale(dp, acc, e_ds[h], h);
     }
 
-    // dQ += dS K, dS rounded to T in registers, K through ldmatrix.trans
+    // dQ += dS K: dS rounded to T in registers (wgmma's A), K MN-major
+    // (the transposed descriptor of the same tile)
+    uint32_t da[kDqBlockK / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBlock / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a<T>(a, dp[2 * j], dp[2 * j + 1]);
+    for (int j = 0; j < kDqBlockK / 16; ++j)
+      acc_to_a<T>(da[j], dp[2 * j], dp[2 * j + 1]);
+    wgmma_fence();
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, frag_a<kLd>(kt, j * 16, dd * 16, lane));
-        mma_16816<T>(acc[2 * dd], a, b[0], b[1]);
-        mma_16816<T>(acc[2 * dd + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
+    for (int j = 0; j < kDqBlockK / 16; ++j)
+      wgmma_rs<T>(acc, da[j],
+                  desc<kSwz>(k_addr + j * 16 * kSwz, L::kKRegion, 8 * kSwz));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row_a + 8 * h;
     if (row < tq) {
-      T* qrow = dq + (bh * (size_t)tq + row) * D + quad_col;
+      T* qrow = dq + ((size_t)bh * tq + row) * D + quad_col;
       const float f = kF16 ? pow2(-e_ds[h]) : 1.f;
 #pragma unroll
       for (int j = 0; j < kDN; ++j)
@@ -630,22 +792,31 @@ __global__ void __launch_bounds__(kDqThreads)
 }
 
 template <typename T, int D>
-cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, void* dq, int bh, int tq,
-                          int tk, int causal, float scale,
-                          cudaStream_t stream) {
-  constexpr size_t smem = dq_mma_smem_bytes<D>();
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            void* delta, void* dq, int bh, int tq, int tk,
+                            int causal, float scale, cudaStream_t stream) {
+  using L = DqTiles<D>;
+  // above 48 KB a block's shared memory must be opted into, per device
   cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_bwd_dq_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return err;
   if (bh == 0 || tq == 0) return cudaSuccess;
-  const dim3 grid(bh, (tq + kDqBlockQ - 1) / kDqBlockQ);
-  fa_bwd_dq_mma_kernel<T, D><<<grid, kDqThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  // at Tk = 0 no K/V tile is loaded; the maps need a tensor all the same
+  const bool no_keys = tk == 0;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if ((err = mxt_sm90::make_map<T, D>(&q_map, q, bh, tq, L::kBlockQ)) ||
+      (err = mxt_sm90::make_map<T, D>(&k_map, no_keys ? q : k, bh,
+                                      no_keys ? tq : tk, kDqBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&v_map, no_keys ? q : v, bh,
+                                      no_keys ? tq : tk, kDqBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&do_map, dout, bh, tq, L::kBlockQ)))
+    return err;
+  const dim3 grid(bh, (tq + L::kBlockQ - 1) / L::kBlockQ);
+  fa_bwd_dq_wgmma_kernel<T, D><<<grid, L::kThreads, L::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const T*>(o),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<T*>(dq), tq, tk, causal, scale);
   return cudaGetLastError();
 }
@@ -941,24 +1112,24 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch_dq_mma_d(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int bh, int tq,
-                            int tk, int d, int causal, float scale,
-                            cudaStream_t stream) {
+cudaError_t launch_dq_wgmma_d(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, void* delta, void* dq, int bh,
+                              int tq, int tk, int d, int causal, float scale,
+                              cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_dq_mma<T, 16>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                                  causal, scale, stream);
+      return launch_dq_wgmma<T, 16>(q, k, v, o, dout, lse, delta, dq, bh, tq,
+                                    tk, causal, scale, stream);
     case 32:
-      return launch_dq_mma<T, 32>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                                  causal, scale, stream);
+      return launch_dq_wgmma<T, 32>(q, k, v, o, dout, lse, delta, dq, bh, tq,
+                                    tk, causal, scale, stream);
     case 64:
-      return launch_dq_mma<T, 64>(q, k, v, dout, lse, delta, dq, bh, tq, tk,
-                                  causal, scale, stream);
+      return launch_dq_wgmma<T, 64>(q, k, v, o, dout, lse, delta, dq, bh, tq,
+                                    tk, causal, scale, stream);
     case 128:
-      return launch_dq_mma<T, 128>(q, k, v, dout, lse, delta, dq, bh, tq,
-                                   tk, causal, scale, stream);
+      return launch_dq_wgmma<T, 128>(q, k, v, o, dout, lse, delta, dq, bh,
+                                     tq, tk, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -993,45 +1164,47 @@ cudaError_t launch_dkv_wgmma_d(const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Each returns the
 // cudaError_t of its launch (0 on success; cudaErrorInvalidValue for a
 // dtype or D the kernel does not take); the kernel itself runs
-// asynchronously on `stream`.  delta = rowsum(dO * O) in f32 must already
-// be computed on the same stream.  The tensor-core designs need 16-byte
-// aligned q, k, v and dO.
+// asynchronously on `stream`.  The dQ kernels also write delta =
+// rowsum(dO * O) in f32 (B*H, Tq), which the dK/dV kernels then read on the
+// same stream.  The tensor-core designs need 16-byte aligned q, k, v, O and
+// dO.
 extern "C" int mxt_flash_attention_bwd_dq_mma(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
-    int d, int dtype, int causal, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, int bh, int tq,
+    int tk, int d, int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return launch_dq_mma_d<__half>(q, k, v, dout, lse, delta, dq, bh, tq,
-                                     tk, d, causal, scale, s);
+      return launch_dq_wgmma_d<__half>(q, k, v, o, dout, lse, delta, dq, bh,
+                                       tq, tk, d, causal, scale, s);
     case 2:
-      return launch_dq_mma_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh,
-                                            tq, tk, d, causal, scale, s);
+      return launch_dq_wgmma_d<__nv_bfloat16>(q, k, v, o, dout, lse, delta,
+                                              dq, bh, tq, tk, d, causal,
+                                              scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 extern "C" int mxt_flash_attention_bwd_dq_fma(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
-    int d, int dtype, int causal, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, int bh, int tq,
+    int tk, int d, int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0) return cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
-                           scale, s);
+      return launch_dq<16>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
+                           causal, scale, s);
     case 32:
-      return launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
-                           scale, s);
+      return launch_dq<32>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
+                           causal, scale, s);
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
-                           scale, s);
+      return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
+                           causal, scale, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, tq, tk, causal,
-                            scale, s);
+      return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
+                            causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

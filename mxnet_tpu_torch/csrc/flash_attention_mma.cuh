@@ -5,16 +5,14 @@
 // The flash kernels replace Pallas TPU kernels of
 // mxnet_tpu/ops/flash_attention.py (_fa_kernel, _fa_bwd_dq_kernel and
 // _fa_bwd_dkv_kernel) for bf16 and f16 inputs, the fused product the one of
-// tools/pallas_conv_probe.py (fused_matmul_affine_relu) for bf16; their
-// source notes give the bounds.  The forward and dK/dV run on wgmma
-// (flash_attention_sm90.cuh) and take from here only the packing, acc_to_a,
-// the quad reductions and f16_row_scale; dQ and the fused product use all
-// of it.  What this header holds, each an inline PTX wrapper
-// or a plain device function (sm_80-era instructions, valid for sm_90a, no
-// CUTLASS):
-//   - cp.async.cg of 16 bytes from global to shared memory, with the
-//     src-size operand set to 0 for rows past the end of a matrix, so that
-//     they are zero-filled and never read; commit_group and wait_group<N>;
+// tools/pallas_conv_probe.py (fused_matmul_affine_relu) for bf16 and f16;
+// their source notes give the bounds.  All of them run on wgmma
+// (flash_attention_sm90.cuh): the flash kernels take from here the packing,
+// acc_to_a, the quad reductions and f16_row_scale; the fused product's
+// element-wise instance (for operands a TMA tensor map cannot describe)
+// also takes ldmatrix and mma.sync.  What this header holds, each an
+// inline PTX wrapper or a plain device function (sm_80-era instructions,
+// valid for sm_90a, no CUTLASS):
 //   - ldmatrix.x4 (four 8x8 b16 matrices) and its .trans form;
 //   - mma.sync m16n8k16 with bf16 or f16 operands and f32 accumulators;
 //   - packing two f32 values into one bf16x2 / half2 register;
@@ -49,44 +47,6 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; when !valid nothing is read and the 16 bytes
-// are zero-filled (src-size 0)
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + ROWS) of a row-major (rows, D) matrix of a 16-bit type
-// into shared memory with row stride D + kPad; rows past `rows` are zeros.
-template <int ROWS, int D, int THREADS, typename T>
-__device__ __forceinline__ void cp_async_tile(T* dst, const T* src, int row0,
-                                              int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int kTotal = ROWS * kChunks;
-#pragma unroll
-  for (int i = 0; i < (kTotal + THREADS - 1) / THREADS; ++i) {
-    const int c = threadIdx.x + i * THREADS;
-    if (kTotal % THREADS != 0 && c >= kTotal) break;
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < rows;
-    cp_async_16(dst + r * (D + kPad) + col,
-                src + (size_t)(valid ? gr : 0) * D + col, valid);
-  }
-}
-
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // and register i of lane l holds row l / 4, columns 2(l % 4)..+1 of it.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -115,16 +75,6 @@ template <int LD, typename T>
 __device__ __forceinline__ const T* frag_a(const T* tile, int row0, int col0,
                                            int lane) {
   return tile + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8;
-}
-
-// Address a lane gives ldmatrix_x4 for the B fragments of n8 tiles row0
-// (registers 0, 1) and row0 + 8 (2, 3), k16 step col0, of a (n, k)
-// row-major tile: B(k, n) = tile[n][k], the ".col" operand.
-template <int LD, typename T>
-__device__ __forceinline__ const T* frag_b(const T* tile, int row0, int col0,
-                                           int lane) {
-  return tile + (row0 + (lane & 7) + ((lane >> 4) << 3)) * LD + col0 +
-         ((lane >> 3) & 1) * 8;
 }
 
 // c += a * b on the tensor cores: 16x16 by 16x8, f32 accumulators

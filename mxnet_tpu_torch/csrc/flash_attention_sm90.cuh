@@ -1,19 +1,23 @@
-// Hopper building blocks of the flash-attention forward
-// (flash_attention_fwd.cu) and dK/dV (flash_attention_bwd.cu) kernels for
-// bf16 and f16: inline PTX for sm_90a, no CUTLASS.  Those kernels replace
-// the Pallas TPU kernels mxnet_tpu/ops/flash_attention.py::_fa_kernel and
-// ::_fa_bwd_dkv_kernel; their source notes give the bounds and the
-// designs.  What this header holds:
+// Hopper building blocks of the flash-attention kernels (flash_attention_
+// fwd.cu: the forward; flash_attention_bwd.cu: dQ and dK/dV) and of the
+// fused 1x1 conv+BN+ReLU product (fused_matmul_affine_relu.cu) for bf16 and
+// f16: inline PTX for sm_90a, no CUTLASS.  Those kernels replace the Pallas
+// TPU kernels mxnet_tpu/ops/flash_attention.py::_fa_kernel,
+// ::_fa_bwd_dq_kernel and ::_fa_bwd_dkv_kernel and
+// tools/pallas_conv_probe.py::fused_matmul_affine_relu; their source notes
+// give the bounds and the designs.  What this header holds:
 //   - mbarriers in shared memory: init, arrive, arrive with an expected
-//     transaction count, and a parity wait;
-//   - TMA: a 3-D tile load (cp.async.bulk.tensor) that completes on an
-//     mbarrier, and, on the host, the tensor map of a (B*H, T, D) tensor
-//     (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
-//     the library needs no -lcuda);
+//     transaction count, and a parity wait; a named barrier a warpgroup;
+//   - TMA: 3-D and 2-D tile loads (cp.async.bulk.tensor) that complete on
+//     an mbarrier, the swizzled offset of a byte of such a tile, and, on the
+//     host, the tensor maps of a (B*H, T, D) tensor and of a row-major
+//     matrix (cuTensorMapEncodeTiled, reached through
+//     cudaGetDriverEntryPoint, so the library needs no -lcuda);
 //   - wgmma: shared-memory matrix descriptors, fence, commit and wait, and
 //     m64nNk16 products with f32 accumulators, A and B from shared memory
 //     (both K-major: wgmma_ss, and wgmma_ss_zero for a product's first
-//     step) or A from registers and B MN-major (wgmma_rs).
+//     step; A K-major and B MN-major, accumulating or not by a flag:
+//     wgmma_ss_tb) or A from registers and B MN-major (wgmma_rs).
 //
 // Tiles.  A (rows, D) tile of a 16-bit type is loaded as column blocks of
 // kSwz / 2 elements (64 at D >= 64, else D), each block a region of rows
@@ -121,6 +125,38 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The box at (c0, c1) = (column, row) of a 2-D `map` into shared memory at
+// dst; its bytes complete on `bar`.  Rows and columns past the matrix's
+// edges are filled with zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Byte offset, from the start of a 1024-byte aligned region of kSwz-byte
+// rows, of byte `col` of row `row` as the TMA unit swizzles it: the 16-byte
+// chunk index is XORed with address bits 7 and up (Swizzle<3|2|1, 4, 3>)
+template <int kSwz>
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+  const uint32_t o = (uint32_t)(row * kSwz + col);
+  return o ^ (((o >> 7) & (kSwz / 16 - 1)) << 4);
+}
+
+// Named barrier 1 + wg (wg = 0, 1: one a warpgroup; 0 is __syncthreads)
+// over the warpgroup's 128 threads; the ids are immediates, so that ptxas
+// reserves two barriers and not all sixteen
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------
@@ -381,6 +417,112 @@ __device__ __forceinline__ void wgmma_ss_step(float (&d)[N][4], uint64_t a,
     wgmma_ss<T>(d, a, b);
 }
 
+// d (64 x N) = A (64 x 16, K-major at descriptor a) * B (16 x N, MN-major
+// at descriptor b: the transposed-B form), plus d itself when `accumulate`
+// is not 0 (so the first step of a product needs no zeroed accumulator)
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[8][4], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        "%26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        "%26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[16][4], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        "%62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x N) += A (64 x 16, from registers: mma.m16n8k16's A fragment of
 // each warp's 16 rows) * B (16 x N, MN-major at descriptor b)
 
@@ -610,6 +752,30 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int bh, int rows,
       kSwz == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
       : kSwz == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                    : CU_TENSOR_MAP_SWIZZLE_32B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major (rows, cols) matrix of T at `base`, read in
+// boxes of (box_rows, 64 columns: 128 bytes) swizzled over 128 bytes; boxes
+// past the edges are zero-filled.  `base` must be 16-byte aligned and cols
+// a multiple of 8 (the row stride a multiple of 16 bytes).
+template <typename T>
+cudaError_t make_map_2d(CUtensorMap* map, const void* base, long long rows,
+                        long long cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(T)),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -19,12 +19,17 @@ exported program holds the op as a node.
 
 Operand dtypes: bf16 x and w give the exact products of the bf16 values,
 summed in f32 — what the Pallas kernel computes — on the tensor cores
-(``mma.sync``, the kernel's ``_mma`` design); f16 x and w take the same
-design (an f16 instance of it), so that a net cast to float16 runs its
-fused runs through the kernel as bf16 does.  f32 x and w stay f32 on the
-FMA pipes (``_fma``): the Pallas kernel would round them to bf16 before its
-product, but the JAX package's f32 ResNet never does that (its conv is f32
-XLA), and the port's f32 ResNet must equal it.  Other dtypes raise.
+(Hopper's ``wgmma`` on tiles the TMA unit loads, the kernel's ``_mma``
+design); f16 x and w take the same design (an f16 instance of it), so
+that a net cast to float16 runs its fused runs through the kernel as bf16
+does.  Operands a TMA tensor map cannot describe (K or N not a multiple
+of 8, x or w not 16-byte aligned, K = 0) are made describable here
+(``_tma_operands``: K and N zero-padded to multiples of 8, a misaligned
+operand copied) and the output sliced back.  f32 x and w stay
+f32 on the FMA pipes (``_fma``): the Pallas kernel would round them to
+bf16 before its product, but the JAX package's f32 ResNet never does
+that (its conv is f32 XLA), and the port's f32 ResNet must equal it.
+Other dtypes raise.
 
 ``conv1x1_bn_relu`` is the fold on NCHW tensors, the fused path of
 ``gluon.nn.HybridSequential`` for a 1×1 ``Conv2D → BatchNorm →
@@ -39,6 +44,29 @@ from ..base import MXNetError
 from ..telemetry import costs as _costs
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _tma_operands(x, w, scale, bias):
+    """(x, w, scale, bias) as the ``wgmma`` design's tensor maps take
+    them: K and N rounded up to multiples of 8 (K to at least 8) with
+    zeros, so that the products are unchanged and each added output
+    column is relu(0·0 + 0) = 0, to be sliced off; an operand that is not
+    16-byte aligned copied to a new (aligned) allocation.  Operands that
+    need neither come back as they are: every shape of the port's nets."""
+    k, n = w.shape
+    k8, n8 = max(-(-k // 8) * 8, 8), -(-n // 8) * 8
+    pad = torch.nn.functional.pad
+    if k8 != k:
+        x = pad(x, (0, k8 - k))
+    elif x.data_ptr() % 16:
+        x = x.clone()
+    if (k8, n8) != (k, n):
+        w = pad(w, (0, n8 - n, 0, k8 - k))
+    elif w.data_ptr() % 16:
+        w = w.clone()
+    if n8 != n:
+        scale, bias = pad(scale, (0, n8 - n)), pad(bias, (0, n8 - n))
+    return x, w, scale, bias
 
 
 def _fused_matmul_affine_relu_plain(x, w, scale, bias):
@@ -82,9 +110,11 @@ def fused_matmul_affine_relu(x, w, scale, bias):
     ``torch.export`` (``HybridBlock.export`` keeps it as a node of the
     program): the dispatcher sends CUDA tensors to the kernel and CPU
     tensors to the plain version.  On CUDA tensors it launches the kernel
-    of their dtype's design: bf16 and f16 the tensor cores' (``_mma``),
-    f32 the FMA pipes' (``_fma``); ``fused_matmul_affine_relu.launches``
-    counts every launch and ``.launches_mma`` the tensor-core design's."""
+    of their dtype's design: bf16 and f16 the tensor cores' (``_mma``, on
+    operands ``_tma_operands`` pads where a tensor map cannot describe
+    them), f32 the FMA pipes' (``_fma``);
+    ``fused_matmul_affine_relu.launches`` counts every launch and
+    ``.launches_mma`` the tensor-core design's."""
     if _costs._counting:  # a cost count runs (telemetry.costs)
         with _costs.kernel(_fmar_cost, x, w):
             return _fmar_op(x, w, scale, bias)
@@ -114,19 +144,22 @@ def _fmar_cuda(x, w, scale, bias):
     point on the current stream."""
     _check_kernel_operands(x, w, scale, bias)
     design = "fma" if x.dtype == torch.float32 else "mma"
-    (m, k), n = x.shape, w.shape[1]
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    n = w.shape[1]
+    if design == "mma":
+        x, w, scale, bias = _tma_operands(x, w, scale, bias)
+    (m, k), n8 = x.shape, w.shape[1]
+    out = torch.empty((m, n8), dtype=x.dtype, device=x.device)
     lib = _kernels.load("fused_matmul_affine_relu")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"mxt_fused_matmul_affine_relu_{design}")(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), m, n, k, _DTYPE_CODES[x.dtype], stream)
+            out.data_ptr(), m, n8, k, _DTYPE_CODES[x.dtype], stream)
     _kernels.check(lib, err, f"fused_matmul_affine_relu ({design}) launch")
     cuda_graph.count(fused_matmul_affine_relu)
     if design == "mma":
         cuda_graph.count(fused_matmul_affine_relu, "launches_mma")
-    return out
+    return out if n8 == n else out[:, :n].contiguous()
 
 
 @_fmar_op.register_fake

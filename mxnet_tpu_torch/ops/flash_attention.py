@@ -25,11 +25,12 @@ and dV are zero.  D > 128 has no instance on the card (ROADMAP Queue 2,
 "D = 256 instance") and raises there; the plain versions take any D.
 
 Each of the three kernels has two designs, chosen here by dtype
-(``_design``): bf16 and f16 run on the tensor cores (``"mma"``: the
-forward and dK/dV on Hopper's ``wgmma`` over tiles the TMA unit loads,
-dQ on ``mma.sync``; P and dS are rounded to the input dtype before the
-products that take them, which ``round_p=True`` mirrors in the plain
-versions), f32 on the FMA pipes in exact f32.
+(``_design``): bf16 and f16 run on the tensor cores (``"mma"``: Hopper's
+``wgmma`` over tiles the TMA unit loads; P and dS are rounded to the
+input dtype before the products that take them, which ``round_p=True``
+mirrors in the plain versions), f32 on the FMA pipes in exact f32.  The
+dQ kernel of either design also computes δ = rowsum(dO·O), which the
+reference computes outside its kernels, and hands it to dK/dV.
 
 ``flash_attention_raw`` is differentiable: a ``torch.autograd.Function``
 whose forward saves (q, k, v, O, lse) and whose backward recomputes the
@@ -119,7 +120,7 @@ def _fa_forward_plain(q, k, v, causal, scale, block=512, round_p=False):
 
 
 def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
-                       round_p=False):
+                       round_p=False, delta=None):
     """Plain PyTorch version of the backward kernels: the reference's
     recompute backward (``_fa_backward`` pass 2) over k blocks, with the
     probabilities rebuilt from the forward's saved lse instead of a
@@ -127,10 +128,12 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
     returns (dq, dk, dv) in q's, k's and v's dtypes.  Rows with
     lse = -inf (they see no key) get dq = 0 and add nothing to dk, dv.
     ``round_p`` rounds P and dS to the input dtype before the dV, dQ and
-    dK products, as the tensor-core dQ and dK/dV kernels do."""
+    dK products, as the tensor-core dQ and dK/dV kernels do.  ``delta``:
+    δ = rowsum(dO·O) as given (the dQ kernel's, to hold the rest of the
+    arithmetic against the kernels on the same δ), else ``_delta``'s."""
     tq, tk = q.shape[-2], k.shape[-2]
     qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
-    delta = _delta(o, do)
+    delta = _delta(o, do) if delta is None else delta
     seen = torch.isfinite(lse)
     lse_safe = torch.where(seen, lse, torch.zeros_like(lse))
     dq = torch.zeros_like(qf)
@@ -152,6 +155,15 @@ def _fa_backward_plain(q, k, v, o, do, lse, causal, scale, block=512,
         dq += torch.matmul(ds, kb)
         dk[..., k0:k1, :] = torch.matmul(ds.transpose(-1, -2), qf)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fa_bwd_dq_plain(q, k, v, o, do, lse, causal, scale, round_p=False):
+    """Plain PyTorch version of the dQ kernel: (dq in q's dtype, δ =
+    rowsum(dO·O) f32 (B, H, Tq)), as ``_fa_backward_plain`` computes
+    them."""
+    dq = _fa_backward_plain(q, k, v, o, do, lse, causal, scale,
+                            round_p=round_p)[0]
+    return dq, _delta(o, do)
 
 
 def _padded_head_dim(d):
@@ -198,8 +210,8 @@ def _check_kernel_operands(q, k, v):
 
 def _design(dtype):
     """The kernel design a dtype launches: ``"mma"`` (bf16, f16: the
-    tensor cores, ``wgmma`` in the forward and dK/dV, ``mma.sync`` in dQ)
-    or ``"fma"`` (f32: the FMA pipes, exact f32)."""
+    tensor cores, ``wgmma`` on TMA tiles) or ``"fma"`` (f32: the FMA
+    pipes, exact f32)."""
     return "fma" if dtype == torch.float32 else "mma"
 
 
@@ -244,12 +256,13 @@ def _fwd_cost(q, k, causal):
 
 def _bwd_cost(q, k, causal):
     """(flops, bytes) of the dQ kernel (3 products of 2·D flops a visible
-    pair; q, k, v, dO, lse, δ read, dq written) and the dK/dV kernel (4
-    products; dk, dv written) together, as their bounds count them."""
+    pair; q, k, v, O, dO, lse read, δ and dq written) and the dK/dV
+    kernel (4 products; q, k, v, dO, lse, δ read, dk, dv written)
+    together, as their bounds count them."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     flops = 2.0 * d * 7 * visible_pairs(tq, tk, causal) * b * h
-    rows = 2 * (2 * tq + 2 * tk) + tq + 2 * tk
+    rows = (3 * tq + 2 * tk) + (2 * tq + 2 * tk) + tq + 2 * tk
     nbytes = q.element_size() * b * h * d * rows + 2 * 8 * b * h * tq
     return flops, nbytes
 
@@ -323,9 +336,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, scale=None):
     """Attention backward → (dq, dk, dv), from the forward's inputs, its
     output O and per-row lse, and the output gradient dO.
 
-    A CUDA tensor computes δ = rowsum(dO·O) in f32 and launches the dQ
-    kernel (``flash_attention_bwd_dq``) and the dK/dV kernel
-    (``flash_attention_bwd_dkv``); a CPU tensor takes
+    A CUDA tensor launches the dQ kernel (``flash_attention_bwd_dq``),
+    which also computes δ = rowsum(dO·O) in f32, then the dK/dV kernel
+    (``flash_attention_bwd_dkv``) on that δ; a CPU tensor takes
     ``_fa_backward_plain``.  D is zero-padded to its instance first and
     dq, dk and dv sliced back."""
     _kernels.refuse_trace("flash_attention_bwd", q, k, v, o, do, lse)
@@ -347,71 +360,76 @@ def _flash_attention_bwd(q, k, v, o, do, lse, causal, scale, d0):
         raise MXNetError("flash_attention backward: O must match q "
                          f"{tuple(q.shape)} {q.dtype} on {q.device}; got "
                          f"{tuple(o.shape)} {o.dtype} on {o.device}")
-    delta = _delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     return dq[..., :d0], dk[..., :d0], dv[..., :d0]
 
 
 def _delta(o, do):
     """δ = rowsum(dO·O) in f32, (B, H, Tq): the term both backward kernels
-    subtract from dP (the reference computes it outside its kernels)."""
+    subtract from dP (the reference computes it outside its kernels; on
+    the card the dQ kernel computes it, and this is its plain version)."""
     return (do.float() * o.float()).sum(-1)
 
 
-def _launch_bwd(symbol, outs, q, k, v, do, lse, delta, causal, scale):
+def _launch_bwd(symbol, q, k, v, like_q, rows, causal, scale, outs):
     """Check the operands of a backward kernel and launch ``symbol`` on
-    the current stream, writing ``outs``."""
+    the current stream: its pointers are q, k, v, then ``like_q`` (dO, and
+    O before it for dQ: tensors like q), ``rows`` (lse, and δ: f32 (B, H,
+    Tq)), then ``outs``."""
     _check_kernel_operands(q, k, v)
-    rows = q.shape[:3]
-    if do.shape != q.shape or do.dtype != q.dtype or \
-            lse.shape != rows or delta.shape != rows or \
-            lse.dtype != torch.float32 or delta.dtype != torch.float32:
-        raise MXNetError(
-            "flash_attention backward: expected dO like q "
-            f"{tuple(q.shape)} {q.dtype}, lse and delta float32 {tuple(rows)}"
-            f"; got {tuple(do.shape)} {do.dtype}, {tuple(lse.shape)} "
-            f"{lse.dtype}, {tuple(delta.shape)} {delta.dtype}")
-    if any(t.device != q.device for t in (do, lse, delta)):
-        raise MXNetError("flash_attention backward: dO, lse and delta must "
-                         f"lie on q's device {q.device}")
-    if not (do.is_contiguous() and lse.is_contiguous() and
-            delta.is_contiguous()):
-        raise MXNetError("flash_attention backward: dO, lse and delta must "
-                         "be contiguous")
+    shape = q.shape[:3]
+    for t in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise MXNetError(
+                "flash_attention backward: expected O and dO like q "
+                f"{tuple(q.shape)} {q.dtype}; got {tuple(t.shape)} "
+                f"{t.dtype}")
+    for t in rows:
+        if t.shape != shape or t.dtype != torch.float32:
+            raise MXNetError(
+                "flash_attention backward: expected lse and delta float32 "
+                f"{tuple(shape)}; got {tuple(t.shape)} {t.dtype}")
+    if any(t.device != q.device for t in (*like_q, *rows)):
+        raise MXNetError("flash_attention backward: O, dO, lse and delta "
+                         f"must lie on q's device {q.device}")
+    if not all(t.is_contiguous() for t in (*like_q, *rows)):
+        raise MXNetError("flash_attention backward: O, dO, lse and delta "
+                         "must be contiguous")
     if symbol.endswith("_mma"):
-        _check_aligned(q, k, v, do)
+        _check_aligned(q, k, v, *like_q)
     b, h, tq, d = q.shape
     lib = _kernels.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, symbol)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            *(t.data_ptr() for t in (q, k, v, *like_q, *rows, *outs)),
             b * h, tq, k.shape[2], d, _DTYPE_CODES[q.dtype],
             int(bool(causal)), scale, stream)
     _kernels.check(lib, err, f"{symbol} launch")
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):
-    """The dQ kernel of the dtype's design on CUDA tensors (δ =
-    rowsum(dO·O) given) → dq in q's dtype; ``.launches`` counts its
-    launches."""
+def flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale):
+    """The dQ kernel of the dtype's design on CUDA tensors → (dq in q's
+    dtype, δ = rowsum(dO·O) f32 (B, H, Tq)): the kernel computes δ from O
+    and dO for the dK/dV kernel; ``.launches`` counts its launches."""
     design = _design(q.dtype)
     dq = torch.empty_like(q)
-    _launch_bwd(f"mxt_flash_attention_bwd_dq_{design}", (dq,), q, k, v, do,
-                lse, delta, causal, scale)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch_bwd(f"mxt_flash_attention_bwd_dq_{design}", q, k, v, (o, do),
+                (lse,), causal, scale, (delta, dq))
     _count(flash_attention_bwd_dq, design)
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
-    """The dK/dV kernel of the dtype's design on CUDA tensors → (dk, dv)
-    in k's and v's dtype; ``.launches`` counts its launches."""
+    """The dK/dV kernel of the dtype's design on CUDA tensors (δ from the
+    dQ kernel) → (dk, dv) in k's and v's dtype; ``.launches`` counts its
+    launches."""
     design = _design(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd(f"mxt_flash_attention_bwd_dkv_{design}", (dk, dv), q, k, v,
-                do, lse, delta, causal, scale)
+    _launch_bwd(f"mxt_flash_attention_bwd_dkv_{design}", q, k, v, (do,),
+                (lse, delta), causal, scale, (dk, dv))
     _count(flash_attention_bwd_dkv, design)
     return dk, dv
 

@@ -220,16 +220,20 @@ def test_kernel_wrapper_counts_nothing_on_the_cpu():
 
 
 def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
-    """bf16 and f16 launch the tensor-core entry point (``_mma``), f32 the
-    FMA one (``_fma``).  Driven with meta tensors and a stand-in library that
-    records the C entry point the wrapper calls; ``.launches`` counts
-    both designs, ``.launches_mma`` the tensor-core one."""
+    """bf16 and f16 launch the tensor-core entry point (``_mma``, the
+    ``wgmma`` design) at every shape, on operands padded to what a TMA
+    tensor map describes (K and N multiples of 8) where they are not, and
+    the output sliced back; f32 the FMA one (``_fma``) on the operands as
+    they are.  Driven with meta tensors and a stand-in library that
+    records the C entry point the wrapper calls and its M, N, K;
+    ``.launches`` counts every launch, ``.launches_mma`` the tensor-core
+    design's."""
     calls = []
 
     class Lib:
         def __getattr__(self, symbol):
             def entry(*args):
-                calls.append(symbol)
+                calls.append((symbol, args[5:8]))
                 return 0
             return entry
 
@@ -243,18 +247,69 @@ def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     fn = cbr.fused_matmul_affine_relu
-    monkeypatch.setattr(fn, "launches", 0)
-    monkeypatch.setattr(fn, "launches_mma", 0)
-    for dtype, design in [(torch.bfloat16, "mma"), (torch.float32, "fma"),
-                          (torch.bfloat16, "mma"), (torch.float16, "mma")]:
-        x = torch.empty(6, 4, device="meta", dtype=dtype)
-        w = torch.empty(4, 3, device="meta", dtype=dtype)
-        affine = torch.empty(3, device="meta")
+    for key in ("launches", "launches_mma"):
+        monkeypatch.setattr(fn, key, 0)
+    for dtype, k, n, design, mnk in [
+            (torch.bfloat16, 8, 16, "mma", (6, 16, 8)),
+            (torch.float32, 4, 3, "fma", (6, 3, 4)),
+            (torch.bfloat16, 4, 3, "mma", (6, 8, 8)),
+            (torch.float16, 64, 24, "mma", (6, 24, 64)),
+            (torch.float16, 12, 16, "mma", (6, 16, 16)),
+            (torch.bfloat16, 16, 20, "mma", (6, 24, 16)),
+            (torch.bfloat16, 0, 16, "mma", (6, 16, 8)),
+            (torch.float32, 8, 16, "fma", (6, 16, 8))]:
+        x = torch.empty(6, k, device="meta", dtype=dtype)
+        w = torch.empty(k, n, device="meta", dtype=dtype)
+        affine = torch.empty(n, device="meta")
         out = fn(x, w, affine, affine)
-        assert out.shape == (6, 3) and out.dtype == dtype
-        assert calls[-1] == f"mxt_fused_matmul_affine_relu_{design}"
-    assert (fn.launches, fn.launches_mma) == (4, 3)
-    assert set(calls) == set(_kernels.SYMBOLS["fused_matmul_affine_relu"])
+        assert out.shape == (6, n) and out.dtype == dtype
+        assert out.is_contiguous()
+        assert calls[-1] == (f"mxt_fused_matmul_affine_relu_{design}", mnk)
+    assert (fn.launches, fn.launches_mma) == (8, 6)
+    assert {c[0] for c in calls} == \
+        set(_kernels.SYMBOLS["fused_matmul_affine_relu"])
+
+
+@pytest.mark.parametrize("m,k,n,dtype,shift", [
+    (10, 64, 64, torch.bfloat16, 0), (10, 64, 64, torch.float16, 0),
+    (10, 1000, 300, torch.bfloat16, 0), (10, 7, 64, torch.bfloat16, 0),
+    (10, 0, 64, torch.float16, 0), (3, 12, 20, torch.float16, 0),
+    (10, 64, 64, torch.bfloat16, 1), (10, 9, 13, torch.bfloat16, 1)])
+def test_tma_operands_pad_what_a_tensor_map_cannot_describe(m, k, n, dtype,
+                                                            shift):
+    """``_tma_operands`` gives the ``wgmma`` design K and N rounded up to
+    multiples of 8 (K at least 8), with x's added columns, w's added rows
+    and columns, scale's and bias's added entries all zero, and every
+    operand 16-byte aligned (a misaligned view copied); operands that need
+    none of it come back as they are.  The plain version on the padded
+    operands, sliced to N columns, matches it on the given ones within a
+    rounding of the output (the zero terms may change the f32 sums'
+    order)."""
+    rng = np.random.RandomState(m + k + n + shift)
+    buf = torch.zeros(m * k + shift, dtype=dtype)
+    x = buf[shift:].view(m, k)
+    x.copy_(torch.from_numpy(rng.normal(size=(m, k))).to(dtype))
+    w = torch.from_numpy(rng.normal(size=(k, n))).to(dtype)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.5, 0.5, n).astype(np.float32))
+    xp, wp, sp, bp = cbr._tma_operands(x, w, scale, bias)
+    k8, n8 = max(-(-k // 8) * 8, 8), -(-n // 8) * 8
+    assert xp.shape == (m, k8) and wp.shape == (k8, n8)
+    assert sp.shape == bp.shape == (n8,)
+    for t in (xp, wp):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert t.dtype == dtype
+    assert torch.equal(xp[:, :k], x) and not xp[:, k:].any()
+    assert torch.equal(wp[:k, :n], w) and not wp[k:].any() and \
+        not wp[:, n:].any()
+    assert torch.equal(sp[:n], scale) and torch.equal(bp[:n], bias)
+    assert not sp[n:].any() and not bp[n:].any()
+    if (k8, n8, shift) == (k, n, 0):
+        assert xp is x and wp is w and sp is scale and bp is bias
+    torch.testing.assert_close(
+        cbr._fused_matmul_affine_relu_plain(xp, wp, sp, bp)[:, :n],
+        cbr._fused_matmul_affine_relu_plain(x, w, scale, bias),
+        rtol=2.0 ** -7, atol=1e-6)
 
 
 def test_fusion_in_float16_matches_the_layers():

@@ -168,6 +168,104 @@ def test_plain_backward_matches_interpret_pallas_kernels(causal, d):
         assert np.abs(g.numpy() - np.asarray(r)).max() <= 1e-5
 
 
+# δ = rowsum(dO·O): the JAX package computes it outside its kernels
+# (``_fa_backward_pallas``: f32 products of O and dO summed over D), the
+# port's dQ kernel inside it, and the plain dQ route as ``_delta``.  Both
+# sides sum the same f32 products in other orders: within 1e-5 of the
+# largest |δ| (D <= 64 terms of magnitude about 1).  The plain route's dq
+# is the interpret-mode Pallas dq within 1e-5, as above.
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_dq_route_delta_matches_the_reference(dtype, causal):
+    b, h, t, d = 2, 2, 256, 32
+    q, k, v = _qkv(50, b, h, t, t, d)
+    do = np.random.RandomState(51).normal(size=q.shape).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    jdt = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype=jdt) for a in (q, k, v, do))
+    o, lse = jfa._fa_forward_pallas(jq, jk, jv, causal, scale,
+                                    with_lse=True, interpret=True)
+    # the reference's δ, as _fa_backward_pallas computes it
+    ref_delta = (jdo.reshape(b * h, t, d).astype(jnp.float32) *
+                 o.reshape(b * h, t, d).astype(jnp.float32)).sum(
+                     -1, keepdims=True)
+    ref_dq = jfa._fa_backward_pallas(jq, jk, jv, o, jdo, lse, causal, scale,
+                                     interpret=True)[0]
+
+    def port(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.float32 if dtype == np.float32 else torch.bfloat16)
+
+    dq, delta = tfa._fa_bwd_dq_plain(
+        *(port(a) for a in (jq, jk, jv, o, jdo)),
+        torch.from_numpy(np.array(lse)), causal, scale)
+    ref_delta = np.asarray(ref_delta).reshape(b, h, t)
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, t)
+    assert np.abs(delta.numpy() - ref_delta).max() <= \
+        1e-5 * np.abs(ref_delta).max()
+    if dtype == np.float32:
+        assert np.abs(dq.numpy() - np.asarray(ref_dq)).max() <= 1e-5
+
+
+def test_backward_route_hands_the_dq_kernels_delta_to_dkv(monkeypatch):
+    """On CUDA tensors ``flash_attention_bwd`` passes O to the dQ entry
+    point, which writes δ, hands that δ to the dK/dV entry point, and
+    never computes δ with torch (``_delta``).  Driven with meta tensors and
+    a stand-in library that records each entry point's pointers."""
+    seen = []
+
+    class Lib:
+        def __getattr__(self, symbol):
+            def entry(*args):
+                seen.append((symbol, args))
+                return 0
+            return entry
+
+    def no_delta(*a):
+        raise AssertionError("_delta ran on the card route")
+
+    monkeypatch.setattr(_kernels, "load", lambda name: Lib())
+    monkeypatch.setattr(tfa, "_check_kernel_operands", lambda *a: None)
+    monkeypatch.setattr(tfa, "_delta", no_delta)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        for key in [a for a in vars(fn) if a.startswith("launches")]:
+            monkeypatch.setattr(fn, key, 0)  # restored after the test
+    made = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):  # the δ buffer the dQ wrapper allocates
+        t = real_empty(*shape, **kw)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    for dtype, design in [(torch.bfloat16, "mma"), (torch.float32, "fma")]:
+        seen.clear()
+        made.clear()
+        q = torch.empty_like(torch.zeros(1, 2, 8, 32, dtype=dtype),
+                             device="meta")
+        o, do = torch.ones_like(q), torch.zeros_like(q)
+        lse = real_empty(1, 2, 8, device="meta")
+        dq, dk, dv = tfa.flash_attention_bwd(q, q, q, o, do, lse, True, 0.3)
+        assert [s for s, _ in seen] == [
+            f"mxt_flash_attention_bwd_dq_{design}",
+            f"mxt_flash_attention_bwd_dkv_{design}"]
+        (_, dq_args), (_, dkv_args) = seen
+        delta = [t for t in made if t.shape == (1, 2, 8) and
+                 t.dtype == torch.float32]
+        assert len(delta) == 1
+        # dQ: q, k, v, O, dO, lse, δ (written), dq; dK/dV: q, k, v, dO,
+        # lse, δ, dk, dv
+        assert dq_args[3] == o.data_ptr() and dq_args[4] == do.data_ptr()
+        assert dq_args[6] == delta[0].data_ptr() == dkv_args[5]
+        assert dkv_args[3] == do.data_ptr()
+        assert all(g.shape == q.shape for g in (dq, dk, dv))
+
+
 def _vjp_reference(q, k, v, do, causal, scale):
     """jax.vjp of the dense reference ``_sdpa_ref``."""
     _, pull = jax.vjp(lambda a, b, c: jfa._sdpa_ref(a, b, c, causal, scale),
@@ -339,7 +437,7 @@ def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
         q = torch.empty(1, 2, 8, 32, device="meta", dtype=dtype)
         lse = torch.empty(1, 2, 8, device="meta")
         tfa.flash_attention_fwd(q, q, q, True)
-        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse, True, 0.3)
+        tfa.flash_attention_bwd_dq(q, q, q, q, q, lse, True, 0.3)
         tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse, True, 0.3)
         assert calls[-3:] == [f"mxt_flash_attention_fwd_{design}",
                               f"mxt_flash_attention_bwd_dq_{design}",

@@ -42,15 +42,14 @@ def test_library_older_than_an_included_header_is_stale(tmp_path,
 
 def test_flash_attention_sources_depend_on_the_shared_header():
     """The flash-attention sources and the fused 1x1 conv+BN+ReLU source
-    all include the tensor-core header, so an edit of it rebuilds each;
-    the flash-attention sources also include the Hopper header (TMA,
-    mbarriers, wgmma), and the conv source does not."""
+    all include the tensor-core header and the Hopper header (TMA,
+    mbarriers, wgmma), so an edit of either rebuilds each."""
     csrc = _kernels._PKG / "csrc"
     mma, sm90 = csrc / "flash_attention_mma.cuh", \
         csrc / "flash_attention_sm90.cuh"
     for name, headers in (("flash_attention_fwd", {mma, sm90}),
                           ("flash_attention_bwd", {mma, sm90}),
-                          ("fused_matmul_affine_relu", {mma})):
+                          ("fused_matmul_affine_relu", {mma, sm90})):
         src = _kernels._PKG / _kernels.SOURCES[name]
         deps = _kernels._dependencies(src)
         assert deps[0] == src and len(deps) == len(set(deps))
@@ -82,7 +81,7 @@ def test_forward_and_dkv_issue_wgmma_on_tma_tiles():
     tiles that ``cp.async.bulk.tensor`` loads behind ``mbarrier``s: their
     kernels call the Hopper header's wrappers, which hold those
     instructions, and keep no ``mma.sync`` path (the header's ``mma_16816``
-    and ``ldmatrix``).  dQ keeps its ``mma.sync`` design."""
+    and ``ldmatrix``).  dQ has no ``mma.sync`` design left."""
     csrc = _kernels._PKG / "csrc"
     sm90 = _code(csrc / "flash_attention_sm90.cuh")
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.3d",
@@ -101,12 +100,46 @@ def test_forward_and_dkv_issue_wgmma_on_tma_tiles():
             assert old not in body, (kernel, old)
     assert "fa_fwd_mma_kernel" not in fwd
     assert "fa_bwd_dkv_mma_kernel" not in bwd
-    dq = _function(bwd, "fa_bwd_dq_mma_kernel")
-    assert "mma_16816" in dq and "wgmma" not in dq
+    assert "fa_bwd_dq_mma_kernel" not in bwd
     # each C entry point of the tensor-core design reaches its new kernel
     assert "launch_wgmma_d" in _function(fwd, "mxt_flash_attention_fwd_mma")
     assert "launch_dkv_wgmma_d" in _function(
         bwd, "mxt_flash_attention_bwd_dkv_mma")
+
+
+def test_dq_and_fused_issue_wgmma_on_tma_tiles():
+    """The bf16/f16 dQ kernel (#2) and the fused 1x1 conv+BN+ReLU kernel
+    (#4) issue ``wgmma.mma_async`` on tiles that ``cp.async.bulk.tensor``
+    loads behind ``mbarrier``s (3-D maps for dQ, 2-D for #4, whose w is
+    the transposed-B operand); dQ writes δ; neither keeps ``mma.sync``,
+    ``ldmatrix`` or ``cp.async``.  No ``mma.sync`` design remains in
+    either source (the conv wrapper pads what a tensor map cannot
+    describe)."""
+    csrc = _kernels._PKG / "csrc"
+    sm90 = _code(csrc / "flash_attention_sm90.cuh")
+    for ptx in ("cp.async.bulk.tensor.2d", "p, 1, 1, 0, 1;"):
+        assert ptx in sm90, ptx
+    bwd = _code(csrc / "flash_attention_bwd.cu")
+    conv = _code(csrc / "fused_matmul_affine_relu.cu")
+    for code, kernel, calls in (
+            (bwd, "fa_bwd_dq_wgmma_kernel",
+             ("tma_load_3d", "mbar_wait", "wgmma_ss_step", "wgmma_rs",
+              "delta[")),
+            (conv, "fused_mm_affine_relu_wgmma_kernel",
+             ("tma_load_2d", "mbar_wait", "mbar_arrive_expect_tx",
+              "wgmma_ss_tb", "wgmma_wait<1>"))):
+        body = _function(code, kernel)
+        for call in calls:
+            assert call in body, (kernel, call)
+        for old in ("mma_16816", "ldmatrix", "cp_async"):
+            assert old not in body, (kernel, old)
+    assert "mma_16816" not in bwd and "ldmatrix" not in bwd
+    assert "launch_dq_wgmma_d" in _function(
+        bwd, "mxt_flash_attention_bwd_dq_mma")
+    assert "launch_wgmma" in _function(
+        conv, "mxt_fused_matmul_affine_relu_mma")
+    assert "mma_16816" not in conv and "ldmatrix" not in conv
+    assert "elementwise" not in conv
 
 
 def test_tensor_maps_need_no_libcuda():

@@ -140,6 +140,18 @@ def _dq_zero_row(causal, tq, tk):
     return tq - tk if causal and tq >= tk else None
 
 
+def _assert_delta_rows(delta, o, do, tol=1e-5):
+    """δ = rowsum(dO·O) from the dQ kernel, row by row: within ``tol`` of
+    the row's sum of |dO·O| of an f64 sum of the same products.  An f32
+    sum of D exact products errs by at most (D - 1)·2^-24 of that sum
+    (7.6e-6 at D = 128; f32 products add 2^-24 each), whatever cancels in
+    the row; a row that sees no key (O = 0) must be exactly 0."""
+    prod = do.double() * o.double()
+    err = (delta.double() - prod.sum(-1)).abs()
+    allowed = tol * prod.abs().sum(-1)
+    assert bool((err <= allowed).all()), (err - allowed).max().item()
+
+
 # The plain version runs on f32 copies of the same inputs and the kernel's
 # own O and lse.  Each gradient is held row by row and by its relative
 # norm: f32, another summation order (1e-4 of a row, 1e-5 in norm);
@@ -160,8 +172,20 @@ def test_backward_kernels_match_plain_on_card(cuda_nvcc, dtype, row_tol,
     torch.cuda.synchronize()
     assert [(fn.launches, fn.launches_mma) for fn in kernels] == \
         [(n + 1, n_mma + mma) for n, n_mma in before]
+    # the dQ kernel's δ (the same bits again: deterministic), held against
+    # _delta's; the plain version then runs on that δ, as it ran on
+    # _delta's own bits while the kernels took δ from _delta: at the
+    # nearly one-hot rows of scale 0.3 (D = 128) dP - δ cancels, and two δ
+    # summed in different orders would leave only their rounding noise
+    dq_again, delta = tfa.flash_attention_bwd_dq(q, k, v, o, do, lse,
+                                                 causal, 0.3)
+    assert torch.equal(dq_again, got[0])
+    ref_delta = tfa._delta(o, do)
+    assert (delta - ref_delta).abs().max().item() <= \
+        1e-5 * ref_delta.abs().max().clamp_min(1e-30).item()
+    _assert_delta_rows(delta, o, do)
     ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
-                                 do.float(), lse, causal, 0.3)
+                                 do.float(), lse, causal, 0.3, delta=delta)
     zero_rows = (_dq_zero_row(causal, tq, tk), None, None)
     for g, r, zero_row in zip(got, ref, zero_rows):
         assert g.dtype == dtype and g.shape == r.shape
@@ -169,6 +193,35 @@ def test_backward_kernels_match_plain_on_card(cuda_nvcc, dtype, row_tol,
         _assert_rows_close(g, r, row_tol, norm_tol, zero_row)
     if causal and tq > tk:  # rows 0 .. tq - tk - 1 see no key: dq is 0
         assert bool((got[0][:, :, :tq - tk] == 0).all())
+
+
+# The same backward at scale D^-0.5, where no row is nearly one-hot: the
+# plain version computes its own δ (``_delta``), independently of the dQ
+# kernel's, and the whole backward, dK and dV included, is held against it
+# with the tolerances above.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,row_tol,norm_tol", [
+    (torch.float32, 1e-4, 1e-5), (torch.bfloat16, 1e-2, 5e-3),
+    (torch.float16, 2e-3, 1e-3)])
+@pytest.mark.parametrize("causal,tq,tk,d", SHAPES)
+def test_backward_kernels_match_plain_with_its_own_delta(
+        cuda_nvcc, dtype, row_tol, norm_tol, causal, tq, tk, d):
+    q, k, v = (torch.from_numpy(a).to(cuda_nvcc, dtype)
+               for a in _qkv(11, 2, 3, tq, tk, d))
+    do = torch.from_numpy(np.random.RandomState(12).normal(
+        size=(2, 3, tq, d)).astype(np.float32)).to(cuda_nvcc, dtype)
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal, scale)
+    _, delta = tfa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
+    torch.cuda.synchronize()
+    _assert_delta_rows(delta, o, do)
+    ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                 do.float(), lse, causal, scale)
+    zero_rows = (_dq_zero_row(causal, tq, tk), None, None)
+    for g, r, zero_row in zip(got, ref, zero_rows):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        _assert_rows_close(g, r, row_tol, norm_tol, zero_row)
 
 
 @pytest.mark.cuda
@@ -500,8 +553,8 @@ def test_fused_kernel_matches_plain_on_card(cuda_nvcc, dtype, rel, tol, m,
 @pytest.mark.cuda
 def test_fused_kernel_takes_misaligned_operands(cuda_nvcc):
     """x at a storage offset of one element (not 16-byte aligned): the
-    tensor-core kernel loads it element by element, with the same
-    result as from an aligned copy."""
+    wrapper copies it to an aligned allocation for the tensor-core
+    kernel's tensor map, with the same result as from an aligned copy."""
     x, w, scale, bias = _mm_operands(cuda_nvcc, torch.bfloat16, 200, 64, 64)
     buf = torch.empty(1 + x.numel(), device=cuda_nvcc, dtype=x.dtype)
     shifted = buf[1:].view(x.shape)
@@ -1535,6 +1588,220 @@ def test_fused_kernel_at_vision_zoo_shapes_matches_plain_on_card(
     diff = (got.float() - ref).abs()
     assert bool((diff <= 2.0 ** -8 * ref.abs() +
                  1e-4 * ref.abs().max()).all()), diff.max().item()
+
+
+# -- slice 25: dQ on wgmma with δ folded in, #4 on wgmma ----------------------
+# δ = rowsum(dO·O) from the dQ kernel against ``_delta`` on the same O and
+# dO: the same exact f32 products summed in other orders, within 1e-5 of
+# the largest |δ|.
+_DELTA_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype", _SMOKE_SHAPES)
+def test_dq_kernel_writes_delta_at_the_smoke_shapes(cuda_nvcc, b, h, tq, tk,
+                                                    d, causal, dtype):
+    """The bf16/f16 dQ kernel (#2) at every shape ``chip_smoke.py`` holds
+    it at: dq against the plain dQ route on f32 copies with its tolerances,
+    δ against ``_delta`` in f32, rows that see no key with dq = 0, and dq
+    and δ the same bits in a second run."""
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(b * 1000 + tq + d + 7)
+
+    def rnd(t):
+        return torch.randn(b, h, t, d, generator=g, device=cuda_nvcc,
+                           dtype=dtype)
+
+    q, k, v, do = rnd(tq), rnd(tk), rnd(tk), rnd(tq)
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    fn = tfa.flash_attention_bwd_dq
+    before = fn.launches_mma
+    dq, delta = fn(q, k, v, o, do, lse, causal, scale)
+    dq2, delta2 = fn(q, k, v, o, do, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert fn.launches_mma == before + 2
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, tq)
+    ref_delta = tfa._delta(o, do)
+    assert (delta - ref_delta).abs().max().item() <= \
+        _DELTA_TOL * ref_delta.abs().max().item()
+    _assert_delta_rows(delta, o, do)
+    ref_dq, plain_delta = tfa._fa_bwd_dq_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, causal,
+        scale)
+    assert torch.equal(plain_delta, tfa._delta(o.float(), do.float()))
+    assert bool(torch.isfinite(dq).all())
+    _assert_rows_close(dq, ref_dq, *_G_TOL[dtype], _dq_zero_row(causal, tq,
+                                                                 tk))
+    if causal and tq > tk:
+        assert bool((dq[:, :, :tq - tk] == 0).all())
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(128, True), (128, False),
+                                      (64, False), (32, True), (16, True)])
+def test_dq_kernel_ragged_tails_stay_in_their_head(cuda_nvcc, d, causal):
+    """B·H = 6 heads of T = 1000 (no tile multiple), each head's tensors at
+    its own magnitude, as for the forward and dK/dV: the dQ kernel's 3-D
+    maps zero-fill each head's tails, so dq and δ match the plain versions
+    head by head."""
+    b, h, t = 2, 3, 1000
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(d + causal + 100)
+    mag = (2.0 ** torch.arange(b * h, device=cuda_nvcc, dtype=torch.float32)
+           * 2.0 ** (10 - b * h + 1)).view(b, h, 1, 1)
+
+    def rnd(scale):
+        x = torch.randn(b, h, t, d, generator=g, device=cuda_nvcc) * scale
+        return x.to(torch.bfloat16)
+
+    q, do = rnd(1.0 / mag.sqrt()), rnd(mag)
+    k, v = rnd(1.0 / mag.sqrt()), rnd(mag)
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+    dq, delta = tfa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                           scale)
+    torch.cuda.synchronize()
+    ref_dq, ref_delta = tfa._fa_bwd_dq_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, causal,
+        scale)
+    for bi in range(b):
+        for hi in range(h):
+            assert (delta[bi, hi] - ref_delta[bi, hi]).abs().max().item() \
+                <= _DELTA_TOL * ref_delta[bi, hi].abs().max().item()
+            _assert_delta_rows(delta[bi, hi], o[bi, hi], do[bi, hi])
+            _assert_rows_close(dq[bi, hi], ref_dq[bi, hi], 1e-2, 5e-3,
+                               _dq_zero_row(causal, t, t))
+
+
+@pytest.mark.cuda
+def test_dq_kernel_replays_in_graphs_bit_equal_to_eager(cuda_nvcc):
+    """The dQ kernel encodes its tensor maps at each call, as the forward
+    and dK/dV do: a graph of the forward and the whole backward (dQ with δ,
+    then dK/dV on that δ), replayed on new inputs copied into its tensors,
+    equals eager calls bit for bit, δ included."""
+    from mxnet_tpu_torch import cuda_graph
+
+    b, h, t, d, causal, scale = 1, 4, 300, 128, True, 128 ** -0.5
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(25)
+
+    def fresh():
+        return [torch.randn(b, h, t, d, generator=g, device=cuda_nvcc,
+                            dtype=torch.bfloat16) for _ in range(4)]
+
+    def eager(q, k, v, do):
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, scale)
+        dq, delta = tfa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal,
+                                               scale)
+        return (o, dq, delta) + tfa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal, scale)
+
+    static = fresh()
+    cuda_graph.warmup(lambda: eager(*static))
+    graph = cuda_graph.capture(lambda: eager(*static))
+    dq_fn = tfa.flash_attention_bwd_dq
+    for _ in range(2):
+        new = fresh()
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        before = dq_fn.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert dq_fn.launches == before + 1
+        for got, want in zip(graph.outputs, eager(*new)):
+            assert torch.equal(got, want)
+
+
+# Every shape a main path gives #4: the 86 zoo shapes (here at B=2, as
+# above), ResNet-50's eight at the served B=32 bucket, and at B=128 its
+# shapes of the largest M (stage 1) and the deepest K (stage 4): all run
+# the wgmma design on the operands as they are (no padding), within the
+# tolerances above.
+_WGMMA_SHAPES = [(2 * hw, k, n) for hw, k, n in
+                 _MOBILENET_1X1 + _INCEPTION_1X1 + _DENSENET_1X1] + \
+    [(32 * hw * hw, k, n) for hw, k, n in
+     [(56, 64, 64), (56, 256, 64), (28, 256, 128), (28, 512, 128),
+      (14, 512, 256), (14, 1024, 256), (7, 1024, 512), (7, 2048, 512)]] + \
+    [(128 * 56 * 56, 64, 64), (128 * 7 * 7, 2048, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", _WGMMA_SHAPES)
+def test_fused_kernel_runs_the_wgmma_design_at_main_path_shapes(cuda_nvcc,
+                                                                m, k, n):
+    x, w, scale, bias = _mm_operands(cuda_nvcc, torch.bfloat16, m, k, n)
+    fn = cbr.fused_matmul_affine_relu
+    assert all(a is b for a, b in zip(cbr._tma_operands(x, w, scale, bias),
+                                      (x, w, scale, bias)))
+    before = fn.launches_mma
+    got = fn(x, w, scale, bias)
+    again = fn(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert fn.launches_mma == before + 2
+    ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(), scale,
+                                              bias)
+    diff = (got.float() - ref).abs()
+    assert bool((diff <= 2.0 ** -8 * ref.abs() +
+                 1e-4 * ref.abs().max()).all()), diff.max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(49, 1000, 300), (1000, 7, 64),
+                                   (130, 64, 12), (5, 0, 16)])
+def test_fused_kernel_pads_what_tma_cannot_describe(cuda_nvcc, m, k, n):
+    """A K or N that is not a multiple of 8 (the ragged (49, 1000, 300)
+    shape among them) or K = 0: the wrapper zero-pads K and N and slices
+    the output, so the wgmma design runs them (one launch each) with the
+    plain version's values."""
+    fn = cbr.fused_matmul_affine_relu
+    x, w, scale, bias = _mm_operands(cuda_nvcc, torch.bfloat16, m, k, n)
+    before = (fn.launches, fn.launches_mma)
+    got = fn(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_mma) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (m, n) and got.is_contiguous()
+    ref = cbr._fused_matmul_affine_relu_plain(x.float(), w.float(), scale,
+                                              bias)
+    assert bool(((got.float() - ref).abs() <= 2.0 ** -8 * ref.abs() +
+                 1e-4 * ref.abs().max()).all())
+
+
+@pytest.mark.cuda
+def test_new_kernel_instances_report_no_spill_and_no_serialized_wgmma(
+        cuda_nvcc, tmp_path):
+    """ptxas (``-Xptxas -v``) over the dQ and #4 sources: every wgmma
+    instance (dQ and #4, bf16 and f16, each D and tile width) spills
+    nothing, and no wgmma is serialized (warning C7512)."""
+    import subprocess
+
+    from mxnet_tpu_torch import _kernels
+
+    procs = {}
+    for name in ("flash_attention_bwd", "fused_matmul_affine_relu"):
+        cmd = [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(tmp_path / f"lib{name}.so"),
+               str(_kernels._PKG / _kernels.SOURCES[name])]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    seen = 0
+    for name, proc in procs.items():
+        log = proc.communicate(timeout=900)[0]
+        assert proc.returncode == 0, log
+        assert "C7512" not in log, log
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "spill" in line and entry and (
+                    "fa_bwd_dq_wgmma_kernel" in entry or
+                    "fused_mm_affine_relu_wgmma_kernel" in entry):
+                assert "0 bytes spill stores, 0 bytes spill loads" in line, \
+                    (entry, line)
+                seen += 1
+    assert seen == 8 + 4  # dQ: 2 dtypes x 4 D; #4: 2 dtypes x 2 widths
 
 
 @pytest.mark.cuda
