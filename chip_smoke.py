@@ -67,7 +67,9 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
 2. build: every source in ``csrc/`` with nvcc for sm_90a, all at once;
 3. kernel: the forward kernel against its plain PyTorch version at every
    shape of ``KERNEL_SHAPES`` (bf16 and f16 at each D, Tq < Tk, rows
-   that see no key, f32), O held row by row and by its relative norm,
+   that see no key, f32; the D = 256 instance at Gemma-2B's
+   attention in bf16 and f16, in f32, and D = 192 padded to it at a
+   ragged T: ``D256_SHAPES``), O held row by row and by its relative norm,
    with its time (the call, host included) and its device time (the
    host's enqueue hidden) and TFLOP/s, the plain version's, torch SDPA's (a
    yardstick only, where Tq = Tk) and the card's bound; at the slice shape also the wrapper's host time and the
@@ -76,7 +78,8 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    rowsum(dO·O), then dK/dV on that δ) against the plain backward at
    every shape of ``BWD_SHAPES``, each gradient held row by row and by its
    relative norm and δ against ``_delta`` and, row by row, against an
-   f64 sum (bit-equal from run to run), with each kernel's time, device
+   f64 sum (dQ, δ, dK and dV bit-equal from run to run), with each
+   kernel's time, device
    time and TFLOP/s, the torch δ pass's (the plain version, which the
    card route no longer runs), the plain version's, torch
    SDPA's backward (where Tq = Tk) and the bound; at the slice shape also
@@ -143,6 +146,24 @@ the CUDA toolkit.  Phases, each printed as a JSON line:
    bf16, B=1, T=2048, SGD with momentum through ``gluon.Trainer``: one
    warm-up step and three timed steps on one batch, the update one launch
    of the multi-tensor kernel, its time beside its bound;
+9b. the D = 256 path: a Llama decoder at Gemma-2B's widths
+    (``GEMMA_2B``: hidden 2048, 8 heads of 256, one key/value head,
+    intermediate 16384, vocab 256,000, tied embeddings; its 18 layers)
+    in bf16, B=1, T=2048: ``net(ids)`` eagerly and hybridized (replays
+    against the eager logits), against ``attn_mode="sdpa"`` with the f32
+    dense route as the witness (phase 7b's ratio); five eager SGD
+    momentum steps (two warm-ups) and ``FusedTrainStep`` (K=2) on the
+    same net, step ms and peak; ``generate`` of 8 tokens from a
+    128-token prompt, the
+    graphed decode against the eager decoder's tokens; 18 launches of
+    each of #1-#3's D = 256 tensor-core instances a step;
+9c. the same widths at 2 layers in f32, T=1024: logits, loss and every
+    gradient through the FMA designs at D = 256 against dense torch
+    autograd;
+9d. ``nd.dot_product_attention`` by the reference's rule on the card:
+    D = 256 unmasked through #1, causal at Tq != Tk and D = 320 through
+    the plain route (top-left causal, no launch), and the NDArray
+    ``flash_attention`` at D = 320 raising with its ROADMAP item;
 10. ResNet f32 checks: ``resnet50_v1`` f32, B=2, 224x224, on the card
     (16 fused launches of the FMA design, no TF32) against the CPU (the
     plain version);
@@ -466,7 +487,7 @@ multi-rank behaviour is held on the CPU in gloo groups
 (``tests/test_torch_{parallel,partition,ring,kvstore_dist,
 llama_parallel}.py``).
 
-The launch counters are set to 0 just before each slice (8, 8b, 9, 11,
+The launch counters are set to 0 just before each slice (8, 8b, 9, 9b, 11,
 13b, 14, 14b, each net of 15b, the eval pass of 16, the sample-mode
 steps of 17, 18b, 18c's Ulysses bodies, 19a's 1F1B steps, 19b's
 captured mesh steps, 20b, 20c's eager steps, 20d's ep-route steps, 21b's
@@ -513,6 +534,14 @@ MMA_SHAPES = [
     ("bottom_right_bf16", 1, 8, 300, 700, 128, True, "bfloat16"),
     ("masked_rows_bf16", 1, 8, 700, 300, 128, True, "bfloat16"),
 ]
+# the D = 256 instances: the first is Gemma-2B's attention (phase 9b),
+# then f16 and f32 at D = 256 and a D padded to 256 at a ragged T
+D256_SHAPES = [
+    ("d256", 1, 8, 2048, 2048, 256, True, "bfloat16"),
+    ("d256_f16", 1, 8, 2048, 2048, 256, True, "float16"),
+    ("d256_f32", 2, 4, 256, 256, 256, True, "float32"),
+    ("d192_ragged", 2, 8, 1000, 1000, 192, True, "bfloat16"),
+]
 # the first is the Llama slice's shape, the second BERT-base's attention
 # (phase 13b)
 KERNEL_SHAPES = [
@@ -522,7 +551,7 @@ KERNEL_SHAPES = [
     ("noncausal_f32", 2, 4, 256, 256, 64, False, "float32"),
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
     ("d16", 2, 4, 128, 128, 16, True, "float32"),
-] + MMA_SHAPES
+] + MMA_SHAPES + D256_SHAPES
 # f32: another summation order than the plain version; bf16: the kernel's
 # output is rounded to 8 mantissa bits; lse is f32 in both
 O_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
@@ -550,7 +579,7 @@ BWD_SHAPES = [
     ("bottom_right", 1, 2, 4, 6, 32, True, "float32"),
     ("masked_rows", 1, 2, 6, 4, 32, True, "float32"),
     ("d16", 2, 4, 128, 128, 16, True, "float32"),
-] + MMA_SHAPES
+] + MMA_SHAPES + D256_SHAPES
 # Each gradient is held row by row (a row: one query's dq, one key's dk
 # or dv): the row's largest error within ROW_TOL of the row's largest
 # reference value, so that the small late rows of a causal gradient are
@@ -564,8 +593,14 @@ NORM_TOL = {"float32": 1e-5, "bfloat16": 5e-3, "float16": 1e-3}
 # same O and dO: both sum the same exact f32 products of D terms, in other
 # orders (about 1e-7 of the largest at D = 128).  Row by row against an f64
 # sum, each row's error is at most (D - 1)·2^-24 (7.6e-6 at D = 128) of
-# that row's sum of |dO·O|, whatever cancels in it
+# that row's sum of |dO·O|, whatever cancels in it: DELTA_TOL up to
+# D = 128, (D - 1)·2^-24 above (1.5e-5 at D = 256; ``delta_tol``)
 DELTA_TOL = 1e-5
+
+
+def delta_tol(d):
+    """δ's row tolerance at head dim ``d`` (the note above)."""
+    return max(DELTA_TOL, (d - 1) * 2.0 ** -24)
 # f32 training check: every gradient within this share of the largest
 # gradient of the same tensor; both routes are f32 (no TF32), the
 # attention sums run in other orders and the difference propagates
@@ -909,9 +944,17 @@ def backward_phase(torch, fa, failures):
         row["dq_delta_bit_equal"] = bool(
             torch.equal(dq1, dq2) and torch.equal(delta, delta2) and
             torch.equal(dq1, got[0]))
+        # dK and dV of a second dK/dV launch on the same δ: one owner a
+        # value, no atomics, so the same bits
+        dkv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                          scale)
+        row["dkv_bit_equal"] = bool(torch.equal(dkv2[0], got[1]) and
+                                    torch.equal(dkv2[1], got[2]))
+        row["delta_tol"] = delta_tol(d)
         ok = ok and row["delta_rel_err"] <= DELTA_TOL and \
-            row["delta_row_err"] <= DELTA_TOL and row["dq_delta_bit_equal"]
-        del dq1, dq2, delta2
+            row["delta_row_err"] <= delta_tol(d) and \
+            row["dq_delta_bit_equal"] and row["dkv_bit_equal"]
+        del dq1, dq2, delta2, dkv2
         iters = 10 if tq * tk * b * h > 1e7 else 50
         row["delta_ms"] = time_ms(torch, lambda: fa._delta(o, do), iters)
         row["delta_device_ms"] = time_ms(torch, lambda: fa._delta(o, do),
@@ -1246,6 +1289,333 @@ def train_phase(torch, mx, llama, fa, mt, failures):
               update_bound_ms=update_bound_ms(trainer),
               ok=losses[-1] < losses[0]))
     return launches, launches_mma, update_launches
+
+
+# Phase 9b: a Llama decoder at Gemma-2B's widths (google/gemma-2b's
+# config.json; Gemma, arXiv 2403.08295, Table 1) on the repo's Llama block
+# (SwiGLU, RMSNorm without Gemma's +1, no embedding scale), at its published
+# depth: head dim 2048 / 8 = 256 and one key/value head, so every attention
+# call runs the D = 256 instances of #1-#3.
+GEMMA_2B = dict(hidden_size=2048, intermediate_size=16384, num_layers=18,
+                num_heads=8, num_kv_heads=1, vocab_size=256000,
+                rope_theta=10000.0, rms_eps=1e-6, tie_embeddings=True)
+GEMMA_STEPS = 5          # eager Trainer steps, the first two warm-ups
+GEMMA_WARMUP = 2         # (the allocator still grows in the second)
+GEMMA_FUSED_K = 2        # FusedTrainStep steps a call
+GEMMA_PROMPT = 128       # generate: the prompt's length
+GEMMA_NEW = 8            # ... and its new tokens
+GEMMA_CHECK_LAYERS = 2   # 9c: the f32 check's depth
+
+
+def _gemma_net(mx, llama, layers, dtype):
+    """The Gemma-2B-width decoder at ``layers`` layers, weights N(0, 0.02)
+    drawn on the card from the seed."""
+    mx.random.seed(SEED)
+    net = llama.LlamaForCausalLM(llama.LlamaConfig(
+        **dict(GEMMA_2B, num_layers=layers)))
+    if dtype != "float32":
+        net.cast(dtype)
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu(0))
+    return net
+
+
+def gemma_phase(torch, mx, llama, fa, mt, failures):
+    """Phase 9b: the Gemma-2B-width decoder, 18 layers, bf16, B=1, T=2048:
+    ``net(ids)`` eagerly and hybridized (the replays against the eager
+    logits), held against ``attn_mode="sdpa"`` on the same weights with
+    the f32 dense route as the witness (as phase 7b); then five eager
+    ``Trainer`` steps (SGD with momentum; the first two warm up the
+    allocator), ``FusedTrainStep`` steps on the
+    same net, and ``generate`` from a 128-token prompt (graphed decode
+    against the eager decoder's tokens).  Every flash call of the path
+    runs the D = 256 tensor-core instances; their launches are counted
+    from just before the first forward to just after the last generate.
+    Returns ([fwd, dq, dkv] launches, the tensor-core share, the update
+    kernel's launches)."""
+    free_card(torch)
+    t = time.perf_counter()
+    net = _gemma_net(mx, llama, GEMMA_2B["num_layers"], "bfloat16")
+    cfg, layers = net.config, GEMMA_2B["num_layers"]
+    torch.cuda.synchronize()
+    params = sum(p.data().size for p in net.collect_params().values())
+    emit(dict(phase="gemma_init", seconds=time.perf_counter() - t,
+              layers=layers, head_dim=cfg.head_dim, params=params,
+              memory_allocated=torch.cuda.memory_allocated()))
+    ids, labels = _ids_labels(torch, mx, cfg.vocab_size, 2048, SEED + 30)
+    _zero_counts(fa)  # the main path starts here
+    ok_all = True
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fwd_ms = []
+    for _ in range(2):  # the first call also warms up cuBLAS
+        before = (fa.flash_attention_fwd.launches,
+                  fa.flash_attention_fwd.launches_mma)
+        logits, ms = timed(lambda: net(ids))
+        fwd_ms.append(ms)
+        launched = (fa.flash_attention_fwd.launches - before[0],
+                    fa.flash_attention_fwd.launches_mma - before[1])
+        ok_all = ok_all and launched == (layers, layers) and \
+            logits.shape == (1, 2048, cfg.vocab_size) and \
+            bool(torch.isfinite(logits._data).all())
+    eager = logits._data
+    del logits
+    net.hybridize(static_alloc=True, static_shape=True)
+    graph_ms, graph_diff = [], []
+    for _ in range(3):  # the first captures, the next ones replay
+        before = fa.flash_attention_fwd.launches_mma
+        logits, ms = timed(lambda: net(ids))
+        graph_ms.append(ms)
+        graph_diff.append((logits._data.float() - eager.float()).abs()
+                          .max().item())
+        ok_all = ok_all and \
+            fa.flash_attention_fwd.launches_mma - before == layers
+        del logits
+    net.hybridize(False)
+    graph_tol = GRAPH_BF16_TOL * eager.float().abs().max().item()
+    ok_all = ok_all and max(graph_diff) <= graph_tol
+    # the dense route and the f32 witness launch no kernel of the port
+    counted = [c.launches for c in _counters(fa)]
+    net.config.attn_mode = "sdpa"
+    dense = net(ids)._data
+    net.cast("float32")
+    ref = net(ids)._data
+    net.cast("bfloat16")  # exact: the weights were bf16 values
+    net.config.attn_mode = "flash"
+    gap = _rel_norm(torch, eager, dense)
+    to_ref = (_rel_norm(torch, eager, ref), _rel_norm(torch, dense, ref))
+    ratio = to_ref[0] / max(to_ref[1], 1e-30)
+    argmax_same = (eager.argmax(-1) == dense.argmax(-1)).float().mean()
+    ok_all = ok_all and [c.launches for c in _counters(fa)] == counted \
+        and ratio <= BF16_WITNESS_RATIO
+    emit(dict(phase="gemma_forward", layers=layers, B=1, T=2048,
+              eager_ms=fwd_ms, graph_ms=graph_ms,
+              graph_max_abs_diff=graph_diff, graph_tol=graph_tol,
+              logit_rel_norm_vs_sdpa=gap,
+              witness_flash_dense_to_f32=to_ref, witness_ratio=ratio,
+              tol_witness_ratio=BF16_WITNESS_RATIO,
+              argmax_equal_share_vs_sdpa=argmax_same.item(), ok=ok_all))
+    if not ok_all:
+        failures.append(f"gemma forward: graph diff {graph_diff} (tol "
+                        f"{graph_tol}), witness ratio {ratio}, gap {gap}")
+    del eager, dense, ref
+    free_card(torch)
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": TRAIN_LR, "momentum": 0.9})
+    mt.multi_tensor_update.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(GEMMA_STEPS):
+        before = [c.launches_mma for c in _counters(fa)]
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        loss = _lm_forward(mx, net, ids, labels)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        loss.backward()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        trainer.step(1)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss.asscalar()))
+        launched = [c.launches_mma - n for c, n in zip(_counters(fa),
+                                                       before)]
+        ms = (stamps[-1] - stamps[0]) * 1e3
+        if step >= GEMMA_WARMUP:
+            step_ms.append(ms)
+        good = math.isfinite(losses[-1]) and launched == [layers] * 3
+        ok_all = ok_all and good
+        emit(dict(phase="gemma_train_step", step=step,
+                  warmup=step < GEMMA_WARMUP,
+                  loss=losses[-1], ms=ms, tokens_per_s=2048 / ms * 1e3,
+                  forward_ms=(stamps[1] - stamps[0]) * 1e3,
+                  backward_ms=(stamps[2] - stamps[1]) * 1e3,
+                  update_ms=(stamps[3] - stamps[2]) * 1e3,
+                  launches_mma=dict(zip(("fwd", "dq", "dkv"), launched)),
+                  ok=good))
+    eager_peak = torch.cuda.max_memory_allocated()
+    # the last eager loss holds its graph's gradient accumulators, made on
+    # the eager stream: a capture that meets them fails
+    del loss
+    fstep = mx.gluon.FusedTrainStep(
+        net, trainer, lambda n, a, b: mx.nd.softmax_cross_entropy(
+            n(a).reshape((-1, cfg.vocab_size)), b.reshape((-1,))) / b.size,
+        steps_per_execution=GEMMA_FUSED_K, batch_size=1)
+    first, first_ms = timed(lambda: fstep(ids, labels).asnumpy())
+    torch.cuda.reset_peak_memory_stats()
+    before = [c.launches_mma for c in _counters(fa)]
+    more, call_ms = timed(lambda: fstep(ids, labels).asnumpy())
+    replayed = [c.launches_mma - n for c, n in zip(_counters(fa), before)]
+    fused_peak = torch.cuda.max_memory_allocated()
+    update_launches = mt.multi_tensor_update.launches  # eager and fused
+    fused = first.tolist() + more.tolist()
+    good = bool(np.isfinite(fused).all()) and fused[-1] < losses[0] and \
+        replayed == [GEMMA_FUSED_K * layers] * 3 and losses[-1] < losses[0]
+    ok_all = ok_all and good
+    emit(dict(phase="gemma_train_summary", losses=losses, step_ms=step_ms,
+              peak_bytes=eager_peak, update_launches=update_launches,
+              update_bound_ms=update_bound_ms(trainer),
+              fused_K=GEMMA_FUSED_K, fused_losses=fused,
+              fused_first_call_ms=first_ms, fused_call_ms=call_ms,
+              fused_step_ms=call_ms / GEMMA_FUSED_K,
+              fused_peak_bytes=fused_peak,
+              fused_launches_mma_per_call=replayed, ok=good))
+    if not good:
+        failures.append(f"gemma training: losses {losses}, fused {fused}, "
+                        f"replayed launches {replayed}")
+    del fstep, trainer
+    free_card(torch)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    prompt = mx.nd.array(torch.randint(0, cfg.vocab_size, (1, GEMMA_PROMPT),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.int32))
+    out, first_call_ms = timed(lambda: net.generate(
+        prompt, max_new_tokens=GEMMA_NEW))  # captures the decode graph
+    out, gen_ms = timed(lambda: net.generate(prompt,
+                                             max_new_tokens=GEMMA_NEW))
+    dec = next(d for m, d in sorted(net._kv_decoders.items())
+               if m >= GEMMA_PROMPT + GEMMA_NEW)
+    engine_type = mx.engine.engine_type()
+    mx.engine.set_engine_type("NaiveEngine")  # eager decode steps
+    try:
+        eager_tokens = dec.generate(prompt._data, GEMMA_NEW)
+    finally:
+        mx.engine.set_engine_type(engine_type)
+    with torch.no_grad():
+        ref_first = net(prompt)._data[:, -1].argmax(-1).to(torch.int32)
+    same = bool(torch.equal(eager_tokens, out._data))
+    good = out.shape == (1, GEMMA_PROMPT + GEMMA_NEW) and same and \
+        bool(torch.equal(out._data[:, :GEMMA_PROMPT], prompt._data))
+    ok_all = ok_all and good
+    launches = [c.launches for c in _counters(fa)]  # the main path ends
+    launches_mma = _mma_counts(fa)
+    emit(dict(phase="gemma_generate", prompt=GEMMA_PROMPT,
+              new_tokens=GEMMA_NEW, first_call_ms=first_call_ms,
+              total_ms=gen_ms, tokens_equal_to_eager=same,
+              first_token_matches_forward_argmax=bool(torch.equal(
+                  out._data[:, GEMMA_PROMPT], ref_first)), ok=good))
+    if not good:
+        failures.append(f"gemma generate: shape {out.shape}, tokens equal "
+                        f"to the eager decoder's {same}")
+    if 0 in launches or launches != launches_mma:
+        failures.append(f"the Gemma-width path launched {launches} of "
+                        f"#1-#3 (tensor-core {launches_mma})")
+    del net, out, dec
+    free_card(torch)
+    return launches, launches_mma, update_launches
+
+
+def gemma_f32_phase(torch, mx, llama, fa, failures):
+    """Phase 9c: the Gemma-2B widths at 2 layers in f32, T=1024:
+    ``net(ids)`` and one loss and backward through the kernels' FMA
+    designs (D = 256) against dense torch autograd (``attn_mode="sdpa"``)
+    on the same weights: the logits within 1e-3 of the largest, the loss
+    within 1e-5 and every gradient within TRAIN_GRAD_TOL of its largest
+    value, as phases 6 and 7 hold ``llama3_8b``."""
+    net = _gemma_net(mx, llama, GEMMA_CHECK_LAYERS, "float32")
+    ids, labels = _ids_labels(torch, mx, net.config.vocab_size, 1024,
+                              SEED + 32)
+    params = net._collect_params_with_prefix()
+    _zero_counts(fa)
+    flash = _route(torch, mx, net, ids, labels, params, "flash")
+    launched = [c.launches for c in _counters(fa)]  # the FMA designs'
+    mma = _mma_counts(fa)
+    dense = _route(torch, mx, net, ids, labels, params, "sdpa")
+    logit_err = (flash[0] - dense[0]).abs().max().item()
+    logit_tol = 1e-3 * dense[0].abs().max().item()
+    worst, worst_name = 0.0, None
+    for k in params:
+        share = ((flash[2][k] - dense[2][k]).abs().max() /
+                 dense[2][k].abs().max().clamp_min(1e-30)).item()
+        if not share <= worst:
+            worst, worst_name = share, k
+    layers = GEMMA_CHECK_LAYERS
+    ok = launched == [2 * layers, layers, layers] and mma == [0, 0, 0] and \
+        logit_err <= logit_tol and math.isfinite(flash[1]) and \
+        abs(flash[1] - dense[1]) <= 1e-5 * abs(dense[1]) and \
+        worst <= TRAIN_GRAD_TOL
+    emit(dict(phase="gemma_f32_check", layers=layers, T=1024,
+              launches=dict(zip(("fwd", "dq", "dkv"), launched)),
+              launches_mma=dict(zip(("fwd", "dq", "dkv"), mma)),
+              max_abs_logit_err=logit_err, logit_tol=logit_tol,
+              loss_flash=flash[1], loss_sdpa=dense[1], params=len(params),
+              worst_grad_err_share=worst, worst_param=worst_name,
+              tol=TRAIN_GRAD_TOL, ok=ok))
+    if not ok:
+        failures.append(f"gemma f32 check: launches {launched} (tensor-core "
+                        f"{mma}), logits {logit_err} vs {logit_tol}, loss "
+                        f"{flash[1]} vs {dense[1]}, worst gradient {worst} "
+                        f"({worst_name})")
+    del net, params, flash, dense
+    free_card(torch)
+
+
+def attention_routes_phase(torch, mx, fa, failures):
+    """Phase 9d: ``nd.dot_product_attention`` (B, T, N, H) on the card by
+    the reference's rule: at D = 256, unmasked and causal, the kernels
+    (one launch of #1); causal at Tq != Tk and at D = 320, the plain route
+    (jax.nn's top-left causal mask, no launch); each held against a dense
+    f32 softmax with that mask, bf16 within O_ROW_TOL a row and
+    O_NORM_TOL in norm; and the NDArray ``flash_attention`` op at D = 320
+    raises naming its ROADMAP item."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 33)
+
+    def rnd(t, h):
+        return torch.randn(1, t, 8, h, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def dense(q, k, v):  # top-left causal: key j visible to query i iff j <= i
+        s = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) / \
+            math.sqrt(q.shape[-1])
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device="cuda").tril()
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        return torch.einsum("bnts,bsnh->btnh", p, v.float())
+
+    rows, ok_all = [], True
+    for name, tq, tk, h, kernel in (("d256", 2048, 2048, 256, True),
+                                    ("causal_tq_ne_tk", 1000, 2048, 256,
+                                     False),
+                                    ("d320", 512, 512, 320, False)):
+        q, k, v = rnd(tq, h), rnd(tk, h), rnd(tk, h)
+        _zero_counts(fa)
+        out = mx.nd.dot_product_attention(mx.nd.array(q), mx.nd.array(k),
+                                          mx.nd.array(v), causal=True)._data
+        torch.cuda.synchronize()
+        launched = [c.launches for c in _counters(fa)]
+        err, share, norm = grad_errors(torch, out.transpose(1, 2),
+                                       dense(q, k, v).transpose(1, 2))
+        good = launched == ([1, 0, 0] if kernel else [0, 0, 0]) and \
+            share <= O_ROW_TOL["bfloat16"] and \
+            norm <= O_NORM_TOL["bfloat16"] and \
+            bool(torch.isfinite(out).all())
+        rows.append(dict(case=name, Tq=tq, Tk=tk, H=h, launches=launched,
+                         max_abs_err=err, row_share=share, rel_norm=norm,
+                         ok=good))
+        ok_all = ok_all and good
+    wide = mx.nd.array(rnd(8, 320).transpose(1, 2).contiguous())
+    try:
+        fa.flash_attention(wide, wide, wide, causal=True)
+        raised = None
+    except mx.MXNetError as e:
+        raised = str(e)
+    named = raised is not None and "D > 256 instance" in raised
+    ok_all = ok_all and named
+    emit(dict(phase="attention_routes", rows=rows,
+              flash_attention_d320_raises=raised, ok=ok_all))
+    if not ok_all:
+        failures.append(f"attention routes: {rows}, D = 320 raised "
+                        f"{raised!r}")
 
 
 def f32_phase(torch, mx, llama, fa, failures):
@@ -11699,6 +12069,13 @@ def main():
     del net
     train_launches, train_mma, update_launches = train_phase(
         torch, mx, llama, fa, mt, failures)
+    # the D = 256 instances at Gemma-2B's widths (9b-9d)
+    gemma_launches, gemma_mma, gemma_updates = _phase(
+        gemma_phase, failures, ([0, 0, 0], [0, 0, 0], 0), torch, mx, llama,
+        fa, mt)
+    update_launches += gemma_updates
+    _phase(gemma_f32_phase, failures, None, torch, mx, llama, fa)
+    _phase(attention_routes_phase, failures, None, torch, mx, fa)
     resnet_f32_phase(torch, mx, vision, cbr, failures)
     resnet18_f32_train_phase(torch, mx, vision, failures)
     fused_launches, fused_mma = resnet_infer_phase(torch, mx, vision, cbr,
@@ -11946,6 +12323,13 @@ def main():
                     library_ms=bb["library_ms"],
                     max_abs_err=max(bb["max_abs_err_dk"],
                                     bb["max_abs_err_dv"]))
+    # the D = 256 instances at Gemma-2B's attention shape, with
+    # the launches of phase 9b's main path
+    g1 = next(r for r in rows if r["shape"] == "d256")
+    g23 = next(r for r in brows if r["shape"] == "d256")
+    d256 = dict(instance="D = 256 (129-255 padded to it)",
+                at="B1 H8 T2048 D256 causal bf16 (Gemma-2B's attention)",
+                path="phase 9b: Gemma-2B widths, 18 layers")
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": src.format("fwd"), "replaces": replaces.format(132),
@@ -12018,6 +12402,32 @@ def main():
          "plain_ms": bs["plain_ms"],
          "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
          "library_ms": bs["library_ms"]},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": src.format("fwd"), "replaces": replaces.format(132),
+         **d256, "design": design_name(g1["design"], g1["dtype"]),
+         "launches": gemma_launches[0], "launches_mma": gemma_mma[0],
+         "max_abs_err": g1["max_abs_err_o"], "ms": g1["kernel_ms"],
+         "device_ms": g1["kernel_device_ms"], "tflops": g1["tflops"],
+         "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
+         "bound_by": g1["bound_by"], "library_ms": g1["library_ms"]},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": src.format("bwd"), "replaces": replaces.format(259),
+         **d256, "design": design_name(g23["dq_design"], g23["dtype"]),
+         "launches": gemma_launches[1], "launches_mma": gemma_mma[1],
+         "max_abs_err": g23["max_abs_err_dq"], "ms": g23["dq_ms"],
+         "device_ms": g23["dq_device_ms"], "tflops": g23["dq_tflops"],
+         "bit_equal": g23["dq_delta_bit_equal"],
+         "plain_ms": g23["plain_ms"], "bound_ms": g23["dq_bound_ms"],
+         "bound_by": g23["dq_bound_by"], "library_ms": g23["library_ms"]},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": src.format("bwd"), "replaces": replaces.format(302),
+         **d256, "design": design_name(g23["dkv_design"], g23["dtype"]),
+         "launches": gemma_launches[2], "launches_mma": gemma_mma[2],
+         "max_abs_err": max(g23["max_abs_err_dk"], g23["max_abs_err_dv"]),
+         "ms": g23["dkv_ms"], "device_ms": g23["dkv_device_ms"],
+         "tflops": g23["dkv_tflops"], "bit_equal": g23["dkv_bit_equal"],
+         "plain_ms": g23["plain_ms"], "bound_ms": g23["dkv_bound_ms"],
+         "bound_by": g23["dkv_bound_by"], "library_ms": g23["library_ms"]},
         {"name": "fused_matmul_affine_relu", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/fused_matmul_affine_relu.cu",
          "replaces": "tools/pallas_conv_probe.py:35",

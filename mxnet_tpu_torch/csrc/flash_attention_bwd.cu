@@ -18,7 +18,8 @@
 // Ragged tails are masked here.  Rows that see no key (lse = -inf) get
 // dQ = 0 and add nothing to dK and dV.
 // Inputs: q, O, dO (B*H, Tq, D); k, v (B*H, Tk, D); contiguous, all of one
-// dtype (f32, f16 or bf16); lse f32 (B*H, Tq); D in {16, 32, 64, 128}.
+// dtype (f32, f16 or bf16); lse f32 (B*H, Tq); D in {16, 32, 64, 128,
+// 256} (the wrappers zero-pad a D between these up to the next one).
 // Outputs dQ, dK, dV in the input dtype, delta f32 (B*H, Tq) (dQ's output,
 // dK/dV's input); accumulation in f32.
 //
@@ -47,7 +48,11 @@
 //   (late, causal) tiles first: at D = 128 two warpgroups of 64 q rows (256
 //   threads, one block an SM: Q and dO 32 KB each, two stages of 64-key K
 //   and V tiles 32 KB each, 128 KB), at D <= 64 one warpgroup, so that
-//   several blocks share an SM.  Q and dO are loaded once and stay in
+//   several blocks share an SM; at D = 256 one warpgroup too, because two
+//   do not fit (Q and dO 32 KB each for 64 rows, two stages of K and V 128
+//   KB: 192 KB, one block an SM), with dQ += dS K on wgmma m64n256k16 and
+//   the dQ accumulator in 128 registers a thread.  Q and dO are loaded once
+//   and stay in
 //   shared memory; K and V stream through a ring of two stages, the loop
 //   stopping at the last tile the causal mask reaches.  Thread 0 is the
 //   producer, as in the forward: every TMA load (3-D maps: a ragged tail
@@ -78,7 +83,8 @@
 //   double buffering, ldmatrix) that reached a fifth of the bound:
 //   Ampere's instructions reach a fraction of this card's tensor-core
 //   rate.  One 256-thread block per (b*h, 128-key tile), early (heavy,
-//   causal) key tiles first: two warpgroups of 64 keys each.  K and V are
+//   causal) key tiles first: two warpgroups of 64 keys each (D = 256: see
+//   below).  K and V are
 //   loaded once and stay in shared memory; 64-row Q and dO tiles stream
 //   through a ring of two stages from the first q tile that sees the key
 //   tile.  Warp 0 is the producer: lane 0 issues the TMA loads (3-D maps:
@@ -94,7 +100,15 @@
 //   255.)  Keys are the rows of every product, so dK and dV stay in f32
 //   registers (64 x D a warpgroup each, D registers a thread) and no block
 //   shares an output row: no atomics, and the gradients are the same bits
-//   from run to run.
+//   from run to run.  At D = 256 that plan would take 512 registers a
+//   thread, so the block holds 64 keys and its two warpgroups split D
+//   instead: each computes S^T and dP^T for all 64 keys in full (both
+//   warpgroups the same products, 1.5x the plan's operations: the simple
+//   road, kept over sharing P^T and dS^T through shared memory) and owns
+//   128 of the 256 columns of dK and dV, which keeps 128 accumulator
+//   registers a thread as at D = 128 and one owner for each output value
+//   (shared memory 192 KB: K and V 32 KB each, two stages of Q and dO 32 KB
+//   each).
 //   Each warpgroup, per q tile: S^T = K Q^T and dP^T = V dO^T on wgmma
 //   m64n64k16 (K, V, Q and dO K-major from shared memory), one commit
 //   group; P^T = exp2(S^T * scale * log2(e) - lse * log2(e)) and dS^T =
@@ -115,11 +129,16 @@
 //   64-row q tile), delta of its rows first (a thread a row, from the dO
 //   tile and O), then a loop over 64-row k tiles that stops at the last
 //   tile the causal mask reaches; Q, dO, K, V and dS as f32 tiles in shared
-//   memory (149 KB at D = 128), dQ in registers, synchronous loads.
+//   memory (149 KB at D = 128), dQ in registers, synchronous loads.  At
+//   D = 256 four f32 tiles do not fit (280 KB): K and V take turns in one
+//   buffer (V for dP, then K for S and dS K; 215 KB).
 // dK/dV, f32 (mxt_flash_attention_bwd_dkv_fma): one 256-thread block per
 //   (b*h, 64-row k tile), K and V resident, a loop over 64-row q tiles;
 //   P^T and dS^T go through shared memory, dK and dV accumulate in
-//   registers (166 KB of shared memory at D = 128).
+//   registers (166 KB of shared memory at D = 128).  At D = 256 that
+//   plan needs 297 KB, so Q and dO take turns in one buffer and P^T and
+//   dS^T in one tile: Q for S^T, dO for dP^T and dV += P^T dO, then Q
+//   again for dK += dS^T Q (215 KB).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -161,18 +180,77 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
+// D = 256: two f32 operand tiles share one buffer, in turns (the notes
+// above), so that the kernel fits a block's shared memory
+template <int D>
+__host__ __device__ constexpr bool one_buffer() {
+  return D > 128;
+}
+
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  // q, dO, k, v tiles (row stride D + 1), the dS tile, lse and delta
+  // q, dO, k, v tiles (row stride D + 1; k and v one tile at D = 256), the
+  // dS tile, lse and delta
+  constexpr int kTiles = one_buffer<D>() ? 3 : 4;
   return sizeof(float) *
-         (size_t)(4 * kBlock * (D + 1) + kBlock * kLdS + 2 * kBlock);
+         (size_t)(kTiles * kBlock * (D + 1) + kBlock * kLdS + 2 * kBlock);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  // k, v, q, dO tiles, the P^T and dS^T tiles, lse and delta
-  return sizeof(float) *
-         (size_t)(4 * kBlock * (D + 1) + 2 * kBlock * kLdS + 2 * kBlock);
+  // k, v, q, dO tiles (q and dO one tile at D = 256), the P^T and dS^T
+  // tiles (one at D = 256), lse and delta
+  constexpr int kTiles = one_buffer<D>() ? 3 : 4;
+  constexpr int kSTiles = one_buffer<D>() ? 1 : 2;
+  return sizeof(float) * (size_t)(kTiles * kBlock * (D + 1) +
+                                  kSTiles * kBlock * kLdS + 2 * kBlock);
+}
+
+// acc[i][j] = row ty + 16 i of a . row tx + 16 j of b (64-row tiles of row
+// stride D + 1), summed over D in element order
+template <int D>
+__device__ __forceinline__ void tile_dots(const float* a, const float* b,
+                                          float (&acc)[4][4]) {
+  constexpr int kLd = D + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * kLd + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * kLd + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += t (64 x 64, row stride kLdS) times m (64 x D, row stride
+// D + 1) at row ty + 16 i and column tx + 16 j, summed in row order of m
+template <int D>
+__device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16],
+                                                const float* t,
+                                                const float* m) {
+  constexpr int kLd = D + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int kk = 0; kk < kBlock; ++kk) {
+    float w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = t[(ty + 16 * i) * kLdS + kk];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const float x = m[kk * kLd + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(w[i], x, acc[i][j]);
+    }
+  }
 }
 
 template <int D>
@@ -185,11 +263,12 @@ __global__ void __launch_bounds__(kThreads)
                      float scale) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;  // accumulator columns per thread
+  constexpr bool kOneBuf = one_buffer<D>();
   extern __shared__ float smem[];
   float* qs = smem;                // kBlock x kLd
   float* dos = qs + kBlock * kLd;  // kBlock x kLd
   float* ks = dos + kBlock * kLd;  // kBlock x kLd
-  float* vs = ks + kBlock * kLd;   // kBlock x kLd
+  float* vs = kOneBuf ? ks : ks + kBlock * kLd;  // kBlock x kLd
   float* dss = vs + kBlock * kLd;  // kBlock x kLdS
   float* lse_s = dss + kBlock * kLdS;
   float* delta_s = lse_s + kBlock;
@@ -241,37 +320,19 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlock;
     __syncthreads();  // the last tile's dS.K is done with ks and dss
-    load_tile<D>(ks, kb, k0, tk);
     load_tile<D>(vs, vb, k0, tk);
+    if constexpr (!kOneBuf) load_tile<D>(ks, kb, k0, tk);
     __syncthreads();
 
-    // S and dP for rows ty + 16 i and columns tx + 16 j
+    // dP and S for rows ty + 16 i and columns tx + 16 j
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty + 16 * i) * kLd + d];
-        g[i] = dos[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = ks[(tx + 16 * j) * kLd + d];
-        c[j] = vs[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], c[j], dp[i][j]);
-        }
+    tile_dots<D>(dos, vs, dp);
+    if constexpr (kOneBuf) {
+      __syncthreads();  // every thread is done reading V
+      load_tile<D>(ks, kb, k0, tk);
+      __syncthreads();
     }
+    tile_dots<D>(qs, ks, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -288,18 +349,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // dS is complete
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBlock; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty + 16 * i) * kLdS + kk];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float kv = ks[kk * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
-      }
-    }
+    tile_accumulate<D>(acc, dss, ks);  // dQ += dS K
   }
 
 #pragma unroll
@@ -325,13 +375,14 @@ __global__ void __launch_bounds__(kThreads)
                       float scale) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;
+  constexpr bool kOneBuf = one_buffer<D>();
   extern __shared__ float smem[];
   float* ks = smem;                // kBlock x kLd, resident
   float* vs = ks + kBlock * kLd;   // kBlock x kLd, resident
   float* qs = vs + kBlock * kLd;   // kBlock x kLd, this q tile
-  float* dos = qs + kBlock * kLd;  // kBlock x kLd, this q tile
+  float* dos = kOneBuf ? qs : qs + kBlock * kLd;  // kBlock x kLd, this q tile
   float* ps = dos + kBlock * kLd;  // kBlock x kLdS: P^T (k rows, q columns)
-  float* dss = ps + kBlock * kLdS;  // kBlock x kLdS: dS^T
+  float* dss = kOneBuf ? ps : ps + kBlock * kLdS;  // kBlock x kLdS: dS^T
   float* lse_s = dss + kBlock * kLdS;
   float* delta_s = lse_s + kBlock;
 
@@ -364,37 +415,20 @@ __global__ void __launch_bounds__(kThreads)
     const int q0 = t * kBlock;
     __syncthreads();  // the last tile's products are done with qs, dos, ps
     load_tile<D>(qs, qb, q0, tq);
-    load_tile<D>(dos, dob, q0, tq);
+    if constexpr (!kOneBuf) load_tile<D>(dos, dob, q0, tq);
     load_rows(lse_s, delta_s, lseb, deltab, q0, tq);
     __syncthreads();
 
     // S^T and dP^T for k rows ty + 16 i and q columns tx + 16 j
     float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4], b[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ks[(ty + 16 * i) * kLd + d];
-        c[i] = vs[(ty + 16 * i) * kLd + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = qs[(tx + 16 * j) * kLd + d];
-        g[j] = dos[(tx + 16 * j) * kLd + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(a[i], b[j], st[i][j]);
-          dpt[i][j] = fmaf(c[i], g[j], dpt[i][j]);
-        }
+    tile_dots<D>(ks, qs, st);
+    if constexpr (kOneBuf) {
+      __syncthreads();  // every thread is done reading Q
+      load_tile<D>(dos, dob, q0, tq);
+      __syncthreads();
     }
+    tile_dots<D>(vs, dos, dpt);
+    // P^T and dS^T in place of S^T and dP^T
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
@@ -407,31 +441,26 @@ __global__ void __launch_bounds__(kThreads)
         const bool keep = kpos < tk && isfinite(l) &&
                           (!causal || kpos <= qpos + offset);
         const float p = keep ? expf(st[i][j] * scale - l) : 0.f;
+        st[i][j] = p;
+        dpt[i][j] = p * (dpt[i][j] - dl) * scale;
         ps[r * kLdS + c] = p;
-        dss[r * kLdS + c] = p * (dpt[i][j] - dl) * scale;
+        if constexpr (!kOneBuf) dss[r * kLdS + c] = dpt[i][j];
       }
     }
-    __syncthreads();  // P^T and dS^T are complete
+    __syncthreads();  // P^T (and dS^T) are complete
 
-#pragma unroll 4
-    for (int qq = 0; qq < kBlock; ++qq) {
-      float p[4], ds[4];
+    tile_accumulate<D>(dv_acc, ps, dos);  // dV += P^T dO
+    if constexpr (kOneBuf) {
+      __syncthreads();  // every thread is done with P^T and dO
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = ps[(ty + 16 * i) * kLdS + qq];
-        ds[i] = dss[(ty + 16 * i) * kLdS + qq];
-      }
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float gv = dos[qq * kLd + tx + 16 * j];
-        const float qv = qs[qq * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(p[i], gv, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(ds[i], qv, dk_acc[i][j]);
-        }
-      }
+        for (int j = 0; j < 4; ++j)
+          dss[(ty + 16 * i) * kLdS + tx + 16 * j] = dpt[i][j];
+      load_tile<D>(qs, qb, q0, tq);
+      __syncthreads();
     }
+    tile_accumulate<D>(dk_acc, dss, qs);  // dK += dS^T Q
   }
 
 #pragma unroll
@@ -500,7 +529,8 @@ constexpr int kDqBlockK = 64;  // keys a K/V tile
 
 // The plan of the dQ design at head dim D: at D = 128 two warpgroups (128 q
 // rows) share each K/V tile, one block an SM; at D <= 64 one warpgroup (64
-// rows), so that several blocks share an SM (as the forward).  Shared
+// rows), so that several blocks share an SM (as the forward); at D = 256 one
+// warpgroup, because a second one's Q and dO do not fit.  Shared
 // memory: the Q and dO tiles, kDqStages (K tile, V tile) pairs, each tile
 // kBlocks column blocks of kSwz-byte rows, then delta of the block's rows,
 // then the barriers; 1024 bytes of slack to align the start.
@@ -823,20 +853,25 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
 
 // ---- dK/dV on the tensor cores (bf16, f16): wgmma on TMA tiles -------------
 
-constexpr int kWgThreads = 256;  // two warpgroups of 64 keys
-constexpr int kWgBlockK = 128;   // keys a block
+constexpr int kWgThreads = 256;  // two warpgroups
 constexpr int kWgBlockQ = 64;    // q rows a streamed Q/dO tile
 constexpr int kWgStages = 2;     // Q/dO tiles in flight
 
-// Shared memory of the dK/dV design at head dim D: the resident K and V
-// tiles, kWgStages (Q tile, dO tile) pairs (each tile kBlocks column
-// blocks of kSwz-byte rows), then -lse * log2(e) and delta of each stage's
-// rows, then the barriers; 1024 bytes of slack to align the start
+// The plan of the dK/dV design at head dim D: the block's two warpgroups
+// take 64 keys each (128 keys a block), or at D = 256 the same 64 keys,
+// each owning D / 2 columns of dK and dV (kSplit).  Shared memory: the
+// resident K and V tiles, kWgStages (Q tile, dO tile) pairs (each tile
+// kBlocks column blocks of kSwz-byte rows), then -lse * log2(e) and delta
+// of each stage's rows, then the barriers; 1024 bytes of slack to align
+// the start
 template <int D>
 struct DkvTiles {
+  static constexpr int kSplit = D == 256 ? 2 : 1;  // warpgroups a key
+  static constexpr int kBlockK = 128 / kSplit;      // keys a block
+  static constexpr int kCols = D / kSplit;  // dK/dV columns a warpgroup
   static constexpr int kSwz = mxt_sm90::swizzle_bytes<D>();
   static constexpr int kBlocks = 2 * D / kSwz;
-  static constexpr int kKRegion = kWgBlockK * kSwz;  // one column block
+  static constexpr int kKRegion = kBlockK * kSwz;  // one column block
   static constexpr int kQRegion = kWgBlockQ * kSwz;
   static constexpr int kKBytes = kBlocks * kKRegion;
   static constexpr int kQBytes = kBlocks * kQRegion;
@@ -896,7 +931,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   constexpr int kSwz = L::kSwz;
   constexpr int kSteps = kSwz / 32;   // k16 steps a column block row
   constexpr int kQN = kWgBlockQ / 8;  // n8 tiles over a q tile
-  constexpr int kDN = D / 8;          // n8 tiles over D
+  constexpr int kDN = L::kCols / 8;   // n8 tiles over the owned columns
   constexpr bool kF16 = std::is_same<T, __half>::value;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -910,7 +945,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   uint64_t* empty = full + kWgStages;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kWgBlockK;  // early (heavy) k tiles first
+  const int k0 = blockIdx.y * L::kBlockK;  // early (heavy) k tiles first
   const int offset = tk - tq;
   // causal: query i sees key j iff i >= j - offset, so the first q row that
   // sees any key of this tile is k0 - offset
@@ -944,14 +979,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                     t, t_first, bh, tq, lane);
   }
 
-  // warpgroup wg: keys kw0 .. kw0 + 63
+  // warpgroup wg: keys kw0 .. kw0 + 63, columns col0 .. col0 + kCols - 1
+  // of dK and dV
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x & 127) >> 5;
   const int quad_col = 2 * (lane & 3);
-  const int kw0 = k0 + 64 * wg;
+  const int kw0 = k0 + (L::kSplit == 1 ? 64 * wg : 0);
+  const int col0 = L::kSplit == 1 ? 0 : wg * L::kCols;
   const int key_a = kw0 + warp * 16 + (lane >> 2);  // and key_a + 8
-  const uint32_t k_addr = smem_u32(ks) + 64 * wg * kSwz;
-  const uint32_t v_addr = smem_u32(vs) + 64 * wg * kSwz;
+  const uint32_t k_addr = smem_u32(ks) + (kw0 - k0) * kSwz;
+  const uint32_t v_addr = smem_u32(vs) + (kw0 - k0) * kSwz;
+  // the owned columns' first column block of a Q or dO tile
+  const uint32_t col_off = (col0 * 2 / kSwz) * L::kQRegion;
 
   const float scale_log2 = scale * kLog2e;
   // f16: per-row powers of two for P^T and dS^T (f16_row_scale)
@@ -1050,9 +1089,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int j = 0; j < kWgBlockQ / 16; ++j) {
       wgmma_rs<T>(dv_acc, pa[j],
-                  desc<kSwz>(do_addr + j * 16 * kSwz, L::kQRegion, 8 * kSwz));
+                  desc<kSwz>(do_addr + col_off + j * 16 * kSwz, L::kQRegion,
+                             8 * kSwz));
       wgmma_rs<T>(dk_acc, da[j],
-                  desc<kSwz>(q_addr + j * 16 * kSwz, L::kQRegion, 8 * kSwz));
+                  desc<kSwz>(q_addr + col_off + j * 16 * kSwz, L::kQRegion,
+                             8 * kSwz));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1065,8 +1106,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   for (int h = 0; h < 2; ++h) {
     const int key = key_a + 8 * h;
     if (key < tk) {
-      T* krow = dk + ((size_t)bh * tk + key) * D + quad_col;
-      T* vrow = dv + ((size_t)bh * tk + key) * D + quad_col;
+      T* krow = dk + ((size_t)bh * tk + key) * D + col0 + quad_col;
+      T* vrow = dv + ((size_t)bh * tk + key) * D + col0 + quad_col;
       const float fk = kF16 ? pow2(-e_ds[h]) : 1.f;
       const float fv = kF16 ? pow2(-e_p[h]) : 1.f;
 #pragma unroll
@@ -1099,11 +1140,11 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
   }
   CUtensorMap q_map, k_map, v_map, do_map;
   if ((err = mxt_sm90::make_map<T, D>(&q_map, q, bh, tq, kWgBlockQ)) ||
-      (err = mxt_sm90::make_map<T, D>(&k_map, k, bh, tk, kWgBlockK)) ||
-      (err = mxt_sm90::make_map<T, D>(&v_map, v, bh, tk, kWgBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&k_map, k, bh, tk, L::kBlockK)) ||
+      (err = mxt_sm90::make_map<T, D>(&v_map, v, bh, tk, L::kBlockK)) ||
       (err = mxt_sm90::make_map<T, D>(&do_map, dout, bh, tq, kWgBlockQ)))
     return err;
-  const dim3 grid(bh, (tk + kWgBlockK - 1) / kWgBlockK);
+  const dim3 grid(bh, (tk + L::kBlockK - 1) / L::kBlockK);
   fa_bwd_dkv_wgmma_kernel<T, D><<<grid, kWgThreads, L::kSmem, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk),
@@ -1130,6 +1171,9 @@ cudaError_t launch_dq_wgmma_d(const void* q, const void* k, const void* v,
     case 128:
       return launch_dq_wgmma<T, 128>(q, k, v, o, dout, lse, delta, dq, bh,
                                      tq, tk, causal, scale, stream);
+    case 256:
+      return launch_dq_wgmma<T, 256>(q, k, v, o, dout, lse, delta, dq, bh,
+                                     tq, tk, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1153,6 +1197,9 @@ cudaError_t launch_dkv_wgmma_d(const void* q, const void* k, const void* v,
                                      tq, tk, causal, scale, stream);
     case 128:
       return launch_dkv_wgmma<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      tq, tk, causal, scale, stream);
+    case 256:
+      return launch_dkv_wgmma<T, 256>(q, k, v, dout, lse, delta, dk, dv, bh,
                                       tq, tk, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -1205,6 +1252,9 @@ extern "C" int mxt_flash_attention_bwd_dq_fma(
     case 128:
       return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
                             causal, scale, s);
+    case 256:
+      return launch_dq<256>(q, k, v, o, dout, lse, delta, dq, bh, tq, tk,
+                            causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1246,6 +1296,9 @@ extern "C" int mxt_flash_attention_bwd_dkv_fma(
                              causal, scale, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+                             causal, scale, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
                              causal, scale, s);
     default:
       return cudaErrorInvalidValue;

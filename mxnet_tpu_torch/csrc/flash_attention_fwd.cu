@@ -11,7 +11,9 @@
 //   (natural log: the backward kernels compute exp(S * scale - lse)).
 //   A row that sees no key gets O = 0 and lse = -inf.
 // Inputs: q (B, H, Tq, D), k and v (B, H, Tk, D), contiguous, one dtype;
-// D in {16, 32, 64, 128}; any Tq and Tk (ragged tails are masked here).
+// D in {16, 32, 64, 128, 256}; any Tq and Tk (ragged tails are masked here).
+// The TPU kernel takes any D as the whole block width; the wrappers
+// (ops/flash_attention.py) zero-pad a D between these up to the next one.
 // The 128-multiple gate, the 512-row blocks and the (..., block_q, 1) lse
 // layout of the TPU kernel are Mosaic constraints and are not carried over.
 // Heavy (late, causal) q tiles are scheduled first in both designs.
@@ -35,11 +37,14 @@
 //   query rows share each K/V tile (256 threads, 160 KB of shared memory: Q
 //   32 KB, two stages of K and V 64 KB each; one block an SM); at D <= 64 one
 //   warpgroup (64 rows), so that several blocks share an SM. K/V tiles hold
-//   128 keys, or 64 at D <= 64 where Tk <= 128 (launch_wgmma_d). Thread 0 is
-//   the producer: it issues every TMA load, Q and the first two K/V tiles at
-//   the start, then each later tile into the stage the last tile leaves, once
-//   every warp has arrived on that stage's empty barrier; each stage has a
-//   full barrier for K and one for V, so S = Q K^T starts while V lands. (A
+//   128 keys, or 64 at D <= 64 where Tk <= 128 (launch_wgmma_d). At D = 256
+//   two warpgroups again, on 64-key tiles (192 KB: Q 64 KB, two stages of K
+//   and V 32 KB each; 128-key tiles would need 320 KB), O += P V on wgmma
+//   m64n256k16, and the O accumulator takes 128 registers a thread. Thread 0
+//   is the producer: it issues every TMA load, Q and the first two K/V tiles
+//   at the start, then each later tile into the stage the last tile leaves,
+//   once every warp has arrived on that stage's empty barrier; each stage has
+//   a full barrier for K and one for V, so S = Q K^T starts while V lands. (A
 //   dedicated producer warpgroup with setmaxnreg measured the same here, and
 //   much slower in dK/dV: flash_attention_bwd.cu.) The tensor maps are 3-D
 //   (D, T, B*H), so a ragged tail reads zeros and never the next head's rows;
@@ -67,8 +72,9 @@
 //   64-row q tile); Q, the current K (then V) tile and the 64x64 score
 //   tile live in shared memory as f32 (82 KB at D = 128); each thread
 //   keeps a 4 x (D/16) slice of the output accumulator in registers, and
-//   one warp per 8 rows keeps the running max and sum.  Scalar shared
-//   memory reads and synchronous tile loads.
+//   one warp per 8 rows keeps the running max and sum (149 KB of shared
+//   memory at D = 256).  Scalar shared memory reads and synchronous tile
+//   loads.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -87,7 +93,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The plan of the wgmma design at head dim D with K/V tiles of BK keys.
-// D = 128: two warpgroups (128 q rows) share each K/V tile, one block an
+// D >= 128: two warpgroups (128 q rows) share each K/V tile, one block an
 // SM.  D <= 64: one warpgroup (64 q rows), so that several blocks share an
 // SM and one block's loads and stores overlap another's products.  Shared
 // memory: the Q tile, then kWgStages (K tile, V tile) pairs, each tile
@@ -95,7 +101,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // of slack to align the start.
 template <int D, int BK>
 struct FwdTiles {
-  static constexpr int kGroups = D == 128 ? 2 : 1;
+  static constexpr int kGroups = D >= 128 ? 2 : 1;
   static constexpr int kBlockK = BK;
   static constexpr int kThreads = 128 * kGroups;
   static constexpr int kBlockQ = 64 * kGroups;
@@ -356,7 +362,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // T = 128): two tiles, so that the second one's load overlaps the first
 // one's products in a block that sees only them (0.0251 against 0.0264 ms
 // at B64 H12 T128 D64 on an H100; at T = 2048 the 64-key tiles measured
-// 30% slower)
+// 30% slower); at D = 256 tiles of 64 keys, the most that two stages of
+// K and V fit beside a 128-row Q tile
 template <typename T>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
                            void* o, void* lse, int bh, int tq, int tk, int d,
@@ -381,6 +388,9 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v,
     case 128:
       return launch_wgmma<T, 128, 128>(q, k, v, o, lse, bh, tq, tk, causal,
                                        scale, stream);
+    case 256:
+      return launch_wgmma<T, 256, 64>(q, k, v, o, lse, bh, tq, tk, causal,
+                                      scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -629,6 +639,8 @@ extern "C" int mxt_flash_attention_fwd_fma(const void* q, const void* k,
       return launch_fma<64>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     case 128:
       return launch_fma<128>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
+    case 256:
+      return launch_fma<256>(q, k, v, o, lse, bh, tq, tk, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

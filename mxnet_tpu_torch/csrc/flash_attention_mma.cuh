@@ -7,26 +7,18 @@
 // _fa_bwd_dkv_kernel) for bf16 and f16 inputs, the fused product the one of
 // tools/pallas_conv_probe.py (fused_matmul_affine_relu) for bf16 and f16;
 // their source notes give the bounds.  All of them run on wgmma
-// (flash_attention_sm90.cuh): the flash kernels take from here the packing,
-// acc_to_a, the quad reductions and f16_row_scale; the fused product's
-// element-wise instance (for operands a TMA tensor map cannot describe)
-// also takes ldmatrix and mma.sync.  What this header holds, each an
-// inline PTX wrapper or a plain device function (sm_80-era instructions,
-// valid for sm_90a, no CUTLASS):
-//   - ldmatrix.x4 (four 8x8 b16 matrices) and its .trans form;
-//   - mma.sync m16n8k16 with bf16 or f16 operands and f32 accumulators;
-//   - packing two f32 values into one bf16x2 / half2 register;
+// (flash_attention_sm90.cuh), whose accumulators hold mma.m16n8k16's C
+// fragment per n8 tile and whose A operand from registers takes its A
+// fragment.  What this header holds, each a plain device function:
+//   - packing two f32 values into one bf16x2 / half2 register, and the A
+//     fragment of a k16 step from two n8 tiles' accumulators;
 //   - quad reductions: on an m16n8 accumulator a row lives on the four
 //     lanes of a quad, so its max and sum are two xor shuffles;
-//   - tiles in shared memory with rows padded by 16 bytes: an unpadded row
-//     of 2*D bytes puts the eight row addresses of an ldmatrix on one bank
-//     group (8-way conflicts); D + 8 elements a row spreads them over all
-//     32 banks for D in {16, 32, 64, 128}.
+//   - f16_row_scale, which keeps f16 operands' relative precision.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, c = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2c..2c+1), a1 = (g+8, 2c..),
 //                           a2 = (g, 2c+8..), a3 = (g+8, 2c+8..);
-//   B (16 x 8, "col"):      b0 = (k 2c..2c+1, n g), b1 = (k 2c+8.., n g);
 //   C (16 x 8, f32):        c0, c1 = (g, 2c..2c+1), c2, c3 = (g+8, 2c..).
 // So the accumulators of two adjacent n8 tiles, rounded and packed, are the
 // A fragment of one k16 step: a probability tile computed by one product
@@ -40,69 +32,6 @@
 #include <string.h>
 
 namespace mxt_mma {
-
-constexpr int kPad = 8;  // elements of padding a shared-memory row (16 bytes)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and register i of lane l holds row l / 4, columns 2(l % 4)..+1 of it.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// The same with each matrix transposed: register i of lane l holds rows
-// 2(l % 4)..+1 of column l / 4.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Address a lane gives ldmatrix_x4 for the A fragment of the 16x16 tile at
-// (row0, col0) of a row-major tile with row stride LD; with
-// ldmatrix_x4_trans on a row-major (k, n) tile the same address gives the B
-// fragments of n8 tiles col0 (registers 0, 1) and col0 + 8 (2, 3).
-template <int LD, typename T>
-__device__ __forceinline__ const T* frag_a(const T* tile, int row0, int col0,
-                                           int lane) {
-  return tile + (row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8;
-}
-
-// c += a * b on the tensor cores: 16x16 by 16x8, f32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma_16816(float (&c)[4],
-                                          const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1);
-
-template <>
-__device__ __forceinline__ void mma_16816<__nv_bfloat16>(
-    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <>
-__device__ __forceinline__ void mma_16816<__half>(float (&c)[4],
-                                                  const uint32_t (&a)[4],
-                                                  uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // (lo, hi) rounded to the nearest T, lo in the low 16 bits
 template <typename T>

@@ -6,18 +6,24 @@ Counterpart of ``mxnet_tpu/ops/attention.py`` (reference
 ``src/operator/contrib/transformer.cc``).  Layout is (B, T, N, H):
 batch, sequence, heads, head dim.
 
-Routes of ``sdpa_raw``:
+Routes of ``sdpa_raw``, by the reference's own rule (its
+``sdpa_raw``): the route depends on the shapes, the mask and ``causal``
+only, never on the device.
 
-- unmasked with as many key/value heads as query heads: the flash
-  kernels through ``flash_attention_raw`` (``ops/flash_attention.py``):
-  q, k and v are transposed to (B, N, T, H) and made contiguous first.
-  On a CUDA tensor that launches the hand-written kernels (any Tq, Tk;
-  causal is bottom-right), on a CPU tensor their plain versions.  The
-  reference takes its Pallas kernel here only on a TPU and at 128-aligned
-  lengths, and ``jax.nn.dot_product_attention`` otherwise; both compute
-  softmax(QKᵀ·scale)V.
-- masked, or fewer key/value heads than query heads (grouped-query
-  attention): the plain PyTorch route ``_sdpa_plain``, written as
+- unmasked, as many key/value heads as query heads, Tq = Tk or not
+  causal, and H <= 256: the flash kernels through
+  ``flash_attention_raw`` (``ops/flash_attention.py``): q, k and v are
+  transposed to (B, N, T, H) and made contiguous first.  On a CUDA
+  tensor that launches the hand-written kernels, on a CPU tensor their
+  plain versions.  The reference's kernel asks Tq = Tk in every case,
+  and a TPU and 128-aligned lengths besides; without ``causal`` the
+  kernel and jax.nn compute the same function at any Tq, Tk, so those
+  conditions only choose an implementation, and the port drops them.
+- anything else: the plain PyTorch route ``_sdpa_plain``, as the
+  reference's ``jax.nn.dot_product_attention``: a mask, grouped-query
+  heads, D > 256, and causal attention with Tq != Tk, where the flash
+  kernels' causal mask (bottom-right, the reference kernel's) and
+  jax.nn's (top-left) differ.  It is written as
   ``jax.nn.dot_product_attention``'s XLA path: f32 scores, a masked
   score replaced by the large finite negative -0.7·max(f32) (so a row
   whose keys are all masked attends evenly and returns the mean of V,
@@ -69,12 +75,19 @@ def _sdpa_plain(q, k, v, m, scale, causal):
     return torch.einsum("bnts,bsnh->btnh", probs, v)
 
 
+def _flash_route(q, k, m, causal):
+    """Whether ``sdpa_raw`` takes the flash kernels (module docstring):
+    the reference's conditions that decide a result."""
+    return m is None and k.shape[2] == q.shape[2] and \
+        (q.shape[1] == k.shape[1] or not causal) and q.shape[-1] <= 256
+
+
 def sdpa_raw(q, k, v, m=None, scale=None, causal=False):
-    """Attention over raw (B, T, N, H) tensors: the flash kernels when
-    unmasked with equal heads, else the plain route (module docstring).
-    Returns (B, Tq, N, H) in q's dtype."""
+    """Attention over raw (B, T, N, H) tensors: the flash kernels where
+    the reference takes its kernel, else the plain route (module
+    docstring).  Returns (B, Tq, N, H) in q's dtype."""
     s = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if m is None and k.shape[2] == q.shape[2]:
+    if _flash_route(q, k, m, causal):
         out = flash_attention_raw(q.transpose(1, 2).contiguous(),
                                   k.transpose(1, 2).contiguous(),
                                   v.transpose(1, 2).contiguous(), causal, s)

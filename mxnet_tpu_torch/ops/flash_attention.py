@@ -6,7 +6,7 @@ runs its Pallas kernels (``_fa_kernel`` forward; ``_fa_bwd_dq_kernel`` and
 ``_fa_bwd_dkv_kernel`` backward) when Tq = Tk and T is a multiple of 128,
 and chunked jnp scans otherwise.  Here every CUDA tensor goes to the
 kernels, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
-(any Tq, Tk; instances at D = 16/32/64/128), and only a CPU tensor takes
+(any Tq, Tk; instances at D = 16/32/64/128/256), and only a CPU tensor takes
 the plain PyTorch versions ``_fa_forward_plain`` and
 ``_fa_backward_plain``.  There is no fallback from one to the other and
 no switch between them.  The forward's two are the CUDA and CPU
@@ -16,13 +16,14 @@ tracing), so the dispatcher chooses by device and an exported program
 holds the op as a node; the backward kernels stay ``ctypes`` launches
 (training is not exported).
 
-Any head dim up to 128 runs: the wrappers zero-pad D up to the next
-instance (``_padded_head_dim``) on every device and slice O, dQ, dK and
-dV back.  That is exact, because the scale is passed explicitly (from
-the unpadded D): zero columns add nothing to S = Q·Kᵀ, to δ =
-rowsum(dO·O) or to any gradient, and the padded columns of O, dQ, dK
-and dV are zero.  D > 128 has no instance on the card (ROADMAP Queue 2,
-"D = 256 instance") and raises there; the plain versions take any D.
+Any head dim up to 256 runs: the wrappers zero-pad D up to the next
+instance (``_padded_head_dim``; 129–255 to 256) on every device and
+slice O, dQ, dK and dV back.  That is exact, because the scale is passed
+explicitly (from the unpadded D): zero columns add nothing to S = Q·Kᵀ,
+to δ = rowsum(dO·O) or to any gradient, and the padded columns of O,
+dQ, dK and dV are zero.  D > 256 has no instance on the card (ROADMAP
+Queue 2, "D > 256 instance") and raises there; the plain versions take
+any D.
 
 Each of the three kernels has two designs, chosen here by dtype
 (``_design``): bf16 and f16 run on the tensor cores (``"mma"``: Hopper's
@@ -51,7 +52,7 @@ from ..parallel.local import any_dtensor, as_global, is_dtensor, \
     sharded_call
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _causal_keep(tq, tk, k0, k1, device):
@@ -168,7 +169,7 @@ def _fa_bwd_dq_plain(q, k, v, o, do, lse, causal, scale, round_p=False):
 
 def _padded_head_dim(d):
     """The kernel instance a head dim ``d`` runs at: the smallest of
-    ``_HEAD_DIMS`` that is at least ``d``, or ``d`` itself above 128
+    ``_HEAD_DIMS`` that is at least ``d``, or ``d`` itself above 256
     (which the kernels refuse; the plain versions take it)."""
     return next((h for h in _HEAD_DIMS if h >= d), d)
 
@@ -201,8 +202,8 @@ def _check_kernel_operands(q, k, v):
     if q.shape[3] not in _HEAD_DIMS:
         raise MXNetError(
             f"flash_attention: head dim {q.shape[3]} has no kernel instance "
-            f"(the wrappers pad D up to {_HEAD_DIMS}; D > 128 is ROADMAP.md "
-            "Queue 2, \"D = 256 instance\")")
+            f"(the wrappers pad D up to {_HEAD_DIMS}; D > 256 is ROADMAP.md "
+            "Queue 2, \"D > 256 instance\")")
     if not (q.is_contiguous() and k.is_contiguous() and
             v.is_contiguous()):
         raise MXNetError("flash_attention: q, k and v must be contiguous")
@@ -412,26 +413,32 @@ def _launch_bwd(symbol, q, k, v, like_q, rows, causal, scale, outs):
 def flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale):
     """The dQ kernel of the dtype's design on CUDA tensors → (dq in q's
     dtype, δ = rowsum(dO·O) f32 (B, H, Tq)): the kernel computes δ from O
-    and dO for the dK/dV kernel; ``.launches`` counts its launches."""
+    and dO for the dK/dV kernel; ``.launches`` counts its launches.  D is
+    zero-padded to its instance first and dq sliced back."""
+    d0 = q.shape[-1]
+    q, k, v, o, do = _pad_head(q, k, v, o, do)
     design = _design(q.dtype)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch_bwd(f"mxt_flash_attention_bwd_dq_{design}", q, k, v, (o, do),
                 (lse,), causal, scale, (delta, dq))
     _count(flash_attention_bwd_dq, design)
-    return dq, delta
+    return dq[..., :d0], delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     """The dK/dV kernel of the dtype's design on CUDA tensors (δ from the
     dQ kernel) → (dk, dv) in k's and v's dtype; ``.launches`` counts its
-    launches."""
+    launches.  D is zero-padded to its instance first and dk, dv sliced
+    back."""
+    d0 = q.shape[-1]
+    q, k, v, do = _pad_head(q, k, v, do)
     design = _design(q.dtype)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(f"mxt_flash_attention_bwd_dkv_{design}", q, k, v, (do,),
                 (lse, delta), causal, scale, (dk, dv))
     _count(flash_attention_bwd_dkv, design)
-    return dk, dv
+    return dk[..., :d0], dv[..., :d0]
 
 
 flash_attention_bwd_dq.launches = 0

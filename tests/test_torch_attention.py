@@ -86,6 +86,10 @@ CASES = {
     "masked": (2, 8, 8, 2, 2, 16, False, True),
     "masked_causal": (2, 8, 8, 2, 2, 16, True, True),
     "gqa": (2, 8, 8, 4, 2, 16, False, False),
+    # the reference's jax.nn route: causal at Tq != Tk (top-left), and a
+    # head dim above its kernel's 256
+    "causal_cross": (1, 4, 6, 2, 2, 16, True, False),
+    "wide_head": (1, 8, 8, 2, 2, 320, True, False),
 }
 
 
@@ -133,8 +137,10 @@ def test_float_mask_reads_nonzero_as_attend():
 
 
 def test_unmasked_route_is_the_flash_function(monkeypatch):
-    """Unmasked, equal heads: ``flash_attention_raw`` on (B, N, T, H)
-    contiguous tensors; masked or grouped: never."""
+    """Unmasked, equal heads, Tq = Tk or not causal, H <= 256:
+    ``flash_attention_raw`` on (B, N, T, H) contiguous tensors; masked,
+    grouped, causal at Tq != Tk or H > 256: never (the reference's
+    rule)."""
     seen = []
 
     def spy(q, k, v, causal=False, scale=None):
@@ -148,6 +154,34 @@ def test_unmasked_route_is_the_flash_function(monkeypatch):
     tatt.sdpa_raw(q, q, q, torch.ones(2, 1, 7, 7, dtype=torch.bool))
     tatt.sdpa_raw(q, q[:, :, :1], q[:, :, :1])
     assert len(seen) == 1
+    kv = torch.from_numpy(_rand((2, 9, 3, 16), 2))
+    tatt.sdpa_raw(q, kv, kv, causal=True)  # top-left in the reference
+    assert len(seen) == 1
+    tatt.sdpa_raw(q, kv, kv)  # no mask to align: the same function
+    assert seen[1] == ((2, 3, 7, 16), True, False)
+    wide = torch.from_numpy(_rand((1, 4, 2, 320), 3))
+    tatt.sdpa_raw(wide, wide, wide, causal=True)
+    assert len(seen) == 2
+    tatt.sdpa_raw(wide[..., :256], wide[..., :256], wide[..., :256])
+    assert seen[2] == ((1, 2, 4, 256), True, False)
+
+
+# Where the port's route differed from the reference's before (causal at
+# Tq != Tk: the flash kernels' bottom-right mask against jax.nn's top-left
+# one, 2.07 apart; H > 256): the forward within 1e-5 of ``jatt.sdpa_raw``
+# (f32 on both sides, scores of magnitude about 4, other summation orders).
+@pytest.mark.parametrize("tq,tk,h", [(4, 6, 16), (6, 4, 16), (8, 8, 320),
+                                     (4, 6, 320)])
+def test_sdpa_raw_causal_matches_the_reference(tq, tk, h):
+    b, n = 1, 2
+    q, k, v = _rand((b, tq, n, h), 61), _rand((b, tk, n, h), 62), \
+        _rand((b, tk, n, h), 63)
+    ref = np.asarray(jatt.sdpa_raw(*(jmx.nd.array(a)._data
+                                     for a in (q, k, v)), causal=True))
+    got = tatt.sdpa_raw(*(torch.from_numpy(a) for a in (q, k, v)),
+                        causal=True)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
 
 
 @pytest.fixture

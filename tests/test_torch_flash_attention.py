@@ -452,8 +452,9 @@ def test_wrapper_launches_the_design_of_its_dtype(monkeypatch):
 
 def test_wrappers_pad_head_dims_to_the_next_instance(monkeypatch):
     """D = 24 reaches the kernels as D = 32 (zero-padded, forward and both
-    backward kernels) and comes back as D = 24; the instance dims pass
-    through, and above 128 there is no instance to pad to.  Driven with
+    backward kernels) and comes back as D = 24, and 129–255 as 256; the
+    instance dims pass through, and above 256 there is no instance to pad
+    to.  Driven with
     meta tensors and a stand-in library that records each entry point's
     arguments."""
     seen = []
@@ -479,9 +480,10 @@ def test_wrappers_pad_head_dims_to_the_next_instance(monkeypatch):
         for key in [a for a in vars(fn) if a.startswith("launches")]:
             monkeypatch.setattr(fn, key, 0)  # restored after the test
     assert [tfa._padded_head_dim(d) for d in (8, 16, 24, 48, 80, 96, 128,
-                                               200)] == \
-        [16, 16, 32, 64, 128, 128, 128, 200]
-    for d, instance in [(24, 32), (48, 64), (96, 128), (64, 64)]:
+                                               200, 192, 256, 320)] == \
+        [16, 16, 32, 64, 128, 128, 128, 256, 256, 256, 320]
+    for d, instance in [(24, 32), (48, 64), (96, 128), (64, 64), (192, 256),
+                        (256, 256)]:
         seen.clear()
         q = torch.empty(1, 2, 8, d, device="meta", dtype=torch.bfloat16)
         lse = torch.empty(1, 2, 8, device="meta")
@@ -510,6 +512,31 @@ def test_padded_plain_route_equals_the_unpadded_plain_version():
     torch.testing.assert_close(lse, lse_ref, rtol=1e-6, atol=1e-6)
     got = tfa.flash_attention_bwd(q, k, v, o, do, lse, True, 0.3)
     ref = tfa._fa_backward_plain(q, k, v, o_ref, do, lse_ref, True, 0.3)
+    for g, r, t in zip(got, ref, (q, k, v)):
+        assert g.shape == r.shape == t.shape
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+
+
+# The direct op (``flash_attention_fwd`` and ``flash_attention_bwd``, the
+# wrappers the card route goes through) at head dims above 128: D = 192
+# reaches the kernels' instance padded to 256, D = 256 as it is.  On the
+# CPU the padded tensors go to the plain versions: O, lse and the
+# gradients equal the plain versions at the unpadded D within 1e-6 /
+# 1e-5 (zero columns add exact zeros; the summation order over D differs
+# only by those zeros).
+@pytest.mark.parametrize("d", [192, 256])
+def test_direct_op_above_128_matches_the_plain_versions(d):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(43, 1, 2, 70, 90, d))
+    do = torch.from_numpy(np.random.RandomState(44).normal(
+        size=q.shape).astype(np.float32))
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, True, scale)
+    o_ref, lse_ref = tfa._fa_forward_plain(q, k, v, True, scale)
+    assert o.shape == q.shape and tfa._padded_head_dim(d) == 256
+    torch.testing.assert_close(o, o_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-6, atol=1e-6)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, True, scale)
+    ref = tfa._fa_backward_plain(q, k, v, o_ref, do, lse_ref, True, scale)
     for g, r, t in zip(got, ref, (q, k, v)):
         assert g.shape == r.shape == t.shape
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)

@@ -104,10 +104,11 @@ def test_kernel_matches_plain_on_card(cuda_nvcc, dtype, tol, row_tol,
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_nvcc):
-    # D = 48 runs padded to 64 (test_padded_head_dims_match_plain_on_card);
-    # above 128 there is no instance
-    q = torch.zeros(1, 1, 8, 200, device=cuda_nvcc)
-    with pytest.raises(MXNetError, match="head dim"):
+    # D = 48 runs padded to 64 (test_padded_head_dims_match_plain_on_card)
+    # and D = 200 padded to 256 (test_d256_kernels_match_plain_on_card);
+    # above 256 there is no instance, and the error names its ROADMAP item
+    q = torch.zeros(1, 1, 8, 320, device=cuda_nvcc)
+    with pytest.raises(MXNetError, match="D > 256 instance"):
         tfa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 1, 16, 8, device=cuda_nvcc).transpose(2, 3)
     with pytest.raises(MXNetError, match="contiguous"):
@@ -284,7 +285,7 @@ def test_padded_head_dims_match_plain_on_card(cuda_nvcc, dtype, tol,
 
 @pytest.mark.cuda
 def test_backward_rejects_what_it_does_not_take(cuda_nvcc):
-    q = torch.zeros(1, 1, 8, 200, device=cuda_nvcc)
+    q = torch.zeros(1, 1, 8, 320, device=cuda_nvcc)
     lse = torch.zeros(1, 1, 8, device=cuda_nvcc)
     with pytest.raises(MXNetError, match="head dim"):
         tfa.flash_attention_bwd(q, q, q, q, q, lse)
@@ -294,6 +295,124 @@ def test_backward_rejects_what_it_does_not_take(cuda_nvcc):
                                 .transpose(2, 3), lse)
     with pytest.raises(MXNetError, match="lse"):
         tfa.flash_attention_bwd(q, q, q, q, q, lse.double())
+
+
+# Head dims 129-256: the D = 256 instances of #1-#3 (D = 192 padded to
+# them), every design, against the plain versions on the unpadded f32
+# copies at scale 1/sqrt(D), with the tolerances of the instance dims
+# above (O: test_kernel_matches_plain_on_card's; gradients:
+# test_backward_kernels_match_plain_on_card's); δ row by row within
+# (D - 1)·2^-24 of its row's sum of |dO·O| (_assert_delta_rows).
+_D256_TOLS = [
+    (torch.float32, 1e-4, 1e-4, 1e-5, 1e-4, 1e-5),
+    (torch.bfloat16, 2e-2, 2 * 2.0 ** -8, 2 * 2.0 ** -8, 1e-2, 5e-3),
+    (torch.float16, 2e-2, 2 * 2.0 ** -11, 2 * 2.0 ** -11, 2e-3, 1e-3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,row_tol,norm_tol,g_row_tol,g_norm_tol",
+                         _D256_TOLS)
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("causal,tq,tk", [(True, 300, 300),
+                                          (False, 200, 200),
+                                          (True, 100, 300),
+                                          (True, 300, 100)])
+def test_d256_kernels_match_plain_on_card(cuda_nvcc, dtype, tol, row_tol,
+                                          norm_tol, g_row_tol, g_norm_tol, d,
+                                          causal, tq, tk):
+    scale = d ** -0.5
+    mma = int(tfa._design(dtype) == "mma")
+    fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+           tfa.flash_attention_bwd_dkv)
+    before = [(fn.launches, fn.launches_mma) for fn in fns]
+    q, k, v = (torch.from_numpy(a).to(cuda_nvcc, dtype)
+               for a in _qkv(9, 2, 3, tq, tk, d))
+    do = torch.from_numpy(np.random.RandomState(10).normal(
+        size=(2, 3, tq, d)).astype(np.float32)).to(cuda_nvcc, dtype)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    got = tfa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    _, delta = tfa.flash_attention_bwd_dq(q, k, v, o, do, lse, causal, scale)
+    torch.cuda.synchronize()
+    # dQ twice: in the backward, then alone for its δ
+    assert [(fn.launches - n, fn.launches_mma - n_mma)
+            for fn, (n, n_mma) in zip(fns, before)] == \
+        [(c, c * mma) for c in (1, 2, 1)]
+    o_ref, lse_ref = tfa._fa_forward_plain(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    assert o.shape == q.shape and o.dtype == dtype
+    assert (o.float() - o_ref).abs().max().item() <= tol
+    _assert_rows_close(o, o_ref, row_tol, norm_tol)
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse - lse_ref)[fin].abs().max().item() <= 1e-3
+    _assert_delta_rows(delta, o, do, tol=max(1e-5, (d - 1) * 2.0 ** -24))
+    ref = tfa._fa_backward_plain(q.float(), k.float(), v.float(), o.float(),
+                                 do.float(), lse, causal, scale)
+    zero_rows = (_dq_zero_row(causal, tq, tk), None, None)
+    for g, r, zero_row in zip(got, ref, zero_rows):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert bool(torch.isfinite(g).all())
+        _assert_rows_close(g, r, g_row_tol, g_norm_tol, zero_row)
+    if causal and tq > tk:  # rows that see no key: O and dq exactly 0
+        assert bool((o[:, :, :tq - tk] == 0).all())
+        assert bool((got[0][:, :, :tq - tk] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_d256_backward_is_deterministic(cuda_nvcc, dtype):
+    """At D = 256 each output value still has one owner (dK/dV: each
+    warpgroup of a 64-key block owns half of D's columns; no atomics):
+    dq, dk and dv are the same bits in two runs."""
+    _, first = _backward_case(cuda_nvcc, dtype, 1, 4, 300, 300, 256, True)
+    _, second = _backward_case(cuda_nvcc, dtype, 1, 4, 300, 300, 256, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sdpa_raw_routes_on_card(cuda_nvcc):
+    """``sdpa_raw``'s three routes on the card, by the reference's rule:
+    D = 256 unmasked runs #1-#3 (one launch each through a backward);
+    causal at Tq != Tk and D = 320 take the plain route (jax.nn's top-left
+    causal mask) and launch nothing; ``flash_attention_raw`` at D = 320
+    raises naming its ROADMAP item."""
+    from mxnet_tpu_torch.ops import attention as tatt
+
+    fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+           tfa.flash_attention_bwd_dkv)
+    g = torch.Generator(device=cuda_nvcc)
+    g.manual_seed(5)
+
+    def rnd(t, h, grad=False):
+        x = torch.randn(1, t, 2, h, generator=g, device=cuda_nvcc,
+                        dtype=torch.bfloat16)
+        return x.requires_grad_() if grad else x
+
+    q, k, v = (rnd(256, 256, True) for _ in range(3))
+    before = [fn.launches_mma for fn in fns]
+    out = tatt.sdpa_raw(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), rnd(256, 256))
+    torch.cuda.synchronize()
+    assert [fn.launches_mma - n for fn, n in zip(fns, before)] == [1] * 3
+    ref = tatt._sdpa_plain(q.detach().float(), k.detach().float(),
+                           v.detach().float(), None, 256 ** -0.5, True)
+    _assert_rows_close(out.detach(), ref, 2 * 2.0 ** -8, 2 * 2.0 ** -8)
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    before = [fn.launches for fn in fns]
+    for tq, tk, h in ((4, 6, 16), (6, 4, 16), (8, 8, 320), (4, 6, 320)):
+        q, k, v = rnd(tq, h), rnd(tk, h), rnd(tk, h)
+        got = tatt.sdpa_raw(q, k, v, causal=True)
+        want = tatt._sdpa_plain(q, k, v, None, float(1.0 / np.sqrt(h)),
+                                True)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == before
+    wide = rnd(8, 320).transpose(1, 2).contiguous()
+    with pytest.raises(MXNetError, match="D > 256 instance"):
+        tfa.flash_attention_raw(wide, wide, wide, True)
 
 
 # Every bf16/f16 instance of chip_smoke.py's KERNEL_SHAPES, BWD_SHAPES and
@@ -311,7 +430,11 @@ _SMOKE_SHAPES = [
     (2, 4, 333, 333, 32, True, torch.float16),
     (2, 8, 512, 512, 64, False, torch.float16),
     (1, 8, 300, 700, 128, True, torch.bfloat16),
-    (1, 8, 700, 300, 128, True, torch.bfloat16)]
+    (1, 8, 700, 300, 128, True, torch.bfloat16),
+    # D = 256: Gemma-2B's attention (phase 9b), and 192 padded to 256
+    (1, 8, 2048, 2048, 256, True, torch.bfloat16),
+    (1, 8, 2048, 2048, 256, True, torch.float16),
+    (2, 8, 1000, 1000, 192, True, torch.bfloat16)]
 # chip_smoke.py's tolerances: O within 2e-2, 2u of each row and 2u in norm
 # (u = 2^-8 / 2^-11), lse within 1e-3; gradients within 1e-2 / 2e-3 of
 # each row and 5e-3 / 1e-3 in norm (bf16 / f16)
@@ -1772,21 +1895,24 @@ def test_fused_kernel_pads_what_tma_cannot_describe(cuda_nvcc, m, k, n):
 @pytest.mark.cuda
 def test_new_kernel_instances_report_no_spill_and_no_serialized_wgmma(
         cuda_nvcc, tmp_path):
-    """ptxas (``-Xptxas -v``) over the dQ and #4 sources: every wgmma
-    instance (dQ and #4, bf16 and f16, each D and tile width) spills
+    """ptxas (``-Xptxas -v``) over the flash and #4 sources: every wgmma
+    instance of dQ and #4 (bf16 and f16, each D and tile width) and every
+    D = 256 instance of #1-#3 (wgmma in bf16 and f16, FMA in f32) spills
     nothing, and no wgmma is serialized (warning C7512)."""
+    import re
     import subprocess
 
     from mxnet_tpu_torch import _kernels
 
     procs = {}
-    for name in ("flash_attention_bwd", "fused_matmul_affine_relu"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "fused_matmul_affine_relu"):
         cmd = [_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                str(tmp_path / f"lib{name}.so"),
                str(_kernels._PKG / _kernels.SOURCES[name])]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    seen = 0
+    seen = {"dq": 0, "fused": 0, "d256": 0}
     for name, proc in procs.items():
         log = proc.communicate(timeout=900)[0]
         assert proc.returncode == 0, log
@@ -1795,13 +1921,21 @@ def test_new_kernel_instances_report_no_spill_and_no_serialized_wgmma(
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            elif "spill" in line and entry and (
-                    "fa_bwd_dq_wgmma_kernel" in entry or
-                    "fused_mm_affine_relu_wgmma_kernel" in entry):
+                continue
+            if "spill" not in line or not entry:
+                continue
+            kinds = [k for k, hit in (
+                ("dq", "fa_bwd_dq_wgmma_kernel" in entry),
+                ("fused", "fused_mm_affine_relu_wgmma_kernel" in entry),
+                ("d256", re.search(r"Li256E", entry))) if hit]
+            if kinds:
                 assert "0 bytes spill stores, 0 bytes spill loads" in line, \
                     (entry, line)
-                seen += 1
-    assert seen == 8 + 4  # dQ: 2 dtypes x 4 D; #4: 2 dtypes x 2 widths
+            for k in kinds:
+                seen[k] += 1
+    # dQ: 2 dtypes x 5 D; #4: 2 dtypes x 2 widths; D = 256: #1-#3 each 2
+    # wgmma dtypes and the f32 FMA design
+    assert seen == {"dq": 10, "fused": 4, "d256": 9}
 
 
 @pytest.mark.cuda
